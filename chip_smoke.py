@@ -10,7 +10,7 @@ carried on):
 1. device — print the card's name and power limit (``nvidia-smi``);
 2. build — compile every CUDA kernel from ``distllm_tpu_torch/csrc/``
    with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all at once);
-3. kernel — hold the ragged paged-attention kernel against its plain
+3. kernel K1 — hold the ragged paged-attention kernel against its plain
    PyTorch version in bf16 at Mistral-7B geometry (32/8 heads, head dim
    128, block size 16): (a) 32 decode rows with ragged contexts 1..4096,
    (b) 4 prefill rows with spans up to 512 over existing prefixes and
@@ -18,14 +18,32 @@ carried on):
    shapes the serving phase gives it; time kernel, plain version and
    ``scaled_dot_product_attention`` on the same gathered KV (a yardstick
    the port never calls);
-4. serve — full-width Mistral-7B in bf16 with random weights made on the
+4. kernel K3 — hold the encoder-attention kernel against its plain
+   version at BERT-base geometry (12 heads x 64): the embed path's shapes
+   (batch 512, S = 128 / 192 / 288) in bf16, partial key masks with fully
+   masked rows, S = 16 and an odd S, the ``[S, S]`` window bias, and fp32;
+   time kernel, plain version and ``scaled_dot_product_attention`` with a
+   key mask on pre-transposed ``[B, N, S, Hd]`` inputs;
+5. serve — full-width Mistral-7B in bf16 with random weights made on the
    card: ``TorchGenerator.generate`` on 16 prompts of 16..1024 tokens
    (``max_num_seqs=8``; 64 new tokens each, 14 greedy + 2 sampled), then
    three chat completions through ``chat_server`` on a free localhost
-   port. The kernel's launch count must equal layers x forward passes and
-   the plain op must not run at all;
-5. identity — full width at depth 2 in fp32: greedy tokens from the engine
-   on the kernel equal those from the engine on the plain op.
+   port. K1's launch count must equal layers x forward passes and its
+   plain op must not run at all;
+6. identity — full width at depth 2 in fp32: greedy tokens from the engine
+   on K1 equal those from the engine on its plain op;
+7. embed — the stages of ``embedding_worker`` on the card: 2048 texts of
+   120..260 words written to a jsonl file, read by the ``jsonl`` dataset
+   (batch 512), a ``TorchEncoder`` over full-width, full-depth BERT-base
+   in bf16 (random weights made on the card from seed 0, the
+   ``WhitespaceTokenizer``), the ``mean`` pooler, the ``full_sequence``
+   embedder and the ``numpy`` writer; one warm-up pass, one timed pass.
+   The output must be ``[2048, 768]`` fp32, finite and read back from its
+   files; K3 must launch 12 x the batches dispatched and its plain
+   version never;
+8. embed identity — full width at depth 2 in fp32: pooled embeddings
+   through K3 and through its plain version agree elementwise within
+   ``1e-4 * |ref| + 1e-5``.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -34,13 +52,16 @@ the repository beside this file, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
@@ -55,6 +76,13 @@ PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 # ABS covers fp32 summation-order noise at outputs near zero.
 TOL_REL, TOL_ABS = 2.0 ** -7, 1e-5
 NUM_HEADS, NUM_KV_HEADS, HEAD_DIM, BLOCK_SIZE = 32, 8, 128, 16
+BERT_HEADS, BERT_HEAD_DIM = 12, 64
+EMBED_TEXTS, EMBED_BATCH = 2048, 512
+# fp32 pooled embeddings through K3 vs its plain version: the two differ
+# only in fp32 summation order inside attention (about 1e-6 relative);
+# two layers and the mean pool keep that far inside 1e-4 relative, and
+# 1e-5 absolute covers components near zero.
+EMBED_RTOL, EMBED_ATOL = 1e-4, 1e-5
 DEVICE = 'cuda'
 
 
@@ -257,6 +285,110 @@ def phase_kernel(torch, tpa):
 
 
 # --------------------------------------------------------------- phase 4
+def k3_case(torch, rng, b, s, lens, dtype, window=None):
+    """Random packed q/k/v ``[b, s, 12 * 64]``, a key mask of row lengths
+    ``lens`` (0 = a fully masked batch row) and, with ``window``, the
+    ``[s, s]`` sliding-window bias (0 inside, -1e9 outside)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(1 << 30)))
+    shape = (b, s, BERT_HEADS * BERT_HEAD_DIM)
+    q, k, v = (
+        torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3)
+    )
+    lens = torch.as_tensor(np.asarray(lens), device=DEVICE)
+    mask = (torch.arange(s, device=DEVICE)[None, :] < lens[:, None]).int()
+    bias = None
+    if window is not None:
+        pos = torch.arange(s, device=DEVICE)
+        dist = (pos[:, None] - pos[None, :]).abs()
+        bias = torch.where(dist <= window, 0.0, -1e9).float()
+    return dict(q=q, k=k, v=v, mask=mask, bias=bias)
+
+
+def run_k3_case(torch, tea, name, case, iters):
+    q, k, v, mask, bias = (case[key] for key in ('q', 'k', 'v', 'mask', 'bias'))
+    b, s, d = q.shape
+    args = (q, k, v, mask, BERT_HEADS)
+    out = tea.encoder_attention(*args, bias=bias)
+    ref = tea.encoder_attention_reference(*args, bias=bias)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        fail(f'K3 case {name}: non-finite output (fully masked rows included)')
+    tol = tea.comparison_tolerance(ref, *args, bias=bias)
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    err_over_tol = float((diff / tol).max())
+    del out, ref, tol, diff
+    kernel_ms = cuda_ms(torch, lambda: tea.encoder_attention(*args, bias=bias), iters)
+    plain_ms = cuda_ms(
+        torch, lambda: tea.encoder_attention_reference(*args, bias=bias),
+        max(2, iters // 5), warmup=1,
+    )
+    # The yardstick: one SDPA call on pre-transposed [B, N, S, Hd] inputs
+    # with the key mask (boolean), or the key mask plus the [S, S] bias
+    # (additive), as its attention mask.
+    heads = [
+        x.reshape(b, s, BERT_HEADS, BERT_HEAD_DIM).transpose(1, 2).contiguous()
+        for x in (q, k, v)
+    ]
+    keys = mask.bool()[:, None, None, :]
+    attn_mask = keys if bias is None else (
+        torch.where(keys, 0.0, -1e9).to(q.dtype) + bias.to(q.dtype)[None, None]
+    )
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(torch, lambda: sdpa(*heads, attn_mask=attn_mask), iters)
+    del heads, attn_mask
+    elt = q.element_size()
+    bytes_ = 4 * b * s * d * elt + mask.numel() * 4
+    if bias is not None:
+        bytes_ += bias.numel() * 4
+    flops = 4 * b * BERT_HEADS * s * s * BERT_HEAD_DIM
+    byte_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS[str(q.dtype).removeprefix('torch.')] * 1e3
+    result = dict(
+        case=name, max_abs_err=err, err_over_tol=err_over_tol,
+        tol={'rel': tea.TOL_REL, 'abs': tea.TOL_ABS,
+             'straddle': 'rel * p_max * v_max' if q.dtype == torch.bfloat16 else 0},
+        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=max(byte_ms, op_ms),
+        bound_by='bytes' if byte_ms >= op_ms else 'operations',
+        bytes=bytes_, flops=flops,
+    )
+    log(f'[kernel K3] {json.dumps(result)}')
+    if not err_over_tol <= 1.0:
+        fail(f'K3 case {name}: |out - ref| exceeds its elementwise tolerance '
+             f'(worst element at {err_over_tol:.3f} x; max abs err {err})')
+    return result
+
+
+def phase_encoder_kernel(torch, tea):
+    rng = np.random.default_rng(3)
+    bf16 = torch.bfloat16
+    results = []
+    # The embed path's shapes: batch 512 of one bucket, every row's length
+    # within the bucket's last 32 positions, as length-sorted batches are.
+    for s, iters in ((128, 20), (192, 10), (288, 5)):
+        lens = rng.integers(max(1, s - 31), s + 1, size=512)
+        case = k3_case(torch, rng, 512, s, lens, bf16)
+        results.append(run_k3_case(torch, tea, f'embed_512x{s}', case, iters))
+        del case
+    lens = np.concatenate([rng.integers(1, 257, size=56), np.zeros(8, int)])
+    case = k3_case(torch, rng, 64, 256, lens, bf16)
+    results.append(run_k3_case(torch, tea, 'masks_64x256_8_fully_masked', case, 20))
+    case = k3_case(torch, rng, 512, 16, rng.integers(3, 17, size=512), bf16)
+    results.append(run_k3_case(torch, tea, 'short_512x16', case, 20))
+    lens = np.concatenate([rng.integers(1, 78, size=62), [0, 77]])
+    case = k3_case(torch, rng, 64, 77, lens, bf16)
+    results.append(run_k3_case(torch, tea, 'odd_64x77', case, 20))
+    case = k3_case(torch, rng, 32, 256, rng.integers(1, 257, size=32), bf16, window=64)
+    results.append(run_k3_case(torch, tea, 'window64_32x256', case, 20))
+    case = k3_case(torch, rng, 64, 192, rng.integers(1, 193, size=64), torch.float32)
+    results.append(run_k3_case(torch, tea, 'fp32_64x192', case, 10))
+    del case
+    torch.cuda.empty_cache()
+    return results
+
+
+# --------------------------------------------------------------- phase 5
 def smoke_prompts(rng, n, lo, hi):
     words = [f'w{i}' for i in range(5000)]
     lengths = np.linspace(lo, hi, n).astype(int) - 2  # + CLS and SEP
@@ -366,7 +498,7 @@ def phase_serve(torch, tpa, card, cfg):
                 forward_passes=passes, telemetry=tele)
 
 
-# --------------------------------------------------------------- phase 5
+# --------------------------------------------------------------- phase 6
 def phase_identity(torch, tpa, cfg):
     from distllm_tpu_torch.generate.engine import (
         EngineConfig,
@@ -415,6 +547,156 @@ def phase_identity(torch, tpa, cfg):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 7
+def write_corpus(path: Path) -> None:
+    """2048 texts of 120..259 words from a 5000-word vocabulary, seed 0 —
+    the JAX package's embed benchmark corpus (``bench.py``) — as jsonl."""
+    rng = np.random.default_rng(0)
+    vocab = [f'tok{i}' for i in range(5000)]
+    with open(path, 'w') as fh:
+        for i in range(EMBED_TEXTS):
+            n = int(rng.integers(120, 260))
+            text = ' '.join(rng.choice(vocab, size=n))
+            fh.write(json.dumps({'text': text, 'id': i}) + '\n')
+
+
+def phase_embed(torch, tea, card, tmp: Path):
+    from distllm_tpu_torch.embed import (
+        get_dataset,
+        get_embedder,
+        get_pooler,
+        get_writer,
+    )
+    from distllm_tpu_torch.embed.encoders.base import TorchEncoder
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+    from distllm_tpu_torch.timer import Timer
+
+    corpus_file = tmp / 'corpus.jsonl'
+    write_corpus(corpus_file)
+    cfg = bert.BertConfig()  # S-PubMedBert-MS-MARCO widths: BERT-base
+    with Timer('loaded-encoder', corpus_file.name):
+        params = bert.init(
+            cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE
+        )
+        encoder = TorchEncoder(
+            config=None, apply_fn=bert.apply, model_cfg=cfg, params=params,
+            tokenizer=WhitespaceTokenizer(
+                vocab_size=cfg.vocab_size, model_max_length=512
+            ),
+            embedding_size=cfg.hidden_size, device=DEVICE,
+        )
+        torch.cuda.synchronize()
+    dataset = get_dataset({'name': 'jsonl', 'batch_size': EMBED_BATCH})
+    pooler = get_pooler({'name': 'mean'})
+    embedder = get_embedder({'name': 'full_sequence'})
+    writer = get_writer({'name': 'numpy'})
+    with Timer('loaded-dataset', corpus_file.name):
+        corpus = dataset.read(corpus_file)
+    t0 = time.perf_counter()
+    embedder.embed(corpus, encoder, pooler, batch_size=dataset.config.batch_size)
+    warm_s = time.perf_counter() - t0
+
+    # The main path: counts to 0 just before, read just after.
+    tea.encoder_attention.launches = 0
+    tea.encoder_attention_reference.launches = 0
+    t0 = time.perf_counter()
+    with Timer('computed-embeddings', corpus_file.name):
+        result = embedder.embed(
+            corpus, encoder, pooler, batch_size=dataset.config.batch_size
+        )
+    wall_s = time.perf_counter() - t0
+    launches = tea.encoder_attention.launches
+    plain = tea.encoder_attention_reference.launches
+    shard = tmp / 'shard'
+    with Timer('wrote-embeddings', corpus_file.name):
+        writer.write(shard, result)
+
+    stats = embedder.stats
+    batches = sum(stats['bucket_batches'].values())
+    emb = result.embeddings
+    if emb.shape != (EMBED_TEXTS, cfg.hidden_size) or emb.dtype != np.float32:
+        fail(f'embeddings are {emb.shape} {emb.dtype}, expected '
+             f'({EMBED_TEXTS}, {cfg.hidden_size}) float32')
+    if not np.isfinite(emb).all():
+        fail('non-finite embeddings')
+    back = np.load(shard / 'embeddings.npy')
+    texts = np.load(shard / 'text.npy', allow_pickle=True)
+    meta = np.load(shard / 'metadata.npy', allow_pickle=True)
+    if (not np.array_equal(back, emb) or list(texts) != corpus.texts
+            or [m['id'] for m in meta] != list(range(EMBED_TEXTS))):
+        fail('the written shard does not read back as the embedder result')
+    per_s = EMBED_TEXTS / wall_s
+    padding = 1.0 - stats['tokens_real'] / stats['tokens_padded']
+    buckets = {int(k): v for k, v in sorted(stats['bucket_batches'].items())}
+    log(f'[embed] BERT-base {cfg.dtype} ({cfg.num_layers} layers, hidden '
+        f'{cfg.hidden_size}), {EMBED_TEXTS} texts, batch {EMBED_BATCH}: '
+        f'{per_s:.1f} embeddings/s ({wall_s:.3f} s; warm-up pass '
+        f'{warm_s:.3f} s) on {card}; buckets {json.dumps(buckets)}; padding '
+        f'share {padding:.4f}; output {emb.shape} float32, written and read back')
+    log(f'[embed] encoder_attention launches {launches} = {cfg.num_layers} '
+        f'layers x {batches} batches; plain version launches {plain}')
+    if launches <= 0 or launches != cfg.num_layers * batches:
+        fail(f'K3 launches {launches} != {cfg.num_layers} x {batches} batches')
+    if plain != 0:
+        fail(f'the plain encoder attention ran {plain} times on the embed path')
+    encoder.shutdown()
+    del params, encoder, result
+    torch.cuda.empty_cache()
+    return dict(embeddings_per_s=per_s, wall_s=wall_s, launches=launches,
+                batches=batches, buckets=buckets, padding_share=padding,
+                corpus=corpus)
+
+
+# --------------------------------------------------------------- phase 8
+def phase_embed_identity(torch, tea, corpus):
+    from distllm_tpu_torch.embed import get_pooler
+    from distllm_tpu_torch.embed.embedders.full_sequence import compute_embeddings
+    from distllm_tpu_torch.embed.encoders.base import TorchEncoder
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+
+    cfg = bert.BertConfig(num_layers=2, dtype='float32')
+    params = bert.init(
+        cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE
+    )
+    # 600 texts in batches of 256: the last batch carries 168 fully masked
+    # padding rows through the kernel's -1e9 path.
+    texts = corpus.texts[:600]
+    pooler = get_pooler({'name': 'mean'})
+    outs = {}
+    for impl, counter in (('auto', tea.encoder_attention),
+                          ('reference', tea.encoder_attention_reference)):
+        encoder = TorchEncoder(
+            config=None, apply_fn=functools.partial(bert.apply, attn_impl=impl),
+            model_cfg=cfg, params=params,
+            tokenizer=WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512),
+            embedding_size=cfg.hidden_size, device=DEVICE,
+        )
+        tea.encoder_attention.launches = 0
+        tea.encoder_attention_reference.launches = 0
+        stats = {}
+        outs[impl] = compute_embeddings(
+            texts, encoder, pooler, 256, stats=stats, device=DEVICE
+        )
+        batches = sum(stats['bucket_batches'].values())
+        calls = tea.encoder_attention.launches + tea.encoder_attention_reference.launches
+        if counter.launches != cfg.num_layers * batches or calls != counter.launches:
+            fail(f'embed identity ({impl}): {counter.launches} attention calls '
+                 f'for {batches} batches')
+    ref = outs['reference']
+    diff = np.abs(outs['auto'] - ref)
+    err_over_tol = float((diff / (EMBED_RTOL * np.abs(ref) + EMBED_ATOL)).max())
+    log(f'[embed identity] fp32 depth-2 full width, {len(texts)} texts: kernel vs plain '
+        f'max abs err {float(diff.max()):.3e}, worst element at '
+        f'{err_over_tol:.3f} x (rtol {EMBED_RTOL}, atol {EMBED_ATOL})')
+    if not err_over_tol <= 1.0:
+        fail('fp32 pooled embeddings through K3 and its plain version differ')
+    del params
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=float(diff.max()), err_over_tol=err_over_tol)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -422,6 +704,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this smoke run needs a GPU')
     from distllm_tpu_torch.ops import _build
+    from distllm_tpu_torch.ops import encoder_attention as tea
     from distllm_tpu_torch.ops import paged_attention as tpa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -436,27 +719,35 @@ def main() -> None:
     log(f'[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; '
         f'nvidia-smi: {smi}')
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = [_build.build(name) for name in _build.SOURCES]
+    libs = _build.build_all()
     log(f'[build] {len(libs)} kernel(s) built in {time.perf_counter() - t0:.1f} s')
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if 'registers' in line or 'Compiling entry' in line:
+            if 'registers' in line or 'Compiling entry' in line or 'spill' in line:
                 log(f'[build] {name}: {line.strip()}')
 
-    # 3. kernel vs plain
+    # 3. K1 vs its plain version; 4. K3 vs its plain version
     cases = phase_kernel(torch, tpa)
+    k3_cases = phase_encoder_kernel(torch, tea)
     from distllm_tpu_torch.models.mistral import MistralConfig
 
-    # 4. serve: Mistral-7B widths, 32 layers, bf16
+    # 5. serve: Mistral-7B widths, 32 layers, bf16
     serve = phase_serve(torch, tpa, smi, MistralConfig())
-    # 5. identity: full width, depth 2, fp32
+    # 6. identity: full width, depth 2, fp32
     phase_identity(torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_embed_') as tmp:
+        # 7. embed: BERT-base widths, 12 layers, bf16
+        embed = phase_embed(torch, tea, smi, Path(tmp))
+        # 8. embed identity: full width, depth 2, fp32
+        phase_embed_identity(torch, tea, embed.pop('corpus'))
 
-    # Headline: the serving phase's decode shape, the main path's most
-    # frequent launch; every case is listed under 'cases'.
+    # Headlines: K1 at the serving phase's decode shape, the main path's
+    # most frequent launch; K3 at the embed path's longest bucket. Every
+    # case is listed under 'cases'.
     head = next(c for c in cases if c['case'].startswith('serve_decode'))
+    k3_head = next(c for c in k3_cases if c['case'] == 'embed_512x288')
     kernels = [{
         'name': 'ragged_paged_attention',
         'route': 'cuda',
@@ -473,10 +764,27 @@ def main() -> None:
         'library_ms': head['library_ms'],
         'timed_case': head['case'],
         'cases': cases,
+    }, {
+        'name': 'encoder_attention',
+        'route': 'cuda',
+        'source': 'distllm_tpu_torch/csrc/encoder_attention.cu',
+        'replaces': 'distllm_tpu/ops/encoder_attention.py:151',
+        'launches': embed['launches'],
+        'max_abs_err': max(c['max_abs_err'] for c in k3_cases),
+        'err_over_tol': max(c['err_over_tol'] for c in k3_cases),
+        'tol': k3_head['tol'],
+        'ms': k3_head['ms'],
+        'plain_ms': k3_head['plain_ms'],
+        'bound_ms': k3_head['bound_ms'],
+        'bound_by': k3_head['bound_by'],
+        'library_ms': k3_head['library_ms'],
+        'timed_case': k3_head['case'],
+        'cases': k3_cases,
     }]
     log(f'[summary] {smi}: {serve["tokens_per_s"]:.1f} tok/s, '
+        f'{embed["embeddings_per_s"]:.1f} embeddings/s, '
         f'{time.perf_counter() - t_start:.1f} s total')
-    if not all(math.isfinite(c['ms']) for c in cases):
+    if not all(math.isfinite(c['ms']) for c in cases + k3_cases):
         fail('non-finite kernel time')
     print(json.dumps({'kernels': kernels}))
     print(smi)

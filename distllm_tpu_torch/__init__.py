@@ -10,16 +10,22 @@ Every entry point runs on ``cuda`` unless the caller passes
 ``device='cpu'``; with no GPU and no explicit ``device='cpu'`` it raises
 (:func:`distllm_tpu_torch.utils.resolve_device`).
 
-Layer map of the ported slice (Mistral-family paged-KV serving):
+Layer map of the ported slices (Mistral-family paged-KV serving; the
+BERT-family embedding pipeline):
 
-- ``utils``                 — dataclass config base, device resolution
+- ``utils``                 — dataclass config base, dtypes, device resolution
 - ``ops.paged_attention``   — ragged paged attention: plain PyTorch op plus
   the hand-written CUDA kernel (``csrc/ragged_paged_attention.cu``)
+- ``ops.encoder_attention`` — encoder attention: plain PyTorch version plus
+  the hand-written CUDA kernel (``csrc/encoder_attention.cu``)
 - ``ops.sampling``          — logit filtering and counter-based sampling
-- ``models``                — Mistral decoder over the paged KV cache
+- ``models``                — Mistral decoder over the paged KV cache, the
+  BERT encoder, tokenizers, checkpoint reading
 - ``generate.engine``       — block allocator, scheduler, serving engine
 - ``generate.generators``   — ``TorchGenerator``
 - ``chat`` / ``chat_server`` — prompt template and the HTTP server
+- ``embed``                 — datasets, encoders, poolers, embedders, writers
+- ``distributed_embedding`` — embedding entry point (``registry``, ``timer``)
 """
 
 from __future__ import annotations

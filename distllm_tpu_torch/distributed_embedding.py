@@ -1,0 +1,188 @@
+"""The embedding entry point: embed every input file into its own output
+shard (the PyTorch counterpart of ``distllm_tpu.distributed_embedding``).
+
+The YAML config is the JAX package's, key for key, so one file drives
+either package. Each file goes through :func:`embedding_worker`: the
+registry-warm-started encoder, the dataset read, the embedder, and the
+writer into a fresh UUID shard, each stage timed by a ``[timer]`` line
+tagged as in the JAX package. The ``local`` compute config runs the files
+in this process; the other compute configs are not ported yet.
+
+    python -m distllm_tpu_torch.distributed_embedding --config embed.yaml [--device cpu]
+
+Without ``--device`` the encoder runs on CUDA and the run fails without a
+GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import re
+import uuid
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from distllm_tpu_torch.timer import Timer
+from distllm_tpu_torch.utils import BaseConfig
+
+# The JAX package's compute configs that this port does not run yet.
+_NOT_PORTED_COMPUTE = ('workstation', 'pod', 'pbspro', 'slurm')
+_ENV_PATTERN = re.compile(r'\$\{env:([A-Za-z_][A-Za-z0-9_]*)\}')
+
+
+def _substitute_env(obj: Any) -> Any:
+    """Replace ``${env:VAR}`` markers in strings with ``os.environ``
+    (unset variables become empty strings, as in the JAX package)."""
+    if isinstance(obj, str):
+        return _ENV_PATTERN.sub(lambda m: os.environ.get(m.group(1), ''), obj)
+    if isinstance(obj, dict):
+        return {k: _substitute_env(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_substitute_env(v) for v in obj]
+    return obj
+
+
+def log(message: str) -> None:
+    print(message, flush=True)
+
+
+def embedding_worker(
+    file: str,
+    output_dir: str,
+    dataset_kwargs: dict[str, Any],
+    encoder_kwargs: dict[str, Any],
+    pooler_kwargs: dict[str, Any],
+    embedder_kwargs: dict[str, Any],
+    writer_kwargs: dict[str, Any],
+    device: 'str | torch.device | None' = None,
+) -> str:
+    """Embed one input file into a fresh UUID output shard; returns the
+    shard's path. ``device=None`` means CUDA."""
+    from distllm_tpu_torch.embed import (
+        get_dataset,
+        get_embedder,
+        get_encoder,
+        get_pooler,
+        get_writer,
+    )
+
+    file_tag = Path(file).name
+    with Timer('loaded-encoder', file_tag):
+        encoder = get_encoder(encoder_kwargs, register=True, device=device)
+    dataset = get_dataset(dataset_kwargs)
+    pooler = get_pooler(pooler_kwargs)
+    embedder = get_embedder(embedder_kwargs)
+    writer = get_writer(writer_kwargs)
+
+    with Timer('loaded-dataset', file_tag):
+        corpus = dataset.read(file)
+    with Timer('computed-embeddings', file_tag):
+        result = embedder.embed(
+            corpus, encoder, pooler, batch_size=dataset.config.batch_size
+        )
+    shard_dir = Path(output_dir) / uuid.uuid4().hex
+    with Timer('wrote-embeddings', file_tag):
+        writer.write(shard_dir, result)
+    return str(shard_dir)
+
+
+@dataclasses.dataclass(kw_only=True)
+class Config(BaseConfig):
+    """The run's configuration: the JAX ``Config``'s fields."""
+
+    input_dir: Path
+    output_dir: Path
+    glob_patterns: list[str] = dataclasses.field(default_factory=lambda: ['*'])
+    dataset_config: dict[str, Any]
+    encoder_config: dict[str, Any]
+    pooler_config: dict[str, Any]
+    embedder_config: dict[str, Any]
+    writer_config: dict[str, Any]
+    compute_config: dict[str, Any] = dataclasses.field(
+        default_factory=lambda: {'name': 'local'}
+    )
+
+    def validate(self) -> None:
+        self.input_dir = Path(self.input_dir)
+        self.output_dir = Path(self.output_dir)
+        name = self.compute_config.get('name', 'local')
+        if name in _NOT_PORTED_COMPUTE:
+            raise NotImplementedError(
+                f'compute_config {name!r} is not ported to distllm_tpu_torch '
+                "yet; use {'name': 'local'} (ROADMAP A8)"
+            )
+        if name != 'local':
+            raise ValueError(f'unknown compute_config name {name!r}')
+
+    @classmethod
+    def from_yaml(cls, path: 'str | Path') -> 'Config':
+        import yaml
+
+        with open(path) as fh:
+            raw = yaml.safe_load(fh) or {}
+        return cls(**_substitute_env(raw))
+
+    def to_dict(self) -> dict[str, Any]:
+        out = dataclasses.asdict(self)
+        out['input_dir'] = str(self.input_dir)
+        out['output_dir'] = str(self.output_dir)
+        return out
+
+
+def run_embedding(
+    config: Config, device: 'str | torch.device | None' = None
+) -> int:
+    """Embed every file matching ``config.glob_patterns`` under
+    ``config.input_dir`` into ``output_dir/embeddings/<uuid>/``, in this
+    process (``device=None`` = CUDA). Returns 0, or 1 when no file
+    matched."""
+    embedding_dir = config.output_dir / 'embeddings'
+    embedding_dir.mkdir(parents=True, exist_ok=True)
+    # Audit copy, written as JSON: JSON is valid YAML, so either package's
+    # Config.from_yaml reads it back, and writing it needs no PyYAML.
+    (config.output_dir / 'config.yaml').write_text(
+        json.dumps(config.to_dict(), indent=2) + '\n'
+    )
+
+    files: list[str] = []
+    for pattern in config.glob_patterns:
+        files.extend(str(p) for p in sorted(config.input_dir.glob(pattern)))
+    if not files:
+        log(f'No input files matched {config.glob_patterns} in {config.input_dir}')
+        return 1
+    log(f'Embedding {len(files)} files -> {embedding_dir}')
+    shards = [
+        embedding_worker(
+            file,
+            output_dir=str(embedding_dir),
+            dataset_kwargs=config.dataset_config,
+            encoder_kwargs=config.encoder_config,
+            pooler_kwargs=config.pooler_config,
+            embedder_kwargs=config.embedder_config,
+            writer_kwargs=config.writer_config,
+            device=device,
+        )
+        for file in files
+    ]
+    log(f'Finished: {len(shards)} shards written')
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument('--config', required=True, type=Path)
+    parser.add_argument(
+        '--device', default=None,
+        help="device to embed on (default: cuda; 'cpu' only when asked)",
+    )
+    args = parser.parse_args(argv)
+    return run_embedding(Config.from_yaml(args.config), device=args.device)
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

@@ -1,0 +1,74 @@
+"""Auto encoder: a local HF checkpoint directory to the port's model
+(counterpart of ``distllm_tpu.embed.encoders.auto``; the BERT family only).
+
+``config.json``'s ``model_type`` picks the model; ``half_precision``
+picks bf16 activations (fp32 otherwise); the weights are read with
+``models.loader`` and the tokenizer is the checkpoint's own HF tokenizer.
+Other model types and weight quantization are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from distllm_tpu_torch.embed.encoders.base import TorchEncoder
+from distllm_tpu_torch.models import bert
+from distllm_tpu_torch.models.loader import read_checkpoint, read_hf_config
+from distllm_tpu_torch.models.tokenizer import HFTokenizer
+from distllm_tpu_torch.utils import BaseConfig, resolve_device
+
+
+@dataclasses.dataclass(kw_only=True)
+class AutoEncoderConfig(BaseConfig):
+    name: str = 'auto'
+    # Local path to an HF-format checkpoint directory.
+    pretrained_model_name_or_path: str
+    tokenizer_name: str | None = None  # defaults to the model path
+    half_precision: bool = True  # bf16 activations and weights
+    model_max_length: int | None = None
+    trust_remote_code: bool = False
+    quantization: 'bool | str' = False
+
+    def validate(self) -> None:
+        if self.quantization:
+            raise NotImplementedError(
+                f'weight quantization ({self.quantization!r}) is not ported '
+                'to distllm_tpu_torch yet (ROADMAP A7, kernel K2)'
+            )
+
+
+class AutoEncoder(TorchEncoder):
+    def __init__(
+        self,
+        config: AutoEncoderConfig,
+        device: 'str | torch.device | None' = None,
+    ) -> None:
+        device = resolve_device(device)
+        hf_cfg = read_hf_config(config.pretrained_model_name_or_path)
+        model_type = hf_cfg.get('model_type', 'bert')
+        if model_type != 'bert':
+            raise NotImplementedError(
+                f'model_type {model_type!r} is not ported to distllm_tpu_torch '
+                'yet: the auto encoder serves the BERT family (ROADMAP A8)'
+            )
+        model_cfg = bert.BertConfig.from_hf_config(hf_cfg)
+        model_cfg.dtype = 'bfloat16' if config.half_precision else 'float32'
+        state = read_checkpoint(config.pretrained_model_name_or_path)
+        params = bert.params_from_hf(state, model_cfg, device=device)
+        tokenizer = HFTokenizer(
+            config.tokenizer_name or config.pretrained_model_name_or_path,
+            model_max_length=config.model_max_length
+            or hf_cfg.get('max_position_embeddings'),
+            trust_remote_code=config.trust_remote_code,
+        )
+        super().__init__(
+            config=config,
+            apply_fn=bert.apply,
+            model_cfg=model_cfg,
+            params=params,
+            tokenizer=tokenizer,
+            embedding_size=model_cfg.hidden_size,
+            device=device,
+        )

@@ -1,1 +1,2 @@
-"""Decoder models of the port (Mistral family) and the tokenizer."""
+"""Models of the port (the Mistral-family decoder, the BERT encoder),
+the tokenizers and checkpoint reading."""

@@ -1,5 +1,6 @@
-"""Shared functional layers of the decoder (PyTorch counterpart of
-``distllm_tpu.models.common``, the part the Mistral serving path uses).
+"""Shared functional layers (PyTorch counterpart of
+``distllm_tpu.models.common``, the parts the Mistral serving path and the
+BERT encoder use).
 
 Kernels keep the JAX layout ``[in, out]`` so bridged weights copy over
 unchanged, and the plain ``x @ W`` products stay ``torch.matmul`` — the
@@ -30,8 +31,81 @@ def dense(
     return y
 
 
+def layer_norm(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: 'torch.Tensor | None',
+    eps: float,
+) -> torch.Tensor:
+    """LayerNorm over the last dim in ``x``'s dtype (callers pass fp32, as
+    the JAX encoders do); ``bias=None`` = scale only. Biased variance,
+    ``eps`` inside the root — the JAX function, as one fused kernel."""
+    return F.layer_norm(x, x.shape[-1:], scale.to(x.dtype),
+                        None if bias is None else bias.to(x.dtype), eps)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """HF 'gelu': the exact erf form, at every dtype."""
+    return F.gelu(x, approximate='none')
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """Opt-in tanh-approximated GELU (HF ``gelu_pytorch_tanh``)."""
+    return F.gelu(x, approximate='tanh')
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
+
+
+ACTIVATIONS = {
+    'gelu': gelu,
+    'gelu_tanh': gelu_tanh,
+    'gelu_new': gelu_tanh,  # HF's historical alias for the tanh form
+    'silu': silu,
+    'relu': F.relu,
+}
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``[B, S, N*H] -> [B, S, N, H]`` (a view)."""
+    b, s, d = x.shape
+    return x.reshape(b, s, num_heads, d // num_heads)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``[B, S, N, H] -> [B, S, N*H]``."""
+    b, s, n, h = x.shape
+    return x.reshape(b, s, n * h)
+
+
+# jax.nn.dot_product_attention's mask value: -0.7 x the dtype's max, large
+# and finite, so a fully masked query row softmaxes to a uniform average.
+_MASK_VALUE_SCALE = -0.7
+
+
+def sdpa(
+    q: torch.Tensor,  # [B, S, N, H]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    mask: 'torch.Tensor | None' = None,  # [B, S_kv] key-validity mask
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Non-causal scaled dot-product attention over ``[B, S, N, H]``
+    tensors with a boolean key mask — the form the BERT ``'xla'`` branch
+    uses, with ``jax.nn.dot_product_attention``'s XLA arithmetic: scores
+    in fp32, masked keys set to ``-0.7 * finfo(float32).max``, softmax in
+    fp32, probabilities cast to V's dtype, the weighted sum accumulated in
+    fp32 and returned in V's dtype."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    scores = torch.einsum('bqnh,bknh->bnqk', q.float(), k.float()) * scale
+    if mask is not None:
+        fill = _MASK_VALUE_SCALE * torch.finfo(torch.float32).max
+        scores = scores.masked_fill(~mask.bool()[:, None, None, :], fill)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum('bnqk,bknh->bqnh', probs.float(), v.float())
+    return out.to(v.dtype)
 
 
 def rope_frequencies(

@@ -42,22 +42,9 @@ from distllm_tpu_torch.ops.paged_attention import (
     write_token_kv,
 )
 from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
-from distllm_tpu_torch.utils import BaseConfig
+from distllm_tpu_torch.utils import BaseConfig, torch_dtype
 
-_DTYPES = {
-    'bfloat16': torch.bfloat16,
-    'float32': torch.float32,
-    'float16': torch.float16,
-}
 ATTN_BACKENDS = ('auto', 'reference')
-
-
-def torch_dtype(name: 'str | torch.dtype') -> torch.dtype:
-    if isinstance(name, torch.dtype):
-        return name
-    if name not in _DTYPES:
-        raise ValueError(f'dtype must be one of {tuple(_DTYPES)}, got {name!r}')
-    return _DTYPES[name]
 
 
 @dataclasses.dataclass

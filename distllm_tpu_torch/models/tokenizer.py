@@ -1,11 +1,11 @@
 """Tokenization with fixed-shape bucketed padding (copy of
-``distllm_tpu.models.tokenizer`` minus the HuggingFace backend).
+``distllm_tpu.models.tokenizer``).
 
-The engine pads prefill batches to a small ladder of bucket lengths
-(:func:`bucket_ladder` / :func:`pick_bucket`), and
+The engine pads prefill batches, and the embedder its batches, to a small
+ladder of bucket lengths (:func:`bucket_ladder` / :func:`pick_bucket`).
 :class:`WhitespaceTokenizer` is the deterministic hash-vocab tokenizer that
-needs no model files. An HF tokenizer waits until tokenizer files are in
-the repository.
+needs no model files; :class:`HFTokenizer` wraps a local HuggingFace fast
+tokenizer (``transformers`` is imported only when one is built).
 """
 
 from __future__ import annotations
@@ -60,6 +60,21 @@ class TokenBatch:
 
     input_ids: np.ndarray
     attention_mask: np.ndarray
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.input_ids.shape
+
+    def pad_batch_to(self, batch_size: int, pad_id: int = 0) -> 'TokenBatch':
+        """Pad the batch dimension with fully-masked rows (for bucketed B)."""
+        b, s = self.input_ids.shape
+        if b >= batch_size:
+            return self
+        ids = np.full((batch_size, s), pad_id, dtype=np.int32)
+        mask = np.zeros((batch_size, s), dtype=np.int32)
+        ids[:b] = self.input_ids
+        mask[:b] = self.attention_mask
+        return TokenBatch(ids, mask)
 
 
 class _BucketingMixin:
@@ -139,3 +154,38 @@ class WhitespaceTokenizer(_BucketingMixin):
                 continue
             out.append(self._reverse.get(tid, f'<{tid}>'))
         return ' '.join(out)
+
+
+class HFTokenizer(_BucketingMixin):
+    """A local HuggingFace fast tokenizer with bucketed padding. The
+    tokenizer's own ``model_max_length`` is respected; HF's huge sentinel
+    for "unset" becomes 512."""
+
+    def __init__(
+        self,
+        pretrained_model_name_or_path: str,
+        model_max_length: int | None = None,
+        min_bucket: int = 16,
+        trust_remote_code: bool = False,
+    ) -> None:
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(
+            pretrained_model_name_or_path, trust_remote_code=trust_remote_code
+        )
+        limit = model_max_length or getattr(self._tok, 'model_max_length', 512)
+        self.model_max_length = int(min(limit, 1_000_000)) if limit else 512
+        if self.model_max_length >= 1_000_000:
+            self.model_max_length = 512
+        self.vocab_size = int(self._tok.vocab_size)
+        self.pad_id = int(self._tok.pad_token_id or 0)
+        self.buckets = bucket_ladder(self.model_max_length, min_bucket)
+
+    def __call__(
+        self, texts: Sequence[str], *, max_length: int | None = None
+    ) -> TokenBatch:
+        max_length = max_length or self.model_max_length
+        enc = self._tok(
+            list(texts), truncation=True, max_length=max_length, padding=False
+        )
+        return self._pad_to_bucket(enc['input_ids'], self.pad_id, max_length)

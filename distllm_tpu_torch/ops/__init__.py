@@ -1,4 +1,5 @@
-"""Kernels and plain-PyTorch ops of the port (paged attention, sampling).
+"""Kernels and plain-PyTorch ops of the port (paged attention, encoder
+attention, sampling).
 
 CUDA sources live in ``distllm_tpu_torch/csrc/`` and are built at first
 use by ``ops._build``; importing a module here builds nothing.

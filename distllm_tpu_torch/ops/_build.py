@@ -27,6 +27,7 @@ BUILD_DIR = PACKAGE_DIR / '_build'
 # Kernel name -> source file under csrc/.
 SOURCES = {
     'ragged_paged_attention': 'ragged_paged_attention.cu',
+    'encoder_attention': 'encoder_attention.cu',
 }
 
 NVCC_FLAGS = (
@@ -35,7 +36,9 @@ NVCC_FLAGS = (
     '-Xptxas', '-v',
 )
 
-_lock = threading.Lock()
+# One lock per kernel: two kernels build at once, one kernel builds once.
+_locks = {name: threading.Lock() for name in SOURCES}
+_lock = threading.Lock()  # guards _loaded
 _loaded: dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each kernel built by this process.
 build_logs: dict[str, str] = {}
@@ -66,7 +69,7 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Build kernel ``name``'s library unless it exists for the current
     source; return its path. Raises with nvcc's output if the build fails."""
-    with _lock:
+    with _locks[name]:
         target = library_path(name)
         if target.exists():
             return target
@@ -86,6 +89,16 @@ def build(name: str) -> Path:
         os.replace(tmp, target)  # atomic: a reader never sees a partial library
         build_logs[name] = proc.stdout
         return target
+
+
+def build_all() -> dict[str, Path]:
+    """Build every kernel of ``SOURCES`` at once, one ``nvcc`` per source
+    in its own thread; raises the first failure after all have ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        futures = {name: pool.submit(build, name) for name in SOURCES}
+    return {name: future.result() for name, future in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -28,6 +28,22 @@ class BaseConfig:
         """Raise ``ValueError`` when the config is inconsistent."""
 
 
+_DTYPES = {
+    'bfloat16': torch.bfloat16,
+    'float32': torch.float32,
+    'float16': torch.float16,
+}
+
+
+def torch_dtype(name: 'str | torch.dtype') -> torch.dtype:
+    """The torch dtype of a config's dtype name (or the dtype itself)."""
+    if isinstance(name, torch.dtype):
+        return name
+    if name not in _DTYPES:
+        raise ValueError(f'dtype must be one of {tuple(_DTYPES)}, got {name!r}')
+    return _DTYPES[name]
+
+
 def resolve_device(device: 'str | torch.device | None' = None) -> torch.device:
     """The device an entry point runs on.
 

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's embed path, on one GPU.
+
+Builds the embed configuration of ``chip_smoke.py``: a ``TorchEncoder``
+over BERT-base (S-PubMedBert-MS-MARCO widths) in bf16 with random weights
+made on the card from seed 0, the ``WhitespaceTokenizer``, the mean
+pooler, batch 512, and 2048 texts of 120..259 words (seed 0, a
+5000-word vocabulary). After one warm-up pass it
+
+- times ``--repeats`` passes of ``compute_embeddings`` by the host clock
+  (embeddings/s; every pass ends in the host copy of its results);
+- profiles one more pass under ``torch.profiler`` and sums the device
+  time of the CUDA kernels only, by category: the encoder-attention
+  kernel (K3), matrix products, everything else; per bucket batch and in
+  all, with the device's busy share of the plain pass's wall time.
+
+Prints one JSON object per line; ``--out`` also writes them to a file.
+Needs CUDA; exits nonzero without it.
+
+    python3 scripts/profile_torch_embed.py [--layers 12] [--repeats 3] [--out results.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from distllm_tpu_torch.embed import get_pooler  # noqa: E402
+from distllm_tpu_torch.embed.embedders.full_sequence import (  # noqa: E402
+    compute_embeddings,
+)
+from distllm_tpu_torch.embed.encoders.base import TorchEncoder  # noqa: E402
+from distllm_tpu_torch.models import bert  # noqa: E402
+from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer  # noqa: E402
+
+
+def _category(name: str) -> str:
+    low = name.lower()
+    if 'encoder_attention' in low:
+        return 'encoder_attention_kernel'
+    if any(t in low for t in ('gemm', 'gemv', 'nvjet', 'cutlass', 'xmma', 'cublas')):
+        return 'matmul'
+    return 'other'
+
+
+def _texts(n: int) -> list[str]:
+    rng = np.random.default_rng(0)
+    vocab = [f'tok{i}' for i in range(5000)]
+    return [
+        ' '.join(rng.choice(vocab, size=int(rng.integers(120, 260))))
+        for _ in range(n)
+    ]
+
+
+def _pass(encoder, texts, stats=None) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compute_embeddings(
+        texts, encoder, get_pooler({'name': 'mean'}), 512, stats=stats
+    )
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _kernel_times(prof) -> list[tuple[float, int, str]]:
+    """(device µs, launches, name) of each CUDA kernel."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = []
+    for avg in prof.key_averages():
+        if getattr(avg, 'device_type', None) != cuda:
+            continue
+        us = getattr(avg, 'self_device_time_total', None)
+        if us is None:
+            us = avg.self_cuda_time_total
+        rows.append((float(us), avg.count, avg.key))
+    return sorted(rows, reverse=True)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--layers', type=int, default=12)
+    parser.add_argument('--texts', type=int, default=2048)
+    parser.add_argument('--repeats', type=int, default=3)
+    parser.add_argument('--out', default=None, help='also write the results here')
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit('profile_torch_embed: needs CUDA')
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = bert.BertConfig(num_layers=args.layers)
+    params = bert.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    encoder = TorchEncoder(
+        None, bert.apply, cfg, params,
+        WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512),
+        cfg.hidden_size,
+    )
+    texts = _texts(args.texts)
+    warm_s = _pass(encoder, texts)  # builds the kernel, loads cuBLAS handles
+    stats: dict = {}
+    walls = [_pass(encoder, texts, stats if i == 0 else None)
+             for i in range(args.repeats)]
+    batches = sum(stats['bucket_batches'].values())
+    timed = {
+        'card': card, 'layers': args.layers, 'texts': args.texts,
+        'warmup_s': warm_s, 'wall_s': walls,
+        'embeddings_per_s': [args.texts / w for w in walls],
+        'batches': batches,
+        'bucket_batches': {int(k): v for k, v in sorted(stats['bucket_batches'].items())},
+        'padding_share': 1.0 - stats['tokens_real'] / stats['tokens_padded'],
+    }
+
+    activities = [
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA,
+    ]
+    with torch.profiler.profile(activities=activities) as prof:
+        _pass(encoder, texts)
+    kernels = _kernel_times(prof)
+    by_cat: dict[str, float] = {}
+    for us, _, key in kernels:
+        by_cat[_category(key)] = by_cat.get(_category(key), 0.0) + us
+    device_ms = sum(by_cat.values()) / 1e3
+    wall_ms = min(walls) * 1e3
+    profiled = {
+        'card': card, 'layers': args.layers, 'profiled_pass': True,
+        'device_ms': device_ms,
+        'device_ms_by_category': {k: v / 1e3 for k, v in sorted(by_cat.items())},
+        'device_ms_per_batch': device_ms / batches,
+        'encoder_attention_share_of_device': (
+            by_cat.get('encoder_attention_kernel', 0.0) / 1e3 / device_ms
+        ),
+        'device_busy_share_of_fastest_wall': device_ms / wall_ms,
+        'kernel_launches': sum(c for _, c, _ in kernels),
+        'top_kernels': [
+            {'device_ms': us / 1e3, 'launches': count, 'name': key[:100]}
+            for us, count, key in kernels[:10]
+        ],
+    }
+    results = [timed, profiled]
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(results, indent=1))
+    for result in results:
+        print(json.dumps(result))
+
+
+if __name__ == '__main__':
+    main()

@@ -1,5 +1,6 @@
-"""The CUDA ragged paged-attention kernel against the port's plain op, on
-the card. Every test here is marked ``gpu`` and skips where
+"""The CUDA kernels against the port's plain versions, on the card: the
+ragged paged-attention kernel (K1) and the encoder-attention kernel (K3).
+Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports no JAX, so it
 runs on a machine without it::
 
@@ -9,13 +10,16 @@ Tolerances on valid rows, elementwise ``|out - ref| <= rtol * |ref| +
 atol``: fp32 ``atol 1e-5`` (summation order only); bf16 ``rtol 2**-7``
 (both sides round one fp32 result to bf16, so they differ by at most one
 bf16 step, which is at most 2**-7 * |x|) plus ``atol 1e-5``. Pad queries
-must be exact zeros.
+must be exact zeros. K3 is held to its own elementwise bound
+(``encoder_attention.comparison_tolerance``: in bf16 one step of out
+plus one bf16 step of one p_j * v_j), on every row, fully masked included.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from distllm_tpu_torch.ops import encoder_attention as tea
 from distllm_tpu_torch.ops import paged_attention as tpa
 
 pytestmark = pytest.mark.gpu
@@ -169,3 +173,123 @@ def test_engine_on_the_kernel_matches_the_plain_op(cuda):
         expected = cfg.num_layers * passes if backend == 'auto' else 0
         assert tpa.ragged_paged_attention.launches - launches == expected
     assert outs['auto'] == outs['reference']
+
+
+# ------------------------------------------------------------------ K3
+def _k3_inputs(seed, b, s, heads, hd, dtype, lens=None, window=None):
+    rng = np.random.default_rng(seed)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=(b, s, heads * hd)).astype(np.float32))
+        .to('cuda', getattr(torch, dtype))
+        for _ in range(3)
+    )
+    lens = rng.integers(1, s + 1, size=b) if lens is None else np.asarray(lens)
+    mask = torch.from_numpy(
+        (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+    ).cuda()
+    bias = None
+    if window is not None:
+        dist = np.abs(np.arange(s)[:, None] - np.arange(s)[None, :])
+        bias = torch.from_numpy(np.where(dist <= window, 0.0, -1e9).astype(np.float32)).cuda()
+    return (q, k, v, mask, heads), bias
+
+
+def _k3_check(args, bias):
+    plain = tea.encoder_attention_reference.launches
+    launches = tea.encoder_attention.launches
+    out = tea.encoder_attention(*args, bias=bias)
+    assert tea.encoder_attention.launches == launches + 1
+    assert tea.encoder_attention_reference.launches == plain
+    ref = tea.encoder_attention_reference(*args, bias=bias)
+    tol = tea.comparison_tolerance(ref, *args, bias=bias)
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    assert torch.isfinite(out.float()).all()
+    err = ((out.float() - ref.float()).abs() / tol).max().item()
+    assert err <= 1.0, err
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('hd,heads', [(32, 4), (64, 12), (128, 2), (24, 3)])
+@pytest.mark.parametrize('s', [16, 37, 64, 130])
+def test_k3_matrix(cuda, dtype, hd, heads, s):
+    """Partial masks and one fully masked row (its output is the uniform
+    average of V, finite), head dims compiled fixed (32/64/128) and read
+    at run time (24), S below, at and across the 64-key tile."""
+    lens = np.concatenate([np.random.default_rng(s).integers(1, s + 1, size=3), [0, s]])
+    args, bias = _k3_inputs(s + hd, 5, s, heads, hd, dtype, lens=lens)
+    _k3_check(args, bias)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('s,window', [(64, 8), (200, 32), (37, 0)])
+def test_k3_window_bias(cuda, dtype, s, window):
+    args, bias = _k3_inputs(s, 4, s, 12, 64, dtype, window=window)
+    _k3_check(args, bias)
+
+
+def test_k3_fully_masked_rows_are_the_uniform_average(cuda):
+    args, _ = _k3_inputs(9, 3, 100, 12, 64, 'float32', lens=[0, 0, 0])
+    out = tea.encoder_attention(*args)
+    torch.testing.assert_close(
+        out, args[2].mean(dim=1, keepdim=True).expand_as(out), rtol=0, atol=1e-5
+    )
+
+
+def test_k3_refuses_what_it_does_not_take(cuda):
+    (q, k, v, mask, heads), _ = _k3_inputs(10, 2, 16, 4, 32, 'float32')
+    with pytest.raises(TypeError, match='share a dtype'):
+        tea.encoder_attention(q, k.bfloat16(), v, mask, heads)
+    with pytest.raises(TypeError, match='dtypes'):
+        tea.encoder_attention(q.half(), k.half(), v.half(), mask, heads)
+    with pytest.raises(ValueError, match='head dims'):
+        tea.encoder_attention(q, k, v, mask, 32)  # head dim 4
+    with pytest.raises(ValueError, match='head dims'):
+        wide = torch.zeros((2, 16, 2 * 136), device='cuda')
+        tea.encoder_attention(wide, wide, wide, mask, 2)  # head dim 136
+    with pytest.raises(ValueError, match='mask must be'):
+        tea.encoder_attention(q, k, v, mask[:, :8], heads)
+    with pytest.raises(ValueError, match='bias must be'):
+        tea.encoder_attention(q, k, v, mask, heads, bias=torch.zeros((8, 8), device='cuda'))
+    with pytest.raises(ValueError, match='one CUDA device'):
+        tea.encoder_attention(q, k.cpu(), v, mask, heads)
+
+
+def test_bert_through_the_embedder_on_the_kernel_matches_the_plain_version(cuda):
+    """A small fp32 BERT embedded end to end on the card (default device):
+    pooled embeddings through K3 equal those through its plain version
+    within fp32 summation noise, and every layer of every batch launched
+    the kernel once."""
+    import functools
+
+    from distllm_tpu_torch.embed import get_pooler
+    from distllm_tpu_torch.embed.embedders.full_sequence import compute_embeddings
+    from distllm_tpu_torch.embed.encoders.base import TorchEncoder
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+
+    cfg = bert.BertConfig(
+        vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+        intermediate_size=256, dtype='float32',
+    )
+    params = bert.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    rng = np.random.default_rng(0)
+    texts = [
+        ' '.join(f'w{i}' for i in rng.integers(0, 400, size=n))
+        for n in rng.integers(1, 300, size=21)
+    ]
+    outs = {}
+    for impl in ('auto', 'reference'):
+        encoder = TorchEncoder(
+            None, functools.partial(bert.apply, attn_impl=impl), cfg, params,
+            WhitespaceTokenizer(vocab_size=512, model_max_length=512), 128,
+        )
+        launches = tea.encoder_attention.launches
+        stats = {}
+        outs[impl] = compute_embeddings(
+            texts, encoder, get_pooler({'name': 'mean'}), 8, stats=stats
+        )
+        batches = sum(stats['bucket_batches'].values())
+        expected = cfg.num_layers * batches if impl == 'auto' else 0
+        assert tea.encoder_attention.launches - launches == expected
+    np.testing.assert_allclose(outs['auto'], outs['reference'], rtol=1e-4, atol=1e-5)
