@@ -9,7 +9,8 @@ carried on):
 
 1. device — print the card's name and power limit (``nvidia-smi``);
 2. build — compile every CUDA kernel from ``distllm_tpu_torch/csrc/``
-   with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all at once);
+   with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all at once):
+   K1, K2 and K3;
 3. kernel K1 — hold the ragged paged-attention kernel against its plain
    PyTorch version in bf16 at Mistral-7B geometry (32/8 heads, head dim
    128, block size 16): (a) 32 decode rows with ragged contexts 1..4096,
@@ -24,30 +25,50 @@ carried on):
    masked rows, S = 16 and an odd S, the ``[S, S]`` window bias, and fp32;
    time kernel, plain version and ``scaled_dot_product_attention`` with a
    key mask on pre-transposed ``[B, N, S, Hd]`` inputs;
-5. serve — full-width Mistral-7B in bf16 with random weights made on the
+5. kernel K2 — hold the int8 weight-only matmul against its plain
+   version elementwise within ``quantized_matmul.comparison_tolerance``:
+   Mistral-7B decode rows M = 1 / 8 / 32 / 128 at every projection shape
+   (4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x 4096), a ragged
+   prefill M = 1040, the BERT-base embed products (512 x 288 rows at
+   768 x 3072 and 3072 x 768), M = 5, an all-zero weight column and one
+   fp32 case; time kernel, plain version and a ``torch.matmul`` on the
+   weight dequantized to bf16 (a yardstick that is not the same function),
+   cycling weight copies so each launch finds its weight cold in L2;
+6. serve — full-width Mistral-7B in bf16 with random weights made on the
    card: ``TorchGenerator.generate`` on 16 prompts of 16..1024 tokens
    (``max_num_seqs=8``; 64 new tokens each, 14 greedy + 2 sampled), then
    three chat completions through ``chat_server`` on a free localhost
    port. K1's launch count must equal layers x forward passes and its
    plain op must not run at all;
-6. identity — full width at depth 2 in fp32: greedy tokens from the engine
-   on K1 equal those from the engine on its plain op;
-7. embed — the stages of ``embedding_worker`` on the card: 2048 texts of
-   120..260 words written to a jsonl file, read by the ``jsonl`` dataset
-   (batch 512), a ``TorchEncoder`` over full-width, full-depth BERT-base
-   in bf16 (random weights made on the card from seed 0, the
-   ``WhitespaceTokenizer``), the ``mean`` pooler, the ``full_sequence``
-   embedder and the ``numpy`` writer; one warm-up pass, one timed pass.
-   The output must be ``[2048, 768]`` fp32, finite and read back from its
-   files; K3 must launch 12 x the batches dispatched and its plain
-   version never;
-8. embed identity — full width at depth 2 in fp32: pooled embeddings
-   through K3 and through its plain version agree elementwise within
-   ``1e-4 * |ref| + 1e-5``.
+7. serve int8 — the same through ``TorchGenerator(quantization='int8')``,
+   the weights quantized on the card; K2 must launch 7 x layers x
+   forward passes and its plain version never, K1 as in phase 6;
+8. identity — full width at depth 2 in fp32: greedy tokens from the engine
+   on K1 equal those from the engine on its plain op; then, int8 weights,
+   greedy tokens on K2 equal those on its plain version;
+9. quantize — the int8 codes and scales of the full-width gate kernel of
+   layer 0, quantized on the card, equal bitwise those the CPU makes;
+10. embed — the stages of ``embedding_worker`` on the card: 2048 texts of
+    120..260 words written to a jsonl file, read by the ``jsonl`` dataset
+    (batch 512), a ``TorchEncoder`` over full-width, full-depth BERT-base
+    in bf16 (random weights made on the card from seed 0, the
+    ``WhitespaceTokenizer``), the ``mean`` pooler, the ``full_sequence``
+    embedder and the ``numpy`` writer; one warm-up pass, one timed pass.
+    The output must be ``[2048, 768]`` fp32, finite and read back from its
+    files; K3 must launch 12 x the batches dispatched and its plain
+    version never;
+11. embed int8 — the same with ``TorchEncoder(quantization='int8')``; K2
+    must launch 6 x 12 x the batches and its plain version never;
+12. embed identity — full width at depth 2 in fp32: pooled embeddings
+    through K3 and through its plain version agree elementwise within
+    ``1e-4 * |ref| + 1e-5``.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
-the repository beside this file, it exits nonzero and prints no result.
+The last three lines of standard output are ``{"kernels": [...]}`` (K1,
+K3, K2 with their cases), the card's name and power limit as
+``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+rest of the repository beside this file, it exits nonzero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -389,6 +410,131 @@ def phase_encoder_kernel(torch, tea):
 
 
 # --------------------------------------------------------------- phase 5
+# K2 cases: Mistral-7B decode rows at every projection shape, a ragged
+# prefill, the BERT-base embed products, M = 5, a zero weight column, fp32.
+K2_DECODE_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+K2_HEADLINE = 'decode_8x4096x14336'
+# (name, M, K, N, dtype name, zero weight column, timed launches)
+K2_OTHER_CASES = (
+    ('prefill_1040x4096x14336', 1040, 4096, 14336, 'bfloat16', False, 10),
+    ('embed_147456x768x3072', 512 * 288, 768, 3072, 'bfloat16', False, 3),
+    ('embed_147456x3072x768', 512 * 288, 3072, 768, 'bfloat16', False, 3),
+    ('rows_5x4096x4096', 5, 4096, 4096, 'bfloat16', False, 50),
+    ('zero_column_8x4096x1024', 8, 4096, 1024, 'bfloat16', True, 50),
+    ('fp32_32x4096x4096', 32, 4096, 4096, 'float32', False, 20),
+)
+# Weight bytes cycled through while timing, so every launch finds its
+# weight cold in the 50 MB L2 cache, as a decode step over 32 layers does.
+K2_COLD_BYTES = 256 << 20
+
+
+def k2_case(torch, tq, gen, m, k, n, dtype, zero_column=False):
+    """x [m, k] ~ N(0, 1) in ``dtype`` and int8 quantizations of
+    independent N(0, 0.02) weights [k, n] (enough copies to exceed the L2
+    cache), made on the card; with ``zero_column`` weight column 3 is all
+    zero (scale 1, codes 0)."""
+    x = torch.randn((m, k), generator=gen, device=DEVICE).to(dtype)
+    copies = max(1, min(16, -(-K2_COLD_BYTES // (k * n))))
+    weights = []
+    for _ in range(copies):
+        w = torch.randn((k, n), generator=gen, device=DEVICE).mul_(0.02)
+        if zero_column:
+            w[:, 3] = 0.0
+        qt = tq.quantize_int8(w, dtype)
+        weights.append((qt.q, qt.scale))
+        del w
+    return dict(x=x, weights=weights, zero_column=zero_column)
+
+
+def run_k2_case(torch, tqm, name, case, iters):
+    x, weights = case['x'], case['weights']
+    q, scale = weights[0]
+    m, k = x.shape
+    n = q.shape[1]
+    out = tqm.int8_matmul(x, q, scale)
+    ref = tqm.int8_matmul_reference(x, q, scale)
+    tol = tqm.comparison_tolerance(x, q, scale)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        fail(f'K2 case {name}: non-finite output')
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    err_over_tol = float((diff / tol).max())
+    if case['zero_column'] and (
+        float(scale.reshape(-1)[3]) != 1.0 or (q[:, 3] != 0).any() or (out[:, 3] != 0).any()
+    ):
+        fail(f'K2 case {name}: the all-zero weight column is not scale 1, '
+             'codes 0, output exactly 0')
+    del out, ref, tol, diff
+    turn = iter(range(1 << 30))
+
+    def cycled(fn):
+        def call():
+            wq, ws = weights[next(turn) % len(weights)]
+            return fn(wq, ws)
+        return call
+
+    kernel_ms = cuda_ms(torch, cycled(lambda wq, ws: tqm.int8_matmul(x, wq, ws)), iters)
+    plain_ms = cuda_ms(
+        torch, lambda: tqm.int8_matmul_reference(x, q, scale), max(2, iters // 5),
+        warmup=1,
+    )
+    # The yardstick: a plain torch.matmul on the weight dequantized to x's
+    # dtype. It reads twice the weight bytes (bf16) and rounds the weight
+    # before the product, so it is not the same function.
+    dequantized = [(wq.to(x.dtype) * ws.to(x.dtype)) for wq, ws in weights]
+    turn_d = iter(range(1 << 30))
+    yardstick_ms = cuda_ms(
+        torch, lambda: torch.matmul(x, dequantized[next(turn_d) % len(dequantized)]),
+        iters,
+    )
+    del dequantized
+    elt = x.element_size()
+    bytes_ = m * k * elt + k * n + 4 * n + m * n * elt
+    flops = 2 * m * k * n
+    byte_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS[str(x.dtype).removeprefix('torch.')] * 1e3
+    result = dict(
+        case=name, m=m, k=k, n=n, dtype=str(x.dtype).removeprefix('torch.'),
+        max_abs_err=err, err_over_tol=err_over_tol,
+        tol={'rel': tqm.TOL_REL if x.dtype == torch.bfloat16 else 0.0,
+             'order': f'{tqm.ORDER} * sqrt(K) * 2**-24 * scale * (|x| @ |q|)',
+             'abs': tqm.TOL_ABS},
+        ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+        yardstick_ms=yardstick_ms, bound_ms=max(byte_ms, op_ms),
+        bound_by='bytes' if byte_ms >= op_ms else 'operations',
+        bytes=bytes_, flops=flops, weight_copies=len(weights),
+        split_k=tqm.launch_shape(m, k, n, torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)[1],
+    )
+    log(f'[kernel K2] {json.dumps(result)}')
+    if not err_over_tol <= 1.0:
+        fail(f'K2 case {name}: |out - ref| exceeds its elementwise tolerance '
+             f'(worst element at {err_over_tol:.3f} x; max abs err {err})')
+    return result
+
+
+def phase_int8_kernel(torch, tq, tqm):
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    bf16 = torch.bfloat16
+    results = []
+    for m in (1, 8, 32, 128):
+        for k, n in K2_DECODE_SHAPES:
+            case = k2_case(torch, tq, gen, m, k, n, bf16)
+            results.append(run_k2_case(torch, tqm, f'decode_{m}x{k}x{n}', case, 50))
+            del case
+    for name, m, k, n, dtype, zero, iters in K2_OTHER_CASES:
+        case = k2_case(torch, tq, gen, m, k, n, getattr(torch, dtype), zero_column=zero)
+        results.append(run_k2_case(torch, tqm, name, case, iters))
+        del case
+        torch.cuda.empty_cache()
+    worst = max(results, key=lambda r: r['err_over_tol'])
+    log(f'[kernel K2] {len(results)} cases within tolerance; worst {worst["case"]} '
+        f'at {worst["err_over_tol"]:.4f} of its bound')
+    return results
+
+
+# ------------------------------------------------------------ phases 6-7
 def smoke_prompts(rng, n, lo, hi):
     words = [f'w{i}' for i in range(5000)]
     lengths = np.linspace(lo, hi, n).astype(int) - 2  # + CLS and SEP
@@ -408,7 +554,10 @@ def post_completion(port, i):
         return resp.status, json.loads(resp.read())
 
 
-def phase_serve(torch, tpa, card, cfg):
+def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
+    """Serve 16 prompts and 3 chat completions; with ``quantization``
+    the generator quantizes its weights on the card and K2 (``tqm``)
+    serves every projection."""
     from distllm_tpu_torch.chat_server import ChatServer
     from distllm_tpu_torch.generate.engine import SamplingParams
     from distllm_tpu_torch.generate.generators.torch_backend import (
@@ -416,17 +565,21 @@ def phase_serve(torch, tpa, card, cfg):
         TorchGeneratorConfig,
     )
 
+    tag = f'serve {quantization}' if quantization else 'serve'
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     generator = TorchGenerator(TorchGeneratorConfig(
         model=cfg, temperature=0.0, max_tokens=64, block_size=BLOCK_SIZE,
         num_blocks=1024, max_num_seqs=8, max_model_len=2048, seed=0,
-        device=DEVICE,
+        device=DEVICE, quantization=quantization,
     ))
     torch.cuda.synchronize()
-    log(f'[serve] random init ({cfg.num_layers} layers, hidden '
-        f'{cfg.hidden_size}, {cfg.dtype}) on the card: '
-        f'{time.perf_counter() - t0:.3f} s, '
-        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    gib = torch.cuda.memory_allocated() / 2**30
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f'[{tag}] random init{" + quantization" if quantization else ""} '
+        f'({cfg.num_layers} layers, hidden {cfg.hidden_size}, {cfg.dtype}) on '
+        f'the card: {time.perf_counter() - t0:.3f} s, {gib:.2f} GiB allocated '
+        f'(weights and KV pool), peak {peak_gib:.2f} GiB')
     engine = generator.engine
     prompts = smoke_prompts(np.random.default_rng(1), 16, 16, 1024)
     sampling = [SamplingParams(temperature=0.0, max_tokens=64)] * 14 + [
@@ -437,6 +590,9 @@ def phase_serve(torch, tpa, card, cfg):
     passes_before = engine.stats['forward_passes']
     tpa.ragged_paged_attention.launches = 0
     tpa.ragged_paged_attention_reference.launches = 0
+    if tqm is not None:
+        tqm.int8_matmul.launches = 0
+        tqm.int8_matmul_reference.launches = 0
     t0 = time.perf_counter()
     outputs = generator.generate(prompts, sampling)
     torch.cuda.synchronize()
@@ -448,7 +604,7 @@ def phase_serve(torch, tpa, card, cfg):
     if not all(isinstance(o, str) and o for o in outputs):
         fail('empty generator output')
     tok_s = tele['generated_tokens'] / wall_s
-    log(f'[serve] generator: 16 prompts (16..1024 tokens), 1024 new tokens in '
+    log(f'[{tag}] generator: 16 prompts (16..1024 tokens), 1024 new tokens in '
         f'{wall_s:.3f} s = {tok_s:.1f} tok/s on {card}; telemetry {json.dumps(tele)}')
 
     with ChatServer(generator, port=0) as server:
@@ -479,26 +635,38 @@ def phase_serve(torch, tpa, card, cfg):
             fail(f'chat completion {i}: status {status}, body {body}')
     if health.get('status') != 'ok':
         fail(f'/health answered {health}')
-    log('[serve] chat_server: 3 completions answered 200, /health ok')
+    log(f'[{tag}] chat_server: 3 completions answered 200, /health ok')
 
     passes = engine.stats['forward_passes'] - passes_before
     launches = tpa.ragged_paged_attention.launches
     plain = tpa.ragged_paged_attention_reference.launches
-    log(f'[serve] ragged_paged_attention launches {launches} = '
+    log(f'[{tag}] ragged_paged_attention launches {launches} = '
         f'{cfg.num_layers} layers x {passes} forward passes; plain op '
         f'launches {plain}')
     if launches <= 0 or launches != cfg.num_layers * passes:
         fail(f'kernel launches {launches} != {cfg.num_layers} x {passes}')
     if plain != 0:
         fail(f'the plain op ran {plain} times on the serving path')
+    result = dict(tokens_per_s=tok_s, wall_s=wall_s, launches=launches,
+                  forward_passes=passes, telemetry=tele, gib=gib,
+                  peak_gib=peak_gib)
+    if tqm is not None:
+        k2, k2_plain = tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches
+        log(f'[{tag}] int8_matmul launches {k2} = 7 projections x '
+            f'{cfg.num_layers} layers x {passes} forward passes; plain '
+            f'version launches {k2_plain}')
+        if k2 <= 0 or k2 != 7 * cfg.num_layers * passes:
+            fail(f'K2 launches {k2} != 7 x {cfg.num_layers} x {passes}')
+        if k2_plain != 0:
+            fail(f'the plain int8 matmul ran {k2_plain} times on the serving path')
+        result['k2_launches'] = k2
     generator.shutdown()
     del generator, engine
     torch.cuda.empty_cache()
-    return dict(tokens_per_s=tok_s, wall_s=wall_s, launches=launches,
-                forward_passes=passes, telemetry=tele)
+    return result
 
 
-# --------------------------------------------------------------- phase 6
+# ------------------------------------------------------------ phases 8-9
 def phase_identity(torch, tpa, cfg):
     from distllm_tpu_torch.generate.engine import (
         EngineConfig,
@@ -547,7 +715,90 @@ def phase_identity(torch, tpa, cfg):
     torch.cuda.empty_cache()
 
 
-# --------------------------------------------------------------- phase 7
+def phase_identity_int8(torch, tqm, cfg):
+    """fp32, full width, depth 2, int8 weights quantized on the card:
+    greedy tokens through K2 equal those through its plain version."""
+    from distllm_tpu_torch.generate.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distllm_tpu_torch.models import mistral
+
+    params = mistral.init(
+        cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE
+    )
+    rng = np.random.default_rng(2)
+    prompts = [
+        [int(t) for t in rng.integers(4, cfg.vocab_size, size=n)]
+        for n in (16, 100, 300, 520, 37, 800)
+    ]
+    sampling = SamplingParams(temperature=0.0, max_tokens=24)
+    engine_cfg = EngineConfig(
+        block_size=BLOCK_SIZE, num_blocks=256, max_num_seqs=4,
+        max_model_len=1024, quantization='int8',
+    )
+    outs = {}
+    for backend in ('auto', 'reference'):
+        engine = LLMEngine(
+            cfg, params, None, engine_cfg, device=DEVICE, qmm_backend=backend
+        )
+        tqm.int8_matmul.launches = 0
+        tqm.int8_matmul_reference.launches = 0
+        outs[backend] = engine.generate_ids(prompts, sampling)
+        passes = engine.telemetry['forward_passes']
+        counted = (
+            tqm.int8_matmul.launches if backend == 'auto'
+            else tqm.int8_matmul_reference.launches
+        )
+        other = (
+            tqm.int8_matmul_reference.launches if backend == 'auto'
+            else tqm.int8_matmul.launches
+        )
+        if counted != 7 * cfg.num_layers * passes or other != 0:
+            fail(f'int8 identity ({backend}): {counted} int8 products for '
+                 f'{passes} passes ({other} through the other tier)')
+        engine.shutdown()
+    same = outs['auto'] == outs['reference']
+    log(f'[identity int8] fp32 depth-2 full width, int8 weights quantized on '
+        f'the card, 6 prompts x 24 greedy tokens: K2 vs plain version '
+        f'identical={same}')
+    if not same:
+        fail(f'fp32 int8 greedy tokens differ: K2 {outs["auto"]} vs plain '
+             f'{outs["reference"]}')
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_quantize(torch, tq):
+    """The int8 codes and scales of one full-width Mistral-7B leaf (gate,
+    layer 0), quantized on the card inside ``quantize_pytree``, equal
+    bitwise those the CPU makes from the same bf16 weight."""
+    from distllm_tpu_torch.models import mistral
+    from distllm_tpu_torch.models.mistral import MistralConfig
+
+    params = mistral.init(
+        MistralConfig(num_layers=1),
+        torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE,
+    )
+    host = params['layers']['gate']['kernel'].cpu()
+    t0 = time.perf_counter()
+    card = tq.quantize_pytree(params, mode='int8', delete_source=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    gate = card['layers']['gate']['kernel']
+    cpu = tq.quantize_int8(host, 'bfloat16')
+    same = torch.equal(gate.q.cpu(), cpu.q) and torch.equal(gate.scale.cpu(), cpu.scale)
+    log(f'[quantize] gate layer 0 {tuple(host.shape)} bf16: card codes and '
+        f'scales equal the CPU\'s bitwise={same} (card quantize_pytree of the '
+        f'1-layer tree {card_s:.3f} s)')
+    if not same:
+        fail('card-made int8 codes or scales differ from the CPU-made ones')
+    del params, card, gate
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------- phases 10-11
 def write_corpus(path: Path) -> None:
     """2048 texts of 120..259 words from a 5000-word vocabulary, seed 0 —
     the JAX package's embed benchmark corpus (``bench.py``) — as jsonl."""
@@ -560,7 +811,10 @@ def write_corpus(path: Path) -> None:
             fh.write(json.dumps({'text': text, 'id': i}) + '\n')
 
 
-def phase_embed(torch, tea, card, tmp: Path):
+def phase_embed(torch, tea, card, tmp: Path, tqm=None, quantization=None):
+    """The embed stages over BERT-base bf16; with ``quantization`` the
+    encoder quantizes the dense kernels on the card and K2 (``tqm``)
+    serves every projection."""
     from distllm_tpu_torch.embed import (
         get_dataset,
         get_embedder,
@@ -572,8 +826,10 @@ def phase_embed(torch, tea, card, tmp: Path):
     from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
     from distllm_tpu_torch.timer import Timer
 
+    tag = f'embed {quantization}' if quantization else 'embed'
     corpus_file = tmp / 'corpus.jsonl'
-    write_corpus(corpus_file)
+    if not corpus_file.exists():
+        write_corpus(corpus_file)
     cfg = bert.BertConfig()  # S-PubMedBert-MS-MARCO widths: BERT-base
     with Timer('loaded-encoder', corpus_file.name):
         params = bert.init(
@@ -585,6 +841,7 @@ def phase_embed(torch, tea, card, tmp: Path):
                 vocab_size=cfg.vocab_size, model_max_length=512
             ),
             embedding_size=cfg.hidden_size, device=DEVICE,
+            quantization=quantization,
         )
         torch.cuda.synchronize()
     dataset = get_dataset({'name': 'jsonl', 'batch_size': EMBED_BATCH})
@@ -600,6 +857,9 @@ def phase_embed(torch, tea, card, tmp: Path):
     # The main path: counts to 0 just before, read just after.
     tea.encoder_attention.launches = 0
     tea.encoder_attention_reference.launches = 0
+    if tqm is not None:
+        tqm.int8_matmul.launches = 0
+        tqm.int8_matmul_reference.launches = 0
     t0 = time.perf_counter()
     with Timer('computed-embeddings', corpus_file.name):
         result = embedder.embed(
@@ -608,7 +868,7 @@ def phase_embed(torch, tea, card, tmp: Path):
     wall_s = time.perf_counter() - t0
     launches = tea.encoder_attention.launches
     plain = tea.encoder_attention_reference.launches
-    shard = tmp / 'shard'
+    shard = tmp / f'shard_{quantization or "float"}'
     with Timer('wrote-embeddings', corpus_file.name):
         writer.write(shard, result)
 
@@ -629,26 +889,37 @@ def phase_embed(torch, tea, card, tmp: Path):
     per_s = EMBED_TEXTS / wall_s
     padding = 1.0 - stats['tokens_real'] / stats['tokens_padded']
     buckets = {int(k): v for k, v in sorted(stats['bucket_batches'].items())}
-    log(f'[embed] BERT-base {cfg.dtype} ({cfg.num_layers} layers, hidden '
+    log(f'[{tag}] BERT-base {cfg.dtype} ({cfg.num_layers} layers, hidden '
         f'{cfg.hidden_size}), {EMBED_TEXTS} texts, batch {EMBED_BATCH}: '
         f'{per_s:.1f} embeddings/s ({wall_s:.3f} s; warm-up pass '
         f'{warm_s:.3f} s) on {card}; buckets {json.dumps(buckets)}; padding '
         f'share {padding:.4f}; output {emb.shape} float32, written and read back')
-    log(f'[embed] encoder_attention launches {launches} = {cfg.num_layers} '
+    log(f'[{tag}] encoder_attention launches {launches} = {cfg.num_layers} '
         f'layers x {batches} batches; plain version launches {plain}')
     if launches <= 0 or launches != cfg.num_layers * batches:
         fail(f'K3 launches {launches} != {cfg.num_layers} x {batches} batches')
     if plain != 0:
         fail(f'the plain encoder attention ran {plain} times on the embed path')
+    out = dict(embeddings_per_s=per_s, wall_s=wall_s, launches=launches,
+               batches=batches, buckets=buckets, padding_share=padding,
+               corpus=corpus)
+    if tqm is not None:
+        k2, k2_plain = tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches
+        log(f'[{tag}] int8_matmul launches {k2} = 6 projections x '
+            f'{cfg.num_layers} layers x {batches} batches; plain version '
+            f'launches {k2_plain}')
+        if k2 <= 0 or k2 != 6 * cfg.num_layers * batches:
+            fail(f'K2 launches {k2} != 6 x {cfg.num_layers} x {batches} batches')
+        if k2_plain != 0:
+            fail(f'the plain int8 matmul ran {k2_plain} times on the embed path')
+        out['k2_launches'] = k2
     encoder.shutdown()
     del params, encoder, result
     torch.cuda.empty_cache()
-    return dict(embeddings_per_s=per_s, wall_s=wall_s, launches=launches,
-                batches=batches, buckets=buckets, padding_share=padding,
-                corpus=corpus)
+    return out
 
 
-# --------------------------------------------------------------- phase 8
+# -------------------------------------------------------------- phase 12
 def phase_embed_identity(torch, tea, corpus):
     from distllm_tpu_torch.embed import get_pooler
     from distllm_tpu_torch.embed.embedders.full_sequence import compute_embeddings
@@ -706,6 +977,8 @@ def main() -> None:
     from distllm_tpu_torch.ops import _build
     from distllm_tpu_torch.ops import encoder_attention as tea
     from distllm_tpu_torch.ops import paged_attention as tpa
+    from distllm_tpu_torch.ops import quantization as tq
+    from distllm_tpu_torch.ops import quantized_matmul as tqm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -728,19 +1001,28 @@ def main() -> None:
             if 'registers' in line or 'Compiling entry' in line or 'spill' in line:
                 log(f'[build] {name}: {line.strip()}')
 
-    # 3. K1 vs its plain version; 4. K3 vs its plain version
+    # 3. K1, 4. K3 and 5. K2 against their plain versions
     cases = phase_kernel(torch, tpa)
     k3_cases = phase_encoder_kernel(torch, tea)
+    k2_cases = phase_int8_kernel(torch, tq, tqm)
     from distllm_tpu_torch.models.mistral import MistralConfig
 
-    # 5. serve: Mistral-7B widths, 32 layers, bf16
+    # 6. serve: Mistral-7B widths, 32 layers, bf16
     serve = phase_serve(torch, tpa, smi, MistralConfig())
-    # 6. identity: full width, depth 2, fp32
+    # 7. serve int8: the same, weights int8-quantized on the card
+    serve_q = phase_serve(torch, tpa, smi, MistralConfig(), tqm=tqm, quantization='int8')
+    # 8. identity: full width, depth 2, fp32, K1 and then K2 vs plain
     phase_identity(torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
+    phase_identity_int8(torch, tqm, MistralConfig(num_layers=2, dtype='float32'))
+    # 9. quantize on the card: one full-width leaf, bitwise vs the CPU
+    phase_quantize(torch, tq)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_embed_') as tmp:
-        # 7. embed: BERT-base widths, 12 layers, bf16
+        # 10. embed: BERT-base widths, 12 layers, bf16
         embed = phase_embed(torch, tea, smi, Path(tmp))
-        # 8. embed identity: full width, depth 2, fp32
+        # 11. embed int8: the same, dense kernels int8-quantized on the card
+        embed_q = phase_embed(torch, tea, smi, Path(tmp), tqm=tqm, quantization='int8')
+        embed_q.pop('corpus')
+        # 12. embed identity: full width, depth 2, fp32
         phase_embed_identity(torch, tea, embed.pop('corpus'))
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
@@ -748,6 +1030,7 @@ def main() -> None:
     # case is listed under 'cases'.
     head = next(c for c in cases if c['case'].startswith('serve_decode'))
     k3_head = next(c for c in k3_cases if c['case'] == 'embed_512x288')
+    k2_head = next(c for c in k2_cases if c['case'] == K2_HEADLINE)
     kernels = [{
         'name': 'ragged_paged_attention',
         'route': 'cuda',
@@ -780,11 +1063,35 @@ def main() -> None:
         'library_ms': k3_head['library_ms'],
         'timed_case': k3_head['case'],
         'cases': k3_cases,
+    }, {
+        'name': 'int8_matmul',
+        'route': 'cuda',
+        'source': 'distllm_tpu_torch/csrc/int8_matmul.cu',
+        'replaces': 'distllm_tpu/ops/quantized_matmul.py:119',
+        'launches': serve_q['k2_launches'],
+        'embed_launches': embed_q['k2_launches'],
+        'max_abs_err': max(c['max_abs_err'] for c in k2_cases),
+        'err_over_tol': max(c['err_over_tol'] for c in k2_cases),
+        'tol': k2_head['tol'],
+        'ms': k2_head['ms'],
+        'plain_ms': k2_head['plain_ms'],
+        'bound_ms': k2_head['bound_ms'],
+        'bound_by': k2_head['bound_by'],
+        # No one PyTorch call computes W8A16 (x @ int8 codes, scale on the
+        # fp32 sum); the yardstick is torch.matmul on the weight
+        # dequantized to bf16, which reads twice the weight bytes.
+        'library_ms': None,
+        'yardstick_ms': k2_head['yardstick_ms'],
+        'yardstick': 'torch.matmul(x, bf16 dequantized weight)',
+        'timed_case': k2_head['case'],
+        'cases': k2_cases,
     }]
-    log(f'[summary] {smi}: {serve["tokens_per_s"]:.1f} tok/s, '
-        f'{embed["embeddings_per_s"]:.1f} embeddings/s, '
+    log(f'[summary] {smi}: {serve["tokens_per_s"]:.1f} tok/s bf16, '
+        f'{serve_q["tokens_per_s"]:.1f} tok/s int8 ({serve["gib"]:.2f} vs '
+        f'{serve_q["gib"]:.2f} GiB allocated); {embed["embeddings_per_s"]:.1f} '
+        f'embeddings/s bf16, {embed_q["embeddings_per_s"]:.1f} int8; '
         f'{time.perf_counter() - t_start:.1f} s total')
-    if not all(math.isfinite(c['ms']) for c in cases + k3_cases):
+    if not all(math.isfinite(c['ms']) for c in cases + k3_cases + k2_cases):
         fail('non-finite kernel time')
     print(json.dumps({'kernels': kernels}))
     print(smi)

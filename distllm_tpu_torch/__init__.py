@@ -11,13 +11,17 @@ Every entry point runs on ``cuda`` unless the caller passes
 (:func:`distllm_tpu_torch.utils.resolve_device`).
 
 Layer map of the ported slices (Mistral-family paged-KV serving; the
-BERT-family embedding pipeline):
+BERT-family embedding pipeline; int8 / nf4 weight-only quantization on
+both):
 
 - ``utils``                 — dataclass config base, dtypes, device resolution
 - ``ops.paged_attention``   — ragged paged attention: plain PyTorch op plus
   the hand-written CUDA kernel (``csrc/ragged_paged_attention.cu``)
 - ``ops.encoder_attention`` — encoder attention: plain PyTorch version plus
   the hand-written CUDA kernel (``csrc/encoder_attention.cu``)
+- ``ops.quantization``      — ``QTensor``, int8 / nf4 quantizers on the device
+- ``ops.quantized_matmul``  — int8 weight-only matmul: plain PyTorch version
+  plus the hand-written CUDA kernel (``csrc/int8_matmul.cu``)
 - ``ops.sampling``          — logit filtering and counter-based sampling
 - ``models``                — Mistral decoder over the paged KV cache, the
   BERT encoder, tokenizers, checkpoint reading

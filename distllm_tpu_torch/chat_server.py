@@ -12,6 +12,9 @@ metrics and the debug routes wait for later slices.
 Run (random-init Mistral weights on the GPU; ``--num-layers`` cuts depth)::
 
     python -m distllm_tpu_torch.chat_server --port 8000 --num-layers 32
+
+``--quantization int8`` serves the weights int8-quantized on the GPU
+(every projection through kernel K2); ``nf4`` dequantizes per layer.
 """
 
 from __future__ import annotations
@@ -241,6 +244,10 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument('--max-num-seqs', type=int, default=16)
     parser.add_argument('--max-tokens', type=int, default=256)
     parser.add_argument('--temperature', type=float, default=0.5)
+    parser.add_argument(
+        '--quantization', choices=('int8', 'nf4'), default=None,
+        help='weight-only quantized serving (int8 runs through kernel K2)',
+    )
     args = parser.parse_args(argv)
     generator = TorchGenerator(TorchGeneratorConfig(
         model=MistralConfig(num_layers=args.num_layers, dtype=args.dtype),
@@ -251,6 +258,7 @@ def main(argv: list[str] | None = None) -> None:
         max_model_len=args.max_model_len,
         seed=args.seed,
         device=args.device,
+        quantization=args.quantization,
     ))
     server = ChatServer(generator, host=args.host, port=args.port).start()
     try:

@@ -4,7 +4,10 @@
 ``config.json``'s ``model_type`` picks the model; ``half_precision``
 picks bf16 activations (fp32 otherwise); the weights are read with
 ``models.loader`` and the tokenizer is the checkpoint's own HF tokenizer.
-Other model types and weight quantization are not ported yet and raise.
+``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
+bitsandbytes flag) quantizes the checkpoint's fp32 dense kernels on the
+device, as the JAX encoder quantizes its fp32 parameters, so the codes
+are the JAX package's. Other model types are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from distllm_tpu_torch.embed.encoders.base import TorchEncoder
 from distllm_tpu_torch.models import bert
 from distllm_tpu_torch.models.loader import read_checkpoint, read_hf_config
 from distllm_tpu_torch.models.tokenizer import HFTokenizer
+from distllm_tpu_torch.ops.quantization import normalize_mode
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
 
 
@@ -32,11 +36,7 @@ class AutoEncoderConfig(BaseConfig):
     quantization: 'bool | str' = False
 
     def validate(self) -> None:
-        if self.quantization:
-            raise NotImplementedError(
-                f'weight quantization ({self.quantization!r}) is not ported '
-                'to distllm_tpu_torch yet (ROADMAP A7, kernel K2)'
-            )
+        normalize_mode(self.quantization)
 
 
 class AutoEncoder(TorchEncoder):
@@ -55,8 +55,13 @@ class AutoEncoder(TorchEncoder):
             )
         model_cfg = bert.BertConfig.from_hf_config(hf_cfg)
         model_cfg.dtype = 'bfloat16' if config.half_precision else 'float32'
+        mode = normalize_mode(config.quantization)
         state = read_checkpoint(config.pretrained_model_name_or_path)
-        params = bert.params_from_hf(state, model_cfg, device=device)
+        # Quantized: the dense kernels stay fp32 until the quantizer has
+        # read them (biases are cast to the activation dtype at use).
+        params = bert.params_from_hf(
+            state, model_cfg, device=device, dtype='float32' if mode else None
+        )
         tokenizer = HFTokenizer(
             config.tokenizer_name or config.pretrained_model_name_or_path,
             model_max_length=config.model_max_length
@@ -71,4 +76,5 @@ class AutoEncoder(TorchEncoder):
             tokenizer=tokenizer,
             embedding_size=model_cfg.hidden_size,
             device=device,
+            quantization=mode,
         )

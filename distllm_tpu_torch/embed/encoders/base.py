@@ -15,6 +15,11 @@ from typing import Callable, Protocol, runtime_checkable
 import torch
 
 from distllm_tpu_torch.models.tokenizer import TokenBatch
+from distllm_tpu_torch.ops.quantization import (
+    leaves,
+    normalize_mode,
+    quantize_pytree,
+)
 from distllm_tpu_torch.utils import resolve_device
 
 
@@ -34,21 +39,16 @@ class Encoder(Protocol):
     ) -> Callable[[TokenBatch], torch.Tensor]: ...
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for value in tree.values():
-            yield from _leaves(value)
-    else:
-        yield tree
-
-
 class TorchEncoder:
     """Concrete encoder driving a functional model's ``apply``:
     ``apply_fn(params, model_cfg, ids, mask) -> [B, S, H]``.
 
     ``device=None`` means CUDA and raises without it; the parameters must
     already live on that device (``bert.init`` / ``params_from_*`` put
-    them there).
+    them there). ``quantization`` ('int8' / 'nf4'; ``True`` means nf4)
+    quantizes the large dense kernels on that device at construction,
+    with the model dtype as the dequantization dtype; int8 ones then run
+    through kernel K2.
     """
 
     def __init__(
@@ -60,14 +60,21 @@ class TorchEncoder:
         tokenizer,
         embedding_size: int,
         device: 'str | torch.device | None' = None,
+        quantization: 'bool | str | None' = None,
     ) -> None:
         self.device = resolve_device(device)
-        for leaf in _leaves(params):
+        for leaf in leaves(params):
             if leaf.device.type != self.device.type:
                 raise ValueError(
                     f'encoder parameters live on {leaf.device}, the encoder '
                     f'runs on {self.device}'
                 )
+        self.quantization = normalize_mode(quantization)
+        if self.quantization:
+            params = quantize_pytree(
+                params, mode=self.quantization,
+                out_dtype=getattr(model_cfg, 'dtype', 'bfloat16'),
+            )
         self.config = config
         self.model_cfg = model_cfg
         self.params = params

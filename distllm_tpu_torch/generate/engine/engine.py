@@ -13,6 +13,10 @@
   stay on the device and the host fetches them once per window.
 - **preemption**: when the pool runs dry mid-decode the youngest request
   is recompute-preempted (blocks freed, re-prefilled on readmission).
+- **weight-only quantization** (``EngineConfig.quantization``): the
+  engine quantizes its parameters once at construction (int8 projections
+  then run through kernel K2, nf4 ones dequantize per layer) and pins the
+  quantized-matmul tier into its model config.
 
 Later slices bring mixed batching, speculation, the prefix cache and its
 tiers, recovery, admission control, pipelining (this engine runs one
@@ -21,6 +25,7 @@ window at a time: ``pipeline_depth=1``) and observability.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import itertools
 import time
@@ -38,6 +43,11 @@ from distllm_tpu_torch.generate.engine.scheduler import (
 )
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import bucket_ladder, pick_bucket
+from distllm_tpu_torch.ops.quantization import (
+    MODES,
+    quantize_pytree,
+    quantized_nbytes,
+)
 from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
 
@@ -98,8 +108,8 @@ class Request:
 @dataclass
 class EngineConfig(BaseConfig):
     """Capacity knobs (vLLM analogues ``block_size``, ``num_blocks``,
-    ``max_num_seqs``, ``max_model_len``) plus the decode window length
-    and the prefill batch cap."""
+    ``max_num_seqs``, ``max_model_len``) plus the decode window length,
+    the prefill batch cap and weight-only quantization."""
 
     block_size: int = 16
     num_blocks: int = 256
@@ -107,8 +117,14 @@ class EngineConfig(BaseConfig):
     max_model_len: int = 1024
     decode_steps: int = 8
     max_prefill_batch: int = 8
+    quantization: str | None = None  # None | 'int8' | 'nf4' (weight-only)
 
     def validate(self) -> None:
+        if self.quantization not in (None, *MODES):
+            raise ValueError(
+                f'quantization must be None or one of {MODES}, got '
+                f'{self.quantization!r}'
+            )
         for name in ('block_size', 'max_num_seqs', 'max_model_len',
                      'decode_steps', 'max_prefill_batch'):
             if getattr(self, name) < 1:
@@ -126,7 +142,12 @@ class LLMEngine:
     without one). ``attn_backend='auto'`` attends through
     ``ops.paged_attention.ragged_paged_attention`` (the CUDA kernel on the
     GPU, the plain op on the CPU); ``'reference'`` pins the plain op on
-    any device.
+    any device. ``qmm_backend`` does the same for the int8 projections
+    (``ops.quantized_matmul``; ``None`` = the model config's). With ``config.quantization`` the float leaves of
+    ``params`` are quantized here; ``own_params=True`` lets the engine
+    drop each source leaf from the caller's dict as its codes appear
+    (device memory then peaks at the float weights, not weights plus
+    codes).
     """
 
     def __init__(
@@ -137,6 +158,8 @@ class LLMEngine:
         config: EngineConfig | None = None,
         device: 'str | torch.device | None' = None,
         attn_backend: str = 'auto',
+        qmm_backend: str | None = None,
+        own_params: bool = False,
     ) -> None:
         if attn_backend not in mistral.ATTN_BACKENDS:
             raise ValueError(
@@ -149,12 +172,24 @@ class LLMEngine:
                 f"params live on {params['embed'].device}, engine device is "
                 f'{self.device}'
             )
-        self.model_cfg = model_cfg
-        self.params = params
         self.tokenizer = tokenizer
         self.config = config or EngineConfig()
         self.attn_backend = attn_backend
         cfg = self.config
+        if cfg.quantization:
+            # Weight-only quantization (reference: bnb NF4 in the HF
+            # generator): codes live on the device; already quantized
+            # leaves pass through.
+            params = quantize_pytree(
+                params, mode=cfg.quantization, out_dtype=model_cfg.dtype,
+                delete_source=own_params,
+            )
+        # The quantized-matmul tier, resolved once and pinned into the
+        # model config every dispatch reads (which validates it).
+        self.qmm_backend = qmm_backend or model_cfg.qmm_backend
+        self.model_cfg = dataclasses.replace(model_cfg, qmm_backend=self.qmm_backend)
+        self.params = params
+        self.weight_bytes_quantized, self.weight_bytes_float = quantized_nbytes(params)
         self.kv = PagedKVCache(
             num_layers=model_cfg.num_layers,
             num_blocks=cfg.num_blocks,
@@ -473,6 +508,12 @@ class LLMEngine:
         loop_s = time.perf_counter() - start
         run = self.stats - before
         self.telemetry = {key: int(value) for key, value in run.items()}
+        self.telemetry.update(
+            quantization=self.config.quantization,
+            qmm_backend=self.qmm_backend,
+            weight_bytes_quantized=self.weight_bytes_quantized,
+            weight_bytes_float=self.weight_bytes_float,
+        )
         self.telemetry['loop_s'] = loop_s
         if loop_s > 0:
             self.telemetry['tokens_per_s'] = run['generated_tokens'] / loop_s

@@ -6,8 +6,10 @@ The counterpart of ``distllm_tpu.generate.generators.tpu_backend
 from a :class:`~distllm_tpu_torch.models.mistral.MistralConfig` — random
 weights made on the device from ``seed``, or params bridged from the JAX
 package (:func:`~distllm_tpu_torch.models.mistral.params_from_jax`).
-Loading an HF checkpoint and tokenizer waits until such files are in the
-repository.
+``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
+bitsandbytes flag) serves weight-only quantized weights: int8 projections
+run through kernel K2. Loading an HF checkpoint and tokenizer waits until
+such files are in the repository.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from distllm_tpu_torch.generate.engine import (
 )
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+from distllm_tpu_torch.ops.quantization import normalize_mode
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
 
 
@@ -43,6 +46,9 @@ class TorchGeneratorConfig(BaseConfig):
     max_model_len: int = 4096
     # Seed of the random weights when no params are given.
     seed: int = 0
+    # Weight-only quantized serving; True means nf4 (the reference's
+    # bitsandbytes NF4 load path).
+    quantization: 'bool | str | None' = None
     # None = the GPU (raises without one); 'cpu' only when asked.
     device: str | None = None
 
@@ -51,6 +57,7 @@ class TorchGeneratorConfig(BaseConfig):
             raise ValueError('max_tokens must be >= 1')
         if self.top_p < 0 or self.min_p < 0:
             raise ValueError('top_p and min_p must be >= 0')
+        normalize_mode(self.quantization)
 
     def engine_config(self) -> EngineConfig:
         return EngineConfig(
@@ -58,6 +65,7 @@ class TorchGeneratorConfig(BaseConfig):
             num_blocks=self.num_blocks,
             max_num_seqs=self.max_num_seqs,
             max_model_len=self.max_model_len,
+            quantization=normalize_mode(self.quantization),
         )
 
 
@@ -68,11 +76,15 @@ class TorchGenerator:
         params: dict | None = None,
         tokenizer=None,
         attn_backend: str = 'auto',
+        qmm_backend: str | None = None,
     ) -> None:
         self.config = config
         device = resolve_device(config.device)
         model_cfg = config.model
-        if params is None:
+        # Weights made here are ours: the engine may free each float leaf
+        # as its quantized codes appear.
+        own_params = params is None
+        if own_params:
             params = mistral.init(
                 model_cfg,
                 torch.Generator(device=device).manual_seed(config.seed),
@@ -84,7 +96,8 @@ class TorchGenerator:
         )
         self.engine = LLMEngine(
             model_cfg, params, self.tokenizer, config.engine_config(),
-            device=device, attn_backend=attn_backend,
+            device=device, attn_backend=attn_backend, qmm_backend=qmm_backend,
+            own_params=own_params,
         )
 
     def sampling_params(self) -> SamplingParams:

@@ -16,7 +16,9 @@ code casts its fp32 weights to the activation dtype at each use; casting
 once at load gives the same values. Dense products are ``torch.matmul``
 (the JAX package leaves them to XLA); attention goes through
 ``ops.encoder_attention`` — the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors.
+version for CPU tensors. A dense kernel may be an int8-quantized
+``QTensor`` (``TorchEncoder(quantization='int8')``); ``common.dense`` then
+sends it through kernel K2 (``ops.quantized_matmul``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from distllm_tpu_torch.ops.encoder_attention import (
     encoder_attention,
     encoder_attention_reference,
 )
+from distllm_tpu_torch.ops.quantization import is_jax_qtensor, qtensor_from_jax
 from distllm_tpu_torch.utils import BaseConfig, resolve_device, torch_dtype
 
 # 'auto': ops.encoder_attention (the kernel on CUDA, the plain version on
@@ -125,6 +128,13 @@ def _place(tree: dict, cfg: BertConfig, device, dtype) -> dict:
                           model_dtype or (path == '/layers' and key in _DENSE))
                 for key in shapes
             }
+        if is_jax_qtensor(node):  # codes and fp32 scales kept as they are
+            if tuple(node.shape) != shapes:
+                raise ValueError(
+                    f'{path}: shape {tuple(node.shape)} does not match the '
+                    f'config ({shapes})'
+                )
+            return qtensor_from_jax(node, device)
         value = torch.tensor(np.asarray(node, np.float32))
         if tuple(value.shape) != shapes:
             raise ValueError(
@@ -193,8 +203,9 @@ def params_from_jax(
 ) -> dict:
     """The weight bridge: a ``distllm_tpu.models.bert`` param tree (stacked
     layers) whose leaves the caller turned into numpy arrays, as the port's
-    parameters on ``device`` (``None`` = CUDA). Raises ``ValueError`` when
-    the tree does not match ``cfg``."""
+    parameters on ``device`` (``None`` = CUDA). A quantized JAX leaf keeps
+    its codes and fp32 scales. Raises ``ValueError`` when the tree does not
+    match ``cfg``."""
     return _place(tree, cfg, resolve_device(device), dtype)
 
 

@@ -4,7 +4,8 @@ BERT encoder use).
 
 Kernels keep the JAX layout ``[in, out]`` so bridged weights copy over
 unchanged, and the plain ``x @ W`` products stay ``torch.matmul`` — the
-JAX package leaves them to XLA too.
+JAX package leaves them to XLA too. int8-quantized kernels go through
+kernel K2 (``ops.quantized_matmul``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from distllm_tpu_torch.ops.quantization import QTensor
+from distllm_tpu_torch.ops.quantized_matmul import int8_dense
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -22,9 +26,27 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def dense(
-    x: torch.Tensor, kernel: torch.Tensor, bias: 'torch.Tensor | None' = None
+    x: torch.Tensor,
+    kernel: 'torch.Tensor | QTensor',
+    bias: 'torch.Tensor | None' = None,
+    qmm_backend: str = 'auto',
 ) -> torch.Tensor:
-    """``x @ kernel (+ bias)`` with ``kernel`` laid out ``[in, out]``."""
+    """``x @ kernel (+ bias)`` with ``kernel`` laid out ``[in, out]``.
+
+    ``kernel`` may be a quantized :class:`~distllm_tpu_torch.ops.
+    quantization.QTensor`. A 2-D int8 one is never dequantized: it goes
+    to :func:`~distllm_tpu_torch.ops.quantized_matmul.int8_dense` (kernel
+    K2 on the card) with the tier ``qmm_backend``. Any other (nf4) is
+    dequantized here, at the point of use, so a layer loop only ever holds
+    one layer's float weight.
+    """
+    if isinstance(kernel, QTensor):
+        if kernel.kind == 'int8' and kernel.q.dim() == 2:
+            y = int8_dense(x, kernel.q, kernel.scale, backend=qmm_backend)
+            if bias is not None:
+                y = y + bias.to(y.dtype)
+            return y
+        kernel = kernel.dequantize()
     y = torch.matmul(x, kernel.to(x.dtype))
     if bias is not None:
         y = y + bias.to(y.dtype)

@@ -12,7 +12,10 @@ stacked on a leading ``L`` axis, kernels laid out ``[in, out]``::
      'lm_head': [H, V]}            # absent when embeddings are tied
 
 so :func:`params_from_jax` copies a bridged JAX tree over unchanged, and
-the layer loop indexes ``[li]`` where the JAX code scans.
+the layer loop indexes ``[li]`` where the JAX code scans. A kernel may be
+a quantized ``QTensor`` (``ops.quantization``); indexing it slices codes
+and scales together, and ``common.dense`` sends a 2-D int8 one through
+kernel K2 with the tier ``MistralConfig.qmm_backend``.
 
 Serving paths: :func:`prefill_paged` (a prompt tail written into the pool,
 then attended through the paged cache), :func:`decode_step` and the
@@ -41,6 +44,8 @@ from distllm_tpu_torch.ops.paged_attention import (
     write_chunk_kv,
     write_token_kv,
 )
+from distllm_tpu_torch.ops.quantization import is_jax_qtensor, qtensor_from_jax
+from distllm_tpu_torch.ops.quantized_matmul import QMM_BACKENDS
 from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
 from distllm_tpu_torch.utils import BaseConfig, torch_dtype
 
@@ -67,11 +72,20 @@ class MistralConfig(BaseConfig):
     sliding_window: int | None = None
     tie_word_embeddings: bool = False
     attention_bias: bool = False
+    # Quantized-matmul tier of every projection over an int8 weight
+    # (``ops.quantized_matmul``): 'auto' = kernel K2 on CUDA, the plain
+    # version on the CPU; 'reference' = the plain version anywhere. The
+    # engine pins the value it resolved at construction.
+    qmm_backend: str = 'auto'
     dtype: str = 'bfloat16'
 
     def validate(self) -> None:
         if self.num_heads % self.num_kv_heads:
             raise ValueError('num_heads must be a multiple of num_kv_heads')
+        if self.qmm_backend not in QMM_BACKENDS:
+            raise ValueError(
+                f'qmm_backend must be one of {QMM_BACKENDS}, got {self.qmm_backend!r}'
+            )
         torch_dtype(self.dtype)
 
     @property
@@ -139,7 +153,10 @@ def params_from_jax(
     """The weight bridge: a ``distllm_tpu.models.mistral.init`` pytree whose
     leaves the caller already turned into numpy arrays, as torch tensors
     on ``device`` in ``dtype`` (default ``cfg.dtype``). The layout is
-    unchanged, so the port computes with exactly the JAX weights."""
+    unchanged, so the port computes with exactly the JAX weights. A
+    quantized JAX leaf (a ``QTensor`` with numpy ``q``/``scale``) becomes
+    the port's :class:`QTensor` with its codes and fp32 scales as they
+    are, never cast to ``dtype``."""
     dt = torch_dtype(dtype or cfg.dtype)
     device = torch.device(device)
     required = {'embed', 'layers', 'final_ln'}
@@ -151,6 +168,8 @@ def params_from_jax(
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
+        if is_jax_qtensor(node):
+            return qtensor_from_jax(node, device)
         return torch.tensor(np.asarray(node, np.float32), dtype=dt, device=device)
 
     params = convert(tree)
@@ -194,17 +213,25 @@ def _embed_tokens(params: dict, cfg: MistralConfig, input_ids: torch.Tensor):
     return params['embed'][input_ids.long()].to(torch_dtype(cfg.dtype))
 
 
-def _mlp_block(normed: torch.Tensor, lp: dict, li: int) -> torch.Tensor:
+def _mlp_block(
+    normed: torch.Tensor, lp: dict, li: int, cfg: MistralConfig
+) -> torch.Tensor:
     """Per-layer SwiGLU MLP of layer ``li``."""
-    gate = common.dense(normed, lp['gate']['kernel'][li])
-    up = common.dense(normed, lp['up']['kernel'][li])
-    return common.dense(common.silu(gate) * up, lp['down']['kernel'][li])
+    qb = cfg.qmm_backend
+    gate = common.dense(normed, lp['gate']['kernel'][li], qmm_backend=qb)
+    up = common.dense(normed, lp['up']['kernel'][li], qmm_backend=qb)
+    return common.dense(
+        common.silu(gate) * up, lp['down']['kernel'][li], qmm_backend=qb
+    )
 
 
-def _proj(x: torch.Tensor, lp: dict, name: str, li: int) -> torch.Tensor:
+def _proj(
+    x: torch.Tensor, lp: dict, name: str, li: int, cfg: MistralConfig
+) -> torch.Tensor:
     bias = lp[name].get('bias')
     return common.dense(
-        x, lp[name]['kernel'][li], None if bias is None else bias[li]
+        x, lp[name]['kernel'][li], None if bias is None else bias[li],
+        qmm_backend=cfg.qmm_backend,
     )
 
 
@@ -224,7 +251,7 @@ def logits(params: dict, cfg: MistralConfig, hidden: torch.Tensor) -> torch.Tens
         kernel = params['embed'].t()
     else:
         kernel = params['lm_head']
-    return common.dense(hidden, kernel).float()
+    return common.dense(hidden, kernel, qmm_backend=cfg.qmm_backend).float()
 
 
 def prefill_paged(
@@ -261,9 +288,9 @@ def prefill_paged(
     hd = cfg.head_size
     for li in range(cfg.num_layers):
         normed = _norm(x, lp['attn_ln']['scale'][li], cfg)
-        q = _proj(normed, lp, 'q', li).reshape(b, s, cfg.num_heads, hd)
-        k = _proj(normed, lp, 'k', li).reshape(b, s, cfg.num_kv_heads, hd)
-        v = _proj(normed, lp, 'v', li).reshape(b, s, cfg.num_kv_heads, hd)
+        q = _proj(normed, lp, 'q', li, cfg).reshape(b, s, cfg.num_heads, hd)
+        k = _proj(normed, lp, 'k', li, cfg).reshape(b, s, cfg.num_kv_heads, hd)
+        v = _proj(normed, lp, 'v', li, cfg).reshape(b, s, cfg.num_kv_heads, hd)
         q = common.apply_rope(q, cos, sin, positions)
         k = common.apply_rope(k, cos, sin, positions)
         write_chunk_kv(
@@ -274,9 +301,10 @@ def prefill_paged(
             positions, q_lens=tail_lens, sliding_window=cfg.sliding_window,
         )
         x = x + common.dense(
-            attn.reshape(b, s, cfg.num_heads * hd), lp['o']['kernel'][li]
+            attn.reshape(b, s, cfg.num_heads * hd), lp['o']['kernel'][li],
+            qmm_backend=cfg.qmm_backend,
         )
-        x = x + _mlp_block(_norm(x, lp['mlp_ln']['scale'][li], cfg), lp, li)
+        x = x + _mlp_block(_norm(x, lp['mlp_ln']['scale'][li], cfg), lp, li, cfg)
     hidden = _norm(x, params['final_ln']['scale'], cfg)
     last_idx = torch.clamp(tail_lens.long() - 1, min=0)
     last_hidden = hidden[torch.arange(b, device=hidden.device), last_idx]
@@ -307,9 +335,9 @@ def _decode_core(
     pos_span = positions[:, None]
     for li in range(cfg.num_layers):
         normed = _norm(x, lp['attn_ln']['scale'][li], cfg)
-        q = _proj(normed, lp, 'q', li).reshape(b, 1, cfg.num_heads, hd)
-        k = _proj(normed, lp, 'k', li).reshape(b, 1, cfg.num_kv_heads, hd)
-        v = _proj(normed, lp, 'v', li).reshape(b, cfg.num_kv_heads, hd)
+        q = _proj(normed, lp, 'q', li, cfg).reshape(b, 1, cfg.num_heads, hd)
+        k = _proj(normed, lp, 'k', li, cfg).reshape(b, 1, cfg.num_kv_heads, hd)
+        v = _proj(normed, lp, 'v', li, cfg).reshape(b, cfg.num_kv_heads, hd)
         q = common.apply_rope(q, cos, sin, pos_span)
         k = common.apply_rope(k, cos, sin, pos_span)[:, 0]
         write_token_kv(
@@ -320,9 +348,10 @@ def _decode_core(
             pos_span, sliding_window=cfg.sliding_window,
         )
         x = x + common.dense(
-            attn.reshape(b, cfg.num_heads * hd), lp['o']['kernel'][li]
+            attn.reshape(b, cfg.num_heads * hd), lp['o']['kernel'][li],
+            qmm_backend=cfg.qmm_backend,
         )
-        x = x + _mlp_block(_norm(x, lp['mlp_ln']['scale'][li], cfg), lp, li)
+        x = x + _mlp_block(_norm(x, lp['mlp_ln']['scale'][li], cfg), lp, li, cfg)
     hidden = _norm(x, params['final_ln']['scale'], cfg)
     return logits(params, cfg, hidden), k_cache, v_cache
 

@@ -28,6 +28,7 @@ BUILD_DIR = PACKAGE_DIR / '_build'
 SOURCES = {
     'ragged_paged_attention': 'ragged_paged_attention.cu',
     'encoder_attention': 'encoder_attention.cu',
+    'int8_matmul': 'int8_matmul.cu',
 }
 
 NVCC_FLAGS = (

@@ -5,19 +5,22 @@ Builds the embed configuration of ``chip_smoke.py``: a ``TorchEncoder``
 over BERT-base (S-PubMedBert-MS-MARCO widths) in bf16 with random weights
 made on the card from seed 0, the ``WhitespaceTokenizer``, the mean
 pooler, batch 512, and 2048 texts of 120..259 words (seed 0, a
-5000-word vocabulary). After one warm-up pass it
+5000-word vocabulary); ``--quantization int8`` quantizes the dense
+kernels on the card so every projection runs through the int8 matmul
+kernel K2. After one warm-up pass it
 
 - times ``--repeats`` passes of ``compute_embeddings`` by the host clock
   (embeddings/s; every pass ends in the host copy of its results);
 - profiles one more pass under ``torch.profiler`` and sums the device
   time of the CUDA kernels only, by category: the encoder-attention
-  kernel (K3), matrix products, everything else; per bucket batch and in
+  kernel (K3), the int8 matmul kernel (K2), other matrix products,
+  everything else; per bucket batch and in
   all, with the device's busy share of the plain pass's wall time.
 
 Prints one JSON object per line; ``--out`` also writes them to a file.
 Needs CUDA; exits nonzero without it.
 
-    python3 scripts/profile_torch_embed.py [--layers 12] [--repeats 3] [--out results.json]
+    python3 scripts/profile_torch_embed.py [--layers 12] [--repeats 3] [--quantization int8] [--out results.json]
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ def _category(name: str) -> str:
     low = name.lower()
     if 'encoder_attention' in low:
         return 'encoder_attention_kernel'
+    if 'int8_matmul' in low or 'reduce_splits' in low:  # K2 and its split-K sum
+        return 'int8_matmul_kernel'
     if any(t in low for t in ('gemm', 'gemv', 'nvjet', 'cutlass', 'xmma', 'cublas')):
         return 'matmul'
     return 'other'
@@ -90,6 +95,7 @@ def main() -> None:
     parser.add_argument('--layers', type=int, default=12)
     parser.add_argument('--texts', type=int, default=2048)
     parser.add_argument('--repeats', type=int, default=3)
+    parser.add_argument('--quantization', choices=('int8', 'nf4'), default=None)
     parser.add_argument('--out', default=None, help='also write the results here')
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -104,7 +110,7 @@ def main() -> None:
     encoder = TorchEncoder(
         None, bert.apply, cfg, params,
         WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512),
-        cfg.hidden_size,
+        cfg.hidden_size, quantization=args.quantization,
     )
     texts = _texts(args.texts)
     warm_s = _pass(encoder, texts)  # builds the kernel, loads cuBLAS handles
@@ -114,6 +120,7 @@ def main() -> None:
     batches = sum(stats['bucket_batches'].values())
     timed = {
         'card': card, 'layers': args.layers, 'texts': args.texts,
+        'quantization': args.quantization,
         'warmup_s': warm_s, 'wall_s': walls,
         'embeddings_per_s': [args.texts / w for w in walls],
         'batches': batches,
@@ -135,11 +142,15 @@ def main() -> None:
     wall_ms = min(walls) * 1e3
     profiled = {
         'card': card, 'layers': args.layers, 'profiled_pass': True,
+        'quantization': args.quantization,
         'device_ms': device_ms,
         'device_ms_by_category': {k: v / 1e3 for k, v in sorted(by_cat.items())},
         'device_ms_per_batch': device_ms / batches,
         'encoder_attention_share_of_device': (
             by_cat.get('encoder_attention_kernel', 0.0) / 1e3 / device_ms
+        ),
+        'int8_matmul_share_of_device': (
+            by_cat.get('int8_matmul_kernel', 0.0) / 1e3 / device_ms
         ),
         'device_busy_share_of_fastest_wall': device_ms / wall_ms,
         'kernel_launches': sum(c for _, c, _ in kernels),

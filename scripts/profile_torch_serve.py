@@ -2,7 +2,9 @@
 """Where the time goes in the PyTorch port's serving path, on one GPU.
 
 Builds the same random-init Mistral-7B bf16 ``TorchGenerator`` as
-``chip_smoke.py`` (depth settable with ``--layers``; ``max_num_seqs=8``),
+``chip_smoke.py`` (depth settable with ``--layers``; ``max_num_seqs=8``;
+``--quantization int8`` quantizes the weights on the card so every
+projection runs through the int8 matmul kernel K2),
 warms it up, then for each workload runs it twice: once plainly, timed by
 the host clock (wall seconds, tokens/s, wall milliseconds per forward
 pass), and once under ``torch.profiler`` at a reduced token count, summing
@@ -16,12 +18,12 @@ side, not the kernels' device time):
   new greedy tokens each (timed only).
 
 Each line of output is one JSON object: device milliseconds per forward
-pass by category (the ragged paged-attention kernel, matrix products,
-everything else), the device's busy share of the plain run's wall time
+pass by category (the ragged paged-attention kernel, the int8 matmul
+kernel, other matrix products, everything else), the device's busy share of the plain run's wall time
 (device ms per pass over wall ms per pass) and the top kernels. Needs
 CUDA; exits nonzero without it.
 
-    python3 scripts/profile_torch_serve.py [--layers 32] [--out results.json]
+    python3 scripts/profile_torch_serve.py [--layers 32] [--quantization int8] [--out results.json]
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ def _category(name: str) -> str:
     low = name.lower()
     if 'ragged_paged_attention' in low:
         return 'attention_kernel'
+    if 'int8_matmul' in low or 'reduce_splits' in low:  # K2 and its split-K sum
+        return 'int8_matmul_kernel'
     if any(t in low for t in ('gemm', 'gemv', 'nvjet', 'cutlass', 'xmma', 'cublas')):
         return 'matmul'
     return 'other'
@@ -129,6 +133,7 @@ def measure(generator, name, prompts, max_tokens, profiled_tokens):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--layers', type=int, default=32)
+    parser.add_argument('--quantization', choices=('int8', 'nf4'), default=None)
     parser.add_argument('--out', default=None, help='also write the results here')
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -140,7 +145,7 @@ def main() -> None:
     generator = TorchGenerator(TorchGeneratorConfig(
         model=MistralConfig(num_layers=args.layers), temperature=0.0,
         max_tokens=64, num_blocks=1024, max_num_seqs=8, max_model_len=2048,
-        seed=0,
+        seed=0, quantization=args.quantization,
     ))
     rng = np.random.default_rng(1)
     # Warm-up: builds the kernel, loads cuBLAS handles, fills caches.
@@ -154,9 +159,11 @@ def main() -> None:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({'card': card, 'layers': args.layers,
+                                   'quantization': args.quantization,
                                    'results': results}, indent=1))
     for result in results:
-        print(json.dumps({'card': card, 'layers': args.layers, **result}))
+        print(json.dumps({'card': card, 'layers': args.layers,
+                          'quantization': args.quantization, **result}))
     generator.shutdown()
 
 

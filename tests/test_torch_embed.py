@@ -8,7 +8,11 @@ from a seed (``config.json`` + ``pytorch_model.bin``) with a
 ``BertTokenizerFast`` saved from a generated ``vocab.txt``, the ``auto``
 encoder in fp32, ``jsonl`` / ``mean`` / ``full_sequence`` / ``numpy`` /
 ``local``. fp32 embeddings agree within ``1e-5`` (same math, PyTorch vs
-XLA summation order). Last, device defaulting: without a GPU every entry
+XLA summation order), with full-precision weights and with the encoder's
+``quantization: int8`` on a checkpoint wide enough that every dense
+kernel is quantized (both packages quantize the checkpoint's fp32
+kernels to the same codes; the port's products run through
+``int8_dense``). Last, device defaulting: without a GPU every entry
 point raises unless the caller passes ``device='cpu'``.
 """
 
@@ -37,6 +41,8 @@ from distllm_tpu_torch.embed.poolers.mean import average_pool
 from distllm_tpu_torch.models import bert
 from distllm_tpu_torch.models.tokenizer import TokenBatch, WhitespaceTokenizer
 from distllm_tpu_torch.ops import encoder_attention as tea
+from distllm_tpu_torch.ops import quantization as tq
+from distllm_tpu_torch.ops import quantized_matmul as tqm
 
 ATOL = 1e-5
 TINY = dict(
@@ -160,19 +166,18 @@ def test_numpy_writer_roundtrip_and_merge(tmp_path):
 
 
 # -------------------------------------------------- run_embedding, both
-@pytest.fixture(scope='module')
-def checkpoint(tmp_path_factory):
+def _write_checkpoint(root, hidden, intermediate):
     """A tiny BERT checkpoint and its tokenizer, written from a seed."""
     from transformers import BertConfig, BertModel, BertTokenizerFast
 
-    root = tmp_path_factory.mktemp('tiny_bert')
     words = [f'w{i}' for i in range(300)]
     vocab = ['[PAD]', '[UNK]', '[CLS]', '[SEP]', '[MASK]'] + words
     (root / 'vocab.txt').write_text('\n'.join(vocab) + '\n')
     BertTokenizerFast(vocab_file=str(root / 'vocab.txt')).save_pretrained(root)
     config = BertConfig(
-        vocab_size=len(vocab), hidden_size=32, num_hidden_layers=2,
-        num_attention_heads=4, intermediate_size=64, max_position_embeddings=128,
+        vocab_size=len(vocab), hidden_size=hidden, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=intermediate,
+        max_position_embeddings=128,
     )
     with torch.random.fork_rng():  # seeded weights, the caller's RNG untouched
         torch.manual_seed(0)
@@ -182,7 +187,19 @@ def checkpoint(tmp_path_factory):
     return root
 
 
-def _run_config(tmp_path, checkpoint, name):
+@pytest.fixture(scope='module')
+def checkpoint(tmp_path_factory):
+    return _write_checkpoint(tmp_path_factory.mktemp('tiny_bert'), 32, 64)
+
+
+@pytest.fixture(scope='module')
+def checkpoint_q(tmp_path_factory):
+    """Hidden 64, intermediate 128: every stacked dense kernel holds at
+    least the quantizer's min_size of 4096 weights."""
+    return _write_checkpoint(tmp_path_factory.mktemp('tiny_bert_q'), 64, 128)
+
+
+def _run_config(tmp_path, checkpoint, name, **encoder):
     inputs = tmp_path / 'inputs'
     if not inputs.exists():
         inputs.mkdir()
@@ -198,7 +215,7 @@ def _run_config(tmp_path, checkpoint, name):
         'dataset_config': {'name': 'jsonl', 'batch_size': 4},
         'encoder_config': {
             'name': 'auto', 'half_precision': False,
-            'pretrained_model_name_or_path': str(checkpoint),
+            'pretrained_model_name_or_path': str(checkpoint), **encoder,
         },
         'pooler_config': {'name': 'mean'},
         'embedder_config': {'name': 'full_sequence'},
@@ -251,11 +268,35 @@ def test_run_embedding_matches_jax_end_to_end(tmp_path, checkpoint, capsys):
     )
 
 
+def test_int8_run_embedding_matches_jax_end_to_end(tmp_path, checkpoint_q):
+    assert jax_embedding.run_embedding(jax_embedding.Config.from_yaml(
+        _run_config(tmp_path, checkpoint_q, 'jax', quantization='int8')
+    )) == 0
+    port_config = port_embedding.Config.from_yaml(
+        _run_config(tmp_path, checkpoint_q, 'port', quantization='int8')
+    )
+    products = tqm.int8_matmul_reference.launches
+    attention = tea.encoder_attention_reference.launches
+    assert port_embedding.run_embedding(port_config, device='cpu') == 0
+    # 6 int8 products per layer beside each layer's one attention call.
+    assert tqm.int8_matmul_reference.launches - products == 6 * (
+        tea.encoder_attention_reference.launches - attention
+    ) > 0
+    encoder = get_encoder(port_config.encoder_config, register=True, device='cpu')
+    assert isinstance(encoder.params['layers']['down']['kernel'], tq.QTensor)
+    jax_out, port_out = _shards(tmp_path / 'jax'), _shards(tmp_path / 'port')
+    assert len(port_out) == len(jax_out) == 2
+    for first, (emb, texts, meta) in port_out.items():
+        want_emb, want_texts, want_meta = jax_out[first]
+        np.testing.assert_allclose(emb, want_emb, atol=ATOL)
+        assert texts == want_texts and meta == want_meta
+
+
 def test_unported_strategies_raise_naming_the_roadmap(tmp_path, checkpoint):
     with pytest.raises(NotImplementedError, match='ROADMAP A8'):
         get_encoder({'name': 'esm2'}, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP A7'):
-        get_encoder({'name': 'auto', 'quantization': 'int8',
+    with pytest.raises(ValueError, match='unknown quantization mode'):
+        get_encoder({'name': 'auto', 'quantization': 'int4',
                      'pretrained_model_name_or_path': str(checkpoint)}, device='cpu')
     config = json.loads(_run_config(tmp_path, checkpoint, 'x').read_text())
     with pytest.raises(NotImplementedError, match='ROADMAP A8'):

@@ -8,6 +8,11 @@ prompts through ``prefill_paged`` and decodes through the ragged op. fp32
 greedy tokens must be identical, and every block returns to the free list
 when the requests finish. A pool too small for the batch forces recompute
 preemption, which must not change a single token.
+
+Weight-only quantization: with ``EngineConfig.quantization`` 'int8' or
+'nf4' on both sides (every projection quantized at the widths used), the
+port's greedy fp32 tokens equal the JAX engine's, and every int8
+projection of every forward pass went through ``int8_dense``.
 """
 
 import jax
@@ -26,6 +31,8 @@ from distllm_tpu_torch.generate.engine import (
 )
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.ops import paged_attention as tpa
+from distllm_tpu_torch.ops import quantization as tq
+from distllm_tpu_torch.ops import quantized_matmul as tqm
 
 TINY = {
     'vocab_size': 128, 'hidden_size': 32, 'num_layers': 2, 'num_heads': 4,
@@ -146,3 +153,68 @@ def test_engine_refuses_params_on_another_device(weights):
         LLMEngine(tcfg, params, _Tok(), device='cpu')
     with pytest.raises(ValueError, match='unsupported device'):
         LLMEngine(tcfg, params, _Tok(), device=torch.device('meta'))
+
+
+# Every projection quantized: each stacked kernel holds >= 4096 weights.
+QTINY = {**TINY, 'hidden_size': 64, 'intermediate_size': 128}
+
+
+@pytest.mark.parametrize('mode', ['int8', 'nf4'])
+def test_quantized_greedy_tokens_identical_to_jax_engine(prompts, mode):
+    jcfg = jax_mistral.MistralConfig(**QTINY)
+    tree = jax.tree.map(np.asarray, jax_mistral.init(jax.random.PRNGKey(4), jcfg))
+    jax_engine = JaxLLMEngine(
+        jcfg, tree, _Tok(),
+        JaxEngineConfig(
+            num_blocks=48, attn_backend='xla', prefer_native_allocator=False,
+            quantization=mode, **ENGINE,
+        ),
+    )
+    greedy = dict(temperature=0.0, max_tokens=MAX_TOKENS)
+    want = jax_engine.generate_ids(prompts, JaxSamplingParams(**greedy))
+    jax_engine.shutdown()
+    tcfg = mistral.MistralConfig(**QTINY)
+    params = mistral.params_from_jax(tree, tcfg, device='cpu')
+    engine = LLMEngine(
+        tcfg, params, _Tok(),
+        EngineConfig(num_blocks=48, quantization=mode, **ENGINE),
+        device='cpu', own_params=True,
+    )
+    plain = tqm.int8_matmul_reference.launches
+    assert engine.generate_ids(prompts, SamplingParams(**greedy)) == want
+    tele = engine.telemetry
+    assert tele['quantization'] == mode and tele['qmm_backend'] == 'auto'
+    assert (tele['weight_bytes_quantized'], tele['weight_bytes_float']) == (
+        tq.quantized_nbytes(engine.params)
+    )
+    assert tele['weight_bytes_quantized'] > 0
+    assert isinstance(engine.params['layers']['down']['kernel'], tq.QTensor)
+    assert params['layers']['q']['kernel'] is None  # own_params: source dropped
+    passes = tele['forward_passes']
+    expected = 7 * QTINY['num_layers'] * passes if mode == 'int8' else 0
+    assert tqm.int8_matmul_reference.launches - plain == expected
+
+
+def test_generator_quantization_flag_and_qmm_backend_pin():
+    from distllm_tpu_torch.generate.generators.torch_backend import (
+        TorchGenerator,
+        TorchGeneratorConfig,
+    )
+
+    config = TorchGeneratorConfig(
+        model=mistral.MistralConfig(**QTINY), quantization=True, max_tokens=3,
+        num_blocks=32, max_num_seqs=2, max_model_len=64, device='cpu',
+    )
+    generator = TorchGenerator(config, qmm_backend='reference')
+    engine = generator.engine
+    assert engine.config.quantization == 'nf4'  # True means nf4
+    assert engine.model_cfg.qmm_backend == 'reference'
+    assert engine.params['layers']['gate']['kernel'].kind == 'nf4'
+    assert len(generator.generate(['a b c', 'd e'])) == 2
+    with pytest.raises(ValueError, match='unknown quantization mode'):
+        TorchGeneratorConfig(quantization='int4')
+    with pytest.raises(ValueError, match='qmm_backend'):
+        LLMEngine(
+            mistral.MistralConfig(**QTINY), engine.params, None, device='cpu',
+            qmm_backend='pallas',
+        )

@@ -1,5 +1,6 @@
 """The CUDA kernels against the port's plain versions, on the card: the
-ragged paged-attention kernel (K1) and the encoder-attention kernel (K3).
+ragged paged-attention kernel (K1), the int8 weight-only matmul (K2) and
+the encoder-attention kernel (K3).
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports no JAX, so it
 runs on a machine without it::
@@ -13,6 +14,10 @@ bf16 step, which is at most 2**-7 * |x|) plus ``atol 1e-5``. Pad queries
 must be exact zeros. K3 is held to its own elementwise bound
 (``encoder_attention.comparison_tolerance``: in bf16 one step of out
 plus one bf16 step of one p_j * v_j), on every row, fully masked included.
+K2 is held to ``quantized_matmul.comparison_tolerance`` (in bf16 one step
+of out, and in both dtypes an fp32 summation-order term that scales with
+``scale * (|x| @ |q|)``); quantizing on the card gives the CPU's codes
+bitwise.
 """
 
 import numpy as np
@@ -21,6 +26,8 @@ import torch
 
 from distllm_tpu_torch.ops import encoder_attention as tea
 from distllm_tpu_torch.ops import paged_attention as tpa
+from distllm_tpu_torch.ops import quantization as tq
+from distllm_tpu_torch.ops import quantized_matmul as tqm
 
 pytestmark = pytest.mark.gpu
 TOL = {'float32': dict(rtol=0, atol=1e-5), 'bfloat16': dict(rtol=2**-7, atol=1e-5)}
@@ -293,3 +300,121 @@ def test_bert_through_the_embedder_on_the_kernel_matches_the_plain_version(cuda)
         expected = cfg.num_layers * batches if impl == 'auto' else 0
         assert tea.encoder_attention.launches - launches == expected
     np.testing.assert_allclose(outs['auto'], outs['reference'], rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------------ K2
+def _k2_inputs(seed, m, k, n, dtype, zero_column=False):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    w = torch.from_numpy((0.02 * rng.normal(size=(k, n))).astype(np.float32))
+    if zero_column:
+        w[:, 3] = 0.0
+    qt = tq.quantize_int8(w.cuda(), dtype)
+    return x.to('cuda', getattr(torch, dtype)), qt.q, qt.scale
+
+
+def _k2_check(x, q, scale):
+    plain = tqm.int8_matmul_reference.launches
+    launches = tqm.int8_matmul.launches
+    out = tqm.int8_dense(x, q, scale)
+    assert tqm.int8_matmul.launches == launches + 1
+    assert tqm.int8_matmul_reference.launches == plain
+    ref = tqm.int8_matmul_reference(x, q, scale)
+    tol = tqm.comparison_tolerance(x, q, scale)
+    torch.cuda.synchronize()
+    assert out.dtype == x.dtype and out.shape == ref.shape
+    assert torch.isfinite(out.float()).all()
+    err = ((out.float() - ref.float()).abs() / tol).max().item()
+    assert err <= 1.0, err
+    return out
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('m', [1, 5, 16, 17, 130])
+@pytest.mark.parametrize('k,n', [(16, 16), (48, 144), (512, 384), (4096, 1024), (1040, 4096)])
+def test_k2_matrix(cuda, dtype, m, k, n):
+    """Rows below, at and across the 16- and 64-row tiles; N off the
+    128-wide tile; K off the 32-deep step; split-K (deep K, few tiles)."""
+    _k2_check(*_k2_inputs(m * k + n, m, k, n, dtype))
+
+
+def test_k2_zero_column_stacked_slice_and_leading_dims(cuda):
+    x, q, scale = _k2_inputs(1, 8, 256, 128, 'bfloat16', zero_column=True)
+    out = _k2_check(x, q, scale)
+    assert (out[:, 3] == 0).all()
+    w = torch.randn((3, 256, 128), device='cuda') * 0.02
+    qt = tq.quantize_int8(w, 'bfloat16')
+    layer = qt[1]  # codes [256, 128], scale [1, 128]
+    _k2_check(x, layer.q, layer.scale)
+    lead = tqm.int8_dense(x.reshape(2, 4, 256), layer.q, layer.scale)
+    torch.testing.assert_close(
+        lead.reshape(8, 128), tqm.int8_dense(x, layer.q, layer.scale), rtol=0, atol=0
+    )
+
+
+def test_k2_refuses_what_it_does_not_take(cuda):
+    x, q, scale = _k2_inputs(2, 4, 64, 32, 'float32')
+    with pytest.raises(TypeError, match='activation dtypes'):
+        tqm.int8_dense(x.half(), q, scale)
+    with pytest.raises(TypeError, match='int8 codes'):
+        tqm.int8_dense(x, q.to(torch.uint8), scale)
+    with pytest.raises(TypeError, match='scales are fp32'):
+        tqm.int8_dense(x, q, scale.bfloat16())
+    with pytest.raises(ValueError, match='multiples of 16'):
+        tqm.int8_dense(x[:, :40], q[:40].contiguous(), scale)
+    with pytest.raises(ValueError, match='multiples of 16'):
+        tqm.int8_dense(x, q[:, :24].contiguous(), scale[..., :24].contiguous())
+    with pytest.raises(ValueError, match='contiguous'):
+        tqm.int8_matmul_cuda(x, q.t().contiguous().t(), scale.reshape(-1))
+    with pytest.raises(ValueError, match='one CUDA device'):
+        tqm.int8_dense(x, q.cpu(), scale)
+    with pytest.raises(ValueError, match='M >= 1'):
+        tqm.int8_dense(x[:0], q, scale)
+
+
+@pytest.mark.parametrize('mode', ['int8', 'nf4'])
+def test_quantizing_on_the_card_equals_the_cpu_bitwise(cuda, mode):
+    w = torch.randn((2, 512, 384), generator=torch.Generator().manual_seed(3)) * 0.02
+    w[:, :, 7] = 0.0
+    fn = tq.quantize_int8 if mode == 'int8' else tq.quantize_nf4
+    card, host = fn(w.cuda().bfloat16()), fn(w.bfloat16())
+    assert torch.equal(card.q.cpu(), host.q)
+    assert torch.equal(card.scale.cpu(), host.scale)
+
+
+def test_quantized_engine_on_k2_matches_the_plain_version(cuda):
+    """A small fp32 int8 model served end to end on the card: greedy
+    tokens through K2 equal those through its plain version, and every
+    projection of every forward pass launched K2 once."""
+    from distllm_tpu_torch.generate.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distllm_tpu_torch.models import mistral
+
+    cfg = mistral.MistralConfig(
+        vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+        num_kv_heads=2, intermediate_size=512, dtype='float32',
+    )
+    params = mistral.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [
+        [int(t) for t in rng.integers(4, 256, size=n)] for n in (5, 40, 17, 90, 3)
+    ]
+    outs = {}
+    for backend in ('auto', 'reference'):
+        engine = LLMEngine(
+            cfg, params, None,
+            EngineConfig(num_blocks=64, max_num_seqs=3, max_model_len=256,
+                         quantization='int8'),
+            qmm_backend=backend,
+        )
+        launches = tqm.int8_matmul.launches
+        outs[backend] = engine.generate_ids(
+            prompts, SamplingParams(temperature=0.0, max_tokens=12)
+        )
+        passes = engine.telemetry['forward_passes']
+        expected = 7 * cfg.num_layers * passes if backend == 'auto' else 0
+        assert tqm.int8_matmul.launches - launches == expected
+    assert outs['auto'] == outs['reference']

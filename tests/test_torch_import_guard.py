@@ -43,6 +43,8 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.ops.paged_attention',
         'distllm_tpu_torch.ops._build',
         'distllm_tpu_torch.ops.encoder_attention',
+        'distllm_tpu_torch.ops.quantization',
+        'distllm_tpu_torch.ops.quantized_matmul',
         'distllm_tpu_torch.models.bert',
         'distllm_tpu_torch.embed.encoders.auto',
         'distllm_tpu_torch.embed.embedders.full_sequence',

@@ -10,6 +10,13 @@ greedy tokens are identical. Pools are compared outside the trash block
 0, whose pad writes race on duplicate indices on both sides. Every check
 runs twice: on the plain config, and with Q/K/V biases, tied embeddings,
 a sliding window of 4 and linear RoPE scaling switched on together.
+
+int8 weights: a JAX tree quantized by ``distllm_tpu.ops.quantization``
+crosses the bridge with its codes and scales as they are, and the port's
+``prefill_paged`` / ``decode_step`` logits match the JAX forward with
+``qmm_backend='xla'`` and ``'interpret'`` (the Pallas kernel) within the
+same fp32 tolerance, at widths where every projection is quantized and
+K, N are multiples of 128 (the Pallas tier's tile contract).
 """
 
 import dataclasses
@@ -21,7 +28,10 @@ import pytest
 import torch
 
 from distllm_tpu.models import mistral as jax_mistral
+from distllm_tpu.ops import quantization as jq
 from distllm_tpu_torch.models import mistral
+from distllm_tpu_torch.ops import quantization as tq
+from distllm_tpu_torch.ops import quantized_matmul as tqm
 
 ATOL = 1e-5
 RTOL = 1e-4
@@ -48,8 +58,9 @@ def models(request):
     return jcfg, tree, tcfg, params
 
 
-def _pools():
-    shape = (2, NUM_BLOCKS, BLOCK_SIZE, 2, 8)
+def _pools(cfg=None):
+    nkv, hd = (2, 8) if cfg is None else (cfg.num_kv_heads, cfg.head_size)
+    shape = (2, NUM_BLOCKS, BLOCK_SIZE, nkv, hd)
     return (
         (jnp.zeros(shape, jnp.float32), jnp.zeros(shape, jnp.float32)),
         (torch.zeros(shape), torch.zeros(shape)),
@@ -89,7 +100,7 @@ def _prefill_two_chunks(models):
     rng = np.random.default_rng(1)
     tokens = rng.integers(4, 128, size=(2, 9)).astype(np.int32)
     bt = _tables()
-    jpools, tpools = _pools()
+    jpools, tpools = _pools(models[2])
     outs = []
     for starts, lens in (([0, 0], [5, 3]), ([5, 3], [4, 6])):
         starts, lens = np.asarray(starts), np.asarray(lens)
@@ -212,3 +223,56 @@ def test_init_is_seeded_and_full_shape():
     assert a['lm_head'].shape == (16, 64)
     assert a['layers']['v']['bias'].shape == (3, 8)
     torch.testing.assert_close(a['layers']['q']['kernel'], b['layers']['q']['kernel'])
+
+
+# ------------------------------------------------------------ int8 weights
+QUANT = {
+    'vocab_size': 128, 'hidden_size': 128, 'num_layers': 2, 'num_heads': 4,
+    'num_kv_heads': 4, 'intermediate_size': 256, 'dtype': 'float32',
+}
+
+
+@pytest.fixture(scope='module', params=['xla', 'interpret'])
+def quantized_models(request):
+    """An int8 JAX tree (every projection quantized) served by JAX with
+    the given quantized-matmul tier, and its bridge to the port."""
+    jcfg = jax_mistral.MistralConfig(**QUANT, qmm_backend=request.param)
+    jtree = jq.quantize_pytree(
+        jax_mistral.init(jax.random.PRNGKey(2), jcfg), mode='int8', out_dtype='float32'
+    )
+    tcfg = mistral.MistralConfig(**QUANT)
+    params = mistral.params_from_jax(jax.tree.map(np.asarray, jtree), tcfg, device='cpu')
+    return jcfg, jtree, tcfg, params
+
+
+def test_bridge_keeps_int8_codes_and_fp32_scales(quantized_models):
+    _, jtree, _, params = quantized_models
+    for name in ('q', 'k', 'v', 'o', 'gate', 'up', 'down'):
+        leaf, ref = params['layers'][name]['kernel'], jtree['layers'][name]['kernel']
+        assert isinstance(leaf, tq.QTensor) and leaf.kind == 'int8'
+        assert leaf.q.dtype == torch.int8 and leaf.scale.dtype == torch.float32
+        np.testing.assert_array_equal(leaf.q.numpy(), np.asarray(ref.q))
+        np.testing.assert_array_equal(leaf.scale.numpy(), np.asarray(ref.scale))
+    assert params['embed'].dtype == torch.float32  # exempt leaves stay float
+
+
+def test_int8_prefill_and_decode_logits_match_jax(quantized_models):
+    jcfg, jtree, tcfg, params = quantized_models
+    plain = tqm.int8_matmul_reference.launches
+    _, bt, jpools, tpools, outs = _prefill_two_chunks((jcfg, jtree, tcfg, params))
+    for jl, tl in outs:
+        _close(tl, jl)
+    ids = np.asarray([17, 42], np.int32)
+    pos = np.asarray([9, 9], np.int32)
+    jl, *_ = jax_mistral.decode_step(
+        jtree, jcfg, jnp.asarray(ids), jnp.asarray(pos), *jpools,
+        jnp.asarray(bt), jnp.asarray(pos + 1),
+    )
+    tl, *_ = mistral.decode_step(
+        params, tcfg, torch.from_numpy(ids), torch.from_numpy(pos), *tpools,
+        torch.from_numpy(bt), torch.from_numpy(pos + 1),
+    )
+    _close(tl, jl)
+    # 7 int8 products per layer per forward pass (lm_head stays float):
+    # two prefill chunks and one decode step, all on the CPU plain version.
+    assert tqm.int8_matmul_reference.launches - plain == 7 * QUANT['num_layers'] * 3
