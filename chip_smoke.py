@@ -13,18 +13,24 @@ carried on):
    K1, K2 and K3;
 3. kernel K1 — hold the ragged paged-attention kernel against its plain
    PyTorch version in bf16 at Mistral-7B geometry (32/8 heads, head dim
-   128, block size 16): (a) 32 decode rows with ragged contexts 1..4096,
-   (b) 4 prefill rows with spans up to 512 over existing prefixes and
-   ``q_lens`` padding, (c) sliding window 4096 + logit softcap, and the
-   shapes the serving phase gives it; time kernel, plain version and
+   128, block size 16), within ``paged_attention.comparison_tolerance``
+   of the route each case takes (printed): (a) 32 decode rows with
+   ragged contexts 1..4096, (b) 4 prefill rows with spans up to 512 over
+   existing prefixes and ``q_lens`` padding, (c) sliding window 4096 +
+   logit softcap, (d) chunk spans that start off a 64-key tile boundary,
+   with ``q_lens`` padding, and the shapes the serving phase gives it;
+   NaN in the trash block leaves the outputs of a decode case and of a
+   tensor-core case bitwise unchanged; time kernel, plain version and
    ``scaled_dot_product_attention`` on the same gathered KV (a yardstick
    the port never calls);
 4. kernel K3 — hold the encoder-attention kernel against its plain
    version at BERT-base geometry (12 heads x 64): the embed path's shapes
    (batch 512, S = 128 / 192 / 288) in bf16, partial key masks with fully
-   masked rows, S = 16 and an odd S, the ``[S, S]`` window bias, and fp32;
-   time kernel, plain version and ``scaled_dot_product_attention`` with a
-   key mask on pre-transposed ``[B, N, S, Hd]`` inputs;
+   masked rows, S = 16 and an odd S, the ``[S, S]`` window bias, fp32,
+   and a head dim of 24 (both on the CUDA-core route; the route of each
+   case is printed); time kernel, plain version and
+   ``scaled_dot_product_attention`` with a key mask on pre-transposed
+   ``[B, N, S, Hd]`` inputs;
 5. kernel K2 — hold the int8 weight-only matmul against its plain
    version elementwise within ``quantized_matmul.comparison_tolerance``:
    Mistral-7B decode rows M = 1 / 8 / 32 / 128 at every projection shape
@@ -39,7 +45,9 @@ carried on):
    (``max_num_seqs=8``; 64 new tokens each, 14 greedy + 2 sampled), then
    three chat completions through ``chat_server`` on a free localhost
    port. K1's launch count must equal layers x forward passes and its
-   plain op must not run at all;
+   plain op must not run at all; every prefill dispatch's launches went
+   through the tensor-core route and every decode step's through the
+   CUDA-core route (``launches_by_route``);
 7. serve int8 — the same through ``TorchGenerator(quantization='int8')``,
    the weights quantized on the card; K2 must launch 7 x layers x
    forward passes and its plain version never, K1 as in phase 6;
@@ -55,8 +63,8 @@ carried on):
     ``WhitespaceTokenizer``), the ``mean`` pooler, the ``full_sequence``
     embedder and the ``numpy`` writer; one warm-up pass, one timed pass.
     The output must be ``[2048, 768]`` fp32, finite and read back from its
-    files; K3 must launch 12 x the batches dispatched and its plain
-    version never;
+    files; K3 must launch 12 x the batches dispatched, all on the
+    tensor-core route, and its plain version never;
 11. embed int8 — the same with ``TorchEncoder(quantization='int8')``; K2
     must launch 6 x 12 x the batches and its plain version never;
 12. embed identity — full width at depth 2 in fp32: pooled embeddings
@@ -87,15 +95,10 @@ from pathlib import Path
 import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
-# bf16 / fp32-tensor-core rates, used for the least-time bound.
+# bf16 (tensor cores) / fp32 (CUDA cores) rates, used for the least-time
+# bound.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
-# bf16 tolerance, elementwise over valid rows: |out - ref| <= REL * |ref|
-# + ABS. Both sides compute in fp32 and round to bf16 once, so they differ
-# by at most one bf16 step where their fp32 values straddle a rounding
-# point; one step is at most 2**-7 * |x| (half a step below 1 is 1.95e-3).
-# ABS covers fp32 summation-order noise at outputs near zero.
-TOL_REL, TOL_ABS = 2.0 ** -7, 1e-5
 NUM_HEADS, NUM_KV_HEADS, HEAD_DIM, BLOCK_SIZE = 32, 8, 128, 16
 BERT_HEADS, BERT_HEAD_DIM = 12, 64
 EMBED_TEXTS, EMBED_BATCH = 2048, 512
@@ -216,10 +219,14 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
     args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
     kw = dict(q_lens=case['q_lens'], sliding_window=window or None,
               logit_softcap=softcap)
+    s = case['q'].shape[1]
+    route = tpa.kernel_route(case['q'].dtype, s, NUM_HEADS // NUM_KV_HEADS)
+    by_route = dict(tpa.ragged_paged_attention.launches_by_route)
     out = tpa.ragged_paged_attention(*args, **kw)
     ref = tpa.ragged_paged_attention_reference(*args, **kw)
     torch.cuda.synchronize()
-    s = case['q'].shape[1]
+    if tpa.ragged_paged_attention.launches_by_route[route] != by_route[route] + 1:
+        fail(f'kernel case {name}: not launched on the {route} route')
     valid = (
         torch.arange(s, device=DEVICE)[None, :] < case['q_lens'][:, None]
     )
@@ -227,10 +234,11 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
         fail(f'kernel case {name}: non-finite output')
     if (out[~valid] != 0).any():
         fail(f'kernel case {name}: pad queries are not exact zeros')
+    tol = tpa.comparison_tolerance(ref, *args, route=route, **kw)
     diff = (out[valid].float() - ref[valid].float()).abs()
-    allowed = TOL_REL * ref[valid].float().abs() + TOL_ABS
     err = float(diff.max())
-    err_over_tol = float((diff / allowed).max())
+    err_over_tol = float((diff / tol[valid]).max())
+    del tol
     kernel_ms = cuda_ms(torch, lambda: tpa.ragged_paged_attention(*args, **kw), iters)
     plain_ms = cuda_ms(
         torch, lambda: tpa.ragged_paged_attention_reference(*args, **kw),
@@ -246,18 +254,44 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
     byte_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
     result = dict(
-        case=name, max_abs_err=err, err_over_tol=err_over_tol,
-        tol={'rel': TOL_REL, 'abs': TOL_ABS}, ms=kernel_ms,
+        case=name, kernel_route=route, max_abs_err=err, err_over_tol=err_over_tol,
+        tol=k1_tol(tpa, route, dtype), ms=kernel_ms,
         plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(byte_ms, op_ms),
         bound_by='bytes' if byte_ms >= op_ms else 'operations',
         bytes=bytes_, flops=flops,
     )
     log(f'[kernel] {json.dumps(result)}')
     if not err_over_tol <= 1.0:
-        fail(f'kernel case {name}: |out - ref| exceeds {TOL_REL} * |ref| + '
-             f'{TOL_ABS} (worst element at {err_over_tol:.3f} x its '
-             f'tolerance; max abs err {err})')
+        fail(f'kernel case {name}: |out - ref| exceeds its {route} tolerance '
+             f'(worst element at {err_over_tol:.3f} x; max abs err {err})')
     return result
+
+
+def k1_tol(tpa, route, dtype):
+    """``paged_attention.comparison_tolerance``'s terms, for the record."""
+    if dtype == 'float32':
+        return {'abs': tpa.TOL_ABS}
+    tol = {'rel': tpa.TOL_REL, 'abs': tpa.TOL_ABS}
+    if route == 'tensor_cores':
+        tol['p'] = f'{tpa.TOL_P_REL} * (P @ |V|)'
+    return tol
+
+
+def check_nan_trash_block(torch, tpa, case, name):
+    """Garbage in the trash block (NaN here) must never reach an output:
+    the kernel skips keys outside each row's range instead of weighting
+    them by a zero probability."""
+    args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
+    clean = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
+    saved = case['k'][0].clone(), case['v'][0].clone()
+    case['k'][0] = float('nan')
+    case['v'][0] = float('nan')
+    poisoned = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
+    case['k'][0], case['v'][0] = saved
+    if not torch.equal(clean, poisoned):
+        fail(f'NaN in the trash block changed the kernel output ({name})')
+    route = tpa.kernel_route(case['q'].dtype, case['q'].shape[1], NUM_HEADS // NUM_KV_HEADS)
+    log(f'[kernel] NaN trash block, {name} ({route} route): outputs unchanged (bitwise)')
 
 
 def phase_kernel(torch, tpa):
@@ -268,23 +302,14 @@ def phase_kernel(torch, tpa):
     ctxs = np.concatenate([[1, 4096], rng.integers(1, 4097, size=30)])
     case = build_case(torch, rng, ctxs, np.ones(32), 1, dtype)
     results.append(run_kernel_case(torch, tpa, 'a_decode_32x1-4096', case, 0, None, 'bfloat16', 50))
-    # Garbage in the trash block (NaN here) must never reach an output:
-    # the kernel skips keys outside each row's range instead of weighting
-    # them by a zero probability.
-    args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
-    clean = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
-    case['k'][0] = float('nan')
-    case['v'][0] = float('nan')
-    poisoned = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
-    if not torch.equal(clean, poisoned):
-        fail('NaN in the trash block changed the kernel output')
-    log('[kernel] NaN trash block: outputs unchanged (bitwise)')
-    del case, args, clean, poisoned
+    check_nan_trash_block(torch, tpa, case, 'a_decode_32x1-4096')
+    del case
     # (b) 4 prefill rows: spans up to 512 over existing prefixes, padded.
     prefixes = np.asarray([0, 100, 1000, 2000])
     q_lens = np.asarray([512, 300, 17, 0])
     case = build_case(torch, rng, prefixes + q_lens + (q_lens == 0), q_lens, 512, dtype)
     results.append(run_kernel_case(torch, tpa, 'b_prefill_4x512', case, 0, None, 'bfloat16', 20))
+    check_nan_trash_block(torch, tpa, case, 'b_prefill_4x512')
     del case
     # (c) sliding window 4096 + softcap: decode rows past the window and
     # prefill rows whose span crosses it.
@@ -292,6 +317,13 @@ def phase_kernel(torch, tpa):
     q_lens = np.asarray([1] * 6 + [256, 100])
     case = build_case(torch, rng, ctxs, q_lens, 256, dtype)
     results.append(run_kernel_case(torch, tpa, 'c_window4096_softcap30', case, 4096, 30.0, 'bfloat16', 20))
+    del case
+    # (d) chunk spans that start off a 64-key tile boundary (so key tiles
+    # cut each span away from its diagonal), with q_lens padding.
+    prefixes = np.asarray([37, 1000, 3001, 517])
+    q_lens = np.asarray([100, 64, 33, 0])
+    case = build_case(torch, rng, prefixes + q_lens + (q_lens == 0), q_lens, 100, dtype)
+    results.append(run_kernel_case(torch, tpa, 'd_chunk_4x100_offset', case, 0, None, 'bfloat16', 20))
     del case
     # The serving phase's shapes: 8 decode rows of 18..1090 tokens and a
     # fresh 1024-token prefill pair.
@@ -306,12 +338,14 @@ def phase_kernel(torch, tpa):
 
 
 # --------------------------------------------------------------- phase 4
-def k3_case(torch, rng, b, s, lens, dtype, window=None):
-    """Random packed q/k/v ``[b, s, 12 * 64]``, a key mask of row lengths
-    ``lens`` (0 = a fully masked batch row) and, with ``window``, the
-    ``[s, s]`` sliding-window bias (0 inside, -1e9 outside)."""
+def k3_case(torch, rng, b, s, lens, dtype, window=None, heads=BERT_HEADS,
+            head_dim=BERT_HEAD_DIM):
+    """Random packed q/k/v ``[b, s, heads * head_dim]`` (BERT-base's 12 x
+    64 unless named), a key mask of row lengths ``lens`` (0 = a fully
+    masked batch row) and, with ``window``, the ``[s, s]`` sliding-window
+    bias (0 inside, -1e9 outside)."""
     gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(1 << 30)))
-    shape = (b, s, BERT_HEADS * BERT_HEAD_DIM)
+    shape = (b, s, heads * head_dim)
     q, k, v = (
         torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3)
     )
@@ -322,16 +356,22 @@ def k3_case(torch, rng, b, s, lens, dtype, window=None):
         pos = torch.arange(s, device=DEVICE)
         dist = (pos[:, None] - pos[None, :]).abs()
         bias = torch.where(dist <= window, 0.0, -1e9).float()
-    return dict(q=q, k=k, v=v, mask=mask, bias=bias)
+    return dict(q=q, k=k, v=v, mask=mask, bias=bias, heads=heads)
 
 
 def run_k3_case(torch, tea, name, case, iters):
     q, k, v, mask, bias = (case[key] for key in ('q', 'k', 'v', 'mask', 'bias'))
     b, s, d = q.shape
-    args = (q, k, v, mask, BERT_HEADS)
+    heads = case['heads']
+    head_dim = d // heads
+    args = (q, k, v, mask, heads)
+    route = tea.kernel_route(q.dtype, head_dim)
+    by_route = dict(tea.encoder_attention.launches_by_route)
     out = tea.encoder_attention(*args, bias=bias)
     ref = tea.encoder_attention_reference(*args, bias=bias)
     torch.cuda.synchronize()
+    if tea.encoder_attention.launches_by_route[route] != by_route[route] + 1:
+        fail(f'K3 case {name}: not launched on the {route} route')
     if not torch.isfinite(out.float()).all():
         fail(f'K3 case {name}: non-finite output (fully masked rows included)')
     tol = tea.comparison_tolerance(ref, *args, bias=bias)
@@ -347,8 +387,8 @@ def run_k3_case(torch, tea, name, case, iters):
     # The yardstick: one SDPA call on pre-transposed [B, N, S, Hd] inputs
     # with the key mask (boolean), or the key mask plus the [S, S] bias
     # (additive), as its attention mask.
-    heads = [
-        x.reshape(b, s, BERT_HEADS, BERT_HEAD_DIM).transpose(1, 2).contiguous()
+    split = [
+        x.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
         for x in (q, k, v)
     ]
     keys = mask.bool()[:, None, None, :]
@@ -356,17 +396,17 @@ def run_k3_case(torch, tea, name, case, iters):
         torch.where(keys, 0.0, -1e9).to(q.dtype) + bias.to(q.dtype)[None, None]
     )
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(torch, lambda: sdpa(*heads, attn_mask=attn_mask), iters)
-    del heads, attn_mask
+    library_ms = cuda_ms(torch, lambda: sdpa(*split, attn_mask=attn_mask), iters)
+    del split, attn_mask
     elt = q.element_size()
     bytes_ = 4 * b * s * d * elt + mask.numel() * 4
     if bias is not None:
         bytes_ += bias.numel() * 4
-    flops = 4 * b * BERT_HEADS * s * s * BERT_HEAD_DIM
+    flops = 4 * b * heads * s * s * head_dim
     byte_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
     op_ms = flops / PEAK_FLOPS[str(q.dtype).removeprefix('torch.')] * 1e3
     result = dict(
-        case=name, max_abs_err=err, err_over_tol=err_over_tol,
+        case=name, kernel_route=route, max_abs_err=err, err_over_tol=err_over_tol,
         tol={'rel': tea.TOL_REL, 'abs': tea.TOL_ABS,
              'straddle': 'rel * p_max * v_max' if q.dtype == torch.bfloat16 else 0},
         ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -404,6 +444,11 @@ def phase_encoder_kernel(torch, tea):
     results.append(run_k3_case(torch, tea, 'window64_32x256', case, 20))
     case = k3_case(torch, rng, 64, 192, rng.integers(1, 193, size=64), torch.float32)
     results.append(run_k3_case(torch, tea, 'fp32_64x192', case, 10))
+    # A head dim that is not a multiple of 16 (32 heads x 24) stays on the
+    # CUDA-core route in bf16.
+    case = k3_case(torch, rng, 64, 192, rng.integers(1, 193, size=64), bf16,
+                   heads=32, head_dim=24)
+    results.append(run_k3_case(torch, tea, 'hd24_64x192', case, 10))
     del case
     torch.cuda.empty_cache()
     return results
@@ -588,7 +633,9 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     ]
     # The main path: counts to 0 just before, read just after.
     passes_before = engine.stats['forward_passes']
+    prefills_before = engine.stats['prefill_dispatches']
     tpa.ragged_paged_attention.launches = 0
+    tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
     tpa.ragged_paged_attention_reference.launches = 0
     if tqm is not None:
         tqm.int8_matmul.launches = 0
@@ -638,17 +685,27 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     log(f'[{tag}] chat_server: 3 completions answered 200, /health ok')
 
     passes = engine.stats['forward_passes'] - passes_before
+    prefills = engine.stats['prefill_dispatches'] - prefills_before
     launches = tpa.ragged_paged_attention.launches
+    by_route = dict(tpa.ragged_paged_attention.launches_by_route)
     plain = tpa.ragged_paged_attention_reference.launches
     log(f'[{tag}] ragged_paged_attention launches {launches} = '
-        f'{cfg.num_layers} layers x {passes} forward passes; plain op '
+        f'{cfg.num_layers} layers x {passes} forward passes ({prefills} '
+        f'prefill dispatches); by route {json.dumps(by_route)}; plain op '
         f'launches {plain}')
     if launches <= 0 or launches != cfg.num_layers * passes:
         fail(f'kernel launches {launches} != {cfg.num_layers} x {passes}')
+    # Prefill spans (>= 16 tokens here, x the group of 4) fill tensor-core
+    # tiles; decode rows (4 rows per tile) stay on the CUDA cores.
+    if (by_route['tensor_cores'] != cfg.num_layers * prefills
+            or by_route['cuda_cores'] != cfg.num_layers * (passes - prefills)):
+        fail(f'K1 routes {by_route}: expected {cfg.num_layers} x {prefills} '
+             f'prefill passes on the tensor cores and the rest on the CUDA cores')
     if plain != 0:
         fail(f'the plain op ran {plain} times on the serving path')
     result = dict(tokens_per_s=tok_s, wall_s=wall_s, launches=launches,
-                  forward_passes=passes, telemetry=tele, gib=gib,
+                  launches_by_route=by_route, forward_passes=passes,
+                  prefill_dispatches=prefills, telemetry=tele, gib=gib,
                   peak_gib=peak_gib)
     if tqm is not None:
         k2, k2_plain = tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches
@@ -856,6 +913,7 @@ def phase_embed(torch, tea, card, tmp: Path, tqm=None, quantization=None):
 
     # The main path: counts to 0 just before, read just after.
     tea.encoder_attention.launches = 0
+    tea.encoder_attention.launches_by_route = dict.fromkeys(tea.ROUTES, 0)
     tea.encoder_attention_reference.launches = 0
     if tqm is not None:
         tqm.int8_matmul.launches = 0
@@ -867,6 +925,7 @@ def phase_embed(torch, tea, card, tmp: Path, tqm=None, quantization=None):
         )
     wall_s = time.perf_counter() - t0
     launches = tea.encoder_attention.launches
+    by_route = dict(tea.encoder_attention.launches_by_route)
     plain = tea.encoder_attention_reference.launches
     shard = tmp / f'shard_{quantization or "float"}'
     with Timer('wrote-embeddings', corpus_file.name):
@@ -895,13 +954,17 @@ def phase_embed(torch, tea, card, tmp: Path, tqm=None, quantization=None):
         f'{warm_s:.3f} s) on {card}; buckets {json.dumps(buckets)}; padding '
         f'share {padding:.4f}; output {emb.shape} float32, written and read back')
     log(f'[{tag}] encoder_attention launches {launches} = {cfg.num_layers} '
-        f'layers x {batches} batches; plain version launches {plain}')
+        f'layers x {batches} batches; by route {json.dumps(by_route)}; plain '
+        f'version launches {plain}')
     if launches <= 0 or launches != cfg.num_layers * batches:
         fail(f'K3 launches {launches} != {cfg.num_layers} x {batches} batches')
+    if by_route['tensor_cores'] != launches:
+        fail(f'K3 routes {by_route}: every bf16 launch at head dim 64 belongs '
+             f'on the tensor cores')
     if plain != 0:
         fail(f'the plain encoder attention ran {plain} times on the embed path')
     out = dict(embeddings_per_s=per_s, wall_s=wall_s, launches=launches,
-               batches=batches, buckets=buckets, padding_share=padding,
+               launches_by_route=by_route, batches=batches, buckets=buckets, padding_share=padding,
                corpus=corpus)
     if tqm is not None:
         k2, k2_plain = tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches
@@ -1026,9 +1089,10 @@ def main() -> None:
         phase_embed_identity(torch, tea, embed.pop('corpus'))
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
-    # most frequent launch; K3 at the embed path's longest bucket. Every
-    # case is listed under 'cases'.
+    # most frequent launch (its prefill pair beside it); K3 at the embed
+    # path's longest bucket. Every case is listed under 'cases'.
     head = next(c for c in cases if c['case'].startswith('serve_decode'))
+    prefill_head = next(c for c in cases if c['case'] == 'serve_prefill_2x1024')
     k3_head = next(c for c in k3_cases if c['case'] == 'embed_512x288')
     k2_head = next(c for c in k2_cases if c['case'] == K2_HEADLINE)
     kernels = [{
@@ -1037,15 +1101,19 @@ def main() -> None:
         'source': 'distllm_tpu_torch/csrc/ragged_paged_attention.cu',
         'replaces': 'distllm_tpu/ops/paged_attention.py:683',
         'launches': serve['launches'],
+        'launches_by_route': serve['launches_by_route'],
         'max_abs_err': max(c['max_abs_err'] for c in cases),
         'err_over_tol': max(c['err_over_tol'] for c in cases),
-        'tol': {'rel': TOL_REL, 'abs': TOL_ABS},
+        'tol': head['tol'],
         'ms': head['ms'],
         'plain_ms': head['plain_ms'],
         'bound_ms': head['bound_ms'],
         'bound_by': head['bound_by'],
         'library_ms': head['library_ms'],
         'timed_case': head['case'],
+        'prefill': {key: prefill_head[key] for key in (
+            'case', 'kernel_route', 'tol', 'ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms', 'err_over_tol')},
         'cases': cases,
     }, {
         'name': 'encoder_attention',
@@ -1053,6 +1121,7 @@ def main() -> None:
         'source': 'distllm_tpu_torch/csrc/encoder_attention.cu',
         'replaces': 'distllm_tpu/ops/encoder_attention.py:151',
         'launches': embed['launches'],
+        'launches_by_route': embed['launches_by_route'],
         'max_abs_err': max(c['max_abs_err'] for c in k3_cases),
         'err_over_tol': max(c['err_over_tol'] for c in k3_cases),
         'tol': k3_head['tol'],

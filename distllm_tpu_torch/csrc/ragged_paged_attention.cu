@@ -18,10 +18,17 @@
 // What bounds it on an H100 SXM: decode rows read every live K/V byte once
 // and do 4 flops per byte pair, far below the card's ~295 flop/byte ridge,
 // so decode is bound by KV bytes over 3.35 TB/s. Long prefill tails do
-// O(span) flops per KV byte and approach the operation bound.
+// O(span) flops per KV byte and are bound by the tensor cores' operations.
+// Route 1 stays well above that bound: a cycle-counter trace of its steps
+// (scripts/profile_torch_kernel_phases.py) puts about a fifth in issuing
+// the tile copies and the rest in the products, the softmax and the
+// block's prologue, at two blocks of four warps per SM (shared memory and
+// registers both allow two).
 //
-// Design (a simple kernel that is right first; wgmma, TMA and split-KV for
-// decode are later work):
+// Two routes, chosen by the wrapper from the dtype and the tile's rows and
+// launched by route number; neither ever gives way to the other:
+//
+// Route 0, CUDA cores (fp32, and bf16 tiles of fewer than 16 rows: decode):
 // - one thread block per (query tile, KV head, row): grid (tiles, Nkv, B).
 //   The query tile holds span_tile positions x the GQA group, so each K/V
 //   tile staged in shared memory serves the whole group — KV bytes are
@@ -35,19 +42,46 @@
 //   skipped, not multiplied by a zero probability (0 x NaN = NaN).
 // - 16-byte vector loads from device memory, fp32 arithmetic throughout
 //   (__bfloat162float on load, __float2bfloat16 on store).
+//
+// Route 1, tensor cores (bf16 tiles of 16..64 rows: prefill and chunk spans):
+// - the same grid, the same interleaved (span, group) rows (Pallas
+//   :568-575), padded to 64: four warps of 16 rows each.
+// - K/V tiles of 64 keys (4 pages of 16) resolved per key through the
+//   block's pages of block_tables, copied to shared memory once, and
+//   staged by cp.async, 16 bytes a thread, into a ring of two:
+//   tile t + 1 is issued right after tile t's Q K^T products and loads
+//   while they and the rest of tile t compute. A key outside [lo, hi) is
+//   zero-filled by the copy (source size 0) and never read — the trash
+//   block guarantee of route 0.
+// - Q K^T and P V are bf16 mma.m16n8k16 with fp32 accumulators, operands
+//   by ldmatrix (.trans for V); Q's fragments stay in registers for the
+//   whole key loop. Scores stay in registers: scale, tanh softcap (fp32),
+//   then the causal / window / q_lens mask, which a tile wholly inside
+//   every row's range skips; they are kept as s * log2(e), so each p is
+//   one ex2. The online max and sum run in fp32 over the quad that shares
+//   a row.
+// - p is rounded to bf16 as the A operand of P V, unnormalised, where the
+//   TPU kernel rounds it (probs.astype(vh.dtype), :649-653); l sums the
+//   unrounded p (:638-640). The int8-KV mode (Pallas :585-600, :622-623,
+//   :642-648) folds K's per-key scale into the fp32 scores and V's into p
+//   before that cast: the two places are marked below.
+// - a warp skips the products of a key tile that lies wholly above its
+//   rows' diagonal or below their window, and the block's key loop ends at
+//   its last live query: a causal prefill does about half the products of
+//   a dense one. The query tiles with the most keys are launched first, so
+//   the short ones fill the tail of the grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "mma_tiles.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kKeyTile = 32;  // keys per staged tile (one per warp lane)
-constexpr int kMaxDevices = 64;
 
 struct Params {
   const void* q;              // [B, S, Nh, Hd]
@@ -300,32 +334,315 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------- route 1, tensor cores
+constexpr int kTcRows = 64;  // query rows per block: 4 warps x 16
+constexpr int kTcKeys = 64;  // keys per staged K/V tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+size_t tc_smem_bytes(int head_dim, int max_blocks) {
+  // Q tile and a ring of two K and two V tiles, rows padded by 16 bytes so
+  // the 8 row addresses of an ldmatrix fall in 8 distinct bank groups;
+  // then the row's block table.
+  return sizeof(__nv_bfloat16) * size_t(head_dim + 8) * (kTcRows + 4 * kTcKeys) +
+         sizeof(int) * size_t(max_blocks);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    ragged_paged_attention_mma_kernel(const Params p) {
+  using namespace mma_tiles;
+  using bf16 = __nv_bfloat16;
+  constexpr int kStride = HD + 8;       // staged row, bf16 elements
+  constexpr int kChunks = HD / 8;       // 16-byte chunks of a row
+  constexpr int kSteps = HD / 16;       // k-steps of Q K^T
+  constexpr int kOut = HD / 8;          // 8-column accumulator tiles of P V
+  constexpr int kKeyTiles = kTcKeys / 8;  // 8-key accumulator tiles of S
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][kStride]
+  bf16* s_k = s_q + kTcRows * kStride;           // [2][kTcKeys][kStride]
+  bf16* s_v = s_k + 2 * kTcKeys * kStride;       // [2][kTcKeys][kStride]
+  int* s_bt = reinterpret_cast<int*>(s_v + 2 * kTcKeys * kStride);  // [max_blocks]
+
+  // The last query tiles attend the most keys: they start first, so the
+  // short ones fill the card's tail.
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;  // accumulator rows g and g + 8 of the warp
+  const int t = lane % 4;  // accumulator columns 2t, 2t + 1 of each 8
+  const int group = p.num_heads / p.num_kv_heads;
+  const int rows = p.span_tile * group;  // row r: span r / group, head r % group
+  const int span_off = qt * p.span_tile;
+
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const bf16* k_cache = static_cast<const bf16*>(p.k_cache);
+  const bf16* v_cache = static_cast<const bf16*>(p.v_cache);
+  bf16* out = static_cast<bf16*>(p.out);
+
+  const int ctx = p.context_lens[b];
+  const int q0 = p.q_start[b];
+  const int q_len = p.q_lens[b];
+  const int win = p.window;
+
+  // Stage the query tile (rows past the tile or the span are zeros).
+  for (int i = tid; i < kTcRows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const int si = span_off + r / group;
+    const bool live = r < rows && si < p.span;
+    const size_t off =
+        live ? ((size_t(b) * p.span + si) * p.num_heads + h * group + r % group) * HD + c
+             : 0;
+    cp_async16(s_q + r * kStride + c, q + off, live);
+  }
+  cp_async_commit();
+
+  // Keys the block can ever see: [lo, hi), as on route 0. Tiles start on
+  // multiples of 64 keys (4 pages of 16).
+  const int lo = win > 0 ? max(q0 + span_off - win + 1, 0) : 0;
+  const int hi = min(ctx, q0 + min(q_len, span_off + p.span_tile));
+  const int t_begin = lo / kTcKeys * kTcKeys;
+  const int n_tiles =
+      (q_len > span_off && hi > lo) ? (hi - t_begin + kTcKeys - 1) / kTcKeys : 0;
+
+  // This lane's two rows, and the keys the warp's 16 rows can see.
+  int qpos[2];
+  bool row_live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * warp + g + 8 * i;
+    const int si = span_off + r / group;
+    row_live[i] = r < rows && si < q_len;
+    qpos[i] = q0 + si;
+  }
+  const int w_first = 16 * warp;
+  const bool warp_live = w_first < rows && span_off + w_first / group < q_len;
+  const int w_last = min(w_first + 15, rows - 1);
+  // All 16 rows live; the positions of the warp's first and last rows.
+  const bool warp_full = w_first + 15 < rows && span_off + (w_first + 15) / group < q_len;
+  const int w_qmin = q0 + span_off + w_first / group;
+  const int w_qmax = q0 + span_off + w_last / group;
+  // Keys at or past w_hi lie above every live row's diagonal; keys below
+  // w_lo lie outside every row's window.
+  const int w_hi = q0 + min(span_off + w_last / group, q_len - 1) + 1;
+  const int w_lo = win > 0 ? w_qmin - win + 1 : 0;
+  const float scale_log2 = p.scale * kLog2e;
+
+  // The pages the block reads, from the row's block table into shared
+  // memory once, so that staging a tile waits on no load from device
+  // memory: each key's page and slot come from shared memory (by shifts
+  // when the block size is a power of two).
+  if (n_tiles > 0) {
+    for (int page = lo / p.block_size + tid; page <= (hi - 1) / p.block_size;
+         page += kThreads) {
+      s_bt[page] = p.block_tables[size_t(b) * p.max_blocks + page];
+    }
+  }
+  __syncthreads();
+  const bool pow2 = (p.block_size & (p.block_size - 1)) == 0;
+  const int log2_bs = __ffs(p.block_size) - 1;
+
+  // Each thread copies one 16-byte column c of every kKeyStride-th key of
+  // a tile, starting at key j0: a fixed trip count, unrolled, so the page
+  // lookups of a tile are in flight together.
+  constexpr int kKeyStride = kThreads / kChunks;
+  constexpr int kPerThread = kTcKeys / kKeyStride;
+  const int j0 = tid / kChunks;
+  const int c = (tid % kChunks) * 8;
+  const size_t page_elems = size_t(p.block_size) * p.num_kv_heads * HD;
+  const int slot_elems = p.num_kv_heads * HD;
+  const int head_col = h * HD + c;
+  auto stage = [&](int buf, int t0) {
+#pragma unroll
+    for (int it = 0; it < kPerThread; ++it) {
+      const int j = j0 + it * kKeyStride;
+      const int key = t0 + j;
+      const bool live = key >= lo && key < hi;
+      size_t off = 0;
+      if (live) {
+        const int page = pow2 ? key >> log2_bs : key / p.block_size;
+        off = size_t(s_bt[page]) * page_elems + (key - page * p.block_size) * slot_elems +
+              head_col;
+      }
+      cp_async16(s_k + (buf * kTcKeys + j) * kStride + c, k_cache + off, live);
+      cp_async16(s_v + (buf * kTcKeys + j) * kStride + c, v_cache + off, live);
+    }
+  };
+
+  uint32_t qf[kSteps][4];
+  float o[kOut][4];
+#pragma unroll
+  for (int n = 0; n < kOut; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's share of each row's sum
+
+  if (n_tiles > 0) stage(0, t_begin);
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_begin + it * kTcKeys;
+    const int buf = it & 1;
+    cp_async_wait<0>();  // the query tile and tile it have landed
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        ldmatrix_x4(qf[kk], s_q + (16 * warp + (lane & 15)) * kStride + 16 * kk +
+                                (lane >> 4) * 8);
+      }
+    }
+    const bool compute = warp_live && t0 < w_hi && t0 + kTcKeys > w_lo;
+    const bf16* kt = s_k + buf * kTcKeys * kStride;
+    const bf16* vt = s_v + buf * kTcKeys * kStride;
+    float s[kKeyTiles][4];
+    if (compute) {
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      // S = Q K^T: B[d][key] = K[key][d], two 8-key tiles per ldmatrix.
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < kKeyTiles / 2; ++jj) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, kt + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * kStride +
+                              16 * kk + ((lane >> 3) & 1) * 8);
+          mma_bf16_16816(s[2 * jj], qf[kk], kb[0], kb[1]);
+          mma_bf16_16816(s[2 * jj + 1], qf[kk], kb[2], kb[3]);
+        }
+      }
+    }
+    // Tile it + 1 is staged while the products of tile it run: its buffer
+    // was last read before the previous step's closing barrier.
+    if (it + 1 < n_tiles) stage(buf ^ 1, t0 + kTcKeys);
+    cp_async_commit();
+    if (compute) {
+      // Scale, softcap, mask — in fp32 registers, as log2-scaled scores
+      // t = s * log2(e), so p = 2^(t - m) = e^(s - m) costs one ex2. A
+      // tile that lies wholly inside every row's causal and window range
+      // (the bulk of a long prefill) needs no mask.
+      const bool inside = warp_full && t0 + kTcKeys - 1 <= w_qmin && t0 + kTcKeys <= ctx &&
+                          (win <= 0 || t0 > w_qmax - win);
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int key = t0 + 8 * j + 2 * t + (e & 1);
+          float x;
+          // int8 KV: the score takes K's scale of the key's page, here.
+          if (p.softcap > 0.f) {
+            x = tanhf(s[j][e] * p.scale / p.softcap) * (p.softcap * kLog2e);
+          } else {
+            x = s[j][e] * scale_log2;
+          }
+          const bool valid = inside || (row_live[i] && key < ctx && key <= qpos[i] &&
+                                        (win <= 0 || key > qpos[i] - win));
+          s[j][e] = valid ? x : -INFINITY;
+        }
+      }
+      // Online softmax. A row with no live key yet rebases on 0, as on
+      // route 0: 2^(-inf - 0) = 0 keeps its l and acc exactly 0.
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+        const float m_new = fmaxf(m[i], quad_max(mx));
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2_approx(m[i] - base);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; ++j) {
+          s[j][2 * i] = exp2_approx(s[j][2 * i] - base);
+          s[j][2 * i + 1] = exp2_approx(s[j][2 * i + 1] - base);
+          sum += s[j][2 * i] + s[j][2 * i + 1];
+        }
+        l[i] = l[i] * alpha + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int n = 0; n < kOut; ++n) {
+          o[n][2 * i] *= alpha;
+          o[n][2 * i + 1] *= alpha;
+        }
+      }
+      // O += P V: the S accumulators, rounded to bf16, are P's A fragments;
+      // B[key][d] = V[key][d] by ldmatrix.trans, two 8-column tiles each.
+      // int8 KV: p *= V's scale of the key's page, before pack_bf16.
+#pragma unroll
+      for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+        const uint32_t a[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
+        };
+#pragma unroll
+        for (int nn = 0; nn < kOut / 2; ++nn) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
+                                    16 * nn + (lane >> 4) * 8);
+          mma_bf16_16816(o[2 * nn], a, vb[0], vb[1]);
+          mma_bf16_16816(o[2 * nn + 1], a, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // tile it's buffer is free for tile it + 2
+  }
+  cp_async_wait<0>();  // the query tile, when no key tile ran
+
+  // Rows that never saw a live key have l = 0 and acc = 0: exact zeros.
+  // The tile goes out through shared memory (free now), so that each
+  // output row of HD values is written with 16-byte stores.
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float inv = 1.f / fmaxf(quad_sum(l[i]), 1e-9f);
+    bf16* dst = s_q + (16 * warp + g + 8 * i) * kStride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kOut; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+          __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kTcRows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int col = (i % kChunks) * 8;
+    const int si = span_off + r / group;
+    if (r >= rows || si >= p.span) continue;
+    *reinterpret_cast<uint4*>(
+        out + ((size_t(b) * p.span + si) * p.num_heads + h * group + r % group) * HD + col) =
+        *reinterpret_cast<const uint4*>(s_q + r * kStride + col);
+  }
+}
+
 template <typename T, int HD>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   const int group = p.num_heads / p.num_kv_heads;
   const int rows = p.span_tile * group;
   const size_t smem = smem_bytes(rows, HD);
   auto kernel = ragged_paged_attention_kernel<T, HD>;
-  // Above 48 KiB a block must opt in. The opt-in is set once per device
-  // for this instance, at the device's own maximum (which covers every
-  // tile the wrapper picks), not on every launch.
-  static std::atomic<bool> opted_in[kMaxDevices];
-  if (smem > 48 * 1024) {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return err;
-    if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (!opted_in[device].load(std::memory_order_acquire)) {
-      int limit = 0;
-      err = cudaDeviceGetAttribute(
-          &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-      if (err != cudaSuccess) return err;
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-      if (err != cudaSuccess) return err;
-      opted_in[device].store(true, std::memory_order_release);
-    }
-  }
+  static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
+  cudaError_t err = mma_tiles::opt_in_shared_memory(
+      reinterpret_cast<const void*>(kernel), smem, opted_in);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.span + p.span_tile - 1) / p.span_tile, p.num_kv_heads,
+                  batch);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(HD, p.max_blocks);
+  auto kernel = ragged_paged_attention_mma_kernel<HD>;
+  static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
+  cudaError_t err = mma_tiles::opt_in_shared_memory(
+      reinterpret_cast<const void*>(kernel), smem, opted_in);
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.span + p.span_tile - 1) / p.span_tile, p.num_kv_heads,
                   batch);
   kernel<<<grid, kThreads, smem, stream>>>(p);
@@ -337,8 +654,10 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (queries, keys, values and output share
-// it). Returns a cudaError_t: 0 on a successful launch, cudaErrorInvalidValue
-// for arguments the kernel does not take. The launch is asynchronous on
+// it). route: 0 = CUDA cores (any dtype and tile), 1 = tensor cores (bf16,
+// span_tile x group of 16..64 rows). Returns a cudaError_t: 0 on a
+// successful launch, cudaErrorInvalidValue for arguments the route does not
+// take. The launch is asynchronous on
 // `stream`; nothing is allocated and nothing synchronises.
 int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
                        const void* block_tables, const void* context_lens,
@@ -346,7 +665,7 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
                        int batch, int span, int num_heads, int num_kv_heads,
                        int head_dim, int block_size, int max_blocks,
                        int span_tile, int window, float scale, float softcap,
-                       int dtype, void* stream) {
+                       int dtype, int route, void* stream) {
   if (batch < 1 || batch > 65535 || span < 1 || num_kv_heads < 1 ||
       num_kv_heads > 65535 || num_heads % num_kv_heads != 0 ||
       block_size < 1 || max_blocks < 1 || span_tile < 1) {
@@ -372,6 +691,14 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
   p.softcap = softcap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  if (route == 1) {
+    const int rows = span_tile * (num_heads / num_kv_heads);
+    if (dtype != 1 || rows < 16 || rows > kTcRows) return int(err);
+    if (head_dim == 64) err = launch_mma<64>(p, batch, s);
+    if (head_dim == 128) err = launch_mma<128>(p, batch, s);
+    return int(err);
+  }
+  if (route != 0) return int(err);
   if (dtype == 0 && head_dim == 64) err = launch<float, 64>(p, batch, s);
   if (dtype == 0 && head_dim == 128) err = launch<float, 128>(p, batch, s);
   if (dtype == 1 && head_dim == 64) err = launch<__nv_bfloat16, 64>(p, batch, s);

@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface under ``distllm_tpu_torch/_build/`` and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source rebuilds at its next use and an unchanged one
-loads at once. Nothing is built when a module is imported: the first call
+``ctypes``. The library's file name carries a hash of the source, of the
+shared headers (``csrc/*.cuh``) and of the flags, so an edited source or
+header rebuilds at its next use and an unchanged one loads at once. Nothing is built when a module is imported: the first call
 that launches a kernel builds it. A failed build raises; there is no
 fallback.
 """
@@ -61,8 +61,9 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where kernel ``name``'s library lives for the current source."""
-    source = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes())
+    digest = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob('*.cuh')):
+        digest.update(header.read_bytes())
     digest.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 

@@ -20,10 +20,16 @@ average of V instead of NaN; poolers drop such rows downstream.
 - the CUDA kernel ``csrc/encoder_attention.cu`` — the hand-written Hopper
   port of the Pallas kernel: flash-style query and key tiles read
   straight from the packed layout, two passes so ``p`` is rounded after
-  normalisation exactly where the TPU kernel rounds it.
+  normalisation exactly where the TPU kernel rounds it. It has two routes
+  (:func:`kernel_route`): ``'tensor_cores'`` for bf16 with a head dim
+  that is a multiple of 16 (Q·Kᵀ and P·V as bf16 ``mma.sync`` with fp32
+  accumulators) and ``'cuda_cores'`` for fp32 and for other head dims
+  (fp32 products on the CUDA cores). Both round p at the same point, so
+  one tolerance holds both.
 - :func:`encoder_attention` — the dispatch. A CPU tensor goes to the
   plain version; a CUDA tensor launches the kernel or raises. Each keeps
-  an integer ``launches`` count, so a run can show which one served it.
+  an integer ``launches`` count, and the kernel a ``launches_by_route``
+  count per route, so a run can show which one served it.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from distllm_tpu_torch.ops import _build
 NEG_BIG = -1e9
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+ROUTES = {'cuda_cores': 0, 'tensor_cores': 1}
 
 
 def _default_scale(head_dim: int, scale: float | None) -> float:
@@ -129,13 +136,21 @@ def comparison_tolerance(
     )
 
 
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route the kernel takes: ``'tensor_cores'`` for bf16 with a head
+    dim that is a multiple of 16 (one mma's depth), else ``'cuda_cores'``."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0:
+        return 'tensor_cores'
+    return 'cuda_cores'
+
+
 def _kernel():
     """The kernel's C entry point, with its ctypes signature declared."""
     lib = _build.load('encoder_attention')
     fn = lib.distllm_ea_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]
+        fn.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, i32, ptr]
         fn.restype = ctypes.c_int
         lib.distllm_ea_error_string.argtypes = [ctypes.c_int]
         lib.distllm_ea_error_string.restype = ctypes.c_char_p
@@ -153,10 +168,12 @@ def encoder_attention_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (builds it at first use).
 
-    Same contract as :func:`encoder_attention_reference`. Raises on what
-    the kernel does not take: a tensor off the CUDA device of ``q``, a
-    dtype other than fp32/bf16 (shared by q, k and v), a head dim that is
-    not a multiple of 8 up to 128, or shapes that disagree.
+    Same contract as :func:`encoder_attention_reference`. The route is
+    :func:`kernel_route`'s; a route that fails to launch raises, it never
+    gives way to the other. Raises on what the kernel does not take: a
+    tensor off the CUDA device of ``q``, a dtype other than fp32/bf16
+    (shared by q, k and v), a head dim that is not a multiple of 8 up to
+    128, or shapes that disagree.
     """
     tensors = (q, k, v, mask) + (() if bias is None else (bias,))
     if any(x.device != q.device or x.device.type != 'cuda' for x in tensors):
@@ -188,6 +205,7 @@ def encoder_attention_cuda(
         raise ValueError('q, k and v must start on a 16-byte boundary')
     mask_i32 = mask.to(torch.int32).contiguous()
     bias_f32 = None if bias is None else bias.to(torch.float32).contiguous()
+    route = kernel_route(q.dtype, hd)
     out = torch.empty_like(q)
     lib, fn = _kernel()
     with torch.cuda.device(q.device):
@@ -195,15 +213,16 @@ def encoder_attention_cuda(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(),
             None if bias_f32 is None else bias_f32.data_ptr(), out.data_ptr(),
             b, s, num_heads, hd, _default_scale(hd, scale),
-            KERNEL_DTYPES[q.dtype],
+            KERNEL_DTYPES[q.dtype], ROUTES[route],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         raise RuntimeError(
-            'encoder_attention kernel launch failed: CUDA error '
-            f'{err} ({lib.distllm_ea_error_string(err).decode()})'
+            f'encoder_attention kernel launch failed ({route} route): CUDA '
+            f'error {err} ({lib.distllm_ea_error_string(err).decode()})'
         )
     encoder_attention.launches += 1
+    encoder_attention.launches_by_route[route] += 1
     return out
 
 
@@ -223,7 +242,8 @@ def encoder_attention(
     launch the kernel (:func:`encoder_attention_cuda`) or raise — a CUDA
     tensor never reaches the plain version here, at any sequence length.
     Any other device raises. ``encoder_attention.launches`` counts kernel
-    launches.
+    launches and ``encoder_attention.launches_by_route`` counts them per
+    route (``'tensor_cores'`` / ``'cuda_cores'``).
     """
     if q.device.type == 'cuda':
         return encoder_attention_cuda(q, k, v, mask, num_heads, scale, bias)
@@ -233,3 +253,4 @@ def encoder_attention(
 
 
 encoder_attention.launches = 0
+encoder_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

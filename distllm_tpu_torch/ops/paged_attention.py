@@ -17,12 +17,20 @@ case), and one op serves them:
 - the CUDA kernel ``csrc/ragged_paged_attention.cu`` — the hand-written
   Hopper twin of ``ragged_paged_attention_pallas``: online fp32 softmax,
   K/V staged once per query tile for the whole GQA group, no score tensor
-  in device memory.
+  in device memory. It has two routes (:func:`kernel_route`):
+  ``'tensor_cores'`` for bf16 query tiles of 16 or more rows (span
+  positions x GQA group: prefill and chunk spans) — Q·Kᵀ and P·V as bf16
+  ``mma.sync`` with fp32 accumulators, p rounded to bf16 before P·V as
+  the TPU kernel rounds it — and ``'cuda_cores'`` for fp32 and for bf16
+  tiles of fewer rows (decode rows at Mistral's group of 4), fp32
+  products on the CUDA cores.
 - :func:`ragged_paged_attention` — the dispatch. A tensor on the CPU goes
   to the plain version; a CUDA tensor launches the kernel or raises. It
-  keeps an integer ``launches`` count of kernel launches, and the plain
-  version keeps its own count of calls, so a run can show which one
-  served it.
+  keeps an integer ``launches`` count of kernel launches and a
+  ``launches_by_route`` count per route, and the plain version keeps its
+  own count of calls, so a run can show which one served it.
+- :func:`comparison_tolerance` — the elementwise bound that holds the
+  kernel to the plain version, per route.
 
 Int8 :class:`QuantizedKV` pools are not on this slice's path (the engine
 stores K/V in the model dtype); the kernel's int8 mode is queued and the
@@ -40,8 +48,11 @@ from distllm_tpu_torch.ops import _build
 
 # Query rows (span positions x GQA group) one thread block holds.
 _MAX_TILE_ROWS = 64
+# The tensor-core route takes bf16 tiles of at least one mma's 16 rows.
+_MIN_MMA_ROWS = 16
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {'cuda_cores': 0, 'tensor_cores': 1}
 
 
 class QuantizedKV(NamedTuple):
@@ -88,6 +99,23 @@ def ragged_paged_attention_reference(
     _refuse_quantized(k_cache, v_cache)
     ragged_paged_attention_reference.launches += 1
     b, s, num_heads, head_dim = q.shape
+    scores, v = _scores_and_values(
+        q, k_cache, v_cache, block_tables, context_lens, q_positions, q_lens,
+        sliding_window, scale, logit_softcap,
+    )
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum('bkgst,btkd->bskgd', probs, v)
+    return out.reshape(b, s, num_heads, head_dim).to(q.dtype)
+
+
+def _scores_and_values(
+    q, k_cache, v_cache, block_tables, context_lens, q_positions, q_lens,
+    sliding_window, scale, logit_softcap,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version's masked fp32 scores ``[B, Nkv, G, S, T]`` (-inf
+    where a key is not attended) and its gathered fp32 values
+    ``[B, T, Nkv, Hd]``."""
+    b, s, num_heads, head_dim = q.shape
     _, block_size, num_kv_heads, _ = k_cache.shape
     max_blocks = block_tables.shape[1]
     group = num_heads // num_kv_heads
@@ -112,13 +140,80 @@ def ragged_paged_attention_reference(
             < q_lens.long()[:, None, None]
         )
         valid = valid | (~q_valid & (kv_pos == 0))
-    scores = scores.masked_fill(~valid[:, None, None], float('-inf'))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum('bkgst,btkd->bskgd', probs, v)
-    return out.reshape(b, s, num_heads, head_dim).to(q.dtype)
+    return scores.masked_fill(~valid[:, None, None], float('-inf')), v
 
 
 ragged_paged_attention_reference.launches = 0
+
+# The kernel against the plain version on valid rows, elementwise:
+#   |out - ref| <= REL * |ref| + ABS                       bf16, cuda_cores
+#   |out - ref| <= REL * |ref| + P_REL * (P @ |V|) + ABS   bf16, tensor_cores
+#   |out - ref| <= ABS                                     fp32
+# with P the plain version's normalised fp32 softmax of the query and |V|
+# the magnitudes of the values it weighs. On the CUDA cores both sides
+# form fp32 p and fp32 sums and round out once to bf16: where their fp32
+# values straddle a rounding point they are one bf16 step apart, at most
+# 2**-7 * |out|. The tensor-core route rounds each unnormalised p_j to
+# bf16 before P @ V (the TPU kernel's probs.astype(vh.dtype)): a relative
+# error of at most 2**-8 per key, while l sums the unrounded p. The
+# normalised result then moves by at most sum_j 2**-8 * p_j / l * |v_jd|
+# = 2**-8 * (P @ |V|)_d before the final rounding, which adds the straddle
+# term as on the CUDA cores. That is to first order: the cross term,
+# 2**-15 * (P @ |V|), is 1/128 of the p term, which itself assumes every
+# p_j rounds by a full half step in one direction (the running maximum's
+# p_j = exp(0) = 1 does not round at all). ABS covers fp32 summation-order
+# noise at outputs near zero. Stated worst ratios: tests/
+# test_torch_paged_attention.py (CPU emulation of the route's order) and
+# chip_smoke.py phase 3 (the kernel on the card).
+TOL_REL, TOL_P_REL, TOL_ABS = 2.0 ** -7, 2.0 ** -8, 1e-5
+
+
+def kernel_route(dtype: torch.dtype, span: int, group: int) -> str:
+    """The route the kernel takes for queries of ``dtype`` with ``span``
+    positions per row and GQA ``group``: ``'tensor_cores'`` for bf16 tiles
+    of ``_MIN_MMA_ROWS``..``_MAX_TILE_ROWS`` rows, else ``'cuda_cores'``
+    (fp32, and bf16 decode rows whose group gives fewer than 16 rows)."""
+    rows = _span_tile(span, group) * group
+    if dtype == torch.bfloat16 and _MIN_MMA_ROWS <= rows <= _MAX_TILE_ROWS:
+        return 'tensor_cores'
+    return 'cuda_cores'
+
+
+def comparison_tolerance(
+    ref: torch.Tensor,  # the plain version's output [B, S, num_heads, head_dim]
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    q_positions: torch.Tensor,
+    q_lens: 'torch.Tensor | None' = None,
+    sliding_window: 'int | None' = None,
+    scale: float | None = None,
+    logit_softcap: float | None = None,
+    route: str | None = None,
+) -> torch.Tensor:
+    """The elementwise bound on ``|kernel - plain|`` stated above, for
+    these inputs (fp32, ``ref``'s shape; meaningful on valid rows). The
+    route defaults to :func:`kernel_route`'s for these inputs. Plain
+    PyTorch: used by the checks on the card and the CPU tests, never on
+    the serving path."""
+    if route is None:
+        route = kernel_route(q.dtype, q.shape[1], q.shape[2] // k_cache.shape[2])
+    if route not in ROUTES:
+        raise ValueError(f'route must be one of {tuple(ROUTES)}, got {route!r}')
+    if ref.dtype == torch.float32:
+        return torch.full_like(ref, TOL_ABS)
+    tol = TOL_REL * ref.float().abs() + TOL_ABS
+    if route == 'tensor_cores':
+        scores, v = _scores_and_values(
+            q, k_cache, v_cache, block_tables, context_lens, q_positions,
+            q_lens, sliding_window, scale, logit_softcap,
+        )
+        probs = torch.softmax(scores, dim=-1)
+        spread = torch.einsum('bkgst,btkd->bskgd', probs, v.abs())
+        tol = tol + TOL_P_REL * spread.reshape(ref.shape)
+    return tol
 
 
 def _kernel():
@@ -127,7 +222,7 @@ def _kernel():
     fn = lib.distllm_rpa_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, i32, ptr]
+        fn.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, i32, i32, ptr]
         fn.restype = ctypes.c_int
         lib.distllm_rpa_error_string.argtypes = [ctypes.c_int]
         lib.distllm_rpa_error_string.restype = ctypes.c_char_p
@@ -157,7 +252,9 @@ def ragged_paged_attention_cuda(
     Same contract as :func:`ragged_paged_attention_reference` for valid
     queries, plus the kernel's: each row's ``q_positions`` are consecutive
     (only ``q_positions[:, 0]`` is read) and pad queries come out as exact
-    zeros. Raises on anything the kernel does not take: a device other
+    zeros. The route is :func:`kernel_route`'s; a route that fails to
+    launch raises, it never gives way to the other. Raises on anything the
+    kernel does not take: a device other
     than CUDA, a dtype other than fp32/bf16 (shared by q and the pool),
     a head dim other than 64/128, a non-contiguous pool, or a tensor
     sliding window.
@@ -196,6 +293,7 @@ def ragged_paged_attention_cuda(
         ql = torch.full((b,), s, dtype=i32, device=q.device)
     else:
         ql = q_lens.to(i32).contiguous()
+    route = kernel_route(q.dtype, s, group)
     out = torch.empty_like(q)
     lib, fn = _kernel()
     with torch.cuda.device(q.device):
@@ -207,15 +305,16 @@ def ragged_paged_attention_cuda(
             bt.shape[1], _span_tile(s, group), window,
             float(scale if scale is not None else head_dim ** -0.5),
             float(logit_softcap or 0.0),
-            KERNEL_DTYPES[q.dtype],
+            KERNEL_DTYPES[q.dtype], ROUTES[route],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         raise RuntimeError(
-            'ragged_paged_attention kernel launch failed: CUDA error '
-            f'{err} ({lib.distllm_rpa_error_string(err).decode()})'
+            f'ragged_paged_attention kernel launch failed ({route} route): '
+            f'CUDA error {err} ({lib.distllm_rpa_error_string(err).decode()})'
         )
     ragged_paged_attention.launches += 1
+    ragged_paged_attention.launches_by_route[route] += 1
     return out
 
 
@@ -238,7 +337,8 @@ def ragged_paged_attention(
     tensors launch the kernel (:func:`ragged_paged_attention_cuda`) or
     raise — a CUDA tensor never reaches the plain version here. Any other
     device raises. ``ragged_paged_attention.launches`` counts kernel
-    launches.
+    launches and ``ragged_paged_attention.launches_by_route`` counts them
+    per route (``'tensor_cores'`` / ``'cuda_cores'``).
     """
     args = (q, k_cache, v_cache, block_tables, context_lens, q_positions)
     kwargs = {
@@ -253,6 +353,7 @@ def ragged_paged_attention(
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def write_token_kv(

@@ -7,13 +7,16 @@ runs on a machine without it::
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerances on valid rows, elementwise ``|out - ref| <= rtol * |ref| +
-atol``: fp32 ``atol 1e-5`` (summation order only); bf16 ``rtol 2**-7``
-(both sides round one fp32 result to bf16, so they differ by at most one
-bf16 step, which is at most 2**-7 * |x|) plus ``atol 1e-5``. Pad queries
-must be exact zeros. K3 is held to its own elementwise bound
+K1 is held on valid rows to ``paged_attention.comparison_tolerance`` of
+the route that served it (asserted by ``launches_by_route``): fp32 ``1e-5``
+(summation order only); bf16 on the CUDA cores one bf16 step of out,
+``2**-7 * |ref| + 1e-5`` (both sides round one fp32 result to bf16); bf16
+on the tensor cores adds ``2**-8 * (P @ |V|)`` (each unnormalised p_j is
+rounded to bf16 before P @ V, as on the TPU). Pad queries must be exact
+zeros. K3 is held to its own elementwise bound
 (``encoder_attention.comparison_tolerance``: in bf16 one step of out
-plus one bf16 step of one p_j * v_j), on every row, fully masked included.
+plus one bf16 step of one p_j * v_j) on both of its routes, on every row,
+fully masked included.
 K2 is held to ``quantized_matmul.comparison_tolerance`` (in bf16 one step
 of out, and in both dtypes an fp32 summation-order term that scales with
 ``scale * (|x| @ |q|)``); quantizing on the card gives the CPU's codes
@@ -30,7 +33,6 @@ from distllm_tpu_torch.ops import quantization as tq
 from distllm_tpu_torch.ops import quantized_matmul as tqm
 
 pytestmark = pytest.mark.gpu
-TOL = {'float32': dict(rtol=0, atol=1e-5), 'bfloat16': dict(rtol=2**-7, atol=1e-5)}
 
 
 @pytest.fixture
@@ -72,21 +74,39 @@ def _case(seed, *, nh, nkv, hd, dtype, ctxs, q_lens, span, bs=16, trash=1e4):
     }
 
 
-def _check(case, dtype, **kw):
+def _route(case):
+    q, k = case['args'][:2]
+    return tpa.kernel_route(q.dtype, q.shape[1], q.shape[2] // k.shape[2])
+
+
+def _check(case, dtype, route=None, **kw):
+    """One launch on the expected route (``route``, else the wrapper's
+    choice), held to that route's tolerance on valid rows."""
+    route = route or _route(case)
+    assert _route(case) == route
+    q_dtype = case['args'][0].dtype
+    assert q_dtype == getattr(torch, dtype)
     calls = tpa.ragged_paged_attention_reference.launches
     launches = tpa.ragged_paged_attention.launches
+    by_route = dict(tpa.ragged_paged_attention.launches_by_route)
     out = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'], **kw)
     assert tpa.ragged_paged_attention.launches == launches + 1
+    assert tpa.ragged_paged_attention.launches_by_route[route] == by_route[route] + 1
     assert tpa.ragged_paged_attention_reference.launches == calls
     ref = tpa.ragged_paged_attention_reference(
         *case['args'], q_lens=case['q_lens'], **kw
     )
+    tol = tpa.comparison_tolerance(
+        ref, *case['args'], q_lens=case['q_lens'], route=route, **kw
+    )
     torch.cuda.synchronize()
-    out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
-    valid = np.arange(case['span'])[None, :] < case['np_q_lens'][:, None]
-    assert np.isfinite(out).all()
+    valid = torch.from_numpy(
+        np.arange(case['span'])[None, :] < case['np_q_lens'][:, None]
+    ).cuda()
+    assert torch.isfinite(out.float()).all()
     assert (out[~valid] == 0).all()
-    np.testing.assert_allclose(out[valid], ref[valid], **TOL[dtype])
+    err = ((out.float() - ref.float()).abs() / tol)[valid].max().item()
+    assert err <= 1.0, err
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
@@ -117,12 +137,48 @@ def test_softcap_and_scale(cuda, dtype):
     _check(case, dtype, sliding_window=50, scale=0.05, logit_softcap=30.0)
 
 
+@pytest.mark.parametrize('nh,nkv', [(8, 8), (32, 8), (64, 8)])
+@pytest.mark.parametrize('hd', [64, 128])
+@pytest.mark.parametrize('span', [17, 64, 300, 1024])
+@pytest.mark.parametrize('window', [None, 100])
+def test_tensor_core_route_matrix(cuda, nh, nkv, hd, span, window):
+    """bf16 spans on the tensor-core route at GQA groups 1 / 4 / 8: a fresh
+    prefill, a chunk over a prefix that starts off a 64-key tile, a short
+    tail of a padded span and a fully padded row."""
+    ctxs = [span, span + 37, 5 + 200, 9]
+    case = _case(span + hd + nh, nh=nh, nkv=nkv, hd=hd, dtype='bfloat16',
+                 ctxs=ctxs, q_lens=[span, span, 5, 0], span=span)
+    _check(case, 'bfloat16', route='tensor_cores', sliding_window=window)
+
+
+@pytest.mark.parametrize('nh,nkv', [(8, 8), (32, 8)])
+def test_tensor_core_route_softcap_and_scale(cuda, nh, nkv):
+    case = _case(6, nh=nh, nkv=nkv, hd=128, dtype='bfloat16',
+                 ctxs=[300, 130], q_lens=[300, 1], span=300)
+    _check(case, 'bfloat16', route='tensor_cores', sliding_window=64,
+           scale=0.05, logit_softcap=30.0)
+
+
+def test_nan_trash_block_never_reaches_a_decode_output(cuda):
+    """As below, on the CUDA-core route (decode rows at group 4)."""
+    case = _case(7, nh=32, nkv=8, hd=128, dtype='bfloat16',
+                 ctxs=[1, 16, 17, 500], q_lens=[1] * 4, span=1)
+    assert _route(case) == 'cuda_cores'
+    clean = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    case['args'][1][0] = float('nan')
+    case['args'][2][0] = float('nan')
+    poisoned = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert torch.equal(clean, poisoned)
+
+
 def test_nan_trash_block_never_reaches_an_output(cuda):
     """Block 0 and block-table padding hold NaN: the kernel skips keys
-    outside each row's range, so outputs are bitwise those of a clean
-    trash block."""
+    outside each row's range (on the tensor-core route the copy
+    zero-fills them), so outputs are bitwise those of a clean trash
+    block."""
     case = _case(4, nh=32, nkv=8, hd=128, dtype='bfloat16',
                  ctxs=[1, 16, 17, 500], q_lens=[1, 16, 5, 100], span=100)
+    assert _route(case) == 'tensor_cores'
     clean = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
     case['args'][1][0] = float('nan')
     case['args'][2][0] = float('nan')
@@ -202,10 +258,16 @@ def _k3_inputs(seed, b, s, heads, hd, dtype, lens=None, window=None):
 
 
 def _k3_check(args, bias):
+    q, heads = args[0], args[4]
+    route = tea.kernel_route(q.dtype, q.shape[-1] // heads)
+    assert route == ('tensor_cores' if q.dtype == torch.bfloat16
+                     and (q.shape[-1] // heads) % 16 == 0 else 'cuda_cores')
     plain = tea.encoder_attention_reference.launches
     launches = tea.encoder_attention.launches
+    by_route = dict(tea.encoder_attention.launches_by_route)
     out = tea.encoder_attention(*args, bias=bias)
     assert tea.encoder_attention.launches == launches + 1
+    assert tea.encoder_attention.launches_by_route[route] == by_route[route] + 1
     assert tea.encoder_attention_reference.launches == plain
     ref = tea.encoder_attention_reference(*args, bias=bias)
     tol = tea.comparison_tolerance(ref, *args, bias=bias)
@@ -225,6 +287,17 @@ def test_k3_matrix(cuda, dtype, hd, heads, s):
     at run time (24), S below, at and across the 64-key tile."""
     lens = np.concatenate([np.random.default_rng(s).integers(1, s + 1, size=3), [0, s]])
     args, bias = _k3_inputs(s + hd, 5, s, heads, hd, dtype, lens=lens)
+    _k3_check(args, bias)
+
+
+@pytest.mark.parametrize('hd,heads', [(16, 8), (48, 4), (80, 2), (112, 2)])
+@pytest.mark.parametrize('s', [37, 130, 513])
+def test_k3_tensor_core_head_dims_read_at_run_time(cuda, hd, heads, s):
+    """bf16 head dims that are multiples of 16 other than 32/64/128 run on
+    the tensor-core route with the head dim read at run time; S past 512
+    runs on the same two-pass design."""
+    lens = np.concatenate([np.random.default_rng(s).integers(1, s + 1, size=2), [0, s]])
+    args, bias = _k3_inputs(s + hd, 4, s, heads, hd, 'bfloat16', lens=lens)
     _k3_check(args, bias)
 
 

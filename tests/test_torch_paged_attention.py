@@ -10,6 +10,19 @@ softmax, so only summation order differs. The in-place KV writes must
 leave the same pools as the JAX writes. The CUDA kernel itself runs only
 on a GPU (``tests/test_torch_gpu.py``; ``chip_smoke.py`` holds it against
 the plain op at Mistral-7B shapes).
+
+The kernel's tolerance (``comparison_tolerance``) is exercised here on the
+CPU. The bf16 tensor-core route rounds the unnormalised p to bf16 before
+P @ V, as the Pallas kernel does, so its bound carries a second term,
+``2**-8 * (P @ |V|)``. Held to it: the Pallas kernel in interpret mode in
+bf16 (worst element at 0.66 of its bound), and a plain-PyTorch emulation
+of the route's order — key tiles of 64, online max and sum in fp32, p
+rounded to the pool's dtype before P @ V (0.64 in bf16; 0.072 in fp32,
+against ``1e-5``). Injected faults exceed it, in bf16 / fp32: the newest
+key dropped (807 / 3.9e5 times the bound), the window one key wider
+(321 / 1.1e5), a wrong page in the block table (385 / 2.0e5), and p
+rounded before the running max is subtracted (exp overflows: non-finite
+in both).
 """
 
 import jax.numpy as jnp
@@ -205,6 +218,163 @@ def test_quantized_pool_is_refused():
     rest = [torch.from_numpy(a[key]) for key in ('bt', 'ctx', 'pos')]
     with pytest.raises(NotImplementedError, match='int8'):
         tpa.ragged_paged_attention(q, pool, pool, *rest)
+
+
+def _paged_inputs(seed, dtype, *, offset=0.0):
+    """Mistral-like GQA (8 query heads over 2 KV heads, head dim 64) over a
+    pool of 16-token pages: row 0 a chunk of 100 queries over a 37-token
+    prefix (its span starts off a 64-key tile), row 1 a fresh 80-token
+    prefill, row 2 one live query of a padded span. ``offset`` adds the
+    same score to every key of a query (q[..., 0] = 1, k[..., 0] = offset
+    / scale): the softmax is unchanged, exp of an unshifted score is not."""
+    rng = np.random.default_rng(seed)
+    nb, bs, nkv, nh, hd, s = 40, 16, 2, 8, 64, 100
+    k = rng.normal(size=(nb, bs, nkv, hd)).astype(np.float32)
+    v = rng.normal(size=(nb, bs, nkv, hd)).astype(np.float32)
+    q = rng.normal(size=(3, s, nh, hd)).astype(np.float32)
+    if offset:
+        q[..., 0] = 1.0
+        k[..., 0] = offset * hd ** 0.5
+    bt = np.stack([rng.permutation(np.arange(1, nb))[:12] for _ in range(3)])
+    ctx = np.asarray([137, 80, 150], np.int32)
+    q_lens = np.asarray([100, 80, 1], np.int32)
+    pos = (ctx - q_lens)[:, None] + np.arange(s, dtype=np.int32)[None, :]
+    torch_dtype = getattr(torch, dtype)
+    return {
+        'q': torch.from_numpy(q).to(torch_dtype),
+        'k': torch.from_numpy(k).to(torch_dtype),
+        'v': torch.from_numpy(v).to(torch_dtype),
+        'bt': torch.from_numpy(bt.astype(np.int32)),
+        'ctx': torch.from_numpy(ctx), 'pos': torch.from_numpy(pos),
+        'q_lens': torch.from_numpy(q_lens),
+    }
+
+
+def _args(t):
+    return t['q'], t['k'], t['v'], t['bt'], t['ctx'], t['pos']
+
+
+def _emulated_tensor_core_route(t, window, fault=None):
+    """The tensor-core route's order on the CPU: the plain version's fp32
+    scores, key tiles of 64, the online max and sum in fp32, the
+    unnormalised p rounded to the pool's dtype before P @ V (fp32
+    accumulation), out = acc / l rounded once. ``fault`` injects one error:
+    'newest' drops each query's own (newest) key, 'window' widens the
+    window by one key, 'page' points page 1 of row 0 at another block,
+    'unshifted' rounds p = exp(s) before the running max is subtracted."""
+    bt = t['bt'].clone()
+    if fault == 'page':
+        bt[0, 1] = bt[1, 0]
+    win = window + 1 if fault == 'window' else window
+    scores, v = tpa._scores_and_values(
+        t['q'], t['k'], t['v'], bt, t['ctx'], t['pos'], t['q_lens'], win,
+        None, None,
+    )  # [B, Nkv, G, S, T], [B, T, Nkv, Hd]
+    if fault == 'newest':
+        keys = torch.arange(scores.shape[-1])
+        own = keys[None, None, :] == t['pos'].long()[:, :, None]  # [B, S, T]
+        scores = scores.masked_fill(own[:, None, None], float('-inf'))
+    dtype = t['v'].dtype
+    m = torch.full(scores.shape[:-1] + (1,), float('-inf'))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(scores.shape[:-1] + (v.shape[-1],))
+    for t0 in range(0, scores.shape[-1], 64):
+        tile = scores[..., t0:t0 + 64]
+        m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
+        base = torch.where(m_new == float('-inf'), 0.0, m_new)
+        alpha = torch.exp(m - base)
+        if fault == 'unshifted':
+            p = torch.exp(tile).to(dtype).float() * torch.exp(-base)
+        else:
+            p = torch.exp(tile - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.einsum('bkgst,btkd->bkgsd', p.to(dtype).float(), v[:, t0:t0 + 64])
+        acc = acc * alpha + pv
+        m = m_new
+    out = (acc / l.clamp_min(1e-9)).permute(0, 3, 1, 2, 4)  # [B, S, Nkv, G, Hd]
+    return out.reshape(t['q'].shape).to(t['q'].dtype)
+
+
+def _worst_ratio(out, ref, tol, q_lens):
+    """max |out - ref| / tol over valid rows; a non-finite output is inf."""
+    valid = torch.arange(out.shape[1])[None, :] < q_lens[:, None]
+    err = (out.float() - ref.float()).abs()[valid]
+    if not torch.isfinite(err).all():
+        return float('inf')
+    return float((err / tol[valid]).max())
+
+
+@pytest.mark.parametrize('window', [None, 24], ids=['nowin', 'win24'])
+def test_pallas_bf16_within_the_tensor_core_tolerance(window):
+    """The Pallas kernel (interpret mode, bf16) rounds the unnormalised p
+    to bf16 where the tensor-core route does: it stays within that
+    route's tolerance of the port's plain version."""
+    t = _paged_inputs(11, 'bfloat16')
+    assert tpa.kernel_route(t['q'].dtype, 100, 4) == 'tensor_cores'
+    bf = lambda x: jnp.asarray(x.float().numpy(), jnp.bfloat16)  # noqa: E731
+    pallas = ragged_paged_attention_pallas(
+        bf(t['q']), bf(t['k']), bf(t['v']), jnp.asarray(t['bt'].numpy()),
+        jnp.asarray(t['ctx'].numpy()), jnp.asarray(t['pos'].numpy()),
+        q_lens=jnp.asarray(t['q_lens'].numpy()), sliding_window=window,
+        interpret=True,
+    )
+    assert pallas.dtype == jnp.bfloat16
+    got = torch.from_numpy(np.asarray(pallas, np.float32))
+    kw = {'q_lens': t['q_lens'], 'sliding_window': window}
+    ref = tpa.ragged_paged_attention(*_args(t), **kw)
+    tol = tpa.comparison_tolerance(ref, *_args(t), **kw)
+    assert _worst_ratio(got, ref, tol, t['q_lens']) <= 1.0
+
+
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+@pytest.mark.parametrize('window', [None, 24], ids=['nowin', 'win24'])
+def test_emulated_route_order_within_the_tolerance(dtype, window):
+    t = _paged_inputs(12, dtype, offset=150.0)
+    kw = {'q_lens': t['q_lens'], 'sliding_window': window}
+    ref = tpa.ragged_paged_attention(*_args(t), **kw)
+    tol = tpa.comparison_tolerance(ref, *_args(t), **kw)
+    out = _emulated_tensor_core_route(t, window)
+    assert _worst_ratio(out, ref, tol, t['q_lens']) <= 1.0
+
+
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+@pytest.mark.parametrize('fault', ['newest', 'window', 'page', 'unshifted'])
+def test_injected_faults_exceed_the_tolerance(dtype, fault):
+    window = 24
+    t = _paged_inputs(12, dtype, offset=150.0)
+    kw = {'q_lens': t['q_lens'], 'sliding_window': window}
+    ref = tpa.ragged_paged_attention(*_args(t), **kw)
+    tol = tpa.comparison_tolerance(ref, *_args(t), **kw)
+    out = _emulated_tensor_core_route(t, window, fault=fault)
+    assert _worst_ratio(out, ref, tol, t['q_lens']) > 10.0
+
+
+def test_tolerance_terms_by_route():
+    """fp32 is held to 1e-5; bf16 on the CUDA cores to one bf16 step of
+    out; bf16 on the tensor cores adds 2**-8 * (P @ |V|)."""
+    t = _paged_inputs(13, 'bfloat16')
+    kw = {'q_lens': t['q_lens']}
+    ref = tpa.ragged_paged_attention(*_args(t), **kw)
+    cores = tpa.comparison_tolerance(ref, *_args(t), route='cuda_cores', **kw)
+    torch.testing.assert_close(cores, tpa.TOL_REL * ref.float().abs() + tpa.TOL_ABS)
+    tensor = tpa.comparison_tolerance(ref, *_args(t), **kw)
+    assert (tensor > cores).all()
+    t32 = _paged_inputs(13, 'float32')
+    ref32 = tpa.ragged_paged_attention(*_args(t32), **kw)
+    assert (tpa.comparison_tolerance(ref32, *_args(t32), **kw) == tpa.TOL_ABS).all()
+    with pytest.raises(ValueError, match='route'):
+        tpa.comparison_tolerance(ref, *_args(t), route='wgmma', **kw)
+
+
+def test_kernel_route_by_dtype_and_tile_rows():
+    """bf16 tiles of 16..64 rows (span positions x group) take the tensor
+    cores; fp32 and bf16 decode rows under 16 take the CUDA cores."""
+    assert tpa.kernel_route(torch.bfloat16, 1024, 4) == 'tensor_cores'
+    assert tpa.kernel_route(torch.bfloat16, 4, 4) == 'tensor_cores'
+    assert tpa.kernel_route(torch.bfloat16, 1, 16) == 'tensor_cores'
+    assert tpa.kernel_route(torch.bfloat16, 1, 4) == 'cuda_cores'
+    assert tpa.kernel_route(torch.bfloat16, 3, 4) == 'cuda_cores'
+    assert tpa.kernel_route(torch.float32, 1024, 4) == 'cuda_cores'
 
 
 def test_static_zero_window_splits_the_jax_backends():
