@@ -32,14 +32,24 @@ carried on):
    ``scaled_dot_product_attention`` with a key mask on pre-transposed
    ``[B, N, S, Hd]`` inputs;
 5. kernel K2 — hold the int8 weight-only matmul against its plain
-   version elementwise within ``quantized_matmul.comparison_tolerance``:
-   Mistral-7B decode rows M = 1 / 8 / 32 / 128 at every projection shape
-   (4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x 4096), a ragged
-   prefill M = 1040, the BERT-base embed products (512 x 288 rows at
-   768 x 3072 and 3072 x 768), M = 5, an all-zero weight column and one
-   fp32 case; time kernel, plain version and a ``torch.matmul`` on the
-   weight dequantized to bf16 (a yardstick that is not the same function),
-   cycling weight copies so each launch finds its weight cold in L2;
+   version elementwise within ``quantized_matmul.comparison_tolerance`` of
+   the route each case takes (printed; bf16 on the tensor cores, fp32 on
+   the CUDA cores): Mistral-7B decode rows M = 1 / 8 / 32 / 128 at every
+   projection shape (4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x
+   4096) and M = 16 (the last row count of the 16-row tiles) at 4096 x
+   14336, a ragged prefill M = 1040, the BERT-base embed products (512 x
+   288 rows at 768 x 3072, 3072 x 768 and 768 x 768), M = 5, M = 1000 (off
+   the 128-row tile), N = 784 (off the 128-column tile), one-signed data
+   at K = 14336, partial sums that stay large and cancel exactly at the
+   end (the tensor cores' truncation at its largest, one split), an
+   all-zero weight column and one fp32 case; each case's worst ratio to
+   the CUDA-core route's bound is printed too. Time kernel and
+   ``torch.matmul`` on the weight dequantized to bf16 (a yardstick that is
+   not the same function) as CUDA graphs of many calls, so the host's
+   enqueue time is not counted, cycling weight copies so each launch
+   finds its weight cold in L2; the kernel also by CUDA events around
+   eager calls (``event_ms``, as K1, K3 and the plain version are timed)
+   and on the host's clock per call (``host_us``, the wrapper's cost);
 6. serve — full-width Mistral-7B in bf16 with random weights made on the
    card: ``TorchGenerator.generate`` on 16 prompts of 16..1024 tokens
    (``max_num_seqs=8``; 64 new tokens each, 14 greedy + 2 sampled), then
@@ -50,10 +60,12 @@ carried on):
    CUDA-core route (``launches_by_route``);
 7. serve int8 — the same through ``TorchGenerator(quantization='int8')``,
    the weights quantized on the card; K2 must launch 7 x layers x
-   forward passes and its plain version never, K1 as in phase 6;
+   forward passes, every launch on the tensor-core route, and its plain
+   version never, K1 as in phase 6;
 8. identity — full width at depth 2 in fp32: greedy tokens from the engine
    on K1 equal those from the engine on its plain op; then, int8 weights,
-   greedy tokens on K2 equal those on its plain version;
+   greedy tokens on K2 (every launch on the CUDA-core route) equal those
+   on its plain version;
 9. quantize — the int8 codes and scales of the full-width gate kernel of
    layer 0, quantized on the card, equal bitwise those the CPU makes;
 10. embed — the stages of ``embedding_worker`` on the card: 2048 texts of
@@ -66,13 +78,16 @@ carried on):
     files; K3 must launch 12 x the batches dispatched, all on the
     tensor-core route, and its plain version never;
 11. embed int8 — the same with ``TorchEncoder(quantization='int8')``; K2
-    must launch 6 x 12 x the batches and its plain version never;
+    must launch 6 x 12 x the batches, all on the tensor-core route, and
+    its plain version never;
 12. embed identity — full width at depth 2 in fp32: pooled embeddings
     through K3 and through its plain version agree elementwise within
     ``1e-4 * |ref| + 1e-5``.
 
 The last three lines of standard output are ``{"kernels": [...]}`` (K1,
-K3, K2 with their cases), the card's name and power limit as
+K3, K2 with their cases, launches by route and, beside each decode
+headline, the prefill headline, and K2's embed headline), the card's
+name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 rest of the repository beside this file, it exits nonzero and prints no
@@ -456,33 +471,85 @@ def phase_encoder_kernel(torch, tea):
 
 # --------------------------------------------------------------- phase 5
 # K2 cases: Mistral-7B decode rows at every projection shape, a ragged
-# prefill, the BERT-base embed products, M = 5, a zero weight column, fp32.
+# prefill, the BERT-base embed products, M = 5 and 16, tiles cut by M and
+# by N, one-signed data, a zero weight column, fp32.
 K2_DECODE_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+# Headlines: the serve path's decode, prefill and the embed path's widest.
 K2_HEADLINE = 'decode_8x4096x14336'
-# (name, M, K, N, dtype name, zero weight column, timed launches)
+K2_PREFILL = 'prefill_1040x4096x14336'
+K2_EMBED = 'embed_147456x768x3072'
+# (name, M, K, N, dtype name, data, timed launches); data 'normal', 'zero
+# column' (weight column 3 all zero), 'one-signed' (|x|, |w|) or
+# 'late-cancelling' (see late_cancelling).
 K2_OTHER_CASES = (
-    ('prefill_1040x4096x14336', 1040, 4096, 14336, 'bfloat16', False, 10),
-    ('embed_147456x768x3072', 512 * 288, 768, 3072, 'bfloat16', False, 3),
-    ('embed_147456x3072x768', 512 * 288, 3072, 768, 'bfloat16', False, 3),
-    ('rows_5x4096x4096', 5, 4096, 4096, 'bfloat16', False, 50),
-    ('zero_column_8x4096x1024', 8, 4096, 1024, 'bfloat16', True, 50),
-    ('fp32_32x4096x4096', 32, 4096, 4096, 'float32', False, 20),
+    ('decode_16x4096x14336', 16, 4096, 14336, 'bfloat16', 'normal', 50),
+    ('prefill_1040x4096x14336', 1040, 4096, 14336, 'bfloat16', 'normal', 10),
+    ('embed_147456x768x3072', 512 * 288, 768, 3072, 'bfloat16', 'normal', 3),
+    ('embed_147456x3072x768', 512 * 288, 3072, 768, 'bfloat16', 'normal', 3),
+    ('embed_147456x768x768', 512 * 288, 768, 768, 'bfloat16', 'normal', 3),
+    ('rows_5x4096x4096', 5, 4096, 4096, 'bfloat16', 'normal', 50),
+    ('rows_1000x4096x1024', 1000, 4096, 1024, 'bfloat16', 'normal', 20),
+    ('cols_64x768x784', 64, 768, 784, 'bfloat16', 'normal', 50),
+    ('one_signed_8x14336x4096', 8, 14336, 4096, 'bfloat16', 'one-signed', 50),
+    ('late_cancel_2048x14336x4096', 2048, 14336, 4096, 'bfloat16', 'late-cancelling', 10),
+    ('zero_column_8x4096x1024', 8, 4096, 1024, 'bfloat16', 'zero column', 50),
+    ('fp32_32x4096x4096', 32, 4096, 4096, 'float32', 'normal', 20),
 )
 # Weight bytes cycled through while timing, so every launch finds its
 # weight cold in the 50 MB L2 cache, as a decode step over 32 layers does.
 K2_COLD_BYTES = 256 << 20
 
 
-def k2_case(torch, tq, gen, m, k, n, dtype, zero_column=False):
+def late_cancelling(rng, m: int, k: int, n: int):
+    """x ``[m, k]`` (fp32 holding bf16 values, every row alike) and int8
+    codes q ``[k, n]`` whose exact product is 0 while every partial sum
+    stays near its peak: one large first term (x = 2**13, codes 100..127),
+    small one-signed terms (x in [1/16, 1/8) on a bf16 grid, codes
+    0..127), then a last 16-deep slice that cancels the sum exactly (rows
+    at x = 2**-11, 2**-4, 2**3 and 2**10 clear its residues modulo 2**-4,
+    2**3, 2**10 and 2**17, and a row at x = 2**17 takes the rest). The
+    tensor cores' truncation grows with the accumulator, and here the
+    exact result is 0, so the bf16 term of the bound gives nothing."""
+    xk = np.zeros(k)
+    q = np.zeros((k, n))
+    xk[0] = 2.0 ** 13
+    q[0] = rng.integers(100, 128, n)
+    xk[1:k - 16] = 2.0 ** -4 * (1 + np.floor(rng.random(k - 17) * 128) / 128)
+    q[1:k - 16] = rng.integers(0, 128, (k - 17, n))
+    total = xk @ q  # exact: multiples of 2**-11 below 2**24
+    for row, e in enumerate((-11, -4, 3, 10), start=k - 16):
+        xk[row] = 2.0 ** e
+        q[row] = np.mod(-total / 2.0 ** e, 128)
+        total += xk[row] * q[row]
+    xk[k - 12] = 2.0 ** 17
+    q[k - 12] = -total / 2.0 ** 17
+    assert np.abs(q).max() <= 127 and not (xk @ q).any()
+    return np.tile(xk.astype(np.float32), (m, 1)), q.astype(np.int8)
+
+
+def k2_case(torch, tq, gen, m, k, n, dtype, data='normal'):
     """x [m, k] ~ N(0, 1) in ``dtype`` and int8 quantizations of
     independent N(0, 0.02) weights [k, n] (enough copies to exceed the L2
-    cache), made on the card; with ``zero_column`` weight column 3 is all
-    zero (scale 1, codes 0)."""
+    cache), made on the card; with ``data='zero column'`` weight column 3
+    is all zero (scale 1, codes 0), with ``'one-signed'`` x and the
+    weights are their absolute values (every partial sum as large as the
+    total), with ``'late-cancelling'`` x and one weight's codes come from
+    :func:`late_cancelling` (seed 5), with a scale of 2**-10."""
+    zero_column = data == 'zero column'
+    if data == 'late-cancelling':
+        xs, codes = late_cancelling(np.random.default_rng(5), m, k, n)
+        scale = torch.full((1, n), 2.0 ** -10, device=DEVICE)
+        return dict(x=torch.from_numpy(xs).to(DEVICE, dtype), zero_column=False,
+                    weights=[(torch.from_numpy(codes).to(DEVICE), scale)])
     x = torch.randn((m, k), generator=gen, device=DEVICE).to(dtype)
+    if data == 'one-signed':
+        x = x.abs()
     copies = max(1, min(16, -(-K2_COLD_BYTES // (k * n))))
     weights = []
     for _ in range(copies):
         w = torch.randn((k, n), generator=gen, device=DEVICE).mul_(0.02)
+        if data == 'one-signed':
+            w = w.abs()
         if zero_column:
             w[:, 3] = 0.0
         qt = tq.quantize_int8(w, dtype)
@@ -491,20 +558,53 @@ def k2_case(torch, tq, gen, m, k, n, dtype, zero_column=False):
     return dict(x=x, weights=weights, zero_column=zero_column)
 
 
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean device time of one of ``iters`` calls of ``fn`` captured in a
+    CUDA graph (after a warm-up call): the host's enqueue time, which
+    exceeds a small kernel's, is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (2 * iters)
+    del graph
+    return ms
+
+
 def run_k2_case(torch, tqm, name, case, iters):
     x, weights = case['x'], case['weights']
     q, scale = weights[0]
     m, k = x.shape
     n = q.shape[1]
+    route = tqm.kernel_route(m, k, n, x.dtype)
+    by_route = dict(tqm.int8_matmul.launches_by_route)
     out = tqm.int8_matmul(x, q, scale)
     ref = tqm.int8_matmul_reference(x, q, scale)
-    tol = tqm.comparison_tolerance(x, q, scale)
+    tol = tqm.comparison_tolerance(x, q, scale, route=route)
     torch.cuda.synchronize()
+    if tqm.int8_matmul.launches_by_route[route] != by_route[route] + 1:
+        fail(f'K2 case {name}: not launched on the {route} route')
     if not torch.isfinite(out.float()).all():
         fail(f'K2 case {name}: non-finite output')
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
     err_over_tol = float((diff / tol).max())
+    # The same difference against the CUDA-core route's bound, which has no
+    # truncation term: what that term buys on this data.
+    err_over_cuda_cores_tol = float(
+        (diff / tqm.comparison_tolerance(x, q, scale, route='cuda_cores')).max()
+    )
     if case['zero_column'] and (
         float(scale.reshape(-1)[3]) != 1.0 or (q[:, 3] != 0).any() or (out[:, 3] != 0).any()
     ):
@@ -519,7 +619,10 @@ def run_k2_case(torch, tqm, name, case, iters):
             return fn(wq, ws)
         return call
 
-    kernel_ms = cuda_ms(torch, cycled(lambda wq, ws: tqm.int8_matmul(x, wq, ws)), iters)
+    kernel = cycled(lambda wq, ws: tqm.int8_matmul(x, wq, ws))
+    kernel_ms = graph_ms(torch, kernel, iters)
+    event_ms = cuda_ms(torch, kernel, iters, warmup=1)
+    host_us = host_call_us(torch, kernel, iters)
     plain_ms = cuda_ms(
         torch, lambda: tqm.int8_matmul_reference(x, q, scale), max(2, iters // 5),
         warmup=1,
@@ -529,7 +632,7 @@ def run_k2_case(torch, tqm, name, case, iters):
     # before the product, so it is not the same function.
     dequantized = [(wq.to(x.dtype) * ws.to(x.dtype)) for wq, ws in weights]
     turn_d = iter(range(1 << 30))
-    yardstick_ms = cuda_ms(
+    yardstick_ms = graph_ms(
         torch, lambda: torch.matmul(x, dequantized[next(turn_d) % len(dequantized)]),
         iters,
     )
@@ -540,23 +643,47 @@ def run_k2_case(torch, tqm, name, case, iters):
     byte_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
     op_ms = flops / PEAK_FLOPS[str(x.dtype).removeprefix('torch.')] * 1e3
     result = dict(
-        case=name, m=m, k=k, n=n, dtype=str(x.dtype).removeprefix('torch.'),
+        case=name, kernel_route=route, m=m, k=k, n=n,
+        dtype=str(x.dtype).removeprefix('torch.'),
         max_abs_err=err, err_over_tol=err_over_tol,
-        tol={'rel': tqm.TOL_REL if x.dtype == torch.bfloat16 else 0.0,
-             'order': f'{tqm.ORDER} * sqrt(K) * 2**-24 * scale * (|x| @ |q|)',
-             'abs': tqm.TOL_ABS},
-        ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+        err_over_cuda_cores_tol=err_over_cuda_cores_tol, tol=k2_tol(tqm, route, x.dtype),
+        ms=kernel_ms, timer='cuda graph', event_ms=event_ms, host_us=host_us,
+        plain_ms=plain_ms, library_ms=None,
         yardstick_ms=yardstick_ms, bound_ms=max(byte_ms, op_ms),
         bound_by='bytes' if byte_ms >= op_ms else 'operations',
         bytes=bytes_, flops=flops, weight_copies=len(weights),
         split_k=tqm.launch_shape(m, k, n, torch.cuda.get_device_properties(0)
-                                 .multi_processor_count)[1],
+                                 .multi_processor_count, route)[1],
     )
     log(f'[kernel K2] {json.dumps(result)}')
     if not err_over_tol <= 1.0:
         fail(f'K2 case {name}: |out - ref| exceeds its elementwise tolerance '
              f'(worst element at {err_over_tol:.3f} x; max abs err {err})')
     return result
+
+
+def host_call_us(torch, fn, iters: int) -> float:
+    """Mean host time of one call of ``fn`` (after a warm-up call), on the
+    host's clock while the calls are enqueued: what a call costs the CPU."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
+
+
+def k2_tol(tqm, route, dtype):
+    """``quantized_matmul.comparison_tolerance``'s terms, for the record."""
+    terms = {'rel': tqm.TOL_REL if str(dtype) == 'torch.bfloat16' else 0.0,
+             'order': f'{tqm.ORDER} * sqrt(K) * 2**-24 * scale * (|x| @ |q|)',
+             'abs': tqm.TOL_ABS}
+    if route == 'tensor_cores':
+        terms['trunc'] = (f'{tqm.TRUNC} * 2**-24 * scale * W, W = sum over 16-deep atoms '
+                          'of the largest |prefix sum| so far')
+    return terms
 
 
 def phase_int8_kernel(torch, tq, tqm):
@@ -568,8 +695,8 @@ def phase_int8_kernel(torch, tq, tqm):
             case = k2_case(torch, tq, gen, m, k, n, bf16)
             results.append(run_k2_case(torch, tqm, f'decode_{m}x{k}x{n}', case, 50))
             del case
-    for name, m, k, n, dtype, zero, iters in K2_OTHER_CASES:
-        case = k2_case(torch, tq, gen, m, k, n, getattr(torch, dtype), zero_column=zero)
+    for name, m, k, n, dtype, data, iters in K2_OTHER_CASES:
+        case = k2_case(torch, tq, gen, m, k, n, getattr(torch, dtype), data=data)
         results.append(run_k2_case(torch, tqm, name, case, iters))
         del case
         torch.cuda.empty_cache()
@@ -639,6 +766,7 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     tpa.ragged_paged_attention_reference.launches = 0
     if tqm is not None:
         tqm.int8_matmul.launches = 0
+        tqm.int8_matmul.launches_by_route = dict.fromkeys(tqm.ROUTES, 0)
         tqm.int8_matmul_reference.launches = 0
     t0 = time.perf_counter()
     outputs = generator.generate(prompts, sampling)
@@ -709,14 +837,18 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
                   peak_gib=peak_gib)
     if tqm is not None:
         k2, k2_plain = tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches
+        k2_routes = dict(tqm.int8_matmul.launches_by_route)
         log(f'[{tag}] int8_matmul launches {k2} = 7 projections x '
-            f'{cfg.num_layers} layers x {passes} forward passes; plain '
-            f'version launches {k2_plain}')
+            f'{cfg.num_layers} layers x {passes} forward passes; by route '
+            f'{json.dumps(k2_routes)}; plain version launches {k2_plain}')
         if k2 <= 0 or k2 != 7 * cfg.num_layers * passes:
             fail(f'K2 launches {k2} != 7 x {cfg.num_layers} x {passes}')
+        if k2_routes['tensor_cores'] != k2:
+            fail(f'K2 routes {k2_routes}: every bf16 launch belongs on the tensor cores')
         if k2_plain != 0:
             fail(f'the plain int8 matmul ran {k2_plain} times on the serving path')
         result['k2_launches'] = k2
+        result['k2_launches_by_route'] = k2_routes
     generator.shutdown()
     del generator, engine
     torch.cuda.empty_cache()
@@ -801,6 +933,7 @@ def phase_identity_int8(torch, tqm, cfg):
             cfg, params, None, engine_cfg, device=DEVICE, qmm_backend=backend
         )
         tqm.int8_matmul.launches = 0
+        tqm.int8_matmul.launches_by_route = dict.fromkeys(tqm.ROUTES, 0)
         tqm.int8_matmul_reference.launches = 0
         outs[backend] = engine.generate_ids(prompts, sampling)
         passes = engine.telemetry['forward_passes']
@@ -815,11 +948,15 @@ def phase_identity_int8(torch, tqm, cfg):
         if counted != 7 * cfg.num_layers * passes or other != 0:
             fail(f'int8 identity ({backend}): {counted} int8 products for '
                  f'{passes} passes ({other} through the other tier)')
+        if tqm.int8_matmul.launches_by_route['cuda_cores'] != tqm.int8_matmul.launches:
+            fail(f'int8 identity ({backend}): K2 routes '
+                 f'{tqm.int8_matmul.launches_by_route}; every fp32 launch belongs '
+                 f'on the CUDA cores')
         engine.shutdown()
     same = outs['auto'] == outs['reference']
     log(f'[identity int8] fp32 depth-2 full width, int8 weights quantized on '
-        f'the card, 6 prompts x 24 greedy tokens: K2 vs plain version '
-        f'identical={same}')
+        f'the card, 6 prompts x 24 greedy tokens: K2 (CUDA-core route) vs '
+        f'plain version identical={same}')
     if not same:
         fail(f'fp32 int8 greedy tokens differ: K2 {outs["auto"]} vs plain '
              f'{outs["reference"]}')
@@ -917,6 +1054,7 @@ def phase_embed(torch, tea, card, tmp: Path, tqm=None, quantization=None):
     tea.encoder_attention_reference.launches = 0
     if tqm is not None:
         tqm.int8_matmul.launches = 0
+        tqm.int8_matmul.launches_by_route = dict.fromkeys(tqm.ROUTES, 0)
         tqm.int8_matmul_reference.launches = 0
     t0 = time.perf_counter()
     with Timer('computed-embeddings', corpus_file.name):
@@ -968,14 +1106,18 @@ def phase_embed(torch, tea, card, tmp: Path, tqm=None, quantization=None):
                corpus=corpus)
     if tqm is not None:
         k2, k2_plain = tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches
+        k2_routes = dict(tqm.int8_matmul.launches_by_route)
         log(f'[{tag}] int8_matmul launches {k2} = 6 projections x '
-            f'{cfg.num_layers} layers x {batches} batches; plain version '
-            f'launches {k2_plain}')
+            f'{cfg.num_layers} layers x {batches} batches; by route '
+            f'{json.dumps(k2_routes)}; plain version launches {k2_plain}')
         if k2 <= 0 or k2 != 6 * cfg.num_layers * batches:
             fail(f'K2 launches {k2} != 6 x {cfg.num_layers} x {batches} batches')
+        if k2_routes['tensor_cores'] != k2:
+            fail(f'K2 routes {k2_routes}: every bf16 launch belongs on the tensor cores')
         if k2_plain != 0:
             fail(f'the plain int8 matmul ran {k2_plain} times on the embed path')
         out['k2_launches'] = k2
+        out['k2_launches_by_route'] = k2_routes
     encoder.shutdown()
     del params, encoder, result
     torch.cuda.empty_cache()
@@ -1094,7 +1236,13 @@ def main() -> None:
     head = next(c for c in cases if c['case'].startswith('serve_decode'))
     prefill_head = next(c for c in cases if c['case'] == 'serve_prefill_2x1024')
     k3_head = next(c for c in k3_cases if c['case'] == 'embed_512x288')
-    k2_head = next(c for c in k2_cases if c['case'] == K2_HEADLINE)
+    k2_head, k2_prefill, k2_embed = (
+        next(c for c in k2_cases if c['case'] == name)
+        for name in (K2_HEADLINE, K2_PREFILL, K2_EMBED)
+    )
+    k2_keys = ('case', 'kernel_route', 'tol', 'ms', 'timer', 'event_ms', 'host_us',
+               'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'yardstick_ms',
+               'err_over_tol', 'err_over_cuda_cores_tol', 'split_k')
     kernels = [{
         'name': 'ragged_paged_attention',
         'route': 'cuda',
@@ -1138,11 +1286,18 @@ def main() -> None:
         'source': 'distllm_tpu_torch/csrc/int8_matmul.cu',
         'replaces': 'distllm_tpu/ops/quantized_matmul.py:119',
         'launches': serve_q['k2_launches'],
+        'launches_by_route': serve_q['k2_launches_by_route'],
         'embed_launches': embed_q['k2_launches'],
+        'embed_launches_by_route': embed_q['k2_launches_by_route'],
         'max_abs_err': max(c['max_abs_err'] for c in k2_cases),
         'err_over_tol': max(c['err_over_tol'] for c in k2_cases),
         'tol': k2_head['tol'],
         'ms': k2_head['ms'],
+        # K2's ms and yardstick_ms are CUDA-graph replays (no host enqueue
+        # time); event_ms times eager calls as K1's and K3's ms are timed.
+        'timer': k2_head['timer'],
+        'event_ms': k2_head['event_ms'],
+        'host_us': k2_head['host_us'],
         'plain_ms': k2_head['plain_ms'],
         'bound_ms': k2_head['bound_ms'],
         'bound_by': k2_head['bound_by'],
@@ -1153,6 +1308,9 @@ def main() -> None:
         'yardstick_ms': k2_head['yardstick_ms'],
         'yardstick': 'torch.matmul(x, bf16 dequantized weight)',
         'timed_case': k2_head['case'],
+        'kernel_route': k2_head['kernel_route'],
+        'prefill': {key: k2_prefill[key] for key in k2_keys},
+        'embed': {key: k2_embed[key] for key in k2_keys},
         'cases': k2_cases,
     }]
     log(f'[summary] {smi}: {serve["tokens_per_s"]:.1f} tok/s bf16, '

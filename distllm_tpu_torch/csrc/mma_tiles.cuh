@@ -1,4 +1,5 @@
-// Tensor-core tile helpers shared by the attention kernels (sm_90a).
+// Tensor-core tile helpers shared by the attention kernels and the int8
+// matmul (sm_90a).
 //
 // - cp_async16: a 16-byte copy from device to shared memory that does not
 //   occupy registers, with a zero-filling form: `live == false` reads no
@@ -8,6 +9,8 @@
 //   memory into the fragment layout of mma.m16n8k16.
 // - mma_bf16_16816: D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, fp32
 //   accumulators, the warp-wide tensor-core product.
+// - int8_bytes_to_bf16x2 / int8_pair_to_bf16x2: two int8 codes widened to
+//   a bf16 pair in registers, exactly (the B operand of the int8 matmul).
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 * g + t): A holds rows g and
 // g + 8, columns 2t, 2t + 1 (+ 8); B holds rows 2t, 2t + 1 (+ 8) of column
@@ -73,6 +76,29 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two int8 codes as a bf16 pair, exactly: SEL is a __byte_perm selector
+// over (lo, hi) that puts the low half's code in byte 0 and the high half's
+// in byte 2 (bytes 1 and 3 are ignored). Then, as bf16, 128 + (code &
+// 0x7F) (the low 7 bits as the mantissa of 2^7) minus 128 (code >= 0) or
+// 256 (code < 0: bit 7 of the byte lands on the exponent's lowest bit) is
+// the code: both operands and the difference are exact in bf16. Four
+// instructions per pair, no conversion instruction and no shared memory.
+template <uint32_t SEL>
+__device__ __forceinline__ uint32_t int8_bytes_to_bf16x2(uint32_t lo, uint32_t hi) {
+  const uint32_t pair = __byte_perm(lo, hi, SEL);
+  const uint32_t low = (pair & 0x007F007Fu) | 0x43004300u;
+  const uint32_t base = (pair & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&low),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&base));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte J of `lo` (low half) and of `hi` (high half) as a bf16 pair.
+template <int J>
+__device__ __forceinline__ uint32_t int8_pair_to_bf16x2(uint32_t lo, uint32_t hi) {
+  return int8_bytes_to_bf16x2<J | (J << 4) | ((4 + J) << 8) | ((4 + J) << 12)>(lo, hi);
 }
 
 // 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0).

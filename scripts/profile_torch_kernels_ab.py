@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the attention kernels' headline cases of two checkouts, in turns.
+"""Time the kernels' headline cases of two checkouts, in turns.
 
     python3 scripts/profile_torch_kernels_ab.py PARENT_ROOT CHANGE_ROOT
 
@@ -9,9 +9,13 @@ the order parent, change, change, parent, each in its own process that
 imports that root's ``distllm_tpu_torch`` and ``chip_smoke`` (so each
 builds and times its own kernels), on the same card. Cases, bf16, the
 inputs made from fixed seeds: K1 ``serve_decode_8x18-1090`` and
-``serve_prefill_2x1024``, K3 ``embed_512x288`` (``chip_smoke.py``'s
-shapes). Prints one JSON line per run (mean ms over CUDA-event timed
-launches) and the card's name and power limit. Needs CUDA.
+``serve_prefill_2x1024``, K3 ``embed_512x288``, K2 ``decode_8x4096x14336``,
+``prefill_1040x4096x14336`` and ``embed_147456x768x3072``
+(``chip_smoke.py``'s shapes; K2's weight copies cycled so each launch
+finds its weight cold in L2). Prints one JSON line per run (mean ms over
+CUDA-event timed launches; K2's over a CUDA graph of its launches, so the
+host's enqueue time is not counted) and the card's name and power limit.
+Needs CUDA.
 """
 
 from __future__ import annotations
@@ -28,6 +32,27 @@ import torch
 import chip_smoke as cs
 from distllm_tpu_torch.ops import encoder_attention as tea
 from distllm_tpu_torch.ops import paged_attention as tpa
+from distllm_tpu_torch.ops import quantization as tq
+from distllm_tpu_torch.ops import quantized_matmul as tqm
+
+
+def graph_ms(fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (2 * iters)
+
 
 bf16 = torch.bfloat16
 rng = np.random.default_rng(7)
@@ -43,6 +68,18 @@ for name, case, iters in (('serve_decode_8x18-1090', decode, 50),
         torch, lambda: tpa.ragged_paged_attention(*args, q_lens=case['q_lens']), iters)
 args = (embed['q'], embed['k'], embed['v'], embed['mask'], cs.BERT_HEADS)
 out['embed_512x288'] = cs.cuda_ms(torch, lambda: tea.encoder_attention(*args), 20)
+del decode, prefill, embed
+gen = torch.Generator(device='cuda').manual_seed(4)
+for name, m, k, n, iters in (('decode_8x4096x14336', 8, 4096, 14336, 50),
+                             ('prefill_1040x4096x14336', 1040, 4096, 14336, 10),
+                             ('embed_147456x768x3072', 512 * 288, 768, 3072, 3)):
+    case = cs.k2_case(torch, tq, gen, m, k, n, bf16)
+    turn = iter(range(1 << 30))
+    ws = case['weights']
+    out[name] = graph_ms(
+        lambda: tqm.int8_matmul(case['x'], *ws[next(turn) % len(ws)]), iters)
+    del case, ws
+    torch.cuda.empty_cache()
 print(json.dumps(out))
 '''
 

@@ -17,10 +17,13 @@ zeros. K3 is held to its own elementwise bound
 (``encoder_attention.comparison_tolerance``: in bf16 one step of out
 plus one bf16 step of one p_j * v_j) on both of its routes, on every row,
 fully masked included.
-K2 is held to ``quantized_matmul.comparison_tolerance`` (in bf16 one step
-of out, and in both dtypes an fp32 summation-order term that scales with
-``scale * (|x| @ |q|)``); quantizing on the card gives the CPU's codes
-bitwise.
+K2 is held to ``quantized_matmul.comparison_tolerance`` of the route that
+served it (asserted by ``launches_by_route``: bf16 on the tensor cores,
+fp32 on the CUDA cores): in bf16 one step of out, and in both dtypes an
+fp32 summation-order term that scales with ``scale * (|x| @ |q|)``, to
+which the tensor-core route adds the measured truncation of its
+accumulator, a term that follows the partial sums; quantizing on the card
+gives the CPU's codes bitwise.
 """
 
 import numpy as np
@@ -389,8 +392,11 @@ def _k2_inputs(seed, m, k, n, dtype, zero_column=False):
 def _k2_check(x, q, scale):
     plain = tqm.int8_matmul_reference.launches
     launches = tqm.int8_matmul.launches
+    route = tqm.kernel_route(*x.shape, q.shape[1], x.dtype)
+    by_route = dict(tqm.int8_matmul.launches_by_route)
     out = tqm.int8_dense(x, q, scale)
     assert tqm.int8_matmul.launches == launches + 1
+    assert tqm.int8_matmul.launches_by_route[route] == by_route[route] + 1
     assert tqm.int8_matmul_reference.launches == plain
     ref = tqm.int8_matmul_reference(x, q, scale)
     tol = tqm.comparison_tolerance(x, q, scale)
@@ -411,6 +417,33 @@ def test_k2_matrix(cuda, dtype, m, k, n):
     _k2_check(*_k2_inputs(m * k + n, m, k, n, dtype))
 
 
+@pytest.mark.parametrize('m', [1, 5, 8, 16, 17, 64, 1000, 1040])
+@pytest.mark.parametrize('k,n', [(768, 768), (768, 3072), (3072, 768), (4096, 1024),
+                                 (4096, 14336), (14336, 4096), (768, 784)])
+def test_k2_tensor_core_route_matrix(cuda, m, k, n):
+    """bf16 on the tensor cores at every Mistral-7B and BERT-base
+    projection shape (and N = 784, off the 128-column tile): rows on the
+    16-row configuration, across it, and on the 128-row tiles, M off the
+    tile; split-K where the tiles cannot fill the card."""
+    assert tqm.kernel_route(m, k, n, torch.bfloat16) == 'tensor_cores'
+    _k2_check(*_k2_inputs(m + k + n, m, k, n, 'bfloat16'))
+
+
+def test_k2_launches_by_route_follow_kernel_route(cuda):
+    """Each launch counts once, on the route ``kernel_route`` names: fp32
+    on the CUDA cores, bf16 on the tensor cores, at small and large M."""
+    for dtype, m in (('float32', 8), ('bfloat16', 8), ('bfloat16', 300), ('float32', 300)):
+        x, q, scale = _k2_inputs(m, m, 256, 256, dtype)
+        route = tqm.kernel_route(m, 256, 256, x.dtype)
+        assert route == ('tensor_cores' if dtype == 'bfloat16' else 'cuda_cores')
+        before = dict(tqm.int8_matmul.launches_by_route)
+        tqm.int8_matmul(x, q, scale)
+        after = tqm.int8_matmul.launches_by_route
+        assert {r: after[r] - before[r] for r in tqm.ROUTES} == {
+            r: int(r == route) for r in tqm.ROUTES
+        }
+
+
 def test_k2_zero_column_stacked_slice_and_leading_dims(cuda):
     x, q, scale = _k2_inputs(1, 8, 256, 128, 'bfloat16', zero_column=True)
     out = _k2_check(x, q, scale)
@@ -426,23 +459,63 @@ def test_k2_zero_column_stacked_slice_and_leading_dims(cuda):
 
 
 def test_k2_refuses_what_it_does_not_take(cuda):
-    x, q, scale = _k2_inputs(2, 4, 64, 32, 'float32')
-    with pytest.raises(TypeError, match='activation dtypes'):
-        tqm.int8_dense(x.half(), q, scale)
-    with pytest.raises(TypeError, match='int8 codes'):
-        tqm.int8_dense(x, q.to(torch.uint8), scale)
-    with pytest.raises(TypeError, match='scales are fp32'):
-        tqm.int8_dense(x, q, scale.bfloat16())
-    with pytest.raises(ValueError, match='multiples of 16'):
-        tqm.int8_dense(x[:, :40], q[:40].contiguous(), scale)
-    with pytest.raises(ValueError, match='multiples of 16'):
-        tqm.int8_dense(x, q[:, :24].contiguous(), scale[..., :24].contiguous())
-    with pytest.raises(ValueError, match='contiguous'):
-        tqm.int8_matmul_cuda(x, q.t().contiguous().t(), scale.reshape(-1))
-    with pytest.raises(ValueError, match='one CUDA device'):
-        tqm.int8_dense(x, q.cpu(), scale)
-    with pytest.raises(ValueError, match='M >= 1'):
-        tqm.int8_dense(x[:0], q, scale)
+    """On both routes: the fp32 inputs go to the CUDA cores, the bf16 ones
+    to the tensor cores; each refusal is raised before any launch."""
+    for dtype in ('float32', 'bfloat16'):
+        x, q, scale = _k2_inputs(2, 4, 64, 32, dtype)
+        launches = tqm.int8_matmul.launches
+        with pytest.raises(TypeError, match='activation dtypes'):
+            tqm.int8_dense(x.half(), q, scale)
+        with pytest.raises(TypeError, match='int8 codes'):
+            tqm.int8_dense(x, q.to(torch.uint8), scale)
+        with pytest.raises(TypeError, match='scales are fp32'):
+            tqm.int8_dense(x, q, scale.bfloat16())
+        with pytest.raises(ValueError, match='multiples of 16'):
+            tqm.int8_dense(x[:, :40], q[:40].contiguous(), scale)
+        with pytest.raises(ValueError, match='multiples of 16'):
+            tqm.int8_dense(x, q[:, :24].contiguous(), scale[..., :24].contiguous())
+        with pytest.raises(ValueError, match='contiguous'):
+            tqm.int8_matmul_cuda(x, q.t().contiguous().t(), scale.reshape(-1))
+        with pytest.raises(ValueError, match='one CUDA device'):
+            tqm.int8_dense(x, q.cpu(), scale)
+        with pytest.raises(ValueError, match='M >= 1'):
+            tqm.int8_dense(x[:0], q, scale)
+        with pytest.raises(ValueError, match='16-byte boundary'):
+            tqm.int8_matmul_cuda(x.reshape(-1)[1:1 + 3 * 64].reshape(3, 64), q,
+                                 scale.reshape(-1))
+        assert tqm.int8_matmul.launches == launches
+    # The C entry itself takes fp32 only on the CUDA cores and bf16 only on
+    # the tensor cores.
+    lib, fn = tqm._kernel()
+    for dtype, route in (('bfloat16', 'cuda_cores'), ('float32', 'tensor_cores')):
+        x, q, scale = _k2_inputs(2, 4, 64, 32, dtype)
+        out = torch.empty((4, 32), dtype=x.dtype, device='cuda')
+        rows = tqm.tile_config(route, 4)[0]
+        err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), None, 4, 64, 32,
+                 rows, 1, 64, tqm.KERNEL_DTYPES[x.dtype], tqm.ROUTES[route],
+                 torch.cuda.current_stream().cuda_stream)
+        assert lib.distllm_qmm_error_string(err) == b'invalid argument', (dtype, route, err)
+
+
+def test_k2_partial_sums_that_cancel_late_need_the_truncation_term(cuda):
+    """Partial sums that stay near their peak and cancel exactly at the
+    end, in one split (128-row tiles that fill the card): the tensor cores'
+    truncation stays within the route's bound, and exceeds the CUDA-core
+    route's bound, which lacks the truncation term."""
+    import chip_smoke
+
+    m, k, n = 2048, 14336, 4096
+    xs, codes = chip_smoke.late_cancelling(np.random.default_rng(5), m, k, n)
+    x = torch.from_numpy(xs).to('cuda', torch.bfloat16)
+    q = torch.from_numpy(codes).cuda()
+    scale = torch.full((1, n), 2.0 ** -10, device='cuda')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tqm.launch_shape(m, k, n, sms, 'tensor_cores')[1] == 1
+    _k2_check(x, q, scale)
+    out = tqm.int8_dense(x, q, scale)
+    diff = (out.float() - tqm.int8_matmul_reference(x, q, scale).float()).abs()
+    bare = tqm.comparison_tolerance(x, q, scale, route='cuda_cores')
+    assert (diff / bare).max().item() > 1.0
 
 
 @pytest.mark.parametrize('mode', ['int8', 'nf4'])
