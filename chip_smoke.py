@@ -23,6 +23,17 @@ carried on):
    tensor-core case bitwise unchanged; time kernel, plain version and
    ``scaled_dot_product_attention`` on the same gathered KV (a yardstick
    the port never calls);
+3b. kernel K1, int8-KV mode — the same against its plain version over
+   ``QuantizedKV`` pools (N(0, 1) K/V quantized on the card), within the
+   int8 tolerance of the route each case takes (printed): (a) 32 decode
+   rows of contexts 1..4096, (b) 4 prefill rows with spans up to 512 and
+   ``q_lens`` padding, (c) window 4096 + softcap, (d) chunk spans off a
+   64-key tile, (e) fp32 queries, (f) block size 32 on both routes, (g)
+   phase 6's and phase 6b's decode and prefill shapes; codes the quantizer
+   never writes (-128) and, in turn, a NaN scale in the trash block leave
+   the outputs of a decode case and of a tensor-core case bitwise
+   unchanged; time kernel, plain version and SDPA on the pool dequantized
+   to bf16 (a yardstick: not the same function, twice the KV bytes);
 4. kernel K3 — hold the encoder-attention kernel against its plain
    version at BERT-base geometry (12 heads x 64): the embed path's shapes
    (batch 512, S = 128 / 192 / 288) in bf16, partial key masks with fully
@@ -62,12 +73,28 @@ carried on):
    the weights quantized on the card; K2 must launch 7 x layers x
    forward passes, every launch on the tensor-core route, and its plain
    version never, K1 as in phase 6;
+6b. serve with an int8 KV pool — the JAX ``gen_kvq`` stage's workload (64
+   greedy prompts of 32..192 tokens, every third behind a shared 32-token
+   prefix, 16..96 new tokens each; its prefix cache and chunked prefill
+   are not ported) through two ``LLMEngine`` arms on the same bf16
+   weights, a bf16 and an int8 KV pool (``kv_cache_dtype``; block 16,
+   1024 blocks, 32 slots); per arm tokens/s, pool GiB, allocated and peak
+   GiB, ``telemetry['kv_cache_dtype']``; the int8 blocks the bf16 pool's
+   bytes would hold and the greedy match fraction (recorded). K1 must
+   launch layers x forward passes, every int8-arm launch in the int8
+   mode (``launches_by_kv``) with prefill on the tensor cores and decode
+   on the CUDA cores, its plain op never, and the int8 pool must take
+   under 0.51 of the bf16 pool's bytes;
 8. identity — full width at depth 2 in fp32: greedy tokens from the engine
    on K1 equal those from the engine on its plain op; then, int8 weights,
    greedy tokens on K2 (every launch on the CUDA-core route) equal those
-   on its plain version;
+   on its plain version; 8b. then, an int8 KV pool, greedy tokens on K1's
+   int8 mode equal those on its plain op;
 9. quantize — the int8 codes and scales of the full-width gate kernel of
    layer 0, quantized on the card, equal bitwise those the CPU makes;
+   9b. int8 KV codes and scales written on the card (``write_chunk_kv``
+   fresh and mid-block, ``write_token_kv`` appends that grow the absmax
+   and cross a block boundary) equal bitwise those the CPU writes;
 10. embed — the stages of ``embedding_worker`` on the card: 2048 texts of
     120..260 words written to a jsonl file, read by the ``jsonl`` dataset
     (batch 512), a ``TorchEncoder`` over full-width, full-depth BERT-base
@@ -86,7 +113,8 @@ carried on):
 
 The last three lines of standard output are ``{"kernels": [...]}`` (K1,
 K3, K2 with their cases, launches by route and, beside each decode
-headline, the prefill headline, and K2's embed headline), the card's
+headline, the prefill headline, K1's int8-KV mode under ``int8_kv``, and
+K2's embed headline), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -150,15 +178,19 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 
 # --------------------------------------------------------------- phase 3
-def build_case(torch, rng, ctxs, q_lens, span, dtype):
+def build_case(torch, rng, ctxs, q_lens, span, dtype, int8_kv=False,
+               block_size=BLOCK_SIZE):
     """Random paged-KV inputs: rows with contexts ``ctxs`` whose last
     ``q_lens`` tokens are the query span (padded to ``span``), pages
-    scattered over a pool whose trash block 0 holds large finite garbage."""
+    scattered over a pool whose trash block 0 holds large finite garbage.
+    With ``int8_kv`` the pools are ``QuantizedKV``: the same N(0, 1) K/V
+    quantized on the card at absmax / 127 per block and KV head
+    (``quantize_kv_rows``)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     ctxs = np.asarray(ctxs, np.int64)
     q_lens = np.asarray(q_lens, np.int64)
-    pages = -(-ctxs // BLOCK_SIZE)
+    pages = -(-ctxs // block_size)
     num_blocks = int(pages.sum()) + 1
     max_blocks = int(pages.max())
     perm = rng.permutation(np.arange(1, num_blocks))
@@ -167,11 +199,19 @@ def build_case(torch, rng, ctxs, q_lens, span, dtype):
     for row, n in enumerate(pages):
         bt[row, :n] = perm[at:at + n]
         at += n
-    shape = (num_blocks, BLOCK_SIZE, NUM_KV_HEADS, HEAD_DIM)
+    shape = (num_blocks, block_size, NUM_KV_HEADS, HEAD_DIM)
     k = torch.randn(shape, generator=gen, device=dev).to(dtype)
     v = torch.randn(shape, generator=gen, device=dev).to(dtype)
     k[0] = 100.0
     v[0] = -100.0
+    if int8_kv:
+        from distllm_tpu_torch.ops import paged_attention as tpa
+
+        def quantize(x):
+            scale = x.float().abs().amax((1, 3)) / tpa.KV_QUANT_MAX
+            return tpa.QuantizedKV(tpa.quantize_kv_rows(x, scale[:, None]), scale)
+
+        k, v = quantize(k), quantize(v)
     q = torch.randn(
         (len(ctxs), span, NUM_HEADS, HEAD_DIM), generator=gen, device=dev
     ).to(dtype)
@@ -181,15 +221,20 @@ def build_case(torch, rng, ctxs, q_lens, span, dtype):
     return dict(
         q=q, k=k, v=v, bt=as_i32(bt), ctx=as_i32(ctxs), pos=as_i32(positions),
         q_lens=as_i32(q_lens), np_ctx=ctxs, np_q_lens=q_lens, np_start=q_start,
+        block_size=block_size, int8_kv=int8_kv,
     )
 
 
 def case_work(case, window, dtype):
     """Bytes the function must move and the operations it does on these
-    inputs: each live K/V row read once, q read and out written once; for
-    each valid query 4 * Hd flops per (query head, attended key)."""
+    inputs: each live K/V row read once (int8 KV: one byte an element,
+    plus K's and V's fp32 scale of each live page and KV head), q read and
+    out written once; for each valid query 4 * Hd flops per (query head,
+    attended key)."""
     elt = 2 if dtype == 'bfloat16' else 4
-    kv_row = NUM_KV_HEADS * HEAD_DIM * elt * 2  # K and V of one position
+    kv_elt = 1 if case['int8_kv'] else elt
+    kv_row = NUM_KV_HEADS * HEAD_DIM * kv_elt * 2  # K and V of one position
+    bs = case['block_size']
     bytes_ = 2 * case['q'].numel() * elt  # q in, out back
     bytes_ += case['bt'].numel() * 4 + 3 * case['ctx'].numel() * 4
     flops = 0
@@ -204,18 +249,29 @@ def case_work(case, window, dtype):
         flops += int(keys.sum()) * 4 * HEAD_DIM * NUM_HEADS
         first_lo = int(lo[0])
         bytes_ += (int(ctx) - first_lo) * kv_row
+        if case['int8_kv']:
+            pages = -(-int(ctx) // bs) - first_lo // bs
+            bytes_ += pages * NUM_KV_HEADS * 4 * 2
     return bytes_, flops
 
 
 def sdpa_inputs(torch, case, window):
     """Dense gathered [B, H, S, Hd] q/k/v and a boolean mask for
     ``scaled_dot_product_attention`` (KV heads expanded to the query
-    heads; pad queries see key 0 so no row is empty)."""
+    heads; pad queries see key 0 so no row is empty). An int8 pool is
+    dequantized to q's dtype first: SDPA then reads twice its bytes in
+    bf16 and computes on the rounded values, so it is a yardstick, not
+    the same function."""
     b, s = case['q'].shape[:2]
-    t = case['bt'].shape[1] * BLOCK_SIZE
+    t = case['bt'].shape[1] * case['block_size']
     bt = case['bt'].long()
-    k = case['k'][bt].reshape(b, t, NUM_KV_HEADS, HEAD_DIM)
-    v = case['v'][bt].reshape(b, t, NUM_KV_HEADS, HEAD_DIM)
+
+    def dense(pool):
+        if case['int8_kv']:
+            pool = (pool.data.float() * pool.scale[:, None, :, None]).to(case['q'].dtype)
+        return pool[bt].reshape(b, t, NUM_KV_HEADS, HEAD_DIM)
+
+    k, v = dense(case['k']), dense(case['v'])
     group = NUM_HEADS // NUM_KV_HEADS
     k = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
     v = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
@@ -236,12 +292,16 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
               logit_softcap=softcap)
     s = case['q'].shape[1]
     route = tpa.kernel_route(case['q'].dtype, s, NUM_HEADS // NUM_KV_HEADS)
+    kv_mode = 'int8' if case['int8_kv'] else 'model'
     by_route = dict(tpa.ragged_paged_attention.launches_by_route)
+    by_kv = dict(tpa.ragged_paged_attention.launches_by_kv)
     out = tpa.ragged_paged_attention(*args, **kw)
     ref = tpa.ragged_paged_attention_reference(*args, **kw)
     torch.cuda.synchronize()
     if tpa.ragged_paged_attention.launches_by_route[route] != by_route[route] + 1:
         fail(f'kernel case {name}: not launched on the {route} route')
+    if tpa.ragged_paged_attention.launches_by_kv[kv_mode] != by_kv[kv_mode] + 1:
+        fail(f'kernel case {name}: not launched in the {kv_mode} KV mode')
     valid = (
         torch.arange(s, device=DEVICE)[None, :] < case['q_lens'][:, None]
     )
@@ -259,22 +319,29 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
         torch, lambda: tpa.ragged_paged_attention_reference(*args, **kw),
         max(2, iters // 5), warmup=1,
     )
-    library_ms = None
+    sdpa_ms = None
     if softcap is None:  # SDPA has no softcap: no single library call
         sq, sk, sv, mask = sdpa_inputs(torch, case, window)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = cuda_ms(torch, lambda: sdpa(sq, sk, sv, attn_mask=mask), iters)
+        sdpa_ms = cuda_ms(torch, lambda: sdpa(sq, sk, sv, attn_mask=mask), iters)
         del sq, sk, sv, mask
     bytes_, flops = case_work(case, window, dtype)
     byte_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
     result = dict(
-        case=name, kernel_route=route, max_abs_err=err, err_over_tol=err_over_tol,
-        tol=k1_tol(tpa, route, dtype), ms=kernel_ms,
-        plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(byte_ms, op_ms),
+        case=name, kernel_route=route, kv=kv_mode, block_size=case['block_size'],
+        max_abs_err=err, err_over_tol=err_over_tol,
+        tol=k1_tol(tpa, route, dtype, case['int8_kv']), ms=kernel_ms,
+        plain_ms=plain_ms, bound_ms=max(byte_ms, op_ms),
         bound_by='bytes' if byte_ms >= op_ms else 'operations',
         bytes=bytes_, flops=flops,
     )
+    # SDPA computes the same function on a pool in q's dtype; over an int8
+    # pool it reads the pool dequantized to q's dtype: a yardstick.
+    if case['int8_kv']:
+        result.update(library_ms=None, yardstick_ms=sdpa_ms)
+    else:
+        result['library_ms'] = sdpa_ms
     log(f'[kernel] {json.dumps(result)}')
     if not err_over_tol <= 1.0:
         fail(f'kernel case {name}: |out - ref| exceeds its {route} tolerance '
@@ -282,13 +349,16 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
     return result
 
 
-def k1_tol(tpa, route, dtype):
+def k1_tol(tpa, route, dtype, int8_kv=False):
     """``paged_attention.comparison_tolerance``'s terms, for the record."""
-    if dtype == 'float32':
-        return {'abs': tpa.TOL_ABS}
-    tol = {'rel': tpa.TOL_REL, 'abs': tpa.TOL_ABS}
-    if route == 'tensor_cores':
-        tol['p'] = f'{tpa.TOL_P_REL} * (P @ |V|)'
+    tol = {'abs': tpa.TOL_ABS}
+    if dtype != 'float32':
+        tol['rel'] = tpa.TOL_REL
+        if route == 'tensor_cores':
+            tol['p'] = f'{tpa.TOL_P_REL} * (P @ |V|)'
+    if int8_kv:
+        tol['int8'] = ('sum_j P_j E_j (|v_j| + |out|), E_j = (2 Hd + 4) * 2**-24 * '
+                       'scale * (|q| . |k_j|)')
     return tol
 
 
@@ -349,6 +419,115 @@ def phase_kernel(torch, tpa):
     results.append(run_kernel_case(torch, tpa, 'serve_prefill_2x1024', case, 0, None, 'bfloat16', 20))
     del case
     torch.cuda.empty_cache()
+    return results
+
+
+# -------------------------------------------------------------- phase 3b
+def check_int8_trash_block(torch, tpa, case, name):
+    """Garbage in the trash block of an int8 pool never reaches an output:
+    codes the quantizer never writes (-128; int8 holds no NaN) and, in
+    turn, a NaN scale. A key outside a row's range reads neither its
+    codes nor its scale."""
+    args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
+    clean = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
+    route = tpa.kernel_route(case['q'].dtype, case['q'].shape[1], NUM_HEADS // NUM_KV_HEADS)
+    for poison in ('data', 'scale'):
+        pools = (case['k'], case['v'])
+        saved = [(pool.data[0].clone(), pool.scale[0].clone()) for pool in pools]
+        for pool in pools:
+            if poison == 'data':
+                pool.data[0] = -128
+            else:
+                pool.scale[0] = float('nan')
+        poisoned = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
+        for pool, (data, scale) in zip(pools, saved):
+            pool.data[0], pool.scale[0] = data, scale
+        if not torch.equal(clean, poisoned):
+            fail(f'garbage in the int8 trash block ({poison}) changed the kernel '
+                 f'output ({name})')
+        log(f'[kernel int8] trash block {"codes -128" if poison == "data" else "scale NaN"}, '
+            f'{name} ({route} route): outputs unchanged (bitwise)')
+
+
+# The serve-int8 phase's (6b) shapes: decode rows of its 32 slots and a
+# prefill batch of its longest bucket.
+INT8_SERVE_DECODE = 'serve_int8_decode_32x33-320'
+INT8_SERVE_PREFILL = 'serve_int8_prefill_8x256'
+
+
+def phase_kernel_int8(torch, tpa):
+    """K1's int8-KV mode against its plain version at Mistral-7B geometry,
+    each case within the int8 tolerance of the route it takes."""
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(10)
+    results = []
+
+    def run(name, case, window, softcap, dtype, iters):
+        results.append(run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters))
+
+    # (a) 32 decode rows, ragged contexts 1..4096 (CUDA cores).
+    ctxs = np.concatenate([[1, 4096], rng.integers(1, 4097, size=30)])
+    case = build_case(torch, rng, ctxs, np.ones(32), 1, bf16, int8_kv=True)
+    run('int8_a_decode_32x1-4096', case, 0, None, 'bfloat16', 50)
+    check_int8_trash_block(torch, tpa, case, 'int8_a_decode_32x1-4096')
+    del case
+    # (b) 4 prefill rows: spans up to 512 over existing prefixes, padded
+    # (tensor cores).
+    prefixes = np.asarray([0, 100, 1000, 2000])
+    q_lens = np.asarray([512, 300, 17, 0])
+    case = build_case(torch, rng, prefixes + q_lens + (q_lens == 0), q_lens, 512, bf16,
+                      int8_kv=True)
+    run('int8_b_prefill_4x512', case, 0, None, 'bfloat16', 20)
+    check_int8_trash_block(torch, tpa, case, 'int8_b_prefill_4x512')
+    del case
+    # (c) sliding window 4096 + softcap.
+    ctxs = np.concatenate([rng.integers(4097, 8193, size=6), [6000, 8000]])
+    q_lens = np.asarray([1] * 6 + [256, 100])
+    case = build_case(torch, rng, ctxs, q_lens, 256, bf16, int8_kv=True)
+    run('int8_c_window4096_softcap30', case, 4096, 30.0, 'bfloat16', 20)
+    del case
+    # (d) chunk spans that start off a 64-key tile boundary.
+    prefixes = np.asarray([37, 1000, 3001, 517])
+    q_lens = np.asarray([100, 64, 33, 0])
+    case = build_case(torch, rng, prefixes + q_lens + (q_lens == 0), q_lens, 100, bf16,
+                      int8_kv=True)
+    run('int8_d_chunk_4x100_offset', case, 0, None, 'bfloat16', 20)
+    del case
+    # (e) fp32 queries (CUDA cores), decode rows and a chunk.
+    case = build_case(torch, rng, [700, 1, 2048, 300], [100, 1, 1, 37], 100,
+                      torch.float32, int8_kv=True)
+    run('int8_e_fp32_chunk_4x100', case, 0, None, 'float32', 10)
+    del case
+    # (f) block size 32, both routes.
+    case = build_case(torch, rng, rng.integers(1, 2049, size=16), np.ones(16), 1, bf16,
+                      int8_kv=True, block_size=32)
+    run('int8_f_bs32_decode_16x1-2048', case, 0, None, 'bfloat16', 50)
+    del case
+    case = build_case(torch, rng, [300, 1100], [300, 77], 300, bf16, int8_kv=True,
+                      block_size=32)
+    run('int8_f_bs32_prefill_2x300', case, 0, None, 'bfloat16', 20)
+    del case
+    # (g) the serving phases' shapes: phase 6's decode rows and prefill
+    # pair (the bf16 headlines), and phase 6b's.
+    case = build_case(torch, rng, rng.integers(18, 1091, size=8), np.ones(8), 1, bf16,
+                      int8_kv=True)
+    run('int8_serve_decode_8x18-1090', case, 0, None, 'bfloat16', 50)
+    del case
+    case = build_case(torch, rng, [1024, 700], [1024, 700], 1024, bf16, int8_kv=True)
+    run('int8_serve_prefill_2x1024', case, 0, None, 'bfloat16', 20)
+    del case
+    case = build_case(torch, rng, rng.integers(33, 321, size=32), np.ones(32), 1, bf16,
+                      int8_kv=True)
+    run(INT8_SERVE_DECODE, case, 0, None, 'bfloat16', 50)
+    del case
+    lens = rng.integers(129, 257, size=8)
+    case = build_case(torch, rng, lens, lens, int(lens.max()), bf16, int8_kv=True)
+    run(INT8_SERVE_PREFILL, case, 0, None, 'bfloat16', 20)
+    del case
+    torch.cuda.empty_cache()
+    worst = max(results, key=lambda r: r['err_over_tol'])
+    log(f'[kernel int8] {len(results)} cases within tolerance; worst {worst["case"]} '
+        f'({worst["kernel_route"]}) at {worst["err_over_tol"]:.4f} of its bound')
     return results
 
 
@@ -855,6 +1034,133 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     return result
 
 
+# ------------------------------------------------------------- phase 6b
+def kvq_workload(vocab_size):
+    """The JAX package's ``gen_kvq`` stage workload (``bench.py``, full
+    size): 64 greedy prompts of 32..192 tokens, every third behind a
+    shared 32-token prefix, 16..96 new tokens each; numpy seed 0."""
+    rng = np.random.default_rng(0)
+    shared = [int(t) for t in rng.integers(1, vocab_size, size=32)]
+    prompts = []
+    for i, n in enumerate(rng.integers(32, 192, size=64)):
+        tail = [int(t) for t in rng.integers(1, vocab_size, size=int(n))]
+        prompts.append(shared + tail if i % 3 == 0 else tail)
+    budgets = [int(n) for n in rng.integers(16, 96, size=64)]
+    return prompts, budgets
+
+
+def phase_serve_kv_int8(torch, tpa, card, cfg):
+    """Serve the ``gen_kvq`` workload through two ``LLMEngine`` arms on the
+    same bf16 weights (made on the card from seed 0): a bf16 KV pool and
+    an int8 one (``EngineConfig(kv_cache_dtype='int8')``); block 16, 1024
+    blocks, 32 slots, ``max_model_len`` 2048, 16-step decode windows. The
+    JAX stage's prefix cache and chunked prefill are not ported, so every
+    prompt prefills whole. K1 must launch layers x forward passes in each
+    arm, every int8-arm launch in the int8 mode (prefill on the tensor
+    cores, decode on the CUDA cores), its plain op never, and the int8
+    pool must take under 0.51 of the bf16 pool's bytes. The greedy match
+    fraction between the arms is recorded, not asserted."""
+    from distllm_tpu_torch.generate.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distllm_tpu_torch.models import mistral
+
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                          device=DEVICE)
+    prompts, budgets = kvq_workload(cfg.vocab_size)
+    sampling = [SamplingParams(temperature=0.0, max_tokens=n) for n in budgets]
+    arms = {}
+    for kv in ('bf16', 'int8'):
+        torch.cuda.reset_peak_memory_stats()
+        engine = LLMEngine(cfg, params, None, EngineConfig(
+            block_size=BLOCK_SIZE, num_blocks=1024, max_num_seqs=32,
+            max_model_len=2048, decode_steps=16, kv_cache_dtype=kv,
+        ), device=DEVICE)
+        engine.generate_ids(prompts[:2], SamplingParams(temperature=0.0, max_tokens=2))
+        tpa.ragged_paged_attention.launches = 0
+        tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
+        tpa.ragged_paged_attention.launches_by_kv = dict.fromkeys(tpa.KV_MODES, 0)
+        tpa.ragged_paged_attention_reference.launches = 0
+        t0 = time.perf_counter()
+        tokens = engine.generate_ids(prompts, sampling)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        tele = dict(engine.telemetry)
+        arm = dict(
+            tokens=tokens, tokens_per_s=tele['generated_tokens'] / wall_s, wall_s=wall_s,
+            kv_cache_dtype=tele['kv_cache_dtype'], kv_pool_bytes=engine.kv.hbm_bytes,
+            kv_pool_gib=engine.kv.hbm_bytes / 2**30,
+            gib=torch.cuda.memory_allocated() / 2**30,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            forward_passes=tele['forward_passes'],
+            prefill_dispatches=tele['prefill_dispatches'],
+            launches=tpa.ragged_paged_attention.launches,
+            launches_by_route=dict(tpa.ragged_paged_attention.launches_by_route),
+            launches_by_kv=dict(tpa.ragged_paged_attention.launches_by_kv),
+            plain=tpa.ragged_paged_attention_reference.launches,
+        )
+        engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+        if tele['generated_tokens'] != sum(budgets) or [len(t) for t in tokens] != budgets:
+            fail(f'serve int8 KV ({kv}): {tele["generated_tokens"]} tokens, expected '
+                 f'{sum(budgets)}')
+        log(f'[serve kv {kv}] 64 prompts (32..224 tokens), {sum(budgets)} new tokens in '
+            f'{wall_s:.3f} s = {arm["tokens_per_s"]:.1f} tok/s on {card}; KV pool '
+            f'{arm["kv_pool_gib"]:.4f} GiB ({arm["kv_pool_bytes"]} bytes, '
+            f'kv_cache_dtype {arm["kv_cache_dtype"]}); {arm["gib"]:.2f} GiB allocated, '
+            f'peak {arm["peak_gib"]:.2f} GiB; K1 launches {arm["launches"]} = '
+            f'{cfg.num_layers} layers x {arm["forward_passes"]} passes '
+            f'({arm["prefill_dispatches"]} prefill dispatches); by route '
+            f'{json.dumps(arm["launches_by_route"])}, by KV mode '
+            f'{json.dumps(arm["launches_by_kv"])}; plain op {arm["plain"]}')
+        passes, prefills = arm['forward_passes'], arm['prefill_dispatches']
+        by_route = arm['launches_by_route']
+        if arm['launches'] <= 0 or arm['launches'] != cfg.num_layers * passes:
+            fail(f'serve int8 KV ({kv}): K1 launches {arm["launches"]} != '
+                 f'{cfg.num_layers} x {passes}')
+        if (by_route['tensor_cores'] != cfg.num_layers * prefills
+                or by_route['cuda_cores'] != cfg.num_layers * (passes - prefills)):
+            fail(f'serve int8 KV ({kv}): K1 routes {by_route}: expected prefill on '
+                 'the tensor cores and decode on the CUDA cores')
+        mode = 'int8' if kv == 'int8' else 'model'
+        if arm['launches_by_kv'][mode] != arm['launches']:
+            fail(f'serve int8 KV ({kv}): K1 KV modes {arm["launches_by_kv"]}: every '
+                 f'launch belongs in the {mode} mode')
+        if arm['plain'] != 0:
+            fail(f'serve int8 KV ({kv}): the plain op ran {arm["plain"]} times')
+        arms[kv] = arm
+    del params
+    torch.cuda.empty_cache()
+    bf16, q8 = arms['bf16'], arms['int8']
+    if (bf16['kv_cache_dtype'], q8['kv_cache_dtype']) != ('bfloat16', 'int8'):
+        fail(f'telemetry kv_cache_dtype {bf16["kv_cache_dtype"]} / {q8["kv_cache_dtype"]}')
+    ratio = q8['kv_pool_bytes'] / bf16['kv_pool_bytes']
+    # The int8 blocks (codes and scales) the bf16 pool's bytes would hold.
+    capacity_blocks = int(bf16['kv_pool_bytes'] // (q8['kv_pool_bytes'] / 1024))
+    matched = total = 0
+    for a, b in zip(bf16['tokens'], q8['tokens']):
+        total += max(len(a), len(b))
+        matched += sum(1 for x, y in zip(a, b) if x == y)
+    match = matched / total
+    # The first token comes from the prefill pass alone: where it differs,
+    # the streams part before any decode step.
+    first = sum(a[:1] == b[:1] for a, b in zip(bf16['tokens'], q8['tokens'])) / len(prompts)
+    log(f'[serve kv int8] int8 vs bf16 pool bytes {ratio:.4f}; the bf16 pool\'s bytes '
+        f'hold {capacity_blocks} int8 blocks (1024 bf16); greedy match {match:.4f} '
+        f'({matched}/{total}), first tokens matching {first:.4f} (recorded, not asserted)')
+    if not ratio < 0.51:
+        fail(f'int8 KV pool is {ratio:.4f} of the bf16 pool, expected under 0.51')
+    keep = ('tokens_per_s', 'wall_s', 'kv_cache_dtype', 'kv_pool_bytes', 'kv_pool_gib',
+            'gib', 'peak_gib', 'forward_passes', 'prefill_dispatches', 'launches',
+            'launches_by_route', 'launches_by_kv')
+    return dict(bf16={k: bf16[k] for k in keep}, int8={k: q8[k] for k in keep},
+                pool_bytes_ratio=ratio, int8_capacity_blocks=capacity_blocks,
+                greedy_match=match, first_token_match=first)
+
+
 # ------------------------------------------------------------ phases 8-9
 def phase_identity(torch, tpa, cfg):
     from distllm_tpu_torch.generate.engine import (
@@ -899,6 +1205,67 @@ def phase_identity(torch, tpa, cfg):
         f'kernel vs plain op identical={same}')
     if not same:
         fail(f'fp32 greedy tokens differ: kernel {outs["auto"]} vs plain '
+             f'{outs["reference"]}')
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_identity_kv_int8(torch, tpa, cfg):
+    """fp32, full width, depth 2, an int8 KV pool: greedy tokens through
+    K1's int8 mode (every launch on the CUDA-core route) equal those
+    through its plain op."""
+    from distllm_tpu_torch.generate.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distllm_tpu_torch.models import mistral
+
+    params = mistral.init(
+        cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE
+    )
+    rng = np.random.default_rng(2)
+    prompts = [
+        [int(t) for t in rng.integers(4, cfg.vocab_size, size=n)]
+        for n in (16, 100, 300, 520, 37, 800)
+    ]
+    sampling = SamplingParams(temperature=0.0, max_tokens=24)
+    engine_cfg = EngineConfig(
+        block_size=BLOCK_SIZE, num_blocks=256, max_num_seqs=4,
+        max_model_len=1024, kv_cache_dtype='int8',
+    )
+    outs = {}
+    for backend in ('auto', 'reference'):
+        engine = LLMEngine(
+            cfg, params, None, engine_cfg, device=DEVICE, attn_backend=backend
+        )
+        tpa.ragged_paged_attention.launches = 0
+        tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
+        tpa.ragged_paged_attention.launches_by_kv = dict.fromkeys(tpa.KV_MODES, 0)
+        tpa.ragged_paged_attention_reference.launches = 0
+        outs[backend] = engine.generate_ids(prompts, sampling)
+        passes = engine.telemetry['forward_passes']
+        kernel = tpa.ragged_paged_attention
+        counted, other = kernel.launches, tpa.ragged_paged_attention_reference.launches
+        if backend == 'reference':
+            counted, other = other, counted
+        if counted != cfg.num_layers * passes or other != 0:
+            fail(f'int8 KV identity ({backend}): {counted} attention calls for '
+                 f'{passes} passes ({other} through the other tier)')
+        if kernel.launches_by_kv['int8'] != kernel.launches or (
+            kernel.launches_by_route['cuda_cores'] != kernel.launches
+        ):
+            fail(f'int8 KV identity ({backend}): K1 modes {kernel.launches_by_kv}, '
+                 f'routes {kernel.launches_by_route}; every fp32 launch belongs in the '
+                 'int8 mode on the CUDA cores')
+        if engine.telemetry['kv_cache_dtype'] != 'int8':
+            fail(f'int8 KV identity: telemetry {engine.telemetry["kv_cache_dtype"]}')
+        engine.shutdown()
+    same = outs['auto'] == outs['reference']
+    log(f'[identity kv int8] fp32 depth-2 full width, int8 KV pool, 6 prompts x 24 '
+        f'greedy tokens: K1 int8 mode (CUDA-core route) vs plain op identical={same}')
+    if not same:
+        fail(f'fp32 int8-KV greedy tokens differ: kernel {outs["auto"]} vs plain '
              f'{outs["reference"]}')
     del params
     torch.cuda.empty_cache()
@@ -990,6 +1357,60 @@ def phase_quantize(torch, tq):
         fail('card-made int8 codes or scales differ from the CPU-made ones')
     del params, card, gate
     torch.cuda.empty_cache()
+
+
+def phase_kv_codes(torch, tpa):
+    """The same fp32 K/V rows through the same writes on the card and on
+    the CPU, at Mistral-7B geometry (8 KV heads x 128, block 16): two
+    ``write_chunk_kv`` spans per row (fresh from offset 0, then landing
+    mid-block, with padding), then 40 ``write_token_kv`` appends whose
+    magnitudes grow (every append rescales its block) across a block
+    boundary (a scale reset at offset 0). Codes and scales must be equal
+    bitwise outside the trash block."""
+    gen = torch.Generator().manual_seed(9)
+    nb, rows = 64, 4
+    pools = {
+        dev: [tpa.QuantizedKV(
+            torch.zeros((nb, BLOCK_SIZE, NUM_KV_HEADS, HEAD_DIM), dtype=torch.int8,
+                        device=dev),
+            torch.zeros((nb, NUM_KV_HEADS), device=dev)) for _ in range(2)]
+        for dev in ('cpu', DEVICE)
+    }
+    bt = torch.randperm(nb - 1, generator=gen)[:rows * 12].add(1).reshape(rows, 12).int()
+    steps = []
+    firsts, seconds = [37, 5, 64, 100], [40, 59, 17, 1]
+    width = 64
+    for start, lens in ((np.zeros(rows, int), firsts), (firsts, seconds)):
+        pos = torch.tensor(start)[:, None] + torch.arange(width)[None]
+        valid = torch.arange(width)[None] < torch.tensor(lens)[:, None]
+        shape = (rows, width, NUM_KV_HEADS, HEAD_DIM)
+        steps.append(('chunk', torch.randn(shape, generator=gen) * 2,
+                      torch.randn(shape, generator=gen), pos.int(), valid))
+    base = torch.tensor([a + b for a, b in zip(firsts, seconds)], dtype=torch.int32)
+    for i in range(40):
+        shape = (rows, NUM_KV_HEADS, HEAD_DIM)
+        steps.append(('token', torch.randn(shape, generator=gen) * (1 + i / 8),
+                      torch.randn(shape, generator=gen), base + i, None))
+    t0 = time.perf_counter()
+    for kind, nk, nv, pos, valid in steps:
+        for dev, (k, v) in pools.items():
+            args = (nk.to(dev), nv.to(dev), bt.to(dev), pos.to(dev))
+            if kind == 'chunk':
+                tpa.write_chunk_kv(k, v, *args, valid.to(dev))
+            else:
+                tpa.write_token_kv(k, v, *args)
+    torch.cuda.synchronize()
+    same = all(
+        torch.equal(host.data[1:], card.data[1:].cpu())
+        and torch.equal(host.scale[1:], card.scale[1:].cpu())
+        for host, card in zip(pools['cpu'], pools[DEVICE])
+    )
+    resets = sum(int(((base + i) % BLOCK_SIZE == 0).sum()) for i in range(40))
+    log(f'[kv codes] 2 chunk writes + 40 appends ({resets} at a block\'s offset 0), '
+        f'{rows} rows, Mistral-7B KV geometry: card codes and scales equal the '
+        f'CPU\'s bitwise={same} ({time.perf_counter() - t0:.3f} s)')
+    if not same:
+        fail('int8 KV codes or scales written on the card differ from the CPU\'s')
 
 
 # ---------------------------------------------------------- phases 10-11
@@ -1206,8 +1627,10 @@ def main() -> None:
             if 'registers' in line or 'Compiling entry' in line or 'spill' in line:
                 log(f'[build] {name}: {line.strip()}')
 
-    # 3. K1, 4. K3 and 5. K2 against their plain versions
+    # 3. K1, 3b. K1's int8-KV mode, 4. K3 and 5. K2 against their plain
+    # versions
     cases = phase_kernel(torch, tpa)
+    int8_cases = phase_kernel_int8(torch, tpa)
     k3_cases = phase_encoder_kernel(torch, tea)
     k2_cases = phase_int8_kernel(torch, tq, tqm)
     from distllm_tpu_torch.models.mistral import MistralConfig
@@ -1216,11 +1639,17 @@ def main() -> None:
     serve = phase_serve(torch, tpa, smi, MistralConfig())
     # 7. serve int8: the same, weights int8-quantized on the card
     serve_q = phase_serve(torch, tpa, smi, MistralConfig(), tqm=tqm, quantization='int8')
-    # 8. identity: full width, depth 2, fp32, K1 and then K2 vs plain
+    # 6b. serve with an int8 KV pool: bf16 and int8 KV arms, same weights
+    serve_kv = phase_serve_kv_int8(torch, tpa, smi, MistralConfig())
+    # 8. identity: full width, depth 2, fp32, K1 and then K2 vs plain;
+    # 8b. K1's int8-KV mode vs plain
     phase_identity(torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
     phase_identity_int8(torch, tqm, MistralConfig(num_layers=2, dtype='float32'))
-    # 9. quantize on the card: one full-width leaf, bitwise vs the CPU
+    phase_identity_kv_int8(torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
+    # 9. quantize on the card: one full-width leaf, bitwise vs the CPU;
+    # 9b. int8 KV codes and scales written on the card vs the CPU
     phase_quantize(torch, tq)
+    phase_kv_codes(torch, tpa)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_embed_') as tmp:
         # 10. embed: BERT-base widths, 12 layers, bf16
         embed = phase_embed(torch, tea, smi, Path(tmp))
@@ -1236,6 +1665,12 @@ def main() -> None:
     head = next(c for c in cases if c['case'].startswith('serve_decode'))
     prefill_head = next(c for c in cases if c['case'] == 'serve_prefill_2x1024')
     k3_head = next(c for c in k3_cases if c['case'] == 'embed_512x288')
+    int8_head, int8_prefill = (
+        next(c for c in int8_cases if c['case'] == name)
+        for name in (INT8_SERVE_DECODE, INT8_SERVE_PREFILL)
+    )
+    int8_keys = ('case', 'kernel_route', 'tol', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                 'yardstick_ms', 'err_over_tol', 'max_abs_err')
     k2_head, k2_prefill, k2_embed = (
         next(c for c in k2_cases if c['case'] == name)
         for name in (K2_HEADLINE, K2_PREFILL, K2_EMBED)
@@ -1263,6 +1698,28 @@ def main() -> None:
             'case', 'kernel_route', 'tol', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'err_over_tol')},
         'cases': cases,
+        # The int8-KV mode: launches from phase 6b's int8 arm, times at its
+        # decode shape (prefill beside it). No PyTorch call computes
+        # attention over int8 codes and scales; the yardstick is SDPA on
+        # the pool dequantized to bf16, which reads twice the KV bytes.
+        'int8_kv': {
+            'launches': serve_kv['int8']['launches'],
+            'launches_by_route': serve_kv['int8']['launches_by_route'],
+            'launches_by_kv': serve_kv['int8']['launches_by_kv'],
+            'max_abs_err': max(c['max_abs_err'] for c in int8_cases),
+            'err_over_tol': max(c['err_over_tol'] for c in int8_cases),
+            'tol': int8_head['tol'],
+            'ms': int8_head['ms'],
+            'plain_ms': int8_head['plain_ms'],
+            'bound_ms': int8_head['bound_ms'],
+            'bound_by': int8_head['bound_by'],
+            'library_ms': None,
+            'yardstick_ms': int8_head['yardstick_ms'],
+            'yardstick': 'scaled_dot_product_attention on the KV dequantized to bf16',
+            'timed_case': int8_head['case'],
+            'prefill': {key: int8_prefill[key] for key in int8_keys},
+            'cases': int8_cases,
+        },
     }, {
         'name': 'encoder_attention',
         'route': 'cuda',
@@ -1315,10 +1772,15 @@ def main() -> None:
     }]
     log(f'[summary] {smi}: {serve["tokens_per_s"]:.1f} tok/s bf16, '
         f'{serve_q["tokens_per_s"]:.1f} tok/s int8 ({serve["gib"]:.2f} vs '
-        f'{serve_q["gib"]:.2f} GiB allocated); {embed["embeddings_per_s"]:.1f} '
+        f'{serve_q["gib"]:.2f} GiB allocated); gen_kvq workload '
+        f'{serve_kv["bf16"]["tokens_per_s"]:.1f} tok/s bf16 KV, '
+        f'{serve_kv["int8"]["tokens_per_s"]:.1f} int8 KV (pool '
+        f'{serve_kv["pool_bytes_ratio"]:.4f} of bf16, greedy match '
+        f'{serve_kv["greedy_match"]:.4f}); {embed["embeddings_per_s"]:.1f} '
         f'embeddings/s bf16, {embed_q["embeddings_per_s"]:.1f} int8; '
         f'{time.perf_counter() - t_start:.1f} s total')
-    if not all(math.isfinite(c['ms']) for c in cases + k3_cases + k2_cases):
+    log(f'[serve kv] {json.dumps(serve_kv)}')
+    if not all(math.isfinite(c['ms']) for c in cases + int8_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')
     print(json.dumps({'kernels': kernels}))
     print(smi)

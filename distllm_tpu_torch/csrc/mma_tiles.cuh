@@ -4,7 +4,8 @@
 // - cp_async16: a 16-byte copy from device to shared memory that does not
 //   occupy registers, with a zero-filling form: `live == false` reads no
 //   byte from `src` and writes 16 zero bytes, so a key outside a row's
-//   range is never read from the pool and stages as exact zeros.
+//   range is never read from the pool and stages as exact zeros;
+//   cp_async4 the same for 4 bytes (one fp32 scale).
 // - ldmatrix_x4 / ldmatrix_x4_trans: four 8x8 bf16 matrices from shared
 //   memory into the fragment layout of mma.m16n8k16.
 // - mma_bf16_16816: D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, fp32
@@ -35,6 +36,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
   const int bytes = live ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
+  const int bytes = live ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(bytes)
                : "memory");
 }

@@ -62,19 +62,40 @@
 //   a row.
 // - p is rounded to bf16 as the A operand of P V, unnormalised, where the
 //   TPU kernel rounds it (probs.astype(vh.dtype), :649-653); l sums the
-//   unrounded p (:638-640). The int8-KV mode (Pallas :585-600, :622-623,
-//   :642-648) folds K's per-key scale into the fp32 scores and V's into p
-//   before that cast: the two places are marked below.
+//   unrounded p (:638-640).
 // - a warp skips the products of a key tile that lies wholly above its
 //   rows' diagonal or below their window, and the block's key loop ends at
 //   its last live query: a causal prefill does about half the products of
 //   a dense one. The query tiles with the most keys are launched first, so
 //   the short ones fill the tail of the grid.
+//
+// int8-KV mode, on both routes (kv_dtype 1; Pallas quantized=True,
+// :585-602, :614-626, :638-653): the pool holds int8 codes and a
+// per-page, per-KV-head fp32 scale ([num_blocks, Nkv], one layer's
+// slice). The codes are widened exactly (|c| <= 127 fits bf16's
+// significand and fp32) and never dequantized in memory:
+// - K: score = (q . c) * scale * k_scale[page, h], before the softcap and
+//   the mask;
+// - V: l sums the unscaled p; then p *= v_scale[page, h] before P V (on
+//   route 1 before p is rounded to bf16), so sum_j p_j v_scale_j c_j is
+//   P V over the dequantized values.
+// A key outside [lo, hi) reads neither its codes nor its scale: both
+// stage as zeros, so a NaN in the trash block's data or scale cannot
+// reach an output. Route 0 widens 16 codes per 16-byte load to fp32 and
+// stages each tile's 32 scales per key in shared memory. Route 1 stages
+// the int8 tile with cp.async into a ring of two (half the bytes of a
+// bf16 tile: a 128-wide row is 8 chunks of 16 bytes, not 16), its per-key
+// scales beside it (4-byte cp.async, zero-filled when dead), then widens
+// the codes to bf16 in shared memory, in the layout and stride ldmatrix
+// reads, behind one more barrier per tile; the bf16 tile needs no ring of
+// its own, since it is written after the previous tile's last read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_tiles.cuh"
 
@@ -87,6 +108,8 @@ struct Params {
   const void* q;              // [B, S, Nh, Hd]
   const void* k_cache;        // [num_blocks, block_size, Nkv, Hd]
   const void* v_cache;
+  const float* k_scale;       // int8 KV: [num_blocks, Nkv]; else null
+  const float* v_scale;
   const int* block_tables;    // [B, max_blocks]
   const int* context_lens;    // [B]
   const int* q_start;         // [B] absolute position of the row's query 0
@@ -129,6 +152,20 @@ struct Vec16<float> {
 };
 
 template <>
+struct Vec16<int8_t> {
+  static constexpr int kElems = 16;
+  __device__ __forceinline__ static void load(const int8_t* src, float* dst) {
+    const int4 raw = *reinterpret_cast<const int4*>(src);
+    const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[4 * i + j] = float(int8_t(words[i] >> (8 * j)));
+    }
+  }
+};
+
+template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int kElems = 8;
   __device__ __forceinline__ static void load(const __nv_bfloat16* src,
@@ -162,14 +199,19 @@ size_t smem_bytes(int rows, int head_dim) {
           + size_t(kKeyTile) * (head_dim + 1)  // staged K (padded rows)
           + size_t(kKeyTile) * head_dim        // staged V
           + size_t(rows) * kKeyTile            // scores / probabilities
-          + size_t(3) * rows);                 // m, l, correction
+          + size_t(3) * rows                   // m, l, correction
+          + size_t(2) * kKeyTile);             // int8 KV: K and V scales
 }
 
-template <typename T, int HD>
+// KV is T (a pool in the query's dtype) or int8_t (codes with scales).
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(kThreads)
     ragged_paged_attention_kernel(const Params p) {
   using V = Vec16<T>;
+  using VK = Vec16<KV>;
+  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   constexpr int kVec = V::kElems;
+  constexpr int kVecKV = VK::kElems;
   constexpr int kPad = HD + 1;  // staged-K row stride: conflict-free dots
 
   const int qt = blockIdx.x;
@@ -188,10 +230,12 @@ __global__ void __launch_bounds__(kThreads)
   float* s_m = s_p + rows * kKeyTile;      // [rows]
   float* s_l = s_m + rows;                 // [rows]
   float* s_alpha = s_l + rows;             // [rows]
+  float* s_ks = s_alpha + rows;            // [kKeyTile] int8 KV: K's scales
+  float* s_vs = s_ks + kKeyTile;           // [kKeyTile] and V's
 
   const T* q = static_cast<const T*>(p.q);
-  const T* k_cache = static_cast<const T*>(p.k_cache);
-  const T* v_cache = static_cast<const T*>(p.v_cache);
+  const KV* k_cache = static_cast<const KV*>(p.k_cache);
+  const KV* v_cache = static_cast<const KV*>(p.v_cache);
   T* out = static_cast<T*>(p.out);
 
   const int ctx = p.context_lens[b];
@@ -236,30 +280,39 @@ __global__ void __launch_bounds__(kThreads)
     const int lane = tid % 32;
     for (int t0 = lo; t0 < hi; t0 += kKeyTile) {
       // Stage K/V of keys t0 .. t0+31, page by page through the block
-      // table; keys at or past hi stay exact zeros (never read).
-      for (int i = tid; i < kKeyTile * (HD / kVec); i += kThreads) {
-        const int j = i / (HD / kVec);
-        const int c = (i % (HD / kVec)) * kVec;
+      // table; keys at or past hi stay exact zeros (never read), and so
+      // do their int8 scales.
+      for (int i = tid; i < kKeyTile * (HD / kVecKV); i += kThreads) {
+        const int j = i / (HD / kVecKV);
+        const int c = (i % (HD / kVecKV)) * kVecKV;
         const int key = t0 + j;
-        float kv[kVec];
-        float vv[kVec];
+        float kv[kVecKV];
+        float vv[kVecKV];
         if (key < hi) {
           const int page = key / p.block_size;
           const int blk = p.block_tables[size_t(b) * p.max_blocks + page];
           const size_t off =
               ((size_t(blk) * p.block_size + key % p.block_size) *
                    p.num_kv_heads + h) * HD + c;
-          V::load(k_cache + off, kv);
-          V::load(v_cache + off, vv);
+          VK::load(k_cache + off, kv);
+          VK::load(v_cache + off, vv);
+          if (kInt8 && c == 0) {
+            s_ks[j] = p.k_scale[size_t(blk) * p.num_kv_heads + h];
+            s_vs[j] = p.v_scale[size_t(blk) * p.num_kv_heads + h];
+          }
         } else {
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) {
+          for (int e = 0; e < kVecKV; ++e) {
             kv[e] = 0.f;
             vv[e] = 0.f;
           }
+          if (kInt8 && c == 0) {
+            s_ks[j] = 0.f;
+            s_vs[j] = 0.f;
+          }
         }
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) {
+        for (int e = 0; e < kVecKV; ++e) {
           s_k[j * kPad + c + e] = kv[e];
           s_v[j * HD + c + e] = vv[e];
         }
@@ -282,6 +335,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 16
           for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
           s = dot * p.scale;
+          if (kInt8) s *= s_ks[j];  // K's page scale, before the softcap
           if (p.softcap > 0.f) s = tanhf(s / p.softcap) * p.softcap;
         }
         s_p[i] = s;
@@ -298,7 +352,8 @@ __global__ void __launch_bounds__(kThreads)
         const float base = m_new == -INFINITY ? 0.f : m_new;
         const float prob = expf(s - base);
         const float total = warp_sum(prob);
-        s_p[r * kKeyTile + lane] = prob;
+        // l sums the unscaled p; P V takes p * V's page scale.
+        s_p[r * kKeyTile + lane] = kInt8 ? prob * s_vs[lane] : prob;
         if (lane == 0) {
           const float alpha = expf(m_prev - base);
           s_alpha[r] = alpha;
@@ -339,15 +394,38 @@ constexpr int kTcRows = 64;  // query rows per block: 4 warps x 16
 constexpr int kTcKeys = 64;  // keys per staged K/V tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-size_t tc_smem_bytes(int head_dim, int max_blocks) {
-  // Q tile and a ring of two K and two V tiles, rows padded by 16 bytes so
-  // the 8 row addresses of an ldmatrix fall in 8 distinct bank groups;
-  // then the row's block table.
-  return sizeof(__nv_bfloat16) * size_t(head_dim + 8) * (kTcRows + 4 * kTcKeys) +
-         sizeof(int) * size_t(max_blocks);
+// 16 int8 codes from shared memory as 16 bf16 values, exactly, stored as
+// two 16-byte words (dst 16-byte aligned).
+__device__ __forceinline__ void widen16(__nv_bfloat16* dst, const int8_t* src) {
+  const int4 raw = *reinterpret_cast<const int4*>(src);
+  const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t pairs[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      pairs[2 * i + j] = mma_tiles::pack_bf16(float(int8_t(words[i] >> (16 * j))),
+                                              float(int8_t(words[i] >> (16 * j + 8))));
+    }
+  }
+  uint4* out = reinterpret_cast<uint4*>(dst);
+  out[0] = make_uint4(pairs[0], pairs[1], pairs[2], pairs[3]);
+  out[1] = make_uint4(pairs[4], pairs[5], pairs[6], pairs[7]);
 }
 
-template <int HD>
+size_t tc_smem_bytes(int head_dim, int max_blocks, bool int8_kv) {
+  // Q tile and a ring of two K and two V tiles, rows padded by 16 bytes so
+  // the 8 row addresses of an ldmatrix fall in 8 distinct bank groups;
+  // then the row's block table. int8 KV: one bf16 K and V tile, and a ring
+  // of two int8 K and V tiles with their per-key scales.
+  const size_t bf16_tiles = int8_kv ? 2 : 4;
+  size_t bytes = sizeof(__nv_bfloat16) * size_t(head_dim + 8) *
+                 (kTcRows + bf16_tiles * kTcKeys);
+  if (int8_kv) bytes += size_t(4) * kTcKeys * (head_dim + sizeof(float));
+  return bytes + sizeof(int) * size_t(max_blocks);
+}
+
+template <int HD, bool kInt8>
 __global__ void __launch_bounds__(kThreads)
     ragged_paged_attention_mma_kernel(const Params p) {
   using namespace mma_tiles;
@@ -357,12 +435,19 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kSteps = HD / 16;       // k-steps of Q K^T
   constexpr int kOut = HD / 8;          // 8-column accumulator tiles of P V
   constexpr int kKeyTiles = kTcKeys / 8;  // 8-key accumulator tiles of S
+  constexpr int kRing = kInt8 ? 1 : 2;  // bf16 K/V tiles in shared memory
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* s_q = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][kStride]
-  bf16* s_k = s_q + kTcRows * kStride;           // [2][kTcKeys][kStride]
-  bf16* s_v = s_k + 2 * kTcKeys * kStride;       // [2][kTcKeys][kStride]
-  int* s_bt = reinterpret_cast<int*>(s_v + 2 * kTcKeys * kStride);  // [max_blocks]
+  bf16* s_k = s_q + kTcRows * kStride;           // [kRing][kTcKeys][kStride]
+  bf16* s_v = s_k + kRing * kTcKeys * kStride;   // [kRing][kTcKeys][kStride]
+  // int8 KV: the staged codes [2][kTcKeys][HD] of K and of V, their
+  // per-key scales [2][kTcKeys], then the block table.
+  int8_t* s_k8 = reinterpret_cast<int8_t*>(s_v + kRing * kTcKeys * kStride);
+  int8_t* s_v8 = s_k8 + (kInt8 ? 2 * kTcKeys * HD : 0);
+  float* s_ks = reinterpret_cast<float*>(s_v8 + (kInt8 ? 2 * kTcKeys * HD : 0));
+  float* s_vs = s_ks + (kInt8 ? 2 * kTcKeys : 0);
+  int* s_bt = reinterpret_cast<int*>(s_vs + (kInt8 ? 2 * kTcKeys : 0));  // [max_blocks]
 
   // The last query tiles attend the most keys: they start first, so the
   // short ones fill the card's tail.
@@ -379,8 +464,9 @@ __global__ void __launch_bounds__(kThreads)
   const int span_off = qt * p.span_tile;
 
   const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* k_cache = static_cast<const bf16*>(p.k_cache);
-  const bf16* v_cache = static_cast<const bf16*>(p.v_cache);
+  using KV = typename std::conditional<kInt8, int8_t, bf16>::type;
+  const KV* k_cache = static_cast<const KV*>(p.k_cache);
+  const KV* v_cache = static_cast<const KV*>(p.v_cache);
   bf16* out = static_cast<bf16*>(p.out);
 
   const int ctx = p.context_lens[b];
@@ -448,14 +534,18 @@ __global__ void __launch_bounds__(kThreads)
 
   // Each thread copies one 16-byte column c of every kKeyStride-th key of
   // a tile, starting at key j0: a fixed trip count, unrolled, so the page
-  // lookups of a tile are in flight together.
-  constexpr int kKeyStride = kThreads / kChunks;
+  // lookups of a tile are in flight together. A 16-byte chunk is 8 bf16
+  // values or 16 int8 codes.
+  constexpr int kElemsPerChunk = 16 / sizeof(KV);
+  constexpr int kKvChunks = HD / kElemsPerChunk;  // 16-byte chunks of a KV row
+  constexpr int kKeyStride = kThreads / kKvChunks;
   constexpr int kPerThread = kTcKeys / kKeyStride;
-  const int j0 = tid / kChunks;
-  const int c = (tid % kChunks) * 8;
+  const int j0 = tid / kKvChunks;
+  const int c = (tid % kKvChunks) * kElemsPerChunk;
   const size_t page_elems = size_t(p.block_size) * p.num_kv_heads * HD;
   const int slot_elems = p.num_kv_heads * HD;
   const int head_col = h * HD + c;
+  auto page_of = [&](int key) { return pow2 ? key >> log2_bs : key / p.block_size; };
   auto stage = [&](int buf, int t0) {
 #pragma unroll
     for (int it = 0; it < kPerThread; ++it) {
@@ -464,12 +554,28 @@ __global__ void __launch_bounds__(kThreads)
       const bool live = key >= lo && key < hi;
       size_t off = 0;
       if (live) {
-        const int page = pow2 ? key >> log2_bs : key / p.block_size;
+        const int page = page_of(key);
         off = size_t(s_bt[page]) * page_elems + (key - page * p.block_size) * slot_elems +
               head_col;
       }
-      cp_async16(s_k + (buf * kTcKeys + j) * kStride + c, k_cache + off, live);
-      cp_async16(s_v + (buf * kTcKeys + j) * kStride + c, v_cache + off, live);
+      if constexpr (kInt8) {
+        cp_async16(s_k8 + (buf * kTcKeys + j) * HD + c, k_cache + off, live);
+        cp_async16(s_v8 + (buf * kTcKeys + j) * HD + c, v_cache + off, live);
+      } else {
+        cp_async16(s_k + (buf * kTcKeys + j) * kStride + c, k_cache + off, live);
+        cp_async16(s_v + (buf * kTcKeys + j) * kStride + c, v_cache + off, live);
+      }
+    }
+    if constexpr (kInt8) {
+      // Thread j < 64 copies key j's K scale, thread 64 + j its V scale;
+      // a dead key's scale is zero-filled, never read.
+      const int j = tid % kTcKeys;
+      const int key = t0 + j;
+      const bool live = key >= lo && key < hi;
+      const float* src = tid < kTcKeys ? p.k_scale : p.v_scale;
+      size_t idx = 0;
+      if (live) idx = size_t(s_bt[page_of(key)]) * p.num_kv_heads + h;
+      cp_async4((tid < kTcKeys ? s_ks : s_vs) + buf * kTcKeys + j, src + idx, live);
     }
   };
 
@@ -487,6 +593,20 @@ __global__ void __launch_bounds__(kThreads)
     const int buf = it & 1;
     cp_async_wait<0>();  // the query tile and tile it have landed
     __syncthreads();
+    if constexpr (kInt8) {
+      // Widen tile it's codes to bf16, exactly, into the tile ldmatrix
+      // reads (its previous tile's last read was before the closing
+      // barrier of the previous step).
+      const int8_t* src_k = s_k8 + buf * kTcKeys * HD;
+      const int8_t* src_v = s_v8 + buf * kTcKeys * HD;
+      for (int i = tid; i < kTcKeys * HD / 16; i += kThreads) {
+        const int j = i / (HD / 16);
+        const int col = (i % (HD / 16)) * 16;
+        widen16(s_k + j * kStride + col, src_k + j * HD + col);
+        widen16(s_v + j * kStride + col, src_v + j * HD + col);
+      }
+      __syncthreads();
+    }
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
@@ -495,8 +615,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     const bool compute = warp_live && t0 < w_hi && t0 + kTcKeys > w_lo;
-    const bf16* kt = s_k + buf * kTcKeys * kStride;
-    const bf16* vt = s_v + buf * kTcKeys * kStride;
+    const bf16* kt = s_k + (kInt8 ? 0 : buf) * kTcKeys * kStride;
+    const bf16* vt = s_v + (kInt8 ? 0 : buf) * kTcKeys * kStride;
     float s[kKeyTiles][4];
     if (compute) {
 #pragma unroll
@@ -532,11 +652,15 @@ __global__ void __launch_bounds__(kThreads)
           const int i = e >> 1;
           const int key = t0 + 8 * j + 2 * t + (e & 1);
           float x;
-          // int8 KV: the score takes K's scale of the key's page, here.
+          // int8 KV: the score takes K's scale of the key's page, before
+          // the softcap: (q . c) * scale * k_scale.
+          const float raw =
+              kInt8 ? s[j][e] * p.scale * s_ks[buf * kTcKeys + 8 * j + 2 * t + (e & 1)]
+                    : s[j][e];
           if (p.softcap > 0.f) {
-            x = tanhf(s[j][e] * p.scale / p.softcap) * (p.softcap * kLog2e);
+            x = tanhf((kInt8 ? raw : raw * p.scale) / p.softcap) * (p.softcap * kLog2e);
           } else {
-            x = s[j][e] * scale_log2;
+            x = kInt8 ? raw * kLog2e : raw * scale_log2;
           }
           const bool valid = inside || (row_live[i] && key < ctx && key <= qpos[i] &&
                                         (win <= 0 || key > qpos[i] - win));
@@ -568,9 +692,17 @@ __global__ void __launch_bounds__(kThreads)
           o[n][2 * i + 1] *= alpha;
         }
       }
+      // int8 KV: l summed the unscaled p above; P V takes p * V's scale
+      // of the key's page, before p is rounded to bf16.
+      if constexpr (kInt8) {
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= s_vs[buf * kTcKeys + 8 * j + 2 * t + (e & 1)];
+        }
+      }
       // O += P V: the S accumulators, rounded to bf16, are P's A fragments;
       // B[key][d] = V[key][d] by ldmatrix.trans, two 8-column tiles each.
-      // int8 KV: p *= V's scale of the key's page, before pack_bf16.
 #pragma unroll
       for (int kk = 0; kk < kTcKeys / 16; ++kk) {
         const uint32_t a[4] = {
@@ -619,12 +751,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   const int group = p.num_heads / p.num_kv_heads;
   const int rows = p.span_tile * group;
   const size_t smem = smem_bytes(rows, HD);
-  auto kernel = ragged_paged_attention_kernel<T, HD>;
+  auto kernel = ragged_paged_attention_kernel<T, KV, HD>;
   static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
   cudaError_t err = mma_tiles::opt_in_shared_memory(
       reinterpret_cast<const void*>(kernel), smem, opted_in);
@@ -635,10 +767,10 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kInt8>
 cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(HD, p.max_blocks);
-  auto kernel = ragged_paged_attention_mma_kernel<HD>;
+  const size_t smem = tc_smem_bytes(HD, p.max_blocks, kInt8);
+  auto kernel = ragged_paged_attention_mma_kernel<HD, kInt8>;
   static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
   cudaError_t err = mma_tiles::opt_in_shared_memory(
       reinterpret_cast<const void*>(kernel), smem, opted_in);
@@ -653,28 +785,36 @@ cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (queries, keys, values and output share
-// it). route: 0 = CUDA cores (any dtype and tile), 1 = tensor cores (bf16,
-// span_tile x group of 16..64 rows). Returns a cudaError_t: 0 on a
-// successful launch, cudaErrorInvalidValue for arguments the route does not
-// take. The launch is asynchronous on
-// `stream`; nothing is allocated and nothing synchronises.
+// dtype: 0 = float32, 1 = bfloat16 (queries and output share it). kv_dtype:
+// 0 = the pool holds q's dtype (k_scale / v_scale unused), 1 = int8 codes
+// with fp32 scales k_scale / v_scale [num_blocks, Nkv]. route: 0 = CUDA
+// cores (any dtype and tile), 1 = tensor cores (bf16, span_tile x group of
+// 16..64 rows). Returns a cudaError_t: 0 on a successful launch,
+// cudaErrorInvalidValue for arguments the route does not take. The launch
+// is asynchronous on `stream`; nothing is allocated and nothing
+// synchronises.
 int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
+                       const void* k_scale, const void* v_scale,
                        const void* block_tables, const void* context_lens,
                        const void* q_start, const void* q_lens, void* out,
                        int batch, int span, int num_heads, int num_kv_heads,
                        int head_dim, int block_size, int max_blocks,
                        int span_tile, int window, float scale, float softcap,
-                       int dtype, int route, void* stream) {
+                       int dtype, int kv_dtype, int route, void* stream) {
   if (batch < 1 || batch > 65535 || span < 1 || num_kv_heads < 1 ||
       num_kv_heads > 65535 || num_heads % num_kv_heads != 0 ||
-      block_size < 1 || max_blocks < 1 || span_tile < 1) {
+      block_size < 1 || max_blocks < 1 || span_tile < 1 ||
+      (kv_dtype != 0 && kv_dtype != 1) ||
+      (kv_dtype == 1 && (k_scale == nullptr || v_scale == nullptr))) {
     return int(cudaErrorInvalidValue);
   }
+  const bool int8_kv = kv_dtype == 1;
   Params p;
   p.q = q;
   p.k_cache = k_cache;
   p.v_cache = v_cache;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.block_tables = static_cast<const int*>(block_tables);
   p.context_lens = static_cast<const int*>(context_lens);
   p.q_start = static_cast<const int*>(q_start);
@@ -694,15 +834,29 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
   if (route == 1) {
     const int rows = span_tile * (num_heads / num_kv_heads);
     if (dtype != 1 || rows < 16 || rows > kTcRows) return int(err);
-    if (head_dim == 64) err = launch_mma<64>(p, batch, s);
-    if (head_dim == 128) err = launch_mma<128>(p, batch, s);
+    if (head_dim == 64) {
+      err = int8_kv ? launch_mma<64, true>(p, batch, s) : launch_mma<64, false>(p, batch, s);
+    }
+    if (head_dim == 128) {
+      err = int8_kv ? launch_mma<128, true>(p, batch, s) : launch_mma<128, false>(p, batch, s);
+    }
     return int(err);
   }
   if (route != 0) return int(err);
-  if (dtype == 0 && head_dim == 64) err = launch<float, 64>(p, batch, s);
-  if (dtype == 0 && head_dim == 128) err = launch<float, 128>(p, batch, s);
-  if (dtype == 1 && head_dim == 64) err = launch<__nv_bfloat16, 64>(p, batch, s);
-  if (dtype == 1 && head_dim == 128) err = launch<__nv_bfloat16, 128>(p, batch, s);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0 && head_dim == 64) {
+    err = int8_kv ? launch<float, int8_t, 64>(p, batch, s) : launch<float, float, 64>(p, batch, s);
+  }
+  if (dtype == 0 && head_dim == 128) {
+    err = int8_kv ? launch<float, int8_t, 128>(p, batch, s)
+                  : launch<float, float, 128>(p, batch, s);
+  }
+  if (dtype == 1 && head_dim == 64) {
+    err = int8_kv ? launch<bf16, int8_t, 64>(p, batch, s) : launch<bf16, bf16, 64>(p, batch, s);
+  }
+  if (dtype == 1 && head_dim == 128) {
+    err = int8_kv ? launch<bf16, int8_t, 128>(p, batch, s) : launch<bf16, bf16, 128>(p, batch, s);
+  }
   return int(err);
 }
 

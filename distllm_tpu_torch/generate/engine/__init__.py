@@ -1,6 +1,7 @@
 """Paged-KV continuous-batching generation engine (PyTorch port)."""
 
 from distllm_tpu_torch.generate.engine.engine import (
+    KV_CACHE_DTYPES,
     EngineConfig,
     LLMEngine,
     Request,
@@ -17,6 +18,7 @@ from distllm_tpu_torch.generate.engine.scheduler import (
 )
 
 __all__ = [
+    'KV_CACHE_DTYPES',
     'EngineConfig',
     'LLMEngine',
     'PagedKVCache',

@@ -17,6 +17,10 @@
   engine quantizes its parameters once at construction (int8 projections
   then run through kernel K2, nf4 ones dequantize per layer) and pins the
   quantized-matmul tier into its model config.
+- **KV storage dtype** (``EngineConfig.kv_cache_dtype``), resolved once at
+  construction: the model dtype (``'auto'`` or the matching pin), or an
+  int8 pool with per-block, per-KV-head scales, quantized at write time
+  and read by kernel K1's int8-KV mode (about half the bytes per block).
 
 Later slices bring mixed batching, speculation, the prefix cache and its
 tiers, recovery, admission control, pipelining (this engine runs one
@@ -43,6 +47,7 @@ from distllm_tpu_torch.generate.engine.scheduler import (
 )
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import bucket_ladder, pick_bucket
+from distllm_tpu_torch.ops.paged_attention import kv_storage_dtype
 from distllm_tpu_torch.ops.quantization import (
     MODES,
     quantize_pytree,
@@ -58,6 +63,9 @@ _MAX_PREFILL_TOKENS = 2048
 # Engine-wide seed behind requests that carry no explicit seed (the JAX
 # EngineConfig.seed default).
 _ENGINE_SEED = 0
+KV_CACHE_DTYPES = ('auto', 'bf16', 'fp32', 'int8')
+# A pinned KV dtype's storage name; 'auto' stores the model dtype.
+_KV_POOL_DTYPES = {'bf16': 'bfloat16', 'fp32': 'float32', 'int8': 'int8'}
 
 
 @dataclass
@@ -109,7 +117,8 @@ class Request:
 class EngineConfig(BaseConfig):
     """Capacity knobs (vLLM analogues ``block_size``, ``num_blocks``,
     ``max_num_seqs``, ``max_model_len``) plus the decode window length,
-    the prefill batch cap and weight-only quantization."""
+    the prefill batch cap, weight-only quantization and the KV pool's
+    storage dtype."""
 
     block_size: int = 16
     num_blocks: int = 256
@@ -118,8 +127,19 @@ class EngineConfig(BaseConfig):
     decode_steps: int = 8
     max_prefill_batch: int = 8
     quantization: str | None = None  # None | 'int8' | 'nf4' (weight-only)
+    # Storage dtype of the paged KV pool (the JAX field): 'auto' stores the
+    # model dtype, bit-identical to an engine without the field; 'int8'
+    # stores int8 codes with per-block, per-KV-head fp32 scales. A
+    # full-precision pin that differs from the model dtype is not ported
+    # (ROADMAP A15).
+    kv_cache_dtype: str = 'auto'  # 'auto' | 'bf16' | 'fp32' | 'int8'
 
     def validate(self) -> None:
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                "kv_cache_dtype must be 'auto', 'bf16', 'fp32', or "
+                f"'int8', got {self.kv_cache_dtype!r}"
+            )
         if self.quantization not in (None, *MODES):
             raise ValueError(
                 f'quantization must be None or one of {MODES}, got '
@@ -190,15 +210,29 @@ class LLMEngine:
         self.model_cfg = dataclasses.replace(model_cfg, qmm_backend=self.qmm_backend)
         self.params = params
         self.weight_bytes_quantized, self.weight_bytes_float = quantized_nbytes(params)
+        # The KV storage dtype, resolved once (the JAX resolution): 'auto'
+        # stores the model dtype.
+        model_dtype = mistral.torch_dtype(model_cfg.dtype)
+        kv_name = _KV_POOL_DTYPES.get(cfg.kv_cache_dtype, model_cfg.dtype)
+        kv_dtype = torch.int8 if kv_name == 'int8' else mistral.torch_dtype(kv_name)
+        if kv_dtype not in (torch.int8, model_dtype):
+            raise NotImplementedError(
+                f'kv_cache_dtype={cfg.kv_cache_dtype!r} under a '
+                f'{model_cfg.dtype} model (a full-precision pool of another '
+                "dtype than the model's) is not ported yet (ROADMAP A15); "
+                "use 'auto' or 'int8'"
+            )
         self.kv = PagedKVCache(
             num_layers=model_cfg.num_layers,
             num_blocks=cfg.num_blocks,
             block_size=cfg.block_size,
             num_kv_heads=model_cfg.num_kv_heads,
             head_dim=model_cfg.head_size,
-            dtype=mistral.torch_dtype(model_cfg.dtype),
+            dtype=kv_dtype,
             device=self.device,
         )
+        # What the pool stores ('auto' is never surfaced).
+        self.kv_cache_dtype = str(kv_storage_dtype(self.kv.k)).removeprefix('torch.')
         self.max_blocks_per_seq = self.kv.blocks_needed(cfg.max_model_len)
         self.prefill_buckets = bucket_ladder(
             cfg.max_model_len, _PREFILL_MIN_BUCKET, scheme='pow2'
@@ -211,8 +245,9 @@ class LLMEngine:
         # passes over all layers), prefill_dispatches, decode_windows,
         # generated_tokens, preemptions.
         self.stats: Counter[str] = Counter()
-        # Per-run summary written by generate_ids.
-        self.telemetry: dict[str, float] = {}
+        # Per-run summary written by generate_ids; the resolved KV storage
+        # dtype ('bfloat16', 'float32' or 'int8') from construction on.
+        self.telemetry: dict[str, float] = {'kv_cache_dtype': self.kv_cache_dtype}
 
     # ------------------------------------------------------------- requests
     def add_request(
@@ -511,6 +546,7 @@ class LLMEngine:
         self.telemetry.update(
             quantization=self.config.quantization,
             qmm_backend=self.qmm_backend,
+            kv_cache_dtype=self.kv_cache_dtype,
             weight_bytes_quantized=self.weight_bytes_quantized,
             weight_bytes_float=self.weight_bytes_float,
         )

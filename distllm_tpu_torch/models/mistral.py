@@ -27,7 +27,9 @@ op on any device (the card-side identity check).
 
 The pool planes ``[L, num_blocks, block_size, N_kv, Hd]`` are written IN
 PLACE (the JAX functions are pure and return new caches); the functions
-return them anyway so call sites read like the JAX ones.
+return them anyway so call sites read like the JAX ones. A pool is a bare
+tensor or an int8 ``QuantizedKV`` (data plus ``[L, num_blocks, N_kv]``
+scales); :func:`_kv_layer` slices either into per-layer views.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 
 from distllm_tpu_torch.models import common
 from distllm_tpu_torch.ops.paged_attention import (
+    QuantizedKV,
     ragged_paged_attention,
     ragged_paged_attention_reference,
     write_chunk_kv,
@@ -235,6 +238,16 @@ def _proj(
     )
 
 
+def _kv_layer(cache, li: int):
+    """Layer ``li``'s slice of a stacked KV pool, as views (the in-place
+    writes land in the pool): a bare tensor's ``[li]``, or both members of
+    an int8 :class:`QuantizedKV` (data AND its per-block scales) — the JAX
+    ``_kv_layer``."""
+    if isinstance(cache, QuantizedKV):
+        return QuantizedKV(cache.data[li], cache.scale[li])
+    return cache[li]
+
+
 def _attention(attn_backend: str):
     if attn_backend == 'auto':
         return ragged_paged_attention
@@ -293,11 +306,10 @@ def prefill_paged(
         v = _proj(normed, lp, 'v', li, cfg).reshape(b, s, cfg.num_kv_heads, hd)
         q = common.apply_rope(q, cos, sin, positions)
         k = common.apply_rope(k, cos, sin, positions)
-        write_chunk_kv(
-            k_cache[li], v_cache[li], k, v, block_tables, positions, valid
-        )
+        k_layer, v_layer = _kv_layer(k_cache, li), _kv_layer(v_cache, li)
+        write_chunk_kv(k_layer, v_layer, k, v, block_tables, positions, valid)
         attn = attend(
-            q, k_cache[li], v_cache[li], block_tables, context_lens,
+            q, k_layer, v_layer, block_tables, context_lens,
             positions, q_lens=tail_lens, sliding_window=cfg.sliding_window,
         )
         x = x + common.dense(
@@ -340,11 +352,10 @@ def _decode_core(
         v = _proj(normed, lp, 'v', li, cfg).reshape(b, cfg.num_kv_heads, hd)
         q = common.apply_rope(q, cos, sin, pos_span)
         k = common.apply_rope(k, cos, sin, pos_span)[:, 0]
-        write_token_kv(
-            k_cache[li], v_cache[li], k, v, block_tables, positions
-        )
+        k_layer, v_layer = _kv_layer(k_cache, li), _kv_layer(v_cache, li)
+        write_token_kv(k_layer, v_layer, k, v, block_tables, positions)
         attn = attend(
-            q, k_cache[li], v_cache[li], block_tables, context_lens,
+            q, k_layer, v_layer, block_tables, context_lens,
             pos_span, sliding_window=cfg.sliding_window,
         )
         x = x + common.dense(

@@ -32,9 +32,15 @@ case), and one op serves them:
 - :func:`comparison_tolerance` — the elementwise bound that holds the
   kernel to the plain version, per route.
 
-Int8 :class:`QuantizedKV` pools are not on this slice's path (the engine
-stores K/V in the model dtype); the kernel's int8 mode is queued and the
-ops raise ``NotImplementedError`` on such a pool.
+A pool is either a bare tensor in the query's dtype or an int8
+:class:`QuantizedKV` (``EngineConfig(kv_cache_dtype='int8')``): int8
+codes plus a per-block, per-KV-head fp32 scale, quantized at write time
+(:func:`write_token_kv` rescales a block on append as its running absmax
+grows; :func:`write_chunk_kv` quantizes a span at its blocks' final
+scales) with the JAX package's arithmetic step for step, so the codes
+and scales are bitwise the JAX ones. The plain version dequantizes as it
+gathers; the kernel folds K's scale into the fp32 score and V's into p,
+on both routes (its int8-KV mode, ``launches_by_kv['int8']``).
 """
 
 from __future__ import annotations
@@ -53,24 +59,93 @@ _MIN_MMA_ROWS = 16
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {'cuda_cores': 0, 'tensor_cores': 1}
+# The pool's storage: q's dtype ('model') or int8 codes with scales.
+KV_MODES = {'model': 0, 'int8': 1}
 
 
 class QuantizedKV(NamedTuple):
-    """Int8 paged-KV container (``data`` int8 blocks + per-block, per-KV-head
-    fp32 ``scale``), the JAX package's layout. Recognised only to be
-    refused: the int8 mode of the kernel waits for a later slice."""
+    """Int8 paged-KV container, the JAX package's layout: ``data`` int8
+    ``[..., num_blocks, block_size, num_kv_heads, head_dim]`` and
+    ``scale`` fp32 ``[..., num_blocks, num_kv_heads]`` — symmetric,
+    ``x ≈ data * scale`` with ``scale = absmax / 127`` over the block's
+    live rows per KV head. The engine's pool carries a leading layer axis
+    on both members; ``models.mistral._kv_layer`` slices them together
+    into views, so the in-place writes land in the pool."""
 
     data: torch.Tensor
     scale: torch.Tensor
 
 
-def _refuse_quantized(*caches) -> None:
-    for cache in caches:
-        if isinstance(cache, QuantizedKV) or cache.dtype == torch.int8:
-            raise NotImplementedError(
-                'int8 (QuantizedKV) paged KV is not ported yet; serve with '
-                'a bf16 or fp32 pool'
+# Symmetric int8 range: scale = absmax / KV_QUANT_MAX maps the block's
+# largest magnitude to +/-127 (-128 unused).
+KV_QUANT_MAX = 127.0
+
+
+def _absmax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``amax / 127`` as a true fp32 division on every device. PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal, which
+    is one rounding off the CPU's (and JAX's) quotient; a 0-d tensor on
+    the same device keeps the division exact, so the card's scales are
+    bitwise the CPU's."""
+    return amax / amax.new_full((), KV_QUANT_MAX)
+
+
+def kv_storage_dtype(cache) -> torch.dtype:
+    """The dtype KV blocks are stored as (int8 for :class:`QuantizedKV`)."""
+    return cache.data.dtype if isinstance(cache, QuantizedKV) else cache.dtype
+
+
+def _kv_data(cache) -> torch.Tensor:
+    return cache.data if isinstance(cache, QuantizedKV) else cache
+
+
+def _check_pools(k_cache, v_cache) -> bool:
+    """Whether the pools are int8; raises unless both are
+    :class:`QuantizedKV` or neither is, and on a ``QuantizedKV`` whose
+    data is not int8 or whose scale is not fp32 ``[..., nb, Nkv]``."""
+    quantized = isinstance(k_cache, QuantizedKV)
+    if quantized != isinstance(v_cache, QuantizedKV):
+        raise TypeError('K and V pools must both be QuantizedKV or neither')
+    if not quantized:
+        return False
+    for cache in (k_cache, v_cache):
+        data, scale = cache
+        if data.dtype != torch.int8 or scale.dtype != torch.float32:
+            raise TypeError(
+                f'QuantizedKV holds int8 data and fp32 scales, got '
+                f'{data.dtype} / {scale.dtype}'
             )
+        if scale.shape != data.shape[:-3] + data.shape[-2:-1]:
+            raise ValueError(
+                f'QuantizedKV scale {tuple(scale.shape)} does not match data '
+                f'{tuple(data.shape)}: expected [..., num_blocks, num_kv_heads]'
+            )
+    return True
+
+
+def quantize_kv_rows(rows: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize ``rows`` (``[..., num_kv_heads, head_dim]``) against a
+    per-KV-head ``scale`` (``[..., num_kv_heads]``), the JAX arithmetic
+    step for step (a true division, round half to even, clip). Zero
+    scales (fresh blocks, trash-block garbage) give exact zeros through a
+    guarded denominator, never a NaN."""
+    denom = torch.where(scale > 0, scale, 1.0)[..., None]
+    q = torch.round(rows.float() / denom)
+    q = torch.clamp(q, -KV_QUANT_MAX, KV_QUANT_MAX)
+    return torch.where(scale[..., None] > 0, q, 0.0).to(torch.int8)
+
+
+def _rescale_int8_blocks(
+    data: torch.Tensor, old_scale: torch.Tensor, new_scale: torch.Tensor
+) -> torch.Tensor:
+    """Re-express int8 block rows quantized at ``old_scale`` in units of
+    ``new_scale`` (``data [..., block_size, num_kv_heads, head_dim]``,
+    scales ``[..., num_kv_heads]``). Appends only grow a block's running
+    absmax, so the ratio is <= 1; a zero ``new_scale`` zeroes the rows."""
+    denom = torch.where(new_scale > 0, new_scale, 1.0)
+    ratio = torch.where(new_scale > 0, old_scale / denom, 0.0)
+    out = torch.round(data.float() * ratio[..., None, :, None])
+    return torch.clamp(out, -KV_QUANT_MAX, KV_QUANT_MAX).to(torch.int8)
 
 
 def ragged_paged_attention_reference(
@@ -94,9 +169,11 @@ def ragged_paged_attention_reference(
     each row's padding queries onto key 0 so their softmax stays finite —
     valid rows are unchanged either way, and pad rows are garbage every
     caller discards (the kernel writes zeros there). Scores, softmax and
-    the weighted sum run in fp32; the result has ``q``'s dtype.
+    the weighted sum run in fp32; the result has ``q``'s dtype. An int8
+    :class:`QuantizedKV` pool is dequantized as it is gathered (``data *
+    scale`` in fp32, JAX's ``_gather_kv_blocks``).
     """
-    _refuse_quantized(k_cache, v_cache)
+    _check_pools(k_cache, v_cache)
     ragged_paged_attention_reference.launches += 1
     b, s, num_heads, head_dim = q.shape
     scores, v = _scores_and_values(
@@ -116,13 +193,10 @@ def _scores_and_values(
     where a key is not attended) and its gathered fp32 values
     ``[B, T, Nkv, Hd]``."""
     b, s, num_heads, head_dim = q.shape
-    _, block_size, num_kv_heads, _ = k_cache.shape
-    max_blocks = block_tables.shape[1]
+    num_kv_heads = _kv_data(k_cache).shape[2]
     group = num_heads // num_kv_heads
-    t = max_blocks * block_size
-    bt = block_tables.long()
-    k = k_cache[bt].reshape(b, t, num_kv_heads, head_dim).float()
-    v = v_cache[bt].reshape(b, t, num_kv_heads, head_dim).float()
+    t = block_tables.shape[1] * _kv_data(k_cache).shape[1]
+    k, v = _gather_kv(k_cache, block_tables), _gather_kv(v_cache, block_tables)
     qg = q.reshape(b, s, num_kv_heads, group, head_dim).float()
     scores = torch.einsum('bskgd,btkd->bkgst', qg, k)
     scores = scores * (scale if scale is not None else head_dim ** -0.5)
@@ -141,6 +215,17 @@ def _scores_and_values(
         )
         valid = valid | (~q_valid & (kv_pos == 0))
     return scores.masked_fill(~valid[:, None, None], float('-inf')), v
+
+
+def _gather_kv(cache, block_tables: torch.Tensor) -> torch.Tensor:
+    """Each row's pages as fp32 ``[B, T, Nkv, Hd]``; an int8 pool is
+    dequantized in the same expression (``data[bt] * scale[bt]``)."""
+    bt = block_tables.long()
+    if isinstance(cache, QuantizedKV):
+        x = cache.data[bt].float() * cache.scale[bt][:, :, None, :, None]
+    else:
+        x = cache[bt].float()
+    return x.reshape(bt.shape[0], -1, *x.shape[-2:])
 
 
 ragged_paged_attention_reference.launches = 0
@@ -165,7 +250,29 @@ ragged_paged_attention_reference.launches = 0
 # noise at outputs near zero. Stated worst ratios: tests/
 # test_torch_paged_attention.py (CPU emulation of the route's order) and
 # chip_smoke.py phase 3 (the kernel on the card).
+#
+# An int8 pool adds one term on either route. The plain version
+# dequantizes first (k = c * k_scale, one fp32 rounding per element) and
+# then sums q . k; the kernel sums q . c (codes widened exactly: |c| <=
+# 127 fits fp32 and bf16) and multiplies by scale and k_scale after. Each
+# side's dot product of Hd fp32 products is off by at most Hd * 2**-24 *
+# sum_d |q_d| |c_jd| in units of its scales, and each side adds two
+# roundings of the score: |ds_j| <= E_j = (2 Hd + 4) * 2**-24 * scale *
+# k_scale_j * (|q| . |c_j|) = (2 Hd + 4) * 2**-24 * scale * (|q| . |k_j|).
+# The softcap's tanh has slope <= 1, so it passes E_j on unchanged. A
+# score error moves the softmax by dP_j = P_j (ds_j - sum_i P_i ds_i),
+# hence out_d by sum_j P_j ds_j (v_jd - out_d), which is at most
+#   sum_j P_j E_j (|v_jd| + |out_d|)                       (INT8 term)
+# (the tensor cores' fp32 accumulation of exact bf16 products stays
+# within the same Hd * 2**-24 per score). V's scale needs no term of its
+# own: on the CUDA cores p * v_scale is one more fp32 rounding of each
+# weight, inside the summation noise ABS covers; on the tensor cores the
+# bf16 rounding of p_j * v_scale_j is the rounding of p_j above, so the
+# P_REL term holds with |V| the dequantized values. Stated worst ratios:
+# tests/test_torch_kv_quant.py (CPU emulation of each route's order, and
+# the faults it must catch) and chip_smoke.py phase 3b (the kernel).
 TOL_REL, TOL_P_REL, TOL_ABS = 2.0 ** -7, 2.0 ** -8, 1e-5
+TOL_INT8_ORDER = 2.0 ** -24
 
 
 def kernel_route(dtype: torch.dtype, span: int, group: int) -> str:
@@ -195,24 +302,45 @@ def comparison_tolerance(
 ) -> torch.Tensor:
     """The elementwise bound on ``|kernel - plain|`` stated above, for
     these inputs (fp32, ``ref``'s shape; meaningful on valid rows). The
-    route defaults to :func:`kernel_route`'s for these inputs. Plain
-    PyTorch: used by the checks on the card and the CPU tests, never on
-    the serving path."""
+    route defaults to :func:`kernel_route`'s for these inputs; an int8
+    pool adds the INT8 term on either route. Plain PyTorch: used by the
+    checks on the card and the CPU tests, never on the serving path."""
+    b, s, num_heads, head_dim = q.shape
+    num_kv_heads = _kv_data(k_cache).shape[2]
     if route is None:
-        route = kernel_route(q.dtype, q.shape[1], q.shape[2] // k_cache.shape[2])
+        route = kernel_route(q.dtype, s, num_heads // num_kv_heads)
     if route not in ROUTES:
         raise ValueError(f'route must be one of {tuple(ROUTES)}, got {route!r}')
+    quantized = _check_pools(k_cache, v_cache)
     if ref.dtype == torch.float32:
-        return torch.full_like(ref, TOL_ABS)
-    tol = TOL_REL * ref.float().abs() + TOL_ABS
-    if route == 'tensor_cores':
-        scores, v = _scores_and_values(
-            q, k_cache, v_cache, block_tables, context_lens, q_positions,
-            q_lens, sliding_window, scale, logit_softcap,
-        )
-        probs = torch.softmax(scores, dim=-1)
+        tol = torch.full_like(ref, TOL_ABS)
+    else:
+        tol = TOL_REL * ref.float().abs() + TOL_ABS
+    bf16_tiles = route == 'tensor_cores' and ref.dtype != torch.float32
+    if not (quantized or bf16_tiles):
+        return tol
+    scores, v = _scores_and_values(
+        q, k_cache, v_cache, block_tables, context_lens, q_positions,
+        q_lens, sliding_window, scale, logit_softcap,
+    )
+    probs = torch.softmax(scores, dim=-1)  # [B, Nkv, G, S, T]
+    if bf16_tiles:
         spread = torch.einsum('bkgst,btkd->bskgd', probs, v.abs())
         tol = tol + TOL_P_REL * spread.reshape(ref.shape)
+    if quantized:
+        k = _gather_kv(k_cache, block_tables)
+        qg = q.reshape(b, s, num_kv_heads, -1, head_dim).float().abs()
+        score_scale = scale if scale is not None else head_dim ** -0.5
+        err = torch.einsum('bskgd,btkd->bkgst', qg, k.abs()) * (
+            (2 * head_dim + 4) * TOL_INT8_ORDER * score_scale
+        )
+        weighted = probs * err  # P_j E_j
+        term = torch.einsum('bkgst,btkd->bskgd', weighted, v.abs())
+        term = term.reshape(ref.shape) + (
+            weighted.sum(-1).permute(0, 3, 1, 2)[..., None].reshape(b, s, num_heads, 1)
+            * ref.float().abs()
+        )
+        tol = tol + term
     return tol
 
 
@@ -222,7 +350,7 @@ def _kernel():
     fn = lib.distllm_rpa_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, i32, i32, ptr]
+        fn.argtypes = [ptr] * 10 + [i32] * 9 + [f32, f32, i32, i32, i32, ptr]
         fn.restype = ctypes.c_int
         lib.distllm_rpa_error_string.argtypes = [ctypes.c_int]
         lib.distllm_rpa_error_string.restype = ctypes.c_char_p
@@ -254,32 +382,41 @@ def ragged_paged_attention_cuda(
     (only ``q_positions[:, 0]`` is read) and pad queries come out as exact
     zeros. The route is :func:`kernel_route`'s; a route that fails to
     launch raises, it never gives way to the other. Raises on anything the
-    kernel does not take: a device other
-    than CUDA, a dtype other than fp32/bf16 (shared by q and the pool),
-    a head dim other than 64/128, a non-contiguous pool, or a tensor
-    sliding window.
+    kernel does not take: a device other than CUDA, a query dtype other
+    than fp32/bf16, a full-precision pool of another dtype than q's, one
+    pool quantized and the other not, scales that are not fp32 ``[nb,
+    Nkv]``, a head dim other than 64/128, a non-contiguous pool or scale,
+    or a tensor sliding window.
     """
-    _refuse_quantized(k_cache, v_cache)
+    quantized = _check_pools(k_cache, v_cache)
+    k_data, v_data = _kv_data(k_cache), _kv_data(v_cache)
     b, s, num_heads, head_dim = q.shape
-    _, block_size, num_kv_heads, kv_dim = k_cache.shape
-    tensors = (q, k_cache, v_cache, block_tables, context_lens, q_positions)
+    _, block_size, num_kv_heads, kv_dim = k_data.shape
+    tensors = (q, k_data, v_data, block_tables, context_lens, q_positions)
+    if quantized:
+        tensors += (k_cache.scale, v_cache.scale)
     if any(x.device != q.device or x.device.type != 'cuda' for x in tensors):
         raise ValueError('the CUDA kernel needs every tensor on one CUDA device')
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f'kernel dtypes are fp32 and bf16, got {q.dtype}')
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+    if not quantized and (k_data.dtype != q.dtype or v_data.dtype != q.dtype):
         raise TypeError(
-            f'q ({q.dtype}) and the KV pool ({k_cache.dtype}) must share a dtype'
+            f'q ({q.dtype}) and the KV pool ({k_data.dtype}) must share a '
+            'dtype (or the pool is an int8 QuantizedKV)'
         )
     if head_dim not in KERNEL_HEAD_DIMS or kv_dim != head_dim:
         raise ValueError(
             f'kernel head dims are {KERNEL_HEAD_DIMS}, got q {head_dim} / '
             f'kv {kv_dim}'
         )
-    if v_cache.shape != k_cache.shape or num_heads % num_kv_heads:
+    if v_data.shape != k_data.shape or num_heads % num_kv_heads or k_data.dim() != 4:
         raise ValueError('K/V pools differ in shape or heads do not group')
-    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+    if not (k_data.is_contiguous() and v_data.is_contiguous()):
         raise ValueError('the KV pool must be contiguous')
+    if quantized and not (
+        k_cache.scale.is_contiguous() and v_cache.scale.is_contiguous()
+    ):
+        raise ValueError('the KV scales must be contiguous')
     if isinstance(sliding_window, torch.Tensor):
         raise TypeError('the CUDA kernel takes a static int sliding_window')
     window = 0 if sliding_window is None else int(sliding_window)
@@ -294,27 +431,34 @@ def ragged_paged_attention_cuda(
     else:
         ql = q_lens.to(i32).contiguous()
     route = kernel_route(q.dtype, s, group)
+    kv_mode = 'int8' if quantized else 'model'
+    scales = (
+        (k_cache.scale.data_ptr(), v_cache.scale.data_ptr()) if quantized
+        else (None, None)
+    )
     out = torch.empty_like(q)
     lib, fn = _kernel()
     with torch.cuda.device(q.device):
         err = fn(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), *scales,
             bt.data_ptr(), ctx.data_ptr(), q_start.data_ptr(), ql.data_ptr(),
             out.data_ptr(),
             b, s, num_heads, num_kv_heads, head_dim, block_size,
             bt.shape[1], _span_tile(s, group), window,
             float(scale if scale is not None else head_dim ** -0.5),
             float(logit_softcap or 0.0),
-            KERNEL_DTYPES[q.dtype], ROUTES[route],
+            KERNEL_DTYPES[q.dtype], KV_MODES[kv_mode], ROUTES[route],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         raise RuntimeError(
-            f'ragged_paged_attention kernel launch failed ({route} route): '
-            f'CUDA error {err} ({lib.distllm_rpa_error_string(err).decode()})'
+            f'ragged_paged_attention kernel launch failed ({route} route, '
+            f'{kv_mode} KV): CUDA error {err} '
+            f'({lib.distllm_rpa_error_string(err).decode()})'
         )
     ragged_paged_attention.launches += 1
     ragged_paged_attention.launches_by_route[route] += 1
+    ragged_paged_attention.launches_by_kv[kv_mode] += 1
     return out
 
 
@@ -337,8 +481,10 @@ def ragged_paged_attention(
     tensors launch the kernel (:func:`ragged_paged_attention_cuda`) or
     raise — a CUDA tensor never reaches the plain version here. Any other
     device raises. ``ragged_paged_attention.launches`` counts kernel
-    launches and ``ragged_paged_attention.launches_by_route`` counts them
-    per route (``'tensor_cores'`` / ``'cuda_cores'``).
+    launches, ``ragged_paged_attention.launches_by_route`` counts them per
+    route (``'tensor_cores'`` / ``'cuda_cores'``) and
+    ``ragged_paged_attention.launches_by_kv`` per KV mode (``'model'``: a
+    pool in q's dtype; ``'int8'``: a :class:`QuantizedKV` pool).
     """
     args = (q, k_cache, v_cache, block_tables, context_lens, q_positions)
     kwargs = {
@@ -354,47 +500,74 @@ def ragged_paged_attention(
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+ragged_paged_attention.launches_by_kv = dict.fromkeys(KV_MODES, 0)
 
 
 def write_token_kv(
-    k_cache: torch.Tensor,
-    v_cache: torch.Tensor,
+    k_cache,
+    v_cache,
     new_k: torch.Tensor,  # [B, num_kv_heads, head_dim]
     new_v: torch.Tensor,
     block_tables: torch.Tensor,  # [B, max_blocks]
     positions: torch.Tensor,  # [B] token index being written
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scatter one new token's K/V per sequence into its paged block.
+):
+    """Scatter one new token's K/V per sequence into its paged block
+    (quantizing at write time for int8 :class:`QuantizedKV` pools).
 
     Writes the pools IN PLACE (the JAX twin is functional and returns new
     arrays) and returns them for symmetry. Rows whose table points at the
     trash block 0 write there harmlessly.
     """
-    _refuse_quantized(k_cache, v_cache)
-    block_size = k_cache.shape[1]
+    block_size = _kv_data(k_cache).shape[1]
     rows = torch.arange(positions.shape[0], device=positions.device)
     pos = positions.long()
     block_ids = block_tables.long()[rows, pos // block_size]
     offsets = pos % block_size
+    if _check_pools(k_cache, v_cache):
+        for cache, new in ((k_cache, new_k), (v_cache, new_v)):
+            _write_token_quantized(cache, new, block_ids, offsets)
+        return k_cache, v_cache
     k_cache[block_ids, offsets] = new_k.to(k_cache.dtype)
     v_cache[block_ids, offsets] = new_v.to(v_cache.dtype)
     return k_cache, v_cache
 
 
+def _write_token_quantized(
+    cache: QuantizedKV, new: torch.Tensor, block_ids: torch.Tensor,
+    offsets: torch.Tensor,
+) -> None:
+    """Rescale-on-append (JAX ``_write_token_kv_quantized``), in place.
+    Each touched block keeps a running absmax: the new row's per-head
+    absmax joins the block's scale, the block's int8 rows are re-expressed
+    in the new units, and the row is quantized once at the final scale. A
+    row at offset 0 starts a fresh block, whose inherited scale resets to
+    0. Dead rows arrive routed to the trash block 0 (duplicate indices
+    there land in no fixed order: garbage, but finite)."""
+    amax = new.float().abs().amax(-1)  # [B, Nkv]
+    scale_before = torch.where(
+        (offsets == 0)[:, None], 0.0, cache.scale[block_ids]
+    )
+    new_scale = torch.maximum(scale_before, _absmax_scale(amax))
+    blocks = _rescale_int8_blocks(cache.data[block_ids], scale_before, new_scale)
+    cache.data[block_ids] = blocks
+    cache.data[block_ids, offsets] = quantize_kv_rows(new, new_scale)
+    cache.scale[block_ids] = new_scale
+
+
 def write_chunk_kv(
-    k_cache: torch.Tensor,
-    v_cache: torch.Tensor,
+    k_cache,
+    v_cache,
     new_k: torch.Tensor,  # [B, S, num_kv_heads, head_dim] span K
     new_v: torch.Tensor,
     block_tables: torch.Tensor,  # [B, max_blocks]
     positions: torch.Tensor,  # [B, S] absolute position per span token
     valid: torch.Tensor,  # [B, S] bool — padding tokens route to trash
-) -> tuple[torch.Tensor, torch.Tensor]:
+):
     """Scatter a batch of ragged spans' K/V into their paged blocks, IN
-    PLACE (returns the same pools). Invalid positions write to the
-    reserved trash block 0, the JAX op's pad-safety contract."""
-    _refuse_quantized(k_cache, v_cache)
-    block_size = k_cache.shape[1]
+    PLACE (returns the same pools), quantizing for int8 pools. Invalid
+    positions write to the reserved trash block 0, the JAX op's
+    pad-safety contract."""
+    block_size = _kv_data(k_cache).shape[1]
     pos = positions.long()
     block_ids = torch.where(
         valid,
@@ -402,6 +575,60 @@ def write_chunk_kv(
         0,
     )
     offsets = torch.where(valid, pos % block_size, 0)
+    if _check_pools(k_cache, v_cache):
+        for cache, new in ((k_cache, new_k), (v_cache, new_v)):
+            _write_chunk_quantized(
+                cache, new, block_tables.long(), pos, valid, block_ids, offsets
+            )
+        return k_cache, v_cache
     k_cache[block_ids, offsets] = new_k.to(k_cache.dtype)
     v_cache[block_ids, offsets] = new_v.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def _write_chunk_quantized(
+    cache: QuantizedKV, new: torch.Tensor, block_tables: torch.Tensor,
+    positions: torch.Tensor, valid: torch.Tensor, block_ids: torch.Tensor,
+    offsets: torch.Tensor,
+) -> None:
+    """Ragged-span quantize-at-write (JAX ``_write_chunk_kv_quantized``),
+    in place. A row's span covers a contiguous run of at most ``S //
+    block_size + 1`` blocks (spans are position-consecutive with trailing
+    padding). Per touched block: the running absmax of the block's prior
+    scale (0 when the span covers the block's offset 0: a fresh block)
+    and the span tokens landing in it; the block's int8 rows are rescaled
+    once and written back, then the span's tokens are quantized at the
+    final per-block scales. Dead rows and dead touched slots go to the
+    trash block 0."""
+    block_size = cache.data.shape[1]
+    b, s = positions.shape
+    max_blocks = block_tables.shape[1]
+    nt = s // block_size + 1  # most blocks a span can touch
+    slots = torch.arange(nt, device=positions.device)
+    start_blk = positions[:, 0] // block_size  # [B] first logical block
+    touched = start_blk[:, None] + slots[None, :]  # [B, nt]
+    last_pos = torch.where(valid, positions, -1).amax(1)  # [B]
+    live = (touched <= (last_pos // block_size)[:, None]) & (last_pos[:, None] >= 0)
+    phys = torch.where(
+        live,
+        torch.take_along_dim(block_tables, touched.clamp(0, max_blocks - 1), dim=1),
+        0,
+    )  # [B, nt] physical touched blocks (dead -> trash)
+    fresh = touched * block_size >= positions[:, :1]  # span covers offset 0
+    tb = (positions // block_size - start_blk[:, None]).clamp(0, nt - 1)  # [B, S]
+    onehot = (tb[:, :, None] == slots[None, None, :]) & valid[:, :, None]
+    amax_tok = new.float().abs().amax(-1)  # [B, S, Nkv]
+    contrib = torch.where(
+        onehot[..., None], amax_tok[:, :, None, :], 0.0
+    ).amax(1)  # [B, nt, Nkv] span absmax per touched block
+    scale_before = torch.where(fresh[..., None], 0.0, cache.scale[phys])
+    new_scale = torch.maximum(scale_before, _absmax_scale(contrib))
+    blocks = _rescale_int8_blocks(cache.data[phys], scale_before, new_scale)
+    flat_phys = phys.reshape(-1)
+    cache.data[flat_phys] = blocks.reshape(-1, *blocks.shape[2:])
+    cache.scale[flat_phys] = new_scale.reshape(-1, new_scale.shape[-1])
+    scale_tok = torch.take_along_dim(new_scale, tb[:, :, None], dim=1)  # [B, S, Nkv]
+    codes = quantize_kv_rows(new, scale_tok)
+    cache.data[block_ids.reshape(-1), offsets.reshape(-1)] = codes.reshape(
+        b * s, *codes.shape[2:]
+    )

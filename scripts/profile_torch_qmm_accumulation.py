@@ -3,10 +3,12 @@
 
     python3 scripts/profile_torch_qmm_accumulation.py
 
-The int8 matmul's products are exact in fp32 on both routes (bf16 x int8
-on the CUDA cores; bf16 x bf16 on the tensor cores), so what the two
-routes can differ in is how the fp32 sum of those products rounds. This
-script takes the unscaled fp32 sums ``sum_k x[m, k] * q[k, n]`` of each
+On the tensor cores the int8 matmul's products are exact in fp32 (bf16 x
+bf16, the codes widened exactly). The CUDA cores take fp32 x only, and
+an fp32 x int8 product is not exact in fp32 (a 24-bit significand times
+a code of up to 7 bits); each ``fmaf`` there rounds product and sum
+together. Either way what is measured is the rounding of each route's
+fp32 sum. This script takes the unscaled fp32 sums ``sum_k x[m, k] * q[k, n]`` of each
 route, before the scale and before any rounding to bf16, and compares them
 with the fp64 sum of the same products. It reports the error in units of
 ``sqrt(K) * 2**-24 * (|x| @ |q|)``, the unit of the order term of

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path, on one GPU.
 
-Builds the same random-init Mistral-7B bf16 ``TorchGenerator`` as
-``chip_smoke.py`` (depth settable with ``--layers``; ``max_num_seqs=8``;
-``--quantization int8`` quantizes the weights on the card so every
-projection runs through the int8 matmul kernel K2),
-warms it up, then for each workload runs it twice: once plainly, timed by
+Builds the same random-init Mistral-7B bf16 engine as ``chip_smoke.py``
+(``LLMEngine`` over weights made on the card from seed 0, the
+``WhitespaceTokenizer``; depth settable with ``--layers``;
+``max_num_seqs=8``; ``--quantization int8`` quantizes the weights on the
+card so every projection runs through the int8 matmul kernel K2;
+``--kv-cache-dtype int8`` stores the KV pool as int8 with per-block
+scales, read by K1's int8-KV mode and written by the quantize-at-write
+ops), warms it up, then for each workload runs it twice: once plainly, timed by
 the host clock (wall seconds, tokens/s, wall milliseconds per forward
 pass), and once under ``torch.profiler`` at a reduced token count, summing
 the device time of the CUDA kernels only (profiling inflates the host
@@ -23,7 +26,8 @@ kernel, other matrix products, everything else), the device's busy share of the 
 (device ms per pass over wall ms per pass) and the top kernels. Needs
 CUDA; exits nonzero without it.
 
-    python3 scripts/profile_torch_serve.py [--layers 32] [--quantization int8] [--out results.json]
+    python3 scripts/profile_torch_serve.py [--layers 32] [--quantization int8]
+        [--kv-cache-dtype int8] [--out results.json]
 """
 
 from __future__ import annotations
@@ -40,12 +44,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from distllm_tpu_torch.generate.engine import SamplingParams  # noqa: E402
-from distllm_tpu_torch.generate.generators.torch_backend import (  # noqa: E402
-    TorchGenerator,
-    TorchGeneratorConfig,
+from distllm_tpu_torch.generate.engine import (  # noqa: E402
+    KV_CACHE_DTYPES,
+    EngineConfig,
+    LLMEngine,
+    SamplingParams,
 )
-from distllm_tpu_torch.models.mistral import MistralConfig  # noqa: E402
+from distllm_tpu_torch.models import mistral  # noqa: E402
+from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer  # noqa: E402
 
 
 def _category(name: str) -> str:
@@ -65,12 +71,12 @@ def _prompts(rng, n, lo, hi):
     return [' '.join(rng.choice(words, size=int(m))) for m in lengths]
 
 
-def _run(generator, prompts, max_tokens):
+def _run(engine, prompts, max_tokens):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    generator.generate(prompts, SamplingParams(temperature=0.0, max_tokens=max_tokens))
+    engine.generate(prompts, SamplingParams(temperature=0.0, max_tokens=max_tokens))
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, dict(generator.engine.telemetry)
+    return time.perf_counter() - t0, dict(engine.telemetry)
 
 
 def _kernel_times(prof) -> list[tuple[float, int, str]]:
@@ -88,8 +94,8 @@ def _kernel_times(prof) -> list[tuple[float, int, str]]:
     return sorted(rows, reverse=True)
 
 
-def measure(generator, name, prompts, max_tokens, profiled_tokens):
-    wall_s, tele = _run(generator, prompts, max_tokens)
+def measure(engine, name, prompts, max_tokens, profiled_tokens):
+    wall_s, tele = _run(engine, prompts, max_tokens)
     result = {
         'workload': name,
         'prompts': len(prompts),
@@ -106,7 +112,7 @@ def measure(generator, name, prompts, max_tokens, profiled_tokens):
         torch.profiler.ProfilerActivity.CUDA,
     ]
     with torch.profiler.profile(activities=activities) as prof:
-        _, ptele = _run(generator, prompts, profiled_tokens)
+        _, ptele = _run(engine, prompts, profiled_tokens)
     kernels = _kernel_times(prof)
     passes = ptele['forward_passes']
     by_cat: dict[str, float] = {}
@@ -134,6 +140,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--layers', type=int, default=32)
     parser.add_argument('--quantization', choices=('int8', 'nf4'), default=None)
+    parser.add_argument('--kv-cache-dtype', choices=KV_CACHE_DTYPES, default='auto')
     parser.add_argument('--out', default=None, help='also write the results here')
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -142,29 +149,35 @@ def main() -> None:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    generator = TorchGenerator(TorchGeneratorConfig(
-        model=MistralConfig(num_layers=args.layers), temperature=0.0,
-        max_tokens=64, num_blocks=1024, max_num_seqs=8, max_model_len=2048,
-        seed=0, quantization=args.quantization,
-    ))
+    model_cfg = mistral.MistralConfig(num_layers=args.layers)
+    params = mistral.init(model_cfg, torch.Generator(device='cuda').manual_seed(0))
+    engine = LLMEngine(
+        model_cfg, params,
+        WhitespaceTokenizer(vocab_size=model_cfg.vocab_size, model_max_length=2048),
+        EngineConfig(num_blocks=1024, max_num_seqs=8, max_model_len=2048,
+                     quantization=args.quantization,
+                     kv_cache_dtype=args.kv_cache_dtype),
+        own_params=True,
+    )
+    del params
     rng = np.random.default_rng(1)
     # Warm-up: builds the kernel, loads cuBLAS handles, fills caches.
-    _run(generator, _prompts(rng, 4, 16, 300), 16)
+    _run(engine, _prompts(rng, 4, 16, 300), 16)
     results = [
-        measure(generator, 'prefill', _prompts(rng, 8, 1024, 1024), 1, 1),
-        measure(generator, 'decode', _prompts(rng, 8, 16, 16), 128, 24),
-        measure(generator, 'mixed', _prompts(rng, 16, 16, 1024), 64, None),
+        measure(engine, 'prefill', _prompts(rng, 8, 1024, 1024), 1, 1),
+        measure(engine, 'decode', _prompts(rng, 8, 16, 16), 128, 24),
+        measure(engine, 'mixed', _prompts(rng, 16, 16, 1024), 64, None),
     ]
+    head = {'card': card, 'layers': args.layers, 'quantization': args.quantization,
+            'kv_cache_dtype': engine.telemetry['kv_cache_dtype'],
+            'kv_pool_bytes': engine.kv.hbm_bytes}
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({'card': card, 'layers': args.layers,
-                                   'quantization': args.quantization,
-                                   'results': results}, indent=1))
+        out.write_text(json.dumps({**head, 'results': results}, indent=1))
     for result in results:
-        print(json.dumps({'card': card, 'layers': args.layers,
-                          'quantization': args.quantization, **result}))
-    generator.shutdown()
+        print(json.dumps({**head, **result}))
+    engine.shutdown()
 
 
 if __name__ == '__main__':

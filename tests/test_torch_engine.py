@@ -13,6 +13,12 @@ Weight-only quantization: with ``EngineConfig.quantization`` 'int8' or
 'nf4' on both sides (every projection quantized at the widths used), the
 port's greedy fp32 tokens equal the JAX engine's, and every int8
 projection of every forward pass went through ``int8_dense``.
+
+KV storage dtype: with ``EngineConfig(kv_cache_dtype='int8')`` on both
+sides the port's greedy fp32 tokens equal the JAX engine's, on a pool
+under half the fp32 pool's bytes; ``'auto'`` and the pin that equals the
+model dtype are today's engine; unknown values and a full-precision pin
+of another dtype are refused.
 """
 
 import jax
@@ -217,4 +223,68 @@ def test_generator_quantization_flag_and_qmm_backend_pin():
         LLMEngine(
             mistral.MistralConfig(**QTINY), engine.params, None, device='cpu',
             qmm_backend='pallas',
+        )
+
+
+def test_int8_kv_greedy_tokens_identical_to_jax_engine(weights, prompts):
+    jcfg, tree = weights
+    jax_engine = JaxLLMEngine(
+        jcfg, tree, _Tok(),
+        JaxEngineConfig(
+            num_blocks=48, attn_backend='xla', prefer_native_allocator=False,
+            kv_cache_dtype='int8', **ENGINE,
+        ),
+    )
+    greedy = dict(temperature=0.0, max_tokens=MAX_TOKENS)
+    want = jax_engine.generate_ids(prompts, JaxSamplingParams(**greedy))
+    jax_engine.shutdown()
+    tcfg = mistral.MistralConfig(**TINY)
+    params = mistral.params_from_jax(tree, tcfg, device='cpu')
+    engine = LLMEngine(
+        tcfg, params, _Tok(),
+        EngineConfig(num_blocks=48, kv_cache_dtype='int8', **ENGINE), device='cpu',
+    )
+    assert engine.telemetry['kv_cache_dtype'] == 'int8'
+    calls = tpa.ragged_paged_attention_reference.launches
+    assert engine.generate_ids(prompts, SamplingParams(**greedy)) == want
+    assert engine.telemetry['kv_cache_dtype'] == 'int8'
+    passes = engine.telemetry['forward_passes']
+    assert tpa.ragged_paged_attention_reference.launches - calls == (
+        TINY['num_layers'] * passes
+    )
+    kv = engine.kv
+    assert kv.quantized and isinstance(kv.k, tpa.QuantizedKV)
+    assert kv.k.data.dtype == torch.int8
+    assert kv.k.scale.shape == (TINY['num_layers'], 48, TINY['num_kv_heads'])
+    assert kv.k.scale.abs().sum() > 0  # the writes quantized into the pool
+    fp32 = _port_engine(weights, num_blocks=48)
+    assert kv.hbm_bytes / fp32.kv.hbm_bytes < 0.5
+
+
+def test_kv_cache_dtype_auto_and_matching_pin_are_todays_engine(
+    weights, prompts, jax_tokens
+):
+    greedy = SamplingParams(temperature=0.0, max_tokens=MAX_TOKENS)
+    tcfg = mistral.MistralConfig(**TINY)
+    params = mistral.params_from_jax(weights[1], tcfg, device='cpu')
+    for pin in ('auto', 'fp32'):
+        engine = LLMEngine(
+            tcfg, params, _Tok(),
+            EngineConfig(num_blocks=48, kv_cache_dtype=pin, **ENGINE), device='cpu',
+        )
+        assert engine.generate_ids(prompts, greedy) == jax_tokens
+        assert engine.telemetry['kv_cache_dtype'] == 'float32'
+        assert not engine.kv.quantized and engine.kv.k.dtype == torch.float32
+        assert engine.kv.hbm_bytes == 2 * engine.kv.k.numel() * 4
+
+
+def test_kv_cache_dtype_refusals(weights):
+    with pytest.raises(ValueError, match="kv_cache_dtype must be 'auto'"):
+        EngineConfig(kv_cache_dtype='fp8')
+    tcfg = mistral.MistralConfig(**TINY)
+    params = mistral.params_from_jax(weights[1], tcfg, device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP A15'):
+        LLMEngine(
+            tcfg, params, _Tok(), EngineConfig(num_blocks=8, kv_cache_dtype='bf16'),
+            device='cpu',
         )

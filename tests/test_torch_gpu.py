@@ -13,7 +13,9 @@ the route that served it (asserted by ``launches_by_route``): fp32 ``1e-5``
 ``2**-7 * |ref| + 1e-5`` (both sides round one fp32 result to bf16); bf16
 on the tensor cores adds ``2**-8 * (P @ |V|)`` (each unnormalised p_j is
 rounded to bf16 before P @ V, as on the TPU). Pad queries must be exact
-zeros. K3 is held to its own elementwise bound
+zeros. K1's int8-KV mode (``QuantizedKV`` pools) is held on both routes
+to the same bound plus its INT8 term, with NaN in the trash block's codes
+and scales leaving outputs bitwise unchanged. K3 is held to its own elementwise bound
 (``encoder_attention.comparison_tolerance``: in bf16 one step of out
 plus one bf16 step of one p_j * v_j) on both of its routes, on every row,
 fully masked included.
@@ -79,7 +81,27 @@ def _case(seed, *, nh, nkv, hd, dtype, ctxs, q_lens, span, bs=16, trash=1e4):
 
 def _route(case):
     q, k = case['args'][:2]
-    return tpa.kernel_route(q.dtype, q.shape[1], q.shape[2] // k.shape[2])
+    return tpa.kernel_route(q.dtype, q.shape[1], q.shape[2] // tpa._kv_data(k).shape[2])
+
+
+def _int8_case(seed, **kw):
+    """``_case`` with its pools quantized on the card, one scale per block
+    and KV head (``quantize_kv_rows`` at absmax / 127), times a magnitude
+    per block and head in [0.25, 4] so that pages differ in scale; the
+    trash block keeps large codes and a large scale."""
+    case = _case(seed, **kw)
+    q, k, v, *rest = case['args']
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def quantize(x):
+        x = x.float()
+        x = x * (0.25 + 3.75 * torch.rand(
+            (x.shape[0], 1, x.shape[2], 1), generator=gen, device='cuda'))
+        scale = x.abs().amax((1, 3)) / tpa.KV_QUANT_MAX
+        return tpa.QuantizedKV(tpa.quantize_kv_rows(x, scale[:, None]), scale)
+
+    case['args'] = (q, quantize(k), quantize(v), *rest)
+    return case
 
 
 def _check(case, dtype, route=None, **kw):
@@ -92,9 +114,12 @@ def _check(case, dtype, route=None, **kw):
     calls = tpa.ragged_paged_attention_reference.launches
     launches = tpa.ragged_paged_attention.launches
     by_route = dict(tpa.ragged_paged_attention.launches_by_route)
+    by_kv = dict(tpa.ragged_paged_attention.launches_by_kv)
+    kv_mode = 'int8' if isinstance(case['args'][1], tpa.QuantizedKV) else 'model'
     out = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'], **kw)
     assert tpa.ragged_paged_attention.launches == launches + 1
     assert tpa.ragged_paged_attention.launches_by_route[route] == by_route[route] + 1
+    assert tpa.ragged_paged_attention.launches_by_kv[kv_mode] == by_kv[kv_mode] + 1
     assert tpa.ragged_paged_attention_reference.launches == calls
     ref = tpa.ragged_paged_attention_reference(
         *case['args'], q_lens=case['q_lens'], **kw
@@ -202,6 +227,163 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
             q[..., :32], k[..., :32].contiguous(), v[..., :32].contiguous(),
             bt, ctx, pos,
         )
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('hd', [64, 128])
+@pytest.mark.parametrize('nh,nkv', [(4, 4), (32, 8)])
+@pytest.mark.parametrize('window,softcap', [(None, None), (40, 30.0)])
+def test_int8_kv_decode_rows(cuda, dtype, hd, nh, nkv, window, softcap):
+    case = _int8_case(11, nh=nh, nkv=nkv, hd=hd, dtype=dtype,
+                      ctxs=[1, 17, 100, 33, 300], q_lens=[1] * 5, span=1)
+    _check(case, dtype, route='cuda_cores', sliding_window=window,
+           logit_softcap=softcap)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('nh,nkv', [(4, 2), (32, 8)])
+def test_int8_kv_chunk_rows(cuda, dtype, nh, nkv):
+    """Spans of up to 70 over prefixes (the CUDA-core route for fp32 and
+    for bf16 tiles under 16 rows, the tensor cores for the rest)."""
+    case = _int8_case(12, nh=nh, nkv=nkv, hd=128, dtype=dtype,
+                      ctxs=[70, 150, 300, 9], q_lens=[70, 40, 3, 0], span=70)
+    _check(case, dtype, sliding_window=30)
+
+
+@pytest.mark.parametrize('nh,nkv', [(8, 8), (32, 8), (64, 8)])
+@pytest.mark.parametrize('hd', [64, 128])
+@pytest.mark.parametrize('span,bs', [(17, 16), (300, 16), (300, 32), (1024, 16)])
+@pytest.mark.parametrize('window,softcap', [(None, None), (100, 30.0)])
+def test_int8_kv_tensor_core_route(cuda, nh, nkv, hd, span, bs, window, softcap):
+    """bf16 spans on the tensor-core route over an int8 pool: a fresh
+    prefill, a chunk over a prefix that starts off a 64-key tile, a short
+    tail of a padded span and a fully padded row; block sizes 16 and 32."""
+    case = _int8_case(span + hd + nh + bs, nh=nh, nkv=nkv, hd=hd, dtype='bfloat16',
+                      ctxs=[span, span + 37, 5 + 200, 9], q_lens=[span, span, 5, 0],
+                      span=span, bs=bs)
+    _check(case, 'bfloat16', route='tensor_cores', sliding_window=window,
+           logit_softcap=softcap)
+
+
+@pytest.mark.parametrize('span,route', [(1, 'cuda_cores'), (100, 'tensor_cores')])
+@pytest.mark.parametrize('poison', ['data', 'scale'])
+def test_int8_kv_nan_trash_block_never_reaches_an_output(cuda, span, route, poison):
+    """Garbage in the trash block (block 0, also block-table padding):
+    codes the quantizer never writes (-128; int8 has no NaN) or a NaN
+    scale. Keys outside each row's range read neither their codes nor
+    their scale, so the outputs are bitwise those of a clean trash
+    block."""
+    case = _int8_case(13, nh=32, nkv=8, hd=128, dtype='bfloat16',
+                      ctxs=[1, 16, 17, 500], q_lens=[min(span, n) for n in (1, 16, 5, 100)],
+                      span=span)
+    assert _route(case) == route
+    clean = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    for pool in case['args'][1:3]:
+        if poison == 'data':
+            pool.data[0] = -128
+        else:
+            pool.scale[0] = float('nan')
+    poisoned = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert torch.equal(clean, poisoned)
+
+
+def test_int8_kv_kernel_refuses_what_it_does_not_take(cuda):
+    case = _int8_case(14, nh=4, nkv=2, hd=128, dtype='bfloat16',
+                      ctxs=[10], q_lens=[1], span=1)
+    q, k, v, bt, ctx, pos = case['args']
+    with pytest.raises(TypeError, match='both be QuantizedKV'):
+        tpa.ragged_paged_attention(q, k, v.data.bfloat16(), bt, ctx, pos)
+    with pytest.raises(TypeError, match='share a dtype'):
+        tpa.ragged_paged_attention(q, k.data, v.data, bt, ctx, pos)  # scales missing
+    with pytest.raises(TypeError, match='fp32 scales'):
+        tpa.ragged_paged_attention(
+            q, k, tpa.QuantizedKV(v.data, v.scale.bfloat16()), bt, ctx, pos
+        )
+    with pytest.raises(ValueError, match='does not match data'):
+        tpa.ragged_paged_attention(
+            q, k, tpa.QuantizedKV(v.data, v.scale[:-1]), bt, ctx, pos
+        )
+    with pytest.raises(ValueError, match='contiguous'):
+        strided = tpa.QuantizedKV(
+            torch.cat([v.data, v.data], -1)[..., :128], v.scale
+        )
+        tpa.ragged_paged_attention(q, k, strided, bt, ctx, pos)
+    with pytest.raises(ValueError, match='scales must be contiguous'):
+        strided = tpa.QuantizedKV(v.data, torch.cat([v.scale, v.scale], -1)[:, ::2])
+        tpa.ragged_paged_attention(q, k, strided, bt, ctx, pos)
+
+
+def test_int8_kv_engine_on_the_kernel_matches_the_plain_op(cuda):
+    """A small fp32 model with an int8 KV pool served end to end on the
+    card: greedy tokens on K1's int8 mode equal those on the plain op."""
+    from distllm_tpu_torch.generate.engine import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from distllm_tpu_torch.models import mistral
+
+    cfg = mistral.MistralConfig(
+        vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+        num_kv_heads=2, intermediate_size=512, dtype='float32',
+    )
+    params = mistral.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [
+        [int(t) for t in rng.integers(4, 256, size=n)] for n in (5, 40, 17, 90, 3)
+    ]
+    outs = {}
+    for backend in ('auto', 'reference'):
+        engine = LLMEngine(
+            cfg, params, None,
+            EngineConfig(num_blocks=64, max_num_seqs=3, max_model_len=256,
+                         kv_cache_dtype='int8'),
+            attn_backend=backend,
+        )
+        int8_launches = tpa.ragged_paged_attention.launches_by_kv['int8']
+        outs[backend] = engine.generate_ids(
+            prompts, SamplingParams(temperature=0.0, max_tokens=12)
+        )
+        passes = engine.telemetry['forward_passes']
+        expected = cfg.num_layers * passes if backend == 'auto' else 0
+        assert tpa.ragged_paged_attention.launches_by_kv['int8'] - int8_launches == expected
+        assert engine.telemetry['kv_cache_dtype'] == 'int8'
+    assert outs['auto'] == outs['reference']
+
+
+def test_int8_kv_writes_on_the_card_equal_the_cpu_bitwise(cuda):
+    """write_chunk_kv (fresh and mid-block spans) then write_token_kv
+    (appends that grow the absmax, a reset at offset 0) on the card leave
+    the codes and scales the same ops leave on the CPU."""
+    gen = torch.Generator().manual_seed(15)
+    pools = {}
+    for dev in ('cpu', 'cuda'):
+        pools[dev] = [
+            tpa.QuantizedKV(torch.zeros((20, 16, 8, 128), dtype=torch.int8, device=dev),
+                            torch.zeros((20, 8), device=dev))
+            for _ in range(2)
+        ]
+    bt = torch.tensor([[3, 7, 1, 9], [12, 4, 18, 2]], dtype=torch.int32)
+    steps = []
+    for start, lens in (([0, 0], [21, 9]), ([21, 9], [20, 30])):
+        pos = torch.tensor(start)[:, None] + torch.arange(30)[None]
+        valid = torch.arange(30)[None] < torch.tensor(lens)[:, None]
+        steps.append(('chunk', torch.randn((2, 30, 8, 128), generator=gen) * 3,
+                      torch.randn((2, 30, 8, 128), generator=gen), pos.int(), valid))
+    for i in range(20):  # positions 41..60 / 39..58: offset 0 at 48
+        steps.append(('token', torch.randn((2, 8, 128), generator=gen) * (1 + i / 4),
+                      torch.randn((2, 8, 128), generator=gen),
+                      torch.tensor([41 + i, 39 + i], dtype=torch.int32), None))
+    for kind, nk, nv, pos, valid in steps:
+        for dev, (k, v) in pools.items():
+            args = (nk.to(dev), nv.to(dev), bt.to(dev), pos.to(dev))
+            if kind == 'chunk':
+                tpa.write_chunk_kv(k, v, *args, valid.to(dev))
+            else:
+                tpa.write_token_kv(k, v, *args)
+    for host, card in zip(pools['cpu'], pools['cuda']):
+        assert torch.equal(host.data[1:], card.data[1:].cpu())
+        assert torch.equal(host.scale[1:], card.scale[1:].cpu())
 
 
 def test_engine_on_the_kernel_matches_the_plain_op(cuda):

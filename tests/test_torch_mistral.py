@@ -17,6 +17,9 @@ crosses the bridge with its codes and scales as they are, and the port's
 ``qmm_backend='xla'`` and ``'interpret'`` (the Pallas kernel) within the
 same fp32 tolerance, at widths where every projection is quantized and
 K, N are multiples of 128 (the Pallas tier's tile contract).
+
+int8 KV: ``QuantizedKV`` pools through ``prefill_paged`` and
+``decode_step`` give the JAX logits and the JAX pools' codes.
 """
 
 import dataclasses
@@ -28,8 +31,10 @@ import pytest
 import torch
 
 from distllm_tpu.models import mistral as jax_mistral
+from distllm_tpu.ops import paged_attention as jpa
 from distllm_tpu.ops import quantization as jq
 from distllm_tpu_torch.models import mistral
+from distllm_tpu_torch.ops import paged_attention as tpa
 from distllm_tpu_torch.ops import quantization as tq
 from distllm_tpu_torch.ops import quantized_matmul as tqm
 
@@ -276,3 +281,68 @@ def test_int8_prefill_and_decode_logits_match_jax(quantized_models):
     # 7 int8 products per layer per forward pass (lm_head stays float):
     # two prefill chunks and one decode step, all on the CPU plain version.
     assert tqm.int8_matmul_reference.launches - plain == 7 * QUANT['num_layers'] * 3
+
+
+def _int8_pools(cfg):
+    shape = (2, NUM_BLOCKS, BLOCK_SIZE, cfg.num_kv_heads, cfg.head_size)
+    scale_shape = shape[:2] + shape[3:4]
+
+    def jax_pool():
+        return jpa.QuantizedKV(
+            jnp.zeros(shape, jnp.int8), jnp.zeros(scale_shape, jnp.float32)
+        )
+
+    def port_pool():
+        return tpa.QuantizedKV(
+            torch.zeros(shape, dtype=torch.int8), torch.zeros(scale_shape)
+        )
+
+    return (jax_pool(), jax_pool()), (port_pool(), port_pool())
+
+
+def test_int8_pools_through_prefill_and_decode(models):
+    """int8 KV pools (``QuantizedKV`` with a leading layer axis) through
+    two ragged prefill chunks (fresh spans, then spans landing mid-block)
+    and a decode step: each layer's slice carries its data and scales
+    together (``_kv_layer``), logits match the JAX paths within the fp32
+    tolerance. The codes equal the JAX pools' bitwise; the scales are
+    absmax / 127 of fp32 K/V that the two frameworks compute in different
+    summation orders, so they agree to the fp32 tolerance (bitwise on the
+    same fp32 inputs: tests/test_torch_kv_quant.py)."""
+    jcfg, tree, tcfg, params = models
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(4, 128, size=(2, 9)).astype(np.int32)
+    bt = _tables()
+    jpools, tpools = _int8_pools(tcfg)
+    for starts, lens in (([0, 0], [5, 3]), ([5, 3], [4, 6])):
+        starts, lens = np.asarray(starts), np.asarray(lens)
+        width = int(lens.max())
+        ids = np.zeros((2, width), np.int32)
+        pos = np.zeros((2, width), np.int32)
+        for r in range(2):
+            ids[r, :lens[r]] = tokens[r, starts[r]:starts[r] + lens[r]]
+            pos[r] = np.minimum(starts[r] + np.arange(width), 63)
+        ctx = (starts + lens).astype(np.int32)
+        (jl, jpools), (tl, tpools) = _prefill(
+            models, jpools, tpools, ids, pos, bt, ctx, lens.astype(np.int32)
+        )
+        _close(tl, jl)
+    ids = np.asarray([17, 42], np.int32)
+    pos = np.asarray([9, 9], np.int32)
+    jl, jk, jv = jax_mistral.decode_step(
+        tree, jcfg, jnp.asarray(ids), jnp.asarray(pos), *jpools,
+        jnp.asarray(bt), jnp.asarray(pos + 1),
+    )
+    tl, tk, tv = mistral.decode_step(
+        params, tcfg, torch.from_numpy(ids), torch.from_numpy(pos), *tpools,
+        torch.from_numpy(bt), torch.from_numpy(pos + 1),
+    )
+    _close(tl, jl)
+    for port, jax_pool in ((tk, jk), (tv, jv)):
+        assert port is tpools[0] or port is tpools[1]  # written in place
+        np.testing.assert_array_equal(
+            port.data.numpy()[:, 1:], np.asarray(jax_pool.data)[:, 1:]
+        )
+        np.testing.assert_allclose(
+            port.scale.numpy()[:, 1:], np.asarray(jax_pool.scale)[:, 1:], rtol=RTOL
+        )

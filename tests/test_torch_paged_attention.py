@@ -210,14 +210,25 @@ def test_non_cpu_tensors_never_reach_the_plain_op():
 
 
 def test_quantized_pool_is_refused():
+    """An int8 pool is served (tests/test_torch_kv_quant.py); what is still
+    refused is a QuantizedKV whose scale does not match its data — one
+    scale per block and KV head — on the plain op, the kernel wrapper and
+    the writes alike."""
     a = _setup(8)
     q = torch.from_numpy(a['q'])
-    pool = tpa.QuantizedKV(
-        torch.zeros(a['k'].shape, dtype=torch.int8), torch.ones(12, 2)
-    )
+    codes = torch.zeros(a['k'].shape, dtype=torch.int8)
     rest = [torch.from_numpy(a[key]) for key in ('bt', 'ctx', 'pos')]
-    with pytest.raises(NotImplementedError, match='int8'):
-        tpa.ragged_paged_attention(q, pool, pool, *rest)
+    for bad_scale in (torch.ones(12, 4, 2), torch.ones(11, 2), torch.ones(12)):
+        pool = tpa.QuantizedKV(codes, bad_scale)
+        with pytest.raises(ValueError, match='does not match data'):
+            tpa.ragged_paged_attention(q, pool, pool, *rest)
+        with pytest.raises(ValueError, match='does not match data'):
+            tpa.ragged_paged_attention_cuda(q, pool, pool, *rest)
+        with pytest.raises(ValueError, match='does not match data'):
+            tpa.write_token_kv(
+                pool, pool, torch.zeros(3, 2, 8), torch.zeros(3, 2, 8),
+                rest[0], torch.zeros(3, dtype=torch.int32),
+            )
 
 
 def _paged_inputs(seed, dtype, *, offset=0.0):
