@@ -18,22 +18,28 @@ carried on):
    ragged contexts 1..4096, (b) 4 prefill rows with spans up to 512 over
    existing prefixes and ``q_lens`` padding, (c) sliding window 4096 +
    logit softcap, (d) chunk spans that start off a 64-key tile boundary,
-   with ``q_lens`` padding, and the shapes the serving phase gives it;
-   NaN in the trash block leaves the outputs of a decode case and of a
-   tensor-core case bitwise unchanged; time kernel, plain version and
-   ``scaled_dot_product_attention`` on the same gathered KV (a yardstick
-   the port never calls);
+   with ``q_lens`` padding, the shapes the serving phase gives it, and
+   the split-KV route's edges (e-g: contexts at the plan's split edges,
+   a window across a split edge with spans of 1..3 and softcap, rows
+   whose window leaves one live split); NaN in the trash block leaves
+   the outputs of a decode case, a split-edge case and a tensor-core case
+   bitwise unchanged, and two launches of a split-edge case are bitwise
+   equal; time kernel and ``scaled_dot_product_attention`` on the same
+   gathered KV (a yardstick the port never calls) as CUDA-graph replays,
+   the kernel also by events around eager calls and on the host's clock
+   per call, and the plain version by events;
 3b. kernel K1, int8-KV mode — the same against its plain version over
    ``QuantizedKV`` pools (N(0, 1) K/V quantized on the card), within the
    int8 tolerance of the route each case takes (printed): (a) 32 decode
    rows of contexts 1..4096, (b) 4 prefill rows with spans up to 512 and
    ``q_lens`` padding, (c) window 4096 + softcap, (d) chunk spans off a
-   64-key tile, (e) fp32 queries, (f) block size 32 on both routes, (g)
-   phase 6's and phase 6b's decode and prefill shapes; codes the quantizer
-   never writes (-128) and, in turn, a NaN scale in the trash block leave
-   the outputs of a decode case and of a tensor-core case bitwise
-   unchanged; time kernel, plain version and SDPA on the pool dequantized
-   to bf16 (a yardstick: not the same function, twice the KV bytes);
+   64-key tile, (e) fp32 queries, (f) block size 32 on two routes, (g)
+   phase 6's and phase 6b's decode and prefill shapes, (h) phase 3's
+   split-KV edges; codes the quantizer never writes (-128) and, in turn,
+   a NaN scale in the trash block leave the outputs of a decode case, a
+   split-edge case and a tensor-core case bitwise unchanged; timed as in
+   phase 3, SDPA on the pool dequantized to bf16 (a yardstick: not the
+   same function, twice the KV bytes);
 4. kernel K3 — hold the encoder-attention kernel against its plain
    version at BERT-base geometry (12 heads x 64): the embed path's shapes
    (batch 512, S = 128 / 192 / 288) in bf16, partial key masks with fully
@@ -68,7 +74,7 @@ carried on):
    port. K1's launch count must equal layers x forward passes and its
    plain op must not run at all; every prefill dispatch's launches went
    through the tensor-core route and every decode step's through the
-   CUDA-core route (``launches_by_route``);
+   split-KV route (``launches_by_route``);
 7. serve int8 — the same through ``TorchGenerator(quantization='int8')``,
    the weights quantized on the card; K2 must launch 7 x layers x
    forward passes, every launch on the tensor-core route, and its plain
@@ -83,7 +89,7 @@ carried on):
    bytes would hold and the greedy match fraction (recorded). K1 must
    launch layers x forward passes, every int8-arm launch in the int8
    mode (``launches_by_kv``) with prefill on the tensor cores and decode
-   on the CUDA cores, its plain op never, and the int8 pool must take
+   on the split-KV route, its plain op never, and the int8 pool must take
    under 0.51 of the bf16 pool's bytes;
 8. identity — full width at depth 2 in fp32: greedy tokens from the engine
    on K1 equal those from the engine on its plain op; then, int8 weights,
@@ -175,6 +181,43 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean device time of one of ``iters`` calls of ``fn`` captured in a
+    CUDA graph (after a warm-up call): the host's enqueue time, which
+    exceeds a small kernel's, is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (2 * iters)
+    del graph
+    return ms
+
+
+def host_call_us(torch, fn, iters: int) -> float:
+    """Mean host time of one call of ``fn`` (after a warm-up call), on the
+    host's clock while the calls are enqueued: what a call costs the CPU."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
 
 
 # --------------------------------------------------------------- phase 3
@@ -314,7 +357,13 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
     err = float(diff.max())
     err_over_tol = float((diff / tol[valid]).max())
     del tol
-    kernel_ms = cuda_ms(torch, lambda: tpa.ragged_paged_attention(*args, **kw), iters)
+    # The kernel and SDPA as CUDA-graph replays (the host's enqueue time,
+    # which exceeds a decode launch's device time, is not counted); the
+    # kernel also by events around eager calls and on the host's clock.
+    kernel = lambda: tpa.ragged_paged_attention(*args, **kw)  # noqa: E731
+    kernel_ms = graph_ms(torch, kernel, iters)
+    event_ms = cuda_ms(torch, kernel, iters)
+    host_us = host_call_us(torch, kernel, iters)
     plain_ms = cuda_ms(
         torch, lambda: tpa.ragged_paged_attention_reference(*args, **kw),
         max(2, iters // 5), warmup=1,
@@ -323,7 +372,7 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
     if softcap is None:  # SDPA has no softcap: no single library call
         sq, sk, sv, mask = sdpa_inputs(torch, case, window)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        sdpa_ms = cuda_ms(torch, lambda: sdpa(sq, sk, sv, attn_mask=mask), iters)
+        sdpa_ms = graph_ms(torch, lambda: sdpa(sq, sk, sv, attn_mask=mask), iters)
         del sq, sk, sv, mask
     bytes_, flops = case_work(case, window, dtype)
     byte_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
@@ -332,6 +381,7 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
         case=name, kernel_route=route, kv=kv_mode, block_size=case['block_size'],
         max_abs_err=err, err_over_tol=err_over_tol,
         tol=k1_tol(tpa, route, dtype, case['int8_kv']), ms=kernel_ms,
+        timer='cuda graph', event_ms=event_ms, host_us=host_us,
         plain_ms=plain_ms, bound_ms=max(byte_ms, op_ms),
         bound_by='bytes' if byte_ms >= op_ms else 'operations',
         bytes=bytes_, flops=flops,
@@ -354,7 +404,7 @@ def k1_tol(tpa, route, dtype, int8_kv=False):
     tol = {'abs': tpa.TOL_ABS}
     if dtype != 'float32':
         tol['rel'] = tpa.TOL_REL
-        if route == 'tensor_cores':
+        if route in ('tensor_cores', 'split_kv'):
             tol['p'] = f'{tpa.TOL_P_REL} * (P @ |V|)'
     if int8_kv:
         tol['int8'] = ('sum_j P_j E_j (|v_j| + |out|), E_j = (2 Hd + 4) * 2**-24 * '
@@ -418,8 +468,53 @@ def phase_kernel(torch, tpa):
     case = build_case(torch, rng, [1024, 700], [1024, 700], 1024, dtype)
     results.append(run_kernel_case(torch, tpa, 'serve_prefill_2x1024', case, 0, None, 'bfloat16', 20))
     del case
+    # The split-KV route's edges (e-g), and its launches bitwise alike.
+    for name, case, window, softcap in split_edge_cases(torch, tpa, rng, dtype):
+        results.append(run_kernel_case(torch, tpa, name, case, window, softcap, 'bfloat16', 50))
+        if name.startswith('e_'):
+            check_nan_trash_block(torch, tpa, case, name)
+            check_reproducible(torch, tpa, case, name)
+        del case
     torch.cuda.empty_cache()
+    for route in tpa.ROUTES:
+        mine = [r for r in results if r['kernel_route'] == route]
+        if mine:
+            worst = max(mine, key=lambda r: r['err_over_tol'])
+            log(f'[kernel] {len(mine)} {route} cases within tolerance; worst '
+                f'{worst["case"]} at {worst["err_over_tol"]:.4f} of its bound')
     return results
+
+
+def split_edge_cases(torch, tpa, rng, dtype, int8_kv=False):
+    """Rows at the split-KV plan's edges, for the plan the wrapper makes at
+    these shapes (6 rows of up to 4096 keys): (e) decode rows of 1, a
+    split's length - 1, one split, one split + 1, two splits + 1 and 4096
+    keys; (f) spans of 1..3 on the same rows under a window that crosses a
+    split edge (a split + 50), with softcap 30; (g) decode rows whose
+    window of 8 leaves one live split, or straddles a split edge."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sk = tpa.split_plan(4096, 6, NUM_KV_HEADS, sms, BLOCK_SIZE)[1]
+    edges = np.asarray([1, sk - 1, sk, sk + 1, 2 * sk + 1, 4096])
+    tag = 'int8_' if int8_kv else ''
+    yield (f'{tag}e_split_edges_6x1-4096', build_case(
+        torch, rng, edges, np.ones(6), 1, dtype, int8_kv=int8_kv), 0, None)
+    yield (f'{tag}f_window_across_splits_span3_softcap30', build_case(
+        torch, rng, edges, np.minimum(edges, [1, 3, 2, 3, 3, 3]), 3, dtype,
+        int8_kv=int8_kv), sk + 50, 30.0)
+    yield (f'{tag}g_one_live_split_window8', build_case(
+        torch, rng, [4096, sk + 3, 2 * sk + 4, 3 * sk, 9, 1], np.ones(6), 1, dtype,
+        int8_kv=int8_kv), 8, None)
+
+
+def check_reproducible(torch, tpa, case, name):
+    """The split-KV merge adds the partials in split order: two launches
+    on the same inputs are bitwise equal."""
+    args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
+    first = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
+    second = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
+    if not torch.equal(first, second):
+        fail(f'two launches on the same inputs differ ({name})')
+    log(f'[kernel] {name}: two launches bitwise equal')
 
 
 # -------------------------------------------------------------- phase 3b
@@ -465,7 +560,7 @@ def phase_kernel_int8(torch, tpa):
     def run(name, case, window, softcap, dtype, iters):
         results.append(run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters))
 
-    # (a) 32 decode rows, ragged contexts 1..4096 (CUDA cores).
+    # (a) 32 decode rows, ragged contexts 1..4096 (split-KV route).
     ctxs = np.concatenate([[1, 4096], rng.integers(1, 4097, size=30)])
     case = build_case(torch, rng, ctxs, np.ones(32), 1, bf16, int8_kv=True)
     run('int8_a_decode_32x1-4096', case, 0, None, 'bfloat16', 50)
@@ -498,7 +593,7 @@ def phase_kernel_int8(torch, tpa):
                       torch.float32, int8_kv=True)
     run('int8_e_fp32_chunk_4x100', case, 0, None, 'float32', 10)
     del case
-    # (f) block size 32, both routes.
+    # (f) block size 32, decode (split-KV route) and prefill (tensor cores).
     case = build_case(torch, rng, rng.integers(1, 2049, size=16), np.ones(16), 1, bf16,
                       int8_kv=True, block_size=32)
     run('int8_f_bs32_decode_16x1-2048', case, 0, None, 'bfloat16', 50)
@@ -524,10 +619,20 @@ def phase_kernel_int8(torch, tpa):
     case = build_case(torch, rng, lens, lens, int(lens.max()), bf16, int8_kv=True)
     run(INT8_SERVE_PREFILL, case, 0, None, 'bfloat16', 20)
     del case
+    # (h) the split-KV route's edges over the int8 pool.
+    for name, case, window, softcap in split_edge_cases(torch, tpa, rng, bf16, int8_kv=True):
+        run(name, case, window, softcap, 'bfloat16', 50)
+        if name.startswith('int8_e_'):
+            check_int8_trash_block(torch, tpa, case, name)
+            check_reproducible(torch, tpa, case, name)
+        del case
     torch.cuda.empty_cache()
-    worst = max(results, key=lambda r: r['err_over_tol'])
-    log(f'[kernel int8] {len(results)} cases within tolerance; worst {worst["case"]} '
-        f'({worst["kernel_route"]}) at {worst["err_over_tol"]:.4f} of its bound')
+    for route in tpa.ROUTES:
+        mine = [r for r in results if r['kernel_route'] == route]
+        if mine:
+            worst = max(mine, key=lambda r: r['err_over_tol'])
+            log(f'[kernel int8] {len(mine)} {route} cases within tolerance; worst '
+                f'{worst["case"]} at {worst["err_over_tol"]:.4f} of its bound')
     return results
 
 
@@ -737,30 +842,6 @@ def k2_case(torch, tq, gen, m, k, n, dtype, data='normal'):
     return dict(x=x, weights=weights, zero_column=zero_column)
 
 
-def graph_ms(torch, fn, iters: int) -> float:
-    """Mean device time of one of ``iters`` calls of ``fn`` captured in a
-    CUDA graph (after a warm-up call): the host's enqueue time, which
-    exceeds a small kernel's, is not counted."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (2 * iters)
-    del graph
-    return ms
-
-
 def run_k2_case(torch, tqm, name, case, iters):
     x, weights = case['x'], case['weights']
     q, scale = weights[0]
@@ -839,19 +920,6 @@ def run_k2_case(torch, tqm, name, case, iters):
         fail(f'K2 case {name}: |out - ref| exceeds its elementwise tolerance '
              f'(worst element at {err_over_tol:.3f} x; max abs err {err})')
     return result
-
-
-def host_call_us(torch, fn, iters: int) -> float:
-    """Mean host time of one call of ``fn`` (after a warm-up call), on the
-    host's clock while the calls are enqueued: what a call costs the CPU."""
-    fn()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    elapsed = time.perf_counter() - start
-    torch.cuda.synchronize()
-    return elapsed / iters * 1e6
 
 
 def k2_tol(tqm, route, dtype):
@@ -1003,11 +1071,11 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     if launches <= 0 or launches != cfg.num_layers * passes:
         fail(f'kernel launches {launches} != {cfg.num_layers} x {passes}')
     # Prefill spans (>= 16 tokens here, x the group of 4) fill tensor-core
-    # tiles; decode rows (4 rows per tile) stay on the CUDA cores.
+    # tiles; decode rows (4 rows per tile) take the split-KV route.
     if (by_route['tensor_cores'] != cfg.num_layers * prefills
-            or by_route['cuda_cores'] != cfg.num_layers * (passes - prefills)):
+            or by_route['split_kv'] != cfg.num_layers * (passes - prefills)):
         fail(f'K1 routes {by_route}: expected {cfg.num_layers} x {prefills} '
-             f'prefill passes on the tensor cores and the rest on the CUDA cores')
+             f'prefill passes on the tensor cores and the rest on the split-KV route')
     if plain != 0:
         fail(f'the plain op ran {plain} times on the serving path')
     result = dict(tokens_per_s=tok_s, wall_s=wall_s, launches=launches,
@@ -1057,7 +1125,7 @@ def phase_serve_kv_int8(torch, tpa, card, cfg):
     JAX stage's prefix cache and chunked prefill are not ported, so every
     prompt prefills whole. K1 must launch layers x forward passes in each
     arm, every int8-arm launch in the int8 mode (prefill on the tensor
-    cores, decode on the CUDA cores), its plain op never, and the int8
+    cores, decode on the split-KV route), its plain op never, and the int8
     pool must take under 0.51 of the bf16 pool's bytes. The greedy match
     fraction between the arms is recorded, not asserted."""
     from distllm_tpu_torch.generate.engine import (
@@ -1122,9 +1190,9 @@ def phase_serve_kv_int8(torch, tpa, card, cfg):
             fail(f'serve int8 KV ({kv}): K1 launches {arm["launches"]} != '
                  f'{cfg.num_layers} x {passes}')
         if (by_route['tensor_cores'] != cfg.num_layers * prefills
-                or by_route['cuda_cores'] != cfg.num_layers * (passes - prefills)):
+                or by_route['split_kv'] != cfg.num_layers * (passes - prefills)):
             fail(f'serve int8 KV ({kv}): K1 routes {by_route}: expected prefill on '
-                 'the tensor cores and decode on the CUDA cores')
+                 'the tensor cores and decode on the split-KV route')
         mode = 'int8' if kv == 'int8' else 'model'
         if arm['launches_by_kv'][mode] != arm['launches']:
             fail(f'serve int8 KV ({kv}): K1 KV modes {arm["launches_by_kv"]}: every '
@@ -1665,12 +1733,13 @@ def main() -> None:
     head = next(c for c in cases if c['case'].startswith('serve_decode'))
     prefill_head = next(c for c in cases if c['case'] == 'serve_prefill_2x1024')
     k3_head = next(c for c in k3_cases if c['case'] == 'embed_512x288')
-    int8_head, int8_prefill = (
+    int8_head, int8_decode8, int8_prefill = (
         next(c for c in int8_cases if c['case'] == name)
-        for name in (INT8_SERVE_DECODE, INT8_SERVE_PREFILL)
+        for name in (INT8_SERVE_DECODE, 'int8_serve_decode_8x18-1090', INT8_SERVE_PREFILL)
     )
-    int8_keys = ('case', 'kernel_route', 'tol', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-                 'yardstick_ms', 'err_over_tol', 'max_abs_err')
+    int8_keys = ('case', 'kernel_route', 'tol', 'ms', 'timer', 'event_ms', 'host_us',
+                 'plain_ms', 'bound_ms', 'bound_by', 'yardstick_ms', 'err_over_tol',
+                 'max_abs_err')
     k2_head, k2_prefill, k2_embed = (
         next(c for c in k2_cases if c['case'] == name)
         for name in (K2_HEADLINE, K2_PREFILL, K2_EMBED)
@@ -1693,10 +1762,16 @@ def main() -> None:
         'bound_ms': head['bound_ms'],
         'bound_by': head['bound_by'],
         'library_ms': head['library_ms'],
+        # ms and library_ms are CUDA-graph replays; event_ms times eager
+        # calls, host_us the host's time per call.
+        'timer': head['timer'],
+        'event_ms': head['event_ms'],
+        'host_us': head['host_us'],
         'timed_case': head['case'],
+        'kernel_route': head['kernel_route'],
         'prefill': {key: prefill_head[key] for key in (
-            'case', 'kernel_route', 'tol', 'ms', 'plain_ms', 'bound_ms',
-            'bound_by', 'library_ms', 'err_over_tol')},
+            'case', 'kernel_route', 'tol', 'ms', 'timer', 'event_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'library_ms', 'err_over_tol')},
         'cases': cases,
         # The int8-KV mode: launches from phase 6b's int8 arm, times at its
         # decode shape (prefill beside it). No PyTorch call computes
@@ -1716,7 +1791,12 @@ def main() -> None:
             'library_ms': None,
             'yardstick_ms': int8_head['yardstick_ms'],
             'yardstick': 'scaled_dot_product_attention on the KV dequantized to bf16',
+            'timer': int8_head['timer'],
+            'event_ms': int8_head['event_ms'],
+            'host_us': int8_head['host_us'],
             'timed_case': int8_head['case'],
+            'kernel_route': int8_head['kernel_route'],
+            'decode_8': {key: int8_decode8[key] for key in int8_keys},
             'prefill': {key: int8_prefill[key] for key in int8_keys},
             'cases': int8_cases,
         },

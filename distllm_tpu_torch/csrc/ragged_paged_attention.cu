@@ -23,12 +23,12 @@
 // (scripts/profile_torch_kernel_phases.py) puts about a fifth in issuing
 // the tile copies and the rest in the products, the softmax and the
 // block's prologue, at two blocks of four warps per SM (shared memory and
-// registers both allow two).
+// registers both allow two). Route 2's times against its bound: PERF.md.
 //
-// Two routes, chosen by the wrapper from the dtype and the tile's rows and
-// launched by route number; neither ever gives way to the other:
+// Three routes, chosen by the wrapper from the dtype and the tile's rows
+// and launched by route number; none ever gives way to another:
 //
-// Route 0, CUDA cores (fp32, and bf16 tiles of fewer than 16 rows: decode):
+// Route 0, CUDA cores (fp32: the fp32 models and the identity checks):
 // - one thread block per (query tile, KV head, row): grid (tiles, Nkv, B).
 //   The query tile holds span_tile positions x the GQA group, so each K/V
 //   tile staged in shared memory serves the whole group — KV bytes are
@@ -69,7 +69,51 @@
 //   a dense one. The query tiles with the most keys are launched first, so
 //   the short ones fill the tail of the grid.
 //
-// int8-KV mode, on both routes (kv_dtype 1; Pallas quantized=True,
+// Route 2, split-KV tensor cores (bf16 tiles of fewer than 16 rows: decode
+// rows, and spans of 2-3 at Mistral's group of 4). It replaced route 0 for
+// these rows, which left half the card idle (a block per (row, KV head):
+// 64 blocks at 8 rows x 8 KV heads on 132 SMs, the longest row setting the
+// time), dotted fp32 rows served from shared memory (128 serial fmaf a
+// score), loaded K/V synchronously behind four barriers a 32-key tile, and
+// over an int8 pool fetched each key's scales through the block table in
+// device memory. A decode row reads each live K/V byte once and does 4
+// flops per byte pair, so its bound is the KV bytes over 3.35 TB/s; the
+// design aims there:
+// - the grid is (splits, Nkv, B): each split owns a fixed range of
+//   split_keys keys (whole pages, a multiple of 64). The wrapper's plan
+//   (ops/paged_attention.py split_plan) comes from shapes the host knows
+//   (max_blocks x block_size, B, Nkv, the SM count) and never from
+//   context_lens, so a launch syncs nothing and can be captured in a CUDA
+//   graph: about two blocks per SM when every row is full, at least 128
+//   keys a split. A block whose split holds none of its row's [lo, hi)
+//   exits at once (a split wholly below the window or past the context).
+// - the tile's rows (at most 15) are padded with zero rows to mma's m16
+//   operand: Q K^T and P V run as bf16 mma.m16n8k16 with fp32
+//   accumulators, as on route 1, P's A fragments straight from S's
+//   accumulators. The padding wastes tensor-core work, not bytes, and the
+//   route is bound by bytes: swapping the operands (keys as M) would need
+//   a shuffle of P between the two products for nothing.
+// - each of the block's four warps takes 16 keys of every 64-key step of
+//   the split through a cp.async ring of its own, three deep, so it
+//   stages, waits and computes with no block barrier in the key loop; the
+//   split's pages of the block table are copied to shared memory once.
+//   Keys outside [lo, hi) and the split are zero-filled by the copy,
+//   never read, and masked key by key (causal, window, q_lens).
+// - each warp keeps its own online m, l and acc in registers; p is
+//   rounded to bf16 unnormalised, relative to the warp's running max, as
+//   the TPU kernel rounds it; l sums the unrounded p. At the end of the
+//   split the warps merge in warp order through shared memory (fp32).
+// - a row with one live split is written by that block. Otherwise each
+//   split writes its fp32 (m, l, acc[Hd]) of every row to a workspace,
+//   fences, and takes an atomic ticket of its (row, KV head); the last to
+//   arrive merges the partials in split order (exp2(m_s - M) rescales,
+//   fp32 sums), which makes the result bitwise reproducible from launch to
+//   launch, writes the rows and sets the ticket back to 0. One launch, no
+//   memset, no floating-point atomics. A split with no live key for a row
+//   has m = -inf and l = 0; the merge rebases on 0 when every m is -inf,
+//   so rows that see no key come out as exact zeros, as on routes 0 and 1.
+//
+// int8-KV mode, on every route (kv_dtype 1; Pallas quantized=True,
 // :585-602, :614-626, :638-653): the pool holds int8 codes and a
 // per-page, per-KV-head fp32 scale ([num_blocks, Nkv], one layer's
 // slice). The codes are widened exactly (|c| <= 127 fits bf16's
@@ -81,7 +125,10 @@
 //   P V over the dequantized values.
 // A key outside [lo, hi) reads neither its codes nor its scale: both
 // stage as zeros, so a NaN in the trash block's data or scale cannot
-// reach an output. Route 0 widens 16 codes per 16-byte load to fp32 and
+// reach an output. Route 2 stages each warp's codes and per-key scales by
+// cp.async (4 bytes a scale, zero-filled when dead) and widens the codes
+// to bf16 in the warp's own tile, behind a warp barrier. Route 0 widens
+// 16 codes per 16-byte load to fp32 and
 // stages each tile's 32 scales per key in shared memory. Route 1 stages
 // the int8 tile with cp.async into a ring of two (half the bytes of a
 // bf16 tile: a 128-wide row is 8 chunks of 16 bytes, not 16), its per-key
@@ -95,6 +142,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "mma_tiles.cuh"
@@ -113,7 +161,7 @@ struct Params {
   const int* block_tables;    // [B, max_blocks]
   const int* context_lens;    // [B]
   const int* q_start;         // [B] absolute position of the row's query 0
-  const int* q_lens;          // [B] valid queries per row
+  const int* q_lens;          // [B] valid queries per row; null = span each
   void* out;                  // [B, S, Nh, Hd]
   int span;
   int num_heads;
@@ -124,6 +172,17 @@ struct Params {
   int window;
   float scale;
   float softcap;              // <= 0 = off
+};
+
+// Route 2's own arguments, a second kernel parameter. Params keeps its
+// layout: with these four fields in it, routes 0 and 1 compiled otherwise
+// and route 1's prefill pair took 0.150 ms against 0.109
+// (scripts/profile_torch_kernels_ab.py on an H100; PERF.md).
+struct SplitArgs {
+  float* workspace;  // the splits' partials (acc, then m and l)
+  int* tickets;      // [B * Nkv] arrivals of each (row, KV head), left at 0
+  int num_splits;    // key splits per row
+  int split_keys;    // keys per split (whole pages, a multiple of 64)
 };
 
 template <typename T>
@@ -240,7 +299,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int ctx = p.context_lens[b];
   const int q0 = p.q_start[b];
-  const int q_len = p.q_lens[b];
+  const int q_len = p.q_lens != nullptr ? p.q_lens[b] : p.span;
   const int win = p.window;
   const int span_off = qt * p.span_tile;
 
@@ -471,7 +530,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int ctx = p.context_lens[b];
   const int q0 = p.q_start[b];
-  const int q_len = p.q_lens[b];
+  const int q_len = p.q_lens != nullptr ? p.q_lens[b] : p.span;
   const int win = p.window;
 
   // Stage the query tile (rows past the tile or the span are zeros).
@@ -751,6 +810,447 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------ route 2, split-KV decode rows
+constexpr int kSplitWarps = kThreads / 32;
+constexpr int kWarpKeys = 16;                          // keys a warp takes of a step
+constexpr int kStepKeys = kSplitWarps * kWarpKeys;     // keys a block takes a step
+constexpr int kSplitStages = 3;                        // each warp's cp.async ring
+constexpr int kMmaRows = 16;                           // the m16 operand's rows
+
+// Shared memory of route 2: the query tile, the split's pages of the block
+// table, then one region that holds each warp's ring during the key loop
+// and the merge's scratch after it.
+__host__ __device__ constexpr size_t split_q_bytes(int head_dim) {
+  return sizeof(__nv_bfloat16) * kMmaRows * size_t(head_dim + 8);
+}
+
+__host__ __device__ constexpr size_t split_region_offset(int head_dim, int split_keys,
+                                                         int block_size) {
+  return (split_q_bytes(head_dim) + sizeof(int) * size_t(split_keys / block_size + 1) + 15) /
+         16 * 16;
+}
+
+// One warp's share of the region during the key loop. bf16 pool: a ring of
+// K and V rows (padded by 16 bytes for ldmatrix). int8 pool: a ring of K
+// and V codes with their per-key scales, and one bf16 K and V tile the
+// codes are widened into.
+__host__ __device__ constexpr size_t split_warp_bytes(int head_dim, bool int8_kv) {
+  return int8_kv ? kSplitStages * kWarpKeys * 2 * (head_dim + sizeof(float)) +
+                       kWarpKeys * 2 * sizeof(__nv_bfloat16) * size_t(head_dim + 8)
+                 : kSplitStages * kWarpKeys * 2 * sizeof(__nv_bfloat16) * size_t(head_dim + 8);
+}
+
+size_t split_smem_bytes(int head_dim, int split_keys, int block_size, int num_splits,
+                        bool int8_kv) {
+  const size_t rings = kSplitWarps * split_warp_bytes(head_dim, int8_kv);
+  // After the key loop: each warp's (m, l, acc) of its 16 rows; then the
+  // cross-split merge's m (then weights) and l of each (row, split).
+  const size_t warps = sizeof(float) * kSplitWarps * kMmaRows * size_t(head_dim + 2);
+  const size_t splits = sizeof(float) * kMmaRows * (2 * size_t(num_splits) + 1);
+  return split_region_offset(head_dim, split_keys, block_size) +
+         std::max(rings, std::max(warps, splits));
+}
+
+template <int HD, bool kInt8>
+__global__ void __launch_bounds__(kThreads)
+    ragged_paged_attention_split_kernel(const Params p, const SplitArgs sa) {
+  using namespace mma_tiles;
+  using bf16 = __nv_bfloat16;
+  using KV = typename std::conditional<kInt8, int8_t, bf16>::type;
+  constexpr int kStride = HD + 8;                      // staged bf16 row, elements
+  constexpr int kSteps = HD / 16;                      // k-steps of Q K^T
+  constexpr int kOut = HD / 8;                         // 8-column tiles of P V
+  constexpr int kRingRow = kInt8 ? HD : kStride;       // staged pool row, elements
+  constexpr int kRing = kSplitStages * kWarpKeys * kRingRow;  // one pool's ring
+  constexpr int kElemsPerChunk = 16 / sizeof(KV);
+  constexpr int kKvChunks = HD / kElemsPerChunk;       // 16-byte chunks of a pool row
+  constexpr int kKeyStride = 32 / kKvChunks;           // keys one pass of the lanes copies
+  constexpr int kPerLane = kWarpKeys / kKeyStride;
+
+  const int split = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;  // accumulator rows g and g + 8
+  const int t = lane % 4;  // accumulator columns 2t, 2t + 1 of each 8
+  const int group = p.num_heads / p.num_kv_heads;
+  const int rows = p.span * group;  // row r: span r / group, head r % group
+
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const KV* k_cache = static_cast<const KV*>(p.k_cache);
+  const KV* v_cache = static_cast<const KV*>(p.v_cache);
+  bf16* out = static_cast<bf16*>(p.out);
+  auto row_offset = [&](int r) {
+    return ((size_t(b) * p.span + r / group) * p.num_heads + h * group + r % group) * HD;
+  };
+
+  const int ctx = p.context_lens[b];
+  const int q0 = p.q_start[b];
+  const int q_len = p.q_lens != nullptr ? p.q_lens[b] : p.span;
+  const int win = p.window;
+  // The row's live keys [lo, hi), as on the other routes: the window floor
+  // of its first query, the causal ceiling of its last valid one.
+  const int lo = win > 0 ? max(q0 - win + 1, 0) : 0;
+  const int hi = min(min(ctx, q0 + min(q_len, p.span)), p.max_blocks * p.block_size);
+  if (q_len <= 0 || hi <= lo) {
+    // No live key: split 0 writes the rows' exact zeros.
+    if (split == 0) {
+      for (int i = tid; i < rows * (HD / 8); i += kThreads) {
+        *reinterpret_cast<uint4*>(out + row_offset(i / (HD / 8)) + (i % (HD / 8)) * 8) =
+            make_uint4(0, 0, 0, 0);
+      }
+    }
+    return;
+  }
+  // The splits that hold live keys; the others have nothing to do.
+  const int first = lo / sa.split_keys;
+  const int last = (hi - 1) / sa.split_keys;
+  if (split < first || split > last) return;
+  const int k_begin = max(lo, split * sa.split_keys);
+  const int k_end = min(hi, (split + 1) * sa.split_keys);
+  const int base = k_begin / kStepKeys * kStepKeys;  // steps start on 64-key lines
+  const int n_steps = (k_end - base + kStepKeys - 1) / kStepKeys;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][kStride]
+  int* s_bt = reinterpret_cast<int*>(smem_raw + split_q_bytes(HD));
+  unsigned char* region = smem_raw + split_region_offset(HD, sa.split_keys, p.block_size);
+  unsigned char* mine = region + warp * split_warp_bytes(HD, kInt8);
+  KV* r_k = reinterpret_cast<KV*>(mine);  // [kSplitStages][kWarpKeys][kRingRow]
+  KV* r_v = r_k + kRing;
+  float* r_ks = reinterpret_cast<float*>(r_v + kRing);  // int8: [kSplitStages][kWarpKeys]
+  float* r_vs = r_ks + kSplitStages * kWarpKeys;
+  bf16* w_k = reinterpret_cast<bf16*>(r_vs + kSplitStages * kWarpKeys);  // [kWarpKeys][kStride]
+  bf16* w_v = w_k + kWarpKeys * kStride;
+
+  // The query tile, padded with zero rows to the m16 operand, and the pages
+  // of the block's keys from the row's block table, so that staging a key
+  // waits on no load from device memory.
+  for (int i = tid; i < kMmaRows * (HD / 8); i += kThreads) {
+    const int r = i / (HD / 8);
+    const int c = (i % (HD / 8)) * 8;
+    const bool live = r < rows;
+    cp_async16(s_q + r * kStride + c, q + (live ? row_offset(r) + c : 0), live);
+  }
+  cp_async_commit();
+  const int page0 = base / p.block_size;
+  for (int page = page0 + tid; page <= (k_end - 1) / p.block_size; page += kThreads) {
+    s_bt[page - page0] = p.block_tables[size_t(b) * p.max_blocks + page];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[kSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    ldmatrix_x4(qf[kk], s_q + (lane & 15) * kStride + 16 * kk + (lane >> 4) * 8);
+  }
+
+  // Warp w takes keys 16w .. 16w + 15 of every 64-key step, through a ring
+  // of its own: it stages, waits and computes with no block barrier. Each
+  // lane copies one 16-byte column c of every kKeyStride-th key of the
+  // warp's 16. A key outside [k_begin, k_end) reads nothing: the copy
+  // zero-fills it (and its int8 scales), and the mask drops it.
+  const bool pow2 = (p.block_size & (p.block_size - 1)) == 0;
+  const int log2_bs = __ffs(p.block_size) - 1;
+  auto page_of = [&](int key) { return pow2 ? key >> log2_bs : key / p.block_size; };
+  const size_t page_elems = size_t(p.block_size) * p.num_kv_heads * HD;
+  const int slot_elems = p.num_kv_heads * HD;
+  const int j0 = lane / kKvChunks;
+  const int c = (lane % kKvChunks) * kElemsPerChunk;
+  auto slice_key0 = [&](int step) { return base + step * kStepKeys + warp * kWarpKeys; };
+  auto slice_live = [&](int key0) { return key0 < k_end && key0 + kWarpKeys > k_begin; };
+  auto stage = [&](int step) {
+    const int key0 = slice_key0(step);
+    if (!slice_live(key0)) return;
+    const int buf = step % kSplitStages;
+#pragma unroll
+    for (int it = 0; it < kPerLane; ++it) {
+      const int j = j0 + it * kKeyStride;
+      const int key = key0 + j;
+      const bool live = key >= k_begin && key < k_end;
+      size_t off = 0;
+      if (live) {
+        const int page = page_of(key);
+        off = size_t(s_bt[page - page0]) * page_elems + (key - page * p.block_size) * slot_elems +
+              h * HD + c;
+      }
+      cp_async16(r_k + (buf * kWarpKeys + j) * kRingRow + c, k_cache + off, live);
+      cp_async16(r_v + (buf * kWarpKeys + j) * kRingRow + c, v_cache + off, live);
+    }
+    if constexpr (kInt8) {
+      // Lane j < 16 copies key j's K scale, lane 16 + j its V scale.
+      const int j = lane % kWarpKeys;
+      const int key = key0 + j;
+      const bool live = key >= k_begin && key < k_end;
+      const size_t idx = live ? size_t(s_bt[page_of(key) - page0]) * p.num_kv_heads + h : 0;
+      cp_async4((lane < kWarpKeys ? r_ks : r_vs) + buf * kWarpKeys + j,
+                (lane < kWarpKeys ? p.k_scale : p.v_scale) + idx, live);
+    }
+  };
+
+  // This lane's two rows of the padded tile: g and g + 8.
+  int qpos[2];
+  bool row_live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+    row_live[i] = r < rows && r / group < q_len;
+    qpos[i] = q0 + r / group;
+  }
+  const float scale_log2 = p.scale * kLog2e;
+  float o[kOut][4];
+#pragma unroll
+  for (int n = 0; n < kOut; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's share of each row's sum
+
+#pragma unroll
+  for (int st = 0; st < kSplitStages - 1; ++st) {
+    if (st < n_steps) stage(st);
+    cp_async_commit();
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    // This lane's copies of the step have landed; after the warp's barrier
+    // every lane's have, and the buffer staged next was last read a step
+    // ago.
+    cp_async_wait<kSplitStages - 2>();
+    __syncwarp();
+    if (step + kSplitStages - 1 < n_steps) stage(step + kSplitStages - 1);
+    cp_async_commit();
+    const int key0 = slice_key0(step);
+    if (!slice_live(key0)) continue;
+    const int buf = step % kSplitStages;
+    const bf16* kt;
+    const bf16* vt;
+    if constexpr (kInt8) {
+      // Widen the step's codes to bf16, exactly, into the warp's tile.
+      for (int i = lane; i < kWarpKeys * (HD / 16); i += 32) {
+        const int j = i / (HD / 16);
+        const int col = (i % (HD / 16)) * 16;
+        widen16(w_k + j * kStride + col, r_k + (buf * kWarpKeys + j) * HD + col);
+        widen16(w_v + j * kStride + col, r_v + (buf * kWarpKeys + j) * HD + col);
+      }
+      __syncwarp();
+      kt = w_k;
+      vt = w_v;
+    } else {
+      kt = r_k + buf * kWarpKeys * kStride;
+      vt = r_v + buf * kWarpKeys * kStride;
+    }
+    // S = Q K^T over the warp's 16 keys: two 8-key accumulator tiles.
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, kt + ((lane & 7) + ((lane >> 4) << 3)) * kStride + 16 * kk +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16_16816(s[0], qf[kk], kb[0], kb[1]);
+      mma_bf16_16816(s[1], qf[kk], kb[2], kb[3]);
+    }
+    // Scale, softcap and mask in fp32, as log2-scaled scores, in route 1's
+    // order (int8: K's scale of the key's page on the score, before the
+    // softcap).
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int jj = 8 * j + 2 * t + (e & 1);
+        const int key = key0 + jj;
+        const float raw = kInt8 ? s[j][e] * p.scale * r_ks[buf * kWarpKeys + jj] : s[j][e];
+        float x;
+        if (p.softcap > 0.f) {
+          x = tanhf((kInt8 ? raw : raw * p.scale) / p.softcap) * (p.softcap * kLog2e);
+        } else {
+          x = kInt8 ? raw * kLog2e : raw * scale_log2;
+        }
+        const bool valid = row_live[i] && key >= k_begin && key < k_end && key <= qpos[i] &&
+                           (win <= 0 || key > qpos[i] - win);
+        s[j][e] = valid ? x : -INFINITY;
+      }
+    }
+    // Online softmax over the warp's keys. A row with no live key yet
+    // rebases on 0, so its l and acc stay exactly 0.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mx = fmaxf(fmaxf(s[0][2 * i], s[0][2 * i + 1]),
+                             fmaxf(s[1][2 * i], s[1][2 * i + 1]));
+      const float m_new = fmaxf(m[i], quad_max(mx));
+      const float rebase = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2_approx(m[i] - rebase);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[j][2 * i] = exp2_approx(s[j][2 * i] - rebase);
+        s[j][2 * i + 1] = exp2_approx(s[j][2 * i + 1] - rebase);
+        sum += s[j][2 * i] + s[j][2 * i + 1];
+      }
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < kOut; ++n) {
+        o[n][2 * i] *= alpha;
+        o[n][2 * i + 1] *= alpha;
+      }
+    }
+    // int8: l summed the unscaled p; P V takes p * V's page scale, before
+    // p is rounded to bf16.
+    if constexpr (kInt8) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= r_vs[buf * kWarpKeys + 8 * j + 2 * t + (e & 1)];
+      }
+    }
+    // O += P V: the unnormalised p, rounded to bf16, is the A fragment of
+    // one 16-key k-step; V by ldmatrix.trans, two 8-column tiles each.
+    const uint32_t a[4] = {
+        pack_bf16(s[0][0], s[0][1]),
+        pack_bf16(s[0][2], s[0][3]),
+        pack_bf16(s[1][0], s[1][1]),
+        pack_bf16(s[1][2], s[1][3]),
+    };
+#pragma unroll
+    for (int nn = 0; nn < kOut / 2; ++nn) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride + 16 * nn +
+                                (lane >> 4) * 8);
+      mma_bf16_16816(o[2 * nn], a, vb[0], vb[1]);
+      mma_bf16_16816(o[2 * nn + 1], a, vb[2], vb[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every ring is drained: the region is the merge's now
+
+  // The block's warps merge in warp order, through shared memory.
+  float* w_o = reinterpret_cast<float*>(region);  // [kSplitWarps][kMmaRows][HD]
+  float* w_m = w_o + kSplitWarps * kMmaRows * HD;  // [kSplitWarps][kMmaRows]
+  float* w_l = w_m + kSplitWarps * kMmaRows;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+    const float total = quad_sum(l[i]);
+    if (t == 0) {
+      w_m[warp * kMmaRows + r] = m[i];
+      w_l[warp * kMmaRows + r] = total;
+    }
+#pragma unroll
+    for (int n = 0; n < kOut; ++n) {
+      *reinterpret_cast<float2*>(w_o + (warp * kMmaRows + r) * HD + 8 * n + 2 * t) =
+          make_float2(o[n][2 * i], o[n][2 * i + 1]);
+    }
+  }
+  __syncthreads();
+  // With one live split the block writes the rows; else its partial (each
+  // row's m, l and acc, fp32) goes to the workspace.
+  const bool alone = first == last;
+  const size_t part0 = (size_t(b) * p.num_kv_heads + h) * sa.num_splits;  // (row, head)'s split 0
+  float* ws_acc = sa.workspace;  // [B][Nkv][num_splits][rows][HD]
+  float2* ws_ml = reinterpret_cast<float2*>(  // [B][Nkv][num_splits][rows]
+      sa.workspace + size_t(gridDim.z) * p.num_kv_heads * sa.num_splits * rows * HD);
+  for (int i = tid; i < rows * (HD / 2); i += kThreads) {
+    const int r = i / (HD / 2);
+    const int d = (i % (HD / 2)) * 2;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) mx = fmaxf(mx, w_m[w * kMmaRows + r]);
+    const float rebase = mx == -INFINITY ? 0.f : mx;
+    float total = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float wt = exp2_approx(w_m[w * kMmaRows + r] - rebase);
+      const float2 acc = *reinterpret_cast<const float2*>(w_o + (w * kMmaRows + r) * HD + d);
+      total += wt * w_l[w * kMmaRows + r];
+      a0 += wt * acc.x;
+      a1 += wt * acc.y;
+    }
+    if (alone) {
+      const float inv = 1.f / fmaxf(total, 1e-9f);
+      *reinterpret_cast<__nv_bfloat162*>(out + row_offset(r) + d) =
+          __floats2bfloat162_rn(a0 * inv, a1 * inv);
+    } else {
+      const size_t rec = (part0 + split) * rows + r;
+      *reinterpret_cast<float2*>(ws_acc + rec * HD + d) = make_float2(a0, a1);
+      if (d == 0) ws_ml[rec] = make_float2(mx, total);
+    }
+  }
+  if (alone) return;
+
+  // The last of the row's live splits to finish (an atomic ticket, taken
+  // after each block's writes are fenced) merges the partials in split
+  // order, the same order every launch, so the result is bitwise
+  // reproducible; it puts the ticket back to 0 for the next launch.
+  // (The flag lives in the query tile, read last before the key loop: a
+  // static __shared__ would not fit beside a launch that opts in to the
+  // whole dynamic limit.)
+  int* s_merges = reinterpret_cast<int*>(s_q);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(sa.tickets + size_t(b) * p.num_kv_heads + h, 1);
+    *s_merges = ticket == last - first;
+  }
+  __syncthreads();
+  if (!*s_merges) return;
+  __threadfence();
+  const int n_live = last - first + 1;
+  float* x_m = reinterpret_cast<float*>(region);  // [rows][n_live]: m, then weights
+  float* x_l = x_m + rows * n_live;               // [rows][n_live]
+  float* x_inv = x_l + rows * n_live;             // [rows]
+  for (int i = tid; i < rows * n_live; i += kThreads) {
+    const int r = i / n_live;
+    const float2 ml = __ldcg(ws_ml + (part0 + first + i % n_live) * rows + r);
+    x_m[i] = ml.x;
+    x_l[i] = ml.y;
+  }
+  __syncthreads();
+  for (int r = tid; r < rows; r += kThreads) {
+    float mx = -INFINITY;
+    for (int sp = 0; sp < n_live; ++sp) mx = fmaxf(mx, x_m[r * n_live + sp]);
+    const float rebase = mx == -INFINITY ? 0.f : mx;
+    float total = 0.f;
+    for (int sp = 0; sp < n_live; ++sp) {
+      const float wt = exp2_approx(x_m[r * n_live + sp] - rebase);
+      x_m[r * n_live + sp] = wt;
+      total += wt * x_l[r * n_live + sp];
+    }
+    x_inv[r] = 1.f / fmaxf(total, 1e-9f);
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * (HD / 2); i += kThreads) {
+    const int r = i / (HD / 2);
+    const int d = (i % (HD / 2)) * 2;
+    float a0 = 0.f, a1 = 0.f;
+    for (int sp = 0; sp < n_live; ++sp) {
+      const float wt = x_m[r * n_live + sp];
+      const float2 acc = __ldcg(
+          reinterpret_cast<const float2*>(ws_acc + ((part0 + first + sp) * rows + r) * HD + d));
+      a0 += wt * acc.x;
+      a1 += wt * acc.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + row_offset(r) + d) =
+        __floats2bfloat162_rn(a0 * x_inv[r], a1 * x_inv[r]);
+  }
+  if (tid == 0) sa.tickets[size_t(b) * p.num_kv_heads + h] = 0;
+}
+
+template <int HD, bool kInt8>
+cudaError_t launch_split(const Params& p, const SplitArgs& sa, int batch, cudaStream_t stream) {
+  const size_t smem = split_smem_bytes(HD, sa.split_keys, p.block_size, sa.num_splits, kInt8);
+  auto kernel = ragged_paged_attention_split_kernel<HD, kInt8>;
+  static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
+  cudaError_t err = mma_tiles::opt_in_shared_memory(
+      reinterpret_cast<const void*>(kernel), smem, opted_in);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(sa.num_splits, p.num_kv_heads, batch);
+  kernel<<<grid, kThreads, smem, stream>>>(p, sa);
+  return cudaGetLastError();
+}
+
 template <typename T, typename KV, int HD>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   const int group = p.num_heads / p.num_kv_heads;
@@ -787,9 +1287,16 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (queries and output share it). kv_dtype:
 // 0 = the pool holds q's dtype (k_scale / v_scale unused), 1 = int8 codes
-// with fp32 scales k_scale / v_scale [num_blocks, Nkv]. route: 0 = CUDA
-// cores (any dtype and tile), 1 = tensor cores (bf16, span_tile x group of
-// 16..64 rows). Returns a cudaError_t: 0 on a successful launch,
+// with fp32 scales k_scale / v_scale [num_blocks, Nkv]. q_lens may be null:
+// every row then has `span` queries. route: 0 = CUDA cores (any dtype and
+// tile), 1 = tensor cores (bf16, span_tile x group of 16..64 rows), 2 =
+// split-KV tensor cores (bf16, one query tile of span x group < 16 rows,
+// head dim 64 or 128; `num_splits` splits of `split_keys` keys, a multiple
+// of 64 and of the block size, covering max_blocks x block_size keys;
+// `workspace` holds batch x Nkv x num_splits x rows x (head_dim + 2) fp32,
+// `tickets` batch x Nkv int32 zeros, which the launch leaves at zero;
+// launches that share the tickets must run in stream order). Routes 0 and
+// 1 ignore the last four. Returns a cudaError_t: 0 on a successful launch,
 // cudaErrorInvalidValue for arguments the route does not take. The launch
 // is asynchronous on `stream`; nothing is allocated and nothing
 // synchronises.
@@ -800,7 +1307,8 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
                        int batch, int span, int num_heads, int num_kv_heads,
                        int head_dim, int block_size, int max_blocks,
                        int span_tile, int window, float scale, float softcap,
-                       int dtype, int kv_dtype, int route, void* stream) {
+                       int dtype, int kv_dtype, int route, void* workspace,
+                       void* tickets, int num_splits, int split_keys, void* stream) {
   if (batch < 1 || batch > 65535 || span < 1 || num_kv_heads < 1 ||
       num_kv_heads > 65535 || num_heads % num_kv_heads != 0 ||
       block_size < 1 || max_blocks < 1 || span_tile < 1 ||
@@ -831,6 +1339,26 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
   p.softcap = softcap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  if (route == 2) {
+    const int rows = span_tile * (num_heads / num_kv_heads);
+    if (dtype != 1 || rows >= kMmaRows || span_tile != span || workspace == nullptr ||
+        tickets == nullptr || num_splits < 1 || split_keys < kStepKeys ||
+        split_keys % kStepKeys != 0 || split_keys % block_size != 0 ||
+        int64_t(num_splits) * split_keys < int64_t(max_blocks) * block_size) {
+      return int(err);
+    }
+    const SplitArgs sa{static_cast<float*>(workspace), static_cast<int*>(tickets), num_splits,
+                       split_keys};
+    if (head_dim == 64) {
+      err = int8_kv ? launch_split<64, true>(p, sa, batch, s)
+                    : launch_split<64, false>(p, sa, batch, s);
+    }
+    if (head_dim == 128) {
+      err = int8_kv ? launch_split<128, true>(p, sa, batch, s)
+                    : launch_split<128, false>(p, sa, batch, s);
+    }
+    return int(err);
+  }
   if (route == 1) {
     const int rows = span_tile * (num_heads / num_kv_heads);
     if (dtype != 1 || rows < 16 || rows > kTcRows) return int(err);

@@ -17,12 +17,14 @@ case), and one op serves them:
 - the CUDA kernel ``csrc/ragged_paged_attention.cu`` — the hand-written
   Hopper twin of ``ragged_paged_attention_pallas``: online fp32 softmax,
   K/V staged once per query tile for the whole GQA group, no score tensor
-  in device memory. It has two routes (:func:`kernel_route`):
+  in device memory. It has three routes (:func:`kernel_route`):
   ``'tensor_cores'`` for bf16 query tiles of 16 or more rows (span
   positions x GQA group: prefill and chunk spans) — Q·Kᵀ and P·V as bf16
   ``mma.sync`` with fp32 accumulators, p rounded to bf16 before P·V as
-  the TPU kernel rounds it — and ``'cuda_cores'`` for fp32 and for bf16
-  tiles of fewer rows (decode rows at Mistral's group of 4), fp32
+  the TPU kernel rounds it; ``'split_kv'`` for bf16 tiles of fewer rows
+  (decode rows at Mistral's group of 4) — the same products with each
+  row's keys split across thread blocks (:func:`split_plan`) and the
+  splits merged in one launch; and ``'cuda_cores'`` for fp32, fp32
   products on the CUDA cores.
 - :func:`ragged_paged_attention` — the dispatch. A tensor on the CPU goes
   to the plain version; a CUDA tensor launches the kernel or raises. It
@@ -40,12 +42,14 @@ grows; :func:`write_chunk_kv` quantizes a span at its blocks' final
 scales) with the JAX package's arithmetic step for step, so the codes
 and scales are bitwise the JAX ones. The plain version dequantizes as it
 gathers; the kernel folds K's scale into the fp32 score and V's into p,
-on both routes (its int8-KV mode, ``launches_by_kv['int8']``).
+on every route (its int8-KV mode, ``launches_by_kv['int8']``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -54,11 +58,19 @@ from distllm_tpu_torch.ops import _build
 
 # Query rows (span positions x GQA group) one thread block holds.
 _MAX_TILE_ROWS = 64
-# The tensor-core route takes bf16 tiles of at least one mma's 16 rows.
+# The tensor-core route takes bf16 tiles of at least one mma's 16 rows;
+# the split-KV route takes the bf16 tiles of fewer.
 _MIN_MMA_ROWS = 16
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {'cuda_cores': 0, 'tensor_cores': 1}
+ROUTES = {'cuda_cores': 0, 'tensor_cores': 1, 'split_kv': 2}
+# The split-KV route's plan: a block takes its split in steps of 64 keys
+# (four warps of 16), a split holds at least SPLIT_MIN_KEYS keys when the
+# row has that many, and the grid aims at SPLIT_BLOCKS_PER_SM blocks per
+# SM (two fit an SM's shared memory) when every row is full.
+SPLIT_STEP_KEYS = 64
+SPLIT_MIN_KEYS = 128
+SPLIT_BLOCKS_PER_SM = 2
 # The pool's storage: q's dtype ('model') or int8 codes with scales.
 KV_MODES = {'model': 0, 'int8': 1}
 
@@ -233,6 +245,7 @@ ragged_paged_attention_reference.launches = 0
 # The kernel against the plain version on valid rows, elementwise:
 #   |out - ref| <= REL * |ref| + ABS                       bf16, cuda_cores
 #   |out - ref| <= REL * |ref| + P_REL * (P @ |V|) + ABS   bf16, tensor_cores
+#                                                          and split_kv
 #   |out - ref| <= ABS                                     fp32
 # with P the plain version's normalised fp32 softmax of the query and |V|
 # the magnitudes of the values it weighs. On the CUDA cores both sides
@@ -247,11 +260,20 @@ ragged_paged_attention_reference.launches = 0
 # 2**-15 * (P @ |V|), is 1/128 of the p term, which itself assumes every
 # p_j rounds by a full half step in one direction (the running maximum's
 # p_j = exp(0) = 1 does not round at all). ABS covers fp32 summation-order
-# noise at outputs near zero. Stated worst ratios: tests/
-# test_torch_paged_attention.py (CPU emulation of the route's order) and
-# chip_smoke.py phase 3 (the kernel on the card).
+# noise at outputs near zero. The split-KV route holds the same bound: each
+# p_j is still rounded to bf16 exactly once, unnormalised, relative to the
+# running maximum of the warp and split that hold key j — a relative error
+# of at most 2**-8 of that p_j, whatever maximum it was taken against —
+# and l sums the unrounded p. The merge of the warps and then of the
+# splits multiplies each partial (l_s, acc_s) by exp(m_s - M) and adds them
+# in fp32: a few more fp32 roundings of each term, relative error ~2**-22,
+# inside the summation noise that ABS and the final rounding already cover.
+# So the normalised result moves by at most 2**-8 * (P @ |V|) before the
+# final rounding, as on the tensor-core route. Stated worst ratios: tests/
+# test_torch_paged_attention.py (CPU emulation of each tensor-core route's
+# order) and chip_smoke.py phases 3 and 3b (the kernel on the card).
 #
-# An int8 pool adds one term on either route. The plain version
+# An int8 pool adds one term on every route. The plain version
 # dequantizes first (k = c * k_scale, one fp32 rounding per element) and
 # then sums q . k; the kernel sums q . c (codes widened exactly: |c| <=
 # 127 fits fp32 and bf16) and multiplies by scale and k_scale after. Each
@@ -267,8 +289,9 @@ ragged_paged_attention_reference.launches = 0
 # within the same Hd * 2**-24 per score). V's scale needs no term of its
 # own: on the CUDA cores p * v_scale is one more fp32 rounding of each
 # weight, inside the summation noise ABS covers; on the tensor cores the
-# bf16 rounding of p_j * v_scale_j is the rounding of p_j above, so the
-# P_REL term holds with |V| the dequantized values. Stated worst ratios:
+# bf16 rounding of p_j * v_scale_j is the rounding of p_j above (on both
+# tensor-core routes), so the P_REL term holds with |V| the dequantized
+# values. Stated worst ratios:
 # tests/test_torch_kv_quant.py (CPU emulation of each route's order, and
 # the faults it must catch) and chip_smoke.py phase 3b (the kernel).
 TOL_REL, TOL_P_REL, TOL_ABS = 2.0 ** -7, 2.0 ** -8, 1e-5
@@ -277,13 +300,59 @@ TOL_INT8_ORDER = 2.0 ** -24
 
 def kernel_route(dtype: torch.dtype, span: int, group: int) -> str:
     """The route the kernel takes for queries of ``dtype`` with ``span``
-    positions per row and GQA ``group``: ``'tensor_cores'`` for bf16 tiles
-    of ``_MIN_MMA_ROWS``..``_MAX_TILE_ROWS`` rows, else ``'cuda_cores'``
-    (fp32, and bf16 decode rows whose group gives fewer than 16 rows)."""
+    positions per row and GQA ``group``: for bf16, ``'split_kv'`` for tiles
+    of 1..15 rows (decode rows, and spans of 2-3 at a group of 4) and
+    ``'tensor_cores'`` for tiles of ``_MIN_MMA_ROWS``..``_MAX_TILE_ROWS``
+    rows; ``'cuda_cores'`` for fp32 (and for a group above 64)."""
     rows = _span_tile(span, group) * group
-    if dtype == torch.bfloat16 and _MIN_MMA_ROWS <= rows <= _MAX_TILE_ROWS:
+    if dtype == torch.bfloat16 and rows < _MIN_MMA_ROWS:
+        return 'split_kv'
+    if dtype == torch.bfloat16 and rows <= _MAX_TILE_ROWS:
         return 'tensor_cores'
     return 'cuda_cores'
+
+
+def split_plan(
+    max_keys: int, batch: int, num_kv_heads: int, sms: int, block_size: int = 16,
+) -> tuple[int, int]:
+    """The split-KV route's ``(num_splits, split_keys)`` for rows of at
+    most ``max_keys`` keys (``max_blocks * block_size``), from shapes the
+    host knows, never from ``context_lens`` (a launch reads nothing back):
+
+    - ``split_keys`` is a whole number of pages and of 64-key steps (a
+      multiple of ``lcm(64, block_size)``) and at least ``SPLIT_MIN_KEYS``
+      unless one split covers every key;
+    - the splits tile ``[0, max_keys)`` exactly once: ``(num_splits - 1) *
+      split_keys < max_keys <= num_splits * split_keys``;
+    - ``1 <= num_splits <= ceil(SPLIT_BLOCKS_PER_SM * sms / (batch *
+      num_kv_heads))``: the grid (splits, Nkv, B) fills the card about
+      twice over when every row is full, and no more.
+    """
+    unit = math.lcm(SPLIT_STEP_KEYS, block_size)
+    target = -(-SPLIT_BLOCKS_PER_SM * sms // (batch * num_kv_heads))
+    splits = max(1, min(target, max_keys // SPLIT_MIN_KEYS))
+    split_keys = -(-max_keys // splits // unit) * unit  # ceil(ceil(max_keys / splits) / unit)
+    return -(-max_keys // split_keys), split_keys
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# The split-KV route's tickets: int32 zeros per device, which every launch
+# leaves at zero. Launches on one device share them, so they must run in
+# stream order (one stream, or a CUDA graph replayed on it): two launches
+# in flight at once on two streams would mix their tickets.
+_split_tickets: dict[int, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, count: int) -> torch.Tensor:
+    tickets = _split_tickets.get(device.index)
+    if tickets is None or tickets.numel() < count:
+        tickets = torch.zeros(max(count, 256), dtype=torch.int32, device=device)
+        _split_tickets[device.index] = tickets
+    return tickets
 
 
 def comparison_tolerance(
@@ -303,7 +372,7 @@ def comparison_tolerance(
     """The elementwise bound on ``|kernel - plain|`` stated above, for
     these inputs (fp32, ``ref``'s shape; meaningful on valid rows). The
     route defaults to :func:`kernel_route`'s for these inputs; an int8
-    pool adds the INT8 term on either route. Plain PyTorch: used by the
+    pool adds the INT8 term on every route. Plain PyTorch: used by the
     checks on the card and the CPU tests, never on the serving path."""
     b, s, num_heads, head_dim = q.shape
     num_kv_heads = _kv_data(k_cache).shape[2]
@@ -316,7 +385,7 @@ def comparison_tolerance(
         tol = torch.full_like(ref, TOL_ABS)
     else:
         tol = TOL_REL * ref.float().abs() + TOL_ABS
-    bf16_tiles = route == 'tensor_cores' and ref.dtype != torch.float32
+    bf16_tiles = route in ('tensor_cores', 'split_kv') and ref.dtype != torch.float32
     if not (quantized or bf16_tiles):
         return tol
     scores, v = _scores_and_values(
@@ -350,7 +419,9 @@ def _kernel():
     fn = lib.distllm_rpa_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 10 + [i32] * 9 + [f32, f32, i32, i32, i32, ptr]
+        fn.argtypes = (
+            [ptr] * 10 + [i32] * 9 + [f32, f32, i32, i32, i32, ptr, ptr, i32, i32, ptr]
+        )
         fn.restype = ctypes.c_int
         lib.distllm_rpa_error_string.argtypes = [ctypes.c_int]
         lib.distllm_rpa_error_string.restype = ctypes.c_char_p
@@ -381,7 +452,7 @@ def ragged_paged_attention_cuda(
     queries, plus the kernel's: each row's ``q_positions`` are consecutive
     (only ``q_positions[:, 0]`` is read) and pad queries come out as exact
     zeros. The route is :func:`kernel_route`'s; a route that fails to
-    launch raises, it never gives way to the other. Raises on anything the
+    launch raises, it never gives way to another. Raises on anything the
     kernel does not take: a device other than CUDA, a query dtype other
     than fp32/bf16, a full-precision pool of another dtype than q's, one
     pool quantized and the other not, scales that are not fp32 ``[nb,
@@ -426,28 +497,39 @@ def ragged_paged_attention_cuda(
     bt = block_tables.to(i32).contiguous()
     ctx = context_lens.to(i32).contiguous()
     q_start = q_positions[:, 0].to(i32).contiguous()
-    if q_lens is None:
-        ql = torch.full((b,), s, dtype=i32, device=q.device)
-    else:
-        ql = q_lens.to(i32).contiguous()
+    # No q_lens: a null pointer, every row has s queries (no launch here).
+    ql = None if q_lens is None else q_lens.to(i32).contiguous()
     route = kernel_route(q.dtype, s, group)
     kv_mode = 'int8' if quantized else 'model'
     scales = (
         (k_cache.scale.data_ptr(), v_cache.scale.data_ptr()) if quantized
         else (None, None)
     )
+    span_tile = _span_tile(s, group)
+    split = (None, None, 0, 0)  # workspace, tickets, splits, keys a split
+    if route == 'split_kv':
+        max_keys = bt.shape[1] * block_size
+        splits, split_keys = split_plan(
+            max_keys, b, num_kv_heads, _sm_count(q.device.index), block_size
+        )
+        workspace = torch.empty(
+            b * num_kv_heads * splits * span_tile * group * (head_dim + 2),
+            dtype=torch.float32, device=q.device,
+        )
+        tickets = _tickets(q.device, b * num_kv_heads)
+        split = (workspace.data_ptr(), tickets.data_ptr(), splits, split_keys)
     out = torch.empty_like(q)
     lib, fn = _kernel()
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), *scales,
-            bt.data_ptr(), ctx.data_ptr(), q_start.data_ptr(), ql.data_ptr(),
-            out.data_ptr(),
+            bt.data_ptr(), ctx.data_ptr(), q_start.data_ptr(),
+            None if ql is None else ql.data_ptr(), out.data_ptr(),
             b, s, num_heads, num_kv_heads, head_dim, block_size,
-            bt.shape[1], _span_tile(s, group), window,
+            bt.shape[1], span_tile, window,
             float(scale if scale is not None else head_dim ** -0.5),
             float(logit_softcap or 0.0),
-            KERNEL_DTYPES[q.dtype], KV_MODES[kv_mode], ROUTES[route],
+            KERNEL_DTYPES[q.dtype], KV_MODES[kv_mode], ROUTES[route], *split,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
@@ -482,7 +564,7 @@ def ragged_paged_attention(
     raise — a CUDA tensor never reaches the plain version here. Any other
     device raises. ``ragged_paged_attention.launches`` counts kernel
     launches, ``ragged_paged_attention.launches_by_route`` counts them per
-    route (``'tensor_cores'`` / ``'cuda_cores'``) and
+    route (``'tensor_cores'`` / ``'split_kv'`` / ``'cuda_cores'``) and
     ``ragged_paged_attention.launches_by_kv`` per KV mode (``'model'``: a
     pool in q's dtype; ``'int8'``: a :class:`QuantizedKV` pool).
     """

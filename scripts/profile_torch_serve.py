@@ -17,6 +17,10 @@ side, not the kernels' device time):
 - ``prefill``: 8 prompts of 1024 tokens, one new token each;
 - ``decode``: 8 prompts of 16 tokens, greedy decode windows (128 new
   tokens each timed; 24 each profiled);
+- ``decode_long``: 8 prompts of 1024 tokens, then 64 new greedy tokens
+  each (24 profiled): the decode passes alone, at the contexts where
+  attention's share of a pass is largest — each quantity is that of the
+  run minus that of a run of one new token (the prefill passes);
 - ``mixed``: the smoke run's batch — 16 prompts of 16..1024 tokens, 64
   new greedy tokens each (timed only).
 
@@ -27,7 +31,7 @@ kernel, other matrix products, everything else), the device's busy share of the 
 CUDA; exits nonzero without it.
 
     python3 scripts/profile_torch_serve.py [--layers 32] [--quantization int8]
-        [--kv-cache-dtype int8] [--out results.json]
+        [--kv-cache-dtype int8] [--workloads decode_long,...] [--out results.json]
 """
 
 from __future__ import annotations
@@ -52,6 +56,9 @@ from distllm_tpu_torch.generate.engine import (  # noqa: E402
 )
 from distllm_tpu_torch.models import mistral  # noqa: E402
 from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer  # noqa: E402
+
+
+WORKLOADS = ('prefill', 'decode', 'mixed', 'decode_long')
 
 
 def _category(name: str) -> str:
@@ -92,6 +99,56 @@ def _kernel_times(prof) -> list[tuple[float, int, str]]:
             us = avg.self_cuda_time_total
         rows.append((float(us), avg.count, avg.key))
     return sorted(rows, reverse=True)
+
+
+def _profiled(engine, prompts, max_tokens):
+    """Device µs by category and launches of one profiled run (CUDA
+    kernels only), and the run's telemetry."""
+    activities = [
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA,
+    ]
+    with torch.profiler.profile(activities=activities) as prof:
+        _, tele = _run(engine, prompts, max_tokens)
+    kernels = _kernel_times(prof)
+    by_cat: dict[str, float] = {}
+    for us, _, key in kernels:
+        by_cat[_category(key)] = by_cat.get(_category(key), 0.0) + us
+    return by_cat, sum(c for _, c, _ in kernels), tele
+
+
+def measure_decode_only(engine, name, prompts, max_tokens, profiled_tokens):
+    """The decode passes after long prompts: wall time, device time by
+    category and launches of a run of ``max_tokens`` new tokens (profiled:
+    ``profiled_tokens``) minus those of a run of one new token, whose only
+    passes are the prefill's."""
+    base_s, base = _run(engine, prompts, 1)
+    wall_s, tele = _run(engine, prompts, max_tokens)
+    passes = tele['forward_passes'] - base['forward_passes']
+    result = {
+        'workload': name,
+        'prompts': len(prompts),
+        'new_tokens_each': max_tokens,
+        'decode_passes': passes,
+        'decode_tokens_per_s': (tele['generated_tokens'] - base['generated_tokens'])
+        / (wall_s - base_s),
+        'wall_ms_per_pass': (wall_s - base_s) / passes * 1e3,
+    }
+    cats0, launches0, tele0 = _profiled(engine, prompts, 1)
+    cats1, launches1, tele1 = _profiled(engine, prompts, profiled_tokens)
+    ppasses = tele1['forward_passes'] - tele0['forward_passes']
+    by_cat = {k: (cats1.get(k, 0.0) - cats0.get(k, 0.0)) / 1e3 / ppasses
+              for k in sorted(set(cats0) | set(cats1))}
+    device_ms = sum(by_cat.values())
+    result.update({
+        'profiled_decode_passes': ppasses,
+        'device_ms_per_pass': device_ms,
+        'device_ms_per_pass_by_category': by_cat,
+        'attention_kernel_share': by_cat.get('attention_kernel', 0.0) / device_ms,
+        'device_busy_share': device_ms / result['wall_ms_per_pass'],
+        'kernel_launches_per_pass': (launches1 - launches0) / ppasses,
+    })
+    return result
 
 
 def measure(engine, name, prompts, max_tokens, profiled_tokens):
@@ -141,6 +198,8 @@ def main() -> None:
     parser.add_argument('--layers', type=int, default=32)
     parser.add_argument('--quantization', choices=('int8', 'nf4'), default=None)
     parser.add_argument('--kv-cache-dtype', choices=KV_CACHE_DTYPES, default='auto')
+    parser.add_argument('--workloads', default=','.join(WORKLOADS),
+                        help='comma-separated subset of ' + ', '.join(WORKLOADS))
     parser.add_argument('--out', default=None, help='also write the results here')
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -163,11 +222,14 @@ def main() -> None:
     rng = np.random.default_rng(1)
     # Warm-up: builds the kernel, loads cuBLAS handles, fills caches.
     _run(engine, _prompts(rng, 4, 16, 300), 16)
-    results = [
-        measure(engine, 'prefill', _prompts(rng, 8, 1024, 1024), 1, 1),
-        measure(engine, 'decode', _prompts(rng, 8, 16, 16), 128, 24),
-        measure(engine, 'mixed', _prompts(rng, 16, 16, 1024), 64, None),
-    ]
+    runs = {
+        'prefill': lambda: measure(engine, 'prefill', _prompts(rng, 8, 1024, 1024), 1, 1),
+        'decode': lambda: measure(engine, 'decode', _prompts(rng, 8, 16, 16), 128, 24),
+        'mixed': lambda: measure(engine, 'mixed', _prompts(rng, 16, 16, 1024), 64, None),
+        'decode_long': lambda: measure_decode_only(
+            engine, 'decode_long', _prompts(rng, 8, 1024, 1024), 64, 24),
+    }
+    results = [runs[name]() for name in args.workloads.split(',')]
     head = {'card': card, 'layers': args.layers, 'quantization': args.quantization,
             'kv_cache_dtype': engine.telemetry['kv_cache_dtype'],
             'kv_pool_bytes': engine.kv.hbm_bytes}

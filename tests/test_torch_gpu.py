@@ -12,8 +12,11 @@ the route that served it (asserted by ``launches_by_route``): fp32 ``1e-5``
 (summation order only); bf16 on the CUDA cores one bf16 step of out,
 ``2**-7 * |ref| + 1e-5`` (both sides round one fp32 result to bf16); bf16
 on the tensor cores adds ``2**-8 * (P @ |V|)`` (each unnormalised p_j is
-rounded to bf16 before P @ V, as on the TPU). Pad queries must be exact
-zeros. K1's int8-KV mode (``QuantizedKV`` pools) is held on both routes
+rounded to bf16 before P @ V, as on the TPU), and so does bf16 on the
+split-KV route (decode rows), held at the split plan's edges, with
+windows inside, across and below splits, and held to launch bitwise
+alike twice. Pad queries must be exact
+zeros. K1's int8-KV mode (``QuantizedKV`` pools) is held on every route
 to the same bound plus its INT8 term, with NaN in the trash block's codes
 and scales leaving outputs bitwise unchanged. K3 is held to its own elementwise bound
 (``encoder_attention.comparison_tolerance``: in bf16 one step of out
@@ -188,8 +191,9 @@ def test_tensor_core_route_softcap_and_scale(cuda, nh, nkv):
 
 
 def test_nan_trash_block_never_reaches_a_decode_output(cuda):
-    """As below, on the CUDA-core route (decode rows at group 4)."""
-    case = _case(7, nh=32, nkv=8, hd=128, dtype='bfloat16',
+    """As below, on the CUDA-core route (fp32 decode rows at group 4; the
+    bf16 twin on the split-KV route is further down)."""
+    case = _case(7, nh=32, nkv=8, hd=128, dtype='float32',
                  ctxs=[1, 16, 17, 500], q_lens=[1] * 4, span=1)
     assert _route(case) == 'cuda_cores'
     clean = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
@@ -234,10 +238,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize('nh,nkv', [(4, 4), (32, 8)])
 @pytest.mark.parametrize('window,softcap', [(None, None), (40, 30.0)])
 def test_int8_kv_decode_rows(cuda, dtype, hd, nh, nkv, window, softcap):
+    """fp32 decode rows on the CUDA cores, bf16 ones on the split-KV route."""
     case = _int8_case(11, nh=nh, nkv=nkv, hd=hd, dtype=dtype,
                       ctxs=[1, 17, 100, 33, 300], q_lens=[1] * 5, span=1)
-    _check(case, dtype, route='cuda_cores', sliding_window=window,
-           logit_softcap=softcap)
+    _check(case, dtype, route='cuda_cores' if dtype == 'float32' else 'split_kv',
+           sliding_window=window, logit_softcap=softcap)
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
@@ -265,15 +270,17 @@ def test_int8_kv_tensor_core_route(cuda, nh, nkv, hd, span, bs, window, softcap)
            logit_softcap=softcap)
 
 
-@pytest.mark.parametrize('span,route', [(1, 'cuda_cores'), (100, 'tensor_cores')])
+@pytest.mark.parametrize('span,route,dtype', [
+    (1, 'cuda_cores', 'float32'), (1, 'split_kv', 'bfloat16'), (100, 'tensor_cores', 'bfloat16'),
+])
 @pytest.mark.parametrize('poison', ['data', 'scale'])
-def test_int8_kv_nan_trash_block_never_reaches_an_output(cuda, span, route, poison):
+def test_int8_kv_nan_trash_block_never_reaches_an_output(cuda, span, route, dtype, poison):
     """Garbage in the trash block (block 0, also block-table padding):
     codes the quantizer never writes (-128; int8 has no NaN) or a NaN
     scale. Keys outside each row's range read neither their codes nor
     their scale, so the outputs are bitwise those of a clean trash
-    block."""
-    case = _int8_case(13, nh=32, nkv=8, hd=128, dtype='bfloat16',
+    block, on every route."""
+    case = _int8_case(13, nh=32, nkv=8, hd=128, dtype=dtype,
                       ctxs=[1, 16, 17, 500], q_lens=[min(span, n) for n in (1, 16, 5, 100)],
                       span=span)
     assert _route(case) == route
@@ -311,6 +318,132 @@ def test_int8_kv_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match='scales must be contiguous'):
         strided = tpa.QuantizedKV(v.data, torch.cat([v.scale, v.scale], -1)[:, ::2])
         tpa.ragged_paged_attention(q, k, strided, bt, ctx, pos)
+
+
+# ----------------------------------------------- K1 route 2, split-KV
+def _split_keys(nkv, bs, rows=6, max_keys=4096):
+    """The split length the wrapper plans for ``rows`` rows of up to
+    ``max_keys`` keys on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return tpa.split_plan(max_keys, rows, nkv, sms, bs)[1]
+
+
+def _split_case(seed, *, nh, nkv, hd, span, bs=16, int8=False, dtype='bfloat16'):
+    """Rows at the split-KV plan's edges: contexts 1, a split's length - 1,
+    exactly one split, one split + 1 and 4096, and a row of 300 keys with
+    ``q_lens = 0``."""
+    sk = _split_keys(nkv, bs)
+    ctxs = [1, sk - 1, sk, sk + 1, 4096, 300]
+    q_lens = [min(span, n) for n in ctxs[:-1]] + [0]
+    make = _int8_case if int8 else _case
+    return make(seed, nh=nh, nkv=nkv, hd=hd, dtype=dtype, ctxs=ctxs, q_lens=q_lens,
+                span=span, bs=bs), sk
+
+
+# (query heads, KV heads, span): groups 1, 4 and 8 at every span under 16 rows.
+SPLIT_SHAPES = [(8, 8, 1), (8, 8, 3), (32, 8, 1), (32, 8, 2), (32, 8, 3), (64, 8, 1)]
+
+
+@pytest.mark.parametrize('nh,nkv,span', SPLIT_SHAPES)
+@pytest.mark.parametrize('hd', [64, 128])
+@pytest.mark.parametrize('window', [None, 'inside', 'across', 'dead'])
+@pytest.mark.parametrize('bs', [16, 32])
+@pytest.mark.parametrize('int8', [False, True], ids=['bf16_pool', 'int8_pool'])
+def test_split_kv_route_matrix(cuda, nh, nkv, span, hd, window, bs, int8):
+    """bf16 tiles under 16 rows on the split-KV route, over bf16 and int8
+    pools and block sizes 16 and 32, at the plan's split edges; windows
+    that lie inside one split (37), cross a split edge (a split + 50) or
+    leave whole splits dead below them (1500 at 4096 keys)."""
+    case, sk = _split_case(nh + hd + span + bs, nh=nh, nkv=nkv, hd=hd, span=span, bs=bs,
+                           int8=int8)
+    win = {None: None, 'inside': 37, 'across': sk + 50, 'dead': 1500}[window]
+    _check(case, 'bfloat16', route='split_kv', sliding_window=win)
+
+
+@pytest.mark.parametrize('nh,nkv,span', [(8, 8, 3), (32, 8, 1), (64, 8, 1)])
+@pytest.mark.parametrize('int8', [False, True], ids=['bf16_pool', 'int8_pool'])
+def test_split_kv_route_softcap_and_scale(cuda, nh, nkv, span, int8):
+    case, sk = _split_case(40 + nh, nh=nh, nkv=nkv, hd=128, span=span, int8=int8)
+    _check(case, 'bfloat16', route='split_kv', sliding_window=sk + 50, scale=0.05,
+           logit_softcap=30.0)
+
+
+def test_split_kv_rows_whose_keys_sit_in_the_last_split(cuda):
+    """Rows whose only live keys, under a window, lie in their last split,
+    and rows of one key, beside a 4096-key row that sets the plan."""
+    sk = _split_keys(8, 16)
+    ctxs = [4096, 3 * sk + 5, 2 * sk + 1, 1, 1000]
+    case = _case(51, nh=32, nkv=8, hd=128, dtype='bfloat16', ctxs=ctxs, q_lens=[1] * 5, span=1)
+    _check(case, 'bfloat16', route='split_kv', sliding_window=4)
+
+
+@pytest.mark.parametrize('int8', [False, True], ids=['bf16_pool', 'int8_pool'])
+def test_split_kv_launches_are_bitwise_reproducible(cuda, int8):
+    """The merge adds the splits' partials in split order, never by
+    floating-point atomics: two launches on the same inputs are equal
+    bitwise, and so is a third after another shape's launch."""
+    case, _ = _split_case(52, nh=32, nkv=8, hd=128, span=1, int8=int8)
+    first = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    second = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    other, _ = _split_case(53, nh=32, nkv=8, hd=128, span=3, int8=int8)
+    tpa.ragged_paged_attention(*other['args'], q_lens=other['q_lens'])
+    third = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert torch.equal(first, second) and torch.equal(first, third)
+
+
+def test_nan_trash_block_never_reaches_a_split_kv_output(cuda):
+    """The bf16 twin of the CUDA-core route's check: NaN in block 0 and
+    the block-table padding leaves route 2's outputs bitwise unchanged."""
+    case, _ = _split_case(54, nh=32, nkv=8, hd=128, span=1)
+    assert _route(case) == 'split_kv'
+    clean = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    case['args'][1][0] = float('nan')
+    case['args'][2][0] = float('nan')
+    poisoned = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert torch.equal(clean, poisoned)
+
+
+@pytest.mark.parametrize('span,dtype,route', [
+    (1, 'float32', 'cuda_cores'), (3, 'bfloat16', 'split_kv'), (100, 'bfloat16', 'tensor_cores'),
+])
+def test_no_q_lens_is_every_row_full_on_every_route(cuda, span, dtype, route):
+    """Without ``q_lens`` the C entry gets a null pointer (the wrapper
+    launches nothing else) and reads every row as ``span`` queries long."""
+    case = _case(55, nh=32, nkv=8, hd=128, dtype=dtype, ctxs=[300, 250, 1000],
+                 q_lens=[span] * 3, span=span)
+    assert _route(case) == route
+    full = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert torch.equal(tpa.ragged_paged_attention(*case['args']), full)
+
+
+def test_split_kv_entry_refuses_what_it_does_not_take(cuda):
+    """The C entry refuses route 2 (cudaErrorInvalidValue, 1) for fp32, a
+    tile of 16 rows, head dim 32, a missing workspace or tickets and a
+    plan that does not cover the block table; the same call with the
+    wrapper's arguments launches."""
+    case = _case(56, nh=32, nkv=8, hd=128, dtype='bfloat16', ctxs=[300], q_lens=[1], span=1)
+    q, k, v, bt, ctx, pos = case['args']
+    splits, keys = tpa.split_plan(bt.shape[1] * 16, 1, 8, 132, 16)
+    ws = torch.empty(8 * splits * 4 * 130, dtype=torch.float32, device='cuda')
+    tickets = torch.zeros(8, dtype=torch.int32, device='cuda')
+    out = torch.empty_like(q)
+    _, fn = tpa._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+    start = pos[:, 0].contiguous()
+
+    def launch(dtype=1, span_tile=1, head_dim=128, workspace=ws.data_ptr(),
+               ticket_ptr=tickets.data_ptr(), n_splits=splits, split_keys=keys):
+        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, bt.data_ptr(),
+                  ctx.data_ptr(), start.data_ptr(), None, out.data_ptr(),
+                  1, 1, 32, 8, head_dim, 16, bt.shape[1], span_tile, 0, 0.088, 0.0,
+                  dtype, 0, 2, workspace, ticket_ptr, n_splits, split_keys, stream)
+
+    assert launch() == 0
+    for bad in ({'dtype': 0}, {'span_tile': 4}, {'head_dim': 32}, {'workspace': None},
+                {'ticket_ptr': None}, {'n_splits': 0}, {'split_keys': 48},
+                {'n_splits': 1, 'split_keys': 64}):
+        assert launch(**bad) == 1, bad
+    torch.cuda.synchronize()
 
 
 def test_int8_kv_engine_on_the_kernel_matches_the_plain_op(cuda):

@@ -19,10 +19,19 @@
   k_scale``, fp32 ``p * v_scale``; tensor cores: ``p * v_scale`` rounded
   to bf16 before P @ V, ``l`` over the unscaled p — stays within it
   (worst element at 0.83 of the bound on the CUDA cores in bf16, 0.019 in
-  fp32, 0.77 on the tensor cores), and five injected faults exceed it by
-  the factor ``FAULT_FACTOR`` at least (measured: 620x for K's scale used
-  for V on the tensor cores, 9,700x to 560,000x for the rest).
+  fp32, 0.77 on the tensor cores, 0.73 / 0.019 on the split-KV route in
+  bf16 / fp32), and five injected faults exceed it by the factor
+  ``FAULT_FACTOR`` at least (measured: 619x for K's scale used for V on
+  the tensor-core and split-KV routes, 6,400x to 560,000x for the rest,
+  ``l`` summed over p * v_scale included).
+- The split-KV route's order over int8 pools (splits, warps, the int8
+  folds) against ``ragged_paged_attention_xla`` and the Pallas kernel's
+  int8 mode in interpret mode, at GQA groups 1, 4 and 8, with a window
+  across the split edges and a softcap: worst element at 0.77 of the
+  bound in bf16, 0.011 in fp32.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +40,7 @@ import torch
 
 from distllm_tpu.ops import paged_attention as jpa
 from distllm_tpu_torch.ops import paged_attention as tpa
+from test_torch_paged_attention import SPLIT_SPANS, _split_inputs, _split_kv_order
 
 ATOL = 1e-5
 RTOL = 1e-4
@@ -343,7 +353,10 @@ def _emulated_route(t, route, window, softcap, fault=None):
     ``(q . c) * scale * k_scale``, softcap, mask; online max and sum over
     key tiles (32 keys on the CUDA cores, 64 on the tensor cores), ``l``
     over the unscaled p; P @ V over the codes with p * v_scale (rounded
-    to bf16 on the tensor cores); out = acc / l rounded once. ``fault``:
+    to bf16 on the tensor cores); out = acc / l rounded once. The split-KV
+    route runs the same scores through the split and warp order of
+    ``test_torch_paged_attention._split_kv_order`` (p * v_scale rounded to
+    q's dtype). ``fault``:
     'neighbour_scale' reads each page's scales from the next physical
     block, 'k_scale_after_softcap' applies K's scale after the softcap,
     'l_scaled' sums the V-scaled p into l, 'v_scale_omitted' drops V's
@@ -375,6 +388,13 @@ def _emulated_route(t, route, window, softcap, fault=None):
     if fault == 'k_scale_after_softcap':
         x = x * ksg
     x = x.masked_fill(~valid, float('-inf'))
+    if route == 'split_kv':
+        out = _split_kv_order(
+            x, cv, q.dtype, t['pos'], t['q_lens'],
+            v_scale=None if fault == 'v_scale_omitted' else vs,
+            fault='l_scaled' if fault == 'l_scaled' else None,
+        )
+        return out.permute(0, 3, 1, 2, 4).reshape(q.shape).to(q.dtype)
     tile = 64 if route == 'tensor_cores' else 32
     m = torch.full(x.shape[:-1] + (1,), float('-inf'))
     l = torch.zeros_like(m)
@@ -404,6 +424,7 @@ def _worst_ratio(out, ref, tol, q_lens):
 
 ROUTE_CASES = [
     ('cuda_cores', 'float32'), ('cuda_cores', 'bfloat16'), ('tensor_cores', 'bfloat16'),
+    ('split_kv', 'bfloat16'), ('split_kv', 'float32'),
 ]
 
 
@@ -452,3 +473,58 @@ def test_int8_term_is_added_on_every_route():
     ref32 = tpa.ragged_paged_attention(*_args(t32), **kw)
     tol32 = tpa.comparison_tolerance(ref32, *_args(t32), **kw)
     assert (tol32 >= tpa.TOL_ABS).all() and (tol32 > tpa.TOL_ABS).any()
+
+
+# ------------------------------------------------- the split-KV route (2)
+def _int8_split_inputs(seed, dtype, group):
+    """``test_torch_paged_attention._split_inputs``'s rows (contexts 1, 63,
+    65, 190 and a ``q_lens = 0`` row; three splits of 64 keys) over int8
+    pools quantized from its K and V times a magnitude per block and head
+    in [0.25, 4]."""
+    t = _split_inputs(seed, 'float32', group)
+    rng = np.random.default_rng(seed + 1)
+
+    def pool(x):
+        x = x * torch.from_numpy(
+            rng.uniform(0.25, 4, size=(x.shape[0], 1, x.shape[2], 1)).astype(np.float32))
+        scale = x.abs().amax((1, 3)) / tpa.KV_QUANT_MAX
+        return tpa.QuantizedKV(tpa.quantize_kv_rows(x, scale[:, None]), scale)
+
+    t['k'], t['v'] = pool(t['k']), pool(t['v'])
+    t['q'] = t['q'].to(getattr(torch, dtype))
+    return t
+
+
+def _jax_int8_on(fn, t, window, softcap, **kw):
+    q = t['q'].float().numpy()
+    out = fn(
+        jnp.asarray(q, jnp.bfloat16 if t['q'].dtype == torch.bfloat16 else jnp.float32),
+        _jax_pool(t['k']), _jax_pool(t['v']), jnp.asarray(t['bt'].numpy()),
+        jnp.asarray(t['ctx'].numpy()), jnp.asarray(t['pos'].numpy()),
+        q_lens=jnp.asarray(t['q_lens'].numpy()), sliding_window=window,
+        logit_softcap=softcap, **kw,
+    )
+    return torch.from_numpy(np.array(out, np.float32))
+
+
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+@pytest.mark.parametrize('group', sorted(SPLIT_SPANS))
+@pytest.mark.parametrize('window,softcap', [(None, None), (40, 30.0)],
+                         ids=['nowin', 'win40_cap30'])
+def test_emulated_int8_split_kv_within_the_tolerance_of_jax(dtype, group, window, softcap):
+    """Route 2's order over an int8 pool (the int8 folds: K's scale on the
+    score before the softcap, l over the unscaled p, p * v_scale before the
+    rounding) against ``ragged_paged_attention_xla`` (and, at group 4,
+    the Pallas kernel's int8 mode in interpret mode), within the split-KV
+    route's int8 tolerance; a window of 40 crosses the split edges."""
+    t = _int8_split_inputs(30 + group, dtype, group)
+    out = _emulated_route(t, 'split_kv', window, softcap)
+    kw = {'q_lens': t['q_lens'], 'sliding_window': window, 'logit_softcap': softcap}
+    ref = tpa.ragged_paged_attention(*_args(t), **kw)
+    tol = tpa.comparison_tolerance(ref, *_args(t), route='split_kv', **kw)
+    backends = [jpa.ragged_paged_attention_xla]
+    if group == 4:
+        backends.append(functools.partial(jpa.ragged_paged_attention_pallas, interpret=True))
+    for fn in backends:
+        assert _worst_ratio(out, _jax_int8_on(fn, t, window, softcap), tol, t['q_lens']) <= 1.0
+    assert not out[4].any()  # q_lens = 0

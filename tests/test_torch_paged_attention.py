@@ -23,7 +23,26 @@ key dropped (807 / 3.9e5 times the bound), the window one key wider
 (321 / 1.1e5), a wrong page in the block table (385 / 2.0e5), and p
 rounded before the running max is subtracted (exp overflows: non-finite
 in both).
+
+The split-KV route (bf16 tiles under 16 rows: decode rows) splits each
+row's keys across thread blocks. ``kernel_route`` is pinned for every
+span and group through the 15 / 16-row bound, and ``split_plan``'s
+splits tile every key once in whole pages. A CPU emulation of its order
+— splits of 64 keys, four warps of 16 keys a step each with its own
+online max and sum, p rounded unnormalised, the warps and then the
+splits merged in order with exp(m_s - M) in fp32 — is held against
+``ragged_paged_attention_xla`` and the Pallas kernel in interpret mode at
+GQA groups 1, 4 and 8, contexts 1, 63, 65 and 190 and a ``q_lens = 0``
+row, with and without a window of 40 across the split edges and a
+softcap: worst element at 0.565 of the route's bound in bf16, 0.083 in
+fp32. Injected faults exceed it, in bf16 / fp32: the merge without the
+exp(m_s - M) rescale (154 / 4.8e4 times the bound), the last live split
+dropped (85 / 4.1e5), a split edge one key late, counting a key twice
+(19 / 8.8e3), and the window floor taken at its split's start (163 /
+6.8e4).
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -360,6 +379,180 @@ def test_injected_faults_exceed_the_tolerance(dtype, fault):
     assert _worst_ratio(out, ref, tol, t['q_lens']) > 10.0
 
 
+# ------------------------------------------------- the split-KV route (2)
+SPLIT_KEYS = 64  # the smallest split the kernel takes: three splits of 192 keys
+# GQA group -> span of the tile (rows = span x group < 16).
+SPLIT_SPANS = {1: 7, 4: 3, 8: 1}
+
+
+def _split_inputs(seed, dtype, group):
+    """Route 2's shapes: 2 KV heads x ``group``, head dim 64, 16-token
+    pages, 12 pages a row (192 keys: three splits of 64). Rows: context
+    1; a split's length - 1 (63); one split + 1 (65); 190 keys, whose
+    live keys under a window of 40 sit in the last split alone; and a
+    row of 130 keys with ``q_lens = 0``."""
+    rng = np.random.default_rng(seed)
+    nb, bs, nkv, hd = 48, 16, 2, 64
+    span = SPLIT_SPANS[group]
+    ctx = np.asarray([1, 63, 65, 190, 130], np.int32)
+    q_lens = np.minimum(np.asarray([span] * 4 + [0]), ctx).astype(np.int32)
+    pages = -(-ctx // bs)
+    perm = rng.permutation(np.arange(1, nb))
+    bt = np.zeros((5, 12), np.int32)
+    at = 0
+    for row, n in enumerate(pages):
+        bt[row, :n] = perm[at:at + n]
+        at += n
+    pos = (ctx - q_lens)[:, None] + np.arange(span, dtype=np.int32)[None, :]
+    torch_dtype = getattr(torch, dtype)
+    tensor = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(torch_dtype)
+    return {
+        'k': tensor((nb, bs, nkv, hd)), 'v': tensor((nb, bs, nkv, hd)),
+        'q': tensor((5, span, nkv * group, hd)),
+        'bt': torch.from_numpy(bt), 'ctx': torch.from_numpy(ctx),
+        'pos': torch.from_numpy(pos.astype(np.int32)), 'q_lens': torch.from_numpy(q_lens),
+    }
+
+
+def _merge_partials(parts, rescale=True):
+    """Online-softmax partials (m, l, acc) merged in list order, fp32:
+    each rescaled by exp(m_s - M) (a partial with no live key has m =
+    -inf, l = 0 and weighs 0; every m -inf rebases on 0)."""
+    ms = torch.stack([m for m, _, _ in parts])
+    big = ms.amax(0)
+    base = torch.where(big == float('-inf'), 0.0, big)
+    wt = torch.exp(ms - base) if rescale else torch.ones_like(ms)
+    l = sum(w * part[1] for w, part in zip(wt, parts))
+    acc = sum(w * part[2] for w, part in zip(wt, parts))
+    return big, l, acc
+
+
+def _split_kv_order(x, v, dtype, pos, q_lens, window=None, v_scale=None, fault=None):
+    """Route 2's order on the CPU. ``x``: fp32 scores ``[B, Nkv, G, S, T]``
+    with the causal and context masks (-inf); ``v``: fp32 values ``[B, T,
+    Nkv, Hd]`` (int8: the codes, with ``v_scale [B, Nkv, T]``). Pad queries
+    (``q_lens``) see no key, and the window floor is applied per query,
+    here. Splits of SPLIT_KEYS;
+    in a split, warp w takes keys 16w .. 16w + 15 of each 64-key step with
+    its own online m, l and acc: p unnormalised, ``p * v_scale`` rounded
+    to ``dtype`` before P @ V, l over the unscaled p. The warps merge in
+    warp order, then the splits in split order (fp32). ``fault``:
+    'no_rescale' merges the splits without exp(m_s - M); 'drop_last_split'
+    drops each query's last split that holds a live key; 'boundary_off_by_one'
+    lets each split run one key into the next (a key counted twice);
+    'window_at_split_start' takes the window floor at the start of the
+    split it falls in; 'l_scaled' sums p * v_scale into l."""
+    t_all = x.shape[-1]
+    keys = torch.arange(t_all)
+    pad = torch.arange(x.shape[3])[None, :] >= q_lens.long()[:, None]  # [B, S]
+    x = x.masked_fill(pad[:, None, None, :, None], float('-inf'))
+    if window:
+        floor = pos.long()[:, None, None, :, None] - window + 1
+        if fault == 'window_at_split_start':
+            floor = floor.clamp_min(0) // SPLIT_KEYS * SPLIT_KEYS
+        x = x.masked_fill(keys < floor, float('-inf'))
+    reach = SPLIT_KEYS + (fault == 'boundary_off_by_one')
+    splits = []
+    for s0 in range(0, t_all, SPLIT_KEYS):
+        warps = []
+        for w in range(4):
+            m = torch.full(x.shape[:-1] + (1,), float('-inf'))
+            l = torch.zeros_like(m)
+            acc = torch.zeros(x.shape[:-1] + (v.shape[-1],))
+            for k0 in range(s0 + 16 * w, min(s0 + reach, t_all), 64):
+                sl = slice(k0, min(k0 + 16, s0 + reach, t_all))
+                m_new = torch.maximum(m, x[..., sl].amax(-1, keepdim=True))
+                base = torch.where(m_new == float('-inf'), 0.0, m_new)
+                alpha = torch.exp(m - base)
+                p = torch.exp(x[..., sl] - base)
+                pv = p if v_scale is None else p * v_scale[:, :, None, None, sl]
+                l = l * alpha + (pv if fault == 'l_scaled' else p).sum(-1, keepdim=True)
+                pv = pv.to(dtype).float()
+                acc = acc * alpha + torch.einsum('bkgst,btkd->bkgsd', pv, v[:, sl])
+                m = m_new
+            warps.append((m, l, acc))
+        splits.append(_merge_partials(warps))
+    if fault == 'drop_last_split':
+        live = torch.stack([l > 0 for _, l, _ in splits])  # [splits, ..., 1]
+        index = torch.arange(len(splits)).reshape(-1, *([1] * (live.dim() - 1)))
+        last = torch.where(live, index, -1).amax(0)
+        splits = [
+            (torch.where(last == i, float('-inf'), m), torch.where(last == i, 0.0, l),
+             torch.where(last == i, 0.0, acc))
+            for i, (m, l, acc) in enumerate(splits)
+        ]
+    _, l, acc = _merge_partials(splits, rescale=fault != 'no_rescale')
+    return acc / l.clamp_min(1e-9)  # [B, Nkv, G, S, Hd]
+
+
+def _emulated_split_kv_route(t, window=None, softcap=None, fault=None):
+    """Route 2 on a pool in q's dtype: the plain version's fp32 scores
+    (scale, softcap, causal / context / q_lens masks) through
+    :func:`_split_kv_order`, rounded once to q's dtype."""
+    scores, v = tpa._scores_and_values(
+        t['q'], t['k'], t['v'], t['bt'], t['ctx'], t['pos'], t['q_lens'], None,
+        None, softcap,
+    )
+    out = _split_kv_order(scores, v, t['v'].dtype, t['pos'], t['q_lens'], window, fault=fault)
+    return out.permute(0, 3, 1, 2, 4).reshape(t['q'].shape).to(t['q'].dtype)
+
+
+def _jax_on(fn, t, window, softcap, **kw):
+    """``fn`` (a JAX backend) on the same tensors, in their dtype."""
+    def arr(x):
+        if x.dtype == torch.bfloat16:
+            return jnp.asarray(x.float().numpy(), jnp.bfloat16)
+        return jnp.asarray(x.numpy())
+    out = fn(
+        arr(t['q']), arr(t['k']), arr(t['v']), arr(t['bt']), arr(t['ctx']),
+        arr(t['pos']), q_lens=arr(t['q_lens']), sliding_window=window,
+        logit_softcap=softcap, **kw,
+    )
+    return torch.from_numpy(np.array(out, np.float32))
+
+
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+@pytest.mark.parametrize('group', sorted(SPLIT_SPANS))
+@pytest.mark.parametrize('window,softcap', [(None, None), (40, 30.0)],
+                         ids=['nowin', 'win40_cap30'])
+def test_emulated_split_kv_within_the_tolerance_of_jax(dtype, group, window, softcap):
+    """Route 2's order against ``ragged_paged_attention_xla`` (and, at
+    group 4, the Pallas kernel in interpret mode), within the split-KV
+    route's tolerance; rows with no live key come out as exact zeros."""
+    t = _split_inputs(20 + group, dtype, group)
+    assert tpa.kernel_route(torch.bfloat16, t['q'].shape[1], group) == 'split_kv'
+    out = _emulated_split_kv_route(t, window, softcap)
+    kw = {'q_lens': t['q_lens'], 'sliding_window': window, 'logit_softcap': softcap}
+    ref = tpa.ragged_paged_attention(*_args(t), **kw)
+    tol = tpa.comparison_tolerance(ref, *_args(t), route='split_kv', **kw)
+    backends = [ragged_paged_attention_xla]
+    if group == 4:
+        backends.append(functools.partial(ragged_paged_attention_pallas, interpret=True))
+    for fn in backends:
+        jax_out = _jax_on(fn, t, window, softcap)
+        assert _worst_ratio(out, jax_out, tol, t['q_lens']) <= 1.0
+    assert not out[4].any()  # q_lens = 0
+
+
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+@pytest.mark.parametrize(
+    'fault',
+    ['no_rescale', 'drop_last_split', 'boundary_off_by_one', 'window_at_split_start'],
+)
+def test_injected_split_kv_faults_exceed_the_tolerance(dtype, fault):
+    """Each fault of the split-KV order exceeds the route's bound at least
+    tenfold against the JAX op, at a window of 40 that crosses the split
+    edges at 64 and 128 keys, with a softcap."""
+    t = _split_inputs(24, dtype, 4)
+    kw = {'q_lens': t['q_lens'], 'sliding_window': 40, 'logit_softcap': 30.0}
+    ref = tpa.ragged_paged_attention(*_args(t), **kw)
+    tol = tpa.comparison_tolerance(ref, *_args(t), route='split_kv', **kw)
+    jax_out = _jax_on(ragged_paged_attention_xla, t, 40, 30.0)
+    out = _emulated_split_kv_route(t, 40, 30.0, fault=fault)
+    assert _worst_ratio(out, jax_out, tol, t['q_lens']) > 10.0
+
+
 def test_tolerance_terms_by_route():
     """fp32 is held to 1e-5; bf16 on the CUDA cores to one bf16 step of
     out; bf16 on the tensor cores adds 2**-8 * (P @ |V|)."""
@@ -379,13 +572,55 @@ def test_tolerance_terms_by_route():
 
 def test_kernel_route_by_dtype_and_tile_rows():
     """bf16 tiles of 16..64 rows (span positions x group) take the tensor
-    cores; fp32 and bf16 decode rows under 16 take the CUDA cores."""
+    cores; bf16 tiles under 16 rows (decode rows at group 4, spans of 2-3)
+    take the split-KV route; fp32 takes the CUDA cores."""
     assert tpa.kernel_route(torch.bfloat16, 1024, 4) == 'tensor_cores'
     assert tpa.kernel_route(torch.bfloat16, 4, 4) == 'tensor_cores'
     assert tpa.kernel_route(torch.bfloat16, 1, 16) == 'tensor_cores'
-    assert tpa.kernel_route(torch.bfloat16, 1, 4) == 'cuda_cores'
-    assert tpa.kernel_route(torch.bfloat16, 3, 4) == 'cuda_cores'
+    assert tpa.kernel_route(torch.bfloat16, 1, 4) == 'split_kv'
+    assert tpa.kernel_route(torch.bfloat16, 3, 4) == 'split_kv'
     assert tpa.kernel_route(torch.float32, 1024, 4) == 'cuda_cores'
+    assert tpa.kernel_route(torch.float32, 1, 4) == 'cuda_cores'
+
+
+@pytest.mark.parametrize('group', [1, 2, 4, 8, 16])
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+def test_kernel_route_at_the_16_row_bound(group, dtype):
+    """Every span at each group, through the 15 / 16-row bound: bf16 tiles
+    of 1..15 rows on the split-KV route, 16..64 on the tensor cores; fp32
+    on the CUDA cores at every tile."""
+    for span in range(1, 80):
+        rows = min(span, 64 // group) * group
+        want = 'split_kv' if rows <= 15 else 'tensor_cores'
+        if dtype == 'float32':
+            want = 'cuda_cores'
+        assert tpa.kernel_route(getattr(torch, dtype), span, group) == want, (span, rows)
+    if dtype == 'bfloat16' and group <= 15:
+        assert tpa.kernel_route(torch.bfloat16, 15 // group, group) == 'split_kv'
+        assert tpa.kernel_route(torch.bfloat16, 16 // group, group) == (
+            'tensor_cores' if 16 % group == 0 else 'split_kv'
+        )
+
+
+@pytest.mark.parametrize('batch', [1, 8, 32])
+@pytest.mark.parametrize('max_keys', [16, 1090, 4096])
+@pytest.mark.parametrize('block_size', [16, 32])
+def test_split_plan_tiles_every_key_once(batch, max_keys, block_size):
+    """The split-KV plan from host-known shapes (the H100's 132 SMs and
+    Mistral's 8 KV heads): the splits tile [0, max_blocks * block_size)
+    exactly once in whole pages and 64-key steps, hold at least 128 keys
+    unless one split covers the row, and number at most enough to fill the
+    card about twice over."""
+    max_blocks = -(-max_keys // block_size)
+    keys = max_blocks * block_size
+    splits, split_keys = tpa.split_plan(keys, batch, 8, 132, block_size)
+    assert split_keys % block_size == 0 and split_keys % tpa.SPLIT_STEP_KEYS == 0
+    assert (splits - 1) * split_keys < keys <= splits * split_keys
+    owner = np.arange(keys) // split_keys  # each key's split
+    assert np.array_equal(np.bincount(owner, minlength=splits)[:-1],
+                          np.full(splits - 1, split_keys))
+    assert 1 <= splits <= max(1, -(-tpa.SPLIT_BLOCKS_PER_SM * 132 // (batch * 8)))
+    assert split_keys >= tpa.SPLIT_MIN_KEYS or splits == 1
 
 
 def test_static_zero_window_splits_the_jax_backends():
