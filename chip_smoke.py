@@ -74,7 +74,13 @@ carried on):
    port. K1's launch count must equal layers x forward passes and its
    plain op must not run at all; every prefill dispatch's launches went
    through the tensor-core route and every decode step's through the
-   split-KV route (``launches_by_route``);
+   split-KV route (``launches_by_route``). The generator warmed its
+   engine up at construction (two decode graphs captured, greedy and
+   sampled, with their seconds and graph pool MiB printed): every decode
+   step of the run, the chat worker's included, must be one graph replay
+   (``decode_graph_replays`` = forward passes - prefill dispatches) and
+   nothing may be captured during it. What stays allocated after each
+   engine's shutdown is printed, here and in every later engine phase;
 7. serve int8 — the same through ``TorchGenerator(quantization='int8')``,
    the weights quantized on the card; K2 must launch 7 x layers x
    forward passes, every launch on the tensor-core route, and its plain
@@ -90,12 +96,21 @@ carried on):
    launch layers x forward passes, every int8-arm launch in the int8
    mode (``launches_by_kv``) with prefill on the tensor cores and decode
    on the split-KV route, its plain op never, and the int8 pool must take
-   under 0.51 of the bf16 pool's bytes;
+   under 0.51 of the bf16 pool's bytes; every decode step of each arm is a
+   graph replay, as in phase 6;
+6c. graph window — full-width Mistral-7B bf16 (32 layers, a pool of
+   N(0, 1) K/V made on the card): one 8-step decode window of 8 rows of
+   about 1024 keys (one row's budget ending mid-window), greedy and then
+   sampled, through the engine's captured graphs and through the eager
+   ``mistral.decode_loop`` on a copy of the pool: tokens and every pool
+   byte outside the trash block must be identical; wall ms a step of
+   each (3 windows), capture seconds and graph pool MiB are printed;
 8. identity — full width at depth 2 in fp32: greedy tokens from the engine
    on K1 equal those from the engine on its plain op; then, int8 weights,
    greedy tokens on K2 (every launch on the CUDA-core route) equal those
    on its plain version; 8b. then, an int8 KV pool, greedy tokens on K1's
-   int8 mode equal those on its plain op;
+   int8 mode equal those on its plain op. Every arm, the plain op's
+   included, is warmed up first and replays its own decode graphs;
 9. quantize — the int8 codes and scales of the full-width gate kernel of
    layer 0, quantized on the card, equal bitwise those the CPU makes;
    9b. int8 KV codes and scales written on the card (``write_chunk_kv``
@@ -973,6 +988,44 @@ def post_completion(port, i):
         return resp.status, json.loads(resp.read())
 
 
+def graph_marks(engine):
+    """The engine's decode-graph counters, read before a run."""
+    return (engine.stats['decode_graph_captures'], engine.stats['decode_graph_replays'])
+
+
+def check_graph_replays(tag, engine, marks, passes, prefills):
+    """Every decode step since ``marks`` was one replay of a captured
+    graph (no eager decode on the card) and nothing was captured: the
+    graphs were captured by the warm-up before."""
+    captures = engine.stats['decode_graph_captures'] - marks[0]
+    replays = engine.stats['decode_graph_replays'] - marks[1]
+    log(f'[{tag}] decode graphs: {replays} replays = {passes} forward passes - '
+        f'{prefills} prefill dispatches; {captures} captures during the run '
+        f'({engine.stats["decode_graph_captures"]} at warm-up, '
+        f'{engine.stats["decode_graph_capture_s"]:.3f} s, graph pool '
+        f'{engine.graph_pool_bytes / 2**20:.1f} MiB)')
+    if replays != passes - prefills or replays <= 0:
+        fail(f'{tag}: {replays} decode graph replays for {passes - prefills} decode '
+             'steps: a decode step ran eagerly on the card')
+    if captures != 0 or engine.stats['decode_graph_captures'] != 2:
+        fail(f'{tag}: {captures} captures in the run, '
+             f'{engine.stats["decode_graph_captures"]} in all; expected the two '
+             'of the warm-up')
+    return dict(decode_graph_replays=replays,
+                decode_graph_capture_s=engine.stats['decode_graph_capture_s'],
+                graph_pool_mib=engine.graph_pool_bytes / 2**20)
+
+
+def shut_down(torch, tag, engine):
+    """Shut an engine down and print what stays allocated: a graph pool
+    that outlived its engine would starve the next phase."""
+    engine.shutdown()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f'[{tag}] after shutdown: {torch.cuda.memory_allocated() / 2**30:.3f} GiB '
+        f'allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved')
+
+
 def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     """Serve 16 prompts and 3 chat completions; with ``quantization``
     the generator quantizes its weights on the card and K2 (``tqm``)
@@ -1000,6 +1053,9 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
         f'the card: {time.perf_counter() - t0:.3f} s, {gib:.2f} GiB allocated '
         f'(weights and KV pool), peak {peak_gib:.2f} GiB')
     engine = generator.engine
+    log(f'[{tag}] warm-up at construction: {engine.stats["decode_graph_captures"]} '
+        f'decode graphs captured in {engine.stats["decode_graph_capture_s"]:.3f} s, '
+        f'graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB')
     prompts = smoke_prompts(np.random.default_rng(1), 16, 16, 1024)
     sampling = [SamplingParams(temperature=0.0, max_tokens=64)] * 14 + [
         SamplingParams(temperature=0.8, top_p=0.95, max_tokens=64, seed=s)
@@ -1008,6 +1064,7 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     # The main path: counts to 0 just before, read just after.
     passes_before = engine.stats['forward_passes']
     prefills_before = engine.stats['prefill_dispatches']
+    marks = graph_marks(engine)
     tpa.ragged_paged_attention.launches = 0
     tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
     tpa.ragged_paged_attention_reference.launches = 0
@@ -1081,7 +1138,8 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     result = dict(tokens_per_s=tok_s, wall_s=wall_s, launches=launches,
                   launches_by_route=by_route, forward_passes=passes,
                   prefill_dispatches=prefills, telemetry=tele, gib=gib,
-                  peak_gib=peak_gib)
+                  peak_gib=peak_gib,
+                  **check_graph_replays(tag, engine, marks, passes, prefills))
     if tqm is not None:
         k2, k2_plain = tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches
         k2_routes = dict(tqm.int8_matmul.launches_by_route)
@@ -1096,7 +1154,7 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
             fail(f'the plain int8 matmul ran {k2_plain} times on the serving path')
         result['k2_launches'] = k2
         result['k2_launches_by_route'] = k2_routes
-    generator.shutdown()
+    shut_down(torch, tag, engine)
     del generator, engine
     torch.cuda.empty_cache()
     return result
@@ -1146,7 +1204,9 @@ def phase_serve_kv_int8(torch, tpa, card, cfg):
             block_size=BLOCK_SIZE, num_blocks=1024, max_num_seqs=32,
             max_model_len=2048, decode_steps=16, kv_cache_dtype=kv,
         ), device=DEVICE)
+        # The warm run's first window warms the engine up (captures).
         engine.generate_ids(prompts[:2], SamplingParams(temperature=0.0, max_tokens=2))
+        marks = graph_marks(engine)
         tpa.ragged_paged_attention.launches = 0
         tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
         tpa.ragged_paged_attention.launches_by_kv = dict.fromkeys(tpa.KV_MODES, 0)
@@ -1169,7 +1229,9 @@ def phase_serve_kv_int8(torch, tpa, card, cfg):
             launches_by_kv=dict(tpa.ragged_paged_attention.launches_by_kv),
             plain=tpa.ragged_paged_attention_reference.launches,
         )
-        engine.shutdown()
+        arm.update(check_graph_replays(
+            f'serve kv {kv}', engine, marks, arm['forward_passes'], arm['prefill_dispatches']))
+        shut_down(torch, f'serve kv {kv}', engine)
         del engine
         torch.cuda.empty_cache()
         if tele['generated_tokens'] != sum(budgets) or [len(t) for t in tokens] != budgets:
@@ -1223,10 +1285,114 @@ def phase_serve_kv_int8(torch, tpa, card, cfg):
         fail(f'int8 KV pool is {ratio:.4f} of the bf16 pool, expected under 0.51')
     keep = ('tokens_per_s', 'wall_s', 'kv_cache_dtype', 'kv_pool_bytes', 'kv_pool_gib',
             'gib', 'peak_gib', 'forward_passes', 'prefill_dispatches', 'launches',
-            'launches_by_route', 'launches_by_kv')
+            'launches_by_route', 'launches_by_kv', 'decode_graph_replays',
+            'decode_graph_capture_s', 'graph_pool_mib')
     return dict(bf16={k: bf16[k] for k in keep}, int8={k: q8[k] for k in keep},
                 pool_bytes_ratio=ratio, int8_capacity_blocks=capacity_blocks,
                 greedy_match=match, first_token_match=first)
+
+
+# ------------------------------------------------------------- phase 6c
+GRAPH_ROWS, GRAPH_STEPS, GRAPH_CONTEXT = 8, 8, 1024
+
+
+def phase_graph_window(torch, tpa, card, cfg):
+    """One decode window at full width through the engine's captured
+    graphs and through the eager ``mistral.decode_loop``: 8 rows of about
+    1024 keys (a pool of N(0, 1) K/V made on the card, seed 0), 8 steps,
+    greedy and then sampled rows. Tokens and every pool byte outside the
+    trash block must be identical; wall ms a step of each is timed over 3
+    windows from the same pool (a window rewrites the same slots with the
+    same values, so it can be repeated)."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine
+    from distllm_tpu_torch.models import mistral
+
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                          device=DEVICE)
+    engine = LLMEngine(cfg, params, None, EngineConfig(
+        block_size=BLOCK_SIZE, num_blocks=1024, max_num_seqs=GRAPH_ROWS,
+        max_model_len=2048, decode_steps=GRAPH_STEPS,
+    ), device=DEVICE)
+    del params
+    engine.warmup()
+    capture_s = engine.stats['decode_graph_capture_s']
+    pool_mib = engine.graph_pool_bytes / 2**20
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for plane in (engine.kv.k, engine.kv.v):
+        plane.copy_(torch.randn(plane.shape, generator=gen, device=DEVICE,
+                                dtype=torch.float32).to(plane.dtype))
+    del plane
+    rng = np.random.default_rng(6)
+    b, mb = GRAPH_ROWS, engine.max_blocks_per_seq
+    pos = (GRAPH_CONTEXT - 1 - rng.integers(0, 16, size=b)).astype(np.int32)
+    pages = -(-(pos + GRAPH_STEPS + 1) // BLOCK_SIZE)
+    bt = np.zeros((b, mb), np.int32)
+    free = rng.permutation(np.arange(1, 1024))
+    at = 0
+    for row, n in enumerate(pages):
+        bt[row, :n] = free[at:at + n]
+        at += n
+    ids = rng.integers(4, cfg.vocab_size, size=b).astype(np.int32)
+    steps = np.full((b,), GRAPH_STEPS, np.int32)
+    steps[-1] = GRAPH_STEPS // 2  # one row's budget ends mid-window
+    inputs = {
+        'greedy': (np.zeros(b, np.float32), np.ones(b, np.float32)),
+        'sampled': (np.full(b, 0.8, np.float32), np.full(b, 0.95, np.float32)),
+    }
+    results = {}
+    for kind, (temp, top_p) in inputs.items():
+        seeds = rng.integers(0, 2**32, size=b).astype(np.int64)
+        host = (ids, pos, pos + 1, bt, steps, temp, top_p, np.zeros(b, np.float32),
+                np.zeros(b, np.int32), seeds)
+        eager_pool = [engine.kv.k.clone(), engine.kv.v.clone()]
+        graph_ms, eager_ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine._decode.load(*host)
+            tokens = engine._decode.run(GRAPH_STEPS, all_greedy=kind == 'greedy')
+            graph_tokens = tokens.cpu()
+            graph_ms.append((time.perf_counter() - t0) * 1e3 / GRAPH_STEPS)
+        dev = [torch.from_numpy(np.asarray(x)).to(DEVICE) for x in host]
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager = mistral.decode_loop(
+                engine.params, engine.model_cfg, dev[0], dev[1], *eager_pool,
+                dev[3], dev[2], *dev[4:], num_steps=GRAPH_STEPS,
+                max_table_positions=engine.config.max_model_len,
+                all_greedy=kind == 'greedy',
+            )[0]
+            eager_tokens = eager.cpu()
+            eager_ms.append((time.perf_counter() - t0) * 1e3 / GRAPH_STEPS)
+        same_tokens = all(
+            torch.equal(graph_tokens[:n, row], eager_tokens[:n, row])
+            for row, n in enumerate(steps)
+        )
+        same_pool = all(
+            torch.equal(card[:, 1:], ref[:, 1:])
+            for card, ref in zip((engine.kv.k, engine.kv.v), eager_pool)
+        )
+        diff = max(
+            float((card[:, 1:].float() - ref[:, 1:].float()).abs().max())
+            for card, ref in zip((engine.kv.k, engine.kv.v), eager_pool)
+        )
+        del eager_pool
+        log(f'[graph window {kind}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, '
+            f'{cfg.dtype}, {b} rows of {int(pos.min()) + 1}..'
+            f'{int(pos.max()) + 1} keys, {GRAPH_STEPS} steps on {card}: graph '
+            f'{", ".join(f"{x:.3f}" for x in graph_ms)} ms a step, eager '
+            f'{", ".join(f"{x:.3f}" for x in eager_ms)} ms a step; tokens identical='
+            f'{same_tokens}, pool bytes identical={same_pool} (max |diff| {diff})')
+        if not (same_tokens and same_pool):
+            fail(f'graph window ({kind}): replayed graph and eager decode_loop differ '
+                 f'(tokens identical={same_tokens}, pool identical={same_pool})')
+        results[kind] = dict(graph_ms_per_step=graph_ms, eager_ms_per_step=eager_ms)
+    log(f'[graph window] capture {capture_s:.3f} s for 2 graphs, graph pool '
+        f'{pool_mib:.1f} MiB')
+    shut_down(torch, 'graph window', engine)
+    del engine
+    return dict(results, capture_s=capture_s, graph_pool_mib=pool_mib)
 
 
 # ------------------------------------------------------------ phases 8-9
@@ -1256,10 +1422,14 @@ def phase_identity(torch, tpa, cfg):
         engine = LLMEngine(
             cfg, params, None, engine_cfg, device=DEVICE, attn_backend=backend
         )
+        engine.warmup()  # both arms replay their own graphs
+        marks = graph_marks(engine)
         tpa.ragged_paged_attention.launches = 0
         tpa.ragged_paged_attention_reference.launches = 0
         outs[backend] = engine.generate_ids(prompts, sampling)
         passes = engine.telemetry['forward_passes']
+        check_graph_replays(f'identity {backend}', engine, marks, passes,
+                            engine.telemetry['prefill_dispatches'])
         counted = (
             tpa.ragged_paged_attention.launches if backend == 'auto'
             else tpa.ragged_paged_attention_reference.launches
@@ -1267,7 +1437,7 @@ def phase_identity(torch, tpa, cfg):
         if counted != cfg.num_layers * passes:
             fail(f'identity ({backend}): {counted} attention calls for '
                  f'{passes} passes')
-        engine.shutdown()
+        shut_down(torch, f'identity {backend}', engine)
     same = outs['auto'] == outs['reference']
     log(f'[identity] fp32 depth-2 full width, 6 prompts x 24 greedy tokens: '
         f'kernel vs plain op identical={same}')
@@ -1307,12 +1477,16 @@ def phase_identity_kv_int8(torch, tpa, cfg):
         engine = LLMEngine(
             cfg, params, None, engine_cfg, device=DEVICE, attn_backend=backend
         )
+        engine.warmup()
+        marks = graph_marks(engine)
         tpa.ragged_paged_attention.launches = 0
         tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
         tpa.ragged_paged_attention.launches_by_kv = dict.fromkeys(tpa.KV_MODES, 0)
         tpa.ragged_paged_attention_reference.launches = 0
         outs[backend] = engine.generate_ids(prompts, sampling)
         passes = engine.telemetry['forward_passes']
+        check_graph_replays(f'identity kv int8 {backend}', engine, marks, passes,
+                            engine.telemetry['prefill_dispatches'])
         kernel = tpa.ragged_paged_attention
         counted, other = kernel.launches, tpa.ragged_paged_attention_reference.launches
         if backend == 'reference':
@@ -1328,7 +1502,7 @@ def phase_identity_kv_int8(torch, tpa, cfg):
                  'int8 mode on the CUDA cores')
         if engine.telemetry['kv_cache_dtype'] != 'int8':
             fail(f'int8 KV identity: telemetry {engine.telemetry["kv_cache_dtype"]}')
-        engine.shutdown()
+        shut_down(torch, f'identity kv int8 {backend}', engine)
     same = outs['auto'] == outs['reference']
     log(f'[identity kv int8] fp32 depth-2 full width, int8 KV pool, 6 prompts x 24 '
         f'greedy tokens: K1 int8 mode (CUDA-core route) vs plain op identical={same}')
@@ -1367,11 +1541,15 @@ def phase_identity_int8(torch, tqm, cfg):
         engine = LLMEngine(
             cfg, params, None, engine_cfg, device=DEVICE, qmm_backend=backend
         )
+        engine.warmup()
+        marks = graph_marks(engine)
         tqm.int8_matmul.launches = 0
         tqm.int8_matmul.launches_by_route = dict.fromkeys(tqm.ROUTES, 0)
         tqm.int8_matmul_reference.launches = 0
         outs[backend] = engine.generate_ids(prompts, sampling)
         passes = engine.telemetry['forward_passes']
+        check_graph_replays(f'identity int8 {backend}', engine, marks, passes,
+                            engine.telemetry['prefill_dispatches'])
         counted = (
             tqm.int8_matmul.launches if backend == 'auto'
             else tqm.int8_matmul_reference.launches
@@ -1387,7 +1565,7 @@ def phase_identity_int8(torch, tqm, cfg):
             fail(f'int8 identity ({backend}): K2 routes '
                  f'{tqm.int8_matmul.launches_by_route}; every fp32 launch belongs '
                  f'on the CUDA cores')
-        engine.shutdown()
+        shut_down(torch, f'identity int8 {backend}', engine)
     same = outs['auto'] == outs['reference']
     log(f'[identity int8] fp32 depth-2 full width, int8 weights quantized on '
         f'the card, 6 prompts x 24 greedy tokens: K2 (CUDA-core route) vs '
@@ -1709,6 +1887,8 @@ def main() -> None:
     serve_q = phase_serve(torch, tpa, smi, MistralConfig(), tqm=tqm, quantization='int8')
     # 6b. serve with an int8 KV pool: bf16 and int8 KV arms, same weights
     serve_kv = phase_serve_kv_int8(torch, tpa, smi, MistralConfig())
+    # 6c. one full-width decode window: captured graph vs eager decode_loop
+    graph_window = phase_graph_window(torch, tpa, smi, MistralConfig())
     # 8. identity: full width, depth 2, fp32, K1 and then K2 vs plain;
     # 8b. K1's int8-KV mode vs plain
     phase_identity(torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
@@ -1860,6 +2040,7 @@ def main() -> None:
         f'embeddings/s bf16, {embed_q["embeddings_per_s"]:.1f} int8; '
         f'{time.perf_counter() - t_start:.1f} s total')
     log(f'[serve kv] {json.dumps(serve_kv)}')
+    log(f'[graph window] {json.dumps(graph_window)}')
     if not all(math.isfinite(c['ms']) for c in cases + int8_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')
     print(json.dumps({'kernels': kernels}))

@@ -6,7 +6,10 @@ Messages render through :class:`~distllm_tpu_torch.chat.ConversationPromptTempla
 and every request goes through ONE worker thread that owns the generator
 and its engine — the engine's scheduler and KV pool are not thread-safe,
 and concurrency comes from the engine's batching, not from threads. The
-HTTP threads only parse, wait and answer. Retrieval, streaming, drain,
+HTTP threads only parse, wait and answer. The generator captured its
+decode graphs when it was built (``TorchGenerator`` warms its engine up
+in the constructing thread, before this server's threads exist), so the
+worker only replays them. Retrieval, streaming, drain,
 metrics and the debug routes wait for later slices.
 
 Run (random-init Mistral weights on the GPU; ``--num-layers`` cuts depth)::

@@ -1,0 +1,352 @@
+"""The decode window as one device program: one decode step captured as a
+CUDA graph and replayed once per step of every window — the port's
+counterpart of the JAX engine's jitted ``lax.scan`` window
+(``distllm_tpu.models.mistral.decode_loop``, compiled once at fixed
+shapes).
+
+:class:`DecodeGraphRunner` owns, for one engine:
+
+- static device buffers for every window input (``ids``, ``positions``,
+  ``context_lens``, ``block_tables [max_num_seqs, max_blocks_per_seq]``,
+  ``steps_left``, ``temperature``, ``top_p``, ``min_p``, ``top_k``,
+  ``seeds``) and the window's step counter, all views of ONE device
+  buffer that :meth:`~DecodeGraphRunner.load` fills from one pinned host
+  buffer in one non-blocking copy;
+- the carry: ``ids``, ``positions``, ``context_lens`` and ``steps_left``
+  are advanced in place by each step
+  (:func:`~distllm_tpu_torch.models.mistral.decode_window_step`), and the
+  next window's copy overwrites them;
+- the token buffer ``[decode_steps, max_num_seqs]`` (each step writes its
+  row, picked by the device-side step counter) and the RoPE tables, made
+  once per engine;
+- on CUDA, one captured graph per value of ``all_greedy`` (greedy rows
+  skip the sampling filter), both captured by
+  :meth:`~DecodeGraphRunner.warmup` into one private memory pool.
+
+:meth:`~DecodeGraphRunner.run` replays the graph ``num_steps`` times on
+CUDA: no Python per layer and no kernel wrapper's host work. On the CPU it
+runs the same step eagerly over the same buffers (how the tests reach the
+buffer and carry logic without a card). On CUDA it always replays: a
+capture or replay that fails raises with the CUDA error, and nothing
+gives way to the eager step.
+
+Kernel counters. The kernel wrappers tick Python counters as they launch
+(``launches``, ``launches_by_route``, ``launches_by_kv``, and the plain
+versions' ``launches``; each ops module lists its own in ``COUNTERS``); a
+replay runs no Python. :func:`capture_step` records each counter's change
+while the step is captured, takes it back (a capture launches nothing),
+and :class:`CapturedStep` adds it once per replay, so the counts stay
+those of kernels launched on the device.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import Counter
+
+import numpy as np
+import torch
+
+from distllm_tpu_torch.models import mistral
+from distllm_tpu_torch.ops import encoder_attention, paged_attention, quantized_matmul
+
+# Every kernel counter of the port, each list kept by the module that
+# ticks it: (function, attribute), the value an int or a dict of ints.
+COUNTERS = (
+    paged_attention.COUNTERS + quantized_matmul.COUNTERS + encoder_attention.COUNTERS
+)
+
+
+def read_counters() -> list:
+    """A copy of every counter of :data:`COUNTERS`, in order."""
+    return [
+        dict(value) if isinstance(value, dict) else value
+        for value in (getattr(fn, name) for fn, name in COUNTERS)
+    ]
+
+
+def counter_delta(before: list, after: list) -> list:
+    """``after - before`` per counter (dicts key by key)."""
+    return [
+        {key: count - b.get(key, 0) for key, count in a.items()}
+        if isinstance(a, dict) else a - b
+        for b, a in zip(before, after)
+    ]
+
+
+def add_counters(delta: list, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` to the live counters, dicts in place (a
+    caller may have rebound a dict since the capture: the current one is
+    updated)."""
+    for (fn, name), change in zip(COUNTERS, delta):
+        if isinstance(change, dict):
+            counts = getattr(fn, name)
+            for key, count in change.items():
+                if count:
+                    counts[key] = counts.get(key, 0) + times * count
+        elif change:
+            setattr(fn, name, getattr(fn, name) + times * change)
+
+
+class CapturedStep:
+    """A captured decode step: :meth:`replay` launches the graph and adds
+    the counters' captured change once."""
+
+    def __init__(self, graph, delta: list) -> None:
+        self.graph = graph
+        self.delta = delta
+
+    def replay(self) -> None:
+        self.graph.replay()
+        add_counters(self.delta)
+
+
+def capture_step(step, graph, capturing) -> CapturedStep:
+    """Run ``step()`` inside the context ``capturing`` (on CUDA,
+    ``torch.cuda.graph(graph, ...)``) and return it as a
+    :class:`CapturedStep`, with the counters as they were before (what the
+    wrappers counted was captured, not launched), whether or not the
+    capture succeeds."""
+    before = read_counters()
+    try:
+        with capturing:
+            step()
+    finally:
+        delta = counter_delta(before, read_counters())
+        add_counters(delta, times=-1)
+    return CapturedStep(graph, delta)
+
+
+# One side stream per device for warm-up steps and captures, shared by
+# every engine: PyTorch keeps a cuBLAS workspace for each stream that ran a
+# product, for the life of the process, so a stream per engine would leak
+# one workspace per engine.
+_capture_streams: dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> 'torch.cuda.Stream':
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = _capture_streams.get(index)
+    if stream is None:
+        stream = _capture_streams[index] = torch.cuda.Stream(index)
+    return stream
+
+
+class DecodeGraphRunner:
+    """Static buffers, the carry and the captured decode step of one
+    engine (see the module docstring). ``k_cache`` / ``v_cache`` are the
+    engine's pools (bare tensors or ``QuantizedKV``), written in place;
+    ``stats`` is the engine's counter, which gains
+    ``decode_graph_captures``, ``decode_graph_replays`` and
+    ``decode_graph_capture_s``."""
+
+    def __init__(
+        self,
+        params: dict,
+        model_cfg: mistral.MistralConfig,
+        k_cache,
+        v_cache,
+        *,
+        max_num_seqs: int,
+        max_blocks_per_seq: int,
+        decode_steps: int,
+        max_table_positions: int,
+        attn_backend: str,
+        device: torch.device,
+        stats: Counter | None = None,
+    ) -> None:
+        self.params = params
+        self.model_cfg = model_cfg
+        self.k_cache, self.v_cache = k_cache, v_cache
+        self.attn_backend = attn_backend
+        self.device = device
+        self.decode_steps = decode_steps
+        self.stats = Counter() if stats is None else stats
+        b, mb = max_num_seqs, max_blocks_per_seq
+        # (name, dtype, shape): the 8-byte fields first, so each int64 view
+        # of the int32 buffer starts on an 8-byte boundary.
+        fields = (
+            ('seeds', torch.int64, (b,)),
+            ('step', torch.int64, (1,)),
+            ('ids', torch.int32, (b,)),
+            ('positions', torch.int32, (b,)),
+            ('context_lens', torch.int32, (b,)),
+            ('steps_left', torch.int32, (b,)),
+            ('top_k', torch.int32, (b,)),
+            ('temperature', torch.float32, (b,)),
+            ('top_p', torch.float32, (b,)),
+            ('min_p', torch.float32, (b,)),
+            ('block_tables', torch.int32, (b, mb)),
+        )
+        spans, words = [], 0
+        for name, dtype, shape in fields:
+            n = int(np.prod(shape)) * dtype.itemsize // 4
+            spans.append((name, dtype, shape, words, n))
+            words += n
+        pinned = device.type == 'cuda'
+        self._host = torch.zeros(words, dtype=torch.int32, pin_memory=pinned)
+        self._dev = torch.zeros(words, dtype=torch.int32, device=device)
+        host = self._host.numpy()
+        self._host_views = {
+            name: host[at:at + n].view(np.dtype(str(dtype).removeprefix('torch.'))).reshape(shape)
+            for name, dtype, shape, at, n in spans
+        }
+        self.buffers = {
+            name: self._dev[at:at + n].view(dtype).view(shape)
+            for name, dtype, shape, at, n in spans
+        }
+        self.token = torch.zeros(b, dtype=torch.int32, device=device)
+        self.tokens = torch.zeros((decode_steps, b), dtype=torch.int32, device=device)
+        self.cos, self.sin = mistral._rope_tables(model_cfg, max_table_positions, device)
+        self._copied = None  # event after the last staging copy (CUDA)
+        self.graphs: dict[bool, CapturedStep] = {}
+        self._warm = False
+        self._pool = None
+        self._stream = None
+        self.pool_bytes = 0
+
+    @property
+    def ready(self) -> bool:
+        """Whether :meth:`run` can serve a window: on the CPU always, on
+        CUDA once :meth:`warmup` has captured both graphs."""
+        return self.device.type != 'cuda' or len(self.graphs) == 2
+
+    # ---------------------------------------------------------------- inputs
+    def load(
+        self,
+        ids: np.ndarray,
+        positions: np.ndarray,
+        context_lens: np.ndarray,
+        block_tables: np.ndarray,
+        steps_left: np.ndarray,
+        temperature: np.ndarray,
+        top_p: np.ndarray,
+        min_p: np.ndarray,
+        top_k: np.ndarray,
+        seeds: np.ndarray,
+    ) -> None:
+        """Stage one window's inputs (``[max_num_seqs]`` each,
+        ``block_tables [max_num_seqs, max_blocks_per_seq]``) into the
+        static buffers: one pinned host buffer, one non-blocking copy. The
+        step counter restarts at 0."""
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy has read the host buffer
+        views = self._host_views
+        for name, value in (
+            ('ids', ids), ('positions', positions), ('context_lens', context_lens),
+            ('block_tables', block_tables), ('steps_left', steps_left),
+            ('temperature', temperature), ('top_p', top_p), ('min_p', min_p),
+            ('top_k', top_k), ('seeds', seeds),
+        ):
+            views[name][...] = value
+        views['step'][...] = 0
+        self._dev.copy_(self._host, non_blocking=True)
+        if self.device.type == 'cuda':
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+    def _load_trash(self) -> None:
+        """Inputs that touch no state: every table row at the trash block
+        0 and ``steps_left = 0``, so every KV write lands in block 0."""
+        b, mb = self.buffers['block_tables'].shape
+        zeros = np.zeros((b,), np.int32)
+        self.load(
+            zeros, zeros, np.ones((b,), np.int32), np.zeros((b, mb), np.int32),
+            zeros, np.zeros((b,), np.float32), np.ones((b,), np.float32),
+            np.zeros((b,), np.float32), zeros, np.zeros((b,), np.int64),
+        )
+
+    # ------------------------------------------------------------------ step
+    def _step(self, all_greedy: bool) -> None:
+        """One decode+sample step over the static buffers: the carry
+        advances in place and the token lands in row ``step`` of
+        ``tokens``."""
+        buf = self.buffers
+        mistral.decode_window_step(
+            self.params, self.model_cfg, self.k_cache, self.v_cache,
+            buf['block_tables'], buf['ids'], buf['positions'], buf['context_lens'],
+            buf['steps_left'], buf['temperature'], buf['top_p'], buf['min_p'],
+            buf['top_k'], buf['seeds'], self.token, self.cos, self.sin,
+            attn_backend=self.attn_backend, all_greedy=all_greedy,
+        )
+        self.tokens.index_copy_(0, buf['step'], self.token[None])
+        buf['step'].add_(1)
+
+    def warmup(self) -> None:
+        """Build the decode window outside the request path. On CUDA: run
+        one eager step of each kind on trash-block inputs with
+        ``steps_left = 0`` — PyTorch's rule before a capture; it also builds
+        every kernel the step launches (``ops._build``, at first use),
+        loads it and makes K1's split tickets outside any capture — then
+        capture the greedy and the sampled step. On the CPU the eager
+        steps alone. Scheduler state, the pool outside block 0 and every
+        sampling stream stay as they were."""
+        if self._warm:
+            return
+        if self.device.type != 'cuda':
+            self._load_trash()
+            for all_greedy in (True, False):
+                self._step(all_greedy)
+            self._warm = True
+            return
+        with torch.cuda.device(self.device):
+            self._stream = _capture_stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+            self._load_trash()
+            self._stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self._stream):
+                for all_greedy in (True, False):
+                    self._step(all_greedy)
+            torch.cuda.current_stream().wait_stream(self._stream)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            try:
+                for all_greedy in (True, False):
+                    graph = torch.cuda.CUDAGraph()
+                    self.graphs[all_greedy] = capture_step(
+                        lambda g=all_greedy: self._step(g), graph,
+                        torch.cuda.graph(graph, pool=self._pool, stream=self._stream),
+                    )
+                    self.stats['decode_graph_captures'] += 1
+                torch.cuda.synchronize()
+            except BaseException:
+                self._release()
+                raise
+            self.stats['decode_graph_capture_s'] += time.perf_counter() - t0
+            self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self._warm = True
+
+    def run(self, num_steps: int, all_greedy: bool) -> torch.Tensor:
+        """``num_steps`` decode steps over the loaded window: graph
+        replays on CUDA (after :meth:`warmup`; raises without it), the
+        eager step on the CPU. Returns ``tokens [num_steps, max_num_seqs]``
+        int32, a view of the token buffer valid until the next window."""
+        if not 0 < num_steps <= self.decode_steps:
+            raise ValueError(f'num_steps must be in 1..{self.decode_steps}, got {num_steps}')
+        if self.device.type != 'cuda':
+            for _ in range(num_steps):
+                self._step(all_greedy)
+            return self.tokens[:num_steps]
+        captured = self.graphs.get(all_greedy)
+        if captured is None:
+            raise RuntimeError('the decode graphs are not captured: call warmup() first')
+        with torch.cuda.device(self.device):
+            for _ in range(num_steps):
+                captured.replay()
+        self.stats['decode_graph_replays'] += num_steps
+        return self.tokens[:num_steps]
+
+    def _release(self) -> None:
+        for captured in self.graphs.values():
+            captured.graph.reset()
+        self.graphs.clear()
+        self._pool = self._stream = None
+        self.pool_bytes = 0
+
+    def close(self) -> None:
+        """Release the graphs and their memory pool."""
+        self._release()
+        self._copied = None
+        self.params = self.k_cache = self.v_cache = None

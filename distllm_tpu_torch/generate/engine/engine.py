@@ -8,9 +8,16 @@
   tails — so every dispatch reaches the paged-attention kernel. Same-bucket
   prompts prefill together in one padded dispatch.
 - **decode**: one window generates up to ``decode_steps`` tokens for the
-  whole running batch (``max_num_seqs`` slots) with
-  :func:`~distllm_tpu_torch.models.mistral.decode_loop`; the sampled tokens
-  stay on the device and the host fetches them once per window.
+  whole running batch (``max_num_seqs`` slots) through the engine's
+  :class:`~distllm_tpu_torch.generate.engine.decode_graph.DecodeGraphRunner`:
+  the window's inputs go to static device buffers in one copy, and on the
+  GPU each step replays one captured CUDA graph of
+  :func:`~distllm_tpu_torch.models.mistral.decode_window_step` (on the CPU
+  the same step runs eagerly; ``mistral.decode_loop`` is its eager twin).
+  The sampled tokens stay on the device and the host fetches them once
+  per window. :meth:`LLMEngine.warmup` builds the kernels and captures the
+  graphs outside the request path; on the GPU the first window calls it
+  if the caller has not.
 - **preemption**: when the pool runs dry mid-decode the youngest request
   is recompute-preempted (blocks freed, re-prefilled on readmission).
 - **weight-only quantization** (``EngineConfig.quantization``): the
@@ -40,6 +47,7 @@ from enum import Enum
 import numpy as np
 import torch
 
+from distllm_tpu_torch.generate.engine.decode_graph import DecodeGraphRunner
 from distllm_tpu_torch.generate.engine.kv_cache import PagedKVCache
 from distllm_tpu_torch.generate.engine.scheduler import (
     PyScheduler,
@@ -243,8 +251,18 @@ class LLMEngine:
         self._finished: dict[int, Request] = {}
         # Cumulative counters over the engine's life: forward_passes (model
         # passes over all layers), prefill_dispatches, decode_windows,
-        # generated_tokens, preemptions.
+        # generated_tokens, preemptions; on the GPU decode_graph_captures,
+        # decode_graph_replays (one per decode step) and
+        # decode_graph_capture_s (the captures' seconds, a float).
         self.stats: Counter[str] = Counter()
+        self._decode = DecodeGraphRunner(
+            self.params, self.model_cfg, self.kv.k, self.kv.v,
+            max_num_seqs=cfg.max_num_seqs,
+            max_blocks_per_seq=self.max_blocks_per_seq,
+            decode_steps=cfg.decode_steps,
+            max_table_positions=cfg.max_model_len,
+            attn_backend=attn_backend, device=self.device, stats=self.stats,
+        )
         # Per-run summary written by generate_ids; the resolved KV storage
         # dtype ('bfloat16', 'float32' or 'int8') from construction on.
         self.telemetry: dict[str, float] = {'kv_cache_dtype': self.kv_cache_dtype}
@@ -389,6 +407,23 @@ class LLMEngine:
             top_k=top_k, all_greedy=all(p.temperature <= 0 for p in params),
         )
 
+    def warmup(self) -> None:
+        """Build the decode window outside the request path (the JAX
+        ``warmup``'s decode-window part): run one eager step of each kind
+        on trash-block inputs with ``steps_left = 0`` (which builds the
+        kernels the step launches), then, on the GPU, capture the greedy
+        and the sampled step as CUDA graphs. Every KV write lands in the
+        trash block 0: the scheduler, the pool's other blocks,
+        ``stats['generated_tokens']`` and every sampling stream stay as
+        they were. Raises if a capture fails."""
+        self._decode.warmup()
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the captured decode graphs' private pool reserved
+        (0 on the CPU)."""
+        return self._decode.pool_bytes
+
     # --------------------------------------------------------------- decode
     def step(self) -> list[tuple[int, int]]:
         """One engine iteration: admit, then generate one window of up to
@@ -463,16 +498,12 @@ class LLMEngine:
         num_steps = max(steps for _, _, steps in plan)
         if num_steps == 0:
             return None
-        tokens, _, _, _ = mistral.decode_loop(
-            self.params, self.model_cfg,
-            *self._put(ids, positions),
-            self.kv.k, self.kv.v,
-            *self._put(block_tables, context_lens, steps_left, temperature,
-                       top_p, min_p, top_k, seeds),
-            num_steps=num_steps,
-            attn_backend=self.attn_backend,
-            max_table_positions=self.config.max_model_len,
-            all_greedy=all(r.params.temperature <= 0 for _, r in running),
+        if not self._decode.ready:
+            self.warmup()  # the first window on the GPU captures the graphs
+        self._decode.load(ids, positions, context_lens, block_tables, steps_left,
+                          temperature, top_p, min_p, top_k, seeds)
+        tokens = self._decode.run(
+            num_steps, all(r.params.temperature <= 0 for _, r in running)
         )
         self.stats['forward_passes'] += num_steps
         self.stats['decode_windows'] += 1
@@ -542,7 +573,10 @@ class LLMEngine:
             torch.cuda.synchronize(self.device)
         loop_s = time.perf_counter() - start
         run = self.stats - before
-        self.telemetry = {key: int(value) for key, value in run.items()}
+        self.telemetry = {
+            key: value if isinstance(value, float) else int(value)
+            for key, value in run.items()
+        }
         self.telemetry.update(
             quantization=self.config.quantization,
             qmm_backend=self.qmm_backend,
@@ -577,5 +611,8 @@ class LLMEngine:
         return [self.tokenizer.decode(out) for out in outputs]
 
     def shutdown(self) -> None:
+        """Drop the weights, the pool and the decode graphs with their
+        memory pool."""
+        self._decode.close()
         self.params = None
         self.kv = None

@@ -8,8 +8,9 @@ weights made on the device from ``seed``, or params bridged from the JAX
 package (:func:`~distllm_tpu_torch.models.mistral.params_from_jax`).
 ``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
 bitsandbytes flag) serves weight-only quantized weights: int8 projections
-run through kernel K2. Loading an HF checkpoint and tokenizer waits until
-such files are in the repository.
+run through kernel K2. The engine is warmed up at construction (its
+decode graphs captured on the GPU). Loading an HF checkpoint and
+tokenizer waits until such files are in the repository.
 """
 
 from __future__ import annotations
@@ -99,6 +100,11 @@ class TorchGenerator:
             device=device, attn_backend=attn_backend, qmm_backend=qmm_backend,
             own_params=own_params,
         )
+        # Capture the decode graphs here, in the constructing thread, before
+        # any server thread exists: a capture must see no other thread's
+        # device work, and the chat server's engine worker then only
+        # replays (a replay is safe from any thread, on its current stream).
+        self.engine.warmup()
 
     def sampling_params(self) -> SamplingParams:
         return SamplingParams(

@@ -18,12 +18,14 @@ and scales together, and ``common.dense`` sends a 2-D int8 one through
 kernel K2 with the tier ``MistralConfig.qmm_backend``.
 
 Serving paths: :func:`prefill_paged` (a prompt tail written into the pool,
-then attended through the paged cache), :func:`decode_step` and the
-fused :func:`decode_loop` (``num_steps`` decode+sample steps with the
-sampled tokens kept on the device). Every one of them reaches attention
-through ``ops.paged_attention`` — the CUDA kernel for CUDA tensors,
-the plain op for CPU tensors; ``attn_backend='reference'`` pins the plain
-op on any device (the card-side identity check).
+then attended through the paged cache), :func:`decode_step`,
+:func:`decode_window_step` (one decode+sample step writing its carry in
+place, the unit a CUDA graph captures) and the fused :func:`decode_loop`
+(``num_steps`` such steps with the sampled tokens kept on the device).
+Every one of them reaches attention through ``ops.paged_attention`` —
+the CUDA kernel for CUDA tensors, the plain op for CPU tensors;
+``attn_backend='reference'`` pins the plain op on any device (the
+card-side identity check).
 
 The pool planes ``[L, num_blocks, block_size, N_kv, Hd]`` are written IN
 PLACE (the JAX functions are pure and return new caches); the functions
@@ -388,6 +390,56 @@ def decode_step(
     )
 
 
+def decode_window_step(
+    params: dict,
+    cfg: MistralConfig,
+    k_cache,
+    v_cache,
+    block_tables: torch.Tensor,  # [B, max_blocks] — covers the window
+    ids: torch.Tensor,  # [B] carry: last emitted token per slot
+    pos: torch.Tensor,  # [B] carry: 0-based index of that token
+    ctx: torch.Tensor,  # [B] carry: valid tokens incl. that token
+    live_steps: torch.Tensor,  # [B] carry: tokens this slot may still emit
+    temperature: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    min_p: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B] (0 disables)
+    seeds: torch.Tensor,  # [B] per-request sampling seeds
+    token_out: torch.Tensor,  # [B] int32: receives this step's token
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    attn_backend: str = 'auto',
+    all_greedy: bool = False,
+) -> None:
+    """One fused decode+sample step of a window, every result written IN
+    PLACE into tensors the caller owns: the carry (``ids``, ``pos``,
+    ``ctx``, ``live_steps``) by ``copy_``, the pool by the KV writes, the
+    step's token into ``token_out``. Nothing is rebound and nothing read
+    back, so the step can be captured once as a CUDA graph and replayed
+    over the same buffers (``generate.engine.decode_graph``).
+
+    A slot with ``live_steps <= 0`` routes its KV write to the trash block
+    0 and does not advance; its token is garbage the host discards.
+    """
+    live = live_steps > 0
+    # Out-of-budget slots write to the trash block and stop advancing.
+    bt_eff = torch.where(live[:, None], block_tables, 0)
+    step_logits, _, _ = _decode_core(
+        params, cfg, ids, pos, k_cache, v_cache, bt_eff, ctx, cos, sin,
+        attn_backend,
+    )
+    # The token produced this step sits at absolute index pos + 1.
+    token = sample_tokens(
+        step_logits, temperature, top_p, min_p,
+        fold_row_keys(seeds, pos + 1), top_k=top_k, all_greedy=all_greedy,
+    )
+    token_out.copy_(token)
+    ids.copy_(torch.where(live, token, ids))
+    pos.copy_(torch.where(live, pos + 1, pos))
+    ctx.copy_(torch.where(live, ctx + 1, ctx))
+    live_steps.sub_(1)
+
+
 def decode_loop(
     params: dict,
     cfg: MistralConfig,
@@ -408,8 +460,11 @@ def decode_loop(
     max_table_positions: int | None = None,
     all_greedy: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``num_steps`` fused decode+sample steps; each sampled token feeds
-    the next step on the device, and nothing is fetched to the host.
+    """``num_steps`` fused decode+sample steps, eagerly: the loop over
+    :func:`decode_window_step` on copies of the inputs (which stay as they
+    are); each sampled token feeds the next step on the device, and nothing
+    is fetched to the host. The engine replays the same step as a CUDA
+    graph on the card; this is its eager twin.
 
     Slots whose ``steps_left`` runs out mid-window route their KV writes
     to the trash block 0 and stop advancing; their later tokens are
@@ -419,25 +474,16 @@ def decode_loop(
     """
     table_len = max_table_positions or cfg.max_position_embeddings
     cos, sin = _rope_tables(cfg, table_len, input_ids.device)
-    ids, pos, ctx = input_ids, positions, context_lens
-    live_steps = steps_left
-    tokens = []
-    for _ in range(num_steps):
-        live = live_steps > 0
-        # Out-of-budget slots write to the trash block and stop advancing.
-        bt_eff = torch.where(live[:, None], block_tables, 0)
-        step_logits, k_cache, v_cache = _decode_core(
-            params, cfg, ids, pos, k_cache, v_cache, bt_eff, ctx, cos, sin,
-            attn_backend,
+    ids, pos, ctx, live_steps = (
+        x.clone() for x in (input_ids, positions, context_lens, steps_left)
+    )
+    tokens = torch.empty(
+        (num_steps, input_ids.shape[0]), dtype=torch.int32, device=input_ids.device
+    )
+    for step in range(num_steps):
+        decode_window_step(
+            params, cfg, k_cache, v_cache, block_tables, ids, pos, ctx,
+            live_steps, temperature, top_p, min_p, top_k, seeds, tokens[step],
+            cos, sin, attn_backend=attn_backend, all_greedy=all_greedy,
         )
-        # The token produced this step sits at absolute index pos + 1.
-        token = sample_tokens(
-            step_logits, temperature, top_p, min_p,
-            fold_row_keys(seeds, pos + 1), top_k=top_k, all_greedy=all_greedy,
-        )
-        ids = torch.where(live, token, ids)
-        pos = torch.where(live, pos + 1, pos)
-        ctx = torch.where(live, ctx + 1, ctx)
-        live_steps = live_steps - 1
-        tokens.append(token)
-    return torch.stack(tokens), k_cache, v_cache, ids
+    return tokens, k_cache, v_cache, ids

@@ -254,3 +254,12 @@ def encoder_attention(
 
 encoder_attention.launches = 0
 encoder_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+# Every launch counter of this module, as (function, attribute): what a
+# CUDA graph that captured launches adds back on each replay
+# (``generate.engine.decode_graph``).
+COUNTERS = (
+    (encoder_attention, 'launches'),
+    (encoder_attention, 'launches_by_route'),
+    (encoder_attention_reference, 'launches'),
+)

@@ -343,16 +343,32 @@ def _sm_count(device_index: int) -> int:
 # The split-KV route's tickets: int32 zeros per device, which every launch
 # leaves at zero. Launches on one device share them, so they must run in
 # stream order (one stream, or a CUDA graph replayed on it): two launches
-# in flight at once on two streams would mix their tickets.
-_split_tickets: dict[int, torch.Tensor] = {}
+# in flight at once on two streams would mix their tickets. Every buffer
+# ever made is kept, the newest (largest) last: a captured graph holds the
+# address of the buffer it saw, so growing adds a buffer and frees none.
+_split_tickets: dict[int, list[torch.Tensor]] = {}
 
 
 def _tickets(device: torch.device, count: int) -> torch.Tensor:
-    tickets = _split_tickets.get(device.index)
-    if tickets is None or tickets.numel() < count:
-        tickets = torch.zeros(max(count, 256), dtype=torch.int32, device=device)
-        _split_tickets[device.index] = tickets
-    return tickets
+    """The device's newest tickets, of at least ``count`` entries. They
+    must outlive every CUDA graph that captured a launch: they are never
+    first allocated inside a capture (the allocation would come from the
+    graph's private pool and dangle once the graph is released), so an
+    eager launch at the same shapes before the capture makes them, and
+    growing them while the stream captures raises; and a buffer that grew
+    out of use stays allocated for the graphs that hold it."""
+    made = _split_tickets.get(device.index)
+    if not made or made[-1].numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f'the split-KV tickets must hold {count} entries but would be '
+                'allocated inside a CUDA graph capture; launch once at these '
+                'shapes before capturing'
+            )
+        size = max(count, 256, 2 * made[-1].numel() if made else 0)
+        made = _split_tickets.setdefault(device.index, [])
+        made.append(torch.zeros(size, dtype=torch.int32, device=device))
+    return made[-1]
 
 
 def comparison_tolerance(
@@ -583,6 +599,16 @@ def ragged_paged_attention(
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 ragged_paged_attention.launches_by_kv = dict.fromkeys(KV_MODES, 0)
+
+# Every launch counter of this module, as (function, attribute): what a
+# CUDA graph that captured launches adds back on each replay
+# (``generate.engine.decode_graph``).
+COUNTERS = (
+    (ragged_paged_attention, 'launches'),
+    (ragged_paged_attention, 'launches_by_route'),
+    (ragged_paged_attention, 'launches_by_kv'),
+    (ragged_paged_attention_reference, 'launches'),
+)
 
 
 def write_token_kv(

@@ -120,7 +120,7 @@ class QTensor:
         high = (self.q >> 4) & 0x0F
         low = self.q & 0x0F
         codes = torch.stack([high, low], dim=-1).reshape(*self.q.shape[:-1], -1)
-        codebook = torch.as_tensor(NF4_CODEBOOK, device=self.q.device).to(dt)
+        codebook = _nf4_codebook(self.q.device, dt)
         values = codebook[codes.long()] * self.scale.to(dt)[..., None]
         lead = self.q.shape[:-2]
         tail = self.shape[-2:]
@@ -130,6 +130,21 @@ class QTensor:
     def __repr__(self) -> str:
         return (f'QTensor({self.kind}, shape={self.shape}, '
                 f'out_dtype={self.out_dtype}, device={self.device})')
+
+
+# The NF4 codebook on each (device, dtype), made once: a host-to-device
+# copy per dequantization would block, and a decode step captured as a
+# CUDA graph may not block. The eager step before a capture makes it.
+_NF4_CODEBOOKS: dict[tuple[str, torch.dtype], torch.Tensor] = {}
+
+
+def _nf4_codebook(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    key = (str(device), dtype)
+    book = _NF4_CODEBOOKS.get(key)
+    if book is None:
+        book = torch.as_tensor(NF4_CODEBOOK, device=device).to(dtype)
+        _NF4_CODEBOOKS[key] = book
+    return book
 
 
 def _int8_slice(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

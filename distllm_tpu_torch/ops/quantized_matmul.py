@@ -307,6 +307,15 @@ def int8_matmul(
 int8_matmul.launches = 0
 int8_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
+# Every launch counter of this module, as (function, attribute): what a
+# CUDA graph that captured launches adds back on each replay
+# (``generate.engine.decode_graph``).
+COUNTERS = (
+    (int8_matmul, 'launches'),
+    (int8_matmul, 'launches_by_route'),
+    (int8_matmul_reference, 'launches'),
+)
+
 
 def int8_dense(
     x: torch.Tensor,  # [..., K]

@@ -98,7 +98,9 @@ def filter_logits(
         (cumulative < top_p.float()[:, None]).sum(dim=-1), max=k - 1
     )
     cutoff_logit = torch.gather(top_vals, 1, cutoff_idx[:, None])
-    neg_inf = torch.tensor(float('-inf'), device=logits.device)
+    # A Python scalar, not a tensor made from one: that would be a
+    # blocking host-to-device copy, which a CUDA graph capture refuses.
+    neg_inf = float('-inf')
     filtered = torch.where(top_vals >= cutoff_logit, top_vals, neg_inf)
     # min-p in log space; log(0) = -inf disables the filter.
     min_p_threshold = top_vals[:, :1] + torch.log(

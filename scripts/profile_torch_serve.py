@@ -8,26 +8,38 @@ Builds the same random-init Mistral-7B bf16 engine as ``chip_smoke.py``
 card so every projection runs through the int8 matmul kernel K2;
 ``--kv-cache-dtype int8`` stores the KV pool as int8 with per-block
 scales, read by K1's int8-KV mode and written by the quantize-at-write
-ops), warms it up, then for each workload runs it twice: once plainly, timed by
-the host clock (wall seconds, tokens/s, wall milliseconds per forward
-pass), and once under ``torch.profiler`` at a reduced token count, summing
-the device time of the CUDA kernels only (profiling inflates the host
-side, not the kernels' device time):
+ops), warms it up (``LLMEngine.warmup``: the decode step captured as two
+CUDA graphs, greedy and sampled; capture seconds and the graph pool's
+MiB are printed with every result), then for each workload runs it
+twice: once plainly, timed by the host clock (wall seconds, tokens/s,
+wall milliseconds per forward pass), and once under ``torch.profiler`` at
+a reduced token count, summing the device time of the CUDA kernels only
+(profiling inflates the host side, not the kernels' device time):
 
 - ``prefill``: 8 prompts of 1024 tokens, one new token each;
 - ``decode``: 8 prompts of 16 tokens, greedy decode windows (128 new
   tokens each timed; 24 each profiled);
 - ``decode_long``: 8 prompts of 1024 tokens, then 64 new greedy tokens
   each (24 profiled): the decode passes alone, at the contexts where
-  attention's share of a pass is largest — each quantity is that of the
-  run minus that of a run of one new token (the prefill passes);
+  attention's share of a pass is largest — wall time from the first
+  decode window's dispatch, device time that of the profiled run minus
+  that of a profiled run of one new token (the prefill passes);
 - ``mixed``: the smoke run's batch — 16 prompts of 16..1024 tokens, 64
   new greedy tokens each (timed only).
 
 Each line of output is one JSON object: device milliseconds per forward
 pass by category (the ragged paged-attention kernel, the int8 matmul
-kernel, other matrix products, everything else), the device's busy share of the plain run's wall time
-(device ms per pass over wall ms per pass) and the top kernels. Needs
+kernel, other matrix products, everything else), the top kernels, and
+the device's busy share of the profiled run: its kernels' device time
+over its own wall time (of its decode windows, for ``decode_long``;
+tracing slows the host, so it reads lower than a plain run's would). Where the engine replays decode graphs, the plain run's own
+share too: CUDA events around each window's replays over the host time
+from its first window's dispatch to its end (``replay_busy_share``,
+``replay_device_ms_per_pass``). Also the decode graph replays of the
+plain run (one per decode pass) and, as the check that the profiler sees
+the kernels a replayed graph launches, the attention kernel's profiled
+launches against layers x profiled passes
+(``attention_launches_profiled`` / ``attention_launches_expected``). Needs
 CUDA; exits nonzero without it.
 
     python3 scripts/profile_torch_serve.py [--layers 32] [--quantization int8]
@@ -78,12 +90,61 @@ def _prompts(rng, n, lo, hi):
     return [' '.join(rng.choice(words, size=int(m))) for m in lengths]
 
 
+class _WindowClock:
+    """Times the decode windows of one run, on the engine it wraps until
+    :meth:`close`: the host clock from the first window's dispatch to the
+    run's end (``decode_wall_s``; every prompt here is admitted and
+    prefilled before the first window), and, where the engine replays
+    decode graphs, CUDA events around each window's replays
+    (``replay_ms``: the device's time on them, the replays queued back to
+    back). Both come from the run they time."""
+
+    def __init__(self, engine) -> None:
+        self.engine, self.first, self.events = engine, None, []
+        self._dispatch = engine._dispatch_window
+        engine._dispatch_window = self._dispatch_window
+        self.runner = getattr(engine, '_decode', None)  # None: the eager window
+        if self.runner is not None:
+            self._replay = self.runner.run
+            self.runner.run = self._run
+
+    def _dispatch_window(self):
+        if self.first is None:
+            self.first = time.perf_counter()
+        return self._dispatch()
+
+    def _run(self, num_steps, all_greedy):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        tokens = self._replay(num_steps, all_greedy)
+        end.record()
+        self.events.append((start, end))
+        return tokens
+
+    def close(self, t_end: float) -> dict:
+        del self.engine._dispatch_window
+        if self.runner is not None:
+            del self.runner.run
+        return {
+            'decode_wall_s': None if self.first is None else t_end - self.first,
+            'replay_ms': None if self.runner is None
+            else sum(a.elapsed_time(b) for a, b in self.events),
+        }
+
+
 def _run(engine, prompts, max_tokens):
+    """Wall seconds, telemetry and the windows' clock (:class:`_WindowClock`)
+    of one greedy run."""
+    clock = _WindowClock(engine)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.generate(prompts, SamplingParams(temperature=0.0, max_tokens=max_tokens))
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, dict(engine.telemetry)
+    try:
+        engine.generate(prompts, SamplingParams(temperature=0.0, max_tokens=max_tokens))
+        torch.cuda.synchronize()
+    finally:
+        t_end = time.perf_counter()
+        windows = clock.close(t_end)
+    return t_end - t0, dict(engine.telemetry), windows
 
 
 def _kernel_times(prof) -> list[tuple[float, int, str]]:
@@ -101,42 +162,64 @@ def _kernel_times(prof) -> list[tuple[float, int, str]]:
     return sorted(rows, reverse=True)
 
 
+def _attention_launches(kernels) -> int:
+    return sum(c for _, c, key in kernels if _category(key) == 'attention_kernel')
+
+
 def _profiled(engine, prompts, max_tokens):
-    """Device µs by category and launches of one profiled run (CUDA
-    kernels only), and the run's telemetry."""
+    """Device µs by category, launches and attention-kernel launches of
+    one profiled run (CUDA kernels only), the run's telemetry and its
+    windows' clock."""
     activities = [
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA,
     ]
     with torch.profiler.profile(activities=activities) as prof:
-        _, tele = _run(engine, prompts, max_tokens)
+        wall_s, tele, windows = _run(engine, prompts, max_tokens)
     kernels = _kernel_times(prof)
     by_cat: dict[str, float] = {}
     for us, _, key in kernels:
         by_cat[_category(key)] = by_cat.get(_category(key), 0.0) + us
-    return by_cat, sum(c for _, c, _ in kernels), tele
+    return {'by_cat': by_cat, 'launches': sum(c for _, c, _ in kernels),
+            'attention': _attention_launches(kernels), 'kernels': kernels,
+            'wall_s': wall_s, 'tele': tele, 'windows': windows}
+
+
+def _replay_shares(result, windows, replays) -> None:
+    """The replayed graphs' device ms a decode pass and busy share of the
+    plain run's decode windows, both from that run's clock (graph engines
+    only)."""
+    if windows['replay_ms'] is not None and replays:
+        result['replay_device_ms_per_pass'] = windows['replay_ms'] / replays
+        result['replay_busy_share'] = windows['replay_ms'] / (windows['decode_wall_s'] * 1e3)
 
 
 def measure_decode_only(engine, name, prompts, max_tokens, profiled_tokens):
-    """The decode passes after long prompts: wall time, device time by
-    category and launches of a run of ``max_tokens`` new tokens (profiled:
-    ``profiled_tokens``) minus those of a run of one new token, whose only
-    passes are the prefill's."""
-    base_s, base = _run(engine, prompts, 1)
-    wall_s, tele = _run(engine, prompts, max_tokens)
-    passes = tele['forward_passes'] - base['forward_passes']
+    """The decode passes after long prompts. Wall time: the host clock from
+    the first decode window's dispatch to the run's end (every prompt is
+    prefilled before it). Device time by category and launches: a
+    profiled run of ``profiled_tokens`` new tokens minus one of one new
+    token, whose only passes are the prefill's. The busy share divides
+    those kernels' time by the profiled run's own decode windows' wall
+    time."""
+    _, tele, windows = _run(engine, prompts, max_tokens)
+    passes = tele['forward_passes'] - tele['prefill_dispatches']
+    replays = tele.get('decode_graph_replays', 0)
+    decode_s = windows['decode_wall_s']
     result = {
         'workload': name,
         'prompts': len(prompts),
         'new_tokens_each': max_tokens,
         'decode_passes': passes,
-        'decode_tokens_per_s': (tele['generated_tokens'] - base['generated_tokens'])
-        / (wall_s - base_s),
-        'wall_ms_per_pass': (wall_s - base_s) / passes * 1e3,
+        'decode_tokens_per_s': (tele['generated_tokens'] - len(prompts)) / decode_s,
+        'wall_ms_per_pass': decode_s / passes * 1e3,
+        'decode_graph_replays': replays,
     }
-    cats0, launches0, tele0 = _profiled(engine, prompts, 1)
-    cats1, launches1, tele1 = _profiled(engine, prompts, profiled_tokens)
-    ppasses = tele1['forward_passes'] - tele0['forward_passes']
+    _replay_shares(result, windows, replays)
+    p0 = _profiled(engine, prompts, 1)
+    p1 = _profiled(engine, prompts, profiled_tokens)
+    ppasses = p1['tele']['forward_passes'] - p0['tele']['forward_passes']
+    cats0, cats1 = p0['by_cat'], p1['by_cat']
     by_cat = {k: (cats1.get(k, 0.0) - cats0.get(k, 0.0)) / 1e3 / ppasses
               for k in sorted(set(cats0) | set(cats1))}
     device_ms = sum(by_cat.values())
@@ -145,14 +228,21 @@ def measure_decode_only(engine, name, prompts, max_tokens, profiled_tokens):
         'device_ms_per_pass': device_ms,
         'device_ms_per_pass_by_category': by_cat,
         'attention_kernel_share': by_cat.get('attention_kernel', 0.0) / device_ms,
-        'device_busy_share': device_ms / result['wall_ms_per_pass'],
-        'kernel_launches_per_pass': (launches1 - launches0) / ppasses,
+        'profiled_wall_ms_per_pass': p1['windows']['decode_wall_s'] / ppasses * 1e3,
+        'device_busy_share': device_ms * ppasses / (p1['windows']['decode_wall_s'] * 1e3),
+        'kernel_launches_per_pass': (p1['launches'] - p0['launches']) / ppasses,
+        'attention_launches_profiled': p1['attention'] - p0['attention'],
+        'attention_launches_expected': engine.model_cfg.num_layers * ppasses,
     })
     return result
 
 
 def measure(engine, name, prompts, max_tokens, profiled_tokens):
-    wall_s, tele = _run(engine, prompts, max_tokens)
+    """One workload: a plain run, then (``profiled_tokens``) a profiled
+    one, whose busy share is its kernels' device time over its own wall
+    time."""
+    wall_s, tele, windows = _run(engine, prompts, max_tokens)
+    replays = tele.get('decode_graph_replays', 0)
     result = {
         'workload': name,
         'prompts': len(prompts),
@@ -161,29 +251,25 @@ def measure(engine, name, prompts, max_tokens, profiled_tokens):
         'tokens_per_s': tele['generated_tokens'] / wall_s,
         'forward_passes': tele['forward_passes'],
         'wall_ms_per_pass': wall_s / tele['forward_passes'] * 1e3,
+        'decode_graph_replays': replays,
     }
+    _replay_shares(result, windows, replays)
     if profiled_tokens is None:
         return result
-    activities = [
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA,
-    ]
-    with torch.profiler.profile(activities=activities) as prof:
-        _, ptele = _run(engine, prompts, profiled_tokens)
-    kernels = _kernel_times(prof)
-    passes = ptele['forward_passes']
-    by_cat: dict[str, float] = {}
-    for us, _, key in kernels:
-        by_cat[_category(key)] = by_cat.get(_category(key), 0.0) + us
-    device_ms_per_pass = sum(by_cat.values()) / 1e3 / passes
+    prof = _profiled(engine, prompts, profiled_tokens)
+    kernels, passes = prof['kernels'], prof['tele']['forward_passes']
+    device_ms = sum(prof['by_cat'].values()) / 1e3
     result.update({
         'profiled_forward_passes': passes,
-        'device_ms_per_pass': device_ms_per_pass,
+        'device_ms_per_pass': device_ms / passes,
         'device_ms_per_pass_by_category': {
-            k: v / 1e3 / passes for k, v in sorted(by_cat.items())
+            k: v / 1e3 / passes for k, v in sorted(prof['by_cat'].items())
         },
-        'device_busy_share': device_ms_per_pass / result['wall_ms_per_pass'],
-        'kernel_launches_per_pass': sum(c for _, c, _ in kernels) / passes,
+        'profiled_wall_ms_per_pass': prof['wall_s'] / passes * 1e3,
+        'device_busy_share': device_ms / (prof['wall_s'] * 1e3),
+        'kernel_launches_per_pass': prof['launches'] / passes,
+        'attention_launches_profiled': prof['attention'],
+        'attention_launches_expected': engine.model_cfg.num_layers * passes,
         'top_kernels': [
             {'device_ms_per_pass': us / 1e3 / passes, 'launches': count,
              'name': key[:100]}
@@ -220,7 +306,12 @@ def main() -> None:
     )
     del params
     rng = np.random.default_rng(1)
-    # Warm-up: builds the kernel, loads cuBLAS handles, fills caches.
+    # Warm-up: builds the kernels and captures the decode graphs (an
+    # engine without ``warmup`` decodes eagerly: the same call can time an
+    # earlier tree's eager window), then a short run loads cuBLAS handles
+    # and fills caches.
+    if hasattr(engine, 'warmup'):
+        engine.warmup()
     _run(engine, _prompts(rng, 4, 16, 300), 16)
     runs = {
         'prefill': lambda: measure(engine, 'prefill', _prompts(rng, 8, 1024, 1024), 1, 1),
@@ -232,7 +323,10 @@ def main() -> None:
     results = [runs[name]() for name in args.workloads.split(',')]
     head = {'card': card, 'layers': args.layers, 'quantization': args.quantization,
             'kv_cache_dtype': engine.telemetry['kv_cache_dtype'],
-            'kv_pool_bytes': engine.kv.hbm_bytes}
+            'kv_pool_bytes': engine.kv.hbm_bytes,
+            'decode_graph_captures': engine.stats.get('decode_graph_captures', 0),
+            'decode_graph_capture_s': engine.stats.get('decode_graph_capture_s', 0.0),
+            'graph_pool_mib': getattr(engine, 'graph_pool_bytes', 0) / 2**20}
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -473,6 +473,7 @@ def test_int8_kv_engine_on_the_kernel_matches_the_plain_op(cuda):
                          kv_cache_dtype='int8'),
             attn_backend=backend,
         )
+        engine.warmup()  # its eager trash-block steps launch too
         int8_launches = tpa.ragged_paged_attention.launches_by_kv['int8']
         outs[backend] = engine.generate_ids(
             prompts, SamplingParams(temperature=0.0, max_tokens=12)
@@ -546,6 +547,7 @@ def test_engine_on_the_kernel_matches_the_plain_op(cuda):
             EngineConfig(num_blocks=64, max_num_seqs=3, max_model_len=256),
             attn_backend=backend,
         )
+        engine.warmup()  # its eager trash-block steps launch too
         launches = tpa.ragged_paged_attention.launches
         outs[backend] = engine.generate_ids(
             prompts, SamplingParams(temperature=0.0, max_tokens=12)
@@ -871,6 +873,7 @@ def test_quantized_engine_on_k2_matches_the_plain_version(cuda):
                          quantization='int8'),
             qmm_backend=backend,
         )
+        engine.warmup()  # its eager trash-block steps launch too
         launches = tqm.int8_matmul.launches
         outs[backend] = engine.generate_ids(
             prompts, SamplingParams(temperature=0.0, max_tokens=12)
@@ -879,3 +882,268 @@ def test_quantized_engine_on_k2_matches_the_plain_version(cuda):
         expected = 7 * cfg.num_layers * passes if backend == 'auto' else 0
         assert tqm.int8_matmul.launches - launches == expected
     assert outs['auto'] == outs['reference']
+
+
+# ------------------------------------------------- decode graphs (the engine)
+GRAPH_CFG = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                 num_kv_heads=2, intermediate_size=512)
+# (model dtype, weight quantization, KV pool dtype): the serving
+# configurations chip_smoke.py runs, and nf4 weights (dequantized per
+# layer inside the graph).
+GRAPH_CASES = {
+    'bf16': ('bfloat16', None, 'auto'),
+    'int8_weights': ('bfloat16', 'int8', 'auto'),
+    'int8_pool': ('bfloat16', None, 'int8'),
+    'fp32': ('float32', None, 'auto'),
+    'nf4_weights': ('bfloat16', 'nf4', 'auto'),
+}
+
+
+def _graph_engine(case, num_blocks=64, seed=0, **engine):
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine
+    from distllm_tpu_torch.models import mistral
+
+    dtype, quantization, kv = GRAPH_CASES[case]
+    cfg = mistral.MistralConfig(**GRAPH_CFG, dtype=dtype)
+    params = mistral.init(cfg, torch.Generator(device='cuda').manual_seed(seed))
+    return LLMEngine(cfg, params, None, EngineConfig(**{
+        'num_blocks': num_blocks, 'max_num_seqs': 4, 'max_model_len': 256,
+        'decode_steps': 8, 'quantization': quantization, 'kv_cache_dtype': kv,
+        **engine}))
+
+
+def _pool_tensors(engine):
+    kv = engine.kv
+    return [x for pair in (kv.k, kv.v) for x in pair] if kv.quantized else [kv.k, kv.v]
+
+
+def _window_against_eager(engine):
+    """Dispatch one window through the engine (graph replays) and run the
+    eager ``mistral.decode_loop`` on a copy of the pool before it with the
+    window's inputs: live tokens and every pool block but the trash block
+    0 must be bitwise equal. Returns the window, or None."""
+    from distllm_tpu_torch.models import mistral
+
+    before = [x.clone() for x in _pool_tensors(engine)]
+    replays = engine.stats['decode_graph_replays']
+    window = engine._dispatch_window()
+    if window is None:
+        return None
+    runner = engine._decode
+    num_steps = window['tokens'].shape[0]
+    assert engine.stats['decode_graph_replays'] - replays == num_steps
+    h = {name: torch.from_numpy(view.copy()).cuda()
+         for name, view in runner._host_views.items()}
+    pools = before
+    if engine.kv.quantized:
+        pools = [tpa.QuantizedKV(*before[:2]), tpa.QuantizedKV(*before[2:])]
+    eager = mistral.decode_loop(
+        engine.params, engine.model_cfg, h['ids'], h['positions'], *pools,
+        h['block_tables'], h['context_lens'], h['steps_left'], h['temperature'],
+        h['top_p'], h['min_p'], h['top_k'], h['seeds'], num_steps=num_steps,
+        attn_backend=engine.attn_backend, max_table_positions=engine.config.max_model_len,
+        all_greedy=bool((h['temperature'] <= 0).all()),
+    )[0]
+    graph_tokens = window['tokens'].clone()
+    for slot, _, steps in window['plan']:
+        assert torch.equal(graph_tokens[:steps, slot], eager[:steps, slot]), slot
+    for card, ref in zip(_pool_tensors(engine), before):
+        assert torch.equal(card[:, 1:], ref[:, 1:])
+    return window
+
+
+def _serve_against_eager(engine, prompts, sampling):
+    """``LLMEngine.step`` by hand, every window held against the eager
+    loop; returns the finished outputs."""
+    rids = [engine.add_request(p, sp) for p, sp in zip(prompts, sampling)]
+    windows = 0
+    while engine.has_unfinished:
+        engine._admit()
+        if engine.sched.num_running == 0:
+            continue
+        window = _window_against_eager(engine)
+        if window is not None:
+            engine._process_window(window)
+            windows += 1
+    assert windows > 0
+    return [engine._finished.pop(rid).output_ids for rid in rids]
+
+
+def _graph_prompts(seed, lengths=(5, 40, 17, 90, 3, 33)):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(4, 512, size=n)] for n in lengths]
+
+
+@pytest.mark.parametrize('sampled', [False, True])
+@pytest.mark.parametrize('case', sorted(GRAPH_CASES))
+def test_decode_graph_windows_equal_the_eager_loop_bitwise(cuda, case, sampled):
+    """Every window of a served batch, replayed as CUDA graphs, gives the
+    eager ``decode_loop``'s tokens and pool writes bitwise (the same
+    kernels in the same order), greedy and sampled rows alike."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+
+    engine = _graph_engine(case)
+    engine.warmup()
+    assert engine.stats['decode_graph_captures'] == 2
+    assert engine.stats['decode_graph_capture_s'] > 0
+    assert engine.graph_pool_bytes > 0
+    prompts = _graph_prompts(1)
+    sampling = [SamplingParams(temperature=0.0, max_tokens=n)
+                for n in (12, 5, 20, 9, 16, 7)]
+    if sampled:
+        sampling[1] = SamplingParams(temperature=0.9, top_p=0.9, max_tokens=11, seed=3)
+        sampling[4] = SamplingParams(temperature=0.7, top_k=20, max_tokens=14, seed=4)
+    outs = _serve_against_eager(engine, prompts, sampling)
+    assert [len(o) for o in outs] == [sp.max_tokens for sp in sampling]
+    assert engine.stats['decode_graph_captures'] == 2  # no capture per window
+    engine.shutdown()
+
+
+def test_decode_graph_replays_follow_block_tables_after_preemption(cuda):
+    """A pool too small for the batch: windows preempt and re-prefill, the
+    block tables change under the same captured graph, and every window
+    still equals the eager loop bitwise."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+
+    engine = _graph_engine('bf16', num_blocks=14)
+    engine.warmup()
+    prompts = _graph_prompts(2, (30, 41, 25, 37))
+    _serve_against_eager(
+        engine, prompts, [SamplingParams(temperature=0.0, max_tokens=24)] * 4
+    )
+    assert engine.stats['preemptions'] > 0
+    assert engine.sched.num_free_blocks == 14 - 1
+
+
+def test_two_engines_one_after_the_other(cuda):
+    """A second engine on the same device captures its own graphs after
+    the first one's shutdown released its pool, and serves the same
+    tokens."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+
+    prompts = _graph_prompts(3, (12, 50, 7))
+    greedy = SamplingParams(temperature=0.0, max_tokens=10)
+    outs, left = [], []
+    for _ in range(2):
+        engine = _graph_engine('bf16')
+        outs.append(engine.generate_ids(prompts, greedy))
+        assert engine.stats['decode_graph_captures'] == 2
+        assert engine.stats['decode_graph_replays'] == engine.stats['forward_passes'] - (
+            engine.stats['prefill_dispatches'])
+        assert engine.graph_pool_bytes > 0
+        engine.shutdown()
+        del engine
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left.append((torch.cuda.memory_allocated(), torch.cuda.memory_reserved()))
+    assert outs[0] == outs[1]
+    # Nothing of an engine, its graph pool included, outlives its shutdown.
+    assert left[1][0] <= left[0][0] and left[1][1] <= left[0][1]
+
+
+def _block_state(ptr):
+    """The caching allocator's state of the block at device address
+    ``ptr`` ('active_allocated' while a tensor holds it), or None."""
+    for segment in torch.cuda.memory_snapshot():
+        at = segment['address']
+        for block in segment['blocks']:
+            if block.get('address', at) == ptr:
+                return block['state']
+            at += block['size']
+    return None
+
+
+def test_replays_after_the_split_tickets_grow_equal_the_eager_loop(cuda):
+    """An engine captures its graphs; then a K1 launch with more rows x KV
+    heads than the tickets hold grows them. The tickets the graphs hold
+    must stay allocated (and at zero, whatever is made next: memory made
+    afterwards on the serving and the capture streams is filled with -1),
+    so the engine's windows still equal the eager loop bitwise."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.generate.engine import decode_graph
+
+    engine = _graph_engine('bf16')
+    engine.warmup()
+    dev = torch.device('cuda', torch.cuda.current_device())  # the tickets' key
+    held = tpa._tickets(dev, 1)
+    held_ptr, held_size = held.data_ptr(), held.numel()
+    del held
+    rows = held_size // 8 + 1
+    case = _case(55, nh=32, nkv=8, hd=128, dtype='bfloat16', ctxs=[40] * rows,
+                 q_lens=[1] * rows, span=1)
+    assert _route(case) == 'split_kv'
+    tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert tpa._tickets(dev, 1).numel() > held_size
+    torch.cuda.synchronize()
+    assert _block_state(held_ptr) == 'active_allocated'
+    junk = []
+    for stream in (torch.cuda.current_stream(), decode_graph._capture_stream(dev)):
+        with torch.cuda.stream(stream):
+            junk += [torch.full((held_size,), -1, dtype=torch.int32, device=dev)
+                     for _ in range(16)]
+    torch.cuda.synchronize()
+    assert all(j.data_ptr() != held_ptr for j in junk)
+    prompts = _graph_prompts(5, (21, 60, 9, 33))
+    _serve_against_eager(
+        engine, prompts, [SamplingParams(temperature=0.0, max_tokens=18)] * 4
+    )
+    engine.shutdown()
+
+
+@pytest.mark.parametrize('case', ['bf16', 'int8_weights', 'int8_pool', 'fp32'])
+def test_launch_counts_after_replays_are_the_captured_counts(cuda, case):
+    engine = _graph_engine(case)
+    engine.warmup()
+    runner = engine._decode
+    layers = GRAPH_CFG['num_layers']
+    route = 'cuda_cores' if case == 'fp32' else 'split_kv'
+    delta = runner.graphs[True].delta
+    assert delta[0] == layers and delta[1][route] == layers
+    assert delta[2]['int8' if case == 'int8_pool' else 'model'] == layers
+    assert delta[4] == (7 * layers if case == 'int8_weights' else 0)
+    tpa.ragged_paged_attention.launches = 0
+    tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
+    tqm.int8_matmul.launches_by_route = dict.fromkeys(tqm.ROUTES, 0)
+    plain = tpa.ragged_paged_attention_reference.launches
+    runner._load_trash()
+    for all_greedy, n in ((True, 5), (False, 3)):
+        runner.run(n, all_greedy)
+    torch.cuda.synchronize()
+    assert tpa.ragged_paged_attention.launches == 8 * layers
+    assert tpa.ragged_paged_attention.launches_by_route[route] == 8 * layers
+    qmm_route = tqm.int8_matmul.launches_by_route['tensor_cores']
+    assert qmm_route == (8 * 7 * layers if case == 'int8_weights' else 0)
+    assert tpa.ragged_paged_attention_reference.launches == plain
+    engine.shutdown()
+
+
+def test_a_failed_capture_raises_and_never_decodes_eagerly(cuda, monkeypatch):
+    """K1's split tickets would have to be made inside the capture: the
+    capture raises, no graph is kept, and the engine's next window raises
+    again instead of running the eager loop."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.models import mistral
+
+    class Forgetful(dict):
+        def get(self, key, default=None):
+            if torch.cuda.is_current_stream_capturing():
+                return None
+            return super().get(key, default)
+
+    monkeypatch.setattr(tpa, '_split_tickets', Forgetful(tpa._split_tickets))
+
+    def not_called(*args, **kwargs):
+        raise AssertionError('the engine must never decode eagerly on CUDA')
+
+    monkeypatch.setattr(mistral, 'decode_loop', not_called)
+    engine = _graph_engine('bf16')
+    with pytest.raises(RuntimeError, match='inside a CUDA graph capture'):
+        engine.warmup()
+    assert not engine._decode.graphs and not engine._decode.ready
+    with pytest.raises(RuntimeError, match='inside a CUDA graph capture'):
+        engine.generate_ids(_graph_prompts(4, (9,)),
+                            SamplingParams(temperature=0.0, max_tokens=4))
+    assert engine.stats['decode_graph_replays'] == 0
+    assert engine.stats['decode_windows'] == 0
+    with pytest.raises(RuntimeError, match='warmup'):
+        engine._decode.run(1, True)
