@@ -40,6 +40,17 @@ carried on):
    split-edge case and a tensor-core case bitwise unchanged; timed as in
    phase 3, SDPA on the pool dequantized to bf16 (a yardstick: not the
    same function, twice the KV bytes);
+3c. kernel K1, mixed mode — the same over a full-precision pool of the
+   other dtype than q, within the mixed tolerance of the route each case
+   takes (printed): fp32 q over a bf16 pool (the CUDA cores) and bf16 q
+   over an fp32 pool (the split-KV route and the tensor cores), each at
+   phase 3's 32 decode rows of 1..4096, the 1024 + 700 prefill pair and
+   the serve decode shape (8 x 18..1090), and spans of 4 over phase 3's
+   rows (the tensor cores); NaN in the trash block leaves the outputs of a
+   case on each route bitwise unchanged; a planted fault, the longest
+   row's last page dropped at 32 x 1..4096 on each route, must exceed the
+   tolerance; timed as in phase 3, SDPA on the pool cast to q's dtype as
+   the yardstick;
 4. kernel K3 — hold the encoder-attention kernel against its plain
    version at BERT-base geometry (12 heads x 64): the embed path's shapes
    (batch 512, S = 128 / 192 / 288) in bf16, partial key masks with fully
@@ -87,9 +98,9 @@ carried on):
    version never, K1 as in phase 6;
 6b. serve with an int8 KV pool — the JAX ``gen_kvq`` stage's workload (64
    greedy prompts of 32..192 tokens, every third behind a shared 32-token
-   prefix, 16..96 new tokens each; its prefix cache and chunked prefill
-   are not ported) through two ``LLMEngine`` arms on the same bf16
-   weights, a bf16 and an int8 KV pool (``kv_cache_dtype``; block 16,
+   prefix, 16..96 new tokens each; the prefix cache off here, on in 6d;
+   its chunked prefill is not ported) through two ``LLMEngine`` arms on
+   the same bf16 weights (made once for 6b-6e), a bf16 and an int8 KV pool (``kv_cache_dtype``; block 16,
    1024 blocks, 32 slots); per arm tokens/s, pool GiB, allocated and peak
    GiB, ``telemetry['kv_cache_dtype']``; the int8 blocks the bf16 pool's
    bytes would hold and the greedy match fraction (recorded). K1 must
@@ -105,11 +116,34 @@ carried on):
    ``mistral.decode_loop`` on a copy of the pool: tokens and every pool
    byte outside the trash block must be identical; wall ms a step of
    each (3 windows), capture seconds and graph pool MiB are printed;
+6d. prefix cache — full-width Mistral-7B bf16, three ``LLMEngine`` arms
+   (the cache off; on over a bf16 pool; on over an int8 pool) over (a)
+   6b's workload, its first shared-prefix prompt served first, and (b) a
+   RAG set: a 1024-token system prefix request, then 16 prompts sharing
+   it with tails of 16..64 tokens and one exact repeat of the prefix
+   (copy-on-write), 32 new tokens each. Per arm the hit share, prefill
+   wall and CUDA-event ms per dispatch, tokens/s and the greedy match against
+   the cache-off arm (recorded); (b)'s hit share must exceed 0.85 with one
+   copy-on-write; K1 launches on the route ``kernel_route`` names for
+   each dispatch's padded span, its plain op never, every decode step a
+   graph replay;
+6e. KV tiers — a 100-block pool (two 1024-token prefixes do not fit), a
+   1 GiB host tier writing through to a disk tier in a temporary
+   directory, bf16 and int8 pools: spills and promotions happen with no
+   payload mismatch or promotion failure, the promoted blocks' pool bytes
+   and the tier's copies are bitwise their bytes before the spill, and a
+   fresh engine on the same directory promotes from disk; spill and
+   promotion host ms per MiB printed;
 8. identity — full width at depth 2 in fp32: greedy tokens from the engine
    on K1 equal those from the engine on its plain op; then, int8 weights,
    greedy tokens on K2 (every launch on the CUDA-core route) equal those
    on its plain version; 8b. then, an int8 KV pool, greedy tokens on K1's
-   int8 mode equal those on its plain op. Every arm, the plain op's
+   int8 mode equal those on its plain op; 8c. then the prefix cache with a
+   host and disk tier (one copy-on-write, a spill and a promotion): greedy
+   tokens on K1 equal those with the cache off; and an fp32 model over a
+   bf16 pool (K1's mixed mode on the CUDA cores): greedy tokens on K1 and
+   on its plain op, the match printed, a flip reported with the plain
+   op's logit gap (failed unless a near tie). Every arm, the plain op's
    included, is warmed up first and replays its own decode graphs;
 9. quantize — the int8 codes and scales of the full-width gate kernel of
    layer 0, quantized on the card, equal bitwise those the CPU makes;
@@ -134,8 +168,8 @@ carried on):
 
 The last three lines of standard output are ``{"kernels": [...]}`` (K1,
 K3, K2 with their cases, launches by route and, beside each decode
-headline, the prefill headline, K1's int8-KV mode under ``int8_kv``, and
-K2's embed headline), the card's
+headline, the prefill headline, K1's int8-KV mode under ``int8_kv``, its
+mixed mode under ``mixed_kv``, and K2's embed headline), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -237,13 +271,14 @@ def host_call_us(torch, fn, iters: int) -> float:
 
 # --------------------------------------------------------------- phase 3
 def build_case(torch, rng, ctxs, q_lens, span, dtype, int8_kv=False,
-               block_size=BLOCK_SIZE):
+               block_size=BLOCK_SIZE, kv_dtype=None):
     """Random paged-KV inputs: rows with contexts ``ctxs`` whose last
     ``q_lens`` tokens are the query span (padded to ``span``), pages
     scattered over a pool whose trash block 0 holds large finite garbage.
     With ``int8_kv`` the pools are ``QuantizedKV``: the same N(0, 1) K/V
     quantized on the card at absmax / 127 per block and KV head
-    (``quantize_kv_rows``)."""
+    (``quantize_kv_rows``). ``kv_dtype`` stores a full-precision pool in
+    another dtype than the queries' (K1's mixed mode)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     ctxs = np.asarray(ctxs, np.int64)
@@ -258,8 +293,8 @@ def build_case(torch, rng, ctxs, q_lens, span, dtype, int8_kv=False,
         bt[row, :n] = perm[at:at + n]
         at += n
     shape = (num_blocks, block_size, NUM_KV_HEADS, HEAD_DIM)
-    k = torch.randn(shape, generator=gen, device=dev).to(dtype)
-    v = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    k = torch.randn(shape, generator=gen, device=dev).to(kv_dtype or dtype)
+    v = torch.randn(shape, generator=gen, device=dev).to(kv_dtype or dtype)
     k[0] = 100.0
     v[0] = -100.0
     if int8_kv:
@@ -280,17 +315,18 @@ def build_case(torch, rng, ctxs, q_lens, span, dtype, int8_kv=False,
         q=q, k=k, v=v, bt=as_i32(bt), ctx=as_i32(ctxs), pos=as_i32(positions),
         q_lens=as_i32(q_lens), np_ctx=ctxs, np_q_lens=q_lens, np_start=q_start,
         block_size=block_size, int8_kv=int8_kv,
+        mixed=kv_dtype is not None and kv_dtype != dtype,
     )
 
 
 def case_work(case, window, dtype):
     """Bytes the function must move and the operations it does on these
     inputs: each live K/V row read once (int8 KV: one byte an element,
-    plus K's and V's fp32 scale of each live page and KV head), q read and
-    out written once; for each valid query 4 * Hd flops per (query head,
-    attended key)."""
+    plus K's and V's fp32 scale of each live page and KV head; a mixed
+    pool: its own dtype's bytes), q read and out written once; for each
+    valid query 4 * Hd flops per (query head, attended key)."""
     elt = 2 if dtype == 'bfloat16' else 4
-    kv_elt = 1 if case['int8_kv'] else elt
+    kv_elt = 1 if case['int8_kv'] else case['k'].element_size()
     kv_row = NUM_KV_HEADS * HEAD_DIM * kv_elt * 2  # K and V of one position
     bs = case['block_size']
     bytes_ = 2 * case['q'].numel() * elt  # q in, out back
@@ -327,6 +363,7 @@ def sdpa_inputs(torch, case, window):
     def dense(pool):
         if case['int8_kv']:
             pool = (pool.data.float() * pool.scale[:, None, :, None]).to(case['q'].dtype)
+        pool = pool.to(case['q'].dtype)  # a mixed pool: cast to q's dtype
         return pool[bt].reshape(b, t, NUM_KV_HEADS, HEAD_DIM)
 
     k, v = dense(case['k']), dense(case['v'])
@@ -350,7 +387,7 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
               logit_softcap=softcap)
     s = case['q'].shape[1]
     route = tpa.kernel_route(case['q'].dtype, s, NUM_HEADS // NUM_KV_HEADS)
-    kv_mode = 'int8' if case['int8_kv'] else 'model'
+    kv_mode = 'int8' if case['int8_kv'] else 'mixed' if case['mixed'] else 'model'
     by_route = dict(tpa.ragged_paged_attention.launches_by_route)
     by_kv = dict(tpa.ragged_paged_attention.launches_by_kv)
     out = tpa.ragged_paged_attention(*args, **kw)
@@ -394,16 +431,17 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
     result = dict(
         case=name, kernel_route=route, kv=kv_mode, block_size=case['block_size'],
+        pool_dtype=str(tpa.kv_storage_dtype(case['k'])).removeprefix('torch.'),
         max_abs_err=err, err_over_tol=err_over_tol,
-        tol=k1_tol(tpa, route, dtype, case['int8_kv']), ms=kernel_ms,
+        tol=k1_tol(tpa, route, dtype, case['int8_kv'], case['mixed']), ms=kernel_ms,
         timer='cuda graph', event_ms=event_ms, host_us=host_us,
         plain_ms=plain_ms, bound_ms=max(byte_ms, op_ms),
         bound_by='bytes' if byte_ms >= op_ms else 'operations',
         bytes=bytes_, flops=flops,
     )
     # SDPA computes the same function on a pool in q's dtype; over an int8
-    # pool it reads the pool dequantized to q's dtype: a yardstick.
-    if case['int8_kv']:
+    # or a mixed pool it reads the pool cast to q's dtype: a yardstick.
+    if case['int8_kv'] or case['mixed']:
         result.update(library_ms=None, yardstick_ms=sdpa_ms)
     else:
         result['library_ms'] = sdpa_ms
@@ -414,7 +452,7 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
     return result
 
 
-def k1_tol(tpa, route, dtype, int8_kv=False):
+def k1_tol(tpa, route, dtype, int8_kv=False, mixed=False):
     """``paged_attention.comparison_tolerance``'s terms, for the record."""
     tol = {'abs': tpa.TOL_ABS}
     if dtype != 'float32':
@@ -424,6 +462,10 @@ def k1_tol(tpa, route, dtype, int8_kv=False):
     if int8_kv:
         tol['int8'] = ('sum_j P_j E_j (|v_j| + |out|), E_j = (2 Hd + 4) * 2**-24 * '
                        'scale * (|q| . |k_j|)')
+    if mixed:
+        tol['mixed'] = (f'{tpa.TOL_MIXED} * (P @ |V|); with p, the bf16 terms are '
+                        f'min(w * (P @ |V|), w * (|out| + {tpa.TOL_MIXED_SIGMAS} * '
+                        'sqrt(P**2 @ V**2)))')
     return tol
 
 
@@ -647,6 +689,85 @@ def phase_kernel_int8(torch, tpa):
         if mine:
             worst = max(mine, key=lambda r: r['err_over_tol'])
             log(f'[kernel int8] {len(mine)} {route} cases within tolerance; worst '
+                f'{worst["case"]} at {worst["err_over_tol"]:.4f} of its bound')
+    return results
+
+
+# -------------------------------------------------------------- phase 3c
+# K1's mixed mode at the main path's shapes: phase 3's decode rows, a
+# prefill pair and the serve decode shape, fp32 q over a bf16 pool (the
+# CUDA cores) and bf16 q over an fp32 pool (the tensor cores and the
+# split-KV route). The headline is phase 8c's shape: fp32 q over bf16.
+MIXED_HEAD = 'mixed_fp32q_serve_decode_8x18-1090'
+
+
+def planted_last_page(torch, tpa, case, name):
+    """A subtle fault, planted through the wrapper: the kernel run with the
+    longest row's context ending one page early (the keys of its last page
+    skipped, positions unchanged), held to the plain version of the true
+    inputs. Its worst element must exceed the tolerance; returns that
+    ratio. The launch is a comparison's, outside every counted run."""
+    args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
+    kw = dict(q_lens=case['q_lens'])
+    cut = case['ctx'].clone()
+    row = int(torch.argmax(cut))
+    cut[row] = (int(cut[row]) - 1) // case['block_size'] * case['block_size']
+    out = tpa.ragged_paged_attention(*args[:4], cut, args[5], **kw)
+    ref = tpa.ragged_paged_attention_reference(*args, **kw)
+    route = tpa.kernel_route(case['q'].dtype, case['q'].shape[1], NUM_HEADS // NUM_KV_HEADS)
+    tol = tpa.comparison_tolerance(ref, *args, route=route, **kw)
+    valid = torch.arange(case['q'].shape[1], device=DEVICE)[None, :] < case['q_lens'][:, None]
+    ratio = float(((out[valid].float() - ref[valid].float()).abs() / tol[valid]).max())
+    log(f'[kernel mixed] planted fault, {name} ({route} route): the longest row\'s last page '
+        f'dropped, worst element at {ratio:.3f} x its tolerance')
+    if not ratio > 1.0:
+        fail(f'kernel case {name}: a dropped last page stays within the {route} tolerance '
+             f'({ratio:.3f} x)')
+    return ratio
+
+
+def phase_kernel_mixed(torch, tpa):
+    """K1's mixed full-precision mode against its plain version, each case
+    within the mixed tolerance of the route it takes; NaN in the trash
+    block leaves the outputs of a case on each route bitwise unchanged;
+    the longest row's dropped last page exceeds the tolerance on each
+    route."""
+    rng = np.random.default_rng(20)
+    results = []
+    pairs = (('fp32q', torch.float32, torch.bfloat16, 'float32', 10),
+             ('bf16q', torch.bfloat16, torch.float32, 'bfloat16', 50))
+    for tag, q_dtype, kv_dtype, name, iters in pairs:
+        def run(case_name, case, check_nan=False, plant=False):
+            results.append(run_kernel_case(torch, tpa, case_name, case, 0, None, name, iters))
+            if check_nan:
+                check_nan_trash_block(torch, tpa, case, case_name)
+            if plant:
+                results[-1]['planted_last_page_err_over_tol'] = planted_last_page(
+                    torch, tpa, case, case_name)
+
+        ctxs = np.concatenate([[1, 4096], rng.integers(1, 4097, size=30)])
+        case = build_case(torch, rng, ctxs, np.ones(32), 1, q_dtype, kv_dtype=kv_dtype)
+        run(f'mixed_{tag}_decode_32x1-4096', case, check_nan=True, plant=True)
+        del case
+        if tag == 'bf16q':  # spans of 4: 16-row tiles, the tensor cores
+            case = build_case(torch, rng, ctxs, np.minimum(4, ctxs), 4, q_dtype,
+                              kv_dtype=kv_dtype)
+            run(f'mixed_{tag}_span4_32x1-4096', case, plant=True)
+            del case
+        case = build_case(torch, rng, [1024, 700], [1024, 700], 1024, q_dtype,
+                          kv_dtype=kv_dtype)
+        run(f'mixed_{tag}_prefill_2x1024', case, check_nan=True)
+        del case
+        case = build_case(torch, rng, rng.integers(18, 1091, size=8), np.ones(8), 1, q_dtype,
+                          kv_dtype=kv_dtype)
+        run(f'mixed_{tag}_serve_decode_8x18-1090', case)
+        del case
+    torch.cuda.empty_cache()
+    for route in tpa.ROUTES:
+        mine = [r for r in results if r['kernel_route'] == route]
+        if mine:
+            worst = max(mine, key=lambda r: r['err_over_tol'])
+            log(f'[kernel mixed] {len(mine)} {route} cases within tolerance; worst '
                 f'{worst["case"]} at {worst["err_over_tol"]:.4f} of its bound')
     return results
 
@@ -1175,13 +1296,14 @@ def kvq_workload(vocab_size):
     return prompts, budgets
 
 
-def phase_serve_kv_int8(torch, tpa, card, cfg):
+def phase_serve_kv_int8(torch, tpa, card, cfg, params):
     """Serve the ``gen_kvq`` workload through two ``LLMEngine`` arms on the
     same bf16 weights (made on the card from seed 0): a bf16 KV pool and
     an int8 one (``EngineConfig(kv_cache_dtype='int8')``); block 16, 1024
-    blocks, 32 slots, ``max_model_len`` 2048, 16-step decode windows. The
-    JAX stage's prefix cache and chunked prefill are not ported, so every
-    prompt prefills whole. K1 must launch layers x forward passes in each
+    blocks, 32 slots, ``max_model_len`` 2048, 16-step decode windows, the
+    prefix cache off (phase 6d serves the same workload with it on; the
+    JAX stage's chunked prefill is not ported), so every prompt prefills
+    whole. K1 must launch layers x forward passes in each
     arm, every int8-arm launch in the int8 mode (prefill on the tensor
     cores, decode on the split-KV route), its plain op never, and the int8
     pool must take under 0.51 of the bf16 pool's bytes. The greedy match
@@ -1191,10 +1313,6 @@ def phase_serve_kv_int8(torch, tpa, card, cfg):
         LLMEngine,
         SamplingParams,
     )
-    from distllm_tpu_torch.models import mistral
-
-    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
-                          device=DEVICE)
     prompts, budgets = kvq_workload(cfg.vocab_size)
     sampling = [SamplingParams(temperature=0.0, max_tokens=n) for n in budgets]
     arms = {}
@@ -1262,7 +1380,6 @@ def phase_serve_kv_int8(torch, tpa, card, cfg):
         if arm['plain'] != 0:
             fail(f'serve int8 KV ({kv}): the plain op ran {arm["plain"]} times')
         arms[kv] = arm
-    del params
     torch.cuda.empty_cache()
     bf16, q8 = arms['bf16'], arms['int8']
     if (bf16['kv_cache_dtype'], q8['kv_cache_dtype']) != ('bfloat16', 'int8'):
@@ -1289,14 +1406,14 @@ def phase_serve_kv_int8(torch, tpa, card, cfg):
             'decode_graph_capture_s', 'graph_pool_mib')
     return dict(bf16={k: bf16[k] for k in keep}, int8={k: q8[k] for k in keep},
                 pool_bytes_ratio=ratio, int8_capacity_blocks=capacity_blocks,
-                greedy_match=match, first_token_match=first)
+                greedy_match=match, first_token_match=first), bf16['tokens']
 
 
 # ------------------------------------------------------------- phase 6c
 GRAPH_ROWS, GRAPH_STEPS, GRAPH_CONTEXT = 8, 8, 1024
 
 
-def phase_graph_window(torch, tpa, card, cfg):
+def phase_graph_window(torch, tpa, card, cfg, params):
     """One decode window at full width through the engine's captured
     graphs and through the eager ``mistral.decode_loop``: 8 rows of about
     1024 keys (a pool of N(0, 1) K/V made on the card, seed 0), 8 steps,
@@ -1307,13 +1424,10 @@ def phase_graph_window(torch, tpa, card, cfg):
     from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine
     from distllm_tpu_torch.models import mistral
 
-    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
-                          device=DEVICE)
     engine = LLMEngine(cfg, params, None, EngineConfig(
         block_size=BLOCK_SIZE, num_blocks=1024, max_num_seqs=GRAPH_ROWS,
         max_model_len=2048, decode_steps=GRAPH_STEPS,
     ), device=DEVICE)
-    del params
     engine.warmup()
     capture_s = engine.stats['decode_graph_capture_s']
     pool_mib = engine.graph_pool_bytes / 2**20
@@ -1393,6 +1507,316 @@ def phase_graph_window(torch, tpa, card, cfg):
     shut_down(torch, 'graph window', engine)
     del engine
     return dict(results, capture_s=capture_s, graph_pool_mib=pool_mib)
+
+
+# ------------------------------------------------------------- phase 6d
+def instrument_prefill(torch, engine):
+    """Time each of the engine's prefill dispatches (host clock and CUDA
+    events around the dispatch and its sampled tokens' fetch) and keep its
+    padded span width, which decides K1's route."""
+    records = []
+    dispatch = engine._dispatch_prefill_paged
+
+    def timed(spans):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = dispatch(spans)
+        end.record()
+        end.synchronize()
+        records.append(dict(
+            width=max(n for _, _, n in spans), rows=len(spans),
+            tokens=sum(n for _, _, n in spans),
+            wall_ms=(time.perf_counter() - t0) * 1e3, event_ms=start.elapsed_time(end),
+        ))
+        return out
+
+    engine._dispatch_prefill_paged = timed
+    return records
+
+
+def zero_k1_counts(tpa):
+    tpa.ragged_paged_attention.launches = 0
+    tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
+    tpa.ragged_paged_attention.launches_by_kv = dict.fromkeys(tpa.KV_MODES, 0)
+    tpa.ragged_paged_attention_reference.launches = 0
+
+
+def check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, prefills, widths, mode):
+    """K1 launched layers x forward passes, each on the route
+    ``kernel_route`` names for its dispatch (a prefill by its padded span
+    width, every decode step on the split-KV route), all in ``mode``; its
+    plain op never; every decode step a graph replay."""
+    kernel = tpa.ragged_paged_attention
+    group = NUM_HEADS // NUM_KV_HEADS
+    want = dict.fromkeys(tpa.ROUTES, 0)
+    for width in widths:
+        want[tpa.kernel_route(torch.bfloat16, width, group)] += cfg.num_layers
+    want['split_kv'] += cfg.num_layers * (passes - prefills)
+    got = dict(kernel.launches_by_route)
+    log(f'[{tag}] K1 launches {kernel.launches} = {cfg.num_layers} layers x {passes} passes '
+        f'({prefills} prefill dispatches); by route {json.dumps(got)} (expected '
+        f'{json.dumps(want)}); by KV mode {json.dumps(kernel.launches_by_kv)}; plain op '
+        f'{tpa.ragged_paged_attention_reference.launches}')
+    if kernel.launches <= 0 or kernel.launches != cfg.num_layers * passes or got != want:
+        fail(f'{tag}: K1 launches {kernel.launches}, routes {got}; expected '
+             f'{cfg.num_layers} x {passes} on {want}')
+    if kernel.launches_by_kv[mode] != kernel.launches:
+        fail(f'{tag}: K1 KV modes {kernel.launches_by_kv}: every launch belongs in {mode}')
+    if tpa.ragged_paged_attention_reference.launches != 0:
+        fail(f'{tag}: the plain op ran on the serving path')
+    return check_graph_replays(tag, engine, marks, passes, prefills)
+
+
+def greedy_match(a_runs, b_runs):
+    matched = total = 0
+    for a, b in zip(a_runs, b_runs):
+        total += max(len(a), len(b))
+        matched += sum(1 for x, y in zip(a, b) if x == y)
+    return matched / total
+
+
+RAG_PREFIX, RAG_PROMPTS, RAG_NEW = 1024, 16, 32
+
+
+def rag_workload(vocab_size):
+    """A RAG-style set (numpy seed 7): a 1024-token system prefix (64 full
+    blocks), 16 prompts that share it with distinct tails of 16..64 tokens,
+    and one exact repeat of the prefix (block-aligned: copy-on-write)."""
+    rng = np.random.default_rng(7)
+    prefix = [int(t) for t in rng.integers(4, vocab_size, size=RAG_PREFIX)]
+    tails = [[int(t) for t in rng.integers(4, vocab_size, size=int(n))]
+             for n in np.linspace(16, 64, RAG_PROMPTS).astype(int)]
+    return prefix, [prefix + tail for tail in tails] + [list(prefix)]
+
+
+def serve_in_order(engine, first, rest, sampling_first, sampling_rest):
+    """``first`` runs to completion (its blocks enter the cache after its
+    prefill), then ``rest`` in one call: a request acquires its match when
+    it is added, so prompts added beside the first would all miss."""
+    return engine.generate_ids(first, sampling_first) + engine.generate_ids(rest, sampling_rest)
+
+
+def phase_serve_prefix_cache(torch, tpa, card, cfg, params, kvq_off_tokens):
+    """Full-width Mistral-7B bf16 with the prefix cache: (a) phase 6b's
+    ``gen_kvq`` workload, the first prompt behind the shared 32-token
+    prefix served first, then the other 63; (b) the RAG set, its prefix
+    request first. Arms: the cache off, on over a bf16 pool, on over an
+    int8 pool. Per arm: hit share, prefill wall and CUDA-event ms per dispatch,
+    tokens/s, the greedy match against the cache-off arm (recorded: in
+    bf16 it is not identity). Every decode step is a graph replay and K1
+    launches on the routes ``kernel_route`` names, its plain op never."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+
+    kvq_prompts, budgets = kvq_workload(cfg.vocab_size)
+    kvq_sampling = [SamplingParams(temperature=0.0, max_tokens=n) for n in budgets]
+    prefix, rag = rag_workload(cfg.vocab_size)
+    rag_sampling = SamplingParams(temperature=0.0, max_tokens=RAG_NEW)
+    arms = (('off', 'bf16', False), ('on', 'bf16', True), ('on', 'int8', True))
+    results = {}
+    for cache, kv, enabled in arms:
+        tag = f'prefix cache {cache} kv {kv}'
+        engine = LLMEngine(cfg, params, None, EngineConfig(
+            block_size=BLOCK_SIZE, num_blocks=1024, max_num_seqs=32, max_model_len=2048,
+            decode_steps=16, kv_cache_dtype=kv, enable_prefix_cache=enabled,
+        ), device=DEVICE)
+        engine.warmup()
+        arm = {}
+        for name, first, rest, s_first, s_rest in (
+            ('kvq', kvq_prompts[:1], kvq_prompts[1:], kvq_sampling[:1], kvq_sampling[1:]),
+            ('rag', [prefix], rag, rag_sampling, rag_sampling),
+        ):
+            records = instrument_prefill(torch, engine)
+            marks = graph_marks(engine)
+            passes0 = engine.stats['forward_passes']
+            prefills0 = engine.stats['prefill_dispatches']
+            stats0 = dict(engine.stats)
+            zero_k1_counts(tpa)
+            t0 = time.perf_counter()
+            tokens = serve_in_order(engine, first, rest, s_first, s_rest)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            del engine._dispatch_prefill_paged  # the instrumented dispatch
+            run = {k: engine.stats[k] - stats0.get(k, 0) for k in engine.stats}
+            passes = engine.stats['forward_passes'] - passes0
+            prefills = engine.stats['prefill_dispatches'] - prefills0
+            mode = 'int8' if kv == 'int8' else 'model'
+            graphs = check_k1_routes(torch, tpa, f'{tag} {name}', cfg, engine, marks, passes, prefills,
+                                     [r['width'] for r in records], mode)
+            lookup = run.get('prefix_lookup_tokens', 0)
+            hits = run.get('prefix_hit_tokens', 0)
+            res = dict(
+                hit_share=hits / lookup if lookup else 0.0, hit_tokens=hits,
+                lookup_tokens=lookup, cow_copies=run.get('prefix_cow_copies', 0),
+                evicted_blocks=run.get('prefix_evicted_blocks', 0),
+                generated_tokens=run['generated_tokens'],
+                tokens_per_s=run['generated_tokens'] / wall_s, wall_s=wall_s,
+                prefill_dispatches=prefills, forward_passes=passes,
+                prefill_tokens=sum(r['tokens'] for r in records),
+                prefill_wall_ms=[round(r['wall_ms'], 3) for r in records],
+                prefill_event_ms=[round(r['event_ms'], 3) for r in records],
+                prefill_widths=[r['width'] for r in records],
+                prefill_event_ms_sum=sum(r['event_ms'] for r in records),
+                prefill_wall_ms_sum=sum(r['wall_ms'] for r in records),
+                tokens=tokens, **graphs,
+            )
+            expected = sum(budgets) if name == 'kvq' else RAG_NEW * (len(rag) + 1)
+            if res['generated_tokens'] != expected:
+                fail(f'{tag} {name}: {res["generated_tokens"]} tokens, expected {expected}')
+            arm[name] = res
+        shut_down(torch, tag, engine)
+        del engine
+        results[f'{cache}_{kv}'] = arm
+    base = results['off_bf16']
+    for key, arm in results.items():
+        for name, res in arm.items():
+            res['greedy_match_vs_off'] = greedy_match(base[name]['tokens'], res['tokens'])
+            log(f'[prefix cache {key} {name}] hit share {res["hit_share"]:.4f} '
+                f'({res["hit_tokens"]}/{res["lookup_tokens"]} prompt tokens, '
+                f'{res["cow_copies"]} copy-on-write); {res["prefill_dispatches"]} prefill '
+                f'dispatches of {res["prefill_tokens"]} tokens: wall '
+                f'{res["prefill_wall_ms_sum"]:.3f} ms, CUDA-event span {res["prefill_event_ms_sum"]:.3f} '
+                f'ms (per dispatch wall {res["prefill_wall_ms"]}, event span '
+                f'{res["prefill_event_ms"]}, widths {res["prefill_widths"]}); '
+                f'{res["generated_tokens"]} new tokens at {res["tokens_per_s"]:.1f} tok/s on '
+                f'{card}; greedy match vs cache off {res["greedy_match_vs_off"]:.4f}')
+    kvq_vs_6b = greedy_match(kvq_off_tokens, base['kvq']['tokens'])
+    log(f'[prefix cache] cache-off kvq arm vs phase 6b bf16 arm greedy match {kvq_vs_6b:.4f}')
+    rag_on = results['on_bf16']['rag']
+    if not rag_on['hit_share'] > 0.85 or rag_on['cow_copies'] != 1:
+        fail(f'prefix cache RAG set: hit share {rag_on["hit_share"]:.4f} (expected > 0.85), '
+             f'{rag_on["cow_copies"]} copy-on-write (expected 1)')
+    if results['on_int8']['rag']['hit_share'] != rag_on['hit_share']:
+        fail('prefix cache RAG set: the int8 pool hit other tokens than the bf16 pool')
+    for arm in results.values():
+        for res in arm.values():
+            res.pop('tokens')
+    return results
+
+
+# ------------------------------------------------------------- phase 6e
+# The pool of phase 6e: 100 blocks (99 usable), 2 MiB a bf16 block at 7B
+# width (32 layers x 16 x 8 x 128 x 2 x 2 bytes): one 1024-token prefix and
+# its request's tail fit, two do not.
+TIER_BLOCKS = 100
+
+
+def phase_kv_tiers(torch, tpa, card, cfg, params, tmp: Path):
+    """The host and disk tiers at full width (bf16 weights, a pool too
+    small for two RAG prefixes): the RAG prefix request, then a second
+    1024-token prefix request whose admission evicts the first prefix's
+    blocks (spilled to a 1 GiB host tier writing through to a disk tier
+    under ``tmp``), then the RAG prompts, which promote them back. Over a
+    bf16 and an int8 pool: spills and promotions > 0, no payload mismatch
+    or promotion failure, every promoted block's pool bytes (codes and
+    scales) bitwise the bytes it had before its spill, the tier's copies
+    too; then a fresh engine on the same directory promotes from disk (a
+    warm restart). Spill and promotion host ms per MiB are printed."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.generate.engine.kv_cache import block_digests
+
+    prefix, rag = rag_workload(cfg.vocab_size)
+    other = [int(t) for t in np.random.default_rng(8).integers(4, cfg.vocab_size, size=RAG_PREFIX)]
+    sampling = SamplingParams(temperature=0.0, max_tokens=RAG_NEW)
+    digests = block_digests(prefix, BLOCK_SIZE)
+    results = {}
+    for kv in ('bf16', 'int8'):
+        tag = f'kv tiers {kv}'
+        tier_dir = tmp / f'tier_{kv}'
+
+        def engine_on_dir():
+            engine = LLMEngine(cfg, params, None, EngineConfig(
+                block_size=BLOCK_SIZE, num_blocks=TIER_BLOCKS, max_num_seqs=4,
+                max_model_len=2048, decode_steps=16, kv_cache_dtype=kv,
+                enable_prefix_cache=True, host_kv_tier_bytes=1 << 30,
+                disk_kv_tier_dir=str(tier_dir),
+            ), device=DEVICE)
+            engine.warmup()
+            return engine
+
+        engine = engine_on_dir()
+        planes = engine._pool_planes()
+        zero_k1_counts(tpa)
+        marks = graph_marks(engine)
+        passes0 = engine.stats['forward_passes']
+        prefills0 = engine.stats['prefill_dispatches']
+        records = instrument_prefill(torch, engine)
+        t0 = time.perf_counter()
+        engine.generate_ids([prefix], sampling)
+        blocks = engine.prefix_cache.match(digests)
+        snapshot = {d: [p[:, b].clone() for p in planes] for d, b in zip(digests, blocks)}
+        engine.generate_ids([other], sampling)  # evicts and spills the prefix
+        spilled = engine.tier_summary()
+        # The prefix blocks the tier holds now (the first ones: LRU) are
+        # the ones the RAG request promotes; their tier copies are bitwise
+        # their pool bytes.
+        in_tier = []
+        for digest, arrays in snapshot.items():
+            entry = engine.kv_tier.get(digest)
+            if entry is not None:
+                in_tier.append(digest)
+                if not all(torch.equal(e, a.cpu()) for e, a in zip(entry, arrays)):
+                    fail(f'{tag}: the tier copy of a spilled block differs from its pool bytes')
+        out = engine.generate_ids(rag[:1], sampling)  # promotes them back
+        engine.generate_ids(rag[1:4], sampling)  # device hits on the whole prefix
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        del engine._dispatch_prefill_paged
+        summary = engine.tier_summary()
+        passes = engine.stats['forward_passes'] - passes0
+        prefills = engine.stats['prefill_dispatches'] - prefills0
+        check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, prefills,
+                        [r['width'] for r in records], 'int8' if kv == 'int8' else 'model')
+        cached = dict(zip(digests, engine.prefix_cache.match(digests)))
+        same = sum(
+            digest in cached and all(
+                torch.equal(p[:, cached[digest]], a) for p, a in zip(planes, snapshot[digest])
+            )
+            for digest in in_tier
+        )
+        del snapshot
+        mib = 2**20
+        res = dict(
+            spills=summary['spills'], spilled_blocks=summary['spilled_blocks'],
+            promotions=summary['promotions'], promoted_blocks=summary['promoted_blocks'],
+            payload_mismatches=summary['payload_mismatches'],
+            promotion_failures=summary['promotion_failures'],
+            spilled_before_rag=spilled['spilled_blocks'], prefix_blocks_in_tier=len(in_tier),
+            prefix_blocks_cached_after=len(cached), promoted_prefix_blocks_bitwise=same,
+            spill_ms_per_mib=summary['spill_s'] * 1e3 / (summary['spilled_bytes'] / mib),
+            promote_host_ms_per_mib=(summary['promote_host_s'] * 1e3
+                                     / max(summary['promoted_bytes'] / mib, 1e-9)),
+            promote_copy_ms_per_mib=(summary['promote_copy_s'] * 1e3
+                                     / max(summary['promoted_bytes'] / mib, 1e-9)),
+            promoted_bytes=summary['promoted_bytes'], disk_blocks=summary['disk_blocks'],
+            disk_bytes=summary['disk_bytes'], wall_s=wall_s,
+            prefill_event_ms=[round(r['event_ms'], 3) for r in records],
+        )
+        shut_down(torch, tag, engine)
+        del engine, planes
+        # The warm restart: a fresh engine, a fresh host tier, the same disk.
+        engine = engine_on_dir()
+        restart = engine.generate_ids(rag[:1], sampling)
+        res.update(restart_promotions=engine.stats['tier_promotions'],
+                   restart_promoted_blocks=engine.stats['tier_promoted_blocks'],
+                   restart_disk_reads=engine.kv_tier.disk.reads,
+                   restart_tokens_match=restart[0] == out[0])
+        shut_down(torch, f'{tag} restart', engine)
+        del engine
+        log(f'[{tag}] {json.dumps(res)} on {card}')
+        if not (res['spills'] > 0 and res['promotions'] > 0 and res['promoted_blocks'] > 0):
+            fail(f'{tag}: spills {res["spills"]}, promotions {res["promotions"]}')
+        if res['payload_mismatches'] or res['promotion_failures']:
+            fail(f'{tag}: {res["payload_mismatches"]} payload mismatches, '
+                 f'{res["promotion_failures"]} promotion failures')
+        if not in_tier or same != len(in_tier) or len(cached) != len(digests):
+            fail(f'{tag}: {same} of {len(in_tier)} promoted prefix blocks bitwise their '
+                 f'spilled bytes ({len(cached)} of {len(digests)} prefix blocks cached)')
+        if not (res['restart_promotions'] > 0 and res['restart_disk_reads'] > 0):
+            fail(f'{tag}: the warm restart promoted {res["restart_promotions"]} times '
+                 f'({res["restart_disk_reads"]} disk reads)')
+        results[kv] = res
+    return results
 
 
 # ------------------------------------------------------------ phases 8-9
@@ -1511,6 +1935,137 @@ def phase_identity_kv_int8(torch, tpa, cfg):
              f'{outs["reference"]}')
     del params
     torch.cuda.empty_cache()
+
+
+def plain_logits(torch, cfg, params, tokens, kv_dtype):
+    """The plain op's last-position logits of ``tokens`` (one fresh paged
+    prefill over a pool of ``kv_dtype``): where a flip happened."""
+    from distllm_tpu_torch.models import mistral
+
+    n = len(tokens)
+    blocks = -(-n // BLOCK_SIZE)
+    shape = (cfg.num_layers, blocks + 1, BLOCK_SIZE, cfg.num_kv_heads, cfg.head_size)
+    k = torch.zeros(shape, dtype=kv_dtype, device=DEVICE)
+    v = torch.zeros_like(k)
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=DEVICE)  # noqa: E731
+    logits, _, _ = mistral.prefill_paged(
+        params, cfg, as_dev([tokens]), as_dev([np.arange(n)]), k, v,
+        as_dev([np.arange(1, blocks + 1)]), as_dev([n]), as_dev([n]),
+        max_table_positions=1024, attn_backend='reference',
+    )
+    return logits[0].float()
+
+
+# A flip whose two tokens' plain-op logits lie closer than this is a near
+# tie: reported with its gap, not failed.
+NEAR_TIE = 1e-3
+
+
+def phase_identity_prefix_mixed(torch, tpa, cfg):
+    """fp32, full width, depth 2. (a) The prefix cache with a host tier: a
+    512-token block-aligned prompt, its exact repeat (copy-on-write), a
+    second 512-token prompt whose admission evicts and spills the first's
+    leading blocks, then the first prompt plus a tail, which promotes them
+    back; greedy tokens on K1 equal those with the cache off. (b) An fp32
+    model over a bf16 pool (K1's mixed mode on the CUDA cores): greedy
+    tokens on K1 and on its plain op, the match printed; a flip is
+    reported with the plain op's logit gap and fails unless it is a near
+    tie."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mistral
+
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE)
+    rng = np.random.default_rng(9)
+    first = [int(t) for t in rng.integers(4, cfg.vocab_size, size=512)]
+    second = [int(t) for t in rng.integers(4, cfg.vocab_size, size=512)]
+    tail = [int(t) for t in rng.integers(4, cfg.vocab_size, size=40)]
+    sampling = SamplingParams(temperature=0.0, max_tokens=24)
+    runs = ([first], [first], [second], [first + tail])
+    outs, stats = {}, {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_8c_') as tmp:
+        for cache in ('off', 'on'):
+            extra = dict(enable_prefix_cache=True, host_kv_tier_bytes=1 << 30,
+                         disk_kv_tier_dir=tmp) if cache == 'on' else {}
+            engine = LLMEngine(cfg, params, None, EngineConfig(
+                block_size=BLOCK_SIZE, num_blocks=60, max_num_seqs=4, max_model_len=1024,
+                **extra,
+            ), device=DEVICE)
+            engine.warmup()
+            outs[cache] = [engine.generate_ids(r, sampling)[0] for r in runs]
+            stats[cache] = dict(engine.stats)
+            shut_down(torch, f'identity prefix cache {cache}', engine)
+            del engine
+    on = stats['on']
+    same = outs['on'] == outs['off']
+    log(f'[identity prefix cache] fp32 depth-2 full width, 4 runs x 24 greedy tokens: '
+        f'cache on (copy-on-write {on.get("prefix_cow_copies", 0)}, spills '
+        f'{on.get("tier_spills", 0)} of {on.get("tier_spilled_blocks", 0)} blocks, promotions '
+        f'{on.get("tier_promotions", 0)} of {on.get("tier_promoted_blocks", 0)} blocks, hits '
+        f'{on.get("prefix_hit_tokens", 0)}/{on.get("prefix_lookup_tokens", 0)} tokens) vs off '
+        f'identical={same}')
+    if not (on.get('prefix_cow_copies') == 1 and on.get('tier_spills', 0) > 0
+            and on.get('tier_promotions', 0) > 0):
+        fail(f'identity prefix cache: expected one copy-on-write, a spill and a promotion; '
+             f'stats {on}')
+    if not same:
+        fail(f'fp32 greedy tokens differ with the prefix cache: {outs}')
+
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size, size=n)]
+               for n in (16, 100, 300, 520, 37, 800)]
+    engine_cfg = EngineConfig(block_size=BLOCK_SIZE, num_blocks=256, max_num_seqs=4,
+                              max_model_len=1024, kv_cache_dtype='bf16')
+    mixed, result = {}, {}
+    for backend in ('auto', 'reference'):
+        engine = LLMEngine(cfg, params, None, engine_cfg, device=DEVICE, attn_backend=backend)
+        engine.warmup()
+        marks = graph_marks(engine)
+        zero_k1_counts(tpa)
+        mixed[backend] = engine.generate_ids(prompts, sampling)
+        passes = engine.telemetry['forward_passes']
+        check_graph_replays(f'identity mixed {backend}', engine, marks, passes,
+                            engine.telemetry['prefill_dispatches'])
+        kernel = tpa.ragged_paged_attention
+        counted, other = kernel.launches, tpa.ragged_paged_attention_reference.launches
+        if backend == 'reference':
+            counted, other = other, counted
+        if counted != cfg.num_layers * passes or other != 0:
+            fail(f'mixed identity ({backend}): {counted} attention calls for {passes} passes '
+                 f'({other} through the other tier)')
+        if backend == 'auto':
+            if (kernel.launches_by_kv['mixed'] != kernel.launches
+                    or kernel.launches_by_route['cuda_cores'] != kernel.launches):
+                fail(f'mixed identity: K1 modes {kernel.launches_by_kv}, routes '
+                     f'{kernel.launches_by_route}; every fp32 launch over the bf16 pool '
+                     'belongs in the mixed mode on the CUDA cores')
+            result = dict(launches=kernel.launches,
+                          launches_by_route=dict(kernel.launches_by_route),
+                          launches_by_kv=dict(kernel.launches_by_kv))
+        if engine.telemetry['kv_cache_dtype'] != 'bfloat16':
+            fail(f'mixed identity: telemetry {engine.telemetry["kv_cache_dtype"]}')
+        shut_down(torch, f'identity mixed {backend}', engine)
+        del engine
+    match = greedy_match(mixed['auto'], mixed['reference'])
+    flips = []
+    for i, (a, b) in enumerate(zip(mixed['auto'], mixed['reference'])):
+        at = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if at is None:
+            continue
+        logits = plain_logits(torch, cfg, params, prompts[i] + b[:at], torch.bfloat16)
+        gap = float((logits[b[at]] - logits[a[at]]).abs())
+        flips.append(dict(prompt=i, position=at, kernel=a[at], plain=b[at], logit_gap=gap))
+    log(f'[identity mixed] fp32 model over a bf16 pool, depth-2 full width, 6 prompts x 24 '
+        f'greedy tokens: K1 mixed mode (CUDA cores) vs plain op match {match:.4f}; flips '
+        f'{json.dumps(flips)}')
+    if any(f['logit_gap'] > NEAR_TIE for f in flips):
+        fail(f'fp32-over-bf16 greedy tokens flip away from a near tie: {flips}')
+    del params
+    torch.cuda.empty_cache()
+    return dict(result, greedy_match=match, flips=flips, prefix_cache_identical=same,
+                prefix_cache_stats={k: on.get(k, 0) for k in (
+                    'prefix_cow_copies', 'tier_spills', 'tier_spilled_blocks',
+                    'tier_promotions', 'tier_promoted_blocks', 'prefix_hit_tokens',
+                    'prefix_lookup_tokens')})
 
 
 def phase_identity_int8(torch, tqm, cfg):
@@ -1877,23 +2432,38 @@ def main() -> None:
     # versions
     cases = phase_kernel(torch, tpa)
     int8_cases = phase_kernel_int8(torch, tpa)
+    mixed_cases = phase_kernel_mixed(torch, tpa)
     k3_cases = phase_encoder_kernel(torch, tea)
     k2_cases = phase_int8_kernel(torch, tq, tqm)
+    from distllm_tpu_torch.models import mistral
     from distllm_tpu_torch.models.mistral import MistralConfig
 
     # 6. serve: Mistral-7B widths, 32 layers, bf16
     serve = phase_serve(torch, tpa, smi, MistralConfig())
     # 7. serve int8: the same, weights int8-quantized on the card
     serve_q = phase_serve(torch, tpa, smi, MistralConfig(), tqm=tqm, quantization='int8')
+    # 6b-6e share one set of 7B bf16 weights made on the card (seed 0).
+    cfg7b = MistralConfig()
+    params7b = mistral.init(cfg7b, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
     # 6b. serve with an int8 KV pool: bf16 and int8 KV arms, same weights
-    serve_kv = phase_serve_kv_int8(torch, tpa, smi, MistralConfig())
+    serve_kv, kvq_tokens = phase_serve_kv_int8(torch, tpa, smi, cfg7b, params7b)
     # 6c. one full-width decode window: captured graph vs eager decode_loop
-    graph_window = phase_graph_window(torch, tpa, smi, MistralConfig())
+    graph_window = phase_graph_window(torch, tpa, smi, cfg7b, params7b)
+    # 6d. the prefix cache: gen_kvq and RAG workloads, cache off / on x 2
+    prefix = phase_serve_prefix_cache(torch, tpa, smi, cfg7b, params7b, kvq_tokens)
+    # 6e. the host and disk tiers over a small pool, and a warm restart
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_tiers_') as tmp:
+        tiers = phase_kv_tiers(torch, tpa, smi, cfg7b, params7b, Path(tmp))
+    del params7b
+    torch.cuda.empty_cache()
     # 8. identity: full width, depth 2, fp32, K1 and then K2 vs plain;
-    # 8b. K1's int8-KV mode vs plain
+    # 8b. K1's int8-KV mode vs plain; 8c. the prefix cache with its tiers
+    # on K1 vs the cache off, and K1's mixed mode (a bf16 pool) vs plain
     phase_identity(torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
     phase_identity_int8(torch, tqm, MistralConfig(num_layers=2, dtype='float32'))
     phase_identity_kv_int8(torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
+    identity_mixed = phase_identity_prefix_mixed(
+        torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
     # 9. quantize on the card: one full-width leaf, bitwise vs the CPU;
     # 9b. int8 KV codes and scales written on the card vs the CPU
     phase_quantize(torch, tq)
@@ -1920,6 +2490,7 @@ def main() -> None:
     int8_keys = ('case', 'kernel_route', 'tol', 'ms', 'timer', 'event_ms', 'host_us',
                  'plain_ms', 'bound_ms', 'bound_by', 'yardstick_ms', 'err_over_tol',
                  'max_abs_err')
+    mixed_head = next(c for c in mixed_cases if c['case'] == MIXED_HEAD)
     k2_head, k2_prefill, k2_embed = (
         next(c for c in k2_cases if c['case'] == name)
         for name in (K2_HEADLINE, K2_PREFILL, K2_EMBED)
@@ -1980,6 +2551,31 @@ def main() -> None:
             'prefill': {key: int8_prefill[key] for key in int8_keys},
             'cases': int8_cases,
         },
+        # The mixed full-precision mode: launches from phase 8c's fp32
+        # model over a bf16 pool, times at phase 6's decode shape in that
+        # pairing. No PyTorch call attends over a pool of another dtype;
+        # the yardstick is SDPA on the pool cast to q's dtype.
+        'mixed_kv': {
+            'launches': identity_mixed['launches'],
+            'launches_by_route': identity_mixed['launches_by_route'],
+            'launches_by_kv': identity_mixed['launches_by_kv'],
+            'max_abs_err': max(c['max_abs_err'] for c in mixed_cases),
+            'err_over_tol': max(c['err_over_tol'] for c in mixed_cases),
+            'tol': mixed_head['tol'],
+            'ms': mixed_head['ms'],
+            'plain_ms': mixed_head['plain_ms'],
+            'bound_ms': mixed_head['bound_ms'],
+            'bound_by': mixed_head['bound_by'],
+            'library_ms': None,
+            'yardstick_ms': mixed_head['yardstick_ms'],
+            'yardstick': "scaled_dot_product_attention on the pool cast to q's dtype",
+            'timer': mixed_head['timer'],
+            'event_ms': mixed_head['event_ms'],
+            'host_us': mixed_head['host_us'],
+            'timed_case': mixed_head['case'],
+            'kernel_route': mixed_head['kernel_route'],
+            'cases': mixed_cases,
+        },
     }, {
         'name': 'encoder_attention',
         'route': 'cuda',
@@ -2037,11 +2633,18 @@ def main() -> None:
         f'{serve_kv["int8"]["tokens_per_s"]:.1f} int8 KV (pool '
         f'{serve_kv["pool_bytes_ratio"]:.4f} of bf16, greedy match '
         f'{serve_kv["greedy_match"]:.4f}); {embed["embeddings_per_s"]:.1f} '
-        f'embeddings/s bf16, {embed_q["embeddings_per_s"]:.1f} int8; '
+        f'embeddings/s bf16, {embed_q["embeddings_per_s"]:.1f} int8; RAG prefix hit share '
+        f'{prefix["on_bf16"]["rag"]["hit_share"]:.4f}, prefill event ms '
+        f'{prefix["off_bf16"]["rag"]["prefill_event_ms_sum"]:.1f} off / '
+        f'{prefix["on_bf16"]["rag"]["prefill_event_ms_sum"]:.1f} on; '
         f'{time.perf_counter() - t_start:.1f} s total')
     log(f'[serve kv] {json.dumps(serve_kv)}')
     log(f'[graph window] {json.dumps(graph_window)}')
-    if not all(math.isfinite(c['ms']) for c in cases + int8_cases + k3_cases + k2_cases):
+    log(f'[prefix cache] {json.dumps(prefix)}')
+    log(f'[kv tiers] {json.dumps(tiers)}')
+    log(f'[identity mixed] {json.dumps(identity_mixed)}')
+    if not all(math.isfinite(c['ms'])
+               for c in cases + int8_cases + mixed_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')
     print(json.dumps({'kernels': kernels}))
     print(smi)

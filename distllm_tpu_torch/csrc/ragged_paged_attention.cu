@@ -136,6 +136,29 @@
 // the codes to bf16 in shared memory, in the layout and stride ldmatrix
 // reads, behind one more barrier per tile; the bf16 tile needs no ring of
 // its own, since it is written after the previous tile's last read.
+//
+// Mixed full-precision mode, on every route (kv_dtype 2; Pallas :609-613,
+// :641-652): the pool holds the other full-precision dtype than q — bf16
+// under fp32 queries (route 0), fp32 under bf16 queries (routes 1 and 2,
+// and route 0 for a GQA group above 64). The Pallas kernel casts K to q's
+// dtype for Q K^T and p to V's dtype for P V:
+// - route 0, fp32 q over bf16: K and V widen exactly on load; p is rounded
+//   to bf16 before P V (l sums the unrounded p), the rest as in fp32. (bf16
+//   q over fp32: K is rounded to bf16 on load; p and V stay fp32.)
+// - routes 1 and 2, bf16 q over fp32: the fp32 rows stage by cp.async into
+//   a ring of their own, as int8 codes do, and are narrowed to bf16 (round
+//   to nearest even) into the tiles ldmatrix reads, behind the same barrier
+//   as the widening of codes. K's narrowing is the Pallas cast. V's is not:
+//   the Pallas kernel weighs fp32 V by fp32 p, while mma.sync takes bf16
+//   operands. Keeping fp32 P V (CUDA-core FMA on the staged V, or a split of
+//   V and p into bf16 high and low parts, three products for one) would cost
+//   more than the P V product itself; this mode's tolerance carries the one
+//   extra rounding of V instead (ops/paged_attention.py TOL_MIXED), held on
+//   the card against the plain version and on the CPU against the Pallas
+//   kernel in interpret mode. An fp32 tile is twice a bf16 one: route 1's
+//   ring of two fp32 K and V tiles takes 128 KiB beside the bf16 tiles (one
+//   block per SM), and route 2's rings are two deep instead of three (four
+//   warps x 32 KiB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,6 +174,11 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kKeyTile = 32;  // keys per staged tile (one per warp lane)
+// KV storage of a launch (kv_dtype): q's dtype, int8 codes with scales, or
+// the other full-precision dtype.
+constexpr int kKvModel = 0;
+constexpr int kKvInt8 = 1;
+constexpr int kKvMixed = 2;
 
 struct Params {
   const void* q;              // [B, S, Nh, Hd]
@@ -269,6 +297,12 @@ __global__ void __launch_bounds__(kThreads)
   using V = Vec16<T>;
   using VK = Vec16<KV>;
   constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  // Mixed mode: K is cast to q's dtype (a rounding only from an fp32 pool
+  // to bf16 q), p to V's (a rounding only from fp32 q to a bf16 pool).
+  constexpr bool kRoundK =
+      std::is_same<T, __nv_bfloat16>::value && std::is_same<KV, float>::value;
+  constexpr bool kRoundP =
+      std::is_same<T, float>::value && std::is_same<KV, __nv_bfloat16>::value;
   constexpr int kVec = V::kElems;
   constexpr int kVecKV = VK::kElems;
   constexpr int kPad = HD + 1;  // staged-K row stride: conflict-free dots
@@ -355,6 +389,10 @@ __global__ void __launch_bounds__(kThreads)
                    p.num_kv_heads + h) * HD + c;
           VK::load(k_cache + off, kv);
           VK::load(v_cache + off, vv);
+          if (kRoundK) {
+#pragma unroll
+            for (int e = 0; e < kVecKV; ++e) kv[e] = __bfloat162float(__float2bfloat16(kv[e]));
+          }
           if (kInt8 && c == 0) {
             s_ks[j] = p.k_scale[size_t(blk) * p.num_kv_heads + h];
             s_vs[j] = p.v_scale[size_t(blk) * p.num_kv_heads + h];
@@ -411,8 +449,11 @@ __global__ void __launch_bounds__(kThreads)
         const float base = m_new == -INFINITY ? 0.f : m_new;
         const float prob = expf(s - base);
         const float total = warp_sum(prob);
-        // l sums the unscaled p; P V takes p * V's page scale.
-        s_p[r * kKeyTile + lane] = kInt8 ? prob * s_vs[lane] : prob;
+        // l sums the unscaled p; P V takes p * V's page scale (int8), or
+        // p rounded to the bf16 pool's dtype (mixed, fp32 q).
+        s_p[r * kKeyTile + lane] = kInt8    ? prob * s_vs[lane]
+                                   : kRoundP ? __bfloat162float(__float2bfloat16(prob))
+                                             : prob;
         if (lane == 0) {
           const float alpha = expf(m_prev - base);
           s_alpha[r] = alpha;
@@ -472,39 +513,61 @@ __device__ __forceinline__ void widen16(__nv_bfloat16* dst, const int8_t* src) {
   out[1] = make_uint4(pairs[4], pairs[5], pairs[6], pairs[7]);
 }
 
-size_t tc_smem_bytes(int head_dim, int max_blocks, bool int8_kv) {
+// 8 fp32 values from shared memory as 8 bf16 values (round to nearest
+// even), stored as one 16-byte word (dst and src 16-byte aligned).
+__device__ __forceinline__ void narrow8(__nv_bfloat16* dst, const float* src) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(mma_tiles::pack_bf16(a.x, a.y), mma_tiles::pack_bf16(a.z, a.w),
+                 mma_tiles::pack_bf16(b.x, b.y), mma_tiles::pack_bf16(b.z, b.w));
+}
+
+size_t tc_smem_bytes(int head_dim, int max_blocks, int kv) {
   // Q tile and a ring of two K and two V tiles, rows padded by 16 bytes so
   // the 8 row addresses of an ldmatrix fall in 8 distinct bank groups;
   // then the row's block table. int8 KV: one bf16 K and V tile, and a ring
-  // of two int8 K and V tiles with their per-key scales.
-  const size_t bf16_tiles = int8_kv ? 2 : 4;
+  // of two int8 K and V tiles with their per-key scales. Mixed (an fp32
+  // pool): one bf16 K and V tile, and a ring of two fp32 K and V tiles.
+  const size_t bf16_tiles = kv == kKvModel ? 4 : 2;
   size_t bytes = sizeof(__nv_bfloat16) * size_t(head_dim + 8) *
                  (kTcRows + bf16_tiles * kTcKeys);
-  if (int8_kv) bytes += size_t(4) * kTcKeys * (head_dim + sizeof(float));
+  if (kv == kKvInt8) bytes += size_t(4) * kTcKeys * (head_dim + sizeof(float));
+  if (kv == kKvMixed) bytes += size_t(4) * kTcKeys * head_dim * sizeof(float);
   return bytes + sizeof(int) * size_t(max_blocks);
 }
 
-template <int HD, bool kInt8>
+// The element a pool of KV storage kKv holds under bf16 queries.
+template <int kKv>
+using BfPoolElem = typename std::conditional<
+    kKv == kKvInt8, int8_t,
+    typename std::conditional<kKv == kKvMixed, float, __nv_bfloat16>::type>::type;
+
+template <int HD, int kKv>
 __global__ void __launch_bounds__(kThreads)
     ragged_paged_attention_mma_kernel(const Params p) {
   using namespace mma_tiles;
   using bf16 = __nv_bfloat16;
+  using KV = BfPoolElem<kKv>;
+  constexpr bool kInt8 = kKv == kKvInt8;
+  constexpr bool kStaged = kKv != kKvModel;  // pool rows staged, then made bf16
   constexpr int kStride = HD + 8;       // staged row, bf16 elements
   constexpr int kChunks = HD / 8;       // 16-byte chunks of a row
   constexpr int kSteps = HD / 16;       // k-steps of Q K^T
   constexpr int kOut = HD / 8;          // 8-column accumulator tiles of P V
   constexpr int kKeyTiles = kTcKeys / 8;  // 8-key accumulator tiles of S
-  constexpr int kRing = kInt8 ? 1 : 2;  // bf16 K/V tiles in shared memory
+  constexpr int kRing = kStaged ? 1 : 2;  // bf16 K/V tiles in shared memory
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* s_q = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][kStride]
   bf16* s_k = s_q + kTcRows * kStride;           // [kRing][kTcKeys][kStride]
   bf16* s_v = s_k + kRing * kTcKeys * kStride;   // [kRing][kTcKeys][kStride]
-  // int8 KV: the staged codes [2][kTcKeys][HD] of K and of V, their
-  // per-key scales [2][kTcKeys], then the block table.
-  int8_t* s_k8 = reinterpret_cast<int8_t*>(s_v + kRing * kTcKeys * kStride);
-  int8_t* s_v8 = s_k8 + (kInt8 ? 2 * kTcKeys * HD : 0);
-  float* s_ks = reinterpret_cast<float*>(s_v8 + (kInt8 ? 2 * kTcKeys * HD : 0));
+  // Staged pools (int8 codes, fp32 rows): the staged rows [2][kTcKeys][HD]
+  // of K and of V, the int8 per-key scales [2][kTcKeys], then the block
+  // table.
+  KV* s_kr = reinterpret_cast<KV*>(s_v + kRing * kTcKeys * kStride);
+  KV* s_vr = s_kr + (kStaged ? 2 * kTcKeys * HD : 0);
+  float* s_ks = reinterpret_cast<float*>(s_vr + (kStaged ? 2 * kTcKeys * HD : 0));
   float* s_vs = s_ks + (kInt8 ? 2 * kTcKeys : 0);
   int* s_bt = reinterpret_cast<int*>(s_vs + (kInt8 ? 2 * kTcKeys : 0));  // [max_blocks]
 
@@ -523,7 +586,6 @@ __global__ void __launch_bounds__(kThreads)
   const int span_off = qt * p.span_tile;
 
   const bf16* q = static_cast<const bf16*>(p.q);
-  using KV = typename std::conditional<kInt8, int8_t, bf16>::type;
   const KV* k_cache = static_cast<const KV*>(p.k_cache);
   const KV* v_cache = static_cast<const KV*>(p.v_cache);
   bf16* out = static_cast<bf16*>(p.out);
@@ -594,7 +656,7 @@ __global__ void __launch_bounds__(kThreads)
   // Each thread copies one 16-byte column c of every kKeyStride-th key of
   // a tile, starting at key j0: a fixed trip count, unrolled, so the page
   // lookups of a tile are in flight together. A 16-byte chunk is 8 bf16
-  // values or 16 int8 codes.
+  // values, 16 int8 codes or 4 fp32 values.
   constexpr int kElemsPerChunk = 16 / sizeof(KV);
   constexpr int kKvChunks = HD / kElemsPerChunk;  // 16-byte chunks of a KV row
   constexpr int kKeyStride = kThreads / kKvChunks;
@@ -617,9 +679,9 @@ __global__ void __launch_bounds__(kThreads)
         off = size_t(s_bt[page]) * page_elems + (key - page * p.block_size) * slot_elems +
               head_col;
       }
-      if constexpr (kInt8) {
-        cp_async16(s_k8 + (buf * kTcKeys + j) * HD + c, k_cache + off, live);
-        cp_async16(s_v8 + (buf * kTcKeys + j) * HD + c, v_cache + off, live);
+      if constexpr (kStaged) {
+        cp_async16(s_kr + (buf * kTcKeys + j) * HD + c, k_cache + off, live);
+        cp_async16(s_vr + (buf * kTcKeys + j) * HD + c, v_cache + off, live);
       } else {
         cp_async16(s_k + (buf * kTcKeys + j) * kStride + c, k_cache + off, live);
         cp_async16(s_v + (buf * kTcKeys + j) * kStride + c, v_cache + off, live);
@@ -652,17 +714,26 @@ __global__ void __launch_bounds__(kThreads)
     const int buf = it & 1;
     cp_async_wait<0>();  // the query tile and tile it have landed
     __syncthreads();
-    if constexpr (kInt8) {
-      // Widen tile it's codes to bf16, exactly, into the tile ldmatrix
-      // reads (its previous tile's last read was before the closing
-      // barrier of the previous step).
-      const int8_t* src_k = s_k8 + buf * kTcKeys * HD;
-      const int8_t* src_v = s_v8 + buf * kTcKeys * HD;
-      for (int i = tid; i < kTcKeys * HD / 16; i += kThreads) {
-        const int j = i / (HD / 16);
-        const int col = (i % (HD / 16)) * 16;
-        widen16(s_k + j * kStride + col, src_k + j * HD + col);
-        widen16(s_v + j * kStride + col, src_v + j * HD + col);
+    if constexpr (kStaged) {
+      // Make tile it bf16 in the tile ldmatrix reads (its previous tile's
+      // last read was before the closing barrier of the previous step):
+      // int8 codes widen exactly, fp32 rows narrow (nearest even).
+      const KV* src_k = s_kr + buf * kTcKeys * HD;
+      const KV* src_v = s_vr + buf * kTcKeys * HD;
+      if constexpr (kInt8) {
+        for (int i = tid; i < kTcKeys * HD / 16; i += kThreads) {
+          const int j = i / (HD / 16);
+          const int col = (i % (HD / 16)) * 16;
+          widen16(s_k + j * kStride + col, src_k + j * HD + col);
+          widen16(s_v + j * kStride + col, src_v + j * HD + col);
+        }
+      } else {
+        for (int i = tid; i < kTcKeys * HD / 8; i += kThreads) {
+          const int j = i / (HD / 8);
+          const int col = (i % (HD / 8)) * 8;
+          narrow8(s_k + j * kStride + col, src_k + j * HD + col);
+          narrow8(s_v + j * kStride + col, src_v + j * HD + col);
+        }
       }
       __syncthreads();
     }
@@ -674,8 +745,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     const bool compute = warp_live && t0 < w_hi && t0 + kTcKeys > w_lo;
-    const bf16* kt = s_k + (kInt8 ? 0 : buf) * kTcKeys * kStride;
-    const bf16* vt = s_v + (kInt8 ? 0 : buf) * kTcKeys * kStride;
+    const bf16* kt = s_k + (kStaged ? 0 : buf) * kTcKeys * kStride;
+    const bf16* vt = s_v + (kStaged ? 0 : buf) * kTcKeys * kStride;
     float s[kKeyTiles][4];
     if (compute) {
 #pragma unroll
@@ -830,19 +901,29 @@ __host__ __device__ constexpr size_t split_region_offset(int head_dim, int split
          16 * 16;
 }
 
+// The depth of each warp's ring: an fp32 pool's rows take twice a bf16
+// ring's bytes, so its ring is two deep.
+__host__ __device__ constexpr int split_stages(int kv) {
+  return kv == kKvMixed ? 2 : kSplitStages;
+}
+
 // One warp's share of the region during the key loop. bf16 pool: a ring of
 // K and V rows (padded by 16 bytes for ldmatrix). int8 pool: a ring of K
 // and V codes with their per-key scales, and one bf16 K and V tile the
-// codes are widened into.
-__host__ __device__ constexpr size_t split_warp_bytes(int head_dim, bool int8_kv) {
-  return int8_kv ? kSplitStages * kWarpKeys * 2 * (head_dim + sizeof(float)) +
-                       kWarpKeys * 2 * sizeof(__nv_bfloat16) * size_t(head_dim + 8)
-                 : kSplitStages * kWarpKeys * 2 * sizeof(__nv_bfloat16) * size_t(head_dim + 8);
+// codes are widened into. fp32 pool (mixed): a ring of K and V rows and
+// one bf16 K and V tile they are narrowed into.
+__host__ __device__ constexpr size_t split_warp_bytes(int head_dim, int kv) {
+  return kv == kKvModel
+             ? kSplitStages * kWarpKeys * 2 * sizeof(__nv_bfloat16) * size_t(head_dim + 8)
+             : split_stages(kv) * kWarpKeys * 2 *
+                       (kv == kKvInt8 ? head_dim + sizeof(float)
+                                      : sizeof(float) * size_t(head_dim)) +
+                   kWarpKeys * 2 * sizeof(__nv_bfloat16) * size_t(head_dim + 8);
 }
 
 size_t split_smem_bytes(int head_dim, int split_keys, int block_size, int num_splits,
-                        bool int8_kv) {
-  const size_t rings = kSplitWarps * split_warp_bytes(head_dim, int8_kv);
+                        int kv) {
+  const size_t rings = kSplitWarps * split_warp_bytes(head_dim, kv);
   // After the key loop: each warp's (m, l, acc) of its 16 rows; then the
   // cross-split merge's m (then weights) and l of each (row, split).
   const size_t warps = sizeof(float) * kSplitWarps * kMmaRows * size_t(head_dim + 2);
@@ -851,17 +932,20 @@ size_t split_smem_bytes(int head_dim, int split_keys, int block_size, int num_sp
          std::max(rings, std::max(warps, splits));
 }
 
-template <int HD, bool kInt8>
+template <int HD, int kKv>
 __global__ void __launch_bounds__(kThreads)
     ragged_paged_attention_split_kernel(const Params p, const SplitArgs sa) {
   using namespace mma_tiles;
   using bf16 = __nv_bfloat16;
-  using KV = typename std::conditional<kInt8, int8_t, bf16>::type;
+  using KV = BfPoolElem<kKv>;
+  constexpr bool kInt8 = kKv == kKvInt8;
+  constexpr bool kStaged = kKv != kKvModel;            // pool rows staged, then made bf16
+  constexpr int kStages = split_stages(kKv);           // each warp's ring depth
   constexpr int kStride = HD + 8;                      // staged bf16 row, elements
   constexpr int kSteps = HD / 16;                      // k-steps of Q K^T
   constexpr int kOut = HD / 8;                         // 8-column tiles of P V
-  constexpr int kRingRow = kInt8 ? HD : kStride;       // staged pool row, elements
-  constexpr int kRing = kSplitStages * kWarpKeys * kRingRow;  // one pool's ring
+  constexpr int kRingRow = kStaged ? HD : kStride;     // staged pool row, elements
+  constexpr int kRing = kStages * kWarpKeys * kRingRow;  // one pool's ring
   constexpr int kElemsPerChunk = 16 / sizeof(KV);
   constexpr int kKvChunks = HD / kElemsPerChunk;       // 16-byte chunks of a pool row
   constexpr int kKeyStride = 32 / kKvChunks;           // keys one pass of the lanes copies
@@ -917,12 +1001,12 @@ __global__ void __launch_bounds__(kThreads)
   bf16* s_q = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][kStride]
   int* s_bt = reinterpret_cast<int*>(smem_raw + split_q_bytes(HD));
   unsigned char* region = smem_raw + split_region_offset(HD, sa.split_keys, p.block_size);
-  unsigned char* mine = region + warp * split_warp_bytes(HD, kInt8);
-  KV* r_k = reinterpret_cast<KV*>(mine);  // [kSplitStages][kWarpKeys][kRingRow]
+  unsigned char* mine = region + warp * split_warp_bytes(HD, kKv);
+  KV* r_k = reinterpret_cast<KV*>(mine);  // [kStages][kWarpKeys][kRingRow]
   KV* r_v = r_k + kRing;
-  float* r_ks = reinterpret_cast<float*>(r_v + kRing);  // int8: [kSplitStages][kWarpKeys]
-  float* r_vs = r_ks + kSplitStages * kWarpKeys;
-  bf16* w_k = reinterpret_cast<bf16*>(r_vs + kSplitStages * kWarpKeys);  // [kWarpKeys][kStride]
+  float* r_ks = reinterpret_cast<float*>(r_v + kRing);  // int8: [kStages][kWarpKeys]
+  float* r_vs = r_ks + (kInt8 ? kStages * kWarpKeys : 0);
+  bf16* w_k = reinterpret_cast<bf16*>(r_vs + (kInt8 ? kStages * kWarpKeys : 0));  // [kWarpKeys][kStride]
   bf16* w_v = w_k + kWarpKeys * kStride;
 
   // The query tile, padded with zero rows to the m16 operand, and the pages
@@ -964,7 +1048,7 @@ __global__ void __launch_bounds__(kThreads)
   auto stage = [&](int step) {
     const int key0 = slice_key0(step);
     if (!slice_live(key0)) return;
-    const int buf = step % kSplitStages;
+    const int buf = step % kStages;
 #pragma unroll
     for (int it = 0; it < kPerLane; ++it) {
       const int j = j0 + it * kKeyStride;
@@ -1007,7 +1091,7 @@ __global__ void __launch_bounds__(kThreads)
   float l[2] = {0.f, 0.f};  // this lane's share of each row's sum
 
 #pragma unroll
-  for (int st = 0; st < kSplitStages - 1; ++st) {
+  for (int st = 0; st < kStages - 1; ++st) {
     if (st < n_steps) stage(st);
     cp_async_commit();
   }
@@ -1015,22 +1099,33 @@ __global__ void __launch_bounds__(kThreads)
     // This lane's copies of the step have landed; after the warp's barrier
     // every lane's have, and the buffer staged next was last read a step
     // ago.
-    cp_async_wait<kSplitStages - 2>();
+    cp_async_wait<kStages - 2>();
     __syncwarp();
-    if (step + kSplitStages - 1 < n_steps) stage(step + kSplitStages - 1);
+    if (step + kStages - 1 < n_steps) stage(step + kStages - 1);
     cp_async_commit();
     const int key0 = slice_key0(step);
     if (!slice_live(key0)) continue;
-    const int buf = step % kSplitStages;
+    const int buf = step % kStages;
     const bf16* kt;
     const bf16* vt;
-    if constexpr (kInt8) {
-      // Widen the step's codes to bf16, exactly, into the warp's tile.
-      for (int i = lane; i < kWarpKeys * (HD / 16); i += 32) {
-        const int j = i / (HD / 16);
-        const int col = (i % (HD / 16)) * 16;
-        widen16(w_k + j * kStride + col, r_k + (buf * kWarpKeys + j) * HD + col);
-        widen16(w_v + j * kStride + col, r_v + (buf * kWarpKeys + j) * HD + col);
+    if constexpr (kStaged) {
+      // Make the step's rows bf16 in the warp's tile: int8 codes widen
+      // exactly, fp32 rows narrow (nearest even). (The tile's previous
+      // read, a step ago, came before this step's warp barrier.)
+      if constexpr (kInt8) {
+        for (int i = lane; i < kWarpKeys * (HD / 16); i += 32) {
+          const int j = i / (HD / 16);
+          const int col = (i % (HD / 16)) * 16;
+          widen16(w_k + j * kStride + col, r_k + (buf * kWarpKeys + j) * HD + col);
+          widen16(w_v + j * kStride + col, r_v + (buf * kWarpKeys + j) * HD + col);
+        }
+      } else {
+        for (int i = lane; i < kWarpKeys * (HD / 8); i += 32) {
+          const int j = i / (HD / 8);
+          const int col = (i % (HD / 8)) * 8;
+          narrow8(w_k + j * kStride + col, r_k + (buf * kWarpKeys + j) * HD + col);
+          narrow8(w_v + j * kStride + col, r_v + (buf * kWarpKeys + j) * HD + col);
+        }
       }
       __syncwarp();
       kt = w_k;
@@ -1238,10 +1333,10 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) sa.tickets[size_t(b) * p.num_kv_heads + h] = 0;
 }
 
-template <int HD, bool kInt8>
+template <int HD, int kKv>
 cudaError_t launch_split(const Params& p, const SplitArgs& sa, int batch, cudaStream_t stream) {
-  const size_t smem = split_smem_bytes(HD, sa.split_keys, p.block_size, sa.num_splits, kInt8);
-  auto kernel = ragged_paged_attention_split_kernel<HD, kInt8>;
+  const size_t smem = split_smem_bytes(HD, sa.split_keys, p.block_size, sa.num_splits, kKv);
+  auto kernel = ragged_paged_attention_split_kernel<HD, kKv>;
   static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
   cudaError_t err = mma_tiles::opt_in_shared_memory(
       reinterpret_cast<const void*>(kernel), smem, opted_in);
@@ -1267,10 +1362,10 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int HD, bool kInt8>
+template <int HD, int kKv>
 cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(HD, p.max_blocks, kInt8);
-  auto kernel = ragged_paged_attention_mma_kernel<HD, kInt8>;
+  const size_t smem = tc_smem_bytes(HD, p.max_blocks, kKv);
+  auto kernel = ragged_paged_attention_mma_kernel<HD, kKv>;
   static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
   cudaError_t err = mma_tiles::opt_in_shared_memory(
       reinterpret_cast<const void*>(kernel), smem, opted_in);
@@ -1281,13 +1376,40 @@ cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Routes 1 and 2 (bf16 q) and route 0 at one head dim, by KV storage.
+template <int HD>
+cudaError_t launch_route(int route, int dtype, int kv, const Params& p, const SplitArgs& sa,
+                         int batch, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (route == 2) {
+    return kv == kKvInt8    ? launch_split<HD, kKvInt8>(p, sa, batch, s)
+           : kv == kKvMixed ? launch_split<HD, kKvMixed>(p, sa, batch, s)
+                            : launch_split<HD, kKvModel>(p, sa, batch, s);
+  }
+  if (route == 1) {
+    return kv == kKvInt8    ? launch_mma<HD, kKvInt8>(p, batch, s)
+           : kv == kKvMixed ? launch_mma<HD, kKvMixed>(p, batch, s)
+                            : launch_mma<HD, kKvModel>(p, batch, s);
+  }
+  if (dtype == 0) {
+    return kv == kKvInt8    ? launch<float, int8_t, HD>(p, batch, s)
+           : kv == kKvMixed ? launch<float, bf16, HD>(p, batch, s)
+                            : launch<float, float, HD>(p, batch, s);
+  }
+  return kv == kKvInt8    ? launch<bf16, int8_t, HD>(p, batch, s)
+         : kv == kKvMixed ? launch<bf16, float, HD>(p, batch, s)
+                          : launch<bf16, bf16, HD>(p, batch, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (queries and output share it). kv_dtype:
 // 0 = the pool holds q's dtype (k_scale / v_scale unused), 1 = int8 codes
-// with fp32 scales k_scale / v_scale [num_blocks, Nkv]. q_lens may be null:
+// with fp32 scales k_scale / v_scale [num_blocks, Nkv], 2 = the pool holds
+// the other full-precision dtype (bf16 under fp32 q, fp32 under bf16 q;
+// scales unused). q_lens may be null:
 // every row then has `span` queries. route: 0 = CUDA cores (any dtype and
 // tile), 1 = tensor cores (bf16, span_tile x group of 16..64 rows), 2 =
 // split-KV tensor cores (bf16, one query tile of span x group < 16 rows,
@@ -1312,11 +1434,10 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
   if (batch < 1 || batch > 65535 || span < 1 || num_kv_heads < 1 ||
       num_kv_heads > 65535 || num_heads % num_kv_heads != 0 ||
       block_size < 1 || max_blocks < 1 || span_tile < 1 ||
-      (kv_dtype != 0 && kv_dtype != 1) ||
-      (kv_dtype == 1 && (k_scale == nullptr || v_scale == nullptr))) {
+      kv_dtype < kKvModel || kv_dtype > kKvMixed || (dtype != 0 && dtype != 1) ||
+      (kv_dtype == kKvInt8 && (k_scale == nullptr || v_scale == nullptr))) {
     return int(cudaErrorInvalidValue);
   }
-  const bool int8_kv = kv_dtype == 1;
   Params p;
   p.q = q;
   p.k_cache = k_cache;
@@ -1338,53 +1459,25 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
   p.scale = scale;
   p.softcap = softcap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
+  const cudaError_t err = cudaErrorInvalidValue;
+  const int rows = span_tile * (num_heads / num_kv_heads);
+  SplitArgs sa{nullptr, nullptr, 0, 0};
   if (route == 2) {
-    const int rows = span_tile * (num_heads / num_kv_heads);
     if (dtype != 1 || rows >= kMmaRows || span_tile != span || workspace == nullptr ||
         tickets == nullptr || num_splits < 1 || split_keys < kStepKeys ||
         split_keys % kStepKeys != 0 || split_keys % block_size != 0 ||
         int64_t(num_splits) * split_keys < int64_t(max_blocks) * block_size) {
       return int(err);
     }
-    const SplitArgs sa{static_cast<float*>(workspace), static_cast<int*>(tickets), num_splits,
-                       split_keys};
-    if (head_dim == 64) {
-      err = int8_kv ? launch_split<64, true>(p, sa, batch, s)
-                    : launch_split<64, false>(p, sa, batch, s);
-    }
-    if (head_dim == 128) {
-      err = int8_kv ? launch_split<128, true>(p, sa, batch, s)
-                    : launch_split<128, false>(p, sa, batch, s);
-    }
-    return int(err);
-  }
-  if (route == 1) {
-    const int rows = span_tile * (num_heads / num_kv_heads);
+    sa = SplitArgs{static_cast<float*>(workspace), static_cast<int*>(tickets), num_splits,
+                   split_keys};
+  } else if (route == 1) {
     if (dtype != 1 || rows < 16 || rows > kTcRows) return int(err);
-    if (head_dim == 64) {
-      err = int8_kv ? launch_mma<64, true>(p, batch, s) : launch_mma<64, false>(p, batch, s);
-    }
-    if (head_dim == 128) {
-      err = int8_kv ? launch_mma<128, true>(p, batch, s) : launch_mma<128, false>(p, batch, s);
-    }
+  } else if (route != 0) {
     return int(err);
   }
-  if (route != 0) return int(err);
-  using bf16 = __nv_bfloat16;
-  if (dtype == 0 && head_dim == 64) {
-    err = int8_kv ? launch<float, int8_t, 64>(p, batch, s) : launch<float, float, 64>(p, batch, s);
-  }
-  if (dtype == 0 && head_dim == 128) {
-    err = int8_kv ? launch<float, int8_t, 128>(p, batch, s)
-                  : launch<float, float, 128>(p, batch, s);
-  }
-  if (dtype == 1 && head_dim == 64) {
-    err = int8_kv ? launch<bf16, int8_t, 64>(p, batch, s) : launch<bf16, bf16, 64>(p, batch, s);
-  }
-  if (dtype == 1 && head_dim == 128) {
-    err = int8_kv ? launch<bf16, int8_t, 128>(p, batch, s) : launch<bf16, bf16, 128>(p, batch, s);
-  }
+  if (head_dim == 64) return int(launch_route<64>(route, dtype, kv_dtype, p, sa, batch, s));
+  if (head_dim == 128) return int(launch_route<128>(route, dtype, kv_dtype, p, sa, batch, s));
   return int(err);
 }
 

@@ -2,11 +2,25 @@
 (PyTorch counterpart of ``distllm_tpu.generate.engine.engine``).
 
 - **admission**: waiting requests enter free slots under the block budget
-  (``scheduler.PyScheduler``); each admitted prompt is prefilled through
-  :func:`~distllm_tpu_torch.models.mistral.prefill_paged` as a tail with no
-  cached prefix — the JAX engine's own path for chunk and prefix-hit
-  tails — so every dispatch reaches the paged-attention kernel. Same-bucket
-  prompts prefill together in one padded dispatch.
+  (``scheduler.PyScheduler``); each admitted request prefills its tail —
+  the tokens past its cached prefix, all of them without the prefix cache
+  — through :func:`~distllm_tpu_torch.models.mistral.prefill_paged`, the
+  JAX engine's own path for chunk and prefix-hit tails, so every dispatch
+  reaches the paged-attention kernel. Tails of one length bucket prefill
+  together in one padded dispatch.
+- **automatic prefix caching** (``EngineConfig.enable_prefix_cache``):
+  full prompt blocks enter a hash-chain cache after their prefill; a later
+  request sharing a block-aligned prefix borrows those blocks
+  (refcounted, LRU-evicted under pool pressure) and prefills only its
+  tail. An exact block-aligned repeat keeps its match and re-prefills its
+  last token into a copy of the shared final block (copy-on-write).
+- **host and disk KV tiers** (``host_kv_tier_bytes``, ``disk_kv_tier_dir``):
+  evicted cache blocks spill device -> host (writing through to disk)
+  instead of being dropped, and a later same-prefix arrival promotes them
+  back into its own pool blocks: a host -> device copy on a side stream,
+  polled by its event, that the request's tail prefill waits on. Every
+  pool write — prefill, decode, copy-on-write, promotion — changes the
+  pool tensors in place, so the decode graphs' addresses stay valid.
 - **decode**: one window generates up to ``decode_steps`` tokens for the
   whole running batch (``max_num_seqs`` slots) through the engine's
   :class:`~distllm_tpu_torch.generate.engine.decode_graph.DecodeGraphRunner`:
@@ -25,17 +39,19 @@
   then run through kernel K2, nf4 ones dequantize per layer) and pins the
   quantized-matmul tier into its model config.
 - **KV storage dtype** (``EngineConfig.kv_cache_dtype``), resolved once at
-  construction: the model dtype (``'auto'`` or the matching pin), or an
-  int8 pool with per-block, per-KV-head scales, quantized at write time
-  and read by kernel K1's int8-KV mode (about half the bytes per block).
+  construction: the model dtype (``'auto'`` or the matching pin), the other
+  full-precision dtype (read by kernel K1's mixed mode), or an int8 pool
+  with per-block, per-KV-head scales, quantized at write time and read by
+  K1's int8-KV mode (about half the bytes per block).
 
-Later slices bring mixed batching, speculation, the prefix cache and its
-tiers, recovery, admission control, pipelining (this engine runs one
+Later slices bring chunked prefill, mixed batching, speculation, the peer
+KV tier, recovery, admission control, pipelining (this engine runs one
 window at a time: ``pipeline_depth=1``) and observability.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -48,7 +64,13 @@ import numpy as np
 import torch
 
 from distllm_tpu_torch.generate.engine.decode_graph import DecodeGraphRunner
-from distllm_tpu_torch.generate.engine.kv_cache import PagedKVCache
+from distllm_tpu_torch.generate.engine.kv_cache import (
+    DiskKVTier,
+    HostKVTier,
+    PagedKVCache,
+    PrefixCache,
+    block_digests,
+)
 from distllm_tpu_torch.generate.engine.scheduler import (
     PyScheduler,
     SchedulerExhausted,
@@ -115,6 +137,21 @@ class Request:
     output_ids: list[int] = field(default_factory=list)
     sample_seed: int = 0
     finish_reason: str = ''  # 'stop' | 'length' once finished
+    # --- automatic prefix caching ---
+    # Chained digests of the prompt's full blocks (the cache keys).
+    digests: list[bytes] = field(default_factory=list)
+    # Prompt tokens whose KV is valid in cache blocks at prefill time: the
+    # prefill runs on the tail past them.
+    num_cached_tokens: int = 0
+    # Leading blocks of the request's row owned by the prefix cache (the
+    # scheduler's borrowed-prefix count).
+    num_borrowed_blocks: int = 0
+    # Aligned full-cover hit: the shared final block, copied into the
+    # request's own block before its last token is re-prefilled.
+    cow_src_block: int | None = None
+    # Digests past the cached prefix that the host or disk tier holds at
+    # add_request; promoted at admission, cleared when promotion begins.
+    promo_digests: list[bytes] = field(default_factory=list)
 
     @property
     def num_tokens(self) -> int:
@@ -135,11 +172,26 @@ class EngineConfig(BaseConfig):
     decode_steps: int = 8
     max_prefill_batch: int = 8
     quantization: str | None = None  # None | 'int8' | 'nf4' (weight-only)
+    # Automatic prefix caching: full prompt blocks enter a hash-chain
+    # cache as they prefill; later requests sharing a block-aligned prefix
+    # reuse those blocks and prefill only the uncached tail.
+    enable_prefix_cache: bool = False
+    # Host-RAM KV tier behind the prefix cache: byte budget (LRU) of the
+    # host pool evicted cache blocks spill into; 0 disables. Requires
+    # enable_prefix_cache.
+    host_kv_tier_bytes: int = 0
+    # Disk tier under the host pool: spills write through to one
+    # digest-named .kvblock file per block here, so a fresh engine
+    # promotes from a previous process's spills. None disables; requires
+    # host_kv_tier_bytes.
+    disk_kv_tier_dir: str | None = None
+    # Disk-tier byte budget (LRU; evictions there are final drops).
+    disk_kv_tier_bytes: int = 1 << 30
     # Storage dtype of the paged KV pool (the JAX field): 'auto' stores the
     # model dtype, bit-identical to an engine without the field; 'int8'
-    # stores int8 codes with per-block, per-KV-head fp32 scales. A
-    # full-precision pin that differs from the model dtype is not ported
-    # (ROADMAP A15).
+    # stores int8 codes with per-block, per-KV-head fp32 scales; a
+    # full-precision pin of the other dtype than the model's ('bf16' under
+    # fp32, 'fp32' under bf16) is attended in K1's mixed mode.
     kv_cache_dtype: str = 'auto'  # 'auto' | 'bf16' | 'fp32' | 'int8'
 
     def validate(self) -> None:
@@ -161,6 +213,19 @@ class EngineConfig(BaseConfig):
             raise ValueError('num_blocks must be >= 2 (block 0 is reserved)')
         if self.max_model_len < 2:
             raise ValueError('max_model_len must be >= 2')
+        if self.host_kv_tier_bytes < 0 or self.disk_kv_tier_bytes < 0:
+            raise ValueError('KV tier byte budgets must be >= 0')
+        if self.host_kv_tier_bytes and not self.enable_prefix_cache:
+            raise ValueError(
+                'host_kv_tier_bytes needs enable_prefix_cache: the tier spills '
+                'and promotes prefix-cache blocks'
+            )
+        if self.disk_kv_tier_dir and not self.host_kv_tier_bytes:
+            raise ValueError(
+                'disk_kv_tier_dir needs host_kv_tier_bytes > 0: spills reach '
+                'disk by writing through the host tier, and promotions route '
+                'disk -> host -> device'
+            )
 
 
 class LLMEngine:
@@ -219,17 +284,10 @@ class LLMEngine:
         self.params = params
         self.weight_bytes_quantized, self.weight_bytes_float = quantized_nbytes(params)
         # The KV storage dtype, resolved once (the JAX resolution): 'auto'
-        # stores the model dtype.
-        model_dtype = mistral.torch_dtype(model_cfg.dtype)
+        # stores the model dtype; a full-precision pin of the other dtype
+        # is K1's mixed mode.
         kv_name = _KV_POOL_DTYPES.get(cfg.kv_cache_dtype, model_cfg.dtype)
         kv_dtype = torch.int8 if kv_name == 'int8' else mistral.torch_dtype(kv_name)
-        if kv_dtype not in (torch.int8, model_dtype):
-            raise NotImplementedError(
-                f'kv_cache_dtype={cfg.kv_cache_dtype!r} under a '
-                f'{model_cfg.dtype} model (a full-precision pool of another '
-                "dtype than the model's) is not ported yet (ROADMAP A15); "
-                "use 'auto' or 'int8'"
-            )
         self.kv = PagedKVCache(
             num_layers=model_cfg.num_layers,
             num_blocks=cfg.num_blocks,
@@ -246,14 +304,36 @@ class LLMEngine:
             cfg.max_model_len, _PREFILL_MIN_BUCKET, scheme='pow2'
         )
         self.sched = PyScheduler(cfg.num_blocks, cfg.block_size, cfg.max_num_seqs)
+        self.prefix_cache = PrefixCache(cfg.block_size) if cfg.enable_prefix_cache else None
+        # Host (and disk) KV tier behind the prefix cache: eviction cascades
+        # device -> host -> disk -> drop, and tier hits promote back.
+        self.kv_tier = None
+        if cfg.host_kv_tier_bytes:
+            disk = (
+                DiskKVTier(cfg.disk_kv_tier_dir, cfg.disk_kv_tier_bytes)
+                if cfg.disk_kv_tier_dir else None
+            )
+            self.kv_tier = HostKVTier(cfg.host_kv_tier_bytes, disk=disk)
+        # Promotion copies in flight on CUDA: each record keeps the pinned
+        # staging its side-stream copy reads, and the copy's timing events,
+        # until the copy has completed. Nothing on the host waits for them.
+        self._promotions: list[dict] = []
+        self._promote_stream = None  # the side stream of promotion copies
+        # tier_summary's seconds: spills and promotion staging on the host,
+        # promotion copies on the device.
+        self._tier_times = dict.fromkeys(('spill_s', 'promote_host_s', 'promote_copy_s'), 0.0)
         self._requests: dict[int, Request] = {}
         self._next_id = itertools.count()
         self._finished: dict[int, Request] = {}
         # Cumulative counters over the engine's life: forward_passes (model
         # passes over all layers), prefill_dispatches, decode_windows,
-        # generated_tokens, preemptions; on the GPU decode_graph_captures,
-        # decode_graph_replays (one per decode step) and
-        # decode_graph_capture_s (the captures' seconds, a float).
+        # generated_tokens, preemptions; with the prefix cache
+        # prefix_lookup_tokens, prefix_hit_tokens, prefix_cow_copies and
+        # prefix_evicted_blocks; with the tiers tier_spills,
+        # tier_spilled_blocks, tier_promotions, tier_promoted_blocks,
+        # tier_payload_mismatches and tier_promotion_failures; on the GPU
+        # decode_graph_captures, decode_graph_replays (one per decode step)
+        # and decode_graph_capture_s (the captures' seconds, a float).
         self.stats: Counter[str] = Counter()
         self._decode = DecodeGraphRunner(
             self.params, self.model_cfg, self.kv.k, self.kv.v,
@@ -289,9 +369,45 @@ class LLMEngine:
         request.sample_seed = _request_seed(
             _ENGINE_SEED, request.request_id, request.params.seed
         )
+        cached_blocks = self._acquire_prefix(request) if self.prefix_cache else []
         self._requests[request.request_id] = request
-        self.sched.add(request.request_id, request.num_tokens)
+        self.sched.add(request.request_id, request.num_tokens, cached_blocks)
         return request.request_id
+
+    def _acquire_prefix(self, request: Request) -> list[int]:
+        """Match the prompt's blocks in the prefix cache (and past the match
+        in the tiers); returns the blocks the request borrows."""
+        bs = self.config.block_size
+        prompt_len = len(request.prompt_ids)
+        request.digests = block_digests(request.prompt_ids, bs)
+        matched = self.prefix_cache.acquire(request.request_id, request.digests)
+        if matched and len(matched) * bs == prompt_len:
+            # Aligned full cover: the last token must still be prefilled
+            # (its logits), and its K/V write would land inside the shared
+            # final block. Keep the match, re-prefill the last token, and
+            # copy that block first (copy-on-write at dispatch).
+            request.cow_src_block = matched[-1]
+            cached_blocks = matched[:-1]
+            request.num_cached_tokens = prompt_len - 1
+        else:
+            cached_blocks = matched
+            request.num_cached_tokens = len(matched) * bs
+        request.num_borrowed_blocks = len(cached_blocks)
+        if self.kv_tier is not None and request.cow_src_block is None:
+            # Digests past the device match that the host or disk tier
+            # holds, up to the first one neither holds; at least one prompt
+            # token stays uncached (the prefill's logits).
+            promo: list[bytes] = []
+            for digest in request.digests[len(cached_blocks):]:
+                if self.kv_tier.lookup(digest) is None:
+                    break
+                promo.append(digest)
+            while promo and (len(cached_blocks) + len(promo)) * bs >= prompt_len:
+                promo.pop()
+            request.promo_digests = promo
+        self.stats['prefix_hit_tokens'] += request.num_cached_tokens
+        self.stats['prefix_lookup_tokens'] += prompt_len
+        return cached_blocks
 
     @property
     def has_unfinished(self) -> bool:
@@ -299,33 +415,295 @@ class LLMEngine:
 
     # ------------------------------------------------------------ admission
     def _admit(self) -> list[tuple[int, int]]:
-        """Admit waiting requests while the scheduler allows and prefill
-        them, same-bucket prompts batched; returns the first tokens as
-        ``(request_id, token)``. A prefill may finish its request at once
-        (stop token / max_tokens=1), freeing a slot, so admission repeats
-        until the scheduler yields nothing."""
+        """Admit waiting requests while the scheduler allows (evicting
+        unreferenced cache blocks when blocks run short) and prefill their
+        tails, same-bucket tails batched; returns the first tokens as
+        ``(request_id, token)``. A request with tier hits first promotes
+        them (a copy the device orders before its tail prefill). A prefill
+        may finish its request at once (stop token / max_tokens=1),
+        freeing a slot, so admission repeats until the scheduler yields
+        nothing."""
+        self._retire_promotions()
         emitted: list[tuple[int, int]] = []
         while True:
             admitted: list[Request] = []
-            while (rid := self.sched.admit_next()) is not None:
+            while (rid := self._admit_next_evicting()) is not None:
                 request = self._requests[rid]
                 request.state = RequestState.RUNNING
                 admitted.append(request)
             if not admitted:
                 return emitted
-            groups: dict[int, list[Request]] = {}
             for request in admitted:
-                # Re-prefill covers generated tokens too (recompute
-                # preemption).
-                bucket = pick_bucket(request.num_tokens, self.prefill_buckets)
-                groups.setdefault(bucket, []).append(request)
-            for bucket, requests in sorted(groups.items()):
-                cap = self._prefill_batch_cap(bucket)
-                for i in range(0, len(requests), cap):
-                    spans = [
-                        (r, 0, r.num_tokens) for r in requests[i:i + cap]
-                    ]
-                    emitted.extend(self._dispatch_prefill_paged(spans))
+                if request.promo_digests:
+                    self._promote(request)
+            emitted.extend(self._run_prefill_paged(admitted))
+
+    def _run_prefill_paged(self, requests: list[Request]) -> list[tuple[int, int]]:
+        """Prefill each request's tail — the tokens past its cached prefix,
+        generated tokens included after a recompute preemption — in
+        padded dispatches of one length bucket, after the copy-on-write of
+        aligned full-cover hits."""
+        self._resolve_cow([r for r in requests if r.cow_src_block is not None])
+        groups: dict[int, list[Request]] = {}
+        for request in requests:
+            tail = request.num_tokens - request.num_cached_tokens
+            groups.setdefault(pick_bucket(tail, self.prefill_buckets), []).append(request)
+        emitted: list[tuple[int, int]] = []
+        for bucket, group in sorted(groups.items()):
+            cap = self._prefill_batch_cap(bucket)
+            for i in range(0, len(group), cap):
+                spans = [
+                    (r, r.num_cached_tokens, r.num_tokens - r.num_cached_tokens)
+                    for r in group[i:i + cap]
+                ]
+                emitted.extend(self._dispatch_prefill_paged(spans))
+        return emitted
+
+    def _admit_next_evicting(self) -> int | None:
+        """``admit_next`` under prefix-cache pressure: when admission
+        stalls on blocks while unreferenced cache blocks exist, evict just
+        enough (LRU) and retry."""
+        while True:
+            try:
+                rid = self.sched.admit_next()
+            except SchedulerExhausted:
+                if not self._evict_for_admission():
+                    raise
+                continue
+            if rid is not None:
+                return rid
+            if not self._evict_for_admission():
+                return None
+
+    def _evict_for_admission(self) -> bool:
+        if (
+            self.prefix_cache is None
+            or not self.prefix_cache.num_evictable
+            or not self.sched.num_waiting
+            # With every slot busy eviction admits nothing: it would only
+            # flush warm prefixes.
+            or self.sched.num_running >= self.config.max_num_seqs
+        ):
+            return False
+        # The worst shortfall over waiting requests: a few blocks too many
+        # cost cache entries, never correctness.
+        need = 0
+        for request in self._requests.values():
+            if request.state is RequestState.WAITING:
+                short = self.kv.blocks_needed(request.num_tokens + 1) - len(
+                    self.sched.block_row(request.request_id)
+                )
+                need = max(need, short)
+        return self._evict_cached_blocks(need - self.sched.num_free_blocks) > 0
+
+    def _evict_cached_blocks(self, shortfall: int) -> int:
+        """Evict up to ``shortfall`` LRU cache blocks into the scheduler's
+        free list, spilling their KV to the host tier first when there is
+        one; returns how many were freed."""
+        if self.prefix_cache is None or shortfall <= 0:
+            return 0
+        entries = self.prefix_cache.evict_entries(shortfall)
+        if not entries:
+            return 0
+        if self.kv_tier is not None:
+            self._spill_blocks(entries)
+        freed = [bid for _, bid in entries]
+        self.sched.release_blocks(freed)
+        self.stats['prefix_evicted_blocks'] += len(freed)
+        return len(freed)
+
+    # ------------------------------------------------- host and disk tiers
+    def _pool_planes(self) -> list[torch.Tensor]:
+        """The pool's tensors, each with the block axis at dim 1: K and V
+        data, and an int8 pool's K and V scales."""
+        if self.kv.quantized:
+            return [self.kv.k.data, self.kv.v.data, self.kv.k.scale, self.kv.v.scale]
+        return [self.kv.k, self.kv.v]
+
+    def _spill_blocks(self, entries: list[tuple[bytes, int]]) -> None:
+        """Copy the evicted blocks' KV device -> host in one gather per
+        plane (no padding: PyTorch compiles no shape) and one host fetch,
+        then adopt each block into the host tier as its own CPU tensors
+        (LRU frees blocks one at a time, which views of the gathered tensor
+        could not). An int8 pool spills its codes and scale rows as they
+        are: promotion is bit-exact, no requantization."""
+        t0 = time.perf_counter()
+        idx = torch.as_tensor([bid for _, bid in entries], device=self.device)
+        host = [plane.index_select(1, idx).cpu() for plane in self._pool_planes()]
+        for i, (digest, _) in enumerate(entries):
+            self.kv_tier.put(digest, *(plane[:, i].clone() for plane in host))
+        self.stats['tier_spills'] += 1
+        self.stats['tier_spilled_blocks'] += len(entries)
+        self.stats['tier_spilled_bytes'] += sum(p.numel() * p.element_size() for p in host)
+        self._tier_times['spill_s'] += time.perf_counter() - t0
+
+    def _promote(self, request: Request) -> None:
+        """Copy ``request``'s tier blocks into its own pool blocks (the ones
+        after its borrowed prefix) and adopt them into the prefix cache at
+        once, so they are borrowed: never freed, kept across preemption.
+        On CUDA the copy runs on a side stream from pinned staging, after
+        the work already queued (which may still read those blocks: an
+        eviction's spill), and the current stream waits on its event, so
+        every later read of those blocks — this request's tail prefill, a
+        later request that borrows them, a decode window — is ordered
+        after it on the device while the host goes on. When no tier block
+        could be used (evicted since ``add_request``, or a payload of
+        another pool's dtype or geometry: a counted mismatch) the request
+        prefills as usual."""
+        digests, request.promo_digests = request.promo_digests, []
+        rid = request.request_id
+        planes = self._pool_planes()
+        shapes = [plane.shape[:1] + plane.shape[2:] for plane in planes]
+        pulled: list[tuple[torch.Tensor, ...]] = []
+        for digest in digests:
+            arrays = self.kv_tier.get(digest)
+            if arrays is None:
+                break  # evicted from the tier since add_request
+            if len(arrays) != len(planes) or any(
+                a.dtype != p.dtype or a.shape != shape
+                for a, p, shape in zip(arrays, planes, shapes)
+            ):
+                # A spill of another kv_cache_dtype or geometry: a miss,
+                # never another encoding's bytes in the pool.
+                self.stats['tier_payload_mismatches'] += 1
+                break
+            pulled.append(arrays)
+        if not pulled:
+            return
+        t0 = time.perf_counter()
+        n = len(pulled)
+        nb = request.num_borrowed_blocks
+        blocks = self.sched.block_row(rid)[nb:nb + n]
+        cuda = self.device.type == 'cuda'
+        try:
+            staging = [
+                torch.stack([arrays[j] for arrays in pulled], dim=1)
+                for j in range(len(planes))
+            ]
+            if cuda:
+                staging = [t.pin_memory() for t in staging]
+        except (MemoryError, torch.OutOfMemoryError):
+            # The host could not stage the copy: a counted failure and a
+            # cold prefill. A fault of the device copy itself raises.
+            self.stats['tier_promotion_failures'] += 1
+            return
+        self._tier_times['promote_host_s'] += time.perf_counter() - t0
+        events = None
+        on_side_stream = contextlib.nullcontext()
+        if cuda:
+            if self._promote_stream is None:
+                self._promote_stream = torch.cuda.Stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            self._promote_stream.wait_stream(current)
+            on_side_stream = torch.cuda.stream(self._promote_stream)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record(self._promote_stream)
+        with on_side_stream:
+            idx = torch.as_tensor(blocks, device=self.device)
+            for plane, src in zip(planes, staging):
+                plane.index_copy_(1, idx, src.to(self.device, non_blocking=True))
+        if cuda:
+            events[1].record(self._promote_stream)
+            current.wait_event(events[1])
+        # Adopt now: the blocks are cache property from here on. First
+        # writer wins; blocks past a rejected digest stay owned.
+        lent = nb
+        for digest, bid in zip(digests, blocks):
+            if not self.prefix_cache.insert(rid, digest, bid):
+                break
+            lent += 1
+        if lent > nb:
+            self.sched.lend_prefix(rid, lent)
+            request.num_borrowed_blocks = lent
+        request.num_cached_tokens = (nb + n) * self.config.block_size
+        if events is not None:
+            self._promotions.append({'events': events, 'staging': staging})
+        self.stats['tier_promotions'] += 1
+        self.stats['tier_promoted_blocks'] += n
+        self.stats['tier_promoted_bytes'] += sum(t.numel() * t.element_size() for t in staging)
+        self.stats['prefix_hit_tokens'] += n * self.config.block_size
+
+    def _retire_promotions(self, wait: bool = False) -> None:
+        """Drop the records of the promotion copies that have completed
+        (all of them, once the host has waited, with ``wait``), with the
+        staging each copy read, and add up the copies' device time."""
+        live = []
+        for record in self._promotions:
+            start, end = record['events']
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                live.append(record)
+                continue
+            self._tier_times['promote_copy_s'] += start.elapsed_time(end) / 1e3
+        self._promotions = live
+
+    def tier_summary(self) -> dict:
+        """Host and disk tier counters (empty without the tier): spills and
+        promotions with their blocks and bytes, the host seconds of the
+        spills and of the promotions' staging, and the device seconds of
+        the promotion copies that have completed (0 on the CPU)."""
+        if self.kv_tier is None:
+            return {}
+        self._retire_promotions()
+        out = {
+            'spills': int(self.stats['tier_spills']),
+            'spilled_blocks': int(self.stats['tier_spilled_blocks']),
+            'spilled_bytes': int(self.stats['tier_spilled_bytes']),
+            'spill_s': self._tier_times['spill_s'],
+            'promotions': int(self.stats['tier_promotions']),
+            'promoted_blocks': int(self.stats['tier_promoted_blocks']),
+            'promoted_bytes': int(self.stats['tier_promoted_bytes']),
+            'promote_host_s': self._tier_times['promote_host_s'],
+            'promote_copy_s': self._tier_times['promote_copy_s'],
+            'payload_mismatches': int(self.stats['tier_payload_mismatches']),
+            'promotion_failures': int(self.stats['tier_promotion_failures']),
+            'host_blocks': self.kv_tier.num_blocks,
+            'host_bytes': self.kv_tier.bytes_used,
+        }
+        if self.kv_tier.disk is not None:
+            out['disk_blocks'] = self.kv_tier.disk.num_blocks
+            out['disk_bytes'] = self.kv_tier.disk.bytes_used
+            out['disk_errors'] = self.kv_tier.disk.errors
+        return out
+
+    # ------------------------------------------------------- prefix cache
+    def _resolve_cow(self, requests: list[Request]) -> None:
+        """Copy-on-write of aligned full-cover hits: copy each shared final
+        block, every layer, into the request's first owned block, in place
+        (one gather and one ``index_copy_`` per pool plane, scale rows
+        with codes), so the last token's K/V write touches no block other
+        requests read."""
+        if not requests:
+            return
+        srcs, dsts = [], []
+        for request in requests:
+            dsts.append(self.sched.block_row(request.request_id)[request.num_borrowed_blocks])
+            srcs.append(request.cow_src_block)
+            request.cow_src_block = None
+        src = torch.as_tensor(srcs, device=self.device)
+        dst = torch.as_tensor(dsts, device=self.device)
+        for plane in self._pool_planes():
+            plane.index_copy_(1, dst, plane.index_select(1, src))
+        self.stats['prefix_cow_copies'] += len(srcs)
+
+    def _insert_prompt_blocks(self, request: Request) -> None:
+        """Adopt the request's freshly prefilled full prompt blocks into the
+        prefix cache (first writer wins) and mark them borrowed in the
+        scheduler, so finish and preemption keep them."""
+        if self.prefix_cache is None or not request.digests:
+            return
+        rid = request.request_id
+        row = self.sched.block_row(rid)
+        nb = request.num_borrowed_blocks
+        lent = nb
+        for i in range(nb, len(request.digests)):
+            if not self.prefix_cache.insert(rid, request.digests[i], row[i]):
+                break
+            lent = i + 1
+        if lent > nb:
+            self.sched.lend_prefix(rid, lent)
+            request.num_borrowed_blocks = lent
 
     def _prefill_batch_cap(self, bucket: int) -> int:
         """Prompts of one bucket that prefill together."""
@@ -382,6 +760,8 @@ class LLMEngine:
         self.stats['forward_passes'] += 1
         self.stats['prefill_dispatches'] += 1
         requests = [r for r, _, _ in spans]
+        for request in requests:
+            self._insert_prompt_blocks(request)
         tokens = self._sample_device(last_logits, requests).cpu().tolist()
         emitted = []
         for request, token in zip(requests, tokens):
@@ -448,17 +828,30 @@ class LLMEngine:
     def _on_preempt(self, request: Request) -> None:
         request.state = RequestState.WAITING
         self.stats['preemptions'] += 1
+        if self.prefix_cache is not None:
+            # Recompute preemption kept only the borrowed prefix; the rest
+            # was freed and prefills again.
+            request.num_cached_tokens = request.num_borrowed_blocks * self.config.block_size
 
     def _dispatch_window(self) -> dict | None:
         """Reserve blocks (preempting the youngest on exhaustion), then
         dispatch one fused decode window. Returns the window record, or
         ``None`` when no running slot has budget left."""
         k = self.config.decode_steps
+        rids = [rid for _, rid in self.sched.running()]
         kmax = 1
-        for _, rid in self.sched.running():
+        for rid in rids:
             kmax = max(kmax, self._window_budget(self._requests[rid], k))
+        # Eviction pressure beats preemption: unreferenced cache blocks are
+        # free capacity, spent before a running request is preempted.
+        short = sum(
+            max(0, self.kv.blocks_needed(self._requests[rid].num_tokens + kmax)
+                - len(self.sched.block_row(rid)))
+            for rid in rids
+        )
+        self._evict_cached_blocks(short - self.sched.num_free_blocks)
         try:
-            preempted = self.sched.prepare_decode(kmax)
+            preempted = self.sched.prepare_decode(kmax, rids=rids)
         except SchedulerExhausted as exc:
             # Victims moved before the fatal exhaustion stay moved: sync
             # their states so a caller that catches sees a consistent engine.
@@ -468,8 +861,6 @@ class LLMEngine:
         for rid in preempted:
             self._on_preempt(self._requests[rid])
         running = [(slot, self._requests[rid]) for slot, rid in self.sched.running()]
-        if not running:
-            return None
         b = self.config.max_num_seqs
         ids = np.zeros((b,), np.int32)
         positions = np.zeros((b,), np.int32)
@@ -549,6 +940,9 @@ class LLMEngine:
     def _finish(self, request: Request) -> None:
         request.state = RequestState.FINISHED
         self.sched.finish(request.request_id)
+        if self.prefix_cache is not None:
+            # Blocks at refcount 0 become LRU-evictable and keep their KV.
+            self.prefix_cache.release(request.request_id)
         del self._requests[request.request_id]
         self._finished[request.request_id] = request
 
@@ -612,7 +1006,8 @@ class LLMEngine:
 
     def shutdown(self) -> None:
         """Drop the weights, the pool and the decode graphs with their
-        memory pool."""
+        memory pool (after any promotion copy in flight has landed)."""
+        self._retire_promotions(wait=True)
         self._decode.close()
         self.params = None
         self.kv = None

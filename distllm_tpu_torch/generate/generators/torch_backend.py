@@ -50,6 +50,10 @@ class TorchGeneratorConfig(BaseConfig):
     # Weight-only quantized serving; True means nf4 (the reference's
     # bitsandbytes NF4 load path).
     quantization: 'bool | str | None' = None
+    # Automatic prefix caching (EngineConfig.enable_prefix_cache); None
+    # inherits the engine's default. The host and disk tier knobs and
+    # kv_cache_dtype stay EngineConfig-only, as in the JAX package.
+    enable_prefix_cache: bool | None = None
     # None = the GPU (raises without one); 'cpu' only when asked.
     device: str | None = None
 
@@ -61,12 +65,16 @@ class TorchGeneratorConfig(BaseConfig):
         normalize_mode(self.quantization)
 
     def engine_config(self) -> EngineConfig:
+        overrides = {}
+        if self.enable_prefix_cache is not None:
+            overrides['enable_prefix_cache'] = self.enable_prefix_cache
         return EngineConfig(
             block_size=self.block_size,
             num_blocks=self.num_blocks,
             max_num_seqs=self.max_num_seqs,
             max_model_len=self.max_model_len,
             quantization=normalize_mode(self.quantization),
+            **overrides,
         )
 
 

@@ -34,15 +34,19 @@ case), and one op serves them:
 - :func:`comparison_tolerance` — the elementwise bound that holds the
   kernel to the plain version, per route.
 
-A pool is either a bare tensor in the query's dtype or an int8
-:class:`QuantizedKV` (``EngineConfig(kv_cache_dtype='int8')``): int8
+A pool is a bare tensor in the query's dtype, a bare tensor of the other
+full-precision dtype (``EngineConfig(kv_cache_dtype='bf16')`` under an
+fp32 model, ``'fp32'`` under a bf16 one: the mixed mode, where K is cast
+to q's dtype before Q·Kᵀ and p to V's before P·V, as the Pallas kernel
+casts), or an int8 :class:`QuantizedKV` (``kv_cache_dtype='int8'``): int8
 codes plus a per-block, per-KV-head fp32 scale, quantized at write time
 (:func:`write_token_kv` rescales a block on append as its running absmax
 grows; :func:`write_chunk_kv` quantizes a span at its blocks' final
 scales) with the JAX package's arithmetic step for step, so the codes
 and scales are bitwise the JAX ones. The plain version dequantizes as it
 gathers; the kernel folds K's scale into the fp32 score and V's into p,
-on every route (its int8-KV mode, ``launches_by_kv['int8']``).
+on every route (its int8-KV mode, ``launches_by_kv['int8']``); the
+mixed mode is ``launches_by_kv['mixed']``.
 """
 
 from __future__ import annotations
@@ -71,8 +75,10 @@ ROUTES = {'cuda_cores': 0, 'tensor_cores': 1, 'split_kv': 2}
 SPLIT_STEP_KEYS = 64
 SPLIT_MIN_KEYS = 128
 SPLIT_BLOCKS_PER_SM = 2
-# The pool's storage: q's dtype ('model') or int8 codes with scales.
-KV_MODES = {'model': 0, 'int8': 1}
+# The pool's storage: q's dtype ('model'), int8 codes with scales, or the
+# other full-precision dtype ('mixed': a bf16 pool under fp32 q, an fp32
+# pool under bf16 q).
+KV_MODES = {'model': 0, 'int8': 1, 'mixed': 2}
 
 
 class QuantizedKV(NamedTuple):
@@ -192,9 +198,25 @@ def ragged_paged_attention_reference(
         q, k_cache, v_cache, block_tables, context_lens, q_positions, q_lens,
         sliding_window, scale, logit_softcap,
     )
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum('bkgst,btkd->bskgd', probs, v)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    pool_dtype = kv_storage_dtype(v_cache)
+    if _mixed(q, pool_dtype) and pool_dtype != torch.float32:
+        # fp32 q over a narrower pool: p, unnormalised, is rounded to V's
+        # dtype before P @ V (the Pallas kernel's probs.astype(vh.dtype)).
+        weights = p.to(pool_dtype).float()
+    else:
+        weights = p
+    # l sums the unrounded p.
+    out = torch.einsum('bkgst,btkd->bskgd', weights, v)
+    out = out / p.sum(-1).permute(0, 3, 1, 2)[..., None]
     return out.reshape(b, s, num_heads, head_dim).to(q.dtype)
+
+
+def _mixed(q: torch.Tensor, pool_dtype: torch.dtype) -> bool:
+    """Whether a full-precision pool of ``pool_dtype`` differs from q's
+    dtype (the mixed mode: bf16 pools under fp32 models, fp32 pools under
+    bf16 ones)."""
+    return pool_dtype != torch.int8 and pool_dtype != q.dtype
 
 
 def _scores_and_values(
@@ -209,6 +231,11 @@ def _scores_and_values(
     group = num_heads // num_kv_heads
     t = block_tables.shape[1] * _kv_data(k_cache).shape[1]
     k, v = _gather_kv(k_cache, block_tables), _gather_kv(v_cache, block_tables)
+    if _mixed(q, kv_storage_dtype(k_cache)):
+        # K is cast to q's dtype before Q @ K^T (the Pallas kernel's
+        # kh.astype(qh.dtype)): exact from bf16 to fp32, a rounding from
+        # fp32 to bf16.
+        k = k.to(q.dtype).float()
     qg = q.reshape(b, s, num_kv_heads, group, head_dim).float()
     scores = torch.einsum('bskgd,btkd->bkgst', qg, k)
     scores = scores * (scale if scale is not None else head_dim ** -0.5)
@@ -294,8 +321,43 @@ ragged_paged_attention_reference.launches = 0
 # values. Stated worst ratios:
 # tests/test_torch_kv_quant.py (CPU emulation of each route's order, and
 # the faults it must catch) and chip_smoke.py phase 3b (the kernel).
+#
+# A full-precision pool of another dtype than q (the mixed mode) adds
+#   TOL_MIXED * (P @ |V|)                                  (MIXED term)
+# on every route. fp32 q over a bf16 pool: K widens exactly and both sides
+# round each unnormalised p_j to bf16 before P @ V, as the Pallas kernel
+# does (probs.astype(vh.dtype)) — the plain version against its global
+# maximum, the kernel against its running one — so each side's p_j is
+# within 2**-8 of the exact value and the two are within 2**-7 of each
+# other; l sums the unrounded p on both. bf16 q over an fp32 pool: both
+# sides round K to bf16 the same way (round to nearest even), so the
+# scores differ only as in the bf16 mode. The Pallas kernel and the plain
+# version then weigh fp32 V by fp32 p; on the tensor-core routes the
+# kernel narrows the staged fp32 V to bf16 for mma.sync (one rounding, at
+# most 2**-8 of |v_jd|), on top of the rounding of p that P_REL already
+# covers: 2**-7 bounds that rounding with room for the cross term (2**-16).
+# On the CUDA cores nothing more is rounded and the term is slack.
+#
+# That sum of worst cases grows with the row: on a long row of N(0, 1)
+# values P @ |V| stays near 0.8 while |out| falls toward 0.02, so a kernel
+# that drops one page of 4096 keys would hide under it. In the mixed mode
+# the bf16 roundings' term (P_REL's and MIXED's weight w) is therefore the
+# smaller of that bound and
+#   w * (|out| + TOL_MIXED_SIGMAS * sqrt(P**2 @ V**2))   (probabilistic)
+# the model of probabilistic rounding-error analysis (Higham and Mary,
+# SIAM J. Sci. Comput. 41(5), 2019): out_d moves by sum_j P_j v_jd e_jd
+# with |e_jd| <= w; the share of the e_jd that all keys have in common
+# moves it by at most w * |out_d|, and the rest, independent and of mean
+# zero, exceeds w * lambda * sqrt(sum_j P_j**2 v_jd**2) with probability
+# at most 2 exp(-lambda**2 / 2) (Hoeffding): 3e-8 an element at lambda 6.
+# Stated worst ratios, and a dropped last page of a 4096-key row caught
+# on every route: tests/test_torch_kv_mixed.py (the Pallas kernel in
+# interpret mode, and a CPU emulation of each route's rounding) and
+# chip_smoke.py phase 3c (the kernel on the card).
 TOL_REL, TOL_P_REL, TOL_ABS = 2.0 ** -7, 2.0 ** -8, 1e-5
 TOL_INT8_ORDER = 2.0 ** -24
+TOL_MIXED = 2.0 ** -7
+TOL_MIXED_SIGMAS = 6.0
 
 
 def kernel_route(dtype: torch.dtype, span: int, group: int) -> str:
@@ -388,7 +450,8 @@ def comparison_tolerance(
     """The elementwise bound on ``|kernel - plain|`` stated above, for
     these inputs (fp32, ``ref``'s shape; meaningful on valid rows). The
     route defaults to :func:`kernel_route`'s for these inputs; an int8
-    pool adds the INT8 term on every route. Plain PyTorch: used by the
+    pool adds the INT8 term on every route, a full-precision pool of
+    another dtype than q the MIXED term. Plain PyTorch: used by the
     checks on the card and the CPU tests, never on the serving path."""
     b, s, num_heads, head_dim = q.shape
     num_kv_heads = _kv_data(k_cache).shape[2]
@@ -397,21 +460,29 @@ def comparison_tolerance(
     if route not in ROUTES:
         raise ValueError(f'route must be one of {tuple(ROUTES)}, got {route!r}')
     quantized = _check_pools(k_cache, v_cache)
+    mixed = _mixed(q, kv_storage_dtype(k_cache))
     if ref.dtype == torch.float32:
         tol = torch.full_like(ref, TOL_ABS)
     else:
         tol = TOL_REL * ref.float().abs() + TOL_ABS
     bf16_tiles = route in ('tensor_cores', 'split_kv') and ref.dtype != torch.float32
-    if not (quantized or bf16_tiles):
+    if not (quantized or bf16_tiles or mixed):
         return tol
     scores, v = _scores_and_values(
         q, k_cache, v_cache, block_tables, context_lens, q_positions,
         q_lens, sliding_window, scale, logit_softcap,
     )
     probs = torch.softmax(scores, dim=-1)  # [B, Nkv, G, S, T]
-    if bf16_tiles:
-        spread = torch.einsum('bkgst,btkd->bskgd', probs, v.abs())
-        tol = tol + TOL_P_REL * spread.reshape(ref.shape)
+    if bf16_tiles or mixed:
+        spread = torch.einsum('bkgst,btkd->bskgd', probs, v.abs()).reshape(ref.shape)
+        weight = (TOL_P_REL if bf16_tiles else 0.0) + (TOL_MIXED if mixed else 0.0)
+        term = weight * spread
+        if mixed:
+            rms = torch.einsum('bkgst,btkd->bskgd', probs.square(), v.square()).sqrt()
+            term = torch.minimum(term, weight * (
+                ref.float().abs() + TOL_MIXED_SIGMAS * rms.reshape(ref.shape)
+            ))
+        tol = tol + term
     if quantized:
         k = _gather_kv(k_cache, block_tables)
         qg = q.reshape(b, s, num_kv_heads, -1, head_dim).float().abs()
@@ -470,8 +541,9 @@ def ragged_paged_attention_cuda(
     zeros. The route is :func:`kernel_route`'s; a route that fails to
     launch raises, it never gives way to another. Raises on anything the
     kernel does not take: a device other than CUDA, a query dtype other
-    than fp32/bf16, a full-precision pool of another dtype than q's, one
-    pool quantized and the other not, scales that are not fp32 ``[nb,
+    than fp32/bf16, a pool other than fp32, bf16 or int8 ``QuantizedKV``
+    (or K and V pools of two dtypes), one pool quantized and the other
+    not, scales that are not fp32 ``[nb,
     Nkv]``, a head dim other than 64/128, a non-contiguous pool or scale,
     or a tensor sliding window.
     """
@@ -486,10 +558,12 @@ def ragged_paged_attention_cuda(
         raise ValueError('the CUDA kernel needs every tensor on one CUDA device')
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f'kernel dtypes are fp32 and bf16, got {q.dtype}')
-    if not quantized and (k_data.dtype != q.dtype or v_data.dtype != q.dtype):
+    if not quantized and (
+        k_data.dtype not in KERNEL_DTYPES or v_data.dtype != k_data.dtype
+    ):
         raise TypeError(
-            f'q ({q.dtype}) and the KV pool ({k_data.dtype}) must share a '
-            'dtype (or the pool is an int8 QuantizedKV)'
+            f'the KV pools must be fp32 or bf16 alike (or int8 QuantizedKV), '
+            f'got {k_data.dtype} / {v_data.dtype}'
         )
     if head_dim not in KERNEL_HEAD_DIMS or kv_dim != head_dim:
         raise ValueError(
@@ -516,7 +590,9 @@ def ragged_paged_attention_cuda(
     # No q_lens: a null pointer, every row has s queries (no launch here).
     ql = None if q_lens is None else q_lens.to(i32).contiguous()
     route = kernel_route(q.dtype, s, group)
-    kv_mode = 'int8' if quantized else 'model'
+    kv_mode = (
+        'int8' if quantized else 'mixed' if k_data.dtype != q.dtype else 'model'
+    )
     scales = (
         (k_cache.scale.data_ptr(), v_cache.scale.data_ptr()) if quantized
         else (None, None)
@@ -582,7 +658,8 @@ def ragged_paged_attention(
     launches, ``ragged_paged_attention.launches_by_route`` counts them per
     route (``'tensor_cores'`` / ``'split_kv'`` / ``'cuda_cores'``) and
     ``ragged_paged_attention.launches_by_kv`` per KV mode (``'model'``: a
-    pool in q's dtype; ``'int8'``: a :class:`QuantizedKV` pool).
+    pool in q's dtype; ``'int8'``: a :class:`QuantizedKV` pool;
+    ``'mixed'``: a full-precision pool of the other dtype).
     """
     args = (q, k_cache, v_cache, block_tables, context_lens, q_positions)
     kwargs = {

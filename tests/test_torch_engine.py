@@ -17,8 +17,8 @@ projection of every forward pass went through ``int8_dense``.
 KV storage dtype: with ``EngineConfig(kv_cache_dtype='int8')`` on both
 sides the port's greedy fp32 tokens equal the JAX engine's, on a pool
 under half the fp32 pool's bytes; ``'auto'`` and the pin that equals the
-model dtype are today's engine; unknown values and a full-precision pin
-of another dtype are refused.
+model dtype are today's engine; unknown values are refused, and a
+full-precision pin of the other dtype builds a pool of that dtype.
 """
 
 import jax
@@ -279,12 +279,16 @@ def test_kv_cache_dtype_auto_and_matching_pin_are_todays_engine(
 
 
 def test_kv_cache_dtype_refusals(weights):
+    """Unknown storage dtypes are refused; a full-precision pin of the
+    other dtype is served (K1's mixed mode: tests/test_torch_kv_mixed.py
+    holds its tokens to the JAX engine's)."""
     with pytest.raises(ValueError, match="kv_cache_dtype must be 'auto'"):
         EngineConfig(kv_cache_dtype='fp8')
     tcfg = mistral.MistralConfig(**TINY)
     params = mistral.params_from_jax(weights[1], tcfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP A15'):
-        LLMEngine(
-            tcfg, params, _Tok(), EngineConfig(num_blocks=8, kv_cache_dtype='bf16'),
-            device='cpu',
-        )
+    engine = LLMEngine(
+        tcfg, params, _Tok(), EngineConfig(num_blocks=8, kv_cache_dtype='bf16'),
+        device='cpu',
+    )
+    assert engine.kv.k.dtype == torch.bfloat16
+    assert engine.telemetry['kv_cache_dtype'] == 'bfloat16'

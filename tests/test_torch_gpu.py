@@ -18,7 +18,21 @@ windows inside, across and below splits, and held to launch bitwise
 alike twice. Pad queries must be exact
 zeros. K1's int8-KV mode (``QuantizedKV`` pools) is held on every route
 to the same bound plus its INT8 term, with NaN in the trash block's codes
-and scales leaving outputs bitwise unchanged. K3 is held to its own elementwise bound
+and scales leaving outputs bitwise unchanged. K1's mixed mode (a full-precision pool of the other dtype than q: fp32 q
+over bf16 on the CUDA cores, bf16 q over fp32 on the tensor-core and
+split-KV routes) is held to each route's bound plus its MIXED term, with
+NaN in the trash block leaving outputs bitwise unchanged; an fp32 engine
+over a bf16 pool gives the plain op's greedy tokens. The prefix cache's
+pool writes stay in place under captured decode graphs: after a
+copy-on-write hit, a spill and a promotion, every decode window replayed
+from the graphs is bitwise the eager ``decode_loop`` on the same pool (a
+mutant that rebinds the pool instead fails it), and the promoted blocks'
+bytes, bf16 codes or int8 codes and scales, are bitwise the bytes they had
+before their spill. A promotion's copy (9 MiB from the host tier) is
+queued on a side stream with no host wait: the request that promoted and
+one that arrives while the copy is queued, borrowing its blocks, give the
+cache-off engine's greedy tokens (fp32).
+K3 is held to its own elementwise bound
 (``encoder_attention.comparison_tolerance``: in bf16 one step of out
 plus one bf16 step of one p_j * v_j) on both of its routes, on every row,
 fully masked included.
@@ -118,7 +132,11 @@ def _check(case, dtype, route=None, **kw):
     launches = tpa.ragged_paged_attention.launches
     by_route = dict(tpa.ragged_paged_attention.launches_by_route)
     by_kv = dict(tpa.ragged_paged_attention.launches_by_kv)
-    kv_mode = 'int8' if isinstance(case['args'][1], tpa.QuantizedKV) else 'model'
+    pool = case['args'][1]
+    kv_mode = (
+        'int8' if isinstance(pool, tpa.QuantizedKV)
+        else 'mixed' if pool.dtype != q_dtype else 'model'
+    )
     out = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'], **kw)
     assert tpa.ragged_paged_attention.launches == launches + 1
     assert tpa.ragged_paged_attention.launches_by_route[route] == by_route[route] + 1
@@ -222,8 +240,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     case = _case(5, nh=4, nkv=2, hd=128, dtype='float32',
                  ctxs=[10], q_lens=[1], span=1)
     q, k, v, bt, ctx, pos = case['args']
-    with pytest.raises(TypeError, match='share a dtype'):
-        tpa.ragged_paged_attention(q, k.bfloat16(), v.bfloat16(), bt, ctx, pos)
+    with pytest.raises(TypeError, match='fp32 or bf16 alike'):
+        tpa.ragged_paged_attention(q, k.bfloat16(), v, bt, ctx, pos)
+    with pytest.raises(TypeError, match='fp32 or bf16 alike'):
+        tpa.ragged_paged_attention(q, k.half(), v.half(), bt, ctx, pos)
     with pytest.raises(TypeError, match='dtypes'):
         tpa.ragged_paged_attention(q.half(), k.half(), v.half(), bt, ctx, pos)
     with pytest.raises(ValueError, match='head dims'):
@@ -300,7 +320,7 @@ def test_int8_kv_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, bt, ctx, pos = case['args']
     with pytest.raises(TypeError, match='both be QuantizedKV'):
         tpa.ragged_paged_attention(q, k, v.data.bfloat16(), bt, ctx, pos)
-    with pytest.raises(TypeError, match='share a dtype'):
+    with pytest.raises(TypeError, match='fp32 or bf16 alike'):
         tpa.ragged_paged_attention(q, k.data, v.data, bt, ctx, pos)  # scales missing
     with pytest.raises(TypeError, match='fp32 scales'):
         tpa.ragged_paged_attention(
@@ -1147,3 +1167,270 @@ def test_a_failed_capture_raises_and_never_decodes_eagerly(cuda, monkeypatch):
     assert engine.stats['decode_windows'] == 0
     with pytest.raises(RuntimeError, match='warmup'):
         engine._decode.run(1, True)
+
+
+# ----------------------------------------------------------- K1 mixed mode
+def _mixed_case(seed, q_dtype, kv_dtype, **kw):
+    """``_case`` with its pools stored in ``kv_dtype`` (K1's mixed mode)."""
+    case = _case(seed, dtype=q_dtype, **kw)
+    q, k, v, *rest = case['args']
+    dt = getattr(torch, kv_dtype)
+    case['args'] = (q, k.float().to(dt), v.float().to(dt), *rest)
+    return case
+
+
+MIXED_ROUTES = [
+    # (q dtype, pool dtype, span, q_lens, route)
+    ('float32', 'bfloat16', 1, [1] * 5, 'cuda_cores'),
+    ('float32', 'bfloat16', 40, [40, 17, 1, 0, 40], 'cuda_cores'),
+    ('bfloat16', 'float32', 1, [1] * 5, 'split_kv'),
+    ('bfloat16', 'float32', 3, [3, 2, 1, 0, 3], 'split_kv'),
+    ('bfloat16', 'float32', 300, [300, 120, 17, 0, 300], 'tensor_cores'),
+]
+
+
+@pytest.mark.parametrize('q_dtype,kv_dtype,span,q_lens,route', MIXED_ROUTES)
+@pytest.mark.parametrize('hd', [64, 128])
+@pytest.mark.parametrize('nh,nkv', [(4, 2), (32, 8)])
+@pytest.mark.parametrize('window,softcap', [(None, None), (100, 30.0)])
+def test_mixed_kv_on_every_route(cuda, q_dtype, kv_dtype, span, q_lens, route, hd, nh, nkv,
+                                 window, softcap):
+    ctxs = [span + 700, span + 5, 1100, 64, 2048]
+    case = _mixed_case(30, q_dtype, kv_dtype, nh=nh, nkv=nkv, hd=hd, ctxs=ctxs,
+                       q_lens=q_lens, span=span)
+    _check(case, q_dtype, route=route, sliding_window=window, logit_softcap=softcap)
+
+
+@pytest.mark.parametrize('q_dtype,kv_dtype,span,q_lens,route', MIXED_ROUTES[::2])
+def test_mixed_kv_nan_trash_block_never_reaches_an_output(cuda, q_dtype, kv_dtype, span,
+                                                          q_lens, route):
+    case = _mixed_case(31, q_dtype, kv_dtype, nh=32, nkv=8, hd=128,
+                       ctxs=[span + 700, span + 5, 1100, 64, 2048], q_lens=q_lens, span=span)
+    assert _route(case) == route
+    q, k, v, *rest = case['args']
+    clean = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    k[0], v[0] = float('nan'), float('nan')
+    poisoned = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert torch.equal(clean, poisoned)
+
+
+def test_fp32_engine_over_bf16_pool_matches_the_plain_op(cuda):
+    """A small fp32 model over a bf16 KV pool on the card: greedy tokens on
+    K1's mixed mode equal those on the plain op."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mistral
+
+    cfg = mistral.MistralConfig(
+        vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+        num_kv_heads=2, intermediate_size=512, dtype='float32',
+    )
+    params = mistral.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(4, 256, size=n)] for n in (5, 40, 17, 90, 3)]
+    outs = {}
+    for backend in ('auto', 'reference'):
+        engine = LLMEngine(cfg, params, None, EngineConfig(
+            num_blocks=64, max_num_seqs=3, max_model_len=256, kv_cache_dtype='bf16',
+        ), attn_backend=backend)
+        engine.warmup()
+        mixed = tpa.ragged_paged_attention.launches_by_kv['mixed']
+        outs[backend] = engine.generate_ids(prompts, SamplingParams(temperature=0.0, max_tokens=12))
+        passes = engine.telemetry['forward_passes']
+        expected = cfg.num_layers * passes if backend == 'auto' else 0
+        assert tpa.ragged_paged_attention.launches_by_kv['mixed'] - mixed == expected
+        assert engine.kv.k.dtype == torch.bfloat16
+    assert outs['auto'] == outs['reference']
+
+
+# ------------------------------------------- prefix cache under the graphs
+PREFIX_CFG = dict(vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+                  num_kv_heads=2, intermediate_size=512, dtype='bfloat16')
+
+
+def _prefix_engine(kv, tmp_path):
+    """A small bf16 model, block 16, a pool of 7 usable blocks (a 64-token
+    prompt and its 8 new tokens take 5), the prefix cache and a host tier
+    writing through to ``tmp_path``; warmed up (graphs captured)."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine
+    from distllm_tpu_torch.models import mistral
+
+    cfg = mistral.MistralConfig(**PREFIX_CFG)
+    params = mistral.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    engine = LLMEngine(cfg, params, None, EngineConfig(
+        num_blocks=8, max_num_seqs=2, max_model_len=256, decode_steps=8,
+        kv_cache_dtype=kv, enable_prefix_cache=True, host_kv_tier_bytes=1 << 28,
+        disk_kv_tier_dir=str(tmp_path),
+    ))
+    engine.warmup()
+    return engine
+
+
+def _pools(engine, planes):
+    if engine.kv.quantized:
+        return tpa.QuantizedKV(planes[0], planes[2]), tpa.QuantizedKV(planes[1], planes[3])
+    return planes[0], planes[1]
+
+
+def _record_windows(engine):
+    """Keep every window's inputs, the pool before it, its graph tokens and
+    the pool after it."""
+    runner = engine._decode
+    windows = []
+    load, run = runner.load, runner.run
+
+    def recording_load(*host):
+        windows.append({'host': [np.array(h, copy=True) for h in host],
+                        'before': [p.clone() for p in engine._pool_planes()]})
+        load(*host)
+
+    def recording_run(num_steps, all_greedy):
+        tokens = run(num_steps, all_greedy)
+        windows[-1].update(tokens=tokens.clone(), steps=num_steps, greedy=all_greedy,
+                           after=[p.clone() for p in engine._pool_planes()])
+        return tokens
+
+    runner.load, runner.run = recording_load, recording_run
+    return windows
+
+
+def _windows_equal_the_eager_loop(engine, windows) -> bool:
+    from distllm_tpu_torch.models import mistral
+
+    for w in windows:
+        dev = [torch.from_numpy(np.asarray(x)).cuda() for x in w['host']]
+        k, v = _pools(engine, w['before'])
+        eager = mistral.decode_loop(
+            engine.params, engine.model_cfg, dev[0], dev[1], k, v, dev[3], dev[2], *dev[4:],
+            num_steps=w['steps'], max_table_positions=engine.config.max_model_len,
+            all_greedy=w['greedy'],
+        )[0]
+        for row, n in enumerate(np.minimum(w['host'][4], w['steps'])):
+            if not torch.equal(w['tokens'][:n, row], eager[:n, row]):
+                return False
+        # The eager loop wrote its window into the 'before' copies.
+        if not all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(w['after'], w['before'])):
+            return False
+    return True
+
+
+PROMPT = list(range(10, 74))  # 64 tokens: four full blocks
+OTHER = list(range(100, 164))
+TAIL = list(range(200, 220))
+
+
+def _cow_spill_promotion(engine):
+    """A prompt, its exact repeat (copy-on-write), another prompt whose
+    admission evicts and spills the first one's leading blocks, then the
+    first plus a tail (promotion). Returns the snapshot of the first
+    prompt's cached blocks and the digests the tier held before the
+    promotion."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.generate.engine.kv_cache import block_digests
+
+    sampling = SamplingParams(temperature=0.0, max_tokens=8)
+    digests = block_digests(PROMPT, 16)
+    engine.generate_ids([PROMPT], sampling)
+    planes = engine._pool_planes()
+    blocks = engine.prefix_cache.match(digests)
+    snapshot = {d: [p[:, b].clone() for p in planes] for d, b in zip(digests, blocks)}
+    engine.generate_ids([PROMPT], sampling)
+    engine.generate_ids([OTHER], sampling)
+    in_tier = [d for d in digests if engine.kv_tier.get(d) is not None]
+    engine.generate_ids([PROMPT + TAIL], sampling)
+    assert engine.stats['prefix_cow_copies'] == 1
+    assert engine.stats['tier_spills'] > 0 and engine.stats['tier_promotions'] > 0
+    return snapshot, in_tier
+
+
+@pytest.mark.parametrize('kv', ['auto', 'int8'])
+def test_cow_and_promotion_under_captured_graphs_equal_the_eager_loop(cuda, tmp_path, kv):
+    engine = _prefix_engine(kv, tmp_path)
+    k_before = engine._pool_planes()[0]
+    windows = _record_windows(engine)
+    _cow_spill_promotion(engine)
+    assert engine._pool_planes()[0] is k_before
+    assert len(windows) >= 4 and engine.stats['decode_graph_replays'] > 0
+    assert _windows_equal_the_eager_loop(engine, windows)
+
+
+@pytest.mark.parametrize('kv', ['auto', 'int8'])
+def test_spill_and_promotion_are_bitwise_on_the_card(cuda, tmp_path, kv):
+    engine = _prefix_engine(kv, tmp_path)
+    snapshot, in_tier = _cow_spill_promotion(engine)
+    assert in_tier
+    planes = engine._pool_planes()
+    cached = dict(zip(snapshot, engine.prefix_cache.match(list(snapshot))))
+    for digest in in_tier:
+        tier_copy = engine.kv_tier.get(digest)
+        assert all(torch.equal(t, s.cpu()) for t, s in zip(tier_copy, snapshot[digest]))
+        assert all(torch.equal(p[:, cached[digest]], s) for p, s in zip(planes, snapshot[digest]))
+    assert engine.tier_summary()['payload_mismatches'] == 0
+
+
+def test_a_pool_rebinding_mutant_fails_the_window_check(cuda, tmp_path, monkeypatch):
+    """The check above catches a copy-on-write that rebinds the pool (a new
+    tensor, as the JAX engine's functional update does) instead of writing
+    it in place: the captured graphs keep reading the old tensor."""
+    from distllm_tpu_torch.generate.engine import LLMEngine
+
+    def rebinding_cow(self, requests):
+        if not requests:
+            return
+        dsts = [self.sched.block_row(r.request_id)[r.num_borrowed_blocks] for r in requests]
+        srcs = [r.cow_src_block for r in requests]
+        for r in requests:
+            r.cow_src_block = None
+        src = torch.as_tensor(srcs, device=self.device)
+        dst = torch.as_tensor(dsts, device=self.device)
+        self.kv.k = self.kv.k.index_copy(1, dst, self.kv.k.index_select(1, src))
+        self.kv.v = self.kv.v.index_copy(1, dst, self.kv.v.index_select(1, src))
+        self.stats['prefix_cow_copies'] += len(srcs)
+
+    monkeypatch.setattr(LLMEngine, '_resolve_cow', rebinding_cow)
+    engine = _prefix_engine('auto', tmp_path)
+    windows = _record_windows(engine)
+    _cow_spill_promotion(engine)
+    assert not _windows_equal_the_eager_loop(engine, windows)
+
+
+def test_requests_over_a_promotion_in_flight_match_the_cache_off_engine(cuda):
+    """fp32, 4 layers of 8 KV heads x 128, block 16: a 512-token prefix is
+    32 blocks of 512 KiB, and a 47-block pool promotes the 18 of them
+    that a second 512-token prompt evicted (9 MiB). The request that promotes it
+    prefills its tail at once, and a request with the same prefix added
+    the moment the copy is queued (before the host has waited on anything)
+    borrows the promoted blocks; both read them only after the copy on the
+    device, so both give the cache-off engine's greedy tokens."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mistral
+
+    cfg = mistral.MistralConfig(vocab_size=512, hidden_size=1024, num_layers=4, num_heads=8,
+                                num_kv_heads=8, intermediate_size=2048, dtype='float32')
+    params = mistral.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+
+    def engine(**kw):
+        return LLMEngine(cfg, params, None, EngineConfig(
+            num_blocks=48, max_num_seqs=2, max_model_len=1024, decode_steps=8, **kw))
+
+    rng = np.random.default_rng(3)
+    prefix, other = ([int(t) for t in rng.integers(4, 512, size=512)] for _ in range(2))
+    first, arrival = prefix + [7, 8, 9], prefix + [10, 11, 12, 13, 14]
+    sampling = SamplingParams(temperature=0.0, max_tokens=12)
+    on = engine(enable_prefix_cache=True, host_kv_tier_bytes=1 << 30)
+    on.generate_ids([prefix], sampling)
+    on.generate_ids([other], sampling)  # evicts and spills the prefix's blocks
+    added, borrowed = [], []
+    promote = on._promote
+
+    def promote_then_add(request):
+        promote(request)
+        if not added:
+            added.append(on.add_request(arrival, sampling))
+            borrowed.extend((request.num_borrowed_blocks,
+                             on._requests[added[0]].num_borrowed_blocks))
+
+    on._promote = promote_then_add
+    got = [on.generate_ids([first], sampling)[0], on._finished.pop(added[0]).output_ids]
+    assert borrowed[0] == borrowed[1] >= 16  # 8 MiB or more, borrowed in flight
+    assert on.tier_summary()['promote_copy_s'] > 0
+    assert got == engine().generate_ids([first, arrival], sampling)
