@@ -21,7 +21,9 @@ carried on):
    with ``q_lens`` padding, the shapes the serving phase gives it, and
    the split-KV route's edges (e-g: contexts at the plan's split edges,
    a window across a split edge with spans of 1..3 and softcap, rows
-   whose window leaves one live split); NaN in the trash block leaves
+   whose window leaves one live split), and phase 6g's verify windows (32
+   spans of 5 over 22..1094 keys, 20-row tiles on the tensor cores, and
+   spans of 3, 12-row tiles on the split-KV route); NaN in the trash block leaves
    the outputs of a decode case, a split-edge case and a tensor-core case
    bitwise unchanged, and two launches of a split-edge case are bitwise
    equal; time kernel and ``scaled_dot_product_attention`` on the same
@@ -65,7 +67,8 @@ carried on):
    the CUDA cores): Mistral-7B decode rows M = 1 / 8 / 32 / 128 at every
    projection shape (4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x
    4096) and M = 16 (the last row count of the 16-row tiles) at 4096 x
-   14336, a ragged prefill M = 1040, the BERT-base embed products (512 x
+   14336, a verify pass's M = 160 (32 rows x 5) at 4096 x 14336, a ragged
+   prefill M = 1040, the BERT-base embed products (512 x
    288 rows at 768 x 3072, 3072 x 768 and 768 x 768), M = 5, M = 1000 (off
    the 128-row tile), N = 784 (off the 128-column tile), one-signed data
    at K = 14336, partial sums that stay large and cancel exactly at the
@@ -99,7 +102,7 @@ carried on):
 6b. serve with an int8 KV pool — the JAX ``gen_kvq`` stage's workload (64
    greedy prompts of 32..192 tokens, every third behind a shared 32-token
    prefix, 16..96 new tokens each; the prefix cache off here, on in 6d;
-   its chunked prefill is not ported) through two ``LLMEngine`` arms on
+   the stage's chunked prefill runs in 6f) through two ``LLMEngine`` arms on
    the same bf16 weights (made once for 6b-6e), a bf16 and an int8 KV pool (``kv_cache_dtype``; block 16,
    1024 blocks, 32 slots); per arm tokens/s, pool GiB, allocated and peak
    GiB, ``telemetry['kv_cache_dtype']``; the int8 blocks the bf16 pool's
@@ -134,6 +137,31 @@ carried on):
    and the tier's copies are bitwise their bytes before the spill, and a
    fresh engine on the same directory promotes from disk; spill and
    promotion host ms per MiB printed;
+6f. mixed windows — the JAX ``gen_mixed`` stage at full width (6b's
+   workload; 712 blocks, 32 slots, 512-token rows, 16-step windows,
+   sampling over the top 64 logits, the prefix cache,
+   ``prefill_chunk_tokens`` and ``max_window_prefill_tokens`` 256): mixed
+   batching off, then on, on 6b's weights. The on arm must ride windows
+   and run fewer standalone prefill dispatches; K1 launches on the route
+   ``kernel_route`` names for each pass (eager prefill dispatches and
+   chunk halves by padded width, decode steps on the split-KV route), its
+   plain op never; every decode step a graph replay. Tokens/s, prefill
+   and chunk host ms and the greedy match (bf16: recorded, each flip with
+   the plain op's logit gap) are printed;
+6g. speculation — the JAX ``gen_spec`` stage at full width (motif-tiled
+   prompts, the same engine as 6f, ``draft_k=4``): arms ``draft_k=0``,
+   ``spec_draft_source='none'`` and prompt lookup (random weights never
+   repeat themselves, so it drafts next to nothing: recorded), then arms
+   whose drafts are the ``'none'`` arm's greedy stream (``oracle``, a
+   stand-in for a model that copies): greedy, sampled (temperature 0.15,
+   top-p 0.95, a seed per request) twice, and greedy over int8 weights
+   (K2 launches 7 x layers x passes, on the tensor cores). ``'none'`` and
+   prompt lookup give identical tokens, the oracle
+   arms accept drafts, the sampled arm is deterministic, every verify
+   window is one graph replay and nothing is captured in a run, K1's
+   verify passes launch on ``kernel_route(bf16, 5, 4)``'s route. Accept
+   rate, tokens/s per arm, and the verify window's wall ms and replay
+   event ms (medians) are printed;
 8. identity — full width at depth 2 in fp32: greedy tokens from the engine
    on K1 equal those from the engine on its plain op; then, int8 weights,
    greedy tokens on K2 (every launch on the CUDA-core route) equal those
@@ -143,8 +171,12 @@ carried on):
    tokens on K1 equal those with the cache off; and an fp32 model over a
    bf16 pool (K1's mixed mode on the CUDA cores): greedy tokens on K1 and
    on its plain op, the match printed, a flip reported with the plain
-   op's logit gap (failed unless a near tie). Every arm, the plain op's
-   included, is warmed up first and replays its own decode graphs;
+   op's logit gap (failed unless a near tie); 8d. then 6g's first 16
+   prompts (8..31 new tokens) with the prefix cache and 64-token
+   chunks: greedy tokens with speculation (``draft_k=4``, the drafts the
+   speculation-off stream) equal those without, with speculation on K1 those on its plain op, and with mixed
+   batching those without. Every arm, the plain op's included, is warmed
+   up first and replays its own decode (and verify) graphs;
 9. quantize — the int8 codes and scales of the full-width gate kernel of
    layer 0, quantized on the card, equal bitwise those the CPU makes;
    9b. int8 KV codes and scales written on the card (``write_chunk_kv``
@@ -166,10 +198,12 @@ carried on):
     through K3 and through its plain version agree elementwise within
     ``1e-4 * |ref| + 1e-5``.
 
-The last three lines of standard output are ``{"kernels": [...]}`` (K1,
-K3, K2 with their cases, launches by route and, beside each decode
-headline, the prefill headline, K1's int8-KV mode under ``int8_kv``, its
-mixed mode under ``mixed_kv``, and K2's embed headline), the card's
+Each of phases 6f, 6g and 8d prints its seconds. The last three lines of
+standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
+launches by route and, beside each decode headline, the prefill
+headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
+``mixed_kv``, its verify shapes under ``verify``, K2's embed headline and
+its verify rows under ``verify``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -486,6 +520,12 @@ def check_nan_trash_block(torch, tpa, case, name):
     log(f'[kernel] NaN trash block, {name} ({route} route): outputs unchanged (bitwise)')
 
 
+# Phase 3's verify-shape cases (phase 6g's spans) and K2's verify rows.
+VERIFY_CASE = 'verify_32x5_22-1094'
+VERIFY_SPLIT_CASE = 'verify_32x3_20-1092'
+K2_VERIFY = 'verify_160x4096x14336'
+
+
 def phase_kernel(torch, tpa):
     dtype = torch.bfloat16
     rng = np.random.default_rng(0)
@@ -525,6 +565,16 @@ def phase_kernel(torch, tpa):
     case = build_case(torch, rng, [1024, 700], [1024, 700], 1024, dtype)
     results.append(run_kernel_case(torch, tpa, 'serve_prefill_2x1024', case, 0, None, 'bfloat16', 20))
     del case
+    # Phase 6g's verify windows: 32 rows of 1 + draft_k = 5 span positions
+    # over contexts of 18..1090 keys (20-row tiles: the tensor cores), and
+    # spans of 3 (12-row tiles: the split-KV route, draft_k = 2).
+    # Their own generator, so the other cases keep their data.
+    vrng = np.random.default_rng(10)
+    for name, span in ((VERIFY_CASE, 5), (VERIFY_SPLIT_CASE, 3)):
+        ctxs = vrng.integers(18, 1091, size=32) + span - 1
+        case = build_case(torch, vrng, ctxs, np.full(32, span), span, dtype)
+        results.append(run_kernel_case(torch, tpa, name, case, 0, None, 'bfloat16', 50))
+        del case
     # The split-KV route's edges (e-g), and its launches bitwise alike.
     for name, case, window, softcap in split_edge_cases(torch, tpa, rng, dtype):
         results.append(run_kernel_case(torch, tpa, name, case, window, softcap, 'bfloat16', 50))
@@ -903,6 +953,8 @@ K2_EMBED = 'embed_147456x768x3072'
 # 'late-cancelling' (see late_cancelling).
 K2_OTHER_CASES = (
     ('decode_16x4096x14336', 16, 4096, 14336, 'bfloat16', 'normal', 50),
+    # A verify pass's rows (32 slots x 1 + draft_k = 5, phase 6g).
+    ('verify_160x4096x14336', 160, 4096, 14336, 'bfloat16', 'normal', 50),
     ('prefill_1040x4096x14336', 1040, 4096, 14336, 'bfloat16', 'normal', 10),
     ('embed_147456x768x3072', 512 * 288, 768, 3072, 'bfloat16', 'normal', 3),
     ('embed_147456x3072x768', 512 * 288, 3072, 768, 'bfloat16', 'normal', 3),
@@ -1109,31 +1161,48 @@ def post_completion(port, i):
         return resp.status, json.loads(resp.read())
 
 
+GRAPH_STATS = ('decode_graph_captures', 'decode_graph_replays', 'verify_graph_captures',
+               'verify_graph_replays')
+
+
 def graph_marks(engine):
-    """The engine's decode-graph counters, read before a run."""
-    return (engine.stats['decode_graph_captures'], engine.stats['decode_graph_replays'])
+    """The engine's graph counters (decode and verify), read before a run."""
+    return tuple(engine.stats[key] for key in GRAPH_STATS)
 
 
-def check_graph_replays(tag, engine, marks, passes, prefills):
+def check_graph_replays(tag, engine, marks, passes, prefills, verify=0):
     """Every decode step since ``marks`` was one replay of a captured
-    graph (no eager decode on the card) and nothing was captured: the
-    graphs were captured by the warm-up before."""
-    captures = engine.stats['decode_graph_captures'] - marks[0]
-    replays = engine.stats['decode_graph_replays'] - marks[1]
+    decode graph and every verify pass (``verify``) one replay of a
+    captured verify graph (nothing decoded or verified eagerly on the
+    card), and nothing was captured: the graphs were captured by the
+    warm-up before. ``prefills`` counts the eager passes: standalone
+    prefill dispatches and chunk halves."""
+    captures, replays, v_captures, v_replays = (
+        engine.stats[key] - mark for key, mark in zip(GRAPH_STATS, marks))
+    decode = passes - prefills - verify
     log(f'[{tag}] decode graphs: {replays} replays = {passes} forward passes - '
-        f'{prefills} prefill dispatches; {captures} captures during the run '
-        f'({engine.stats["decode_graph_captures"]} at warm-up, '
-        f'{engine.stats["decode_graph_capture_s"]:.3f} s, graph pool '
-        f'{engine.graph_pool_bytes / 2**20:.1f} MiB)')
-    if replays != passes - prefills or replays <= 0:
-        fail(f'{tag}: {replays} decode graph replays for {passes - prefills} decode '
-             'steps: a decode step ran eagerly on the card')
-    if captures != 0 or engine.stats['decode_graph_captures'] != 2:
-        fail(f'{tag}: {captures} captures in the run, '
-             f'{engine.stats["decode_graph_captures"]} in all; expected the two '
+        f'{prefills} eager passes - {verify} verify passes; verify graphs: {v_replays} '
+        f'replays; {captures + v_captures} captures during the run '
+        f'({engine.stats["decode_graph_captures"]} + '
+        f'{engine.stats["verify_graph_captures"]} at warm-up, '
+        f'{engine.stats["decode_graph_capture_s"] + engine.stats["verify_graph_capture_s"]:.3f} s, '
+        f'graph pools {engine.graph_pool_bytes / 2**20:.1f} MiB)')
+    if replays != decode or replays + v_replays <= 0:
+        fail(f'{tag}: {replays} decode graph replays for {decode} decode steps: a decode '
+             'step ran eagerly on the card')
+    if v_replays != verify:
+        fail(f'{tag}: {v_replays} verify graph replays for {verify} verify passes: a '
+             'verify pass ran eagerly on the card')
+    verify_graphs = 2 if engine.config.draft_k else 0
+    if (captures + v_captures != 0 or engine.stats['decode_graph_captures'] != 2
+            or engine.stats['verify_graph_captures'] != verify_graphs):
+        fail(f'{tag}: {captures + v_captures} captures in the run, '
+             f'{engine.stats["decode_graph_captures"]} decode and '
+             f'{engine.stats["verify_graph_captures"]} verify in all; expected those '
              'of the warm-up')
-    return dict(decode_graph_replays=replays,
+    return dict(decode_graph_replays=replays, verify_graph_replays=v_replays,
                 decode_graph_capture_s=engine.stats['decode_graph_capture_s'],
+                verify_graph_capture_s=engine.stats['verify_graph_capture_s'],
                 graph_pool_mib=engine.graph_pool_bytes / 2**20)
 
 
@@ -1301,8 +1370,8 @@ def phase_serve_kv_int8(torch, tpa, card, cfg, params):
     same bf16 weights (made on the card from seed 0): a bf16 KV pool and
     an int8 one (``EngineConfig(kv_cache_dtype='int8')``); block 16, 1024
     blocks, 32 slots, ``max_model_len`` 2048, 16-step decode windows, the
-    prefix cache off (phase 6d serves the same workload with it on; the
-    JAX stage's chunked prefill is not ported), so every prompt prefills
+    prefix cache off (phase 6d serves the same workload with it on, phase
+    6f with chunked prefill and mixed windows), so every prompt prefills
     whole. K1 must launch layers x forward passes in each
     arm, every int8-arm launch in the int8 mode (prefill on the tensor
     cores, decode on the split-KV route), its plain op never, and the int8
@@ -1517,11 +1586,11 @@ def instrument_prefill(torch, engine):
     records = []
     dispatch = engine._dispatch_prefill_paged
 
-    def timed(spans):
+    def timed(spans, **kwargs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = dispatch(spans)
+        out = dispatch(spans, **kwargs)
         end.record()
         end.synchronize()
         records.append(dict(
@@ -1542,17 +1611,21 @@ def zero_k1_counts(tpa):
     tpa.ragged_paged_attention_reference.launches = 0
 
 
-def check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, prefills, widths, mode):
+def check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, prefills, widths, mode,
+                    verify=0, span=1):
     """K1 launched layers x forward passes, each on the route
-    ``kernel_route`` names for its dispatch (a prefill by its padded span
-    width, every decode step on the split-KV route), all in ``mode``; its
-    plain op never; every decode step a graph replay."""
+    ``kernel_route`` names for its dispatch (an eager prefill or chunk
+    half by its padded span width ``widths``, a verify pass by its
+    ``span``, every decode step on the split-KV route), all in ``mode``;
+    its plain op never; every decode step and verify pass a graph
+    replay."""
     kernel = tpa.ragged_paged_attention
     group = NUM_HEADS // NUM_KV_HEADS
     want = dict.fromkeys(tpa.ROUTES, 0)
     for width in widths:
         want[tpa.kernel_route(torch.bfloat16, width, group)] += cfg.num_layers
-    want['split_kv'] += cfg.num_layers * (passes - prefills)
+    want[tpa.kernel_route(torch.bfloat16, span, group)] += cfg.num_layers * verify
+    want['split_kv'] += cfg.num_layers * (passes - prefills - verify)
     got = dict(kernel.launches_by_route)
     log(f'[{tag}] K1 launches {kernel.launches} = {cfg.num_layers} layers x {passes} passes '
         f'({prefills} prefill dispatches); by route {json.dumps(got)} (expected '
@@ -1565,7 +1638,7 @@ def check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, prefills, width
         fail(f'{tag}: K1 KV modes {kernel.launches_by_kv}: every launch belongs in {mode}')
     if tpa.ragged_paged_attention_reference.launches != 0:
         fail(f'{tag}: the plain op ran on the serving path')
-    return check_graph_replays(tag, engine, marks, passes, prefills)
+    return check_graph_replays(tag, engine, marks, passes, prefills, verify)
 
 
 def greedy_match(a_runs, b_runs):
@@ -1820,6 +1893,371 @@ def phase_kv_tiers(torch, tpa, card, cfg, params, tmp: Path):
 
 
 # ------------------------------------------------------------ phases 8-9
+# ---------------------------------------------------------- phases 6f-6g
+def instrument_windows(torch, engine):
+    """Record each eager pass's padded width and host ms (standalone
+    prefill dispatches and chunk halves, without a device sync: the
+    engine's own timing stays as it is) and each window's host ms
+    (dispatch + processing: planning, drafts, staging, the replays or the
+    verify replay, the token fetch and emission), and the device ms of
+    each verify replay (CUDA events; the window fetches right after, so
+    waiting on them adds no sync)."""
+    from distllm_tpu_torch.models.tokenizer import pick_bucket
+
+    rec = dict(prefill=[], chunk=[], window=[], verify_event=[])
+    dispatch, chunk_half = engine._dispatch_prefill_paged, engine._run_chunk_half
+    dispatch_window, process_window = engine._dispatch_window, engine._process_window
+
+    def timed_prefill(spans, **kwargs):
+        t0 = time.perf_counter()
+        out = dispatch(spans, **kwargs)
+        rec['prefill'].append(dict(width=max(n for _, _, n in spans),
+                                   wall_ms=(time.perf_counter() - t0) * 1e3))
+        return out
+
+    def timed_chunk(plan):
+        t0 = time.perf_counter()
+        out = chunk_half(plan)
+        rec['chunk'].append(dict(
+            width=pick_bucket(max(n for _, _, n in plan), engine.prefill_buckets),
+            rows=len(plan), tokens=sum(n for _, _, n in plan),
+            wall_ms=(time.perf_counter() - t0) * 1e3))
+        return out
+
+    def timed_window():
+        rec['_t0'] = time.perf_counter()
+        return dispatch_window()
+
+    def timed_process(window):
+        out = process_window(window)
+        rec['window'].append(dict(
+            spec=bool(window.get('spec')), chunk_rows=len(window['chunk_plan']),
+            steps=0 if window['tokens'] is None or window.get('spec')
+            else int(window['tokens'].shape[0]),
+            wall_ms=(time.perf_counter() - rec['_t0']) * 1e3))
+        return out
+
+    engine._dispatch_prefill_paged = timed_prefill
+    engine._run_chunk_half = timed_chunk
+    engine._dispatch_window = timed_window
+    engine._process_window = timed_process
+    if engine._verify is not None:
+        run = engine._verify.run
+
+        def timed_verify(all_greedy):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run(all_greedy)
+            end.record()
+            end.synchronize()
+            rec['verify_event'].append(start.elapsed_time(end))
+            return out
+
+        engine._verify.run = timed_verify
+    return rec
+
+
+def flip_report(torch, cfg, params, prompts, a_runs, b_runs, limit=16):
+    """The first position where each pair of greedy streams parts, with
+    the plain op's logit gap between the two tokens there (bf16 pool, one
+    fresh paged prefill of the shared history; the first ``limit`` flips):
+    how near a tie each flip was."""
+    flips = []
+    for i, (a, b) in enumerate(zip(a_runs, b_runs)):
+        at = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if at is None or len(flips) >= limit:
+            continue
+        logits = plain_logits(torch, cfg, params, prompts[i] + b[:at], torch.bfloat16)
+        flips.append(dict(prompt=i, position=at, a=a[at], b=b[at],
+                          logit_gap=float((logits[b[at]] - logits[a[at]]).abs())))
+    return flips
+
+
+def median(values):
+    return float(np.median(values)) if len(values) else None
+
+
+def zero_k2_counts(tqm):
+    tqm.int8_matmul.launches = 0
+    tqm.int8_matmul.launches_by_route = dict.fromkeys(tqm.ROUTES, 0)
+    tqm.int8_matmul_reference.launches = 0
+
+
+class ProposalDrafter:
+    """A drafter that proposes given tokens, indexed by absolute history
+    position (the JAX tests' stub drafter): a stand-in for a model that
+    copies, which random weights are not."""
+
+    def __init__(self, proposals):
+        self.proposals = list(proposals)
+
+    def draft(self, history, k):
+        return self.proposals[len(history):len(history) + k]
+
+
+def serve_arm(torch, tpa, tag, cfg, params, engine_kw, prompts, sampling, tqm=None,
+              first=None, proposals=None):
+    """One ``LLMEngine`` arm over ``prompts`` (warmed up first, so every
+    capture happens before the run; ``first``, ``(prompts, sampling)``,
+    served before the timed run, untimed; ``proposals``, one token list
+    per prompt, replace each request's drafter by a
+    :class:`ProposalDrafter` of them): tokens/s, window and pass times, and
+    the checks every serving arm owes — K1 launches layers x passes on
+    the routes ``kernel_route`` names for each pass, its plain op never,
+    every decode step and verify pass a graph replay; with ``tqm`` (int8
+    weights) K2 launches 7 x layers x passes on the tensor cores."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine
+
+    engine = LLMEngine(cfg, params, None, EngineConfig(**engine_kw), device=DEVICE)
+    engine.warmup()
+    if first is not None:
+        engine.generate_ids(*first)
+    if proposals is not None:
+        queue, add = list(proposals), engine.add_request
+
+        def add_with_proposals(prompt, sp=None):
+            rid = add(prompt, sp)
+            engine._requests[rid].drafter = ProposalDrafter([0] * len(prompt) + queue.pop(0))
+            return rid
+
+        engine.add_request = add_with_proposals
+    rec = instrument_windows(torch, engine)
+    marks = graph_marks(engine)
+    stats0 = dict(engine.stats)
+    zero_k1_counts(tpa)
+    if tqm is not None:
+        zero_k2_counts(tqm)
+    t0 = time.perf_counter()
+    tokens = engine.generate_ids(prompts, sampling)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    run = {k: engine.stats[k] - stats0.get(k, 0) for k in engine.stats}
+    passes, verify = run['forward_passes'], run.get('spec_windows', 0)
+    eager = run.get('prefill_dispatches', 0) + run.get('mixed_windows', 0) + run.get(
+        'spec_chunk_windows', 0)
+    widths = [r['width'] for r in rec['prefill'] + rec['chunk']]
+    if len(widths) != eager:
+        fail(f'{tag}: {len(widths)} eager passes recorded, {eager} counted')
+    graphs = check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, eager, widths,
+                             'model', verify=verify, span=1 + engine.config.draft_k)
+    if run['generated_tokens'] != sum(sp.max_tokens for sp in sampling):
+        fail(f'{tag}: {run["generated_tokens"]} tokens, expected '
+             f'{sum(sp.max_tokens for sp in sampling)}')
+    drafted, accepted = run.get('spec_draft_tokens', 0), run.get('spec_accepted_tokens', 0)
+    windows = rec['window']
+    arm = dict(
+        tokens=tokens, tokens_per_s=run['generated_tokens'] / wall_s, wall_s=wall_s,
+        generated_tokens=run['generated_tokens'], forward_passes=passes,
+        prefill_dispatches=run.get('prefill_dispatches', 0),
+        prefill_chunks=run.get('prefill_chunks', 0),
+        mixed_windows=run.get('mixed_windows', 0),
+        mixed_prefill_tokens=run.get('mixed_prefill_tokens', 0),
+        spec_windows=verify, spec_chunk_windows=run.get('spec_chunk_windows', 0),
+        spec_draft_tokens=drafted, spec_accepted_tokens=accepted,
+        spec_sampled_rows=run.get('spec_sampled_rows', 0),
+        spec_resampled_tokens=run.get('spec_resampled_tokens', 0),
+        accept_rate=accepted / drafted if drafted else None,
+        prefill_host_ms=sum(r['wall_ms'] for r in rec['prefill']),
+        chunk_host_ms=sum(r['wall_ms'] for r in rec['chunk']),
+        chunk_halves=len(rec['chunk']),
+        chunk_widths=sorted({r['width'] for r in rec['chunk']}),
+        prefill_widths=sorted({r['width'] for r in rec['prefill']}),
+        windows=len(windows),
+        verify_window_wall_ms=median([w['wall_ms'] for w in windows
+                                      if w['spec'] and not w['chunk_rows']]),
+        verify_replay_event_ms=median(rec['verify_event']),
+        decode_window_wall_ms_per_step=median([
+            w['wall_ms'] / w['steps'] for w in windows
+            if not w['spec'] and w['steps'] and not w['chunk_rows']]),
+        k1_launches=tpa.ragged_paged_attention.launches,
+        k1_launches_by_route=dict(tpa.ragged_paged_attention.launches_by_route),
+        **graphs,
+    )
+    if tqm is not None:
+        k2, k2_routes = tqm.int8_matmul.launches, dict(tqm.int8_matmul.launches_by_route)
+        log(f'[{tag}] int8_matmul launches {k2} = 7 x {cfg.num_layers} layers x {passes} '
+            f'passes; by route {json.dumps(k2_routes)}; plain version '
+            f'{tqm.int8_matmul_reference.launches}')
+        if k2 != 7 * cfg.num_layers * passes or k2_routes['tensor_cores'] != k2:
+            fail(f'{tag}: K2 launches {k2} ({k2_routes}) for {passes} passes')
+        if tqm.int8_matmul_reference.launches != 0:
+            fail(f'{tag}: the plain int8 matmul ran on the serving path')
+        arm.update(k2_launches=k2, k2_launches_by_route=k2_routes)
+    shut_down(torch, tag, engine)
+    del engine
+    torch.cuda.empty_cache()
+    return arm
+
+
+# The JAX gen_mixed / gen_spec engine (bench.py): 712 blocks of 16, 32 slots,
+# 512-token rows, 16-step decode windows, sampling over the top 64 logits,
+# the prefix cache on.
+SERVE_712 = dict(block_size=BLOCK_SIZE, num_blocks=712, max_num_seqs=32, max_model_len=512,
+                 decode_steps=16, sampling_top_window=64, enable_prefix_cache=True)
+
+
+def phase_serve_mixed(torch, tpa, card, cfg, params):
+    """The JAX ``gen_mixed`` stage at full width: its workload (phase 6b's:
+    64 greedy prompts of 32..192 tokens, every third behind a shared
+    32-token prefix, 16..96 new each) through two ``LLMEngine`` arms on the
+    7B bf16 weights, ``prefill_chunk_tokens=256`` and
+    ``max_window_prefill_tokens=256``, mixed batching off and then on. As
+    in 6d, the first shared-prefix prompt is served first (untimed): a
+    request matches the cache when it is added, and no tail here is longer
+    than a chunk, so the shared-prefix tails admitted once windows flow
+    are what rides.
+    The on arm must ride windows (``mixed_windows`` > 0) and run fewer
+    standalone prefill dispatches; K1 launches on the routes
+    ``kernel_route`` names (eager passes by padded width, decode steps on
+    the split-KV route), its plain op never; every decode step a graph
+    replay. Tokens/s, prefill and chunk host ms and the greedy match
+    between the arms are printed (bf16: a match fraction, not identity),
+    each flip with the plain op's logit gap."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+
+    prompts, budgets = kvq_workload(cfg.vocab_size)
+    sampling = [SamplingParams(temperature=0.0, max_tokens=n) for n in budgets]
+    arms = {}
+    for mixed in (False, True):
+        tag = f'mixed {"on" if mixed else "off"}'
+        arm = serve_arm(torch, tpa, tag, cfg, params, dict(
+            SERVE_712, prefill_chunk_tokens=256, enable_mixed_batching=mixed,
+            max_window_prefill_tokens=256), prompts[1:], sampling[1:],
+            first=(prompts[:1], sampling[:1]))
+        log(f'[{tag}] 63 prompts, {arm["generated_tokens"]} new tokens in '
+            f'{arm["wall_s"]:.3f} s = {arm["tokens_per_s"]:.1f} tok/s on {card}; '
+            f'{arm["prefill_dispatches"]} standalone prefill dispatches '
+            f'({arm["prefill_host_ms"]:.1f} host ms, widths {arm["prefill_widths"]}), '
+            f'{arm["mixed_windows"]} mixed windows carrying {arm["mixed_prefill_tokens"]} '
+            f'chunk tokens ({arm["chunk_host_ms"]:.1f} host ms over {arm["chunk_halves"]} '
+            f'chunk halves, widths {arm["chunk_widths"]}); decode window '
+            f'{arm["decode_window_wall_ms_per_step"]} ms a step (median)')
+        arms['on' if mixed else 'off'] = arm
+    on, off = arms['on'], arms['off']
+    match = greedy_match(off['tokens'], on['tokens'])
+    flips = flip_report(torch, cfg, params, prompts[1:], off['tokens'], on['tokens'])
+    log(f'[mixed] on vs off: {on["tokens_per_s"] / off["tokens_per_s"]:.4f}x tokens/s, '
+        f'prefill + chunk host ms {off["prefill_host_ms"] + off["chunk_host_ms"]:.1f} off / '
+        f'{on["prefill_host_ms"] + on["chunk_host_ms"]:.1f} on; greedy match {match:.4f} '
+        f'(recorded, not asserted: bf16); flips with the plain op\'s logit gap '
+        f'{json.dumps(flips)}')
+    if not on['mixed_windows'] > 0 or off['mixed_windows'] != 0:
+        fail(f'mixed: {on["mixed_windows"]} mixed windows on, {off["mixed_windows"]} off')
+    if not on['prefill_dispatches'] < off['prefill_dispatches']:
+        fail(f'mixed: {on["prefill_dispatches"]} standalone prefill dispatches on, '
+             f'{off["prefill_dispatches"]} off')
+    for arm in arms.values():
+        arm.pop('tokens')
+    return dict(arms, greedy_match=match, flips=flips,
+                speedup=on['tokens_per_s'] / off['tokens_per_s'])
+
+
+def spec_workload(vocab_size):
+    """The JAX package's ``gen_spec`` stage workload (``bench.py``, full
+    size; numpy seed 0): 64 prompts of 32..192 tokens, every other one's
+    tail tiling an 8-token motif (prompt lookup's material), every third
+    behind a shared 32-token prefix, 16..96 new tokens each."""
+    rng = np.random.default_rng(0)
+    shared = [int(t) for t in rng.integers(1, vocab_size, size=32)]
+    motif = [int(t) for t in rng.integers(1, vocab_size, size=8)]
+    prompts = []
+    for i, n in enumerate(rng.integers(32, 192, size=64)):
+        tail = [int(t) for t in rng.integers(1, vocab_size, size=int(n))]
+        if i % 2 == 0:
+            tail = (motif * (1 + len(tail) // len(motif)))[:len(tail)]
+        prompts.append(shared + tail if i % 3 == 0 else tail)
+    budgets = [int(n) for n in rng.integers(16, 96, size=64)]
+    return prompts, budgets
+
+
+SPEC_DRAFT_K = 4
+SPEC_SAMPLED = dict(temperature=0.15, top_p=0.95)  # the JAX stage's sampled arm
+
+
+def phase_serve_spec(torch, tpa, tqm, card, cfg, params):
+    """The JAX ``gen_spec`` stage at full width on the 7B bf16 weights:
+    arms ``draft_k=0`` (decode graphs), ``draft_k=4`` with
+    ``spec_draft_source='none'`` (every window a span-1 verify) and with
+    prompt lookup. Random weights never repeat themselves, so prompt
+    lookup proposes next to nothing here (recorded); the arms that
+    verify accepted drafts give every request a :class:`ProposalDrafter`
+    of the ``'none'`` arm's greedy stream (``oracle``: greedy, then a
+    sampled arm, temperature 0.15, top-p 0.95, a seed per request, run
+    twice, then greedy over int8 weights, K2 on every verify pass).
+    Asserted: ``'none'`` and prompt lookup give identical tokens (one
+    graph, one schedule), the oracle arms accept drafts, the sampled arm is
+    deterministic, every verify window is one graph replay with nothing
+    captured in the run, K1's verify passes launch on
+    ``kernel_route(bf16, 5, 4)``'s route, its plain op never. Accept
+    rate, tokens/s per arm, the verify window's wall ms and replay event
+    ms (medians), and the verify arms' greedy match against ``draft_k=0``
+    with each flip's plain-op logit gap are printed."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+
+    prompts, budgets = spec_workload(cfg.vocab_size)
+    greedy = [SamplingParams(temperature=0.0, max_tokens=n) for n in budgets]
+    sampled = [SamplingParams(max_tokens=n, seed=1000 + i, **SPEC_SAMPLED)
+               for i, n in enumerate(budgets)]
+    spec = dict(SERVE_712, draft_k=SPEC_DRAFT_K)
+    arms = {}
+    for name, kw, sampling in (
+        ('decode', SERVE_712, greedy),
+        ('none', dict(spec, spec_draft_source='none'), greedy),
+        ('prompt_lookup', spec, greedy),
+    ):
+        arms[name] = serve_arm(torch, tpa, f'spec {name}', cfg, params, kw, prompts, sampling)
+    # The verify graph's own greedy stream: in bf16 the decode graphs'
+    # stream parts from it at the first near tie.
+    oracle = arms['none']['tokens']
+    for name, kw, sampling, k2 in (
+        ('oracle', spec, greedy, None),
+        ('oracle_sampled', spec, sampled, None),
+        ('oracle_sampled_again', spec, sampled, None),
+        ('oracle_int8', dict(spec, quantization='int8'), greedy, tqm),
+    ):
+        arms[name] = serve_arm(torch, tpa, f'spec {name}', cfg, params, kw, prompts, sampling,
+                               tqm=k2, proposals=oracle)
+    base = arms['decode']['tokens_per_s']
+    for name, arm in arms.items():
+        arm['speedup_over_decode'] = arm['tokens_per_s'] / base
+        log(f'[spec {name}] {arm["generated_tokens"]} new tokens in {arm["wall_s"]:.3f} s = '
+            f'{arm["tokens_per_s"]:.1f} tok/s on {card} ({arm["speedup_over_decode"]:.4f}x '
+            f'draft_k=0); {arm["spec_windows"]} verify windows, accept rate '
+            f'{arm["accept_rate"]} ({arm["spec_accepted_tokens"]}/{arm["spec_draft_tokens"]}); '
+            f'verify window {arm["verify_window_wall_ms"]} ms wall, replay '
+            f'{arm["verify_replay_event_ms"]} ms event (medians); decode window '
+            f'{arm["decode_window_wall_ms_per_step"]} ms a step; '
+            f'{arm["prefill_dispatches"]} prefill dispatches ({arm["prefill_host_ms"]:.1f} host ms)')
+    same = arms['none']['tokens'] == arms['prompt_lookup']['tokens']
+    oracle_match = greedy_match(arms['none']['tokens'], arms['oracle']['tokens'])
+    deterministic = arms['oracle_sampled']['tokens'] == arms['oracle_sampled_again']['tokens']
+    decode_match = greedy_match(arms['decode']['tokens'], arms['none']['tokens'])
+    flips = flip_report(torch, cfg, params, prompts, arms['decode']['tokens'],
+                        arms['none']['tokens'])
+    int8_match = greedy_match(arms['oracle']['tokens'], arms['oracle_int8']['tokens'])
+    log(f'[spec] none and prompt_lookup identical={same}; oracle vs none greedy match '
+        f'{oracle_match:.4f} (recorded: accepted drafts change the schedule, and with it the '
+        f'prefill batches\' widths); sampled arm '
+        f'deterministic={deterministic}, accepted {arms["oracle_sampled"]["spec_accepted_tokens"]}; '
+        f'greedy match of the verify arms vs draft_k=0 {decode_match:.4f} (flips with the plain '
+        f'op\'s logit gap {json.dumps(flips)}), int8 vs bf16 weights {int8_match:.4f} (recorded)')
+    if not same:
+        fail('spec: spec_draft_source none and prompt lookup gave different tokens')
+    if not deterministic or not arms['oracle_sampled']['spec_accepted_tokens'] > 0:
+        fail(f'spec: sampled arm deterministic={deterministic}, accepted '
+             f'{arms["oracle_sampled"]["spec_accepted_tokens"]}')
+    if not (arms['oracle']['spec_accepted_tokens'] > 0
+            and arms['oracle_int8']['spec_accepted_tokens'] > 0):
+        fail('spec: the oracle arms accepted no draft')
+    for arm in arms.values():
+        arm.pop('tokens')
+    return dict(arms, identical=same, oracle_greedy_match=oracle_match,
+                sampled_deterministic=deterministic,
+                greedy_match_vs_decode=decode_match, flips_vs_decode=flips,
+                int8_greedy_match=int8_match)
+
+
 def phase_identity(torch, tpa, cfg):
     from distllm_tpu_torch.generate.engine import (
         EngineConfig,
@@ -2066,6 +2504,82 @@ def phase_identity_prefix_mixed(torch, tpa, cfg):
                     'prefix_cow_copies', 'tier_spills', 'tier_spilled_blocks',
                     'tier_promotions', 'tier_promoted_blocks', 'prefix_hit_tokens',
                     'prefix_lookup_tokens')})
+
+
+def phase_identity_spec_mixed(torch, tpa, cfg):
+    """8d. fp32, full width, depth 2, the first 16 prompts of 6g's
+    workload (8..31 new tokens), the prefix cache on and
+    ``prefill_chunk_tokens=64``: greedy tokens with speculation
+    (``draft_k=4``, verify graphs, drafts proposing the first arm's
+    stream) equal those without (decode graphs); with speculation on K1
+    equal those on its plain op; with mixed batching on equal those with
+    it off."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mistral
+
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE)
+    prompts, budgets = spec_workload(cfg.vocab_size)
+    prompts = prompts[:16]
+    # Staggered budgets (8..31 new tokens), so slots free while others
+    # decode and later admissions ride the windows.
+    sampling = [SamplingParams(temperature=0.0, max_tokens=8 + n % 24) for n in budgets[:16]]
+    base = dict(block_size=BLOCK_SIZE, num_blocks=256, max_num_seqs=8, max_model_len=512,
+                decode_steps=8, enable_prefix_cache=True, prefill_chunk_tokens=64)
+    outs, stats = {}, {}
+    for name, kw, backend in (
+        ('off', {}, 'auto'),
+        ('spec', dict(draft_k=SPEC_DRAFT_K), 'auto'),
+        ('spec_plain', dict(draft_k=SPEC_DRAFT_K), 'reference'),
+        ('mixed', dict(enable_mixed_batching=True, max_window_prefill_tokens=64), 'auto'),
+    ):
+        tag = f'identity {name}'
+        engine = LLMEngine(cfg, params, None, EngineConfig(**base, **kw), device=DEVICE,
+                           attn_backend=backend)
+        engine.warmup()
+        if name.startswith('spec'):
+            # Prompt lookup drafts next to nothing on random weights: the
+            # drafts are the cache-off arm's stream (6g's oracle).
+            queue, add = list(outs['off']), engine.add_request
+
+            def add_with_proposals(prompt, sp=None, queue=queue, add=add, engine=engine):
+                rid = add(prompt, sp)
+                engine._requests[rid].drafter = ProposalDrafter(
+                    [0] * len(prompt) + queue.pop(0))
+                return rid
+
+            engine.add_request = add_with_proposals
+        marks = graph_marks(engine)
+        zero_k1_counts(tpa)
+        outs[name] = engine.generate_ids(prompts, sampling)
+        tele = engine.telemetry
+        passes, verify = tele['forward_passes'], tele.get('spec_windows', 0)
+        eager = tele['prefill_dispatches'] + tele.get('mixed_windows', 0) + tele.get(
+            'spec_chunk_windows', 0)
+        check_graph_replays(tag, engine, marks, passes, eager, verify)
+        counted, other = (tpa.ragged_paged_attention.launches,
+                          tpa.ragged_paged_attention_reference.launches)
+        if backend == 'reference':
+            counted, other = other, counted
+        if counted != cfg.num_layers * passes or other != 0:
+            fail(f'{tag}: {counted} attention calls for {passes} passes ({other} through '
+                 'the other tier)')
+        stats[name] = {k: tele.get(k, 0) for k in (
+            'forward_passes', 'prefill_dispatches', 'prefill_chunks', 'spec_windows',
+            'spec_draft_tokens', 'spec_accepted_tokens', 'mixed_windows',
+            'mixed_prefill_tokens')}
+        shut_down(torch, tag, engine)
+        del engine
+    same = {name: outs[name] == outs['off'] for name in ('spec', 'spec_plain', 'mixed')}
+    log(f'[identity spec mixed] fp32 depth-2 full width, 16 prompts (gen_spec), prefix cache, '
+        f'chunks of 64: identical to speculation and mixed batching off: {json.dumps(same)}; '
+        f'stats {json.dumps(stats)}')
+    if not all(same.values()):
+        fail(f'fp32 greedy tokens differ: {same}')
+    if not (stats['spec']['spec_accepted_tokens'] > 0 and stats['mixed']['mixed_windows'] > 0):
+        fail(f'identity spec mixed: no accepted draft or no mixed window: {stats}')
+    del params
+    torch.cuda.empty_cache()
+    return dict(identical=same, stats=stats)
 
 
 def phase_identity_int8(torch, tqm, cfg):
@@ -2454,6 +2968,14 @@ def main() -> None:
     # 6e. the host and disk tiers over a small pool, and a warm restart
     with tempfile.TemporaryDirectory(prefix='chip_smoke_tiers_') as tmp:
         tiers = phase_kv_tiers(torch, tpa, smi, cfg7b, params7b, Path(tmp))
+    # 6f. mixed prefill+decode windows: gen_mixed's workload, off / on
+    t0 = time.perf_counter()
+    mixed = phase_serve_mixed(torch, tpa, smi, cfg7b, params7b)
+    log(f'[mixed] phase 6f took {time.perf_counter() - t0:.1f} s')
+    # 6g. speculation: gen_spec's workload, five arms, then int8 weights
+    t0 = time.perf_counter()
+    spec = phase_serve_spec(torch, tpa, tqm, smi, cfg7b, params7b)
+    log(f'[spec] phase 6g took {time.perf_counter() - t0:.1f} s')
     del params7b
     torch.cuda.empty_cache()
     # 8. identity: full width, depth 2, fp32, K1 and then K2 vs plain;
@@ -2464,6 +2986,11 @@ def main() -> None:
     phase_identity_kv_int8(torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
     identity_mixed = phase_identity_prefix_mixed(
         torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
+    # 8d. speculation on / off, on K1 / plain, mixed on / off
+    t0 = time.perf_counter()
+    identity_spec = phase_identity_spec_mixed(
+        torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
+    log(f'[identity spec mixed] phase 8d took {time.perf_counter() - t0:.1f} s')
     # 9. quantize on the card: one full-width leaf, bitwise vs the CPU;
     # 9b. int8 KV codes and scales written on the card vs the CPU
     phase_quantize(torch, tq)
@@ -2491,6 +3018,13 @@ def main() -> None:
                  'plain_ms', 'bound_ms', 'bound_by', 'yardstick_ms', 'err_over_tol',
                  'max_abs_err')
     mixed_head = next(c for c in mixed_cases if c['case'] == MIXED_HEAD)
+    verify_tc, verify_split = (
+        next(c for c in cases if c['case'] == name) for name in (VERIFY_CASE, VERIFY_SPLIT_CASE)
+    )
+    verify_keys = ('case', 'kernel_route', 'tol', 'ms', 'timer', 'event_ms', 'host_us',
+                   'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'err_over_tol',
+                   'max_abs_err')
+    k2_verify = next(c for c in k2_cases if c['case'] == K2_VERIFY)
     k2_head, k2_prefill, k2_embed = (
         next(c for c in k2_cases if c['case'] == name)
         for name in (K2_HEADLINE, K2_PREFILL, K2_EMBED)
@@ -2523,6 +3057,17 @@ def main() -> None:
         'prefill': {key: prefill_head[key] for key in (
             'case', 'kernel_route', 'tol', 'ms', 'timer', 'event_ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms', 'err_over_tol')},
+        # The verify window (phase 6g, draft_k = 4): launches from its
+        # greedy oracle arm; times at its [32, 5] spans (tensor cores) and at
+        # spans of 3 (split-KV). The library call is SDPA on the gathered KV
+        # with the causal span mask.
+        'verify': {
+            'launches': spec['oracle']['k1_launches'],
+            'launches_by_route': spec['oracle']['k1_launches_by_route'],
+            'verify_passes': spec['oracle']['spec_windows'],
+            'tensor_cores': {key: verify_tc[key] for key in verify_keys},
+            'split_kv': {key: verify_split[key] for key in verify_keys},
+        },
         'cases': cases,
         # The int8-KV mode: launches from phase 6b's int8 arm, times at its
         # decode shape (prefill beside it). No PyTorch call computes
@@ -2624,6 +3169,11 @@ def main() -> None:
         'kernel_route': k2_head['kernel_route'],
         'prefill': {key: k2_prefill[key] for key in k2_keys},
         'embed': {key: k2_embed[key] for key in k2_keys},
+        # A verify pass's rows (32 x 5) at the MLP's widest product; the
+        # launches are phase 6g's int8-weight arm's.
+        'verify': dict({key: k2_verify[key] for key in k2_keys},
+                       launches=spec['oracle_int8']['k2_launches'],
+                       launches_by_route=spec['oracle_int8']['k2_launches_by_route']),
         'cases': k2_cases,
     }]
     log(f'[summary] {smi}: {serve["tokens_per_s"]:.1f} tok/s bf16, '
@@ -2643,6 +3193,20 @@ def main() -> None:
     log(f'[prefix cache] {json.dumps(prefix)}')
     log(f'[kv tiers] {json.dumps(tiers)}')
     log(f'[identity mixed] {json.dumps(identity_mixed)}')
+    log(f'[mixed] {json.dumps(mixed)}')
+    log(f'[spec] {json.dumps(spec)}')
+    log(f'[identity spec mixed] {json.dumps(identity_spec)}')
+    log(f'[summary] {smi}: mixed off / on {mixed["off"]["tokens_per_s"]:.1f} / '
+        f'{mixed["on"]["tokens_per_s"]:.1f} tok/s; spec decode / none / oracle / '
+        f'oracle sampled / oracle int8 {spec["decode"]["tokens_per_s"]:.1f} / '
+        f'{spec["none"]["tokens_per_s"]:.1f} / {spec["oracle"]["tokens_per_s"]:.1f} / '
+        f'{spec["oracle_sampled"]["tokens_per_s"]:.1f} / '
+        f'{spec["oracle_int8"]["tokens_per_s"]:.1f} tok/s, oracle accept rate '
+        f'{spec["oracle"]["accept_rate"]}, prompt lookup drafts '
+        f'{spec["prompt_lookup"]["spec_draft_tokens"]}, verify window '
+        f'{spec["oracle"]["verify_window_wall_ms"]} ms wall / '
+        f'{spec["oracle"]["verify_replay_event_ms"]} ms replay event; '
+        f'{time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')

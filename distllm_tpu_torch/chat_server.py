@@ -18,6 +18,12 @@ Run (random-init Mistral weights on the GPU; ``--num-layers`` cuts depth)::
 
 ``--quantization int8`` serves the weights int8-quantized on the GPU
 (every projection through kernel K2); ``nf4`` dequantizes per layer.
+``--config app.yaml`` reads the JAX chat app's YAML keys instead:
+``generator_config`` (a mapping of ``TorchGeneratorConfig`` fields, its
+``name`` ignored and ``model`` a mapping of ``MistralConfig`` fields:
+the serving knobs ``draft_k``, ``spec_ngram``, ``enable_mixed_batching``,
+``max_window_prefill_tokens``, ``prefill_chunk_tokens`` and the rest) and
+``system_prompt``; ``--device`` still applies.
 """
 
 from __future__ import annotations
@@ -228,6 +234,26 @@ def _make_handler(server: ChatServer):
     return Handler
 
 
+def load_app_config(path: str) -> tuple:
+    """``(TorchGeneratorConfig, system_prompt)`` from a chat app YAML (the
+    JAX ``ChatAppConfig`` keys ``generator_config`` and
+    ``system_prompt``)."""
+    import yaml
+
+    from distllm_tpu_torch.generate.generators.torch_backend import (
+        TorchGeneratorConfig,
+    )
+    from distllm_tpu_torch.models.mistral import MistralConfig
+
+    with open(path) as fh:
+        raw = yaml.safe_load(fh) or {}
+    fields = dict(raw.get('generator_config') or {})
+    fields.pop('name', None)  # the backend's name: this server has one
+    if isinstance(fields.get('model'), dict):
+        fields['model'] = MistralConfig(**fields['model'])
+    return TorchGeneratorConfig(**fields), raw.get('system_prompt', '')
+
+
 def main(argv: list[str] | None = None) -> None:
     from distllm_tpu_torch.generate.generators.torch_backend import (
         TorchGenerator,
@@ -251,19 +277,33 @@ def main(argv: list[str] | None = None) -> None:
         '--quantization', choices=('int8', 'nf4'), default=None,
         help='weight-only quantized serving (int8 runs through kernel K2)',
     )
+    parser.add_argument(
+        '--config', default=None,
+        help='chat app YAML (generator_config, system_prompt); replaces the '
+        'model and engine flags',
+    )
     args = parser.parse_args(argv)
-    generator = TorchGenerator(TorchGeneratorConfig(
-        model=MistralConfig(num_layers=args.num_layers, dtype=args.dtype),
-        temperature=args.temperature,
-        max_tokens=args.max_tokens,
-        num_blocks=args.num_blocks,
-        max_num_seqs=args.max_num_seqs,
-        max_model_len=args.max_model_len,
-        seed=args.seed,
-        device=args.device,
-        quantization=args.quantization,
-    ))
-    server = ChatServer(generator, host=args.host, port=args.port).start()
+    system_prompt = ''
+    if args.config:
+        config, system_prompt = load_app_config(args.config)
+        if args.device is not None:
+            config.device = args.device
+    else:
+        config = TorchGeneratorConfig(
+            model=MistralConfig(num_layers=args.num_layers, dtype=args.dtype),
+            temperature=args.temperature,
+            max_tokens=args.max_tokens,
+            num_blocks=args.num_blocks,
+            max_num_seqs=args.max_num_seqs,
+            max_model_len=args.max_model_len,
+            seed=args.seed,
+            device=args.device,
+            quantization=args.quantization,
+        )
+    generator = TorchGenerator(config)
+    server = ChatServer(
+        generator, host=args.host, port=args.port, system_prompt=system_prompt
+    ).start()
     try:
         while True:
             time.sleep(3600)

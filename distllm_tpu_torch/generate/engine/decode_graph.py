@@ -41,6 +41,7 @@ those of kernels launched on the device.
 
 from __future__ import annotations
 
+import gc
 import time
 from collections import Counter
 
@@ -106,12 +107,22 @@ def capture_step(step, graph, capturing) -> CapturedStep:
     ``torch.cuda.graph(graph, ...)``) and return it as a
     :class:`CapturedStep`, with the counters as they were before (what the
     wrappers counted was captured, not launched), whether or not the
-    capture succeeds."""
+    capture succeeds.
+
+    The garbage collector runs first and is held off until the capture
+    ends: an unreachable cycle that holds another CUDA graph (an engine
+    never shut down) would otherwise be collected mid-capture, and
+    destroying a graph while a stream captures invalidates the capture."""
     before = read_counters()
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with capturing:
             step()
     finally:
+        if collecting:
+            gc.enable()
         delta = counter_delta(before, read_counters())
         add_counters(delta, times=-1)
     return CapturedStep(graph, delta)
@@ -132,13 +143,17 @@ def _capture_stream(device: torch.device) -> 'torch.cuda.Stream':
     return stream
 
 
-class DecodeGraphRunner:
-    """Static buffers, the carry and the captured decode step of one
-    engine (see the module docstring). ``k_cache`` / ``v_cache`` are the
-    engine's pools (bare tensors or ``QuantizedKV``), written in place;
-    ``stats`` is the engine's counter, which gains
-    ``decode_graph_captures``, ``decode_graph_replays`` and
-    ``decode_graph_capture_s``."""
+class _GraphRunner:
+    """What the decode and the verify runner share: static device buffers
+    for every input of a step, views of ONE device buffer that
+    :meth:`load` fills from one pinned host buffer in one non-blocking
+    copy; one captured graph of the step per value of ``all_greedy``, in a
+    private memory pool; the capture's stats. A subclass names its input
+    ``FIELDS``, its stats prefix ``KIND``, and defines ``_step(all_greedy)``
+    and ``_load_trash()`` (inputs that write only the trash block 0)."""
+
+    FIELDS: tuple = ()  # (name, dtype, shape from (b, mb, s))
+    KIND = ''
 
     def __init__(
         self,
@@ -149,10 +164,11 @@ class DecodeGraphRunner:
         *,
         max_num_seqs: int,
         max_blocks_per_seq: int,
-        decode_steps: int,
         max_table_positions: int,
         attn_backend: str,
         device: torch.device,
+        sampling_top_window: int = 0,
+        span: int = 1,
         stats: Counter | None = None,
     ) -> None:
         self.params = params
@@ -160,26 +176,12 @@ class DecodeGraphRunner:
         self.k_cache, self.v_cache = k_cache, v_cache
         self.attn_backend = attn_backend
         self.device = device
-        self.decode_steps = decode_steps
+        self.sampling_top_window = sampling_top_window
         self.stats = Counter() if stats is None else stats
-        b, mb = max_num_seqs, max_blocks_per_seq
-        # (name, dtype, shape): the 8-byte fields first, so each int64 view
-        # of the int32 buffer starts on an 8-byte boundary.
-        fields = (
-            ('seeds', torch.int64, (b,)),
-            ('step', torch.int64, (1,)),
-            ('ids', torch.int32, (b,)),
-            ('positions', torch.int32, (b,)),
-            ('context_lens', torch.int32, (b,)),
-            ('steps_left', torch.int32, (b,)),
-            ('top_k', torch.int32, (b,)),
-            ('temperature', torch.float32, (b,)),
-            ('top_p', torch.float32, (b,)),
-            ('min_p', torch.float32, (b,)),
-            ('block_tables', torch.int32, (b, mb)),
-        )
+        dims = {'b': max_num_seqs, 'mb': max_blocks_per_seq, 's': span}
         spans, words = [], 0
-        for name, dtype, shape in fields:
+        for name, dtype, shape in self.FIELDS:
+            shape = tuple(dims[d] if isinstance(d, str) else d for d in shape)
             n = int(np.prod(shape)) * dtype.itemsize // 4
             spans.append((name, dtype, shape, words, n))
             words += n
@@ -195,8 +197,6 @@ class DecodeGraphRunner:
             name: self._dev[at:at + n].view(dtype).view(shape)
             for name, dtype, shape, at, n in spans
         }
-        self.token = torch.zeros(b, dtype=torch.int32, device=device)
-        self.tokens = torch.zeros((decode_steps, b), dtype=torch.int32, device=device)
         self.cos, self.sin = mistral._rope_tables(model_cfg, max_table_positions, device)
         self._copied = None  # event after the last staging copy (CUDA)
         self.graphs: dict[bool, CapturedStep] = {}
@@ -207,9 +207,145 @@ class DecodeGraphRunner:
 
     @property
     def ready(self) -> bool:
-        """Whether :meth:`run` can serve a window: on the CPU always, on
-        CUDA once :meth:`warmup` has captured both graphs."""
+        """Whether the runner can serve: on the CPU always, on CUDA once
+        :meth:`warmup` has captured both graphs."""
         return self.device.type != 'cuda' or len(self.graphs) == 2
+
+    def _stage(self, values: dict) -> None:
+        """Write ``values`` (name -> array) into the pinned host buffer and
+        copy it to the device in one non-blocking copy."""
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy has read the host buffer
+        for name, value in values.items():
+            self._host_views[name][...] = value
+        self._dev.copy_(self._host, non_blocking=True)
+        if self.device.type == 'cuda':
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+    def _step(self, all_greedy: bool) -> None:
+        raise NotImplementedError
+
+    def _load_trash(self) -> None:
+        raise NotImplementedError
+
+    def _rewind(self) -> None:
+        """Undo what an eager warm-up step advanced in the static buffers
+        (a device op on the step's stream), so the next one starts as the
+        first did."""
+
+    def warmup(self) -> None:
+        """Build the step outside the request path. On CUDA: run one eager
+        step of each kind on trash-block inputs — PyTorch's rule before a
+        capture; it also builds every kernel the step launches
+        (``ops._build``, at first use), loads it and makes K1's split
+        tickets outside any capture — then capture the greedy and the
+        sampled step. On the CPU the eager steps alone. Scheduler state,
+        the pool outside block 0 and every sampling stream stay as they
+        were."""
+        if self._warm:
+            return
+        if self.device.type != 'cuda':
+            self._load_trash()
+            for all_greedy in (True, False):
+                self._step(all_greedy)
+                self._rewind()
+            self._warm = True
+            return
+        with torch.cuda.device(self.device):
+            self._stream = _capture_stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+            self._load_trash()
+            self._stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self._stream):
+                for all_greedy in (True, False):
+                    self._step(all_greedy)
+                    self._rewind()
+            torch.cuda.current_stream().wait_stream(self._stream)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            try:
+                for all_greedy in (True, False):
+                    graph = torch.cuda.CUDAGraph()
+                    self.graphs[all_greedy] = capture_step(
+                        lambda g=all_greedy: self._step(g), graph,
+                        torch.cuda.graph(graph, pool=self._pool, stream=self._stream),
+                    )
+                    self.stats[f'{self.KIND}_graph_captures'] += 1
+                torch.cuda.synchronize()
+            except BaseException:
+                self._release()
+                raise
+            self.stats[f'{self.KIND}_graph_capture_s'] += time.perf_counter() - t0
+            self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self._warm = True
+
+    def _replay(self, all_greedy: bool, times: int) -> None:
+        """``times`` replays of the captured step (CUDA; raises before
+        :meth:`warmup`), or the eager step on the CPU."""
+        if self.device.type != 'cuda':
+            for _ in range(times):
+                self._step(all_greedy)
+            return
+        captured = self.graphs.get(all_greedy)
+        if captured is None:
+            raise RuntimeError(
+                f'the {self.KIND} graphs are not captured: call warmup() first'
+            )
+        with torch.cuda.device(self.device):
+            for _ in range(times):
+                captured.replay()
+        self.stats[f'{self.KIND}_graph_replays'] += times
+
+    def _release(self) -> None:
+        for captured in self.graphs.values():
+            captured.graph.reset()
+        self.graphs.clear()
+        self._pool = self._stream = None
+        self.pool_bytes = 0
+
+    def close(self) -> None:
+        """Release the graphs and their memory pool."""
+        self._release()
+        self._copied = None
+        self.params = self.k_cache = self.v_cache = None
+
+
+class DecodeGraphRunner(_GraphRunner):
+    """Static buffers, the carry and the captured decode step of one
+    engine (see the module docstring). ``k_cache`` / ``v_cache`` are the
+    engine's pools (bare tensors or ``QuantizedKV``), written in place;
+    ``stats`` is the engine's counter, which gains
+    ``decode_graph_captures``, ``decode_graph_replays`` and
+    ``decode_graph_capture_s``."""
+
+    KIND = 'decode'
+    # (name, dtype, shape): the 8-byte fields first, so each int64 view of
+    # the int32 buffer starts on an 8-byte boundary.
+    FIELDS = (
+        ('seeds', torch.int64, ('b',)),
+        ('step', torch.int64, (1,)),
+        ('ids', torch.int32, ('b',)),
+        ('positions', torch.int32, ('b',)),
+        ('context_lens', torch.int32, ('b',)),
+        ('steps_left', torch.int32, ('b',)),
+        ('top_k', torch.int32, ('b',)),
+        ('temperature', torch.float32, ('b',)),
+        ('top_p', torch.float32, ('b',)),
+        ('min_p', torch.float32, ('b',)),
+        ('block_tables', torch.int32, ('b', 'mb')),
+    )
+
+    def __init__(self, params, model_cfg, k_cache, v_cache, *, decode_steps: int,
+                 max_num_seqs: int, **kwargs) -> None:
+        super().__init__(params, model_cfg, k_cache, v_cache,
+                         max_num_seqs=max_num_seqs, **kwargs)
+        self.decode_steps = decode_steps
+        self.token = torch.zeros(max_num_seqs, dtype=torch.int32, device=self.device)
+        self.tokens = torch.zeros((decode_steps, max_num_seqs), dtype=torch.int32,
+                                  device=self.device)
 
     # ---------------------------------------------------------------- inputs
     def load(
@@ -229,21 +365,12 @@ class DecodeGraphRunner:
         ``block_tables [max_num_seqs, max_blocks_per_seq]``) into the
         static buffers: one pinned host buffer, one non-blocking copy. The
         step counter restarts at 0."""
-        if self._copied is not None:
-            self._copied.synchronize()  # the last copy has read the host buffer
-        views = self._host_views
-        for name, value in (
-            ('ids', ids), ('positions', positions), ('context_lens', context_lens),
-            ('block_tables', block_tables), ('steps_left', steps_left),
-            ('temperature', temperature), ('top_p', top_p), ('min_p', min_p),
-            ('top_k', top_k), ('seeds', seeds),
-        ):
-            views[name][...] = value
-        views['step'][...] = 0
-        self._dev.copy_(self._host, non_blocking=True)
-        if self.device.type == 'cuda':
-            self._copied = torch.cuda.Event()
-            self._copied.record()
+        self._stage(dict(
+            ids=ids, positions=positions, context_lens=context_lens,
+            block_tables=block_tables, steps_left=steps_left,
+            temperature=temperature, top_p=top_p, min_p=min_p, top_k=top_k,
+            seeds=seeds, step=0,
+        ))
 
     def _load_trash(self) -> None:
         """Inputs that touch no state: every table row at the trash block
@@ -255,6 +382,12 @@ class DecodeGraphRunner:
             zeros, np.zeros((b,), np.float32), np.ones((b,), np.float32),
             np.zeros((b,), np.float32), zeros, np.zeros((b,), np.int64),
         )
+
+    def _rewind(self) -> None:
+        # The step counter picks the token buffer's row: two eager steps
+        # from one load would write row 1, past the buffer at
+        # decode_steps = 1.
+        self.buffers['step'].zero_()
 
     # ------------------------------------------------------------------ step
     def _step(self, all_greedy: bool) -> None:
@@ -268,55 +401,10 @@ class DecodeGraphRunner:
             buf['steps_left'], buf['temperature'], buf['top_p'], buf['min_p'],
             buf['top_k'], buf['seeds'], self.token, self.cos, self.sin,
             attn_backend=self.attn_backend, all_greedy=all_greedy,
+            sampling_top_window=self.sampling_top_window,
         )
         self.tokens.index_copy_(0, buf['step'], self.token[None])
         buf['step'].add_(1)
-
-    def warmup(self) -> None:
-        """Build the decode window outside the request path. On CUDA: run
-        one eager step of each kind on trash-block inputs with
-        ``steps_left = 0`` — PyTorch's rule before a capture; it also builds
-        every kernel the step launches (``ops._build``, at first use),
-        loads it and makes K1's split tickets outside any capture — then
-        capture the greedy and the sampled step. On the CPU the eager
-        steps alone. Scheduler state, the pool outside block 0 and every
-        sampling stream stay as they were."""
-        if self._warm:
-            return
-        if self.device.type != 'cuda':
-            self._load_trash()
-            for all_greedy in (True, False):
-                self._step(all_greedy)
-            self._warm = True
-            return
-        with torch.cuda.device(self.device):
-            self._stream = _capture_stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
-            self._load_trash()
-            self._stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(self._stream):
-                for all_greedy in (True, False):
-                    self._step(all_greedy)
-            torch.cuda.current_stream().wait_stream(self._stream)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved()
-            t0 = time.perf_counter()
-            try:
-                for all_greedy in (True, False):
-                    graph = torch.cuda.CUDAGraph()
-                    self.graphs[all_greedy] = capture_step(
-                        lambda g=all_greedy: self._step(g), graph,
-                        torch.cuda.graph(graph, pool=self._pool, stream=self._stream),
-                    )
-                    self.stats['decode_graph_captures'] += 1
-                torch.cuda.synchronize()
-            except BaseException:
-                self._release()
-                raise
-            self.stats['decode_graph_capture_s'] += time.perf_counter() - t0
-            self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self._warm = True
 
     def run(self, num_steps: int, all_greedy: bool) -> torch.Tensor:
         """``num_steps`` decode steps over the loaded window: graph
@@ -325,28 +413,95 @@ class DecodeGraphRunner:
         int32, a view of the token buffer valid until the next window."""
         if not 0 < num_steps <= self.decode_steps:
             raise ValueError(f'num_steps must be in 1..{self.decode_steps}, got {num_steps}')
-        if self.device.type != 'cuda':
-            for _ in range(num_steps):
-                self._step(all_greedy)
-            return self.tokens[:num_steps]
-        captured = self.graphs.get(all_greedy)
-        if captured is None:
-            raise RuntimeError('the decode graphs are not captured: call warmup() first')
-        with torch.cuda.device(self.device):
-            for _ in range(num_steps):
-                captured.replay()
-        self.stats['decode_graph_replays'] += num_steps
+        self._replay(all_greedy, num_steps)
         return self.tokens[:num_steps]
 
-    def _release(self) -> None:
-        for captured in self.graphs.values():
-            captured.graph.reset()
-        self.graphs.clear()
-        self._pool = self._stream = None
-        self.pool_bytes = 0
 
-    def close(self) -> None:
-        """Release the graphs and their memory pool."""
-        self._release()
-        self._copied = None
-        self.params = self.k_cache = self.v_cache = None
+class VerifyGraphRunner(_GraphRunner):
+    """The speculative verify window as one device program: static
+    buffers for the ``[max_num_seqs, 1 + draft_k]`` verify spans and their
+    sampling inputs, the packed result ``[max_num_seqs, 2 + draft_k]``,
+    and on CUDA one captured graph of
+    :func:`~distllm_tpu_torch.models.mistral.verify_window_step` (the verify
+    half of ``mistral.spec_window``: ``prefill_paged(all_logits=True)``
+    and ``verify_spans``) per value of ``all_greedy``, in its own private
+    pool — the counterpart of the JAX engine's one compiled ``spec_fn``
+    shape. Rows of shorter spans pad through ``span_lens``; inactive rows
+    carry span 0 and an all-trash table. ``stats`` gains
+    ``verify_graph_captures``, ``verify_graph_replays`` and
+    ``verify_graph_capture_s``."""
+
+    KIND = 'verify'
+    FIELDS = (
+        ('seeds', torch.int64, ('b',)),
+        ('ids', torch.int32, ('b', 's')),
+        ('positions', torch.int32, ('b', 's')),
+        ('context_lens', torch.int32, ('b',)),
+        ('span_lens', torch.int32, ('b',)),
+        ('top_k', torch.int32, ('b',)),
+        ('temperature', torch.float32, ('b',)),
+        ('top_p', torch.float32, ('b',)),
+        ('min_p', torch.float32, ('b',)),
+        ('block_tables', torch.int32, ('b', 'mb')),
+    )
+
+    def __init__(self, params, model_cfg, k_cache, v_cache, *, max_num_seqs: int,
+                 span: int, **kwargs) -> None:
+        super().__init__(params, model_cfg, k_cache, v_cache,
+                         max_num_seqs=max_num_seqs, span=span, **kwargs)
+        self.span = span
+        self.packed = torch.zeros((max_num_seqs, span + 1), dtype=torch.int32,
+                                  device=self.device)
+
+    def load(
+        self,
+        ids: np.ndarray,
+        positions: np.ndarray,
+        block_tables: np.ndarray,
+        context_lens: np.ndarray,
+        span_lens: np.ndarray,
+        temperature: np.ndarray,
+        top_p: np.ndarray,
+        min_p: np.ndarray,
+        top_k: np.ndarray,
+        seeds: np.ndarray,
+    ) -> None:
+        """Stage one verify window (the engine's span arrays, then the
+        per-row sampling inputs) in one pinned copy."""
+        self._stage(dict(
+            ids=ids, positions=positions, block_tables=block_tables,
+            context_lens=context_lens, span_lens=span_lens,
+            temperature=temperature, top_p=top_p, min_p=min_p, top_k=top_k,
+            seeds=seeds,
+        ))
+
+    def _load_trash(self) -> None:
+        """Every row inactive: span 0, tables at the trash block 0."""
+        b, s = self.buffers['ids'].shape
+        mb = self.buffers['block_tables'].shape[1]
+        zeros = np.zeros((b,), np.int32)
+        self.load(
+            np.zeros((b, s), np.int32), np.zeros((b, s), np.int32),
+            np.zeros((b, mb), np.int32), np.ones((b,), np.int32), zeros,
+            np.zeros((b,), np.float32), np.ones((b,), np.float32),
+            np.zeros((b,), np.float32), zeros, np.zeros((b,), np.int64),
+        )
+
+    def _step(self, all_greedy: bool) -> None:
+        buf = self.buffers
+        mistral.verify_window_step(
+            self.params, self.model_cfg, self.k_cache, self.v_cache,
+            buf['ids'], buf['positions'], buf['block_tables'], buf['context_lens'],
+            buf['span_lens'], buf['temperature'], buf['top_p'], buf['min_p'],
+            buf['top_k'], buf['seeds'], self.packed, self.cos, self.sin,
+            attn_backend=self.attn_backend, all_greedy=all_greedy,
+            sampling_top_window=self.sampling_top_window,
+        )
+
+    def run(self, all_greedy: bool) -> torch.Tensor:
+        """One verify pass over the loaded spans: one graph replay on CUDA
+        (after :meth:`warmup`; raises without it), the eager step on the
+        CPU. Returns the packed ``[max_num_seqs, span + 1]`` int32 result,
+        the runner's buffer, valid until the next window."""
+        self._replay(all_greedy, 1)
+        return self.packed

@@ -8,6 +8,26 @@
   JAX engine's own path for chunk and prefix-hit tails, so every dispatch
   reaches the paged-attention kernel. Tails of one length bucket prefill
   together in one padded dispatch.
+- **chunked prefill** (``EngineConfig.prefill_chunk_tokens``): a tail
+  longer than the chunk prefills as sequential chunks, each attending over
+  the KV the earlier ones wrote; only the last samples.
+- **mixed windows** (``enable_mixed_batching``): once decode windows flow,
+  admitted tails on the paged route (a cached prefix, or a tail to chunk)
+  ride them as prefill-chunk rows — up to ``max_window_prefill_seqs`` rows
+  and ``max_window_prefill_tokens`` tokens a window. A window runs its
+  chunk half eagerly (one ``prefill_paged`` pass), then its decode half
+  through the decode graphs; a request joins decode once its last chunk
+  has emitted its first token.
+- **speculation** (``draft_k``): every window is a verify window. Each
+  decode row proposes up to ``draft_k`` tokens from its own history
+  (:class:`~distllm_tpu_torch.generate.engine.spec.PromptLookupDrafter`)
+  and one pass scores every row's ``[last token, drafts]`` span, verified
+  on the device (``ops.sampling.verify_spans``: the argmax rule for greedy
+  rows, rejection sampling for sampled ones). Blocks are reserved per row
+  and trimmed back after acceptance; rejected K/V needs no rollback. On
+  the GPU the verify pass replays one captured CUDA graph
+  (:class:`~distllm_tpu_torch.generate.engine.decode_graph.VerifyGraphRunner`);
+  a chunk half, where present, runs eagerly before it.
 - **automatic prefix caching** (``EngineConfig.enable_prefix_cache``):
   full prompt blocks enter a hash-chain cache after their prefill; a later
   request sharing a block-aligned prefix borrows those blocks
@@ -17,8 +37,9 @@
 - **host and disk KV tiers** (``host_kv_tier_bytes``, ``disk_kv_tier_dir``):
   evicted cache blocks spill device -> host (writing through to disk)
   instead of being dropped, and a later same-prefix arrival promotes them
-  back into its own pool blocks: a host -> device copy on a side stream,
-  polled by its event, that the request's tail prefill waits on. Every
+  back into its own pool blocks: a host -> device copy on a side stream
+  whose event the current stream waits on, so the request's tail prefill
+  and every later reader of those blocks follow it on the device. Every
   pool write — prefill, decode, copy-on-write, promotion — changes the
   pool tensors in place, so the decode graphs' addresses stay valid.
 - **decode**: one window generates up to ``decode_steps`` tokens for the
@@ -44,9 +65,10 @@
   with per-block, per-KV-head scales, quantized at write time and read by
   K1's int8-KV mode (about half the bytes per block).
 
-Later slices bring chunked prefill, mixed batching, speculation, the peer
-KV tier, recovery, admission control, pipelining (this engine runs one
-window at a time: ``pipeline_depth=1``) and observability.
+Later slices bring the peer KV tier, recovery, admission control,
+pipelining (this engine runs one window at a time: ``pipeline_depth=1``;
+the mixed windows' ``prefill_sent`` / ``prefill_done`` bookkeeping is the
+JAX engine's, so pipelining can compose with it) and observability.
 """
 
 from __future__ import annotations
@@ -63,7 +85,10 @@ from enum import Enum
 import numpy as np
 import torch
 
-from distllm_tpu_torch.generate.engine.decode_graph import DecodeGraphRunner
+from distllm_tpu_torch.generate.engine.decode_graph import (
+    DecodeGraphRunner,
+    VerifyGraphRunner,
+)
 from distllm_tpu_torch.generate.engine.kv_cache import (
     DiskKVTier,
     HostKVTier,
@@ -75,6 +100,7 @@ from distllm_tpu_torch.generate.engine.scheduler import (
     PyScheduler,
     SchedulerExhausted,
 )
+from distllm_tpu_torch.generate.engine.spec import PromptLookupDrafter
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import bucket_ladder, pick_bucket
 from distllm_tpu_torch.ops.paged_attention import kv_storage_dtype
@@ -94,6 +120,7 @@ _MAX_PREFILL_TOKENS = 2048
 # EngineConfig.seed default).
 _ENGINE_SEED = 0
 KV_CACHE_DTYPES = ('auto', 'bf16', 'fp32', 'int8')
+SPEC_DRAFT_SOURCES = ('prompt_lookup', 'none')
 # A pinned KV dtype's storage name; 'auto' stores the model dtype.
 _KV_POOL_DTYPES = {'bf16': 'bfloat16', 'fp32': 'float32', 'int8': 'int8'}
 
@@ -152,6 +179,19 @@ class Request:
     # Digests past the cached prefix that the host or disk tier holds at
     # add_request; promoted at admission, cleared when promotion begins.
     promo_digests: list[bytes] = field(default_factory=list)
+    # --- mixed windows ---
+    # Absolute token counts of a tail riding windows as chunk rows: target
+    # = tokens to prefill (set at enrollment), sent = dispatched in some
+    # window, done = confirmed by a processed window. The request decodes
+    # once done >= target; all three stay 0 outside mixed mode.
+    prefill_target: int = 0
+    prefill_sent: int = 0
+    prefill_done: int = 0
+    # --- speculation ---
+    # The request's drafter (None: it never drafts, draft_k is 0 or
+    # spec_draft_source is 'none'). Its index covers prompt and outputs,
+    # which recompute preemption keeps, so it survives preemption.
+    drafter: 'PromptLookupDrafter | None' = None
 
     @property
     def num_tokens(self) -> int:
@@ -162,8 +202,9 @@ class Request:
 class EngineConfig(BaseConfig):
     """Capacity knobs (vLLM analogues ``block_size``, ``num_blocks``,
     ``max_num_seqs``, ``max_model_len``) plus the decode window length,
-    the prefill batch cap, weight-only quantization and the KV pool's
-    storage dtype."""
+    the prefill batch cap, weight-only quantization, the KV pool's storage
+    dtype, chunked prefill, mixed windows and speculation (the JAX
+    fields, defaults and checks)."""
 
     block_size: int = 16
     num_blocks: int = 256
@@ -193,6 +234,31 @@ class EngineConfig(BaseConfig):
     # full-precision pin of the other dtype than the model's ('bf16' under
     # fp32, 'fp32' under bf16) is attended in K1's mixed mode.
     kv_cache_dtype: str = 'auto'  # 'auto' | 'bf16' | 'fp32' | 'int8'
+    # Sample from the top-K logits of each step instead of the whole
+    # sorted vocabulary (vLLM's top_k semantic, before top-p); 0 = exact
+    # full-vocabulary semantics.
+    sampling_top_window: int = 0
+    # Split uncached prefill tails longer than this many tokens into
+    # sequential chunks, each attending over the KV already in the pool;
+    # 0 disables chunking.
+    prefill_chunk_tokens: int = 0
+    # Mixed prefill+decode windows: once windows flow, cache-hit tails and
+    # tails to chunk ride them as prefill-chunk rows.
+    enable_mixed_batching: bool = False
+    # Prefill-chunk tokens one mixed window may carry (a chunk span is
+    # further capped by prefill_chunk_tokens when set).
+    max_window_prefill_tokens: int = 256
+    # Prefill-chunk rows (requests) one mixed window may carry.
+    max_window_prefill_seqs: int = 2
+    # Prompt-lookup speculative decoding: up to draft_k tokens a row are
+    # proposed from its own history and verified in one pass; 0 disables.
+    draft_k: int = 0
+    # n-gram length the prompt-lookup drafter matches on.
+    spec_ngram: int = 2
+    # Where drafts come from: 'prompt_lookup', or 'none' (no drafts: every
+    # window is a span-1 verify through the same graph, the identity
+    # baseline of speculation in bf16).
+    spec_draft_source: str = 'prompt_lookup'
 
     def validate(self) -> None:
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
@@ -209,6 +275,28 @@ class EngineConfig(BaseConfig):
                      'decode_steps', 'max_prefill_batch'):
             if getattr(self, name) < 1:
                 raise ValueError(f'{name} must be >= 1')
+        for name in ('sampling_top_window', 'prefill_chunk_tokens',
+                     'max_window_prefill_tokens', 'draft_k'):
+            if getattr(self, name) < 0:
+                raise ValueError(f'{name} must be >= 0')
+        if self.spec_ngram < 1:
+            raise ValueError('spec_ngram must be >= 1')
+        if self.max_window_prefill_seqs < 1:
+            raise ValueError('max_window_prefill_seqs must be >= 1')
+        if self.spec_draft_source not in SPEC_DRAFT_SOURCES:
+            raise ValueError("spec_draft_source must be 'prompt_lookup' or 'none'")
+        # The JAX checks that pair enable_mixed_batching and draft_k with
+        # defer_prefill are left out: the port has no defer_prefill.
+        if self.enable_mixed_batching and self.max_window_prefill_tokens < 1:
+            raise ValueError('enable_mixed_batching needs max_window_prefill_tokens >= 1')
+        if self.enable_mixed_batching and not (
+            self.enable_prefix_cache or self.prefill_chunk_tokens
+        ):
+            raise ValueError(
+                'enable_mixed_batching needs enable_prefix_cache and/or '
+                'prefill_chunk_tokens: only cache-hit tails and chunked spans '
+                'ride mixed windows'
+            )
         if self.num_blocks < 2:
             raise ValueError('num_blocks must be >= 2 (block 0 is reserved)')
         if self.max_model_len < 2:
@@ -333,16 +421,38 @@ class LLMEngine:
         # tier_spilled_blocks, tier_promotions, tier_promoted_blocks,
         # tier_payload_mismatches and tier_promotion_failures; on the GPU
         # decode_graph_captures, decode_graph_replays (one per decode step)
-        # and decode_graph_capture_s (the captures' seconds, a float).
+        # and decode_graph_capture_s (the captures' seconds, a float);
+        # prefill_chunks (chunked-prefill dispatches); mixed_windows (decode
+        # windows with a chunk half, one eager pass each) and
+        # mixed_prefill_tokens (chunk tokens ridden, spec windows' too);
+        # spec_windows (verify passes), spec_chunk_windows (spec windows
+        # with a chunk half), spec_draft_tokens, spec_accepted_tokens,
+        # spec_sampled_rows, spec_resampled_tokens, and on the GPU
+        # verify_graph_captures / _replays / _capture_s. On the GPU every
+        # forward pass is a prefill dispatch, a chunk half, a decode graph
+        # replay or a verify graph replay.
         self.stats: Counter[str] = Counter()
-        self._decode = DecodeGraphRunner(
-            self.params, self.model_cfg, self.kv.k, self.kv.v,
+        runner_args = dict(
             max_num_seqs=cfg.max_num_seqs,
             max_blocks_per_seq=self.max_blocks_per_seq,
-            decode_steps=cfg.decode_steps,
             max_table_positions=cfg.max_model_len,
-            attn_backend=attn_backend, device=self.device, stats=self.stats,
+            attn_backend=attn_backend, device=self.device,
+            sampling_top_window=cfg.sampling_top_window, stats=self.stats,
         )
+        self._decode = DecodeGraphRunner(
+            self.params, self.model_cfg, self.kv.k, self.kv.v,
+            decode_steps=cfg.decode_steps, **runner_args,
+        )
+        # The verify window's graphs: [max_num_seqs, 1 + draft_k] spans.
+        self._verify = (
+            VerifyGraphRunner(
+                self.params, self.model_cfg, self.kv.k, self.kv.v,
+                span=1 + cfg.draft_k, **runner_args,
+            )
+            if cfg.draft_k else None
+        )
+        # Requests whose tails ride mixed windows, in FIFO order.
+        self._prefilling: list[int] = []
         # Per-run summary written by generate_ids; the resolved KV storage
         # dtype ('bfloat16', 'float32' or 'int8') from construction on.
         self.telemetry: dict[str, float] = {'kv_cache_dtype': self.kv_cache_dtype}
@@ -369,6 +479,10 @@ class LLMEngine:
         request.sample_seed = _request_seed(
             _ENGINE_SEED, request.request_id, request.params.seed
         )
+        if self.config.draft_k and self.config.spec_draft_source == 'prompt_lookup':
+            # Greedy and sampled rows draft alike; verify_spans applies
+            # each row's rule.
+            request.drafter = PromptLookupDrafter(self.config.spec_ngram)
         cached_blocks = self._acquire_prefix(request) if self.prefix_cache else []
         self._requests[request.request_id] = request
         self.sched.add(request.request_id, request.num_tokens, cached_blocks)
@@ -419,12 +533,15 @@ class LLMEngine:
         unreferenced cache blocks when blocks run short) and prefill their
         tails, same-bucket tails batched; returns the first tokens as
         ``(request_id, token)``. A request with tier hits first promotes
-        them (a copy the device orders before its tail prefill). A prefill
-        may finish its request at once (stop token / max_tokens=1),
-        freeing a slot, so admission repeats until the scheduler yields
-        nothing."""
+        them (a copy the device orders before its tail prefill). Under
+        mixed batching, once windows flow, tails on the paged route (a
+        cached prefix, or a tail to chunk) ride the windows instead. A
+        prefill may finish its request at once (stop token /
+        max_tokens=1), freeing a slot, so admission repeats until the
+        scheduler yields nothing."""
         self._retire_promotions()
         emitted: list[tuple[int, int]] = []
+        chunk = self.config.prefill_chunk_tokens
         while True:
             admitted: list[Request] = []
             while (rid := self._admit_next_evicting()) is not None:
@@ -433,21 +550,39 @@ class LLMEngine:
                 admitted.append(request)
             if not admitted:
                 return emitted
+            # Decided once per admitted batch: at a cold start nothing
+            # decodes, so the first batch prefills standalone and starts
+            # the windows the rest ride.
+            ride = self.config.enable_mixed_batching and self._mixed_can_ride()
+            standalone: list[Request] = []
             for request in admitted:
                 if request.promo_digests:
                     self._promote(request)
-            emitted.extend(self._run_prefill_paged(admitted))
+                tail = request.num_tokens - request.num_cached_tokens
+                if ride and (request.num_cached_tokens or (chunk and tail > chunk)):
+                    self._enroll_mixed(request)
+                else:
+                    standalone.append(request)
+            emitted.extend(self._run_prefill_paged(standalone))
 
     def _run_prefill_paged(self, requests: list[Request]) -> list[tuple[int, int]]:
         """Prefill each request's tail — the tokens past its cached prefix,
         generated tokens included after a recompute preemption — in
         padded dispatches of one length bucket, after the copy-on-write of
-        aligned full-cover hits."""
+        aligned full-cover hits; tails longer than ``prefill_chunk_tokens``
+        prefill in chunks."""
+        if not requests:
+            return []
         self._resolve_cow([r for r in requests if r.cow_src_block is not None])
+        chunk = self.config.prefill_chunk_tokens
         groups: dict[int, list[Request]] = {}
+        chunked: list[Request] = []
         for request in requests:
             tail = request.num_tokens - request.num_cached_tokens
-            groups.setdefault(pick_bucket(tail, self.prefill_buckets), []).append(request)
+            if chunk and tail > chunk:
+                chunked.append(request)
+            else:
+                groups.setdefault(pick_bucket(tail, self.prefill_buckets), []).append(request)
         emitted: list[tuple[int, int]] = []
         for bucket, group in sorted(groups.items()):
             cap = self._prefill_batch_cap(bucket)
@@ -457,6 +592,24 @@ class LLMEngine:
                     for r in group[i:i + cap]
                 ]
                 emitted.extend(self._dispatch_prefill_paged(spans))
+        for request in chunked:
+            emitted.extend(self._run_prefill_chunked(request))
+        return emitted
+
+    def _run_prefill_chunked(self, request: Request) -> list[tuple[int, int]]:
+        """Prefill one long tail as sequential chunks of at most
+        ``prefill_chunk_tokens``. Each chunk attends over the KV already in
+        the pool (the cached prefix and the earlier chunks), so splitting
+        is exact; only the last chunk samples."""
+        chunk = self.config.prefill_chunk_tokens
+        start, total = request.num_cached_tokens, request.num_tokens
+        emitted: list[tuple[int, int]] = []
+        while start < total:
+            ntok = min(chunk, total - start)
+            final = start + ntok >= total
+            self.stats['prefill_chunks'] += 1
+            emitted.extend(self._dispatch_prefill_paged([(request, start, ntok)], sample=final))
+            start += ntok
         return emitted
 
     def _admit_next_evicting(self) -> int | None:
@@ -705,6 +858,144 @@ class LLMEngine:
             self.sched.lend_prefix(rid, lent)
             request.num_borrowed_blocks = lent
 
+    # ------------------------------------------------------ mixed windows
+    def _mixed_rows(self) -> int:
+        """Chunk rows of every chunk half: the pow2 ceiling of
+        ``max_window_prefill_seqs``, fixed (the planner under-fills with pad
+        rows), as the JAX engine fixes its mixed executable's rows."""
+        b = 1
+        while b < self.config.max_window_prefill_seqs:
+            b *= 2
+        return b
+
+    def _mixed_span_cap(self) -> int:
+        """Largest chunk span one request may ride a window: the window's
+        budget, capped by ``prefill_chunk_tokens`` when set."""
+        cap = min(self.config.max_window_prefill_tokens, self.config.max_model_len)
+        if self.config.prefill_chunk_tokens:
+            cap = min(cap, self.config.prefill_chunk_tokens)
+        return max(1, cap)
+
+    @staticmethod
+    def _decode_ready(request: Request) -> bool:
+        """May this running request take decode steps? Not while its tail
+        still rides mixed windows (its last chunk's sample makes it
+        ready)."""
+        return request.prefill_done >= request.prefill_target
+
+    def _mixed_can_ride(self) -> bool:
+        """Whether windows flow for chunks to ride: chunk work is pending,
+        or some running request has emitted tokens. At a cold start
+        neither holds and admission prefills standalone: a chunk-only
+        window would pay a whole pass for a few prefill tokens."""
+        if self._prefilling:
+            return True
+        return any(
+            self._requests[rid].output_ids for _, rid in self.sched.running()
+        )
+
+    def _enroll_mixed(self, request: Request) -> None:
+        """Route this admitted request's tail through mixed windows. The
+        copy-on-write resolves here: the source block's contents are final
+        already."""
+        if request.cow_src_block is not None:
+            self._resolve_cow([request])
+        request.prefill_target = request.num_tokens
+        request.prefill_sent = request.num_cached_tokens
+        request.prefill_done = request.num_cached_tokens
+        self._prefilling.append(request.request_id)
+
+    def _plan_window_chunks(self) -> list[tuple[Request, int, int]]:
+        """Chunk spans riding the next window: FIFO over mid-prefill
+        requests, one span each, within the window's token budget, the
+        row cap and the span cap. Returns ``[(request, start, ntok)]``
+        in absolute tokens; drops finished or preempted entries."""
+        if not self.config.enable_mixed_batching or not self._prefilling:
+            return []
+        budget = self.config.max_window_prefill_tokens
+        span_cap = self._mixed_span_cap()
+        plan: list[tuple[Request, int, int]] = []
+        for rid in list(self._prefilling):
+            if budget <= 0 or len(plan) >= self.config.max_window_prefill_seqs:
+                break
+            request = self._requests.get(rid)
+            if request is None or request.state is not RequestState.RUNNING:
+                self._prefilling.remove(rid)
+                continue
+            remaining = request.prefill_target - request.prefill_sent
+            if remaining <= 0:
+                continue  # its last chunk is already dispatched
+            ntok = min(remaining, span_cap, budget)
+            plan.append((request, request.prefill_sent, ntok))
+            budget -= ntok
+        return plan
+
+    def _build_chunk_arrays(self, chunk_plan) -> list[np.ndarray]:
+        """Host arrays of a chunk half, in ``mistral.prefill_chunk_rows``'s
+        operand order: the span arrays (``_mixed_rows()`` rows, the chunk
+        bucket wide) and each row's sampling inputs."""
+        rows = self._mixed_rows()
+        bucket = pick_bucket(max(n for _, _, n in chunk_plan), self.prefill_buckets)
+        arrays = list(self._span_host_arrays(chunk_plan, bucket, rows))
+        temperature = np.zeros((rows,), np.float32)
+        top_p = np.ones((rows,), np.float32)
+        min_p = np.zeros((rows,), np.float32)
+        top_k = np.zeros((rows,), np.int32)
+        seeds = np.zeros((rows,), np.int64)
+        for i, (request, _, _) in enumerate(chunk_plan):
+            temperature[i] = request.params.temperature
+            top_p[i] = request.params.top_p
+            min_p[i] = request.params.min_p
+            top_k[i] = request.params.top_k
+            seeds[i] = request.sample_seed
+        return arrays + [temperature, top_p, min_p, top_k, seeds]
+
+    def _run_chunk_half(self, chunk_plan) -> tuple[torch.Tensor, list[tuple]]:
+        """One eager ``prefill_paged`` pass over a window's chunk rows, each
+        row's token sampled on the device; records the spans as sent.
+        Returns the device tokens and the window's chunk entries
+        ``(row, rid, start, ntok, final)``."""
+        chunk_tokens = mistral.prefill_chunk_rows(
+            self.params, self.model_cfg, self.kv.k, self.kv.v,
+            tuple(self._put(*self._build_chunk_arrays(chunk_plan))),
+            max_table_positions=self.config.max_model_len,
+            attn_backend=self.attn_backend,
+            sampling_top_window=self.config.sampling_top_window,
+            all_greedy=all(r.params.temperature <= 0 for r, _, _ in chunk_plan),
+        )
+        self.stats['forward_passes'] += 1
+        entries = []
+        for i, (request, start, ntok) in enumerate(chunk_plan):
+            request.prefill_sent = start + ntok
+            entries.append((i, request.request_id, start, ntok,
+                            start + ntok >= request.prefill_target))
+        self.stats['mixed_prefill_tokens'] += sum(n for _, _, n in chunk_plan)
+        return chunk_tokens, entries
+
+    def _process_chunk_entries(self, window: dict) -> list[tuple[int, int]]:
+        """Fold a fetched window's chunk spans into request state: the
+        caller's token fetch ordered the chunk writes before it. A final
+        chunk inserts the prompt's blocks into the prefix cache, then emits
+        the request's first token."""
+        entries = window.get('chunk_plan') or []
+        if not entries:
+            return []
+        chunk_tokens = window['chunk_tokens'].cpu().tolist()
+        emitted: list[tuple[int, int]] = []
+        for row, rid, start, ntok, final in entries:
+            request = self._requests.get(rid)
+            if request is None or request.state is not RequestState.RUNNING:
+                continue
+            request.prefill_done = max(request.prefill_done, start + ntok)
+            if final:
+                self._insert_prompt_blocks(request)
+                if rid in self._prefilling:
+                    self._prefilling.remove(rid)
+                token = int(chunk_tokens[row])
+                self._emit_token(request, token)
+                emitted.append((rid, token))
+        return emitted
+
     def _prefill_batch_cap(self, bucket: int) -> int:
         """Prompts of one bucket that prefill together."""
         return max(1, min(
@@ -720,13 +1011,17 @@ class LLMEngine:
         row[:n] = blocks[:n]
         return row
 
-    def _span_host_arrays(self, spans):
-        """Padded span arrays ``(ids, positions, block_rows, context_lens,
-        tail_lens)`` for ``spans = [(request, start, ntok)]``, padded to the
-        longest span. Pad columns clamp their RoPE position to
-        ``max_model_len - 1`` and write to the trash block."""
-        rows = len(spans)
-        width = max(ntok for _, _, ntok in spans)
+    def _span_host_arrays(self, spans, width: int, rows: int, token_rows=None):
+        """The padded span arrays ``(ids, positions, block_rows,
+        context_lens, tail_lens)`` for ``spans = [(request, start, ntok)]``,
+        ``rows`` rows of ``width`` columns, for standalone prefill, chunk
+        rows and verify spans alike, so the pad contract cannot diverge
+        between them: pad columns clamp their RoPE position to
+        ``max_model_len - 1`` and write to the trash block; pad rows, and
+        spans whose request is None or ``ntok`` 0 (a verify window's
+        inactive slots), carry tail 0 and an all-trash table. ``token_rows``
+        (parallel to ``spans``) gives each span's tokens instead of the
+        request's history: a verify span carries drafts."""
         ids = np.zeros((rows, width), np.int32)
         positions = np.zeros((rows, width), np.int32)
         block_rows = np.zeros((rows, self.max_blocks_per_seq), np.int32)
@@ -734,8 +1029,12 @@ class LLMEngine:
         tail_lens = np.zeros((rows,), np.int32)
         max_pos = self.config.max_model_len - 1
         for i, (request, start, ntok) in enumerate(spans):
-            tokens = request.prompt_ids + request.output_ids
-            ids[i, :ntok] = tokens[start:start + ntok]
+            if request is None or ntok <= 0:
+                continue
+            if token_rows is not None:
+                ids[i, :ntok] = token_rows[i][:ntok]
+            else:
+                ids[i, :ntok] = (request.prompt_ids + request.output_ids)[start:start + ntok]
             positions[i] = np.minimum(start + np.arange(width), max_pos)
             block_rows[i] = self._block_row(request.request_id)
             context_lens[i] = start + ntok
@@ -745,11 +1044,13 @@ class LLMEngine:
     def _put(self, *arrays: np.ndarray) -> list[torch.Tensor]:
         return [torch.as_tensor(a, device=self.device) for a in arrays]
 
-    def _dispatch_prefill_paged(self, spans) -> list[tuple[int, int]]:
-        """One paged-context prefill dispatch for ``spans``; samples and
-        emits each request's first token (one host fetch)."""
+    def _dispatch_prefill_paged(self, spans, sample: bool = True) -> list[tuple[int, int]]:
+        """One paged-context prefill dispatch for ``spans``, padded to the
+        longest; samples and emits each request's first token (one host
+        fetch). ``sample=False`` (a chunk before the last) emits nothing."""
+        width = max(ntok for _, _, ntok in spans)
         ids, positions, block_rows, context_lens, tail_lens = self._put(
-            *self._span_host_arrays(spans)
+            *self._span_host_arrays(spans, width, len(spans))
         )
         last_logits, _, _ = mistral.prefill_paged(
             self.params, self.model_cfg, ids, positions, self.kv.k, self.kv.v,
@@ -759,6 +1060,8 @@ class LLMEngine:
         )
         self.stats['forward_passes'] += 1
         self.stats['prefill_dispatches'] += 1
+        if not sample:
+            return []
         requests = [r for r, _, _ in spans]
         for request in requests:
             self._insert_prompt_blocks(request)
@@ -784,30 +1087,35 @@ class LLMEngine:
         )
         return sample_tokens(
             logits, temperature, top_p, min_p, fold_row_keys(seeds, counters),
-            top_k=top_k, all_greedy=all(p.temperature <= 0 for p in params),
+            top_window=self.config.sampling_top_window, top_k=top_k,
+            all_greedy=all(p.temperature <= 0 for p in params),
         )
 
     def warmup(self) -> None:
-        """Build the decode window outside the request path (the JAX
-        ``warmup``'s decode-window part): run one eager step of each kind
-        on trash-block inputs with ``steps_left = 0`` (which builds the
-        kernels the step launches), then, on the GPU, capture the greedy
-        and the sampled step as CUDA graphs. Every KV write lands in the
-        trash block 0: the scheduler, the pool's other blocks,
-        ``stats['generated_tokens']`` and every sampling stream stay as
-        they were. Raises if a capture fails."""
+        """Build the decode window, and with ``draft_k`` the verify window,
+        outside the request path (the JAX ``warmup``'s window part): run
+        one eager step of each kind on trash-block inputs (which builds
+        the kernels the steps launch), then, on the GPU, capture the
+        greedy and the sampled step of each as CUDA graphs. Every KV write
+        lands in the trash block 0: the scheduler, the pool's other
+        blocks, ``stats['generated_tokens']`` and every sampling stream
+        stay as they were. Raises if a capture fails. (Chunk halves run
+        eagerly and need nothing here.)"""
         self._decode.warmup()
+        if self._verify is not None:
+            self._verify.warmup()
 
     @property
     def graph_pool_bytes(self) -> int:
-        """Device bytes the captured decode graphs' private pool reserved
-        (0 on the CPU)."""
-        return self._decode.pool_bytes
+        """Device bytes the captured graphs' private pools reserved (0 on
+        the CPU)."""
+        return self._decode.pool_bytes + (self._verify.pool_bytes if self._verify else 0)
 
     # --------------------------------------------------------------- decode
     def step(self) -> list[tuple[int, int]]:
         """One engine iteration: admit, then generate one window of up to
-        ``decode_steps`` tokens per running sequence. Returns
+        ``decode_steps`` tokens per running sequence (with ``draft_k``, one
+        verify window), carrying any chunk rows planned. Returns
         ``[(request_id, token)]`` in emission order."""
         emitted = self._admit()
         if self.sched.num_running == 0:
@@ -818,7 +1126,10 @@ class LLMEngine:
         return emitted
 
     def _window_budget(self, request: Request, k: int) -> int:
-        """Tokens this request may still generate in a new window."""
+        """Tokens this request may still generate in a new window; 0 while
+        its tail still rides mixed windows."""
+        if not self._decode_ready(request):
+            return 0
         budget = min(
             request.params.max_tokens - len(request.output_ids),
             self.config.max_model_len - request.num_tokens,
@@ -832,26 +1143,27 @@ class LLMEngine:
             # Recompute preemption kept only the borrowed prefix; the rest
             # was freed and prefills again.
             request.num_cached_tokens = request.num_borrowed_blocks * self.config.block_size
+        # Chunk progress is recompute state too: chunks past the borrowed
+        # prefix lived in the freed blocks. Readmission re-enrolls or
+        # prefills standalone.
+        request.prefill_target = 0
+        request.prefill_sent = request.prefill_done = request.num_cached_tokens
+        if request.request_id in self._prefilling:
+            self._prefilling.remove(request.request_id)
 
-    def _dispatch_window(self) -> dict | None:
-        """Reserve blocks (preempting the youngest on exhaustion), then
-        dispatch one fused decode window. Returns the window record, or
-        ``None`` when no running slot has budget left."""
-        k = self.config.decode_steps
-        rids = [rid for _, rid in self.sched.running()]
-        kmax = 1
-        for rid in rids:
-            kmax = max(kmax, self._window_budget(self._requests[rid], k))
-        # Eviction pressure beats preemption: unreferenced cache blocks are
-        # free capacity, spent before a running request is preempted.
+    def _reserve(self, rids: list[int], ks: list[int]) -> list[int]:
+        """Reserve ``ks[i]`` more tokens for each of ``rids`` (evicting
+        unreferenced cache blocks first: eviction pressure beats
+        preemption), preempting the youngest on exhaustion; returns the
+        preempted rids, already moved back to waiting."""
         short = sum(
-            max(0, self.kv.blocks_needed(self._requests[rid].num_tokens + kmax)
+            max(0, self.kv.blocks_needed(self._requests[rid].num_tokens + k)
                 - len(self.sched.block_row(rid)))
-            for rid in rids
+            for rid, k in zip(rids, ks)
         )
         self._evict_cached_blocks(short - self.sched.num_free_blocks)
         try:
-            preempted = self.sched.prepare_decode(kmax, rids=rids)
+            preempted = self.sched.prepare_decode(max(ks), rids=rids, ks=ks)
         except SchedulerExhausted as exc:
             # Victims moved before the fatal exhaustion stay moved: sync
             # their states so a caller that catches sees a consistent engine.
@@ -860,7 +1172,32 @@ class LLMEngine:
             raise
         for rid in preempted:
             self._on_preempt(self._requests[rid])
+        return preempted
+
+    def _dispatch_window(self) -> dict | None:
+        """Reserve blocks (preempting the youngest on exhaustion), then
+        dispatch one window: the chunk half of any chunk rows planned
+        (eager), then the decode rows' fused steps. Returns the window
+        record, or ``None`` when no running slot has budget left and no
+        chunk rides. With ``draft_k`` the window is a verify window
+        (:meth:`_dispatch_spec_window`)."""
+        if self.config.draft_k:
+            return self._dispatch_spec_window()
+        k = self.config.decode_steps
+        # Rows still prefilling through windows take no decode steps and
+        # their chunks write blocks granted at admission: no reservation.
+        rids = [
+            rid for _, rid in self.sched.running()
+            if self._decode_ready(self._requests[rid])
+        ]
+        if rids:
+            kmax = max(1, max(self._window_budget(self._requests[rid], k) for rid in rids))
+            self._reserve(rids, [kmax] * len(rids))
+        # Planned after preemption, so a victim's span never rides.
+        chunk_plan = self._plan_window_chunks()
         running = [(slot, self._requests[rid]) for slot, rid in self.sched.running()]
+        if not running:
+            return None
         b = self.config.max_num_seqs
         ids = np.zeros((b,), np.int32)
         positions = np.zeros((b,), np.int32)
@@ -887,34 +1224,165 @@ class LLMEngine:
             ids[slot] = (request.output_ids or request.prompt_ids)[-1]
             plan.append((slot, request.request_id, steps))
         num_steps = max(steps for _, _, steps in plan)
-        if num_steps == 0:
+        if num_steps == 0 and not chunk_plan:
             return None
-        if not self._decode.ready:
-            self.warmup()  # the first window on the GPU captures the graphs
-        self._decode.load(ids, positions, context_lens, block_tables, steps_left,
-                          temperature, top_p, min_p, top_k, seeds)
-        tokens = self._decode.run(
-            num_steps, all(r.params.temperature <= 0 for _, r in running)
-        )
-        self.stats['forward_passes'] += num_steps
+        window = {'tokens': None, 'plan': plan, 'chunk_tokens': None, 'chunk_plan': []}
+        if chunk_plan:
+            window['chunk_tokens'], window['chunk_plan'] = self._run_chunk_half(chunk_plan)
+            self.stats['mixed_windows'] += 1
+        if num_steps:
+            if not self._decode.ready:
+                self.warmup()  # the first window on the GPU captures the graphs
+            self._decode.load(ids, positions, context_lens, block_tables, steps_left,
+                              temperature, top_p, min_p, top_k, seeds)
+            window['tokens'] = self._decode.run(
+                num_steps, all(r.params.temperature <= 0 for _, r in running)
+            )
+            self.stats['forward_passes'] += num_steps
         self.stats['decode_windows'] += 1
-        return {'tokens': tokens, 'plan': plan}
+        return window
 
     def _process_window(self, window: dict) -> list[tuple[int, int]]:
         """Fetch one window's tokens (the decode path's one host sync) and
-        fold them into request state; tokens past a finish are dropped."""
-        tokens = window['tokens'].cpu().numpy()  # [steps, B]
+        fold them into request state; tokens past a finish are dropped.
+        Then the window's chunk rows. A verify window goes to
+        :meth:`_process_spec_window`."""
+        if window.get('spec'):
+            return self._process_spec_window(window)
         emitted: list[tuple[int, int]] = []
-        for slot, rid, steps in window['plan']:
-            request = self._requests.get(rid)
-            if request is None or request.state is not RequestState.RUNNING:
+        if window['tokens'] is not None:
+            tokens = window['tokens'].cpu().numpy()  # [steps, B]
+            for slot, rid, steps in window['plan']:
+                request = self._requests.get(rid)
+                if request is None or request.state is not RequestState.RUNNING:
+                    continue
+                for i in range(steps):
+                    token = int(tokens[i, slot])
+                    self._emit_token(request, token)
+                    emitted.append((rid, token))
+                    if rid not in self._requests:
+                        break  # finished mid-window
+        emitted.extend(self._process_chunk_entries(window))
+        return emitted
+
+    # ------------------------------------------------ speculative windows
+    def _dispatch_spec_window(self) -> dict | None:
+        """Plan and dispatch one speculative verify window. Each decode-ready
+        row's drafter proposes up to ``draft_k`` tokens (at most its budget
+        less one: a window emits accepted + 1 tokens); the row's span
+        ``[last emitted token, drafts]`` rides one verify pass over the
+        ``[max_num_seqs, 1 + draft_k]`` spans, after the chunk half of any
+        chunk rows planned. Blocks are reserved per row, each for its own
+        span. Returns the window record, or ``None`` when nothing rides."""
+        draft_k = self.config.draft_k
+        drafts_by_rid: dict[int, list[int]] = {}
+        rids: list[int] = []
+        row_ks: list[int] = []
+        for _, rid in self.sched.running():
+            request = self._requests[rid]
+            budget = self._window_budget(request, draft_k + 1)
+            if budget <= 0:
                 continue
-            for i in range(steps):
-                token = int(tokens[i, slot])
-                self._emit_token(request, token)
-                emitted.append((rid, token))
-                if rid not in self._requests:
-                    break  # finished mid-window
+            drafts: list[int] = []
+            if budget > 1 and request.drafter is not None:
+                drafts = request.drafter.draft(
+                    request.prompt_ids + request.output_ids, min(draft_k, budget - 1)
+                )
+            drafts_by_rid[rid] = drafts
+            rids.append(rid)
+            # The span writes K/V through position num_tokens - 1 +
+            # len(drafts); 1 keeps the single-step floor.
+            row_ks.append(max(1, len(drafts)))
+        if rids:
+            for rid in self._reserve(rids, row_ks):
+                # Preemption mid-draft: the undispatched draft is dropped
+                # with the rest of the row's state.
+                drafts_by_rid.pop(rid, None)
+        chunk_plan = self._plan_window_chunks()
+        b = self.config.max_num_seqs
+        spans: list = [(None, 0, 0)] * b
+        token_rows: list = [[]] * b
+        temperature = np.zeros((b,), np.float32)
+        top_p = np.ones((b,), np.float32)
+        min_p = np.zeros((b,), np.float32)
+        top_k = np.zeros((b,), np.int32)
+        seeds = np.zeros((b,), np.int64)
+        plan: list[tuple[int, int, list[int]]] = []
+        for slot, rid in self.sched.running():
+            drafts = drafts_by_rid.get(rid)
+            if drafts is None:
+                continue
+            request = self._requests[rid]
+            # The span starts at the last emitted token's position (its K/V
+            # is not written yet: write-then-attend) and runs through the
+            # drafts.
+            spans[slot] = (request, request.num_tokens - 1, 1 + len(drafts))
+            token_rows[slot] = [(request.output_ids or request.prompt_ids)[-1]] + drafts
+            temperature[slot] = request.params.temperature
+            top_p[slot] = request.params.top_p
+            min_p[slot] = request.params.min_p
+            top_k[slot] = request.params.top_k
+            seeds[slot] = request.sample_seed
+            plan.append((slot, rid, drafts))
+        if not plan and not chunk_plan:
+            return None
+        window = {'spec': True, 'tokens': None, 'plan': plan, 'chunk_tokens': None,
+                  'chunk_plan': []}
+        if chunk_plan:
+            window['chunk_tokens'], window['chunk_plan'] = self._run_chunk_half(chunk_plan)
+            self.stats['spec_chunk_windows'] += 1
+        if plan:
+            if not self._verify.ready:
+                self.warmup()  # the first window on the GPU captures the graphs
+            self._verify.load(
+                *self._span_host_arrays(spans, 1 + draft_k, b, token_rows=token_rows),
+                temperature, top_p, min_p, top_k, seeds,
+            )
+            window['tokens'] = self._verify.run(
+                all(self._requests[rid].params.temperature <= 0 for _, rid, _ in plan)
+            )
+            self.stats['forward_passes'] += 1
+            self.stats['spec_windows'] += 1
+            self.stats['spec_draft_tokens'] += sum(len(d) for _, _, d in plan)
+        return window
+
+    def _process_spec_window(self, window: dict) -> list[tuple[int, int]]:
+        """Fetch one verify window's packed ``[B, S+1]`` result (its one host
+        sync) and emit each row's tokens: ``out[0]`` always, then one more
+        per accepted draft, the last of them the correction or the bonus
+        token, so the stream is exactly the sequential one. A stop token
+        or ``max_tokens`` inside the accepted prefix finishes the request
+        there and the rest is dropped. ``sched.trim`` then returns each
+        row's unused blocks, so the scheduler matches a never-drafted run;
+        rejected K/V sits at positions every later pass overwrites before
+        attending, or masks out. Then the window's chunk rows."""
+        emitted: list[tuple[int, int]] = []
+        if window['tokens'] is not None:
+            tokens = window['tokens'].cpu().numpy()
+            accepted = sampled_rows = resampled = 0
+            for slot, rid, drafts in window['plan']:
+                request = self._requests.get(rid)
+                if request is None or request.state is not RequestState.RUNNING:
+                    continue
+                sampled = request.params.temperature > 0
+                n_acc = min(int(tokens[slot, -1]), len(drafts))
+                if sampled and drafts:
+                    sampled_rows += 1
+                    # A sampled row that stopped short drew one residual.
+                    resampled += n_acc < len(drafts)
+                for i in range(n_acc + 1):
+                    if rid not in self._requests:
+                        break  # finished inside the accepted prefix
+                    token = int(tokens[slot, i])
+                    self._emit_token(request, token)
+                    emitted.append((rid, token))
+                    accepted += i > 0
+                if rid in self._requests:
+                    self.sched.trim(rid)
+            self.stats['spec_accepted_tokens'] += accepted
+            self.stats['spec_sampled_rows'] += sampled_rows
+            self.stats['spec_resampled_tokens'] += resampled
+        emitted.extend(self._process_chunk_entries(window))
         return emitted
 
     def _stop_ids(self, request: Request) -> set[int]:
@@ -1009,5 +1477,7 @@ class LLMEngine:
         memory pool (after any promotion copy in flight has landed)."""
         self._retire_promotions(wait=True)
         self._decode.close()
+        if self._verify is not None:
+            self._verify.close()
         self.params = None
         self.kv = None

@@ -8,9 +8,13 @@ weights made on the device from ``seed``, or params bridged from the JAX
 package (:func:`~distllm_tpu_torch.models.mistral.params_from_jax`).
 ``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
 bitsandbytes flag) serves weight-only quantized weights: int8 projections
-run through kernel K2. The engine is warmed up at construction (its
-decode graphs captured on the GPU). Loading an HF checkpoint and
-tokenizer waits until such files are in the repository.
+run through kernel K2. The serving knobs of the JAX generator config
+(``decode_steps``, ``sampling_top_window``, ``prefill_chunk_tokens``,
+``enable_mixed_batching``, ``max_window_prefill_tokens``, ``draft_k``,
+``spec_ngram``) pass on to the engine, ``None`` inheriting its default.
+The engine is warmed up at construction (its decode graphs, and with
+``draft_k`` its verify graphs, captured on the GPU). Loading an HF
+checkpoint and tokenizer waits until such files are in the repository.
 """
 
 from __future__ import annotations
@@ -28,6 +32,14 @@ from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
 from distllm_tpu_torch.ops.quantization import normalize_mode
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
+
+
+# Fields passed on to EngineConfig as they are, when set.
+_ENGINE_KNOBS = (
+    'enable_prefix_cache', 'decode_steps', 'sampling_top_window',
+    'prefill_chunk_tokens', 'enable_mixed_batching', 'max_window_prefill_tokens',
+    'draft_k', 'spec_ngram',
+)
 
 
 @dataclasses.dataclass
@@ -54,6 +66,15 @@ class TorchGeneratorConfig(BaseConfig):
     # inherits the engine's default. The host and disk tier knobs and
     # kv_cache_dtype stay EngineConfig-only, as in the JAX package.
     enable_prefix_cache: bool | None = None
+    # The JAX generator config's serving knobs (EngineConfig fields of the
+    # same names); None inherits the engine's default.
+    decode_steps: int | None = None
+    sampling_top_window: int | None = None
+    prefill_chunk_tokens: int | None = None
+    enable_mixed_batching: bool | None = None
+    max_window_prefill_tokens: int | None = None
+    draft_k: int | None = None
+    spec_ngram: int | None = None
     # None = the GPU (raises without one); 'cpu' only when asked.
     device: str | None = None
 
@@ -62,12 +83,13 @@ class TorchGeneratorConfig(BaseConfig):
             raise ValueError('max_tokens must be >= 1')
         if self.top_p < 0 or self.min_p < 0:
             raise ValueError('top_p and min_p must be >= 0')
-        normalize_mode(self.quantization)
+        self.engine_config()  # refuses what the engine would refuse
 
     def engine_config(self) -> EngineConfig:
-        overrides = {}
-        if self.enable_prefix_cache is not None:
-            overrides['enable_prefix_cache'] = self.enable_prefix_cache
+        overrides = {
+            name: getattr(self, name) for name in _ENGINE_KNOBS
+            if getattr(self, name) is not None
+        }
         return EngineConfig(
             block_size=self.block_size,
             num_blocks=self.num_blocks,

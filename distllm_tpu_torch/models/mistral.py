@@ -18,10 +18,15 @@ and scales together, and ``common.dense`` sends a 2-D int8 one through
 kernel K2 with the tier ``MistralConfig.qmm_backend``.
 
 Serving paths: :func:`prefill_paged` (a prompt tail written into the pool,
-then attended through the paged cache), :func:`decode_step`,
-:func:`decode_window_step` (one decode+sample step writing its carry in
-place, the unit a CUDA graph captures) and the fused :func:`decode_loop`
-(``num_steps`` such steps with the sampled tokens kept on the device).
+then attended through the paged cache; with ``all_logits`` every span
+position's logits), :func:`decode_step`, :func:`decode_window_step` (one
+decode+sample step writing its carry in place, the unit a CUDA graph
+captures), the fused :func:`decode_loop` (``num_steps`` such steps with
+the sampled tokens kept on the device), :func:`mixed_window` (prefill
+chunk rows, then the decode loop) and :func:`spec_window` (optional chunk
+rows, then one verify pass over draft spans; :func:`verify_window_step`
+is its verify half writing into a caller's buffer, the unit the verify
+graph captures).
 Every one of them reaches attention through ``ops.paged_attention`` —
 the CUDA kernel for CUDA tensors, the plain op for CPU tensors;
 ``attn_backend='reference'`` pins the plain op on any device (the
@@ -51,7 +56,7 @@ from distllm_tpu_torch.ops.paged_attention import (
 )
 from distllm_tpu_torch.ops.quantization import is_jax_qtensor, qtensor_from_jax
 from distllm_tpu_torch.ops.quantized_matmul import QMM_BACKENDS
-from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
+from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens, verify_spans
 from distllm_tpu_torch.utils import BaseConfig, torch_dtype
 
 ATTN_BACKENDS = ('auto', 'reference')
@@ -281,6 +286,8 @@ def prefill_paged(
     tail_lens: torch.Tensor,  # [B] valid tokens in input_ids (0 = pad row)
     max_table_positions: int | None = None,
     attn_backend: str = 'auto',
+    all_logits: bool = False,
+    rope: 'tuple[torch.Tensor, torch.Tensor] | None' = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill a prompt TAIL against the KV history already in the pool.
 
@@ -288,13 +295,17 @@ def prefill_paged(
     tail queries attend over the paged cache (cached prefix and own span
     together) with ``q_lens=tail_lens`` — the rows are ragged spans.
     Returns ``(last_logits [B, V] fp32, k_cache, v_cache)`` taken at each
-    row's last valid position. Padding positions write to the trash block 0 and their
-    logits are garbage the caller discards.
+    row's last valid position; with ``all_logits`` (speculative
+    verification) the logits of every span position, ``[B, S, V]``, from
+    the same forward. Padding positions write to the trash block 0 and
+    their logits are garbage the caller discards. ``rope`` passes the
+    ``(cos, sin)`` tables in (a captured step's own); by default they
+    come from the per-device cache.
     """
     attend = _attention(attn_backend)
     b, s = input_ids.shape
     table_len = max_table_positions or cfg.max_position_embeddings
-    cos, sin = _rope_tables(cfg, table_len, input_ids.device)
+    cos, sin = rope or _rope_tables(cfg, table_len, input_ids.device)
     valid = (
         torch.arange(s, device=input_ids.device)[None, :] < tail_lens[:, None]
     )
@@ -320,6 +331,8 @@ def prefill_paged(
         )
         x = x + _mlp_block(_norm(x, lp['mlp_ln']['scale'][li], cfg), lp, li, cfg)
     hidden = _norm(x, params['final_ln']['scale'], cfg)
+    if all_logits:
+        return logits(params, cfg, hidden), k_cache, v_cache
     last_idx = torch.clamp(tail_lens.long() - 1, min=0)
     last_hidden = hidden[torch.arange(b, device=hidden.device), last_idx]
     return logits(params, cfg, last_hidden), k_cache, v_cache
@@ -410,6 +423,7 @@ def decode_window_step(
     sin: torch.Tensor,
     attn_backend: str = 'auto',
     all_greedy: bool = False,
+    sampling_top_window: int = 0,
 ) -> None:
     """One fused decode+sample step of a window, every result written IN
     PLACE into tensors the caller owns: the carry (``ids``, ``pos``,
@@ -431,7 +445,8 @@ def decode_window_step(
     # The token produced this step sits at absolute index pos + 1.
     token = sample_tokens(
         step_logits, temperature, top_p, min_p,
-        fold_row_keys(seeds, pos + 1), top_k=top_k, all_greedy=all_greedy,
+        fold_row_keys(seeds, pos + 1), top_window=sampling_top_window,
+        top_k=top_k, all_greedy=all_greedy,
     )
     token_out.copy_(token)
     ids.copy_(torch.where(live, token, ids))
@@ -459,6 +474,7 @@ def decode_loop(
     attn_backend: str = 'auto',
     max_table_positions: int | None = None,
     all_greedy: bool = False,
+    sampling_top_window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``num_steps`` fused decode+sample steps, eagerly: the loop over
     :func:`decode_window_step` on copies of the inputs (which stay as they
@@ -485,5 +501,185 @@ def decode_loop(
             params, cfg, k_cache, v_cache, block_tables, ids, pos, ctx,
             live_steps, temperature, top_p, min_p, top_k, seeds, tokens[step],
             cos, sin, attn_backend=attn_backend, all_greedy=all_greedy,
+            sampling_top_window=sampling_top_window,
         )
     return tokens, k_cache, v_cache, ids
+
+
+def prefill_chunk_rows(
+    params: dict,
+    cfg: MistralConfig,
+    k_cache,
+    v_cache,
+    chunk: tuple,  # (ids, pos, bt, ctx, tails, temp, top_p, min_p, top_k, seeds)
+    max_table_positions: int | None = None,
+    attn_backend: str = 'auto',
+    sampling_top_window: int = 0,
+    all_greedy: bool = False,
+) -> torch.Tensor:
+    """The chunk half of a mixed or speculative window: one
+    :func:`prefill_paged` pass over the prefill-chunk rows ``chunk`` (the
+    operands of the JAX ``mixed_window``'s chunk half, in its order), then
+    a token sampled at each row's last valid position with the key of
+    the token it produces, ``fold_row_keys(seeds, ctx)`` (tokens
+    ``0..ctx-1`` are prompt), as a standalone prefill samples it. Returns
+    ``chunk_tokens [C]`` int32: meaningful only for rows whose tail ends
+    here."""
+    ids, pos, bt, ctx, tails, temp, top_p, min_p, top_k, seeds = chunk
+    chunk_logits, _, _ = prefill_paged(
+        params, cfg, ids, pos, k_cache, v_cache, bt, ctx, tails,
+        max_table_positions=max_table_positions, attn_backend=attn_backend,
+    )
+    return sample_tokens(
+        chunk_logits, temp, top_p, min_p, fold_row_keys(seeds, ctx),
+        top_window=sampling_top_window, top_k=top_k, all_greedy=all_greedy,
+    )
+
+
+def mixed_window(
+    params: dict,
+    cfg: MistralConfig,
+    input_ids: torch.Tensor,  # [B] last emitted token per slot
+    positions: torch.Tensor,  # [B]
+    k_cache,
+    v_cache,
+    block_tables: torch.Tensor,  # [B, max_blocks]
+    context_lens: torch.Tensor,  # [B]
+    steps_left: torch.Tensor,  # [B]
+    temperature: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    min_p: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B] (0 disables)
+    seeds: torch.Tensor,  # [B]
+    chunk: tuple,  # prefill_chunk_rows's operands, C rows
+    num_steps: int,
+    attn_backend: str = 'auto',
+    max_table_positions: int | None = None,
+    sampling_top_window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One mixed serving window, eagerly (the JAX ``mixed_window``): the
+    prefill-chunk rows' pass (:func:`prefill_chunk_rows`), then
+    :func:`decode_loop` over the decode rows. Chunk rows and decode rows
+    own disjoint blocks, so each half computes what its standalone
+    dispatch would. The engine runs the chunk half eagerly and the decode
+    half as graph replays. Returns ``(tokens [num_steps, B], k_cache,
+    v_cache, last_ids, chunk_tokens [C])``."""
+    chunk_tokens = prefill_chunk_rows(
+        params, cfg, k_cache, v_cache, chunk,
+        max_table_positions=max_table_positions, attn_backend=attn_backend,
+        sampling_top_window=sampling_top_window,
+    )
+    tokens, _, _, last_ids = decode_loop(
+        params, cfg, input_ids, positions, k_cache, v_cache, block_tables,
+        context_lens, steps_left, temperature, top_p, min_p, top_k, seeds,
+        num_steps=num_steps, attn_backend=attn_backend,
+        max_table_positions=max_table_positions,
+        sampling_top_window=sampling_top_window,
+    )
+    return tokens, k_cache, v_cache, last_ids, chunk_tokens
+
+
+def _verify(
+    params, cfg, span_ids, span_positions, k_cache, v_cache, block_tables,
+    context_lens, span_lens, temperature, top_p, min_p, top_k, seeds, *,
+    attn_backend, max_table_positions, sampling_top_window, all_greedy,
+    rope=None,
+) -> torch.Tensor:
+    """The verify pass: every span position's logits from one
+    :func:`prefill_paged` forward, then :func:`~distllm_tpu_torch.ops
+    .sampling.verify_spans`. Returns packed ``[B, S+1]`` int32."""
+    span_logits, _, _ = prefill_paged(
+        params, cfg, span_ids, span_positions, k_cache, v_cache, block_tables,
+        context_lens, span_lens, max_table_positions=max_table_positions,
+        attn_backend=attn_backend, all_logits=True, rope=rope,
+    )
+    return verify_spans(
+        span_logits, span_ids, span_lens, span_positions, temperature, top_p,
+        min_p, top_k, seeds, top_window=sampling_top_window,
+        all_greedy=all_greedy,
+    )
+
+
+def spec_window(
+    params: dict,
+    cfg: MistralConfig,
+    span_ids: torch.Tensor,  # [B, S] last emitted token + draft tokens
+    span_positions: torch.Tensor,  # [B, S] absolute positions
+    k_cache,
+    v_cache,
+    block_tables: torch.Tensor,  # [B, max_blocks]
+    context_lens: torch.Tensor,  # [B] valid tokens incl. the span
+    span_lens: torch.Tensor,  # [B] valid span tokens (0 = inactive slot)
+    temperature: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    min_p: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B] (0 disables)
+    seeds: torch.Tensor,  # [B]
+    chunk: 'tuple | None' = None,  # prefill_chunk_rows's operands
+    max_table_positions: int | None = None,
+    sampling_top_window: int = 0,
+    attn_backend: str = 'auto',
+    all_greedy: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, 'torch.Tensor | None']:
+    """One speculative verify window, eagerly (the JAX ``spec_window``):
+    the optional chunk half (:func:`prefill_chunk_rows`), then the verify
+    pass over each row's ``[last emitted token, d_1..d_m]`` at positions
+    ``num_tokens - 1 ..``, through the same write-then-attend forward as
+    a paged prefill, and :func:`~distllm_tpu_torch.ops.sampling
+    .verify_spans`. Rejected suffixes need no rollback of K/V: their
+    writes sit at positions at or past the row's context after
+    acceptance, which every later pass overwrites before it attends or
+    masks out. The engine replays the verify half as a CUDA graph
+    (:func:`verify_window_step`); this is its eager twin. Returns
+    ``(packed [B, S+1] int32, k_cache, v_cache, chunk_tokens [C] | None)``.
+    """
+    chunk_tokens = None
+    if chunk is not None:
+        chunk_tokens = prefill_chunk_rows(
+            params, cfg, k_cache, v_cache, chunk,
+            max_table_positions=max_table_positions, attn_backend=attn_backend,
+            sampling_top_window=sampling_top_window,
+        )
+    packed = _verify(
+        params, cfg, span_ids, span_positions, k_cache, v_cache, block_tables,
+        context_lens, span_lens, temperature, top_p, min_p, top_k, seeds,
+        attn_backend=attn_backend, max_table_positions=max_table_positions,
+        sampling_top_window=sampling_top_window, all_greedy=all_greedy,
+    )
+    return packed, k_cache, v_cache, chunk_tokens
+
+
+def verify_window_step(
+    params: dict,
+    cfg: MistralConfig,
+    k_cache,
+    v_cache,
+    span_ids: torch.Tensor,  # [B, S]
+    span_positions: torch.Tensor,  # [B, S]
+    block_tables: torch.Tensor,  # [B, max_blocks]
+    context_lens: torch.Tensor,  # [B]
+    span_lens: torch.Tensor,  # [B]
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    min_p: torch.Tensor,
+    top_k: torch.Tensor,
+    seeds: torch.Tensor,
+    packed_out: torch.Tensor,  # [B, S+1] int32: receives the packed result
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    attn_backend: str = 'auto',
+    all_greedy: bool = False,
+    sampling_top_window: int = 0,
+) -> None:
+    """The verify half of :func:`spec_window` with its result written IN
+    PLACE into ``packed_out`` and the RoPE tables passed in: nothing is
+    rebound and nothing read back, so the step is captured once as a CUDA
+    graph and replayed over the same buffers
+    (``generate.engine.decode_graph.VerifyGraphRunner``)."""
+    packed_out.copy_(_verify(
+        params, cfg, span_ids, span_positions, k_cache, v_cache, block_tables,
+        context_lens, span_lens, temperature, top_p, min_p, top_k, seeds,
+        attn_backend=attn_backend, max_table_positions=None,
+        sampling_top_window=sampling_top_window, all_greedy=all_greedy,
+        rope=(cos, sin),
+    ))

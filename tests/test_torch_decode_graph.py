@@ -396,3 +396,44 @@ def test_split_tickets_grow_without_freeing_a_buffer_a_graph_holds(monkeypatch):
     with pytest.raises(RuntimeError, match='inside a CUDA graph capture'):
         tpa._tickets(cpu, 1101)
     assert len(tpa._split_tickets[cpu.index]) == 3
+
+
+def test_warmup_at_one_step_windows_stays_inside_the_token_buffer(weights, prompts):
+    """At ``decode_steps=1`` the token buffer has one row: warm-up's two
+    eager steps (greedy and sampled) each write row 0, and the engine then
+    serves the JAX engine's tokens (the card's warm-up runs the same
+    steps before its captures)."""
+    engine = _port_engine(weights, 48, decode_steps=1)
+    engine.warmup()
+    assert int(engine._decode.buffers['step']) == 0
+    greedy = [SamplingParams(temperature=0.0, max_tokens=n) for n in BUDGETS]
+    assert engine.generate_ids(prompts, greedy) == _jax_generate(weights, prompts, greedy, 48)
+
+
+def test_capture_holds_the_garbage_collector_off():
+    """A capture runs with the collector disabled (collecting an
+    unreachable engine's CUDA graph mid-capture would invalidate it) and
+    restores its state after, also when the step raises."""
+    import gc
+
+    seen = []
+
+    def step():
+        seen.append(gc.isenabled())
+
+    assert gc.isenabled()
+    decode_graph.capture_step(step, _FakeGraph(), nullcontext())
+    assert seen == [False] and gc.isenabled()
+
+    def failing():
+        raise RuntimeError('capture failed')
+
+    with pytest.raises(RuntimeError, match='capture failed'):
+        decode_graph.capture_step(failing, _FakeGraph(), nullcontext())
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        decode_graph.capture_step(step, _FakeGraph(), nullcontext())
+        assert not gc.isenabled()  # a caller's disabled collector stays so
+    finally:
+        gc.enable()

@@ -31,7 +31,15 @@ bytes, bf16 codes or int8 codes and scales, are bitwise the bytes they had
 before their spill. A promotion's copy (9 MiB from the host tier) is
 queued on a side stream with no host wait: the request that promoted and
 one that arrives while the copy is queued, borrowing its blocks, give the
-cache-off engine's greedy tokens (fp32).
+cache-off engine's greedy tokens (fp32). The speculative verify window,
+replayed from its captured graph, gives the eager ``mistral.spec_window``'s
+packed result and pool writes bitwise (bf16, int8 weights, an int8 pool,
+fp32; greedy and sampled rows; a span that fills tensor-core tiles and one
+on the split-KV route); after windows whose drafts are all rejected the
+tokens and every pool byte below each row's ``num_tokens`` equal a
+never-drafted engine's (fp32), and the scheduler's block rows and free
+list equal a ``draft_k=0`` engine's, which a mutant that skips
+``sched.trim`` fails.
 K3 is held to its own elementwise bound
 (``encoder_attention.comparison_tolerance``: in bf16 one step of out
 plus one bf16 step of one p_j * v_j) on both of its routes, on every row,
@@ -1434,3 +1442,158 @@ def test_requests_over_a_promotion_in_flight_match_the_cache_off_engine(cuda):
     assert borrowed[0] == borrowed[1] >= 16  # 8 MiB or more, borrowed in flight
     assert on.tier_summary()['promote_copy_s'] > 0
     assert got == engine().generate_ids([first, arrival], sampling)
+
+
+# ------------------------------------------------ speculative verify graphs
+def _spec_prompts(seed, lengths=(40, 17, 90, 33, 25, 60)):
+    """Prompts that tile a short motif with noise, so the prompt-lookup
+    drafter proposes on most windows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in lengths:
+        motif = [int(t) for t in rng.integers(4, 512, size=int(rng.integers(3, 7)))]
+        row = []
+        while len(row) < n:
+            row += motif if rng.random() < 0.7 else [int(rng.integers(4, 512))]
+        out.append(row[:n])
+    return out
+
+
+def _spec_window_against_eager(engine):
+    """Dispatch one verify window through the engine (one graph replay)
+    and run the eager ``mistral.spec_window`` on a copy of the pool from
+    before it with the window's staged inputs: every planned row's packed
+    result and every pool block but the trash block 0 must be bitwise
+    equal. Returns the window, or None."""
+    from distllm_tpu_torch.models import mistral
+
+    before = [x.clone() for x in _pool_tensors(engine)]
+    replays = engine.stats['verify_graph_replays']
+    window = engine._dispatch_window()
+    if window is None or window['tokens'] is None:
+        return window
+    assert engine.stats['verify_graph_replays'] - replays == 1
+    h = {name: torch.from_numpy(view.copy()).cuda()
+         for name, view in engine._verify._host_views.items()}
+    pools = before
+    if engine.kv.quantized:
+        pools = [tpa.QuantizedKV(*before[:2]), tpa.QuantizedKV(*before[2:])]
+    eager = mistral.spec_window(
+        engine.params, engine.model_cfg, h['ids'], h['positions'], *pools,
+        h['block_tables'], h['context_lens'], h['span_lens'], h['temperature'],
+        h['top_p'], h['min_p'], h['top_k'], h['seeds'],
+        max_table_positions=engine.config.max_model_len,
+        sampling_top_window=engine.config.sampling_top_window,
+        attn_backend=engine.attn_backend,
+        all_greedy=bool((h['temperature'] <= 0).all()),
+    )[0]
+    graph = window['tokens'].clone()
+    for slot, _, _ in window['plan']:
+        assert torch.equal(graph[slot], eager[slot]), slot
+    for card, ref in zip(_pool_tensors(engine), before):
+        assert torch.equal(card[:, 1:], ref[:, 1:])
+    return window
+
+
+@pytest.mark.parametrize('sampled', [False, True])
+@pytest.mark.parametrize('case,draft_k', [
+    ('bf16', 4), ('bf16', 8), ('int8_weights', 4), ('int8_pool', 4), ('fp32', 4),
+])
+def test_verify_graph_windows_equal_the_eager_spec_window_bitwise(cuda, case, draft_k, sampled):
+    """At GQA group 2, spans of 5 are 10-row tiles (the split-KV route)
+    and spans of 9 are 18-row tiles (the tensor cores)."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+
+    engine = _graph_engine(case, draft_k=draft_k, sampling_top_window=16)
+    engine.warmup()
+    assert engine.stats['verify_graph_captures'] == 2
+    layers = GRAPH_CFG['num_layers']
+    delta = engine._verify.graphs[True].delta
+    route = 'cuda_cores' if case == 'fp32' else tpa.kernel_route(
+        torch.bfloat16, 1 + draft_k, GRAPH_CFG['num_heads'] // GRAPH_CFG['num_kv_heads'])
+    assert delta[0] == layers and delta[1][route] == layers
+    assert delta[4] == (7 * layers if case == 'int8_weights' else 0)
+    prompts = _spec_prompts(1)
+    sampling = [SamplingParams(temperature=0.0, max_tokens=n) for n in (12, 5, 20, 9, 16, 7)]
+    if sampled:
+        sampling[1] = SamplingParams(temperature=0.9, top_p=0.9, max_tokens=11, seed=3)
+        sampling[4] = SamplingParams(temperature=0.7, top_k=20, max_tokens=14, seed=4)
+    rids = [engine.add_request(p, sp) for p, sp in zip(prompts, sampling)]
+    windows = 0
+    while engine.has_unfinished:
+        engine._admit()
+        if engine.sched.num_running == 0:
+            continue
+        window = _spec_window_against_eager(engine)
+        if window is not None:
+            engine._process_window(window)
+            windows += 1
+    outs = [engine._finished.pop(rid).output_ids for rid in rids]
+    assert windows > 0 and engine.stats['spec_draft_tokens'] > 0
+    assert [len(o) for o in outs] == [sp.max_tokens for sp in sampling]
+    assert engine.stats['verify_graph_captures'] == 2  # none per window
+    engine.shutdown()
+
+
+class _WrongDrafter:
+    """Always-rejected proposals: a token no greedy row emits here."""
+
+    def draft(self, history, k):
+        return [1] * k
+
+
+def _pool_rows(engine, rid):
+    """Each pool plane's bytes at the positions below the request's
+    num_tokens (the live KV), in position order."""
+    request = engine._requests[rid]
+    bs = engine.config.block_size
+    pos = torch.arange(request.num_tokens - 1)  # the last token's K/V is not written yet
+    blocks = torch.as_tensor(engine.sched.block_row(rid))[pos // bs].cuda()
+    offsets = (pos % bs).cuda()
+    return [plane[:, blocks, offsets].clone() for plane in _pool_tensors(engine)]
+
+
+def _rollback_holds(mutant_skips_trim: bool) -> bool:
+    """fp32, one request: two engines with ``draft_k=4`` (one's drafts
+    always rejected, the other never drafting) and one with ``draft_k=0``,
+    stepped in lockstep (each window emits one token in all three). After
+    every window the tokens and the live pool bytes must equal the
+    never-drafted engine's. Returns whether the block row and the free
+    list (content and order) equal the ``draft_k=0`` engine's after every
+    window that leaves ``num_tokens`` inside a block: ``sched.trim`` keeps
+    room for the next token, which the plain engine reserves only at its
+    next window, so at a block boundary the two differ by that one block
+    for one window (as in the JAX engine)."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+
+    wrong = _graph_engine('fp32', draft_k=4, decode_steps=1)
+    if mutant_skips_trim:
+        wrong.sched.trim = lambda rid: 0
+    none = _graph_engine('fp32', draft_k=4, decode_steps=1, spec_draft_source='none')
+    base = _graph_engine('fp32', decode_steps=1)
+    greedy = SamplingParams(temperature=0.0, max_tokens=20)
+    prompt = _spec_prompts(6, (47,))[0]
+    a, b, c = (e.add_request(prompt, greedy) for e in (wrong, none, base))
+    wrong._requests[a].drafter = _WrongDrafter()
+    holds = True
+    for _ in range(18):  # the 19th window would finish the request
+        for e in (wrong, none, base):
+            e.step()
+        ra, rb, rc = wrong._requests[a], none._requests[b], base._requests[c]
+        assert ra.output_ids == rb.output_ids == rc.output_ids
+        assert all(torch.equal(x, y) for x, y in zip(_pool_rows(wrong, a), _pool_rows(none, b)))
+        if ra.num_tokens % wrong.config.block_size:
+            holds &= wrong.sched.block_row(a) == base.sched.block_row(c)
+            holds &= wrong.sched._free == base.sched._free
+    assert wrong.stats['spec_draft_tokens'] > 0 and wrong.stats['spec_accepted_tokens'] == 0
+    for e in (wrong, none, base):
+        e.shutdown()
+    return holds
+
+
+def test_spec_rejected_drafts_leave_tokens_pool_and_blocks_as_never_drafted(cuda):
+    assert _rollback_holds(mutant_skips_trim=False)
+
+
+def test_spec_rollback_check_catches_a_missing_trim(cuda):
+    assert not _rollback_holds(mutant_skips_trim=True)

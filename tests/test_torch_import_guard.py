@@ -41,6 +41,10 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.generate.engine.engine',
         'distllm_tpu_torch.generate.engine.decode_graph',
         'distllm_tpu_torch.generate.engine.kv_cache',
+        'distllm_tpu_torch.generate.engine.spec',
+        'distllm_tpu_torch.generate.engine.scheduler',
+        'distllm_tpu_torch.ops.sampling',
+        'distllm_tpu_torch.models.mistral',
         'distllm_tpu_torch.generate.generators.torch_backend',
         'distllm_tpu_torch.ops.paged_attention',
         'distllm_tpu_torch.ops._build',

@@ -131,3 +131,21 @@ def test_sampled_marginals_chi_square(temperature, top_p, top_k):
     expected = p[kept] * counts.sum()
     chi2 = float(((counts[kept] - expected) ** 2 / expected).sum())
     assert chi2 < CHI2_CRIT[kept.sum() - 2], (chi2, counts, p)
+
+
+def test_sample_tokens_windowed_is_sample_tokens_with_a_window_of_at_least_one():
+    logits, temperature, top_p, min_p, top_k = _inputs(3)
+    b = logits.shape[0]
+    keys = sampling.fold_row_keys(torch.full((b,), 5), torch.arange(b) + 40)
+    args = (torch.from_numpy(logits), torch.from_numpy(temperature),
+            torch.from_numpy(top_p), torch.from_numpy(min_p), keys)
+    for window, effective in ((16, 16), (0, 1)):
+        np.testing.assert_array_equal(
+            sampling.sample_tokens_windowed(*args, window, top_k=torch.from_numpy(top_k)).numpy(),
+            sampling.sample_tokens(*args, top_window=effective,
+                                   top_k=torch.from_numpy(top_k)).numpy(),
+        )
+    # A window of one is the argmax of the temperature-scaled logits.
+    np.testing.assert_array_equal(
+        sampling.sample_tokens_windowed(*args, 0).numpy(), logits.argmax(-1)
+    )
