@@ -53,6 +53,18 @@ carried on):
    row's last page dropped at 32 x 1..4096 on each route, must exceed the
    tolerance; timed as in phase 3, SDPA on the pool cast to q's dtype as
    the yardstick;
+3d. kernel K1 at head dim 256 — Gemma-2-9B's geometry (16 / 8 heads,
+   block 16, scale 256 ** -0.5), each case within the tolerance of its
+   route and KV mode: (a) 32 decode rows of 1..8192 keys (split-KV), (b)
+   the prefill pair 1024 + 700 (tensor cores), (c) window 4096 + softcap
+   50 over decode rows and chunk spans crossing the window's edge, (d)
+   (a) and (b) over an int8 pool, (e) (a) and (b) in the mixed mode both
+   ways (a planted dropped page exceeding the tolerance), (f) fp32 on the
+   CUDA cores, (g) phase 13's serve shapes, (h) the split-KV edges of this
+   head dim's plan; NaN (int8: -128 codes, a NaN scale) in the trash block
+   leaves a case of each route bitwise unchanged; a 128-row fp32 tile,
+   too large for shared memory, raises instead of launching; timed as in
+   phase 3;
 4. kernel K3 — hold the encoder-attention kernel against its plain
    version at BERT-base geometry (12 heads x 64): the embed path's shapes
    (batch 512, S = 128 / 192 / 288) in bf16, partial key masks with fully
@@ -196,13 +208,28 @@ carried on):
     its plain version never;
 12. embed identity — full width at depth 2 in fp32: pooled embeddings
     through K3 and through its plain version agree elementwise within
-    ``1e-4 * |ref| + 1e-5``.
+    ``1e-4 * |ref| + 1e-5``;
+13. serve Gemma-2-9B — full width and depth (42 layers, ``google/gemma-2-9b``'s
+    config, bf16, random weights made on the card), the generator built
+    from a chat app YAML whose model is named ``gemma2`` (the prefix cache
+    on by that YAML's default), 16 prompts of 256..4600 tokens (two past
+    4,160, so the even layers' window cuts during decode), 64 new tokens
+    each, then 3 chat completions: K1 launches layers x forward passes,
+    every one at head dim 256, prefill on the tensor cores and decode on
+    the split-KV route, its plain op never; every decode step a graph
+    replay; tokens/s and wall time printed;
+13b. Gemma-2 identity — Gemma-2-9B widths at depth 2 in fp32 (layer 0
+    local, layer 1 global), 6 prompts of 300..4400 tokens in chunks of
+    512: greedy tokens through K1 (the CUDA cores at head dim 256) equal
+    those through the plain op with speculation (``draft_k=4``) and mixed
+    windows off and on.
 
-Each of phases 6f, 6g and 8d prints its seconds. The last three lines of
+Each of phases 3d, 6f, 6g, 8d, 13 and 13b prints its seconds. The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
-``mixed_kv``, its verify shapes under ``verify``, K2's embed headline and
+``mixed_kv``, its verify shapes under ``verify``, head dim 256 under
+``head_dim_256``, K2's embed headline and
 its verify rows under ``verify``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -213,6 +240,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -301,6 +329,25 @@ def host_call_us(torch, fn, iters: int) -> float:
     elapsed = time.perf_counter() - start
     torch.cuda.synchronize()
     return elapsed / iters * 1e6
+
+
+def stats_delta(engine, stats0):
+    """The engine's counts since ``stats0`` (``dict(engine.stats)`` before
+    a run)."""
+    return {k: v - stats0.get(k, 0) for k, v in engine.stats.items()}
+
+
+@contextlib.contextmanager
+def k1_geometry(num_heads, num_kv_heads, head_dim):
+    """K1's cases at another model's attention geometry: phase 3's helpers
+    read these module values, Mistral-7B's outside this block."""
+    global NUM_HEADS, NUM_KV_HEADS, HEAD_DIM
+    saved = NUM_HEADS, NUM_KV_HEADS, HEAD_DIM
+    NUM_HEADS, NUM_KV_HEADS, HEAD_DIM = num_heads, num_kv_heads, head_dim
+    try:
+        yield
+    finally:
+        NUM_HEADS, NUM_KV_HEADS, HEAD_DIM = saved
 
 
 # --------------------------------------------------------------- phase 3
@@ -415,10 +462,10 @@ def sdpa_inputs(torch, case, window):
     return q, k, v, mask[:, None]
 
 
-def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
+def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters, scale=None):
     args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
     kw = dict(q_lens=case['q_lens'], sliding_window=window or None,
-              logit_softcap=softcap)
+              logit_softcap=softcap, scale=scale)
     s = case['q'].shape[1]
     route = tpa.kernel_route(case['q'].dtype, s, NUM_HEADS // NUM_KV_HEADS)
     kv_mode = 'int8' if case['int8_kv'] else 'mixed' if case['mixed'] else 'model'
@@ -454,11 +501,27 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
         torch, lambda: tpa.ragged_paged_attention_reference(*args, **kw),
         max(2, iters // 5), warmup=1,
     )
-    sdpa_ms = None
+    sdpa_ms = causal = None
     if softcap is None:  # SDPA has no softcap: no single library call
         sq, sk, sv, mask = sdpa_inputs(torch, case, window)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        sdpa_ms = graph_ms(torch, lambda: sdpa(sq, sk, sv, attn_mask=mask), iters)
+        sdpa_ms = graph_ms(torch, lambda: sdpa(sq, sk, sv, attn_mask=mask, scale=scale), iters)
+        # Rows that are all one fresh prompt of n tokens (no window inside
+        # it, no int8 or mixed pool): is_causal on the unpadded n tokens is
+        # the same function, on PyTorch's flash path, which an explicit
+        # mask keeps it off.
+        n = int(case['q_lens'][0])
+        if (not case['int8_kv'] and not case['mixed'] and n > 1
+                and bool((case['q_lens'] == n).all()) and bool((case['ctx'] == n).all())
+                and (window == 0 or window >= n)):
+            cq, ck, cv = (x[:, :, :n].contiguous() for x in (sq, sk, sv))
+            causal_call = lambda: sdpa(cq, ck, cv, is_causal=True, scale=scale)  # noqa: E731
+            lib = causal_call().transpose(1, 2).float()
+            causal = dict(
+                ms=graph_ms(torch, causal_call, iters),
+                max_abs_err=float((lib - ref[:, :n].float()).abs().max()),
+            )
+            del cq, ck, cv, lib
         del sq, sk, sv, mask
     bytes_, flops = case_work(case, window, dtype)
     byte_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
@@ -477,6 +540,11 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters):
     # or a mixed pool it reads the pool cast to q's dtype: a yardstick.
     if case['int8_kv'] or case['mixed']:
         result.update(library_ms=None, yardstick_ms=sdpa_ms)
+    elif causal is not None:
+        # The library's best call is the causal one; the masked call and
+        # the causal call's distance from the plain version stand beside it.
+        result.update(library_ms=causal['ms'], masked_sdpa_ms=sdpa_ms,
+                      library_max_abs_err=causal['max_abs_err'])
     else:
         result['library_ms'] = sdpa_ms
     log(f'[kernel] {json.dumps(result)}')
@@ -600,7 +668,7 @@ def split_edge_cases(torch, tpa, rng, dtype, int8_kv=False):
     split edge (a split + 50), with softcap 30; (g) decode rows whose
     window of 8 leaves one live split, or straddles a split edge."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    sk = tpa.split_plan(4096, 6, NUM_KV_HEADS, sms, BLOCK_SIZE)[1]
+    sk = tpa.split_plan(4096, 6, NUM_KV_HEADS, sms, BLOCK_SIZE, HEAD_DIM)[1]
     edges = np.asarray([1, sk - 1, sk, sk + 1, 2 * sk + 1, 4096])
     tag = 'int8_' if int8_kv else ''
     yield (f'{tag}e_split_edges_6x1-4096', build_case(
@@ -818,6 +886,129 @@ def phase_kernel_mixed(torch, tpa):
         if mine:
             worst = max(mine, key=lambda r: r['err_over_tol'])
             log(f'[kernel mixed] {len(mine)} {route} cases within tolerance; worst '
+                f'{worst["case"]} at {worst["err_over_tol"]:.4f} of its bound')
+    return results
+
+
+# -------------------------------------------------------------- phase 3d
+# K1 at head dim 256, Gemma-2-9B's attention geometry (16 query / 8 KV
+# heads, block 16, scale query_pre_attn_scalar ** -0.5 = 256 ** -0.5).
+GEMMA2_HEADS, GEMMA2_KV_HEADS, GEMMA2_HEAD_DIM = 16, 8, 256
+GEMMA2_SCALE = 256 ** -0.5
+HD256_DECODE = 'hd256_g_serve_decode_8x256-4664'
+HD256_PREFILL = 'hd256_g_serve_prefill_1x4600'
+
+
+def check_too_large_raises(torch, tpa):
+    """A configuration whose route needs more shared memory than a block
+    may have is refused at launch with both sizes, never served by
+    another route: fp32 at head dim 256 with 128 query heads over one KV
+    head (route 0, a 128-row tile)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    q = torch.randn((1, 1, 128, 256), generator=gen, device=DEVICE)
+    pool = torch.randn((2, BLOCK_SIZE, 1, 256), generator=gen, device=DEVICE)
+    i32 = lambda *a: torch.tensor(a, dtype=torch.int32, device=DEVICE)  # noqa: E731
+    before = (tpa.ragged_paged_attention.launches, tpa.ragged_paged_attention_reference.launches)
+    try:
+        tpa.ragged_paged_attention(q, pool, pool, i32([1]), i32(5), i32([4]))
+    except ValueError as exc:
+        if 'shared memory' not in str(exc):
+            fail(f'head dim 256, 128-row fp32 tile: refused for another reason: {exc}')
+        log(f'[kernel hd256] a 128-row fp32 tile at head dim 256 is refused: {exc}')
+    else:
+        fail('head dim 256, 128-row fp32 tile: launched although it cannot fit')
+    after = (tpa.ragged_paged_attention.launches, tpa.ragged_paged_attention_reference.launches)
+    if after != before:
+        fail(f'the refused configuration launched something: {before} -> {after}')
+
+
+def phase_kernel_256(torch, tpa):
+    """K1 at head dim 256 against its plain version, each case within the
+    tolerance of the route and KV mode it takes: (a) 32 decode rows of
+    1..8192 keys (split-KV), (b) the prefill pair 1024 + 700 (tensor
+    cores), (c) window 4096 + softcap 50 over decode rows and chunk spans
+    that cross the window's edge, (d) (a) and (b) over an int8 pool, (e)
+    (a) and (b) in the mixed mode both ways (fp32 q over bf16 on the CUDA
+    cores; bf16 q over fp32 on the split-KV route's one-deep rings and
+    the tensor cores' 32-key tiles, each with a planted dropped page), (f)
+    fp32 on route 0, (g) phase 13's serve shapes, (h) the split-KV edges
+    at this head dim's plan; NaN in the trash block leaves a case of each
+    route bitwise unchanged; a configuration too large for shared memory
+    raises."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(30)
+    results = []
+
+    def run(name, case, window, softcap, dtype, iters, nan=False):
+        results.append(run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters,
+                                       scale=GEMMA2_SCALE))
+        if nan:
+            if case['int8_kv']:
+                check_int8_trash_block(torch, tpa, case, name)
+            else:
+                check_nan_trash_block(torch, tpa, case, name)
+
+    with k1_geometry(GEMMA2_HEADS, GEMMA2_KV_HEADS, GEMMA2_HEAD_DIM):
+        ctxs = np.concatenate([[1, 8192], rng.integers(1, 8193, size=30)])
+        pair = dict(ctxs=[1024, 700], q_lens=[1024, 700], span=1024)
+        for tag, kw, name in (('', {}, 'bfloat16'), ('int8_', {'int8_kv': True}, 'bfloat16')):
+            # (a), (b); (d) over an int8 pool.
+            case = build_case(torch, rng, ctxs, np.ones(32), 1, bf16, **kw)
+            run(f'hd256_{tag}a_decode_32x1-8192', case, 0, None, name, 30, nan=True)
+            if not tag:
+                check_reproducible(torch, tpa, case, 'hd256_a_decode_32x1-8192')
+            del case
+            case = build_case(torch, rng, pair['ctxs'], pair['q_lens'], pair['span'], bf16, **kw)
+            run(f'hd256_{tag}b_prefill_2x1024', case, 0, None, name, 10, nan=True)
+            del case
+        # (c) window 4096 + softcap 50: decode rows past and across the
+        # window's edge, then chunk spans that cross it.
+        case = build_case(torch, rng, np.concatenate([rng.integers(4097, 8193, size=6),
+                                                      [4096, 4097]]), np.ones(8), 1, bf16)
+        run('hd256_c_window4096_softcap50_decode_8', case, 4096, 50.0, 'bfloat16', 30)
+        del case
+        case = build_case(torch, rng, [4200, 6000, 8000, 300], [256, 100, 256, 0], 256, bf16)
+        run('hd256_c_window4096_softcap50_chunk_4x256', case, 4096, 50.0, 'bfloat16', 10)
+        del case
+        # (e) the mixed mode both ways.
+        for tag, q_dtype, kv_dtype, name, iters in (
+                ('fp32q', fp32, bf16, 'float32', 5), ('bf16q', bf16, fp32, 'bfloat16', 30)):
+            case = build_case(torch, rng, ctxs, np.ones(32), 1, q_dtype, kv_dtype=kv_dtype)
+            run(f'hd256_mixed_{tag}_a_decode_32x1-8192', case, 0, None, name, iters, nan=True)
+            results[-1]['planted_last_page_err_over_tol'] = planted_last_page(
+                torch, tpa, case, results[-1]['case'])
+            del case
+            case = build_case(torch, rng, pair['ctxs'], pair['q_lens'], pair['span'], q_dtype,
+                              kv_dtype=kv_dtype)
+            run(f'hd256_mixed_{tag}_b_prefill_2x1024', case, 0, None, name, max(2, iters // 3),
+                nan=True)
+            if tag == 'bf16q':
+                results[-1]['planted_last_page_err_over_tol'] = planted_last_page(
+                    torch, tpa, case, results[-1]['case'])
+            del case
+        # (f) fp32 on route 0: decode rows and a chunk.
+        case = build_case(torch, rng, [700, 1, 2048, 300], [100, 1, 1, 37], 100, fp32)
+        run('hd256_f_fp32_chunk_4x100', case, 0, None, 'float32', 5, nan=True)
+        del case
+        # (g) phase 13's shapes: its 8 slots' decode rows and one long
+        # prompt's prefill in its bucket.
+        case = build_case(torch, rng, rng.integers(256, 4665, size=8), np.ones(8), 1, bf16)
+        run(HD256_DECODE, case, 0, None, 'bfloat16', 50)
+        del case
+        case = build_case(torch, rng, [4600], [4600], 4736, bf16)
+        run(HD256_PREFILL, case, 0, None, 'bfloat16', 5)
+        del case
+        # (h) the split-KV edges at this head dim's plan.
+        for name, case, window, softcap in split_edge_cases(torch, tpa, rng, bf16):
+            run(f'hd256_{name}', case, window, softcap, 'bfloat16', 30)
+            del case
+        check_too_large_raises(torch, tpa)
+    torch.cuda.empty_cache()
+    for route in tpa.ROUTES:
+        mine = [r for r in results if r['kernel_route'] == route]
+        if mine:
+            worst = max(mine, key=lambda r: r['err_over_tol'])
+            log(f'[kernel hd256] {len(mine)} {route} cases within tolerance; worst '
                 f'{worst["case"]} at {worst["err_over_tol"]:.4f} of its bound')
     return results
 
@@ -1216,10 +1407,16 @@ def shut_down(torch, tag, engine):
         f'allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved')
 
 
-def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
-    """Serve 16 prompts and 3 chat completions; with ``quantization``
-    the generator quantizes its weights on the card and K2 (``tqm``)
-    serves every projection."""
+def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None, *, config=None,
+                tag=None, prompt_lens=(16, 1024), require_text=True):
+    """Serve 16 prompts of ``prompt_lens`` tokens (evenly spaced) and 3
+    chat completions; with ``quantization`` the generator quantizes its
+    weights on the card and K2 (``tqm``) serves every projection.
+    ``config`` is a ``TorchGeneratorConfig`` to serve instead of the
+    default one over ``cfg`` (phase 13: a chat YAML's). With
+    ``require_text`` every completion must decode to some text; without
+    it a completion may decode to none (all its tokens special ones), and
+    how many do is printed."""
     from distllm_tpu_torch.chat_server import ChatServer
     from distllm_tpu_torch.generate.engine import SamplingParams
     from distllm_tpu_torch.generate.generators.torch_backend import (
@@ -1227,14 +1424,17 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
         TorchGeneratorConfig,
     )
 
-    tag = f'serve {quantization}' if quantization else 'serve'
+    tag = tag or (f'serve {quantization}' if quantization else 'serve')
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    generator = TorchGenerator(TorchGeneratorConfig(
-        model=cfg, temperature=0.0, max_tokens=64, block_size=BLOCK_SIZE,
-        num_blocks=1024, max_num_seqs=8, max_model_len=2048, seed=0,
-        device=DEVICE, quantization=quantization,
-    ))
+    if config is None:
+        config = TorchGeneratorConfig(
+            model=cfg, temperature=0.0, max_tokens=64, block_size=BLOCK_SIZE,
+            num_blocks=1024, max_num_seqs=8, max_model_len=2048, seed=0,
+            device=DEVICE, quantization=quantization,
+        )
+    cfg = config.model
+    generator = TorchGenerator(config)
     torch.cuda.synchronize()
     gib = torch.cuda.memory_allocated() / 2**30
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1246,7 +1446,7 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     log(f'[{tag}] warm-up at construction: {engine.stats["decode_graph_captures"]} '
         f'decode graphs captured in {engine.stats["decode_graph_capture_s"]:.3f} s, '
         f'graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB')
-    prompts = smoke_prompts(np.random.default_rng(1), 16, 16, 1024)
+    prompts = smoke_prompts(np.random.default_rng(1), 16, *prompt_lens)
     sampling = [SamplingParams(temperature=0.0, max_tokens=64)] * 14 + [
         SamplingParams(temperature=0.8, top_p=0.95, max_tokens=64, seed=s)
         for s in (7, 8)
@@ -1255,9 +1455,7 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     passes_before = engine.stats['forward_passes']
     prefills_before = engine.stats['prefill_dispatches']
     marks = graph_marks(engine)
-    tpa.ragged_paged_attention.launches = 0
-    tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
-    tpa.ragged_paged_attention_reference.launches = 0
+    zero_k1_counts(tpa)
     if tqm is not None:
         tqm.int8_matmul.launches = 0
         tqm.int8_matmul.launches_by_route = dict.fromkeys(tqm.ROUTES, 0)
@@ -1270,11 +1468,15 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     if len(outputs) != 16 or tele.get('generated_tokens') != 16 * 64:
         fail(f'generator produced {tele.get("generated_tokens")} tokens for '
              f'{len(outputs)} outputs; expected 16 x 64')
-    if not all(isinstance(o, str) and o for o in outputs):
+    if not all(isinstance(o, str) and (o or not require_text) for o in outputs):
         fail('empty generator output')
+    if not require_text:
+        log(f'[{tag}] {sum(1 for o in outputs if not o)} of {len(outputs)} completions '
+            'decode to no text (every token a special one)')
     tok_s = tele['generated_tokens'] / wall_s
-    log(f'[{tag}] generator: 16 prompts (16..1024 tokens), 1024 new tokens in '
-        f'{wall_s:.3f} s = {tok_s:.1f} tok/s on {card}; telemetry {json.dumps(tele)}')
+    log(f'[{tag}] generator: 16 prompts ({prompt_lens[0]}..{prompt_lens[1]} tokens), 1024 '
+        f'new tokens in {wall_s:.3f} s = {tok_s:.1f} tok/s on {card}; telemetry '
+        f'{json.dumps(tele)}')
 
     with ChatServer(generator, port=0) as server:
         results = [None] * 3
@@ -1299,8 +1501,9 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
         status, body = result
         message = body['choices'][0]['message']
         if (status != 200 or body['object'] != 'chat.completion'
-                or body['request_id'] != f'smoke-{i}'
-                or message['role'] != 'assistant' or not message['content']):
+                or body['request_id'] != f'smoke-{i}' or message['role'] != 'assistant'
+                or not isinstance(message['content'], str)
+                or (require_text and not message['content'])):
             fail(f'chat completion {i}: status {status}, body {body}')
     if health.get('status') != 'ok':
         fail(f'/health answered {health}')
@@ -1310,15 +1513,19 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     prefills = engine.stats['prefill_dispatches'] - prefills_before
     launches = tpa.ragged_paged_attention.launches
     by_route = dict(tpa.ragged_paged_attention.launches_by_route)
+    by_head_dim = dict(tpa.ragged_paged_attention.launches_by_head_dim)
     plain = tpa.ragged_paged_attention_reference.launches
     log(f'[{tag}] ragged_paged_attention launches {launches} = '
         f'{cfg.num_layers} layers x {passes} forward passes ({prefills} '
-        f'prefill dispatches); by route {json.dumps(by_route)}; plain op '
-        f'launches {plain}')
+        f'prefill dispatches); by route {json.dumps(by_route)}; by head dim '
+        f'{json.dumps(by_head_dim)}; plain op launches {plain}')
     if launches <= 0 or launches != cfg.num_layers * passes:
         fail(f'kernel launches {launches} != {cfg.num_layers} x {passes}')
-    # Prefill spans (>= 16 tokens here, x the group of 4) fill tensor-core
-    # tiles; decode rows (4 rows per tile) take the split-KV route.
+    if by_head_dim[cfg.head_size] != launches:
+        fail(f'K1 launches by head dim {by_head_dim}: all {launches} belong at {cfg.head_size}')
+    # Prefill spans (>= 16 tokens here, x the group of 4 or Gemma-2's 2)
+    # fill tensor-core tiles; decode rows (a group's rows per tile) take the
+    # split-KV route.
     if (by_route['tensor_cores'] != cfg.num_layers * prefills
             or by_route['split_kv'] != cfg.num_layers * (passes - prefills)):
         fail(f'K1 routes {by_route}: expected {cfg.num_layers} x {prefills} '
@@ -1326,7 +1533,8 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None):
     if plain != 0:
         fail(f'the plain op ran {plain} times on the serving path')
     result = dict(tokens_per_s=tok_s, wall_s=wall_s, launches=launches,
-                  launches_by_route=by_route, forward_passes=passes,
+                  launches_by_route=by_route, launches_by_head_dim=by_head_dim,
+                  forward_passes=passes,
                   prefill_dispatches=prefills, telemetry=tele, gib=gib,
                   peak_gib=peak_gib,
                   **check_graph_replays(tag, engine, marks, passes, prefills))
@@ -1608,6 +1816,7 @@ def zero_k1_counts(tpa):
     tpa.ragged_paged_attention.launches = 0
     tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
     tpa.ragged_paged_attention.launches_by_kv = dict.fromkeys(tpa.KV_MODES, 0)
+    tpa.ragged_paged_attention.launches_by_head_dim = dict.fromkeys(tpa.KERNEL_HEAD_DIMS, 0)
     tpa.ragged_paged_attention_reference.launches = 0
 
 
@@ -1710,7 +1919,7 @@ def phase_serve_prefix_cache(torch, tpa, card, cfg, params, kvq_off_tokens):
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             del engine._dispatch_prefill_paged  # the instrumented dispatch
-            run = {k: engine.stats[k] - stats0.get(k, 0) for k in engine.stats}
+            run = stats_delta(engine, stats0)
             passes = engine.stats['forward_passes'] - passes0
             prefills = engine.stats['prefill_dispatches'] - prefills0
             mode = 'int8' if kv == 'int8' else 'model'
@@ -2032,7 +2241,7 @@ def serve_arm(torch, tpa, tag, cfg, params, engine_kw, prompts, sampling, tqm=No
     tokens = engine.generate_ids(prompts, sampling)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    run = {k: engine.stats[k] - stats0.get(k, 0) for k in engine.stats}
+    run = stats_delta(engine, stats0)
     passes, verify = run['forward_passes'], run.get('spec_windows', 0)
     eager = run.get('prefill_dispatches', 0) + run.get('mixed_windows', 0) + run.get(
         'spec_chunk_windows', 0)
@@ -2909,6 +3118,161 @@ def phase_embed_identity(torch, tea, corpus):
     return dict(max_abs_err=float(diff.max()), err_over_tol=err_over_tol)
 
 
+# -------------------------------------------------------------- phase 13
+# google/gemma-2-9b's published config.json (the keys the port reads).
+GEMMA2_9B_HF = {
+    'model_type': 'gemma2', 'vocab_size': 256000, 'hidden_size': 3584,
+    'num_hidden_layers': 42, 'num_attention_heads': 16, 'num_key_value_heads': 8,
+    'head_dim': 256, 'intermediate_size': 14336, 'max_position_embeddings': 8192,
+    'rope_theta': 10000.0, 'rms_norm_eps': 1e-6, 'hidden_activation': 'gelu_pytorch_tanh',
+    'query_pre_attn_scalar': 256, 'attn_logit_softcapping': 50.0,
+    'final_logit_softcapping': 30.0, 'sliding_window': 4096, 'tie_word_embeddings': True,
+}
+# Phase 13's engine: 8 slots of prompts up to 4,600 tokens + 64 new.
+GEMMA2_MAX_MODEL_LEN = 4736
+GEMMA2_PROMPT_LENS = (256, 4600)
+# Phase 13b's prompts (two past the window of 4,096) and prefill chunk.
+GEMMA2_IDENTITY_LENS = (4200, 300, 4400, 1000, 700, 2500)
+GEMMA2_IDENTITY_CHUNK = 512
+
+
+def gemma2_9b_model(**update):
+    """Gemma-2-9B's ``GemmaConfig`` fields from its HF config, as a YAML
+    mapping would carry them (``name: gemma2``)."""
+    import dataclasses
+
+    from distllm_tpu_torch.models.gemma import GemmaConfig
+
+    fields = dataclasses.asdict(GemmaConfig.from_hf_config(GEMMA2_9B_HF))
+    fields.update(update)
+    return fields
+
+
+def phase_serve_gemma2(torch, tpa, card, tmp: Path):
+    """13. Full-width Gemma-2-9B in bf16 at full depth, random weights
+    made on the card, served from a chat app YAML whose model is named
+    ``gemma2``: 16 prompts of 256..4600 tokens (two past 4,160, so the
+    even layers' window of 4,096 cuts during decode), 64 new tokens each,
+    then 3 chat completions; every K1 launch at head dim 256 on the
+    tensor cores (prefill) or the split-KV route (decode), the plain op
+    never, every decode step a graph replay."""
+    from distllm_tpu_torch.chat_server import load_app_config
+
+    app = {
+        'system_prompt': '',
+        'generator_config': {
+            'name': 'torch', 'temperature': 0.0, 'max_tokens': 64,
+            'block_size': BLOCK_SIZE, 'num_blocks': 2400, 'max_num_seqs': 8,
+            'max_model_len': GEMMA2_MAX_MODEL_LEN, 'seed': 0, 'device': DEVICE,
+            'model': gemma2_9b_model(),
+        },
+    }
+    import yaml
+
+    path = tmp / 'gemma2_chat.yaml'
+    path.write_text(yaml.safe_dump(app))
+    config, _ = load_app_config(str(path))
+    cfg = config.model
+    log(f'[serve gemma2] {path.name}: {type(cfg).__name__}(name={cfg.name!r}, '
+        f'{cfg.num_layers} layers, hidden {cfg.hidden_size}, heads {cfg.num_heads}/'
+        f'{cfg.num_kv_heads} x {cfg.head_size}, window {cfg.sliding_window} '
+        f'{cfg.sliding_window_pattern}, softcaps {cfg.attn_logit_softcap} / '
+        f'{cfg.final_logit_softcap}, {cfg.dtype}); prefix cache '
+        f'{config.enable_prefix_cache}')
+    if (cfg.name != 'gemma2' or cfg.head_size != GEMMA2_9B_HF['head_dim']
+            or not config.enable_prefix_cache):
+        fail(f'the chat YAML gave {cfg} (prefix cache {config.enable_prefix_cache})')
+    # Random Gemma-2 weights at full width copy a prompt's last token (tied
+    # embeddings scaled by sqrt(3584) outweigh the rest of the residual
+    # stream in the final logits), and the whitespace tokenizer ends every
+    # prompt with its SEP token: a greedy completion is then SEP after SEP,
+    # which decodes to no text. The token counts and launch checks hold.
+    return phase_serve(torch, tpa, card, cfg, config=config, tag='serve gemma2',
+                       prompt_lens=GEMMA2_PROMPT_LENS, require_text=False)
+
+
+def phase_identity_gemma2(torch, tpa):
+    """13b. Gemma-2-9B widths at depth 2 in fp32 (layer 0 local, layer 1
+    global), prompts past 4,096 tokens: greedy tokens through K1 (route 0
+    at head dim 256) equal those through the plain op, with speculation
+    (``draft_k=4``, the drafts the speculation-off stream) and mixed
+    windows off and on."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import gemma
+
+    cfg = gemma.GemmaConfig(**gemma2_9b_model(num_layers=2, dtype='float32'))
+    params = gemma.init(cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE)
+    rng = np.random.default_rng(13)
+    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size, size=n)]
+               for n in GEMMA2_IDENTITY_LENS]
+    sampling = [SamplingParams(temperature=0.0, max_tokens=n) for n in (24, 9, 20, 16, 12, 8)]
+    # Every arm prefills in chunks of 512, so the arms differ only in
+    # speculation and in chunks riding windows.
+    base = dict(block_size=BLOCK_SIZE, num_blocks=1024, max_num_seqs=2,
+                max_model_len=GEMMA2_MAX_MODEL_LEN, decode_steps=8,
+                prefill_chunk_tokens=GEMMA2_IDENTITY_CHUNK)
+    arms = {
+        'off': {}, 'spec': dict(draft_k=SPEC_DRAFT_K),
+        'mixed': dict(enable_mixed_batching=True,
+                      max_window_prefill_tokens=GEMMA2_IDENTITY_CHUNK),
+    }
+    outs, stats = {}, {}
+    for arm, kw in arms.items():
+        for backend in ('auto', 'reference'):
+            tag = f'identity gemma2 {arm} {backend}'
+            engine = LLMEngine(cfg, params, None, EngineConfig(**base, **kw), device=DEVICE,
+                               attn_backend=backend)
+            if engine.attn_backend != backend:
+                fail(f'{tag}: attn_backend resolved to {engine.attn_backend!r}')
+            engine.warmup()
+            if arm == 'spec':
+                queue, add = list(outs[('off', backend)]), engine.add_request
+
+                def add_with_proposals(prompt, sp=None, queue=queue, add=add, engine=engine):
+                    rid = add(prompt, sp)
+                    engine._requests[rid].drafter = ProposalDrafter(
+                        [0] * len(prompt) + queue.pop(0))
+                    return rid
+
+                engine.add_request = add_with_proposals
+            marks = graph_marks(engine)
+            zero_k1_counts(tpa)
+            outs[(arm, backend)] = engine.generate_ids(prompts, sampling)
+            tele = engine.telemetry
+            passes, verify = tele['forward_passes'], tele.get('spec_windows', 0)
+            eager = tele['prefill_dispatches'] + tele.get('mixed_windows', 0) + tele.get(
+                'spec_chunk_windows', 0)
+            check_graph_replays(tag, engine, marks, passes, eager, verify)
+            counted, other = (tpa.ragged_paged_attention.launches,
+                              tpa.ragged_paged_attention_reference.launches)
+            if backend == 'reference':
+                counted, other = other, counted
+            by_route = dict(tpa.ragged_paged_attention.launches_by_route)
+            if counted != cfg.num_layers * passes or other != 0:
+                fail(f'{tag}: {counted} attention calls for {passes} passes ({other} through '
+                     'the other tier)')
+            if backend == 'auto' and by_route['cuda_cores'] != counted:
+                fail(f'{tag}: fp32 launches off the CUDA cores: {by_route}')
+            stats[f'{arm}_{backend}'] = {k: tele.get(k, 0) for k in (
+                'forward_passes', 'prefill_dispatches', 'prefill_chunks', 'spec_windows',
+                'spec_accepted_tokens', 'mixed_windows')}
+            shut_down(torch, tag, engine)
+            del engine
+    same = {arm: outs[(arm, 'auto')] == outs[(arm, 'reference')] for arm in arms}
+    same_as_off = {arm: outs[(arm, 'auto')] == outs[('off', 'auto')] for arm in arms}
+    log(f'[identity gemma2] fp32 depth 2 at Gemma-2-9B widths, prompts of 300..4400 '
+        f'tokens: K1 vs plain op identical {json.dumps(same)}; each arm vs speculation '
+        f'and mixed off (recorded) {json.dumps(same_as_off)}; stats {json.dumps(stats)}')
+    if not all(same.values()):
+        fail(f'identity gemma2: fp32 greedy tokens through K1 and the plain op differ: {same}')
+    if not (stats['spec_auto']['spec_accepted_tokens'] > 0
+            and stats['mixed_auto']['mixed_windows'] > 0):
+        fail(f'identity gemma2: no accepted draft or no mixed window: {stats}')
+    del params
+    torch.cuda.empty_cache()
+    return dict(identical=same, identical_to_off=same_as_off, stats=stats)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2947,6 +3311,10 @@ def main() -> None:
     cases = phase_kernel(torch, tpa)
     int8_cases = phase_kernel_int8(torch, tpa)
     mixed_cases = phase_kernel_mixed(torch, tpa)
+    # 3d. K1 at head dim 256 (Gemma-2-9B's geometry)
+    t0 = time.perf_counter()
+    hd256_cases = phase_kernel_256(torch, tpa)
+    log(f'[kernel hd256] phase 3d took {time.perf_counter() - t0:.1f} s')
     k3_cases = phase_encoder_kernel(torch, tea)
     k2_cases = phase_int8_kernel(torch, tq, tqm)
     from distllm_tpu_torch.models import mistral
@@ -3003,6 +3371,15 @@ def main() -> None:
         embed_q.pop('corpus')
         # 12. embed identity: full width, depth 2, fp32
         phase_embed_identity(torch, tea, embed.pop('corpus'))
+    # 13. serve Gemma-2-9B (full width and depth, bf16) from a chat YAML
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_gemma2_') as tmp:
+        gemma2 = phase_serve_gemma2(torch, tpa, smi, Path(tmp))
+    log(f'[serve gemma2] phase 13 took {time.perf_counter() - t0:.1f} s')
+    # 13b. Gemma-2 identity: fp32 depth 2, K1 vs plain, spec / mixed
+    t0 = time.perf_counter()
+    identity_gemma2 = phase_identity_gemma2(torch, tpa)
+    log(f'[identity gemma2] phase 13b took {time.perf_counter() - t0:.1f} s')
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
     # most frequent launch (its prefill pair beside it); K3 at the embed
@@ -3025,6 +3402,9 @@ def main() -> None:
                    'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'err_over_tol',
                    'max_abs_err')
     k2_verify = next(c for c in k2_cases if c['case'] == K2_VERIFY)
+    hd256_head, hd256_prefill = (
+        next(c for c in hd256_cases if c['case'] == name) for name in (HD256_DECODE, HD256_PREFILL)
+    )
     k2_head, k2_prefill, k2_embed = (
         next(c for c in k2_cases if c['case'] == name)
         for name in (K2_HEADLINE, K2_PREFILL, K2_EMBED)
@@ -3121,6 +3501,30 @@ def main() -> None:
             'kernel_route': mixed_head['kernel_route'],
             'cases': mixed_cases,
         },
+        # Head dim 256 (Gemma-2-9B's geometry): launches from phase 13's
+        # serve, times at its decode shape (its prefill beside it); SDPA on
+        # the gathered KV is the library call where no softcap is on.
+        'head_dim_256': {
+            'launches': gemma2['launches'],
+            'launches_by_route': gemma2['launches_by_route'],
+            'launches_by_head_dim': gemma2['launches_by_head_dim'],
+            'max_abs_err': max(c['max_abs_err'] for c in hd256_cases),
+            'err_over_tol': max(c['err_over_tol'] for c in hd256_cases),
+            'tol': hd256_head['tol'],
+            'ms': hd256_head['ms'],
+            'plain_ms': hd256_head['plain_ms'],
+            'bound_ms': hd256_head['bound_ms'],
+            'bound_by': hd256_head['bound_by'],
+            'library_ms': hd256_head['library_ms'],
+            'timer': hd256_head['timer'],
+            'event_ms': hd256_head['event_ms'],
+            'host_us': hd256_head['host_us'],
+            'timed_case': hd256_head['case'],
+            'kernel_route': hd256_head['kernel_route'],
+            'prefill': {key: hd256_prefill[key] for key in (
+                *verify_keys, 'masked_sdpa_ms', 'library_max_abs_err')},
+            'cases': hd256_cases,
+        },
     }, {
         'name': 'encoder_attention',
         'route': 'cuda',
@@ -3196,6 +3600,13 @@ def main() -> None:
     log(f'[mixed] {json.dumps(mixed)}')
     log(f'[spec] {json.dumps(spec)}')
     log(f'[identity spec mixed] {json.dumps(identity_spec)}')
+    log(f'[serve gemma2] {json.dumps(gemma2)}')
+    log(f'[identity gemma2] {json.dumps(identity_gemma2)}')
+    log(f'[summary] {smi}: Gemma-2-9B bf16 (42 layers) {gemma2["tokens_per_s"]:.1f} tok/s, '
+        f'{gemma2["wall_s"]:.3f} s for 16 prompts of 256..4600 tokens x 64 new; K1 at head '
+        f'dim 256 {hd256_head["ms"]:.4f} ms at {hd256_head["case"]} (bound '
+        f'{hd256_head["bound_ms"]:.4f}, plain {hd256_head["plain_ms"]:.4f}, SDPA '
+        f'{hd256_head["library_ms"]})')
     log(f'[summary] {smi}: mixed off / on {mixed["off"]["tokens_per_s"]:.1f} / '
         f'{mixed["on"]["tokens_per_s"]:.1f} tok/s; spec decode / none / oracle / '
         f'oracle sampled / oracle int8 {spec["decode"]["tokens_per_s"]:.1f} / '
@@ -3208,7 +3619,7 @@ def main() -> None:
         f'{spec["oracle"]["verify_replay_event_ms"]} ms replay event; '
         f'{time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
-               for c in cases + int8_cases + mixed_cases + k3_cases + k2_cases):
+               for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')
     print(json.dumps({'kernels': kernels}))
     print(smi)

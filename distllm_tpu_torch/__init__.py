@@ -10,9 +10,9 @@ Every entry point runs on ``cuda`` unless the caller passes
 ``device='cpu'``; with no GPU and no explicit ``device='cpu'`` it raises
 (:func:`distllm_tpu_torch.utils.resolve_device`).
 
-Layer map of the ported slices (Mistral-family paged-KV serving; the
-BERT-family embedding pipeline; int8 / nf4 weight-only quantization on
-both):
+Layer map of the ported slices (paged-KV serving of the Mistral, Llama,
+Qwen2 and Gemma families; the embedding pipeline over BERT and the
+decoders; int8 / nf4 weight-only quantization on both):
 
 - ``utils``                 — dataclass config base, dtypes, device resolution
 - ``ops.paged_attention``   — ragged paged attention: plain PyTorch op plus
@@ -23,11 +23,13 @@ both):
 - ``ops.quantized_matmul``  — int8 weight-only matmul: plain PyTorch version
   plus the hand-written CUDA kernel (``csrc/int8_matmul.cu``)
 - ``ops.sampling``          — logit filtering and counter-based sampling
-- ``models``                — Mistral decoder over the paged KV cache, the
-  BERT encoder, tokenizers, checkpoint reading
+- ``models``                — the decoder families (``decoder_family``: one
+  Mistral forward, Gemma as its config knobs) over the paged KV cache and
+  as a dense forward, the BERT encoder, tokenizers, checkpoint reading
 - ``generate.engine``       — block allocator, scheduler, serving engine
 - ``generate.generators``   — ``TorchGenerator``
-- ``chat`` / ``chat_server`` — prompt template and the HTTP server
+- ``chat`` / ``chat_server`` — the chat app config, prompt template and
+  the HTTP server
 - ``embed``                 — datasets, encoders, poolers, embedders, writers
 - ``distributed_embedding`` — embedding entry point (``registry``, ``timer``)
 """

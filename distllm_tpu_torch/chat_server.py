@@ -18,12 +18,14 @@ Run (random-init Mistral weights on the GPU; ``--num-layers`` cuts depth)::
 
 ``--quantization int8`` serves the weights int8-quantized on the GPU
 (every projection through kernel K2); ``nf4`` dequantizes per layer.
-``--config app.yaml`` reads the JAX chat app's YAML keys instead:
-``generator_config`` (a mapping of ``TorchGeneratorConfig`` fields, its
-``name`` ignored and ``model`` a mapping of ``MistralConfig`` fields:
-the serving knobs ``draft_k``, ``spec_ngram``, ``enable_mixed_batching``,
-``max_window_prefill_tokens``, ``prefill_chunk_tokens`` and the rest) and
-``system_prompt``; ``--device`` still applies.
+``--config app.yaml`` reads the JAX chat app's YAML instead, as the JAX
+``ChatAppConfig`` reads it (``load_app_config``): ``generator_config`` (a
+mapping of ``TorchGeneratorConfig`` fields; its ``name`` an engine name,
+``tpu``, ``vllm`` or ``torch``; ``model`` a mapping of config fields whose
+``name`` picks the family, ``gemma2`` a ``GemmaConfig``; the serving knobs
+``draft_k``, ``enable_mixed_batching``, ``enable_prefix_cache`` (on by
+default, as in the JAX app) and the rest), ``system_prompt`` and the
+retrieval keys; ``--device`` still applies.
 """
 
 from __future__ import annotations
@@ -235,23 +237,20 @@ def _make_handler(server: ChatServer):
 
 
 def load_app_config(path: str) -> tuple:
-    """``(TorchGeneratorConfig, system_prompt)`` from a chat app YAML (the
-    JAX ``ChatAppConfig`` keys ``generator_config`` and
-    ``system_prompt``)."""
+    """``(TorchGeneratorConfig, system_prompt)`` from a chat app YAML read
+    as the JAX ``ChatAppConfig`` reads it (:class:`~distllm_tpu_torch.chat
+    .ChatAppConfig`): unknown keys refused, the retrieval keys validated
+    (a retriever raises, ROADMAP A9), ``generator_config.name`` honoured
+    (``fake`` / ``http`` raise, ROADMAP A11), the prefix cache on unless
+    the YAML says otherwise, and ``model`` mapped by its ``name``."""
     import yaml
 
-    from distllm_tpu_torch.generate.generators.torch_backend import (
-        TorchGeneratorConfig,
-    )
-    from distllm_tpu_torch.models.mistral import MistralConfig
+    from distllm_tpu_torch.chat import ChatAppConfig
 
     with open(path) as fh:
         raw = yaml.safe_load(fh) or {}
-    fields = dict(raw.get('generator_config') or {})
-    fields.pop('name', None)  # the backend's name: this server has one
-    if isinstance(fields.get('model'), dict):
-        fields['model'] = MistralConfig(**fields['model'])
-    return TorchGeneratorConfig(**fields), raw.get('system_prompt', '')
+    app = ChatAppConfig.from_dict(raw)
+    return app.build_generator_config(), app.system_prompt
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -159,11 +159,33 @@
 //   ring of two fp32 K and V tiles takes 128 KiB beside the bf16 tiles (one
 //   block per SM), and route 2's rings are two deep instead of three (four
 //   warps x 32 KiB).
+//
+// Head dim 256 (Gemma-7B, Gemma-2 2B and 9B; the Pallas kernel takes any
+// multiple of 128, :735-740), on every route and KV storage. What the width
+// changes:
+// - registers: P V's accumulators are HD / 8 tiles of four fp32 a lane, 128
+//   at 256. Q's fragments (HD / 16 x 4 registers) would add 64, past the 255
+//   a thread may have, so on routes 1 and 2 they are read from the query
+//   tile in shared memory at each k-step of Q K^T (ldmatrix) instead.
+// - shared memory, 227 KiB a block at most (sizes with a short block
+//   table): route 0 at 64 rows 201 KiB; route 1 165 KiB over a bf16 pool,
+//   164 KiB over int8, and over an fp32 pool (mixed) 32-key tiles, 194 KiB
+//   (64-key tiles would take 355); route 2's four rings, three deep, 206 KiB
+//   over bf16 (one block an SM where two fit at 128: split_plan's blocks per
+//   SM follows the head dim), 172 KiB over int8, and over fp32 one deep, 202
+//   KiB: there a warp stages the next step as soon as it has narrowed this
+//   step's rows into its own bf16 tile, so the copy still runs under the
+//   step's products.
+// - a configuration that still does not fit (route 0 with more than about
+//   76 rows, a block table too long for route 1 or for route 2's split) is
+//   refused at launch (kErrSharedMemory, whose error string names both
+//   sizes), never served by another route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include <algorithm>
 #include <type_traits>
@@ -179,6 +201,32 @@ constexpr int kKeyTile = 32;  // keys per staged tile (one per warp lane)
 constexpr int kKvModel = 0;
 constexpr int kKvInt8 = 1;
 constexpr int kKvMixed = 2;
+// A launch's return when its route needs more shared memory than a block
+// of the device may have (never a cudaError_t): distllm_rpa_error_string
+// then names both sizes, kept per host thread.
+constexpr int kErrSharedMemory = -1;
+thread_local long long smem_needed = 0, smem_allowed = 0;
+
+// 0 when `smem` bytes fit a block of the current device (its opt-in limit,
+// read once per device), kErrSharedMemory when they do not, else the
+// cudaError_t of the query.
+int check_shared_memory(size_t smem) {
+  static std::atomic<int> limits[mma_tiles::kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return int(err);
+  if (device >= mma_tiles::kMaxDevices) return int(cudaErrorInvalidDevice);
+  int limit = limits[device].load(std::memory_order_relaxed);
+  if (limit == 0) {
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return int(err);
+    limits[device].store(limit, std::memory_order_relaxed);
+  }
+  if (smem <= size_t(limit)) return 0;
+  smem_needed = static_cast<long long>(smem);
+  smem_allowed = limit;
+  return kErrSharedMemory;
+}
 
 struct Params {
   const void* q;              // [B, S, Nh, Hd]
@@ -523,17 +571,25 @@ __device__ __forceinline__ void narrow8(__nv_bfloat16* dst, const float* src) {
                  mma_tiles::pack_bf16(b.x, b.y), mma_tiles::pack_bf16(b.z, b.w));
 }
 
+// Keys of route 1's staged tile: 64, but 32 for an fp32 pool at head dim
+// 256, whose ring of two 64-key fp32 K and V tiles (256 KiB) would not fit
+// the 227 KiB a block can have.
+__host__ __device__ constexpr int tc_keys(int head_dim, int kv) {
+  return head_dim >= 256 && kv == kKvMixed ? kTcKeys / 2 : kTcKeys;
+}
+
 size_t tc_smem_bytes(int head_dim, int max_blocks, int kv) {
   // Q tile and a ring of two K and two V tiles, rows padded by 16 bytes so
   // the 8 row addresses of an ldmatrix fall in 8 distinct bank groups;
   // then the row's block table. int8 KV: one bf16 K and V tile, and a ring
   // of two int8 K and V tiles with their per-key scales. Mixed (an fp32
   // pool): one bf16 K and V tile, and a ring of two fp32 K and V tiles.
+  const size_t keys = tc_keys(head_dim, kv);
   const size_t bf16_tiles = kv == kKvModel ? 4 : 2;
   size_t bytes = sizeof(__nv_bfloat16) * size_t(head_dim + 8) *
-                 (kTcRows + bf16_tiles * kTcKeys);
-  if (kv == kKvInt8) bytes += size_t(4) * kTcKeys * (head_dim + sizeof(float));
-  if (kv == kKvMixed) bytes += size_t(4) * kTcKeys * head_dim * sizeof(float);
+                 (kTcRows + bf16_tiles * keys);
+  if (kv == kKvInt8) bytes += size_t(4) * keys * (head_dim + sizeof(float));
+  if (kv == kKvMixed) bytes += size_t(4) * keys * head_dim * sizeof(float);
   return bytes + sizeof(int) * size_t(max_blocks);
 }
 
@@ -555,21 +611,27 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kChunks = HD / 8;       // 16-byte chunks of a row
   constexpr int kSteps = HD / 16;       // k-steps of Q K^T
   constexpr int kOut = HD / 8;          // 8-column accumulator tiles of P V
-  constexpr int kKeyTiles = kTcKeys / 8;  // 8-key accumulator tiles of S
+  constexpr int kKeys = tc_keys(HD, kKv);  // keys of a staged tile
+  constexpr int kKeyTiles = kKeys / 8;  // 8-key accumulator tiles of S
   constexpr int kRing = kStaged ? 1 : 2;  // bf16 K/V tiles in shared memory
+  // Q's fragments stay in registers up to head dim 128. At 256 they would
+  // take 64 registers a lane beside P V's 128 accumulators, past the 255 a
+  // thread may have: they are read from the query tile per k-step instead.
+  constexpr bool kQInRegs = HD <= 128;
+  static_assert(!kInt8 || 2 * kKeys == kThreads, "one thread per int8 scale");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* s_q = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][kStride]
-  bf16* s_k = s_q + kTcRows * kStride;           // [kRing][kTcKeys][kStride]
-  bf16* s_v = s_k + kRing * kTcKeys * kStride;   // [kRing][kTcKeys][kStride]
-  // Staged pools (int8 codes, fp32 rows): the staged rows [2][kTcKeys][HD]
-  // of K and of V, the int8 per-key scales [2][kTcKeys], then the block
+  bf16* s_k = s_q + kTcRows * kStride;           // [kRing][kKeys][kStride]
+  bf16* s_v = s_k + kRing * kKeys * kStride;   // [kRing][kKeys][kStride]
+  // Staged pools (int8 codes, fp32 rows): the staged rows [2][kKeys][HD]
+  // of K and of V, the int8 per-key scales [2][kKeys], then the block
   // table.
-  KV* s_kr = reinterpret_cast<KV*>(s_v + kRing * kTcKeys * kStride);
-  KV* s_vr = s_kr + (kStaged ? 2 * kTcKeys * HD : 0);
-  float* s_ks = reinterpret_cast<float*>(s_vr + (kStaged ? 2 * kTcKeys * HD : 0));
-  float* s_vs = s_ks + (kInt8 ? 2 * kTcKeys : 0);
-  int* s_bt = reinterpret_cast<int*>(s_vs + (kInt8 ? 2 * kTcKeys : 0));  // [max_blocks]
+  KV* s_kr = reinterpret_cast<KV*>(s_v + kRing * kKeys * kStride);
+  KV* s_vr = s_kr + (kStaged ? 2 * kKeys * HD : 0);
+  float* s_ks = reinterpret_cast<float*>(s_vr + (kStaged ? 2 * kKeys * HD : 0));
+  float* s_vs = s_ks + (kInt8 ? 2 * kKeys : 0);
+  int* s_bt = reinterpret_cast<int*>(s_vs + (kInt8 ? 2 * kKeys : 0));  // [max_blocks]
 
   // The last query tiles attend the most keys: they start first, so the
   // short ones fill the card's tail.
@@ -612,9 +674,9 @@ __global__ void __launch_bounds__(kThreads)
   // multiples of 64 keys (4 pages of 16).
   const int lo = win > 0 ? max(q0 + span_off - win + 1, 0) : 0;
   const int hi = min(ctx, q0 + min(q_len, span_off + p.span_tile));
-  const int t_begin = lo / kTcKeys * kTcKeys;
+  const int t_begin = lo / kKeys * kKeys;
   const int n_tiles =
-      (q_len > span_off && hi > lo) ? (hi - t_begin + kTcKeys - 1) / kTcKeys : 0;
+      (q_len > span_off && hi > lo) ? (hi - t_begin + kKeys - 1) / kKeys : 0;
 
   // This lane's two rows, and the keys the warp's 16 rows can see.
   int qpos[2];
@@ -660,7 +722,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kElemsPerChunk = 16 / sizeof(KV);
   constexpr int kKvChunks = HD / kElemsPerChunk;  // 16-byte chunks of a KV row
   constexpr int kKeyStride = kThreads / kKvChunks;
-  constexpr int kPerThread = kTcKeys / kKeyStride;
+  constexpr int kPerThread = kKeys / kKeyStride;
   const int j0 = tid / kKvChunks;
   const int c = (tid % kKvChunks) * kElemsPerChunk;
   const size_t page_elems = size_t(p.block_size) * p.num_kv_heads * HD;
@@ -680,37 +742,38 @@ __global__ void __launch_bounds__(kThreads)
               head_col;
       }
       if constexpr (kStaged) {
-        cp_async16(s_kr + (buf * kTcKeys + j) * HD + c, k_cache + off, live);
-        cp_async16(s_vr + (buf * kTcKeys + j) * HD + c, v_cache + off, live);
+        cp_async16(s_kr + (buf * kKeys + j) * HD + c, k_cache + off, live);
+        cp_async16(s_vr + (buf * kKeys + j) * HD + c, v_cache + off, live);
       } else {
-        cp_async16(s_k + (buf * kTcKeys + j) * kStride + c, k_cache + off, live);
-        cp_async16(s_v + (buf * kTcKeys + j) * kStride + c, v_cache + off, live);
+        cp_async16(s_k + (buf * kKeys + j) * kStride + c, k_cache + off, live);
+        cp_async16(s_v + (buf * kKeys + j) * kStride + c, v_cache + off, live);
       }
     }
     if constexpr (kInt8) {
       // Thread j < 64 copies key j's K scale, thread 64 + j its V scale;
       // a dead key's scale is zero-filled, never read.
-      const int j = tid % kTcKeys;
+      const int j = tid % kKeys;
       const int key = t0 + j;
       const bool live = key >= lo && key < hi;
-      const float* src = tid < kTcKeys ? p.k_scale : p.v_scale;
+      const float* src = tid < kKeys ? p.k_scale : p.v_scale;
       size_t idx = 0;
       if (live) idx = size_t(s_bt[page_of(key)]) * p.num_kv_heads + h;
-      cp_async4((tid < kTcKeys ? s_ks : s_vs) + buf * kTcKeys + j, src + idx, live);
+      cp_async4((tid < kKeys ? s_ks : s_vs) + buf * kKeys + j, src + idx, live);
     }
   };
 
-  uint32_t qf[kSteps][4];
+  uint32_t qf[kQInRegs ? kSteps : 1][4];
   float o[kOut][4];
 #pragma unroll
   for (int n = 0; n < kOut; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's share of each row's sum
+  const bf16* q_frag = s_q + (16 * warp + (lane & 15)) * kStride + (lane >> 4) * 8;
 
   if (n_tiles > 0) stage(0, t_begin);
   cp_async_commit();
   for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = t_begin + it * kTcKeys;
+    const int t0 = t_begin + it * kKeys;
     const int buf = it & 1;
     cp_async_wait<0>();  // the query tile and tile it have landed
     __syncthreads();
@@ -718,17 +781,17 @@ __global__ void __launch_bounds__(kThreads)
       // Make tile it bf16 in the tile ldmatrix reads (its previous tile's
       // last read was before the closing barrier of the previous step):
       // int8 codes widen exactly, fp32 rows narrow (nearest even).
-      const KV* src_k = s_kr + buf * kTcKeys * HD;
-      const KV* src_v = s_vr + buf * kTcKeys * HD;
+      const KV* src_k = s_kr + buf * kKeys * HD;
+      const KV* src_v = s_vr + buf * kKeys * HD;
       if constexpr (kInt8) {
-        for (int i = tid; i < kTcKeys * HD / 16; i += kThreads) {
+        for (int i = tid; i < kKeys * HD / 16; i += kThreads) {
           const int j = i / (HD / 16);
           const int col = (i % (HD / 16)) * 16;
           widen16(s_k + j * kStride + col, src_k + j * HD + col);
           widen16(s_v + j * kStride + col, src_v + j * HD + col);
         }
       } else {
-        for (int i = tid; i < kTcKeys * HD / 8; i += kThreads) {
+        for (int i = tid; i < kKeys * HD / 8; i += kThreads) {
           const int j = i / (HD / 8);
           const int col = (i % (HD / 8)) * 8;
           narrow8(s_k + j * kStride + col, src_k + j * HD + col);
@@ -737,16 +800,15 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
     }
-    if (it == 0) {
+    if constexpr (kQInRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        ldmatrix_x4(qf[kk], s_q + (16 * warp + (lane & 15)) * kStride + 16 * kk +
-                                (lane >> 4) * 8);
+        for (int kk = 0; kk < kSteps; ++kk) ldmatrix_x4(qf[kk], q_frag + 16 * kk);
       }
     }
-    const bool compute = warp_live && t0 < w_hi && t0 + kTcKeys > w_lo;
-    const bf16* kt = s_k + (kStaged ? 0 : buf) * kTcKeys * kStride;
-    const bf16* vt = s_v + (kStaged ? 0 : buf) * kTcKeys * kStride;
+    const bool compute = warp_live && t0 < w_hi && t0 + kKeys > w_lo;
+    const bf16* kt = s_k + (kStaged ? 0 : buf) * kKeys * kStride;
+    const bf16* vt = s_v + (kStaged ? 0 : buf) * kKeys * kStride;
     float s[kKeyTiles][4];
     if (compute) {
 #pragma unroll
@@ -754,26 +816,33 @@ __global__ void __launch_bounds__(kThreads)
       // S = Q K^T: B[d][key] = K[key][d], two 8-key tiles per ldmatrix.
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t qa[4];
+        if constexpr (kQInRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          ldmatrix_x4(qa, q_frag + 16 * kk);
+        }
 #pragma unroll
         for (int jj = 0; jj < kKeyTiles / 2; ++jj) {
           uint32_t kb[4];
           ldmatrix_x4(kb, kt + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * kStride +
                               16 * kk + ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(s[2 * jj], qf[kk], kb[0], kb[1]);
-          mma_bf16_16816(s[2 * jj + 1], qf[kk], kb[2], kb[3]);
+          mma_bf16_16816(s[2 * jj], qa, kb[0], kb[1]);
+          mma_bf16_16816(s[2 * jj + 1], qa, kb[2], kb[3]);
         }
       }
     }
     // Tile it + 1 is staged while the products of tile it run: its buffer
     // was last read before the previous step's closing barrier.
-    if (it + 1 < n_tiles) stage(buf ^ 1, t0 + kTcKeys);
+    if (it + 1 < n_tiles) stage(buf ^ 1, t0 + kKeys);
     cp_async_commit();
     if (compute) {
       // Scale, softcap, mask — in fp32 registers, as log2-scaled scores
       // t = s * log2(e), so p = 2^(t - m) = e^(s - m) costs one ex2. A
       // tile that lies wholly inside every row's causal and window range
       // (the bulk of a long prefill) needs no mask.
-      const bool inside = warp_full && t0 + kTcKeys - 1 <= w_qmin && t0 + kTcKeys <= ctx &&
+      const bool inside = warp_full && t0 + kKeys - 1 <= w_qmin && t0 + kKeys <= ctx &&
                           (win <= 0 || t0 > w_qmax - win);
 #pragma unroll
       for (int j = 0; j < kKeyTiles; ++j) {
@@ -785,7 +854,7 @@ __global__ void __launch_bounds__(kThreads)
           // int8 KV: the score takes K's scale of the key's page, before
           // the softcap: (q . c) * scale * k_scale.
           const float raw =
-              kInt8 ? s[j][e] * p.scale * s_ks[buf * kTcKeys + 8 * j + 2 * t + (e & 1)]
+              kInt8 ? s[j][e] * p.scale * s_ks[buf * kKeys + 8 * j + 2 * t + (e & 1)]
                     : s[j][e];
           if (p.softcap > 0.f) {
             x = tanhf((kInt8 ? raw : raw * p.scale) / p.softcap) * (p.softcap * kLog2e);
@@ -828,13 +897,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < kKeyTiles; ++j) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] *= s_vs[buf * kTcKeys + 8 * j + 2 * t + (e & 1)];
+          for (int e = 0; e < 4; ++e) s[j][e] *= s_vs[buf * kKeys + 8 * j + 2 * t + (e & 1)];
         }
       }
       // O += P V: the S accumulators, rounded to bf16, are P's A fragments;
       // B[key][d] = V[key][d] by ldmatrix.trans, two 8-column tiles each.
 #pragma unroll
-      for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
         const uint32_t a[4] = {
             pack_bf16(s[2 * kk][0], s[2 * kk][1]),
             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
@@ -902,9 +971,12 @@ __host__ __device__ constexpr size_t split_region_offset(int head_dim, int split
 }
 
 // The depth of each warp's ring: an fp32 pool's rows take twice a bf16
-// ring's bytes, so its ring is two deep.
-__host__ __device__ constexpr int split_stages(int kv) {
-  return kv == kKvMixed ? 2 : kSplitStages;
+// ring's bytes, so its ring is two deep, and one deep at head dim 256
+// (four warps' rings of two would take 256 KiB): the warp then stages the
+// next step once it has made this step's rows bf16 in its own tile, so
+// the copy still runs under the step's products.
+__host__ __device__ constexpr int split_stages(int kv, int head_dim) {
+  return kv == kKvMixed ? (head_dim >= 256 ? 1 : 2) : kSplitStages;
 }
 
 // One warp's share of the region during the key loop. bf16 pool: a ring of
@@ -915,7 +987,7 @@ __host__ __device__ constexpr int split_stages(int kv) {
 __host__ __device__ constexpr size_t split_warp_bytes(int head_dim, int kv) {
   return kv == kKvModel
              ? kSplitStages * kWarpKeys * 2 * sizeof(__nv_bfloat16) * size_t(head_dim + 8)
-             : split_stages(kv) * kWarpKeys * 2 *
+             : split_stages(kv, head_dim) * kWarpKeys * 2 *
                        (kv == kKvInt8 ? head_dim + sizeof(float)
                                       : sizeof(float) * size_t(head_dim)) +
                    kWarpKeys * 2 * sizeof(__nv_bfloat16) * size_t(head_dim + 8);
@@ -940,7 +1012,7 @@ __global__ void __launch_bounds__(kThreads)
   using KV = BfPoolElem<kKv>;
   constexpr bool kInt8 = kKv == kKvInt8;
   constexpr bool kStaged = kKv != kKvModel;            // pool rows staged, then made bf16
-  constexpr int kStages = split_stages(kKv);           // each warp's ring depth
+  constexpr int kStages = split_stages(kKv, HD);       // each warp's ring depth
   constexpr int kStride = HD + 8;                      // staged bf16 row, elements
   constexpr int kSteps = HD / 16;                      // k-steps of Q K^T
   constexpr int kOut = HD / 8;                         // 8-column tiles of P V
@@ -948,8 +1020,11 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kRing = kStages * kWarpKeys * kRingRow;  // one pool's ring
   constexpr int kElemsPerChunk = 16 / sizeof(KV);
   constexpr int kKvChunks = HD / kElemsPerChunk;       // 16-byte chunks of a pool row
-  constexpr int kKeyStride = 32 / kKvChunks;           // keys one pass of the lanes copies
-  constexpr int kPerLane = kWarpKeys / kKeyStride;
+  constexpr int kPerLane = kWarpKeys * kKvChunks / 32;  // 16-byte copies a lane makes a step
+  // Q's fragments in registers up to head dim 128; at 256 from the query
+  // tile per k-step, as on route 1.
+  constexpr bool kQInRegs = HD <= 128;
+  static_assert(kStages > 1 || kStaged, "a one-deep ring needs the warp's own tile");
 
   const int split = blockIdx.x;
   const int h = blockIdx.y;
@@ -1025,24 +1100,25 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[kSteps][4];
+  const bf16* q_frag = s_q + (lane & 15) * kStride + (lane >> 4) * 8;
+  uint32_t qf[kQInRegs ? kSteps : 1][4];
+  if constexpr (kQInRegs) {
 #pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    ldmatrix_x4(qf[kk], s_q + (lane & 15) * kStride + 16 * kk + (lane >> 4) * 8);
+    for (int kk = 0; kk < kSteps; ++kk) ldmatrix_x4(qf[kk], q_frag + 16 * kk);
   }
 
   // Warp w takes keys 16w .. 16w + 15 of every 64-key step, through a ring
-  // of its own: it stages, waits and computes with no block barrier. Each
-  // lane copies one 16-byte column c of every kKeyStride-th key of the
-  // warp's 16. A key outside [k_begin, k_end) reads nothing: the copy
-  // zero-fills it (and its int8 scales), and the mask drops it.
+  // of its own: it stages, waits and computes with no block barrier. The
+  // warp's 16 keys x kKvChunks 16-byte chunks are copied by its lanes in
+  // turn, chunk i = lane + 32 * it being key i / kKvChunks, column i %
+  // kKvChunks (below 32 chunks a row, each lane keeps one column). A key
+  // outside [k_begin, k_end) reads nothing: the copy zero-fills it (and its
+  // int8 scales), and the mask drops it.
   const bool pow2 = (p.block_size & (p.block_size - 1)) == 0;
   const int log2_bs = __ffs(p.block_size) - 1;
   auto page_of = [&](int key) { return pow2 ? key >> log2_bs : key / p.block_size; };
   const size_t page_elems = size_t(p.block_size) * p.num_kv_heads * HD;
   const int slot_elems = p.num_kv_heads * HD;
-  const int j0 = lane / kKvChunks;
-  const int c = (lane % kKvChunks) * kElemsPerChunk;
   auto slice_key0 = [&](int step) { return base + step * kStepKeys + warp * kWarpKeys; };
   auto slice_live = [&](int key0) { return key0 < k_end && key0 + kWarpKeys > k_begin; };
   auto stage = [&](int step) {
@@ -1051,7 +1127,8 @@ __global__ void __launch_bounds__(kThreads)
     const int buf = step % kStages;
 #pragma unroll
     for (int it = 0; it < kPerLane; ++it) {
-      const int j = j0 + it * kKeyStride;
+      const int j = (lane + 32 * it) / kKvChunks;
+      const int c = (lane + 32 * it) % kKvChunks * kElemsPerChunk;
       const int key = key0 + j;
       const bool live = key >= k_begin && key < k_end;
       size_t off = 0;
@@ -1090,21 +1167,31 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's share of each row's sum
 
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_steps) stage(st);
+  if constexpr (kStages == 1) {
+    if (n_steps > 0) stage(0);
     cp_async_commit();
+  } else {
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < n_steps) stage(st);
+      cp_async_commit();
+    }
   }
   for (int step = 0; step < n_steps; ++step) {
     // This lane's copies of the step have landed; after the warp's barrier
     // every lane's have, and the buffer staged next was last read a step
-    // ago.
-    cp_async_wait<kStages - 2>();
-    __syncwarp();
-    if (step + kStages - 1 < n_steps) stage(step + kStages - 1);
-    cp_async_commit();
+    // ago (a one-deep ring stages the next step further down).
+    if constexpr (kStages == 1) {
+      cp_async_wait<0>();
+      __syncwarp();
+    } else {
+      cp_async_wait<kStages - 2>();
+      __syncwarp();
+      if (step + kStages - 1 < n_steps) stage(step + kStages - 1);
+      cp_async_commit();
+    }
     const int key0 = slice_key0(step);
-    if (!slice_live(key0)) continue;
+    const bool live_slice = slice_live(key0);
     const int buf = step % kStages;
     const bf16* kt;
     const bf16* vt;
@@ -1112,39 +1199,54 @@ __global__ void __launch_bounds__(kThreads)
       // Make the step's rows bf16 in the warp's tile: int8 codes widen
       // exactly, fp32 rows narrow (nearest even). (The tile's previous
       // read, a step ago, came before this step's warp barrier.)
-      if constexpr (kInt8) {
-        for (int i = lane; i < kWarpKeys * (HD / 16); i += 32) {
-          const int j = i / (HD / 16);
-          const int col = (i % (HD / 16)) * 16;
-          widen16(w_k + j * kStride + col, r_k + (buf * kWarpKeys + j) * HD + col);
-          widen16(w_v + j * kStride + col, r_v + (buf * kWarpKeys + j) * HD + col);
-        }
-      } else {
-        for (int i = lane; i < kWarpKeys * (HD / 8); i += 32) {
-          const int j = i / (HD / 8);
-          const int col = (i % (HD / 8)) * 8;
-          narrow8(w_k + j * kStride + col, r_k + (buf * kWarpKeys + j) * HD + col);
-          narrow8(w_v + j * kStride + col, r_v + (buf * kWarpKeys + j) * HD + col);
+      if (live_slice) {
+        if constexpr (kInt8) {
+          for (int i = lane; i < kWarpKeys * (HD / 16); i += 32) {
+            const int j = i / (HD / 16);
+            const int col = (i % (HD / 16)) * 16;
+            widen16(w_k + j * kStride + col, r_k + (buf * kWarpKeys + j) * HD + col);
+            widen16(w_v + j * kStride + col, r_v + (buf * kWarpKeys + j) * HD + col);
+          }
+        } else {
+          for (int i = lane; i < kWarpKeys * (HD / 8); i += 32) {
+            const int j = i / (HD / 8);
+            const int col = (i % (HD / 8)) * 8;
+            narrow8(w_k + j * kStride + col, r_k + (buf * kWarpKeys + j) * HD + col);
+            narrow8(w_v + j * kStride + col, r_v + (buf * kWarpKeys + j) * HD + col);
+          }
         }
       }
       __syncwarp();
+      if constexpr (kStages == 1) {
+        // Every lane has read the ring: the next step's copies go in now.
+        if (step + 1 < n_steps) stage(step + 1);
+        cp_async_commit();
+      }
       kt = w_k;
       vt = w_v;
     } else {
       kt = r_k + buf * kWarpKeys * kStride;
       vt = r_v + buf * kWarpKeys * kStride;
     }
+    if (!live_slice) continue;
     // S = Q K^T over the warp's 16 keys: two 8-key accumulator tiles.
     float s[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, q_frag + 16 * kk);
+      }
       uint32_t kb[4];
       ldmatrix_x4(kb, kt + ((lane & 7) + ((lane >> 4) << 3)) * kStride + 16 * kk +
                           ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(s[0], qf[kk], kb[0], kb[1]);
-      mma_bf16_16816(s[1], qf[kk], kb[2], kb[3]);
+      mma_bf16_16816(s[0], qa, kb[0], kb[1]);
+      mma_bf16_16816(s[1], qa, kb[2], kb[3]);
     }
     // Scale, softcap and mask in fp32, as log2-scaled scores, in route 1's
     // order (int8: K's scale of the key's page on the score, before the
@@ -1334,51 +1436,54 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int HD, int kKv>
-cudaError_t launch_split(const Params& p, const SplitArgs& sa, int batch, cudaStream_t stream) {
+int launch_split(const Params& p, const SplitArgs& sa, int batch, cudaStream_t stream) {
   const size_t smem = split_smem_bytes(HD, sa.split_keys, p.block_size, sa.num_splits, kKv);
   auto kernel = ragged_paged_attention_split_kernel<HD, kKv>;
+  if (const int fits = check_shared_memory(smem)) return fits;
   static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
-  cudaError_t err = mma_tiles::opt_in_shared_memory(
+  const cudaError_t err = mma_tiles::opt_in_shared_memory(
       reinterpret_cast<const void*>(kernel), smem, opted_in);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return int(err);
   const dim3 grid(sa.num_splits, p.num_kv_heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(p, sa);
-  return cudaGetLastError();
+  return int(cudaGetLastError());
 }
 
 template <typename T, typename KV, int HD>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+int launch(const Params& p, int batch, cudaStream_t stream) {
   const int group = p.num_heads / p.num_kv_heads;
   const int rows = p.span_tile * group;
   const size_t smem = smem_bytes(rows, HD);
   auto kernel = ragged_paged_attention_kernel<T, KV, HD>;
+  if (const int fits = check_shared_memory(smem)) return fits;
   static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
-  cudaError_t err = mma_tiles::opt_in_shared_memory(
+  const cudaError_t err = mma_tiles::opt_in_shared_memory(
       reinterpret_cast<const void*>(kernel), smem, opted_in);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return int(err);
   const dim3 grid((p.span + p.span_tile - 1) / p.span_tile, p.num_kv_heads,
                   batch);
   kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return int(cudaGetLastError());
 }
 
 template <int HD, int kKv>
-cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
+int launch_mma(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes(HD, p.max_blocks, kKv);
   auto kernel = ragged_paged_attention_mma_kernel<HD, kKv>;
+  if (const int fits = check_shared_memory(smem)) return fits;
   static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
-  cudaError_t err = mma_tiles::opt_in_shared_memory(
+  const cudaError_t err = mma_tiles::opt_in_shared_memory(
       reinterpret_cast<const void*>(kernel), smem, opted_in);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return int(err);
   const dim3 grid((p.span + p.span_tile - 1) / p.span_tile, p.num_kv_heads,
                   batch);
   kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return int(cudaGetLastError());
 }
 
 // Routes 1 and 2 (bf16 q) and route 0 at one head dim, by KV storage.
 template <int HD>
-cudaError_t launch_route(int route, int dtype, int kv, const Params& p, const SplitArgs& sa,
+int launch_route(int route, int dtype, int kv, const Params& p, const SplitArgs& sa,
                          int batch, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   if (route == 2) {
@@ -1405,6 +1510,7 @@ cudaError_t launch_route(int route, int dtype, int kv, const Params& p, const Sp
 
 extern "C" {
 
+// Head dims 64, 128 and 256 on every route and KV storage.
 // dtype: 0 = float32, 1 = bfloat16 (queries and output share it). kv_dtype:
 // 0 = the pool holds q's dtype (k_scale / v_scale unused), 1 = int8 codes
 // with fp32 scales k_scale / v_scale [num_blocks, Nkv], 2 = the pool holds
@@ -1412,14 +1518,15 @@ extern "C" {
 // scales unused). q_lens may be null:
 // every row then has `span` queries. route: 0 = CUDA cores (any dtype and
 // tile), 1 = tensor cores (bf16, span_tile x group of 16..64 rows), 2 =
-// split-KV tensor cores (bf16, one query tile of span x group < 16 rows,
-// head dim 64 or 128; `num_splits` splits of `split_keys` keys, a multiple
+// split-KV tensor cores (bf16, one query tile of span x group < 16 rows;
+// `num_splits` splits of `split_keys` keys, a multiple
 // of 64 and of the block size, covering max_blocks x block_size keys;
 // `workspace` holds batch x Nkv x num_splits x rows x (head_dim + 2) fp32,
 // `tickets` batch x Nkv int32 zeros, which the launch leaves at zero;
 // launches that share the tickets must run in stream order). Routes 0 and
-// 1 ignore the last four. Returns a cudaError_t: 0 on a successful launch,
-// cudaErrorInvalidValue for arguments the route does not take. The launch
+// 1 ignore the last four. Returns 0 on a successful launch, kErrSharedMemory
+// (-1) when the route needs more shared memory than a block may have, else a
+// cudaError_t: cudaErrorInvalidValue for arguments the route does not take. The launch
 // is asynchronous on `stream`; nothing is allocated and nothing
 // synchronises.
 int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
@@ -1476,12 +1583,22 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
   } else if (route != 0) {
     return int(err);
   }
-  if (head_dim == 64) return int(launch_route<64>(route, dtype, kv_dtype, p, sa, batch, s));
-  if (head_dim == 128) return int(launch_route<128>(route, dtype, kv_dtype, p, sa, batch, s));
+  if (head_dim == 64) return launch_route<64>(route, dtype, kv_dtype, p, sa, batch, s);
+  if (head_dim == 128) return launch_route<128>(route, dtype, kv_dtype, p, sa, batch, s);
+  if (head_dim == 256) return launch_route<256>(route, dtype, kv_dtype, p, sa, batch, s);
   return int(err);
 }
 
+// The message of a launch's return: for kErrSharedMemory both sizes of
+// this thread's last refused launch.
 const char* distllm_rpa_error_string(int err) {
+  if (err == kErrSharedMemory) {
+    static thread_local char message[128];
+    snprintf(message, sizeof message,
+             "needs %lld bytes of shared memory a block; the device allows %lld",
+             smem_needed, smem_allowed);
+    return message;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

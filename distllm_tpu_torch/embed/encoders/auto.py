@@ -1,13 +1,17 @@
 """Auto encoder: a local HF checkpoint directory to the port's model
-(counterpart of ``distllm_tpu.embed.encoders.auto``; the BERT family only).
+(counterpart of ``distllm_tpu.embed.encoders.auto``).
 
-``config.json``'s ``model_type`` picks the model; ``half_precision``
+``config.json``'s ``model_type`` picks the model: ``bert``, or any decoder
+family of ``models.decoder_families`` (mistral, llama, qwen2, gemma,
+gemma2: embedding models such as SFR-Embedding-Mistral ride the decoder
+forward, ``mistral.apply``, with ``last_token`` pooling); ``half_precision``
 picks bf16 activations (fp32 otherwise); the weights are read with
 ``models.loader`` and the tokenizer is the checkpoint's own HF tokenizer.
 ``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
 bitsandbytes flag) quantizes the checkpoint's fp32 dense kernels on the
 device, as the JAX encoder quantizes its fp32 parameters, so the codes
-are the JAX package's. Other model types are not ported yet and raise.
+are the JAX package's. The other encoder families (esm, modernbert) are
+not ported yet and raise (ROADMAP A8), Mixtral too (A10).
 """
 
 from __future__ import annotations
@@ -17,11 +21,15 @@ import dataclasses
 import torch
 
 from distllm_tpu_torch.embed.encoders.base import TorchEncoder
-from distllm_tpu_torch.models import bert
+from distllm_tpu_torch.models import bert, decoder_family
 from distllm_tpu_torch.models.loader import read_checkpoint, read_hf_config
 from distllm_tpu_torch.models.tokenizer import HFTokenizer
 from distllm_tpu_torch.ops.quantization import normalize_mode
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
+
+
+# Encoder families of the JAX auto encoder not ported yet (ROADMAP A8).
+_NOT_PORTED_ENCODERS = ('esm', 'modernbert')
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -48,18 +56,22 @@ class AutoEncoder(TorchEncoder):
         device = resolve_device(device)
         hf_cfg = read_hf_config(config.pretrained_model_name_or_path)
         model_type = hf_cfg.get('model_type', 'bert')
-        if model_type != 'bert':
+        if model_type == 'bert':
+            cfg_cls, module = bert.BertConfig, bert
+        elif model_type in _NOT_PORTED_ENCODERS:
             raise NotImplementedError(
                 f'model_type {model_type!r} is not ported to distllm_tpu_torch '
-                'yet: the auto encoder serves the BERT family (ROADMAP A8)'
+                'yet (ROADMAP A8)'
             )
-        model_cfg = bert.BertConfig.from_hf_config(hf_cfg)
+        else:  # a decoder family; anything else raises there
+            cfg_cls, module = decoder_family(model_type)
+        model_cfg = cfg_cls.from_hf_config(hf_cfg)
         model_cfg.dtype = 'bfloat16' if config.half_precision else 'float32'
         mode = normalize_mode(config.quantization)
         state = read_checkpoint(config.pretrained_model_name_or_path)
         # Quantized: the dense kernels stay fp32 until the quantizer has
         # read them (biases are cast to the activation dtype at use).
-        params = bert.params_from_hf(
+        params = module.params_from_hf(
             state, model_cfg, device=device, dtype='float32' if mode else None
         )
         tokenizer = HFTokenizer(
@@ -70,7 +82,7 @@ class AutoEncoder(TorchEncoder):
         )
         super().__init__(
             config=config,
-            apply_fn=bert.apply,
+            apply_fn=module.apply,
             model_cfg=model_cfg,
             params=params,
             tokenizer=tokenizer,

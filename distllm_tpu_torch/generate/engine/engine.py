@@ -103,7 +103,10 @@ from distllm_tpu_torch.generate.engine.scheduler import (
 from distllm_tpu_torch.generate.engine.spec import PromptLookupDrafter
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import bucket_ladder, pick_bucket
-from distllm_tpu_torch.ops.paged_attention import kv_storage_dtype
+from distllm_tpu_torch.ops.paged_attention import (
+    kv_storage_dtype,
+    resolve_attn_backend,
+)
 from distllm_tpu_torch.ops.quantization import (
     MODES,
     quantize_pytree,
@@ -317,13 +320,17 @@ class EngineConfig(BaseConfig):
 
 
 class LLMEngine:
-    """Drives a Mistral-family decoder with paged KV + continuous batching.
+    """Drives a decoder of the Mistral forward (Mistral, Llama, Qwen2, and
+    Gemma / Gemma-2 through a ``GemmaConfig``) with paged KV + continuous
+    batching.
 
     ``params`` must already live on ``device`` (``None`` = the GPU; raises
-    without one). ``attn_backend='auto'`` attends through
-    ``ops.paged_attention.ragged_paged_attention`` (the CUDA kernel on the
-    GPU, the plain op on the CPU); ``'reference'`` pins the plain op on
-    any device. ``qmm_backend`` does the same for the int8 projections
+    without one). ``attn_backend`` is resolved once, here
+    (``ops.paged_attention.resolve_attn_backend``, kept in
+    ``self.attn_backend``): ``'auto'`` attends through
+    ``ops.paged_attention.ragged_paged_attention`` (kernel K1) on the GPU,
+    and is refused there for a head dim K1 lacks; on the CPU it is the
+    plain op; ``'reference'`` pins the plain op on any device. ``qmm_backend`` does the same for the int8 projections
     (``ops.quantized_matmul``; ``None`` = the model config's). With ``config.quantization`` the float leaves of
     ``params`` are quantized here; ``own_params=True`` lets the engine
     drop each source leaf from the caller's dict as its codes appear
@@ -333,7 +340,7 @@ class LLMEngine:
 
     def __init__(
         self,
-        model_cfg: mistral.MistralConfig,
+        model_cfg: mistral.MistralConfig,  # or a GemmaConfig
         params: dict,
         tokenizer,
         config: EngineConfig | None = None,
@@ -342,12 +349,8 @@ class LLMEngine:
         qmm_backend: str | None = None,
         own_params: bool = False,
     ) -> None:
-        if attn_backend not in mistral.ATTN_BACKENDS:
-            raise ValueError(
-                f'attn_backend must be one of {mistral.ATTN_BACKENDS}, '
-                f'got {attn_backend!r}'
-            )
         self.device = resolve_device(device)
+        attn_backend = resolve_attn_backend(attn_backend, model_cfg, self.device)
         if params['embed'].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed'].device}, engine device is "
@@ -1440,6 +1443,7 @@ class LLMEngine:
             for key, value in run.items()
         }
         self.telemetry.update(
+            attn_backend=self.attn_backend,
             quantization=self.config.quantization,
             qmm_backend=self.qmm_backend,
             kv_cache_dtype=self.kv_cache_dtype,

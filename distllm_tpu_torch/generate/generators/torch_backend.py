@@ -3,9 +3,11 @@
 The counterpart of ``distllm_tpu.generate.generators.tpu_backend
 .TpuGenerator``: the same sampling surface (temperature, ``top_p`` XOR
 ``min_p``, ``max_tokens``) and engine capacity knobs, with the model built
-from a :class:`~distllm_tpu_torch.models.mistral.MistralConfig` — random
-weights made on the device from ``seed``, or params bridged from the JAX
-package (:func:`~distllm_tpu_torch.models.mistral.params_from_jax`).
+from a :class:`~distllm_tpu_torch.models.mistral.MistralConfig` (or a
+:class:`~distllm_tpu_torch.models.gemma.GemmaConfig` for the Gemma
+families) — random weights made on the device from ``seed``, or params
+bridged from the JAX package
+(:func:`~distllm_tpu_torch.models.mistral.params_from_jax`).
 ``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
 bitsandbytes flag) serves weight-only quantized weights: int8 projections
 run through kernel K2. The serving knobs of the JAX generator config
@@ -34,6 +36,9 @@ from distllm_tpu_torch.ops.quantization import normalize_mode
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
 
 
+# min_p when neither top_p nor min_p is set (the reference's default).
+_DEFAULT_MIN_P = 0.1
+
 # Fields passed on to EngineConfig as they are, when set.
 _ENGINE_KNOBS = (
     'enable_prefix_cache', 'decode_steps', 'sampling_top_window',
@@ -48,8 +53,10 @@ class TorchGeneratorConfig(BaseConfig):
         default_factory=mistral.MistralConfig
     )
     temperature: float = 0.5
-    # Reference behaviour: a set top_p wins and min_p is then ignored.
-    min_p: float = 0.1
+    # Reference behaviour: a set top_p wins and min_p (0.1 when not set)
+    # is then ignored; setting both to nonzero values is refused, as the
+    # JAX config refuses it.
+    min_p: float | None = None
     top_p: float = 0.0
     max_tokens: int = 2000
     # Engine capacity knobs (vLLM analogues).
@@ -81,8 +88,10 @@ class TorchGeneratorConfig(BaseConfig):
     def validate(self) -> None:
         if self.max_tokens < 1:
             raise ValueError('max_tokens must be >= 1')
-        if self.top_p < 0 or self.min_p < 0:
+        if self.top_p < 0 or (self.min_p or 0.0) < 0:
             raise ValueError('top_p and min_p must be >= 0')
+        if self.top_p and self.min_p:
+            raise ValueError('Only one of top_p or min_p can be set')
         self.engine_config()  # refuses what the engine would refuse
 
     def engine_config(self) -> EngineConfig:
@@ -137,10 +146,15 @@ class TorchGenerator:
         self.engine.warmup()
 
     def sampling_params(self) -> SamplingParams:
+        min_p = self.config.min_p
+        if self.config.top_p:
+            min_p = 0.0
+        elif min_p is None:
+            min_p = _DEFAULT_MIN_P
         return SamplingParams(
             temperature=self.config.temperature,
             top_p=self.config.top_p or 1.0,
-            min_p=0.0 if self.config.top_p else self.config.min_p,
+            min_p=min_p,
             max_tokens=self.config.max_tokens,
         )
 

@@ -18,11 +18,18 @@ from distllm_tpu_torch.ops.quantization import QTensor
 from distllm_tpu_torch.ops.quantized_matmul import int8_dense
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm with fp32 statistics, cast back to ``x``'s dtype."""
+def rms_norm(
+    x: torch.Tensor, scale: torch.Tensor, eps: float, plus_one: bool = False
+) -> torch.Tensor:
+    """RMSNorm with fp32 statistics, cast back to ``x``'s dtype.
+    ``plus_one``: the Gemma ``(1 + w)`` parameterization (HF
+    ``GemmaRMSNorm``), so loaded weights stay byte-identical to HF."""
     x32 = x.float()
     normed = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
-    return (normed * scale.float()).to(x.dtype)
+    w = scale.float()
+    if plus_one:
+        w = 1.0 + w
+    return (normed * w).to(x.dtype)
 
 
 def dense(
@@ -80,6 +87,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping ``tanh(x / cap) * cap`` (attention
+    scores and final logits)."""
+    return torch.tanh(x / cap) * cap
+
+
 ACTIVATIONS = {
     'gelu': gelu,
     'gelu_tanh': gelu_tanh,
@@ -101,6 +114,25 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, s, n * h)
 
 
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """GQA: expand ``[B, S, N_kv, H]`` to ``[B, S, N_kv * n_rep, H]``
+    (each KV head repeated for its group of query heads)."""
+    if n_rep == 1:
+        return x
+    b, s, n, h = x.shape
+    return x[:, :, :, None, :].expand(b, s, n, n_rep, h).reshape(b, s, n * n_rep, h)
+
+
+def causal_mask(
+    q_len: int, kv_len: int, offset: int = 0, device=None
+) -> torch.Tensor:
+    """Boolean ``[q_len, kv_len]`` causal mask: query i sees keys
+    ``<= i + offset``."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    return kv_pos <= q_pos
+
+
 # jax.nn.dot_product_attention's mask value: -0.7 x the dtype's max, large
 # and finite, so a fully masked query row softmaxes to a uniform average.
 _MASK_VALUE_SCALE = -0.7
@@ -111,21 +143,37 @@ def sdpa(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
-    mask: 'torch.Tensor | None' = None,  # [B, S_kv] key-validity mask
+    mask: 'torch.Tensor | None' = None,  # [B, S_kv] or [B, N, S_q, S_kv]
     scale: float | None = None,
+    logit_softcap: float | None = None,
 ) -> torch.Tensor:
-    """Non-causal scaled dot-product attention over ``[B, S, N, H]``
-    tensors with a boolean key mask — the form the BERT ``'xla'`` branch
-    uses, with ``jax.nn.dot_product_attention``'s XLA arithmetic: scores
-    in fp32, masked keys set to ``-0.7 * finfo(float32).max``, softmax in
-    fp32, probabilities cast to V's dtype, the weighted sum accumulated in
-    fp32 and returned in V's dtype."""
+    """Scaled dot-product attention over ``[B, S, N, H]`` tensors with a
+    boolean mask — a ``[B, S_kv]`` key mask (the BERT ``'xla'`` branch) or
+    a broadcastable ``[B, N, S_q, S_kv]`` one (the decoders' causal and
+    window masks) — with ``jax.nn.dot_product_attention``'s XLA
+    arithmetic: scores in fp32, masked entries set to ``-0.7 *
+    finfo(float32).max``, softmax in fp32, probabilities cast to V's
+    dtype, the weighted sum accumulated in fp32 and returned in V's dtype.
+    K/V with fewer heads than q (GQA) are repeated per group; a
+    ``logit_softcap`` (Gemma-2) caps the scaled scores before the mask,
+    as the JAX softcap branch does (which then keeps p in fp32)."""
+    if k.shape[2] != q.shape[2]:
+        k = repeat_kv(k, q.shape[2] // k.shape[2])
+        v = repeat_kv(v, q.shape[2] // v.shape[2])
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     scores = torch.einsum('bqnh,bknh->bnqk', q.float(), k.float()) * scale
+    if logit_softcap is not None:
+        scores = softcap(scores, logit_softcap)
     if mask is not None:
+        if mask.dim() == 2:
+            mask = mask[:, None, None, :]
         fill = _MASK_VALUE_SCALE * torch.finfo(torch.float32).max
-        scores = scores.masked_fill(~mask.bool()[:, None, None, :], fill)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        scores = scores.masked_fill(~mask.bool(), fill)
+    probs = torch.softmax(scores, dim=-1)
+    if logit_softcap is None:
+        # The fused path rounds p to V's dtype; the JAX softcap branch
+        # weighs V by the fp32 probabilities.
+        probs = probs.to(v.dtype)
     out = torch.einsum('bnqk,bknh->bqnh', probs.float(), v.float())
     return out.to(v.dtype)
 

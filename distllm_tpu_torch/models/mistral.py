@@ -1,5 +1,6 @@
-"""Mistral/Llama-family decoder over the paged KV cache (PyTorch
-counterpart of ``distllm_tpu.models.mistral``, the serving half).
+"""Mistral/Llama/Qwen2-family decoder, and through its Gemma knobs the
+Gemma families (``models/gemma.py``), over the paged KV cache and as a
+dense forward (PyTorch counterpart of ``distllm_tpu.models.mistral``).
 
 Parameters are a plain dict shaped like the JAX pytree: per-layer weights
 stacked on a leading ``L`` axis, kernels laid out ``[in, out]``::
@@ -30,7 +31,17 @@ graph captures).
 Every one of them reaches attention through ``ops.paged_attention`` —
 the CUDA kernel for CUDA tensors, the plain op for CPU tensors;
 ``attn_backend='reference'`` pins the plain op on any device (the
-card-side identity check).
+card-side identity check). The Gemma knobs of :class:`MistralConfig`
+(the JAX config's eight, with its defaults) act in every one of them: the
+activation, the embedding multiplier, ``(1 + w)`` norms, gemma2's
+sandwich norms, the query scale and attention softcap handed to the
+attention op, the final-logit softcap, and the per-layer window
+(:func:`_layer_window`: a Python value per layer, so a captured graph
+holds it as a constant).
+
+Dense forward: :func:`apply` / :func:`prefill` (whole sequences through
+``common.sdpa``, the embedding path of the ``auto`` encoder); weights
+from an HF checkpoint with :func:`params_from_hf`.
 
 The pool planes ``[L, num_blocks, block_size, N_kv, Hd]`` are written IN
 PLACE (the JAX functions are pure and return new caches); the functions
@@ -48,6 +59,7 @@ import torch
 
 from distllm_tpu_torch.models import common
 from distllm_tpu_torch.ops.paged_attention import (
+    ATTN_BACKENDS,
     QuantizedKV,
     ragged_paged_attention,
     ragged_paged_attention_reference,
@@ -59,15 +71,24 @@ from distllm_tpu_torch.ops.quantized_matmul import QMM_BACKENDS
 from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens, verify_spans
 from distllm_tpu_torch.utils import BaseConfig, torch_dtype
 
-ATTN_BACKENDS = ('auto', 'reference')
+
+# MistralConfig's float fields: a YAML float without a dot ('1e-6') loads
+# as a string.
+_FLOAT_FIELDS = (
+    'rope_theta', 'rms_norm_eps', 'embedding_multiplier', 'query_scale',
+    'attn_logit_softcap', 'final_logit_softcap',
+)
 
 
 @dataclasses.dataclass
 class MistralConfig(BaseConfig):
     """Decoder geometry; the defaults are Mistral-7B
     (``mistralai/Mistral-7B-Instruct-v0.2`` widths), as in the JAX
-    ``MistralConfig``."""
+    ``MistralConfig``. The same forward serves Llama and Qwen2 (Q/K/V
+    biases) and, through the Gemma knobs that ``models.gemma`` sets, the
+    Gemma families; their defaults keep every other family as it was."""
 
+    name: str = 'mistral'
     vocab_size: int = 32000
     hidden_size: int = 4096
     num_layers: int = 32
@@ -82,6 +103,17 @@ class MistralConfig(BaseConfig):
     sliding_window: int | None = None
     tie_word_embeddings: bool = False
     attention_bias: bool = False
+    # --- Gemma-family knobs (the JAX config's, with its defaults) ---
+    activation: str = 'silu'  # MLP gate activation (gemma: 'gelu_new')
+    embedding_multiplier: float | None = None  # gemma: sqrt(hidden_size)
+    norm_plus_one: bool = False  # gemma RMSNorm computes (1 + w)
+    post_norms: bool = False  # gemma2 sandwich norms around attention and MLP
+    query_scale: float | None = None  # gemma2 query_pre_attn_scalar ** -0.5
+    attn_logit_softcap: float | None = None  # gemma2 tanh cap on scores
+    final_logit_softcap: float | None = None  # gemma2 tanh cap on logits
+    # 'all': every layer uses sliding_window (Mistral); 'alternating':
+    # gemma2's even layers local, odd layers global.
+    sliding_window_pattern: str = 'all'
     # Quantized-matmul tier of every projection over an int8 weight
     # (``ops.quantized_matmul``): 'auto' = kernel K2 on CUDA, the plain
     # version on the CPU; 'reference' = the plain version anywhere. The
@@ -89,18 +121,67 @@ class MistralConfig(BaseConfig):
     qmm_backend: str = 'auto'
     dtype: str = 'bfloat16'
 
+    # The values ``name`` may take in this class.
+    NAMES = ('mistral',)
+
     def validate(self) -> None:
+        # Take a number in a string as the JAX config's pydantic fields do.
+        for name in _FLOAT_FIELDS:
+            if isinstance(getattr(self, name), str):
+                setattr(self, name, float(getattr(self, name)))
+        if self.name not in self.NAMES:
+            raise ValueError(
+                f'{type(self).__name__}.name must be one of {self.NAMES}, '
+                f'got {self.name!r}'
+            )
         if self.num_heads % self.num_kv_heads:
             raise ValueError('num_heads must be a multiple of num_kv_heads')
         if self.qmm_backend not in QMM_BACKENDS:
             raise ValueError(
                 f'qmm_backend must be one of {QMM_BACKENDS}, got {self.qmm_backend!r}'
             )
+        if self.activation not in common.ACTIVATIONS:
+            raise ValueError(
+                f'activation must be one of {sorted(common.ACTIVATIONS)}, '
+                f'got {self.activation!r}'
+            )
+        if self.sliding_window_pattern not in ('all', 'alternating'):
+            raise ValueError(
+                "sliding_window_pattern must be 'all' or 'alternating', got "
+                f'{self.sliding_window_pattern!r}'
+            )
         torch_dtype(self.dtype)
 
     @property
     def head_size(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    @classmethod
+    def from_hf_config(cls, hf: dict) -> 'MistralConfig':
+        """Map an HF ``config.json`` dict of the mistral, llama or qwen2
+        family (the JAX mapping)."""
+        return cls(
+            vocab_size=hf['vocab_size'],
+            hidden_size=hf['hidden_size'],
+            num_layers=hf['num_hidden_layers'],
+            num_heads=hf['num_attention_heads'],
+            num_kv_heads=hf.get('num_key_value_heads', hf['num_attention_heads']),
+            head_dim=hf.get('head_dim'),
+            intermediate_size=hf['intermediate_size'],
+            max_position_embeddings=hf.get('max_position_embeddings', 32768),
+            rope_theta=hf.get('rope_theta', 10000.0),
+            rope_scaling=hf.get('rope_scaling'),
+            rms_norm_eps=hf.get('rms_norm_eps', 1e-5),
+            # Qwen2 configs carry sliding_window even when
+            # use_sliding_window is false: honour the switch (Mistral
+            # configs have none; absent means enabled if set).
+            sliding_window=(
+                hf.get('sliding_window')
+                if hf.get('use_sliding_window', True) else None
+            ),
+            tie_word_embeddings=hf.get('tie_word_embeddings', False),
+            attention_bias=hf.get('attention_bias', hf.get('model_type') == 'qwen2'),
+        )
 
 
 def init(
@@ -109,11 +190,12 @@ def init(
     device: 'str | torch.device' = 'cuda',
     dtype: 'str | torch.dtype | None' = None,
 ) -> dict:
-    """Random weights (normal, std 0.02; norms at 1) created directly on
-    ``device`` in ``dtype`` (default ``cfg.dtype``) at full width — the
-    ``init_on_device`` counterpart: one draw per parameter kind with its
-    leading ``L`` axis, never a host copy. ``generator`` must live on
-    ``device``; ``None`` seeds a fresh one with 0."""
+    """Random weights (normal, std 0.02; norms at their identity: 1, or 0
+    under ``norm_plus_one``) created directly on ``device`` in ``dtype``
+    (default ``cfg.dtype``) at full width — the ``init_on_device``
+    counterpart: one draw per parameter kind with its leading ``L`` axis,
+    never a host copy. ``generator`` must live on ``device``; ``None``
+    seeds a fresh one with 0."""
     device = torch.device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     if generator is None:
@@ -131,8 +213,8 @@ def init(
             out['bias'] = normal(L, shape[-1])
         return out
 
-    def ones(*shape):
-        return torch.ones(shape, device=device, dtype=dt)
+    def norm(*shape):
+        return torch.full(shape, 0.0 if cfg.norm_plus_one else 1.0, device=device, dtype=dt)
 
     params = {
         'embed': normal(cfg.vocab_size, h),
@@ -141,39 +223,27 @@ def init(
             'k': proj((h, kv_out)),
             'v': proj((h, kv_out)),
             'o': {'kernel': normal(L, q_out, h)},
-            'attn_ln': {'scale': ones(L, h)},
+            'attn_ln': {'scale': norm(L, h)},
             'gate': {'kernel': normal(L, h, i)},
             'up': {'kernel': normal(L, h, i)},
             'down': {'kernel': normal(L, i, h)},
-            'mlp_ln': {'scale': ones(L, h)},
+            'mlp_ln': {'scale': norm(L, h)},
         },
-        'final_ln': {'scale': ones(h)},
+        'final_ln': {'scale': norm(h)},
     }
+    if cfg.post_norms:
+        params['layers']['post_attn_ln'] = {'scale': norm(L, h)}
+        params['layers']['post_mlp_ln'] = {'scale': norm(L, h)}
     if not cfg.tie_word_embeddings:
         params['lm_head'] = normal(h, cfg.vocab_size)
     return params
 
 
-def params_from_jax(
-    tree: dict,
-    cfg: MistralConfig,
-    device: 'str | torch.device' = 'cuda',
-    dtype: 'str | torch.dtype | None' = None,
-) -> dict:
-    """The weight bridge: a ``distllm_tpu.models.mistral.init`` pytree whose
-    leaves the caller already turned into numpy arrays, as torch tensors
-    on ``device`` in ``dtype`` (default ``cfg.dtype``). The layout is
-    unchanged, so the port computes with exactly the JAX weights. A
-    quantized JAX leaf (a ``QTensor`` with numpy ``q``/``scale``) becomes
-    the port's :class:`QTensor` with its codes and fp32 scales as they
-    are, never cast to ``dtype``."""
-    dt = torch_dtype(dtype or cfg.dtype)
+def _to_torch(tree: dict, device, dtype) -> dict:
+    """A parameter tree of numpy arrays (quantized JAX leaves kept as
+    codes and fp32 scales) as torch tensors on ``device`` in ``dtype``."""
+    dt = torch_dtype(dtype)
     device = torch.device(device)
-    required = {'embed', 'layers', 'final_ln'}
-    if not required <= set(tree):
-        raise ValueError(f'not a mistral param tree: missing {required - set(tree)}')
-    if not cfg.tie_word_embeddings and 'lm_head' not in tree:
-        raise ValueError('untied config but the tree has no lm_head')
 
     def convert(node):
         if isinstance(node, dict):
@@ -182,7 +252,31 @@ def params_from_jax(
             return qtensor_from_jax(node, device)
         return torch.tensor(np.asarray(node, np.float32), dtype=dt, device=device)
 
-    params = convert(tree)
+    return convert(tree)
+
+
+def params_from_jax(
+    tree: dict,
+    cfg: MistralConfig,
+    device: 'str | torch.device' = 'cuda',
+    dtype: 'str | torch.dtype | None' = None,
+) -> dict:
+    """The weight bridge: a ``distllm_tpu.models.mistral.init`` pytree (or
+    a Gemma one, post-norm leaves included) whose leaves the caller
+    already turned into numpy arrays, as torch tensors on ``device`` in
+    ``dtype`` (default ``cfg.dtype``). The layout is unchanged, so the
+    port computes with exactly the JAX weights. A quantized JAX leaf (a
+    ``QTensor`` with numpy ``q``/``scale``) becomes the port's
+    :class:`QTensor` with its codes and fp32 scales as they are, never
+    cast to ``dtype``."""
+    required = {'embed', 'layers', 'final_ln'}
+    if not required <= set(tree):
+        raise ValueError(f'not a mistral param tree: missing {required - set(tree)}')
+    if not cfg.tie_word_embeddings and 'lm_head' not in tree:
+        raise ValueError('untied config but the tree has no lm_head')
+    if cfg.post_norms and not {'post_attn_ln', 'post_mlp_ln'} <= set(tree['layers']):
+        raise ValueError('post_norms config but the tree has no post-norm leaves')
+    params = _to_torch(tree, device, dtype or cfg.dtype)
     layers = params['layers']
     if layers['q']['kernel'].shape != (
         cfg.num_layers, cfg.hidden_size, cfg.num_heads * cfg.head_size
@@ -192,6 +286,74 @@ def params_from_jax(
             'the config'
         )
     return params
+
+
+def hf_state_dict(state: dict) -> dict[str, np.ndarray]:
+    """An HF state dict (torch tensors or numpy arrays) as fp32 numpy
+    arrays, keys without the ``model.`` prefix."""
+    return {
+        key.removeprefix('model.'): np.asarray(torch.as_tensor(value).float())
+        for key, value in state.items()
+    }
+
+
+def stack_layers(per_layer: list[dict]) -> dict:
+    """Per-layer parameter dicts stacked into one tree with a leading
+    ``L`` axis (the JAX ``common.stack_layers``)."""
+    first = per_layer[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([layer[k] for layer in per_layer]) for k in first}
+    return np.stack(per_layer)
+
+
+def params_from_hf(
+    state: dict,
+    cfg: MistralConfig,
+    device: 'str | torch.device' = 'cuda',
+    dtype: 'str | torch.dtype | None' = None,
+) -> dict:
+    """Convert HF ``MistralForCausalLM`` / ``MistralModel`` weights (and
+    the Llama and Qwen2 ones) with the JAX mapping: Linear ``[out, in]``
+    weights transposed to ``[in, out]``, layers stacked; Q/K/V biases
+    kept, a bias on any other projection refused; ``lm_head`` kept when
+    the embeddings are untied and the checkpoint has one (an embedding
+    model such as SFR-Embedding-Mistral has none). The tensors land on
+    ``device`` in ``dtype`` (default ``cfg.dtype``)."""
+    sd = hf_state_dict(state)
+
+    def lin(key, bias_ok=False):
+        out = {'kernel': np.ascontiguousarray(sd[key].T)}
+        bias_key = key.removesuffix('.weight') + '.bias'
+        if bias_key in sd:
+            if not bias_ok:
+                # Only Q/K/V biases reach the forward: a checkpoint with
+                # another bias must fail, not drop the weight.
+                raise ValueError(f'{bias_key}: bias unsupported on this projection')
+            out['bias'] = sd[bias_key]
+        return out
+
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f'layers.{i}'
+        layers.append({
+            'q': lin(f'{p}.self_attn.q_proj.weight', bias_ok=True),
+            'k': lin(f'{p}.self_attn.k_proj.weight', bias_ok=True),
+            'v': lin(f'{p}.self_attn.v_proj.weight', bias_ok=True),
+            'o': lin(f'{p}.self_attn.o_proj.weight'),
+            'attn_ln': {'scale': sd[f'{p}.input_layernorm.weight']},
+            'gate': lin(f'{p}.mlp.gate_proj.weight'),
+            'up': lin(f'{p}.mlp.up_proj.weight'),
+            'down': lin(f'{p}.mlp.down_proj.weight'),
+            'mlp_ln': {'scale': sd[f'{p}.post_attention_layernorm.weight']},
+        })
+    tree = {
+        'embed': sd['embed_tokens.weight'],
+        'layers': stack_layers(layers),
+        'final_ln': {'scale': sd['norm.weight']},
+    }
+    if 'lm_head.weight' in sd and not cfg.tie_word_embeddings:
+        tree['lm_head'] = np.ascontiguousarray(sd['lm_head.weight'].T)
+    return _to_torch(tree, device, dtype or cfg.dtype)
 
 
 _ROPE_CACHE: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
@@ -216,23 +378,54 @@ def _rope_tables(cfg: MistralConfig, max_len: int, device: torch.device):
 
 
 def _norm(x: torch.Tensor, scale: torch.Tensor, cfg: MistralConfig) -> torch.Tensor:
-    return common.rms_norm(x, scale, cfg.rms_norm_eps)
+    return common.rms_norm(x, scale, cfg.rms_norm_eps, plus_one=cfg.norm_plus_one)
 
 
 def _embed_tokens(params: dict, cfg: MistralConfig, input_ids: torch.Tensor):
-    return params['embed'][input_ids.long()].to(torch_dtype(cfg.dtype))
+    dt = torch_dtype(cfg.dtype)
+    x = params['embed'][input_ids.long()].to(dt)
+    if cfg.embedding_multiplier is not None:
+        # Gemma scales the embeddings by sqrt(hidden) rounded to the
+        # compute dtype (HF casts the normalizer), as the JAX code does.
+        x = x * torch.tensor(cfg.embedding_multiplier, dtype=dt).item()
+    return x
 
 
 def _mlp_block(
     normed: torch.Tensor, lp: dict, li: int, cfg: MistralConfig
 ) -> torch.Tensor:
-    """Per-layer SwiGLU MLP of layer ``li``."""
+    """Per-layer gated MLP of layer ``li`` (SwiGLU; GeGLU for Gemma)."""
     qb = cfg.qmm_backend
+    act = common.ACTIVATIONS[cfg.activation]
     gate = common.dense(normed, lp['gate']['kernel'][li], qmm_backend=qb)
     up = common.dense(normed, lp['up']['kernel'][li], qmm_backend=qb)
-    return common.dense(
-        common.silu(gate) * up, lp['down']['kernel'][li], qmm_backend=qb
-    )
+    return common.dense(act(gate) * up, lp['down']['kernel'][li], qmm_backend=qb)
+
+
+def _layer_window(cfg: MistralConfig, li: int) -> int | None:
+    """Layer ``li``'s sliding window as a Python value (``None`` = global),
+    so a captured graph holds it as a constant: ``cfg.sliding_window`` on
+    every layer, or with the ``'alternating'`` pattern (gemma2) on the even
+    layers only — the JAX ``_layer_window_flags``."""
+    if cfg.sliding_window_pattern == 'alternating' and li % 2:
+        return None
+    return cfg.sliding_window
+
+
+def _residual_block(
+    x: torch.Tensor, attn: torch.Tensor, lp: dict, li: int, cfg: MistralConfig
+) -> torch.Tensor:
+    """The rest of layer ``li`` after attention (``attn`` with its heads
+    merged): the output projection, the residual adds, the MLP, and with
+    ``post_norms`` (gemma2) the sandwich norms on both branches."""
+    attn_out = common.dense(attn, lp['o']['kernel'][li], qmm_backend=cfg.qmm_backend)
+    if cfg.post_norms:
+        attn_out = _norm(attn_out, lp['post_attn_ln']['scale'][li], cfg)
+    x = x + attn_out
+    mlp = _mlp_block(_norm(x, lp['mlp_ln']['scale'][li], cfg), lp, li, cfg)
+    if cfg.post_norms:
+        mlp = _norm(mlp, lp['post_mlp_ln']['scale'][li], cfg)
+    return x + mlp
 
 
 def _proj(
@@ -266,12 +459,109 @@ def _attention(attn_backend: str):
 
 
 def logits(params: dict, cfg: MistralConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head: ``[..., H]`` hidden -> fp32 ``[..., V]`` logits."""
+    """LM head: ``[..., H]`` hidden -> fp32 ``[..., V]`` logits (tanh
+    soft-capped under ``final_logit_softcap``)."""
     if cfg.tie_word_embeddings or 'lm_head' not in params:
         kernel = params['embed'].t()
     else:
         kernel = params['lm_head']
-    return common.dense(hidden, kernel, qmm_backend=cfg.qmm_backend).float()
+    out = common.dense(hidden, kernel, qmm_backend=cfg.qmm_backend).float()
+    if cfg.final_logit_softcap is not None:
+        out = common.softcap(out, cfg.final_logit_softcap)
+    return out
+
+
+def _dense_mask(attention_mask: torch.Tensor, window: int | None) -> torch.Tensor:
+    """Causal x key-validity boolean mask ``[B, 1, S, S]``, limited to the
+    sliding ``window`` when one is given (the JAX ``_attn_mask``)."""
+    seq = attention_mask.shape[1]
+    dev = attention_mask.device
+    mask = common.causal_mask(seq, seq, device=dev)
+    if window is not None:
+        pos = torch.arange(seq, device=dev)
+        mask = mask & (pos[None, :] > pos[:, None] - window)
+    return mask[None, None] & attention_mask.bool()[:, None, None, :]
+
+
+def _forward(
+    params: dict,
+    cfg: MistralConfig,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    *,
+    collect_kv: bool,
+    mesh=None,
+    seq_parallel: str | None = None,
+):
+    """The dense causal forward over whole sequences (positions 0..S-1):
+    attention through ``common.sdpa`` with each layer's causal and window
+    mask (gemma2: windowed even layers, global odd ones), the query scale
+    and the logit softcap. Returns ``(hidden [B, S, H], k, v)`` with the
+    per-layer K/V ``[L, B, S, N_kv, Hd]`` when ``collect_kv``, else
+    ``None`` for both."""
+    if mesh is not None or seq_parallel is not None:
+        raise NotImplementedError(
+            'sequence parallelism (mesh / seq_parallel) is not ported to '
+            'distllm_tpu_torch yet (ROADMAP A10)'
+        )
+    b, s = input_ids.shape
+    hd = cfg.head_size
+    cos, sin = _rope_tables(cfg, s, input_ids.device)
+    positions = torch.arange(s, device=input_ids.device)[None].expand(b, s)
+    windows = [_layer_window(cfg, li) for li in range(cfg.num_layers)]
+    masks = {w: _dense_mask(attention_mask, w) for w in set(windows)}
+    x = _embed_tokens(params, cfg, input_ids)
+    lp = params['layers']
+    ks, vs = [], []
+    for li in range(cfg.num_layers):
+        normed = _norm(x, lp['attn_ln']['scale'][li], cfg)
+        q = _proj(normed, lp, 'q', li, cfg).reshape(b, s, cfg.num_heads, hd)
+        k = _proj(normed, lp, 'k', li, cfg).reshape(b, s, cfg.num_kv_heads, hd)
+        v = _proj(normed, lp, 'v', li, cfg).reshape(b, s, cfg.num_kv_heads, hd)
+        q = common.apply_rope(q, cos, sin, positions)
+        k = common.apply_rope(k, cos, sin, positions)
+        attn = common.sdpa(
+            q, k, v, mask=masks[windows[li]], scale=cfg.query_scale,
+            logit_softcap=cfg.attn_logit_softcap,
+        )
+        x = _residual_block(x, common.merge_heads(attn), lp, li, cfg)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    hidden = _norm(x, params['final_ln']['scale'], cfg)
+    if collect_kv:
+        return hidden, torch.stack(ks), torch.stack(vs)
+    return hidden, None, None
+
+
+def apply(
+    params: dict,
+    cfg: MistralConfig,
+    input_ids: torch.Tensor,  # [B, S]
+    attention_mask: torch.Tensor,  # [B, S], nonzero = valid
+    *,
+    mesh=None,
+    seq_parallel: str | None = None,
+) -> torch.Tensor:
+    """Dense causal forward: ``[B, S]`` -> last hidden states ``[B, S, H]``
+    (the embedding path: SFR-Embedding-Mistral with last-token pooling).
+    ``mesh`` / ``seq_parallel`` (sequence parallelism) raise: ROADMAP A10."""
+    hidden, _, _ = _forward(
+        params, cfg, input_ids, attention_mask, collect_kv=False,
+        mesh=mesh, seq_parallel=seq_parallel,
+    )
+    return hidden
+
+
+def prefill(
+    params: dict,
+    cfg: MistralConfig,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`apply` that also returns the per-layer K/V
+    ``[L, B, S, N_kv, Hd]``."""
+    return _forward(params, cfg, input_ids, attention_mask, collect_kv=True)
 
 
 def prefill_paged(
@@ -323,13 +613,10 @@ def prefill_paged(
         write_chunk_kv(k_layer, v_layer, k, v, block_tables, positions, valid)
         attn = attend(
             q, k_layer, v_layer, block_tables, context_lens,
-            positions, q_lens=tail_lens, sliding_window=cfg.sliding_window,
+            positions, q_lens=tail_lens, sliding_window=_layer_window(cfg, li),
+            scale=cfg.query_scale, logit_softcap=cfg.attn_logit_softcap,
         )
-        x = x + common.dense(
-            attn.reshape(b, s, cfg.num_heads * hd), lp['o']['kernel'][li],
-            qmm_backend=cfg.qmm_backend,
-        )
-        x = x + _mlp_block(_norm(x, lp['mlp_ln']['scale'][li], cfg), lp, li, cfg)
+        x = _residual_block(x, attn.reshape(b, s, cfg.num_heads * hd), lp, li, cfg)
     hidden = _norm(x, params['final_ln']['scale'], cfg)
     if all_logits:
         return logits(params, cfg, hidden), k_cache, v_cache
@@ -371,13 +658,10 @@ def _decode_core(
         write_token_kv(k_layer, v_layer, k, v, block_tables, positions)
         attn = attend(
             q, k_layer, v_layer, block_tables, context_lens,
-            pos_span, sliding_window=cfg.sliding_window,
+            pos_span, sliding_window=_layer_window(cfg, li),
+            scale=cfg.query_scale, logit_softcap=cfg.attn_logit_softcap,
         )
-        x = x + common.dense(
-            attn.reshape(b, cfg.num_heads * hd), lp['o']['kernel'][li],
-            qmm_backend=cfg.qmm_backend,
-        )
-        x = x + _mlp_block(_norm(x, lp['mlp_ln']['scale'][li], cfg), lp, li, cfg)
+        x = _residual_block(x, attn.reshape(b, cfg.num_heads * hd), lp, li, cfg)
     hidden = _norm(x, params['final_ln']['scale'], cfg)
     return logits(params, cfg, hidden), k_cache, v_cache
 

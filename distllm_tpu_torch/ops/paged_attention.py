@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 import math
 from typing import NamedTuple
 
@@ -65,13 +66,16 @@ _MAX_TILE_ROWS = 64
 # The tensor-core route takes bf16 tiles of at least one mma's 16 rows;
 # the split-KV route takes the bf16 tiles of fewer.
 _MIN_MMA_ROWS = 16
-KERNEL_HEAD_DIMS = (64, 128)
+# Head dims of the kernel, on every route and KV mode (256: the Gemma
+# families; the Pallas kernel takes any multiple of 128).
+KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {'cuda_cores': 0, 'tensor_cores': 1, 'split_kv': 2}
 # The split-KV route's plan: a block takes its split in steps of 64 keys
 # (four warps of 16), a split holds at least SPLIT_MIN_KEYS keys when the
-# row has that many, and the grid aims at SPLIT_BLOCKS_PER_SM blocks per
-# SM (two fit an SM's shared memory) when every row is full.
+# row has that many, and the grid aims at split_blocks_per_sm(head_dim)
+# blocks per SM when every row is full: SPLIT_BLOCKS_PER_SM at head dims 64
+# and 128, where two blocks' rings fit an SM's shared memory, one at 256.
 SPLIT_STEP_KEYS = 64
 SPLIT_MIN_KEYS = 128
 SPLIT_BLOCKS_PER_SM = 2
@@ -79,6 +83,47 @@ SPLIT_BLOCKS_PER_SM = 2
 # other full-precision dtype ('mixed': a bf16 pool under fp32 q, an fp32
 # pool under bf16 q).
 KV_MODES = {'model': 0, 'int8': 1, 'mixed': 2}
+
+
+# The attention selector of the engine and the model functions: 'auto' is
+# ragged_paged_attention (K1 for CUDA tensors, its plain version for CPU
+# tensors, as every wrapper); 'reference' pins the plain version on any
+# device (the card-side identity check).
+ATTN_BACKENDS = ('auto', 'reference')
+
+
+def supports_model(model_cfg) -> bool:
+    """Does kernel K1 serve this model? K1 takes the logit softcap, a
+    custom scale and a per-layer window natively, so it is the head dim
+    alone (the JAX ``supports_model``, over the head dims the port's
+    kernel has)."""
+    return model_cfg.head_size in KERNEL_HEAD_DIMS
+
+
+def resolve_attn_backend(attn_backend: str, model_cfg, device: torch.device) -> str:
+    """The attention backend an engine serves with, resolved once at its
+    construction and never per call (the JAX ``resolve_attn_backend``):
+    ``'auto'`` stays ``'auto'`` (kernel K1) on a CUDA device and is
+    ``'reference'`` on the CPU; ``'auto'`` on a CUDA device for a head dim
+    K1 lacks raises here, naming it, rather than serve the plain op on the
+    card."""
+    if attn_backend not in ATTN_BACKENDS:
+        raise ValueError(
+            f'attn_backend must be one of {ATTN_BACKENDS}, got {attn_backend!r}'
+        )
+    resolved = attn_backend
+    if attn_backend == 'auto' and device.type != 'cuda':
+        resolved = 'reference'
+    elif attn_backend == 'auto' and not supports_model(model_cfg):
+        raise ValueError(
+            f'kernel K1 has no head dim {model_cfg.head_size} (it has '
+            f"{KERNEL_HEAD_DIMS}); attn_backend='reference' pins the plain "
+            f'paged-attention op on {device}'
+        )
+    logging.getLogger(__name__).info(
+        'attn_backend=%r resolved to %r on %s', attn_backend, resolved, device
+    )
+    return resolved
 
 
 class QuantizedKV(NamedTuple):
@@ -374,8 +419,15 @@ def kernel_route(dtype: torch.dtype, span: int, group: int) -> str:
     return 'cuda_cores'
 
 
+def split_blocks_per_sm(head_dim: int) -> int:
+    """The split-KV grid's blocks per SM at ``head_dim``: a block's four
+    rings take about 206 KiB at 256, so one fits an SM there."""
+    return 1 if head_dim > 128 else SPLIT_BLOCKS_PER_SM
+
+
 def split_plan(
     max_keys: int, batch: int, num_kv_heads: int, sms: int, block_size: int = 16,
+    head_dim: int = 128,
 ) -> tuple[int, int]:
     """The split-KV route's ``(num_splits, split_keys)`` for rows of at
     most ``max_keys`` keys (``max_blocks * block_size``), from shapes the
@@ -386,12 +438,13 @@ def split_plan(
       unless one split covers every key;
     - the splits tile ``[0, max_keys)`` exactly once: ``(num_splits - 1) *
       split_keys < max_keys <= num_splits * split_keys``;
-    - ``1 <= num_splits <= ceil(SPLIT_BLOCKS_PER_SM * sms / (batch *
-      num_kv_heads))``: the grid (splits, Nkv, B) fills the card about
-      twice over when every row is full, and no more.
+    - ``1 <= num_splits <= ceil(split_blocks_per_sm(head_dim) * sms /
+      (batch * num_kv_heads))``: the grid (splits, Nkv, B) fills the card
+      as many times over as a block fits an SM when every row is full,
+      and no more.
     """
     unit = math.lcm(SPLIT_STEP_KEYS, block_size)
-    target = -(-SPLIT_BLOCKS_PER_SM * sms // (batch * num_kv_heads))
+    target = -(-split_blocks_per_sm(head_dim) * sms // (batch * num_kv_heads))
     splits = max(1, min(target, max_keys // SPLIT_MIN_KEYS))
     split_keys = -(-max_keys // splits // unit) * unit  # ceil(ceil(max_keys / splits) / unit)
     return -(-max_keys // split_keys), split_keys
@@ -500,6 +553,11 @@ def comparison_tolerance(
     return tol
 
 
+# distllm_rpa_launch's return for a route that needs more shared memory
+# than the device gives a block: refused, never served by another route.
+_ERR_SHARED_MEMORY = -1
+
+
 def _kernel():
     """The kernel's C entry point, with its ctypes signature declared."""
     lib = _build.load('ragged_paged_attention')
@@ -544,8 +602,9 @@ def ragged_paged_attention_cuda(
     than fp32/bf16, a pool other than fp32, bf16 or int8 ``QuantizedKV``
     (or K and V pools of two dtypes), one pool quantized and the other
     not, scales that are not fp32 ``[nb,
-    Nkv]``, a head dim other than 64/128, a non-contiguous pool or scale,
-    or a tensor sliding window.
+    Nkv]``, a head dim other than 64/128/256, a non-contiguous pool or
+    scale, a tensor sliding window, or a configuration whose route needs
+    more shared memory than the device gives a block.
     """
     quantized = _check_pools(k_cache, v_cache)
     k_data, v_data = _kv_data(k_cache), _kv_data(v_cache)
@@ -602,7 +661,7 @@ def ragged_paged_attention_cuda(
     if route == 'split_kv':
         max_keys = bt.shape[1] * block_size
         splits, split_keys = split_plan(
-            max_keys, b, num_kv_heads, _sm_count(q.device.index), block_size
+            max_keys, b, num_kv_heads, _sm_count(q.device.index), block_size, head_dim
         )
         workspace = torch.empty(
             b * num_kv_heads * splits * span_tile * group * (head_dim + 2),
@@ -610,8 +669,8 @@ def ragged_paged_attention_cuda(
         )
         tickets = _tickets(q.device, b * num_kv_heads)
         split = (workspace.data_ptr(), tickets.data_ptr(), splits, split_keys)
-    out = torch.empty_like(q)
     lib, fn = _kernel()
+    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), *scales,
@@ -624,6 +683,13 @@ def ragged_paged_attention_cuda(
             KERNEL_DTYPES[q.dtype], KV_MODES[kv_mode], ROUTES[route], *split,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
+    if err == _ERR_SHARED_MEMORY:
+        raise ValueError(
+            f'ragged_paged_attention: the {route} route at head dim {head_dim} '
+            f'over a {kv_mode} pool ({span_tile * group} query rows, '
+            f'{bt.shape[1]} table blocks of {block_size}, {split[2]} splits of '
+            f'{split[3]} keys) {lib.distllm_rpa_error_string(err).decode()}'
+        )
     if err:
         raise RuntimeError(
             f'ragged_paged_attention kernel launch failed ({route} route, '
@@ -633,6 +699,7 @@ def ragged_paged_attention_cuda(
     ragged_paged_attention.launches += 1
     ragged_paged_attention.launches_by_route[route] += 1
     ragged_paged_attention.launches_by_kv[kv_mode] += 1
+    ragged_paged_attention.launches_by_head_dim[head_dim] += 1
     return out
 
 
@@ -659,7 +726,8 @@ def ragged_paged_attention(
     route (``'tensor_cores'`` / ``'split_kv'`` / ``'cuda_cores'``) and
     ``ragged_paged_attention.launches_by_kv`` per KV mode (``'model'``: a
     pool in q's dtype; ``'int8'``: a :class:`QuantizedKV` pool;
-    ``'mixed'``: a full-precision pool of the other dtype).
+    ``'mixed'``: a full-precision pool of the other dtype), and
+    ``ragged_paged_attention.launches_by_head_dim`` per head dim.
     """
     args = (q, k_cache, v_cache, block_tables, context_lens, q_positions)
     kwargs = {
@@ -676,6 +744,7 @@ def ragged_paged_attention(
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 ragged_paged_attention.launches_by_kv = dict.fromkeys(KV_MODES, 0)
+ragged_paged_attention.launches_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
 
 # Every launch counter of this module, as (function, attribute): what a
 # CUDA graph that captured launches adds back on each replay
@@ -685,6 +754,7 @@ COUNTERS = (
     (ragged_paged_attention, 'launches_by_route'),
     (ragged_paged_attention, 'launches_by_kv'),
     (ragged_paged_attention_reference, 'launches'),
+    (ragged_paged_attention, 'launches_by_head_dim'),
 )
 
 

@@ -1,0 +1,204 @@
+"""The port's chat app YAML against the JAX ``ChatAppConfig``.
+
+One YAML must mean the same thing to both packages, or fail in the port
+with the ROADMAP item that brings what it asks for:
+
+- the prefix cache: an engine backend serves with it on unless the YAML
+  says otherwise (the JAX ``build_generator`` default, read here from the
+  kwargs it hands ``get_generator``);
+- retrieval: ``retrieval_top_k``, ``retrieval_score_threshold`` and
+  ``transcript_dir`` are read and validated as the JAX fields are, unknown
+  keys are refused, and a ``retriever_config`` raises (ROADMAP A9):
+  ``examples/chat/chat_server.rag.yaml`` loads in JAX and is refused here;
+- the backend name: ``tpu``, ``vllm`` and ``torch`` build the engine,
+  ``fake`` and ``http`` raise (ROADMAP A11);
+- ``top_p`` with ``min_p``: both set is refused, as JAX refuses it; a set
+  ``top_p`` alone turns ``min_p`` off;
+- a ``model`` mapping picks its config class by ``name`` (``gemma2``).
+"""
+
+from pathlib import Path
+
+import pytest
+import yaml
+
+import distllm_tpu.generate
+from distllm_tpu.chat import ChatAppConfig as JaxChatAppConfig
+from distllm_tpu.generate.generators.tpu_backend import TpuGeneratorConfig
+from distllm_tpu_torch.chat import ChatAppConfig
+from distllm_tpu_torch.chat_server import load_app_config
+from distllm_tpu_torch.generate.generators.torch_backend import (
+    TorchGenerator,
+    TorchGeneratorConfig,
+)
+from distllm_tpu_torch.models.gemma import GemmaConfig
+from distllm_tpu_torch.models.mistral import MistralConfig
+
+RAG_YAML = Path(__file__).resolve().parents[1] / 'examples' / 'chat' / 'chat_server.rag.yaml'
+TINY_MODEL = {
+    'vocab_size': 64, 'hidden_size': 32, 'num_layers': 2, 'num_heads': 4,
+    'num_kv_heads': 2, 'intermediate_size': 64, 'dtype': 'float32',
+}
+
+
+def _engine_yaml(tmp_path, name='torch', **generator):
+    raw = {
+        'system_prompt': 'Be brief.',
+        'generator_config': {
+            'name': name, 'temperature': 0.0, 'max_tokens': 4, 'num_blocks': 32,
+            'max_num_seqs': 2, 'max_model_len': 64, 'device': 'cpu',
+            'model': dict(TINY_MODEL), **generator,
+        },
+    }
+    path = tmp_path / 'app.yaml'
+    path.write_text(yaml.safe_dump(raw))
+    return path, raw
+
+
+def _jax_backend_kwargs(raw, monkeypatch):
+    """What the JAX app hands ``get_generator`` for this YAML."""
+    seen = {}
+
+    def fake_get_generator(kwargs, register=False):
+        seen.update(kwargs)
+        return None
+
+    monkeypatch.setattr(distllm_tpu.generate, 'get_generator', fake_get_generator,
+                        raising=False)
+    JaxChatAppConfig(**raw).build_generator()
+    return seen
+
+
+@pytest.mark.parametrize('name', ['tpu', 'vllm', 'torch'])
+def test_engine_backends_serve_with_the_prefix_cache_on(tmp_path, monkeypatch, name):
+    path, raw = _engine_yaml(tmp_path, name=name)
+    config, system_prompt = load_app_config(str(path))
+    assert isinstance(config, TorchGeneratorConfig) and system_prompt == 'Be brief.'
+    assert config.enable_prefix_cache is True
+    assert config.engine_config().enable_prefix_cache
+    if name != 'torch':  # the JAX app knows the JAX names only
+        assert _jax_backend_kwargs(raw, monkeypatch)['enable_prefix_cache'] is True
+
+
+def test_an_explicit_cache_setting_is_kept(tmp_path, monkeypatch):
+    path, raw = _engine_yaml(tmp_path, name='tpu', enable_prefix_cache=False)
+    config, _ = load_app_config(str(path))
+    assert config.enable_prefix_cache is False
+    assert _jax_backend_kwargs(raw, monkeypatch)['enable_prefix_cache'] is False
+
+
+def test_the_yaml_serves_through_the_engine_with_the_cache(tmp_path):
+    path, _ = _engine_yaml(tmp_path)
+    config, _ = load_app_config(str(path))
+    generator = TorchGenerator(config)
+    assert generator.engine.prefix_cache is not None
+    assert len(generator.generate(['a b c', 'a b c d'])) == 2
+    generator.shutdown()
+
+
+def test_the_rag_example_is_refused_until_retrieval_is_ported():
+    raw = yaml.safe_load(RAG_YAML.read_text())
+    jax_app = JaxChatAppConfig(**raw)
+    assert jax_app.retriever_config is not None and jax_app.retrieval_top_k == 20
+    with pytest.raises(NotImplementedError, match='A9'):
+        load_app_config(str(RAG_YAML))
+
+
+@pytest.mark.parametrize('fields', [
+    {},
+    {'retrieval_top_k': 7, 'retrieval_score_threshold': 0.25, 'transcript_dir': 'out/t'},
+    {'retrieval_top_k': '12', 'retrieval_score_threshold': 1, 'transcript_dir': None},
+    {'retrieval_top_k': 5.0, 'retrieval_score_threshold': '0.5', 'retriever_config': None},
+    {'retrieval_top_k': True, 'system_prompt': ''},
+], ids=['defaults', 'set', 'coerced', 'float_int', 'bool'])
+def test_retrieval_keys_read_as_the_jax_fields(fields):
+    raw = {'generator_config': {'name': 'torch'}, **fields}
+    jax_app = JaxChatAppConfig(**raw)
+    app = ChatAppConfig.from_dict(raw)
+    for key in ('retrieval_top_k', 'retrieval_score_threshold', 'transcript_dir',
+                'system_prompt', 'retriever_config', 'generator_config'):
+        assert getattr(app, key) == getattr(jax_app, key), key
+        assert type(getattr(app, key)) is type(getattr(jax_app, key)), key
+
+
+@pytest.mark.parametrize('fields', [
+    {'retrieval_top_k': 2.5},
+    {'retrieval_top_k': 'x'},
+    {'retrieval_top_k': None},
+    {'retrieval_score_threshold': 'x'},
+    {'transcript_dir': 3},
+    {'system_prompt': None},
+    {'generator_config': None},
+    {'retriver_config': None},  # a misspelt key
+], ids=['frac', 'str', 'none', 'thr', 'dir', 'prompt', 'gen', 'extra'])
+def test_bad_app_fields_are_refused_as_in_jax(fields):
+    with pytest.raises(ValueError):
+        JaxChatAppConfig(**fields)
+    with pytest.raises(ValueError):
+        ChatAppConfig.from_dict(fields)
+
+
+@pytest.mark.parametrize('name', ['fake', 'http'])
+def test_fake_and_http_backends_wait_on_a11(tmp_path, name):
+    path = tmp_path / 'app.yaml'
+    path.write_text(yaml.safe_dump({'generator_config': {'name': name}}))
+    with pytest.raises(NotImplementedError, match='A11'):
+        load_app_config(str(path))
+    path.write_text('system_prompt: hi\n')  # the JAX default backend is fake
+    with pytest.raises(NotImplementedError, match='A11'):
+        load_app_config(str(path))
+
+
+def test_jax_generator_fields_the_port_lacks_wait_on_a6(tmp_path):
+    path, _ = _engine_yaml(tmp_path, request_deadline_s=30.0)
+    with pytest.raises(NotImplementedError, match='A6'):
+        load_app_config(str(path))
+
+
+def test_top_p_and_min_p_as_the_jax_config():
+    ckpt = {'pretrained_model_name_or_path': '/nonexistent'}
+    with pytest.raises(ValueError, match='Only one of top_p or min_p'):
+        TpuGeneratorConfig(top_p=0.9, min_p=0.2, **ckpt)
+    with pytest.raises(ValueError, match='Only one of top_p or min_p'):
+        TorchGeneratorConfig(top_p=0.9, min_p=0.2)
+    for fields in ({'top_p': 0.9}, {'min_p': 0.2}, {}, {'top_p': 0.0, 'min_p': 0.3}):
+        jax_cfg = TpuGeneratorConfig(**fields, **ckpt)
+        sp = TorchGenerator.sampling_params(
+            type('G', (), {'config': TorchGeneratorConfig(**fields)})()
+        )
+        want_top_p = jax_cfg.top_p or 1.0
+        assert (sp.top_p, sp.min_p) == pytest.approx((want_top_p, jax_cfg.min_p)), fields
+
+
+def test_a_gemma2_model_is_named_in_the_yaml(tmp_path):
+    model = {**TINY_MODEL, 'name': 'gemma2', 'head_dim': 8, 'sliding_window': 4,
+             'sliding_window_pattern': 'alternating', 'post_norms': True,
+             'norm_plus_one': True, 'activation': 'gelu_new'}
+    path, _ = _engine_yaml(tmp_path, model=model)
+    config, _ = load_app_config(str(path))
+    assert type(config.model) is GemmaConfig and config.model.name == 'gemma2'
+    for family in ('mistral', 'llama', 'qwen2'):
+        path, _ = _engine_yaml(tmp_path, model={**TINY_MODEL, 'name': family})
+        config, _ = load_app_config(str(path))
+        assert type(config.model) is MistralConfig and config.model.name == 'mistral'
+    path, _ = _engine_yaml(tmp_path, model={**TINY_MODEL, 'name': 'mixtral'})
+    with pytest.raises(NotImplementedError, match='A10'):
+        load_app_config(str(path))
+
+
+def test_a_float_written_without_a_dot_reads_as_in_jax(tmp_path):
+    """YAML loads ``1e-6`` (no dot) as a string; the JAX config's pydantic
+    field takes it as a number, and so does the port's config."""
+    from distllm_tpu.models.gemma import GemmaConfig as JaxGemmaConfig
+
+    path = tmp_path / 'app.yaml'
+    path.write_text(
+        'generator_config:\n  name: torch\n  device: cpu\n'
+        '  model: {name: gemma2, rms_norm_eps: 1e-6, rope_theta: 1e4, num_layers: 2}\n'
+    )
+    raw = yaml.safe_load(path.read_text())['generator_config']['model']
+    assert raw['rms_norm_eps'] == '1e-6'
+    config, _ = load_app_config(str(path))
+    want = JaxGemmaConfig(**raw)
+    assert config.model.rms_norm_eps == want.rms_norm_eps == 1e-6
+    assert config.model.rope_theta == want.rope_theta == 1e4

@@ -64,6 +64,13 @@ from distllm_tpu_torch.ops import quantized_matmul as tqm
 
 pytestmark = pytest.mark.gpu
 
+# K2's launch count in a captured step's counter delta (the decode graph
+# module's COUNTERS order: K1's counters, then K2's, then K3's).
+_K2_LAUNCHES = next(
+    i for i, (fn, name) in enumerate(tpa.COUNTERS + tqm.COUNTERS)
+    if fn is tqm.int8_matmul and name == 'launches'
+)
+
 
 @pytest.fixture
 def cuda():
@@ -1128,7 +1135,7 @@ def test_launch_counts_after_replays_are_the_captured_counts(cuda, case):
     delta = runner.graphs[True].delta
     assert delta[0] == layers and delta[1][route] == layers
     assert delta[2]['int8' if case == 'int8_pool' else 'model'] == layers
-    assert delta[4] == (7 * layers if case == 'int8_weights' else 0)
+    assert delta[_K2_LAUNCHES] == (7 * layers if case == 'int8_weights' else 0)
     tpa.ragged_paged_attention.launches = 0
     tpa.ragged_paged_attention.launches_by_route = dict.fromkeys(tpa.ROUTES, 0)
     tqm.int8_matmul.launches_by_route = dict.fromkeys(tqm.ROUTES, 0)
@@ -1512,7 +1519,7 @@ def test_verify_graph_windows_equal_the_eager_spec_window_bitwise(cuda, case, dr
     route = 'cuda_cores' if case == 'fp32' else tpa.kernel_route(
         torch.bfloat16, 1 + draft_k, GRAPH_CFG['num_heads'] // GRAPH_CFG['num_kv_heads'])
     assert delta[0] == layers and delta[1][route] == layers
-    assert delta[4] == (7 * layers if case == 'int8_weights' else 0)
+    assert delta[_K2_LAUNCHES] == (7 * layers if case == 'int8_weights' else 0)
     prompts = _spec_prompts(1)
     sampling = [SamplingParams(temperature=0.0, max_tokens=n) for n in (12, 5, 20, 9, 16, 7)]
     if sampled:
@@ -1597,3 +1604,127 @@ def test_spec_rejected_drafts_leave_tokens_pool_and_blocks_as_never_drafted(cuda
 
 def test_spec_rollback_check_catches_a_missing_trim(cuda):
     assert not _rollback_holds(mutant_skips_trim=True)
+
+
+# ------------------------------------------------- K1 at head dim 256
+# Gemma-2-9B's attention geometry: 16 query heads over 8 KV heads.
+HD256 = dict(nh=16, nkv=8, hd=256)
+HD256_ROUTES = [
+    # (q dtype, span, route): decode rows and spans of 3 (tiles of 2 and
+    # 6 rows) on the split-KV route, spans of 300 on the tensor cores, fp32
+    # on the CUDA cores.
+    ('bfloat16', 1, 'split_kv'),
+    ('bfloat16', 3, 'split_kv'),
+    ('bfloat16', 300, 'tensor_cores'),
+    ('float32', 1, 'cuda_cores'),
+    ('float32', 70, 'cuda_cores'),
+]
+
+
+def _hd256_case(seed, q_dtype, span, kv):
+    """Rows at the head-dim-256 split plan's edges (contexts 1, a split's
+    length - 1, one split, one split + 1, 4096) and a ``q_lens = 0`` row,
+    over a pool of q's dtype, int8 codes, or the other full-precision
+    dtype (the mixed mode)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sk = tpa.split_plan(4096, 6, HD256['nkv'], sms, 16, HD256['hd'])[1]
+    ctxs = [1, sk - 1, sk, sk + 1, 4096, 300]
+    ctxs = [max(n, span) for n in ctxs[:-1]] + [300]
+    q_lens = [span] * 5 + [0]
+    if kv == 'int8':
+        return _int8_case(seed, dtype=q_dtype, ctxs=ctxs, q_lens=q_lens, span=span, **HD256)
+    if kv == 'mixed':
+        other = 'float32' if q_dtype == 'bfloat16' else 'bfloat16'
+        return _mixed_case(seed, q_dtype, other, ctxs=ctxs, q_lens=q_lens, span=span, **HD256)
+    return _case(seed, dtype=q_dtype, ctxs=ctxs, q_lens=q_lens, span=span, **HD256)
+
+
+@pytest.mark.parametrize('q_dtype,span,route', HD256_ROUTES)
+@pytest.mark.parametrize('kv', ['model', 'int8', 'mixed'])
+@pytest.mark.parametrize('window,softcap,scale', [
+    (None, None, None), (100, 50.0, 256 ** -0.5), (4096, 50.0, 0.05),
+])
+def test_head_dim_256_on_every_route_and_kv_mode(cuda, q_dtype, span, route, kv, window,
+                                                 softcap, scale):
+    """Head dim 256 on every route and KV mode, within the route's
+    tolerance: Gemma-2's softcap 50 and query scale, windows inside a
+    split and at Gemma-2's 4096."""
+    case = _hd256_case(60 + span, q_dtype, span, kv)
+    _check(case, q_dtype, route=route, sliding_window=window, logit_softcap=softcap,
+           scale=scale)
+    assert tpa.ragged_paged_attention.launches_by_head_dim[256] > 0
+
+
+@pytest.mark.parametrize('q_dtype,span,route', HD256_ROUTES[::2])
+@pytest.mark.parametrize('kv', ['model', 'mixed'])
+def test_head_dim_256_nan_trash_block_never_reaches_an_output(cuda, q_dtype, span, route, kv):
+    case = _hd256_case(61, q_dtype, span, kv)
+    assert _route(case) == route
+    clean = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    case['args'][1][0] = float('nan')
+    case['args'][2][0] = float('nan')
+    poisoned = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert torch.equal(clean, poisoned)
+
+
+def test_head_dim_256_split_kv_launches_are_bitwise_reproducible(cuda):
+    case = _hd256_case(62, 'bfloat16', 1, 'mixed')  # the one-deep rings
+    first = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    second = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert torch.equal(first, second)
+
+
+def test_a_configuration_that_does_not_fit_raises(cuda):
+    """fp32 at head dim 256 with 128 query heads over one KV head: route
+    0's 128-row tile needs more shared memory than a block may have. The
+    launch refuses it, naming both sizes; nothing launches, and the plain
+    version does not serve it either."""
+    case = _case(63, nh=128, nkv=1, hd=256, dtype='float32', ctxs=[40], q_lens=[1], span=1)
+    launches = tpa.ragged_paged_attention.launches
+    plain = tpa.ragged_paged_attention_reference.launches
+    with pytest.raises(ValueError, match=r'needs \d+ bytes of shared memory a block; the '
+                                         r'device allows \d+'):
+        tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    assert tpa.ragged_paged_attention.launches == launches
+    assert tpa.ragged_paged_attention_reference.launches == plain
+    # The same heads at head dim 128 fit (a 128-row tile of 128 wide).
+    small = _case(63, nh=128, nkv=1, hd=128, dtype='float32', ctxs=[40], q_lens=[1], span=1)
+    _check(small, 'float32', route='cuda_cores')
+
+
+def test_gemma2_engine_on_the_kernel_matches_the_plain_op(cuda):
+    """A gemma2-shaped fp32 model at depth 2 (head dim 256, layer 0 with a
+    window of 24, layer 1 global, softcaps, sandwich norms) served on the
+    card: greedy tokens on K1 equal those on the plain op, past the
+    window, with and without speculation and mixed windows."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import gemma
+
+    cfg = gemma.GemmaConfig(
+        name='gemma2', vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=256, intermediate_size=512, dtype='float32',
+        activation='gelu_new', embedding_multiplier=16.0, norm_plus_one=True,
+        post_norms=True, query_scale=256 ** -0.5, attn_logit_softcap=50.0,
+        final_logit_softcap=30.0, sliding_window=24, sliding_window_pattern='alternating',
+        tie_word_embeddings=True, rms_norm_eps=1e-6,
+    )
+    params = gemma.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(4, 512, size=n)] for n in (5, 40, 17, 90, 3)]
+    for knobs in ({}, {'draft_k': 4, 'spec_draft_source': 'none'},
+                  {'enable_mixed_batching': True, 'prefill_chunk_tokens': 16}):
+        outs = {}
+        for backend in ('auto', 'reference'):
+            engine = LLMEngine(cfg, params, None, EngineConfig(
+                num_blocks=96, max_num_seqs=3, max_model_len=256, **knobs,
+            ), attn_backend=backend)
+            assert engine.attn_backend == backend
+            engine.warmup()
+            at_256 = tpa.ragged_paged_attention.launches_by_head_dim[256]
+            outs[backend] = engine.generate_ids(
+                prompts, SamplingParams(temperature=0.0, max_tokens=30))
+            passes = engine.telemetry['forward_passes']
+            expected = cfg.num_layers * passes if backend == 'auto' else 0
+            assert tpa.ragged_paged_attention.launches_by_head_dim[256] - at_256 == expected
+            engine.shutdown()
+        assert outs['auto'] == outs['reference'], knobs

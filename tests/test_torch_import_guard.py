@@ -55,5 +55,9 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.embed.encoders.auto',
         'distllm_tpu_torch.embed.embedders.full_sequence',
         'distllm_tpu_torch.distributed_embedding',
+        'distllm_tpu_torch.chat',
+        'distllm_tpu_torch.models',
+        'distllm_tpu_torch.models.gemma',
+        'distllm_tpu_torch.models.common',
     }
     assert expected <= set(result['imported'])
