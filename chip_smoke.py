@@ -70,9 +70,12 @@ carried on):
    (batch 512, S = 128 / 192 / 288) in bf16, partial key masks with fully
    masked rows, S = 16 and an odd S, the ``[S, S]`` window bias, fp32,
    and a head dim of 24 (both on the CUDA-core route; the route of each
-   case is printed); time kernel, plain version and
-   ``scaled_dot_product_attention`` with a key mask on pre-transposed
-   ``[B, N, S, Hd]`` inputs;
+   case is printed); then the protein and ModernBERT phases' shapes: ESM-2
+   650M (64 x 1024, 20 heads), ESM-C 600M (8 x 2048, 18 heads) and
+   ModernBERT-base (128 x 512, 12 heads, the window-128 bias); time
+   kernel, plain version and ``scaled_dot_product_attention`` with a key
+   mask (and the bias, additive) on pre-transposed ``[B, N, S, Hd]``
+   inputs;
 5. kernel K2 — hold the int8 weight-only matmul against its plain
    version elementwise within ``quantized_matmul.comparison_tolerance`` of
    the route each case takes (printed; bf16 on the tensor cores, fp32 on
@@ -222,14 +225,42 @@ carried on):
     local, layer 1 global), 6 prompts of 300..4400 tokens in chunks of
     512: greedy tokens through K1 (the CUDA cores at head dim 256) equal
     those through the plain op with speculation (``draft_k=4``) and mixed
-    windows off and on.
+    windows off and on;
+14. protein embed — ESM-2 650M at ``facebook/esm2_t33_650M_UR50D``'s
+    config (vocab 33, hidden 1280, 33 layers, 20 heads, intermediate
+    5120), bf16, random weights made on the card from seed 0, nothing
+    cut: the stages of ``embedding_worker`` under a ``workstation``
+    compute config (``max_workers: 1``) over a FASTA file of 2048 random
+    protein sequences of 50..1022 residues (seed 12), read by the
+    ``fasta`` dataset (batch 64), tokenized by ``EsmcSequenceTokenizer``
+    (ESM-2's vocabulary id for id but for id 31, which no residue
+    produces), mean-pooled, embedded by ``full_sequence`` and written by
+    ``numpy``; one warm-up pass, one timed pass. The output must be
+    ``[2048, 1280]`` fp32, finite and read back from its files; K3 must
+    launch 33 x the batches, all on the tensor-core route, its plain
+    version never. Sequences/s, residues/s, device GiB allocated and at
+    peak, and the padding share are printed;
+14b. ESM-C 600M (1152 / 36 layers / 18 heads, ffn 3072) the same way over
+    the same sequences through the ``sequence_per_line`` dataset on a copy
+    written one per line: ``[2048, 1152]``, K3 36 x batches;
+14c. ModernBERT-base at ``answerdotai/ModernBERT-base``'s config (vocab
+    50368, 768 / 22 layers / 12 heads, intermediate 1152, window 128,
+    global every 3rd layer) over phase 10's corpus (``jsonl``, batch 512,
+    the ``WhitespaceTokenizer`` at vocab 50368 and ``model_max_length``
+    512: every local layer's window cuts), L2-normalised:
+    ``[2048, 768]``, K3 22 x batches, 14 of them a batch with the
+    ``[S, S]`` window bias (counted in this phase);
+14d. identity — each of the three at full width and depth 2 in fp32:
+    pooled embeddings through K3 (the CUDA cores) and through its plain
+    version agree within phase 12's ``1e-4 * |ref| + 1e-5``.
 
-Each of phases 3d, 6f, 6g, 8d, 13 and 13b prints its seconds. The last three lines of
+Each of phases 3d, 6f, 6g, 8d, 13, 13b and 14-14d prints its seconds. The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
 ``mixed_kv``, its verify shapes under ``verify``, head dim 256 under
-``head_dim_256``, K2's embed headline and
+``head_dim_256``, K3's protein and ModernBERT shapes and launches under
+``models``, K2's embed headline and
 its verify rows under ``verify``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -262,6 +293,23 @@ PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 NUM_HEADS, NUM_KV_HEADS, HEAD_DIM, BLOCK_SIZE = 32, 8, 128, 16
 BERT_HEADS, BERT_HEAD_DIM = 12, 64
 EMBED_TEXTS, EMBED_BATCH = 2048, 512
+# Phases 14-14b: random proteins of the 20 standard residues; ESM-2's
+# 1,024-token window holds 1,022 residues and its two framing tokens.
+PROTEIN_SEQS, PROTEIN_BATCH, PROTEIN_LENS = 2048, 64, (50, 1022)
+RESIDUES = 'ACDEFGHIKLMNPQRSTVWY'
+# facebook/esm2_t33_650M_UR50D's config.json (the keys the port reads).
+ESM2_650M_HF = {
+    'vocab_size': 33, 'hidden_size': 1280, 'num_hidden_layers': 33,
+    'num_attention_heads': 20, 'intermediate_size': 5120, 'layer_norm_eps': 1e-5,
+    'token_dropout': True, 'mask_token_id': 32, 'pad_token_id': 1,
+}
+# K3's cases at the three models' shapes (phase 4): (name, batch, S, heads,
+# sliding-window half width or None). ModernBERT attends within |i - j| <= 64.
+K3_MODEL_CASES = (
+    ('esm2_650m_64x1024', 64, 1024, 20, None),
+    ('esmc_600m_8x2048', 8, 2048, 18, None),
+    ('modernbert_base_128x512_window64', 128, 512, 12, 64),
+)
 # fp32 pooled embeddings through K3 vs its plain version: the two differ
 # only in fp32 summation order inside attention (about 1e-6 relative);
 # two layers and the mean pool keep that far inside 1e-4 relative, and
@@ -1126,7 +1174,16 @@ def phase_encoder_kernel(torch, tea):
                    heads=32, head_dim=24)
     results.append(run_k3_case(torch, tea, 'hd24_64x192', case, 10))
     del case
-    torch.cuda.empty_cache()
+    # The protein and ModernBERT phases' shapes: unsorted protein batches
+    # (the embedder sorts by whitespace words, which a sequence has one
+    # of) carry rows of any length; every row at least the shortest.
+    for name, b, s, heads, window in K3_MODEL_CASES:
+        lens = rng.integers(min(s, PROTEIN_LENS[0]), s + 1, size=b)
+        lens[0] = s
+        case = k3_case(torch, rng, b, s, lens, bf16, window=window, heads=heads)
+        results.append(run_k3_case(torch, tea, name, case, 5))
+        del case
+        torch.cuda.empty_cache()
     return results
 
 
@@ -3070,52 +3127,58 @@ def phase_embed(torch, tea, card, tmp: Path, tqm=None, quantization=None):
 
 
 # -------------------------------------------------------------- phase 12
-def phase_embed_identity(torch, tea, corpus):
+def encoder_identity(torch, tea, tag, module, cfg, tokenizer, texts, batch):
+    """fp32 pooled embeddings of ``texts`` through K3 (``attn_impl='auto'``)
+    and through its plain version (``'reference'``) on the same weights
+    (seed 1) agree elementwise within ``EMBED_RTOL * |ref| + EMBED_ATOL``;
+    each run's attention calls are layers x batches, all of its kind."""
     from distllm_tpu_torch.embed import get_pooler
     from distllm_tpu_torch.embed.embedders.full_sequence import compute_embeddings
     from distllm_tpu_torch.embed.encoders.base import TorchEncoder
-    from distllm_tpu_torch.models import bert
-    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
 
-    cfg = bert.BertConfig(num_layers=2, dtype='float32')
-    params = bert.init(
-        cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE
-    )
-    # 600 texts in batches of 256: the last batch carries 168 fully masked
-    # padding rows through the kernel's -1e9 path.
-    texts = corpus.texts[:600]
+    params = module.init(cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE)
     pooler = get_pooler({'name': 'mean'})
     outs = {}
     for impl, counter in (('auto', tea.encoder_attention),
                           ('reference', tea.encoder_attention_reference)):
         encoder = TorchEncoder(
-            config=None, apply_fn=functools.partial(bert.apply, attn_impl=impl),
-            model_cfg=cfg, params=params,
-            tokenizer=WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512),
+            config=None, apply_fn=functools.partial(module.apply, attn_impl=impl),
+            model_cfg=cfg, params=params, tokenizer=tokenizer,
             embedding_size=cfg.hidden_size, device=DEVICE,
         )
         tea.encoder_attention.launches = 0
         tea.encoder_attention_reference.launches = 0
         stats = {}
-        outs[impl] = compute_embeddings(
-            texts, encoder, pooler, 256, stats=stats, device=DEVICE
-        )
+        outs[impl] = compute_embeddings(texts, encoder, pooler, batch, stats=stats, device=DEVICE)
         batches = sum(stats['bucket_batches'].values())
         calls = tea.encoder_attention.launches + tea.encoder_attention_reference.launches
         if counter.launches != cfg.num_layers * batches or calls != counter.launches:
-            fail(f'embed identity ({impl}): {counter.launches} attention calls '
-                 f'for {batches} batches')
+            fail(f'{tag} ({impl}): {counter.launches} attention calls for {batches} batches')
     ref = outs['reference']
     diff = np.abs(outs['auto'] - ref)
     err_over_tol = float((diff / (EMBED_RTOL * np.abs(ref) + EMBED_ATOL)).max())
-    log(f'[embed identity] fp32 depth-2 full width, {len(texts)} texts: kernel vs plain '
-        f'max abs err {float(diff.max()):.3e}, worst element at '
+    log(f'[{tag}] fp32 depth-2 full width, {len(texts)} texts in batches of {batch}: '
+        f'kernel vs plain max abs err {float(diff.max()):.3e}, worst element at '
         f'{err_over_tol:.3f} x (rtol {EMBED_RTOL}, atol {EMBED_ATOL})')
     if not err_over_tol <= 1.0:
-        fail('fp32 pooled embeddings through K3 and its plain version differ')
+        fail(f'{tag}: fp32 pooled embeddings through K3 and its plain version differ')
     del params
     torch.cuda.empty_cache()
     return dict(max_abs_err=float(diff.max()), err_over_tol=err_over_tol)
+
+
+def phase_embed_identity(torch, tea, corpus):
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+
+    cfg = bert.BertConfig(num_layers=2, dtype='float32')
+    # 600 texts in batches of 256: the last batch carries 168 fully masked
+    # padding rows through the kernel's -1e9 path.
+    return encoder_identity(
+        torch, tea, 'embed identity', bert, cfg,
+        WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512),
+        corpus.texts[:600], 256,
+    )
 
 
 # -------------------------------------------------------------- phase 13
@@ -3273,6 +3336,234 @@ def phase_identity_gemma2(torch, tpa):
     return dict(identical=same, identical_to_off=same_as_off, stats=stats)
 
 
+# ---------------------------------------------------------- phases 14-14d
+def protein_sequences(n: int = 0) -> list[str]:
+    """``n`` (default ``PROTEIN_SEQS``) random sequences of the 20
+    standard residues, ``PROTEIN_LENS`` long, seed 12."""
+    rng = np.random.default_rng(12)
+    residues = np.array(list(RESIDUES))
+    return [
+        ''.join(rng.choice(residues, size=int(rng.integers(PROTEIN_LENS[0], PROTEIN_LENS[1] + 1))))
+        for _ in range(n or PROTEIN_SEQS)
+    ]
+
+
+def write_proteins(path: Path) -> list[str]:
+    """:func:`protein_sequences` as FASTA with 60-residue lines; returns
+    the sequences."""
+    seqs = protein_sequences()
+    with open(path, 'w') as fh:
+        for i, seq in enumerate(seqs):
+            fh.write(f'>protein_{i} random, {len(seq)} residues\n')
+            fh.writelines(seq[j:j + 60] + '\n' for j in range(0, len(seq), 60))
+    return seqs
+
+
+def phase_encoder_embed(torch, tea, card, tmp: Path, tag, module, cfg, tokenizer, data_file,
+                        dataset_kwargs, want_texts=None, normalize=False, bias_layers=0,
+                        unit='characters'):
+    """The stages of ``distributed_embedding.embedding_worker`` over
+    ``data_file`` under a ``workstation`` compute config (one worker: this
+    process): ``module`` at ``cfg`` with random weights made on the card
+    (seed 0) in a ``TorchEncoder``, the dataset of ``dataset_kwargs``, the
+    ``mean`` pooler, ``full_sequence`` and the ``numpy`` writer; one
+    warm-up pass, one timed pass. K3 must launch layers x batches on the
+    tensor cores, ``bias_layers`` x batches of them with an ``[S, S]`` bias
+    (counted by wrapping the kernel's launcher in this phase), and its
+    plain version never. ``unit`` names the texts' characters in the
+    printed rate (a protein's are its residues)."""
+    from distllm_tpu_torch.embed import get_dataset, get_embedder, get_pooler, get_writer
+    from distllm_tpu_torch.embed.encoders.base import TorchEncoder
+    from distllm_tpu_torch.parallel.launcher import WorkstationConfig
+    from distllm_tpu_torch.timer import Timer
+
+    file_tag = data_file.name
+    torch.cuda.reset_peak_memory_stats()
+    with Timer('loaded-encoder', file_tag):
+        params = module.init(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+        encoder = TorchEncoder(
+            config=None, apply_fn=module.apply, model_cfg=cfg, params=params,
+            tokenizer=tokenizer, embedding_size=cfg.hidden_size, device=DEVICE,
+        )
+        torch.cuda.synchronize()
+    dataset = get_dataset(dataset_kwargs)
+    pooler = get_pooler({'name': 'mean'})
+    embedder = get_embedder({'name': 'full_sequence', 'normalize_embeddings': normalize})
+    writer = get_writer({'name': 'numpy'})
+    launch = tea.encoder_attention_cuda
+    bias_launches = [0]
+
+    def counting_launch(q, k, v, mask, num_heads, scale=None, bias=None):
+        bias_launches[0] += bias is not None
+        return launch(q, k, v, mask, num_heads, scale, bias)
+
+    def worker(file):
+        with Timer('loaded-dataset', file_tag):
+            corpus = dataset.read(file)
+        t0 = time.perf_counter()
+        embedder.embed(corpus, encoder, pooler, batch_size=dataset.config.batch_size)
+        warm_s = time.perf_counter() - t0
+        # The main path: counts to 0 just before, read just after.
+        tea.encoder_attention.launches = 0
+        tea.encoder_attention.launches_by_route = dict.fromkeys(tea.ROUTES, 0)
+        tea.encoder_attention_reference.launches = 0
+        tea.encoder_attention_cuda = counting_launch
+        try:
+            t0 = time.perf_counter()
+            with Timer('computed-embeddings', file_tag):
+                result = embedder.embed(
+                    corpus, encoder, pooler, batch_size=dataset.config.batch_size
+                )
+            wall_s = time.perf_counter() - t0
+        finally:
+            tea.encoder_attention_cuda = launch
+        counts = dict(launches=tea.encoder_attention.launches,
+                      launches_by_route=dict(tea.encoder_attention.launches_by_route),
+                      plain=tea.encoder_attention_reference.launches,
+                      bias_launches=bias_launches[0])
+        shard = tmp / f'shard_{tag.replace(" ", "_")}'
+        with Timer('wrote-embeddings', file_tag):
+            writer.write(shard, result)
+        return corpus, result, shard, warm_s, wall_s, counts
+
+    executor = WorkstationConfig(max_workers=1).get_executor(tmp / 'run')
+    [(corpus, result, shard, warm_s, wall_s, counts)] = executor.map(worker, [data_file])
+    gib = torch.cuda.memory_allocated() / 2**30
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    n = len(corpus.texts)
+    if want_texts is not None and corpus.texts != want_texts:
+        fail(f'{tag}: the dataset did not read the sequences that were written')
+    emb = result.embeddings
+    if emb.shape != (n, cfg.hidden_size) or emb.dtype != np.float32:
+        fail(f'{tag}: embeddings are {emb.shape} {emb.dtype}, expected '
+             f'({n}, {cfg.hidden_size}) float32')
+    if not np.isfinite(emb).all():
+        fail(f'{tag}: non-finite embeddings')
+    if normalize and not np.allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-3):
+        fail(f'{tag}: normalized embeddings are not unit vectors')
+    back = np.load(shard / 'embeddings.npy')
+    texts = np.load(shard / 'text.npy', allow_pickle=True)
+    meta = (np.load(shard / 'metadata.npy', allow_pickle=True)
+            if corpus.metadata is not None else None)
+    if (not np.array_equal(back, emb) or list(texts) != corpus.texts
+            or (meta is not None and list(meta) != corpus.metadata)):
+        fail(f'{tag}: the written shard does not read back as the embedder result')
+    stats = embedder.stats
+    batches = sum(stats['bucket_batches'].values())
+    launches, by_route = counts['launches'], counts['launches_by_route']
+    padding = 1.0 - stats['tokens_real'] / stats['tokens_padded']
+    buckets = {int(k): v for k, v in sorted(stats['bucket_batches'].items())}
+    chars = sum(len(t) for t in corpus.texts)
+    log(f'[{tag}] {type(cfg).__name__} {cfg.dtype} ({cfg.num_layers} layers, hidden '
+        f'{cfg.hidden_size}, {cfg.num_heads} heads), {n} texts of {chars} {unit}, '
+        f'batch {dataset.config.batch_size}: {n / wall_s:.1f} sequences/s, '
+        f'{chars / wall_s:.0f} {unit}/s, {stats["tokens_real"] / wall_s:.0f} real '
+        f'tokens/s ({wall_s:.3f} s; warm-up pass {warm_s:.3f} s) on {card}; '
+        f'{gib:.2f} GiB allocated, {peak_gib:.2f} GiB at peak; buckets '
+        f'{json.dumps(buckets)}; padding share {padding:.4f}; output {emb.shape} '
+        f'float32, written and read back')
+    log(f'[{tag}] encoder_attention launches {launches} = {cfg.num_layers} layers x '
+        f'{batches} batches, {counts["bias_launches"]} with the [S, S] bias; by route '
+        f'{json.dumps(by_route)}; plain version launches {counts["plain"]}')
+    if launches <= 0 or launches != cfg.num_layers * batches:
+        fail(f'{tag}: K3 launches {launches} != {cfg.num_layers} x {batches} batches')
+    if by_route['tensor_cores'] != launches:
+        fail(f'{tag}: K3 routes {by_route}: every bf16 launch at head dim 64 belongs '
+             f'on the tensor cores')
+    if counts['bias_launches'] != bias_layers * batches:
+        fail(f'{tag}: {counts["bias_launches"]} K3 launches carried the window bias, '
+             f'expected {bias_layers} x {batches} batches')
+    if counts['plain'] != 0:
+        fail(f'{tag}: the plain encoder attention ran {counts["plain"]} times')
+    encoder.shutdown()
+    del params, encoder, result
+    torch.cuda.empty_cache()
+    return dict(sequences_per_s=n / wall_s, characters_per_s=chars / wall_s,
+                real_tokens_per_s=stats['tokens_real'] / wall_s, wall_s=wall_s,
+                warm_s=warm_s, gib=gib, peak_gib=peak_gib, launches=launches,
+                launches_by_route=by_route, bias_launches=counts['bias_launches'],
+                batches=batches, buckets=buckets, padding_share=padding)
+
+
+def phase_protein_embed(torch, tea, card, tmp: Path):
+    """14: ESM-2 650M over FASTA; 14b: ESM-C 600M over the same sequences
+    one per line. Returns the results and the sequences."""
+    from distllm_tpu_torch.models import esm2, esmc
+
+    fasta = tmp / 'proteins.fasta'
+    seqs = write_proteins(fasta)
+    per_line = tmp / 'proteins.txt'
+    per_line.write_text(''.join(seq + '\n' for seq in seqs))
+    out = {}
+    t0 = time.perf_counter()
+    # ESM-2's vocabulary is ESMC_VOCAB id for id, but for id 31 ('<null_1>'
+    # against '|'), which no residue letter produces: the card has no
+    # transformers, so EsmcSequenceTokenizer tokenizes ESM-2's input.
+    out['esm2_650m'] = phase_encoder_embed(
+        torch, tea, card, tmp, 'protein esm2', esm2,
+        esm2.Esm2Config.from_hf_config(ESM2_650M_HF),
+        esmc.EsmcSequenceTokenizer(model_max_length=PROTEIN_LENS[1] + 2), fasta,
+        {'name': 'fasta', 'batch_size': PROTEIN_BATCH}, want_texts=seqs, unit='residues',
+    )
+    log(f'[protein esm2] phase 14 took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    out['esmc_600m'] = phase_encoder_embed(
+        torch, tea, card, tmp, 'protein esmc', esmc, esmc.EsmcConfig.from_hidden_size(1152),
+        esmc.EsmcSequenceTokenizer(), per_line,
+        {'name': 'sequence_per_line', 'batch_size': PROTEIN_BATCH}, want_texts=seqs,
+        unit='residues',
+    )
+    log(f'[protein esmc] phase 14b took {time.perf_counter() - t0:.1f} s')
+    return out, seqs
+
+
+def phase_modernbert_embed(torch, tea, card, tmp: Path):
+    """14c: ModernBERT-base over phase 10's corpus. Returns the result and
+    the corpus texts."""
+    from distllm_tpu_torch.models import modernbert
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+
+    corpus_file = tmp / 'corpus.jsonl'
+    write_corpus(corpus_file)
+    cfg = modernbert.ModernBertConfig()  # answerdotai/ModernBERT-base
+    local_layers = sum(not cfg.is_global(li) for li in range(cfg.num_layers))
+    result = phase_encoder_embed(
+        torch, tea, card, tmp, 'modernbert', modernbert, cfg,
+        WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512), corpus_file,
+        {'name': 'jsonl', 'batch_size': EMBED_BATCH}, normalize=True,
+        bias_layers=local_layers,
+    )
+    texts = [json.loads(line)['text'] for line in corpus_file.read_text().splitlines()]
+    return result, texts
+
+
+def phase_protein_identity(torch, tea, seqs, texts):
+    """14d: the three models at full width and depth 2 in fp32, K3 against
+    its plain version. 100 sequences in batches of 32 leave a last batch
+    of 28 fully masked rows; ModernBERT's layer 1 is local."""
+    from distllm_tpu_torch.models import esm2, esmc, modernbert
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+
+    esm2_cfg = esm2.Esm2Config.from_hf_config(ESM2_650M_HF)
+    esmc_cfg = esmc.EsmcConfig.from_hidden_size(1152)
+    mb_cfg = modernbert.ModernBertConfig()
+    for cfg in (esm2_cfg, esmc_cfg, mb_cfg):
+        cfg.num_layers, cfg.dtype = 2, 'float32'
+    return {
+        'esm2_650m': encoder_identity(
+            torch, tea, 'identity esm2', esm2, esm2_cfg,
+            esmc.EsmcSequenceTokenizer(model_max_length=PROTEIN_LENS[1] + 2), seqs[:100], 32),
+        'esmc_600m': encoder_identity(
+            torch, tea, 'identity esmc', esmc, esmc_cfg, esmc.EsmcSequenceTokenizer(),
+            seqs[:100], 32),
+        'modernbert_base': encoder_identity(
+            torch, tea, 'identity modernbert', modernbert, mb_cfg,
+            WhitespaceTokenizer(vocab_size=mb_cfg.vocab_size, model_max_length=512),
+            texts[:600], 256),
+    }
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3380,6 +3671,17 @@ def main() -> None:
     t0 = time.perf_counter()
     identity_gemma2 = phase_identity_gemma2(torch, tpa)
     log(f'[identity gemma2] phase 13b took {time.perf_counter() - t0:.1f} s')
+    # 14-14b. protein embedding (ESM-2 650M, ESM-C 600M), 14c. ModernBERT-
+    # base, 14d. the three models' fp32 identities
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_protein_') as tmp:
+        protein, seqs = phase_protein_embed(torch, tea, smi, Path(tmp))
+        t0 = time.perf_counter()
+        protein['modernbert_base'], corpus_texts = phase_modernbert_embed(
+            torch, tea, smi, Path(tmp))
+        log(f'[modernbert] phase 14c took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    identity_protein = phase_protein_identity(torch, tea, seqs, corpus_texts)
+    log(f'[identity protein] phase 14d took {time.perf_counter() - t0:.1f} s')
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
     # most frequent launch (its prefill pair beside it); K3 at the embed
@@ -3541,6 +3843,22 @@ def main() -> None:
         'bound_by': k3_head['bound_by'],
         'library_ms': k3_head['library_ms'],
         'timed_case': k3_head['case'],
+        # Phases 14-14c: launches on each model's main path, times at its
+        # phase-4 shape, and phase 14d's fp32 identity.
+        'models': {
+            name: dict(
+                {key: protein[name][key] for key in (
+                    'launches', 'launches_by_route', 'bias_launches', 'batches')},
+                identity=identity_protein[name],
+                **{key: case[key] for key in (
+                    'case', 'kernel_route', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                    'library_ms', 'max_abs_err', 'err_over_tol')},
+            )
+            for name, case in zip(
+                ('esm2_650m', 'esmc_600m', 'modernbert_base'),
+                (next(c for c in k3_cases if c['case'] == spec[0]) for spec in K3_MODEL_CASES),
+            )
+        },
         'cases': k3_cases,
     }, {
         'name': 'int8_matmul',
@@ -3618,6 +3936,12 @@ def main() -> None:
         f'{spec["oracle"]["verify_window_wall_ms"]} ms wall / '
         f'{spec["oracle"]["verify_replay_event_ms"]} ms replay event; '
         f'{time.perf_counter() - t_start:.1f} s total')
+    log(f'[protein] {json.dumps(protein)}')
+    log(f'[identity protein] {json.dumps(identity_protein)}')
+    log(f'[summary] {smi}: ' + '; '.join(
+        f'{name} {r["sequences_per_s"]:.1f} sequences/s ({r["real_tokens_per_s"]:.0f} real '
+        f'tokens/s, padding share {r["padding_share"]:.4f}, peak {r["peak_gib"]:.2f} GiB)'
+        for name, r in protein.items()) + f'; {time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')

@@ -11,8 +11,9 @@ Every entry point runs on ``cuda`` unless the caller passes
 (:func:`distllm_tpu_torch.utils.resolve_device`).
 
 Layer map of the ported slices (paged-KV serving of the Mistral, Llama,
-Qwen2 and Gemma families; the embedding pipeline over BERT and the
-decoders; int8 / nf4 weight-only quantization on both):
+Qwen2 and Gemma families; the embedding pipeline over BERT, ESM-2, ESM-C,
+ModernBERT and the decoders; int8 / nf4 weight-only quantization on
+both):
 
 - ``utils``                 — dataclass config base, dtypes, device resolution
 - ``ops.paged_attention``   — ragged paged attention: plain PyTorch op plus
@@ -25,13 +26,15 @@ decoders; int8 / nf4 weight-only quantization on both):
 - ``ops.sampling``          — logit filtering and counter-based sampling
 - ``models``                — the decoder families (``decoder_family``: one
   Mistral forward, Gemma as its config knobs) over the paged KV cache and
-  as a dense forward, the BERT encoder, tokenizers, checkpoint reading
+  as a dense forward, the BERT, ESM-2, ESM-C and ModernBERT encoders,
+  tokenizers, checkpoint reading
 - ``generate.engine``       — block allocator, scheduler, serving engine
 - ``generate.generators``   — ``TorchGenerator``
 - ``chat`` / ``chat_server`` — the chat app config, prompt template and
   the HTTP server
 - ``embed``                 — datasets, encoders, poolers, embedders, writers
 - ``distributed_embedding`` — embedding entry point (``registry``, ``timer``)
+- ``parallel.launcher``     — the ``local`` and ``workstation`` executors
 """
 
 from __future__ import annotations

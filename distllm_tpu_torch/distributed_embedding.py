@@ -6,7 +6,9 @@ either package. Each file goes through :func:`embedding_worker`: the
 registry-warm-started encoder, the dataset read, the embedder, and the
 writer into a fresh UUID shard, each stage timed by a ``[timer]`` line
 tagged as in the JAX package. The ``local`` compute config runs the files
-in this process; the other compute configs are not ported yet.
+in this process, ``workstation`` on a process pool of ``max_workers``
+(1, the default, runs them in this process too); the pod configs need
+the fabric and are refused (ROADMAP A11).
 
     python -m distllm_tpu_torch.distributed_embedding --config embed.yaml [--device cpu]
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -27,11 +30,10 @@ from typing import Any
 
 import torch
 
+from distllm_tpu_torch.parallel.launcher import get_compute_config
 from distllm_tpu_torch.timer import Timer
 from distllm_tpu_torch.utils import BaseConfig
 
-# The JAX package's compute configs that this port does not run yet.
-_NOT_PORTED_COMPUTE = ('workstation', 'pod', 'pbspro', 'slurm')
 _ENV_PATTERN = re.compile(r'\$\{env:([A-Za-z_][A-Za-z0-9_]*)\}')
 
 
@@ -110,14 +112,7 @@ class Config(BaseConfig):
     def validate(self) -> None:
         self.input_dir = Path(self.input_dir)
         self.output_dir = Path(self.output_dir)
-        name = self.compute_config.get('name', 'local')
-        if name in _NOT_PORTED_COMPUTE:
-            raise NotImplementedError(
-                f'compute_config {name!r} is not ported to distllm_tpu_torch '
-                "yet; use {'name': 'local'} (ROADMAP A8)"
-            )
-        if name != 'local':
-            raise ValueError(f'unknown compute_config name {name!r}')
+        get_compute_config(self.compute_config)
 
     @classmethod
     def from_yaml(cls, path: 'str | Path') -> 'Config':
@@ -138,9 +133,9 @@ def run_embedding(
     config: Config, device: 'str | torch.device | None' = None
 ) -> int:
     """Embed every file matching ``config.glob_patterns`` under
-    ``config.input_dir`` into ``output_dir/embeddings/<uuid>/``, in this
-    process (``device=None`` = CUDA). Returns 0, or 1 when no file
-    matched."""
+    ``config.input_dir`` into ``output_dir/embeddings/<uuid>/`` on the
+    compute config's executor (``device=None`` = CUDA). Returns 0, or 1
+    when no file matched."""
     embedding_dir = config.output_dir / 'embeddings'
     embedding_dir.mkdir(parents=True, exist_ok=True)
     # Audit copy, written as JSON: JSON is valid YAML, so either package's
@@ -156,19 +151,20 @@ def run_embedding(
         log(f'No input files matched {config.glob_patterns} in {config.input_dir}')
         return 1
     log(f'Embedding {len(files)} files -> {embedding_dir}')
-    shards = [
-        embedding_worker(
-            file,
-            output_dir=str(embedding_dir),
-            dataset_kwargs=config.dataset_config,
-            encoder_kwargs=config.encoder_config,
-            pooler_kwargs=config.pooler_config,
-            embedder_kwargs=config.embedder_config,
-            writer_kwargs=config.writer_config,
-            device=device,
-        )
-        for file in files
-    ]
+    worker_fn = functools.partial(
+        embedding_worker,
+        output_dir=str(embedding_dir),
+        dataset_kwargs=config.dataset_config,
+        encoder_kwargs=config.encoder_config,
+        pooler_kwargs=config.pooler_config,
+        embedder_kwargs=config.embedder_config,
+        writer_kwargs=config.writer_config,
+        device=device,
+    )
+    executor = get_compute_config(config.compute_config).get_executor(
+        config.output_dir / 'run'
+    )
+    shards = executor.map(worker_fn, files)
     log(f'Finished: {len(shards)} shards written')
     return 0
 

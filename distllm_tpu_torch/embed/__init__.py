@@ -1,9 +1,11 @@
 """Embedding pipeline: datasets -> encoders -> poolers -> embedders ->
 writers (the PyTorch counterpart of ``distllm_tpu.embed``), with the same
-``{'name': ..., **config}`` strategy factories. Ported strategies:
-``jsonl``; ``auto`` (BERT family); ``mean`` and ``last_token``;
-``full_sequence``; ``numpy``. The JAX package's other strategies raise
-``NotImplementedError`` naming their ROADMAP item."""
+``{'name': ..., **config}`` strategy factories and every strategy of the
+JAX package: datasets ``jsonl``, ``jsonl_chunk``, ``fasta``,
+``sequence_per_line``, ``huggingface``; encoders ``auto`` (BERT, ESM-2,
+ModernBERT and the decoder families), ``esm2``, ``esmc``, ``fake``;
+poolers ``mean``, ``last_token``; embedders ``full_sequence``,
+``semantic_chunk``; writers ``numpy``, ``huggingface``."""
 
 from distllm_tpu_torch.embed.datasets import get_dataset
 from distllm_tpu_torch.embed.embedders import get_embedder

@@ -1,5 +1,5 @@
-"""Embedder strategy factory (the ported part of
-``distllm_tpu.embed.embedders``: ``full_sequence``)."""
+"""Embedder strategy factory (counterpart of
+``distllm_tpu.embed.embedders``)."""
 
 from __future__ import annotations
 
@@ -11,13 +11,18 @@ from distllm_tpu_torch.embed.embedders.full_sequence import (
     FullSequenceEmbedder,
     FullSequenceEmbedderConfig,
 )
+from distllm_tpu_torch.embed.embedders.semantic_chunk import (
+    SemanticChunkEmbedder,
+    SemanticChunkEmbedderConfig,
+)
 
 STRATEGIES: dict[str, tuple[type, type]] = {
     'full_sequence': (FullSequenceEmbedderConfig, FullSequenceEmbedder),
+    'semantic_chunk': (SemanticChunkEmbedderConfig, SemanticChunkEmbedder),
 }
 
 
-def get_embedder(kwargs: dict[str, Any]) -> FullSequenceEmbedder:
+def get_embedder(kwargs: dict[str, Any]):
     return _factory.build('embedder', STRATEGIES, kwargs)
 
 

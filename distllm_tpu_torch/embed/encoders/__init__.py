@@ -11,10 +11,20 @@ import torch
 from distllm_tpu_torch.embed import _factory
 from distllm_tpu_torch.embed.encoders.auto import AutoEncoder, AutoEncoderConfig
 from distllm_tpu_torch.embed.encoders.base import Encoder, TorchEncoder
+from distllm_tpu_torch.embed.encoders.esm2 import (
+    Esm2Encoder,
+    Esm2EncoderConfig,
+    EsmCambrianEncoder,
+    EsmCambrianEncoderConfig,
+)
+from distllm_tpu_torch.embed.encoders.fake import FakeEncoder, FakeEncoderConfig
 from distllm_tpu_torch.registry import registry
 
 STRATEGIES: dict[str, tuple[type, type]] = {
     'auto': (AutoEncoderConfig, AutoEncoder),
+    'esm2': (Esm2EncoderConfig, Esm2Encoder),
+    'esmc': (EsmCambrianEncoderConfig, EsmCambrianEncoder),
+    'fake': (FakeEncoderConfig, FakeEncoder),
 }
 
 

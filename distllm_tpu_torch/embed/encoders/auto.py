@@ -1,17 +1,17 @@
 """Auto encoder: a local HF checkpoint directory to the port's model
 (counterpart of ``distllm_tpu.embed.encoders.auto``).
 
-``config.json``'s ``model_type`` picks the model: ``bert``, or any decoder
-family of ``models.decoder_families`` (mistral, llama, qwen2, gemma,
-gemma2: embedding models such as SFR-Embedding-Mistral ride the decoder
-forward, ``mistral.apply``, with ``last_token`` pooling); ``half_precision``
+``config.json``'s ``model_type`` picks the model: the encoder families
+``bert``, ``esm`` (ESM-2) and ``modernbert``, or any decoder family of
+``models.decoder_families`` (mistral, llama, qwen2, gemma, gemma2:
+embedding models such as SFR-Embedding-Mistral ride the decoder forward,
+``mistral.apply``, with ``last_token`` pooling); ``half_precision``
 picks bf16 activations (fp32 otherwise); the weights are read with
 ``models.loader`` and the tokenizer is the checkpoint's own HF tokenizer.
 ``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
 bitsandbytes flag) quantizes the checkpoint's fp32 dense kernels on the
 device, as the JAX encoder quantizes its fp32 parameters, so the codes
-are the JAX package's. The other encoder families (esm, modernbert) are
-not ported yet and raise (ROADMAP A8), Mixtral too (A10).
+are the JAX package's. Mixtral is not ported yet and raises (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -21,15 +21,18 @@ import dataclasses
 import torch
 
 from distllm_tpu_torch.embed.encoders.base import TorchEncoder
-from distllm_tpu_torch.models import bert, decoder_family
+from distllm_tpu_torch.models import bert, decoder_family, esm2, modernbert
 from distllm_tpu_torch.models.loader import read_checkpoint, read_hf_config
 from distllm_tpu_torch.models.tokenizer import HFTokenizer
 from distllm_tpu_torch.ops.quantization import normalize_mode
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
 
-
-# Encoder families of the JAX auto encoder not ported yet (ROADMAP A8).
-_NOT_PORTED_ENCODERS = ('esm', 'modernbert')
+# The encoder-only families; every other model_type is a decoder family.
+_ENCODER_FAMILIES = {
+    'bert': (bert.BertConfig, bert),
+    'esm': (esm2.Esm2Config, esm2),
+    'modernbert': (modernbert.ModernBertConfig, modernbert),
+}
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -56,13 +59,8 @@ class AutoEncoder(TorchEncoder):
         device = resolve_device(device)
         hf_cfg = read_hf_config(config.pretrained_model_name_or_path)
         model_type = hf_cfg.get('model_type', 'bert')
-        if model_type == 'bert':
-            cfg_cls, module = bert.BertConfig, bert
-        elif model_type in _NOT_PORTED_ENCODERS:
-            raise NotImplementedError(
-                f'model_type {model_type!r} is not ported to distllm_tpu_torch '
-                'yet (ROADMAP A8)'
-            )
+        if model_type in _ENCODER_FAMILIES:
+            cfg_cls, module = _ENCODER_FAMILIES[model_type]
         else:  # a decoder family; anything else raises there
             cfg_cls, module = decoder_family(model_type)
         model_cfg = cfg_cls.from_hf_config(hf_cfg)

@@ -15,31 +15,23 @@ them; the dense kernels and biases are held in the model dtype. The JAX
 code casts its fp32 weights to the activation dtype at each use; casting
 once at load gives the same values. Dense products are ``torch.matmul``
 (the JAX package leaves them to XLA); attention goes through
-``ops.encoder_attention`` — the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors. A dense kernel may be an int8-quantized
-``QTensor`` (``TorchEncoder(quantization='int8')``); ``common.dense`` then
-sends it through kernel K2 (``ops.quantized_matmul``).
+``common.encoder_attend`` (``attn_impl``: ``'auto'``, ``'reference'``,
+``'xla'``) to ``ops.encoder_attention`` — the CUDA kernel for CUDA
+tensors, its plain version for CPU tensors. A dense kernel may be an
+int8-quantized ``QTensor`` (``TorchEncoder(quantization='int8')``);
+``common.dense`` then sends it through kernel K2
+(``ops.quantized_matmul``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from distllm_tpu_torch.models import common
-from distllm_tpu_torch.ops.encoder_attention import (
-    encoder_attention,
-    encoder_attention_reference,
-)
-from distllm_tpu_torch.ops.quantization import is_jax_qtensor, qtensor_from_jax
-from distllm_tpu_torch.utils import BaseConfig, resolve_device, torch_dtype
+from distllm_tpu_torch.utils import BaseConfig, torch_dtype
 
-# 'auto': ops.encoder_attention (the kernel on CUDA, the plain version on
-# the CPU); 'reference': the plain version on any device (the card-side
-# identity check); 'xla': split heads + common.sdpa, the JAX 'xla' branch.
-ATTN_IMPLS = ('auto', 'reference', 'xla')
 _DENSE = ('q', 'k', 'v', 'o', 'up', 'down')
 _NORMS = ('attn_ln', 'mlp_ln')
 
@@ -109,41 +101,9 @@ def _shapes(cfg: BertConfig) -> dict:
     }
 
 
-def _place(tree: dict, cfg: BertConfig, device, dtype) -> dict:
-    """Check ``tree`` against the config's shapes and move it to
-    ``device``: dense kernels and biases in ``dtype``, everything else
-    fp32. Raises ``ValueError`` on a missing key or a wrong shape."""
-    dt = torch_dtype(dtype or cfg.dtype)
-
-    def walk(node, shapes, path, model_dtype):
-        if isinstance(shapes, dict):
-            if not isinstance(node, dict) or set(node) != set(shapes):
-                got = sorted(node) if isinstance(node, dict) else type(node)
-                raise ValueError(
-                    f'not a bert param tree at {path or "root"}: expected '
-                    f'keys {sorted(shapes)}, got {got}'
-                )
-            return {
-                key: walk(node[key], shapes[key], f'{path}/{key}',
-                          model_dtype or (path == '/layers' and key in _DENSE))
-                for key in shapes
-            }
-        if is_jax_qtensor(node):  # codes and fp32 scales kept as they are
-            if tuple(node.shape) != shapes:
-                raise ValueError(
-                    f'{path}: shape {tuple(node.shape)} does not match the '
-                    f'config ({shapes})'
-                )
-            return qtensor_from_jax(node, device)
-        value = torch.tensor(np.asarray(node, np.float32))
-        if tuple(value.shape) != shapes:
-            raise ValueError(
-                f'{path}: shape {tuple(value.shape)} does not match the '
-                f'config ({shapes})'
-            )
-        return value.to(device=device, dtype=dt if model_dtype else torch.float32)
-
-    return walk(tree, _shapes(cfg), '', False)
+def _in_model_dtype(path: tuple) -> bool:
+    """Dense kernels and biases are held in the model dtype."""
+    return path[0] == 'layers' and path[1] in _DENSE
 
 
 def init(
@@ -157,42 +117,9 @@ def init(
     LayerNorm scales at 1 — the JAX ``init``'s distribution, not its
     numbers. ``generator`` must live on ``device``; ``None`` seeds a fresh
     one with 0."""
-    device = resolve_device(device)
-    dt = torch_dtype(dtype or cfg.dtype)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-
-    def make(shape, kind, model_dtype):
-        out_dtype = dt if model_dtype else torch.float32
-        if kind == 'normal':
-            out = torch.randn(shape, generator=generator, device=device)
-            return out.mul_(0.02).to(out_dtype)
-        fill = 1.0 if kind == 'scale' else 0.0
-        return torch.full(shape, fill, device=device, dtype=out_dtype)
-
-    shapes = _shapes(cfg)
-    emb = shapes['embeddings']
-    params = {
-        'embeddings': {
-            name: make(emb[name], 'normal', False)
-            for name in ('word', 'position', 'token_type')
-        },
-        'layers': {},
-    }
-    params['embeddings']['ln'] = {
-        key: make(emb['ln'][key], key, False) for key in ('scale', 'bias')
-    }
-    for name, leaves in shapes['layers'].items():
-        if name in _DENSE:
-            params['layers'][name] = {
-                'kernel': make(leaves['kernel'], 'normal', True),
-                'bias': make(leaves['bias'], 'bias', True),
-            }
-        else:
-            params['layers'][name] = {
-                key: make(leaves[key], key, False) for key in ('scale', 'bias')
-            }
-    return params
+    return common.init_tree(
+        _shapes(cfg), _in_model_dtype, generator, device, dtype or cfg.dtype
+    )
 
 
 def params_from_jax(
@@ -206,7 +133,9 @@ def params_from_jax(
     parameters on ``device`` (``None`` = CUDA). A quantized JAX leaf keeps
     its codes and fp32 scales. Raises ``ValueError`` when the tree does not
     match ``cfg``."""
-    return _place(tree, cfg, resolve_device(device), dtype)
+    return common.place_tree(
+        tree, _shapes(cfg), _in_model_dtype, device, dtype or cfg.dtype, 'bert'
+    )
 
 
 def params_from_hf(
@@ -258,7 +187,9 @@ def params_from_hf(
         },
         'layers': layers,
     }
-    return _place(tree, cfg, resolve_device(device), dtype)
+    return common.place_tree(
+        tree, _shapes(cfg), _in_model_dtype, device, dtype or cfg.dtype, 'bert'
+    )
 
 
 def apply(
@@ -273,8 +204,7 @@ def apply(
     word + position + token_type[0] embeddings and their LayerNorm in
     fp32, then a cast; post-LN residuals, each LayerNorm's statistics in
     fp32; exact-erf GELU (``hidden_act='gelu'``)."""
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f'attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}')
+    common.check_attn_impl(attn_impl)
     dtype = torch_dtype(cfg.dtype)
     act = common.ACTIVATIONS[cfg.hidden_act]
     emb = params['embeddings']
@@ -288,7 +218,6 @@ def apply(
         + emb['token_type'][0][None, None, :]
     )
     x = common.layer_norm(x, emb['ln']['scale'], emb['ln']['bias'], eps).to(dtype)
-    key_mask = attention_mask.bool()
 
     def dense(h, name, li):
         return common.dense(h, layers[name]['kernel'][li], layers[name]['bias'][li])
@@ -299,18 +228,8 @@ def apply(
 
     for li in range(cfg.num_layers):
         q, k, v = dense(x, 'q', li), dense(x, 'k', li), dense(x, 'v', li)
-        if attn_impl == 'auto':
-            # Heads stay packed in the last dim: no transpose materialises.
-            attn = encoder_attention(q, k, v, attention_mask, cfg.num_heads)
-        elif attn_impl == 'reference':
-            attn = encoder_attention_reference(q, k, v, attention_mask, cfg.num_heads)
-        else:
-            attn = common.merge_heads(common.sdpa(
-                common.split_heads(q, cfg.num_heads),
-                common.split_heads(k, cfg.num_heads),
-                common.split_heads(v, cfg.num_heads),
-                mask=key_mask,
-            ))
+        # Heads stay packed in the last dim: no transpose materialises.
+        attn = common.encoder_attend(q, k, v, attention_mask, cfg.num_heads, attn_impl)
         attn = dense(attn, 'o', li)
         # Post-LN residual (BERT): LN(x + sublayer(x)), statistics in fp32.
         x = norm((x + attn).float(), 'attn_ln', li)

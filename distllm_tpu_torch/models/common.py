@@ -1,21 +1,27 @@
 """Shared functional layers (PyTorch counterpart of
-``distllm_tpu.models.common``, the parts the Mistral serving path and the
-BERT encoder use).
+``distllm_tpu.models.common``, the parts the decoder serving path and the
+encoders use), and the encoders' shared parameter and attention plumbing.
 
 Kernels keep the JAX layout ``[in, out]`` so bridged weights copy over
 unchanged, and the plain ``x @ W`` products stay ``torch.matmul`` — the
 JAX package leaves them to XLA too. int8-quantized kernels go through
-kernel K2 (``ops.quantized_matmul``).
+kernel K2 (``ops.quantized_matmul``); the encoders' attention goes
+through kernel K3 (``ops.encoder_attention``, :func:`encoder_attend`).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from distllm_tpu_torch.ops.quantization import QTensor
+from distllm_tpu_torch.ops import encoder_attention as _ea
+from distllm_tpu_torch.ops.quantization import QTensor, is_jax_qtensor, qtensor_from_jax
 from distllm_tpu_torch.ops.quantized_matmul import int8_dense
+from distllm_tpu_torch.utils import resolve_device, torch_dtype
 
 
 def rms_norm(
@@ -214,17 +220,162 @@ def rope_frequencies(
 
 def apply_rope(
     x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-    positions: torch.Tensor,
+    positions: 'torch.Tensor | None' = None,
 ) -> torch.Tensor:
     """Rotate ``[B, S, N, H]`` queries/keys by their ``positions [B, S]``
-    in the HF rotate-half layout (pairs ``(i, i + H/2)``)."""
+    (``None``: positions ``0..S-1`` in every row, the encoders' case) in
+    the HF rotate-half layout (pairs ``(i, i + H/2)``)."""
     h = x.shape[3]
-    pos = positions.long()
-    table_cos = cos[pos][:, :, None, :].to(x.dtype)
-    table_sin = sin[pos][:, :, None, :].to(x.dtype)
+    if positions is None:
+        s = x.shape[1]
+        table_cos = cos[None, :s, None, :].to(x.dtype)
+        table_sin = sin[None, :s, None, :].to(x.dtype)
+    else:
+        pos = positions.long()
+        table_cos = cos[pos][:, :, None, :].to(x.dtype)
+        table_sin = sin[pos][:, :, None, :].to(x.dtype)
     x1 = x[..., : h // 2]
     x2 = x[..., h // 2:]
     return torch.cat(
         [x1 * table_cos - x2 * table_sin, x2 * table_cos + x1 * table_sin],
         dim=-1,
     )
+
+
+@functools.lru_cache(maxsize=32)
+def rope_tables(
+    head_dim: int, seq_len: int, theta: float, device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rope_frequencies` as fp32 tensors on ``device``, made once
+    per (head dim, length, theta, device): the encoders' tables."""
+    cos, sin = rope_frequencies(head_dim, seq_len, theta)
+    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
+# ------------------------------------------------------------ encoders
+# 'auto': ops.encoder_attention (kernel K3 on CUDA, its plain version on
+# the CPU); 'reference': the plain version on any device (the card-side
+# identity checks); 'xla': split heads + sdpa, the JAX 'xla' branch.
+ATTN_IMPLS = ('auto', 'reference', 'xla')
+
+
+def check_attn_impl(attn_impl: str) -> None:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f'attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}')
+
+
+def encoder_attend(
+    q: torch.Tensor,  # [B, S, N*Hd]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    attention_mask: torch.Tensor,  # [B, S] nonzero = valid key
+    num_heads: int,
+    attn_impl: str = 'auto',
+    bias: 'torch.Tensor | None' = None,  # [S, S] fp32, 0 / -1e9
+) -> torch.Tensor:
+    """The attention site of every encoder forward, heads packed in the
+    last dim. ``'auto'`` is ``ops.encoder_attention.encoder_attention``
+    (looked up at call time), which launches K3 on a CUDA tensor or
+    raises, and runs the plain version on a CPU tensor. ``'xla'`` turns
+    the key mask (and, with a 0 / -1e9 ``bias``, its zeros) into a
+    boolean mask for :func:`sdpa`, as the JAX models' XLA branch does."""
+    if attn_impl == 'auto':
+        return _ea.encoder_attention(q, k, v, attention_mask, num_heads, bias=bias)
+    if attn_impl == 'reference':
+        return _ea.encoder_attention_reference(
+            q, k, v, attention_mask, num_heads, bias=bias
+        )
+    mask = attention_mask.bool()[:, None, None, :]
+    if bias is not None:
+        mask = mask & (bias == 0)[None, None]
+    return merge_heads(sdpa(
+        split_heads(q, num_heads), split_heads(k, num_heads),
+        split_heads(v, num_heads), mask=mask,
+    ))
+
+
+def _leaf_kind(path: tuple) -> str:
+    """How :func:`init_tree` fills a leaf, by its name: LayerNorm scales
+    at 1, biases at 0, everything else (kernels, embedding tables)
+    normal with std 0.02 — the JAX ``init`` functions' distribution."""
+    return {'scale': 'ones', 'bias': 'zeros'}.get(path[-1], 'normal')
+
+
+def init_tree(
+    shapes: dict,
+    in_model_dtype: Callable[[tuple], bool],
+    generator: 'torch.Generator | None',
+    device: 'str | torch.device | None',
+    dtype: 'str | torch.dtype',
+) -> dict:
+    """Random parameters of the nested ``shapes`` made on ``device``
+    (``None`` = CUDA; raises without it): leaves where
+    ``in_model_dtype(path)`` holds in ``dtype``, the rest fp32, drawn in
+    the tree's order from ``generator`` (which must live on ``device``;
+    ``None`` seeds a fresh one with 0)."""
+    device = resolve_device(device)
+    dt = torch_dtype(dtype)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def make(shape, path):
+        out_dtype = dt if in_model_dtype(path) else torch.float32
+        kind = _leaf_kind(path)
+        if kind == 'normal':
+            out = torch.randn(shape, generator=generator, device=device)
+            return out.mul_(0.02).to(out_dtype)
+        return torch.full(shape, 1.0 if kind == 'ones' else 0.0, device=device,
+                          dtype=out_dtype)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {key: walk(value, path + (key,)) for key, value in node.items()}
+        return make(node, path)
+
+    return walk(shapes, ())
+
+
+def place_tree(
+    tree: dict,
+    shapes: dict,
+    in_model_dtype: Callable[[tuple], bool],
+    device: 'str | torch.device | None',
+    dtype: 'str | torch.dtype',
+    family: str,
+) -> dict:
+    """Check a parameter tree (numpy arrays, CPU tensors, or quantized
+    JAX leaves) against the nested ``shapes`` and move it to ``device``
+    (``None`` = CUDA): leaves where ``in_model_dtype(path)`` holds in
+    ``dtype``, the rest fp32; a quantized JAX leaf keeps its codes and
+    fp32 scales. Raises ``ValueError`` naming ``family`` on a missing or
+    extra key, or a shape that does not match."""
+    device = resolve_device(device)
+    dt = torch_dtype(dtype)
+
+    def walk(node, shape, path):
+        where = '/' + '/'.join(path)
+        if isinstance(shape, dict):
+            if not isinstance(node, dict) or set(node) != set(shape):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(
+                    f'not a {family} param tree at {where if path else "root"}: '
+                    f'expected keys {sorted(shape)}, got {got}'
+                )
+            return {key: walk(node[key], shape[key], path + (key,)) for key in shape}
+        if is_jax_qtensor(node):
+            if tuple(node.shape) != shape:
+                raise ValueError(
+                    f'{where}: shape {tuple(node.shape)} does not match the '
+                    f'config ({shape})'
+                )
+            return qtensor_from_jax(node, device)
+        value = torch.tensor(np.asarray(node, np.float32))
+        if tuple(value.shape) != shape:
+            raise ValueError(
+                f'{where}: shape {tuple(value.shape)} does not match the '
+                f'config ({shape})'
+            )
+        out_dtype = dt if in_model_dtype(path) else torch.float32
+        return value.to(device=device, dtype=out_dtype)
+
+    return walk(tree, shapes, ())

@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's embed path, on one GPU.
 
-Builds the embed configuration of ``chip_smoke.py``: a ``TorchEncoder``
-over BERT-base (S-PubMedBert-MS-MARCO widths) in bf16 with random weights
-made on the card from seed 0, the ``WhitespaceTokenizer``, the mean
-pooler, batch 512, and 2048 texts of 120..259 words (seed 0, a
-5000-word vocabulary); ``--quantization int8`` quantizes the dense
-kernels on the card so every projection runs through the int8 matmul
-kernel K2. After one warm-up pass it
+Builds an embed configuration of ``chip_smoke.py``: a ``TorchEncoder`` in
+bf16 with random weights made on the card from seed 0 and the mean
+pooler over ``--model``:
+
+- ``bert`` (phase 10): BERT-base (S-PubMedBert-MS-MARCO widths), the
+  ``WhitespaceTokenizer``, batch 512, 2048 texts of 120..259 words (seed
+  0, a 5000-word vocabulary); ``--quantization int8`` quantizes the dense
+  kernels on the card so every projection runs through the int8 matmul
+  kernel K2;
+- ``esm2`` / ``esmc`` (phases 14 / 14b): ESM-2 650M / ESM-C 600M, the
+  ``EsmcSequenceTokenizer``, batch 64, phase 14's 2048 random proteins of
+  50..1022 residues;
+- ``modernbert`` (phase 14c): ModernBERT-base over the ``bert`` texts at
+  vocab 50368, batch 512, L2-normalised.
+
+``--layers`` cuts the depth. After one warm-up pass it
 
 - times ``--repeats`` passes of ``compute_embeddings`` by the host clock
   (embeddings/s; every pass ends in the host copy of its results);
@@ -20,7 +29,7 @@ kernel K2. After one warm-up pass it
 Prints one JSON object per line; ``--out`` also writes them to a file.
 Needs CUDA; exits nonzero without it.
 
-    python3 scripts/profile_torch_embed.py [--layers 12] [--repeats 3] [--quantization int8] [--out results.json]
+    python3 scripts/profile_torch_embed.py [--model bert] [--layers N] [--repeats 3] [--quantization int8] [--out results.json]
 """
 
 from __future__ import annotations
@@ -37,13 +46,33 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+import chip_smoke  # noqa: E402
 from distllm_tpu_torch.embed import get_pooler  # noqa: E402
 from distllm_tpu_torch.embed.embedders.full_sequence import (  # noqa: E402
     compute_embeddings,
 )
 from distllm_tpu_torch.embed.encoders.base import TorchEncoder  # noqa: E402
-from distllm_tpu_torch.models import bert  # noqa: E402
+from distllm_tpu_torch.models import bert, esm2, esmc, modernbert  # noqa: E402
 from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer  # noqa: E402
+
+
+def _model(name: str, layers: 'int | None'):
+    """(module, config, tokenizer, batch, normalize, texts) of ``--model``."""
+    if name == 'esm2':
+        cfg = esm2.Esm2Config.from_hf_config(chip_smoke.ESM2_650M_HF)
+        tok = esmc.EsmcSequenceTokenizer(model_max_length=chip_smoke.PROTEIN_LENS[1] + 2)
+        out = (esm2, cfg, tok, chip_smoke.PROTEIN_BATCH, False)
+    elif name == 'esmc':
+        cfg = esmc.EsmcConfig.from_hidden_size(1152)
+        out = (esmc, cfg, esmc.EsmcSequenceTokenizer(), chip_smoke.PROTEIN_BATCH, False)
+    else:
+        module = bert if name == 'bert' else modernbert
+        cfg = bert.BertConfig() if name == 'bert' else modernbert.ModernBertConfig()
+        tok = WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512)
+        out = (module, cfg, tok, 512, name == 'modernbert')
+    if layers:
+        cfg.num_layers = layers
+    return out
 
 
 def _category(name: str) -> str:
@@ -66,11 +95,12 @@ def _texts(n: int) -> list[str]:
     ]
 
 
-def _pass(encoder, texts, stats=None) -> float:
+def _pass(encoder, texts, batch, normalize, stats=None) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     compute_embeddings(
-        texts, encoder, get_pooler({'name': 'mean'}), 512, stats=stats
+        texts, encoder, get_pooler({'name': 'mean'}), batch, normalize=normalize,
+        stats=stats,
     )
     torch.cuda.synchronize()
     return time.perf_counter() - t0
@@ -92,7 +122,9 @@ def _kernel_times(prof) -> list[tuple[float, int, str]]:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--layers', type=int, default=12)
+    parser.add_argument('--model', choices=('bert', 'esm2', 'esmc', 'modernbert'),
+                        default='bert')
+    parser.add_argument('--layers', type=int, default=None, help='cut the depth')
     parser.add_argument('--texts', type=int, default=2048)
     parser.add_argument('--repeats', type=int, default=3)
     parser.add_argument('--quantization', choices=('int8', 'nf4'), default=None)
@@ -105,21 +137,22 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = bert.BertConfig(num_layers=args.layers)
-    params = bert.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    module, cfg, tokenizer, batch, normalize = _model(args.model, args.layers)
+    params = module.init(cfg, torch.Generator(device='cuda').manual_seed(0))
     encoder = TorchEncoder(
-        None, bert.apply, cfg, params,
-        WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512),
-        cfg.hidden_size, quantization=args.quantization,
+        None, module.apply, cfg, params, tokenizer, cfg.hidden_size,
+        quantization=args.quantization,
     )
-    texts = _texts(args.texts)
-    warm_s = _pass(encoder, texts)  # builds the kernel, loads cuBLAS handles
+    texts = (chip_smoke.protein_sequences(args.texts) if args.model in ('esm2', 'esmc')
+             else _texts(args.texts))
+    # The warm-up pass builds the kernel and loads cuBLAS handles.
+    warm_s = _pass(encoder, texts, batch, normalize)
     stats: dict = {}
-    walls = [_pass(encoder, texts, stats if i == 0 else None)
+    walls = [_pass(encoder, texts, batch, normalize, stats if i == 0 else None)
              for i in range(args.repeats)]
     batches = sum(stats['bucket_batches'].values())
     timed = {
-        'card': card, 'layers': args.layers, 'texts': args.texts,
+        'card': card, 'model': args.model, 'layers': cfg.num_layers, 'texts': args.texts,
         'quantization': args.quantization,
         'warmup_s': warm_s, 'wall_s': walls,
         'embeddings_per_s': [args.texts / w for w in walls],
@@ -133,7 +166,7 @@ def main() -> None:
         torch.profiler.ProfilerActivity.CUDA,
     ]
     with torch.profiler.profile(activities=activities) as prof:
-        _pass(encoder, texts)
+        _pass(encoder, texts, batch, normalize)
     kernels = _kernel_times(prof)
     by_cat: dict[str, float] = {}
     for us, _, key in kernels:
@@ -141,7 +174,7 @@ def main() -> None:
     device_ms = sum(by_cat.values()) / 1e3
     wall_ms = min(walls) * 1e3
     profiled = {
-        'card': card, 'layers': args.layers, 'profiled_pass': True,
+        'card': card, 'model': args.model, 'layers': cfg.num_layers, 'profiled_pass': True,
         'quantization': args.quantization,
         'device_ms': device_ms,
         'device_ms_by_category': {k: v / 1e3 for k, v in sorted(by_cat.items())},

@@ -293,19 +293,20 @@ def test_int8_run_embedding_matches_jax_end_to_end(tmp_path, checkpoint_q):
 
 
 def test_unported_strategies_raise_naming_the_roadmap(tmp_path, checkpoint):
-    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-        get_encoder({'name': 'esm2'}, device='cpu')
+    """What the port still refuses names its ROADMAP item: the pod compute
+    configs (the fabric, A11) and Mixtral checkpoints (A10); a bad
+    quantization mode is a ValueError."""
     with pytest.raises(ValueError, match='unknown quantization mode'):
         get_encoder({'name': 'auto', 'quantization': 'int4',
                      'pretrained_model_name_or_path': str(checkpoint)}, device='cpu')
     config = json.loads(_run_config(tmp_path, checkpoint, 'x').read_text())
-    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-        port_embedding.Config(**{**config, 'compute_config': {'name': 'workstation'}})
+    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+        port_embedding.Config(**{**config, 'compute_config': {'name': 'pod'}})
     hf = json.loads((checkpoint / 'config.json').read_text())
-    other = tmp_path / 'esm'
+    other = tmp_path / 'mixtral'
     other.mkdir()
-    (other / 'config.json').write_text(json.dumps({**hf, 'model_type': 'esm'}))
-    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
+    (other / 'config.json').write_text(json.dumps({**hf, 'model_type': 'mixtral'}))
+    with pytest.raises(NotImplementedError, match='ROADMAP A10'):
         get_encoder({'name': 'auto', 'pretrained_model_name_or_path': str(other)},
                     device='cpu')
 

@@ -583,9 +583,10 @@ def test_auto_encoder_last_token_embeddings_match_jax(tmp_path, family):
 def test_auto_encoder_refuses_unported_families(tmp_path):
     from distllm_tpu_torch.embed.encoders.auto import AutoEncoder, AutoEncoderConfig
 
+    # ESM-2 and ModernBERT checkpoints are served since the protein slice
+    # (tests/test_torch_embed_strategies.py holds them against JAX).
     for model_type, err, match in (
         ('mixtral', NotImplementedError, 'A10'),
-        ('esm', NotImplementedError, 'A8'),
         ('nonsense', ValueError, 'Unsupported decoder model_type'),
     ):
         (tmp_path / 'config.json').write_text(json.dumps({'model_type': model_type}))

@@ -43,7 +43,9 @@ list equal a ``draft_k=0`` engine's, which a mutant that skips
 K3 is held to its own elementwise bound
 (``encoder_attention.comparison_tolerance``: in bf16 one step of out
 plus one bf16 step of one p_j * v_j) on both of its routes, on every row,
-fully masked included.
+fully masked included, at the protein and ModernBERT shapes (ESM-2 650M,
+ESM-C 600M, ModernBERT-base with its window bias) and on strided thirds of
+one fused product; ESM-2, ESM-C and ModernBERT reach it on every layer.
 K2 is held to ``quantized_matmul.comparison_tolerance`` of the route that
 served it (asserted by ``launches_by_route``: bf16 on the tensor cores,
 fp32 on the CUDA cores): in bf16 one step of out, and in both dtypes an
@@ -661,6 +663,69 @@ def test_k3_tensor_core_head_dims_read_at_run_time(cuda, hd, heads, s):
 def test_k3_window_bias(cuda, dtype, s, window):
     args, bias = _k3_inputs(s, 4, s, 12, 64, dtype, window=window)
     _k3_check(args, bias)
+
+
+@pytest.mark.parametrize('b,s,heads,window', [
+    (64, 1024, 20, None),   # ESM-2 650M's protein batches
+    (8, 2048, 18, None),    # ESM-C 600M at its 2048-token cap
+    (128, 512, 12, 64),     # ModernBERT-base's local layers (window 128)
+], ids=['esm2_650m', 'esmc_600m', 'modernbert_base'])
+def test_k3_at_the_protein_and_modernbert_shapes(cuda, b, s, heads, window):
+    lens = np.random.default_rng(s).integers(min(s, 50), s + 1, size=b)
+    lens[0] = s
+    args, bias = _k3_inputs(b + s, b, s, heads, 64, 'bfloat16', lens=lens, window=window)
+    _k3_check(args, bias)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_k3_takes_thirds_of_one_fused_product(cuda, dtype):
+    """ESM-C's q, k and v are strided thirds of one ``[B, S, 3H]`` product:
+    the wrapper copies each to a contiguous tensor, and the result equals
+    the kernel on contiguous copies bitwise."""
+    rng = np.random.default_rng(11)
+    qkv = torch.from_numpy(rng.normal(size=(4, 200, 3 * 18 * 64)).astype(np.float32)).to(
+        'cuda', getattr(torch, dtype))
+    q, k, v = qkv.chunk(3, dim=-1)
+    assert not v.is_contiguous()
+    mask = torch.from_numpy((np.arange(200)[None] < np.array([[200], [150], [1], [0]]))
+                            .astype(np.int32)).cuda()
+    _k3_check((q, k, v, mask, 18), None)
+    strided = tea.encoder_attention(q, k, v, mask, 18)
+    packed = tea.encoder_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, 18)
+    assert torch.equal(strided, packed)
+
+
+@pytest.mark.parametrize('family', ['esm2', 'esmc', 'modernbert'])
+def test_protein_and_modernbert_models_reach_k3_and_match_the_plain_version(cuda, family):
+    """Each new encoder family at a small fp32 config on the card: every
+    layer launches K3 once (ModernBERT's local layers with the window
+    bias), nothing runs the plain version, and the output equals the
+    plain version's within fp32 summation noise (``1e-4 |ref| + 1e-5``)."""
+    from distllm_tpu_torch.models import esm2, esmc, modernbert
+
+    module, cfg = {
+        'esm2': (esm2, esm2.Esm2Config(hidden_size=128, num_layers=3, num_heads=2,
+                                       intermediate_size=256, dtype='float32')),
+        'esmc': (esmc, esmc.EsmcConfig(hidden_size=128, num_layers=3, num_heads=2,
+                                       dtype='float32')),
+        'modernbert': (modernbert, modernbert.ModernBertConfig(
+            vocab_size=512, hidden_size=128, num_layers=3, num_heads=2,
+            intermediate_size=192, local_attention=32, dtype='float32')),
+    }[family]
+    params = module.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(4, 29, size=(3, 150)).astype(np.int32)).cuda()
+    mask = torch.from_numpy((np.arange(150)[None] < np.array([[150], [70], [0]]))
+                            .astype(np.int32)).cuda()
+    launches = tea.encoder_attention.launches
+    plain = tea.encoder_attention_reference.launches
+    out = module.apply(params, cfg, ids, mask)
+    torch.cuda.synchronize()
+    assert tea.encoder_attention.launches - launches == cfg.num_layers
+    assert tea.encoder_attention_reference.launches == plain
+    ref = module.apply(params, cfg, ids, mask, attn_impl='reference')
+    valid = mask.bool()
+    torch.testing.assert_close(out.float()[valid], ref.float()[valid], rtol=1e-4, atol=1e-5)
 
 
 def test_k3_fully_masked_rows_are_the_uniform_average(cuda):

@@ -59,5 +59,17 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.models',
         'distllm_tpu_torch.models.gemma',
         'distllm_tpu_torch.models.common',
+        'distllm_tpu_torch.models.esm2',
+        'distllm_tpu_torch.models.esmc',
+        'distllm_tpu_torch.models.modernbert',
+        'distllm_tpu_torch.embed.encoders.esm2',
+        'distllm_tpu_torch.embed.encoders.fake',
+        'distllm_tpu_torch.embed.datasets.fasta',
+        'distllm_tpu_torch.embed.datasets.single_line',
+        'distllm_tpu_torch.embed.datasets.jsonl_chunk',
+        'distllm_tpu_torch.embed.datasets.huggingface',
+        'distllm_tpu_torch.embed.embedders.semantic_chunk',
+        'distllm_tpu_torch.embed.writers.huggingface',
+        'distllm_tpu_torch.parallel.launcher',
     }
     assert expected <= set(result['imported'])
