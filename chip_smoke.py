@@ -253,14 +253,59 @@ carried on):
 14d. identity — each of the three at full width and depth 2 in fp32:
     pooled embeddings through K3 (the CUDA cores) and through its plain
     version agree within phase 12's ``1e-4 * |ref| + 1e-5``.
+15. retrieval index — a corpus of 2**20 rows x 768 (BERT-base width),
+    fp32 N(0, 1) from numpy seed 15, with texts of 48..96 words, held in a
+    numpy table this script defines and hands to the index (the index's
+    one seam for a dataset that is not an HF dataset on disk); the
+    ``float32``, ``int8`` and ``ubinary`` tiers built into a temporary
+    directory in the JAX package's file format and loaded onto the card;
+    64 queries through a ``Retriever`` over full-width BERT-base bf16
+    (random weights from seed 0, the ``WhitespaceTokenizer``, mean pooler,
+    batches of 8), top 20, ``rescore_multiplier`` 4. For 8 queries each
+    tier's indices equal a host reference built from the index's own
+    files (fp64 products; the int8 tier's int8 x int8 products exact with
+    the scales in the port's fp32 order; Hamming distances by popcount;
+    ties by the lower index; the quantized tiers' candidates rescored
+    independently), the float32 tier's scores within 1e-5 of fp64 (two
+    rows whose fp64 scores lie within 1e-6 may swap, reported); K3
+    launches 12 x the query batches, all on the tensor cores, its plain
+    version never. Per tier: build seconds, device bytes, host ms of a
+    64-query search (the rescore's gather included), the device top-k
+    by CUDA events beside its bound, queries/s with encoding;
+15b. RAG chat — the chat app config's generator (Mistral-7B widths,
+    bf16, 32 slots, 64 greedy tokens, the prefix cache on; built once
+    through the generator registry and shared by 15b-15d) behind
+    ``ChatServer`` with phase 15's float32 retriever: 16 POSTs with
+    ``top_k`` 5 and ``score_threshold`` 0, every answer 200, every rendered
+    prompt holding 5 contexts (counted through a hook on the template);
+    K3 12 x 16 on the tensor cores, K1 layers x passes on the route of each
+    dispatch, plain versions never; retrieve and generate ms a request;
+15c. eval suite — ``run_eval_suite`` on ``pubmedqa`` (64 items written
+    in the JAX task's format into ``download_dir`` first, so nothing is
+    downloaded) with one rag_config: the registry's generator and phase
+    15's retriever; K3 per query batch, K1 as in 15b, 64 x 64 tokens;
+    accuracy and precision printed (random weights: a path check);
+15d. generation job — ``run_generation`` over 4 jsonl files of 32
+    chunks of 256..1024 words, the ``keyword_selection`` prompt (the card
+    has no nltk, which ``question_chunk``'s postprocess imports), the
+    registry's generator, the ``huggingface`` writer and ``local``
+    compute: 4 shards of 32 rows read back, a second run into the same
+    ``output_dir`` refused, K1 as in 15b;
+15e. identity — fp32 at depth 2: the generation job's greedy responses
+    through K1 equal those through the plain op (``attn_backend``
+    ``'reference'``); the retriever's top-20 rows through K3 equal the
+    plain K3's on a 4,096-row index wherever the plain scores' gap
+    exceeds twice the query embeddings' distance, any flip reported with
+    its gap.
 
-Each of phases 3d, 6f, 6g, 8d, 13, 13b and 14-14d prints its seconds. The last three lines of
+Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d and 15-15e prints its seconds. The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
 ``mixed_kv``, its verify shapes under ``verify``, head dim 256 under
 ``head_dim_256``, K3's protein and ModernBERT shapes and launches under
-``models``, K2's embed headline and
+``models``, the RAG phases' K1 launches under ``rag`` and K3's under
+``retriever``, K2's embed headline and
 its verify rows under ``verify``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -272,6 +317,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -290,6 +336,7 @@ import numpy as np
 # bound.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+PEAK_INT8_OPS = 1979e12  # int8 tensor-core operations a second
 NUM_HEADS, NUM_KV_HEADS, HEAD_DIM, BLOCK_SIZE = 32, 8, 128, 16
 BERT_HEADS, BERT_HEAD_DIM = 12, 64
 EMBED_TEXTS, EMBED_BATCH = 2048, 512
@@ -3498,8 +3545,8 @@ def phase_protein_embed(torch, tea, card, tmp: Path):
     out = {}
     t0 = time.perf_counter()
     # ESM-2's vocabulary is ESMC_VOCAB id for id, but for id 31 ('<null_1>'
-    # against '|'), which no residue letter produces: the card has no
-    # transformers, so EsmcSequenceTokenizer tokenizes ESM-2's input.
+    # against '|'), which no residue letter produces: EsmcSequenceTokenizer
+    # tokenizes ESM-2's input, with no transformers tokenizer files needed.
     out['esm2_650m'] = phase_encoder_embed(
         torch, tea, card, tmp, 'protein esm2', esm2,
         esm2.Esm2Config.from_hf_config(ESM2_650M_HF),
@@ -3562,6 +3609,586 @@ def phase_protein_identity(torch, tea, seqs, texts):
             WhitespaceTokenizer(vocab_size=mb_cfg.vocab_size, model_max_length=512),
             texts[:600], 256),
     }
+
+
+# ---------------------------------------------------------- phases 15-15e
+# Phase 15's corpus: 2**20 rows at BERT-base width (the retriever of the
+# reference's PubMed RAG), fp32 N(0, 1) from numpy seed 15, and texts of
+# 48..96 words drawn from RAG_WORDS.
+INDEX_ROWS, INDEX_DIM = 1 << 20, 768
+INDEX_TOP_K, INDEX_RESCORE = 20, 4
+INDEX_CHECKED = 8  # queries held against the fp64 host reference
+# The float32 tier may order two rows whose fp64 scores lie this close
+# either way (fp32 products of 768 terms err by about 1e-8 here).
+NEAR_TIE_SCORE = 1e-6
+RAG_QUERIES, RETRIEVER_BATCH = 64, 8
+RAG_WORDS = [f'w{i}' for i in range(5000)]
+RAG_CHAT_REQUESTS, RAG_CHAT_TOP_K = 16, 5
+EVAL_ITEMS = 64
+JOB_FILES, JOB_CHUNKS, JOB_WORDS = 4, 32, (256, 1024)
+IDENTITY_INDEX_ROWS = 4096
+# The generator of phases 15b-15d, one warm instance through the registry:
+# Mistral-7B widths ({} = MistralConfig's defaults), bf16, random weights
+# from seed 0, 32 slots, 64 greedy tokens, the prefix cache on (the chat
+# YAML's default, set here too so the three phases share one instance).
+RAG_MODEL: dict = {}
+RAG_BLOCKS, RAG_SLOTS, RAG_NEW = 3072, 32, 64
+# The retriever's query encoder: BERT-base (None = BertConfig's defaults).
+RETRIEVER_BERT = None
+
+
+def rag_generator_config(**update):
+    return dict(
+        name='tpu', model=dict(RAG_MODEL), temperature=0.0, max_tokens=RAG_NEW,
+        block_size=BLOCK_SIZE, num_blocks=RAG_BLOCKS, max_num_seqs=RAG_SLOTS,
+        max_model_len=2048, seed=0, enable_prefix_cache=True, **update,
+    )
+
+
+class CorpusRows:
+    """Rows of a :class:`CorpusTable` (a slice or an index list): the
+    embeddings as a numpy view, the texts built when asked for."""
+
+    def __init__(self, table, key):
+        self.table, self.key = table, key
+
+    def __getitem__(self, field):
+        if field == 'embeddings':
+            return self.table.embeddings[self.key]
+        if field == 'text':
+            ids, lens = self.table.word_ids[self.key], self.table.lengths[self.key]
+            return [' '.join(RAG_WORDS[i] for i in row[:n]) for row, n in zip(ids, lens)]
+        raise KeyError(field)
+
+
+class CorpusTable:
+    """Phase 15's corpus in host memory, with the dataset interface the
+    index reads (``len``; row slices and index lists give
+    ``['embeddings']`` and ``['text']``): an HF dataset of this size would
+    measure arrow, not the index."""
+
+    def __init__(self, embeddings, word_ids, lengths):
+        self.embeddings, self.word_ids, self.lengths = embeddings, word_ids, lengths
+
+    def __len__(self):
+        return len(self.embeddings)
+
+    def __getitem__(self, key):
+        return CorpusRows(self, key)
+
+    def head(self, n):
+        return CorpusTable(self.embeddings[:n], self.word_ids[:n], self.lengths[:n])
+
+
+def make_corpus(rows=None):
+    rows = rows or INDEX_ROWS
+    rng = np.random.default_rng(15)
+    emb = rng.standard_normal((rows, INDEX_DIM), dtype=np.float32)
+    ids = rng.integers(0, len(RAG_WORDS), size=(rows, 96), dtype=np.int16)
+    lens = rng.integers(48, 97, size=rows)
+    return CorpusTable(emb, ids, lens)
+
+
+def rag_queries(n, seed):
+    rng = np.random.default_rng(seed)
+    return [' '.join(rng.choice(RAG_WORDS, size=int(rng.integers(8, 40)))) for _ in range(n)]
+
+
+def zero_k3_counts(tea):
+    tea.encoder_attention.launches = 0
+    tea.encoder_attention.launches_by_route = dict.fromkeys(tea.ROUTES, 0)
+    tea.encoder_attention_reference.launches = 0
+
+
+def check_k3(tea, tag, layers, batches):
+    """K3 launched ``layers`` x ``batches``, all on the tensor cores; its
+    plain version never."""
+    launches = tea.encoder_attention.launches
+    by_route = dict(tea.encoder_attention.launches_by_route)
+    plain = tea.encoder_attention_reference.launches
+    log(f'[{tag}] encoder_attention launches {launches} = {layers} layers x {batches} '
+        f'query batches; by route {json.dumps(by_route)}; plain version {plain}')
+    if launches <= 0 or launches != layers * batches or by_route['tensor_cores'] != launches:
+        fail(f'{tag}: K3 launches {launches}, routes {by_route}; expected {layers} x '
+             f'{batches} on the tensor cores')
+    if plain != 0:
+        fail(f'{tag}: the plain encoder attention ran {plain} times')
+    return dict(launches=launches, launches_by_route=by_route)
+
+
+def retriever_encoder(torch, cfg, seed, attn_impl='auto'):
+    from distllm_tpu_torch.embed.encoders.base import TorchEncoder
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+
+    params = bert.init(cfg, torch.Generator(device=DEVICE).manual_seed(seed), device=DEVICE)
+    return TorchEncoder(
+        config=None, apply_fn=functools.partial(bert.apply, attn_impl=attn_impl),
+        model_cfg=cfg, params=params,
+        tokenizer=WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512),
+        embedding_size=cfg.hidden_size, device=DEVICE,
+    )
+
+
+_POPCOUNT = np.array([bin(i).count('1') for i in range(256)], dtype=np.int64)
+
+
+def host_order(scores, k):
+    """The top ``k`` of each row by (score descending, index ascending)."""
+    idx = np.arange(scores.shape[1])
+    return np.stack([np.lexsort((idx, -row))[:k] for row in scores])
+
+
+def host_rescore(table, queries, cand, k):
+    """The index's fp32 rescore, done independently on the host."""
+    vectors = np.asarray(table.embeddings[np.sort(cand.reshape(-1))], dtype=np.float32)
+    vectors = vectors[np.argsort(np.argsort(cand.reshape(-1)))].reshape(*cand.shape, -1)
+    vectors = vectors / np.clip(np.linalg.norm(vectors, axis=-1, keepdims=True), 1e-12, None)
+    rescored = np.einsum('bh,boh->bo', queries, vectors)
+    order = np.argsort(-rescored, axis=1)[:, :k]
+    return np.take_along_axis(cand, order, axis=1), np.take_along_axis(rescored, order, axis=1)
+
+
+def host_reference(torch, index, table, queries, precision):
+    """Each tier's result for ``queries`` in fp64 / exact integer numpy from
+    the index's own files: the float32 tier's scores in fp64; the int8
+    codes' int8 x int8 products in int64 with the scales applied in the
+    port's fp32 order; Hamming distances by popcount; the quantized tiers'
+    candidates by (score descending, index ascending), then rescored."""
+    from distllm_tpu_torch.ops import topk
+
+    k, over = INDEX_TOP_K, INDEX_TOP_K * INDEX_RESCORE
+    parts = list(index._iter_stored_chunks())
+    if precision == 'float32':
+        scores = np.concatenate([
+            np.asarray(p, dtype=np.float64) @ queries.astype(np.float64).T for p in parts
+        ]).T
+        order = host_order(scores, k)
+        return order, np.take_along_axis(scores, order, axis=1)
+    if precision == 'int8':
+        qi, qscale = (t.numpy() for t in topk.quantize_queries(torch.from_numpy(queries)))
+        # int8 x int8 sums stay far below 2**53: exact in fp64 (BLAS).
+        scores = np.concatenate([
+            (np.asarray(p['codes'], np.float64) @ qi.astype(np.float64).T).astype(np.float32).T
+            * qscale[:, None] * np.asarray(p['scales'])[None, :]
+            for p in parts
+        ], axis=1)
+    else:
+        qbits = topk.pack_sign_bits(queries)
+        scores = -np.concatenate([
+            np.stack([_POPCOUNT[np.asarray(p) ^ q].sum(axis=1) for q in qbits]) for p in parts
+        ], axis=1).astype(np.float64)
+    return host_rescore(table, queries, host_order(scores, over), k)
+
+
+def phase_index(torch, tea, card, tmp: Path):
+    """Phase 15: the three index tiers over the 2**20-row corpus, 64
+    queries through the BERT-base retriever, each tier against the host
+    reference."""
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.ops import topk
+    from distllm_tpu_torch.rag.search import Retriever, TpuIndexV2Config
+    from distllm_tpu_torch.embed import get_pooler
+
+    t0 = time.perf_counter()
+    table = make_corpus()
+    log(f'[index] corpus {len(table)} x {INDEX_DIM} fp32 and texts made on the host in '
+        f'{time.perf_counter() - t0:.1f} s')
+    cfg = RETRIEVER_BERT() if RETRIEVER_BERT else bert.BertConfig()
+    encoder = retriever_encoder(torch, cfg, seed=0)
+    pooler = get_pooler({'name': 'mean'})
+    queries = rag_queries(RAG_QUERIES, seed=16)
+    batches = -(-RAG_QUERIES // RETRIEVER_BATCH)
+    n = len(table)
+    out = {}
+    for precision in ('float32', 'int8', 'ubinary'):
+        tag = f'index {precision}'
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        index = TpuIndexV2Config(
+            dataset_dir=tmp, precision=precision, rescore_multiplier=INDEX_RESCORE,
+        ).get_index(dataset=table, device=DEVICE)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        device_bytes = index.device_bytes
+        retriever = Retriever(index, encoder, pooler, batch_size=RETRIEVER_BATCH)
+        retriever.search(queries[:RETRIEVER_BATCH], top_k=INDEX_TOP_K)  # warm-up
+        # The main path: counts to 0 just before, read just after.
+        zero_k3_counts(tea)
+        t0 = time.perf_counter()
+        results, emb = retriever.search(queries, top_k=INDEX_TOP_K, score_threshold=-2.0)
+        retrieve_s = time.perf_counter() - t0
+        k3 = check_k3(tea, tag, cfg.num_layers, batches)
+        # The index alone on the same embeddings: host ms a 64-query batch
+        # (the rescore's gather included) and the device top-k by events.
+        host_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            index.search(emb, top_k=INDEX_TOP_K, score_threshold=-2.0)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        q_dev = torch.from_numpy(emb).to(DEVICE)
+        over = INDEX_TOP_K * INDEX_RESCORE
+        if precision == 'float32':
+            device_fn = lambda: topk.topk_inner_product(q_dev, index._corpus, INDEX_TOP_K)  # noqa: E731
+            ops, ops_rate = 2 * RAG_QUERIES * INDEX_DIM * n, PEAK_FLOPS['float32']
+        elif precision == 'int8':
+            device_fn = lambda: topk.int8_topk(q_dev, *index._int8, over, n_valid=n)  # noqa: E731
+            ops, ops_rate = 2 * RAG_QUERIES * INDEX_DIM * n, PEAK_INT8_OPS
+        else:
+            bits_dev = torch.from_numpy(topk.pack_sign_bits(emb)).to(DEVICE)
+            device_fn = lambda: topk.hamming_topk(bits_dev, index._packed, over, n_valid=n)  # noqa: E731
+            ops, ops_rate = 2 * RAG_QUERIES * INDEX_DIM * n, PEAK_INT8_OPS
+        device_ms = cuda_ms(torch, device_fn, iters=5)
+        bytes_ms = device_bytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = ops / ops_rate * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        # The first INDEX_CHECKED queries against the host reference.
+        ref_idx, ref_scores = host_reference(torch, index, table, emb[:INDEX_CHECKED], precision)
+        got_idx = np.array(results.total_indices[:INDEX_CHECKED])
+        got_scores = np.array(results.total_scores[:INDEX_CHECKED])
+        if got_idx.shape != ref_idx.shape:
+            fail(f'{tag}: results of shape {got_idx.shape}, expected {ref_idx.shape}')
+        near_ties = []
+        for q, rank in zip(*np.nonzero(got_idx != ref_idx)):
+            # fp32 scores may swap two rows whose fp64 scores lie within
+            # NEAR_TIE_SCORE; the exact tiers may not swap any.
+            gap = abs(float(ref_scores[q, rank]) - float(got_scores[q, rank]))
+            near_ties.append(dict(query=int(q), rank=int(rank), got=int(got_idx[q, rank]),
+                                  ref=int(ref_idx[q, rank]), gap=gap))
+            if precision != 'float32' or gap > NEAR_TIE_SCORE:
+                fail(f'{tag}: query {q} rank {rank}: row {got_idx[q, rank]} where the host '
+                     f'reference has {ref_idx[q, rank]} (score gap {gap:.3e})')
+        same_rows = np.sort(got_idx, axis=1) == np.sort(ref_idx, axis=1)
+        score_err = float(np.abs(got_scores - ref_scores).max())
+        if precision == 'float32' and not score_err <= 1e-5:
+            fail(f'{tag}: float32 scores {score_err:.3e} from the fp64 reference')
+        per_s = RAG_QUERIES / retrieve_s
+        log(f'[{tag}] built and loaded in {build_s:.2f} s; {device_bytes / 2**20:.1f} MiB on '
+            f'the card ({(torch.cuda.memory_allocated() - before) / 2**20:.1f} MiB allocated); '
+            f'search of {RAG_QUERIES} queries top {INDEX_TOP_K}: host {min(host_ms):.3f} ms '
+            f'(runs {", ".join(f"{m:.3f}" for m in host_ms)}), device top-k '
+            f'{device_ms:.4f} ms (CUDA events), bound {bound_ms:.4f} ms (bytes '
+            f'{bytes_ms:.4f}, operations {ops_ms:.4f}); retriever (encode + search) '
+            f'{retrieve_s * 1e3:.1f} ms = {per_s:.1f} queries/s on {card}; '
+            f'{INDEX_CHECKED} queries equal the host reference (score err {score_err:.3e}, '
+            f'near-tie swaps {json.dumps(near_ties)})')
+        if not same_rows.all():
+            fail(f'{tag}: the top {INDEX_TOP_K} rows differ from the host reference')
+        out[precision] = dict(
+            build_s=build_s, device_bytes=device_bytes, host_ms=min(host_ms),
+            host_ms_runs=host_ms, device_ms=device_ms, bound_ms=bound_ms,
+            bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+            bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, retrieve_ms=retrieve_s * 1e3,
+            queries_per_s=per_s, score_err=score_err, near_ties=near_ties, k3=k3,
+        )
+        if precision == 'float32':
+            kept = retriever
+        del index, retriever, device_fn
+    torch.cuda.empty_cache()
+    return out, table, kept
+
+
+def rag_engine_routes(torch, tpa, tag, engine, marks, stats0, records):
+    """K1 on the RAG phases' engine: layers x passes, each on its route."""
+    passes = engine.stats['forward_passes'] - stats0.get('forward_passes', 0)
+    prefills = engine.stats['prefill_dispatches'] - stats0.get('prefill_dispatches', 0)
+    graphs = check_k1_routes(torch, tpa, tag, engine.model_cfg, engine, marks, passes, prefills,
+                             [r['width'] for r in records], 'model')
+    return dict(launches=tpa.ragged_paged_attention.launches,
+                launches_by_route=dict(tpa.ragged_paged_attention.launches_by_route),
+                forward_passes=passes, prefill_dispatches=prefills, **graphs)
+
+
+def rag_generator(torch):
+    """The registry's warm generator of phases 15b-15d."""
+    from distllm_tpu_torch.generate import get_generator
+
+    return get_generator(rag_generator_config(), register=True, device=DEVICE)
+
+
+def post_rag(port, i, question):
+    body = json.dumps({
+        'model': 'mistral-7b-random', 'top_k': RAG_CHAT_TOP_K, 'score_threshold': 0.0,
+        'messages': [{'role': 'system', 'content': 'Answer from the context.'},
+                     {'role': 'user', 'content': question}],
+    }).encode()
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}/v1/chat/completions', data=body,
+        headers={'Content-Type': 'application/json', 'X-Request-Id': f'rag-{i}'},
+    )
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def phase_rag_chat(torch, tpa, tea, card, retriever):
+    """Phase 15b: the chat server with the float32 tier's retriever."""
+    from distllm_tpu_torch.chat import ChatAppConfig
+    from distllm_tpu_torch.chat_server import ChatServer
+
+    tag = 'rag chat'
+    app = ChatAppConfig.from_dict({
+        'generator_config': rag_generator_config(), 'system_prompt': 'Use the context.',
+        'retrieval_top_k': RAG_CHAT_TOP_K,
+    })
+    t0 = time.perf_counter()
+    generator = app.build_generator(device=DEVICE)
+    if generator is not rag_generator(torch):
+        fail(f'{tag}: the chat app built another generator than the registry holds')
+    log(f'[{tag}] generator through the factory in {time.perf_counter() - t0:.2f} s')
+    engine = generator.engine
+    records = instrument_prefill(torch, engine)
+    questions = rag_queries(RAG_CHAT_REQUESTS, seed=17)
+    server = ChatServer(
+        generator, system_prompt=app.system_prompt, retriever=retriever,
+        retrieval_top_k=app.retrieval_top_k,
+        retrieval_score_threshold=app.retrieval_score_threshold,
+    )
+    rendered = []
+    render = server.template.render
+
+    def counting_render(history, contexts=None, scores=None):
+        rendered.append(len(contexts or []))
+        return render(history, contexts, scores)
+
+    server.template.render = counting_render
+    stats0, marks = dict(engine.stats), graph_marks(engine)
+    tokens0 = engine.stats.get('generated_tokens', 0)
+    zero_k1_counts(tpa)
+    zero_k3_counts(tea)
+    t0 = time.perf_counter()
+    with server:
+        answers = [post_rag(server.port, i, q) for i, q in enumerate(questions)]
+    wall_s = time.perf_counter() - t0
+    for i, (status, body) in enumerate(answers):
+        if status != 200 or body['request_id'] != f'rag-{i}' or not isinstance(
+                body['choices'][0]['message']['content'], str):
+            fail(f'{tag}: request {i} answered {status}: {body}')
+    if rendered != [RAG_CHAT_TOP_K] * RAG_CHAT_REQUESTS:
+        fail(f'{tag}: contexts per rendered prompt {rendered}, expected {RAG_CHAT_TOP_K} each')
+    k3 = check_k3(tea, tag, retriever.encoder.model_cfg.num_layers, RAG_CHAT_REQUESTS)
+    k1 = rag_engine_routes(torch, tpa, tag, engine, marks, stats0, records)
+    del engine._dispatch_prefill_paged  # instrument_prefill's wrapper
+    tokens = engine.stats['generated_tokens'] - tokens0
+    retrieve_ms = [t['retrieve_s'] * 1e3 for t in server.timings]
+    generate_ms = [t['generate_s'] * 1e3 for t in server.timings]
+    log(f'[{tag}] {RAG_CHAT_REQUESTS} POSTs answered 200, {RAG_CHAT_TOP_K} contexts in every '
+        f'prompt; retrieve ms a request median {median(retrieve_ms):.2f} (max '
+        f'{max(retrieve_ms):.2f}), generate ms median {median(generate_ms):.1f}; {tokens} '
+        f'tokens in {wall_s:.2f} s = {tokens / wall_s:.1f} tok/s on {card}')
+    return dict(requests=RAG_CHAT_REQUESTS, retrieve_ms=retrieve_ms, generate_ms=generate_ms,
+                tokens_per_s=tokens / wall_s, wall_s=wall_s, k3=k3, k1=k1)
+
+
+def write_pubmedqa(path: Path):
+    """``EVAL_ITEMS`` entries in the JAX pubmedqa task's file format."""
+    rng = np.random.default_rng(18)
+    data = {
+        str(30000 + i): {
+            'QUESTION': ' '.join(rng.choice(RAG_WORDS, size=int(rng.integers(8, 16)))),
+            'CONTEXTS': [' '.join(rng.choice(RAG_WORDS, size=int(rng.integers(20, 40))))
+                         for _ in range(int(rng.integers(1, 4)))],
+            'final_decision': ('yes', 'no', 'maybe')[i % 3],
+        }
+        for i in range(EVAL_ITEMS)
+    }
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(data))
+
+
+def phase_rag_eval(torch, tpa, tea, card, retriever, tmp: Path):
+    """Phase 15c: ``run_eval_suite`` with one rag_config (the registry's
+    generator and phase 15's retriever) on the pubmedqa task."""
+    from distllm_tpu_torch.rag.evaluate import (
+        EvalSuiteConfig,
+        RetrievalAugmentedGenerationConfig,
+        run_eval_suite,
+    )
+
+    tag = 'rag eval'
+
+    class PhaseRagConfig(RetrievalAugmentedGenerationConfig):
+        """The generator from ``generator_config``; the retriever is phase
+        15's (its index's table lives in this script)."""
+
+        def get_rag_generator(self, register=True, device=None):
+            rag = super().get_rag_generator(register=register, device=device)
+            rag.retriever = retriever
+            return rag
+
+    write_pubmedqa(tmp / 'downloads' / 'pubmedqa' / 'pubmedQA.json')
+    config = EvalSuiteConfig(
+        rag_configs=[PhaseRagConfig(generator_config=rag_generator_config())],
+        tasks=['pubmedqa'], download_dir=tmp / 'downloads', output_path=tmp / 'eval.json',
+    )
+    engine = rag_generator(torch).engine
+    records = instrument_prefill(torch, engine)
+    stats0, marks = dict(engine.stats), graph_marks(engine)
+    tokens0 = engine.stats.get('generated_tokens', 0)
+    zero_k1_counts(tpa)
+    zero_k3_counts(tea)
+    t0 = time.perf_counter()
+    results = run_eval_suite(config, device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    metrics = results['model_0']['pubmedqa']
+    if json.loads((tmp / 'eval.json').read_text()) != results:
+        fail(f'{tag}: the results file does not read back as the results')
+    k3 = check_k3(tea, tag, retriever.encoder.model_cfg.num_layers,
+                  -(-EVAL_ITEMS // retriever.batch_size))
+    k1 = rag_engine_routes(torch, tpa, tag, engine, marks, stats0, records)
+    del engine._dispatch_prefill_paged  # instrument_prefill's wrapper
+    tokens = engine.stats['generated_tokens'] - tokens0
+    if tokens != EVAL_ITEMS * RAG_NEW:
+        fail(f'{tag}: {tokens} tokens generated for {EVAL_ITEMS} questions x {RAG_NEW}')
+    log(f'[{tag}] pubmedqa, {EVAL_ITEMS} questions: accuracy {metrics["accuracy"]:.4f}, '
+        f'precision {metrics["precision"]:.4f} (random weights: a path check); {wall_s:.2f} s, '
+        f'{tokens / wall_s:.1f} tok/s on {card}')
+    return dict(metrics=metrics, wall_s=wall_s, tokens_per_s=tokens / wall_s, k3=k3, k1=k1)
+
+
+def write_job_inputs(root: Path, files, chunks, seed=19):
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for f in range(files):
+        with open(root / f'chunks{f}.jsonl', 'w') as fh:
+            for c in range(chunks):
+                words = rng.choice(RAG_WORDS, size=int(rng.integers(*JOB_WORDS)))
+                fh.write(json.dumps({'text': ' '.join(words), 'path': f'doc{f}-{c}'}) + '\n')
+
+
+def job_config(tmp: Path, name, generator, files, chunks):
+    """The generation job's YAML: ``jsonl`` reader, ``keyword_selection``
+    prompt (the card has no nltk, which ``question_chunk``'s postprocess
+    imports), ``huggingface`` writer, ``local`` compute."""
+    from distllm_tpu_torch.distributed_generation import Config
+
+    inputs = tmp / f'{name}_inputs'
+    write_job_inputs(inputs, files, chunks)
+    (tmp / 'keywords.txt').write_text('\n'.join(RAG_WORDS[:40]) + '\n')
+    raw = {
+        'input_dir': str(inputs), 'output_dir': str(tmp / name),
+        'glob_patterns': ['*.jsonl'], 'reader_config': {'name': 'jsonl'},
+        'prompt_config': {'name': 'keyword_selection', 'keywords': str(tmp / 'keywords.txt')},
+        'generator_config': generator, 'writer_config': {'name': 'huggingface'},
+        'compute_config': {'name': 'local'},
+    }
+    path = tmp / f'{name}.yaml'
+    path.write_text(json.dumps(raw))
+    return Config.from_yaml(path)
+
+
+def job_rows(output_dir: Path):
+    from datasets import load_from_disk
+
+    return [load_from_disk(str(p)).to_dict()
+            for p in sorted((output_dir / 'generations').iterdir())]
+
+
+def phase_generation_job(torch, tpa, card, tmp: Path):
+    """Phase 15d: ``run_generation`` over 4 files of 32 chunks."""
+    from distllm_tpu_torch.distributed_generation import run_generation
+
+    tag = 'generation job'
+    config = job_config(tmp, 'job', rag_generator_config(), JOB_FILES, JOB_CHUNKS)
+    engine = rag_generator(torch).engine
+    records = instrument_prefill(torch, engine)
+    stats0, marks = dict(engine.stats), graph_marks(engine)
+    tokens0 = engine.stats.get('generated_tokens', 0)
+    zero_k1_counts(tpa)
+    t0 = time.perf_counter()
+    if run_generation(config, device=DEVICE) != 0:
+        fail(f'{tag}: run_generation failed')
+    wall_s = time.perf_counter() - t0
+    k1 = rag_engine_routes(torch, tpa, tag, engine, marks, stats0, records)
+    del engine._dispatch_prefill_paged  # instrument_prefill's wrapper
+    tokens = engine.stats['generated_tokens'] - tokens0
+    shards = job_rows(config.output_dir)
+    rows = [len(s['response']) for s in shards]
+    if len(shards) != JOB_FILES or rows != [JOB_CHUNKS] * JOB_FILES:
+        fail(f'{tag}: shards of {rows} rows, expected {JOB_FILES} of {JOB_CHUNKS}')
+    if not all(r for s in shards for r in s['response']):
+        fail(f'{tag}: an empty response was written')
+    if tokens != JOB_FILES * JOB_CHUNKS * RAG_NEW:
+        fail(f'{tag}: {tokens} tokens for {JOB_FILES * JOB_CHUNKS} prompts x {RAG_NEW}')
+    if run_generation(config, device=DEVICE) != 1 or len(job_rows(config.output_dir)) != JOB_FILES:
+        fail(f'{tag}: a second run into the same output_dir was not refused')
+    log(f'[{tag}] {JOB_FILES} shards of {JOB_CHUNKS} rows written and read back; the '
+        f'clobber guard refused a second run; {tokens} tokens in {wall_s:.2f} s = '
+        f'{tokens / wall_s:.1f} tok/s on {card}')
+    return dict(shards=len(shards), wall_s=wall_s, tokens_per_s=tokens / wall_s, k1=k1)
+
+
+def phase_rag_identity(torch, tpa, tea, table):
+    """Phase 15e: fp32 at depth 2. (a) The generation job's greedy tokens
+    through K1 equal those through the plain op; (b) the retriever's top-20
+    indices through K3 equal the plain K3's on a 4,096-row index wherever
+    the plain scores' gap exceeds what the embeddings' difference can move
+    a score (each row is a unit vector: at most |q_K3 - q_plain|); a flip
+    is reported with its gap."""
+    from distllm_tpu_torch.embed import get_pooler
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.rag.search import Retriever, TpuIndexV2Config
+    from distllm_tpu_torch.distributed_generation import run_generation
+
+    tag = 'rag identity'
+    responses = {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_rag_identity_') as tmp:
+        for backend in ('auto', 'reference'):
+            model = {**RAG_MODEL, 'num_layers': 2, 'dtype': 'float32'}
+            generator = dict(rag_generator_config(attn_backend=backend), model=model,
+                             max_tokens=24, num_blocks=512, max_num_seqs=8, seed=1)
+            config = job_config(Path(tmp), f'identity_{backend}', generator, 1, 8)
+            zero_k1_counts(tpa)
+            if run_generation(config, device=DEVICE) != 0:
+                fail(f'{tag}: run_generation ({backend}) failed')
+            counted = (tpa.ragged_paged_attention.launches if backend == 'auto'
+                       else tpa.ragged_paged_attention_reference.launches)
+            other = (tpa.ragged_paged_attention_reference.launches if backend == 'auto'
+                     else tpa.ragged_paged_attention.launches)
+            if counted <= 0 or other != 0:
+                fail(f'{tag} ({backend}): {counted} attention calls of its kind, {other} of '
+                     'the other')
+            responses[backend] = [r for s in job_rows(config.output_dir) for r in s['response']]
+    same = responses['auto'] == responses['reference']
+    log(f'[{tag}] generation job fp32 depth 2, 8 prompts x 24 greedy tokens: K1 vs plain '
+        f'identical={same}')
+    if not same:
+        fail(f'{tag}: fp32 greedy responses differ: {responses}')
+
+    cfg = dataclasses.replace(RETRIEVER_BERT() if RETRIEVER_BERT else bert.BertConfig(),
+                              num_layers=2, dtype='float32')
+    small = table.head(IDENTITY_INDEX_ROWS)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_rag_index_') as tmp:
+        index = TpuIndexV2Config(dataset_dir=Path(tmp)).get_index(dataset=small, device=DEVICE)
+        queries = rag_queries(RAG_QUERIES, seed=20)
+        found = {}
+        for impl, counter in (('auto', tea.encoder_attention),
+                              ('reference', tea.encoder_attention_reference)):
+            retriever = Retriever(index, retriever_encoder(torch, cfg, seed=1, attn_impl=impl),
+                                  get_pooler({'name': 'mean'}), batch_size=RETRIEVER_BATCH)
+            zero_k3_counts(tea)
+            found[impl] = retriever.search(queries, top_k=INDEX_TOP_K, score_threshold=-2.0)
+            if counter.launches != cfg.num_layers * -(-RAG_QUERIES // RETRIEVER_BATCH):
+                fail(f'{tag} ({impl}): {counter.launches} encoder attention calls')
+    (kres, kemb), (pres, pemb) = found['auto'], found['reference']
+    flips = []
+    for q, (ki, pi, ps) in enumerate(zip(kres.total_indices, pres.total_indices,
+                                         pres.total_scores)):
+        slack = 2 * float(np.linalg.norm(kemb[q] - pemb[q]))
+        for rank, (a, b) in enumerate(zip(ki, pi)):
+            if a != b:
+                gap = ps[rank] - ps[rank + 1] if rank + 1 < len(ps) else float('inf')
+                flips.append(dict(query=q, rank=rank, kernel=a, plain=b, gap=gap, slack=slack))
+                if gap > slack:
+                    fail(f'{tag}: query {q} rank {rank}: K3 gives row {a}, plain {b}, '
+                         f'with a plain score gap {gap:.3e} over the slack {slack:.3e}')
+                break
+    max_diff = float(np.abs(kemb - pemb).max())
+    log(f'[{tag}] retriever fp32 depth 2 over {IDENTITY_INDEX_ROWS} rows, {RAG_QUERIES} '
+        f'queries top {INDEX_TOP_K}: K3 vs plain query embeddings max abs diff '
+        f'{max_diff:.3e}; flips {json.dumps(flips)}')
+    return dict(job_identical=same, embedding_max_abs_diff=max_diff, flips=flips)
+
 
 
 def main() -> None:
@@ -3682,6 +4309,28 @@ def main() -> None:
     t0 = time.perf_counter()
     identity_protein = phase_protein_identity(torch, tea, seqs, corpus_texts)
     log(f'[identity protein] phase 14d took {time.perf_counter() - t0:.1f} s')
+    # 15. the retrieval index (three tiers, 2**20 rows, BERT-base queries);
+    # 15b. the RAG chat server, 15c. the eval suite and 15d. the generation
+    # job over one warm 7B generator; 15e. their fp32 identities
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_rag_') as tmp:
+        t0 = time.perf_counter()
+        index_tiers, table, retriever = phase_index(torch, tea, smi, Path(tmp) / 'corpus')
+        log(f'[index] phase 15 took {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        rag_chat = phase_rag_chat(torch, tpa, tea, smi, retriever)
+        log(f'[rag chat] phase 15b took {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        rag_eval = phase_rag_eval(torch, tpa, tea, smi, retriever, Path(tmp))
+        log(f'[rag eval] phase 15c took {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        job = phase_generation_job(torch, tpa, smi, Path(tmp))
+        log(f'[generation job] phase 15d took {time.perf_counter() - t0:.1f} s')
+    del retriever
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rag_identity = phase_rag_identity(torch, tpa, tea, table)
+    log(f'[rag identity] phase 15e took {time.perf_counter() - t0:.1f} s')
+    del table
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
     # most frequent launch (its prefill pair beside it); K3 at the embed
@@ -3827,6 +4476,9 @@ def main() -> None:
                 *verify_keys, 'masked_sdpa_ms', 'library_max_abs_err')},
             'cases': hd256_cases,
         },
+        # Phases 15b-15d: the RAG chat server, the eval suite and the
+        # generation job over one Mistral-7B bf16 engine.
+        'rag': {'chat': rag_chat['k1'], 'eval': rag_eval['k1'], 'generation_job': job['k1']},
     }, {
         'name': 'encoder_attention',
         'route': 'cuda',
@@ -3860,6 +4512,9 @@ def main() -> None:
             )
         },
         'cases': k3_cases,
+        # Phases 15-15c: the retriever's BERT-base query encoder.
+        'retriever': dict({f'index_{p}': r['k3'] for p, r in index_tiers.items()},
+                          chat=rag_chat['k3'], eval=rag_eval['k3']),
     }, {
         'name': 'int8_matmul',
         'route': 'cuda',
@@ -3942,6 +4597,17 @@ def main() -> None:
         f'{name} {r["sequences_per_s"]:.1f} sequences/s ({r["real_tokens_per_s"]:.0f} real '
         f'tokens/s, padding share {r["padding_share"]:.4f}, peak {r["peak_gib"]:.2f} GiB)'
         for name, r in protein.items()) + f'; {time.perf_counter() - t_start:.1f} s total')
+    log(f'[index] {json.dumps(index_tiers)}')
+    log(f'[rag] {json.dumps(dict(chat=rag_chat, eval=rag_eval, generation_job=job, identity=rag_identity))}')
+    log(f'[summary] {smi}: index of {INDEX_ROWS} x {INDEX_DIM}, {RAG_QUERIES} queries top '
+        f'{INDEX_TOP_K}: ' + '; '.join(
+            f'{p} {r["device_bytes"] / 2**20:.0f} MiB, built {r["build_s"]:.1f} s, search '
+            f'{r["host_ms"]:.2f} ms host / {r["device_ms"]:.3f} ms device (bound '
+            f'{r["bound_ms"]:.3f}), {r["queries_per_s"]:.0f} queries/s with encoding'
+            for p, r in index_tiers.items())
+        + f'; RAG chat {rag_chat["tokens_per_s"]:.1f} tok/s, retrieve '
+        f'{median(rag_chat["retrieve_ms"]):.2f} ms a request; eval {rag_eval["wall_s"]:.2f} s; '
+        f'generation job {job["tokens_per_s"]:.1f} tok/s; {time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')

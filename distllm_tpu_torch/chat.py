@@ -1,59 +1,30 @@
-"""Chat app config and prompt rendering (counterparts of
-``distllm_tpu.chat.ChatAppConfig`` and ``ConversationPromptTemplate``;
-retrieval waits for the RAG slice, ROADMAP A9)."""
+"""The chat app: its YAML config, prompt rendering, one conversation and
+the REPL (counterparts of ``distllm_tpu.chat``'s ``ChatAppConfig``,
+``ConversationPromptTemplate``, ``ChatSession`` and ``chat_with_model``).
+
+Retrieval runs on the latest user message only; the whole history still
+goes into the prompt, under the retrieved contexts.
+
+    python -m distllm_tpu_torch.chat --config examples/chat/chat.fake.yaml [--device cpu]
+"""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+import time
 from pathlib import Path
 from typing import Any
 
-from distllm_tpu_torch.utils import BaseConfig
-
-# generator_config names that build the paged-KV engine: the JAX package's
-# ('tpu', 'vllm') and the port's own.
-ENGINE_BACKENDS = ('tpu', 'vllm', 'torch')
-# The JAX chat app's other backends, with the ROADMAP item that ports them.
-_NOT_PORTED_BACKENDS = {'fake': 'ROADMAP A11', 'http': 'ROADMAP A11'}
-# Fields of the JAX generator config the port's has not yet.
-_NOT_PORTED_FIELDS = {
-    'pretrained_model_name_or_path': 'ROADMAP A6',
-    'request_deadline_s': 'ROADMAP A6',
-    'max_dispatch_retries': 'ROADMAP A6',
-}
-
-
-def _lax_int(name: str, value) -> int:
-    """An int as the JAX config's pydantic field takes it (lax mode: a
-    bool, an integral float, or a numeric string)."""
-    if isinstance(value, (bool, int)):
-        return int(value)
-    if isinstance(value, float) and value.is_integer():
-        return int(value)
-    if isinstance(value, str):
-        try:
-            return int(value)
-        except ValueError:
-            pass
-    raise ValueError(f'{name} must be an integer, got {value!r}')
-
-
-def _lax_float(name: str, value) -> float:
-    if isinstance(value, (bool, int, float)):
-        return float(value)
-    if isinstance(value, str):
-        try:
-            return float(value)
-        except ValueError:
-            pass
-    raise ValueError(f'{name} must be a number, got {value!r}')
+from distllm_tpu_torch.utils import BaseConfig, lax_float, lax_int
 
 
 @dataclasses.dataclass
 class ChatAppConfig(BaseConfig):
-    """YAML config of the chat server: the JAX ``ChatAppConfig``'s keys,
-    defaults and checks. The retrieval keys are read and validated; a
-    retriever itself is refused until ROADMAP A9."""
+    """YAML config of the chat apps: the JAX ``ChatAppConfig``'s keys,
+    defaults and checks. A ``retriever_config`` is checked here as the JAX
+    ``RetrieverConfig`` checks it when the JAX app builds its retriever."""
 
     generator_config: dict = dataclasses.field(default_factory=lambda: {'name': 'fake'})
     retriever_config: dict | None = None
@@ -69,8 +40,8 @@ class ChatAppConfig(BaseConfig):
             raise ValueError('retriever_config must be a mapping or null')
         if not isinstance(self.system_prompt, str):
             raise ValueError('system_prompt must be a string')
-        self.retrieval_top_k = _lax_int('retrieval_top_k', self.retrieval_top_k)
-        self.retrieval_score_threshold = _lax_float(
+        self.retrieval_top_k = lax_int('retrieval_top_k', self.retrieval_top_k)
+        self.retrieval_score_threshold = lax_float(
             'retrieval_score_threshold', self.retrieval_score_threshold
         )
         if self.transcript_dir is not None:
@@ -78,77 +49,180 @@ class ChatAppConfig(BaseConfig):
                 raise ValueError('transcript_dir must be a path or null')
             self.transcript_dir = Path(self.transcript_dir)
         if self.retriever_config is not None:
-            raise NotImplementedError(
-                'retriever_config: retrieval is not ported to distllm_tpu_torch '
-                'yet (ROADMAP A9)'
-            )
+            from distllm_tpu_torch.rag.search import RetrieverConfig
 
-    @classmethod
-    def from_dict(cls, raw: dict[str, Any]) -> 'ChatAppConfig':
-        """From a YAML mapping; an unknown key is refused (the JAX config
-        forbids extra fields)."""
-        known = {f.name for f in dataclasses.fields(cls)}
-        extra = sorted(set(raw) - known)
-        if extra:
-            raise ValueError(f'unknown chat app keys {extra}; known: {sorted(known)}')
-        return cls(**raw)
+            RetrieverConfig.from_dict(self.retriever_config)
 
-    def build_generator_config(self):
-        """The ``TorchGeneratorConfig`` of ``generator_config``: its
-        ``name`` picks the backend (an engine name builds the engine;
-        ``fake`` and ``http`` raise, ROADMAP A11), the prefix cache is on
-        unless the mapping says otherwise (as in the JAX app: chat prompts
-        share their system prompt), and a ``model`` mapping picks its
-        config class by its ``name`` (``mistral`` by default; ``gemma2``
-        gives a ``GemmaConfig``) through ``models.decoder_family``."""
-        from distllm_tpu_torch.generate.generators.torch_backend import (
-            TorchGeneratorConfig,
-        )
-        from distllm_tpu_torch.models import decoder_family
+
+    def _backend(self) -> dict:
+        """``generator_config`` with its name (``fake`` when missing, the
+        JAX default); ``http`` raises (ROADMAP A11), and an engine backend
+        serves with the prefix cache on unless the mapping says otherwise
+        (chat prompts share their system prompt and contexts)."""
+        from distllm_tpu_torch.generate.generators import ENGINE_BACKENDS
 
         backend = dict(self.generator_config)
-        name = backend.pop('name', 'fake')
-        if name in _NOT_PORTED_BACKENDS:
+        backend.setdefault('name', 'fake')
+        if backend['name'] == 'http':
             raise NotImplementedError(
-                f'generator backend {name!r} is not ported to distllm_tpu_torch '
-                f'yet ({_NOT_PORTED_BACKENDS[name]})'
+                "generator backend 'http' is not ported to distllm_tpu_torch "
+                'yet (ROADMAP A11)'
             )
-        if name not in ENGINE_BACKENDS:
-            raise ValueError(
-                f'unknown generator backend {name!r}; the engine serves '
-                f'{ENGINE_BACKENDS}'
-            )
-        for key in sorted(set(backend) & set(_NOT_PORTED_FIELDS)):
-            raise NotImplementedError(
-                f'generator_config.{key} is not ported to distllm_tpu_torch yet '
-                f'({_NOT_PORTED_FIELDS[key]})'
-            )
-        # The JAX app also defaults request_deadline_s and
-        # max_dispatch_retries on for an engine; they wait on ROADMAP A6.
-        backend.setdefault('enable_prefix_cache', True)
-        if isinstance(backend.get('model'), dict):
-            fields = dict(backend['model'])
-            family = fields.pop('name', 'mistral')
-            cfg_cls, _ = decoder_family(family)
-            if family in cfg_cls.NAMES:
-                fields['name'] = family
-            backend['model'] = cfg_cls(**fields)
-        return TorchGeneratorConfig(**backend)
+        if backend['name'] in ENGINE_BACKENDS:
+            # The JAX app also defaults request_deadline_s and
+            # max_dispatch_retries on for an engine; they wait on ROADMAP A6.
+            backend.setdefault('enable_prefix_cache', True)
+        return backend
+
+    def build_generator_config(self):
+        """The config of ``generator_config``'s backend: a
+        ``TorchGeneratorConfig`` for an engine name (a ``model`` mapping
+        picks its config class by its ``name``), a ``FakeGeneratorConfig``
+        for ``fake``."""
+        from distllm_tpu_torch.generate.generators import generator_config
+
+        return generator_config(self._backend())
+
+    def build_generator(self, device: 'str | None' = None):
+        """The generator, warm-started through the registry; ``device``
+        overrides an engine backend's ``device`` field."""
+        from distllm_tpu_torch.generate.generators import get_generator
+
+        return get_generator(self._backend(), register=True, device=device)
+
+    def build_retriever(self, device: 'str | None' = None):
+        if self.retriever_config is None:
+            return None
+        from distllm_tpu_torch.rag.search import RetrieverConfig
+
+        return RetrieverConfig.from_dict(self.retriever_config).get_retriever(
+            register=True, device=device
+        )
 
 
 class ConversationPromptTemplate:
-    """Render history into one prompt: the system prompt, every turn as
-    ``role: content``, ending with 'assistant:' (the JAX template with no
-    retrieved context)."""
+    """Render history and retrieved context into one prompt: the system
+    prompt, the contexts under a '[Context from retrieval]' header, every
+    turn as ``role: content``, ending with 'assistant:' (the JAX
+    template)."""
 
     def __init__(self, system_prompt: str = '') -> None:
         self.system_prompt = system_prompt
 
-    def render(self, history: list[dict[str, str]]) -> str:
+    def render(
+        self,
+        history: list[dict[str, str]],
+        contexts: list[str] | None = None,
+        scores: list[float] | None = None,
+    ) -> str:
         parts: list[str] = []
         if self.system_prompt:
             parts.append(self.system_prompt)
+        if contexts:
+            lines = [
+                f'- (score {score:.3f}) {ctx}'
+                for ctx, score in zip(contexts, scores or [0.0] * len(contexts))
+            ]
+            parts.append('[Context from retrieval]\n' + '\n'.join(lines))
         for turn in history:
             parts.append(f'{turn["role"]}: {turn["content"]}')
         parts.append('assistant:')
         return '\n\n'.join(parts)
+
+
+def retrieve(retriever, query: str, top_k: int, score_threshold: float):
+    """``(contexts, scores)`` of one query (empty without a retriever)."""
+    if retriever is None:
+        return [], []
+    results, _ = retriever.search(query, top_k=top_k, score_threshold=score_threshold)
+    indices = results.total_indices[0]
+    contexts = retriever.get_texts(indices) if indices else []
+    return contexts, results.total_scores[0]
+
+
+class ChatSession:
+    """Drives one conversation (the JAX ``ChatSession``)."""
+
+    def __init__(self, config: ChatAppConfig, device: 'str | None' = None) -> None:
+        self.config = config
+        self.generator = config.build_generator(device)
+        self.retriever = config.build_retriever(device)
+        self.template = ConversationPromptTemplate(config.system_prompt)
+        self.history: list[dict[str, str]] = []
+
+    def ask(self, user_message: str) -> str:
+        """One turn: retrieval on the latest message, history in the prompt."""
+        self.history.append({'role': 'user', 'content': user_message})
+        contexts, scores = retrieve(
+            self.retriever, user_message, self.config.retrieval_top_k,
+            self.config.retrieval_score_threshold,
+        )
+        prompt = self.template.render(self.history, contexts, scores)
+        response = self.generator.generate([prompt])[0]
+        self.history.append({'role': 'assistant', 'content': response})
+        return response
+
+    def inspect(self, query: str) -> list[dict[str, Any]]:
+        """Retrieval only, every score kept (``/inspect``)."""
+        if self.retriever is None:
+            return []
+        results, _ = self.retriever.search(
+            query, top_k=self.config.retrieval_top_k, score_threshold=-1e9
+        )
+        indices = results.total_indices[0]
+        texts = self.retriever.get_texts(indices) if indices else []
+        return [
+            {'index': idx, 'score': score, 'text': text}
+            for idx, score, text in zip(indices, results.total_scores[0], texts)
+        ]
+
+    def save_transcript(self) -> Path | None:
+        if self.config.transcript_dir is None or not self.history:
+            return None
+        self.config.transcript_dir.mkdir(parents=True, exist_ok=True)
+        path = self.config.transcript_dir / f'chat_{time.strftime("%Y%m%d_%H%M%S")}.json'
+        path.write_text(json.dumps(self.history, indent=2))
+        return path
+
+
+def chat_with_model(
+    config: ChatAppConfig, input_fn=input, echo=print, device: 'str | None' = None
+) -> None:
+    """The REPL: ``quit`` saves the transcript, ``/inspect <query>`` prints
+    the retrieval."""
+    session = ChatSession(config, device)
+    echo('Chat ready. Commands: quit | /inspect <query>')
+    while True:
+        try:
+            user_message = input_fn('you> ').strip()
+        except (EOFError, KeyboardInterrupt):
+            user_message = 'quit'
+        if not user_message:
+            continue
+        if user_message.lower() in ('quit', 'exit'):
+            path = session.save_transcript()
+            if path:
+                echo(f'Transcript saved to {path}')
+            echo('bye')
+            return
+        if user_message.startswith('/inspect '):
+            for hit in session.inspect(user_message[len('/inspect '):]):
+                echo(f'[{hit["index"]}] score={hit["score"]:.4f} {hit["text"][:120]}')
+            continue
+        echo(f'assistant> {session.ask(user_message)}')
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--config', required=True, type=Path)
+    parser.add_argument(
+        '--device', default=None,
+        help="device of the engine and the retriever (default: cuda; 'cpu' only when asked)",
+    )
+    args = parser.parse_args(argv)
+    chat_with_model(ChatAppConfig.from_yaml(args.config), device=args.device)
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

@@ -9,8 +9,12 @@ and concurrency comes from the engine's batching, not from threads. The
 HTTP threads only parse, wait and answer. The generator captured its
 decode graphs when it was built (``TorchGenerator`` warms its engine up
 in the constructing thread, before this server's threads exist), so the
-worker only replays them. Retrieval, streaming, drain,
-metrics and the debug routes wait for later slices.
+worker only replays them. With a retriever, the worker first retrieves on
+the latest user message (the body's ``top_k`` and ``score_threshold``,
+defaulting to the app config's ``retrieval_top_k`` and
+``retrieval_score_threshold``) and renders the contexts and their scores
+into the prompt, as the JAX server does. Streaming, drain, metrics and
+the debug routes wait for later slices (ROADMAP A6).
 
 Run (random-init Mistral weights on the GPU; ``--num-layers`` cuts depth)::
 
@@ -19,13 +23,15 @@ Run (random-init Mistral weights on the GPU; ``--num-layers`` cuts depth)::
 ``--quantization int8`` serves the weights int8-quantized on the GPU
 (every projection through kernel K2); ``nf4`` dequantizes per layer.
 ``--config app.yaml`` reads the JAX chat app's YAML instead, as the JAX
-``ChatAppConfig`` reads it (``load_app_config``): ``generator_config`` (a
+``ChatAppConfig`` reads it (``load_app``): ``generator_config`` (a
 mapping of ``TorchGeneratorConfig`` fields; its ``name`` an engine name,
-``tpu``, ``vllm`` or ``torch``; ``model`` a mapping of config fields whose
-``name`` picks the family, ``gemma2`` a ``GemmaConfig``; the serving knobs
-``draft_k``, ``enable_mixed_batching``, ``enable_prefix_cache`` (on by
-default, as in the JAX app) and the rest), ``system_prompt`` and the
-retrieval keys; ``--device`` still applies.
+``tpu``, ``vllm`` or ``torch``, or ``fake``; ``model`` a mapping of config
+fields whose ``name`` picks the family, ``gemma2`` a ``GemmaConfig``; the
+serving knobs ``draft_k``, ``enable_mixed_batching``,
+``enable_prefix_cache`` (on by default, as in the JAX app) and the rest),
+``retriever_config`` (the JAX ``RetrieverConfig``'s keys: the index, the
+query encoder and pooler), ``system_prompt`` and the retrieval keys;
+``--device`` applies to the engine and the retriever.
 """
 
 from __future__ import annotations
@@ -39,9 +45,10 @@ import time
 import uuid
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable
 
 import distllm_tpu_torch
-from distllm_tpu_torch.chat import ConversationPromptTemplate
+from distllm_tpu_torch.chat import ConversationPromptTemplate, retrieve
 
 # Accepted inbound X-Request-Id shape; anything else gets a generated id.
 _REQUEST_ID_RE = re.compile(r'^[A-Za-z0-9._:-]{1,128}$')
@@ -72,11 +79,10 @@ def _completion_payload(model: str, content: str, request_id: str) -> dict:
 
 
 class EngineWorker:
-    """The single thread that owns the generator: prompts queue up and are
-    answered one ``generate`` call at a time."""
+    """The single thread that owns the generator and the retriever: each
+    request's work (a callable) queues up and runs one at a time."""
 
-    def __init__(self, generator) -> None:
-        self._generator = generator
+    def __init__(self) -> None:
         self._queue: queue.Queue = queue.Queue()
         self._thread = threading.Thread(
             target=self._run, name='distllm-torch-engine', daemon=True
@@ -85,9 +91,9 @@ class EngineWorker:
     def start(self) -> None:
         self._thread.start()
 
-    def submit(self, prompt: str) -> Future:
+    def submit(self, work: Callable[[], str]) -> Future:
         future: Future = Future()
-        self._queue.put((prompt, future))
+        self._queue.put((work, future))
         return future
 
     def _run(self) -> None:
@@ -95,11 +101,11 @@ class EngineWorker:
             item = self._queue.get()
             if item is None:
                 return
-            prompt, future = item
+            work, future = item
             if not future.set_running_or_notify_cancel():
                 continue
             try:
-                future.set_result(self._generator.generate([prompt])[0])
+                future.set_result(work())
             except Exception as exc:  # the error is answered to the client
                 future.set_exception(exc)
 
@@ -111,7 +117,11 @@ class EngineWorker:
 
 class ChatServer:
     """``ThreadingHTTPServer`` + one :class:`EngineWorker`. ``port=0`` binds
-    a free port (read it back from :attr:`port`)."""
+    a free port (read it back from :attr:`port`). With a ``retriever``,
+    each request retrieves ``top_k`` contexts (default
+    ``retrieval_top_k``) scoring at least ``score_threshold`` (default
+    ``retrieval_score_threshold``); :attr:`timings` keeps each answered
+    request's retrieve and generate seconds."""
 
     def __init__(
         self,
@@ -119,9 +129,17 @@ class ChatServer:
         host: str = '127.0.0.1',
         port: int = 0,
         system_prompt: str = '',
+        retriever=None,
+        retrieval_top_k: int = 20,
+        retrieval_score_threshold: float = 0.1,
     ) -> None:
+        self.generator = generator
+        self.retriever = retriever
+        self.retrieval_top_k = retrieval_top_k
+        self.retrieval_score_threshold = retrieval_score_threshold
         self.template = ConversationPromptTemplate(system_prompt)
-        self.worker = EngineWorker(generator)
+        self.worker = EngineWorker()
+        self.timings: list[dict] = []  # appended by the worker thread only
         self.started_at = time.time()
         self._served = 0
         self._lock = threading.Lock()
@@ -144,6 +162,25 @@ class ChatServer:
     def count_served(self) -> None:
         with self._lock:
             self._served += 1
+
+    def answer(self, messages: list[dict], top_k: int, score_threshold: float) -> str:
+        """One request on the worker thread: retrieval on the latest user
+        message, the rendered prompt, one generation."""
+        latest = next(
+            (m['content'] for m in reversed(messages) if m['role'] == 'user'), ''
+        )
+        t0 = time.perf_counter()
+        contexts, scores = [], []
+        if latest:
+            contexts, scores = retrieve(self.retriever, latest, top_k, score_threshold)
+        t1 = time.perf_counter()
+        prompt = self.template.render(list(messages), contexts, scores)
+        content = self.generator.generate([prompt])[0]
+        self.timings.append({
+            'retrieve_s': t1 - t0, 'generate_s': time.perf_counter() - t1,
+            'contexts': len(contexts),
+        })
+        return content
 
     def start(self) -> 'ChatServer':
         self.worker.start()
@@ -207,13 +244,24 @@ def _make_handler(server: ChatServer):
             if not messages:
                 self._send_json(400, {'error': {'message': 'messages is required'}})
                 return
+            try:
+                top_k = int(body.get('top_k', server.retrieval_top_k))
+                score_threshold = float(
+                    body.get('score_threshold', server.retrieval_score_threshold)
+                )
+            except (TypeError, ValueError):
+                self._send_json(
+                    400, {'error': {'message': 'top_k and score_threshold must be numbers'}}
+                )
+                return
             header = (self.headers.get('X-Request-Id') or '').strip()
             request_id = (
                 header if _REQUEST_ID_RE.match(header)
                 else f'req-{uuid.uuid4().hex[:16]}'
             )
-            prompt = server.template.render(list(messages))
-            future = server.worker.submit(prompt)
+            future = server.worker.submit(
+                lambda: server.answer(list(messages), top_k, score_threshold)
+            )
             try:
                 content = future.result(timeout=REQUEST_TIMEOUT_S)
             except Exception as exc:  # answered as a 500, never swallowed
@@ -236,20 +284,22 @@ def _make_handler(server: ChatServer):
     return Handler
 
 
-def load_app_config(path: str) -> tuple:
-    """``(TorchGeneratorConfig, system_prompt)`` from a chat app YAML read
-    as the JAX ``ChatAppConfig`` reads it (:class:`~distllm_tpu_torch.chat
-    .ChatAppConfig`): unknown keys refused, the retrieval keys validated
-    (a retriever raises, ROADMAP A9), ``generator_config.name`` honoured
-    (``fake`` / ``http`` raise, ROADMAP A11), the prefix cache on unless
-    the YAML says otherwise, and ``model`` mapped by its ``name``."""
-    import yaml
-
+def load_app(path: str):
+    """The :class:`~distllm_tpu_torch.chat.ChatAppConfig` of a chat app YAML,
+    read as the JAX ``ChatAppConfig`` reads it: unknown keys refused, the
+    retrieval keys validated, a ``retriever_config`` refused where the JAX
+    ``RetrieverConfig`` refuses it."""
     from distllm_tpu_torch.chat import ChatAppConfig
 
-    with open(path) as fh:
-        raw = yaml.safe_load(fh) or {}
-    app = ChatAppConfig.from_dict(raw)
+    return ChatAppConfig.from_yaml(path)
+
+
+def load_app_config(path: str) -> tuple:
+    """``(generator config, system_prompt)`` of a chat app YAML
+    (:func:`load_app`): ``generator_config.name`` honoured (``http``
+    raises, ROADMAP A11), the prefix cache on unless the YAML says
+    otherwise, and ``model`` mapped by its ``name``."""
+    app = load_app(path)
     return app.build_generator_config(), app.system_prompt
 
 
@@ -282,13 +332,18 @@ def main(argv: list[str] | None = None) -> None:
         'model and engine flags',
     )
     args = parser.parse_args(argv)
-    system_prompt = ''
+    retriever, app_kw = None, {}
     if args.config:
-        config, system_prompt = load_app_config(args.config)
-        if args.device is not None:
-            config.device = args.device
+        app = load_app(args.config)
+        generator = app.build_generator(device=args.device)
+        retriever = app.build_retriever(device=args.device)
+        app_kw = dict(
+            system_prompt=app.system_prompt,
+            retrieval_top_k=app.retrieval_top_k,
+            retrieval_score_threshold=app.retrieval_score_threshold,
+        )
     else:
-        config = TorchGeneratorConfig(
+        generator = TorchGenerator(TorchGeneratorConfig(
             model=MistralConfig(num_layers=args.num_layers, dtype=args.dtype),
             temperature=args.temperature,
             max_tokens=args.max_tokens,
@@ -298,10 +353,9 @@ def main(argv: list[str] | None = None) -> None:
             seed=args.seed,
             device=args.device,
             quantization=args.quantization,
-        )
-    generator = TorchGenerator(config)
+        ))
     server = ChatServer(
-        generator, host=args.host, port=args.port, system_prompt=system_prompt
+        generator, host=args.host, port=args.port, retriever=retriever, **app_kw
     ).start()
     try:
         while True:
@@ -310,7 +364,9 @@ def main(argv: list[str] | None = None) -> None:
         pass
     finally:
         server.close()
-        generator.shutdown()
+        shutdown = getattr(generator, 'shutdown', None)
+        if shutdown is not None:
+            shutdown()
 
 
 if __name__ == '__main__':

@@ -22,8 +22,6 @@ import argparse
 import dataclasses
 import functools
 import json
-import os
-import re
 import uuid
 from pathlib import Path
 from typing import Any
@@ -33,21 +31,6 @@ import torch
 from distllm_tpu_torch.parallel.launcher import get_compute_config
 from distllm_tpu_torch.timer import Timer
 from distllm_tpu_torch.utils import BaseConfig
-
-_ENV_PATTERN = re.compile(r'\$\{env:([A-Za-z_][A-Za-z0-9_]*)\}')
-
-
-def _substitute_env(obj: Any) -> Any:
-    """Replace ``${env:VAR}`` markers in strings with ``os.environ``
-    (unset variables become empty strings, as in the JAX package)."""
-    if isinstance(obj, str):
-        return _ENV_PATTERN.sub(lambda m: os.environ.get(m.group(1), ''), obj)
-    if isinstance(obj, dict):
-        return {k: _substitute_env(v) for k, v in obj.items()}
-    if isinstance(obj, list):
-        return [_substitute_env(v) for v in obj]
-    return obj
-
 
 def log(message: str) -> None:
     print(message, flush=True)
@@ -113,20 +96,6 @@ class Config(BaseConfig):
         self.input_dir = Path(self.input_dir)
         self.output_dir = Path(self.output_dir)
         get_compute_config(self.compute_config)
-
-    @classmethod
-    def from_yaml(cls, path: 'str | Path') -> 'Config':
-        import yaml
-
-        with open(path) as fh:
-            raw = yaml.safe_load(fh) or {}
-        return cls(**_substitute_env(raw))
-
-    def to_dict(self) -> dict[str, Any]:
-        out = dataclasses.asdict(self)
-        out['input_dir'] = str(self.input_dir)
-        out['output_dir'] = str(self.output_dir)
-        return out
 
 
 def run_embedding(

@@ -32,6 +32,7 @@ from distllm_tpu_torch.generate.engine import (
 )
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+from distllm_tpu_torch.ops.paged_attention import ATTN_BACKENDS
 from distllm_tpu_torch.ops.quantization import normalize_mode
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
 
@@ -82,6 +83,9 @@ class TorchGeneratorConfig(BaseConfig):
     max_window_prefill_tokens: int | None = None
     draft_k: int | None = None
     spec_ngram: int | None = None
+    # The paged-attention backend (the JAX config's field, with the port's
+    # values): 'auto' = kernel K1 on CUDA, 'reference' pins the plain op.
+    attn_backend: str = 'auto'
     # None = the GPU (raises without one); 'cpu' only when asked.
     device: str | None = None
 
@@ -92,6 +96,10 @@ class TorchGeneratorConfig(BaseConfig):
             raise ValueError('top_p and min_p must be >= 0')
         if self.top_p and self.min_p:
             raise ValueError('Only one of top_p or min_p can be set')
+        if self.attn_backend not in ATTN_BACKENDS:
+            raise ValueError(
+                f'attn_backend must be one of {ATTN_BACKENDS}, got {self.attn_backend!r}'
+            )
         self.engine_config()  # refuses what the engine would refuse
 
     def engine_config(self) -> EngineConfig:
@@ -115,7 +123,7 @@ class TorchGenerator:
         config: TorchGeneratorConfig,
         params: dict | None = None,
         tokenizer=None,
-        attn_backend: str = 'auto',
+        attn_backend: str | None = None,
         qmm_backend: str | None = None,
     ) -> None:
         self.config = config
@@ -136,7 +144,8 @@ class TorchGenerator:
         )
         self.engine = LLMEngine(
             model_cfg, params, self.tokenizer, config.engine_config(),
-            device=device, attn_backend=attn_backend, qmm_backend=qmm_backend,
+            device=device, attn_backend=attn_backend or config.attn_backend,
+            qmm_backend=qmm_backend,
             own_params=own_params,
         )
         # Capture the decode graphs here, in the constructing thread, before
@@ -171,3 +180,39 @@ class TorchGenerator:
 
     def shutdown(self) -> None:
         self.engine.shutdown()
+
+
+@dataclasses.dataclass
+class FakeGeneratorConfig(BaseConfig):
+    """The JAX package's deterministic test backend (``FakeGenerator`` of
+    ``distllm_tpu.generate.generators.tpu_backend``): every prompt answers
+    ``response_template`` over its first ``max_prompt_chars`` characters.
+    ``overload_every`` (the JAX engine's shed signal every Nth call) needs
+    the overload surface, which waits on ROADMAP A6: only 0 is served."""
+
+    name: str = 'fake'
+    response_template: str = 'response to: {prompt}'
+    max_prompt_chars: int = 48
+    overload_every: int = 0
+
+    def validate(self) -> None:
+        if self.overload_every:
+            raise NotImplementedError(
+                'FakeGeneratorConfig.overload_every needs the overload surface, '
+                'which is not ported to distllm_tpu_torch yet (ROADMAP A6)'
+            )
+
+
+class FakeGenerator:
+    def __init__(self, config: FakeGeneratorConfig) -> None:
+        self.config = config
+
+    def generate(self, prompts: str | list[str]) -> list[str]:
+        if isinstance(prompts, str):
+            prompts = [prompts]
+        return [
+            self.config.response_template.format(
+                prompt=p[: self.config.max_prompt_chars]
+            )
+            for p in prompts
+        ]

@@ -9,6 +9,9 @@ construction, as the pydantic validators refuse it in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
+from pathlib import Path
 
 import torch
 
@@ -26,6 +29,45 @@ class BaseConfig:
 
     def validate(self) -> None:
         """Raise ``ValueError`` when the config is inconsistent."""
+
+    @classmethod
+    def from_dict(cls, raw: dict):
+        """From a YAML mapping: an unknown or a missing key is a
+        ``ValueError``, as the JAX package's pydantic configs (which forbid
+        extra fields) refuse it."""
+        if not isinstance(raw, dict):
+            raise ValueError(f'{cls.__name__} needs a mapping, got {raw!r}')
+        fields = {f.name: f for f in dataclasses.fields(cls) if f.init}
+        extra = sorted(set(raw) - set(fields))
+        missing = sorted(
+            name for name, f in fields.items()
+            if name not in raw and f.default is dataclasses.MISSING
+            and f.default_factory is dataclasses.MISSING
+        )
+        if extra or missing:
+            raise ValueError(
+                f'{cls.__name__}: unknown keys {extra}, missing keys {missing}'
+            )
+        return cls(**raw)
+
+    @classmethod
+    def from_yaml(cls, path):
+        """From a YAML file, ``${env:VAR}`` markers substituted
+        (:meth:`from_dict`'s checks)."""
+        import yaml
+
+        with open(path) as fh:
+            raw = yaml.safe_load(fh) or {}
+        return cls.from_dict(substitute_env(raw))
+
+    def to_dict(self) -> dict:
+        """The fields as plain values, paths as strings: written as JSON,
+        which is valid YAML, :meth:`from_yaml` (and the JAX package's
+        ``from_yaml``) reads it back."""
+        return {
+            key: str(value) if isinstance(value, Path) else value
+            for key, value in dataclasses.asdict(self).items()
+        }
 
 
 _DTYPES = {
@@ -61,3 +103,66 @@ def resolve_device(device: 'str | torch.device | None' = None) -> torch.device:
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {dev}; expected cuda or cpu')
     return dev
+
+
+def lax_int(name: str, value) -> int:
+    """An int as a JAX config's pydantic field takes it (lax mode: a bool,
+    an integral float, or a numeric string)."""
+    if isinstance(value, (bool, int)):
+        return int(value)
+    if isinstance(value, float) and value.is_integer():
+        return int(value)
+    if isinstance(value, str):
+        try:
+            return int(value)
+        except ValueError:
+            pass
+    raise ValueError(f'{name} must be an integer, got {value!r}')
+
+
+def lax_float(name: str, value) -> float:
+    """A float as a JAX config's pydantic field takes it."""
+    if isinstance(value, (bool, int, float)):
+        return float(value)
+    if isinstance(value, str):
+        try:
+            return float(value)
+        except ValueError:
+            pass
+    raise ValueError(f'{name} must be a number, got {value!r}')
+
+
+def curl_download(url: str, output_path: 'str | Path', timeout: int = 600) -> 'Path':
+    """Download ``url`` to ``output_path`` with curl unless the file is
+    already there (copy of ``distllm_tpu.utils.curl_download``): a
+    transfer goes to a temporary name and is renamed on success, so a
+    failed one never leaves a file a later call would take as cached."""
+    import subprocess
+    from pathlib import Path
+
+    output_path = Path(output_path)
+    if output_path.exists():
+        return output_path
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp_path = output_path.with_name(output_path.name + '.part')
+    subprocess.run(
+        ['curl', '-fsSL', url, '-o', str(tmp_path)], check=True, timeout=timeout
+    )
+    tmp_path.rename(output_path)
+    return output_path
+
+
+_ENV_PATTERN = re.compile(r'\$\{env:([A-Za-z_][A-Za-z0-9_]*)\}')
+
+
+def substitute_env(obj):
+    """Replace ``${env:VAR}`` markers in a YAML structure's strings with
+    ``os.environ`` (unset variables become empty strings, as in the JAX
+    package)."""
+    if isinstance(obj, str):
+        return _ENV_PATTERN.sub(lambda m: os.environ.get(m.group(1), ''), obj)
+    if isinstance(obj, dict):
+        return {k: substitute_env(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [substitute_env(v) for v in obj]
+    return obj

@@ -8,10 +8,11 @@ with the ROADMAP item that brings what it asks for:
   kwargs it hands ``get_generator``);
 - retrieval: ``retrieval_top_k``, ``retrieval_score_threshold`` and
   ``transcript_dir`` are read and validated as the JAX fields are, unknown
-  keys are refused, and a ``retriever_config`` raises (ROADMAP A9):
-  ``examples/chat/chat_server.rag.yaml`` loads in JAX and is refused here;
+  keys are refused, and a ``retriever_config`` is checked as the JAX
+  ``RetrieverConfig`` checks it: ``examples/chat/chat_server.rag.yaml``
+  fails there and is refused here;
 - the backend name: ``tpu``, ``vllm`` and ``torch`` build the engine,
-  ``fake`` and ``http`` raise (ROADMAP A11);
+  ``fake`` the fake generator, ``http`` raises (ROADMAP A11);
 - ``top_p`` with ``min_p``: both set is refused, as JAX refuses it; a set
   ``top_p`` alone turns ``min_p`` off;
 - a ``model`` mapping picks its config class by ``name`` (``gemma2``).
@@ -28,6 +29,7 @@ from distllm_tpu.generate.generators.tpu_backend import TpuGeneratorConfig
 from distllm_tpu_torch.chat import ChatAppConfig
 from distllm_tpu_torch.chat_server import load_app_config
 from distllm_tpu_torch.generate.generators.torch_backend import (
+    FakeGeneratorConfig,
     TorchGenerator,
     TorchGeneratorConfig,
 )
@@ -97,10 +99,17 @@ def test_the_yaml_serves_through_the_engine_with_the_cache(tmp_path):
 
 
 def test_the_rag_example_is_refused_until_retrieval_is_ported():
+    """Retrieval is ported (A9); the example's retriever keys are refused
+    as the JAX ``RetrieverConfig`` refuses them when its app builds the
+    retriever (``dataset_dir`` / ``faiss_index_path`` / ``precision``
+    where ``faiss_config`` / ``encoder_config`` / ``pooler_config`` are
+    required)."""
     raw = yaml.safe_load(RAG_YAML.read_text())
     jax_app = JaxChatAppConfig(**raw)
     assert jax_app.retriever_config is not None and jax_app.retrieval_top_k == 20
-    with pytest.raises(NotImplementedError, match='A9'):
+    with pytest.raises(ValueError):
+        jax_app.build_retriever()
+    with pytest.raises(ValueError, match='RetrieverConfig'):
         load_app_config(str(RAG_YAML))
 
 
@@ -140,13 +149,20 @@ def test_bad_app_fields_are_refused_as_in_jax(fields):
 
 @pytest.mark.parametrize('name', ['fake', 'http'])
 def test_fake_and_http_backends_wait_on_a11(tmp_path, name):
+    """``http`` still waits on A11; ``fake`` builds through the generator
+    factory since retrieval came (A9), as does a YAML with no
+    ``generator_config`` (the JAX default backend is fake)."""
     path = tmp_path / 'app.yaml'
     path.write_text(yaml.safe_dump({'generator_config': {'name': name}}))
-    with pytest.raises(NotImplementedError, match='A11'):
-        load_app_config(str(path))
-    path.write_text('system_prompt: hi\n')  # the JAX default backend is fake
-    with pytest.raises(NotImplementedError, match='A11'):
-        load_app_config(str(path))
+    if name == 'http':
+        with pytest.raises(NotImplementedError, match='A11'):
+            load_app_config(str(path))
+    else:
+        config, _ = load_app_config(str(path))
+        assert isinstance(config, FakeGeneratorConfig)
+    path.write_text('system_prompt: hi\n')
+    config, system_prompt = load_app_config(str(path))
+    assert isinstance(config, FakeGeneratorConfig) and system_prompt == 'hi'
 
 
 def test_jax_generator_fields_the_port_lacks_wait_on_a6(tmp_path):

@@ -1793,3 +1793,106 @@ def test_gemma2_engine_on_the_kernel_matches_the_plain_op(cuda):
             assert tpa.ragged_paged_attention.launches_by_head_dim[256] - at_256 == expected
             engine.shutdown()
         assert outs['auto'] == outs['reference'], knobs
+
+
+# ------------------------------------------------------ top-k and retrieval
+# ops/topk and the retrieval index on the card against the same calls on
+# the CPU: the int8 and Hamming tiers bitwise (exact int32 products through
+# torch._int_mm, scales applied in one order), the float32 tier with equal
+# indices and scores within 1e-5, ties broken by the lower index on both.
+def _topk_corpus(n, h, b, seed=0):
+    rng = np.random.default_rng(seed)
+    corpus = rng.normal(size=(n, h)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    for dst in (n // 3, n // 3 + 1, n // 2, n - 1):  # ties across slabs
+        corpus[dst] = corpus[3]
+    queries = rng.normal(size=(b, h)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    queries[0] = corpus[3]
+    return corpus, queries
+
+
+def _both(fn, *arrays, **kw):
+    cpu = fn(*(torch.from_numpy(a) for a in arrays), **kw)
+    card = fn(*(torch.from_numpy(a).cuda() for a in arrays), **kw)
+    return [t.numpy() for t in cpu], [t.cpu().numpy() for t in card]
+
+
+@pytest.mark.parametrize('form', ['flat', 'grouped'])
+@pytest.mark.parametrize('b', [1, 5, 64])
+def test_topk_tiers_on_the_card_match_the_cpu(cuda, form, b):
+    from distllm_tpu_torch.ops import topk
+
+    n, h, k = 5000, 768, 40
+    corpus, queries = _topk_corpus(n, h, b)
+    cpu, card = _both(topk.topk_inner_product, queries, corpus, k=k, chunk_size=1024)
+    np.testing.assert_array_equal(card[1], cpu[1])
+    np.testing.assert_allclose(card[0], cpu[0], atol=1e-5, rtol=0)
+    assert list(card[1][0][:5]) == [3, n // 3, n // 3 + 1, n // 2, n - 1]
+    codes, scales = topk.quantize_int8_rows(corpus)
+    bits, qbits = topk.pack_sign_bits(corpus), topk.pack_sign_bits(queries)
+    if form == 'grouped':
+        codes, scales = topk.group_rows(codes, 2048), topk.group_rows(scales, 2048)
+        bits = topk.group_rows(bits, 2048)
+        kw = dict(n_valid=n)
+    else:
+        kw = dict(chunk_size=1000)
+    cpu, card = _both(topk.int8_topk, queries, codes, scales, k=k, **kw)
+    np.testing.assert_array_equal(card[1], cpu[1])
+    np.testing.assert_array_equal(card[0], cpu[0])
+    cpu, card = _both(topk.hamming_topk, qbits, bits, k=k, **kw)
+    np.testing.assert_array_equal(card[1], cpu[1])
+    np.testing.assert_array_equal(card[0], cpu[0])
+
+
+def test_topk_int8_on_the_card_is_exact_at_h1280(cuda):
+    """ESM-2 650M's width: int8 x int8 sums pass 2**24, where fp32 would
+    round; the card's int32 products equal the host's int64 ones."""
+    from distllm_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(1)
+    corpus = np.sign(rng.normal(size=(3000, 1280))).astype(np.float32)
+    queries = corpus[[5, 6, 7]] + np.float32(1e-3) * rng.normal(size=(3, 1280)).astype(np.float32)
+    codes, scales = topk.quantize_int8_rows(corpus)
+    qi, qscale = topk.quantize_queries(torch.from_numpy(queries).cuda())
+    cpu_qi, cpu_qscale = topk.quantize_queries(torch.from_numpy(queries))
+    assert torch.equal(qi.cpu(), cpu_qi) and torch.equal(qscale.cpu(), cpu_qscale)
+    raw = topk._int_dot(qi, torch.from_numpy(codes).cuda()).cpu().numpy()
+    exact = cpu_qi.numpy().astype(np.int64) @ codes.astype(np.int64).T
+    assert np.abs(exact).max() > 2 ** 24
+    np.testing.assert_array_equal(raw, exact)
+    cpu, card = _both(topk.int8_topk, queries, codes, scales, k=10, chunk_size=1000)
+    np.testing.assert_array_equal(card[1], cpu[1])
+    np.testing.assert_array_equal(card[0], cpu[0])
+
+
+class _Table:
+    """A numpy embeddings table with the dataset interface the index reads."""
+
+    def __init__(self, embeddings, texts):
+        self.embeddings, self.texts = embeddings, np.array(texts, dtype=object)
+
+    def __len__(self):
+        return len(self.embeddings)
+
+    def __getitem__(self, key):
+        return {'embeddings': self.embeddings[key], 'text': list(self.texts[key])}
+
+
+@pytest.mark.parametrize('precision', ['float32', 'int8', 'ubinary'])
+def test_retrieval_index_on_the_card_matches_the_cpu(cuda, tmp_path, precision):
+    from distllm_tpu_torch.rag import search
+
+    corpus, queries = _topk_corpus(9000, 768, 16, seed=2)
+    table = _Table(corpus * 3.0, [f'doc {i}' for i in range(len(corpus))])
+    results = {}
+    for device in ('cpu', 'cuda'):
+        config = search.TpuIndexV2Config(
+            dataset_dir=tmp_path, index_dir=tmp_path / 'index', precision=precision)
+        index = config.get_index(dataset=table, device=device)
+        assert index.device_bytes > 0
+        results[device] = index.search(queries, top_k=12, score_threshold=-1.0)
+    assert results['cuda'].total_indices == results['cpu'].total_indices
+    for a, b in zip(results['cuda'].total_scores, results['cpu'].total_scores):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    assert results['cuda'].total_indices[0][:5] == [3, 3000, 3001, 4500, 8999]

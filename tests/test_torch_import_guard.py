@@ -1,6 +1,7 @@
 """``distllm_tpu_torch`` imports neither ``jax`` nor any module of
-``distllm_tpu``: every module of the port is imported in a fresh
-interpreter and ``sys.modules`` is inspected afterwards."""
+``distllm_tpu`` (nor ``pydantic``: its configs are dataclasses): every
+module of the port is imported in a fresh interpreter and ``sys.modules``
+is inspected afterwards."""
 
 import json
 import subprocess
@@ -23,6 +24,7 @@ leaked = sorted(
     m for m in sys.modules
     if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
     or m == 'distllm_tpu' or m.startswith('distllm_tpu.')
+    or m == 'pydantic' or m.startswith('pydantic.')
 )
 print(json.dumps({'imported': names, 'leaked': leaked}))
 """
@@ -71,5 +73,27 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.embed.embedders.semantic_chunk',
         'distllm_tpu_torch.embed.writers.huggingface',
         'distllm_tpu_torch.parallel.launcher',
+        'distllm_tpu_torch.generate.prompts',
+        'distllm_tpu_torch.generate.prompts.amp_question',
+        'distllm_tpu_torch.generate.prompts.keyword_selection',
+        'distllm_tpu_torch.generate.prompts.question_answer',
+        'distllm_tpu_torch.generate.prompts.question_chunk',
+        'distllm_tpu_torch.generate.readers',
+        'distllm_tpu_torch.generate.readers.amp_json',
+        'distllm_tpu_torch.generate.readers.huggingface',
+        'distllm_tpu_torch.generate.writers',
+        'distllm_tpu_torch.generate.writers.amp_json',
+        'distllm_tpu_torch.generate.writers.huggingface',
+        'distllm_tpu_torch.generate.generators',
+        'distllm_tpu_torch.distributed_generation',
+        'distllm_tpu_torch.ops.topk',
+        'distllm_tpu_torch.rag.search',
+        'distllm_tpu_torch.rag.response_synthesizer',
+        'distllm_tpu_torch.rag.evaluate',
+        'distllm_tpu_torch.rag.tasks',
+        'distllm_tpu_torch.rag.tasks.litqa',
+        'distllm_tpu_torch.rag.tasks.protein_qa',
+        'distllm_tpu_torch.rag.tasks.pubmedqa',
+        'distllm_tpu_torch.rag.tasks.sciq',
     }
     assert expected <= set(result['imported'])
