@@ -298,14 +298,52 @@ carried on):
     exceeds twice the query embeddings' distance, any flip reported with
     its gap.
 
-Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d and 15-15e prints its seconds. The last three lines of
+16. open-loop load — the JAX ``gen_load`` stage's chip engine (bf16
+    Mistral-7B on phase 6b's weights, 712 blocks of 16, 32 slots, 512-token
+    rows, 16-step windows, top-64 sampling, the prefix cache on,
+    ``ttft_slo_s`` 2, attribution on), warmed up, driven by
+    ``generate.loadgen.run_loadgen`` through its workload (256 greedy
+    requests at 16 rps, 16 sessions, 60% warm behind a 64-token prefix,
+    tails of 32..192 and 16..96 new tokens): TTFT, TPOT and queue-wait
+    p50/p95/p99, tok/s, goodput and its share, warm-prefix hit tokens and
+    the MFU and bandwidth shares of each window kind, beside the card's
+    name and power limit; K1 layers x passes on the route of each pass,
+    its plain op never, every decode step a graph replay. Gates: every
+    request finishes with its budget, warm hits > 0, nothing shed or
+    failed, every share in (0, 1.05]. The same workload again with
+    attribution off: its tok/s and the share of tokens that agree;
+16b. chaos, overload and deadline — the same engine: the JAX
+    ``gen_chaos`` stage's 192 requests at 16 rps clean and then under its
+    fault schedule (``dispatch`` x3 after 16, ``slow_window`` x3 of 0.2 s
+    after 8, ``sched_exhausted`` x2 after 32; 3 retries, 0.01 s backoff,
+    a 120 s deadline, ``ttft_slo_s`` 4): every site fired, a recovery,
+    nothing quarantined or failed, goodput > 0, the share of tokens that
+    agree with the clean run printed; 128 requests at 256 rps under
+    admission control with ``ttft_slo_s`` 0.25: some shed, each shed's
+    ``retry_after_s`` > 0, every admitted request finishes; every window
+    stalled 0.6 s against a 1 s deadline: the stalled requests end
+    ``timeout`` and, the cache flushed, every block is free;
+16c. the chat server under HTTP load — ``ChatServer`` over the chat
+    app config's Mistral-7B bf16 generator (its serving defaults: the
+    prefix cache, a 120 s deadline, 2 retries) on phase 6b's weights,
+    ``run_http_loadgen`` with 64 requests at 8 rps, every fourth streamed:
+    every answer 200, every streamed one a single delta and ``[DONE]``,
+    ``/metrics``' TTFT count up by 64, ``/loadinfo`` with the JAX keys,
+    then ``POST /drain``: ``/health`` 503 and a completion 503 with
+    ``Retry-After``; a server over ``fake`` with ``overload_every`` 2
+    answers 429 with ``Retry-After``; the HTTP TTFT percentiles;
+16d. identity — fp32, depth 2, 32 greedy requests in a burst, through K1
+    and through the plain op: attribution off and on give identical
+    tokens, and so does ``dispatch`` x2 under 3 retries.
+
+Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e and 16-16d prints its seconds. The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
 ``mixed_kv``, its verify shapes under ``verify``, head dim 256 under
 ``head_dim_256``, K3's protein and ModernBERT shapes and launches under
-``models``, the RAG phases' K1 launches under ``rag`` and K3's under
-``retriever``, K2's embed headline and
+``models``, the RAG phases' K1 launches under ``rag`` and the load
+phases' under ``load``, K3's under ``retriever``, K2's embed headline and
 its verify rows under ``verify``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -326,6 +364,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -3629,8 +3668,9 @@ JOB_FILES, JOB_CHUNKS, JOB_WORDS = 4, 32, (256, 1024)
 IDENTITY_INDEX_ROWS = 4096
 # The generator of phases 15b-15d, one warm instance through the registry:
 # Mistral-7B widths ({} = MistralConfig's defaults), bf16, random weights
-# from seed 0, 32 slots, 64 greedy tokens, the prefix cache on (the chat
-# YAML's default, set here too so the three phases share one instance).
+# from seed 0, 32 slots, 64 greedy tokens, the prefix cache on, a 120 s
+# deadline and 2 dispatch retries (the chat YAML's defaults for an engine,
+# set here too so the three phases share one instance).
 RAG_MODEL: dict = {}
 RAG_BLOCKS, RAG_SLOTS, RAG_NEW = 3072, 32, 64
 # The retriever's query encoder: BERT-base (None = BertConfig's defaults).
@@ -3641,7 +3681,8 @@ def rag_generator_config(**update):
     return dict(
         name='tpu', model=dict(RAG_MODEL), temperature=0.0, max_tokens=RAG_NEW,
         block_size=BLOCK_SIZE, num_blocks=RAG_BLOCKS, max_num_seqs=RAG_SLOTS,
-        max_model_len=2048, seed=0, enable_prefix_cache=True, **update,
+        max_model_len=2048, seed=0, enable_prefix_cache=True, request_deadline_s=120.0,
+        max_dispatch_retries=2, **update,
     )
 
 
@@ -4191,6 +4232,440 @@ def phase_rag_identity(torch, tpa, tea, table):
 
 
 
+# ---------------------------------------------------------- phases 16-16d
+# The JAX gen_load stage's chip engine (bench.py): SERVE_712 with a 2 s
+# TTFT SLO and attribution on.
+LOAD_ENGINE = dict(SERVE_712, ttft_slo_s=2.0, attribution=True)
+# Its workload, and gen_chaos's (192 requests) and overload (seed 1, 128
+# at 256 rps, 16..64 new) ones; 16c's HTTP run (64 at 8 rps).
+LOAD = dict(seed=0, num_requests=256, rate_rps=16.0, num_sessions=16, warm_fraction=0.6,
+            prefix_tokens=64, prompt_tokens=(32, 192), output_tokens=(16, 96))
+CHAOS_LOAD = dict(LOAD, num_requests=192)
+OVERLOAD = dict(LOAD, seed=1, num_requests=128, rate_rps=256.0, output_tokens=(16, 64))
+HTTP_LOAD = dict(LOAD, seed=2, num_requests=64, rate_rps=8.0)
+CHAOS_FAULTS = (
+    ('dispatch', dict(times=3, after=16)),
+    ('slow_window', dict(times=3, delay_s=0.2, after=8)),
+    ('sched_exhausted', dict(times=2, after=32)),
+)
+CHAOS_RECOVERY = dict(ttft_slo_s=4.0, request_deadline_s=120.0, max_dispatch_retries=3,
+                      retry_backoff_s=0.01)
+OVERLOAD_SLO_S = 0.25
+DEADLINE_S, DEADLINE_STALL_S, DEADLINE_PROMPTS = 1.0, 0.6, 4
+SHARE_CAP = 1.05  # an MFU or bandwidth share above this is a counting error
+HTTP_MAX_TOKENS = 32
+LOAD_IDENTITY_PROMPTS = 32
+
+
+def workload_of(fields, vocab_size):
+    from distllm_tpu_torch.generate.loadgen import LoadgenConfig, build_workload
+
+    return build_workload(LoadgenConfig(**fields, vocab_size=vocab_size))
+
+
+def load_run(torch, tpa, tag, cfg, engine, workload, prefill_rec):
+    """One ``run_loadgen`` over ``workload``, K1's counts zeroed just before
+    and read just after: K1 launches layers x passes on the route of each
+    pass (prefill dispatches by their padded width), its plain op never,
+    every decode step a graph replay. Returns the report and K1's counts."""
+    from distllm_tpu_torch.generate.loadgen import run_loadgen
+
+    n0 = len(prefill_rec)
+    ring0 = engine.flight.total_recorded
+    marks = graph_marks(engine)
+    stats0 = dict(engine.stats)
+    zero_k1_counts(tpa)
+    t0 = time.perf_counter()
+    report = run_loadgen(engine, workload)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    run = stats_delta(engine, stats0)
+    widths = [r['width'] for r in prefill_rec[n0:]]
+    prefills = run.get('prefill_dispatches', 0)
+    if len(widths) != prefills:
+        fail(f'{tag}: {len(widths)} prefill dispatches recorded, {prefills} counted')
+    graphs = check_k1_routes(torch, tpa, tag, cfg, engine, marks, run['forward_passes'],
+                             prefills, widths, 'model')
+    k1 = dict(launches=tpa.ragged_paged_attention.launches,
+              launches_by_route=dict(tpa.ragged_paged_attention.launches_by_route),
+              forward_passes=run['forward_passes'], prefill_dispatches=prefills,
+              decode_windows=run.get('decode_windows', 0), wall_s=wall_s,
+              # Windows whose every active row ran all the steps: equal
+              # passes, so their wall times compare across runs.
+              full_window_ms=median([
+                  1e3 * r['duration_s'] for r in new_records(engine.flight, ring0)
+                  if r['kind'] == 'decode'
+                  and r['tokens'] == engine.config.decode_steps * r['batch']]),
+              **graphs)
+    return report, k1
+
+
+def report_line(report):
+    """The fragment of a ``LoadReport`` a log line carries (no token lists)."""
+    frag = report.to_fragment('')
+    frag['roofline'] = report.roofline
+    return frag
+
+
+def check_shares(tag, report):
+    """Every window kind's MFU and bandwidth share lies in (0, SHARE_CAP]:
+    a share above 1 is a counting error, not a fast card."""
+    if not report.roofline:
+        fail(f'{tag}: no roofline summary (attribution off or no cost model)')
+    for kind, stats in report.roofline.items():
+        for key in ('mfu', 'bw_util'):
+            if not 0 < stats[key] <= SHARE_CAP:
+                fail(f'{tag}: {kind} {key} {stats[key]} outside (0, {SHARE_CAP}]')
+
+
+def check_finished(tag, report, workload, shed_ok=False):
+    """Every admitted arrival finished with its whole budget (no EOS: the
+    engine has no tokenizer), none failed; shed ones only with
+    ``shed_ok``."""
+    schedule = sorted(workload, key=lambda a: a.at_s)
+    if report.failed_requests or report.quarantined:
+        fail(f'{tag}: {report.failed_requests} failed, {report.quarantined} quarantined')
+    if report.shed_requests and not shed_ok:
+        fail(f'{tag}: {report.shed_requests} requests shed')
+    for arrival, tokens, ttft in zip(schedule, report.tokens_by_request, report.ttft_by_request):
+        if ttft is None and shed_ok:
+            continue
+        if len(tokens) != arrival.max_tokens:
+            fail(f'{tag}: a request finished with {len(tokens)} of {arrival.max_tokens} tokens')
+
+
+def phase_load(torch, tpa, card, cfg, params):
+    """Phase 16 (see the module docstring). Returns the engine for 16b."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+
+    t0 = time.perf_counter()
+    engine = LLMEngine(cfg, params, None, EngineConfig(**LOAD_ENGINE), device=DEVICE)
+    engine.warmup()
+    # The eager prefill path's first calls at the workload's buckets.
+    engine.generate_ids([[1] * n for n in (24, 60, 120, 250)],
+                        SamplingParams(temperature=0.0, max_tokens=2))
+    warm_s = time.perf_counter() - t0
+    prefill_rec = instrument_prefill(torch, engine)
+    workload = workload_of(LOAD, cfg.vocab_size)
+    on, k1_on = load_run(torch, tpa, 'load', cfg, engine, workload, prefill_rec)
+    check_finished('load', on, workload)
+    if on.warm_prefix_hit_tokens <= 0:
+        fail('load: no warm-prefix hits: the session mix did not reach the prefix cache')
+    check_shares('load', on)
+    engine.attribution = False
+    off, k1_off = load_run(torch, tpa, 'load attribution off', cfg, engine, workload,
+                           prefill_rec)
+    engine.attribution = True
+    check_finished('load attribution off', off, workload)
+    # Attribution on again, on the warm cache the off replay met: the fair
+    # pair for the off run's window times.
+    again, k1_again = load_run(torch, tpa, 'load attribution on again', cfg, engine,
+                               workload, prefill_rec)
+    check_finished('load attribution on again', again, workload)
+    agree = greedy_match(on.tokens_by_request, off.tokens_by_request)
+    out = dict(on=report_line(on), k1=k1_on, warm_s=warm_s,
+               attribution_off=dict(tok_s=off.achieved_tok_s, k1=k1_off,
+                                    token_agreement=agree),
+               attribution_on_again=dict(tok_s=again.achieved_tok_s, k1=k1_again,
+                                         token_agreement=greedy_match(
+                                             off.tokens_by_request,
+                                             again.tokens_by_request)))
+    p = on.percentiles
+    log(f'[load] {card}: {on.requests} requests at {on.offered_rps:.2f} rps offered, '
+        f'{on.tokens} tokens in {on.elapsed_s:.3f} s = {on.achieved_tok_s:.1f} tok/s; TTFT '
+        f'p50/p95/p99 {p["ttft_p50"]:.4f} / {p["ttft_p95"]:.4f} / {p["ttft_p99"]:.4f} s, '
+        f'TPOT {p["tpot_p50"]:.4f} / {p["tpot_p95"]:.4f} / {p["tpot_p99"]:.4f} s, queue wait '
+        f'{p["queue_wait_p50"]:.4f} / {p["queue_wait_p95"]:.4f} / {p["queue_wait_p99"]:.4f} s; '
+        f'goodput {on.goodput_tokens} tokens (share {on.goodput_frac}); warm-prefix hits '
+        f'{on.warm_prefix_hit_tokens} tokens; shares by kind {json.dumps(on.roofline)}; K1 '
+        f'{json.dumps(k1_on["launches_by_route"])}')
+    log(f'[load] attribution off: {off.achieved_tok_s:.1f} tok/s vs {on.achieved_tok_s:.1f} '
+        f'on and {again.achieved_tok_s:.1f} on again (the replays meet a warm prefix cache); '
+        f'median full decode window {k1_off["full_window_ms"]} ms off vs '
+        f'{k1_on["full_window_ms"]} ms on and {k1_again["full_window_ms"]} ms on again; '
+        f'tokens agreeing {agree:.4f} on / off, '
+        f'{out["attribution_on_again"]["token_agreement"]:.4f} off / on again (bf16, an '
+        'open-loop schedule: a share, not identity)')
+    return engine, prefill_rec, out
+
+
+def new_records(ring, before):
+    grew = ring.total_recorded - before
+    return ring.snapshot()[-grew:] if grew else []
+
+
+def phase_chaos(torch, tpa, card, cfg, engine, prefill_rec):
+    """Phase 16b on phase 16's engine (see the module docstring)."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.resilience.faults import get_fault_injector
+
+    for key, value in CHAOS_RECOVERY.items():
+        setattr(engine.config, key, value)
+    workload = workload_of(CHAOS_LOAD, cfg.vocab_size)
+    clean, k1_clean = load_run(torch, tpa, 'chaos clean', cfg, engine, workload, prefill_rec)
+    check_finished('chaos clean', clean, workload)
+    injector = get_fault_injector()
+    injector.disarm()
+    try:
+        for site, kwargs in CHAOS_FAULTS:
+            injector.arm(site, **kwargs)
+        chaos, k1_chaos = load_run(torch, tpa, 'chaos', cfg, engine, workload, prefill_rec)
+        fired = {site: injector.fired(site) for site, _ in CHAOS_FAULTS}
+    finally:
+        injector.disarm()
+    if not all(fired.values()):
+        fail(f'chaos: an armed site never fired: {fired}')
+    if chaos.recoveries < 1 or chaos.quarantined or chaos.failed_requests:
+        fail(f'chaos: {chaos.recoveries} recoveries, {chaos.quarantined} quarantined, '
+             f'{chaos.failed_requests} failed')
+    if not chaos.goodput_tokens:
+        fail('chaos: no goodput under the fault schedule')
+    check_finished('chaos', chaos, workload)
+    agree = greedy_match(clean.tokens_by_request, chaos.tokens_by_request)
+    log(f'[chaos] {card}: faults fired {json.dumps(fired)}, {chaos.window_retries} retries, '
+        f'{chaos.recoveries} recoveries; {chaos.achieved_tok_s:.1f} tok/s vs '
+        f'{clean.achieved_tok_s:.1f} clean, goodput {chaos.goodput_tokens} tokens (share '
+        f'{chaos.goodput_frac}); tokens agreeing with the clean run {agree:.4f} (bf16)')
+    # Overload: admission control under a tight SLO.
+    engine.config.ttft_slo_s = OVERLOAD_SLO_S
+    engine.admission_control = True
+    ring = engine.flight
+    before = ring.total_recorded
+    overload_wl = workload_of(OVERLOAD, cfg.vocab_size)
+    try:
+        overload, k1_overload = load_run(torch, tpa, 'overload', cfg, engine, overload_wl,
+                                         prefill_rec)
+    finally:
+        engine.admission_control = False
+        engine.config.ttft_slo_s = CHAOS_RECOVERY['ttft_slo_s']
+    sheds = [r for r in new_records(ring, before) if r['kind'] == 'shed']
+    if not overload.shed_requests or len(sheds) != overload.shed_requests:
+        fail(f'overload: {overload.shed_requests} shed, {len(sheds)} shed records')
+    if not all(r['retry_after_s'] > 0 for r in sheds):
+        fail('overload: a shed without a positive retry_after_s')
+    check_finished('overload', overload, overload_wl, shed_ok=True)
+    log(f'[overload] {card}: {overload.shed_requests} of {overload.requests} shed (rate '
+        f'{overload.shed_rate:.4f}), retry_after_s {min(r["retry_after_s"] for r in sheds)}..'
+        f'{max(r["retry_after_s"] for r in sheds)}; admitted TTFT p99 '
+        f'{overload.percentiles["ttft_p99"]} s against the {OVERLOAD_SLO_S} s SLO')
+    # Deadline: every window stalls past the deadline.
+    engine.config.request_deadline_s = DEADLINE_S
+    rng = np.random.default_rng(16)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, size=48)]
+               for _ in range(DEADLINE_PROMPTS)]
+    injector.arm('slow_window', times=None, delay_s=DEADLINE_STALL_S)
+    t0 = time.perf_counter()
+    try:
+        rids = [engine.add_request(p, SamplingParams(temperature=0.0, max_tokens=64))
+                for p in prompts]
+        while engine.has_unfinished:
+            engine.step()
+    finally:
+        injector.disarm()
+        engine.config.request_deadline_s = CHAOS_RECOVERY['request_deadline_s']
+    deadline_s = time.perf_counter() - t0
+    finished = [engine._finished.pop(rid) for rid in rids]
+    reasons = [r.finish_reason for r in finished]
+    if reasons != ['timeout'] * DEADLINE_PROMPTS or any(r.error is None for r in finished):
+        fail(f'deadline: finish reasons {reasons}')
+    flushed = engine._evict_cached_blocks(engine.prefix_cache.num_evictable)
+    free = engine.sched.num_free_blocks
+    if free != engine.config.num_blocks - 1 or engine.prefix_cache.num_cached:
+        fail(f'deadline: {free} free blocks of {engine.config.num_blocks - 1} after the '
+             'timeouts and a cache flush')
+    log(f'[deadline] {DEADLINE_PROMPTS} requests stalled {DEADLINE_STALL_S} s a window '
+        f'against a {DEADLINE_S} s deadline: {reasons} after '
+        f'{[len(r.output_ids) for r in finished]} tokens in {deadline_s:.3f} s; {free} blocks '
+        f'free after flushing {flushed} cached ones')
+    return dict(clean=report_line(clean), chaos=report_line(chaos), faults_fired=fired,
+                token_agreement=agree, overload=report_line(overload),
+                deadline=dict(reasons=reasons, tokens=[len(r.output_ids) for r in finished],
+                              wall_s=deadline_s, free_blocks=free),
+                k1=dict(clean=k1_clean, chaos=k1_chaos, overload=k1_overload))
+
+
+def http_call(base, path, body=None, method='POST'):
+    """``(status, headers, body bytes)``; an HTTP error status is an answer."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f'{base}{path}', data=data, method=method,
+                                 headers={'Content-Type': 'application/json'})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, dict(err.headers), err.read()
+
+
+def ttft_count(base):
+    """``distllm_request_ttft_seconds_count`` read off ``/metrics``, each
+    line of which must parse as a comment or a sample."""
+    text = http_call(base, '/metrics', method='GET')[2].decode()
+    count = None
+    for line in text.splitlines():
+        if line.startswith('#'):
+            continue
+        name, value = line.rsplit(' ', 1)
+        float(value)
+        if name == 'distllm_request_ttft_seconds_count':
+            count = float(value)
+    if count is None:
+        fail('http: /metrics has no distllm_request_ttft_seconds_count')
+    return count
+
+
+LOADINFO_KEYS = {'ready', 'draining', 'queue_depth', 'running', 'in_flight', 'kv_occupancy'}
+
+
+def phase_load_http(torch, tpa, card, cfg, params):
+    """Phase 16c (see the module docstring)."""
+    from distllm_tpu_torch.chat import ChatAppConfig
+    from distllm_tpu_torch.chat_server import ChatServer
+    from distllm_tpu_torch.generate.generators.torch_backend import (
+        FakeGenerator,
+        FakeGeneratorConfig,
+        TorchGenerator,
+    )
+    from distllm_tpu_torch.generate.loadgen import run_http_loadgen
+
+    app = ChatAppConfig.from_dict({'generator_config': {
+        'name': 'torch', 'model': dataclasses.asdict(cfg), 'temperature': 0.0,
+        'max_tokens': HTTP_MAX_TOKENS, 'num_blocks': 712, 'max_num_seqs': 32,
+        'max_model_len': 512, 'device': DEVICE,
+    }})
+    gen_cfg = app.build_generator_config()
+    if (gen_cfg.request_deadline_s, gen_cfg.max_dispatch_retries,
+            gen_cfg.enable_prefix_cache) != (120.0, 2, True):
+        fail(f'http: the chat app defaults did not reach the generator config: {gen_cfg}')
+    generator = TorchGenerator(gen_cfg, params=params)
+    engine = generator.engine
+    workload = workload_of(HTTP_LOAD, cfg.vocab_size)
+    streams = [i % 4 == 3 for i in range(len(workload))]
+    with ChatServer(generator) as server:
+        base = f'http://127.0.0.1:{server.port}'
+        count0 = ttft_count(base)
+        marks, stats0 = graph_marks(engine), dict(engine.stats)
+        prefill_rec = instrument_prefill(torch, engine)
+        zero_k1_counts(tpa)
+        report = run_http_loadgen(base, workload, stream=streams, timeout_s=600.0)
+        run = stats_delta(engine, stats0)
+        prefills = run.get('prefill_dispatches', 0)
+        graphs = check_k1_routes(torch, tpa, 'http', cfg, engine, marks, run['forward_passes'],
+                                 prefills, [r['width'] for r in prefill_rec], 'model')
+        k1 = dict(launches=tpa.ragged_paged_attention.launches,
+                  launches_by_route=dict(tpa.ragged_paged_attention.launches_by_route),
+                  forward_passes=run['forward_passes'], prefill_dispatches=prefills, **graphs)
+        if report.statuses != [200] * len(workload):
+            fail(f'http: statuses {report.statuses}')
+        for content, streamed in zip(report.contents, streams):
+            if not streamed:
+                continue
+            events = [e for e in content.split('\n\n') if e]
+            if len(events) != 2 or events[1] != 'data: [DONE]':
+                fail(f'http: a streamed answer of {len(events)} events: {content[:200]!r}')
+            chunk = json.loads(events[0].removeprefix('data: '))
+            if chunk['object'] != 'chat.completion.chunk' or 'content' not in chunk[
+                    'choices'][0]['delta']:
+                fail(f'http: a streamed chunk {chunk}')
+        rose = ttft_count(base) - count0
+        if rose != len(workload):
+            fail(f'http: /metrics TTFT count rose by {rose}, {len(workload)} completions')
+        info = json.loads(http_call(base, '/loadinfo', method='GET')[2])
+        if set(info) != LOADINFO_KEYS:
+            fail(f'http: /loadinfo keys {sorted(info)}')
+        status, _, body = http_call(base, '/drain?seconds=30')
+        drained = json.loads(body)
+        if status != 200 or not drained['drained']:
+            fail(f'http: POST /drain answered {status} {drained}')
+        health = http_call(base, '/health', method='GET')
+        refused = http_call(base, '/v1/chat/completions',
+                            {'messages': [{'role': 'user', 'content': 'late'}]})
+        if health[0] != 503 or json.loads(health[2])['ready'] is not False:
+            fail(f'http: /health after the drain answered {health[0]}')
+        if refused[0] != 503 or not refused[1].get('Retry-After'):
+            fail(f'http: a completion after the drain answered {refused[0]}')
+    generator.shutdown()
+    with ChatServer(FakeGenerator(FakeGeneratorConfig(overload_every=2))) as fake:
+        base = f'http://127.0.0.1:{fake.port}'
+        ask = {'messages': [{'role': 'user', 'content': 'hello'}]}
+        first, second = (http_call(base, '/v1/chat/completions', ask) for _ in range(2))
+        if first[0] != 200 or second[0] != 429 or not second[1].get('Retry-After'):
+            fail(f'http: overload_every 2 answered {first[0]}, {second[0]}')
+    p = report.percentiles
+    log(f'[http] {card}: {report.ok} of {report.requests} answered 200 ({sum(streams)} '
+        f'streamed) in {report.elapsed_s:.3f} s; HTTP TTFT p50/p95/p99 {p["ttft_p50"]:.4f} / '
+        f'{p["ttft_p95"]:.4f} / {p["ttft_p99"]:.4f} s (from the scheduled arrival); '
+        f'/metrics TTFT count +{rose:.0f}; drain {json.dumps(drained)}, then /health '
+        f'{health[0]} and a completion {refused[0]} (Retry-After {refused[1]["Retry-After"]}); '
+        f'fake overload 429 with Retry-After {second[1]["Retry-After"]}; K1 '
+        f'{json.dumps(k1["launches_by_route"])}')
+    return dict(report=report.to_fragment(''), k1=k1, drain=drained,
+                ttft_count_rose=rose, loadinfo=info)
+
+
+def phase_load_identity(torch, tpa, cfg):
+    """Phase 16d (see the module docstring): fp32 at depth 2, a burst of
+    32 greedy requests with fixed batches, through K1 and the plain op."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mistral
+    from distllm_tpu_torch.resilience.faults import get_fault_injector
+
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    rng = np.random.default_rng(1616)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, size=int(n))]
+               for n in rng.integers(16, 160, size=LOAD_IDENTITY_PROMPTS)]
+    greedy = SamplingParams(temperature=0.0, max_tokens=24)
+    injector = get_fault_injector()
+
+    def burst(engine):
+        rids = [engine.add_request(p, greedy) for p in prompts]
+        while engine.has_unfinished:
+            engine.step()
+        return [engine._finished.pop(rid).output_ids for rid in rids]
+
+    out, tokens = {}, {}
+    for backend in ('auto', 'reference'):
+        tag = f'load identity {backend}'
+        engine = LLMEngine(cfg, params, None, EngineConfig(
+            block_size=BLOCK_SIZE, num_blocks=512, max_num_seqs=LOAD_IDENTITY_PROMPTS,
+            max_model_len=512, decode_steps=8, max_dispatch_retries=3, retry_backoff_s=0.0,
+        ), device=DEVICE, attn_backend=backend)
+        engine.warmup()
+        zero_k1_counts(tpa)
+        on = burst(engine)
+        engine.attribution = False
+        off = burst(engine)
+        engine.attribution = True
+        injector.disarm()
+        injector.arm('dispatch', times=2)
+        retries0 = engine.stats['window_retries']
+        try:
+            faulted = burst(engine)
+            fired = injector.fired('dispatch')
+        finally:
+            injector.disarm()
+        retries = engine.stats['window_retries'] - retries0
+        kernel, plain = (tpa.ragged_paged_attention.launches,
+                         tpa.ragged_paged_attention_reference.launches)
+        log(f'[{tag}] attribution off == on: {off == on}; dispatch x{fired} under 3 retries '
+            f'({retries} retries) == clean: {faulted == on}; K1 {kernel} launches, plain op '
+            f'{plain}')
+        if off != on or faulted != on or fired != 2 or retries < 2:
+            fail(f'{tag}: attribution off == on {off == on}, faulted == clean '
+                 f'{faulted == on}, {fired} fires, {retries} retries')
+        if (backend == 'auto') != (kernel > 0 and plain == 0) or (
+                backend == 'reference') != (plain > 0 and kernel == 0):
+            fail(f'{tag}: K1 {kernel} and plain {plain} launches')
+        tokens[backend] = on
+        out[backend] = dict(k1_launches=kernel, plain_launches=plain, retries=retries)
+        shut_down(torch, tag, engine)
+        del engine
+    out['k1_vs_plain_agreement'] = greedy_match(tokens['auto'], tokens['reference'])
+    log(f'[load identity] K1 vs plain tokens agreeing {out["k1_vs_plain_agreement"]:.4f}')
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -4262,6 +4737,22 @@ def main() -> None:
     t0 = time.perf_counter()
     spec = phase_serve_spec(torch, tpa, tqm, smi, cfg7b, params7b)
     log(f'[spec] phase 6g took {time.perf_counter() - t0:.1f} s')
+    # 16. open-loop load; 16b. chaos, overload and deadline on its engine;
+    # 16c. the chat server under HTTP load; 16d. their fp32 identities
+    t0 = time.perf_counter()
+    load_engine, load_prefills, load = phase_load(torch, tpa, smi, cfg7b, params7b)
+    log(f'[load] phase 16 took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    chaos = phase_chaos(torch, tpa, smi, cfg7b, load_engine, load_prefills)
+    shut_down(torch, 'load', load_engine)
+    del load_engine
+    log(f'[chaos] phase 16b took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    load_http = phase_load_http(torch, tpa, smi, cfg7b, params7b)
+    log(f'[http] phase 16c took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    load_identity = phase_load_identity(torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
+    log(f'[load identity] phase 16d took {time.perf_counter() - t0:.1f} s')
     del params7b
     torch.cuda.empty_cache()
     # 8. identity: full width, depth 2, fp32, K1 and then K2 vs plain;
@@ -4479,6 +4970,15 @@ def main() -> None:
         # Phases 15b-15d: the RAG chat server, the eval suite and the
         # generation job over one Mistral-7B bf16 engine.
         'rag': {'chat': rag_chat['k1'], 'eval': rag_eval['k1'], 'generation_job': job['k1']},
+        # Phases 16-16c: the open-loop load (attribution on and off), the
+        # chaos run's clean and faulted arms, the overload arm, and the chat
+        # server under HTTP load.
+        'load': {
+            'open_loop': load['k1'], 'attribution_off': load['attribution_off']['k1'],
+            'attribution_on_again': load['attribution_on_again']['k1'],
+            'chaos_clean': chaos['k1']['clean'], 'chaos': chaos['k1']['chaos'],
+            'overload': chaos['k1']['overload'], 'http': load_http['k1'],
+        },
     }, {
         'name': 'encoder_attention',
         'route': 'cuda',
@@ -4597,6 +5097,18 @@ def main() -> None:
         f'{name} {r["sequences_per_s"]:.1f} sequences/s ({r["real_tokens_per_s"]:.0f} real '
         f'tokens/s, padding share {r["padding_share"]:.4f}, peak {r["peak_gib"]:.2f} GiB)'
         for name, r in protein.items()) + f'; {time.perf_counter() - t_start:.1f} s total')
+    log(f'[load] {json.dumps(dict(load=load, chaos=chaos, http=load_http, identity=load_identity))}')
+    lp = load['on']
+    log(f'[summary] {smi}: open-loop load {lp["tok_s"]} tok/s, TTFT p50/p95/p99 '
+        f'{lp["ttft_p50"]} / {lp["ttft_p95"]} / {lp["ttft_p99"]} s, TPOT {lp["tpot_p50"]} / '
+        f'{lp["tpot_p95"]} / {lp["tpot_p99"]} s, queue wait {lp["queue_wait_p50"]} / '
+        f'{lp["queue_wait_p95"]} / {lp["queue_wait_p99"]} s, goodput share '
+        f'{lp["goodput_frac"]}, shares {json.dumps(lp["roofline"])}; attribution off '
+        f'{load["attribution_off"]["tok_s"]:.2f} tok/s; chaos tokens agreeing '
+        f'{chaos["token_agreement"]:.4f}, overload shed rate {chaos["overload"]["shed_rate"]}; '
+        f'HTTP TTFT p50/p95/p99 {load_http["report"]["ttft_p50"]} / '
+        f'{load_http["report"]["ttft_p95"]} / {load_http["report"]["ttft_p99"]} s; '
+        f'{time.perf_counter() - t_start:.1f} s total')
     log(f'[index] {json.dumps(index_tiers)}')
     log(f'[rag] {json.dumps(dict(chat=rag_chat, eval=rag_eval, generation_job=job, identity=rag_identity))}')
     log(f'[summary] {smi}: index of {INDEX_ROWS} x {INDEX_DIM}, {RAG_QUERIES} queries top '

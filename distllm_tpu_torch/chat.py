@@ -57,8 +57,9 @@ class ChatAppConfig(BaseConfig):
     def _backend(self) -> dict:
         """``generator_config`` with its name (``fake`` when missing, the
         JAX default); ``http`` raises (ROADMAP A11), and an engine backend
-        serves with the prefix cache on unless the mapping says otherwise
-        (chat prompts share their system prompt and contexts)."""
+        serves with the prefix cache on (chat prompts share their system
+        prompt and contexts), a 120 s request deadline and 2 dispatch
+        retries unless the mapping says otherwise."""
         from distllm_tpu_torch.generate.generators import ENGINE_BACKENDS
 
         backend = dict(self.generator_config)
@@ -69,9 +70,14 @@ class ChatAppConfig(BaseConfig):
                 'yet (ROADMAP A11)'
             )
         if backend['name'] in ENGINE_BACKENDS:
-            # The JAX app also defaults request_deadline_s and
-            # max_dispatch_retries on for an engine; they wait on ROADMAP A6.
             backend.setdefault('enable_prefix_cache', True)
+            # The serving defaults of the JAX app: a stuck request times
+            # out and frees its KV, and a failed window retries with a
+            # bounded backoff before quarantining only the requests it
+            # involved. Callers that build an engine directly keep the
+            # propagate-the-first-exception contract.
+            backend.setdefault('request_deadline_s', 120.0)
+            backend.setdefault('max_dispatch_retries', 2)
         return backend
 
     def build_generator_config(self):

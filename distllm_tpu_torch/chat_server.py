@@ -1,7 +1,35 @@
 """OpenAI-compatible chat server on the standard library's HTTP server.
 
-The counterpart of ``distllm_tpu.chat_server`` for this slice:
-``POST /v1/chat/completions`` (the JAX payload shape) and ``GET /health``.
+The counterpart of ``distllm_tpu.chat_server``, route for route with the
+JAX server's status codes, headers and body keys:
+
+- ``POST /v1/chat/completions`` — the JAX payload shape; ``stream: true``
+  answers as single-delta SSE (one ``chat.completion.chunk`` event and
+  ``data: [DONE]``, then the connection closes); an engine that sheds
+  the request (``resilience.EngineOverloaded``, admission control on)
+  answers 429 with ``Retry-After`` and ``predicted_ttft_s``; while the
+  server drains, 503 with ``Retry-After: 5``. The ``X-Request-Id``
+  header (one is made when absent) is bound around the request's work
+  (``observability.request_scope``), so the engine's lifecycle record
+  carries it, and is echoed back.
+- ``GET /health`` — liveness, uptime, in-flight and served counts; 503
+  with ``ready: false`` while draining.
+- ``POST /drain?seconds=N`` — stop admitting completions, flip
+  ``/health``, and wait (at most ``N``, default 30, bounded at 300 s)
+  for the completions in flight; one-way per process.
+- ``GET /loadinfo`` — queue depth, running slots, KV occupancy, drain
+  state and completions in flight as a small JSON document.
+- ``GET /metrics`` — the Prometheus text exposition of the process
+  registry (``observability.instruments``).
+
+Every response carries the JAX server's CORS headers (an ``OPTIONS``
+preflight on any path answers 204), and every request is counted as the
+JAX middleware counts it: ``distllm_http_in_flight``,
+``distllm_http_request_duration_seconds{path}``,
+``distllm_http_requests_total{path,status}`` and
+``distllm_http_responses_total``. The ``/debug/*`` routes and the
+prefix-affinity headers wait for later slices.
+
 Messages render through :class:`~distllm_tpu_torch.chat.ConversationPromptTemplate`
 and every request goes through ONE worker thread that owns the generator
 and its engine — the engine's scheduler and KV pool are not thread-safe,
@@ -13,8 +41,7 @@ worker only replays them. With a retriever, the worker first retrieves on
 the latest user message (the body's ``top_k`` and ``score_threshold``,
 defaulting to the app config's ``retrieval_top_k`` and
 ``retrieval_score_threshold``) and renders the contexts and their scores
-into the prompt, as the JAX server does. Streaming, drain, metrics and
-the debug routes wait for later slices (ROADMAP A6).
+into the prompt, as the JAX server does.
 
 Run (random-init Mistral weights on the GPU; ``--num-layers`` cuts depth)::
 
@@ -38,10 +65,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import queue
 import re
 import threading
 import time
+import urllib.parse
 import uuid
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -49,11 +78,20 @@ from typing import Callable
 
 import distllm_tpu_torch
 from distllm_tpu_torch.chat import ConversationPromptTemplate, retrieve
+from distllm_tpu_torch.observability import instruments
+from distllm_tpu_torch.observability.flight import get_flight_recorder
+from distllm_tpu_torch.observability.metrics import render_prometheus
+from distllm_tpu_torch.observability.tracing import request_scope, span
+from distllm_tpu_torch.resilience.admission import EngineOverloaded
 
 # Accepted inbound X-Request-Id shape; anything else gets a generated id.
 _REQUEST_ID_RE = re.compile(r'^[A-Za-z0-9._:-]{1,128}$')
 MODEL_NAME = 'distllm-tpu-torch'  # payload 'model' when the body names none
 REQUEST_TIMEOUT_S = 600.0  # an HTTP thread's wait for the engine worker
+# Routes whose latency series are labelled by path (others: 'other'),
+# pre-registered so the first scrape carries the schema.
+KNOWN_PATHS = ('/v1/chat/completions', '/health', '/metrics', '/drain', '/loadinfo')
+DRAIN_MAX_S = 300.0  # the longest a POST /drain waits for in-flight work
 
 
 def _completion_payload(model: str, content: str, request_id: str) -> dict:
@@ -115,13 +153,21 @@ class EngineWorker:
             self._thread.join(timeout)
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # The listen backlog of the JAX server's aiohttp site (the standard
+    # library's default of 5 resets connections under a burst of clients).
+    request_queue_size = 128
+    daemon_threads = True
+
+
 class ChatServer:
     """``ThreadingHTTPServer`` + one :class:`EngineWorker`. ``port=0`` binds
     a free port (read it back from :attr:`port`). With a ``retriever``,
     each request retrieves ``top_k`` contexts (default
     ``retrieval_top_k``) scoring at least ``score_threshold`` (default
     ``retrieval_score_threshold``); :attr:`timings` keeps each answered
-    request's retrieve and generate seconds."""
+    request's retrieve and generate seconds. :meth:`drain` is what
+    ``POST /drain`` runs."""
 
     def __init__(
         self,
@@ -141,10 +187,15 @@ class ChatServer:
         self.worker = EngineWorker()
         self.timings: list[dict] = []  # appended by the worker thread only
         self.started_at = time.time()
-        self._served = 0
+        self._served = 0  # guarded by self._lock
+        # Drain lifecycle: one-way; completions_in_flight counts completion
+        # work only (not the /health polls a draining server invites).
+        self.draining = False  # guarded by self._lock
+        self._completions_in_flight = 0  # guarded by self._lock
         self._lock = threading.Lock()
-        self._httpd = ThreadingHTTPServer((host, port), _make_handler(self))
-        self._httpd.daemon_threads = True
+        for path in KNOWN_PATHS:
+            instruments.HTTP_LATENCY.labels(path=path)
+        self._httpd = _HTTPServer((host, port), _make_handler(self))
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name='distllm-torch-http',
             daemon=True,
@@ -163,19 +214,85 @@ class ChatServer:
         with self._lock:
             self._served += 1
 
-    def answer(self, messages: list[dict], top_k: int, score_threshold: float) -> str:
-        """One request on the worker thread: retrieval on the latest user
-        message, the rendered prompt, one generation."""
+    @property
+    def completions_in_flight(self) -> int:
+        with self._lock:
+            return self._completions_in_flight
+
+    def begin_completion(self) -> bool:
+        """Count a completion in; False (nothing counted) while draining."""
+        with self._lock:
+            if self.draining:
+                return False
+            self._completions_in_flight += 1
+            return True
+
+    def end_completion(self) -> None:
+        with self._lock:
+            self._completions_in_flight -= 1
+
+    def drain(self, wait_s: float) -> dict:
+        """Stop admitting completions (one-way), then wait up to ``wait_s``
+        seconds for the ones in flight; the ``POST /drain`` body."""
+        with self._lock:
+            self.draining = True
+        instruments.SERVER_READY.set(0.0)
+        get_flight_recorder().record('event', event='drain_started')
+        deadline = time.monotonic() + wait_s
+        while self.completions_in_flight > 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        remaining = self.completions_in_flight
+        get_flight_recorder().record(
+            'event', event='drain_finished', in_flight_remaining=remaining,
+        )
+        return {'draining': True, 'drained': remaining == 0,
+                'in_flight_remaining': remaining}
+
+    def loadinfo(self) -> dict:
+        """The ``GET /loadinfo`` body: this server's drain state and this
+        engine's scheduler (zeros for a generator without an engine)."""
+        engine = getattr(self.generator, 'engine', None)
+        sched = getattr(engine, 'sched', None)
+        queue_depth = running = 0
+        kv_occupancy = 0.0
+        if sched is not None:
+            queue_depth = int(sched.num_waiting)
+            running = int(sched.num_running)
+            usable = max(1, int(engine.config.num_blocks) - 1)
+            in_use = max(0, usable - int(sched.num_free_blocks))
+            kv_occupancy = round(in_use / usable, 4)
+        with self._lock:
+            draining, in_flight = self.draining, self._completions_in_flight
+        return {
+            'ready': not draining,
+            'draining': draining,
+            'queue_depth': queue_depth,
+            'running': running,
+            'in_flight': in_flight,
+            'kv_occupancy': kv_occupancy,
+        }
+
+    def answer(self, messages: list[dict], top_k: int, score_threshold: float,
+               request_id: str | None = None) -> str:
+        """One request on the worker thread, inside ``request_scope`` of
+        its id: retrieval on the latest user message, the rendered prompt,
+        one generation."""
+        with request_scope(request_id):
+            return self._answer_in_scope(messages, top_k, score_threshold)
+
+    def _answer_in_scope(self, messages, top_k, score_threshold) -> str:
         latest = next(
             (m['content'] for m in reversed(messages) if m['role'] == 'user'), ''
         )
         t0 = time.perf_counter()
         contexts, scores = [], []
         if latest:
-            contexts, scores = retrieve(self.retriever, latest, top_k, score_threshold)
+            with span('chat-retrieve', top_k=top_k):
+                contexts, scores = retrieve(self.retriever, latest, top_k, score_threshold)
         t1 = time.perf_counter()
         prompt = self.template.render(list(messages), contexts, scores)
-        content = self.generator.generate([prompt])[0]
+        with span('chat-generate'):
+            content = self.generator.generate([prompt])[0]
         self.timings.append({
             'retrieve_s': t1 - t0, 'generate_s': time.perf_counter() - t1,
             'contexts': len(contexts),
@@ -204,9 +321,25 @@ class ChatServer:
 def _make_handler(server: ChatServer):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = 'HTTP/1.1'
+        # Responses up to 64 KiB buffer until the handler returns (the
+        # server flushes then), so a completion's series are recorded
+        # before its client sees the answer, as the JAX middleware records
+        # them; an SSE answer flushes itself.
+        wbufsize = 1 << 16
 
         def log_message(self, format, *args) -> None:  # noqa: A002
             pass  # one line per request on stderr would drown the server log
+
+        def send_response(self, code, message=None) -> None:
+            self._status = code
+            super().send_response(code, message)
+
+        def end_headers(self) -> None:
+            # The JAX server's permissive CORS, on every response.
+            self.send_header('Access-Control-Allow-Origin', '*')
+            self.send_header('Access-Control-Allow-Headers', '*')
+            self.send_header('Access-Control-Allow-Methods', 'GET, POST, OPTIONS')
+            super().end_headers()
 
         def _send_json(self, status: int, body: dict, headers=None) -> None:
             raw = json.dumps(body).encode()
@@ -218,25 +351,107 @@ def _make_handler(server: ChatServer):
             self.end_headers()
             self.wfile.write(raw)
 
+        def _observed(self, route) -> None:
+            """The JAX middleware: in-flight gauge, latency by path,
+            requests by path and status class, responses."""
+            url = urllib.parse.urlsplit(self.path)
+            label = url.path if url.path in KNOWN_PATHS else 'other'
+            instruments.HTTP_IN_FLIGHT.inc()
+            start = time.perf_counter()
+            self._status = 500
+            try:
+                route(url.path, urllib.parse.parse_qs(url.query))
+            finally:
+                instruments.HTTP_IN_FLIGHT.dec()
+                instruments.HTTP_LATENCY.labels(path=label).observe(
+                    time.perf_counter() - start
+                )
+                instruments.HTTP_REQUESTS.labels(
+                    path=label, status=f'{self._status // 100}xx'
+                ).inc()
+                instruments.HTTP_RESPONSES.inc()
+
         def do_GET(self) -> None:  # noqa: N802
-            if self.path != '/health':
-                self._send_json(404, {'error': {'message': 'not found'}})
-                return
-            self._send_json(200, {
-                'status': 'ok',
-                'ready': True,
-                'version': distllm_tpu_torch.__version__,
-                'uptime_s': round(time.time() - server.started_at, 3),
-                'requests_served': server.requests_served,
-            })
+            self._observed(self._get)
 
         def do_POST(self) -> None:  # noqa: N802
-            if self.path != '/v1/chat/completions':
-                self._send_json(404, {'error': {'message': 'not found'}})
-                return
-            length = int(self.headers.get('Content-Length') or 0)
+            self._observed(self._post)
+
+        def do_OPTIONS(self) -> None:  # noqa: N802
+            self._observed(self._preflight)
+
+        def _preflight(self, path, query) -> None:
+            self.send_response(204)
+            self.send_header('Content-Length', '0')
+            self.end_headers()
+
+        def _not_found(self) -> None:
+            self._send_json(404, {'error': {'message': 'not found'}})
+
+        def _get(self, path, query) -> None:
+            if path == '/health':
+                self._health()
+            elif path == '/loadinfo':
+                self._send_json(200, server.loadinfo())
+            elif path == '/metrics':
+                raw = render_prometheus().encode('utf-8')
+                self.send_response(200)
+                self.send_header('Content-Type', 'text/plain; version=0.0.4; charset=utf-8')
+                self.send_header('Content-Length', str(len(raw)))
+                self.end_headers()
+                self.wfile.write(raw)
+            else:
+                self._not_found()
+
+        def _post(self, path, query) -> None:
+            if path == '/v1/chat/completions':
+                self._completion()
+            elif path == '/drain':
+                self._drain(query)
+            else:
+                self._not_found()
+
+        def _health(self) -> None:
+            # In flight includes this very request; report the others.
+            in_flight = max(0, int(instruments.HTTP_IN_FLIGHT.value) - 1)
+            draining = server.draining
+            instruments.SERVER_UPTIME.set(max(0.0, time.time() - server.started_at))
+            self._send_json(503 if draining else 200, {
+                'status': 'draining' if draining else 'ok',
+                'ready': not draining,
+                'draining': draining,
+                'version': distllm_tpu_torch.__version__,
+                'uptime_s': round(time.time() - server.started_at, 3),
+                'in_flight': in_flight,
+                'requests_served': int(instruments.HTTP_RESPONSES.value),
+            })
+
+        def _drain(self, query) -> None:
             try:
-                body = json.loads(self.rfile.read(length) or b'{}')
+                wait_s = float(query.get('seconds', ['30'])[0])
+            except ValueError:
+                self._send_json(400, {'error': {'message': 'seconds must be a number'}})
+                return
+            if not math.isfinite(wait_s):
+                self._send_json(400, {'error': {'message': 'seconds must be finite'}})
+                return
+            self._send_json(200, server.drain(min(max(wait_s, 0.0), DRAIN_MAX_S)))
+
+        def _completion(self) -> None:
+            length = int(self.headers.get('Content-Length') or 0)
+            raw = self.rfile.read(length) if length else b''
+            if server.draining:
+                # Stop admitting, finish what is in flight: 503, the client
+                # should try another replica soon.
+                instruments.RESILIENCE_SHED.labels(reason='draining').inc()
+                get_flight_recorder().record('shed', reason='draining')
+                self._send_json(
+                    503, {'error': {'message': 'server is draining', 'type': 'draining'}},
+                    {'Retry-After': '5'},
+                )
+                return
+            try:
+                body = json.loads(raw or b'{}')
             except json.JSONDecodeError:
                 self._send_json(400, {'error': {'message': 'invalid JSON'}})
                 return
@@ -259,11 +474,30 @@ def _make_handler(server: ChatServer):
                 header if _REQUEST_ID_RE.match(header)
                 else f'req-{uuid.uuid4().hex[:16]}'
             )
-            future = server.worker.submit(
-                lambda: server.answer(list(messages), top_k, score_threshold)
-            )
+            model = body.get('model', MODEL_NAME)
+            if not server.begin_completion():  # a drain began meanwhile
+                self._send_json(
+                    503, {'error': {'message': 'server is draining', 'type': 'draining'}},
+                    {'Retry-After': '5'},
+                )
+                return
             try:
+                future = server.worker.submit(
+                    lambda: server.answer(list(messages), top_k, score_threshold, request_id)
+                )
                 content = future.result(timeout=REQUEST_TIMEOUT_S)
+            except EngineOverloaded as exc:
+                # The engine predicted this request's TTFT would bust the
+                # SLO and refused it at enqueue: the honest 429.
+                self._send_json(
+                    429,
+                    {'error': {'message': str(exc), 'type': 'overloaded',
+                               'predicted_ttft_s': round(exc.predicted_ttft_s, 3)},
+                     'request_id': request_id},
+                    {'Retry-After': str(max(1, math.ceil(exc.retry_after_s))),
+                     'X-Request-Id': request_id},
+                )
+                return
             except Exception as exc:  # answered as a 500, never swallowed
                 self._send_json(
                     500,
@@ -272,14 +506,43 @@ def _make_handler(server: ChatServer):
                     {'X-Request-Id': request_id},
                 )
                 return
+            finally:
+                server.end_completion()
             server.count_served()
+            if body.get('stream'):
+                self._stream(model, content, request_id)
+                return
             self._send_json(
-                200,
-                _completion_payload(
-                    body.get('model', MODEL_NAME), content, request_id
-                ),
+                200, _completion_payload(model, content, request_id),
                 {'X-Request-Id': request_id},
             )
+
+        def _stream(self, model: str, content: str, request_id: str) -> None:
+            """Single-delta SSE: one chunk carrying the whole answer, then
+            ``[DONE]``; no Content-Length, so the connection closes to
+            mark the end."""
+            chunk = {
+                'id': f'chatcmpl-{uuid.uuid4().hex[:24]}',
+                'object': 'chat.completion.chunk',
+                'created': int(time.time()),
+                'model': model,
+                'request_id': request_id,
+                'choices': [{
+                    'index': 0,
+                    'delta': {'role': 'assistant', 'content': content},
+                    'finish_reason': 'stop',
+                }],
+            }
+            self.send_response(200)
+            self.send_header('Content-Type', 'text/event-stream')
+            self.send_header('Cache-Control', 'no-cache')
+            self.send_header('X-Request-Id', request_id)
+            self.send_header('Connection', 'close')
+            self.end_headers()
+            self.wfile.write(f'data: {json.dumps(chunk)}\n\n'.encode())
+            self.wfile.write(b'data: [DONE]\n\n')
+            self.wfile.flush()
+            self.close_connection = True
 
     return Handler
 

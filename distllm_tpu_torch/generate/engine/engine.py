@@ -65,10 +65,38 @@
   with per-block, per-KV-head scales, quantized at write time and read by
   K1's int8-KV mode (about half the bytes per block).
 
-Later slices bring the peer KV tier, recovery, admission control,
-pipelining (this engine runs one window at a time: ``pipeline_depth=1``;
-the mixed windows' ``prefill_sent`` / ``prefill_done`` bookkeeping is the
-JAX engine's, so pipelining can compose with it) and observability.
+- **telemetry** (the JAX engine's series, ``observability.instruments``):
+  every request carries its lifecycle timestamps (enqueue, admit, first
+  token, finish; the first value kept across preemption) into the TTFT,
+  TPOT and queue-wait histograms, the SLO and goodput counters
+  (``ttft_slo_s``) and one ``'request'`` record of the process flight ring
+  (``engine.flight``); every prefill dispatch and every decode, mixed and
+  verify window adds a step record. With ``attribution`` on the record
+  also carries the host / put / dispatch / fetch split, read at clock
+  points the path has anyway (no added sync), and the analytic roofline
+  (``observability.roofline``) prices the step into ``mfu`` /
+  ``bw_util`` and the ``distllm_engine_mfu`` /
+  ``distllm_engine_bandwidth_utilization`` gauges.
+- **resilience** (the JAX fields): ``request_deadline_s`` quarantines
+  requests that outlive it (``finish_reason='timeout'``, blocks freed);
+  ``max_dispatch_retries`` makes :meth:`LLMEngine.step` charge a failed
+  dispatch to the requests involved, roll the host state it advanced
+  back, back off and retry on the next call, quarantining a request
+  past its budget (``FAILED``, ``finish_reason='dispatch_failed'``);
+  ``admission_control`` refuses an arrival whose predicted TTFT busts
+  ``ttft_slo_s`` (``resilience.EngineOverloaded``). The fault sites of
+  ``resilience.faults`` sit at the JAX points: ``dispatch`` before each
+  prefill, decode and verify dispatch (before anything reaches the
+  device), ``device_put`` in the tier promotion, ``sched_exhausted`` in
+  window planning and ``slow_window`` in window processing. Recovery
+  covers faults raised on the host: a sticky CUDA error fails every
+  later dispatch too, and the retry budget then drains the live
+  requests into ``FAILED``.
+
+Later slices bring the peer KV tier and pipelining (this engine runs one
+window at a time: ``pipeline_depth=1``; the mixed windows'
+``prefill_sent`` / ``prefill_done`` bookkeeping is the JAX engine's, so
+pipelining can compose with it).
 """
 
 from __future__ import annotations
@@ -103,6 +131,10 @@ from distllm_tpu_torch.generate.engine.scheduler import (
 from distllm_tpu_torch.generate.engine.spec import PromptLookupDrafter
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import bucket_ladder, pick_bucket
+from distllm_tpu_torch.observability import instruments as _metrics
+from distllm_tpu_torch.observability.flight import get_flight_recorder
+from distllm_tpu_torch.observability.roofline import CostModel
+from distllm_tpu_torch.observability.tracing import current_request_id
 from distllm_tpu_torch.ops.paged_attention import (
     kv_storage_dtype,
     resolve_attn_backend,
@@ -113,15 +145,14 @@ from distllm_tpu_torch.ops.quantization import (
     quantized_nbytes,
 )
 from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
+from distllm_tpu_torch.resilience.admission import (
+    EngineLoadView,
+    EngineOverloaded,
+    shed_decision,
+)
+from distllm_tpu_torch.resilience.faults import InjectedFault, get_fault_injector
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
 
-# Smallest prefill length bucket and the token cap of one prefill dispatch
-# (the JAX EngineConfig defaults prefill_min_bucket / max_prefill_tokens).
-_PREFILL_MIN_BUCKET = 16
-_MAX_PREFILL_TOKENS = 2048
-# Engine-wide seed behind requests that carry no explicit seed (the JAX
-# EngineConfig.seed default).
-_ENGINE_SEED = 0
 KV_CACHE_DTYPES = ('auto', 'bf16', 'fp32', 'int8')
 SPEC_DRAFT_SOURCES = ('prompt_lookup', 'none')
 # A pinned KV dtype's storage name; 'auto' stores the model dtype.
@@ -156,6 +187,11 @@ class RequestState(Enum):
     WAITING = 'waiting'
     RUNNING = 'running'
     FINISHED = 'finished'
+    # Terminal quarantine: the request's dispatches kept failing past the
+    # retry budget, or it outlived request_deadline_s. Its blocks are
+    # freed, the error is recorded on it, and it never re-enters the
+    # scheduler.
+    FAILED = 'failed'
 
 
 @dataclass
@@ -166,7 +202,21 @@ class Request:
     state: RequestState = RequestState.WAITING
     output_ids: list[int] = field(default_factory=list)
     sample_seed: int = 0
-    finish_reason: str = ''  # 'stop' | 'length' once finished
+    # '' while live; 'stop' / 'length' for normal finishes, 'timeout' past
+    # request_deadline_s, 'dispatch_failed' after the retry budget. A
+    # FAILED request also records the error text.
+    finish_reason: str = ''
+    error: str | None = None
+    # --- lifecycle (monotonic seconds; 0.0 = not reached) ---
+    # t_admit and t_first_token keep their FIRST value across recompute
+    # preemption: the client-visible latencies run from enqueue.
+    t_enqueue: float = 0.0
+    t_admit: float = 0.0
+    t_first_token: float = 0.0
+    t_finish: float = 0.0
+    # The server's X-Request-Id, captured from tracing.request_scope at
+    # add_request and carried on the 'request' flight record.
+    trace_id: str | None = None
     # --- automatic prefix caching ---
     # Chained digests of the prompt's full blocks (the cache keys).
     digests: list[bytes] = field(default_factory=list)
@@ -213,8 +263,12 @@ class EngineConfig(BaseConfig):
     num_blocks: int = 256
     max_num_seqs: int = 8
     max_model_len: int = 1024
+    # Smallest prefill length bucket.
+    prefill_min_bucket: int = 16
     decode_steps: int = 8
     max_prefill_batch: int = 8
+    # Upper bound on rows x bucket tokens of one prefill dispatch.
+    max_prefill_tokens: int = 2048
     quantization: str | None = None  # None | 'int8' | 'nf4' (weight-only)
     # Automatic prefix caching: full prompt blocks enter a hash-chain
     # cache as they prefill; later requests sharing a block-aligned prefix
@@ -262,6 +316,36 @@ class EngineConfig(BaseConfig):
     # window is a span-1 verify through the same graph, the identity
     # baseline of speculation in bf16).
     spec_draft_source: str = 'prompt_lookup'
+    # TTFT service-level objective in seconds (0 = no SLO accounting).
+    # When set, every finished request counts into
+    # distllm_request_slo_total{outcome=met|missed} and met requests'
+    # output tokens into distllm_engine_goodput_tokens_total.
+    ttft_slo_s: float = 0.0
+    # Per-request wall-clock deadline (enqueue -> terminal state) in
+    # seconds; 0 disables. A request that outlives it finishes with
+    # finish_reason='timeout' and frees its KV blocks.
+    request_deadline_s: float = 0.0
+    # Crash-domain recovery: how many times a request's dispatches may fail
+    # before it is quarantined to FAILED. 0 keeps the plain contract (the
+    # first dispatch exception propagates); > 0 makes step() roll the
+    # host state back, back off (retry_backoff_s * 2^attempt, capped at
+    # 2 s) and retry on the next call.
+    max_dispatch_retries: int = 0
+    # Base of the bounded exponential backoff between retries.
+    retry_backoff_s: float = 0.05
+    # SLO-aware admission control (needs ttft_slo_s > 0): predict TTFT at
+    # enqueue from EWMA-measured prefill and window rates (roofline floors
+    # before traffic) and the backlog, and refuse with EngineOverloaded
+    # what would bust the SLO. Flippable at run time through
+    # engine.admission_control.
+    admission_control: bool = False
+    # Serving-path attribution: the host / put / dispatch / fetch split on
+    # flight records, torch.profiler labels around every dispatch, and
+    # the roofline gauges. Host bookkeeping only: tokens are identical
+    # either way. Flippable at run time through engine.attribution.
+    attribution: bool = True
+    # Engine-wide seed behind requests that carry no explicit seed.
+    seed: int = 0
 
     def validate(self) -> None:
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
@@ -279,7 +363,9 @@ class EngineConfig(BaseConfig):
             if getattr(self, name) < 1:
                 raise ValueError(f'{name} must be >= 1')
         for name in ('sampling_top_window', 'prefill_chunk_tokens',
-                     'max_window_prefill_tokens', 'draft_k'):
+                     'max_window_prefill_tokens', 'draft_k',
+                     'max_dispatch_retries', 'request_deadline_s',
+                     'retry_backoff_s'):
             if getattr(self, name) < 0:
                 raise ValueError(f'{name} must be >= 0')
         if self.spec_ngram < 1:
@@ -316,6 +402,11 @@ class EngineConfig(BaseConfig):
                 'disk_kv_tier_dir needs host_kv_tier_bytes > 0: spills reach '
                 'disk by writing through the host tier, and promotions route '
                 'disk -> host -> device'
+            )
+        if self.admission_control and self.ttft_slo_s <= 0:
+            raise ValueError(
+                'admission_control needs ttft_slo_s > 0: shedding refuses '
+                'load whose predicted TTFT busts the SLO'
             )
 
 
@@ -392,7 +483,7 @@ class LLMEngine:
         self.kv_cache_dtype = str(kv_storage_dtype(self.kv.k)).removeprefix('torch.')
         self.max_blocks_per_seq = self.kv.blocks_needed(cfg.max_model_len)
         self.prefill_buckets = bucket_ladder(
-            cfg.max_model_len, _PREFILL_MIN_BUCKET, scheme='pow2'
+            cfg.max_model_len, cfg.prefill_min_bucket, scheme='pow2'
         )
         self.sched = PyScheduler(cfg.num_blocks, cfg.block_size, cfg.max_num_seqs)
         self.prefix_cache = PrefixCache(cfg.block_size) if cfg.enable_prefix_cache else None
@@ -459,6 +550,44 @@ class LLMEngine:
         # Per-run summary written by generate_ids; the resolved KV storage
         # dtype ('bfloat16', 'float32' or 'int8') from construction on.
         self.telemetry: dict[str, float] = {'kv_cache_dtype': self.kv_cache_dtype}
+        # The process flight ring: one record per prefill dispatch, window,
+        # finished request, shed, quarantine, recovery and fault.
+        self.flight = get_flight_recorder()
+        # Resilience: the process fault injector (inert unless armed),
+        # per-request consecutive dispatch failures, prefills to re-run
+        # after a failed attempt, and the backoff state.
+        self._faults = get_fault_injector()
+        self._dispatch_failures: dict[int, int] = {}
+        self._pending_prefill: list[int] = []
+        self._consecutive_failures = 0
+        # Admission control (flippable) and its EWMA-measured inputs.
+        self.admission_control = cfg.admission_control
+        self._ewma: dict[str, float] = {}
+        # Attribution (flippable) and the roofline priced from the final
+        # parameters (quantized codes and scales included), with per-kind
+        # accumulators behind roofline_summary().
+        self.attribution = cfg.attribution
+        self._roofline: dict[str, dict[str, float]] = {}
+        self._cost_model = None
+        try:
+            self._cost_model = CostModel.from_params(
+                self.params, cfg.decode_steps, device=self.device,
+            )
+        except (ValueError, RuntimeError) as exc:
+            self.telemetry['roofline_fallback'] = repr(exc)[:300]
+        # Prefill chunks before a tail's last return without a host sync:
+        # their tokens and the first one's start are priced with the
+        # sampled dispatch that follows, whose fetch waits for them all.
+        self._unsynced_prefill: list = []
+        for label in _metrics.KV_CACHE_DTYPE_LABELS:
+            _metrics.KV_CACHE_DTYPE_INFO.labels(dtype=label).set(
+                1.0 if label == self.kv_cache_dtype else 0.0
+            )
+        if self.kv_cache_dtype not in _metrics.KV_CACHE_DTYPE_LABELS:
+            _metrics.KV_CACHE_DTYPE_INFO.labels(dtype='other').set(1.0)
+        _metrics.KV_BLOCKS_TOTAL.set(cfg.num_blocks - 1)
+        _metrics.KV_HBM_BYTES.set(self.kv.hbm_bytes)
+        self._publish_sched()
 
     # ------------------------------------------------------------- requests
     def add_request(
@@ -474,13 +603,21 @@ class LLMEngine:
                 f'prompt needs {needed} KV blocks but the pool only has '
                 f'{self.kv.num_blocks - 1}; increase num_blocks'
             )
+        if self.admission_control:
+            # May raise EngineOverloaded before any engine state is
+            # touched: a shed request owns nothing.
+            self._maybe_shed(len(prompt_ids))
         request = Request(
             request_id=next(self._next_id),
             prompt_ids=prompt_ids,
             params=params or SamplingParams(),
+            t_enqueue=time.monotonic(),
+            # Bound by the server's request_scope (X-Request-Id); None
+            # for offline callers.
+            trace_id=current_request_id(),
         )
         request.sample_seed = _request_seed(
-            _ENGINE_SEED, request.request_id, request.params.seed
+            self.config.seed, request.request_id, request.params.seed
         )
         if self.config.draft_k and self.config.spec_draft_source == 'prompt_lookup':
             # Greedy and sampled rows draft alike; verify_spans applies
@@ -489,6 +626,9 @@ class LLMEngine:
         cached_blocks = self._acquire_prefix(request) if self.prefix_cache else []
         self._requests[request.request_id] = request
         self.sched.add(request.request_id, request.num_tokens, cached_blocks)
+        _metrics.ENGINE_REQUESTS_ADDED.inc()
+        _metrics.ENGINE_PROMPT_TOKENS.inc(len(prompt_ids))
+        self._publish_sched()
         return request.request_id
 
     def _acquire_prefix(self, request: Request) -> list[int]:
@@ -510,6 +650,8 @@ class LLMEngine:
             cached_blocks = matched
             request.num_cached_tokens = len(matched) * bs
         request.num_borrowed_blocks = len(cached_blocks)
+        if matched:
+            _metrics.PREFIX_TIER_HITS.labels(tier='hbm').inc(len(matched))
         if self.kv_tier is not None and request.cow_src_block is None:
             # Digests past the device match that the host or disk tier
             # holds, up to the first one neither holds; at least one prompt
@@ -522,9 +664,90 @@ class LLMEngine:
             while promo and (len(cached_blocks) + len(promo)) * bs >= prompt_len:
                 promo.pop()
             request.promo_digests = promo
+        elif self.kv_tier is None and len(matched) < len(request.digests):
+            _metrics.PREFIX_TIER_MISSES.labels(tier='hbm').inc()
+        _metrics.PREFIX_LOOKUP_TOKENS.inc(prompt_len)
+        if request.num_cached_tokens:
+            _metrics.PREFIX_HIT_TOKENS.inc(request.num_cached_tokens)
         self.stats['prefix_hit_tokens'] += request.num_cached_tokens
         self.stats['prefix_lookup_tokens'] += prompt_len
         return cached_blocks
+
+    # ------------------------------------------- SLO-aware admission control
+    def _ewma_update(self, key: str, value: float, alpha: float = 0.25) -> None:
+        prev = self._ewma.get(key)
+        self._ewma[key] = value if prev is None else prev + alpha * (value - prev)
+
+    def _load_view(self) -> EngineLoadView:
+        """Engine load for the TTFT predictor (``resilience.admission``):
+        the scheduler backlog plus the EWMA-measured per-token prefill time
+        and window cadence, with the roofline floors before the first
+        windows land."""
+        cfg = self.config
+        waiting_tokens = 0
+        pending_decode = 0
+        for r in self._requests.values():
+            if r.state is RequestState.WAITING:
+                waiting_tokens += r.num_tokens
+                pending_decode += r.params.max_tokens
+            elif r.state is RequestState.RUNNING:
+                pending_decode += max(0, r.params.max_tokens - len(r.output_ids))
+        per_tok = self._ewma.get('prefill_s_per_token')
+        window_s = self._ewma.get('window_s')
+        if (per_tok is None or window_s is None) and self._cost_model is not None:
+            cm = self._cost_model
+            if per_tok is None:
+                per_tok = 2.0 * cm.n_params / cm.peak_flops
+            if window_s is None:
+                window_s = cm.weight_bytes * cm.decode_steps / cm.peak_hbm_bytes
+        return EngineLoadView(
+            waiting_tokens=waiting_tokens,
+            pending_decode_tokens=pending_decode,
+            num_waiting=self.sched.num_waiting,
+            num_running=self.sched.num_running,
+            max_num_seqs=cfg.max_num_seqs,
+            decode_steps=cfg.decode_steps,
+            prefill_s_per_token=per_tok or 0.0,
+            window_s=window_s or 0.0,
+            slo_s=cfg.ttft_slo_s,
+        )
+
+    def _maybe_shed(self, prompt_tokens: int) -> None:
+        """Refuse at enqueue when the predicted TTFT busts the SLO
+        (honest backpressure, surfaced by the server as 429)."""
+        admit, predicted, retry_after = shed_decision(self._load_view(), prompt_tokens)
+        _metrics.RESILIENCE_PREDICTED_TTFT.observe(predicted)
+        if admit:
+            return
+        _metrics.RESILIENCE_SHED.labels(reason='overload').inc()
+        self.stats['shed_requests'] += 1
+        self.flight.record(
+            'shed',
+            reason='overload',
+            predicted_ttft_s=round(predicted, 6),
+            retry_after_s=round(retry_after, 3),
+            prompt_tokens=prompt_tokens,
+            queue_depth=self.sched.num_waiting,
+        )
+        raise EngineOverloaded(predicted, retry_after, self.config.ttft_slo_s)
+
+    def _publish_sched(self) -> None:
+        """The scheduler gauges: queue depth, running slots and KV block
+        occupancy (process-wide; with several engines the last wins)."""
+        usable = self.config.num_blocks - 1
+        in_use = usable - self.sched.num_free_blocks
+        _metrics.KV_BLOCKS_IN_USE.set(in_use)
+        _metrics.KV_OCCUPANCY.set(in_use / usable if usable else 0.0)
+        _metrics.SCHED_QUEUE_DEPTH.set(self.sched.num_waiting)
+        _metrics.SCHED_RUNNING.set(self.sched.num_running)
+        if self.prefix_cache is not None:
+            _metrics.PREFIX_CACHED_BLOCKS.set(self.prefix_cache.num_cached)
+            _metrics.PREFIX_EVICTABLE_BLOCKS.set(self.prefix_cache.num_evictable)
+            _metrics.PREFIX_SHARED_BLOCKS.set(self.prefix_cache.num_shared)
+        if self.kv_tier is not None:
+            _metrics.PREFIX_TIER_BYTES.labels(tier='host').set(self.kv_tier.bytes_used)
+            if self.kv_tier.disk is not None:
+                _metrics.PREFIX_TIER_BYTES.labels(tier='disk').set(self.kv_tier.disk.bytes_used)
 
     @property
     def has_unfinished(self) -> bool:
@@ -543,13 +766,22 @@ class LLMEngine:
         max_tokens=1), freeing a slot, so admission repeats until the
         scheduler yields nothing."""
         self._retire_promotions()
-        emitted: list[tuple[int, int]] = []
+        # Recovery: prefills whose earlier dispatch failed run first; their
+        # requests hold slots and blocks and take no decode steps until
+        # this succeeds.
+        emitted: list[tuple[int, int]] = self._retry_pending_prefills()
         chunk = self.config.prefill_chunk_tokens
         while True:
             admitted: list[Request] = []
             while (rid := self._admit_next_evicting()) is not None:
                 request = self._requests[rid]
                 request.state = RequestState.RUNNING
+                _metrics.SCHED_ADMITTED.inc()
+                if request.t_admit == 0.0:  # the first admission only
+                    request.t_admit = time.monotonic()
+                    _metrics.REQUEST_QUEUE_WAIT.observe(
+                        request.t_admit - request.t_enqueue
+                    )
                 admitted.append(request)
             if not admitted:
                 return emitted
@@ -558,14 +790,21 @@ class LLMEngine:
             # the windows the rest ride.
             ride = self.config.enable_mixed_batching and self._mixed_can_ride()
             standalone: list[Request] = []
-            for request in admitted:
-                if request.promo_digests:
-                    self._promote(request)
-                tail = request.num_tokens - request.num_cached_tokens
-                if ride and (request.num_cached_tokens or (chunk and tail > chunk)):
-                    self._enroll_mixed(request)
-                else:
-                    standalone.append(request)
+            try:
+                for request in admitted:
+                    if request.promo_digests:
+                        self._promote(request)
+                    tail = request.num_tokens - request.num_cached_tokens
+                    if ride and (request.num_cached_tokens or (chunk and tail > chunk)):
+                        self._enroll_mixed(request)
+                    else:
+                        standalone.append(request)
+            except Exception:
+                # Nothing of this batch prefilled yet: gate all of it.
+                self._mark_prefill_retry(
+                    [r for r in admitted if r.request_id not in self._prefilling]
+                )
+                raise
             emitted.extend(self._run_prefill_paged(standalone))
 
     def _run_prefill_paged(self, requests: list[Request]) -> list[tuple[int, int]]:
@@ -587,17 +826,60 @@ class LLMEngine:
             else:
                 groups.setdefault(pick_bucket(tail, self.prefill_buckets), []).append(request)
         emitted: list[tuple[int, int]] = []
-        for bucket, group in sorted(groups.items()):
-            cap = self._prefill_batch_cap(bucket)
-            for i in range(0, len(group), cap):
-                spans = [
-                    (r, r.num_cached_tokens, r.num_tokens - r.num_cached_tokens)
-                    for r in group[i:i + cap]
-                ]
-                emitted.extend(self._dispatch_prefill_paged(spans))
-        for request in chunked:
-            emitted.extend(self._run_prefill_chunked(request))
+        # The recovery contract: when a dispatch fails, every request whose
+        # prefill has not landed yet is gated out of decode and queued for
+        # a re-dispatch before the error propagates.
+        pending = {r.request_id: r for r in requests}
+        try:
+            for bucket, group in sorted(groups.items()):
+                cap = self._prefill_batch_cap(bucket)
+                for i in range(0, len(group), cap):
+                    spans = [
+                        (r, r.num_cached_tokens, r.num_tokens - r.num_cached_tokens)
+                        for r in group[i:i + cap]
+                    ]
+                    emitted.extend(self._dispatch_prefill_paged(spans))
+                    for request, _, _ in spans:
+                        pending.pop(request.request_id)
+            for request in chunked:
+                emitted.extend(self._run_prefill_chunked(request))
+                pending.pop(request.request_id)
+        except Exception:
+            self._mark_prefill_retry(
+                [r for r in pending.values() if r.state is RequestState.RUNNING]
+            )
+            raise
         return emitted
+
+    def _mark_prefill_retry(self, requests: list[Request]) -> None:
+        """A prefill dispatch for ``requests`` failed: gate each out of
+        decode (decode must never read KV the prefill never wrote) and
+        queue it for a re-dispatch (:meth:`_retry_pending_prefills`).
+        Progress falls back to the cached prefix; rewriting positions
+        already written is idempotent, so the retry is exact."""
+        for request in requests:
+            request.prefill_target = request.num_tokens
+            request.prefill_sent = request.num_cached_tokens
+            request.prefill_done = request.num_cached_tokens
+            if request.request_id not in self._pending_prefill:
+                self._pending_prefill.append(request.request_id)
+
+    def _retry_pending_prefills(self) -> list[tuple[int, int]]:
+        """Re-dispatch the prefills whose earlier attempt failed, tail
+        only over whatever KV is already valid."""
+        if not self._pending_prefill:
+            return []
+        rids, self._pending_prefill = self._pending_prefill, []
+        requests: list[Request] = []
+        for rid in rids:
+            request = self._requests.get(rid)
+            if request is None or request.state is not RequestState.RUNNING:
+                continue  # quarantined, preempted or finished meanwhile
+            request.prefill_target = 0
+            request.prefill_sent = request.num_cached_tokens
+            request.prefill_done = request.num_cached_tokens
+            requests.append(request)
+        return self._run_prefill_paged(requests)
 
     def _run_prefill_chunked(self, request: Request) -> list[tuple[int, int]]:
         """Prefill one long tail as sequential chunks of at most
@@ -611,6 +893,8 @@ class LLMEngine:
             ntok = min(chunk, total - start)
             final = start + ntok >= total
             self.stats['prefill_chunks'] += 1
+            _metrics.ENGINE_PREFILL_CHUNKS.inc()
+            _metrics.ENGINE_PREFILL_CHUNK_TOKENS.observe(ntok)
             emitted.extend(self._dispatch_prefill_paged([(request, start, ntok)], sample=final))
             start += ntok
         return emitted
@@ -629,6 +913,8 @@ class LLMEngine:
             if rid is not None:
                 return rid
             if not self._evict_for_admission():
+                if self.sched.num_waiting:
+                    _metrics.SCHED_DEFERRED.inc()
                 return None
 
     def _evict_for_admission(self) -> bool:
@@ -666,6 +952,10 @@ class LLMEngine:
         freed = [bid for _, bid in entries]
         self.sched.release_blocks(freed)
         self.stats['prefix_evicted_blocks'] += len(freed)
+        _metrics.PREFIX_EVICTIONS.inc(len(freed))
+        _metrics.PREFIX_TIER_EVICTIONS.labels(tier='hbm').inc(len(freed))
+        if self.kv_tier is None:
+            _metrics.PREFIX_TIER_DROPPED_BLOCKS.inc(len(freed))
         return len(freed)
 
     # ------------------------------------------------- host and disk tiers
@@ -690,6 +980,7 @@ class LLMEngine:
             self.kv_tier.put(digest, *(plane[:, i].clone() for plane in host))
         self.stats['tier_spills'] += 1
         self.stats['tier_spilled_blocks'] += len(entries)
+        _metrics.PREFIX_TIER_SPILLS.labels(tier='host').inc(len(entries))
         self.stats['tier_spilled_bytes'] += sum(p.numel() * p.element_size() for p in host)
         self._tier_times['spill_s'] += time.perf_counter() - t0
 
@@ -744,6 +1035,19 @@ class LLMEngine:
             self.stats['tier_promotion_failures'] += 1
             return
         self._tier_times['promote_host_s'] += time.perf_counter() - t0
+        try:
+            # Fault site 'device_put': a failed promotion copy degrades to a
+            # counted failure and a cold prefill, never an error in
+            # admission. Fired before the copy is queued.
+            self._faults.fail('device_put')
+        except InjectedFault as exc:
+            _metrics.PREFIX_TIER_ERRORS.labels(tier='host').inc()
+            self.stats['tier_promotion_failures'] += 1
+            self.flight.record(
+                'event', event='promotion_failed', rids=[rid], blocks=n,
+                error=repr(exc)[:200],
+            )
+            return
         events = None
         on_side_stream = contextlib.nullcontext()
         if cuda:
@@ -776,6 +1080,8 @@ class LLMEngine:
             self._promotions.append({'events': events, 'staging': staging})
         self.stats['tier_promotions'] += 1
         self.stats['tier_promoted_blocks'] += n
+        _metrics.PREFIX_TIER_PROMOTIONS.labels(tier='host').inc(n)
+        _metrics.PREFIX_HIT_TOKENS.inc(n * self.config.block_size)
         self.stats['tier_promoted_bytes'] += sum(t.numel() * t.element_size() for t in staging)
         self.stats['prefix_hit_tokens'] += n * self.config.block_size
 
@@ -842,6 +1148,7 @@ class LLMEngine:
         for plane in self._pool_planes():
             plane.index_copy_(1, dst, plane.index_select(1, src))
         self.stats['prefix_cow_copies'] += len(srcs)
+        _metrics.PREFIX_COW_COPIES.inc(len(srcs))
 
     def _insert_prompt_blocks(self, request: Request) -> None:
         """Adopt the request's freshly prefilled full prompt blocks into the
@@ -972,7 +1279,11 @@ class LLMEngine:
             request.prefill_sent = start + ntok
             entries.append((i, request.request_id, start, ntok,
                             start + ntok >= request.prefill_target))
-        self.stats['mixed_prefill_tokens'] += sum(n for _, _, n in chunk_plan)
+        ridden = sum(n for _, _, n in chunk_plan)
+        self.stats['mixed_prefill_tokens'] += ridden
+        _metrics.MIXED_PREFILL_TOKENS.inc(ridden)
+        _metrics.MIXED_PREFILL_TOKENS_PER_WINDOW.observe(ridden)
+        _metrics.MIXED_PREFILL_ROWS.observe(len(chunk_plan))
         return chunk_tokens, entries
 
     def _process_chunk_entries(self, window: dict) -> list[tuple[int, int]]:
@@ -1003,7 +1314,7 @@ class LLMEngine:
         """Prompts of one bucket that prefill together."""
         return max(1, min(
             self.config.max_prefill_batch,
-            _MAX_PREFILL_TOKENS // bucket,
+            self.config.max_prefill_tokens // bucket,
             self.config.max_num_seqs,
         ))
 
@@ -1050,29 +1361,61 @@ class LLMEngine:
     def _dispatch_prefill_paged(self, spans, sample: bool = True) -> list[tuple[int, int]]:
         """One paged-context prefill dispatch for ``spans``, padded to the
         longest; samples and emits each request's first token (one host
-        fetch). ``sample=False`` (a chunk before the last) emits nothing."""
+        fetch). ``sample=False`` (a chunk before the last) emits nothing.
+        The fault site ``dispatch`` fires first, before anything reaches
+        the device."""
+        self._faults.fail('dispatch')
+        requests = [r for r, _, _ in spans]
+        _metrics.ENGINE_PREFILL_BATCH.observe(len(requests))
+        t_start = time.monotonic()
         width = max(ntok for _, _, ntok in spans)
-        ids, positions, block_rows, context_lens, tail_lens = self._put(
-            *self._span_host_arrays(spans, width, len(spans))
-        )
-        last_logits, _, _ = mistral.prefill_paged(
-            self.params, self.model_cfg, ids, positions, self.kv.k, self.kv.v,
-            block_rows, context_lens, tail_lens,
-            max_table_positions=self.config.max_model_len,
-            attn_backend=self.attn_backend,
-        )
+        host = self._span_host_arrays(spans, width, len(spans))
+        t_host = time.monotonic()
+        ids, positions, block_rows, context_lens, tail_lens = self._put(*host)
+        t_put = time.monotonic()
+        with self._annotate('prefill'):
+            last_logits, _, _ = mistral.prefill_paged(
+                self.params, self.model_cfg, ids, positions, self.kv.k, self.kv.v,
+                block_rows, context_lens, tail_lens,
+                max_table_positions=self.config.max_model_len,
+                attn_backend=self.attn_backend,
+            )
+        t_dispatch = time.monotonic()
         self.stats['forward_passes'] += 1
         self.stats['prefill_dispatches'] += 1
+        _metrics.ENGINE_PREFILL_DISPATCHES.inc()
+        ntokens = int(host[4].sum())
+        rids = [r.request_id for r in requests]
         if not sample:
+            # No host sync: the launch returned before the device ran it,
+            # so the step is priced with the sampled dispatch that syncs.
+            self._unsynced_prefill.append((ntokens, t_start))
+            self._record_step(
+                'prefill', t_start, batch=len(requests), tokens=ntokens, priced=False,
+                **self._attribution_fields(t_start, t_host, t_put, t_dispatch, rids=rids),
+            )
             return []
-        requests = [r for r, _, _ in spans]
         for request in requests:
             self._insert_prompt_blocks(request)
-        tokens = self._sample_device(last_logits, requests).cpu().tolist()
+        tokens_dev = self._sample_device(last_logits, requests)
+        t_fetch = time.monotonic()
+        tokens = tokens_dev.cpu().tolist()
+        fetch_s = time.monotonic() - t_fetch
+        # The fetch waited for every unsynced chunk before this one too.
+        priced_tokens = ntokens + sum(n for n, _ in self._unsynced_prefill)
+        t_first = min([t_start] + [t for _, t in self._unsynced_prefill])
+        self._unsynced_prefill = []
         emitted = []
         for request, token in zip(requests, tokens):
             self._emit_token(request, token)
             emitted.append((request.request_id, token))
+        self._record_step(
+            'prefill', t_first, batch=len(requests), tokens=ntokens,
+            priced_tokens=priced_tokens,
+            **self._attribution_fields(
+                t_start, t_host, t_put, t_dispatch, fetch_s=fetch_s, rids=rids,
+            ),
+        )
         return emitted
 
     def _sample_device(self, logits: torch.Tensor, requests) -> torch.Tensor:
@@ -1093,6 +1436,134 @@ class LLMEngine:
             top_window=self.config.sampling_top_window, top_k=top_k,
             all_greedy=all(p.temperature <= 0 for p in params),
         )
+
+    # ------------------------------------------------- step records
+    def _annotate(self, kind: str):
+        """``torch.profiler.record_function('distllm:<kind>')`` around a
+        dispatch's host side when attribution is on, so a profiler trace
+        ties device time back to engine step kinds. Never around a graph
+        capture (warmup runs outside it)."""
+        if not self.attribution:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f'distllm:{kind}')
+
+    def _attribution_fields(
+        self, t_start, t_host, t_put, t_dispatch, *, fetch_s=None, rids=None,
+    ) -> dict:
+        """The host/device split of one flight record (empty with
+        attribution off): ``host_s`` (plan build), ``put_s`` (the copy of
+        the plan to the device), ``dispatch_s`` (the launches; they return
+        before the device finishes), ``fetch_s`` (the token fetch, where
+        the device time surfaces) and the participating ``rids``."""
+        if not self.attribution:
+            return {}
+        fields = {
+            'host_s': round(t_host - t_start, 6),
+            'put_s': round(t_put - t_host, 6),
+            'dispatch_s': round(t_dispatch - t_put, 6),
+        }
+        if fetch_s is not None:
+            fields['fetch_s'] = round(fetch_s, 6)
+        if rids is not None:
+            fields['rids'] = list(rids)
+        return fields
+
+    def _record_step(self, kind: str, t_start: float, *, batch: int, tokens: int,
+                     priced: bool = True, passes: int | None = None,
+                     priced_tokens: int | None = None, **extra) -> None:
+        """One flight-ring record and the step metrics for one engine step.
+
+        ``duration_s`` runs from ``t_start`` — the start of the step's
+        planning — through its token fetch (a chunk before a tail's last,
+        which fetches nothing, stops at its launch and is not priced
+        itself: ``priced=False``). With attribution on, the roofline prices
+        the step from the weight passes that ran (``passes``; ``None``
+        keeps the JAX counts) and ``priced_tokens`` scored tokens (default
+        ``tokens``), and the record carries ``mfu`` / ``bw_util``, mirrored
+        into the gauges and the per-kind ``roofline_summary()``
+        accumulators.
+        """
+        duration_s = time.monotonic() - t_start
+        _metrics.ENGINE_STEPS.labels(kind=kind).inc()
+        _metrics.ENGINE_STEP_SECONDS.labels(kind=kind).observe(duration_s)
+        # The admission predictor's inputs, fed whatever the attribution
+        # flag says.
+        if priced:
+            if kind == 'prefill' and tokens > 0:
+                self._ewma_update(
+                    'prefill_s_per_token',
+                    duration_s / (tokens if priced_tokens is None else priced_tokens),
+                )
+            elif kind != 'prefill':
+                self._ewma_update('window_s', duration_s)
+        if priced and self._cost_model is not None and self.attribution:
+            cost = self._cost_model.step_cost(
+                kind,
+                tokens=tokens if priced_tokens is None else priced_tokens,
+                batch=batch,
+                draft_tokens=extra.get('draft_tokens', 0),
+                prefill_tokens=extra.get('prefill_tokens', 0),
+                passes=passes,
+            )
+            if cost is not None:
+                mfu, bw_util = self._cost_model.utilization(cost, duration_s)
+                _metrics.ENGINE_MFU.labels(kind=kind).set(mfu)
+                _metrics.ENGINE_BW_UTIL.labels(kind=kind).set(bw_util)
+                acc = self._roofline.setdefault(
+                    kind, {'windows': 0.0, 'seconds': 0.0, 'flops': 0.0, 'hbm_bytes': 0.0},
+                )
+                acc['windows'] += 1
+                acc['seconds'] += duration_s
+                acc['flops'] += cost.flops
+                acc['hbm_bytes'] += cost.hbm_bytes
+                extra = {**extra, 'mfu': round(mfu, 5), 'bw_util': round(bw_util, 5)}
+        usable = self.config.num_blocks - 1  # block 0 is reserved
+        self.flight.record(
+            kind,
+            duration_s=round(duration_s, 6),
+            batch=batch,
+            occupancy=round(batch / self.config.max_num_seqs, 4),
+            tokens=tokens,
+            queue_depth=self.sched.num_waiting,
+            running=self.sched.num_running,
+            kv_occupancy=round(
+                (usable - self.sched.num_free_blocks) / usable, 4
+            ) if usable > 0 else 0.0,
+            **extra,
+        )
+
+    def roofline_snapshot(self) -> dict[str, dict[str, float]]:
+        """Copy of the raw per-kind roofline accumulators: pass it to
+        ``roofline_summary(baseline=...)`` to scope the summary to the
+        steps recorded since."""
+        return {kind: dict(acc) for kind, acc in self._roofline.items()}
+
+    def roofline_summary(
+        self, baseline: dict[str, dict[str, float]] | None = None
+    ) -> dict[str, dict[str, float]]:
+        """Per step kind ``{windows, seconds, mfu, bw_util}``, the shares
+        time-weighted (total FLOPs and bytes over total seconds over the
+        device peaks); ``baseline`` subtracts an earlier snapshot. Empty
+        without a cost model (and nothing accumulates with attribution
+        off)."""
+        if self._cost_model is None:
+            return {}
+        out: dict[str, dict[str, float]] = {}
+        for kind, acc in self._roofline.items():
+            base = (baseline or {}).get(kind, {})
+            acc = {key: value - base.get(key, 0.0) for key, value in acc.items()}
+            seconds = acc['seconds']
+            if seconds <= 0:
+                continue
+            out[kind] = {
+                'windows': int(acc['windows']),
+                'seconds': round(seconds, 4),
+                'mfu': round(acc['flops'] / seconds / self._cost_model.peak_flops, 5),
+                'bw_util': round(
+                    acc['hbm_bytes'] / seconds / self._cost_model.peak_hbm_bytes, 5
+                ),
+            }
+        return out
 
     def warmup(self) -> None:
         """Build the decode window, and with ``draft_k`` the verify window,
@@ -1116,17 +1587,42 @@ class LLMEngine:
 
     # --------------------------------------------------------------- decode
     def step(self) -> list[tuple[int, int]]:
-        """One engine iteration: admit, then generate one window of up to
-        ``decode_steps`` tokens per running sequence (with ``draft_k``, one
-        verify window), carrying any chunk rows planned. Returns
-        ``[(request_id, token)]`` in emission order."""
-        emitted = self._admit()
-        if self.sched.num_running == 0:
+        """One engine iteration: quarantine requests past their deadline,
+        admit, then generate one window of up to ``decode_steps`` tokens
+        per running sequence (with ``draft_k``, one verify window),
+        carrying any chunk rows planned. Returns ``[(request_id, token)]``
+        in emission order.
+
+        With ``max_dispatch_retries > 0`` a failed dispatch does not
+        propagate: the host state the step advanced is rolled back, the
+        failure is charged (:meth:`_recover`) and the next call retries.
+        Tokens the failed step had already folded into request state are
+        then missing from its return value; the finished requests'
+        ``output_ids`` are authoritative."""
+        emitted: list[tuple[int, int]] = []
+        try:
+            self._expire_deadlines()
+            emitted = self._admit()
+            if self.sched.num_running == 0:
+                return emitted
+            window = self._dispatch_window()
+            if window is not None:
+                emitted.extend(self._process_window(window))
             return emitted
-        window = self._dispatch_window()
-        if window is not None:
-            emitted.extend(self._process_window(window))
-        return emitted
+        except Exception as exc:
+            # Whatever the failed step dispatched is lost with its device
+            # tokens: chunk spans sent but never processed fall back to
+            # what is done, so a retry replans them from host state.
+            for rid in self._prefilling:
+                pending = self._requests.get(rid)
+                if pending is not None:
+                    pending.prefill_sent = pending.prefill_done
+            self._unsynced_prefill = []
+            if not self._recover(exc):
+                raise
+            return emitted
+        finally:
+            self._publish_sched()
 
     def _window_budget(self, request: Request, k: int) -> int:
         """Tokens this request may still generate in a new window; 0 while
@@ -1142,6 +1638,11 @@ class LLMEngine:
     def _on_preempt(self, request: Request) -> None:
         request.state = RequestState.WAITING
         self.stats['preemptions'] += 1
+        _metrics.SCHED_PREEMPTIONS.inc()
+        self.flight.record(
+            'preempt', rids=[request.request_id],
+            free_blocks=self.sched.num_free_blocks, queue_depth=self.sched.num_waiting,
+        )
         if self.prefix_cache is not None:
             # Recompute preemption kept only the borrowed prefix; the rest
             # was freed and prefills again.
@@ -1183,9 +1684,13 @@ class LLMEngine:
         (eager), then the decode rows' fused steps. Returns the window
         record, or ``None`` when no running slot has budget left and no
         chunk rides. With ``draft_k`` the window is a verify window
-        (:meth:`_dispatch_spec_window`)."""
+        (:meth:`_dispatch_spec_window`). The fault site ``dispatch`` fires
+        first, before any reservation and before anything reaches the
+        device; ``sched_exhausted`` fires in the reservation."""
         if self.config.draft_k:
             return self._dispatch_spec_window()
+        self._faults.fail('dispatch')
+        t_start = time.monotonic()
         k = self.config.decode_steps
         # Rows still prefilling through windows take no decode steps and
         # their chunks write blocks granted at admission: no reservation.
@@ -1195,6 +1700,10 @@ class LLMEngine:
         ]
         if rids:
             kmax = max(1, max(self._window_budget(self._requests[rid], k) for rid in rids))
+            if self._faults.fire('sched_exhausted') is not None:
+                # Fault site 'sched_exhausted': the pool-pressure hazard
+                # without a pool sized to hit it.
+                raise SchedulerExhausted('injected scheduler exhaustion', preempted=[])
             self._reserve(rids, [kmax] * len(rids))
         # Planned after preemption, so a victim's span never rides.
         chunk_plan = self._plan_window_chunks()
@@ -1229,32 +1738,65 @@ class LLMEngine:
         num_steps = max(steps for _, _, steps in plan)
         if num_steps == 0 and not chunk_plan:
             return None
-        window = {'tokens': None, 'plan': plan, 'chunk_tokens': None, 'chunk_plan': []}
-        if chunk_plan:
-            window['chunk_tokens'], window['chunk_plan'] = self._run_chunk_half(chunk_plan)
-            self.stats['mixed_windows'] += 1
+        window = {'tokens': None, 'plan': plan, 'chunk_tokens': None, 'chunk_plan': [],
+                  'passes': num_steps + bool(chunk_plan)}
+        if num_steps and not self._decode.ready:
+            self.warmup()  # the first window on the GPU captures the graphs
+        t_host = time.monotonic()
         if num_steps:
-            if not self._decode.ready:
-                self.warmup()  # the first window on the GPU captures the graphs
             self._decode.load(ids, positions, context_lens, block_tables, steps_left,
                               temperature, top_p, min_p, top_k, seeds)
-            window['tokens'] = self._decode.run(
-                num_steps, all(r.params.temperature <= 0 for _, r in running)
-            )
-            self.stats['forward_passes'] += num_steps
+        t_put = time.monotonic()
+        with self._annotate('mixed' if chunk_plan else 'decode'):
+            if chunk_plan:
+                window['chunk_tokens'], window['chunk_plan'] = self._run_chunk_half(chunk_plan)
+                self.stats['mixed_windows'] += 1
+                _metrics.MIXED_WINDOWS.inc()
+            if num_steps:
+                window['tokens'] = self._decode.run(
+                    num_steps, all(r.params.temperature <= 0 for _, r in running)
+                )
+                self.stats['forward_passes'] += num_steps
         self.stats['decode_windows'] += 1
+        _metrics.ENGINE_DECODE_WINDOWS.inc()
+        _metrics.ENGINE_DECODE_UTILIZATION.observe(
+            sum(1 for _, _, steps in plan if steps > 0) / b
+        )
+        window['timing'] = (t_start, t_host, t_put, time.monotonic())
         return window
 
     def _process_window(self, window: dict) -> list[tuple[int, int]]:
         """Fetch one window's tokens (the decode path's one host sync) and
         fold them into request state; tokens past a finish are dropped.
         Then the window's chunk rows. A verify window goes to
-        :meth:`_process_spec_window`."""
+        :meth:`_process_spec_window`. The fault site ``slow_window``
+        sleeps where a stalled fetch would."""
         if window.get('spec'):
             return self._process_spec_window(window)
+        self._faults.maybe_sleep('slow_window')
         emitted: list[tuple[int, int]] = []
+        t_fetch = time.monotonic()
+        tokens = None
         if window['tokens'] is not None:
             tokens = window['tokens'].cpu().numpy()  # [steps, B]
+        elif window['chunk_tokens'] is not None:
+            window['chunk_tokens'] = window['chunk_tokens'].cpu()
+        fetch_s = time.monotonic() - t_fetch
+        chunk_entries = window['chunk_plan']
+        extra = {}
+        if chunk_entries:
+            extra = {
+                'prefill_tokens': sum(n for *_, n, _ in chunk_entries),
+                'prefill_rows': len(chunk_entries),
+            }
+        extra.update(self._attribution_fields(*window['timing'], fetch_s=fetch_s))
+        self._record_step(
+            'mixed' if chunk_entries else 'decode', window['timing'][0],
+            batch=sum(1 for _, _, s in window['plan'] if s > 0),
+            tokens=sum(s for _, _, s in window['plan']),
+            passes=window['passes'], **extra,
+        )
+        if tokens is not None:
             for slot, rid, steps in window['plan']:
                 request = self._requests.get(rid)
                 if request is None or request.state is not RequestState.RUNNING:
@@ -1276,7 +1818,10 @@ class LLMEngine:
         ``[last emitted token, drafts]`` rides one verify pass over the
         ``[max_num_seqs, 1 + draft_k]`` spans, after the chunk half of any
         chunk rows planned. Blocks are reserved per row, each for its own
-        span. Returns the window record, or ``None`` when nothing rides."""
+        span. Returns the window record, or ``None`` when nothing rides.
+        The fault site ``dispatch`` fires first."""
+        self._faults.fail('dispatch')
+        t_start = time.monotonic()
         draft_k = self.config.draft_k
         drafts_by_rid: dict[int, list[int]] = {}
         rids: list[int] = []
@@ -1330,23 +1875,32 @@ class LLMEngine:
         if not plan and not chunk_plan:
             return None
         window = {'spec': True, 'tokens': None, 'plan': plan, 'chunk_tokens': None,
-                  'chunk_plan': []}
-        if chunk_plan:
-            window['chunk_tokens'], window['chunk_plan'] = self._run_chunk_half(chunk_plan)
-            self.stats['spec_chunk_windows'] += 1
+                  'chunk_plan': [], 'passes': bool(plan) + bool(chunk_plan)}
         if plan:
             if not self._verify.ready:
                 self.warmup()  # the first window on the GPU captures the graphs
-            self._verify.load(
-                *self._span_host_arrays(spans, 1 + draft_k, b, token_rows=token_rows),
-                temperature, top_p, min_p, top_k, seeds,
-            )
-            window['tokens'] = self._verify.run(
-                all(self._requests[rid].params.temperature <= 0 for _, rid, _ in plan)
-            )
+            span_arrays = self._span_host_arrays(spans, 1 + draft_k, b, token_rows=token_rows)
+        t_host = time.monotonic()
+        if plan:
+            self._verify.load(*span_arrays, temperature, top_p, min_p, top_k, seeds)
+        t_put = time.monotonic()
+        with self._annotate('spec'):
+            if chunk_plan:
+                window['chunk_tokens'], window['chunk_plan'] = self._run_chunk_half(chunk_plan)
+                self.stats['spec_chunk_windows'] += 1
+            if plan:
+                window['tokens'] = self._verify.run(
+                    all(self._requests[rid].params.temperature <= 0 for _, rid, _ in plan)
+                )
+        if plan:
+            ndrafted = sum(len(d) for _, _, d in plan)
             self.stats['forward_passes'] += 1
             self.stats['spec_windows'] += 1
-            self.stats['spec_draft_tokens'] += sum(len(d) for _, _, d in plan)
+            self.stats['spec_draft_tokens'] += ndrafted
+            _metrics.SPEC_WINDOWS.inc()
+            if ndrafted:
+                _metrics.SPEC_DRAFT_TOKENS.inc(ndrafted)
+        window['timing'] = (t_start, t_host, t_put, time.monotonic())
         return window
 
     def _process_spec_window(self, window: dict) -> list[tuple[int, int]]:
@@ -1360,14 +1914,22 @@ class LLMEngine:
         rejected K/V sits at positions every later pass overwrites before
         attending, or masks out. Then the window's chunk rows."""
         emitted: list[tuple[int, int]] = []
+        t_fetch = time.monotonic()
+        tokens = None
         if window['tokens'] is not None:
             tokens = window['tokens'].cpu().numpy()
-            accepted = sampled_rows = resampled = 0
+        elif window['chunk_tokens'] is not None:
+            window['chunk_tokens'] = window['chunk_tokens'].cpu()
+        fetch_s = time.monotonic() - t_fetch
+        drafted = accepted = rows = sampled_rows = resampled = 0
+        if tokens is not None:
             for slot, rid, drafts in window['plan']:
                 request = self._requests.get(rid)
                 if request is None or request.state is not RequestState.RUNNING:
                     continue
                 sampled = request.params.temperature > 0
+                rows += 1
+                drafted += len(drafts)
                 n_acc = min(int(tokens[slot, -1]), len(drafts))
                 if sampled and drafts:
                     sampled_rows += 1
@@ -1385,6 +1947,29 @@ class LLMEngine:
             self.stats['spec_accepted_tokens'] += accepted
             self.stats['spec_sampled_rows'] += sampled_rows
             self.stats['spec_resampled_tokens'] += resampled
+            if accepted:
+                _metrics.SPEC_ACCEPTED_TOKENS.inc(accepted)
+            if drafted:
+                _metrics.SPEC_ACCEPT_RATE.observe(accepted / drafted)
+            if sampled_rows:
+                _metrics.SPEC_SAMPLED_ROWS.inc(sampled_rows)
+            if resampled:
+                _metrics.SPEC_RESAMPLED_TOKENS.inc(resampled)
+        chunk_entries = window['chunk_plan']
+        extra = {
+            'draft_tokens': drafted,
+            'accepted_tokens': accepted,
+            'sampled_rows': sampled_rows,
+            'resampled_tokens': resampled,
+        }
+        if chunk_entries:
+            extra['prefill_tokens'] = sum(n for *_, n, _ in chunk_entries)
+            extra['prefill_rows'] = len(chunk_entries)
+        extra.update(self._attribution_fields(*window['timing'], fetch_s=fetch_s))
+        self._record_step(
+            'spec', window['timing'][0], batch=rows, tokens=len(emitted),
+            passes=window['passes'], **extra,
+        )
         emitted.extend(self._process_chunk_entries(window))
         return emitted
 
@@ -1396,9 +1981,25 @@ class LLMEngine:
         return stops
 
     def _emit_token(self, request: Request, token: int) -> None:
+        if self._consecutive_failures:
+            # The first token after failed dispatches: the retry worked.
+            self._consecutive_failures = 0
+            self.stats['recoveries'] += 1
+            _metrics.RESILIENCE_RECOVERIES.inc()
+            self.flight.record('recovery', status='recovered', request_id=request.request_id)
+        if self._dispatch_failures:
+            # Progress clears the request's charge: only consecutive
+            # failures quarantine.
+            self._dispatch_failures.pop(request.request_id, None)
+        if not request.output_ids and request.t_first_token == 0.0:
+            # TTFT runs to the host fetch of the first token: what a
+            # streaming client sees.
+            request.t_first_token = time.monotonic()
+            _metrics.REQUEST_TTFT.observe(request.t_first_token - request.t_enqueue)
         request.output_ids.append(token)
         self.sched.append_token(request.request_id)
         self.stats['generated_tokens'] += 1
+        _metrics.ENGINE_GENERATED_TOKENS.inc()
         stops = self._stop_ids(request)
         if (
             token in stops
@@ -1410,12 +2011,148 @@ class LLMEngine:
 
     def _finish(self, request: Request) -> None:
         request.state = RequestState.FINISHED
+        request.t_finish = time.monotonic()
+        self._observe_lifecycle(request)
+        _metrics.ENGINE_REQUESTS_FINISHED.inc()
         self.sched.finish(request.request_id)
         if self.prefix_cache is not None:
             # Blocks at refcount 0 become LRU-evictable and keep their KV.
             self.prefix_cache.release(request.request_id)
         del self._requests[request.request_id]
         self._finished[request.request_id] = request
+
+    def _observe_lifecycle(self, request: Request) -> None:
+        """Fold one finished request into the lifecycle series and the
+        flight ring: the TPOT histogram, the SLO and goodput counters when
+        an SLO is set, and one ``'request'`` record carrying the whole
+        enqueue -> admit -> first token -> finish timeline."""
+        n_out = len(request.output_ids)
+        ttft_s = (
+            request.t_first_token - request.t_enqueue if request.t_first_token else None
+        )
+        tpot_s = None
+        if request.t_first_token and n_out > 1:
+            tpot_s = (request.t_finish - request.t_first_token) / (n_out - 1)
+            _metrics.REQUEST_TPOT.observe(tpot_s)
+        slo = self.config.ttft_slo_s
+        if slo > 0 and ttft_s is not None:
+            met = ttft_s <= slo
+            _metrics.REQUEST_SLO.labels(outcome='met' if met else 'missed').inc()
+            self.stats['slo_met' if met else 'slo_missed'] += 1
+            if met:
+                _metrics.GOODPUT_TOKENS.inc(n_out)
+                self.stats['goodput_tokens'] += n_out
+        self.flight.record(
+            'request',
+            request_id=request.request_id,
+            trace_id=request.trace_id,
+            prompt_tokens=len(request.prompt_ids),
+            output_tokens=n_out,
+            queue_wait_s=round(request.t_admit - request.t_enqueue, 6)
+            if request.t_admit else None,
+            ttft_s=round(ttft_s, 6) if ttft_s is not None else None,
+            tpot_s=round(tpot_s, 6) if tpot_s is not None else None,
+            e2e_s=round(request.t_finish - request.t_enqueue, 6),
+            cached_tokens=request.num_cached_tokens,
+        )
+
+    # -------------------------------------------------- crash-domain recovery
+    def _recover(self, exc: Exception) -> bool:
+        """Whether a failed step retries. True: the failure is charged to
+        every request involved (the running batch, or the waiting head
+        when admission failed with nothing running), those past
+        ``max_dispatch_retries`` are quarantined to ``FAILED``, and a
+        bounded exponential backoff sleeps. False (recovery off, or
+        nothing live to charge): the caller re-raises. Every True return
+        charges a live request and a request is quarantined after at
+        most ``max_dispatch_retries + 1`` charges, so a permanent fault
+        drains the requests into ``FAILED`` instead of looping."""
+        cfg = self.config
+        if cfg.max_dispatch_retries <= 0:
+            return False
+        involved = [rid for _, rid in self.sched.running()]
+        if not involved:
+            waiting = [
+                r.request_id for r in self._requests.values()
+                if r.state is RequestState.WAITING
+            ]
+            if waiting:
+                involved = [min(waiting)]
+        if not involved:
+            return False
+        self._consecutive_failures += 1
+        self.stats['window_retries'] += 1
+        _metrics.RESILIENCE_RETRIES.inc()
+        for rid in involved:
+            self._dispatch_failures[rid] = self._dispatch_failures.get(rid, 0) + 1
+        self.flight.record(
+            'recovery', status='retry', error=repr(exc)[:200],
+            attempt=self._consecutive_failures, rids=involved[:16],
+        )
+        for rid in involved:
+            if self._dispatch_failures.get(rid, 0) > cfg.max_dispatch_retries:
+                request = self._requests.get(rid)
+                if request is not None:
+                    self._fail_request(
+                        request, reason='dispatch_failed', error=repr(exc)[:300],
+                    )
+        delay = cfg.retry_backoff_s * (2 ** min(self._consecutive_failures - 1, 6))
+        if delay > 0:
+            time.sleep(min(delay, 2.0))
+        return True
+
+    def _expired_requests(self) -> list[Request]:
+        """Live requests past ``request_deadline_s`` (none when it is 0)."""
+        deadline = self.config.request_deadline_s
+        if deadline <= 0 or not self._requests:
+            return []
+        now = time.monotonic()
+        return [
+            r for r in self._requests.values()
+            if r.state in (RequestState.WAITING, RequestState.RUNNING)
+            and now - r.t_enqueue > deadline
+        ]
+
+    def _expire_deadlines(self) -> None:
+        """Quarantine every request past its deadline with
+        ``finish_reason='timeout'``, freeing its KV blocks."""
+        for request in self._expired_requests():
+            self._fail_request(
+                request, reason='timeout',
+                error=f'request exceeded request_deadline_s={self.config.request_deadline_s}',
+            )
+
+    def _fail_request(self, request: Request, *, reason: str, error: str) -> None:
+        """Terminal quarantine: record the error, free every resource the
+        request holds and park it in the finished map as ``FAILED`` (one
+        ``'quarantine'`` flight record and
+        ``distllm_resilience_quarantined_requests_total{reason}``). Its
+        prefix-cache references are released once. No window is in flight
+        here (windows are fetched within their step), and a promotion copy
+        still running on the side stream is safe: the current stream, on
+        which every later write of those blocks is queued, already waits
+        on its event, and its staging stays held until it completes."""
+        rid = request.request_id
+        request.state = RequestState.FAILED
+        request.finish_reason = reason
+        request.error = error
+        request.t_finish = time.monotonic()
+        _metrics.RESILIENCE_QUARANTINED.labels(reason=reason).inc()
+        self.stats['quarantined_requests'] += 1
+        self.flight.record(
+            'quarantine', request_id=rid, trace_id=request.trace_id, reason=reason,
+            error=error[:300], prompt_tokens=len(request.prompt_ids),
+            output_tokens=len(request.output_ids),
+        )
+        self.sched.finish(rid)
+        if self.prefix_cache is not None:
+            self.prefix_cache.release(rid)
+        self._dispatch_failures.pop(rid, None)
+        for pending in (self._prefilling, self._pending_prefill):
+            if rid in pending:
+                pending.remove(rid)
+        del self._requests[rid]
+        self._finished[rid] = request
 
     # -------------------------------------------------------------- offline
     def generate_ids(

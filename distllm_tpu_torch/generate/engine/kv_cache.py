@@ -38,6 +38,7 @@ from typing import Sequence
 import torch
 
 from distllm_tpu_torch.ops.paged_attention import QuantizedKV
+from distllm_tpu_torch.resilience.faults import get_fault_injector
 
 
 class PyBlockAllocator:
@@ -428,6 +429,7 @@ class DiskKVTier:
             path = self._path(hexdigest)
             tmp = path.with_suffix('.tmp')
             try:
+                get_fault_injector().fail_io('tier_io')
                 tmp.write_bytes(payload)
                 os.replace(tmp, path)
             except OSError:
@@ -447,6 +449,7 @@ class DiskKVTier:
                 return None
             self._index.move_to_end(hexdigest)
         try:
+            get_fault_injector().fail_io('tier_io')
             payload = self._path(hexdigest).read_bytes()
         except OSError:
             self._drop_entry(hexdigest)

@@ -6,8 +6,8 @@
 keys (a ``model`` mapping picks its config class by ``name``, through
 ``models.decoder_family``); ``fake`` builds :class:`FakeGenerator`. The
 JAX package's other backends need network endpoints or ``transformers``
-generation and raise naming ROADMAP A11; the JAX config fields the port's
-engine lacks raise naming ROADMAP A6. ``register=True`` keeps the built
+generation and raise naming ROADMAP A11; the JAX config field the port's
+engine lacks (serving from a checkpoint path) raises naming ROADMAP A6b. ``register=True`` keeps the built
 generator warm in the registry across work items.
 """
 
@@ -32,11 +32,7 @@ NOT_PORTED = dict.fromkeys(
     ('huggingface', 'api', 'langchain', 'argo', 'openai'), 'ROADMAP A11'
 )
 # Fields of the JAX generator config the port's has not yet.
-NOT_PORTED_FIELDS = {
-    'pretrained_model_name_or_path': 'ROADMAP A6',
-    'request_deadline_s': 'ROADMAP A6',
-    'max_dispatch_retries': 'ROADMAP A6',
-}
+NOT_PORTED_FIELDS = {'pretrained_model_name_or_path': 'ROADMAP A6b'}
 STRATEGIES: dict[str, type] = {
     **dict.fromkeys(ENGINE_BACKENDS, TorchGenerator),
     'fake': FakeGenerator,

@@ -13,7 +13,9 @@ bitsandbytes flag) serves weight-only quantized weights: int8 projections
 run through kernel K2. The serving knobs of the JAX generator config
 (``decode_steps``, ``sampling_top_window``, ``prefill_chunk_tokens``,
 ``enable_mixed_batching``, ``max_window_prefill_tokens``, ``draft_k``,
-``spec_ngram``) pass on to the engine, ``None`` inheriting its default.
+``spec_ngram``) and its resilience knobs (``ttft_slo_s``,
+``request_deadline_s``, ``max_dispatch_retries``, ``admission_control``)
+pass on to the engine, ``None`` inheriting its default.
 The engine is warmed up at construction (its decode graphs, and with
 ``draft_k`` its verify graphs, captured on the GPU). Loading an HF
 checkpoint and tokenizer waits until such files are in the repository.
@@ -34,6 +36,7 @@ from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
 from distllm_tpu_torch.ops.paged_attention import ATTN_BACKENDS
 from distllm_tpu_torch.ops.quantization import normalize_mode
+from distllm_tpu_torch.resilience.admission import EngineOverloaded
 from distllm_tpu_torch.utils import BaseConfig, resolve_device
 
 
@@ -44,7 +47,8 @@ _DEFAULT_MIN_P = 0.1
 _ENGINE_KNOBS = (
     'enable_prefix_cache', 'decode_steps', 'sampling_top_window',
     'prefill_chunk_tokens', 'enable_mixed_batching', 'max_window_prefill_tokens',
-    'draft_k', 'spec_ngram',
+    'draft_k', 'spec_ngram', 'ttft_slo_s', 'request_deadline_s',
+    'max_dispatch_retries', 'admission_control',
 )
 
 
@@ -83,6 +87,13 @@ class TorchGeneratorConfig(BaseConfig):
     max_window_prefill_tokens: int | None = None
     draft_k: int | None = None
     spec_ngram: int | None = None
+    # The resilience knobs (EngineConfig fields of the same names); None
+    # inherits the engine's default. The chat app sets the deadline and the
+    # retry budget for a served engine (ChatAppConfig.build_generator).
+    ttft_slo_s: float | None = None
+    request_deadline_s: float | None = None
+    max_dispatch_retries: int | None = None
+    admission_control: bool | None = None
     # The paged-attention backend (the JAX config's field, with the port's
     # values): 'auto' = kernel K1 on CUDA, 'reference' pins the plain op.
     attn_backend: str = 'auto'
@@ -187,8 +198,10 @@ class FakeGeneratorConfig(BaseConfig):
     """The JAX package's deterministic test backend (``FakeGenerator`` of
     ``distllm_tpu.generate.generators.tpu_backend``): every prompt answers
     ``response_template`` over its first ``max_prompt_chars`` characters.
-    ``overload_every`` (the JAX engine's shed signal every Nth call) needs
-    the overload surface, which waits on ROADMAP A6: only 0 is served."""
+    Every ``overload_every``-th ``generate`` call raises
+    ``resilience.EngineOverloaded`` (the engine's shed signal), so the chat
+    server's 429 / Retry-After path runs without a loaded engine; 0
+    disables."""
 
     name: str = 'fake'
     response_template: str = 'response to: {prompt}'
@@ -196,20 +209,22 @@ class FakeGeneratorConfig(BaseConfig):
     overload_every: int = 0
 
     def validate(self) -> None:
-        if self.overload_every:
-            raise NotImplementedError(
-                'FakeGeneratorConfig.overload_every needs the overload surface, '
-                'which is not ported to distllm_tpu_torch yet (ROADMAP A6)'
-            )
+        if self.overload_every < 0:
+            raise ValueError('overload_every must be >= 0')
 
 
 class FakeGenerator:
     def __init__(self, config: FakeGeneratorConfig) -> None:
         self.config = config
+        self._calls = 0
 
     def generate(self, prompts: str | list[str]) -> list[str]:
         if isinstance(prompts, str):
             prompts = [prompts]
+        self._calls += 1
+        every = self.config.overload_every
+        if every > 0 and self._calls % every == 0:
+            raise EngineOverloaded(predicted_ttft_s=1.25, retry_after_s=3.0, slo_s=0.5)
         return [
             self.config.response_template.format(
                 prompt=p[: self.config.max_prompt_chars]

@@ -165,9 +165,27 @@ def test_fake_and_http_backends_wait_on_a11(tmp_path, name):
     assert isinstance(config, FakeGeneratorConfig) and system_prompt == 'hi'
 
 
-def test_jax_generator_fields_the_port_lacks_wait_on_a6(tmp_path):
-    path, _ = _engine_yaml(tmp_path, request_deadline_s=30.0)
-    with pytest.raises(NotImplementedError, match='A6'):
+def test_jax_generator_fields_the_port_lacks_wait_on_a6(tmp_path, monkeypatch):
+    """Serving from a checkpoint path still waits (on A6b); the resilience
+    fields read as the JAX app reads them, and an engine backend gets the
+    JAX app's serving defaults (a 120 s deadline, 2 dispatch retries)."""
+    path, _ = _engine_yaml(tmp_path, pretrained_model_name_or_path='/nonexistent')
+    with pytest.raises(NotImplementedError, match='A6b'):
+        load_app_config(str(path))
+    path, raw = _engine_yaml(tmp_path, name='tpu', request_deadline_s=30.0)
+    config, _ = load_app_config(str(path))
+    jax_kwargs = _jax_backend_kwargs(raw, monkeypatch)
+    for key in ('request_deadline_s', 'max_dispatch_retries'):
+        assert getattr(config, key) == jax_kwargs[key], key
+        assert getattr(config.engine_config(), key) == jax_kwargs[key], key
+    assert (config.request_deadline_s, config.max_dispatch_retries) == (30.0, 2)
+    path, raw = _engine_yaml(tmp_path, name='tpu', ttft_slo_s=1.5, admission_control=True)
+    config, _ = load_app_config(str(path))
+    assert (config.request_deadline_s, config.max_dispatch_retries) == (120.0, 2)
+    engine_cfg = config.engine_config()
+    assert (engine_cfg.ttft_slo_s, engine_cfg.admission_control) == (1.5, True)
+    path, _ = _engine_yaml(tmp_path, admission_control=True)
+    with pytest.raises(ValueError, match='ttft_slo_s'):
         load_app_config(str(path))
 
 

@@ -9,7 +9,8 @@
   ``amp_jsonl`` lines and their merge).
 - The generator factory: ``fake`` as JAX's, ``tpu`` / ``vllm`` / ``torch``
   build the engine, the network and ``transformers`` backends raise
-  naming ROADMAP A11, the JAX fields the engine lacks naming A6, an
+  naming ROADMAP A11, the JAX field the engine lacks naming A6b, the
+  fake backend's `overload_every` shed signal as JAX's, an
   unknown name as JAX's; ``register=True`` reuses the warm instance.
 - ``run_generation`` in both packages on
   ``examples/generate/question_chunk.fake.local.yaml`` (copied into a
@@ -39,6 +40,7 @@ from distllm_tpu.generate.engine import LLMEngine as JaxLLMEngine
 from distllm_tpu.generate.engine import SamplingParams as JaxSamplingParams
 from distllm_tpu.models import mistral as jax_mistral
 from distllm_tpu.models.tokenizer import WhitespaceTokenizer as JaxWhitespaceTokenizer
+from distllm_tpu.resilience import EngineOverloaded as JaxEngineOverloaded
 from distllm_tpu_torch import distributed_generation as port_job
 from distllm_tpu_torch.generate import (
     get_generator,
@@ -48,6 +50,7 @@ from distllm_tpu_torch.generate import (
 )
 from distllm_tpu_torch.generate.generators import FakeGenerator, TorchGenerator
 from distllm_tpu_torch.models import mistral
+from distllm_tpu_torch.resilience import EngineOverloaded
 
 EXAMPLE = Path(__file__).resolve().parents[1] / 'examples' / 'generate' / 'question_chunk.fake.local.yaml'
 TINY = {
@@ -184,10 +187,20 @@ def test_generator_factory_names():
         get_generator({'name': 'nope'})
     with pytest.raises(ValueError, match='Unknown generator name'):
         distllm_tpu.generate.get_generator({'name': 'nope'})
-    with pytest.raises(NotImplementedError, match='ROADMAP A6'):
+    with pytest.raises(NotImplementedError, match='ROADMAP A6b'):
         get_generator({'name': 'tpu', 'pretrained_model_name_or_path': '/x', 'device': 'cpu'})
-    with pytest.raises(NotImplementedError, match='ROADMAP A6'):
-        get_generator({'name': 'fake', 'overload_every': 2})
+    # overload_every: every second call raises the engine's shed signal, as
+    # the JAX FakeGenerator does.
+    overload = {'name': 'fake', 'overload_every': 2}
+    port, ref = get_generator(overload), distllm_tpu.generate.get_generator(overload)
+    for _ in range(2):
+        assert port.generate('p') == ref.generate('p')
+        with pytest.raises(EngineOverloaded) as port_exc:
+            port.generate('p')
+        with pytest.raises(JaxEngineOverloaded) as ref_exc:
+            ref.generate('p')
+        assert port_exc.value.retry_after_s == ref_exc.value.retry_after_s == 3.0
+        assert str(port_exc.value) == str(ref_exc.value)
 
 
 @pytest.mark.parametrize('name', ['tpu', 'vllm', 'torch'])

@@ -52,7 +52,9 @@ fp32 on the CUDA cores): in bf16 one step of out, and in both dtypes an
 fp32 summation-order term that scales with ``scale * (|x| @ |q|)``, to
 which the tensor-core route adds the measured truncation of its
 accumulator, a term that follows the partial sums; quantizing on the card
-gives the CPU's codes bitwise.
+gives the CPU's codes bitwise. ``run_loadgen`` over a small fp32 engine
+gives the plain op's tokens with every share of the roofline in
+(0, 1.05], with attribution off and under a recovered fault alike.
 """
 
 import numpy as np
@@ -1896,3 +1898,55 @@ def test_retrieval_index_on_the_card_matches_the_cpu(cuda, tmp_path, precision):
     for a, b in zip(results['cuda'].total_scores, results['cpu'].total_scores):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
     assert results['cuda'].total_indices[0][:5] == [3, 3000, 3001, 4500, 8999]
+
+
+# ------------------------------------------------------------ serving load
+def test_run_loadgen_on_the_card(cuda):
+    """``run_loadgen`` over a small fp32 engine on the card, every arrival
+    at t = 0 (fixed batches): the tokens equal a burst through ``step()``
+    on the plain op; every decode step is a graph replay; the roofline
+    shares of every window kind lie in (0, 1.05] on the card's peaks;
+    attribution off gives identical tokens; a recovered ``dispatch``
+    fault leaves them unchanged."""
+    import dataclasses
+
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine
+    from distllm_tpu_torch.generate.loadgen import LoadgenConfig, build_workload, run_loadgen
+    from distllm_tpu_torch.models import mistral
+    from distllm_tpu_torch.resilience.faults import get_fault_injector
+
+    cfg = mistral.MistralConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                                num_kv_heads=2, intermediate_size=512, dtype='float32')
+    params = mistral.init(cfg, torch.Generator(device='cuda').manual_seed(0))
+    workload = [dataclasses.replace(a, at_s=0.0) for a in build_workload(LoadgenConfig(
+        seed=5, num_requests=12, num_sessions=2, prefix_tokens=16, prompt_tokens=(4, 40),
+        output_tokens=(3, 12), vocab_size=512))]
+    engine_cfg = dict(num_blocks=128, max_num_seqs=16, max_model_len=128, decode_steps=4,
+                      enable_prefix_cache=True, ttft_slo_s=30.0, max_dispatch_retries=3,
+                      retry_backoff_s=0.0)
+    reports = {}
+    for backend in ('auto', 'reference'):
+        engine = LLMEngine(cfg, params, None, EngineConfig(**engine_cfg), attn_backend=backend)
+        engine.warmup()
+        replays = engine.stats['decode_graph_replays']
+        report = run_loadgen(engine, workload)
+        passes = engine.stats['forward_passes'] - engine.stats['prefill_dispatches']
+        assert engine.stats['decode_graph_replays'] - replays == passes
+        for kind, stats in report.roofline.items():
+            assert 0 < stats['mfu'] <= 1.05 and 0 < stats['bw_util'] <= 1.05, kind
+        engine.attribution = False
+        assert run_loadgen(engine, workload).tokens_by_request == report.tokens_by_request
+        engine.attribution = True
+        injector = get_fault_injector()
+        injector.arm('dispatch', times=2, after=1)
+        try:
+            chaos = run_loadgen(engine, workload)
+        finally:
+            injector.disarm()
+        assert chaos.tokens_by_request == report.tokens_by_request
+        assert chaos.window_retries == 2 and chaos.failed_requests == 0
+        reports[backend] = report
+        engine.shutdown()
+    assert reports['auto'].tokens_by_request == reports['reference'].tokens_by_request
+    assert all(len(t) == a.max_tokens for t, a in zip(reports['auto'].tokens_by_request,
+                                                       workload))

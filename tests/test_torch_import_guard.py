@@ -95,5 +95,15 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.rag.tasks.protein_qa',
         'distllm_tpu_torch.rag.tasks.pubmedqa',
         'distllm_tpu_torch.rag.tasks.sciq',
+        'distllm_tpu_torch.observability',
+        'distllm_tpu_torch.observability.metrics',
+        'distllm_tpu_torch.observability.instruments',
+        'distllm_tpu_torch.observability.tracing',
+        'distllm_tpu_torch.observability.flight',
+        'distllm_tpu_torch.observability.roofline',
+        'distllm_tpu_torch.resilience',
+        'distllm_tpu_torch.resilience.admission',
+        'distllm_tpu_torch.resilience.faults',
+        'distllm_tpu_torch.generate.loadgen',
     }
     assert expected <= set(result['imported'])
