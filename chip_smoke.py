@@ -227,9 +227,9 @@ carried on):
     those through the plain op with speculation (``draft_k=4``) and mixed
     windows off and on;
 14. protein embed — ESM-2 650M at ``facebook/esm2_t33_650M_UR50D``'s
-    config (vocab 33, hidden 1280, 33 layers, 20 heads, intermediate
-    5120), bf16, random weights made on the card from seed 0, nothing
-    cut: the stages of ``embedding_worker`` under a ``workstation``
+    config (vocab 33, hidden 1280, 20 heads, intermediate 5120) cut to 17
+    of its 33 layers (``PROTEIN_LAYERS``), bf16, random weights made on
+    the card from seed 0: the stages of ``embedding_worker`` under a ``workstation``
     compute config (``max_workers: 1``) over a FASTA file of 2048 random
     protein sequences of 50..1022 residues (seed 12), read by the
     ``fasta`` dataset (batch 64), tokenized by ``EsmcSequenceTokenizer``
@@ -237,12 +237,12 @@ carried on):
     produces), mean-pooled, embedded by ``full_sequence`` and written by
     ``numpy``; one warm-up pass, one timed pass. The output must be
     ``[2048, 1280]`` fp32, finite and read back from its files; K3 must
-    launch 33 x the batches, all on the tensor-core route, its plain
+    launch layers x the batches, all on the tensor-core route, its plain
     version never. Sequences/s, residues/s, device GiB allocated and at
     peak, and the padding share are printed;
-14b. ESM-C 600M (1152 / 36 layers / 18 heads, ffn 3072) the same way over
-    the same sequences through the ``sequence_per_line`` dataset on a copy
-    written one per line: ``[2048, 1152]``, K3 36 x batches;
+14b. ESM-C 600M (1152 / 18 heads, ffn 3072; 18 of its 36 layers) the same
+    way over the same sequences through the ``sequence_per_line`` dataset
+    on a copy written one per line: ``[2048, 1152]``, K3 layers x batches;
 14c. ModernBERT-base at ``answerdotai/ModernBERT-base``'s config (vocab
     50368, 768 / 22 layers / 12 heads, intermediate 1152, window 128,
     global every 3rd layer) over phase 10's corpus (``jsonl``, batch 512,
@@ -335,16 +335,53 @@ carried on):
 16d. identity — fp32, depth 2, 32 greedy requests in a burst, through K1
     and through the plain op: attribution off and on give identical
     tokens, and so does ``dispatch`` x2 under 3 retries.
+17. the pipelined ``generate_ids`` — full-width, full-depth Mistral-7B
+    bf16 (weights made again from seed 0), block 16, 1400 blocks, 32
+    slots, 640-token rows, 16-step windows, the default (Python) scheduler: 128
+    greedy prompts of 32..512 tokens, 64..128 new each, with the four
+    tokens most frequent at positions 8..64 of a short first run's streams
+    (48 prompts, 64 tokens) as stop ids, at ``pipeline_depth`` 1, 2 and 2
+    with ``defer_prefill``. Per
+    arm: tok/s and wall, eager prefill host ms, the gaps between windows
+    on the host's clock and on the device's (CUDA events), the device's
+    busy share, ``overshoot_frac``, the bf16 share of tokens agreeing with
+    depth 1, K1's launches by route (layers x passes on each pass's route,
+    every decode step a replay); the depth-2 arms overshoot, and every
+    decode window's measured MFU and bandwidth shares (K1 priced at the
+    lengths it ran) lie in (0, 1.05];
+17b. pipeline identity — full width at depth 2 in fp32: depths 1, 2 and
+    3, ``defer_prefill`` and mixed windows at depth 2, each on K1 and on
+    the plain op, give depth 1's tokens; some arm overshoots; every engine
+    asks for the native scheduler and takes it;
+17c. serving from a checkpoint path — Mistral-7B widths at depth 2 (bf16,
+    seed 18) written on the card as a checkpoint directory (safetensors
+    in HF key names, ``config.json``, a word-level tokenizer built with
+    ``tokenizers``, a ``generation_config.json`` with two EOS ids the
+    streams emit); a chat YAML with ``pretrained_model_name_or_path``
+    builds the generator in bf16 and with ``quantization: int8``: tokens
+    identical to an engine built on the same tensors, the EOS and stop
+    ids of generation_config, a ``weight_load`` start-up phase, K1 on the
+    path and K2 in the int8 arm;
+17d. the debug surface — ``ChatServer`` over 17c's int8 generator with
+    the regression sentinel armed from an envelope file: every ``/debug/*``
+    route answers (Perfetto valid with the window-kind tracks, history
+    with samples, SLO, a bundle directory with the device's facts, an
+    ``xprof`` capture whose trace names K1's kernel), a ``slow_window``
+    stall under ``DISTLLM_WATCHDOG_S`` makes the watchdog dump a bundle,
+    the compile series count the kernel builds and graph captures, and
+    every series ROADMAP A6b listed at zero moves.
 
-Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e and 16-16d prints its seconds. The last three lines of
+Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d and 17-17d prints its seconds. The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
 ``mixed_kv``, its verify shapes under ``verify``, head dim 256 under
 ``head_dim_256``, K3's protein and ModernBERT shapes and launches under
 ``models``, the RAG phases' K1 launches under ``rag`` and the load
-phases' under ``load``, K3's under ``retriever``, K2's embed headline and
-its verify rows under ``verify``), the card's
+phases' under ``load``, phase 17's under ``pipeline`` and 17c's under
+``checkpoint``, K3's under ``retriever``, K2's embed headline, its
+verify rows under ``verify`` and 17c's int8 launches under
+``checkpoint``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -389,6 +426,10 @@ ESM2_650M_HF = {
     'num_attention_heads': 20, 'intermediate_size': 5120, 'layer_norm_eps': 1e-5,
     'token_dropout': True, 'mask_token_id': 32, 'pad_token_id': 1,
 }
+# Phases 14 and 14b run ESM-2 650M and ESM-C 600M at full width and half
+# depth (17 of 33 and 18 of 36 layers), so the whole run keeps its time
+# budget as later phases join it; 14d holds both at depth 2 in fp32.
+PROTEIN_LAYERS = {'esm2_650m': 17, 'esmc_600m': 18}
 # K3's cases at the three models' shapes (phase 4): (name, batch, S, heads,
 # sliding-window half width or None). ModernBERT attends within |i - j| <= 64.
 K3_MODEL_CASES = (
@@ -2249,9 +2290,10 @@ def phase_kv_tiers(torch, tpa, card, cfg, params, tmp: Path):
 def instrument_windows(torch, engine):
     """Record each eager pass's padded width and host ms (standalone
     prefill dispatches and chunk halves, without a device sync: the
-    engine's own timing stays as it is) and each window's host ms
-    (dispatch + processing: planning, drafts, staging, the replays or the
-    verify replay, the token fetch and emission), and the device ms of
+    engine's own timing stays as it is) and each window's host ms from
+    its dispatch to its processing (planning, drafts, staging, the replays
+    or the verify replay, the token fetch and emission; in the pipelined
+    loop the next window's dispatch falls in between), and the device ms of
     each verify replay (CUDA events; the window fetches right after, so
     waiting on them adds no sync)."""
     from distllm_tpu_torch.models.tokenizer import pick_bucket
@@ -2277,16 +2319,20 @@ def instrument_windows(torch, engine):
         return out
 
     def timed_window():
-        rec['_t0'] = time.perf_counter()
-        return dispatch_window()
+        t0 = time.perf_counter()
+        window = dispatch_window()
+        if window is not None:
+            window['_t0'] = t0
+        return window
 
     def timed_process(window):
         out = process_window(window)
-        rec['window'].append(dict(
-            spec=bool(window.get('spec')), chunk_rows=len(window['chunk_plan']),
-            steps=0 if window['tokens'] is None or window.get('spec')
-            else int(window['tokens'].shape[0]),
-            wall_ms=(time.perf_counter() - rec['_t0']) * 1e3))
+        if '_t0' in window:  # a window, not a deferred prefill's fetch record
+            rec['window'].append(dict(
+                spec=bool(window.get('spec')), chunk_rows=len(window['chunk_plan']),
+                steps=0 if window['tokens'] is None or window.get('spec')
+                else int(window['tokens'].shape[0]),
+                wall_ms=(time.perf_counter() - window['_t0']) * 1e3))
         return out
 
     engine._dispatch_prefill_paged = timed_prefill
@@ -3574,7 +3620,8 @@ def phase_encoder_embed(torch, tea, card, tmp: Path, tag, module, cfg, tokenizer
 
 def phase_protein_embed(torch, tea, card, tmp: Path):
     """14: ESM-2 650M over FASTA; 14b: ESM-C 600M over the same sequences
-    one per line. Returns the results and the sequences."""
+    one per line, each at ``PROTEIN_LAYERS``' depth. Returns the results
+    and the sequences."""
     from distllm_tpu_torch.models import esm2, esmc
 
     fasta = tmp / 'proteins.fasta'
@@ -3588,18 +3635,26 @@ def phase_protein_embed(torch, tea, card, tmp: Path):
     # tokenizes ESM-2's input, with no transformers tokenizer files needed.
     out['esm2_650m'] = phase_encoder_embed(
         torch, tea, card, tmp, 'protein esm2', esm2,
-        esm2.Esm2Config.from_hf_config(ESM2_650M_HF),
+        esm2.Esm2Config.from_hf_config(
+            dict(ESM2_650M_HF, num_hidden_layers=PROTEIN_LAYERS['esm2_650m'])),
         esmc.EsmcSequenceTokenizer(model_max_length=PROTEIN_LENS[1] + 2), fasta,
         {'name': 'fasta', 'batch_size': PROTEIN_BATCH}, want_texts=seqs, unit='residues',
     )
+    # The depth beside the figure: phases 14 and 14b run cut models.
+    out['esm2_650m'].update(layers=PROTEIN_LAYERS['esm2_650m'],
+                            full_layers=ESM2_650M_HF['num_hidden_layers'])
     log(f'[protein esm2] phase 14 took {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
     out['esmc_600m'] = phase_encoder_embed(
-        torch, tea, card, tmp, 'protein esmc', esmc, esmc.EsmcConfig.from_hidden_size(1152),
+        torch, tea, card, tmp, 'protein esmc', esmc,
+        dataclasses.replace(esmc.EsmcConfig.from_hidden_size(1152),
+                            num_layers=PROTEIN_LAYERS['esmc_600m']),
         esmc.EsmcSequenceTokenizer(), per_line,
         {'name': 'sequence_per_line', 'batch_size': PROTEIN_BATCH}, want_texts=seqs,
         unit='residues',
     )
+    out['esmc_600m'].update(layers=PROTEIN_LAYERS['esmc_600m'],
+                            full_layers=esmc.EsmcConfig.from_hidden_size(1152).num_layers)
     log(f'[protein esmc] phase 14b took {time.perf_counter() - t0:.1f} s')
     return out, seqs
 
@@ -4666,6 +4721,622 @@ def phase_load_identity(torch, tpa, cfg):
     return out
 
 
+# ---------------------------------------------------------- phases 17-17d
+# Phase 17: the pipelined generate_ids at Mistral-7B widths (32 layers,
+# bf16, phase 6b's weights): block 16, 32 slots, 640-token rows, 16-step
+# windows; 128 greedy prompts of 32..512 tokens, 64..128 new each.
+PIPE_ENGINE = dict(block_size=BLOCK_SIZE, num_blocks=1400, max_num_seqs=32,
+                   max_model_len=640, decode_steps=16)
+PIPE_PROMPTS, PIPE_LENS, PIPE_NEW, PIPE_STOPS = 128, (32, 512), (64, 128), 4
+PIPE_ARMS = (('depth1', 1, False), ('depth2', 2, False), ('depth2_defer', 2, True))
+
+
+def pipe_workload(vocab_size, n=None, lens=PIPE_LENS, new=PIPE_NEW, seed=17):
+    """``n`` prompts of ``lens`` tokens (evenly spaced, shuffled; numpy
+    ``seed``) and each one's new-token budget in ``new``."""
+    n = n or PIPE_PROMPTS
+    rng = np.random.default_rng(seed)
+    lengths = np.linspace(*lens, n).astype(int)
+    rng.shuffle(lengths)
+    prompts = [[int(t) for t in rng.integers(4, vocab_size, size=int(m))] for m in lengths]
+    return prompts, [int(m) for m in rng.integers(new[0], new[1] + 1, size=n)]
+
+
+def stop_ids_of(outputs, k, lo=8, hi=64):
+    """The ``k`` tokens most frequent at positions ``lo..hi`` of the
+    streams and at none before ``lo``: taken as stop ids, they stop rows
+    inside windows, never at their first tokens."""
+    from collections import Counter
+
+    early = {t for out in outputs for t in out[:lo]}
+    counts = Counter(t for out in outputs for t in out[lo:hi] if t not in early)
+    return tuple(t for t, _ in counts.most_common(k))
+
+
+def instrument_device(torch, engine):
+    """CUDA events around each window's replays and each prefill dispatch,
+    and the host clock where each window's replays begin and end being
+    enqueued: the device timeline's gaps between windows and its busy
+    share, with no sync added (the events are read after the run)."""
+    rec = dict(windows=[], prefills=[])
+    run, dispatch = engine._decode.run, engine._dispatch_prefill_paged
+
+    def timed_run(num_steps, all_greedy):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        out = run(num_steps, all_greedy)
+        end.record()
+        rec['windows'].append((t0, time.perf_counter(), start, end))
+        return out
+
+    def timed_prefill(spans, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = dispatch(spans, **kwargs)
+        end.record()
+        rec['prefills'].append((start, end))
+        return out
+
+    engine._decode.run = timed_run
+    engine._dispatch_prefill_paged = timed_prefill
+    return rec
+
+
+def device_timeline(torch, rec, loop_s):
+    """Gaps between consecutive windows (the host's, from the last replay
+    enqueued to the next window's first; the device's, from the end of one
+    window's replays to the start of the next's) and the device's busy
+    share (window replays and prefill dispatches over the loop's wall)."""
+    torch.cuda.synchronize()
+    windows = rec['windows']
+    host = [(b[0] - a[1]) * 1e3 for a, b in zip(windows, windows[1:])]
+    device = [a[3].elapsed_time(b[2]) for a, b in zip(windows, windows[1:])]
+    busy = sum(w[2].elapsed_time(w[3]) for w in windows) + sum(
+        s.elapsed_time(e) for s, e in rec['prefills'])
+    return dict(
+        host_gap_ms_median=median(host), host_gap_ms_sum=float(sum(host)),
+        device_gap_ms_median=median(device), device_gap_ms_p90=(
+            float(np.percentile(device, 90)) if device else None),
+        device_gap_ms_sum=float(sum(device)), window_device_ms_median=median(
+            [w[2].elapsed_time(w[3]) for w in windows]),
+        busy_share=busy / (loop_s * 1e3) if loop_s > 0 else None,
+    )
+
+
+def unwrap(engine, *names):
+    """Drop instance-level wrappers, back to the class's methods."""
+    for name in names:
+        engine.__dict__.pop(name, None)
+
+
+def phase_pipeline(torch, tpa, card, cfg, params):
+    """Phase 17: one ``LLMEngine`` (the default scheduler), warmed up; a
+    short first run without stops (48 prompts, 64 tokens) picks the stop
+    ids; then the arms of
+    ``PIPE_ARMS`` (``pipeline_depth`` 1, 2, and 2 with ``defer_prefill``)
+    over the same prompts with those stops. Per arm: tok/s, wall, eager
+    prefill host ms, the gaps between windows on the host's clock and the
+    device's, the busy share, ``overshoot_frac``, the share of tokens
+    agreeing with depth 1 (bf16: recorded), K1 launches by route. K1 runs
+    layers x passes on each pass's route, every decode step a replay; the
+    depth-2 arms overshoot; the measured MFU and bandwidth shares of every
+    decode window of every arm (K1 priced at the lengths it ran) lie in
+    (0, 1.05]."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.observability import instruments
+
+    engine = LLMEngine(cfg, params, None, EngineConfig(**PIPE_ENGINE), device=DEVICE)
+    engine.warmup()
+    prompts, new = pipe_workload(cfg.vocab_size)
+    # The stop ids come from a short first run: the first 48 prompts, 64
+    # new tokens each.
+    first = engine.generate_ids(prompts[:48], SamplingParams(temperature=0.0, max_tokens=64))
+    stops = stop_ids_of(first, PIPE_STOPS)
+    sampling = [SamplingParams(temperature=0.0, max_tokens=n, stop_token_ids=stops) for n in new]
+    arms = {}
+    for name, depth, defer in PIPE_ARMS:
+        tag = f'pipeline {name}'
+        engine.config.pipeline_depth, engine.config.defer_prefill = depth, defer
+        rec = instrument_windows(torch, engine)
+        dev = instrument_device(torch, engine)
+        marks, stats0 = graph_marks(engine), dict(engine.stats)
+        ring0 = engine.flight.total_recorded
+        zero_k1_counts(tpa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = engine.generate_ids(prompts, sampling)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        unwrap(engine, '_dispatch_prefill_paged', '_run_chunk_half', '_dispatch_window',
+               '_process_window')
+        unwrap(engine._decode, 'run')
+        run, tele = stats_delta(engine, stats0), dict(engine.telemetry)
+        passes, eager = run['forward_passes'], run.get('prefill_dispatches', 0)
+        graphs = check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, eager,
+                                 [r['width'] for r in rec['prefill']], 'model')
+        arms[name] = dict(
+            tokens=tokens, pipeline_depth=tele['pipeline_depth'], defer_prefill=defer,
+            tokens_per_s=tele['tokens_per_s'], wall_s=wall_s, loop_s=tele['loop_s'],
+            generated_tokens=run['generated_tokens'],
+            overshoot_tokens=run.get('overshoot_tokens', 0),
+            overshoot_frac=tele.get('overshoot_frac'), windows=run['decode_windows'],
+            windows_per_s=tele.get('windows_per_s'), prefill_dispatches=eager,
+            prefill_host_ms=sum(r['wall_ms'] for r in rec['prefill']),
+            k1_launches=tpa.ragged_paged_attention.launches,
+            k1_launches_by_route=dict(tpa.ragged_paged_attention.launches_by_route),
+            scheduler=tele['scheduler'],
+            **device_timeline(torch, dev, tele['loop_s']), **graphs,
+        )
+        if tele['pipeline_depth'] != depth:
+            fail(f'{tag}: ran at depth {tele["pipeline_depth"]}, asked {depth}')
+        # Every decode window's measured shares (K1 priced at the lengths
+        # it ran), and the gauges as the last window left them.
+        windows = [r for r in new_records(engine.flight, ring0)
+                   if r['kind'] == 'decode' and 'mfu_measured' in r]
+        if not windows:
+            fail(f'{tag}: no decode window carries measured shares')
+        measured = {
+            'mfu': instruments.ENGINE_MFU_MEASURED.labels(kind='decode').value,
+            'bw_util': instruments.ENGINE_BW_UTIL_MEASURED.labels(kind='decode').value,
+            'flops_ratio': instruments.ENGINE_ROOFLINE_FLOPS_RATIO.labels(kind='decode').value,
+            'bytes_ratio': instruments.ENGINE_ROOFLINE_BYTES_RATIO.labels(kind='decode').value,
+            'windows': len(windows),
+        }
+        for key in ('mfu', 'bw_util'):
+            shares = [r[f'{key}_measured'] for r in windows]
+            measured[f'{key}_min'], measured[f'{key}_median'], measured[f'{key}_max'] = (
+                min(shares), median(shares), max(shares))
+            if not 0 < min(shares) <= max(shares) <= SHARE_CAP:
+                fail(f'{tag}: measured {key} {min(shares)}..{max(shares)} over '
+                     f'{len(windows)} windows outside (0, {SHARE_CAP}]')
+        arms[name]['measured'] = measured
+    base = arms['depth1']['tokens']
+    for name, arm in arms.items():
+        arm['agreement_with_depth1'] = greedy_match(base, arm.pop('tokens'))
+        log(f'[pipeline {name}] {card}: {arm["tokens_per_s"]:.1f} tok/s, loop '
+            f'{arm["loop_s"]:.3f} s, {arm["windows"]} windows, {arm["prefill_dispatches"]} '
+            f'prefills ({arm["prefill_host_ms"]:.1f} host ms), gap host / device median '
+            f'{arm["host_gap_ms_median"]} / {arm["device_gap_ms_median"]} ms, busy share '
+            f'{arm["busy_share"]:.4f}, overshoot_frac {arm["overshoot_frac"]}, agreeing with '
+            f'depth 1 {arm["agreement_with_depth1"]:.4f}, K1 by route '
+            f'{json.dumps(arm["k1_launches_by_route"])}, measured decode shares '
+            f'{json.dumps(arm["measured"])}')
+    if not (arms['depth2']['overshoot_tokens'] > 0 and arms['depth2_defer']['overshoot_tokens'] > 0):
+        fail(f'pipeline: no overshoot at depth 2: {json.dumps(arms)}')
+    shut_down(torch, 'pipeline', engine)
+    del engine
+    return dict(arms=arms, stop_ids=list(stops), engine=PIPE_ENGINE,
+                prompts=PIPE_PROMPTS, prompt_lens=PIPE_LENS, new_tokens=PIPE_NEW)
+
+
+# Phase 17b: full width, depth 2, fp32.
+PIPE_ID_ENGINE = dict(block_size=BLOCK_SIZE, num_blocks=512, max_num_seqs=8,
+                      max_model_len=512, decode_steps=8)
+PIPE_ID_ARMS = {
+    'depth1': dict(pipeline_depth=1),
+    'depth2': dict(pipeline_depth=2),
+    'depth3': dict(pipeline_depth=3),
+    'defer': dict(pipeline_depth=2, defer_prefill=True),
+    'mixed': dict(pipeline_depth=2, enable_mixed_batching=True, enable_prefix_cache=True,
+                  prefill_chunk_tokens=64),
+}
+
+
+def phase_pipeline_identity(torch, tpa, cfg):
+    """Phase 17b: 24 greedy prompts of 16..300 tokens (24 new each, stop
+    ids from the first arm's streams) through every arm of
+    ``PIPE_ID_ARMS``, each on K1 and on the plain op, each engine warmed
+    up: tokens identical to depth 1 on K1; overshoot in some arm; the
+    native scheduler in every engine (asked for); K1 (or the plain op) layers x
+    passes, every decode step a replay."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mistral
+
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(17), device=DEVICE)
+    prompts, _ = pipe_workload(cfg.vocab_size, n=24, lens=(16, 300), seed=171)
+    outs, stats, stops = {}, {}, None
+    for backend in ('auto', 'reference'):
+        for name, extra in PIPE_ID_ARMS.items():
+            tag = f'pipeline identity {name} {backend}'
+            engine = LLMEngine(cfg, params, None, EngineConfig(
+                **PIPE_ID_ENGINE, **extra, prefer_native_allocator=True),
+                device=DEVICE, attn_backend=backend)
+            engine.warmup()
+            if stops is None:
+                probe = engine.generate_ids(prompts, SamplingParams(temperature=0.0, max_tokens=24))
+                stops = stop_ids_of(probe, 3, lo=4, hi=20)
+            marks = graph_marks(engine)
+            zero_k1_counts(tpa)
+            outs[(name, backend)] = engine.generate_ids(
+                prompts, SamplingParams(temperature=0.0, max_tokens=24, stop_token_ids=stops))
+            tele = engine.telemetry
+            passes = tele['forward_passes']
+            eager = tele.get('prefill_dispatches', 0) + tele.get('mixed_windows', 0)
+            check_graph_replays(tag, engine, marks, passes, eager)
+            counted, other = (tpa.ragged_paged_attention.launches,
+                              tpa.ragged_paged_attention_reference.launches)
+            if backend == 'reference':
+                counted, other = other, counted
+            if counted != cfg.num_layers * passes or other != 0:
+                fail(f'{tag}: {counted} attention calls for {passes} passes ({other} other)')
+            if engine.scheduler_kind != 'native':
+                fail(f'{tag}: the {engine.scheduler_kind} scheduler')
+            stats[f'{name}_{backend}'] = {k: tele.get(k, 0) for k in (
+                'pipeline_depth', 'overshoot_tokens', 'decode_windows', 'mixed_windows',
+                'prefill_dispatches', 'forward_passes')}
+            shut_down(torch, tag, engine)
+            del engine
+    ref = outs[('depth1', 'auto')]
+    same = {f'{n}_{b}': out == ref for (n, b), out in outs.items()}
+    log(f'[pipeline identity] fp32 depth-2 full width, 24 prompts x 24 greedy tokens, stops '
+        f'{list(stops)}: identical to depth 1 on K1: {json.dumps(same)}; stats {json.dumps(stats)}')
+    if not all(same.values()):
+        fail(f'pipeline identity: fp32 greedy tokens differ: {same}')
+    if not any(s['overshoot_tokens'] > 0 for s in stats.values()):
+        fail('pipeline identity: no overshoot in any arm')
+    if not stats['mixed_auto']['mixed_windows'] > 0:
+        fail('pipeline identity: no mixed window rode the pipeline')
+    del params
+    torch.cuda.empty_cache()
+    return dict(identical=same, stats=stats, stop_ids=list(stops), scheduler='native')
+
+
+# Phase 17c: a checkpoint directory written on the card from a seed.
+CKPT_HF = {
+    'model_type': 'mistral', 'vocab_size': 32000, 'hidden_size': 4096,
+    'intermediate_size': 14336, 'num_hidden_layers': 2, 'num_attention_heads': 32,
+    'num_key_value_heads': 8, 'max_position_embeddings': 32768, 'rms_norm_eps': 1e-5,
+    'rope_theta': 10000.0, 'sliding_window': 4096, 'tie_word_embeddings': False,
+    'torch_dtype': 'bfloat16',
+}
+CKPT_SERVE = dict(temperature=0.0, max_tokens=32, block_size=BLOCK_SIZE, num_blocks=512,
+                  max_num_seqs=16, max_model_len=1024)
+CKPT_PROMPTS = 16
+
+
+def write_checkpoint(torch, root: Path, params, cfg, eos_ids=None):
+    """An HF checkpoint directory of ``params`` (the port's tree, on the
+    card): ``model.safetensors`` in HF key names (Linear weights back to
+    ``[out, in]``), ``config.json``, a word-level fast tokenizer built with
+    ``tokenizers`` (``tokenizer.json``, ``tokenizer_config.json``), and,
+    with ``eos_ids``, a ``generation_config.json`` naming them."""
+    from safetensors.torch import save_file
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+
+    root.mkdir(parents=True, exist_ok=True)
+    if eos_ids is not None:
+        (root / 'generation_config.json').write_text(json.dumps({'eos_token_id': list(eos_ids)}))
+        return root
+    layers = params['layers']
+
+    def host(x):
+        return x.detach().contiguous().cpu()
+
+    state = {'model.embed_tokens.weight': host(params['embed']),
+             'model.norm.weight': host(params['final_ln']['scale']),
+             'lm_head.weight': host(params['lm_head'].T)}
+    hf_names = {'q': 'self_attn.q_proj', 'k': 'self_attn.k_proj', 'v': 'self_attn.v_proj',
+                'o': 'self_attn.o_proj', 'gate': 'mlp.gate_proj', 'up': 'mlp.up_proj',
+                'down': 'mlp.down_proj'}
+    for i in range(cfg.num_layers):
+        p = f'model.layers.{i}'
+        for key, hf in hf_names.items():
+            state[f'{p}.{hf}.weight'] = host(layers[key]['kernel'][i].T)
+        state[f'{p}.input_layernorm.weight'] = host(layers['attn_ln']['scale'][i])
+        state[f'{p}.post_attention_layernorm.weight'] = host(layers['mlp_ln']['scale'][i])
+    save_file(state, str(root / 'model.safetensors'))
+    (root / 'config.json').write_text(json.dumps(CKPT_HF))
+    vocab = {'[UNK]': 0, '[PAD]': 1, '<s>': 2, '</s>': 3}
+    vocab.update({f'w{i}': i + 4 for i in range(cfg.vocab_size - 4)})
+    tok = Tokenizer(WordLevel(vocab, unk_token='[UNK]'))
+    tok.pre_tokenizer = Whitespace()
+    tok.save(str(root / 'tokenizer.json'))
+    (root / 'tokenizer_config.json').write_text(json.dumps({
+        'tokenizer_class': 'PreTrainedTokenizerFast', 'pad_token': '[PAD]',
+        'unk_token': '[UNK]', 'model_max_length': CKPT_SERVE['max_model_len']}))
+    return root
+
+
+def checkpoint_prompts(n=CKPT_PROMPTS):
+    rng = np.random.default_rng(18)
+    lengths = np.linspace(24, 400, n).astype(int)
+    return [' '.join(f'w{int(i)}' for i in rng.integers(0, 31000, size=int(m))) for m in lengths]
+
+
+def phase_checkpoint_serve(torch, tpa, tqm, card, tmp: Path):
+    """Phase 17c: Mistral-7B widths with 2 layers (bf16, seed 18) written
+    as a checkpoint directory; a probe engine over the same tensors gives
+    the two EOS ids of ``generation_config.json`` (the most frequent
+    tokens of its streams); a chat YAML with ``pretrained_model_name_or_path``
+    then builds the generator (``ChatAppConfig.build_generator``, through
+    the registry) in bf16 and with ``quantization: int8``. Each serves the prompts with
+    generation_config's stops: tokens identical to an engine built on the
+    same tensors directly; K1 on the serving path, K2 in the int8 arm
+    (launches > 0, the plain versions never); the weight load a
+    ``weight_load`` start-up phase."""
+    import yaml
+
+    from distllm_tpu_torch.chat import ChatAppConfig
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mistral
+    from distllm_tpu_torch.models.tokenizer import HFTokenizer
+    from distllm_tpu_torch.observability.startup import get_compile_watcher
+
+    cfg = mistral.MistralConfig.from_hf_config(CKPT_HF)
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(18), device=DEVICE)
+    root = tmp / 'mistral-7b-2l'
+    t0 = time.perf_counter()
+    write_checkpoint(torch, root, params, cfg)
+    write_s = time.perf_counter() - t0
+    texts = checkpoint_prompts()
+    # The EOS ids: the two tokens most frequent in a direct engine's greedy
+    # streams over the checkpoint's tokenizer, so generation_config's stops
+    # stop rows.
+    batch = HFTokenizer(str(root))(texts)
+    probe = LLMEngine(cfg, params, None, EngineConfig(**{
+        k: CKPT_SERVE[k] for k in ('block_size', 'num_blocks', 'max_num_seqs', 'max_model_len')
+    }), device=DEVICE)
+    eos = stop_ids_of(probe.generate_ids(
+        [[int(t) for t, m in zip(r, mk) if m] for r, mk in zip(batch.input_ids, batch.attention_mask)],
+        SamplingParams(temperature=0.0, max_tokens=CKPT_SERVE['max_tokens']),
+    ), 2, lo=2, hi=24)
+    shut_down(torch, 'checkpoint probe', probe)
+    del probe
+    write_checkpoint(torch, root, params, cfg, eos_ids=eos)
+    results, generators = {}, {}
+    for arm, quant in (('bf16', None), ('int8', 'int8')):
+        tag = f'checkpoint {arm}'
+        app_yaml = tmp / f'chat_{arm}.yaml'
+        gen_cfg = {'name': 'tpu', 'pretrained_model_name_or_path': str(root), **CKPT_SERVE}
+        if quant:
+            gen_cfg['quantization'] = quant
+        app_yaml.write_text(yaml.safe_dump({'system_prompt': 'Be brief.',
+                                            'generator_config': gen_cfg}))
+        phases = len(get_compile_watcher().state()['phases'])
+        t0 = time.perf_counter()
+        generator = ChatAppConfig.from_yaml(str(app_yaml)).build_generator(device=DEVICE)
+        build_s = time.perf_counter() - t0
+        loads = [p for p in get_compile_watcher().state()['phases'][phases:]
+                 if p['phase'] == 'weight_load']
+        sampling = generator.sampling_params()
+        if (generator.tokenizer.eos_id, sampling.stop_token_ids) != (eos[0], tuple(eos[1:])):
+            fail(f'{tag}: EOS {generator.tokenizer.eos_id} and stops {sampling.stop_token_ids}, '
+                 f'expected {eos[0]} and {eos[1:]}')
+        batch = generator.tokenizer(texts)
+        ids = [[int(t) for t, m in zip(r, mk) if m]
+               for r, mk in zip(batch.input_ids, batch.attention_mask)]
+        zero_k1_counts(tpa)
+        zero_k2_counts(tqm)
+        t0 = time.perf_counter()
+        served = generator.engine.generate_ids(ids, sampling)
+        serve_s = time.perf_counter() - t0
+        k1, k2 = tpa.ragged_paged_attention.launches, tqm.int8_matmul.launches
+        k2_routes = dict(tqm.int8_matmul.launches_by_route)
+        direct = LLMEngine(cfg, params, generator.tokenizer, generator.config.engine_config(),
+                           device=DEVICE)
+        direct.warmup()
+        same = direct.generate_ids(ids, sampling) == served
+        text = generator.generate(texts[:2])
+        shut_down(torch, f'{tag} direct', direct)
+        del direct
+        results[arm] = dict(
+            identical_to_direct=same, build_s=build_s, serve_s=serve_s,
+            weight_load_s=loads[-1]['duration_s'] if loads else None,
+            tokens=sum(map(len, served)), stopped=sum(len(o) < CKPT_SERVE['max_tokens']
+                                                      for o in served),
+            k1_launches=k1, k2_launches=k2, k2_launches_by_route=k2_routes,
+            eos_id=eos[0], stop_ids=list(eos[1:]),
+            weight_bytes=generator.engine.weight_bytes_quantized,
+        )
+        log(f'[{tag}] {card}: built from {root.name} in {build_s:.2f} s (weight load '
+            f'{results[arm]["weight_load_s"]} s), {results[arm]["tokens"]} tokens in '
+            f'{serve_s:.3f} s, {results[arm]["stopped"]} rows stopped early; identical to the '
+            f'direct engine={same}; K1 {k1}, K2 {k2} {json.dumps(k2_routes)}; text '
+            f'{json.dumps(text)[:120]}')
+        if not same:
+            fail(f'{tag}: tokens differ from an engine built on the same tensors')
+        if not loads or k1 <= 0 or tpa.ragged_paged_attention_reference.launches:
+            fail(f'{tag}: weight_load phases {loads}, K1 {k1}, plain '
+                 f'{tpa.ragged_paged_attention_reference.launches}')
+        if quant and (k2 <= 0 or tqm.int8_matmul_reference.launches):
+            fail(f'{tag}: K2 launches {k2}, plain {tqm.int8_matmul_reference.launches}')
+        if not quant and k2:
+            fail(f'{tag}: K2 launched {k2} times on bf16 weights')
+        generators[arm] = generator
+    del params
+    return dict(results, write_s=write_s, checkpoint_gib=sum(
+        f.stat().st_size for f in root.iterdir()) / 2**30), generators['int8']
+
+
+# Phase 17d: the A6b series that must move on the card (ROADMAP A6b).
+A6B_SERIES = (
+    'distllm_engine_overshoot_tokens_total', 'distllm_profiler_captures_total',
+    'distllm_history_samples_total', 'distllm_history_sample_duration_seconds_count',
+    'distllm_history_sample_errors_total', 'distllm_slo_burn_rate',
+    'distllm_sentinel_regressions_total', 'distllm_sentinel_armed',
+    'distllm_sentinel_disarmed_total', 'distllm_watchdog_stalls_total',
+    'distllm_debug_bundles_total', 'distllm_stage_duration_seconds_count',
+    'distllm_engine_mfu_measured', 'distllm_engine_bandwidth_utilization_measured',
+    'distllm_engine_roofline_flops_ratio', 'distllm_engine_roofline_bytes_ratio',
+    'distllm_engine_kv_dispatch_bytes', 'distllm_compile_seconds_count',
+    'distllm_compile_cache_hits_total',
+)
+
+
+def series_values(text):
+    """``{name: [values]}`` of a Prometheus exposition, labels dropped."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith('#'):
+            key, value = line.rsplit(' ', 1)
+            out.setdefault(key.split('{')[0], []).append(float(value))
+    return out
+
+
+def get_json(base, path, timeout=120):
+    with urllib.request.urlopen(f'{base}{path}', timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def phase_debug_surface(torch, tpa, card, generator, tmp: Path):
+    """Phase 17d: ``ChatServer`` over 17c's int8 generator, with the
+    regression sentinel armed from an envelope file (``DISTLLM_BASELINE``:
+    1e6 tok/s, so it fires; a server built first on a missing file counts
+    a disarm) and debug dumps under the phase's directory. Eight completions, then every ``/debug/*`` route:
+    ``perfetto`` valid with the four window-kind tracks, ``history`` with
+    samples, ``slo``, ``bundle`` (a directory with the device facts),
+    ``xprof?seconds=2`` under load (its trace names K1's kernel),
+    ``traces`` and ``flight``; a ``slow_window`` fault of 2.5 s under a
+    1 s ``DISTLLM_WATCHDOG_S`` fires the watchdog and dumps a bundle; the
+    compile series count the kernel builds and the graph captures; every
+    series of ``A6B_SERIES`` moves."""
+    import os
+
+    from distllm_tpu_torch.chat_server import ChatServer
+    from distllm_tpu_torch.observability.history import get_metrics_history
+    from distllm_tpu_torch.observability.metrics import render_prometheus
+    from distllm_tpu_torch.observability.perfetto import validate_trace_events
+    from distllm_tpu_torch.resilience.faults import get_fault_injector
+
+    debug_dir = tmp / 'debug'
+    envelope = tmp / 'envelope.json'
+    envelope.write_text(json.dumps({
+        'schema': 'distllm-baseline-envelope/v1', 'source': 'phase 17d',
+        'metrics': {'tok_s': {'value': 1e6, 'direction': 'higher', 'from_key': 'tok_s'}},
+    }))
+    env = {'DISTLLM_DEBUG_DIR': str(debug_dir), 'DISTLLM_BASELINE': str(envelope)}
+    saved = {k: os.environ.get(k) for k in (*env, 'DISTLLM_WATCHDOG_S')}
+    os.environ.update(env)
+    failing = {'n': 0}
+
+    def failing_once(history, now):
+        if failing['n'] == 0:
+            failing['n'] += 1
+            raise RuntimeError('an observer that fails once')
+
+    history = get_metrics_history()
+    history.add_observer(failing_once)
+    # A server started on a baseline file that is not there: the sentinel's
+    # counted disarm. Then the one this phase drives, armed.
+    os.environ['DISTLLM_BASELINE'] = str(tmp / 'missing-envelope.json')
+    ChatServer(generator).close()
+    os.environ['DISTLLM_BASELINE'] = str(envelope)
+    server = ChatServer(generator).start()
+    base = f'http://127.0.0.1:{server.port}'
+    out = {}
+    try:
+        for i in range(8):
+            status, _ = post_completion(server.port, i)
+            if status != 200:
+                fail(f'debug surface: completion {i} answered {status}')
+        time.sleep(2.5)  # history ticks with traffic behind them
+        status, doc = get_json(base, '/debug/perfetto')
+        problems = validate_trace_events(doc)
+        tracks = {e['args']['name'] for e in doc['traceEvents']
+                  if e.get('ph') == 'M' and e.get('name') == 'thread_name'}
+        slices = {}
+        for e in doc['traceEvents']:
+            if e.get('cat') == 'engine_step':
+                slices[e['name']] = slices.get(e['name'], 0) + 1
+        out['perfetto'] = dict(status=status, events=len(doc['traceEvents']),
+                               problems=problems[:5], tracks=sorted(tracks), slices=slices)
+        if status != 200 or problems or not all(
+                f'engine:{k}' in tracks for k in ('prefill', 'decode', 'mixed', 'spec')):
+            fail(f'debug surface: perfetto {out["perfetto"]}')
+        status, hist = get_json(base, '/debug/history')
+        out['history'] = dict(status=status, samples=hist['samples'],
+                              series=len(hist['series']), sampler_running=hist['sampler_running'])
+        if status != 200 or hist['samples'] < 1 or not hist['sampler_running']:
+            fail(f'debug surface: history {out["history"]}')
+        status, slo = get_json(base, '/debug/slo')
+        out['slo'] = dict(status=status, verdict=slo['verdict'], sentinel=slo['sentinel'])
+        if status != 200 or not slo['sentinel']['armed']:
+            fail(f'debug surface: slo {out["slo"]}')
+        status, bundle = get_json(base, '/debug/bundle')
+        device = json.loads(Path(bundle['paths']['device']).read_text())
+        out['bundle'] = dict(status=status, files=sorted(bundle['paths']),
+                             device=device.get('name'), cuda_initialized=device['cuda_initialized'])
+        if status != 200 or not (Path(bundle['bundle_dir']) / 'meta.json').exists() or not (
+                device['cuda_initialized'] and device['kernels']):
+            fail(f'debug surface: bundle {out["bundle"]}')
+        for path in ('/debug/traces?limit=20', '/debug/flight?limit=20'):
+            status, body = get_json(base, path)
+            if status != 200 or not body:
+                fail(f'debug surface: {path} answered {status}')
+        stop = threading.Event()
+
+        def load():
+            i = 100
+            while not stop.is_set():
+                post_completion(server.port, i)
+                i += 1
+
+        loader = threading.Thread(target=load, daemon=True)
+        loader.start()
+        try:
+            time.sleep(0.3)
+            status, xprof = get_json(base, '/debug/xprof?seconds=2')
+        finally:
+            stop.set()
+            loader.join(120)
+        trace = json.loads((Path(xprof['trace_dir']) / 'trace.json').read_text())
+        k1_events = sum(1 for e in trace['traceEvents']
+                        if 'ragged_paged_attention' in str(e.get('name', '')))
+        kernels = sum(1 for e in trace['traceEvents'] if e.get('cat') == 'kernel')
+        out['xprof'] = dict(status=status, ok=xprof['ok'], events=len(trace['traceEvents']),
+                            kernel_events=kernels, k1_events=k1_events)
+        if status != 200 or not xprof['ok'] or k1_events <= 0:
+            fail(f'debug surface: xprof {out["xprof"]}')
+        # The watchdog: one window stalls 2.5 s under a 1 s watchdog.
+        os.environ['DISTLLM_WATCHDOG_S'] = '1'
+        stalls = series_values(render_prometheus()).get('distllm_watchdog_stalls_total', [0])[0]
+        get_fault_injector().arm('slow_window', times=1, delay_s=2.5)
+        try:
+            status, _ = post_completion(server.port, 7)
+        finally:
+            get_fault_injector().disarm('slow_window')
+            os.environ.pop('DISTLLM_WATCHDOG_S', None)
+        dumps = sorted(p.name for p in debug_dir.iterdir() if p.name.startswith('watchdog_'))
+        after = series_values(render_prometheus()).get('distllm_watchdog_stalls_total', [0])[0]
+        out['watchdog'] = dict(status=status, bundles=dumps, stalls=after - stalls)
+        if status != 200 or not dumps or after - stalls < 1 or not (
+                debug_dir / dumps[-1] / 'meta.json').exists():
+            fail(f'debug surface: watchdog {out["watchdog"]}')
+    finally:
+        server.close()
+        history.remove_observer(failing_once)
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    # The compile series: every kernel build and both decode-graph captures.
+    text = render_prometheus()
+    compile_counts = {}
+    for line in text.splitlines():
+        if line.startswith('distllm_compile_seconds_count{'):
+            key, value = line.rsplit(' ', 1)
+            compile_counts[key[len('distllm_compile_seconds_count'):]] = float(value)
+    builds = sum(v for k, v in compile_counts.items() if 'kind="kernel_build"' in k)
+    captures = sum(v for k, v in compile_counts.items() if 'kind="decode_window"' in k)
+    out['compile'] = dict(kernel_builds=builds, decode_captures=captures,
+                          phases=len(compile_counts))
+    if builds < 3 or captures < 1:
+        fail(f'debug surface: compile series {compile_counts}')
+    values = series_values(text)
+    moved = {name: max(values.get(name, [0.0])) for name in A6B_SERIES}
+    # A burn rate of 0 is a reading (no missed SLO): the gauge must exist.
+    still = [n for n, v in moved.items() if v <= 0 and n != 'distllm_slo_burn_rate']
+    out['series'] = moved
+    log(f'[debug surface] {card}: {json.dumps(out)}')
+    if still or 'distllm_slo_burn_rate' not in values:
+        fail(f'debug surface: series still at zero: {still}')
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -4822,6 +5493,28 @@ def main() -> None:
     rag_identity = phase_rag_identity(torch, tpa, tea, table)
     log(f'[rag identity] phase 15e took {time.perf_counter() - t0:.1f} s')
     del table
+    # 17. the pipelined generate_ids (7B weights made again, seed 0); 17b.
+    # its fp32 identities; 17c. serving from a checkpoint path; 17d. the
+    # debug surface over 17c's generator.
+    t17 = time.perf_counter()
+    params7b = mistral.init(cfg7b, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    t0 = time.perf_counter()
+    pipeline = phase_pipeline(torch, tpa, smi, cfg7b, params7b)
+    log(f'[pipeline] phase 17 took {time.perf_counter() - t0:.1f} s')
+    del params7b
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipeline_identity = phase_pipeline_identity(
+        torch, tpa, MistralConfig(num_layers=2, dtype='float32'))
+    log(f'[pipeline identity] phase 17b took {time.perf_counter() - t0:.1f} s')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_checkpoint_') as tmp:
+        t0 = time.perf_counter()
+        checkpoint, ckpt_generator = phase_checkpoint_serve(torch, tpa, tqm, smi, Path(tmp))
+        log(f'[checkpoint] phase 17c took {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        debug_surface = phase_debug_surface(torch, tpa, smi, ckpt_generator, Path(tmp))
+        log(f'[debug surface] phase 17d took {time.perf_counter() - t0:.1f} s')
+    log(f'[pipeline] phases 17-17d took {time.perf_counter() - t17:.1f} s')
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
     # most frequent launch (its prefill pair beside it); K3 at the embed
@@ -4970,6 +5663,12 @@ def main() -> None:
         # Phases 15b-15d: the RAG chat server, the eval suite and the
         # generation job over one Mistral-7B bf16 engine.
         'rag': {'chat': rag_chat['k1'], 'eval': rag_eval['k1'], 'generation_job': job['k1']},
+        # Phase 17: the pipelined generate_ids at depths 1, 2 and 2 with
+        # defer_prefill; phase 17c: the checkpoint-served generators.
+        'pipeline': {name: dict(launches=arm['k1_launches'],
+                                launches_by_route=arm['k1_launches_by_route'])
+                     for name, arm in pipeline['arms'].items()},
+        'checkpoint': {arm: checkpoint[arm]['k1_launches'] for arm in ('bf16', 'int8')},
         # Phases 16-16c: the open-loop load (attribution on and off), the
         # chaos run's clean and faulted arms, the overload arm, and the chat
         # server under HTTP load.
@@ -5051,6 +5750,9 @@ def main() -> None:
         'verify': dict({key: k2_verify[key] for key in k2_keys},
                        launches=spec['oracle_int8']['k2_launches'],
                        launches_by_route=spec['oracle_int8']['k2_launches_by_route']),
+        # Phase 17c: the generator served from a checkpoint path, int8.
+        'checkpoint': dict(launches=checkpoint['int8']['k2_launches'],
+                           launches_by_route=checkpoint['int8']['k2_launches_by_route']),
         'cases': k2_cases,
     }]
     log(f'[summary] {smi}: {serve["tokens_per_s"]:.1f} tok/s bf16, '
@@ -5094,7 +5796,8 @@ def main() -> None:
     log(f'[protein] {json.dumps(protein)}')
     log(f'[identity protein] {json.dumps(identity_protein)}')
     log(f'[summary] {smi}: ' + '; '.join(
-        f'{name} {r["sequences_per_s"]:.1f} sequences/s ({r["real_tokens_per_s"]:.0f} real '
+        f'{name}' + (f' at {r["layers"]}/{r["full_layers"]} layers' if 'layers' in r else '')
+        + f' {r["sequences_per_s"]:.1f} sequences/s ({r["real_tokens_per_s"]:.0f} real '
         f'tokens/s, padding share {r["padding_share"]:.4f}, peak {r["peak_gib"]:.2f} GiB)'
         for name, r in protein.items()) + f'; {time.perf_counter() - t_start:.1f} s total')
     log(f'[load] {json.dumps(dict(load=load, chaos=chaos, http=load_http, identity=load_identity))}')
@@ -5120,6 +5823,19 @@ def main() -> None:
         + f'; RAG chat {rag_chat["tokens_per_s"]:.1f} tok/s, retrieve '
         f'{median(rag_chat["retrieve_ms"]):.2f} ms a request; eval {rag_eval["wall_s"]:.2f} s; '
         f'generation job {job["tokens_per_s"]:.1f} tok/s; {time.perf_counter() - t_start:.1f} s total')
+    log(f'[pipeline] {json.dumps(dict(pipeline=pipeline, identity=pipeline_identity, checkpoint=checkpoint, debug=debug_surface))}')
+    arm1, arm2, arm2d = (pipeline['arms'][n] for n in ('depth1', 'depth2', 'depth2_defer'))
+    log(f'[summary] {smi}: pipelined generate_ids, 128 prompts: depth 1 / 2 / 2 + defer '
+        f'{arm1["tokens_per_s"]:.1f} / {arm2["tokens_per_s"]:.1f} / {arm2d["tokens_per_s"]:.1f} '
+        f'tok/s, device gap median {arm1["device_gap_ms_median"]} / '
+        f'{arm2["device_gap_ms_median"]} / {arm2d["device_gap_ms_median"]} ms, busy share '
+        f'{arm1["busy_share"]:.4f} / {arm2["busy_share"]:.4f} / {arm2d["busy_share"]:.4f}, '
+        f'overshoot_frac {arm1["overshoot_frac"]} / {arm2["overshoot_frac"]} / '
+        f'{arm2d["overshoot_frac"]}, agreeing with depth 1 {arm2["agreement_with_depth1"]:.4f} / '
+        f'{arm2d["agreement_with_depth1"]:.4f}, measured decode MFU / bandwidth share median '
+        + ' / '.join(f'{a["measured"]["mfu_median"]:.4f} {a["measured"]["bw_util_median"]:.4f}'
+                     for a in (arm1, arm2, arm2d))
+        + f'; {time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')

@@ -21,14 +21,39 @@ JAX server's status codes, headers and body keys:
   state and completions in flight as a small JSON document.
 - ``GET /metrics`` — the Prometheus text exposition of the process
   registry (``observability.instruments``).
+- ``GET /debug/traces?limit=N`` (default 100) — the newest finished spans
+  of the trace ring;
+- ``GET /debug/flight?limit=N`` (200) — the newest flight records, the
+  lifetime count and the ring's capacity;
+- ``GET /debug/perfetto?limit=N`` (2000) — the flight and span rings and
+  the metric history as one Perfetto / ``chrome://tracing`` document
+  (``observability.perfetto``);
+- ``GET /debug/history?limit=N&prefix=...`` (120) — the metric-history
+  ring (``distllm-history/v1``), sampled every ``DISTLLM_HISTORY_S``
+  seconds (default 1; 0 disables) by a thread the server starts and
+  stops;
+- ``GET /debug/slo`` — ``slo_status()`` (burn rates, ok / warn / page)
+  and the regression sentinel's state (armed by ``DISTLLM_BASELINE``, an
+  envelope file the user names);
+- ``GET /debug/bundle`` — a debug bundle written under
+  ``DISTLLM_DEBUG_DIR`` (default ``./debug_bundles``), and its paths;
+- ``GET /debug/xprof?seconds=N`` (2, bounded to 0.1..60) — a blocking
+  ``torch.profiler`` capture (``observability.profiling``; the JAX
+  route's name, kept for its clients): 200 with the trace, 409 while
+  another capture runs, 501 when the profiler fails, 400 for a
+  non-finite ``seconds``.
+
+A non-integer ``limit`` answers 400. With ``DISTLLM_WATCHDOG_S`` > 0 each
+generation runs under a :class:`~distllm_tpu_torch.observability.flight.StallWatchdog`
+that dumps a bundle when the engine's flight ring stops advancing.
 
 Every response carries the JAX server's CORS headers (an ``OPTIONS``
 preflight on any path answers 204), and every request is counted as the
 JAX middleware counts it: ``distllm_http_in_flight``,
 ``distllm_http_request_duration_seconds{path}``,
 ``distllm_http_requests_total{path,status}`` and
-``distllm_http_responses_total``. The ``/debug/*`` routes and the
-prefix-affinity headers wait for later slices.
+``distllm_http_responses_total``. The prefix-affinity headers wait for
+the router (ROADMAP A11).
 
 Messages render through :class:`~distllm_tpu_torch.chat.ConversationPromptTemplate`
 and every request goes through ONE worker thread that owns the generator
@@ -66,6 +91,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import queue
 import re
 import threading
@@ -79,9 +105,22 @@ from typing import Callable
 import distllm_tpu_torch
 from distllm_tpu_torch.chat import ConversationPromptTemplate, retrieve
 from distllm_tpu_torch.observability import instruments
-from distllm_tpu_torch.observability.flight import get_flight_recorder
+from distllm_tpu_torch.observability.flight import (
+    StallWatchdog,
+    dump_debug_bundle,
+    get_flight_recorder,
+)
+from distllm_tpu_torch.observability.history import HistorySampler, get_metrics_history
 from distllm_tpu_torch.observability.metrics import render_prometheus
-from distllm_tpu_torch.observability.tracing import request_scope, span
+from distllm_tpu_torch.observability.perfetto import to_trace_events
+from distllm_tpu_torch.observability.profiling import get_profiler_capture
+from distllm_tpu_torch.observability.sentinel import install_regression_sentinel
+from distllm_tpu_torch.observability.slo import install_slo_observer, slo_status
+from distllm_tpu_torch.observability.tracing import (
+    get_trace_buffer,
+    request_scope,
+    span,
+)
 from distllm_tpu_torch.resilience.admission import EngineOverloaded
 
 # Accepted inbound X-Request-Id shape; anything else gets a generated id.
@@ -90,8 +129,20 @@ MODEL_NAME = 'distllm-tpu-torch'  # payload 'model' when the body names none
 REQUEST_TIMEOUT_S = 600.0  # an HTTP thread's wait for the engine worker
 # Routes whose latency series are labelled by path (others: 'other'),
 # pre-registered so the first scrape carries the schema.
-KNOWN_PATHS = ('/v1/chat/completions', '/health', '/metrics', '/drain', '/loadinfo')
+KNOWN_PATHS = (
+    '/v1/chat/completions', '/health', '/metrics', '/drain', '/loadinfo',
+    '/debug/traces', '/debug/flight', '/debug/perfetto', '/debug/history',
+    '/debug/slo', '/debug/bundle', '/debug/xprof',
+)
 DRAIN_MAX_S = 300.0  # the longest a POST /drain waits for in-flight work
+
+
+def _debug_dir(kind: str) -> str:
+    """Where on-demand debug dumps land (``DISTLLM_DEBUG_DIR`` or
+    ``./debug_bundles``), one timestamped directory per dump."""
+    base = os.environ.get('DISTLLM_DEBUG_DIR') or os.path.join(os.getcwd(), 'debug_bundles')
+    stamp = time.strftime('%Y%m%d-%H%M%S')
+    return os.path.join(base, f'{kind}_{stamp}_{os.getpid()}_{uuid.uuid4().hex[:6]}')
 
 
 def _completion_payload(model: str, content: str, request_id: str) -> dict:
@@ -195,11 +246,27 @@ class ChatServer:
         self._lock = threading.Lock()
         for path in KNOWN_PATHS:
             instruments.HTTP_LATENCY.labels(path=path)
+        # Continuous telemetry: the process metric history, sampled every
+        # DISTLLM_HISTORY_S seconds by a thread this server owns; the SLO
+        # burn-rate observer, the regression sentinel and the uptime gauge
+        # ride the same tick. Detached again in close().
+        instruments.SERVER_UPTIME.set(0.0)
+        self.history = get_metrics_history()
+        self._slo_observer = install_slo_observer(self.history)
+        self.sentinel = install_regression_sentinel(
+            self.history, baseline_path=os.environ.get('DISTLLM_BASELINE') or None
+        )
+        self.history.add_observer(self._uptime_observer)
+        interval = float(os.environ.get('DISTLLM_HISTORY_S', '1') or 0)
+        self.sampler = HistorySampler(self.history, interval_s=interval) if interval > 0 else None
         self._httpd = _HTTPServer((host, port), _make_handler(self))
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name='distllm-torch-http',
             daemon=True,
         )
+
+    def _uptime_observer(self, history, now) -> None:
+        instruments.SERVER_UPTIME.set(max(0.0, now - self.started_at))
 
     @property
     def port(self) -> int:
@@ -291,8 +358,18 @@ class ChatServer:
                 contexts, scores = retrieve(self.retriever, latest, top_k, score_threshold)
         t1 = time.perf_counter()
         prompt = self.template.render(list(messages), contexts, scores)
+        watchdog_s = float(os.environ.get('DISTLLM_WATCHDOG_S', '0') or 0)
         with span('chat-generate'):
-            content = self.generator.generate([prompt])[0]
+            if watchdog_s > 0:
+                # Armed per request (an idle server is not a stall): if the
+                # flight ring stops advancing mid-generation, a bundle is
+                # dumped. It never kills the work.
+                with StallWatchdog(
+                    watchdog_s, bundle_dir=_debug_dir('watchdog'), name='chat-generate',
+                ):
+                    content = self.generator.generate([prompt])[0]
+            else:
+                content = self.generator.generate([prompt])[0]
         self.timings.append({
             'retrieve_s': t1 - t0, 'generate_s': time.perf_counter() - t1,
             'contexts': len(contexts),
@@ -301,6 +378,8 @@ class ChatServer:
 
     def start(self) -> 'ChatServer':
         self.worker.start()
+        if self.sampler is not None:
+            self.sampler.start()
         self._thread.start()
         return self
 
@@ -310,12 +389,29 @@ class ChatServer:
             self._thread.join(30.0)
         self._httpd.server_close()
         self.worker.stop()
+        if self.sampler is not None and self.sampler.running:
+            self.sampler.stop()
+        self.history.remove_observer(self._uptime_observer)
+        self.history.remove_observer(self._slo_observer)
+        self.sentinel.uninstall()
 
     def __enter__(self) -> 'ChatServer':
         return self.start()
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# The GET /debug/* routes, each a handler method.
+DEBUG_ROUTES = {
+    '/debug/traces': '_debug_traces',
+    '/debug/flight': '_debug_flight',
+    '/debug/perfetto': '_debug_perfetto',
+    '/debug/history': '_debug_history',
+    '/debug/slo': '_debug_slo',
+    '/debug/bundle': '_debug_bundle',
+    '/debug/xprof': '_debug_xprof',
+}
 
 
 def _make_handler(server: ChatServer):
@@ -360,7 +456,8 @@ def _make_handler(server: ChatServer):
             start = time.perf_counter()
             self._status = 500
             try:
-                route(url.path, urllib.parse.parse_qs(url.query))
+                # Blank values kept: '?limit=' is a bad limit, as in JAX.
+                route(url.path, urllib.parse.parse_qs(url.query, keep_blank_values=True))
             finally:
                 instruments.HTTP_IN_FLIGHT.dec()
                 instruments.HTTP_LATENCY.labels(path=label).observe(
@@ -400,8 +497,87 @@ def _make_handler(server: ChatServer):
                 self.send_header('Content-Length', str(len(raw)))
                 self.end_headers()
                 self.wfile.write(raw)
+            elif path.startswith('/debug/') and path in DEBUG_ROUTES:
+                getattr(self, DEBUG_ROUTES[path])(query)
             else:
                 self._not_found()
+
+        def _limit(self, query, default: int) -> 'int | None':
+            """The ``limit`` query parameter (at least 1), or None after
+            answering 400."""
+            try:
+                return max(1, int(query.get('limit', [str(default)])[0]))
+            except ValueError:
+                self._send_json(400, {'error': {'message': 'limit must be an integer'}})
+                return None
+
+        def _debug_traces(self, query) -> None:
+            limit = self._limit(query, 100)
+            if limit is not None:
+                spans = get_trace_buffer().snapshot(limit=limit)
+                self._send_json(200, {
+                    'spans': [s.to_dict() for s in spans if s.end_ns is not None]
+                })
+
+        def _debug_flight(self, query) -> None:
+            limit = self._limit(query, 200)
+            if limit is not None:
+                recorder = get_flight_recorder()
+                self._send_json(200, {
+                    'records': recorder.snapshot(limit=limit),
+                    'total_recorded': recorder.total_recorded,
+                    'capacity': recorder.capacity,
+                })
+
+        def _debug_perfetto(self, query) -> None:
+            limit = self._limit(query, 2000)
+            if limit is not None:
+                self._send_json(200, to_trace_events(
+                    get_flight_recorder().snapshot(limit=limit),
+                    [s.to_dict() for s in get_trace_buffer().snapshot(limit=limit)
+                     if s.end_ns is not None],
+                    history=server.history.snapshot(limit=limit),
+                ))
+
+        def _debug_history(self, query) -> None:
+            limit = self._limit(query, 120)
+            if limit is not None:
+                prefix = query.get('prefix', [''])[0] or None
+                doc = server.history.snapshot(limit=limit, prefix=prefix)
+                doc['sampler_running'] = bool(
+                    server.sampler is not None and server.sampler.running
+                )
+                self._send_json(200, doc)
+
+        def _debug_slo(self, query) -> None:
+            instruments.SERVER_UPTIME.set(max(0.0, time.time() - server.started_at))
+            self._send_json(200, {
+                **slo_status(server.history), 'sentinel': server.sentinel.status(),
+            })
+
+        def _debug_bundle(self, query) -> None:
+            directory = _debug_dir('bundle')
+            paths = dump_debug_bundle(directory, reason='GET /debug/bundle')
+            self._send_json(200, {'bundle_dir': directory, 'paths': paths})
+
+        def _debug_xprof(self, query) -> None:
+            """A bounded, blocking profiler capture on this request's
+            thread: 200, 409 while another runs, 501 when the profiler
+            fails."""
+            try:
+                seconds = float(query.get('seconds', ['2'])[0])
+            except ValueError:
+                seconds = math.nan
+            if not math.isfinite(seconds):
+                self._send_json(400, {'error': {'message': 'seconds must be a finite number'}})
+                return
+            seconds = min(max(seconds, 0.1), 60.0)
+            capture = get_profiler_capture()
+            result = capture.capture(_debug_dir('xprof'), seconds)
+            status = 200 if result['ok'] else 409 if result['rejected'] else 501
+            self._send_json(
+                status, {**result, 'seconds': seconds, 'state': capture.state()}
+            )
 
         def _post(self, path, query) -> None:
             if path == '/v1/chat/completions':

@@ -9,18 +9,24 @@ from distllm_tpu_torch.generate.engine.engine import (
     SamplingParams,
 )
 from distllm_tpu_torch.generate.engine.kv_cache import (
+    NativeBlockAllocator,
     PagedKVCache,
     PyBlockAllocator,
+    make_allocator,
 )
 from distllm_tpu_torch.generate.engine.scheduler import (
+    NativeScheduler,
     PyScheduler,
     SchedulerExhausted,
+    make_scheduler,
 )
 
 __all__ = [
     'KV_CACHE_DTYPES',
     'EngineConfig',
     'LLMEngine',
+    'NativeBlockAllocator',
+    'NativeScheduler',
     'PagedKVCache',
     'PyBlockAllocator',
     'PyScheduler',
@@ -28,4 +34,6 @@ __all__ = [
     'RequestState',
     'SamplingParams',
     'SchedulerExhausted',
+    'make_allocator',
+    'make_scheduler',
 ]

@@ -6,25 +6,37 @@ shapes).
 
 :class:`DecodeGraphRunner` owns, for one engine:
 
-- static device buffers for every window input (``ids``, ``positions``,
-  ``context_lens``, ``block_tables [max_num_seqs, max_blocks_per_seq]``,
-  ``steps_left``, ``temperature``, ``top_p``, ``min_p``, ``top_k``,
-  ``seeds``) and the window's step counter, all views of ONE device
-  buffer that :meth:`~DecodeGraphRunner.load` fills from one pinned host
-  buffer in one non-blocking copy;
-- the carry: ``ids``, ``positions``, ``context_lens`` and ``steps_left``
-  are advanced in place by each step
-  (:func:`~distllm_tpu_torch.models.mistral.decode_window_step`), and the
-  next window's copy overwrites them;
+- static device buffers for every window input (the host's last ``ids``
+  with a ``take_host`` row mask, ``positions``, ``context_lens``,
+  ``block_tables [max_num_seqs, max_blocks_per_seq]``, ``steps_left``,
+  ``temperature``, ``top_p``, ``min_p``, ``top_k``, ``seeds``) and the
+  window's step counter, all views of ONE device buffer that
+  :meth:`~DecodeGraphRunner.load` fills from one pinned host buffer (one
+  whose last copy has completed, so staging never waits on a window in
+  flight) in one non-blocking copy;
+- the carry: ``positions``, ``context_lens`` and ``steps_left`` are
+  advanced in place by each step
+  (:func:`~distllm_tpu_torch.models.mistral.decode_window_step`) and
+  restaged by the next window; the last ids live in their own buffer
+  (``DecodeGraphRunner.ids``), into which a window's load merges the
+  host's id only for the rows marked ``take_host`` — the pipelined loop's
+  device-side carry (the JAX engine's ``jnp.where(mask, host_ids,
+  carried)``), so a continuing row keeps the token the host has not
+  fetched yet;
 - the token buffer ``[decode_steps, max_num_seqs]`` (each step writes its
-  row, picked by the device-side step counter) and the RoPE tables, made
+  row, picked by the device-side step counter), pinned host copies of
+  it, one per window in flight
+  (:meth:`~DecodeGraphRunner.stage_tokens` /
+  :meth:`~DecodeGraphRunner.fetch_tokens`), and the RoPE tables, made
   once per engine;
 - on CUDA, one captured graph per value of ``all_greedy`` (greedy rows
   skip the sampling filter), both captured by
   :meth:`~DecodeGraphRunner.warmup` into one private memory pool.
 
 :meth:`~DecodeGraphRunner.run` replays the graph ``num_steps`` times on
-CUDA: no Python per layer and no kernel wrapper's host work. On the CPU it
+CUDA: no Python per layer and no kernel wrapper's host work. The eager
+warm-up step is priced once (:mod:`~distllm_tpu_torch.observability.op_cost`:
+``step_cost``) and each capture is a start-up phase. On the CPU it
 runs the same step eagerly over the same buffers (how the tests reach the
 buffer and carry logic without a card). On CUDA it always replays: a
 capture or replay that fails raises with the CUDA error, and nothing
@@ -49,6 +61,8 @@ import numpy as np
 import torch
 
 from distllm_tpu_torch.models import mistral
+from distllm_tpu_torch.observability import op_cost
+from distllm_tpu_torch.observability.startup import get_compile_watcher
 from distllm_tpu_torch.ops import encoder_attention, paged_attention, quantized_matmul
 
 # Every kernel counter of the port, each list kept by the module that
@@ -154,6 +168,7 @@ class _GraphRunner:
 
     FIELDS: tuple = ()  # (name, dtype, shape from (b, mb, s))
     KIND = ''
+    PHASE = ''  # the start-up phase kind of the capture
 
     def __init__(
         self,
@@ -185,25 +200,32 @@ class _GraphRunner:
             n = int(np.prod(shape)) * dtype.itemsize // 4
             spans.append((name, dtype, shape, words, n))
             words += n
-        pinned = device.type == 'cuda'
-        self._host = torch.zeros(words, dtype=torch.int32, pin_memory=pinned)
+        # Pinned staging buffers, each with the event of the last copy that
+        # read it: staging takes one whose copy has completed (growing the
+        # set when none has), so it never waits on a copy queued behind a
+        # window still in flight.
+        self._spans, self._words = spans, words
+        self._staging: list[torch.Tensor] = []
+        self._staging_views: list[dict] = []
+        self._staging_copied: list = []
+        for _ in range(2):  # more are made while every one is in use
+            self._add_staging()
+        self._host = self._staging[0]  # the buffer staged last
+        self._host_views = self._staging_views[0]
         self._dev = torch.zeros(words, dtype=torch.int32, device=device)
-        host = self._host.numpy()
-        self._host_views = {
-            name: host[at:at + n].view(np.dtype(str(dtype).removeprefix('torch.'))).reshape(shape)
-            for name, dtype, shape, at, n in spans
-        }
         self.buffers = {
             name: self._dev[at:at + n].view(dtype).view(shape)
             for name, dtype, shape, at, n in spans
         }
         self.cos, self.sin = mistral._rope_tables(model_cfg, max_table_positions, device)
-        self._copied = None  # event after the last staging copy (CUDA)
         self.graphs: dict[bool, CapturedStep] = {}
         self._warm = False
         self._pool = None
         self._stream = None
         self.pool_bytes = 0
+        # What one pass of the step costs (observability.op_cost), counted
+        # on the eager greedy warm-up step; None before warmup.
+        self.step_cost: op_cost.OpCost | None = None
 
     @property
     def ready(self) -> bool:
@@ -211,17 +233,37 @@ class _GraphRunner:
         :meth:`warmup` has captured both graphs."""
         return self.device.type != 'cuda' or len(self.graphs) == 2
 
+    def _add_staging(self) -> int:
+        host = torch.zeros(self._words, dtype=torch.int32,
+                           pin_memory=self.device.type == 'cuda')
+        self._staging.append(host)
+        self._staging_views.append({
+            name: host.numpy()[at:at + n]
+            .view(np.dtype(str(dtype).removeprefix('torch.'))).reshape(shape)
+            for name, dtype, shape, at, n in self._spans
+        })
+        self._staging_copied.append(None)
+        return len(self._staging) - 1
+
     def _stage(self, values: dict) -> None:
-        """Write ``values`` (name -> array) into the pinned host buffer and
-        copy it to the device in one non-blocking copy."""
-        if self._copied is not None:
-            self._copied.synchronize()  # the last copy has read the host buffer
+        """Write ``values`` (name -> array) into a pinned host buffer no
+        copy still reads and copy it to the device in one non-blocking
+        copy: the host never waits on a window in flight."""
+        i = next(
+            (j for j, event in enumerate(self._staging_copied)
+             if event is None or event.query()),
+            None,
+        )
+        if i is None:
+            i = self._add_staging()
+        self._host, self._host_views = self._staging[i], self._staging_views[i]
         for name, value in values.items():
             self._host_views[name][...] = value
         self._dev.copy_(self._host, non_blocking=True)
         if self.device.type == 'cuda':
-            self._copied = torch.cuda.Event()
-            self._copied.record()
+            event = torch.cuda.Event()
+            event.record()
+            self._staging_copied[i] = event
 
     def _step(self, all_greedy: bool) -> None:
         raise NotImplementedError
@@ -247,9 +289,7 @@ class _GraphRunner:
             return
         if self.device.type != 'cuda':
             self._load_trash()
-            for all_greedy in (True, False):
-                self._step(all_greedy)
-                self._rewind()
+            self._eager_warm_steps()
             self._warm = True
             return
         with torch.cuda.device(self.device):
@@ -258,29 +298,40 @@ class _GraphRunner:
             self._load_trash()
             self._stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(self._stream):
-                for all_greedy in (True, False):
-                    self._step(all_greedy)
-                    self._rewind()
+                self._eager_warm_steps()
             torch.cuda.current_stream().wait_stream(self._stream)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
             t0 = time.perf_counter()
+            b = self.buffers['block_tables'].shape[0]
             try:
-                for all_greedy in (True, False):
-                    graph = torch.cuda.CUDAGraph()
-                    self.graphs[all_greedy] = capture_step(
-                        lambda g=all_greedy: self._step(g), graph,
-                        torch.cuda.graph(graph, pool=self._pool, stream=self._stream),
-                    )
-                    self.stats[f'{self.KIND}_graph_captures'] += 1
-                torch.cuda.synchronize()
+                with get_compile_watcher().phase(
+                    self.PHASE, f'b{b}', scope=f'{self.KIND}-{id(self)}',
+                ):
+                    for all_greedy in (True, False):
+                        graph = torch.cuda.CUDAGraph()
+                        self.graphs[all_greedy] = capture_step(
+                            lambda g=all_greedy: self._step(g), graph,
+                            torch.cuda.graph(graph, pool=self._pool, stream=self._stream),
+                        )
+                        self.stats[f'{self.KIND}_graph_captures'] += 1
+                    torch.cuda.synchronize()
             except BaseException:
                 self._release()
                 raise
             self.stats[f'{self.KIND}_graph_capture_s'] += time.perf_counter() - t0
             self.pool_bytes = torch.cuda.memory_reserved() - reserved
         self._warm = True
+
+    def _eager_warm_steps(self) -> None:
+        """The eager greedy and sampled steps on the trash inputs, the
+        greedy one counted into :attr:`step_cost` (the step shape's price,
+        at its capture)."""
+        self.step_cost, _ = op_cost.count(self._step, True)
+        self._rewind()
+        self._step(False)
+        self._rewind()
 
     def _replay(self, all_greedy: bool, times: int) -> None:
         """``times`` replays of the captured step (CUDA; raises before
@@ -309,7 +360,7 @@ class _GraphRunner:
     def close(self) -> None:
         """Release the graphs and their memory pool."""
         self._release()
-        self._copied = None
+        self._staging_copied = [None] * len(self._staging)
         self.params = self.k_cache = self.v_cache = None
 
 
@@ -322,12 +373,17 @@ class DecodeGraphRunner(_GraphRunner):
     ``decode_graph_capture_s``."""
 
     KIND = 'decode'
+    PHASE = 'decode_window'
     # (name, dtype, shape): the 8-byte fields first, so each int64 view of
-    # the int32 buffer starts on an 8-byte boundary.
+    # the int32 buffer starts on an 8-byte boundary. The staged 'ids' are
+    # the host's last ids and 'take_host' marks the rows that take them;
+    # the carry itself (self.ids, buffers['ids']) lives outside the staged
+    # buffer.
     FIELDS = (
         ('seeds', torch.int64, ('b',)),
         ('step', torch.int64, (1,)),
         ('ids', torch.int32, ('b',)),
+        ('take_host', torch.int32, ('b',)),
         ('positions', torch.int32, ('b',)),
         ('context_lens', torch.int32, ('b',)),
         ('steps_left', torch.int32, ('b',)),
@@ -343,9 +399,26 @@ class DecodeGraphRunner(_GraphRunner):
         super().__init__(params, model_cfg, k_cache, v_cache,
                          max_num_seqs=max_num_seqs, **kwargs)
         self.decode_steps = decode_steps
+        # The carry of last ids, across windows: each step advances it in
+        # place, and a window's load merges in the rows that take the
+        # host's id (fresh admissions, a drained pipeline). buffers['ids']
+        # is the carry; the staged host ids stay in their own view.
+        self._host_ids = self.buffers['ids']
+        self.ids = torch.zeros(max_num_seqs, dtype=torch.int32, device=self.device)
+        self.buffers['ids'] = self.ids
         self.token = torch.zeros(max_num_seqs, dtype=torch.int32, device=self.device)
         self.tokens = torch.zeros((decode_steps, max_num_seqs), dtype=torch.int32,
                                   device=self.device)
+        # The token buffers: each window's tokens are copied out of the
+        # token buffer (to pinned host memory on CUDA, with an event) before
+        # the next window's steps can overwrite it; a buffer is free again
+        # once its window is fetched, and more are made while every one
+        # holds a window in flight (deferred prefill records let more than
+        # pipeline_depth windows be in flight).
+        self._tok_host: list[torch.Tensor] = []
+        self._tok_free: list[int] = []
+        for _ in range(2):
+            self._tok_free.append(self._add_token_buffer())
 
     # ---------------------------------------------------------------- inputs
     def load(
@@ -360,27 +433,41 @@ class DecodeGraphRunner(_GraphRunner):
         min_p: np.ndarray,
         top_k: np.ndarray,
         seeds: np.ndarray,
+        take_host: 'np.ndarray | None' = None,
     ) -> None:
         """Stage one window's inputs (``[max_num_seqs]`` each,
         ``block_tables [max_num_seqs, max_blocks_per_seq]``) into the
         static buffers: one pinned host buffer, one non-blocking copy. The
-        step counter restarts at 0."""
+        step counter restarts at 0. Then, on the device, each row marked in
+        ``take_host`` (None: every row) takes ``ids`` into the carry and
+        every other row keeps its carried last id: the pipelined loop's
+        merge, for rows whose last tokens the host has not fetched yet."""
+        take = np.ones(ids.shape, np.int32) if take_host is None else take_host
         self._stage(dict(
             ids=ids, positions=positions, context_lens=context_lens,
             block_tables=block_tables, steps_left=steps_left,
             temperature=temperature, top_p=top_p, min_p=min_p, top_k=top_k,
-            seeds=seeds, step=0,
+            seeds=seeds, step=0, take_host=take,
         ))
+        buf = self.buffers
+        self.ids.copy_(torch.where(buf['take_host'] != 0, self._host_ids, self.ids))
+
+    def scatter_ids(self, slots: torch.Tensor, tokens: torch.Tensor) -> None:
+        """Write ``tokens`` into the carry at ``slots`` on the device (a
+        deferred prefill's first tokens, which the host fetches later)."""
+        self.ids.index_copy_(0, slots, tokens.to(torch.int32))
 
     def _load_trash(self) -> None:
         """Inputs that touch no state: every table row at the trash block
-        0 and ``steps_left = 0``, so every KV write lands in block 0."""
+        0 and ``steps_left = 0``, so every KV write lands in block 0 and the
+        carry keeps its ids (a deferred prefill may have scattered some)."""
         b, mb = self.buffers['block_tables'].shape
         zeros = np.zeros((b,), np.int32)
         self.load(
             zeros, zeros, np.ones((b,), np.int32), np.zeros((b, mb), np.int32),
             zeros, np.zeros((b,), np.float32), np.ones((b,), np.float32),
             np.zeros((b,), np.float32), zeros, np.zeros((b,), np.int64),
+            take_host=zeros,
         )
 
     def _rewind(self) -> None:
@@ -416,6 +503,36 @@ class DecodeGraphRunner(_GraphRunner):
         self._replay(all_greedy, num_steps)
         return self.tokens[:num_steps]
 
+    def _add_token_buffer(self) -> int:
+        self._tok_host.append(torch.zeros(
+            self.tokens.shape, dtype=torch.int32, pin_memory=self.device.type == 'cuda',
+        ))
+        return len(self._tok_host) - 1
+
+    def stage_tokens(self, num_steps: int) -> tuple:
+        """Copy the last :meth:`run`'s tokens into a free token buffer
+        (device -> pinned host, non-blocking, with an event, on CUDA)
+        before another window can overwrite the token buffer; returns the
+        handle :meth:`fetch_tokens` takes."""
+        i = self._tok_free.pop() if self._tok_free else self._add_token_buffer()
+        cuda = self.device.type == 'cuda'
+        self._tok_host[i][:num_steps].copy_(self.tokens[:num_steps], non_blocking=cuda)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record()
+        return i, event, num_steps
+
+    def fetch_tokens(self, handle: tuple) -> np.ndarray:
+        """The ``[num_steps, max_num_seqs]`` tokens of a staged window (the
+        window's one host sync: its event); frees its buffer."""
+        i, event, num_steps = handle
+        if event is not None:
+            event.synchronize()
+        tokens = self._tok_host[i][:num_steps].numpy().copy()
+        self._tok_free.append(i)
+        return tokens
+
 
 class VerifyGraphRunner(_GraphRunner):
     """The speculative verify window as one device program: static
@@ -432,6 +549,7 @@ class VerifyGraphRunner(_GraphRunner):
     ``verify_graph_capture_s``."""
 
     KIND = 'verify'
+    PHASE = 'spec_window'
     FIELDS = (
         ('seeds', torch.int64, ('b',)),
         ('ids', torch.int32, ('b', 's')),

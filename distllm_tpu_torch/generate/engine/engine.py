@@ -53,8 +53,25 @@
   per window. :meth:`LLMEngine.warmup` builds the kernels and captures the
   graphs outside the request path; on the GPU the first window calls it
   if the caller has not.
+- **pipelining** (``pipeline_depth``; default 1, where JAX's is 2: on the
+  H100 the offline loop is device-bound and depth 2 measured slower, see
+  ``PERF.md``): ``generate_ids`` keeps up to ``pipeline_depth`` windows
+  in flight and processes window N after dispatching window N+1. A continuing row keeps its last id on the
+  device (the runner's carry; a row admitted since the last window takes
+  the host's), each row reserves blocks for its unacked tokens plus the
+  window's steps, no dispatch preempts while windows are in flight (the
+  loop evicts cached blocks, then drains), deadlines expire only after a
+  drain, and the tokens a row runs past its stop are discarded and counted
+  (``stats['overshoot_tokens']``). ``defer_prefill`` (opt-in) keeps each
+  standalone prefill's first tokens on the device, scattered into the
+  carry, and fetches them with the windows. ``draft_k`` forces depth 1;
+  :meth:`LLMEngine.step` is always one synchronous window.
 - **preemption**: when the pool runs dry mid-decode the youngest request
   is recompute-preempted (blocks freed, re-prefilled on readmission).
+- **scheduler** (``prefer_native_allocator``, default off): the Python
+  scheduler, or its native C++ twin (``csrc/host/scheduler.cpp``, built
+  with g++ at first use; the Python one when it cannot be built, logged;
+  ``scheduler_kind``, ``telemetry['scheduler']``).
 - **weight-only quantization** (``EngineConfig.quantization``): the
   engine quantizes its parameters once at construction (int8 projections
   then run through kernel K2, nf4 ones dequantize per layer) and pins the
@@ -93,20 +110,25 @@
   later dispatch too, and the retry budget then drains the live
   requests into ``FAILED``.
 
-Later slices bring the peer KV tier and pipelining (this engine runs one
-window at a time: ``pipeline_depth=1``; the mixed windows'
-``prefill_sent`` / ``prefill_done`` bookkeeping is the JAX engine's, so
-pipelining can compose with it).
+- **start-up and measured cost**: the CUDA context, quantization, kernel
+  builds and graph captures are start-up phases
+  (``observability.startup``); the decode and verify steps are priced at
+  warmup and the first prefill dispatch at its shape
+  (``observability.op_cost``), behind the measured-MFU and bandwidth
+  gauges.
+
+A later slice brings the peer KV tier.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import itertools
 import time
-from collections import Counter
+from collections import Counter, deque
 from dataclasses import dataclass, field
 from enum import Enum
 
@@ -125,15 +147,20 @@ from distllm_tpu_torch.generate.engine.kv_cache import (
     block_digests,
 )
 from distllm_tpu_torch.generate.engine.scheduler import (
-    PyScheduler,
     SchedulerExhausted,
+    make_scheduler,
 )
 from distllm_tpu_torch.generate.engine.spec import PromptLookupDrafter
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import bucket_ladder, pick_bucket
 from distllm_tpu_torch.observability import instruments as _metrics
+from distllm_tpu_torch.observability import op_cost as _op_cost
 from distllm_tpu_torch.observability.flight import get_flight_recorder
 from distllm_tpu_torch.observability.roofline import CostModel
+from distllm_tpu_torch.observability.startup import (
+    get_compile_watcher,
+    record_backend_init,
+)
 from distllm_tpu_torch.observability.tracing import current_request_id
 from distllm_tpu_torch.ops.paged_attention import (
     kv_storage_dtype,
@@ -344,6 +371,27 @@ class EngineConfig(BaseConfig):
     # the roofline gauges. Host bookkeeping only: tokens are identical
     # either way. Flippable at run time through engine.attribution.
     attribution: bool = True
+    # Decode windows in flight during generate_ids (2 overlaps the host's
+    # work on one window with the device's on the next). The default is 1,
+    # not JAX's 2: the port's offline loop keeps the H100 busy at depth 1,
+    # and depth 2 admits rows a window later (more passes, fewer tok/s).
+    # step() is always one window at a time; draft_k forces 1.
+    pipeline_depth: int = 1
+    # Keep each standalone prefill's first tokens on the device (scattered
+    # into the decode carry) and fetch them with the in-flight window
+    # records instead of at the prefill. Opt-in, exclusive with
+    # enable_mixed_batching and with draft_k (the JAX checks).
+    defer_prefill: bool = False
+    # Take the native (C++) scheduler, built with g++ at first use, and
+    # fall back to the Python one with a log line when it cannot build.
+    # Off by default, where JAX's is on: its ctypes calls cost the host
+    # more than the Python twin's list work at these slot counts (measured
+    # on the engines of chip_smoke.py's phases 16 and 17, PERF.md).
+    prefer_native_allocator: bool = False
+    # > 0 makes this engine own a HistorySampler ticking the process
+    # MetricsHistory at this interval (stopped in shutdown()); 0 starts
+    # nothing: the chat server owns the process sampler.
+    history_interval_s: float = 0.0
     # Engine-wide seed behind requests that carry no explicit seed.
     seed: int = 0
 
@@ -365,7 +413,7 @@ class EngineConfig(BaseConfig):
         for name in ('sampling_top_window', 'prefill_chunk_tokens',
                      'max_window_prefill_tokens', 'draft_k',
                      'max_dispatch_retries', 'request_deadline_s',
-                     'retry_backoff_s'):
+                     'retry_backoff_s', 'history_interval_s'):
             if getattr(self, name) < 0:
                 raise ValueError(f'{name} must be >= 0')
         if self.spec_ngram < 1:
@@ -374,8 +422,12 @@ class EngineConfig(BaseConfig):
             raise ValueError('max_window_prefill_seqs must be >= 1')
         if self.spec_draft_source not in SPEC_DRAFT_SOURCES:
             raise ValueError("spec_draft_source must be 'prompt_lookup' or 'none'")
-        # The JAX checks that pair enable_mixed_batching and draft_k with
-        # defer_prefill are left out: the port has no defer_prefill.
+        if self.enable_mixed_batching and self.defer_prefill:
+            raise ValueError(
+                'enable_mixed_batching and defer_prefill are mutually '
+                'exclusive: both re-route prefill emission through the window '
+                'pipeline; disable one'
+            )
         if self.enable_mixed_batching and self.max_window_prefill_tokens < 1:
             raise ValueError('enable_mixed_batching needs max_window_prefill_tokens >= 1')
         if self.enable_mixed_batching and not (
@@ -385,6 +437,13 @@ class EngineConfig(BaseConfig):
                 'enable_mixed_batching needs enable_prefix_cache and/or '
                 'prefill_chunk_tokens: only cache-hit tails and chunked spans '
                 'ride mixed windows'
+            )
+        if self.draft_k and self.defer_prefill:
+            raise ValueError(
+                'draft_k and defer_prefill are mutually exclusive: speculative '
+                'windows fetch every window synchronously (the drafter needs '
+                "host-side history), which removes defer_prefill's in-flight "
+                'deque'
             )
         if self.num_blocks < 2:
             raise ValueError('num_blocks must be >= 2 (block 0 is reserved)')
@@ -441,6 +500,13 @@ class LLMEngine:
         own_params: bool = False,
     ) -> None:
         self.device = resolve_device(device)
+        # Start-up phases (observability.startup): the CUDA context here,
+        # quantization below, the kernel builds and graph captures at
+        # warmup; this engine's scope keeps its repeats apart from another
+        # engine's.
+        self._compile_watcher = get_compile_watcher()
+        self._compile_scope = self._compile_watcher.new_scope()
+        record_backend_init(self.device, self._compile_watcher)
         attn_backend = resolve_attn_backend(attn_backend, model_cfg, self.device)
         if params['embed'].device.type != self.device.type:
             raise ValueError(
@@ -455,10 +521,13 @@ class LLMEngine:
             # Weight-only quantization (reference: bnb NF4 in the HF
             # generator): codes live on the device; already quantized
             # leaves pass through.
-            params = quantize_pytree(
-                params, mode=cfg.quantization, out_dtype=model_cfg.dtype,
-                delete_source=own_params,
-            )
+            with self._compile_watcher.phase(
+                'quantize', cfg.quantization, scope=self._compile_scope,
+            ):
+                params = quantize_pytree(
+                    params, mode=cfg.quantization, out_dtype=model_cfg.dtype,
+                    delete_source=own_params,
+                )
         # The quantized-matmul tier, resolved once and pinned into the
         # model config every dispatch reads (which validates it).
         self.qmm_backend = qmm_backend or model_cfg.qmm_backend
@@ -485,7 +554,13 @@ class LLMEngine:
         self.prefill_buckets = bucket_ladder(
             cfg.max_model_len, cfg.prefill_min_bucket, scheme='pow2'
         )
-        self.sched = PyScheduler(cfg.num_blocks, cfg.block_size, cfg.max_num_seqs)
+        # The native scheduler when asked for and buildable, else the
+        # Python twin (logged); which one is in self.scheduler_kind.
+        self.sched = make_scheduler(
+            cfg.num_blocks, cfg.block_size, cfg.max_num_seqs,
+            prefer_native=cfg.prefer_native_allocator,
+        )
+        self.scheduler_kind = self.sched.kind
         self.prefix_cache = PrefixCache(cfg.block_size) if cfg.enable_prefix_cache else None
         # Host (and disk) KV tier behind the prefix cache: eviction cascades
         # device -> host -> disk -> drop, and tier hits promote back.
@@ -503,7 +578,9 @@ class LLMEngine:
         self._promote_stream = None  # the side stream of promotion copies
         # tier_summary's seconds: spills and promotion staging on the host,
         # promotion copies on the device.
-        self._tier_times = dict.fromkeys(('spill_s', 'promote_host_s', 'promote_copy_s'), 0.0)
+        self._tier_times = dict.fromkeys(
+            ('spill_s', 'promote_host_s', 'promote_copy_s', 'promote_wait_s'), 0.0
+        )
         self._requests: dict[int, Request] = {}
         self._next_id = itertools.count()
         self._finished: dict[int, Request] = {}
@@ -547,9 +624,17 @@ class LLMEngine:
         )
         # Requests whose tails ride mixed windows, in FIFO order.
         self._prefilling: list[int] = []
+        # Tokens dispatched on the device but not yet fetched, per request:
+        # the pipelined loop's lag bookkeeping (always empty under step()).
+        self._unacked: dict[int, int] = {}
+        # Set by the pipelined loop: lets chunked prefill retire one window
+        # in flight between chunks.
+        self._drain_hook = None
         # Per-run summary written by generate_ids; the resolved KV storage
         # dtype ('bfloat16', 'float32' or 'int8') from construction on.
-        self.telemetry: dict[str, float] = {'kv_cache_dtype': self.kv_cache_dtype}
+        self.telemetry: dict[str, float] = {
+            'kv_cache_dtype': self.kv_cache_dtype, 'scheduler': self.scheduler_kind,
+        }
         # The process flight ring: one record per prefill dispatch, window,
         # finished request, shed, quarantine, recovery and fault.
         self.flight = get_flight_recorder()
@@ -568,6 +653,10 @@ class LLMEngine:
         # accumulators behind roofline_summary().
         self.attribution = cfg.attribution
         self._roofline: dict[str, dict[str, float]] = {}
+        # Measured cost of one dispatch of each priced step shape
+        # (observability.op_cost), filled by warmup(): the measured twin of
+        # the analytic model, behind the distllm_engine_mfu_measured gauges.
+        self._measured_costs: dict[str, _op_cost.OpCost] = {}
         self._cost_model = None
         try:
             self._cost_model = CostModel.from_params(
@@ -588,6 +677,18 @@ class LLMEngine:
         _metrics.KV_BLOCKS_TOTAL.set(cfg.num_blocks - 1)
         _metrics.KV_HBM_BYTES.set(self.kv.hbm_bytes)
         self._publish_sched()
+        # An engine-owned metric-history sampler, only when asked for.
+        self._history_sampler = None
+        if cfg.history_interval_s > 0:
+            from distllm_tpu_torch.observability.history import (
+                HistorySampler,
+                get_metrics_history,
+            )
+
+            self._history_sampler = HistorySampler(
+                get_metrics_history(), interval_s=cfg.history_interval_s
+            )
+            self._history_sampler.start()
 
     # ------------------------------------------------------------- requests
     def add_request(
@@ -754,22 +855,24 @@ class LLMEngine:
         return self.sched.has_unfinished
 
     # ------------------------------------------------------------ admission
-    def _admit(self) -> list[tuple[int, int]]:
+    def _admit(self, defer_to=None) -> list[tuple[int, int]]:
         """Admit waiting requests while the scheduler allows (evicting
         unreferenced cache blocks when blocks run short) and prefill their
         tails, same-bucket tails batched; returns the first tokens as
-        ``(request_id, token)``. A request with tier hits first promotes
-        them (a copy the device orders before its tail prefill). Under
-        mixed batching, once windows flow, tails on the paged route (a
-        cached prefix, or a tail to chunk) ride the windows instead. A
-        prefill may finish its request at once (stop token /
+        ``(request_id, token)`` (none with ``defer_to``, the pipelined
+        loop's deque of windows in flight: the first tokens stay on the
+        device and their fetch records join it). A request with tier hits
+        first promotes them (a copy the device orders before its tail
+        prefill). Under mixed batching, once windows flow, tails on the
+        paged route (a cached prefix, or a tail to chunk) ride the windows
+        instead. A prefill may finish its request at once (stop token /
         max_tokens=1), freeing a slot, so admission repeats until the
         scheduler yields nothing."""
         self._retire_promotions()
         # Recovery: prefills whose earlier dispatch failed run first; their
         # requests hold slots and blocks and take no decode steps until
         # this succeeds.
-        emitted: list[tuple[int, int]] = self._retry_pending_prefills()
+        emitted: list[tuple[int, int]] = self._retry_pending_prefills(defer_to)
         chunk = self.config.prefill_chunk_tokens
         while True:
             admitted: list[Request] = []
@@ -805,14 +908,14 @@ class LLMEngine:
                     [r for r in admitted if r.request_id not in self._prefilling]
                 )
                 raise
-            emitted.extend(self._run_prefill_paged(standalone))
+            emitted.extend(self._run_prefill_paged(standalone, defer_to))
 
-    def _run_prefill_paged(self, requests: list[Request]) -> list[tuple[int, int]]:
+    def _run_prefill_paged(self, requests: list[Request], defer_to=None) -> list[tuple[int, int]]:
         """Prefill each request's tail — the tokens past its cached prefix,
         generated tokens included after a recompute preemption — in
         padded dispatches of one length bucket, after the copy-on-write of
         aligned full-cover hits; tails longer than ``prefill_chunk_tokens``
-        prefill in chunks."""
+        prefill in chunks. ``defer_to``: see :meth:`_admit`."""
         if not requests:
             return []
         self._resolve_cow([r for r in requests if r.cow_src_block is not None])
@@ -838,11 +941,11 @@ class LLMEngine:
                         (r, r.num_cached_tokens, r.num_tokens - r.num_cached_tokens)
                         for r in group[i:i + cap]
                     ]
-                    emitted.extend(self._dispatch_prefill_paged(spans))
+                    emitted.extend(self._dispatch_prefill_paged(spans, defer_to=defer_to))
                     for request, _, _ in spans:
                         pending.pop(request.request_id)
             for request in chunked:
-                emitted.extend(self._run_prefill_chunked(request))
+                emitted.extend(self._run_prefill_chunked(request, defer_to))
                 pending.pop(request.request_id)
         except Exception:
             self._mark_prefill_retry(
@@ -864,7 +967,7 @@ class LLMEngine:
             if request.request_id not in self._pending_prefill:
                 self._pending_prefill.append(request.request_id)
 
-    def _retry_pending_prefills(self) -> list[tuple[int, int]]:
+    def _retry_pending_prefills(self, defer_to=None) -> list[tuple[int, int]]:
         """Re-dispatch the prefills whose earlier attempt failed, tail
         only over whatever KV is already valid."""
         if not self._pending_prefill:
@@ -879,13 +982,15 @@ class LLMEngine:
             request.prefill_sent = request.num_cached_tokens
             request.prefill_done = request.num_cached_tokens
             requests.append(request)
-        return self._run_prefill_paged(requests)
+        return self._run_prefill_paged(requests, defer_to)
 
-    def _run_prefill_chunked(self, request: Request) -> list[tuple[int, int]]:
+    def _run_prefill_chunked(self, request: Request, defer_to=None) -> list[tuple[int, int]]:
         """Prefill one long tail as sequential chunks of at most
         ``prefill_chunk_tokens``. Each chunk attends over the KV already in
         the pool (the cached prefix and the earlier chunks), so splitting
-        is exact; only the last chunk samples."""
+        is exact; only the last chunk samples. Between chunks the pipelined
+        loop may retire one window in flight (``_drain_hook``), so a long
+        prompt does not stall decode for its whole prefill."""
         chunk = self.config.prefill_chunk_tokens
         start, total = request.num_cached_tokens, request.num_tokens
         emitted: list[tuple[int, int]] = []
@@ -895,8 +1000,12 @@ class LLMEngine:
             self.stats['prefill_chunks'] += 1
             _metrics.ENGINE_PREFILL_CHUNKS.inc()
             _metrics.ENGINE_PREFILL_CHUNK_TOKENS.observe(ntok)
-            emitted.extend(self._dispatch_prefill_paged([(request, start, ntok)], sample=final))
+            emitted.extend(self._dispatch_prefill_paged(
+                [(request, start, ntok)], sample=final, defer_to=defer_to,
+            ))
             start += ntok
+            if not final and self._drain_hook is not None:
+                self._drain_hook()
         return emitted
 
     def _admit_next_evicting(self) -> int | None:
@@ -1093,7 +1202,9 @@ class LLMEngine:
         for record in self._promotions:
             start, end = record['events']
             if wait:
+                t0 = time.perf_counter()
                 end.synchronize()
+                self._tier_times['promote_wait_s'] += time.perf_counter() - t0
             elif not end.query():
                 live.append(record)
                 continue
@@ -1118,6 +1229,16 @@ class LLMEngine:
             'promoted_bytes': int(self.stats['tier_promoted_bytes']),
             'promote_host_s': self._tier_times['promote_host_s'],
             'promote_copy_s': self._tier_times['promote_copy_s'],
+            # The JAX overlap, 1 - blocking wait / promotion span: the host
+            # waits on a promotion copy only at shutdown, the span is the
+            # copies' device time.
+            'promote_wait_s': self._tier_times['promote_wait_s'],
+            'promote_span_s': self._tier_times['promote_copy_s'],
+            'promotion_overlap': (
+                round(max(0.0, 1.0 - self._tier_times['promote_wait_s']
+                          / self._tier_times['promote_copy_s']), 4)
+                if self._tier_times['promote_copy_s'] > 0 else None
+            ),
             'payload_mismatches': int(self.stats['tier_payload_mismatches']),
             'promotion_failures': int(self.stats['tier_promotion_failures']),
             'host_blocks': self.kv_tier.num_blocks,
@@ -1358,12 +1479,17 @@ class LLMEngine:
     def _put(self, *arrays: np.ndarray) -> list[torch.Tensor]:
         return [torch.as_tensor(a, device=self.device) for a in arrays]
 
-    def _dispatch_prefill_paged(self, spans, sample: bool = True) -> list[tuple[int, int]]:
+    def _dispatch_prefill_paged(
+        self, spans, sample: bool = True, defer_to=None,
+    ) -> list[tuple[int, int]]:
         """One paged-context prefill dispatch for ``spans``, padded to the
         longest; samples and emits each request's first token (one host
         fetch). ``sample=False`` (a chunk before the last) emits nothing.
-        The fault site ``dispatch`` fires first, before anything reaches
-        the device."""
+        With ``defer_to`` the sampled tokens stay on the device: they are
+        scattered into the decode carry, each request counts one unacked
+        token, and a one-step fetch record joins ``defer_to`` (processed
+        with the windows, one window late). The fault site ``dispatch``
+        fires first, before anything reaches the device."""
         self._faults.fail('dispatch')
         requests = [r for r, _, _ in spans]
         _metrics.ENGINE_PREFILL_BATCH.observe(len(requests))
@@ -1373,13 +1499,24 @@ class LLMEngine:
         t_host = time.monotonic()
         ids, positions, block_rows, context_lens, tail_lens = self._put(*host)
         t_put = time.monotonic()
+        prefill = functools.partial(
+            mistral.prefill_paged, self.params, self.model_cfg, ids, positions,
+            self.kv.k, self.kv.v, block_rows, context_lens, tail_lens,
+            max_table_positions=self.config.max_model_len,
+            attn_backend=self.attn_backend,
+        )
         with self._annotate('prefill'):
-            last_logits, _, _ = mistral.prefill_paged(
-                self.params, self.model_cfg, ids, positions, self.kv.k, self.kv.v,
-                block_rows, context_lens, tail_lens,
-                max_table_positions=self.config.max_model_len,
-                attn_backend=self.attn_backend,
-            )
+            if 'prefill' in self._measured_costs:
+                last_logits, _, _ = prefill()
+            else:
+                # The first prefill dispatch prices its shape (the measured
+                # cost of a prefill, in measured_costs()): the same pass,
+                # counted by the op-cost dispatch mode.
+                cost, (last_logits, _, _) = _op_cost.count(prefill)
+                self._measured_costs['prefill'] = cost
+                _metrics.ENGINE_KV_DISPATCH_BYTES.labels(kind='prefill').set(
+                    cost.bytes_accessed
+                )
         t_dispatch = time.monotonic()
         self.stats['forward_passes'] += 1
         self.stats['prefill_dispatches'] += 1
@@ -1398,17 +1535,21 @@ class LLMEngine:
         for request in requests:
             self._insert_prompt_blocks(request)
         tokens_dev = self._sample_device(last_logits, requests)
-        t_fetch = time.monotonic()
-        tokens = tokens_dev.cpu().tolist()
-        fetch_s = time.monotonic() - t_fetch
-        # The fetch waited for every unsynced chunk before this one too.
+        # The fetch, here or with the windows, waits for every unsynced
+        # chunk before this one too.
         priced_tokens = ntokens + sum(n for n, _ in self._unsynced_prefill)
         t_first = min([t_start] + [t for _, t in self._unsynced_prefill])
         self._unsynced_prefill = []
-        emitted = []
-        for request, token in zip(requests, tokens):
-            self._emit_token(request, token)
-            emitted.append((request.request_id, token))
+        emitted, fetch_s = [], None
+        if defer_to is not None:
+            self._defer_prefill_tokens(requests, tokens_dev, defer_to)
+        else:
+            t_fetch = time.monotonic()
+            tokens = tokens_dev.cpu().tolist()
+            fetch_s = time.monotonic() - t_fetch
+            for request, token in zip(requests, tokens):
+                self._emit_token(request, token)
+                emitted.append((request.request_id, token))
         self._record_step(
             'prefill', t_first, batch=len(requests), tokens=ntokens,
             priced_tokens=priced_tokens,
@@ -1417,6 +1558,25 @@ class LLMEngine:
             ),
         )
         return emitted
+
+    def _defer_prefill_tokens(self, requests, tokens_dev, defer_to) -> None:
+        """The deferred path of :meth:`_dispatch_prefill_paged`: scatter
+        the first tokens into the decode carry at the requests' slots, so
+        the next window reads them on the device, count one unacked token
+        a request, and queue their fetch as a one-step record, processed
+        with the windows (the step is priced without its fetch)."""
+        slot_of = {rid: slot for slot, rid in self.sched.running()}
+        slots = torch.as_tensor(
+            [slot_of[r.request_id] for r in requests], device=self.device,
+        )
+        self._decode.scatter_ids(slots, tokens_dev)
+        plan = []
+        for i, request in enumerate(requests):
+            rid = request.request_id
+            self._unacked[rid] = self._unacked.get(rid, 0) + 1
+            plan.append((i, rid, 1))
+        defer_to.append({'tokens': tokens_dev[None, :], 'plan': plan, 'deferred': True,
+                         'chunk_tokens': None, 'chunk_plan': []})
 
     def _sample_device(self, logits: torch.Tensor, requests) -> torch.Tensor:
         """Sample each request's next token on the device (no host sync).
@@ -1470,7 +1630,8 @@ class LLMEngine:
 
     def _record_step(self, kind: str, t_start: float, *, batch: int, tokens: int,
                      priced: bool = True, passes: int | None = None,
-                     priced_tokens: int | None = None, **extra) -> None:
+                     priced_tokens: int | None = None, lengths: tuple | None = None,
+                     **extra) -> None:
         """One flight-ring record and the step metrics for one engine step.
 
         ``duration_s`` runs from ``t_start`` — the start of the step's
@@ -1481,7 +1642,9 @@ class LLMEngine:
         keeps the JAX counts) and ``priced_tokens`` scored tokens (default
         ``tokens``), and the record carries ``mfu`` / ``bw_util``, mirrored
         into the gauges and the per-kind ``roofline_summary()``
-        accumulators.
+        accumulators. ``lengths`` (``(context_lens[, q_lens])``, one row a
+        pass) re-prices K1 in the measured twin at the lengths the window
+        ran (:meth:`OpCost.at_lengths`).
         """
         duration_s = time.monotonic() - t_start
         _metrics.ENGINE_STEPS.labels(kind=kind).inc()
@@ -1517,6 +1680,28 @@ class LLMEngine:
                 acc['flops'] += cost.flops
                 acc['hbm_bytes'] += cost.hbm_bytes
                 extra = {**extra, 'mfu': round(mfu, 5), 'bw_util': round(bw_util, 5)}
+                # The measured twin (observability.op_cost), only where the
+                # dispatch ran the priced shape: a decode window is
+                # ``passes`` replays of the priced step, a verify window
+                # without chunk rows one, each with K1 at the window's
+                # live lengths. Prefill and chunk halves run at varying
+                # shapes: their prices stay in measured_costs().
+                measured = None
+                if lengths is not None and (
+                    kind == 'decode' or (kind == 'spec' and not extra.get('prefill_tokens'))
+                ) and kind in self._measured_costs:
+                    measured = self._measured_costs[kind].at_lengths(*lengths)
+                if measured is not None:
+                    m_mfu, m_bw = _op_cost.publish_measured(
+                        kind, measured, duration_s,
+                        self._cost_model.peak_flops, self._cost_model.peak_hbm_bytes,
+                    )
+                    _op_cost.record_calibration(kind, cost.flops, cost.hbm_bytes, measured)
+                    extra = {
+                        **extra,
+                        'mfu_measured': round(m_mfu, 5),
+                        'bw_util_measured': round(m_bw, 5),
+                    }
         usable = self.config.num_blocks - 1  # block 0 is reserved
         self.flight.record(
             kind,
@@ -1578,6 +1763,25 @@ class LLMEngine:
         self._decode.warmup()
         if self._verify is not None:
             self._verify.warmup()
+        self._price_step_shapes()
+
+    def _price_step_shapes(self) -> None:
+        """Store the measured cost of one dispatch of the decode and verify
+        step shapes (observability.op_cost), as their runners priced them at
+        warmup, and set ``distllm_engine_kv_dispatch_bytes{kind}``. (The
+        first prefill dispatch prices its own shape.)"""
+        for kind, runner in (('decode', self._decode), ('spec', self._verify)):
+            if runner is not None and runner.step_cost is not None:
+                self._measured_costs[kind] = runner.step_cost
+        for kind, cost in self._measured_costs.items():
+            if cost.bytes_accessed:
+                _metrics.ENGINE_KV_DISPATCH_BYTES.labels(kind=kind).set(cost.bytes_accessed)
+
+    def measured_costs(self) -> dict[str, dict]:
+        """Measured cost of one dispatch by step kind (``{'flops',
+        'bytes_accessed', 'source'}``; a decode entry is one step of a
+        window), filled by :meth:`warmup`; empty before it."""
+        return {kind: cost.to_dict() for kind, cost in self._measured_costs.items()}
 
     @property
     def graph_pool_bytes(self) -> int:
@@ -1611,8 +1815,10 @@ class LLMEngine:
             return emitted
         except Exception as exc:
             # Whatever the failed step dispatched is lost with its device
-            # tokens: chunk spans sent but never processed fall back to
-            # what is done, so a retry replans them from host state.
+            # tokens: no unacked lag survives, and chunk spans sent but
+            # never processed fall back to what is done, so a retry
+            # replans them from host state.
+            self._unacked.clear()
             for rid in self._prefilling:
                 pending = self._requests.get(rid)
                 if pending is not None:
@@ -1624,16 +1830,42 @@ class LLMEngine:
         finally:
             self._publish_sched()
 
-    def _window_budget(self, request: Request, k: int) -> int:
-        """Tokens this request may still generate in a new window; 0 while
-        its tail still rides mixed windows."""
+    def _window_budget(self, request: Request, unacked: int, k: int) -> int:
+        """Tokens this request may still generate in a new window, after
+        the ``unacked`` tokens already dispatched but not yet fetched; 0
+        while its tail still rides mixed windows."""
         if not self._decode_ready(request):
             return 0
         budget = min(
-            request.params.max_tokens - len(request.output_ids),
-            self.config.max_model_len - request.num_tokens,
+            request.params.max_tokens - len(request.output_ids) - unacked,
+            self.config.max_model_len - request.num_tokens - unacked,
         )
         return max(0, min(k, budget))
+
+    def _window_kmax(self) -> int:
+        """Per-row reservation target of the next window: the unacked
+        tokens plus this window's steps, maxed over the running batch."""
+        k = self.config.decode_steps
+        kmax = 1
+        for _, rid in self.sched.running():
+            unacked = self._unacked.get(rid, 0)
+            kmax = max(kmax, unacked + self._window_budget(self._requests[rid], unacked, k))
+        return kmax
+
+    def _reserve_shortfall(self, kmax: int) -> int:
+        """Blocks reserving ``kmax`` more tokens for every decode-ready
+        running row would take beyond what the rows own: the pipelined
+        loop drains before any dispatch that would have to preempt (a
+        window in flight may still write a victim's blocks)."""
+        bs = self.config.block_size
+        short = 0
+        for _, rid in self.sched.running():
+            request = self._requests[rid]
+            if not self._decode_ready(request):
+                continue  # chunk rows write blocks granted at admission
+            target = -(-(request.num_tokens + kmax) // bs)
+            short += max(0, target - self.sched.num_blocks_of(rid))
+        return short
 
     def _on_preempt(self, request: Request) -> None:
         request.state = RequestState.WAITING
@@ -1662,7 +1894,7 @@ class LLMEngine:
         preempted rids, already moved back to waiting."""
         short = sum(
             max(0, self.kv.blocks_needed(self._requests[rid].num_tokens + k)
-                - len(self.sched.block_row(rid)))
+                - self.sched.num_blocks_of(rid))
             for rid, k in zip(rids, ks)
         )
         self._evict_cached_blocks(short - self.sched.num_free_blocks)
@@ -1699,7 +1931,10 @@ class LLMEngine:
             if self._decode_ready(self._requests[rid])
         ]
         if rids:
-            kmax = max(1, max(self._window_budget(self._requests[rid], k) for rid in rids))
+            # Each row covers its unacked tokens and this window's steps:
+            # a row that stopped inside a window in flight runs on in the
+            # next one, writing only blocks it still owns.
+            kmax = self._window_kmax()
             if self._faults.fire('sched_exhausted') is not None:
                 # Fault site 'sched_exhausted': the pool-pressure hazard
                 # without a pool sized to hit it.
@@ -1721,31 +1956,44 @@ class LLMEngine:
         min_p = np.zeros((b,), np.float32)
         top_k = np.zeros((b,), np.int32)
         seeds = np.zeros((b,), np.int64)
+        # Rows with unacked tokens keep the device-side carry of last ids;
+        # the rest (fresh admissions, reused slots, a drained pipeline)
+        # take the host's.
+        take_host = np.zeros((b,), np.int32)
         plan: list[tuple[int, int, int]] = []
         for slot, request in running:
-            steps = self._window_budget(request, k)
-            positions[slot] = request.num_tokens - 1
-            context_lens[slot] = request.num_tokens
-            block_tables[slot] = self._block_row(request.request_id)
+            rid = request.request_id
+            unacked = self._unacked.get(rid, 0)
+            steps = self._window_budget(request, unacked, k)
+            total = request.num_tokens + unacked
+            positions[slot] = total - 1
+            context_lens[slot] = total
+            block_tables[slot] = self._block_row(rid)
             steps_left[slot] = steps
             temperature[slot] = request.params.temperature
             top_p[slot] = request.params.top_p
             min_p[slot] = request.params.min_p
             top_k[slot] = request.params.top_k
             seeds[slot] = request.sample_seed
-            ids[slot] = (request.output_ids or request.prompt_ids)[-1]
-            plan.append((slot, request.request_id, steps))
+            if unacked == 0:
+                ids[slot] = (request.output_ids or request.prompt_ids)[-1]
+                take_host[slot] = 1
+            plan.append((slot, rid, steps))
         num_steps = max(steps for _, _, steps in plan)
         if num_steps == 0 and not chunk_plan:
             return None
         window = {'tokens': None, 'plan': plan, 'chunk_tokens': None, 'chunk_plan': [],
-                  'passes': num_steps + bool(chunk_plan)}
+                  'passes': num_steps + bool(chunk_plan),
+                  # K1's live lengths in each step (the measured cost).
+                  'lengths': (_op_cost.decode_lengths(context_lens, steps_left, num_steps),)}
         if num_steps and not self._decode.ready:
             self.warmup()  # the first window on the GPU captures the graphs
         t_host = time.monotonic()
         if num_steps:
+            # Every row taking the host's id is the plain load (step()).
+            keep = {} if take_host.all() else {'take_host': take_host}
             self._decode.load(ids, positions, context_lens, block_tables, steps_left,
-                              temperature, top_p, min_p, top_k, seeds)
+                              temperature, top_p, min_p, top_k, seeds, **keep)
         t_put = time.monotonic()
         with self._annotate('mixed' if chunk_plan else 'decode'):
             if chunk_plan:
@@ -1756,7 +2004,12 @@ class LLMEngine:
                 window['tokens'] = self._decode.run(
                     num_steps, all(r.params.temperature <= 0 for _, r in running)
                 )
+                # Out of the token buffer before another window writes it.
+                window['fetch'] = self._decode.stage_tokens(num_steps)
                 self.stats['forward_passes'] += num_steps
+        for _, rid, steps in plan:
+            if steps:
+                self._unacked[rid] = self._unacked.get(rid, 0) + steps
         self.stats['decode_windows'] += 1
         _metrics.ENGINE_DECODE_WINDOWS.inc()
         _metrics.ENGINE_DECODE_UTILIZATION.observe(
@@ -1766,49 +2019,69 @@ class LLMEngine:
         return window
 
     def _process_window(self, window: dict) -> list[tuple[int, int]]:
-        """Fetch one window's tokens (the decode path's one host sync) and
-        fold them into request state; tokens past a finish are dropped.
-        Then the window's chunk rows. A verify window goes to
-        :meth:`_process_spec_window`. The fault site ``slow_window``
-        sleeps where a stalled fetch would."""
+        """Fetch one window's tokens (the decode path's one host sync: the
+        token ring slot's event) and fold them into request state. Tokens
+        past a finish — a row that stopped inside this window, or one that
+        finished in an earlier window while this one was in flight — are
+        discarded and counted (``stats['overshoot_tokens']``,
+        ``distllm_engine_overshoot_tokens_total``). Then the window's chunk
+        rows. A deferred prefill's fetch record (one token a request, no
+        step record) goes the same way; a verify window goes to
+        :meth:`_process_spec_window`. The fault site ``slow_window`` sleeps
+        where a stalled fetch would."""
         if window.get('spec'):
             return self._process_spec_window(window)
         self._faults.maybe_sleep('slow_window')
         emitted: list[tuple[int, int]] = []
         t_fetch = time.monotonic()
         tokens = None
-        if window['tokens'] is not None:
-            tokens = window['tokens'].cpu().numpy()  # [steps, B]
-        elif window['chunk_tokens'] is not None:
+        if 'fetch' in window:
+            tokens = self._decode.fetch_tokens(window['fetch'])  # [steps, B]
+        elif window['tokens'] is not None:
+            tokens = window['tokens'].cpu().numpy()
+        if window.get('chunk_tokens') is not None:
             window['chunk_tokens'] = window['chunk_tokens'].cpu()
         fetch_s = time.monotonic() - t_fetch
-        chunk_entries = window['chunk_plan']
-        extra = {}
-        if chunk_entries:
-            extra = {
-                'prefill_tokens': sum(n for *_, n, _ in chunk_entries),
-                'prefill_rows': len(chunk_entries),
-            }
-        extra.update(self._attribution_fields(*window['timing'], fetch_s=fetch_s))
-        self._record_step(
-            'mixed' if chunk_entries else 'decode', window['timing'][0],
-            batch=sum(1 for _, _, s in window['plan'] if s > 0),
-            tokens=sum(s for _, _, s in window['plan']),
-            passes=window['passes'], **extra,
-        )
+        chunk_entries = window.get('chunk_plan') or []
+        if not window.get('deferred'):
+            extra = {}
+            if chunk_entries:
+                extra = {
+                    'prefill_tokens': sum(n for *_, n, _ in chunk_entries),
+                    'prefill_rows': len(chunk_entries),
+                }
+            extra.update(self._attribution_fields(*window['timing'], fetch_s=fetch_s))
+            self._record_step(
+                'mixed' if chunk_entries else 'decode', window['timing'][0],
+                batch=sum(1 for _, _, s in window['plan'] if s > 0),
+                tokens=sum(s for _, _, s in window['plan']),
+                passes=window['passes'], lengths=window['lengths'], **extra,
+            )
         if tokens is not None:
             for slot, rid, steps in window['plan']:
-                request = self._requests.get(rid)
-                if request is None or request.state is not RequestState.RUNNING:
+                if rid in self._unacked:
+                    self._unacked[rid] = max(0, self._unacked[rid] - steps)
+                if rid not in self._requests:
+                    # Finished in an earlier window: all overshoot.
+                    self._count_overshoot(steps)
+                    continue
+                request = self._requests[rid]
+                if request.state is not RequestState.RUNNING:
                     continue
                 for i in range(steps):
                     token = int(tokens[i, slot])
                     self._emit_token(request, token)
                     emitted.append((rid, token))
                     if rid not in self._requests:
+                        self._count_overshoot(steps - i - 1)
                         break  # finished mid-window
         emitted.extend(self._process_chunk_entries(window))
         return emitted
+
+    def _count_overshoot(self, tokens: int) -> None:
+        if tokens > 0:
+            self.stats['overshoot_tokens'] += tokens
+            _metrics.ENGINE_OVERSHOOT_TOKENS.inc(tokens)
 
     # ------------------------------------------------ speculative windows
     def _dispatch_spec_window(self) -> dict | None:
@@ -1828,7 +2101,7 @@ class LLMEngine:
         row_ks: list[int] = []
         for _, rid in self.sched.running():
             request = self._requests[rid]
-            budget = self._window_budget(request, draft_k + 1)
+            budget = self._window_budget(request, 0, draft_k + 1)
             if budget <= 0:
                 continue
             drafts: list[int] = []
@@ -1875,11 +2148,13 @@ class LLMEngine:
         if not plan and not chunk_plan:
             return None
         window = {'spec': True, 'tokens': None, 'plan': plan, 'chunk_tokens': None,
-                  'chunk_plan': [], 'passes': bool(plan) + bool(chunk_plan)}
+                  'chunk_plan': [], 'passes': bool(plan) + bool(chunk_plan), 'lengths': None}
         if plan:
             if not self._verify.ready:
                 self.warmup()  # the first window on the GPU captures the graphs
             span_arrays = self._span_host_arrays(spans, 1 + draft_k, b, token_rows=token_rows)
+            # K1's live lengths: each row's context and its span's tokens.
+            window['lengths'] = (span_arrays[3][None], span_arrays[4][None])
         t_host = time.monotonic()
         if plan:
             self._verify.load(*span_arrays, temperature, top_p, min_p, top_k, seeds)
@@ -1968,7 +2243,7 @@ class LLMEngine:
         extra.update(self._attribution_fields(*window['timing'], fetch_s=fetch_s))
         self._record_step(
             'spec', window['timing'][0], batch=rows, tokens=len(emitted),
-            passes=window['passes'], **extra,
+            passes=window['passes'], lengths=window['lengths'], **extra,
         )
         emitted.extend(self._process_chunk_entries(window))
         return emitted
@@ -2018,6 +2293,7 @@ class LLMEngine:
         if self.prefix_cache is not None:
             # Blocks at refcount 0 become LRU-evictable and keep their KV.
             self.prefix_cache.release(request.request_id)
+        self._unacked.pop(request.request_id, None)
         del self._requests[request.request_id]
         self._finished[request.request_id] = request
 
@@ -2128,7 +2404,8 @@ class LLMEngine:
         ``'quarantine'`` flight record and
         ``distllm_resilience_quarantined_requests_total{reason}``). Its
         prefix-cache references are released once. No window is in flight
-        here (windows are fetched within their step), and a promotion copy
+        here (the pipelined loop drains before it expires deadlines, and
+        step() fetches its window within the step), and a promotion copy
         still running on the side stream is safe: the current stream, on
         which every later write of those blocks is queued, already waits
         on its event, and its staging stays held until it completes."""
@@ -2148,11 +2425,115 @@ class LLMEngine:
         if self.prefix_cache is not None:
             self.prefix_cache.release(rid)
         self._dispatch_failures.pop(rid, None)
+        self._unacked.pop(rid, None)
         for pending in (self._prefilling, self._pending_prefill):
             if rid in pending:
                 pending.remove(rid)
         del self._requests[rid]
         self._finished[rid] = request
+
+    # ------------------------------------------------------ the pipelined loop
+    def _run_to_completion(self) -> None:
+        """Drive every request to a terminal state through the pipelined
+        loop. With ``max_dispatch_retries == 0`` the first dispatch
+        exception propagates; with recovery on, a failed pass — its windows
+        in flight already folded back by :meth:`_serve_pipelined` — is
+        charged, backed off and retried (:meth:`_recover`)."""
+        while True:
+            try:
+                self._serve_pipelined()
+                return
+            except Exception as exc:
+                if not self._recover(exc):
+                    raise
+            finally:
+                self._publish_sched()
+
+    def _serve_pipelined(self) -> None:
+        """Drive all requests to completion with ``pipeline_depth`` decode
+        windows in flight (the JAX engine's ``_serve_pipelined``): window
+        N is processed after window N+1 has been dispatched, so the host's
+        fetch and bookkeeping of one window overlap the device's work on
+        the next. Stops and admission react one window late; the tokens a
+        row runs past its stop are discarded and counted as overshoot.
+
+        - Deadline expiry drains first: freeing a victim's blocks is safe
+          only with nothing in flight.
+        - No dispatch may preempt while windows are in flight: the loop
+          evicts unreferenced cached blocks, then drains, until the next
+          window's reservation fits (``_reserve_shortfall``).
+        - ``defer_prefill``: admission's first-token fetch records join
+          the deque.
+        - ``draft_k > 0`` forces depth 1 (the drafter needs each window's
+          tokens on the host).
+        - On an exception every dispatched window is folded back into
+          request state; if that fails too, the windows are dropped with an
+          ``abnormal_drain`` flight event, the unacked lag is cleared and
+          chunk spans roll ``prefill_sent`` back to ``prefill_done``."""
+        depth = 1 if self.config.draft_k else max(1, self.config.pipeline_depth)
+        inflight: deque[dict] = deque()
+        self._unacked.clear()
+
+        def process_one() -> None:
+            self._process_window(inflight.popleft())
+
+        def drain_one() -> None:
+            if inflight:
+                process_one()
+
+        self._drain_hook = drain_one
+        try:
+            while self.has_unfinished or inflight:
+                if self._expired_requests():
+                    while inflight:
+                        process_one()
+                    self._expire_deadlines()
+                self._admit(defer_to=inflight if self.config.defer_prefill else None)
+                if self.sched.num_running == 0:
+                    if inflight:
+                        process_one()
+                    continue
+                while inflight and (
+                    short := self._reserve_shortfall(self._window_kmax())
+                    - self.sched.num_free_blocks
+                ) > 0:
+                    if self._evict_cached_blocks(short):
+                        continue
+                    process_one()
+                window = self._dispatch_window()
+                if window is None:
+                    if inflight:
+                        process_one()
+                    continue
+                inflight.append(window)
+                if len(inflight) >= depth:
+                    process_one()
+                self._publish_sched()
+        except BaseException:
+            while inflight:
+                try:
+                    process_one()
+                except Exception as drain_exc:
+                    # The windows in flight cannot be folded back: their
+                    # tokens are lost (KV written at positions >= num_tokens
+                    # is overwritten before it is ever attended). Recorded.
+                    self.flight.record(
+                        'event', event='abnormal_drain',
+                        dropped_windows=len(inflight) + 1,
+                        error=repr(drain_exc)[:200],
+                    )
+                    inflight.clear()
+                    self._unacked.clear()
+            # A chunk span whose window was dropped advanced prefill_sent
+            # but never prefill_done: rolled back, it rides again.
+            for rid in self._prefilling:
+                request = self._requests.get(rid)
+                if request is not None:
+                    request.prefill_sent = request.prefill_done
+            self._unsynced_prefill = []
+            raise
+        finally:
+            self._drain_hook = None
 
     # -------------------------------------------------------------- offline
     def generate_ids(
@@ -2161,16 +2542,21 @@ class LLMEngine:
         params: 'SamplingParams | list[SamplingParams] | None' = None,
     ) -> list[list[int]]:
         """Offline batch API: token ids in, generated token ids out (stop
-        token stripped). ``params`` is one ``SamplingParams`` for every
-        prompt or a list parallel to ``prompts``."""
+        token stripped), served by the pipelined loop
+        (:meth:`_serve_pipelined`, ``pipeline_depth`` windows in flight).
+        ``params`` is one ``SamplingParams`` for every prompt or a list
+        parallel to ``prompts``. Writes ``telemetry``: the run's counters,
+        ``loop_s`` and ``tokens_per_s``, and the JAX engine's keys
+        (``decode_loop_s``, ``windows_per_s``, ``prefix_hit_rate``,
+        ``spec_accept_rate``, ``spec_windows_per_s``,
+        ``tier_promotion_overlap``, ``overshoot_frac``)."""
         per_prompt = params if isinstance(params, list) else [params] * len(prompts)
         if len(per_prompt) != len(prompts):
             raise ValueError('params list must parallel prompts')
         before = Counter(self.stats)
         ids = [self.add_request(p, sp) for p, sp in zip(prompts, per_prompt)]
         start = time.perf_counter()
-        while self.has_unfinished:
-            self.step()
+        self._run_to_completion()
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         loop_s = time.perf_counter() - start
@@ -2190,6 +2576,11 @@ class LLMEngine:
         self.telemetry['loop_s'] = loop_s
         if loop_s > 0:
             self.telemetry['tokens_per_s'] = run['generated_tokens'] / loop_s
+        self.telemetry.update(
+            scheduler=self.scheduler_kind,
+            pipeline_depth=1 if self.config.draft_k else max(1, self.config.pipeline_depth),
+        )
+        self.telemetry.update(self._jax_telemetry(run, loop_s))
         outs = []
         for rid in ids:
             request = self._finished.pop(rid)
@@ -2198,6 +2589,31 @@ class LLMEngine:
                 out = out[:-1]
             outs.append(out)
         return outs
+
+    def _jax_telemetry(self, run: Counter, loop_s: float) -> dict:
+        """The JAX ``generate_ids`` telemetry keys, computed as it computes
+        them from this run's counters."""
+        out: dict = {'decode_loop_s': round(loop_s, 3)}
+        windows = run.get('decode_windows', 0)
+        if windows and loop_s > 0:
+            out['windows_per_s'] = round(windows / loop_s, 2)
+        lookups = run.get('prefix_lookup_tokens', 0)
+        if lookups:
+            out['prefix_hit_rate'] = round(run.get('prefix_hit_tokens', 0) / lookups, 4)
+        drafted = run.get('spec_draft_tokens', 0)
+        if drafted:
+            out['spec_accept_rate'] = round(run.get('spec_accepted_tokens', 0) / drafted, 4)
+        spec_windows = run.get('spec_windows', 0)
+        if spec_windows and loop_s > 0:
+            out['spec_windows_per_s'] = round(spec_windows / loop_s, 2)
+        if self.kv_tier is not None:
+            overlap = self.tier_summary().get('promotion_overlap')
+            if overlap is not None:
+                out['tier_promotion_overlap'] = overlap
+        n_out = sum(len(r.output_ids) for r in self._finished.values())
+        if n_out:
+            out['overshoot_frac'] = round(run.get('overshoot_tokens', 0) / n_out, 4)
+        return out
 
     def generate(
         self,
@@ -2217,6 +2633,9 @@ class LLMEngine:
         """Drop the weights, the pool and the decode graphs with their
         memory pool (after any promotion copy in flight has landed)."""
         self._retire_promotions(wait=True)
+        if self._history_sampler is not None:
+            self._history_sampler.stop()
+            self._history_sampler = None
         self._decode.close()
         if self._verify is not None:
             self._verify.close()

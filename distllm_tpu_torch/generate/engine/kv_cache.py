@@ -25,6 +25,8 @@ tier waits for the zmq fabric's port.
 
 from __future__ import annotations
 
+import ctypes
+
 import hashlib
 import json
 import math
@@ -73,6 +75,75 @@ class PyBlockAllocator:
     @property
     def num_free(self) -> int:
         return len(self._free)
+
+
+class NativeBlockAllocator:
+    """ctypes wrapper over the C++ allocator (``csrc/host/block_allocator.cpp``,
+    built with g++ at first use; raises ``RuntimeError`` when it cannot be
+    built). The same policy as :class:`PyBlockAllocator`."""
+
+    def __init__(self, num_blocks: int) -> None:
+        from distllm_tpu_torch.ops._build import build_host
+
+        lib = ctypes.CDLL(str(build_host('block_allocator')))
+        lib.ba_create.restype = ctypes.c_void_p
+        lib.ba_create.argtypes = [ctypes.c_int32]
+        for fn in ('ba_alloc', 'ba_incref', 'ba_free', 'ba_num_free'):
+            getattr(lib, fn).restype = ctypes.c_int32
+        lib.ba_alloc.argtypes = [ctypes.c_void_p]
+        lib.ba_num_free.argtypes = [ctypes.c_void_p]
+        lib.ba_incref.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        lib.ba_free.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        lib.ba_destroy.argtypes = [ctypes.c_void_p]
+        handle = lib.ba_create(num_blocks)
+        if not handle:
+            raise RuntimeError(f'ba_create({num_blocks}) failed')
+        self._lib = lib
+        self._handle = handle
+
+    def alloc(self) -> int:
+        return int(self._lib.ba_alloc(self._handle))
+
+    def incref(self, block_id: int) -> None:
+        if self._lib.ba_incref(self._handle, block_id) < 0:
+            raise ValueError(f'incref of unallocated block {block_id}')
+
+    def free(self, block_id: int) -> None:
+        if self._lib.ba_free(self._handle, block_id) < 0:
+            raise ValueError(f'double free of block {block_id}')
+
+    @property
+    def num_free(self) -> int:
+        return int(self._lib.ba_num_free(self._handle))
+
+    def __del__(self) -> None:  # pragma: no cover - interpreter teardown
+        lib = getattr(self, '_lib', None)
+        handle = getattr(self, '_handle', None)
+        if lib is not None and handle:
+            lib.ba_destroy(handle)
+            self._handle = None
+
+
+def make_allocator(
+    num_blocks: int, prefer_native: bool = True
+) -> 'NativeBlockAllocator | PyBlockAllocator':
+    """The native allocator when ``prefer_native`` and it builds, else the
+    Python one, with a log line saying so."""
+    if prefer_native:
+        try:
+            return NativeBlockAllocator(num_blocks)
+        except (RuntimeError, OSError) as exc:
+            # The Python twin is a designed drop-in (same policy, same
+            # tests), but WHICH allocator served must never be a silent
+            # guess in a perf investigation.
+            from distllm_tpu_torch.observability.instruments import log_event
+
+            log_event(
+                f'[engine] native block allocator unavailable '
+                f'({exc!r:.120}); using the Python fallback',
+                component='engine',
+            )
+    return PyBlockAllocator(num_blocks)
 
 
 class PagedKVCache:

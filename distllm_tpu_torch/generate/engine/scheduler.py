@@ -1,5 +1,9 @@
-"""Continuous-batching scheduler (PyTorch-port copy of
-``distllm_tpu.generate.engine.scheduler.PyScheduler``; it holds no tensor).
+"""Continuous-batching scheduler (the port's copy of
+``distllm_tpu.generate.engine.scheduler``: ``PyScheduler``,
+``NativeScheduler`` over ``csrc/host/scheduler.cpp`` and
+``make_scheduler``; it holds no tensor). The two implementations make the
+same decisions; the engine takes the native one unless
+``EngineConfig.prefer_native_allocator`` is off or it cannot be built.
 
 Policy, as in the JAX package:
 
@@ -13,12 +17,13 @@ Policy, as in the JAX package:
 - ``trim(rid)`` returns owned tail blocks beyond ``num_tokens + 1``.
 - Block 0 is the reserved trash block and is never allocated.
 
-Borrowed prefixes (``lend_prefix`` / ``release_blocks``) are kept so the
-prefix cache can plug in later; nothing in this slice lends.
+Borrowed prefixes (``lend_prefix`` / ``release_blocks``) are the prefix
+cache's blocks: never freed to the free list, kept across preemption.
 """
 
 from __future__ import annotations
 
+import ctypes
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -45,6 +50,8 @@ class _PyRequest:
 
 class PyScheduler:
     """Pure-Python scheduler (the JAX package's Python twin)."""
+
+    kind = 'python'
 
     def __init__(self, num_blocks: int, block_size: int, max_num_seqs: int) -> None:
         if num_blocks < 2:
@@ -199,6 +206,14 @@ class PyScheduler:
     def block_row(self, rid: int) -> list[int]:
         return list(self._requests[rid].blocks)
 
+    def num_blocks_of(self, rid: int) -> int:
+        """How many blocks ``rid``'s row holds."""
+        return len(self._requests[rid].blocks)
+
+    def free_list(self) -> list[int]:
+        """The free list, bottom to top (the next block handed out last)."""
+        return list(self._free)
+
     @property
     def num_free_blocks(self) -> int:
         return len(self._free)
@@ -214,3 +229,291 @@ class PyScheduler:
     @property
     def has_unfinished(self) -> bool:
         return bool(self._waiting) or self.num_running > 0
+
+
+class NativeScheduler:
+    """ctypes binding over the C++ scheduler core
+    (``csrc/host/scheduler.cpp``, built with g++ at first use; raises
+    ``RuntimeError`` when it cannot be built)."""
+
+    kind = 'native'
+
+    def __init__(self, num_blocks: int, block_size: int, max_num_seqs: int) -> None:
+        from distllm_tpu_torch.ops._build import build_host
+
+        lib = ctypes.CDLL(str(build_host('scheduler')))
+        lib.sched_create.restype = ctypes.c_void_p
+        lib.sched_create.argtypes = [ctypes.c_int32] * 3
+        lib.sched_destroy.argtypes = [ctypes.c_void_p]
+        lib.sched_add.restype = ctypes.c_int32
+        lib.sched_add.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
+        lib.sched_add_cached.restype = ctypes.c_int32
+        lib.sched_add_cached.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_int64,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+        ]
+        lib.sched_lend_prefix.restype = ctypes.c_int32
+        lib.sched_lend_prefix.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_int64,
+            ctypes.c_int32,
+        ]
+        lib.sched_release_blocks.restype = ctypes.c_int32
+        lib.sched_release_blocks.argtypes = [
+            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+        ]
+        lib.sched_num_borrowed.restype = ctypes.c_int32
+        lib.sched_num_borrowed.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.sched_admit_next.restype = ctypes.c_int64
+        lib.sched_admit_next.argtypes = [ctypes.c_void_p]
+        lib.sched_prepare_decode_k.restype = ctypes.c_int32
+        lib.sched_prepare_decode_k.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.sched_prepare_decode_rows.restype = ctypes.c_int32
+        lib.sched_prepare_decode_rows.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.sched_prepare_decode_rows_k.restype = ctypes.c_int32
+        lib.sched_prepare_decode_rows_k.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.sched_trim.restype = ctypes.c_int32
+        lib.sched_trim.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        for name in ('sched_append_token', 'sched_finish'):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int32
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.sched_slot.restype = ctypes.c_int32
+        lib.sched_slot.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.sched_running.restype = ctypes.c_int32
+        lib.sched_running.argtypes = [
+            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.sched_block_row.restype = ctypes.c_int32
+        lib.sched_block_row.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+        ]
+        lib.sched_free_list.restype = ctypes.c_int32
+        lib.sched_free_list.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+        ]
+        for name in (
+            'sched_num_free',
+            'sched_num_running',
+            'sched_num_waiting',
+            'sched_has_unfinished',
+        ):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int32
+            fn.argtypes = [ctypes.c_void_p]
+
+        handle = lib.sched_create(num_blocks, block_size, max_num_seqs)
+        if not handle:
+            raise RuntimeError(
+                f'sched_create({num_blocks}, {block_size}, {max_num_seqs}) failed'
+            )
+        self._lib = lib
+        self._handle = handle
+        self._max_num_seqs = max_num_seqs
+        self._num_blocks = num_blocks
+        # Output buffers the C calls fill, made once (a row never holds
+        # more than the pool's blocks, the slot table more than its slots).
+        self._blocks_out = (ctypes.c_int32 * num_blocks)()
+        self._slots_out = (ctypes.c_int32 * max_num_seqs)()
+        self._rids_out = (ctypes.c_int64 * max_num_seqs)()
+        self._preempted_out = (ctypes.c_int64 * max_num_seqs)()
+
+    def add(
+        self, rid: int, num_tokens: int, cached_blocks: 'list[int] | tuple' = ()
+    ) -> None:
+        if cached_blocks:
+            arr = (ctypes.c_int32 * len(cached_blocks))(*cached_blocks)
+            rc = self._lib.sched_add_cached(
+                self._handle, rid, num_tokens, arr, len(cached_blocks)
+            )
+        else:
+            rc = self._lib.sched_add(self._handle, rid, num_tokens)
+        if rc == -2:
+            raise ValueError(f'duplicate request id {rid}')
+        if rc != 0:
+            raise RuntimeError(f'sched_add failed: {rc}')
+
+    def admit_next(self) -> int | None:
+        rid = int(self._lib.sched_admit_next(self._handle))
+        if rid == -2:
+            raise SchedulerExhausted(
+                'request needs more KV blocks than are free with nothing '
+                'running; increase num_blocks'
+            )
+        return None if rid < 0 else rid
+
+    def prepare_decode(
+        self,
+        k: int = 1,
+        rids: 'list[int] | None' = None,
+        ks: 'list[int] | None' = None,
+    ) -> list[int]:
+        if k < 1:
+            raise ValueError('k must be >= 1')
+        if ks is not None:
+            if rids is None or len(ks) != len(rids):
+                raise ValueError('ks must parallel rids')
+            if any(kk < 1 for kk in ks):
+                raise ValueError('per-row k must be >= 1')
+            if len(set(rids)) != len(rids):
+                raise ValueError('duplicate rids with per-row ks')
+        out = self._preempted_out
+        if rids is None:
+            n = int(self._lib.sched_prepare_decode_k(self._handle, k, out))
+        else:
+            arr = (ctypes.c_int64 * max(1, len(rids)))(*rids)
+            ks_arr = (
+                (ctypes.c_int32 * max(1, len(ks)))(*ks)
+                if ks is not None
+                else None
+            )
+            n = int(
+                self._lib.sched_prepare_decode_rows_k(
+                    self._handle, k, arr, ks_arr, len(rids), out
+                )
+            )
+        if n < 0:
+            # Fatal encoding is -(1 + n_preempted): preemptions already
+            # performed are not rolled back and must reach the engine.
+            raise SchedulerExhausted(
+                'KV cache exhausted with a single running sequence; '
+                'increase num_blocks or reduce max_model_len',
+                preempted=out[:-n - 1],
+            )
+        return out[:n]
+
+    def append_token(self, rid: int) -> None:
+        if self._lib.sched_append_token(self._handle, rid) != 0:
+            raise KeyError(rid)
+
+    def trim(self, rid: int) -> int:
+        n = int(self._lib.sched_trim(self._handle, rid))
+        if n < 0:
+            raise KeyError(rid)
+        return n
+
+    def finish(self, rid: int) -> None:
+        if self._lib.sched_finish(self._handle, rid) != 0:
+            raise KeyError(rid)
+
+    def lend_prefix(self, rid: int, num_blocks: int) -> None:
+        rc = self._lib.sched_lend_prefix(self._handle, rid, num_blocks)
+        if rc == -1:
+            raise KeyError(rid)
+        if rc != 0:
+            raise ValueError(
+                f'cannot lend {num_blocks} blocks of request {rid}\'s row'
+            )
+
+    def release_blocks(self, blocks: list[int]) -> None:
+        if not blocks:
+            return
+        arr = (ctypes.c_int32 * len(blocks))(*blocks)
+        if self._lib.sched_release_blocks(self._handle, arr, len(blocks)) != 0:
+            raise RuntimeError('sched_release_blocks failed')
+
+    def num_borrowed(self, rid: int) -> int:
+        n = int(self._lib.sched_num_borrowed(self._handle, rid))
+        if n < 0:
+            raise KeyError(rid)
+        return n
+
+    def slot(self, rid: int) -> int:
+        return int(self._lib.sched_slot(self._handle, rid))
+
+    def running(self) -> list[tuple[int, int]]:
+        n = int(self._lib.sched_running(self._handle, self._slots_out, self._rids_out))
+        return list(zip(self._slots_out[:n], self._rids_out[:n]))
+
+    def block_row(self, rid: int) -> list[int]:
+        n = int(self._lib.sched_block_row(self._handle, rid, self._blocks_out, self._num_blocks))
+        if n < 0:
+            raise KeyError(rid)
+        return self._blocks_out[:n]
+
+    def num_blocks_of(self, rid: int) -> int:
+        """How many blocks ``rid``'s row holds (its ``block_row``'s length,
+        nothing copied)."""
+        n = int(self._lib.sched_block_row(self._handle, rid, None, 0))
+        if n < 0:
+            raise KeyError(rid)
+        return n
+
+    def free_list(self) -> list[int]:
+        """The free list, bottom to top (the next block handed out last)."""
+        n = int(self._lib.sched_free_list(self._handle, self._blocks_out, self._num_blocks))
+        return self._blocks_out[:n]
+
+    @property
+    def num_free_blocks(self) -> int:
+        return int(self._lib.sched_num_free(self._handle))
+
+    @property
+    def num_running(self) -> int:
+        return int(self._lib.sched_num_running(self._handle))
+
+    @property
+    def num_waiting(self) -> int:
+        return int(self._lib.sched_num_waiting(self._handle))
+
+    @property
+    def has_unfinished(self) -> bool:
+        return bool(self._lib.sched_has_unfinished(self._handle))
+
+    def __del__(self) -> None:  # pragma: no cover - interpreter teardown
+        lib = getattr(self, '_lib', None)
+        handle = getattr(self, '_handle', None)
+        if lib is not None and handle:
+            lib.sched_destroy(handle)
+            self._handle = None
+
+
+def make_scheduler(
+    num_blocks: int,
+    block_size: int,
+    max_num_seqs: int,
+    prefer_native: bool = True,
+) -> 'NativeScheduler | PyScheduler':
+    """The native scheduler when ``prefer_native`` and it builds, else the
+    Python twin, with a log line saying so (``.kind`` names which)."""
+    if prefer_native:
+        try:
+            return NativeScheduler(num_blocks, block_size, max_num_seqs)
+        except (RuntimeError, OSError) as exc:
+            # The Python twin is a tested drop-in, but the substitution
+            # is never silent.
+            from distllm_tpu_torch.observability.instruments import log_event
+
+            log_event(
+                f'[engine] native scheduler unavailable ({exc!r:.120}); '
+                'using the Python twin',
+                component='engine',
+            )
+    return PyScheduler(num_blocks, block_size, max_num_seqs)

@@ -3,12 +3,14 @@
 
 ``tpu`` and ``vllm`` (the JAX package's engine names) and the port's own
 ``torch`` build :class:`TorchGenerator` from the JAX generator config's
-keys (a ``model`` mapping picks its config class by ``name``, through
-``models.decoder_family``); ``fake`` builds :class:`FakeGenerator`. The
-JAX package's other backends need network endpoints or ``transformers``
-generation and raise naming ROADMAP A11; the JAX config field the port's
-engine lacks (serving from a checkpoint path) raises naming ROADMAP A6b. ``register=True`` keeps the built
-generator warm in the registry across work items.
+keys: ``pretrained_model_name_or_path`` serves a local HF checkpoint
+directory as the JAX ``TpuGenerator`` does, and without it a ``model``
+mapping picks its config class by ``name``, through
+``models.decoder_family``; ``tensor_parallel_size`` above 1 raises naming
+ROADMAP A10. ``fake`` builds :class:`FakeGenerator`. The JAX package's
+other backends need network endpoints or ``transformers`` generation and
+raise naming ROADMAP A11. ``register=True`` keeps the built generator
+warm in the registry across work items.
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ ENGINE_BACKENDS = ('tpu', 'vllm', 'torch')
 NOT_PORTED = dict.fromkeys(
     ('huggingface', 'api', 'langchain', 'argo', 'openai'), 'ROADMAP A11'
 )
-# Fields of the JAX generator config the port's has not yet.
-NOT_PORTED_FIELDS = {'pretrained_model_name_or_path': 'ROADMAP A6b'}
 STRATEGIES: dict[str, type] = {
     **dict.fromkeys(ENGINE_BACKENDS, TorchGenerator),
     'fake': FakeGenerator,
@@ -46,11 +46,6 @@ def engine_generator_config(kwargs: dict[str, Any]) -> TorchGeneratorConfig:
 
     backend = dict(kwargs)
     backend.pop('name', None)
-    for key in sorted(set(backend) & set(NOT_PORTED_FIELDS)):
-        raise NotImplementedError(
-            f'generator_config.{key} is not ported to distllm_tpu_torch yet '
-            f'({NOT_PORTED_FIELDS[key]})'
-        )
     if isinstance(backend.get('model'), dict):
         fields = dict(backend['model'])
         family = fields.pop('name', 'mistral')

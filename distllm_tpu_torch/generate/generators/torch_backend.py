@@ -2,12 +2,21 @@
 
 The counterpart of ``distllm_tpu.generate.generators.tpu_backend
 .TpuGenerator``: the same sampling surface (temperature, ``top_p`` XOR
-``min_p``, ``max_tokens``) and engine capacity knobs, with the model built
-from a :class:`~distllm_tpu_torch.models.mistral.MistralConfig` (or a
+``min_p``, ``max_tokens``) and engine capacity knobs. The model comes from
+``pretrained_model_name_or_path``, a local HF checkpoint directory, as
+``TpuGenerator`` builds it: ``config.json``'s ``model_type`` picks the
+family (``models.decoder_family``), ``from_hf_config`` and
+``params_from_hf`` build the config and the weights (a ``weight_load``
+start-up phase), the tokenizer is an ``HFTokenizer`` of ``tokenizer_name``
+or the path, and every ``eos_token_id`` of ``generation_config.json``
+stops a request (the first one the EOS when the tokenizer has none, the
+rest as stop ids). Without a path the model is built from a
+:class:`~distllm_tpu_torch.models.mistral.MistralConfig` (or a
 :class:`~distllm_tpu_torch.models.gemma.GemmaConfig` for the Gemma
-families) — random weights made on the device from ``seed``, or params
+families): random weights made on the device from ``seed``, or params
 bridged from the JAX package
 (:func:`~distllm_tpu_torch.models.mistral.params_from_jax`).
+``tensor_parallel_size`` above 1 raises, naming ROADMAP A10.
 ``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
 bitsandbytes flag) serves weight-only quantized weights: int8 projections
 run through kernel K2. The serving knobs of the JAX generator config
@@ -17,13 +26,14 @@ run through kernel K2. The serving knobs of the JAX generator config
 ``request_deadline_s``, ``max_dispatch_retries``, ``admission_control``)
 pass on to the engine, ``None`` inheriting its default.
 The engine is warmed up at construction (its decode graphs, and with
-``draft_k`` its verify graphs, captured on the GPU). Loading an HF
-checkpoint and tokenizer waits until such files are in the repository.
+``draft_k`` its verify graphs, captured on the GPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 import torch
 
@@ -33,7 +43,8 @@ from distllm_tpu_torch.generate.engine import (
     SamplingParams,
 )
 from distllm_tpu_torch.models import mistral
-from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+from distllm_tpu_torch.models.tokenizer import HFTokenizer, WhitespaceTokenizer
+from distllm_tpu_torch.observability.startup import get_compile_watcher
 from distllm_tpu_torch.ops.paged_attention import ATTN_BACKENDS
 from distllm_tpu_torch.ops.quantization import normalize_mode
 from distllm_tpu_torch.resilience.admission import EngineOverloaded
@@ -54,6 +65,13 @@ _ENGINE_KNOBS = (
 
 @dataclasses.dataclass
 class TorchGeneratorConfig(BaseConfig):
+    # A local HF-format decoder checkpoint directory; when set, the model
+    # and the tokenizer come from it and ``model`` is not read.
+    pretrained_model_name_or_path: str | None = None
+    tokenizer_name: str | None = None
+    trust_remote_code: bool = False
+    # The JAX field; only 1 is ported (tensor parallelism is ROADMAP A10).
+    tensor_parallel_size: int = 1
     model: mistral.MistralConfig = dataclasses.field(
         default_factory=mistral.MistralConfig
     )
@@ -101,6 +119,13 @@ class TorchGeneratorConfig(BaseConfig):
     device: str | None = None
 
     def validate(self) -> None:
+        if self.tensor_parallel_size < 1:
+            raise ValueError('tensor_parallel_size must be >= 1')
+        if self.tensor_parallel_size > 1:
+            raise NotImplementedError(
+                'tensor_parallel_size > 1 is not ported to distllm_tpu_torch '
+                'yet (ROADMAP A10)'
+            )
         if self.max_tokens < 1:
             raise ValueError('max_tokens must be >= 1')
         if self.top_p < 0 or (self.min_p or 0.0) < 0:
@@ -128,6 +153,51 @@ class TorchGeneratorConfig(BaseConfig):
         )
 
 
+def generation_config_eos(model_dir: str) -> tuple[int, ...]:
+    """Every ``eos_token_id`` of the checkpoint's ``generation_config.json``
+    (an int or a list, as vLLM honours them); ``()`` when the file is
+    missing or malformed (the JAX ``_generation_config_eos``)."""
+    path = Path(model_dir) / 'generation_config.json'
+    if not path.exists():
+        return ()
+    try:
+        eos = json.loads(path.read_text()).get('eos_token_id')
+        ids = eos if isinstance(eos, list) else [eos]
+        return tuple(int(i) for i in ids if i is not None)
+    except (OSError, ValueError, TypeError, AttributeError):
+        return ()
+
+
+def load_checkpoint(config: TorchGeneratorConfig, device: torch.device):
+    """``(model_cfg, params, tokenizer, extra_stop_ids)`` of the config's
+    checkpoint directory, as ``TpuGenerator.__init__`` builds them: the
+    family from ``config.json``'s ``model_type``, its ``from_hf_config``
+    and ``params_from_hf`` (the params on ``device``), an ``HFTokenizer``
+    of ``tokenizer_name`` or the path whose EOS is its own or else the
+    first of ``generation_config.json``'s, and that file's other EOS ids
+    as extra stop ids."""
+    from distllm_tpu_torch.models import decoder_family
+    from distllm_tpu_torch.models.loader import read_checkpoint, read_hf_config
+
+    path = config.pretrained_model_name_or_path
+    hf_cfg = read_hf_config(path)
+    cfg_cls, family = decoder_family(hf_cfg.get('model_type', 'mistral'))
+    model_cfg = cfg_cls.from_hf_config(hf_cfg)
+    with get_compile_watcher().phase('weight_load', Path(path).name or path) as phase:
+        params = family.params_from_hf(read_checkpoint(path), model_cfg, device=device)
+        phase['model_type'] = hf_cfg.get('model_type', 'mistral')
+    tokenizer = HFTokenizer(
+        config.tokenizer_name or path, trust_remote_code=config.trust_remote_code,
+    )
+    gc_eos = generation_config_eos(path)
+    if getattr(tokenizer._tok, 'eos_token_id', None) is not None:
+        tokenizer.eos_id = int(tokenizer._tok.eos_token_id)
+    elif gc_eos:
+        tokenizer.eos_id = gc_eos[0]
+    extra = tuple(i for i in gc_eos if i != getattr(tokenizer, 'eos_id', None))
+    return model_cfg, params, tokenizer, extra
+
+
 class TorchGenerator:
     def __init__(
         self,
@@ -140,15 +210,23 @@ class TorchGenerator:
         self.config = config
         device = resolve_device(config.device)
         model_cfg = config.model
-        # Weights made here are ours: the engine may free each float leaf
-        # as its quantized codes appear.
+        # Weights made or read here are ours: the engine may free each
+        # float leaf as its quantized codes appear.
         own_params = params is None
-        if own_params:
+        # Stop ids of generation_config.json beyond the EOS.
+        self._extra_stop_ids: tuple[int, ...] = ()
+        if own_params and config.pretrained_model_name_or_path:
+            model_cfg, params, hf_tokenizer, self._extra_stop_ids = load_checkpoint(
+                config, device
+            )
+            tokenizer = tokenizer or hf_tokenizer
+        elif own_params:
             params = mistral.init(
                 model_cfg,
                 torch.Generator(device=device).manual_seed(config.seed),
                 device=device,
             )
+        self.model_cfg = model_cfg
         self.tokenizer = tokenizer or WhitespaceTokenizer(
             vocab_size=model_cfg.vocab_size,
             model_max_length=config.max_model_len,
@@ -176,6 +254,8 @@ class TorchGenerator:
             top_p=self.config.top_p or 1.0,
             min_p=min_p,
             max_tokens=self.config.max_tokens,
+            # generation_config.json's stop ids beyond the EOS.
+            stop_token_ids=getattr(self, '_extra_stop_ids', ()),
         )
 
     def generate(

@@ -189,3 +189,6 @@ class HFTokenizer(_BucketingMixin):
             list(texts), truncation=True, max_length=max_length, padding=False
         )
         return self._pad_to_bucket(enc['input_ids'], self.pad_id, max_length)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode([int(i) for i in ids], skip_special_tokens=True)

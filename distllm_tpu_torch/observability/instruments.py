@@ -476,6 +476,9 @@ COMPILE_PHASES = frozenset({
     'mixed_window',       # one chunk-bucket mixed-window shape
     'spec_window',        # the speculative verify window
     'spec_mixed_window',  # one chunk-bucket spec-mixed shape
+    # The port's own phases:
+    'kernel_build',       # one nvcc build of a CUDA kernel (ops/_build.py)
+    'weight_load',        # a checkpoint's tensors read into the param tree
 })
 for _outcome in ('met', 'missed'):
     REQUEST_SLO.labels(outcome=_outcome)

@@ -3,7 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface under ``distllm_tpu_torch/_build/`` and loaded with
-``ctypes``. The library's file name carries a hash of the source, of the
+``ctypes``; the host C++ of ``csrc/host/`` (the engine's native scheduler
+and block allocator) is built the same way with ``g++``
+(:func:`build_host`). The library's file name carries a hash of the source, of the
 shared headers (``csrc/*.cuh``) and of the flags, so an edited source or
 header rebuilds at its next use and an unchanged one loads at once. Nothing is built when a module is imported: the first call
 that launches a kernel builds it. A failed build raises; there is no
@@ -37,12 +39,22 @@ NVCC_FLAGS = (
     '-Xptxas', '-v',
 )
 
+# Host (C++) libraries under csrc/host/, built with g++ (the scheduler and
+# the block allocator of the engine).
+HOST_SOURCES = {
+    'scheduler': 'host/scheduler.cpp',
+    'block_allocator': 'host/block_allocator.cpp',
+}
+GXX_FLAGS = ('-O2', '-shared', '-fPIC', '-std=c++17')
+
 # One lock per kernel: two kernels build at once, one kernel builds once.
-_locks = {name: threading.Lock() for name in SOURCES}
+_locks = {name: threading.Lock() for name in (*SOURCES, *HOST_SOURCES)}
 _lock = threading.Lock()  # guards _loaded
 _loaded: dict[str, ctypes.CDLL] = {}
 # ptxas register/shared-memory report of each kernel built by this process.
 build_logs: dict[str, str] = {}
+# Host libraries this process built or found: built once a process.
+_host_built: dict[str, Path] = {}
 
 
 def find_nvcc() -> str:
@@ -71,9 +83,14 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Build kernel ``name``'s library unless it exists for the current
     source; return its path. Raises with nvcc's output if the build fails."""
-    with _locks[name]:
+    from distllm_tpu_torch.observability.startup import get_compile_watcher
+
+    # One 'kernel_build' start-up phase per call: a cache hit when the
+    # library exists for the current source and flags.
+    with _locks[name], get_compile_watcher().phase('kernel_build', name) as phase:
         target = library_path(name)
         if target.exists():
+            phase['cache_hit'] = True
             return target
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f'.{os.getpid()}.tmp')
@@ -90,6 +107,46 @@ def build(name: str) -> Path:
             )
         os.replace(tmp, target)  # atomic: a reader never sees a partial library
         build_logs[name] = proc.stdout
+        return target
+
+
+def build_host(name: str) -> Path:
+    """Build host library ``name`` of :data:`HOST_SOURCES` with ``g++``
+    unless it exists for the current source and flags; return its path
+    (once a process: later calls return it at once). Raises
+    ``RuntimeError`` with the compiler's output if ``g++`` is missing or
+    fails (the engine then takes the Python twin)."""
+    from distllm_tpu_torch.observability.startup import get_compile_watcher
+
+    built = _host_built.get(name)
+    if built is not None:
+        return built
+    source = CSRC_DIR / HOST_SOURCES[name]
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update(' '.join(GXX_FLAGS).encode())
+    target = BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
+    with _locks[name], get_compile_watcher().phase('kernel_build', name) as phase:
+        if target.exists():
+            phase['cache_hit'] = True
+            _host_built[name] = target
+            return target
+        gxx = shutil.which('g++')
+        if gxx is None:
+            raise RuntimeError(f'g++ not found: cannot build the host library {name!r}')
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f'.{os.getpid()}.tmp')
+        proc = subprocess.run(
+            [gxx, *GXX_FLAGS, str(source), '-o', str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300,
+        )
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f'g++ failed to build the host library {name!r} '
+                f'(exit {proc.returncode}):\n{proc.stdout}'
+            )
+        os.replace(tmp, target)
+        _host_built[name] = target
         return target
 
 

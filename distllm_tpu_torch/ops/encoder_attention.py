@@ -38,6 +38,8 @@ import ctypes
 
 import torch
 
+from distllm_tpu_torch.observability import op_cost as _op_cost
+
 from distllm_tpu_torch.ops import _build
 
 NEG_BIG = -1e9
@@ -223,6 +225,14 @@ def encoder_attention_cuda(
         )
     encoder_attention.launches += 1
     encoder_attention.launches_by_route[route] += 1
+    if _op_cost.counting():
+        # q, k, v read and out written once, the mask and any bias read;
+        # 4 * Hd FLOPs per (query, key, head).
+        _op_cost.add_kernel_cost(
+            4.0 * b * num_heads * s * s * hd,
+            4 * b * s * d * q.element_size() + b * s * 4
+            + (0 if bias is None else s * s * 4),
+        )
     return out
 
 

@@ -59,6 +59,8 @@ from typing import NamedTuple
 
 import torch
 
+from distllm_tpu_torch.observability import op_cost as _op_cost
+
 from distllm_tpu_torch.ops import _build
 
 # Query rows (span positions x GQA group) one thread block holds.
@@ -700,6 +702,11 @@ def ragged_paged_attention_cuda(
     ragged_paged_attention.launches_by_route[route] += 1
     ragged_paged_attention.launches_by_kv[kv_mode] += 1
     ragged_paged_attention.launches_by_head_dim[head_dim] += 1
+    if _op_cost.counting():
+        _op_cost.add_attention_launch(_op_cost.AttentionLaunch(
+            b, s, num_heads, num_kv_heads, head_dim, q.element_size(),
+            k_data.element_size(), bt.shape[1], block_size, quantized, window,
+        ))
     return out
 
 

@@ -38,6 +38,8 @@ import math
 
 import torch
 
+from distllm_tpu_torch.observability import op_cost as _op_cost
+
 from distllm_tpu_torch.ops import _build
 
 QMM_BACKENDS = ('auto', 'reference')
@@ -279,6 +281,12 @@ def int8_matmul_cuda(
         )
     int8_matmul.launches += 1
     int8_matmul.launches_by_route[route] += 1
+    if _op_cost.counting():
+        # x read, codes and scales read, out written once; 2 FLOPs a MAC.
+        _op_cost.add_kernel_cost(
+            2.0 * m * k * n,
+            (m * k + m * n) * x.element_size() + k * n + n * 4,
+        )
     return out
 
 

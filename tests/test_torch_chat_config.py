@@ -166,11 +166,32 @@ def test_fake_and_http_backends_wait_on_a11(tmp_path, name):
 
 
 def test_jax_generator_fields_the_port_lacks_wait_on_a6(tmp_path, monkeypatch):
-    """Serving from a checkpoint path still waits (on A6b); the resilience
-    fields read as the JAX app reads them, and an engine backend gets the
-    JAX app's serving defaults (a 120 s deadline, 2 dispatch retries)."""
-    path, _ = _engine_yaml(tmp_path, pretrained_model_name_or_path='/nonexistent')
-    with pytest.raises(NotImplementedError, match='A6b'):
+    """Serving from a checkpoint path (ROADMAP A6b, ported) builds the
+    generator the JAX app builds: the same kwargs reach the backend and the
+    same text comes out; tensor parallelism still waits (on A10). The
+    resilience fields read as the JAX app reads them, and an engine backend
+    gets the JAX app's serving defaults (a 120 s deadline, 2 dispatch
+    retries)."""
+    from distllm_tpu.generate.generators.tpu_backend import TpuGenerator
+    from tests.test_torch_checkpoint_serve import write_checkpoint
+
+    ckpt = str(write_checkpoint(tmp_path / 'ckpt'))
+    path, raw = _engine_yaml(tmp_path, name='tpu', pretrained_model_name_or_path=ckpt)
+    del raw['generator_config']['model']
+    path.write_text(yaml.safe_dump(raw))
+    config, _ = load_app_config(str(path))
+    jax_kwargs = _jax_backend_kwargs(raw, monkeypatch)
+    assert config.pretrained_model_name_or_path == jax_kwargs['pretrained_model_name_or_path']
+    port = TorchGenerator(config)
+    ref = TpuGenerator(TpuGeneratorConfig(**{
+        k: v for k, v in jax_kwargs.items() if k != 'device'
+    }, attn_backend='xla'))
+    assert port.model_cfg.vocab_size == ref.engine.model_cfg.vocab_size
+    prompts = ['w1 w2 w3', 'w40 w41']
+    assert port.generate(prompts) == ref.generate(prompts)
+    raw['generator_config']['tensor_parallel_size'] = 2
+    path.write_text(yaml.safe_dump(raw))
+    with pytest.raises(NotImplementedError, match='A10'):
         load_app_config(str(path))
     path, raw = _engine_yaml(tmp_path, name='tpu', request_deadline_s=30.0)
     config, _ = load_app_config(str(path))

@@ -9,7 +9,8 @@
   ``amp_jsonl`` lines and their merge).
 - The generator factory: ``fake`` as JAX's, ``tpu`` / ``vllm`` / ``torch``
   build the engine, the network and ``transformers`` backends raise
-  naming ROADMAP A11, the JAX field the engine lacks naming A6b, the
+  naming ROADMAP A11, a checkpoint path read as JAX reads it and
+  tensor parallelism naming A10, the
   fake backend's `overload_every` shed signal as JAX's, an
   unknown name as JAX's; ``register=True`` reuses the warm instance.
 - ``run_generation`` in both packages on
@@ -187,8 +188,15 @@ def test_generator_factory_names():
         get_generator({'name': 'nope'})
     with pytest.raises(ValueError, match='Unknown generator name'):
         distllm_tpu.generate.get_generator({'name': 'nope'})
-    with pytest.raises(NotImplementedError, match='ROADMAP A6b'):
-        get_generator({'name': 'tpu', 'pretrained_model_name_or_path': '/x', 'device': 'cpu'})
+    # A checkpoint path is read as the JAX generator reads it (a missing
+    # directory fails alike); tensor parallelism waits on ROADMAP A10.
+    ckpt = {'name': 'tpu', 'pretrained_model_name_or_path': '/nonexistent-checkpoint'}
+    with pytest.raises(FileNotFoundError):
+        get_generator({**ckpt, 'device': 'cpu'})
+    with pytest.raises(FileNotFoundError):
+        distllm_tpu.generate.get_generator(ckpt)
+    with pytest.raises(NotImplementedError, match='ROADMAP A10'):
+        get_generator({**ckpt, 'tensor_parallel_size': 2, 'device': 'cpu'})
     # overload_every: every second call raises the engine's shed signal, as
     # the JAX FakeGenerator does.
     overload = {'name': 'fake', 'overload_every': 2}

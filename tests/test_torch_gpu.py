@@ -55,6 +55,12 @@ accumulator, a term that follows the partial sums; quantizing on the card
 gives the CPU's codes bitwise. ``run_loadgen`` over a small fp32 engine
 gives the plain op's tokens with every share of the roofline in
 (0, 1.05], with attribution off and under a recovered fault alike.
+The pipelined loop (depth 2 and 3, and ``defer_prefill``) replays windows
+that are each bitwise the eager ``decode_loop`` on their inputs and pool,
+its device-side carry merges as the host asked, and one slot at any depth
+gives depth 1's tokens; the native scheduler builds with g++ on the card
+machine and makes the Python twin's decisions; a ``ProfilerCapture``
+stops itself and its trace holds K1's launches.
 """
 
 import numpy as np
@@ -1354,16 +1360,19 @@ def _pools(engine, planes):
 
 
 def _record_windows(engine):
-    """Keep every window's inputs, the pool before it, its graph tokens and
-    the pool after it."""
+    """Keep every window's inputs, the carry of last ids its load merged,
+    the pool before it, its graph tokens and the pool after it (clones
+    ordered on the stream, so a pipelined run's windows in flight keep
+    what each saw)."""
     runner = engine._decode
     windows = []
     load, run = runner.load, runner.run
 
-    def recording_load(*host):
+    def recording_load(*host, **kw):
         windows.append({'host': [np.array(h, copy=True) for h in host],
                         'before': [p.clone() for p in engine._pool_planes()]})
-        load(*host)
+        load(*host, **kw)
+        windows[-1]['ids'] = runner.ids.clone()
 
     def recording_run(num_steps, all_greedy):
         tokens = run(num_steps, all_greedy)
@@ -1382,7 +1391,7 @@ def _windows_equal_the_eager_loop(engine, windows) -> bool:
         dev = [torch.from_numpy(np.asarray(x)).cuda() for x in w['host']]
         k, v = _pools(engine, w['before'])
         eager = mistral.decode_loop(
-            engine.params, engine.model_cfg, dev[0], dev[1], k, v, dev[3], dev[2], *dev[4:],
+            engine.params, engine.model_cfg, w['ids'], dev[1], k, v, dev[3], dev[2], *dev[4:],
             num_steps=w['steps'], max_table_positions=engine.config.max_model_len,
             all_greedy=w['greedy'],
         )[0]
@@ -1658,7 +1667,7 @@ def _rollback_holds(mutant_skips_trim: bool) -> bool:
         assert all(torch.equal(x, y) for x, y in zip(_pool_rows(wrong, a), _pool_rows(none, b)))
         if ra.num_tokens % wrong.config.block_size:
             holds &= wrong.sched.block_row(a) == base.sched.block_row(c)
-            holds &= wrong.sched._free == base.sched._free
+            holds &= wrong.sched.free_list() == base.sched.free_list()
     assert wrong.stats['spec_draft_tokens'] > 0 and wrong.stats['spec_accepted_tokens'] == 0
     for e in (wrong, none, base):
         e.shutdown()
@@ -1950,3 +1959,174 @@ def test_run_loadgen_on_the_card(cuda):
     assert reports['auto'].tokens_by_request == reports['reference'].tokens_by_request
     assert all(len(t) == a.max_tokens for t, a in zip(reports['auto'].tokens_by_request,
                                                        workload))
+
+
+# ------------------------------------------------- the pipelined loop (A6b)
+def _record_pipelined(engine):
+    """Keep, for every window: the host inputs, the carry of last ids the
+    load merged (cloned on the stream, after the merge), a copy of the
+    pool before the window's replays and after them, and its tokens (all
+    clones ordered on the stream, so they hold what the window saw even
+    while later windows are queued); and, in order among them, every
+    deferred prefill's scatter into the carry."""
+    runner = engine._decode
+    windows = []
+    load, run = runner.load, runner.run
+
+    def recording_load(*host, take_host=None):
+        load(*host, take_host=take_host)
+        windows.append({'host': [np.array(h, copy=True) for h in host],
+                        'take_host': None if take_host is None else take_host.copy(),
+                        'ids': runner.ids.clone(),
+                        'before': [p.clone() for p in engine._pool_planes()]})
+
+    def recording_run(num_steps, all_greedy):
+        tokens = run(num_steps, all_greedy)
+        windows[-1].update(tokens=tokens.clone(), steps=num_steps, greedy=all_greedy,
+                           after=[p.clone() for p in engine._pool_planes()])
+        return tokens
+
+    def recording_scatter(slots, tokens):
+        scatter(slots, tokens)
+        windows.append({'scatter': (slots.cpu().tolist(), tokens.cpu().tolist())})
+
+    scatter = runner.scatter_ids
+    runner.load, runner.run, runner.scatter_ids = recording_load, recording_run, recording_scatter
+    return windows
+
+
+@pytest.mark.parametrize('depth,defer', [(2, False), (3, False), (2, True)])
+def test_pipelined_graph_windows_equal_the_eager_loop_bitwise(cuda, depth, defer):
+    """bf16, more prompts than slots, stop ids inside windows: every window
+    the pipelined loop replays is bitwise the eager ``decode_loop`` on the
+    same inputs and the same pool (its tokens and every pool byte but the
+    trash block's); the carry a window starts from holds, for every row
+    that kept it, the last token the previous window made for that slot
+    (the device-side merge), and the host's id for every other row; and
+    the tokens equal the depth-1 engine's, served in the same batches
+    (one slot, so admission cannot react differently)."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.models import mistral
+
+    rng = np.random.default_rng(31)
+    prompts = [[int(t) for t in rng.integers(4, 512, size=n)] for n in (9, 30, 17, 44, 5, 23)]
+    engine = _graph_engine('bf16', pipeline_depth=depth, defer_prefill=defer)
+    engine.warmup()
+    probe = engine.generate_ids(prompts, SamplingParams(temperature=0.0, max_tokens=20))
+    stops = tuple({o[6] for o in probe if len(o) > 6})[:2]
+    sampling = SamplingParams(temperature=0.0, max_tokens=20, stop_token_ids=stops)
+    windows = _record_pipelined(engine)
+    out = engine.generate_ids(prompts, sampling)
+    assert engine.telemetry['overshoot_tokens'] > 0
+    last = {}
+    for w in windows:
+        if 'scatter' in w:  # a deferred prefill's first tokens, into the carry
+            last.update(zip(*w['scatter']))
+            continue
+        ids = w['ids'].cpu().numpy()
+        host_ids = w['host'][0]
+        take = np.ones_like(host_ids) if w['take_host'] is None else w['take_host']
+        for row in range(len(ids)):
+            if take[row]:
+                assert ids[row] == host_ids[row]
+            elif row in last:
+                assert ids[row] == last[row]
+        dev = [torch.from_numpy(np.asarray(x)).cuda() for x in w['host']]
+        k, v = _pools(engine, w['before'])
+        eager = mistral.decode_loop(
+            engine.params, engine.model_cfg, w['ids'], dev[1], k, v, dev[3], dev[2], *dev[4:],
+            num_steps=w['steps'], max_table_positions=engine.config.max_model_len,
+            all_greedy=w['greedy'],
+        )[0]
+        steps_left = w['host'][4]
+        for row, n in enumerate(np.minimum(steps_left, w['steps'])):
+            assert torch.equal(w['tokens'][:n, row], eager[:n, row])
+            if n:
+                last[row] = int(w['tokens'][n - 1, row])
+        assert all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(w['after'], w['before']))
+    engine.shutdown()
+    one = _graph_engine('bf16', max_num_seqs=1, pipeline_depth=1)
+    deep = _graph_engine('bf16', max_num_seqs=1, pipeline_depth=depth, defer_prefill=defer)
+    for e in (one, deep):
+        e.warmup()
+    assert deep.generate_ids(prompts, sampling) == one.generate_ids(prompts, sampling)
+    assert len(out) == len(prompts)
+    for e in (one, deep):
+        e.shutdown()
+
+
+def test_native_scheduler_builds_on_the_card_machine(cuda):
+    """The host C++ scheduler builds with g++ here and makes the Python
+    twin's decisions on a random operation sequence; an engine takes it."""
+    from distllm_tpu_torch.generate.engine import (
+        NativeScheduler,
+        PyScheduler,
+        SchedulerExhausted,
+    )
+
+    def drive(sched, seed):
+        rng = np.random.default_rng(seed)
+        trace, live, rid = [], set(), 0
+        for _ in range(300):
+            action = int(rng.integers(0, 4))
+            if action == 0 or not live:
+                n = int(rng.integers(1, 40))
+                sched.add(rid, n)
+                live.add(rid)
+                trace.append(('add', rid, n))
+                rid += 1
+            elif action == 1:
+                try:
+                    admitted = []
+                    while (got := sched.admit_next()) is not None:
+                        admitted.append(got)
+                except SchedulerExhausted:
+                    admitted.append('exhausted')
+                trace.append(('admit', tuple(admitted)))
+            elif action == 2 and sched.num_running:
+                try:
+                    trace.append(('prepare', tuple(sched.prepare_decode(int(rng.integers(1, 6))))))
+                except SchedulerExhausted as exc:
+                    trace.append(('exhausted', tuple(exc.preempted)))
+                for r in sorted(live):
+                    if sched.slot(r) >= 0:
+                        sched.append_token(r)
+            else:
+                running = [r for r in sorted(live) if sched.slot(r) >= 0]
+                if running:
+                    r = running[int(rng.integers(0, len(running)))]
+                    sched.finish(r)
+                    live.discard(r)
+            trace.append((sched.num_free_blocks, sched.num_running, sched.num_waiting,
+                          tuple(sched.free_list())))
+        return trace
+
+    for seed in range(3):
+        assert drive(NativeScheduler(32, 4, 3), seed) == drive(PyScheduler(32, 4, 3), seed)
+    engine = _graph_engine('bf16', prefer_native_allocator=True)
+    assert engine.scheduler_kind == 'native' and engine.telemetry['scheduler'] == 'native'
+    engine.shutdown()
+
+
+def test_profiler_capture_stops_itself_and_traces_the_kernel(cuda, tmp_path):
+    """A ``ProfilerCapture`` started for 0.5 s while K1 runs stops itself;
+    its Chrome trace holds the kernel's launches."""
+    import time
+
+    from distllm_tpu_torch.observability.profiling import ProfilerCapture
+
+    case = _case(3, nh=32, nkv=8, hd=128, dtype='bfloat16', ctxs=[300, 900], q_lens=[1, 1],
+                 span=1)
+    capture = ProfilerCapture()
+    assert capture.start(tmp_path / 'trace', max_seconds=0.5)
+    deadline = time.monotonic() + 30
+    while capture.state()['active'] is not None and time.monotonic() < deadline:
+        tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+        torch.cuda.synchronize()
+    assert capture.state()['active'] is None
+    while capture.state()['captures_total'] < 1 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    import json
+
+    events = json.load(open(tmp_path / 'trace' / 'trace.json'))['traceEvents']
+    assert any('ragged_paged_attention' in str(e.get('name', '')) for e in events)

@@ -105,5 +105,15 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.resilience.admission',
         'distllm_tpu_torch.resilience.faults',
         'distllm_tpu_torch.generate.loadgen',
+        'distllm_tpu_torch.observability.history',
+        'distllm_tpu_torch.observability.slo',
+        'distllm_tpu_torch.observability.baseline',
+        'distllm_tpu_torch.observability.sentinel',
+        'distllm_tpu_torch.observability.perfetto',
+        'distllm_tpu_torch.observability.profiling',
+        'distllm_tpu_torch.observability.startup',
+        'distllm_tpu_torch.observability.op_cost',
+        'distllm_tpu_torch.observability.aggregate',
+        'distllm_tpu_torch.timer',
     }
     assert expected <= set(result['imported'])

@@ -408,7 +408,7 @@ def test_rejected_suffix_rolls_back_to_the_never_drafted_state(tree):
     assert spec.stats['spec_draft_tokens'] > 0 and spec.stats['spec_accepted_tokens'] == 0
     assert spec._requests[a].output_ids == base._requests[b].output_ids
     assert spec.sched.block_row(a) == base.sched.block_row(b)
-    assert spec.sched._free == base.sched._free
+    assert spec.sched.free_list() == base.sched.free_list()
     pa, pb = spec.prefix_cache, base.prefix_cache
     assert set(pa._entries) == set(pb._entries)
     for digest, entry in pa._entries.items():
