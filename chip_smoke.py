@@ -369,9 +369,30 @@ carried on):
     ``xprof`` capture whose trace names K1's kernel), a ``slow_window``
     stall under ``DISTLLM_WATCHDOG_S`` makes the watchdog dump a bundle,
     the compile series count the kernel builds and graph captures, and
-    every series ROADMAP A6b listed at zero moves.
+    every series ROADMAP A6b listed at zero moves;
+18. MCQA — inside phase 15's run, over the registry's warm Mistral-7B
+    generator (32 layers, bf16): 4096 chunks embedded by ``run_embedding``
+    through a BERT-base checkpoint written on the card (K3) and merged;
+    64 questions made from them (a stem, four options, the reference and
+    the source ``chunk_id``); ``run_mcqa`` from a YAML on disk with
+    ``retriever_config`` (BERT-base queries, K3), the model behind a
+    ``ChatServer`` reached over HTTP (``ApiGenerator`` ->
+    ``BatchingClient`` -> the engine, K1 on every pass's route) and a
+    ``fake``-backend ``ChatServer`` grading: every question answered and
+    graded, results.json with the JAX harness's keys, a second run resumes
+    and asks nothing; questions/s, answer latency p50/p95, tok/s;
+18b. a booted server — inside 17c's run: ``run_mcqa`` with
+    ``local_model_path`` = 17c's checkpoint boots ``python -m
+    distllm_tpu_torch.chat_server`` on the card; 16 answers equal a direct
+    generator's on the same checkpoint; the process exits at ``stop()``;
+18c. the CLI — ``generate --generator_name tpu`` on 17c's checkpoint
+    (K1), ``embed`` on a BERT-base-width checkpoint of 4 layers (K3),
+    ``merge`` of its shards;
+18d. MCQA identity — fp32 at depth 2: phase 18's first 16 questions give
+    identical answers through K1 and through the plain op; the retriever's
+    encoder on K3 within phase 12's tolerance of its plain op.
 
-Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d and 17-17d prints its seconds. The last three lines of
+Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d, 17-17d and 18-18d prints its seconds. The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
@@ -381,7 +402,8 @@ headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
 phases' under ``load``, phase 17's under ``pipeline`` and 17c's under
 ``checkpoint``, K3's under ``retriever``, K2's embed headline, its
 verify rows under ``verify`` and 17c's int8 launches under
-``checkpoint``), the card's
+``checkpoint``, phases 18-18d's K1 and K3 launches under ``mcqa`` and
+``cli``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -5337,6 +5359,539 @@ def phase_debug_surface(torch, tpa, card, generator, tmp: Path):
     return out
 
 
+# ------------------------------------------------------------ phases 18-18d
+# The MCQA harness, the booted server and the CLI (ROADMAP A11a).
+MCQA_CHUNKS, MCQA_FILES, MCQA_QUESTIONS, MCQA_TOP_K = 4096, 4, 64, 3
+# The run's knobs: 8 workers, client batches of 16; the server answers
+# with its generator's max_tokens (RAG_NEW), as the JAX server does.
+MCQA_RUN = dict(parallel_workers=8, batch_size=16, batch_timeout=0.5, request_max_tokens=32,
+                checkpoint_every=16, retrieval_top_k=MCQA_TOP_K)
+MCQA_BOOT_QUESTIONS, MCQA_IDENTITY_QUESTIONS, MCQA_IDENTITY_NEW = 16, 16, 16
+# The booted server's engine (vLLM's argument names). Its generator keeps
+# the JAX default of 2000 tokens, so max_model_len bounds each answer.
+MCQA_BOOT_VLLM = dict(tensor_parallel_size=1, max_model_len=256, max_num_seqs=16,
+                      block_size=BLOCK_SIZE, num_blocks=512)
+CLI_ROWS, CLI_EMBED_TEXTS, CLI_EMBED_LAYERS = 16, 512, 4
+# The fake grader's answer: one JSON verdict (braces doubled for format).
+GRADER_VERDICT = '{{"correct": true, "reason": "fake grader"}}'
+# The keys of the JAX harness's results.json.
+MCQA_SUMMARY_KEYS = {'total_questions', 'graded', 'correct', 'accuracy', 'errors', 'elapsed_s',
+                     'throughput_qps', 'batches_sent', 'model', 'questions_file'}
+MCQA_RESULT_KEYS = {'entry', 'answer', 'retrieval', 'correct', 'grader_reason',
+                    'grader_ladder_level'}
+
+
+def write_bert_checkpoint(torch, root: Path, cfg, seed):
+    """An HF BERT checkpoint directory of random weights made on the card
+    (seed ``seed``): ``model.safetensors`` in ``BertModel`` key names,
+    ``config.json`` and a ``BertTokenizerFast`` over ``w<i>`` words."""
+    from safetensors.torch import save_file
+    from transformers import BertTokenizerFast
+
+    from distllm_tpu_torch.models import bert
+
+    root.mkdir(parents=True, exist_ok=True)
+    vocab = ['[PAD]', '[UNK]', '[CLS]', '[SEP]', '[MASK]'] + [
+        f'w{i}' for i in range(cfg.vocab_size - 5)]
+    (root / 'vocab.txt').write_text('\n'.join(vocab) + '\n')
+    BertTokenizerFast(vocab_file=str(root / 'vocab.txt')).save_pretrained(root)
+    params = bert.init(cfg, torch.Generator(device=DEVICE).manual_seed(seed), device=DEVICE,
+                       dtype='float32')
+
+    def host(x):
+        return x.detach().float().contiguous().cpu()
+
+    emb, layers = params['embeddings'], params['layers']
+    state = {
+        'embeddings.word_embeddings.weight': host(emb['word']),
+        'embeddings.position_embeddings.weight': host(emb['position']),
+        'embeddings.token_type_embeddings.weight': host(emb['token_type']),
+        'embeddings.LayerNorm.weight': host(emb['ln']['scale']),
+        'embeddings.LayerNorm.bias': host(emb['ln']['bias']),
+    }
+    names = {'q': 'attention.self.query', 'k': 'attention.self.key',
+             'v': 'attention.self.value', 'o': 'attention.output.dense',
+             'up': 'intermediate.dense', 'down': 'output.dense'}
+    for li in range(cfg.num_layers):
+        p = f'encoder.layer.{li}'
+        for ours, theirs in names.items():
+            state[f'{p}.{theirs}.weight'] = host(layers[ours]['kernel'][li].T)
+            state[f'{p}.{theirs}.bias'] = host(layers[ours]['bias'][li])
+        for ours, theirs in (('attn_ln', 'attention.output.LayerNorm'),
+                             ('mlp_ln', 'output.LayerNorm')):
+            state[f'{p}.{theirs}.weight'] = host(layers[ours]['scale'][li])
+            state[f'{p}.{theirs}.bias'] = host(layers[ours]['bias'][li])
+    save_file(state, str(root / 'model.safetensors'))
+    (root / 'config.json').write_text(json.dumps({
+        'model_type': 'bert', 'vocab_size': cfg.vocab_size, 'hidden_size': cfg.hidden_size,
+        'num_hidden_layers': cfg.num_layers, 'num_attention_heads': cfg.num_heads,
+        'intermediate_size': cfg.intermediate_size,
+        'max_position_embeddings': cfg.max_position_embeddings,
+        'type_vocab_size': cfg.type_vocab_size, 'layer_norm_eps': cfg.layer_norm_eps,
+        'hidden_act': cfg.hidden_act,
+    }))
+    del params
+    return root
+
+
+def write_jsonl_rows(root: Path, files: int, rows: int, words, lens, seed, path_of=None):
+    """``files`` jsonl files of ``rows`` rows each: ``text`` of ``lens``
+    (lo, hi) random ``words``, and a ``path``."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for f in range(files):
+        with open(root / f'part{f}.jsonl', 'w') as fh:
+            for i in range(rows):
+                n = int(rng.integers(*lens))
+                text = ' '.join(words[j] for j in rng.integers(0, len(words), size=n))
+                fh.write(json.dumps({'text': text, 'path': f'doc{f}/{i}.txt'}) + '\n')
+    return root
+
+
+def check_k3_kernel(tea, tag):
+    """K3 launched (all on the tensor cores), its plain version never."""
+    launches = tea.encoder_attention.launches
+    by_route = dict(tea.encoder_attention.launches_by_route)
+    plain = tea.encoder_attention_reference.launches
+    log(f'[{tag}] encoder_attention launches {launches}, by route {json.dumps(by_route)}; '
+        f'plain version {plain}')
+    if launches <= 0 or by_route['tensor_cores'] != launches or plain:
+        fail(f'{tag}: K3 launches {launches}, routes {by_route}, plain {plain}')
+    return dict(launches=launches, launches_by_route=by_route)
+
+
+def check_k1_kernel(tpa, tag):
+    """K1 launched, its plain version never."""
+    launches = tpa.ragged_paged_attention.launches
+    plain = tpa.ragged_paged_attention_reference.launches
+    log(f'[{tag}] ragged_paged_attention launches {launches}, by route '
+        f'{json.dumps(tpa.ragged_paged_attention.launches_by_route)}; plain op {plain}')
+    if launches <= 0 or plain:
+        fail(f'{tag}: K1 launches {launches}, plain op {plain}')
+    return dict(launches=launches,
+                launches_by_route=dict(tpa.ragged_paged_attention.launches_by_route))
+
+
+def mcqa_corpus(torch, tea, card, root: Path):
+    """Phase 18's corpus: ``MCQA_CHUNKS`` chunks as jsonl, embedded by the
+    port's embed pipeline (``run_embedding``: a BERT-base checkpoint
+    written here, bf16, K3) and merged by its writer; returns the
+    ``retriever_config`` over it, the merged rows' paths and texts, and
+    the embed run's numbers."""
+    from datasets import load_from_disk
+
+    from distllm_tpu_torch import distributed_embedding
+    from distllm_tpu_torch.embed import get_writer
+    from distllm_tpu_torch.models import bert
+
+    cfg = RETRIEVER_BERT() if RETRIEVER_BERT else bert.BertConfig()
+    t0 = time.perf_counter()
+    ckpt = write_bert_checkpoint(torch, root / 'bert', cfg, seed=0)
+    write_s = time.perf_counter() - t0
+    inputs = write_jsonl_rows(root / 'chunks', MCQA_FILES, MCQA_CHUNKS // MCQA_FILES,
+                              RAG_WORDS, (48, 97), seed=18)
+    encoder_config = {'name': 'auto', 'pretrained_model_name_or_path': str(ckpt),
+                      'half_precision': True}
+    config = distributed_embedding.Config(
+        input_dir=inputs, output_dir=root / 'embed', glob_patterns=['*.jsonl'],
+        dataset_config={'name': 'jsonl', 'batch_size': 64}, encoder_config=encoder_config,
+        pooler_config={'name': 'mean'}, embedder_config={'name': 'full_sequence'},
+        writer_config={'name': 'huggingface'},
+    )
+    zero_k3_counts(tea)
+    t0 = time.perf_counter()
+    if distributed_embedding.run_embedding(config, device=DEVICE) != 0:
+        fail('mcqa corpus: run_embedding failed')
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    k3 = check_k3_kernel(tea, 'mcqa corpus')
+    shards = sorted(p for p in (root / 'embed' / 'embeddings').iterdir() if p.is_dir())
+    get_writer({'name': 'huggingface'}).merge(shards, root / 'merged')
+    merged = load_from_disk(str(root / 'merged'))
+    if len(merged) != MCQA_CHUNKS or {'text', 'embeddings', 'path'} - set(merged.column_names):
+        fail(f'mcqa corpus: merged {len(merged)} rows, columns {merged.column_names}')
+    log(f'[mcqa corpus] {card}: BERT-base checkpoint written in {write_s:.1f} s; '
+        f'{MCQA_CHUNKS} chunks embedded by run_embedding in {embed_s:.2f} s '
+        f'({MCQA_CHUNKS / embed_s:.1f} chunks/s, {len(shards)} shards merged)')
+    retriever_config = {
+        'faiss_config': {'name': 'faiss_index_v2', 'dataset_dir': str(root / 'merged'),
+                         'precision': 'float32'},
+        'encoder_config': encoder_config, 'pooler_config': {'name': 'mean'},
+        'batch_size': RETRIEVER_BATCH,
+    }
+    return retriever_config, merged['path'], merged['text'], dict(
+        k3=k3, embed_s=embed_s, checkpoint_write_s=write_s, chunks=len(merged),
+        layers=cfg.num_layers)
+
+
+def mcqa_questions(paths, texts, n, seed):
+    """``n`` questions from corpus rows: a stem of a row's first words,
+    four options (the row's next three words among three random ones), the
+    reference answer, and the row's ``chunk_id``."""
+    from distllm_tpu_torch.mcqa.harness import chunk_id
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for idx in rng.choice(len(texts), size=n, replace=False):
+        words = texts[int(idx)].split()
+        options = [' '.join(words[10:13])] + [
+            ' '.join(rng.choice(RAG_WORDS, size=3)) for _ in range(3)]
+        order = rng.permutation(4)
+        letters = 'ABCD'
+        lines = [f'{letters[k]}. {options[o]}' for k, o in enumerate(order)]
+        right = letters[int(np.flatnonzero(order == 0)[0])]
+        out.append({
+            'question': f'Which words follow "{" ".join(words[:10])}"?\n' + '\n'.join(lines),
+            'answer': f'{right}. {options[0]}',
+            'chunk_id': chunk_id(paths[int(idx)], int(idx)),
+        })
+    return out
+
+
+def fake_grader():
+    """The grader: a second ``ChatServer`` over the ``fake`` backend, whose
+    answer is a JSON verdict (random weights cannot write JSON)."""
+    from distllm_tpu_torch.chat_server import ChatServer
+    from distllm_tpu_torch.generate.generators import get_generator
+
+    return ChatServer(get_generator({'name': 'fake', 'response_template': GRADER_VERDICT}))
+
+
+def mcqa_yaml(path: Path, questions_file: Path, output_dir: Path, model_base: str,
+              grader_base: str, retriever_config=None, **fields):
+    """The harness's YAML on disk, read back the user's way."""
+    import yaml
+
+    from distllm_tpu_torch.mcqa.config import MCQAConfig
+
+    raw = dict(questions_file=str(questions_file), output_dir=str(output_dir),
+               model_api_base=model_base, model_name='mistral-7b-random',
+               grader_api_base=grader_base, grader_model='fake-grader', **MCQA_RUN, **fields)
+    if retriever_config is not None:
+        raw['retriever_config'] = retriever_config
+    path.write_text(yaml.safe_dump(raw))
+    return MCQAConfig.from_yaml(path)
+
+
+def check_mcqa_results(tag, output_dir: Path, n):
+    """results.json carries the JAX harness's keys, every question answered
+    and graded."""
+    doc = json.loads((output_dir / 'results.json').read_text())
+    summary, results = doc['summary'], doc['results']
+    missing = MCQA_SUMMARY_KEYS - set(summary)
+    bad = [k for k, r in results.items() if set(r) != MCQA_RESULT_KEYS
+           or not isinstance(r['answer'], str) or not isinstance(r['correct'], bool)]
+    if (missing or bad or len(results) != n or summary['graded'] != n or summary['errors']
+            or set(doc) != {'summary', 'results'}):
+        fail(f'{tag}: results.json summary missing {missing}, {len(results)} results, bad '
+             f'{bad[:3]}, graded {summary.get("graded")}, errors {summary.get("errors")}')
+    return summary, results
+
+
+def percentile(values, q):
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q)) if values else None
+
+
+def phase_mcqa(torch, tpa, tea, card, tmp: Path):
+    """Phase 18: the MCQA harness on the card at full width and depth.
+    The model under test is a ``ChatServer`` over the registry's warm
+    Mistral-7B generator of phases 15b-15d, reached through
+    ``model_api_base`` (``ApiGenerator`` -> ``BatchingClient`` -> HTTP ->
+    the engine, K1); the RAG arm reads ``retriever_config`` from the YAML
+    on disk (BERT-base queries, K3, over the corpus this phase embeds);
+    the grader a fake ``ChatServer``. A second ``run_mcqa`` on the same
+    ``output_dir`` resumes: no question asked, the same accuracy."""
+    from distllm_tpu_torch.chat_server import ChatServer
+    from distllm_tpu_torch.mcqa import harness
+
+    tag = 'mcqa'
+    root = tmp / 'mcqa'
+    retriever_config, paths, texts, corpus = mcqa_corpus(torch, tea, card, root)
+    questions = mcqa_questions(paths, texts, MCQA_QUESTIONS, seed=19)
+    qfile = root / 'questions.json'
+    qfile.write_text(json.dumps(questions))
+    generator = rag_generator(torch)
+    engine = generator.engine
+    server, grader = ChatServer(generator), fake_grader()
+    latencies = []
+    answer = harness.RagAnswerer.answer
+
+    def timed_answer(self, question):
+        t0 = time.perf_counter()
+        out = answer(self, question)
+        latencies.append(time.perf_counter() - t0)
+        return out
+
+    harness.RagAnswerer.answer = timed_answer
+    try:
+        with server, grader:
+            config = mcqa_yaml(
+                root / 'mcqa.yaml', qfile, root / 'out', f'http://127.0.0.1:{server.port}/v1',
+                f'http://127.0.0.1:{grader.port}/v1', retriever_config,
+            )
+            records = instrument_prefill(torch, engine)
+            stats0, marks = dict(engine.stats), graph_marks(engine)
+            tokens0 = engine.stats.get('generated_tokens', 0)
+            zero_k1_counts(tpa)
+            zero_k3_counts(tea)
+            t0 = time.perf_counter()
+            summary = harness.run_mcqa(config, device=DEVICE)
+            wall_s = time.perf_counter() - t0
+            k3 = check_k3_kernel(tea, tag)
+            k1 = rag_engine_routes(torch, tpa, tag, engine, marks, stats0, records)
+            del engine._dispatch_prefill_paged  # instrument_prefill's wrapper
+            tokens = engine.stats['generated_tokens'] - tokens0
+            asked = len(server.timings)
+            summary, results = check_mcqa_results(tag, root / 'out', MCQA_QUESTIONS)
+            contexts = [len(r['retrieval']) for r in results.values()]
+            if asked != MCQA_QUESTIONS or min(contexts) != MCQA_TOP_K:
+                fail(f'{tag}: the model answered {asked} requests, contexts {set(contexts)}')
+            # Resume: every question is in the checkpoint; nothing is asked.
+            zero_k1_counts(tpa)
+            t0 = time.perf_counter()
+            again = harness.run_mcqa(config, device=DEVICE)
+            resume_s = time.perf_counter() - t0
+            if (len(server.timings) != asked or tpa.ragged_paged_attention.launches
+                    or again['accuracy'] != summary['accuracy']
+                    or again['graded'] != MCQA_QUESTIONS):
+                fail(f'{tag}: the resumed run asked {len(server.timings) - asked} questions, '
+                     f'accuracy {again["accuracy"]} vs {summary["accuracy"]}')
+    finally:
+        harness.RagAnswerer.answer = answer
+    out = dict(
+        questions=MCQA_QUESTIONS, wall_s=wall_s, questions_per_s=MCQA_QUESTIONS / wall_s,
+        answer_latency_p50_s=percentile(latencies, 50),
+        answer_latency_p95_s=percentile(latencies, 95),
+        generate_ms_p50=percentile([t['generate_s'] * 1e3 for t in server.timings], 50),
+        generated_tokens=tokens, generated_tokens_per_s=tokens / wall_s,
+        accuracy=summary['accuracy'], batches_sent=summary['batches_sent'],
+        source_chunk_retrieved_rate=summary.get('source_chunk_retrieved_rate'),
+        resume_s=resume_s, resumed_accuracy=again['accuracy'], k1=k1, k3=k3, corpus=corpus,
+    )
+    log(f'[{tag}] {card}: {MCQA_QUESTIONS} questions answered and graded in {wall_s:.2f} s = '
+        f'{out["questions_per_s"]:.2f} questions/s; answer latency p50 / p95 '
+        f'{out["answer_latency_p50_s"]:.3f} / {out["answer_latency_p95_s"]:.3f} s (retrieval, '
+        f'queue, HTTP and generation); {tokens} tokens = {out["generated_tokens_per_s"]:.1f} '
+        f'tok/s; accuracy {summary["accuracy"]:.4f} (fake grader), source chunk retrieved '
+        f'{out["source_chunk_retrieved_rate"]}; {summary["batches_sent"]} client batches; '
+        f'resume {resume_s:.2f} s, 0 questions asked; K1 {k1["launches"]}, K3 '
+        f'{k3["launches"]}')
+    out['_setup'] = (root, retriever_config, questions)
+    return out
+
+
+def phase_mcqa_identity(torch, tpa, tea, card, setup):
+    """Phase 18d: fp32, Mistral-7B widths at depth 2: phase 18's MCQA run
+    (its first questions, its retriever from disk) through K1 and through
+    ``attn_backend='reference'`` gives identical answers; the retriever's
+    BERT-base encoder through K3 and through its plain op within phase 12's
+    tolerance (``encoder_identity``)."""
+    from distllm_tpu_torch.chat_server import ChatServer
+    from distllm_tpu_torch.generate import get_generator
+    from distllm_tpu_torch.mcqa import harness
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+
+    root, retriever_config, questions = setup
+    tag = 'mcqa identity'
+    qfile = root / 'identity_questions.json'
+    qfile.write_text(json.dumps(questions[:MCQA_IDENTITY_QUESTIONS]))
+    answers, counts = {}, {}
+    for arm, backend in (('kernel', 'auto'), ('plain', 'reference')):
+        kwargs = {**rag_generator_config(), 'model': {**RAG_MODEL, 'num_layers': 2,
+                                                      'dtype': 'float32'},
+                  'attn_backend': backend, 'max_tokens': MCQA_IDENTITY_NEW,
+                  # Off: a cache hit depends on the order requests arrive in,
+                  # and a cached prefix changes the fp32 arithmetic.
+                  'enable_prefix_cache': False}
+        generator = get_generator(kwargs, device=DEVICE)
+        server, grader = ChatServer(generator), fake_grader()
+        with server, grader:
+            config = mcqa_yaml(
+                root / f'identity_{arm}.yaml', qfile, root / f'identity_{arm}',
+                f'http://127.0.0.1:{server.port}/v1', f'http://127.0.0.1:{grader.port}/v1',
+                retriever_config,
+            )
+            zero_k1_counts(tpa)
+            harness.run_mcqa(config, device=DEVICE)
+        counts[arm] = (tpa.ragged_paged_attention.launches,
+                       tpa.ragged_paged_attention_reference.launches)
+        _, results = check_mcqa_results(f'{tag} {arm}', root / f'identity_{arm}',
+                                        MCQA_IDENTITY_QUESTIONS)
+        # The answers as token ids: the whitespace tokenizer's ids are
+        # hashes, but its decode names an id by the first word it saw with
+        # it (an unseen one as '<id>'), which depends on the order requests
+        # arrived in.
+        tok = generator.tokenizer
+        answers[arm] = [
+            [int(w[1:-1]) if w[0] == '<' and w[-1] == '>' and w[1:-1].isdigit()
+             else tok.token_id(w) for w in results[str(i)]['answer'].split()]
+            for i in range(MCQA_IDENTITY_QUESTIONS)
+        ]
+        generator.shutdown()
+        del generator
+        torch.cuda.empty_cache()
+    same = answers['kernel'] == answers['plain']
+    log(f'[{tag}] fp32 depth 2: {MCQA_IDENTITY_QUESTIONS} answers ({sum(map(len, answers["kernel"]))} '
+        f'tokens) identical through K1 and the plain op: {same}; K1 / plain launches {counts}')
+    if not same:
+        fail(f'{tag}: fp32 answers differ between K1 and the plain op')
+    if counts['kernel'][0] <= 0 or counts['kernel'][1] or counts['plain'][0] or (
+            counts['plain'][1] <= 0):
+        fail(f'{tag}: K1 / plain launches {counts}')
+    cfg = bert.BertConfig(num_layers=2, dtype='float32')
+    k3 = encoder_identity(
+        torch, tea, f'{tag} k3', bert, cfg,
+        WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512),
+        [q['question'] for q in questions], 16,
+    )
+    return dict(identical=same, questions=MCQA_IDENTITY_QUESTIONS,
+                k1=dict(kernel=counts['kernel'][0], plain_arm_plain=counts['plain'][1]), k3=k3)
+
+
+def phase_mcqa_boot(torch, tpa, card, tmp: Path, ckpt: Path):
+    """Phase 18b: ``run_mcqa`` with ``local_model_path`` = phase 17c's
+    checkpoint: ``LocalServerManager`` boots ``python -m
+    distllm_tpu_torch.chat_server`` on the card as a subprocess; its bf16
+    answers equal, token for token, a generator built in this process on
+    the same checkpoint from the same generator config (the same kernels,
+    device and dtype; the word-level tokenizer makes equal strings equal
+    tokens); the process exits at ``stop()``. The subprocess's launches are
+    not counted here: the direct generator's are."""
+    import signal
+
+    import yaml
+
+    from distllm_tpu_torch.chat import ChatAppConfig, ConversationPromptTemplate
+    from distllm_tpu_torch.mcqa import harness, server_boot
+    from distllm_tpu_torch.mcqa.config import MCQAConfig
+
+    tag = 'mcqa boot'
+    root = tmp / 'mcqa_boot'
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(20)
+    questions = []
+    for i in range(MCQA_BOOT_QUESTIONS):
+        stem = ' '.join(f'w{int(w)}' for w in rng.integers(0, 31000, size=int(rng.integers(16, 64))))
+        options = [f'w{int(w)}' for w in rng.integers(0, 31000, size=4)]
+        questions.append({'question': stem + '\n' + '\n'.join(
+            f'{l}. {o}' for l, o in zip('ABCD', options)), 'answer': f'A. {options[0]}'})
+    qfile = root / 'questions.json'
+    qfile.write_text(json.dumps(questions))
+    boot = {}
+    start, stop = server_boot.LocalServerManager.start, server_boot.LocalServerManager.stop
+
+    def timed_start(self):
+        t0 = time.perf_counter()
+        start(self)
+        boot['ready_s'] = time.perf_counter() - t0
+        boot['pid'] = self.process.pid
+
+    def watched_stop(self):
+        process = self.process
+        stop(self)
+        if process is not None and 'returncode' not in boot:
+            boot['returncode'] = process.returncode
+
+    handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGINT, signal.SIGTERM)}
+    server_boot.LocalServerManager.start = timed_start
+    server_boot.LocalServerManager.stop = watched_stop
+    grader = fake_grader()
+    try:
+        with grader:
+            path = root / 'mcqa.yaml'
+            path.write_text(yaml.safe_dump(dict(
+                questions_file=str(qfile), output_dir=str(root / 'out'),
+                local_model_path=str(ckpt), vllm_args=MCQA_BOOT_VLLM,
+                grader_api_base=f'http://127.0.0.1:{grader.port}/v1', grader_model='fake',
+                parallel_workers=8, batch_size=16, batch_timeout=0.5,
+            )))
+            t0 = time.perf_counter()
+            harness.run_mcqa(MCQAConfig.from_yaml(path))
+            wall_s = time.perf_counter() - t0
+    finally:
+        server_boot.LocalServerManager.start, server_boot.LocalServerManager.stop = start, stop
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+    _, results = check_mcqa_results(tag, root / 'out', MCQA_BOOT_QUESTIONS)
+    if boot.get('returncode') is None:
+        fail(f'{tag}: the server process did not exit at stop(): {boot}')
+    answers = [results[str(i)]['answer'] for i in range(MCQA_BOOT_QUESTIONS)]
+    server_config = yaml.safe_load((root / 'out' / 'server_logs' / 'server_config.yaml')
+                                   .read_text())
+    template = ConversationPromptTemplate('')
+    prompts = [template.render([{'role': 'user', 'content': q['question']}]) for q in questions]
+    direct = ChatAppConfig.from_dict(server_config).build_generator(device=DEVICE)
+    zero_k1_counts(tpa)
+    # One prompt a call, as the server's worker generates them.
+    want = [direct.generate([prompt])[0] for prompt in prompts]
+    k1 = check_k1_kernel(tpa, f'{tag} direct')
+    same = answers == want
+    log(f'[{tag}] {card}: server booted as a subprocess, ready in {boot["ready_s"]:.2f} s, '
+        f'{MCQA_BOOT_QUESTIONS} questions in {wall_s:.2f} s (boot included); answers identical '
+        f'to the direct generator: {same}; exit code at stop() {boot["returncode"]}')
+    if not same:
+        diff = [i for i, (a, b) in enumerate(zip(answers, want)) if a != b]
+        fail(f'{tag}: answers {diff} differ from the direct generator\'s')
+    return dict(ready_s=boot['ready_s'], wall_s=wall_s, questions=MCQA_BOOT_QUESTIONS,
+                identical_to_direct=same, returncode=boot['returncode'], k1_direct=k1,
+                answer_words=sum(len(a.split()) for a in answers))
+
+
+def phase_cli(torch, tpa, tea, card, tmp: Path, ckpt: Path):
+    """Phase 18c: the CLI on the card. ``generate --generator_name tpu``
+    over phase 17c's checkpoint (K1); ``embed`` over a checkpoint written
+    here at BERT-base widths and ``CLI_EMBED_LAYERS`` layers (K3);
+    ``merge`` of ``embed``'s shards."""
+    from datasets import load_from_disk
+
+    from distllm_tpu_torch import cli
+    from distllm_tpu_torch.models import bert
+
+    root = tmp / 'cli'
+    words = [f'w{i}' for i in range(31000)]
+    inputs = write_jsonl_rows(root / 'gen_in', 2, CLI_ROWS // 2, words, (24, 200), seed=21)
+    zero_k1_counts(tpa)
+    t0 = time.perf_counter()
+    rc = cli.main(['generate', '--input_dir', str(inputs), '--output_dir', str(root / 'gen'),
+                   '--glob_patterns', '*.jsonl', '--generator_name', 'tpu',
+                   '--pretrained_model_name_or_path', str(ckpt), '--temperature', '0',
+                   '--max_tokens', '32', '--device', DEVICE])
+    generate_s = time.perf_counter() - t0
+    k1 = check_k1_kernel(tpa, 'cli generate')
+    rows = sum(len(load_from_disk(str(p))) for p in (root / 'gen' / 'generations').iterdir())
+    if rc != 0 or rows <= 0:
+        fail(f'cli generate: exit {rc}, {rows} rows written')
+    cfg = (RETRIEVER_BERT or bert.BertConfig)(num_layers=CLI_EMBED_LAYERS)
+    bert_ckpt = write_bert_checkpoint(torch, root / 'bert', cfg, seed=3)
+    texts = write_jsonl_rows(root / 'embed_in', 2, CLI_EMBED_TEXTS // 2, RAG_WORDS, (8, 200),
+                             seed=22)
+    zero_k3_counts(tea)
+    t0 = time.perf_counter()
+    rc = cli.main(['embed', '--input_dir', str(texts), '--output_dir', str(root / 'embed'),
+                   '--glob_patterns', '*.jsonl', '--pretrained_model_name_or_path',
+                   str(bert_ckpt), '--dataset_name', 'jsonl', '--batch_size', '64',
+                   '--device', DEVICE])
+    embed_s = time.perf_counter() - t0
+    k3 = check_k3_kernel(tea, 'cli embed')
+    if rc != 0:
+        fail(f'cli embed: exit {rc}')
+    rc = cli.main(['merge', '--dataset_dir', str(root / 'embed' / 'embeddings'),
+                   '--output_dir', str(root / 'merged')])
+    merged = load_from_disk(str(root / 'merged'))
+    emb = np.asarray(merged['embeddings'], dtype=np.float32)
+    if rc != 0 or len(merged) != CLI_EMBED_TEXTS or emb.shape[1] != cfg.hidden_size or (
+            not np.isfinite(emb).all()):
+        fail(f'cli merge: exit {rc}, {len(merged)} rows, embeddings {emb.shape}')
+    log(f'[cli] {card}: generate {rows} rows in {generate_s:.2f} s (generator build '
+        f'included), K1 {k1["launches"]}; embed {CLI_EMBED_TEXTS} texts at '
+        f'{CLI_EMBED_LAYERS} layers in {embed_s:.2f} s, K3 {k3["launches"]}; merge '
+        f'{len(merged)} rows x {emb.shape[1]}')
+    return dict(generate_rows=rows, generate_s=generate_s, embed_texts=CLI_EMBED_TEXTS,
+                embed_s=embed_s, embed_layers=CLI_EMBED_LAYERS, merged_rows=len(merged),
+                k1=k1, k3=k3)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -5487,6 +6042,14 @@ def main() -> None:
         t0 = time.perf_counter()
         job = phase_generation_job(torch, tpa, smi, Path(tmp))
         log(f'[generation job] phase 15d took {time.perf_counter() - t0:.1f} s')
+        # 18. the MCQA harness over the same warm generator, its RAG arm
+        # over a corpus embedded here; 18d. its fp32 identities
+        t0 = time.perf_counter()
+        mcqa = phase_mcqa(torch, tpa, tea, smi, Path(tmp))
+        log(f'[mcqa] phase 18 took {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        mcqa_identity = phase_mcqa_identity(torch, tpa, tea, smi, mcqa.pop('_setup'))
+        log(f'[mcqa identity] phase 18d took {time.perf_counter() - t0:.1f} s')
     del retriever
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5514,6 +6077,14 @@ def main() -> None:
         t0 = time.perf_counter()
         debug_surface = phase_debug_surface(torch, tpa, smi, ckpt_generator, Path(tmp))
         log(f'[debug surface] phase 17d took {time.perf_counter() - t0:.1f} s')
+        # 18b. run_mcqa booting the port's chat server on 17c's checkpoint;
+        # 18c. the CLI's generate, embed and merge
+        t0 = time.perf_counter()
+        mcqa_boot = phase_mcqa_boot(torch, tpa, smi, Path(tmp), Path(tmp) / 'mistral-7b-2l')
+        log(f'[mcqa boot] phase 18b took {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        cli_run = phase_cli(torch, tpa, tea, smi, Path(tmp), Path(tmp) / 'mistral-7b-2l')
+        log(f'[cli] phase 18c took {time.perf_counter() - t0:.1f} s')
     log(f'[pipeline] phases 17-17d took {time.perf_counter() - t17:.1f} s')
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
@@ -5669,6 +6240,12 @@ def main() -> None:
                                 launches_by_route=arm['k1_launches_by_route'])
                      for name, arm in pipeline['arms'].items()},
         'checkpoint': {arm: checkpoint[arm]['k1_launches'] for arm in ('bf16', 'int8')},
+        # Phases 18-18d: the MCQA answers over HTTP (7B, 32 layers), the
+        # direct generator 18b's booted server is held to (the server's own
+        # launches run in its process), fp32 depth 2; and the CLI's generate.
+        'mcqa': {'rag': mcqa['k1'], 'booted_direct': mcqa_boot['k1_direct'],
+                 'fp32_identity': mcqa_identity['k1']},
+        'cli': {'generate': cli_run['k1']},
         # Phases 16-16c: the open-loop load (attribution on and off), the
         # chaos run's clean and faulted arms, the overload arm, and the chat
         # server under HTTP load.
@@ -5714,6 +6291,10 @@ def main() -> None:
         # Phases 15-15c: the retriever's BERT-base query encoder.
         'retriever': dict({f'index_{p}': r['k3'] for p, r in index_tiers.items()},
                           chat=rag_chat['k3'], eval=rag_eval['k3']),
+        # Phase 18: the corpus embedded by run_embedding and the MCQA
+        # queries; 18c: the CLI's embed.
+        'mcqa': {'corpus_embed': mcqa['corpus']['k3'], 'rag_queries': mcqa['k3']},
+        'cli': {'embed': cli_run['k3']},
     }, {
         'name': 'int8_matmul',
         'route': 'cuda',
@@ -5836,6 +6417,16 @@ def main() -> None:
         + ' / '.join(f'{a["measured"]["mfu_median"]:.4f} {a["measured"]["bw_util_median"]:.4f}'
                      for a in (arm1, arm2, arm2d))
         + f'; {time.perf_counter() - t_start:.1f} s total')
+    log(f'[mcqa] {json.dumps(dict(mcqa=mcqa, boot=mcqa_boot, cli=cli_run, identity=mcqa_identity))}')
+    log(f'[summary] {smi}: MCQA (Mistral-7B bf16, 32 layers, RAG over {MCQA_CHUNKS} chunks) '
+        f'{mcqa["questions"]} questions in {mcqa["wall_s"]:.2f} s = '
+        f'{mcqa["questions_per_s"]:.2f} questions/s, answer latency p50 / p95 '
+        f'{mcqa["answer_latency_p50_s"]:.3f} / {mcqa["answer_latency_p95_s"]:.3f} s, '
+        f'{mcqa["generated_tokens_per_s"]:.1f} generated tok/s, resume {mcqa["resume_s"]:.2f} s; '
+        f'booted server ready in {mcqa_boot["ready_s"]:.2f} s, answers identical to the direct '
+        f'generator; CLI generate {cli_run["generate_s"]:.2f} s, embed {cli_run["embed_s"]:.2f} s; '
+        f'fp32 MCQA identical on K1 and plain: {mcqa_identity["identical"]}; '
+        f'{time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')

@@ -29,11 +29,17 @@ both):
   as a dense forward, the BERT, ESM-2, ESM-C and ModernBERT encoders,
   tokenizers, checkpoint reading
 - ``generate.engine``       — block allocator, scheduler, serving engine
-- ``generate.generators``   — ``TorchGenerator``
+- ``generate.generators``   — ``TorchGenerator`` and the ``huggingface``,
+  ``api`` / ``langchain``, ``argo`` and ``openai`` backends (HTTP through
+  ``urllib.request``)
 - ``chat`` / ``chat_server`` — the chat app config, prompt template and
   the HTTP server
 - ``embed``                 — datasets, encoders, poolers, embedders, writers
-- ``distributed_embedding`` — embedding entry point (``registry``, ``timer``)
+- ``distributed_embedding`` / ``distributed_generation`` /
+  ``distributed_tokenization`` — the jobs' entry points (``registry``,
+  ``timer``)
+- ``mcqa``                  — the MCQA harness over the chat server
+- ``cli``                   — the ``distllm`` subcommands
 - ``parallel.launcher``     — the ``local`` and ``workstation`` executors
 """
 

@@ -20,6 +20,41 @@ from typing import Any
 from distllm_tpu_torch.utils import BaseConfig, lax_float, lax_int
 
 
+def http_generator_config(
+    base_url: str,
+    model: str = 'default',
+    api_key: str = '',
+    temperature: float = 0.2,
+    max_tokens: int = 1024,
+    extra_body: dict[str, Any] | None = None,
+    timeout: float = 300.0,
+):
+    """The ``ApiGeneratorConfig`` of the ``http`` backend's keys: the
+    ``openai`` wire whatever the served model is named (a proxy may host
+    ``claude-*``)."""
+    from distllm_tpu_torch.generate.generators.api_backend import ApiGeneratorConfig
+
+    return ApiGeneratorConfig(
+        provider='openai',
+        openai_api_base=base_url,
+        model=model,
+        api_key=api_key,
+        temperature=temperature,
+        max_tokens=max_tokens,
+        extra_body=extra_body or {},
+        timeout=timeout,
+    )
+
+
+def make_http_generator(**kwargs):
+    """OpenAI-compatible HTTP backend (the JAX ``make_http_generator``):
+    an :class:`ApiGenerator`, with its exponential backoff, over
+    :func:`http_generator_config`'s config."""
+    from distllm_tpu_torch.generate.generators.api_backend import ApiGenerator
+
+    return ApiGenerator(http_generator_config(**kwargs))
+
+
 @dataclasses.dataclass
 class ChatAppConfig(BaseConfig):
     """YAML config of the chat apps: the JAX ``ChatAppConfig``'s keys,
@@ -56,19 +91,14 @@ class ChatAppConfig(BaseConfig):
 
     def _backend(self) -> dict:
         """``generator_config`` with its name (``fake`` when missing, the
-        JAX default); ``http`` raises (ROADMAP A11), and an engine backend
-        serves with the prefix cache on (chat prompts share their system
-        prompt and contexts), a 120 s request deadline and 2 dispatch
-        retries unless the mapping says otherwise."""
+        JAX default); an engine backend serves with the prefix cache on
+        (chat prompts share their system prompt and contexts), a 120 s
+        request deadline and 2 dispatch retries unless the mapping says
+        otherwise."""
         from distllm_tpu_torch.generate.generators import ENGINE_BACKENDS
 
         backend = dict(self.generator_config)
         backend.setdefault('name', 'fake')
-        if backend['name'] == 'http':
-            raise NotImplementedError(
-                "generator backend 'http' is not ported to distllm_tpu_torch "
-                'yet (ROADMAP A11)'
-            )
         if backend['name'] in ENGINE_BACKENDS:
             backend.setdefault('enable_prefix_cache', True)
             # The serving defaults of the JAX app: a stuck request times
@@ -83,18 +113,29 @@ class ChatAppConfig(BaseConfig):
     def build_generator_config(self):
         """The config of ``generator_config``'s backend: a
         ``TorchGeneratorConfig`` for an engine name (a ``model`` mapping
-        picks its config class by its ``name``), a ``FakeGeneratorConfig``
-        for ``fake``."""
+        picks its config class by its ``name``), the ``ApiGeneratorConfig``
+        of :func:`make_http_generator` for ``http``, and the factory's
+        config class for any other name."""
         from distllm_tpu_torch.generate.generators import generator_config
 
-        return generator_config(self._backend())
+        backend = self._backend()
+        if backend['name'] == 'http':
+            backend.pop('name')
+            return http_generator_config(**backend)
+        return generator_config(backend)
 
     def build_generator(self, device: 'str | None' = None):
-        """The generator, warm-started through the registry; ``device``
-        overrides an engine backend's ``device`` field."""
+        """The generator: ``http`` builds a new OpenAI-compatible client
+        (:func:`make_http_generator`), any other backend is warm-started
+        through the registry; ``device`` overrides an engine backend's
+        ``device`` field."""
         from distllm_tpu_torch.generate.generators import get_generator
 
-        return get_generator(self._backend(), register=True, device=device)
+        backend = self._backend()
+        if backend['name'] == 'http':
+            backend.pop('name')
+            return make_http_generator(**backend)
+        return get_generator(backend, register=True, device=device)
 
     def build_retriever(self, device: 'str | None' = None):
         if self.retriever_config is None:

@@ -53,7 +53,7 @@ JAX middleware counts it: ``distllm_http_in_flight``,
 ``distllm_http_request_duration_seconds{path}``,
 ``distllm_http_requests_total{path,status}`` and
 ``distllm_http_responses_total``. The prefix-affinity headers wait for
-the router (ROADMAP A11).
+the router (ROADMAP A11b).
 
 Messages render through :class:`~distllm_tpu_torch.chat.ConversationPromptTemplate`
 and every request goes through ONE worker thread that owns the generator
@@ -127,12 +127,11 @@ from distllm_tpu_torch.resilience.admission import EngineOverloaded
 _REQUEST_ID_RE = re.compile(r'^[A-Za-z0-9._:-]{1,128}$')
 MODEL_NAME = 'distllm-tpu-torch'  # payload 'model' when the body names none
 REQUEST_TIMEOUT_S = 600.0  # an HTTP thread's wait for the engine worker
-# Routes whose latency series are labelled by path (others: 'other'),
-# pre-registered so the first scrape carries the schema.
+# Routes whose latency series are labelled by path, pre-registered so the
+# first scrape carries the schema: the JAX server's five. Every other path,
+# the /debug/* routes (DEBUG_ROUTES) included, is labelled 'other'.
 KNOWN_PATHS = (
     '/v1/chat/completions', '/health', '/metrics', '/drain', '/loadinfo',
-    '/debug/traces', '/debug/flight', '/debug/perfetto', '/debug/history',
-    '/debug/slo', '/debug/bundle', '/debug/xprof',
 )
 DRAIN_MAX_S = 300.0  # the longest a POST /drain waits for in-flight work
 
@@ -735,8 +734,8 @@ def load_app(path: str):
 
 def load_app_config(path: str) -> tuple:
     """``(generator config, system_prompt)`` of a chat app YAML
-    (:func:`load_app`): ``generator_config.name`` honoured (``http``
-    raises, ROADMAP A11), the prefix cache on unless the YAML says
+    (:func:`load_app`): ``generator_config.name`` honoured (``http`` an
+    OpenAI-compatible client), the prefix cache on unless the YAML says
     otherwise, and ``model`` mapped by its ``name``."""
     app = load_app(path)
     return app.build_generator_config(), app.system_prompt

@@ -8,7 +8,7 @@ writer into a fresh UUID shard, each stage timed by a ``[timer]`` line
 tagged as in the JAX package. The ``local`` compute config runs the files
 in this process, ``workstation`` on a process pool of ``max_workers``
 (1, the default, runs them in this process too); the pod configs need
-the fabric and are refused (ROADMAP A11).
+the fabric and are refused (ROADMAP A11b).
 
     python -m distllm_tpu_torch.distributed_embedding --config embed.yaml [--device cpu]
 

@@ -13,7 +13,7 @@ already exists is refused (exit 1), so a finished run is never
 clobbered. The ``local`` compute config runs the files in this process,
 ``workstation`` on a process pool of ``max_workers`` (1, the default,
 runs them in this process too); the pod configs need the fabric and are
-refused (ROADMAP A11).
+refused (ROADMAP A11b).
 
     python -m distllm_tpu_torch.distributed_generation --config generate.yaml [--device cpu]
 

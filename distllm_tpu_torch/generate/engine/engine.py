@@ -630,6 +630,8 @@ class LLMEngine:
         # Set by the pipelined loop: lets chunked prefill retire one window
         # in flight between chunks.
         self._drain_hook = None
+        # Windows in flight in the running pipelined loop (1 outside it).
+        self._live_depth = 1
         # Per-run summary written by generate_ids; the resolved KV storage
         # dtype ('bfloat16', 'float32' or 'int8') from construction on.
         self.telemetry: dict[str, float] = {
@@ -1631,7 +1633,7 @@ class LLMEngine:
     def _record_step(self, kind: str, t_start: float, *, batch: int, tokens: int,
                      priced: bool = True, passes: int | None = None,
                      priced_tokens: int | None = None, lengths: tuple | None = None,
-                     **extra) -> None:
+                     device_s: float | None = None, **extra) -> None:
         """One flight-ring record and the step metrics for one engine step.
 
         ``duration_s`` runs from ``t_start`` — the start of the step's
@@ -1644,7 +1646,10 @@ class LLMEngine:
         into the gauges and the per-kind ``roofline_summary()``
         accumulators. ``lengths`` (``(context_lens[, q_lens])``, one row a
         pass) re-prices K1 in the measured twin at the lengths the window
-        ran (:meth:`OpCost.at_lengths`).
+        ran (:meth:`OpCost.at_lengths`). ``device_s`` (a decode window's
+        own CUDA-event seconds, set when windows are pipelined on the GPU)
+        replaces ``duration_s`` in the measured shares only: with a window
+        ahead in flight, dispatch-to-fetch covers both windows.
         """
         duration_s = time.monotonic() - t_start
         _metrics.ENGINE_STEPS.labels(kind=kind).inc()
@@ -1693,7 +1698,7 @@ class LLMEngine:
                     measured = self._measured_costs[kind].at_lengths(*lengths)
                 if measured is not None:
                     m_mfu, m_bw = _op_cost.publish_measured(
-                        kind, measured, duration_s,
+                        kind, measured, duration_s if device_s is None else device_s,
                         self._cost_model.peak_flops, self._cost_model.peak_hbm_bytes,
                     )
                     _op_cost.record_calibration(kind, cost.flops, cost.hbm_bytes, measured)
@@ -2001,9 +2006,18 @@ class LLMEngine:
                 self.stats['mixed_windows'] += 1
                 _metrics.MIXED_WINDOWS.inc()
             if num_steps:
+                events = None
+                if self._live_depth >= 2 and self.device.type == 'cuda':
+                    # With a window ahead in flight, dispatch-to-fetch spans
+                    # both: the measured shares take these events instead.
+                    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    events[0].record()
                 window['tokens'] = self._decode.run(
                     num_steps, all(r.params.temperature <= 0 for _, r in running)
                 )
+                if events is not None:
+                    events[1].record()
+                    window['events'] = events
                 # Out of the token buffer before another window writes it.
                 window['fetch'] = self._decode.stage_tokens(num_steps)
                 self.stats['forward_passes'] += num_steps
@@ -2051,11 +2065,16 @@ class LLMEngine:
                     'prefill_rows': len(chunk_entries),
                 }
             extra.update(self._attribution_fields(*window['timing'], fetch_s=fetch_s))
+            device_s = None
+            if 'events' in window:  # complete: the token fetch waited on later work
+                start, end = window['events']
+                device_s = start.elapsed_time(end) / 1e3
             self._record_step(
                 'mixed' if chunk_entries else 'decode', window['timing'][0],
                 batch=sum(1 for _, _, s in window['plan'] if s > 0),
                 tokens=sum(s for _, _, s in window['plan']),
-                passes=window['passes'], lengths=window['lengths'], **extra,
+                passes=window['passes'], lengths=window['lengths'],
+                device_s=device_s, **extra,
             )
         if tokens is not None:
             for slot, rid, steps in window['plan']:
@@ -2482,6 +2501,7 @@ class LLMEngine:
                 process_one()
 
         self._drain_hook = drain_one
+        self._live_depth = depth
         try:
             while self.has_unfinished or inflight:
                 if self._expired_requests():
@@ -2534,6 +2554,7 @@ class LLMEngine:
             raise
         finally:
             self._drain_hook = None
+            self._live_depth = 1
 
     # -------------------------------------------------------------- offline
     def generate_ids(

@@ -1,16 +1,22 @@
 """Generator strategy factory with optional warm-start registration
 (counterpart of ``distllm_tpu.generate.generators``).
 
-``tpu`` and ``vllm`` (the JAX package's engine names) and the port's own
-``torch`` build :class:`TorchGenerator` from the JAX generator config's
-keys: ``pretrained_model_name_or_path`` serves a local HF checkpoint
-directory as the JAX ``TpuGenerator`` does, and without it a ``model``
-mapping picks its config class by ``name``, through
-``models.decoder_family``; ``tensor_parallel_size`` above 1 raises naming
-ROADMAP A10. ``fake`` builds :class:`FakeGenerator`. The JAX package's
-other backends need network endpoints or ``transformers`` generation and
-raise naming ROADMAP A11. ``register=True`` keeps the built generator
-warm in the registry across work items.
+It builds every name the JAX factory builds:
+
+- ``tpu`` and ``vllm`` (the JAX package's engine names) and the port's own
+  ``torch`` build :class:`TorchGenerator` from the JAX generator config's
+  keys: ``pretrained_model_name_or_path`` serves a local HF checkpoint
+  directory as the JAX ``TpuGenerator`` does, and without it a ``model``
+  mapping picks its config class by ``name``, through
+  ``models.decoder_family``; ``tensor_parallel_size`` above 1 raises naming
+  ROADMAP A10b;
+- ``huggingface``: transformers' ``AutoModelForCausalLM``;
+- ``api`` and its alias ``langchain``: OpenAI / Anthropic / Google over
+  HTTP; ``argo`` and ``openai``: the two dedicated chat endpoints;
+- ``fake``: :class:`FakeGenerator`.
+
+``register=True`` keeps the built generator warm in the registry across
+work items.
 """
 
 from __future__ import annotations
@@ -19,6 +25,21 @@ from typing import Any
 
 import torch
 
+from distllm_tpu_torch.generate.generators.api_backend import (
+    ApiGenerator,
+    ApiGeneratorConfig,
+)
+from distllm_tpu_torch.generate.generators.base import LLMGenerator
+from distllm_tpu_torch.generate.generators.chat_endpoints import (
+    ArgoGenerator,
+    ArgoGeneratorConfig,
+    OpenAIAPIGenerator,
+    OpenAIAPIGeneratorConfig,
+)
+from distllm_tpu_torch.generate.generators.huggingface_backend import (
+    HuggingFaceGenerator,
+    HuggingFaceGeneratorConfig,
+)
 from distllm_tpu_torch.generate.generators.torch_backend import (
     FakeGenerator,
     FakeGeneratorConfig,
@@ -29,12 +50,19 @@ from distllm_tpu_torch.registry import registry
 
 # Names that build the paged-KV engine: the JAX package's and the port's.
 ENGINE_BACKENDS = ('tpu', 'vllm', 'torch')
-# The JAX factory's other backends, with the ROADMAP item that ports them.
-NOT_PORTED = dict.fromkeys(
-    ('huggingface', 'api', 'langchain', 'argo', 'openai'), 'ROADMAP A11'
-)
+# Backends whose config takes a ``device``.
+DEVICE_BACKENDS = (*ENGINE_BACKENDS, 'huggingface')
+# The other backends: name -> (config class, generator class).
+OTHER_BACKENDS: dict[str, tuple[type, type]] = {
+    'huggingface': (HuggingFaceGeneratorConfig, HuggingFaceGenerator),
+    'api': (ApiGeneratorConfig, ApiGenerator),
+    'langchain': (ApiGeneratorConfig, ApiGenerator),  # the reference's alias
+    'argo': (ArgoGeneratorConfig, ArgoGenerator),
+    'openai': (OpenAIAPIGeneratorConfig, OpenAIAPIGenerator),
+}
 STRATEGIES: dict[str, type] = {
     **dict.fromkeys(ENGINE_BACKENDS, TorchGenerator),
+    **{name: cls for name, (_, cls) in OTHER_BACKENDS.items()},
     'fake': FakeGenerator,
 }
 
@@ -59,19 +87,14 @@ def engine_generator_config(kwargs: dict[str, Any]) -> TorchGeneratorConfig:
 def generator_config(kwargs: dict[str, Any]):
     """The config object of ``kwargs['name']``'s backend."""
     name = kwargs.get('name', '')
-    if name in NOT_PORTED:
-        raise ValueError(
-            f'generator backend {name!r} is not ported to distllm_tpu_torch yet '
-            f'({NOT_PORTED[name]}): it needs a network endpoint or transformers '
-            'generation'
-        )
     if name in ENGINE_BACKENDS:
         return engine_generator_config(kwargs)
     if name == 'fake':
         return FakeGeneratorConfig(**kwargs)
+    if name in OTHER_BACKENDS:
+        return OTHER_BACKENDS[name][0].from_dict(kwargs)
     raise ValueError(
-        f'Unknown generator name: {name!r}. Available: '
-        f'{sorted([*STRATEGIES, *NOT_PORTED])}'
+        f'Unknown generator name: {name!r}. Available: {sorted(STRATEGIES)}'
     )
 
 
@@ -85,9 +108,10 @@ def get_generator(
     device: 'str | torch.device | None' = None,
 ):
     """Build a generator; ``device`` (``None`` = the config's, CUDA unless
-    it says otherwise) overrides an engine backend's ``device`` field;
-    ``register=True`` reuses the cached warm instance."""
-    if device is not None and kwargs.get('name') in ENGINE_BACKENDS:
+    it says otherwise) overrides the ``device`` field of an engine or
+    ``huggingface`` backend; ``register=True`` reuses the cached warm
+    instance."""
+    if device is not None and kwargs.get('name') in DEVICE_BACKENDS:
         kwargs = {**kwargs, 'device': str(device)}
     generator_config(kwargs)  # refuses a bad name before the registry is touched
     if register:
@@ -97,7 +121,12 @@ def get_generator(
 
 __all__ = [
     'ENGINE_BACKENDS',
+    'ApiGenerator',
+    'ArgoGenerator',
     'FakeGenerator',
+    'HuggingFaceGenerator',
+    'LLMGenerator',
+    'OpenAIAPIGenerator',
     'TorchGenerator',
     'get_generator',
     'STRATEGIES',

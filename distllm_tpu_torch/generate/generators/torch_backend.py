@@ -16,7 +16,7 @@ rest as stop ids). Without a path the model is built from a
 families): random weights made on the device from ``seed``, or params
 bridged from the JAX package
 (:func:`~distllm_tpu_torch.models.mistral.params_from_jax`).
-``tensor_parallel_size`` above 1 raises, naming ROADMAP A10.
+``tensor_parallel_size`` above 1 raises, naming ROADMAP A10b.
 ``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
 bitsandbytes flag) serves weight-only quantized weights: int8 projections
 run through kernel K2. The serving knobs of the JAX generator config
@@ -44,15 +44,28 @@ from distllm_tpu_torch.generate.engine import (
 )
 from distllm_tpu_torch.models import mistral
 from distllm_tpu_torch.models.tokenizer import HFTokenizer, WhitespaceTokenizer
+from distllm_tpu_torch.observability.instruments import log_event
 from distllm_tpu_torch.observability.startup import get_compile_watcher
 from distllm_tpu_torch.ops.paged_attention import ATTN_BACKENDS
 from distllm_tpu_torch.ops.quantization import normalize_mode
 from distllm_tpu_torch.resilience.admission import EngineOverloaded
-from distllm_tpu_torch.utils import BaseConfig, resolve_device
+from distllm_tpu_torch.utils import BaseConfig, lax_bool, resolve_device
 
 
 # min_p when neither top_p nor min_p is set (the reference's default).
 _DEFAULT_MIN_P = 0.1
+_unroll_noted = False
+
+
+def _note_decode_layer_unroll() -> None:
+    """Say once a process that ``decode_layer_unroll`` is ignored."""
+    global _unroll_noted
+    if not _unroll_noted:
+        _unroll_noted = True
+        log_event(
+            'decode_layer_unroll has no effect in distllm_tpu_torch: a CUDA graph '
+            'already holds the whole decode step', component='generate',
+        )
 
 # Fields passed on to EngineConfig as they are, when set.
 _ENGINE_KNOBS = (
@@ -70,7 +83,7 @@ class TorchGeneratorConfig(BaseConfig):
     pretrained_model_name_or_path: str | None = None
     tokenizer_name: str | None = None
     trust_remote_code: bool = False
-    # The JAX field; only 1 is ported (tensor parallelism is ROADMAP A10).
+    # The JAX field; only 1 is ported (tensor parallelism is ROADMAP A10b).
     tensor_parallel_size: int = 1
     model: mistral.MistralConfig = dataclasses.field(
         default_factory=mistral.MistralConfig
@@ -112,6 +125,10 @@ class TorchGeneratorConfig(BaseConfig):
     request_deadline_s: float | None = None
     max_dispatch_retries: int | None = None
     admission_control: bool | None = None
+    # The JAX config's switch for unrolling its decode layer scan. Accepted
+    # so a JAX YAML reads here; it has no effect (a CUDA graph holds the
+    # whole decode step), which is logged once when it is set.
+    decode_layer_unroll: bool | None = None
     # The paged-attention backend (the JAX config's field, with the port's
     # values): 'auto' = kernel K1 on CUDA, 'reference' pins the plain op.
     attn_backend: str = 'auto'
@@ -124,7 +141,7 @@ class TorchGeneratorConfig(BaseConfig):
         if self.tensor_parallel_size > 1:
             raise NotImplementedError(
                 'tensor_parallel_size > 1 is not ported to distllm_tpu_torch '
-                'yet (ROADMAP A10)'
+                'yet (ROADMAP A10b)'
             )
         if self.max_tokens < 1:
             raise ValueError('max_tokens must be >= 1')
@@ -132,6 +149,9 @@ class TorchGeneratorConfig(BaseConfig):
             raise ValueError('top_p and min_p must be >= 0')
         if self.top_p and self.min_p:
             raise ValueError('Only one of top_p or min_p can be set')
+        if self.decode_layer_unroll is not None:
+            self.decode_layer_unroll = lax_bool('decode_layer_unroll', self.decode_layer_unroll)
+            _note_decode_layer_unroll()
         if self.attn_backend not in ATTN_BACKENDS:
             raise ValueError(
                 f'attn_backend must be one of {ATTN_BACKENDS}, got {self.attn_backend!r}'

@@ -10,7 +10,7 @@ returns an object with ``.map(fn, items)``:
 
 The JAX package's pod configs (``pod``, ``pbspro``, ``slurm``) drive its
 ZMQ fabric, which is not ported yet: :func:`get_compute_config` refuses
-them, naming ROADMAP A11.
+them, naming ROADMAP A11b.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Any, Callable, Iterable
 
 from distllm_tpu_torch.utils import BaseConfig
 
-# The JAX package's compute configs that need the fabric (ROADMAP A11).
+# The JAX package's compute configs that need the fabric (ROADMAP A11b).
 FABRIC_CONFIGS = ('pod', 'pbspro', 'slurm')
 
 
@@ -81,7 +81,7 @@ def get_compute_config(kwargs: dict[str, Any]) -> ComputeConfigs:
     if name in FABRIC_CONFIGS:
         raise NotImplementedError(
             f'compute_config {name!r} needs the ZMQ fabric, which is not ported '
-            "to distllm_tpu_torch yet (ROADMAP A11); use 'local' or 'workstation'"
+            "to distllm_tpu_torch yet (ROADMAP A11b); use 'local' or 'workstation'"
         )
     for cls in (LocalConfig, WorkstationConfig):
         if name == cls.name:

@@ -120,6 +120,32 @@ def lax_int(name: str, value) -> int:
     raise ValueError(f'{name} must be an integer, got {value!r}')
 
 
+_TRUE = ('1', 'on', 't', 'true', 'y', 'yes')
+_FALSE = ('0', 'off', 'f', 'false', 'n', 'no')
+
+
+def lax_bool(name: str, value) -> bool:
+    """A bool as a JAX config's pydantic field takes it (lax mode: 0 / 1,
+    or one of pydantic's yes / no words)."""
+    if isinstance(value, bool):
+        return value
+    if isinstance(value, (int, float)) and value in (0, 1):
+        return bool(value)
+    if isinstance(value, str) and value.strip().lower() in _TRUE + _FALSE:
+        return value.strip().lower() in _TRUE
+    raise ValueError(f'{name} must be a boolean, got {value!r}')
+
+
+def lax_str(name: str, value, choices: tuple | None = None) -> str:
+    """A string field as pydantic takes it (no coercion), one of
+    ``choices`` when they are given (a ``Literal`` field)."""
+    if not isinstance(value, str):
+        raise ValueError(f'{name} must be a string, got {value!r}')
+    if choices is not None and value not in choices:
+        raise ValueError(f'{name} must be one of {choices}, got {value!r}')
+    return value
+
+
 def lax_float(name: str, value) -> float:
     """A float as a JAX config's pydantic field takes it."""
     if isinstance(value, (bool, int, float)):
@@ -166,3 +192,63 @@ def substitute_env(obj):
     if isinstance(obj, list):
         return [substitute_env(v) for v in obj]
     return obj
+
+
+def batch_data(data: list, chunk_size: int) -> list[list]:
+    """``data`` in consecutive chunks of ``chunk_size`` (the last may be
+    shorter; copy of ``distllm_tpu.utils.batch_data``)."""
+    if chunk_size < 1:
+        raise ValueError(f'batch_size must be >= 1, got {chunk_size}')
+    return [data[i : i + chunk_size] for i in range(0, len(data), chunk_size)]
+
+
+def canonical_function(fn, module: str):
+    """``fn`` re-resolved from its importable ``module`` when it was defined
+    in ``__main__`` (an entry point run as ``python -m ...``): a process
+    pool pickles functions by module path, and a spawned worker cannot
+    resolve the entry point's ``__main__`` (copy of
+    ``distllm_tpu.utils.canonical_function``)."""
+    if getattr(fn, '__module__', None) != '__main__':
+        return fn
+    import importlib
+
+    return getattr(importlib.import_module(module), fn.__name__)
+
+
+def expo_backoff_retry(
+    fn,
+    *,
+    max_tries: int = 5,
+    base_delay: float = 1.0,
+    max_delay: float = 30.0,
+    retry_on: tuple = (Exception,),
+    give_up_on: tuple = (),
+    jitter: bool = True,
+    sleep=None,
+):
+    """Call ``fn()`` with exponential backoff (copy of
+    ``distllm_tpu.utils.expo_backoff_retry``): up to ``max_tries`` calls,
+    delays ``base_delay * 2**attempt`` capped at ``max_delay`` and, with
+    ``jitter``, scaled by a factor in [0.5, 1); an exception of
+    ``give_up_on`` is raised at once, the last one of ``retry_on`` after
+    the last try."""
+    import random
+    import time
+
+    if sleep is None:
+        sleep = time.sleep
+    last = None
+    for attempt in range(max_tries):
+        try:
+            return fn()
+        except give_up_on:
+            raise
+        except retry_on as exc:  # noqa: PERF203
+            last = exc
+            if attempt == max_tries - 1:
+                raise
+            delay = min(max_delay, base_delay * (2**attempt))
+            if jitter:
+                delay *= 0.5 + random.random() / 2
+            sleep(delay)
+    raise last  # pragma: no cover - unreachable

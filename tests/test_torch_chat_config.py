@@ -12,7 +12,10 @@ with the ROADMAP item that brings what it asks for:
   ``RetrieverConfig`` checks it: ``examples/chat/chat_server.rag.yaml``
   fails there and is refused here;
 - the backend name: ``tpu``, ``vllm`` and ``torch`` build the engine,
-  ``fake`` the fake generator, ``http`` raises (ROADMAP A11);
+  ``fake`` the fake generator, ``http`` the JAX app's OpenAI-compatible
+  client config;
+- ``decode_layer_unroll``: a YAML that sets it builds a generator in both
+  packages (the port notes once that it has no effect);
 - ``top_p`` with ``min_p``: both set is refused, as JAX refuses it; a set
   ``top_p`` alone turns ``min_p`` off;
 - a ``model`` mapping picks its config class by ``name`` (``gemma2``).
@@ -149,14 +152,18 @@ def test_bad_app_fields_are_refused_as_in_jax(fields):
 
 @pytest.mark.parametrize('name', ['fake', 'http'])
 def test_fake_and_http_backends_wait_on_a11(tmp_path, name):
-    """``http`` still waits on A11; ``fake`` builds through the generator
-    factory since retrieval came (A9), as does a YAML with no
-    ``generator_config`` (the JAX default backend is fake)."""
+    """``http`` (ported in A11a) reads as the JAX app's ``make_http_generator``
+    config; ``fake`` builds through the generator factory, as does a YAML
+    with no ``generator_config`` (the JAX default backend is fake)."""
     path = tmp_path / 'app.yaml'
-    path.write_text(yaml.safe_dump({'generator_config': {'name': name}}))
+    fields = {'name': name}
     if name == 'http':
-        with pytest.raises(NotImplementedError, match='A11'):
-            load_app_config(str(path))
+        fields.update(base_url='http://127.0.0.1:9/v1', model='m', max_tokens=7)
+    path.write_text(yaml.safe_dump({'generator_config': fields}))
+    if name == 'http':
+        config, _ = load_app_config(str(path))
+        want = JaxChatAppConfig(generator_config=fields).build_generator().config
+        assert config.to_dict() == want.model_dump()
     else:
         config, _ = load_app_config(str(path))
         assert isinstance(config, FakeGeneratorConfig)
@@ -257,3 +264,37 @@ def test_a_float_written_without_a_dot_reads_as_in_jax(tmp_path):
     want = JaxGemmaConfig(**raw)
     assert config.model.rms_norm_eps == want.rms_norm_eps == 1e-6
     assert config.model.rope_theta == want.rope_theta == 1e4
+
+
+@pytest.mark.parametrize('value', [True, False, 'yes', 0])
+def test_decode_layer_unroll_reads_as_in_jax(tmp_path, monkeypatch, value, capsys):
+    """A JAX chat YAML that sets ``decode_layer_unroll`` builds a generator
+    in both packages; the JAX field's value reaches the port's config (a
+    CUDA graph holds the port's decode step, so it changes nothing there,
+    as one log line says), and a value JAX refuses is refused."""
+    from distllm_tpu.generate.generators.tpu_backend import TpuGenerator
+    from distllm_tpu_torch.generate.generators import torch_backend
+    from tests.test_torch_checkpoint_serve import write_checkpoint
+
+    monkeypatch.setattr(torch_backend, '_unroll_noted', False)
+    ckpt = str(write_checkpoint(tmp_path / 'ckpt'))
+    path, raw = _engine_yaml(tmp_path, name='tpu', pretrained_model_name_or_path=ckpt,
+                             decode_layer_unroll=value)
+    del raw['generator_config']['model']
+    path.write_text(yaml.safe_dump(raw))
+    config, _ = load_app_config(str(path))
+    jax_kwargs = _jax_backend_kwargs(raw, monkeypatch)
+    ref_cfg = TpuGeneratorConfig(**{k: v for k, v in jax_kwargs.items() if k != 'device'},
+                                 attn_backend='xla')
+    assert config.decode_layer_unroll is ref_cfg.decode_layer_unroll is bool(value)
+    port, ref = TorchGenerator(config), TpuGenerator(ref_cfg)
+    prompts = ['w1 w2 w3', 'w40 w41']
+    assert port.generate(prompts) == ref.generate(prompts)
+    port.shutdown()
+    assert capsys.readouterr().out.count('decode_layer_unroll has no effect') == 1
+    TorchGeneratorConfig(decode_layer_unroll=value, device='cpu')  # noted once only
+    assert 'decode_layer_unroll' not in capsys.readouterr().out
+    with pytest.raises(ValueError):
+        TpuGeneratorConfig(pretrained_model_name_or_path=ckpt, decode_layer_unroll='maybe')
+    with pytest.raises(ValueError):
+        TorchGeneratorConfig(decode_layer_unroll='maybe')

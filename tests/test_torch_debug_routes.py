@@ -11,6 +11,7 @@ and its ``xprof`` capture wrote a ``torch.profiler`` trace.
 """
 
 import json
+import re
 import time
 from pathlib import Path
 
@@ -21,6 +22,15 @@ from distllm_tpu_torch.observability.perfetto import validate_trace_events
 
 ROUTES = ('/debug/traces', '/debug/flight', '/debug/perfetto', '/debug/history',
           '/debug/slo', '/debug/bundle', '/debug/xprof')
+# The JAX app's labelled paths (``known_paths`` in its ``create_app``).
+JAX_KNOWN_PATHS = ('/v1/chat/completions', '/health', '/metrics', '/drain', '/loadinfo')
+
+
+def _path_labels(base):
+    """The ``path`` labels of the latency series in one ``/metrics`` scrape."""
+    text = _call(base, 'GET', '/metrics')[2].decode()
+    return set(re.findall(r'^distllm_http_request_duration_seconds_count\{path="([^"]*)"\}',
+                          text, flags=re.M))
 
 
 def test_debug_routes_match_the_jax_server(both_servers, tmp_path, monkeypatch):  # noqa: F811
@@ -29,7 +39,12 @@ def test_debug_routes_match_the_jax_server(both_servers, tmp_path, monkeypatch):
     for base in (port, ref):
         assert _call(base, 'POST', '/v1/chat/completions', ASK)[0] == 200
     time.sleep(1.2)  # one history tick on each side
-    assert set(ROUTES) <= set(KNOWN_PATHS)
+    # The JAX labels: its five paths, every other one (the debug routes
+    # too) under 'other'. The first scrape on each side carries the five.
+    assert KNOWN_PATHS == JAX_KNOWN_PATHS
+    # ('other' may be there already from an earlier test in this process.)
+    assert _path_labels(port) - {'other'} == _path_labels(ref) - {'other'} == set(
+        JAX_KNOWN_PATHS)
     for path in ('/debug/traces?limit=5', '/debug/flight?limit=3', '/debug/perfetto',
                  '/debug/history?limit=4&prefix=distllm_http', '/debug/slo',
                  '/debug/traces?limit=x', '/debug/flight?limit=1.5',
@@ -52,6 +67,8 @@ def test_debug_routes_match_the_jax_server(both_servers, tmp_path, monkeypatch):
     assert Path(bundle['bundle_dir']).parent == tmp_path
     assert (Path(bundle['bundle_dir']) / 'meta.json').exists()
     assert set(bundle['paths']) >= {'flight', 'metrics', 'traces', 'history', 'slo', 'meta'}
+    # The debug requests above count under 'other', alike on both sides.
+    assert _path_labels(port) == _path_labels(ref) == {*JAX_KNOWN_PATHS, 'other'}
     got, want = (_call(b, 'GET', '/debug/xprof?seconds=0.2') for b in (port, ref))
     body = json.loads(got[2])
     assert got[0] == 200 and body['ok'], body

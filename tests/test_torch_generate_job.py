@@ -8,8 +8,8 @@
   files (the ``huggingface`` rows, ``merge`` skipping a bad shard; the
   ``amp_jsonl`` lines and their merge).
 - The generator factory: ``fake`` as JAX's, ``tpu`` / ``vllm`` / ``torch``
-  build the engine, the network and ``transformers`` backends raise
-  naming ROADMAP A11, a checkpoint path read as JAX reads it and
+  build the engine, the network and ``transformers`` backends build and
+  refuse as JAX's do, a checkpoint path read as JAX reads it and
   tensor parallelism naming A10, the
   fake backend's `overload_every` shed signal as JAX's, an
   unknown name as JAX's; ``register=True`` reuses the warm instance.
@@ -181,9 +181,16 @@ def test_generator_factory_names():
     assert port.generate(prompts) == ref.generate(prompts) == ['echo abcde', 'echo xy']
     assert port.generate('single') == ref.generate('single')
     assert get_generator(fake, register=True) is get_generator(fake, register=True)
-    for name in ('huggingface', 'api', 'langchain', 'argo', 'openai'):
-        with pytest.raises(ValueError, match='ROADMAP A11'):
-            get_generator({'name': name})
+    # The network and transformers backends build as JAX's do (A11a);
+    # each refuses a config JAX refuses (an openai key, a checkpoint path).
+    for name in ('api', 'langchain', 'argo'):
+        assert type(get_generator({'name': name})).__name__ == type(
+            distllm_tpu.generate.get_generator({'name': name})).__name__
+    for kwargs in ({'name': 'huggingface'}, {'name': 'openai', 'api_key': ''}):
+        with pytest.raises(ValueError):
+            get_generator(dict(kwargs))
+        with pytest.raises(ValueError):
+            distllm_tpu.generate.get_generator(dict(kwargs))
     with pytest.raises(ValueError, match='Unknown generator name'):
         get_generator({'name': 'nope'})
     with pytest.raises(ValueError, match='Unknown generator name'):

@@ -2055,6 +2055,54 @@ def test_pipelined_graph_windows_equal_the_eager_loop_bitwise(cuda, depth, defer
         e.shutdown()
 
 
+def test_pipelined_windows_price_measured_shares_by_their_events(cuda, monkeypatch):
+    """At depth 2 each decode window's measured MFU and bandwidth shares
+    are priced over its own CUDA-event seconds (its dispatch-to-fetch
+    span also holds the window ahead in flight), which lie inside that
+    span; at depth 1 no window records events and the span prices it, as
+    before."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.generate.engine import engine as engine_module
+
+    published = []
+    publish = engine_module._op_cost.publish_measured
+
+    def spy(kind, measured, seconds, *args, **kwargs):
+        published.append((kind, seconds))
+        return publish(kind, measured, seconds, *args, **kwargs)
+
+    monkeypatch.setattr(engine_module._op_cost, 'publish_measured', spy)
+    rng = np.random.default_rng(32)
+    prompts = [[int(t) for t in rng.integers(4, 512, size=n)] for n in (9, 30, 17, 44, 5, 23)]
+    for depth in (1, 2):
+        engine = _graph_engine('bf16', pipeline_depth=depth)
+        engine.warmup()
+        timed, spans = [], []
+        process = engine._process_window
+
+        def watched(window, process=process, timed=timed):
+            out = process(window)
+            if 'events' in window:
+                start, end = window['events']
+                timed.append(start.elapsed_time(end) / 1e3)
+            return out
+
+        engine._process_window = watched
+        published.clear()
+        engine.flight.clear()  # the process's ring: this run's records only
+        engine.generate_ids(prompts, SamplingParams(temperature=0.0, max_tokens=40))
+        decode = [seconds for kind, seconds in published if kind == 'decode']
+        spans = [r['duration_s'] for r in engine.flight.snapshot()
+                 if r.get('kind') == 'decode' and 'mfu_measured' in r]
+        assert decode and len(decode) == len(spans)
+        if depth == 1:
+            assert not timed and decode == pytest.approx(spans, abs=2e-6)
+        else:
+            assert decode == pytest.approx(timed)
+            assert all(0 < t <= s + 1e-3 for t, s in zip(timed, spans))
+        engine.shutdown()
+
+
 def test_native_scheduler_builds_on_the_card_machine(cuda):
     """The host C++ scheduler builds with g++ here and makes the Python
     twin's decisions on a random operation sequence; an engine takes it."""

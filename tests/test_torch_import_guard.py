@@ -1,5 +1,6 @@
 """``distllm_tpu_torch`` imports neither ``jax`` nor any module of
-``distllm_tpu`` (nor ``pydantic``: its configs are dataclasses): every
+``distllm_tpu`` (nor ``pydantic``: its configs are dataclasses; nor
+``requests``: its HTTP goes through ``urllib.request``): every
 module of the port is imported in a fresh interpreter and ``sys.modules``
 is inspected afterwards."""
 
@@ -25,6 +26,7 @@ leaked = sorted(
     if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
     or m == 'distllm_tpu' or m.startswith('distllm_tpu.')
     or m == 'pydantic' or m.startswith('pydantic.')
+    or m == 'requests' or m.startswith('requests.')
 )
 print(json.dumps({'imported': names, 'leaked': leaked}))
 """
@@ -115,5 +117,22 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.observability.op_cost',
         'distllm_tpu_torch.observability.aggregate',
         'distllm_tpu_torch.timer',
+        'distllm_tpu_torch.generate.generators.base',
+        'distllm_tpu_torch.generate.generators.http_client',
+        'distllm_tpu_torch.generate.generators.api_backend',
+        'distllm_tpu_torch.generate.generators.chat_endpoints',
+        'distllm_tpu_torch.generate.generators.huggingface_backend',
+        'distllm_tpu_torch.embed.writers.base',
+        'distllm_tpu_torch.mcqa',
+        'distllm_tpu_torch.mcqa.config',
+        'distllm_tpu_torch.mcqa.batching',
+        'distllm_tpu_torch.mcqa.checkpoint',
+        'distllm_tpu_torch.mcqa.grading',
+        'distllm_tpu_torch.mcqa.server_boot',
+        'distllm_tpu_torch.mcqa.harness',
+        'distllm_tpu_torch.distributed_tokenization',
+        'distllm_tpu_torch.cli',
+        'distllm_tpu_torch.cli_commands',
+        'distllm_tpu_torch.protein_search',
     }
     assert expected <= set(result['imported'])

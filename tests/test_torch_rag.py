@@ -309,5 +309,8 @@ def test_the_rag_example_yaml_is_refused_in_both():
         jax_chat.ChatAppConfig(**raw).build_retriever()
     with pytest.raises(ValueError, match='RetrieverConfig'):
         load_app(str(RAG_YAML))
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+    # The http backend needs its base_url in both packages.
+    with pytest.raises(TypeError):
+        jax_chat.ChatAppConfig(generator_config={'name': 'http'}).build_generator()
+    with pytest.raises(TypeError):
         port_chat.ChatAppConfig.from_dict({'generator_config': {'name': 'http'}}).build_generator()
