@@ -391,8 +391,36 @@ carried on):
 18d. MCQA identity — fp32 at depth 2: phase 18's first 16 questions give
     identical answers through K1 and through the plain op; the retriever's
     encoder on K3 within phase 12's tolerance of its plain op.
+19a. the 4-D quantizer — one full-width Mixtral expert bank, ``[2, 8,
+    4096, 14336]`` bf16, quantized on the card one ``[4096, 14336]``
+    slice at a time: its peak allocation beyond the input and the codes
+    under two fp32 slices (printed), one expert's codes and scales equal
+    to the CPU's bitwise;
+19. Mixtral-8x7B — ``get_generator`` with ``model: {name: mixtral}`` and
+    ``quantization: int8`` at full width and depth (32 layers, 8 experts,
+    top 2; random weights quantized layer by layer as they are drawn): 16
+    greedy prompts of 32..512 tokens x 64 new, then 4 requests over HTTP
+    through ``ChatServer``; the int8 weight GiB, the build and capture
+    seconds, each graph pool's MiB, tok/s and wall ms a decode pass beside
+    the estimate written before the first run, the peak allocated GiB
+    (under the card's memory); K1 layers x passes on each pass's route, K2
+    4 x layers x passes (q / k / v / o) on the tensor cores, the plain
+    versions never, every decode step a graph replay, every HTTP status
+    200;
+19b. Mixtral identity — Mixtral-8x7B widths at depth 2 in fp32: greedy
+    tokens through K1 (float weights) and through K1 + K2 (int8 weights)
+    equal the plain ops';
+19c. Mixtral speculation and mixed windows — depth 4, bf16 over int8
+    weights: ``draft_k=4`` (drafts from the off arm's stream) and mixed
+    windows with chunked prefill against the arm with neither; agreement
+    shares printed (bf16: not asserted), each arm's K1 / K2 launches
+    checked per pass, the verify graph's counted;
+19d. a Mixtral checkpoint — one layer at Mixtral-8x7B widths (bf16, about
+    3.4 GB) written on the card and served from a chat YAML's
+    ``pretrained_model_name_or_path`` with ``quantization: int8``: tokens
+    identical to a direct engine on the same tensors.
 
-Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d, 17-17d and 18-18d prints its seconds. The last three lines of
+Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d, 17-17d, 18-18d and 19-19d prints its seconds. The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
@@ -403,7 +431,7 @@ phases' under ``load``, phase 17's under ``pipeline`` and 17c's under
 ``checkpoint``, K3's under ``retriever``, K2's embed headline, its
 verify rows under ``verify`` and 17c's int8 launches under
 ``checkpoint``, phases 18-18d's K1 and K3 launches under ``mcqa`` and
-``cli``), the card's
+``cli``, phases 19-19d's K1 and K2 launches under ``mixtral``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -2417,7 +2445,7 @@ class ProposalDrafter:
 
 
 def serve_arm(torch, tpa, tag, cfg, params, engine_kw, prompts, sampling, tqm=None,
-              first=None, proposals=None):
+              first=None, proposals=None, k2_per_layer=7):
     """One ``LLMEngine`` arm over ``prompts`` (warmed up first, so every
     capture happens before the run; ``first``, ``(prompts, sampling)``,
     served before the timed run, untimed; ``proposals``, one token list
@@ -2426,7 +2454,8 @@ def serve_arm(torch, tpa, tag, cfg, params, engine_kw, prompts, sampling, tqm=No
     the checks every serving arm owes — K1 launches layers x passes on
     the routes ``kernel_route`` names for each pass, its plain op never,
     every decode step and verify pass a graph replay; with ``tqm`` (int8
-    weights) K2 launches 7 x layers x passes on the tensor cores."""
+    weights) K2 launches ``k2_per_layer`` (7; Mixtral's 4: q / k / v / o)
+    x layers x passes on the tensor cores."""
     from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine
 
     engine = LLMEngine(cfg, params, None, EngineConfig(**engine_kw), device=DEVICE)
@@ -2496,10 +2525,10 @@ def serve_arm(torch, tpa, tag, cfg, params, engine_kw, prompts, sampling, tqm=No
     )
     if tqm is not None:
         k2, k2_routes = tqm.int8_matmul.launches, dict(tqm.int8_matmul.launches_by_route)
-        log(f'[{tag}] int8_matmul launches {k2} = 7 x {cfg.num_layers} layers x {passes} '
-            f'passes; by route {json.dumps(k2_routes)}; plain version '
+        log(f'[{tag}] int8_matmul launches {k2} = {k2_per_layer} x {cfg.num_layers} layers x '
+            f'{passes} passes; by route {json.dumps(k2_routes)}; plain version '
             f'{tqm.int8_matmul_reference.launches}')
-        if k2 != 7 * cfg.num_layers * passes or k2_routes['tensor_cores'] != k2:
+        if k2 != k2_per_layer * cfg.num_layers * passes or k2_routes['tensor_cores'] != k2:
             fail(f'{tag}: K2 launches {k2} ({k2_routes}) for {passes} passes')
         if tqm.int8_matmul_reference.launches != 0:
             fail(f'{tag}: the plain int8 matmul ran on the serving path')
@@ -5024,9 +5053,6 @@ def write_checkpoint(torch, root: Path, params, cfg, eos_ids=None):
     ``tokenizers`` (``tokenizer.json``, ``tokenizer_config.json``), and,
     with ``eos_ids``, a ``generation_config.json`` naming them."""
     from safetensors.torch import save_file
-    from tokenizers import Tokenizer
-    from tokenizers.models import WordLevel
-    from tokenizers.pre_tokenizers import Whitespace
 
     root.mkdir(parents=True, exist_ok=True)
     if eos_ids is not None:
@@ -5051,15 +5077,26 @@ def write_checkpoint(torch, root: Path, params, cfg, eos_ids=None):
         state[f'{p}.post_attention_layernorm.weight'] = host(layers['mlp_ln']['scale'][i])
     save_file(state, str(root / 'model.safetensors'))
     (root / 'config.json').write_text(json.dumps(CKPT_HF))
+    write_word_tokenizer(root, cfg.vocab_size, CKPT_SERVE['max_model_len'])
+    return root
+
+
+def write_word_tokenizer(root: Path, vocab_size: int, max_len: int) -> None:
+    """A word-level fast tokenizer of ``vocab_size`` ids built with
+    ``tokenizers`` (``tokenizer.json``, ``tokenizer_config.json``): four
+    special tokens, then ``w0``, ``w1``, ..."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+
     vocab = {'[UNK]': 0, '[PAD]': 1, '<s>': 2, '</s>': 3}
-    vocab.update({f'w{i}': i + 4 for i in range(cfg.vocab_size - 4)})
+    vocab.update({f'w{i}': i + 4 for i in range(vocab_size - 4)})
     tok = Tokenizer(WordLevel(vocab, unk_token='[UNK]'))
     tok.pre_tokenizer = Whitespace()
     tok.save(str(root / 'tokenizer.json'))
     (root / 'tokenizer_config.json').write_text(json.dumps({
         'tokenizer_class': 'PreTrainedTokenizerFast', 'pad_token': '[PAD]',
-        'unk_token': '[UNK]', 'model_max_length': CKPT_SERVE['max_model_len']}))
-    return root
+        'unk_token': '[UNK]', 'model_max_length': max_len}))
 
 
 def checkpoint_prompts(n=CKPT_PROMPTS):
@@ -5892,6 +5929,414 @@ def phase_cli(torch, tpa, tea, card, tmp: Path, ckpt: Path):
                 k1=k1, k3=k3)
 
 
+# ---------------------------------------------------------- phases 19-19d
+# Phase 19: Mixtral-8x7B (ROADMAP A10a) at full width and depth, int8,
+# built through the generator factory a user calls. Its bf16 weights
+# (93 GB) do not fit the card; mixtral.init quantizes layer by layer.
+MIXTRAL_GENERATOR = {
+    'name': 'torch', 'model': {'name': 'mixtral'}, 'quantization': 'int8', 'seed': 0,
+    'max_num_seqs': 8, 'block_size': BLOCK_SIZE, 'num_blocks': 1024, 'max_model_len': 2048,
+    'temperature': 0.0, 'max_tokens': 64,
+}
+MIXTRAL_8X7B = dict(num_layers=32, num_experts=8, experts_per_token=2, hidden_size=4096,
+                    intermediate_size=14336, num_heads=32, num_kv_heads=8, vocab_size=32000)
+MIXTRAL_PROMPTS, MIXTRAL_PROMPT_LENS, MIXTRAL_HTTP = 16, (32, 512), 4
+# Phase 19a: one full-width bank of two layers, quantized on the card.
+MIXTRAL_BANK = (2, 8, 4096, 14336)
+# The estimate written before the first run (not a target): a decode pass
+# reads 45 GB of int8 codes and writes and reads about 90 GB of bf16
+# dequantized banks, >= 67 ms at 3.35 TB/s, <= about 120 tok/s at 8 rows.
+MIXTRAL_ESTIMATE = 'a decode pass >= 67 ms (codes + dequantized banks at 3.35 TB/s), <= ~120 tok/s'
+# Phase 19d: Mixtral-8x7B widths at one layer, written as a checkpoint.
+MIXTRAL_CKPT_HF = {
+    'model_type': 'mixtral', 'vocab_size': 32000, 'hidden_size': 4096,
+    'intermediate_size': 14336, 'num_hidden_layers': 1, 'num_attention_heads': 32,
+    'num_key_value_heads': 8, 'num_local_experts': 8, 'num_experts_per_tok': 2,
+    'max_position_embeddings': 32768, 'rms_norm_eps': 1e-5, 'rope_theta': 1e6,
+    'sliding_window': None, 'tie_word_embeddings': False, 'torch_dtype': 'bfloat16',
+}
+MIXTRAL_CKPT_SERVE = dict(temperature=0.0, max_tokens=32, block_size=BLOCK_SIZE,
+                          num_blocks=512, max_num_seqs=8, max_model_len=1024)
+
+
+def is_mixtral_8x7b(cfg):
+    return all(getattr(cfg, key) == value for key, value in MIXTRAL_8X7B.items())
+
+
+def phase_quantize_bank(torch, tq):
+    """19a. The repaired 4-D quantizer on one full-width expert bank,
+    ``[2, 8, 4096, 14336]`` bf16 made on the card: it works one
+    ``[4096, 14336]`` slice at a time, so its peak allocation beyond the
+    input and the codes stays under two fp32 slices (470 MB; the whole
+    bank's fp32 copy would be 3.76 GB); one expert's codes and scales
+    equal the CPU's bitwise."""
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    bank = torch.randn(MIXTRAL_BANK, generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    bank.mul_(0.02)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qt = tq.quantize_int8(bank)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    codes = qt.nbytes
+    extra = torch.cuda.max_memory_allocated() - base - codes
+    slice_bytes = 4 * MIXTRAL_BANK[-2] * MIXTRAL_BANK[-1]
+    last = (MIXTRAL_BANK[0] - 1, MIXTRAL_BANK[1] - 1)  # the last layer's last expert
+    host = tq.quantize_int8(bank[last].cpu())
+    same = torch.equal(qt.q[last].cpu(), host.q) and torch.equal(qt.scale[last].cpu(), host.scale)
+    log(f'[quantize bank] {MIXTRAL_BANK} bf16 ({bank.numel() * 2 / 2**30:.3f} GiB) to int8 '
+        f'codes and scales ({codes / 2**30:.3f} GiB) in {quantize_s:.3f} s; peak beyond input '
+        f'and codes {extra / 2**20:.1f} MiB = {extra / slice_bytes:.3f} fp32 slices of '
+        f'{slice_bytes / 2**20:.1f} MiB (bound 2; the whole bank in fp32 would be '
+        f'{4 * bank.numel() / 2**20:.1f} MiB); expert {list(last)} equal to the CPU bitwise={same}')
+    if extra >= 2 * slice_bytes:
+        fail(f'quantize bank: {extra} bytes beyond input and codes, bound {2 * slice_bytes}')
+    if not same:
+        fail(f'quantize bank: card-made codes or scales of expert {last} differ from the CPU')
+    del bank, qt
+    torch.cuda.empty_cache()
+    return dict(quantize_s=quantize_s, peak_extra_mib=extra / 2**20,
+                peak_extra_slices=extra / slice_bytes, codes_gib=codes / 2**30, bitwise=same)
+
+
+def phase_serve_mixtral(torch, tpa, tqm, card):
+    """19. Mixtral-8x7B int8 at full width and depth through
+    ``get_generator`` (32 layers, 8 experts, top 2, hidden 4096,
+    intermediate 14336, 32 / 8 heads, vocab 32000; random weights from
+    seed 0, quantized layer by layer as they are drawn): 16 greedy prompts
+    of 32..512 tokens x 64 new, then 4 requests over HTTP through
+    ``ChatServer`` on the same generator. K1 on every layer of every
+    pass (prefill on the tensor cores, decode on the split-KV route), K2
+    on q / k / v / o (4 a layer, tensor cores), the plain versions never;
+    every decode step a graph replay; the peak allocation under the
+    card's memory."""
+    from distllm_tpu_torch.chat_server import ChatServer
+    from distllm_tpu_torch.generate import get_generator
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.ops.quantization import QTensor
+
+    tag = 'serve mixtral'
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    t0 = time.perf_counter()
+    generator = get_generator(dict(MIXTRAL_GENERATOR), device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine = generator.engine
+    cfg = engine.model_cfg
+    bank = engine.params['layers']['gate']['kernel']
+    widths = tuple(MIXTRAL_8X7B[k] for k in (
+        'num_layers', 'num_experts', 'hidden_size', 'intermediate_size'))
+    if not (cfg.name == 'mixtral' and is_mixtral_8x7b(cfg) and isinstance(bank, QTensor)
+            and bank.kind == 'int8' and bank.shape == widths):
+        fail(f'{tag}: get_generator built {cfg} with gate bank {bank!r}')
+    built = dict(
+        build_s=build_s, capture_s=engine.stats['decode_graph_capture_s'],
+        weight_gib=engine.weight_bytes_quantized / 2**30,
+        float_weight_gib=engine.weight_bytes_float / 2**30,
+        expert_bank_gib=engine.stats['expert_bank_bytes_quantized'] / 2**30,
+        allocated_gib=torch.cuda.memory_allocated() / 2**30,
+        build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        pool_mib={'decode': engine._decode.pool_bytes / 2**20,
+                  'verify': None if engine._verify is None else engine._verify.pool_bytes / 2**20},
+    )
+    log(f'[{tag}] {card}: get_generator built {type(cfg).__name__} ({cfg.num_layers} layers, '
+        f'{cfg.num_experts} experts, top {cfg.experts_per_token}, hidden {cfg.hidden_size}, '
+        f'intermediate {cfg.intermediate_size}) in {build_s:.2f} s with warm-up ({built["capture_s"]:.2f} s capturing the '
+        f'decode graphs); int8 weights {built["weight_gib"]:.2f} GiB (expert banks '
+        f'{built["expert_bank_gib"]:.2f}), float leaves {built["float_weight_gib"]:.2f} GiB; '
+        f'{built["allocated_gib"]:.2f} GiB allocated, peak {built["build_peak_gib"]:.2f} GiB of '
+        f'{card_gib:.1f}; graph pools {json.dumps(built["pool_mib"])} MiB')
+    prompts = smoke_prompts(np.random.default_rng(19), MIXTRAL_PROMPTS, *MIXTRAL_PROMPT_LENS)
+    sampling = SamplingParams(temperature=0.0, max_tokens=64)
+    rec = instrument_windows(torch, engine)
+    marks = graph_marks(engine)
+    stats0 = dict(engine.stats)
+    # The main path: counts to 0 just before, read just after.
+    zero_k1_counts(tpa)
+    zero_k2_counts(tqm)
+    t0 = time.perf_counter()
+    outputs = generator.generate(prompts, sampling)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    run = stats_delta(engine, stats0)
+    passes, prefills = run['forward_passes'], run.get('prefill_dispatches', 0)
+    eager = prefills + run.get('mixed_windows', 0)
+    widths = [r['width'] for r in rec['prefill'] + rec['chunk']]
+    if len(widths) != eager or len(outputs) != MIXTRAL_PROMPTS or not all(
+            isinstance(o, str) for o in outputs):
+        fail(f'{tag}: {len(outputs)} outputs, {len(widths)} eager passes recorded for {eager}')
+    if run['generated_tokens'] != MIXTRAL_PROMPTS * 64:
+        fail(f'{tag}: {run["generated_tokens"]} tokens, expected {MIXTRAL_PROMPTS} x 64')
+    graphs = check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, eager, widths, 'model')
+    k1, k1_routes = tpa.ragged_paged_attention.launches, dict(
+        tpa.ragged_paged_attention.launches_by_route)
+    k2, k2_routes = tqm.int8_matmul.launches, dict(tqm.int8_matmul.launches_by_route)
+    log(f'[{tag}] int8_matmul launches {k2} = 4 (q / k / v / o) x {cfg.num_layers} layers x '
+        f'{passes} passes; by route {json.dumps(k2_routes)}; plain version '
+        f'{tqm.int8_matmul_reference.launches}')
+    if (k2 != 4 * cfg.num_layers * passes or k2_routes['tensor_cores'] != k2
+            or tqm.int8_matmul_reference.launches):
+        fail(f'{tag}: K2 launches {k2} ({k2_routes}) for {passes} passes, plain '
+             f'{tqm.int8_matmul_reference.launches}')
+    tok_s = run['generated_tokens'] / wall_s
+    decode_ms = median([w['wall_ms'] / w['steps'] for w in rec['window']
+                        if not w['spec'] and w['steps'] and not w['chunk_rows']])
+    log(f'[{tag}] {card}: {MIXTRAL_PROMPTS} prompts ({MIXTRAL_PROMPT_LENS[0]}..'
+        f'{MIXTRAL_PROMPT_LENS[1]} tokens), {run["generated_tokens"]} new tokens in '
+        f'{wall_s:.3f} s = {tok_s:.2f} tok/s; decode {decode_ms} ms a pass (window wall over '
+        f'its steps, median); {prefills} prefill dispatches '
+        f'({sum(r["wall_ms"] for r in rec["prefill"]):.1f} host ms); estimate from the code: '
+        f'{MIXTRAL_ESTIMATE}')
+    with ChatServer(generator, port=0) as server:
+        results = [None] * MIXTRAL_HTTP
+
+        def ask(i):
+            results[i] = post_completion(server.port, i)
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(MIXTRAL_HTTP)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            fail(f'{tag}: chat completion timed out')
+    statuses = [None if r is None else r[0] for r in results]
+    for i, result in enumerate(results):
+        if result is None or result[0] != 200 or result[1]['request_id'] != f'smoke-{i}' \
+                or not isinstance(result[1]['choices'][0]['message']['content'], str):
+            fail(f'{tag}: chat completion {i} answered {result}')
+    http_k1 = tpa.ragged_paged_attention.launches - k1
+    http_k2 = tqm.int8_matmul.launches - k2
+    if (http_k1 <= 0 or http_k2 <= 0 or tpa.ragged_paged_attention_reference.launches
+            or tqm.int8_matmul_reference.launches):
+        fail(f'{tag}: HTTP requests launched K1 {http_k1}, K2 {http_k2} times')
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f'[{tag}] chat_server: {MIXTRAL_HTTP} completions, statuses {statuses}; K1 {http_k1}, '
+        f'K2 {http_k2} launches more; peak allocated {peak_gib:.2f} GiB of {card_gib:.1f}')
+    if peak_gib >= card_gib:
+        fail(f'{tag}: peak {peak_gib:.2f} GiB over the card\'s {card_gib:.1f}')
+    shut_down(torch, tag, engine)
+    del generator, engine, bank
+    torch.cuda.empty_cache()
+    return dict(built, tokens_per_s=tok_s, wall_s=wall_s, decode_pass_ms=decode_ms,
+                forward_passes=passes, prefill_dispatches=prefills,
+                generated_tokens=run['generated_tokens'], peak_gib=peak_gib,
+                http_statuses=statuses, launches=k1, launches_by_route=k1_routes,
+                k2_launches=k2, k2_launches_by_route=k2_routes, http_k1_launches=http_k1,
+                http_k2_launches=http_k2, estimate=MIXTRAL_ESTIMATE, **graphs)
+
+
+def phase_identity_mixtral(torch, tpa, tqm):
+    """19b. Mixtral-8x7B widths at depth 2 in fp32: greedy tokens through
+    K1 (float weights) equal the plain op's, and through K1 + K2 (int8
+    weights, quantized as drawn) equal the plain ops'; every launch on
+    the CUDA-core routes, the other tier never."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig(num_layers=2, dtype='float32')
+    rng = np.random.default_rng(20)
+    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size, size=n)]
+               for n in (16, 100, 300, 37, 520)]
+    sampling = SamplingParams(temperature=0.0, max_tokens=16)
+    engine_kw = dict(block_size=BLOCK_SIZE, num_blocks=256, max_num_seqs=4, max_model_len=1024)
+    result = {}
+    for arm, quant in (('float', None), ('int8', 'int8')):
+        params = mixtral.init(cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE,
+                              quantization=quant)
+        outs = {}
+        for backend in ('auto', 'reference'):
+            tag = f'identity mixtral {arm} {backend}'
+            engine = LLMEngine(cfg, params, None, EngineConfig(**engine_kw, quantization=quant),
+                               device=DEVICE, attn_backend=backend, qmm_backend=backend)
+            engine.warmup()
+            marks = graph_marks(engine)
+            zero_k1_counts(tpa)
+            zero_k2_counts(tqm)
+            outs[backend] = engine.generate_ids(prompts, sampling)
+            passes = engine.telemetry['forward_passes']
+            check_graph_replays(tag, engine, marks, passes, engine.telemetry['prefill_dispatches'])
+            k1 = (tpa.ragged_paged_attention.launches, tpa.ragged_paged_attention_reference.launches)
+            k2 = (tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches)
+            if backend == 'reference':
+                k1, k2 = k1[::-1], k2[::-1]
+            want_k2 = 4 * cfg.num_layers * passes if quant else 0
+            if k1 != (cfg.num_layers * passes, 0) or k2 != (want_k2, 0):
+                fail(f'{tag}: K1 (tier, other) {k1}, K2 {k2} for {passes} passes')
+            routes = (tpa.ragged_paged_attention.launches_by_route['cuda_cores'],
+                      tqm.int8_matmul.launches_by_route['cuda_cores'])
+            if routes != (tpa.ragged_paged_attention.launches, tqm.int8_matmul.launches):
+                fail(f'{tag}: fp32 launches off the CUDA cores: {routes}')
+            result[f'{arm}_{backend}'] = dict(k1_launches=k1[0], k2_launches=k2[0],
+                                              forward_passes=passes)
+            shut_down(torch, tag, engine)
+            del engine
+        same = outs['auto'] == outs['reference']
+        result[f'{arm}_identical'] = same
+        log(f'[identity mixtral] fp32 depth 2 at Mixtral-8x7B widths, {arm} weights, '
+            f'{len(prompts)} prompts x 16 greedy tokens: kernels vs plain ops identical={same}')
+        if not same:
+            fail(f'identity mixtral {arm}: {outs["auto"]} on the kernels vs '
+                 f'{outs["reference"]} on the plain ops')
+        del params
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_spec_mixed_mixtral(torch, tpa, tqm, card):
+    """19c. Mixtral-8x7B widths at depth 4, bf16 activations over int8
+    weights: ``draft_k=4`` (drafts from the off arm's greedy stream, a
+    :class:`ProposalDrafter`) and mixed windows with chunked prefill,
+    each against the arm with neither. Agreement shares are printed, not
+    asserted (bf16 token identity across schedules is not structural);
+    each arm's K1 and K2 launches are checked per pass, the verify
+    graph's among them."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig(num_layers=4)
+    params = mixtral.init(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE,
+                          quantization='int8')
+    rng = np.random.default_rng(21)
+    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size, size=int(n))]
+               for n in rng.integers(48, 400, size=24)]
+    sampling = [SamplingParams(temperature=0.0, max_tokens=int(n))
+                for n in rng.integers(16, 48, size=24)]
+    base = dict(block_size=BLOCK_SIZE, num_blocks=712, max_num_seqs=8, max_model_len=512,
+                decode_steps=8)
+    arms = {'off': serve_arm(torch, tpa, 'mixtral off', cfg, params, base, prompts, sampling,
+                             tqm=tqm, k2_per_layer=4)}
+    arms['spec'] = serve_arm(torch, tpa, 'mixtral spec', cfg, params,
+                             dict(base, draft_k=SPEC_DRAFT_K), prompts, sampling, tqm=tqm,
+                             proposals=arms['off']['tokens'], k2_per_layer=4)
+    arms['mixed'] = serve_arm(torch, tpa, 'mixtral mixed', cfg, params,
+                              dict(base, enable_mixed_batching=True, prefill_chunk_tokens=128,
+                                   max_window_prefill_tokens=128),
+                              prompts, sampling, tqm=tqm, k2_per_layer=4)
+    spec, mixed = arms['spec'], arms['mixed']
+    verify = dict(passes=spec['spec_windows'], replays=spec['verify_graph_replays'],
+                  k1_launches=cfg.num_layers * spec['spec_windows'],
+                  k2_launches=4 * cfg.num_layers * spec['spec_windows'],
+                  pool_mib=spec.get('graph_pool_mib'))
+    agree = {name: greedy_match(arms['off']['tokens'], arms[name]['tokens'])
+             for name in ('spec', 'mixed')}
+    log(f'[spec mixed mixtral] {card}: off / spec / mixed {arms["off"]["tokens_per_s"]:.1f} / '
+        f'{spec["tokens_per_s"]:.1f} / {mixed["tokens_per_s"]:.1f} tok/s; spec accepted '
+        f'{spec["spec_accepted_tokens"]}/{spec["spec_draft_tokens"]} over '
+        f'{spec["spec_windows"]} verify passes (graph replays {verify["replays"]}: K1 '
+        f'{verify["k1_launches"]}, K2 {verify["k2_launches"]} launches); mixed windows '
+        f'{mixed["mixed_windows"]}; agreement with off (recorded, bf16) {json.dumps(agree)}')
+    if not (spec['spec_accepted_tokens'] > 0 and mixed['mixed_windows'] > 0):
+        fail(f'spec mixed mixtral: accepted {spec["spec_accepted_tokens"]}, mixed windows '
+             f'{mixed["mixed_windows"]}')
+    for arm in arms.values():
+        arm.pop('tokens')
+    del params
+    torch.cuda.empty_cache()
+    return dict(arms, agreement=agree, verify=verify)
+
+
+def write_mixtral_checkpoint(torch, root: Path, params, cfg):
+    """A Mixtral HF checkpoint directory of ``params`` (the port's float
+    tree, on the card): ``model.safetensors`` in HF key names (Linear
+    weights back to ``[out, in]``; the router as ``block_sparse_moe.gate``,
+    each expert's ``w1`` / ``w3`` / ``w2``), ``config.json`` and the word
+    tokenizer."""
+    from safetensors.torch import save_file
+
+    root.mkdir(parents=True, exist_ok=True)
+    layers = params['layers']
+
+    def host(x):
+        return x.detach().contiguous().cpu()
+
+    state = {'model.embed_tokens.weight': host(params['embed']),
+             'model.norm.weight': host(params['final_ln']['scale']),
+             'lm_head.weight': host(params['lm_head'].T)}
+    attn = {'q': 'q_proj', 'k': 'k_proj', 'v': 'v_proj', 'o': 'o_proj'}
+    for i in range(cfg.num_layers):
+        p = f'model.layers.{i}'
+        for key, hf in attn.items():
+            state[f'{p}.self_attn.{hf}.weight'] = host(layers[key]['kernel'][i].T)
+        state[f'{p}.block_sparse_moe.gate.weight'] = host(layers['router']['kernel'][i].T)
+        for e in range(cfg.num_experts):
+            for key, hf in (('gate', 'w1'), ('up', 'w3'), ('down', 'w2')):
+                state[f'{p}.block_sparse_moe.experts.{e}.{hf}.weight'] = host(
+                    layers[key]['kernel'][i, e].T)
+        state[f'{p}.input_layernorm.weight'] = host(layers['attn_ln']['scale'][i])
+        state[f'{p}.post_attention_layernorm.weight'] = host(layers['mlp_ln']['scale'][i])
+    save_file(state, str(root / 'model.safetensors'))
+    (root / 'config.json').write_text(json.dumps(MIXTRAL_CKPT_HF))
+    write_word_tokenizer(root, cfg.vocab_size, MIXTRAL_CKPT_SERVE['max_model_len'])
+    return root
+
+
+def phase_checkpoint_mixtral(torch, tpa, tqm, card, tmp: Path):
+    """19d. Mixtral-8x7B widths at one layer, bf16 from seed 22, written as
+    a checkpoint directory (about 3.4 GB) and served from a chat YAML's
+    ``pretrained_model_name_or_path`` with ``quantization: int8``: its
+    greedy tokens equal a direct engine's on the same tensors; K1 and K2
+    launched on the served path, the plain versions never."""
+    import yaml
+
+    from distllm_tpu_torch.chat import ChatAppConfig
+    from distllm_tpu_torch.generate.engine import LLMEngine
+    from distllm_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig.from_hf_config(MIXTRAL_CKPT_HF)
+    params = mixtral.init(cfg, torch.Generator(device=DEVICE).manual_seed(22), device=DEVICE)
+    root = tmp / 'mixtral-8x7b-1l'
+    t0 = time.perf_counter()
+    write_mixtral_checkpoint(torch, root, params, cfg)
+    write_s = time.perf_counter() - t0
+    app_yaml = tmp / 'chat_mixtral.yaml'
+    app_yaml.write_text(yaml.safe_dump({'system_prompt': '', 'generator_config': {
+        'name': 'tpu', 'pretrained_model_name_or_path': str(root), 'quantization': 'int8',
+        **MIXTRAL_CKPT_SERVE}}))
+    t0 = time.perf_counter()
+    generator = ChatAppConfig.from_yaml(str(app_yaml)).build_generator(device=DEVICE)
+    build_s = time.perf_counter() - t0
+    if generator.model_cfg.name != 'mixtral':
+        fail(f'checkpoint mixtral: the YAML built {generator.model_cfg}')
+    texts = checkpoint_prompts(8)
+    batch = generator.tokenizer(texts)
+    ids = [[int(t) for t, m in zip(r, mk) if m]
+           for r, mk in zip(batch.input_ids, batch.attention_mask)]
+    sampling, engine_cfg = generator.sampling_params(), generator.config.engine_config()
+    zero_k1_counts(tpa)
+    zero_k2_counts(tqm)
+    t0 = time.perf_counter()
+    served = generator.engine.generate_ids(ids, sampling)
+    serve_s = time.perf_counter() - t0
+    k1, k2 = tpa.ragged_paged_attention.launches, tqm.int8_matmul.launches
+    plain = (tpa.ragged_paged_attention_reference.launches, tqm.int8_matmul_reference.launches)
+    shut_down(torch, 'checkpoint mixtral served', generator.engine)
+    del generator
+    direct = LLMEngine(cfg, params, None, engine_cfg, device=DEVICE)
+    direct.warmup()
+    same = direct.generate_ids(ids, sampling) == served
+    shut_down(torch, 'checkpoint mixtral direct', direct)
+    del direct, params
+    torch.cuda.empty_cache()
+    gib = sum(f.stat().st_size for f in root.iterdir()) / 2**30
+    log(f'[checkpoint mixtral] {card}: 1 layer at Mixtral-8x7B widths written in {write_s:.2f} s '
+        f'({gib:.2f} GiB), served from {app_yaml.name} with int8 (built in {build_s:.2f} s): '
+        f'{sum(map(len, served))} tokens in {serve_s:.3f} s; identical to the direct engine='
+        f'{same}; K1 {k1}, K2 {k2}, plain {plain}')
+    if not same:
+        fail('checkpoint mixtral: tokens differ from an engine built on the same tensors')
+    if k1 <= 0 or k2 <= 0 or plain != (0, 0):
+        fail(f'checkpoint mixtral: K1 {k1}, K2 {k2}, plain {plain}')
+    return dict(identical_to_direct=same, write_s=write_s, build_s=build_s, serve_s=serve_s,
+                checkpoint_gib=gib, k1_launches=k1, k2_launches=k2)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -6086,6 +6531,30 @@ def main() -> None:
         cli_run = phase_cli(torch, tpa, tea, smi, Path(tmp), Path(tmp) / 'mistral-7b-2l')
         log(f'[cli] phase 18c took {time.perf_counter() - t0:.1f} s')
     log(f'[pipeline] phases 17-17d took {time.perf_counter() - t17:.1f} s')
+    del ckpt_generator
+    torch.cuda.empty_cache()
+    # 19a. the 4-D quantizer on a full-width expert bank; 19. Mixtral-8x7B
+    # int8 at full width through get_generator and HTTP; 19b. its fp32
+    # identities at depth 2; 19c. speculation and mixed windows at depth 4;
+    # 19d. a one-layer Mixtral checkpoint served from a chat YAML.
+    t19 = time.perf_counter()
+    t0 = time.perf_counter()
+    quantize_bank = phase_quantize_bank(torch, tq)
+    log(f'[quantize bank] phase 19a took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    mixtral_serve = phase_serve_mixtral(torch, tpa, tqm, smi)
+    log(f'[serve mixtral] phase 19 took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    mixtral_identity = phase_identity_mixtral(torch, tpa, tqm)
+    log(f'[identity mixtral] phase 19b took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    mixtral_spec = phase_spec_mixed_mixtral(torch, tpa, tqm, smi)
+    log(f'[spec mixed mixtral] phase 19c took {time.perf_counter() - t0:.1f} s')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_mixtral_') as tmp:
+        t0 = time.perf_counter()
+        mixtral_ckpt = phase_checkpoint_mixtral(torch, tpa, tqm, smi, Path(tmp))
+        log(f'[checkpoint mixtral] phase 19d took {time.perf_counter() - t0:.1f} s')
+    log(f'[mixtral] phases 19-19d took {time.perf_counter() - t19:.1f} s')
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
     # most frequent launch (its prefill pair beside it); K3 at the embed
@@ -6246,6 +6715,18 @@ def main() -> None:
         'mcqa': {'rag': mcqa['k1'], 'booted_direct': mcqa_boot['k1_direct'],
                  'fp32_identity': mcqa_identity['k1']},
         'cli': {'generate': cli_run['k1']},
+        # Phase 19: Mixtral-8x7B int8 through get_generator (the main path's
+        # launches, then its 4 HTTP requests'); 19c: the verify graph's
+        # launches at depth 4; 19b: the fp32 identities' kernel arms.
+        'mixtral': {
+            'launches': mixtral_serve['launches'],
+            'launches_by_route': mixtral_serve['launches_by_route'],
+            'http_launches': mixtral_serve['http_k1_launches'],
+            'verify': {key: mixtral_spec['verify'][key] for key in ('passes', 'k1_launches')},
+            'fp32_identity': {arm: mixtral_identity[f'{arm}_auto']['k1_launches']
+                              for arm in ('float', 'int8')},
+            'checkpoint': mixtral_ckpt['k1_launches'],
+        },
         # Phases 16-16c: the open-loop load (attribution on and off), the
         # chaos run's clean and faulted arms, the overload arm, and the chat
         # server under HTTP load.
@@ -6334,6 +6815,17 @@ def main() -> None:
         # Phase 17c: the generator served from a checkpoint path, int8.
         'checkpoint': dict(launches=checkpoint['int8']['k2_launches'],
                            launches_by_route=checkpoint['int8']['k2_launches_by_route']),
+        # Phase 19: Mixtral-8x7B int8 (q / k / v / o of every layer; the
+        # expert banks are dequantized, never sent to K2), then its HTTP
+        # requests; 19c's verify graph; 19b's fp32 int8 arm; 19d's checkpoint.
+        'mixtral': {
+            'launches': mixtral_serve['k2_launches'],
+            'launches_by_route': mixtral_serve['k2_launches_by_route'],
+            'http_launches': mixtral_serve['http_k2_launches'],
+            'verify_launches': mixtral_spec['verify']['k2_launches'],
+            'fp32_identity': mixtral_identity['int8_auto']['k2_launches'],
+            'checkpoint': mixtral_ckpt['k2_launches'],
+        },
         'cases': k2_cases,
     }]
     log(f'[summary] {smi}: {serve["tokens_per_s"]:.1f} tok/s bf16, '
@@ -6426,6 +6918,18 @@ def main() -> None:
         f'booted server ready in {mcqa_boot["ready_s"]:.2f} s, answers identical to the direct '
         f'generator; CLI generate {cli_run["generate_s"]:.2f} s, embed {cli_run["embed_s"]:.2f} s; '
         f'fp32 MCQA identical on K1 and plain: {mcqa_identity["identical"]}; '
+        f'{time.perf_counter() - t_start:.1f} s total')
+    log(f'[mixtral] {json.dumps(dict(quantize_bank=quantize_bank, serve=mixtral_serve, identity=mixtral_identity, spec_mixed=mixtral_spec, checkpoint=mixtral_ckpt))}')
+    log(f'[summary] {smi}: Mixtral-8x7B int8 (32 layers, 8 experts, top 2) built in '
+        f'{mixtral_serve["build_s"]:.1f} s, {mixtral_serve["weight_gib"]:.2f} GiB int8 weights, '
+        f'peak {mixtral_serve["peak_gib"]:.2f} GiB; {mixtral_serve["tokens_per_s"]:.2f} tok/s, '
+        f'decode {mixtral_serve["decode_pass_ms"]} ms a pass (estimate: {MIXTRAL_ESTIMATE}); '
+        f'HTTP {mixtral_serve["http_statuses"]}; graph pools '
+        f'{json.dumps(mixtral_serve["pool_mib"])} MiB; fp32 identities '
+        f'{mixtral_identity["float_identical"]} / {mixtral_identity["int8_identical"]}; '
+        f'spec / mixed agreement {json.dumps(mixtral_spec["agreement"])}; checkpoint identical '
+        f'{mixtral_ckpt["identical_to_direct"]}; 4-D quantizer peak '
+        f'{quantize_bank["peak_extra_slices"]:.3f} slices; '
         f'{time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):

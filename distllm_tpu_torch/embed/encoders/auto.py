@@ -3,15 +3,17 @@
 
 ``config.json``'s ``model_type`` picks the model: the encoder families
 ``bert``, ``esm`` (ESM-2) and ``modernbert``, or any decoder family of
-``models.decoder_families`` (mistral, llama, qwen2, gemma, gemma2:
-embedding models such as SFR-Embedding-Mistral ride the decoder forward,
-``mistral.apply``, with ``last_token`` pooling); ``half_precision``
+``models.decoder_families`` (mistral, llama, qwen2, mixtral, gemma,
+gemma2: embedding models such as SFR-Embedding-Mistral ride the decoder
+forward, ``mistral.apply``, with ``last_token`` pooling; a Mixtral
+checkpoint rides it through its router branch); ``half_precision``
 picks bf16 activations (fp32 otherwise); the weights are read with
 ``models.loader`` and the tokenizer is the checkpoint's own HF tokenizer.
 ``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
 bitsandbytes flag) quantizes the checkpoint's fp32 dense kernels on the
 device, as the JAX encoder quantizes its fp32 parameters, so the codes
-are the JAX package's. Mixtral is not ported yet and raises (ROADMAP A10).
+are the JAX package's (a Mixtral expert bank one expert's slice at a
+time).
 """
 
 from __future__ import annotations

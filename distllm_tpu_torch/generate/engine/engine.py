@@ -168,6 +168,7 @@ from distllm_tpu_torch.ops.paged_attention import (
 )
 from distllm_tpu_torch.ops.quantization import (
     MODES,
+    leaves,
     quantize_pytree,
     quantized_nbytes,
 )
@@ -469,10 +470,25 @@ class EngineConfig(BaseConfig):
             )
 
 
+def _weight_bytes(params: dict) -> dict[str, int]:
+    """Weight bytes of a tree: ``weight_bytes_quantized`` /
+    ``weight_bytes_float`` over every leaf, and the same two over the 4-D
+    leaves alone (Mixtral's ``[L, E, in, out]`` expert banks,
+    ``expert_bank_bytes_*``; 0 for a dense family)."""
+    banks = [leaf for leaf in leaves(params) if len(getattr(leaf, 'shape', ())) == 4]
+    q_all, f_all = quantized_nbytes(params)
+    q_banks, f_banks = quantized_nbytes(dict(enumerate(banks)))
+    return {
+        'weight_bytes_quantized': q_all, 'weight_bytes_float': f_all,
+        'expert_bank_bytes_quantized': q_banks, 'expert_bank_bytes_float': f_banks,
+    }
+
+
 class LLMEngine:
-    """Drives a decoder of the Mistral forward (Mistral, Llama, Qwen2, and
-    Gemma / Gemma-2 through a ``GemmaConfig``) with paged KV + continuous
-    batching.
+    """Drives a decoder of the Mistral forward (Mistral, Llama, Qwen2,
+    Gemma / Gemma-2 through a ``GemmaConfig``, and Mixtral's sparse MoE
+    through a ``MixtralConfig``: its layers' router routes the MLP to the
+    expert bank) with paged KV + continuous batching.
 
     ``params`` must already live on ``device`` (``None`` = the GPU; raises
     without one). ``attn_backend`` is resolved once, here
@@ -490,7 +506,7 @@ class LLMEngine:
 
     def __init__(
         self,
-        model_cfg: mistral.MistralConfig,  # or a GemmaConfig
+        model_cfg: mistral.MistralConfig,  # or a GemmaConfig / MixtralConfig
         params: dict,
         tokenizer,
         config: EngineConfig | None = None,
@@ -523,11 +539,12 @@ class LLMEngine:
             # leaves pass through.
             with self._compile_watcher.phase(
                 'quantize', cfg.quantization, scope=self._compile_scope,
-            ):
+            ) as phase:
                 params = quantize_pytree(
                     params, mode=cfg.quantization, out_dtype=model_cfg.dtype,
                     delete_source=own_params,
                 )
+                phase.update(_weight_bytes(params))
         # The quantized-matmul tier, resolved once and pinned into the
         # model config every dispatch reads (which validates it).
         self.qmm_backend = qmm_backend or model_cfg.qmm_backend
@@ -603,6 +620,10 @@ class LLMEngine:
         # forward pass is a prefill dispatch, a chunk half, a decode graph
         # replay or a verify graph replay.
         self.stats: Counter[str] = Counter()
+        # Weight bytes by kind, the expert banks (4-D leaves) on their own:
+        # constant over the engine's life, so they sit in stats beside the
+        # counters without entering a run's telemetry delta.
+        self.stats.update(_weight_bytes(self.params))
         runner_args = dict(
             max_num_seqs=cfg.max_num_seqs,
             max_blocks_per_seq=self.max_blocks_per_seq,

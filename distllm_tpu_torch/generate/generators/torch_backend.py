@@ -13,7 +13,10 @@ stops a request (the first one the EOS when the tokenizer has none, the
 rest as stop ids). Without a path the model is built from a
 :class:`~distllm_tpu_torch.models.mistral.MistralConfig` (or a
 :class:`~distllm_tpu_torch.models.gemma.GemmaConfig` for the Gemma
-families): random weights made on the device from ``seed``, or params
+families, a :class:`~distllm_tpu_torch.models.mixtral.MixtralConfig` for
+Mixtral): random weights made on the device from ``seed`` by the
+family's own ``init`` (quantized there when ``quantization`` is set, so
+Mixtral-8x7B's int8 tree is built without its 93 GB bf16 one), or params
 bridged from the JAX package
 (:func:`~distllm_tpu_torch.models.mistral.params_from_jax`).
 ``tensor_parallel_size`` above 1 raises, naming ROADMAP A10b.
@@ -241,10 +244,17 @@ class TorchGenerator:
             )
             tokenizer = tokenizer or hf_tokenizer
         elif own_params:
-            params = mistral.init(
+            # The family's own init: Mixtral's draws its expert banks and,
+            # quantized, codes them layer by layer (its bf16 tree would not
+            # fit the card).
+            from distllm_tpu_torch.models import decoder_family
+
+            _, family = decoder_family(model_cfg.name)
+            params = family.init(
                 model_cfg,
                 torch.Generator(device=device).manual_seed(config.seed),
                 device=device,
+                quantization=config.quantization,
             )
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer or WhitespaceTokenizer(

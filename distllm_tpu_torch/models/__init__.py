@@ -3,21 +3,18 @@ tokenizers and checkpoint reading."""
 
 from __future__ import annotations
 
-# Decoder families of the JAX package that the port does not serve yet,
-# with the ROADMAP item that brings them.
-_NOT_PORTED = {'mixtral': 'ROADMAP A10'}
-
 
 def decoder_families() -> dict:
     """``model_type -> (config_cls, module)`` for every decoder family the
-    port serves (the JAX table, but for Mixtral): the serving entry points
-    and the ``auto`` encoder dispatch through :func:`decoder_family`."""
-    from distllm_tpu_torch.models import gemma, mistral
+    port serves (the JAX table): the serving entry points and the
+    ``auto`` encoder dispatch through :func:`decoder_family`."""
+    from distllm_tpu_torch.models import gemma, mistral, mixtral
 
     return {
         'mistral': (mistral.MistralConfig, mistral),
         'llama': (mistral.MistralConfig, mistral),
         'qwen2': (mistral.MistralConfig, mistral),
+        'mixtral': (mixtral.MixtralConfig, mixtral),
         'gemma': (gemma.GemmaConfig, gemma),
         'gemma2': (gemma.GemmaConfig, gemma),
     }
@@ -25,17 +22,11 @@ def decoder_families() -> dict:
 
 def decoder_family(model_type: str):
     """``(config_cls, module)`` for a decoder checkpoint's HF
-    ``model_type``. A family of the JAX package not ported yet raises
-    ``NotImplementedError`` naming its ROADMAP item; anything else
-    (encoder families included) raises ``ValueError``, as in JAX."""
+    ``model_type``; anything else (encoder families included) raises
+    ``ValueError``, as in JAX."""
     families = decoder_families()
     if model_type in families:
         return families[model_type]
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f'decoder model_type {model_type!r} is not ported to '
-            f'distllm_tpu_torch yet ({_NOT_PORTED[model_type]})'
-        )
     raise ValueError(
         f'Unsupported decoder model_type {model_type!r}; '
         f'supported: {sorted(families)}'

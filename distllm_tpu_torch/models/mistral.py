@@ -66,7 +66,12 @@ from distllm_tpu_torch.ops.paged_attention import (
     write_chunk_kv,
     write_token_kv,
 )
-from distllm_tpu_torch.ops.quantization import is_jax_qtensor, qtensor_from_jax
+from distllm_tpu_torch.ops.quantization import (
+    is_jax_qtensor,
+    normalize_mode,
+    qtensor_from_jax,
+    quantize_pytree,
+)
 from distllm_tpu_torch.ops.quantized_matmul import QMM_BACKENDS
 from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens, verify_spans
 from distllm_tpu_torch.utils import BaseConfig, torch_dtype
@@ -189,13 +194,18 @@ def init(
     generator: 'torch.Generator | None' = None,
     device: 'str | torch.device' = 'cuda',
     dtype: 'str | torch.dtype | None' = None,
+    quantization: 'bool | str | None' = None,
 ) -> dict:
     """Random weights (normal, std 0.02; norms at their identity: 1, or 0
     under ``norm_plus_one``) created directly on ``device`` in ``dtype``
     (default ``cfg.dtype``) at full width — the ``init_on_device``
     counterpart: one draw per parameter kind with its leading ``L`` axis,
     never a host copy. ``generator`` must live on ``device``; ``None``
-    seeds a fresh one with 0."""
+    seeds a fresh one with 0. With ``quantization`` ('int8' / 'nf4';
+    ``True`` means nf4) the tree is ``quantize_pytree``'s of those
+    weights, each float leaf dropped as its codes appear (the engine's
+    own quantization, done here; ``mixtral.init`` takes the same
+    argument and quantizes layer by layer)."""
     device = torch.device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     if generator is None:
@@ -236,6 +246,9 @@ def init(
         params['layers']['post_mlp_ln'] = {'scale': norm(L, h)}
     if not cfg.tie_word_embeddings:
         params['lm_head'] = normal(h, cfg.vocab_size)
+    mode = normalize_mode(quantization)
+    if mode:
+        params = quantize_pytree(params, mode=mode, out_dtype=dt, delete_source=True)
     return params
 
 
@@ -394,7 +407,19 @@ def _embed_tokens(params: dict, cfg: MistralConfig, input_ids: torch.Tensor):
 def _mlp_block(
     normed: torch.Tensor, lp: dict, li: int, cfg: MistralConfig
 ) -> torch.Tensor:
-    """Per-layer gated MLP of layer ``li`` (SwiGLU; GeGLU for Gemma)."""
+    """Per-layer MLP of layer ``li``: the gated MLP (SwiGLU; GeGLU for
+    Gemma), or Mixtral's routed expert bank when the layer carries a
+    ``router`` (``mixtral.moe_mlp``, the JAX dispatch on the tree's
+    structure). Every program of the forward reaches it through
+    :func:`_residual_block`, decode's ``[B, H]`` rows included. A router
+    without ``cfg.experts_per_token`` raises rather than guess top 2."""
+    if 'router' in lp:
+        from distllm_tpu_torch.models.mixtral import moe_mlp
+
+        return moe_mlp(
+            normed, lp['router']['kernel'][li], lp['gate']['kernel'][li],
+            lp['up']['kernel'][li], lp['down']['kernel'][li], cfg.experts_per_token,
+        )
     qb = cfg.qmm_backend
     act = common.ACTIVATIONS[cfg.activation]
     gate = common.dense(normed, lp['gate']['kernel'][li], qmm_backend=qb)

@@ -9,7 +9,11 @@ set to emit one token per row).
 
 The model is a *weight-stream* roofline: attention KV traffic and
 activation bytes are left out, so the bandwidth share is a lower bound.
-FLOPs are ``2 * n_params`` per scored token (matmuls only).
+FLOPs are ``2 * n_params`` per scored token (matmuls only). For a
+Mixtral tree that counts all 8 experts of every layer, not the 2 a
+token is routed to: both packages compute every expert as dense
+products (``models/mixtral.moe_mlp``), so that is the work done, the
+JAX formula kept.
 
 Costs come from the engine's *actual* parameter tree — ``numel`` and
 ``nbytes`` summed over every tensor, int8 and nf4 codes and their scales

@@ -12,8 +12,10 @@ The quantizers run on the tensor's own device with the numpy code's
 arithmetic (fp32 absmax over the input axis only, ``/ 127``, a zero
 scale replaced by 1, round half to even, clip to +-127), so the codes
 and scales equal the JAX package's bitwise on the same fp32 weights. A
-stacked ``[L, in, out]`` leaf is quantized one layer slice at a time, so
-the fp32 temporaries never hold more than one layer.
+stacked ``[L, in, out]`` leaf, or a Mixtral expert bank ``[L, E, in,
+out]``, is quantized one ``[in, out]`` slice at a time, so the fp32
+temporaries never hold more than one slice (235 MB for one expert's
+``[4096, 14336]`` where the whole Mixtral-8x7B bank would need 60 GB).
 """
 
 from __future__ import annotations
@@ -113,10 +115,17 @@ class QTensor:
 
     def dequantize(self) -> torch.Tensor:
         """The float weight in ``out_dtype``, with the JAX arithmetic
-        (codes and scale cast to ``out_dtype``, multiplied there)."""
+        (codes and scale cast to ``out_dtype``, multiplied there). An
+        int8 product takes the codes as they are: promotion casts them to
+        ``out_dtype`` exactly (|q| <= 127) inside the one multiply, so no
+        float copy of the codes is made first. (On the H100 a cast and
+        then an in-place multiply by the broadcast scale, both
+        unvectorized, took 266 ms of a Mixtral-8x7B decode pass against
+        the one multiply's 191: ``scripts/profile_torch_serve.py --model
+        mixtral``.)"""
         dt = self.out_dtype
         if self.kind == 'int8':
-            return self.q.to(dt) * self.scale.to(dt)
+            return torch.mul(self.q, self.scale.to(dt))
         high = (self.q >> 4) & 0x0F
         low = self.q & 0x0F
         codes = torch.stack([high, low], dim=-1).reshape(*self.q.shape[:-1], -1)
@@ -148,15 +157,18 @@ def _nf4_codebook(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _int8_slice(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Codes and scales of one ``[..., in, out]`` slice (fp32 math)."""
-    w = w.float()
-    absmax = w.abs().amax(dim=-2, keepdim=True)
+    """Codes and scales of one ``[..., in, out]`` slice (fp32 math). The
+    one slice-sized fp32 transient is the copy divided in place: the
+    absmax comes from ``amax`` / ``amin`` (``|w|``'s max exactly, with no
+    ``|w|`` tensor), and rounding and clipping act on the quotient."""
+    w = w.to(torch.float32, copy=True)
+    absmax = torch.maximum(w.amax(dim=-2, keepdim=True), w.amin(dim=-2, keepdim=True).neg_())
     # A tensor divisor, not the scalar 127: on CUDA PyTorch turns division
     # by a host scalar into multiplication by its reciprocal, which rounds
     # differently from numpy's division.
     scale = absmax / torch.full_like(absmax, 127.0)
     scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
-    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    q = w.div_(scale).round_().clamp_(-127, 127).to(torch.int8)
     return q, scale
 
 
@@ -176,20 +188,26 @@ def _nf4_slice(w: torch.Tensor, block_size: int) -> tuple[torch.Tensor, torch.Te
     return packed, scale
 
 
-def _per_layer(w: torch.Tensor, fn, *args):
-    """``fn`` over the leading axis of a stacked weight, one slice at a
-    time (a ``[32, 4096, 14336]`` leaf never has an fp32 copy), written
-    into stacked outputs; a 2-D weight in one call."""
-    if w.dim() == 2:
+def _per_slice(w: torch.Tensor, fn, *args):
+    """``fn`` over every ``[in, out]`` slice of a ``[..., in, out]``
+    weight (a layer's slice, or one expert's of an ``[L, E, in, out]``
+    bank), one at a time, written into outputs preallocated on the first
+    and stacked on the leading axes: the fp32 transients never exceed one
+    slice (a ``[32, 4096, 14336]`` leaf never has an fp32 copy), nor the
+    codes a second copy. A 2-D weight in one call."""
+    lead = w.shape[:-2]
+    if not lead:
         return fn(w, *args)
+    flat = w.reshape(-1, *w.shape[-2:])
     outs = None
-    for i in range(w.shape[0]):
-        parts = fn(w[i], *args)
-        if outs is None:  # preallocated: no second copy of the codes
-            outs = tuple(p.new_empty((w.shape[0], *p.shape)) for p in parts)
+    for i in range(flat.shape[0]):
+        parts = fn(flat[i], *args)
+        if outs is None:
+            outs = tuple(p.new_empty((flat.shape[0], *p.shape)) for p in parts)
         for out, part in zip(outs, parts):
             out[i] = part
-    return outs
+        del parts
+    return tuple(out.reshape(*lead, *out.shape[1:]) for out in outs)
 
 
 def quantize_int8(
@@ -197,13 +215,12 @@ def quantize_int8(
 ) -> QTensor:
     """Symmetric per-output-channel int8 (channel = last axis); only the
     input axis (second to last) is reduced, so every layer of a stacked
-    ``[L, in, out]`` leaf keeps its own per-channel range."""
+    ``[L, in, out]`` leaf, and every expert of an ``[L, E, in, out]``
+    bank, keeps its own per-channel range. One ``[in, out]`` slice is
+    quantized at a time into preallocated codes and scales."""
     if w.dim() < 2:
         raise ValueError(f'int8 quantization needs a [..., in, out] weight, got {tuple(w.shape)}')
-    if w.dim() > 3:
-        q, scale = _int8_slice(w)
-    else:
-        q, scale = _per_layer(w, _int8_slice)
+    q, scale = _per_slice(w, _int8_slice)
     return QTensor(q, scale, 'int8', tuple(w.shape), out_dtype)
 
 
@@ -219,12 +236,7 @@ def quantize_nf4(
         raise ValueError(f'nf4 quantization needs a [..., in, out] weight, got {tuple(w.shape)}')
     if block_size % 2:
         raise ValueError('nf4 block_size must be even (two codes per byte)')
-    lead = w.shape[:-2]
-    flat = w.reshape(-1, *w.shape[-2:])
-    q, scale = _per_layer(flat if lead else w, _nf4_slice, block_size)
-    if lead:
-        q = q.reshape(*lead, *q.shape[1:])
-        scale = scale.reshape(*lead, *scale.shape[1:])
+    q, scale = _per_slice(w, _nf4_slice, block_size)
     return QTensor(q, scale, 'nf4', tuple(w.shape), out_dtype, block_size)
 
 

@@ -39,11 +39,16 @@ from its first window's dispatch to its end (``replay_busy_share``,
 plain run (one per decode pass) and, as the check that the profiler sees
 the kernels a replayed graph launches, the attention kernel's profiled
 launches against layers x profiled passes
-(``attention_launches_profiled`` / ``attention_launches_expected``). Needs
+(``attention_launches_profiled`` / ``attention_launches_expected``).
+``--model mixtral`` profiles Mixtral-8x7B widths instead (its family's
+``init``, quantized layer by layer with ``--quantization``: in bf16 only
+a cut depth fits the card); its expert banks' dequantization is the
+elementwise multiply of int8 codes by bf16 scales, under ``other``. Needs
 CUDA; exits nonzero without it.
 
-    python3 scripts/profile_torch_serve.py [--layers 32] [--quantization int8]
-        [--kv-cache-dtype int8] [--workloads decode_long,...] [--out results.json]
+    python3 scripts/profile_torch_serve.py [--model mixtral] [--layers 32]
+        [--quantization int8] [--kv-cache-dtype int8]
+        [--workloads decode_long,...] [--out results.json]
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ from distllm_tpu_torch.generate.engine import (  # noqa: E402
     LLMEngine,
     SamplingParams,
 )
-from distllm_tpu_torch.models import mistral  # noqa: E402
+from distllm_tpu_torch.models import mistral, mixtral  # noqa: E402
 from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer  # noqa: E402
 
 
@@ -149,11 +154,13 @@ def _run(engine, prompts, max_tokens):
 
 def _kernel_times(prof) -> list[tuple[float, int, str]]:
     """(device µs, launches, name) of each CUDA kernel (not of the CPU ops
-    that launched them, whose device time would count the kernels twice)."""
+    that launched them, nor of the engine's ``distllm:<kind>`` ranges,
+    which the trace also places on the device: either would count the
+    kernels twice)."""
     cuda = torch.autograd.DeviceType.CUDA
     rows = []
     for avg in prof.key_averages():
-        if getattr(avg, 'device_type', None) != cuda:
+        if getattr(avg, 'device_type', None) != cuda or avg.key.startswith('distllm:'):
             continue
         us = getattr(avg, 'self_device_time_total', None)
         if us is None:
@@ -281,6 +288,7 @@ def measure(engine, name, prompts, max_tokens, profiled_tokens):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--model', choices=('mistral', 'mixtral'), default='mistral')
     parser.add_argument('--layers', type=int, default=32)
     parser.add_argument('--quantization', choices=('int8', 'nf4'), default=None)
     parser.add_argument('--kv-cache-dtype', choices=KV_CACHE_DTYPES, default='auto')
@@ -294,8 +302,11 @@ def main() -> None:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    model_cfg = mistral.MistralConfig(num_layers=args.layers)
-    params = mistral.init(model_cfg, torch.Generator(device='cuda').manual_seed(0))
+    family = mixtral if args.model == 'mixtral' else mistral
+    config_cls = mixtral.MixtralConfig if args.model == 'mixtral' else mistral.MistralConfig
+    model_cfg = config_cls(num_layers=args.layers)
+    params = family.init(model_cfg, torch.Generator(device='cuda').manual_seed(0),
+                         quantization=args.quantization)
     engine = LLMEngine(
         model_cfg, params,
         WhitespaceTokenizer(vocab_size=model_cfg.vocab_size, model_max_length=2048),
@@ -321,7 +332,8 @@ def main() -> None:
             engine, 'decode_long', _prompts(rng, 8, 1024, 1024), 64, 24),
     }
     results = [runs[name]() for name in args.workloads.split(',')]
-    head = {'card': card, 'layers': args.layers, 'quantization': args.quantization,
+    head = {'card': card, 'model': args.model, 'layers': args.layers,
+            'quantization': args.quantization,
             'kv_cache_dtype': engine.telemetry['kv_cache_dtype'],
             'kv_pool_bytes': engine.kv.hbm_bytes,
             'decode_graph_captures': engine.stats.get('decode_graph_captures', 0),

@@ -18,7 +18,8 @@ with the ROADMAP item that brings what it asks for:
   packages (the port notes once that it has no effect);
 - ``top_p`` with ``min_p``: both set is refused, as JAX refuses it; a set
   ``top_p`` alone turns ``min_p`` off;
-- a ``model`` mapping picks its config class by ``name`` (``gemma2``).
+- a ``model`` mapping picks its config class by ``name`` (``gemma2``,
+  ``mixtral``).
 """
 
 from pathlib import Path
@@ -29,6 +30,7 @@ import yaml
 import distllm_tpu.generate
 from distllm_tpu.chat import ChatAppConfig as JaxChatAppConfig
 from distllm_tpu.generate.generators.tpu_backend import TpuGeneratorConfig
+from distllm_tpu.models.mixtral import MixtralConfig as JaxMixtralConfig
 from distllm_tpu_torch.chat import ChatAppConfig
 from distllm_tpu_torch.chat_server import load_app_config
 from distllm_tpu_torch.generate.generators.torch_backend import (
@@ -38,6 +40,7 @@ from distllm_tpu_torch.generate.generators.torch_backend import (
 )
 from distllm_tpu_torch.models.gemma import GemmaConfig
 from distllm_tpu_torch.models.mistral import MistralConfig
+from distllm_tpu_torch.models.mixtral import MixtralConfig
 
 RAG_YAML = Path(__file__).resolve().parents[1] / 'examples' / 'chat' / 'chat_server.rag.yaml'
 TINY_MODEL = {
@@ -243,9 +246,15 @@ def test_a_gemma2_model_is_named_in_the_yaml(tmp_path):
         path, _ = _engine_yaml(tmp_path, model={**TINY_MODEL, 'name': family})
         config, _ = load_app_config(str(path))
         assert type(config.model) is MistralConfig and config.model.name == 'mistral'
-    path, _ = _engine_yaml(tmp_path, model={**TINY_MODEL, 'name': 'mixtral'})
-    with pytest.raises(NotImplementedError, match='A10'):
-        load_app_config(str(path))
+    # Mixtral (ROADMAP A10a) builds the JAX config's MixtralConfig.
+    path, _ = _engine_yaml(tmp_path, model={**TINY_MODEL, 'name': 'mixtral', 'num_experts': 4})
+    config, _ = load_app_config(str(path))
+    assert type(config.model) is MixtralConfig and config.model.name == 'mixtral'
+    want = JaxMixtralConfig(**{**TINY_MODEL, 'num_experts': 4})
+    for field in ('vocab_size', 'hidden_size', 'num_layers', 'num_heads', 'num_kv_heads',
+                  'intermediate_size', 'num_experts', 'experts_per_token', 'rope_theta',
+                  'rms_norm_eps', 'sliding_window', 'tie_word_embeddings', 'dtype'):
+        assert getattr(config.model, field) == getattr(want, field), field
 
 
 def test_a_float_written_without_a_dot_reads_as_in_jax(tmp_path):

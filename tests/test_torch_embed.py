@@ -294,21 +294,30 @@ def test_int8_run_embedding_matches_jax_end_to_end(tmp_path, checkpoint_q):
 
 def test_unported_strategies_raise_naming_the_roadmap(tmp_path, checkpoint):
     """What the port still refuses names its ROADMAP item: the pod compute
-    configs (the fabric, A11) and Mixtral checkpoints (A10); a bad
-    quantization mode is a ValueError."""
+    configs (the fabric, A11); a bad quantization mode is a ValueError;
+    a Mixtral checkpoint, refused until its slice, now embeds as JAX's."""
     with pytest.raises(ValueError, match='unknown quantization mode'):
         get_encoder({'name': 'auto', 'quantization': 'int4',
                      'pretrained_model_name_or_path': str(checkpoint)}, device='cpu')
     config = json.loads(_run_config(tmp_path, checkpoint, 'x').read_text())
     with pytest.raises(NotImplementedError, match='ROADMAP A11'):
         port_embedding.Config(**{**config, 'compute_config': {'name': 'pod'}})
-    hf = json.loads((checkpoint / 'config.json').read_text())
-    other = tmp_path / 'mixtral'
-    other.mkdir()
-    (other / 'config.json').write_text(json.dumps({**hf, 'model_type': 'mixtral'}))
-    with pytest.raises(NotImplementedError, match='ROADMAP A10'):
-        get_encoder({'name': 'auto', 'pretrained_model_name_or_path': str(other)},
-                    device='cpu')
+    # A Mixtral checkpoint is served since its slice (A10a): get_encoder
+    # builds it in both packages, and the embeddings agree.
+    from distllm_tpu.embed.encoders import get_encoder as jax_get_encoder
+    from tests.test_torch_mixtral import write_numpy_checkpoint
+
+    other = write_numpy_checkpoint(tmp_path / 'mixtral', seed=4)
+    spec = {'name': 'auto', 'pretrained_model_name_or_path': str(other),
+            'half_precision': False}
+    port_enc = get_encoder(spec, device='cpu')
+    jax_enc = jax_get_encoder(dict(spec))
+    assert port_enc.model_cfg.name == 'mixtral' == jax_enc.model_cfg.name
+    texts = ['w1 w2 w3', 'w4 w5 w6 w7 w8']
+    got = port_enc.pooled_forward(get_pooler({'name': 'last_token'}))(port_enc.tokenizer(texts))
+    want = jax_enc.pooled_forward(jax_last_token.LastTokenPooler(
+        jax_last_token.LastTokenPoolerConfig()))(jax_enc.tokenizer(texts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=1e-4)
 
 
 # ---------------------------------------------------- device defaulting

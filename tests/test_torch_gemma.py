@@ -52,7 +52,14 @@ from distllm_tpu.models import gemma as jax_gemma
 from distllm_tpu.models import mistral as jax_mistral
 from distllm_tpu.ops import paged_attention as jpa
 from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
-from distllm_tpu_torch.models import common, decoder_families, decoder_family, gemma, mistral
+from distllm_tpu_torch.models import (
+    common,
+    decoder_families,
+    decoder_family,
+    gemma,
+    mistral,
+    mixtral,
+)
 from distllm_tpu_torch.ops import paged_attention as tpa
 
 ATOL, RTOL = 1e-5, 1e-4
@@ -523,11 +530,22 @@ def test_attn_backend_resolves_once_by_head_dim():
 # -------------------------------------------------- decoder dispatch
 def test_decoder_family_dispatch_and_errors():
     families = decoder_families()
-    assert sorted(families) == ['gemma', 'gemma2', 'llama', 'mistral', 'qwen2']
+    assert sorted(families) == ['gemma', 'gemma2', 'llama', 'mistral', 'mixtral', 'qwen2']
     assert families['gemma2'] == (gemma.GemmaConfig, gemma)
     assert decoder_family('llama') == (mistral.MistralConfig, mistral)
-    with pytest.raises(NotImplementedError, match='A10'):
-        decoder_family('mixtral')
+    # Mixtral (ROADMAP A10a): the JAX family's config, field for field.
+    cfg_cls, module = decoder_family('mixtral')
+    assert (cfg_cls, module) == (mixtral.MixtralConfig, mixtral)
+    hf = {'model_type': 'mixtral', 'vocab_size': 320, 'hidden_size': 32,
+          'num_hidden_layers': 2, 'num_attention_heads': 4, 'num_key_value_heads': 2,
+          'intermediate_size': 48, 'num_local_experts': 4, 'num_experts_per_tok': 2,
+          'rope_theta': 5e5, 'sliding_window': 8}
+    jax_cls, _ = jax_decoder_family('mixtral')
+    got, want = cfg_cls.from_hf_config(hf), jax_cls.from_hf_config(hf)
+    for field in ('vocab_size', 'hidden_size', 'num_layers', 'num_heads', 'num_kv_heads',
+                  'head_size', 'intermediate_size', 'num_experts', 'experts_per_token',
+                  'rope_theta', 'sliding_window', 'tie_word_embeddings', 'dtype'):
+        assert getattr(got, field) == getattr(want, field), field
     for encoder_type in ('bert', 'esm', 'modernbert', 'nonsense'):
         with pytest.raises(ValueError, match='Unsupported decoder'):
             decoder_family(encoder_type)
@@ -581,12 +599,28 @@ def test_auto_encoder_last_token_embeddings_match_jax(tmp_path, family):
 
 
 def test_auto_encoder_refuses_unported_families(tmp_path):
+    from distllm_tpu.embed.encoders.auto import AutoEncoder as JaxAutoEncoder
+    from distllm_tpu.embed.encoders.auto import AutoEncoderConfig as JaxAutoConfig
+    from distllm_tpu.embed.poolers.last_token import LastTokenPooler as JaxPooler
+    from distllm_tpu.embed.poolers.last_token import LastTokenPoolerConfig as JaxPoolerConfig
     from distllm_tpu_torch.embed.encoders.auto import AutoEncoder, AutoEncoderConfig
+    from distllm_tpu_torch.embed.poolers.last_token import LastTokenPooler, LastTokenPoolerConfig
+    from tests.test_torch_mixtral import write_numpy_checkpoint
 
     # ESM-2 and ModernBERT checkpoints are served since the protein slice
-    # (tests/test_torch_embed_strategies.py holds them against JAX).
+    # (tests/test_torch_embed_strategies.py holds them against JAX), and
+    # Mixtral since its slice (A10a): its last-token embeddings are JAX's.
+    root = write_numpy_checkpoint(tmp_path / 'mixtral', seed=3)
+    kw = dict(pretrained_model_name_or_path=str(root), half_precision=False)
+    port_enc = AutoEncoder(AutoEncoderConfig(**kw), device='cpu')
+    jax_enc = JaxAutoEncoder(JaxAutoConfig(**kw))
+    assert type(port_enc.model_cfg) is mixtral.MixtralConfig
+    texts = ['w1 w2 w3 w4 w5', 'w6 w7', 'w8 w9 w10 w11 w12 w13 w14']
+    got = port_enc.pooled_forward(LastTokenPooler(LastTokenPoolerConfig()))(
+        port_enc.tokenizer(texts))
+    want = jax_enc.pooled_forward(JaxPooler(JaxPoolerConfig()))(jax_enc.tokenizer(texts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
     for model_type, err, match in (
-        ('mixtral', NotImplementedError, 'A10'),
         ('nonsense', ValueError, 'Unsupported decoder model_type'),
     ):
         (tmp_path / 'config.json').write_text(json.dumps({'model_type': model_type}))

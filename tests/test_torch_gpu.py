@@ -60,7 +60,11 @@ that are each bitwise the eager ``decode_loop`` on their inputs and pool,
 its device-side carry merges as the host asked, and one slot at any depth
 gives depth 1's tokens; the native scheduler builds with g++ on the card
 machine and makes the Python twin's decisions; a ``ProfilerCapture``
-stops itself and its trace holds K1's launches.
+stops itself and its trace holds K1's launches. Mixtral's ``moe_mlp`` on
+the card gives its CPU run (fp32 within 1e-5, ties to the lower expert),
+a 4-D expert bank's int8 codes and scales quantized on the card are the
+CPU's bitwise, and a 2-layer fp32 Mixtral engine gives the plain ops'
+greedy tokens on K1, and on K1 + K2 with int8 weights.
 """
 
 import numpy as np
@@ -2178,3 +2182,80 @@ def test_profiler_capture_stops_itself_and_traces_the_kernel(cuda, tmp_path):
 
     events = json.load(open(tmp_path / 'trace' / 'trace.json'))['traceEvents']
     assert any('ragged_paged_attention' in str(e.get('name', '')) for e in events)
+
+
+# ------------------------------------------------------------- Mixtral
+def _moe_inputs(seed, *, n=7, h=256, i=384, e=8, zero_router=False):
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(*shape, scale=0.05):
+        return torch.randn(shape, generator=gen) * scale
+
+    router = torch.zeros(h, e) if zero_router else w(h, e, scale=0.2)
+    return w(n, h, scale=1.0), router, w(e, h, i), w(e, h, i), w(e, i, h)
+
+
+@pytest.mark.parametrize('zero_router', [False, True], ids=['routed', 'zero_router'])
+def test_moe_mlp_on_the_card_matches_its_cpu_run(cuda, zero_router):
+    from distllm_tpu_torch.models import mixtral
+
+    x, router, gate, up, down = _moe_inputs(0, zero_router=zero_router)
+    cpu = mixtral.moe_mlp(x, router, gate, up, down, 2)
+    card = mixtral.moe_mlp(*(t.cuda() for t in (x, router, gate, up, down)), 2)
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), atol=1e-5, rtol=1e-5)
+    if zero_router:  # ties: experts 0 and 1 on both, as lax.top_k picks
+        probs = torch.softmax(x.cuda() @ router.cuda(), dim=-1)
+        assert (mixtral._top_k(probs, 2)[1] == torch.tensor([0, 1], device='cuda')).all()
+    banks = [tq.quantize_int8(t, out_dtype='float32') for t in (gate, up, down)]
+    cpu_q = mixtral.moe_mlp(x, router, *banks, 2)
+    card_banks = [tq.QTensor(b.q.cuda(), b.scale.cuda(), 'int8', b.shape, 'float32')
+                  for b in banks]
+    card_q = mixtral.moe_mlp(x.cuda(), router.cuda(), *card_banks, 2)
+    np.testing.assert_allclose(card_q.cpu().numpy(), cpu_q.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+def test_expert_bank_int8_codes_on_the_card_equal_the_cpus(cuda, dtype):
+    gen = torch.Generator().manual_seed(1)
+    bank = (torch.randn((2, 4, 256, 384), generator=gen) * 0.02).to(getattr(torch, dtype))
+    bank[1, 3, :, 5] = 0  # a zero channel: scale 1
+    cpu = tq.quantize_int8(bank)
+    card = tq.quantize_int8(bank.cuda())
+    assert torch.equal(card.q.cpu(), cpu.q) and torch.equal(card.scale.cpu(), cpu.scale)
+    assert card.q.shape == (2, 4, 256, 384) and card.scale.shape == (2, 4, 1, 384)
+
+
+def test_mixtral_engine_on_the_kernels_matches_the_plain_ops(cuda):
+    """A 2-layer fp32 Mixtral (hidden 512, 4 / 2 heads of 128, 4 experts)
+    served on the card: greedy tokens through K1 equal the plain op's,
+    and with int8 weights through K1 + K2 (q / k / v / o on the CUDA-core
+    route; the banks dequantized) equal the plain ops'."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig(
+        vocab_size=512, hidden_size=512, num_layers=2, num_heads=4, num_kv_heads=2,
+        intermediate_size=384, num_experts=4, experts_per_token=2, dtype='float32',
+    )
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(4, 512, size=n)] for n in (5, 40, 17, 90, 3)]
+    for quantization in (None, 'int8'):
+        params = mixtral.init(cfg, torch.Generator(device='cuda').manual_seed(0),
+                              quantization=quantization)
+        outs = {}
+        for backend in ('auto', 'reference'):
+            engine = LLMEngine(cfg, params, None, EngineConfig(
+                num_blocks=96, max_num_seqs=3, max_model_len=256, quantization=quantization,
+            ), attn_backend=backend, qmm_backend=backend)
+            engine.warmup()
+            k1, k2 = tpa.ragged_paged_attention.launches, tqm.int8_matmul.launches
+            outs[backend] = engine.generate_ids(
+                prompts, SamplingParams(temperature=0.0, max_tokens=24))
+            passes = engine.telemetry['forward_passes']
+            on_kernels = backend == 'auto'
+            assert tpa.ragged_paged_attention.launches - k1 == (
+                cfg.num_layers * passes if on_kernels else 0)
+            assert tqm.int8_matmul.launches - k2 == (
+                4 * cfg.num_layers * passes if on_kernels and quantization else 0)
+            engine.shutdown()
+        assert outs['auto'] == outs['reference'], quantization

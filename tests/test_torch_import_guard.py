@@ -62,6 +62,7 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.chat',
         'distllm_tpu_torch.models',
         'distllm_tpu_torch.models.gemma',
+        'distllm_tpu_torch.models.mixtral',
         'distllm_tpu_torch.models.common',
         'distllm_tpu_torch.models.esm2',
         'distllm_tpu_torch.models.esmc',
