@@ -23,7 +23,9 @@ carried on):
    a window across a split edge with spans of 1..3 and softcap, rows
    whose window leaves one live split), and phase 6g's verify windows (32
    spans of 5 over 22..1094 keys, 20-row tiles on the tensor cores, and
-   spans of 3, 12-row tiles on the split-KV route); NaN in the trash block leaves
+   spans of 3, 12-row tiles on the split-KV route), and phase 20's shard
+   shapes at 16 query / 4 KV heads (8 decode rows of 64..528 keys, 32 of
+   1..4096, a 512 + 300 prefill); NaN in the trash block leaves
    the outputs of a decode case, a split-edge case and a tensor-core case
    bitwise unchanged, and two launches of a split-edge case are bitwise
    equal; time kernel and ``scaled_dot_product_attention`` on the same
@@ -88,7 +90,9 @@ carried on):
    the 128-row tile), N = 784 (off the 128-column tile), one-signed data
    at K = 14336, partial sums that stay large and cancel exactly at the
    end (the tensor cores' truncation at its largest, one split), an
-   all-zero weight column and one fp32 case; each case's worst ratio to
+   all-zero weight column, one fp32 case, and phase 20a's shard shapes
+   at M = 8 (4096 x 2048 and 4096 x 512 column-parallel; 2048 x 4096
+   row-parallel: half the rows' codes with the whole weight's scales); each case's worst ratio to
    the CUDA-core route's bound is printed too. Time kernel and
    ``torch.matmul`` on the weight dequantized to bf16 (a yardstick that is
    not the same function) as CUDA graphs of many calls, so the host's
@@ -335,8 +339,9 @@ carried on):
 16d. identity — fp32, depth 2, 32 greedy requests in a burst, through K1
     and through the plain op: attribution off and on give identical
     tokens, and so does ``dispatch`` x2 under 3 retries.
-17. the pipelined ``generate_ids`` — full-width, full-depth Mistral-7B
-    bf16 (weights made again from seed 0), block 16, 1400 blocks, 32
+17. the pipelined ``generate_ids`` — full-width Mistral-7B bf16 at
+    ``PIPE_LAYERS`` = 16 of its 32 layers (depth cut to keep the run's
+    time; weights made again from seed 0), block 16, 1400 blocks, 32
     slots, 640-token rows, 16-step windows, the default (Python) scheduler: 128
     greedy prompts of 32..512 tokens, 64..128 new each, with the four
     tokens most frequent at positions 8..64 of a short first run's streams
@@ -400,6 +405,7 @@ carried on):
     ``quantization: int8`` at full width and depth (32 layers, 8 experts,
     top 2; random weights quantized layer by layer as they are drawn): 16
     greedy prompts of 32..512 tokens x 64 new, then 4 requests over HTTP
+    (16 new tokens each)
     through ``ChatServer``; the int8 weight GiB, the build and capture
     seconds, each graph pool's MiB, tok/s and wall ms a decode pass beside
     the estimate written before the first run, the peak allocated GiB
@@ -419,8 +425,44 @@ carried on):
     3.4 GB) written on the card and served from a chat YAML's
     ``pretrained_model_name_or_path`` with ``quantization: int8``: tokens
     identical to a direct engine on the same tensors.
+20. tensor parallelism (ROADMAP A10b) — NCCL puts one rank on a device,
+    so the two ranks of ``tensor_parallel_size: 2`` share the card over
+    gloo (collectives staged through the host, windows eager): what the
+    card shows is correctness and K1 / K2 at each rank's shard shapes,
+    not a TP speed. Mistral-7B bf16 at full width and depth through
+    ``get_generator`` (this process rank 0, rank 1 spawned by the
+    generator; each rank draws the seed's weights leaf by leaf and keeps
+    its slices): 8 greedy prompts of 64..512 tokens x 16 new; each rank
+    holds half the weights (GiB printed) and 4 of the 8 KV heads, K1 runs
+    at 16 query / 4 KV heads, layers x passes on each rank (rank 1's
+    counts from its ``mark_kernels`` report), the plain op never; both
+    ranks sample the same tokens (equal digests); tok/s labelled as two
+    ranks timesharing one card; the bf16 agreement share with the
+    one-rank generator on the same seed; then one profiled serve (8
+    prompts x 17 new) with a device sync around each of rank 0's
+    all-reduces: the decode windows' wall against the host time in the
+    exchange and in draining rank 0's queued kernels, and rank 0's
+    kernel device time;
+20a. Mixtral-8x7B int8 at full width, 8 of 32 layers, tp2 through
+    ``get_generator``: K1 layers x passes and K2 4 x layers x passes (q /
+    k / v column-parallel, o row-parallel with its whole scales) on both
+    ranks, per-rank weight GiB;
+20b. TP identity — fp32 at Mistral-7B widths, depth 2, float weights and
+    int8 weights: tp2 on the kernels == tp1 on the kernels == tp1 on the
+    plain ops, greedy tokens (int8: K2 on every projection of both ranks'
+    shards, CUDA cores);
+20c. an NCCL group of one rank — Mistral-7B widths at 4 layers, bf16:
+    the decode and (``draft_k`` 4) verify windows are captured graphs
+    whose captured steps issued their all-reduces (2 a layer and the
+    logits' gather), served by replays with no collective from Python,
+    greedy tokens bitwise the unsharded engine's; the NCCL kernels one
+    profiled replay holds are printed (none: on one rank NCCL's in-place
+    all-reduce enqueues no device work, so what one card shows is that
+    the capture takes the NCCL calls and the replays serve bitwise);
+20d. one chat completion over HTTP through ``ChatServer`` on phase 20's
+    tp2 generator (K1 on both ranks).
 
-Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d, 17-17d, 18-18d and 19-19d prints its seconds. The last three lines of
+Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d, 17-17d, 18-18d, 19-19d and 20-20d prints its seconds. The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
@@ -431,7 +473,8 @@ phases' under ``load``, phase 17's under ``pipeline`` and 17c's under
 ``checkpoint``, K3's under ``retriever``, K2's embed headline, its
 verify rows under ``verify`` and 17c's int8 launches under
 ``checkpoint``, phases 18-18d's K1 and K3 launches under ``mcqa`` and
-``cli``, phases 19-19d's K1 and K2 launches under ``mixtral``), the card's
+``cli``, phases 19-19d's K1 and K2 launches under ``mixtral``, phases
+20-20c's under ``tensor_parallel``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -813,6 +856,9 @@ def check_nan_trash_block(torch, tpa, case, name):
     log(f'[kernel] NaN trash block, {name} ({route} route): outputs unchanged (bitwise)')
 
 
+# K1 at phase 20's shard shapes (16 query / 4 KV heads): decode, ragged
+# decode, prefill.
+TP_K1_CASES = ('tp2_decode_8x64-528', 'tp2_decode_32x1-4096', 'tp2_prefill_2x512')
 # Phase 3's verify-shape cases (phase 6g's spans) and K2's verify rows.
 VERIFY_CASE = 'verify_32x5_22-1094'
 VERIFY_SPLIT_CASE = 'verify_32x3_20-1092'
@@ -868,6 +914,20 @@ def phase_kernel(torch, tpa):
         case = build_case(torch, vrng, ctxs, np.full(32, span), span, dtype)
         results.append(run_kernel_case(torch, tpa, name, case, 0, None, 'bfloat16', 50))
         del case
+    # Phase 20's shard shapes: one rank of tensor_parallel_size 2 at 16
+    # query / 4 KV heads; its 8 decode rows of 64..528 keys and 32 ragged
+    # rows of 1..4096 (split-KV), and two prompts' prefill (tensor cores).
+    # Their own generator, so the other cases keep their data.
+    trng = np.random.default_rng(20)
+    with k1_geometry(NUM_HEADS // 2, NUM_KV_HEADS // 2, HEAD_DIM):
+        for name, ctxs, q_lens, span, iters in (
+                (TP_K1_CASES[0], trng.integers(64, 529, size=8), np.ones(8), 1, 50),
+                (TP_K1_CASES[1], np.concatenate([[1, 4096], trng.integers(1, 4097, size=30)]),
+                 np.ones(32), 1, 50),
+                (TP_K1_CASES[2], [512, 300], [512, 300], 512, 20)):
+            case = build_case(torch, trng, ctxs, q_lens, span, dtype)
+            results.append(run_kernel_case(torch, tpa, name, case, 0, None, 'bfloat16', iters))
+            del case
     # The split-KV route's edges (e-g), and its launches bitwise alike.
     for name, case, window, softcap in split_edge_cases(torch, tpa, rng, dtype):
         results.append(run_kernel_case(torch, tpa, name, case, window, softcap, 'bfloat16', 50))
@@ -1374,8 +1434,9 @@ K2_HEADLINE = 'decode_8x4096x14336'
 K2_PREFILL = 'prefill_1040x4096x14336'
 K2_EMBED = 'embed_147456x768x3072'
 # (name, M, K, N, dtype name, data, timed launches); data 'normal', 'zero
-# column' (weight column 3 all zero), 'one-signed' (|x|, |w|) or
-# 'late-cancelling' (see late_cancelling).
+# column' (weight column 3 all zero), 'one-signed' (|x|, |w|),
+# 'late-cancelling' (see late_cancelling) or 'row shard' (the first K rows
+# of a weight of 2K rows quantized whole).
 K2_OTHER_CASES = (
     ('decode_16x4096x14336', 16, 4096, 14336, 'bfloat16', 'normal', 50),
     # A verify pass's rows (32 slots x 1 + draft_k = 5, phase 6g).
@@ -1391,7 +1452,14 @@ K2_OTHER_CASES = (
     ('late_cancel_2048x14336x4096', 2048, 14336, 4096, 'bfloat16', 'late-cancelling', 10),
     ('zero_column_8x4096x1024', 8, 4096, 1024, 'bfloat16', 'zero column', 50),
     ('fp32_32x4096x4096', 32, 4096, 4096, 'float32', 'normal', 20),
+    # Phase 20a's shard shapes on one rank of tensor_parallel_size 2: q and
+    # k / v column-parallel (their per-channel scales split with the
+    # codes), o row-parallel (half the rows' codes, the whole K's scales).
+    ('tp2_q_8x4096x2048', 8, 4096, 2048, 'bfloat16', 'normal', 50),
+    ('tp2_kv_8x4096x512', 8, 4096, 512, 'bfloat16', 'normal', 50),
+    ('tp2_o_8x2048x4096', 8, 2048, 4096, 'bfloat16', 'row shard', 50),
 )
+TP_K2_CASES = ('tp2_q_8x4096x2048', 'tp2_kv_8x4096x512', 'tp2_o_8x2048x4096')
 # Weight bytes cycled through while timing, so every launch finds its
 # weight cold in the 50 MB L2 cache, as a decode step over 32 layers does.
 K2_COLD_BYTES = 256 << 20
@@ -1431,7 +1499,10 @@ def k2_case(torch, tq, gen, m, k, n, dtype, data='normal'):
     is all zero (scale 1, codes 0), with ``'one-signed'`` x and the
     weights are their absolute values (every partial sum as large as the
     total), with ``'late-cancelling'`` x and one weight's codes come from
-    :func:`late_cancelling` (seed 5), with a scale of 2**-10."""
+    :func:`late_cancelling` (seed 5), with a scale of 2**-10; with
+    ``'row shard'`` each weight is drawn [2k, n] and quantized whole, and
+    the case keeps its first k rows' codes with the whole weight's scales
+    (a row-parallel rank's shard)."""
     zero_column = data == 'zero column'
     if data == 'late-cancelling':
         xs, codes = late_cancelling(np.random.default_rng(5), m, k, n)
@@ -1442,15 +1513,16 @@ def k2_case(torch, tq, gen, m, k, n, dtype, data='normal'):
     if data == 'one-signed':
         x = x.abs()
     copies = max(1, min(16, -(-K2_COLD_BYTES // (k * n))))
+    rows = 2 * k if data == 'row shard' else k
     weights = []
     for _ in range(copies):
-        w = torch.randn((k, n), generator=gen, device=DEVICE).mul_(0.02)
+        w = torch.randn((rows, n), generator=gen, device=DEVICE).mul_(0.02)
         if data == 'one-signed':
             w = w.abs()
         if zero_column:
             w[:, 3] = 0.0
         qt = tq.quantize_int8(w, dtype)
-        weights.append((qt.q, qt.scale))
+        weights.append((qt.q[:k].contiguous(), qt.scale))
         del w
     return dict(x=x, weights=weights, zero_column=zero_column)
 
@@ -4773,9 +4845,12 @@ def phase_load_identity(torch, tpa, cfg):
 
 
 # ---------------------------------------------------------- phases 17-17d
-# Phase 17: the pipelined generate_ids at Mistral-7B widths (32 layers,
-# bf16, phase 6b's weights): block 16, 32 slots, 640-token rows, 16-step
-# windows; 128 greedy prompts of 32..512 tokens, 64..128 new each.
+# Phase 17: the pipelined generate_ids at Mistral-7B widths (PIPE_LAYERS
+# layers, bf16, seed 0's weights): block 16, 32 slots, 640-token rows, 16-step
+# windows; 128 greedy prompts of 32..512 tokens, 64..128 new each. Its depth
+# is cut from 32 to keep the whole run's time (a closed loop, unlike phase
+# 16's open one, whose time the arrivals set: at 16 layers it took as long).
+PIPE_LAYERS = 16
 PIPE_ENGINE = dict(block_size=BLOCK_SIZE, num_blocks=1400, max_num_seqs=32,
                    max_model_len=640, decode_steps=16)
 PIPE_PROMPTS, PIPE_LENS, PIPE_NEW, PIPE_STOPS = 128, (32, 512), (64, 128), 4
@@ -5936,7 +6011,10 @@ def phase_cli(torch, tpa, tea, card, tmp: Path, ckpt: Path):
 MIXTRAL_GENERATOR = {
     'name': 'torch', 'model': {'name': 'mixtral'}, 'quantization': 'int8', 'seed': 0,
     'max_num_seqs': 8, 'block_size': BLOCK_SIZE, 'num_blocks': 1024, 'max_model_len': 2048,
-    'temperature': 0.0, 'max_tokens': 64,
+    # The HTTP requests' length (the server answers one at a time, about
+    # 0.22 s a token): 16, cut from 64 to keep the run's time; the main
+    # path asks its 64 itself.
+    'temperature': 0.0, 'max_tokens': 16,
 }
 MIXTRAL_8X7B = dict(num_layers=32, num_experts=8, experts_per_token=2, hidden_size=4096,
                     intermediate_size=14336, num_heads=32, num_kv_heads=8, vocab_size=32000)
@@ -6007,7 +6085,7 @@ def phase_serve_mixtral(torch, tpa, tqm, card):
     ``get_generator`` (32 layers, 8 experts, top 2, hidden 4096,
     intermediate 14336, 32 / 8 heads, vocab 32000; random weights from
     seed 0, quantized layer by layer as they are drawn): 16 greedy prompts
-    of 32..512 tokens x 64 new, then 4 requests over HTTP through
+    of 32..512 tokens x 64 new, then 4 requests of 16 new over HTTP through
     ``ChatServer`` on the same generator. K1 on every layer of every
     pass (prefill on the tensor cores, decode on the split-KV route), K2
     on q / k / v / o (4 a layer, tensor cores), the plain versions never;
@@ -6337,6 +6415,480 @@ def phase_checkpoint_mixtral(torch, tpa, tqm, card, tmp: Path):
                 checkpoint_gib=gib, k1_launches=k1, k2_launches=k2)
 
 
+# Phases 20-20d: tensor parallelism (ROADMAP A10b) on the one card. NCCL
+# puts one rank on a device, so the two ranks of tensor_parallel_size 2
+# share cuda:0 over gloo (collectives staged through the host; windows run
+# eagerly): what this card can show is correctness and K1 / K2 at the
+# ranks' shard shapes, not a TP speed.
+TP_GENERATOR = {
+    'name': 'torch', 'model': {'name': 'mistral'}, 'seed': 0, 'tensor_parallel_size': 2,
+    'tensor_parallel_backend': 'gloo', 'max_num_seqs': 8, 'block_size': BLOCK_SIZE,
+    'num_blocks': 512, 'max_model_len': 1024, 'temperature': 0.0, 'max_tokens': 16,
+}
+TP_PROMPTS, TP_PROMPT_LENS, TP_NEW = 8, (64, 512), 16
+# Phase 20a: Mixtral-8x7B int8 at full width, 8 of its 32 layers.
+TP_MIXTRAL_MODEL, TP_MIXTRAL_NEW = {'name': 'mixtral', 'num_layers': 8}, 16
+# Phase 20b: fp32 at Mistral-7B widths, depth 2; 20c: bf16, depth 4, on
+# an NCCL group of one rank.
+TP_IDENTITY_MODEL = dict(num_layers=2, dtype='float32')
+TP_NCCL_MODEL = dict(num_layers=4)
+
+
+def rank_launches(report, before, after):
+    """K1 and K2 launches of one rank between two ``mark_kernels`` tags."""
+    marks = report['kernel_marks']
+    out = {}
+    for key in ('ragged_paged_attention.launches', 'int8_matmul.launches',
+                'ragged_paged_attention_reference.launches', 'int8_matmul_reference.launches'):
+        out[key] = marks[after][key] - marks[before][key]
+    return out
+
+
+@contextlib.contextmanager
+def k1_shapes(torch):
+    """Record ``(query heads, KV heads)`` of every K1 call this process
+    makes through the Mistral forward (rank 0's shard shapes)."""
+    from distllm_tpu_torch.models import mistral
+
+    seen = []
+    kernel = mistral.ragged_paged_attention
+
+    def recording(q, k_pages, *args, **kwargs):
+        data = getattr(k_pages, 'data', k_pages)
+        seen.append((int(q.shape[2]), int(data.shape[-2])))
+        return kernel(q, k_pages, *args, **kwargs)
+
+    mistral.ragged_paged_attention = recording
+    try:
+        yield seen
+    finally:
+        mistral.ragged_paged_attention = kernel
+
+
+def check_tp_reports(tag, reports, engine):
+    """Every rank ran the same programs and sampled the same tokens."""
+    keys = {(r['programs'], r['results'], r['digest']) for r in reports}
+    log(f'[{tag}] rank reports: ' + '; '.join(
+        f'rank {r["rank"]}: {r["programs"]} programs, {r["results"]} token results, digest '
+        f'{r["digest"]}, weights {r["weight_bytes"] / 2**30:.3f} GiB' for r in reports))
+    if len(reports) != engine.mesh.size or len(keys) != 1 or reports[0]['results'] <= 0:
+        fail(f'{tag}: the ranks disagree or sampled nothing: {reports}')
+
+
+def profile_gloo_decode(torch, generator):
+    """Where a gloo decode window's time goes, on phase 20's tp2 generator
+    after its main path: 8 prompts of 64 words x 17 new tokens under
+    torch.profiler (device activity), with each of rank 0's all-reduces timed on the host
+    between a device sync before it (rank 0's queued kernels drain:
+    ``sync_ms``) and one after it (the exchange staged through the host,
+    waiting for rank 1 included: ``collective_ms``). Those syncs serialise
+    the window, so its wall here exceeds phase 20's. Over the decode
+    windows (each from its dispatch to its processing): their wall and the
+    all-reduces' count and host times; over the whole profiled run: the
+    device time of rank 0's kernels and of its copies and sets."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.parallel import comm
+
+    engine = generator.engine
+    all_reduce = comm.TensorParallel._all_reduce
+    dispatch, process = engine._dispatch_window, engine._process_window
+    acc = dict(windows=0, window_ms=0.0, all_reduces=0, sync_ms=0.0, collective_ms=0.0)
+    opened = [None]
+
+    def timed(x, group):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = all_reduce(x, group)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if opened[0] is not None:
+            acc['all_reduces'] += 1
+            acc['sync_ms'] += (t1 - t0) * 1e3
+            acc['collective_ms'] += (t2 - t1) * 1e3
+        return out
+
+    def open_window():
+        opened[0] = time.perf_counter()
+        window = dispatch()
+        if window is None:
+            opened[0] = None
+        return window
+
+    def close_window(window):
+        out = process(window)
+        if opened[0] is not None:
+            acc['windows'] += 1
+            acc['window_ms'] += (time.perf_counter() - opened[0]) * 1e3
+            opened[0] = None
+        return out
+
+    prompts = smoke_prompts(np.random.default_rng(24), 8, 64, 64)
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    comm.TensorParallel._all_reduce = staticmethod(timed)
+    engine._dispatch_window, engine._process_window = open_window, close_window
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            generator.generate(prompts, SamplingParams(temperature=0.0, max_tokens=17))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        comm.TensorParallel._all_reduce = staticmethod(all_reduce)
+        engine._dispatch_window, engine._process_window = dispatch, process
+    kernel_ms = copy_ms = 0.0
+    for event in prof.events():
+        # Kernels, copies and sets; not the engine's distllm:<kind> ranges,
+        # which the trace also places on the device.
+        if (event.device_type != torch.autograd.DeviceType.CUDA
+                or event.name.startswith('distllm:')):
+            continue
+        ms = event.time_range.elapsed_us() / 1e3
+        if 'memcpy' in event.name.lower() or 'memset' in event.name.lower():
+            copy_ms += ms
+        else:
+            kernel_ms += ms
+    window_ms = acc['window_ms'] or float('nan')
+    return dict(acc, run_wall_ms=wall_ms, device_kernel_ms=kernel_ms, device_copy_ms=copy_ms,
+                collective_share_of_windows=acc['collective_ms'] / window_ms,
+                sync_share_of_windows=acc['sync_ms'] / window_ms,
+                device_kernel_share_of_run=kernel_ms / wall_ms)
+
+
+def phase_tp_serve(torch, tpa, card):
+    """20. Mistral-7B bf16 at full width and depth, ``tensor_parallel_size:
+    2`` through ``get_generator`` (random weights from seed 0; each rank
+    draws them leaf by leaf and keeps its slices), the two ranks on one
+    card over gloo: 8 greedy prompts of 64..512 tokens x 16 new. Each rank
+    holds half the weights and 4 of the 8 KV heads; K1 runs at 16 query /
+    4 KV heads, layers x forward passes on each rank (rank 1's counts from
+    its report), the plain op never; both ranks sample the same tokens.
+    Tokens are compared with the one-rank generator's by agreement share
+    (bf16: row-parallel partial products round before their sum).
+    20d. One HTTP request through ``ChatServer`` on the same generator."""
+    from distllm_tpu_torch.chat_server import ChatServer
+    from distllm_tpu_torch.generate import get_generator
+    from distllm_tpu_torch.generate.engine import SamplingParams
+
+    tag = 'tp serve'
+    prompts = smoke_prompts(np.random.default_rng(20), TP_PROMPTS, *TP_PROMPT_LENS)
+    sampling = SamplingParams(temperature=0.0, max_tokens=TP_NEW)
+    one = get_generator({**TP_GENERATOR, 'tensor_parallel_size': 1}, device=DEVICE)
+    t0 = time.perf_counter()
+    want = one.generate(prompts, sampling)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_gib = (one.engine.weight_bytes_float + one.engine.weight_bytes_quantized) / 2**30
+    shut_down(torch, f'{tag} one rank', one.engine)
+    del one
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    generator = get_generator(TP_GENERATOR, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    engine = generator.engine
+    cfg = engine.model_cfg
+    local_heads = (engine.params['layers']['q']['kernel'].shape[-1] // cfg.head_size,
+                   engine.kv.k.shape[3])
+    shard_heads = (cfg.num_heads // 2, cfg.num_kv_heads // 2)  # 16 / 4 at 7B
+    if (engine.mesh.shape['model'], engine.mesh.backend, local_heads) != (
+            2, 'gloo', shard_heads) or engine.stats['decode_graphs']:
+        fail(f'{tag}: mesh {engine.mesh.shape} over {engine.mesh.backend}, local heads '
+             f'{local_heads}, decode graphs {engine.stats.get("decode_graphs")}')
+    log(f'[{tag}] {card}: get_generator built tensor_parallel_size 2 (gloo, ranks on '
+        f'{engine.mesh.num_devices} device, rank 0 on {engine.mesh.device}) in {build_s:.2f} s; rank 0 holds {local_heads[0]} query / '
+        f'{local_heads[1]} KV heads, {engine.weight_bytes_float / 2**30:.3f} GiB of weights '
+        f'(one rank: {one_gib:.3f}); windows eager: {engine.telemetry.get("decode_graphs_reason")}')
+    rec = instrument_windows(torch, engine)
+    stats0 = dict(engine.stats)
+    # The main path: counts to 0 just before, read just after (rank 1's
+    # from its marks).
+    zero_k1_counts(tpa)
+    engine.mark_kernels('serve_before')
+    with k1_shapes(torch) as shapes:
+        t0 = time.perf_counter()
+        outputs = generator.generate(prompts, sampling)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    engine.mark_kernels('serve_after')
+    run = stats_delta(engine, stats0)
+    passes = run['forward_passes']
+    k1 = tpa.ragged_paged_attention.launches
+    k1_routes = dict(tpa.ragged_paged_attention.launches_by_route)
+    if (k1 != cfg.num_layers * passes or tpa.ragged_paged_attention_reference.launches
+            or set(shapes) != {shard_heads}):
+        fail(f'{tag}: K1 {k1} for {cfg.num_layers} x {passes} passes, plain '
+             f'{tpa.ragged_paged_attention_reference.launches}, shapes {set(shapes)}')
+    agree = greedy_match([o.split() for o in outputs], [w.split() for w in want])
+    tok_s = run['generated_tokens'] / wall_s
+    decode_ms = median([w['wall_ms'] / w['steps'] for w in rec['window'] if w['steps']])
+    log(f'[{tag}] {card}: {TP_PROMPTS} prompts ({TP_PROMPT_LENS[0]}..{TP_PROMPT_LENS[1]} '
+        f'tokens) x {TP_NEW} new: {run["generated_tokens"]} tokens in {wall_s:.3f} s = '
+        f'{tok_s:.2f} tok/s (two ranks timesharing one card, not a TP speed; one rank took '
+        f'{one_s:.3f} s), decode {decode_ms} ms a pass (window wall over its steps, median); '
+        f'K1 {k1} launches by route {json.dumps(k1_routes)} at (q, KV) heads {sorted(set(shapes))}; '
+        f'bf16 agreement with the one-rank generator {agree:.4f}')
+    if len(outputs) != TP_PROMPTS or run['generated_tokens'] != TP_PROMPTS * TP_NEW:
+        fail(f'{tag}: {len(outputs)} outputs, {run["generated_tokens"]} tokens')
+    # 20d. One request over HTTP to the chat server on this generator.
+    t0 = time.perf_counter()
+    with ChatServer(generator, port=0) as server:
+        status, body = post_completion(server.port, 0)
+    http_s = time.perf_counter() - t0
+    engine.mark_kernels('http_after')
+    http_k1 = tpa.ragged_paged_attention.launches - k1
+    if status != 200 or not isinstance(body['choices'][0]['message']['content'], str) \
+            or http_k1 <= 0:
+        fail(f'{tag}: chat completion answered {status} {body}; K1 {http_k1} launches')
+    log(f'[tp http] {card}: one chat completion over the tp2 generator in {http_s:.3f} s, '
+        f'status {status}, K1 {http_k1} launches on rank 0')
+    gloo = profile_gloo_decode(torch, generator)
+    log(f'[tp gloo profile] {card}: {gloo["windows"]} decode windows, {gloo["window_ms"]:.1f} '
+        f'ms: {gloo["all_reduces"]} all-reduces on rank 0 held {gloo["collective_ms"]:.1f} ms '
+        f'in the exchange (share {gloo["collective_share_of_windows"]:.4f}) after '
+        f'{gloo["sync_ms"]:.1f} ms draining rank 0\'s queued kernels (share '
+        f'{gloo["sync_share_of_windows"]:.4f}); the whole profiled run: '
+        f'{gloo["run_wall_ms"]:.1f} ms wall, rank 0 kernels {gloo["device_kernel_ms"]:.1f} ms '
+        f'on the device (share {gloo["device_kernel_share_of_run"]:.4f}), copies and sets '
+        f'{gloo["device_copy_ms"]:.1f} ms; {json.dumps(gloo)}')
+    generator.shutdown()
+    reports = generator.rank_reports
+    check_tp_reports(tag, reports, engine)
+    rank1 = rank_launches(reports[1], 'serve_before', 'serve_after')
+    rank1_http = rank_launches(reports[1], 'serve_after', 'http_after')
+    if (rank1['ragged_paged_attention.launches'] != k1
+            or rank1['ragged_paged_attention_reference.launches']
+            or rank1_http['ragged_paged_attention.launches'] != http_k1):
+        fail(f'{tag}: rank 1 launched {rank1} (HTTP {rank1_http}); rank 0 K1 {k1} / {http_k1}')
+    weights = [r['weight_bytes'] / 2**30 for r in reports]
+    del generator, engine
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, wall_s=wall_s, tokens_per_s=tok_s, decode_pass_ms=decode_ms,
+                one_rank_s=one_s, forward_passes=passes, launches=k1,
+                launches_by_route=k1_routes, rank1_launches=rank1['ragged_paged_attention.launches'],
+                local_heads=list(local_heads), rank_weight_gib=weights, one_rank_gib=one_gib,
+                agreement=agree, http_s=http_s, http_status=status, http_launches=http_k1,
+                rank1_http_launches=rank1_http['ragged_paged_attention.launches'],
+                digests=[r['digest'] for r in reports], gloo_profile=gloo)
+
+
+def phase_tp_mixtral(torch, tpa, tqm, card):
+    """20a. Mixtral-8x7B int8 at full width, 8 of its 32 layers, at
+    ``tensor_parallel_size: 2`` through ``get_generator`` (each rank draws
+    one layer's leaves at a time, quantizes them whole and keeps its
+    slices: the row-parallel ``o`` with its whole scales). K1 on every
+    layer of every pass and K2 on q / k / v / o at the shard shapes, on
+    both ranks; per-rank GiB."""
+    from distllm_tpu_torch.generate import get_generator
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.ops.quantization import QTensor
+
+    tag = 'tp mixtral'
+    config = {**TP_GENERATOR, 'model': dict(TP_MIXTRAL_MODEL), 'quantization': 'int8'}
+    t0 = time.perf_counter()
+    generator = get_generator(config, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    engine = generator.engine
+    cfg = engine.model_cfg
+    bank = engine.params['layers']['gate']['kernel']
+    o = engine.params['layers']['o']['kernel']
+    want_bank = (cfg.num_layers, cfg.num_experts, cfg.hidden_size, cfg.intermediate_size // 2)
+    want_o = (cfg.num_layers, cfg.num_heads * cfg.head_size // 2, cfg.hidden_size)
+    if not (isinstance(bank, QTensor) and bank.shape == want_bank and isinstance(o, QTensor)
+            and o.shape == want_o):
+        fail(f'{tag}: gate bank {bank!r}, o {o!r}')
+    prompts = smoke_prompts(np.random.default_rng(21), TP_PROMPTS, *TP_PROMPT_LENS)
+    sampling = SamplingParams(temperature=0.0, max_tokens=TP_MIXTRAL_NEW)
+    stats0 = dict(engine.stats)
+    zero_k1_counts(tpa)
+    zero_k2_counts(tqm)
+    engine.mark_kernels('before')
+    t0 = time.perf_counter()
+    outputs = generator.generate(prompts, sampling)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    engine.mark_kernels('after')
+    run = stats_delta(engine, stats0)
+    passes = run['forward_passes']
+    k1, k2 = tpa.ragged_paged_attention.launches, tqm.int8_matmul.launches
+    k2_routes = dict(tqm.int8_matmul.launches_by_route)
+    plain = (tpa.ragged_paged_attention_reference.launches, tqm.int8_matmul_reference.launches)
+    generator.shutdown()
+    reports = generator.rank_reports
+    check_tp_reports(tag, reports, engine)
+    rank1 = rank_launches(reports[1], 'before', 'after')
+    gib = [r['weight_bytes'] / 2**30 for r in reports]
+    log(f'[{tag}] {card}: Mixtral-8x7B int8, {cfg.num_layers} of 32 layers, tp2 over gloo '
+        f'on one card, built in {build_s:.2f} s; per-rank weights {gib} GiB (gate bank '
+        f'{bank.shape} on rank 0); {len(outputs)} prompts x {TP_MIXTRAL_NEW} new in '
+        f'{wall_s:.3f} s = {run["generated_tokens"] / wall_s:.2f} tok/s; rank 0 K1 {k1}, K2 {k2} '
+        f'({json.dumps(k2_routes)}), plain {plain}; rank 1 {json.dumps(rank1)}')
+    if (k1 != cfg.num_layers * passes or k2 != 4 * cfg.num_layers * passes or plain != (0, 0)
+            or rank1['ragged_paged_attention.launches'] != k1
+            or rank1['int8_matmul.launches'] != k2
+            or run['generated_tokens'] != TP_PROMPTS * TP_MIXTRAL_NEW):
+        fail(f'{tag}: K1 {k1}, K2 {k2} for {passes} passes; plain {plain}; rank 1 {rank1}')
+    del generator, engine, bank, o
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, wall_s=wall_s, tokens_per_s=run['generated_tokens'] / wall_s,
+                forward_passes=passes, launches=k1, k2_launches=k2, k2_launches_by_route=k2_routes,
+                rank1_launches=rank1['ragged_paged_attention.launches'],
+                rank1_k2_launches=rank1['int8_matmul.launches'], rank_weight_gib=gib)
+
+
+def phase_tp_identity(torch, tpa, tqm):
+    """20b. fp32 at Mistral-7B widths, depth 2, in two arms: float weights,
+    and int8 weights (quantized as drawn; tp2 shards the codes: q / k / v
+    / gate / up column-parallel with their scales, o / down row-parallel
+    with the whole scales). In each, greedy tokens of tp2 on the kernels
+    (two ranks over gloo on the card) equal tp1's on the kernels and tp1's
+    on the plain ops; on rank 0 K1 runs layers x passes and (int8) K2 7 x
+    layers x passes, all on the CUDA cores, the plain ops never."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.generate.engine.sharded import ShardedEngine, WeightSource
+    from distllm_tpu_torch.models import mistral
+
+    cfg = mistral.MistralConfig(**TP_IDENTITY_MODEL)
+    rng = np.random.default_rng(22)
+    prompts = [[int(t) for t in rng.integers(4, cfg.vocab_size, size=n)]
+               for n in (16, 100, 300, 37, 520)]
+    sampling = SamplingParams(temperature=0.0, max_tokens=16)
+    result = {}
+    for weights, quant in (('float', None), ('int8', 'int8')):
+        config = EngineConfig(block_size=BLOCK_SIZE, num_blocks=256, max_num_seqs=4,
+                              max_model_len=1024, quantization=quant)
+        params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE,
+                              quantization=quant)
+        outs = {}
+        for arm, backend in (('tp1_kernels', 'auto'), ('tp1_plain', 'reference')):
+            one = LLMEngine(cfg, params, None, config, device=DEVICE, attn_backend=backend,
+                            qmm_backend=backend)
+            outs[arm] = one.generate_ids(prompts, sampling)
+            shut_down(torch, f'tp identity {weights} {arm}', one)
+            del one
+        del params
+        sharded = ShardedEngine(2, cfg, WeightSource('init', seed=3, quantization=quant),
+                                config, backend='gloo', devices=DEVICE)
+        zero_k1_counts(tpa)
+        zero_k2_counts(tqm)
+        outs['tp2_kernels'] = sharded.engine.generate_ids(prompts, sampling)
+        passes = sharded.engine.telemetry['forward_passes']
+        k1 = (tpa.ragged_paged_attention.launches, tpa.ragged_paged_attention_reference.launches)
+        k2 = (tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches)
+        cores = (tpa.ragged_paged_attention.launches_by_route['cuda_cores'],
+                 tqm.int8_matmul.launches_by_route['cuda_cores'])
+        reports = sharded.close()
+        check_tp_reports(f'tp identity {weights} tp2_kernels', reports, sharded.engine)
+        want_k2 = 7 * cfg.num_layers * passes if quant else 0
+        if k1 != (cfg.num_layers * passes, 0) or k2 != (want_k2, 0) or cores != (k1[0], k2[0]):
+            fail(f'tp identity {weights}: K1 (kernel, plain) {k1}, K2 {k2} for {passes} '
+                 f'passes, CUDA cores {cores}')
+        del sharded
+        torch.cuda.empty_cache()
+        same = outs['tp2_kernels'] == outs['tp1_kernels'] == outs['tp1_plain']
+        key = 'tp2_kernels' if weights == 'float' else 'tp2_int8'
+        result[key] = dict(k1_launches=k1[0], k2_launches=k2[0], forward_passes=passes,
+                           identical=same)
+        log(f'[tp identity] fp32 depth 2 at Mistral-7B widths, {weights} weights, '
+            f'{len(prompts)} prompts x 16 greedy tokens: tp2 on the kernels == tp1 on the '
+            f'kernels == tp1 on the plain ops: {same}; {json.dumps(result[key])}')
+        if not same:
+            fail(f'tp identity {weights}: {outs}')
+    result['identical'] = all(r['identical'] for r in result.values())
+    return result
+
+
+def phase_tp_nccl(torch, tpa, card):
+    """20c. An NCCL group of one rank (the collectives NCCL runs across
+    cards, on one): Mistral-7B widths at 4 layers, bf16. The decode and
+    verify windows are captured CUDA graphs with their collectives inside
+    (each captured step issued 2 all-reduces a layer and the logits'
+    gather while capturing; the serve replays them without Python), and
+    the greedy tokens are bitwise those of the unsharded engine. One rank's
+    in-place NCCL all-reduce enqueues no device work, so the profiled
+    replay's NCCL kernel count (printed) is what one card cannot show."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.models import mistral
+    from distllm_tpu_torch.parallel import comm, mesh, multihost
+
+    cfg = mistral.MistralConfig(**TP_NCCL_MODEL)
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(4), device=DEVICE)
+    prompts = [[int(t) for t in np.random.default_rng(23).integers(4, cfg.vocab_size, size=n)]
+               for n in (24, 200, 61, 410, 9, 333)]
+    sampling = SamplingParams(temperature=0.0, max_tokens=24)
+    group = multihost.RankGroup(1, None, (), backend='nccl')
+    calls = [0]
+    all_reduce = comm.TensorParallel._all_reduce
+
+    def counting(x, g):
+        calls[0] += 1
+        return all_reduce(x, g)
+
+    comm.TensorParallel._all_reduce = staticmethod(counting)
+    result = {}
+    try:
+        rank_mesh = mesh.make_mesh(mesh.MeshSpec(data=1, model=1), devices=DEVICE,
+                                   backend='nccl')
+        per_step = 2 * cfg.num_layers + 1  # o and down a layer, the logits' gather
+        for arm, knobs in (('decode', {}), ('verify', {'draft_k': 4})):
+            tag = f'tp nccl {arm}'
+            config = EngineConfig(block_size=BLOCK_SIZE, num_blocks=256, max_num_seqs=8,
+                                  max_model_len=1024, **knobs)
+            base = LLMEngine(cfg, params, None, config, device=DEVICE)
+            want = base.generate_ids(prompts, sampling)
+            shut_down(torch, f'{tag} unsharded', base)
+            engine = LLMEngine(cfg, params, None, config, device=DEVICE, mesh=rank_mesh)
+            calls[0] = 0
+            engine.warmup()
+            warm_calls = calls[0]
+            runners = 2 if knobs else 1
+            # Per runner: two eager warm-up steps and two captures.
+            if warm_calls != runners * 4 * per_step or not engine.stats['decode_graphs']:
+                fail(f'{tag}: {warm_calls} collectives at warm-up, expected '
+                     f'{runners} x 4 x {per_step}')
+            marks = graph_marks(engine)
+            zero_k1_counts(tpa)
+            calls[0] = 0
+            got = engine.generate_ids(prompts, sampling)
+            run_calls = calls[0]
+            passes = engine.telemetry['forward_passes']
+            prefills = engine.telemetry['prefill_dispatches']
+            verify = engine.telemetry.get('spec_windows', 0)
+            graphs = check_graph_replays(tag, engine, marks, passes, prefills, verify)
+            profile = profile_nccl(torch, engine, arm)
+            same = got == want
+            log(f'[{tag}] {card}: {warm_calls} all-reduces issued at warm-up (captured into '
+                f'the graphs), {run_calls} in the serve = {prefills} eager prefills x {per_step} '
+                f'(every {arm} pass a replay: {json.dumps(graphs)}); NCCL kernels in one '
+                f'profiled replay: {profile}; bf16 tokens bitwise the unsharded engine\'s: {same}')
+            if not same or run_calls != prefills * per_step:
+                fail(f'{tag}: tokens equal {same}; {run_calls} collectives for {prefills} prefills')
+            result[arm] = dict(graphs, warmup_collectives=warm_calls, serve_collectives=run_calls,
+                               forward_passes=passes, launches=tpa.ragged_paged_attention.launches,
+                               nccl_kernels_in_replay=profile, identical=same)
+            shut_down(torch, tag, engine)
+            del engine
+    finally:
+        comm.TensorParallel._all_reduce = staticmethod(all_reduce)
+        group.close()
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
+def profile_nccl(torch, engine, arm):
+    """Kernel names with 'nccl' in one profiled replay of the engine's
+    greedy captured step (None when the profiler saw no device work)."""
+    runner = engine._decode if arm == 'decode' else engine._verify
+    captured = runner.graphs[True]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        captured.graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        return None
+    return sum(1 for n in names if 'nccl' in n.lower())
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -6505,9 +7057,11 @@ def main() -> None:
     # its fp32 identities; 17c. serving from a checkpoint path; 17d. the
     # debug surface over 17c's generator.
     t17 = time.perf_counter()
-    params7b = mistral.init(cfg7b, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    cfg_pipe = MistralConfig(num_layers=PIPE_LAYERS)
+    params7b = mistral.init(cfg_pipe, torch.Generator(device=DEVICE).manual_seed(0),
+                            device=DEVICE)
     t0 = time.perf_counter()
-    pipeline = phase_pipeline(torch, tpa, smi, cfg7b, params7b)
+    pipeline = phase_pipeline(torch, tpa, smi, cfg_pipe, params7b)
     log(f'[pipeline] phase 17 took {time.perf_counter() - t0:.1f} s')
     del params7b
     torch.cuda.empty_cache()
@@ -6555,6 +7109,25 @@ def main() -> None:
         mixtral_ckpt = phase_checkpoint_mixtral(torch, tpa, tqm, smi, Path(tmp))
         log(f'[checkpoint mixtral] phase 19d took {time.perf_counter() - t0:.1f} s')
     log(f'[mixtral] phases 19-19d took {time.perf_counter() - t19:.1f} s')
+    # 20. Mistral-7B at tensor_parallel_size 2 through get_generator, two
+    # ranks on the card over gloo (20d: one HTTP request on it); 20a.
+    # Mixtral-8x7B int8 at tp2, 8 layers; 20b. fp32 identities tp2 vs tp1
+    # and vs the plain ops; 20c. an NCCL group of one: captured windows with
+    # their collectives, bitwise tokens.
+    t20 = time.perf_counter()
+    t0 = time.perf_counter()
+    tp_serve = phase_tp_serve(torch, tpa, smi)
+    log(f'[tp serve] phases 20 and 20d took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    tp_mixtral = phase_tp_mixtral(torch, tpa, tqm, smi)
+    log(f'[tp mixtral] phase 20a took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    tp_identity = phase_tp_identity(torch, tpa, tqm)
+    log(f'[tp identity] phase 20b took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    tp_nccl = phase_tp_nccl(torch, tpa, smi)
+    log(f'[tp nccl] phase 20c took {time.perf_counter() - t0:.1f} s')
+    log(f'[tp] phases 20-20d took {time.perf_counter() - t20:.1f} s')
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
     # most frequent launch (its prefill pair beside it); K3 at the embed
@@ -6727,6 +7300,25 @@ def main() -> None:
                               for arm in ('float', 'int8')},
             'checkpoint': mixtral_ckpt['k1_launches'],
         },
+        # Phases 20-20c: tensor_parallel_size 2 (two ranks on the card over
+        # gloo), each rank at 16 query / 4 KV heads: rank 0's main-path
+        # launches and rank 1's (from its report), 20d's HTTP request,
+        # Mixtral at tp2, the fp32 identity's kernel arm, and the NCCL
+        # group of one's replayed decode and verify windows.
+        'tensor_parallel': {
+            'launches': tp_serve['launches'],
+            'launches_by_route': tp_serve['launches_by_route'],
+            'rank1_launches': tp_serve['rank1_launches'],
+            'local_heads': tp_serve['local_heads'],
+            'http_launches': tp_serve['http_launches'],
+            'mixtral': tp_mixtral['launches'],
+            'mixtral_rank1': tp_mixtral['rank1_launches'],
+            'fp32_identity': tp_identity['tp2_kernels']['k1_launches'],
+            'nccl_one_rank': {arm: tp_nccl[arm]['launches'] for arm in ('decode', 'verify')},
+            # Phase 3's cases at these shard shapes, held to the plain op.
+            'shard_cases': {c['case']: {key: c[key] for key in verify_keys}
+                            for c in cases if c['case'] in TP_K1_CASES},
+        },
         # Phases 16-16c: the open-loop load (attribution on and off), the
         # chaos run's clean and faulted arms, the overload arm, and the chat
         # server under HTTP load.
@@ -6826,6 +7418,19 @@ def main() -> None:
             'fp32_identity': mixtral_identity['int8_auto']['k2_launches'],
             'checkpoint': mixtral_ckpt['k2_launches'],
         },
+        # Phase 20a: Mixtral-8x7B int8 at tensor_parallel_size 2 (q / k / v
+        # column-parallel, o row-parallel with its whole scales), rank 0's
+        # launches and rank 1's.
+        'tensor_parallel': {
+            'launches': tp_mixtral['k2_launches'],
+            'launches_by_route': tp_mixtral['k2_launches_by_route'],
+            'rank1_launches': tp_mixtral['rank1_k2_launches'],
+            # 20b's int8 arm (fp32, depth 2), then phase 5's cases at the
+            # shard shapes, held to the plain op.
+            'fp32_identity': tp_identity['tp2_int8']['k2_launches'],
+            'shard_cases': {c['case']: {key: c[key] for key in k2_keys}
+                            for c in k2_cases if c['case'] in TP_K2_CASES},
+        },
         'cases': k2_cases,
     }]
     log(f'[summary] {smi}: {serve["tokens_per_s"]:.1f} tok/s bf16, '
@@ -6898,7 +7503,8 @@ def main() -> None:
         f'generation job {job["tokens_per_s"]:.1f} tok/s; {time.perf_counter() - t_start:.1f} s total')
     log(f'[pipeline] {json.dumps(dict(pipeline=pipeline, identity=pipeline_identity, checkpoint=checkpoint, debug=debug_surface))}')
     arm1, arm2, arm2d = (pipeline['arms'][n] for n in ('depth1', 'depth2', 'depth2_defer'))
-    log(f'[summary] {smi}: pipelined generate_ids, 128 prompts: depth 1 / 2 / 2 + defer '
+    log(f'[summary] {smi}: pipelined generate_ids ({PIPE_LAYERS} of 32 layers), {PIPE_PROMPTS} '
+        'prompts: depth 1 / 2 / 2 + defer '
         f'{arm1["tokens_per_s"]:.1f} / {arm2["tokens_per_s"]:.1f} / {arm2d["tokens_per_s"]:.1f} '
         f'tok/s, device gap median {arm1["device_gap_ms_median"]} / '
         f'{arm2["device_gap_ms_median"]} / {arm2d["device_gap_ms_median"]} ms, busy share '
@@ -6930,6 +7536,17 @@ def main() -> None:
         f'spec / mixed agreement {json.dumps(mixtral_spec["agreement"])}; checkpoint identical '
         f'{mixtral_ckpt["identical_to_direct"]}; 4-D quantizer peak '
         f'{quantize_bank["peak_extra_slices"]:.3f} slices; '
+        f'{time.perf_counter() - t_start:.1f} s total')
+    log(f'[tp] {json.dumps(dict(serve=tp_serve, mixtral=tp_mixtral, identity=tp_identity, nccl=tp_nccl))}')
+    log(f'[summary] {smi}: tensor_parallel_size 2 on one card over gloo (two ranks '
+        f'timesharing the card, not a TP speed): Mistral-7B bf16 {tp_serve["tokens_per_s"]:.2f} '
+        f'tok/s, decode {tp_serve["decode_pass_ms"]} ms a pass, per-rank weights '
+        f'{tp_serve["rank_weight_gib"]} GiB, bf16 agreement with one rank '
+        f'{tp_serve["agreement"]:.4f}, HTTP {tp_serve["http_status"]}; Mixtral-8x7B int8 '
+        f'({TP_MIXTRAL_MODEL["num_layers"]} layers) per-rank {tp_mixtral["rank_weight_gib"]} GiB, '
+        f'{tp_mixtral["tokens_per_s"]:.2f} tok/s; fp32 identities {tp_identity["identical"]}; '
+        f'NCCL group of one: graphs with collectives, bitwise '
+        f'{tp_nccl["decode"]["identical"]} / {tp_nccl["verify"]["identical"]}; '
         f'{time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):

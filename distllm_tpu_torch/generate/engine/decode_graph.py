@@ -34,7 +34,11 @@ shapes).
   :meth:`~DecodeGraphRunner.warmup` into one private memory pool.
 
 :meth:`~DecodeGraphRunner.run` replays the graph ``num_steps`` times on
-CUDA: no Python per layer and no kernel wrapper's host work. The eager
+CUDA: no Python per layer and no kernel wrapper's host work. A runner
+made with ``capture=False`` (a tensor-parallel engine over gloo, whose
+collectives cannot be captured) runs the step eagerly on CUDA too, as it
+does on the CPU; that is the caller's choice of backend, stated in the
+engine's stats, not a fallback. The eager
 warm-up step is priced once (:mod:`~distllm_tpu_torch.observability.op_cost`:
 ``step_cost``) and each capture is a start-up phase. On the CPU it
 runs the same step eagerly over the same buffers (how the tests reach the
@@ -185,8 +189,11 @@ class _GraphRunner:
         sampling_top_window: int = 0,
         span: int = 1,
         stats: Counter | None = None,
+        capture: bool = True,
     ) -> None:
         self.params = params
+        # Whether the step is captured on CUDA (eager otherwise).
+        self.capture = capture and device.type == 'cuda'
         self.model_cfg = model_cfg
         self.k_cache, self.v_cache = k_cache, v_cache
         self.attn_backend = attn_backend
@@ -229,9 +236,10 @@ class _GraphRunner:
 
     @property
     def ready(self) -> bool:
-        """Whether the runner can serve: on the CPU always, on CUDA once
-        :meth:`warmup` has captured both graphs."""
-        return self.device.type != 'cuda' or len(self.graphs) == 2
+        """Whether the runner can serve: eager (the CPU, or
+        ``capture=False``) always, captured once :meth:`warmup` has
+        captured both graphs."""
+        return not self.capture or len(self.graphs) == 2
 
     def _add_staging(self) -> int:
         host = torch.zeros(self._words, dtype=torch.int32,
@@ -282,12 +290,12 @@ class _GraphRunner:
         capture; it also builds every kernel the step launches
         (``ops._build``, at first use), loads it and makes K1's split
         tickets outside any capture — then capture the greedy and the
-        sampled step. On the CPU the eager steps alone. Scheduler state,
-        the pool outside block 0 and every sampling stream stay as they
-        were."""
+        sampled step. On the CPU (or with ``capture=False``) the eager
+        steps alone. Scheduler state, the pool outside block 0 and every
+        sampling stream stay as they were."""
         if self._warm:
             return
-        if self.device.type != 'cuda':
+        if not self.capture:
             self._load_trash()
             self._eager_warm_steps()
             self._warm = True
@@ -335,8 +343,9 @@ class _GraphRunner:
 
     def _replay(self, all_greedy: bool, times: int) -> None:
         """``times`` replays of the captured step (CUDA; raises before
-        :meth:`warmup`), or the eager step on the CPU."""
-        if self.device.type != 'cuda':
+        :meth:`warmup`), or the eager step on the CPU and without
+        ``capture``."""
+        if not self.capture:
             for _ in range(times):
                 self._step(all_greedy)
             return

@@ -117,6 +117,27 @@
   (``observability.op_cost``), behind the measured-MFU and bandwidth
   gauges.
 
+- **tensor and expert parallelism** (``mesh=``, a
+  ``parallel.mesh.Mesh``): the engine on each rank holds that rank's
+  slice of the weights (``parallel.sharding.shard_pytree`` under the
+  family's ``param_specs``) and its ``num_kv_heads / model`` KV heads of
+  the pool, and its model config is bound to the mesh
+  (``parallel.comm.bind``), so every program runs the rank's heads and
+  widths with the all-reduces in the forward. Rank 0 schedules: each
+  device program — a prefill dispatch, a chunk half, a decode window's
+  load and steps, a verify window's, a copy-on-write, the warm-up — is
+  sent with its host inputs to the other ranks (``followers``, a
+  ``parallel.multihost.RankGroup``) before rank 0 runs it, and each of
+  them runs it in :meth:`LLMEngine.follow`. The logits are whole on every
+  rank, so every rank samples the same tokens (each keeps a digest of
+  them: :meth:`LLMEngine.tp_report`). Over gloo the windows run eagerly
+  (gloo's collectives cannot be captured; ``stats['decode_graphs']`` is
+  false and ``telemetry['decode_graphs_reason']`` says why); over NCCL
+  they stay captured graphs with the collectives inside. The prefix
+  cache, chunked prefill, mixed windows, speculation, the int8 KV pool
+  and pipelining run as they do on one rank; the host and disk KV tiers
+  raise (ROADMAP A10d). Only rank 0 serves requests and exports metrics.
+
 A later slice brings the peer KV tier.
 """
 
@@ -156,7 +177,8 @@ from distllm_tpu_torch.models.tokenizer import bucket_ladder, pick_bucket
 from distllm_tpu_torch.observability import instruments as _metrics
 from distllm_tpu_torch.observability import op_cost as _op_cost
 from distllm_tpu_torch.observability.flight import get_flight_recorder
-from distllm_tpu_torch.observability.roofline import CostModel
+from distllm_tpu_torch.observability.instruments import log_event
+from distllm_tpu_torch.observability.roofline import CostModel, device_peaks
 from distllm_tpu_torch.observability.startup import (
     get_compile_watcher,
     record_backend_init,
@@ -173,6 +195,8 @@ from distllm_tpu_torch.ops.quantization import (
     quantized_nbytes,
 )
 from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
+from distllm_tpu_torch.parallel.comm import bind, local_heads
+from distllm_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 from distllm_tpu_torch.resilience.admission import (
     EngineLoadView,
     EngineOverloaded,
@@ -484,6 +508,38 @@ def _weight_bytes(params: dict) -> dict[str, int]:
     }
 
 
+def check_tp_heads(model_cfg, tp: int) -> None:
+    """Raise ``ValueError`` when the heads do not split over ``tp`` ranks
+    (the JAX engine's check: KV pages shard over the KV heads)."""
+    if model_cfg.num_kv_heads % tp or model_cfg.num_heads % tp:
+        raise ValueError(
+            f'num_kv_heads={model_cfg.num_kv_heads} not divisible by tensor '
+            f'parallel degree {tp}'
+        )
+
+
+class TokenDigest:
+    """A running digest of token tensors, kept on the device (no host sync
+    per update): ``h = (h * B + sum_i t_i * (i + 1)) mod M`` over each
+    flattened result in turn. Two ranks that sampled the same tokens in
+    the same order hold the same value."""
+
+    _BASE, _MOD = 1_000_003, 2**31 - 1
+
+    def __init__(self, device) -> None:
+        self._h = torch.zeros((), dtype=torch.int64, device=device)
+        self.count = 0
+
+    def add(self, tokens: torch.Tensor) -> None:
+        flat = tokens.reshape(-1).to(torch.int64)
+        weights = torch.arange(1, flat.numel() + 1, device=flat.device, dtype=torch.int64)
+        self._h = (self._h * self._BASE + (flat * weights).sum()) % self._MOD
+        self.count += 1
+
+    def value(self) -> int:
+        return int(self._h.item())
+
+
 class LLMEngine:
     """Drives a decoder of the Mistral forward (Mistral, Llama, Qwen2,
     Gemma / Gemma-2 through a ``GemmaConfig``, and Mixtral's sparse MoE
@@ -502,6 +558,14 @@ class LLMEngine:
     drop each source leaf from the caller's dict as its codes appear
     (device memory then peaks at the float weights, not weights plus
     codes).
+
+    ``mesh`` (tensor / expert parallelism; see the module docstring):
+    ``params`` are this rank's slices, already quantized when
+    ``config.quantization`` is set (quantize before sharding, as the JAX
+    generator does: a row-parallel int8 scale spans the whole input
+    axis); ``followers`` is rank 0's channel to the other ranks, which
+    each call :meth:`follow`. ``num_kv_heads`` must divide over the
+    ``model`` axis.
     """
 
     def __init__(
@@ -514,8 +578,17 @@ class LLMEngine:
         attn_backend: str = 'auto',
         qmm_backend: str | None = None,
         own_params: bool = False,
+        mesh=None,
+        followers=None,
     ) -> None:
         self.device = resolve_device(device)
+        self.config = config or EngineConfig()
+        self.mesh = mesh
+        self._check_mesh(model_cfg, params, mesh)
+        # Rank 0 schedules and sends each device program to the other
+        # ranks first; every other rank only runs what it is sent.
+        self._followers = followers
+        self._leader = mesh is None or mesh.rank == 0
         # Start-up phases (observability.startup): the CUDA context here,
         # quantization below, the kernel builds and graph captures at
         # warmup; this engine's scope keeps its repeats apart from another
@@ -530,7 +603,6 @@ class LLMEngine:
                 f'{self.device}'
             )
         self.tokenizer = tokenizer
-        self.config = config or EngineConfig()
         self.attn_backend = attn_backend
         cfg = self.config
         if cfg.quantization:
@@ -548,7 +620,10 @@ class LLMEngine:
         # The quantized-matmul tier, resolved once and pinned into the
         # model config every dispatch reads (which validates it).
         self.qmm_backend = qmm_backend or model_cfg.qmm_backend
-        self.model_cfg = dataclasses.replace(model_cfg, qmm_backend=self.qmm_backend)
+        # Bound last: a replace of a bound config would drop its mesh.
+        self.model_cfg = bind(
+            dataclasses.replace(model_cfg, qmm_backend=self.qmm_backend), mesh,
+        )
         self.params = params
         self.weight_bytes_quantized, self.weight_bytes_float = quantized_nbytes(params)
         # The KV storage dtype, resolved once (the JAX resolution): 'auto'
@@ -560,7 +635,7 @@ class LLMEngine:
             num_layers=model_cfg.num_layers,
             num_blocks=cfg.num_blocks,
             block_size=cfg.block_size,
-            num_kv_heads=model_cfg.num_kv_heads,
+            num_kv_heads=local_heads(self.model_cfg)[1],  # this rank's
             head_dim=model_cfg.head_size,
             dtype=kv_dtype,
             device=self.device,
@@ -624,17 +699,32 @@ class LLMEngine:
         # constant over the engine's life, so they sit in stats beside the
         # counters without entering a run's telemetry delta.
         self.stats.update(_weight_bytes(self.params))
+        # Gloo's collectives stage CUDA tensors through the host and cannot
+        # be captured: over gloo the windows run eagerly (the caller chose
+        # gloo). NCCL's are captured with the step.
+        capture = self.model_cfg.tp is None or self.model_cfg.tp.backend != 'gloo'
+        self._graph_notes: dict[str, str] = {}
+        if self.device.type == 'cuda' and not capture:
+            self._graph_notes['decode_graphs_reason'] = 'gloo collectives cannot be captured'
+            log_event(
+                'tensor parallelism over gloo: decode and verify windows run '
+                'eagerly (gloo collectives cannot be captured in a CUDA graph)',
+                component='engine',
+            )
         runner_args = dict(
             max_num_seqs=cfg.max_num_seqs,
             max_blocks_per_seq=self.max_blocks_per_seq,
             max_table_positions=cfg.max_model_len,
             attn_backend=attn_backend, device=self.device,
             sampling_top_window=cfg.sampling_top_window, stats=self.stats,
+            capture=capture,
         )
         self._decode = DecodeGraphRunner(
             self.params, self.model_cfg, self.kv.k, self.kv.v,
             decode_steps=cfg.decode_steps, **runner_args,
         )
+        # Whether the windows replay captured graphs (the GPU, unless gloo).
+        self.stats['decode_graphs'] = self._decode.capture
         # The verify window's graphs: [max_num_seqs, 1 + draft_k] spans.
         self._verify = (
             VerifyGraphRunner(
@@ -657,6 +747,7 @@ class LLMEngine:
         # dtype ('bfloat16', 'float32' or 'int8') from construction on.
         self.telemetry: dict[str, float] = {
             'kv_cache_dtype': self.kv_cache_dtype, 'scheduler': self.scheduler_kind,
+            **self._graph_notes,
         }
         # The process flight ring: one record per prefill dispatch, window,
         # finished request, shed, quarantine, recovery and fault.
@@ -682,11 +773,14 @@ class LLMEngine:
         self._measured_costs: dict[str, _op_cost.OpCost] = {}
         self._cost_model = None
         try:
-            self._cost_model = CostModel.from_params(
-                self.params, cfg.decode_steps, device=self.device,
-            )
+            self._cost_model = self._make_cost_model()
         except (ValueError, RuntimeError) as exc:
             self.telemetry['roofline_fallback'] = repr(exc)[:300]
+        # A digest of every token this rank sampled, in program order (the
+        # ranks' digests agree when they hold the same tokens).
+        self._digest = TokenDigest(self.device) if mesh is not None else None
+        self._programs = 0
+        self._kernel_marks: dict[str, dict] = {}
         # Prefill chunks before a tail's last return without a host sync:
         # their tokens and the first one's start are priced with the
         # sampled dispatch that follows, whose fetch waits for them all.
@@ -712,6 +806,209 @@ class LLMEngine:
                 get_metrics_history(), interval_s=cfg.history_interval_s
             )
             self._history_sampler.start()
+
+    def _check_mesh(self, model_cfg, params: dict, mesh) -> None:
+        """Refuse what this rank's engine cannot serve on ``mesh``: a
+        ``data`` or ``seq`` axis (ROADMAP A10c, A11b), heads that do not divide
+        over ``model`` (the JAX check), the host and disk KV tiers
+        (ROADMAP A10d), and float leaves still to be quantized (quantize
+        before sharding)."""
+        if mesh is None:
+            return
+        if mesh.shape[DATA_AXIS] != 1 or mesh.shape[SEQ_AXIS] != 1:
+            raise NotImplementedError(
+                'an engine mesh with a data or seq axis is not ported yet: '
+                'sequence parallelism is ROADMAP A10c, data-parallel replicas '
+                "behind a router A11b; use MeshSpec(data=1, model=N)"
+            )
+        check_tp_heads(model_cfg, mesh.shape[MODEL_AXIS])
+        if self.config.host_kv_tier_bytes:
+            raise NotImplementedError(
+                'the host and disk KV tiers under tensor parallelism (each rank '
+                'spilling its own KV heads) are not ported yet (ROADMAP A10d)'
+            )
+        if self.config.quantization:
+            from distllm_tpu_torch.models import decoder_family
+            from distllm_tpu_torch.ops.quantization import should_quantize
+            from distllm_tpu_torch.parallel.sharding import spec_at, spec_parts
+
+            specs = decoder_family(model_cfg.name)[1].param_specs(model_cfg, params)
+
+            def walk(node, path):
+                if isinstance(node, dict):
+                    for key, value in node.items():
+                        walk(value, path + (key,))
+                    return
+                # The whole leaf's size decides, as quantize_pytree decides
+                # it before sharding.
+                parts = spec_parts(spec_at(specs, path), mesh)
+                if should_quantize(path, node, -(-4096 // parts)):
+                    raise ValueError(
+                        f"{'/'.join(path)} is a float leaf under quantization="
+                        f'{self.config.quantization!r}: quantize before sharding '
+                        '(quantize_pytree, then shard_pytree), as the JAX '
+                        'generator does'
+                    )
+
+            walk(params, ())
+
+    def _make_cost_model(self) -> CostModel:
+        """The roofline of this engine's weights. Under a mesh the whole
+        tree's elements and bytes (each rank's slices times their parts,
+        replicated leaves once) over the peaks of the mesh's distinct
+        devices (two ranks on one card are one device), as the JAX engine
+        prices global leaves over ``mesh.size`` chips."""
+        if self.mesh is None:
+            return CostModel.from_params(
+                self.params, self.config.decode_steps, device=self.device,
+            )
+        from distllm_tpu_torch.models import decoder_family
+        from distllm_tpu_torch.parallel.sharding import global_numel
+
+        specs = decoder_family(self.model_cfg.name)[1].param_specs(
+            self.model_cfg, self.params,
+        )
+        n_params, weight_bytes = global_numel(self.params, specs, self.mesh)
+        peak_flops, peak_bw = device_peaks(self.device)
+        scale = self.mesh.num_devices
+        return CostModel(n_params, weight_bytes, self.config.decode_steps,
+                         peak_flops * scale, peak_bw * scale)
+
+    # ------------------------------------------------------ device programs
+    def _program(self, op: str, *args):
+        """Run device program ``op`` (``_op_<op>``) on this rank, after
+        sending it with its host inputs to the follower ranks, which run
+        it in :meth:`follow`: every rank runs the same programs in the
+        same order, and their collectives meet. Everything that can fail
+        on rank 0 alone (the fault sites, scheduling) runs before a
+        program is sent; a program that fails on some ranks and not on
+        the others leaves their collectives to the process group's
+        timeout."""
+        if self._followers is not None:
+            self._followers.send((op, args))
+        self._programs += 1
+        return getattr(self, f'_op_{op}')(*args)
+
+    def follow(self, conn) -> dict:
+        """A follower rank's loop: run each program rank 0 sends until it
+        sends ``stop``; returns :meth:`tp_report`."""
+        while True:
+            op, args = conn.recv()
+            if op == 'stop':
+                return self.tp_report()
+            self._programs += 1
+            getattr(self, f'_op_{op}')(*args)
+
+    def tp_report(self) -> dict:
+        """This rank's programs run, the digest of every token it sampled
+        (``None`` without a mesh: equal on every rank of a mesh that
+        served the same tokens), its weight bytes, and its kernel counters
+        at each :meth:`mark_kernels`."""
+        return {
+            'rank': 0 if self.mesh is None else self.mesh.rank,
+            'programs': self._programs,
+            'results': None if self._digest is None else self._digest.count,
+            'digest': None if self._digest is None else self._digest.value(),
+            'weight_bytes': self.weight_bytes_quantized + self.weight_bytes_float,
+            'kernel_marks': self._kernel_marks,
+        }
+
+    def mark_kernels(self, tag: str) -> None:
+        """Every rank records its process's kernel counters
+        (``decode_graph.COUNTERS``) under ``tag``, in program order: the
+        difference of two marks is what a rank launched between them
+        (reported by :meth:`tp_report`)."""
+        self._program('mark', tag)
+
+    def _digest_add(self, tokens: torch.Tensor) -> None:
+        if self._digest is not None:
+            self._digest.add(tokens)
+
+    def _op_prefill(self, host, sampling, defer_slots, price: bool):
+        """The prefill dispatch: the padded span arrays ``host`` through
+        ``mistral.prefill_paged``; with ``sampling`` (from
+        :meth:`_sampling_host`) each row's token sampled on the device and,
+        with ``defer_slots``, scattered into the decode carry there.
+        ``price`` counts the pass (``_op_cost.count``) into
+        ``measured_costs()['prefill']``. Returns ``(tokens or None, t_put)``."""
+        ids, positions, block_rows, context_lens, tail_lens = self._put(*host)
+        t_put = time.monotonic()
+        prefill = functools.partial(
+            mistral.prefill_paged, self.params, self.model_cfg, ids, positions,
+            self.kv.k, self.kv.v, block_rows, context_lens, tail_lens,
+            max_table_positions=self.config.max_model_len,
+            attn_backend=self.attn_backend,
+        )
+        with self._annotate('prefill'):
+            if not price:
+                last_logits, _, _ = prefill()
+            else:
+                # The first prefill dispatch prices its shape (the measured
+                # cost of a prefill, in measured_costs()): the same pass,
+                # counted by the op-cost dispatch mode.
+                cost, (last_logits, _, _) = _op_cost.count(prefill)
+                self._measured_costs['prefill'] = cost
+                _metrics.ENGINE_KV_DISPATCH_BYTES.labels(kind='prefill').set(
+                    cost.bytes_accessed
+                )
+        if sampling is None:
+            return None, t_put
+        tokens = self._sample_on_device(last_logits, sampling)
+        self._digest_add(tokens)
+        if defer_slots is not None:
+            self._decode.scatter_ids(
+                torch.as_tensor(defer_slots, device=self.device), tokens,
+            )
+        return tokens, t_put
+
+    def _op_chunk(self, arrays, all_greedy: bool) -> torch.Tensor:
+        """A window's chunk half: one ``prefill_chunk_rows`` pass."""
+        tokens = mistral.prefill_chunk_rows(
+            self.params, self.model_cfg, self.kv.k, self.kv.v,
+            tuple(self._put(*arrays)),
+            max_table_positions=self.config.max_model_len,
+            attn_backend=self.attn_backend,
+            sampling_top_window=self.config.sampling_top_window,
+            all_greedy=all_greedy,
+        )
+        self._digest_add(tokens)
+        return tokens
+
+    def _op_decode_load(self, inputs: dict) -> None:
+        self._decode.load(**inputs)
+
+    def _op_decode_run(self, num_steps: int, all_greedy: bool) -> torch.Tensor:
+        tokens = self._decode.run(num_steps, all_greedy)
+        self._digest_add(tokens)
+        return tokens
+
+    def _op_verify_load(self, arrays) -> None:
+        self._verify.load(*arrays)
+
+    def _op_verify_run(self, all_greedy: bool) -> torch.Tensor:
+        packed = self._verify.run(all_greedy)
+        self._digest_add(packed)
+        return packed
+
+    def _op_cow(self, srcs: list[int], dsts: list[int]) -> None:
+        src = torch.as_tensor(srcs, device=self.device)
+        dst = torch.as_tensor(dsts, device=self.device)
+        for plane in self._pool_planes():
+            plane.index_copy_(1, dst, plane.index_select(1, src))
+
+    def _op_mark(self, tag: str) -> None:
+        from distllm_tpu_torch.generate.engine.decode_graph import COUNTERS, read_counters
+
+        self._kernel_marks[tag] = {
+            f'{fn.__name__}.{name}': value
+            for (fn, name), value in zip(COUNTERS, read_counters())
+        }
+
+    def _op_warmup(self) -> None:
+        self._decode.warmup()
+        if self._verify is not None:
+            self._verify.warmup()
+        self._price_step_shapes()
 
     # ------------------------------------------------------------- requests
     def add_request(
@@ -1287,10 +1584,7 @@ class LLMEngine:
             dsts.append(self.sched.block_row(request.request_id)[request.num_borrowed_blocks])
             srcs.append(request.cow_src_block)
             request.cow_src_block = None
-        src = torch.as_tensor(srcs, device=self.device)
-        dst = torch.as_tensor(dsts, device=self.device)
-        for plane in self._pool_planes():
-            plane.index_copy_(1, dst, plane.index_select(1, src))
+        self._program('cow', srcs, dsts)
         self.stats['prefix_cow_copies'] += len(srcs)
         _metrics.PREFIX_COW_COPIES.inc(len(srcs))
 
@@ -1409,13 +1703,9 @@ class LLMEngine:
         row's token sampled on the device; records the spans as sent.
         Returns the device tokens and the window's chunk entries
         ``(row, rid, start, ntok, final)``."""
-        chunk_tokens = mistral.prefill_chunk_rows(
-            self.params, self.model_cfg, self.kv.k, self.kv.v,
-            tuple(self._put(*self._build_chunk_arrays(chunk_plan))),
-            max_table_positions=self.config.max_model_len,
-            attn_backend=self.attn_backend,
-            sampling_top_window=self.config.sampling_top_window,
-            all_greedy=all(r.params.temperature <= 0 for r, _, _ in chunk_plan),
+        chunk_tokens = self._program(
+            'chunk', self._build_chunk_arrays(chunk_plan),
+            all(r.params.temperature <= 0 for r, _, _ in chunk_plan),
         )
         self.stats['forward_passes'] += 1
         entries = []
@@ -1519,27 +1809,15 @@ class LLMEngine:
         t_start = time.monotonic()
         width = max(ntok for _, _, ntok in spans)
         host = self._span_host_arrays(spans, width, len(spans))
+        sampling = self._sampling_host(requests) if sample else None
+        defer_slots = None
+        if sample and defer_to is not None:
+            slot_of = {rid: slot for slot, rid in self.sched.running()}
+            defer_slots = [slot_of[r.request_id] for r in requests]
         t_host = time.monotonic()
-        ids, positions, block_rows, context_lens, tail_lens = self._put(*host)
-        t_put = time.monotonic()
-        prefill = functools.partial(
-            mistral.prefill_paged, self.params, self.model_cfg, ids, positions,
-            self.kv.k, self.kv.v, block_rows, context_lens, tail_lens,
-            max_table_positions=self.config.max_model_len,
-            attn_backend=self.attn_backend,
+        tokens_dev, t_put = self._program(
+            'prefill', host, sampling, defer_slots, 'prefill' not in self._measured_costs,
         )
-        with self._annotate('prefill'):
-            if 'prefill' in self._measured_costs:
-                last_logits, _, _ = prefill()
-            else:
-                # The first prefill dispatch prices its shape (the measured
-                # cost of a prefill, in measured_costs()): the same pass,
-                # counted by the op-cost dispatch mode.
-                cost, (last_logits, _, _) = _op_cost.count(prefill)
-                self._measured_costs['prefill'] = cost
-                _metrics.ENGINE_KV_DISPATCH_BYTES.labels(kind='prefill').set(
-                    cost.bytes_accessed
-                )
         t_dispatch = time.monotonic()
         self.stats['forward_passes'] += 1
         self.stats['prefill_dispatches'] += 1
@@ -1557,7 +1835,6 @@ class LLMEngine:
             return []
         for request in requests:
             self._insert_prompt_blocks(request)
-        tokens_dev = self._sample_device(last_logits, requests)
         # The fetch, here or with the windows, waits for every unsynced
         # chunk before this one too.
         priced_tokens = ntokens + sum(n for n, _ in self._unsynced_prefill)
@@ -1583,16 +1860,12 @@ class LLMEngine:
         return emitted
 
     def _defer_prefill_tokens(self, requests, tokens_dev, defer_to) -> None:
-        """The deferred path of :meth:`_dispatch_prefill_paged`: scatter
-        the first tokens into the decode carry at the requests' slots, so
-        the next window reads them on the device, count one unacked token
-        a request, and queue their fetch as a one-step record, processed
-        with the windows (the step is priced without its fetch)."""
-        slot_of = {rid: slot for slot, rid in self.sched.running()}
-        slots = torch.as_tensor(
-            [slot_of[r.request_id] for r in requests], device=self.device,
-        )
-        self._decode.scatter_ids(slots, tokens_dev)
+        """The deferred path of :meth:`_dispatch_prefill_paged` (whose
+        program scattered the first tokens into the decode carry at the
+        requests' slots, so the next window reads them on the device):
+        count one unacked token a request, and queue their fetch as a
+        one-step record, processed with the windows (the step is priced
+        without its fetch)."""
         plan = []
         for i, request in enumerate(requests):
             rid = request.request_id
@@ -1601,12 +1874,14 @@ class LLMEngine:
         defer_to.append({'tokens': tokens_dev[None, :], 'plan': plan, 'deferred': True,
                          'chunk_tokens': None, 'chunk_plan': []})
 
-    def _sample_device(self, logits: torch.Tensor, requests) -> torch.Tensor:
-        """Sample each request's next token on the device (no host sync).
-        The prompt occupies indices ``0..num_tokens-1``, so the token's
-        PRNG counter is ``num_tokens``."""
+    @staticmethod
+    def _sampling_host(requests) -> tuple:
+        """The host inputs of sampling each request's next token: its
+        knobs, seed and PRNG counter (the prompt occupies indices
+        ``0..num_tokens-1``, so the counter is ``num_tokens``), and
+        whether every row is greedy."""
         params = [r.params for r in requests]
-        temperature, top_p, min_p, top_k, seeds, counters = self._put(
+        arrays = (
             np.asarray([p.temperature for p in params], np.float32),
             np.asarray([p.top_p for p in params], np.float32),
             np.asarray([p.min_p for p in params], np.float32),
@@ -1614,10 +1889,16 @@ class LLMEngine:
             np.asarray([r.sample_seed for r in requests], np.int64),
             np.asarray([r.num_tokens for r in requests], np.int64),
         )
+        return arrays, all(p.temperature <= 0 for p in params)
+
+    def _sample_on_device(self, logits: torch.Tensor, sampling: tuple) -> torch.Tensor:
+        """Sample each row's next token on the device (no host sync)."""
+        arrays, all_greedy = sampling
+        temperature, top_p, min_p, top_k, seeds, counters = self._put(*arrays)
         return sample_tokens(
             logits, temperature, top_p, min_p, fold_row_keys(seeds, counters),
             top_window=self.config.sampling_top_window, top_k=top_k,
-            all_greedy=all(p.temperature <= 0 for p in params),
+            all_greedy=all_greedy,
         )
 
     # ------------------------------------------------- step records
@@ -1786,10 +2067,7 @@ class LLMEngine:
         blocks, ``stats['generated_tokens']`` and every sampling stream
         stay as they were. Raises if a capture fails. (Chunk halves run
         eagerly and need nothing here.)"""
-        self._decode.warmup()
-        if self._verify is not None:
-            self._verify.warmup()
-        self._price_step_shapes()
+        self._program('warmup')
 
     def _price_step_shapes(self) -> None:
         """Store the measured cost of one dispatch of the decode and verify
@@ -2017,9 +2295,15 @@ class LLMEngine:
         t_host = time.monotonic()
         if num_steps:
             # Every row taking the host's id is the plain load (step()).
-            keep = {} if take_host.all() else {'take_host': take_host}
-            self._decode.load(ids, positions, context_lens, block_tables, steps_left,
-                              temperature, top_p, min_p, top_k, seeds, **keep)
+            inputs = dict(
+                ids=ids, positions=positions, context_lens=context_lens,
+                block_tables=block_tables, steps_left=steps_left,
+                temperature=temperature, top_p=top_p, min_p=min_p, top_k=top_k,
+                seeds=seeds,
+            )
+            if not take_host.all():
+                inputs['take_host'] = take_host
+            self._program('decode_load', inputs)
         t_put = time.monotonic()
         with self._annotate('mixed' if chunk_plan else 'decode'):
             if chunk_plan:
@@ -2033,8 +2317,9 @@ class LLMEngine:
                     # both: the measured shares take these events instead.
                     events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                     events[0].record()
-                window['tokens'] = self._decode.run(
-                    num_steps, all(r.params.temperature <= 0 for _, r in running)
+                window['tokens'] = self._program(
+                    'decode_run', num_steps,
+                    all(r.params.temperature <= 0 for _, r in running),
                 )
                 if events is not None:
                     events[1].record()
@@ -2197,15 +2482,18 @@ class LLMEngine:
             window['lengths'] = (span_arrays[3][None], span_arrays[4][None])
         t_host = time.monotonic()
         if plan:
-            self._verify.load(*span_arrays, temperature, top_p, min_p, top_k, seeds)
+            self._program(
+                'verify_load', (*span_arrays, temperature, top_p, min_p, top_k, seeds),
+            )
         t_put = time.monotonic()
         with self._annotate('spec'):
             if chunk_plan:
                 window['chunk_tokens'], window['chunk_plan'] = self._run_chunk_half(chunk_plan)
                 self.stats['spec_chunk_windows'] += 1
             if plan:
-                window['tokens'] = self._verify.run(
-                    all(self._requests[rid].params.temperature <= 0 for _, rid, _ in plan)
+                window['tokens'] = self._program(
+                    'verify_run',
+                    all(self._requests[rid].params.temperature <= 0 for _, rid, _ in plan),
                 )
         if plan:
             ndrafted = sum(len(d) for _, _, d in plan)
@@ -2621,6 +2909,7 @@ class LLMEngine:
         self.telemetry.update(
             scheduler=self.scheduler_kind,
             pipeline_depth=1 if self.config.draft_k else max(1, self.config.pipeline_depth),
+            **self._graph_notes,
         )
         self.telemetry.update(self._jax_telemetry(run, loop_s))
         outs = []

@@ -150,7 +150,10 @@ class PagedKVCache:
     """Device-resident paged K/V tensors (a pure container: block
     accounting is the scheduler's job). The pool is zero-initialised, so
     the trash block starts finite. ``dtype=torch.int8`` makes ``k`` and
-    ``v`` :class:`QuantizedKV` pools (``quantized`` is then true)."""
+    ``v`` :class:`QuantizedKV` pools (``quantized`` is then true). Under
+    tensor parallelism the engine sizes it with its rank's
+    ``num_kv_heads / model`` heads (an int8 pool's scales per block and
+    local head)."""
 
     def __init__(
         self,

@@ -8,8 +8,8 @@ It builds every name the JAX factory builds:
   keys: ``pretrained_model_name_or_path`` serves a local HF checkpoint
   directory as the JAX ``TpuGenerator`` does, and without it a ``model``
   mapping picks its config class by ``name``, through
-  ``models.decoder_family``; ``tensor_parallel_size`` above 1 raises naming
-  ROADMAP A10b;
+  ``models.decoder_family``; ``tensor_parallel_size`` above 1 serves on a
+  mesh whose other ranks the generator spawns;
 - ``huggingface``: transformers' ``AutoModelForCausalLM``;
 - ``api`` and its alias ``langchain``: OpenAI / Anthropic / Google over
   HTTP; ``argo`` and ``openai``: the two dedicated chat endpoints;

@@ -19,7 +19,16 @@ family's own ``init`` (quantized there when ``quantization`` is set, so
 Mixtral-8x7B's int8 tree is built without its 93 GB bf16 one), or params
 bridged from the JAX package
 (:func:`~distllm_tpu_torch.models.mistral.params_from_jax`).
-``tensor_parallel_size`` above 1 raises, naming ROADMAP A10b.
+``tensor_parallel_size: N`` above 1 serves on a mesh ``data=1, model=N``
+(the JAX generator's ``MeshSpec(data=1, model=tp)``) from this one
+process: it is rank 0, and it spawns the other ``N - 1`` ranks itself
+(``generate.engine.sharded.ShardedEngine``; no torchrun). Each rank draws
+or reads only its own slices, and the ranks stop with :meth:`shutdown`.
+Rank r runs on ``cuda:<r % cards>`` (``CUDA_VISIBLE_DEVICES`` picks the
+cards), or every rank on the CPU when the generator's device is the CPU;
+``tensor_parallel_backend`` is their collectives': by default NCCL on
+CUDA and gloo on the CPU. NCCL refuses two ranks on one card, so ranks
+that share a card take ``tensor_parallel_backend: gloo``.
 ``quantization`` ('int8' / 'nf4'; ``True`` means nf4, the reference's
 bitsandbytes flag) serves weight-only quantized weights: int8 projections
 run through kernel K2. The serving knobs of the JAX generator config
@@ -86,8 +95,12 @@ class TorchGeneratorConfig(BaseConfig):
     pretrained_model_name_or_path: str | None = None
     tokenizer_name: str | None = None
     trust_remote_code: bool = False
-    # The JAX field; only 1 is ported (tensor parallelism is ROADMAP A10b).
+    # The JAX field: the ranks of the model axis (this process is rank 0
+    # and starts the others).
     tensor_parallel_size: int = 1
+    # The ranks' collectives: None = 'nccl' on CUDA (one rank a card),
+    # 'gloo' on the CPU; 'gloo' on CUDA lets ranks share a card.
+    tensor_parallel_backend: str | None = None
     model: mistral.MistralConfig = dataclasses.field(
         default_factory=mistral.MistralConfig
     )
@@ -141,10 +154,10 @@ class TorchGeneratorConfig(BaseConfig):
     def validate(self) -> None:
         if self.tensor_parallel_size < 1:
             raise ValueError('tensor_parallel_size must be >= 1')
-        if self.tensor_parallel_size > 1:
-            raise NotImplementedError(
-                'tensor_parallel_size > 1 is not ported to distllm_tpu_torch '
-                'yet (ROADMAP A10b)'
+        if self.tensor_parallel_backend not in (None, 'nccl', 'gloo'):
+            raise ValueError(
+                "tensor_parallel_backend must be 'nccl' or 'gloo', got "
+                f'{self.tensor_parallel_backend!r}'
             )
         if self.max_tokens < 1:
             raise ValueError('max_tokens must be >= 1')
@@ -191,14 +204,15 @@ def generation_config_eos(model_dir: str) -> tuple[int, ...]:
         return ()
 
 
-def load_checkpoint(config: TorchGeneratorConfig, device: torch.device):
+def load_checkpoint(config: TorchGeneratorConfig, device: torch.device, *,
+                    weights: bool = True):
     """``(model_cfg, params, tokenizer, extra_stop_ids)`` of the config's
     checkpoint directory, as ``TpuGenerator.__init__`` builds them: the
     family from ``config.json``'s ``model_type``, its ``from_hf_config``
-    and ``params_from_hf`` (the params on ``device``), an ``HFTokenizer``
-    of ``tokenizer_name`` or the path whose EOS is its own or else the
-    first of ``generation_config.json``'s, and that file's other EOS ids
-    as extra stop ids."""
+    and ``params_from_hf`` (the params on ``device``; ``None`` without
+    ``weights``), an ``HFTokenizer`` of ``tokenizer_name`` or the path
+    whose EOS is its own or else the first of ``generation_config.json``'s,
+    and that file's other EOS ids as extra stop ids."""
     from distllm_tpu_torch.models import decoder_family
     from distllm_tpu_torch.models.loader import read_checkpoint, read_hf_config
 
@@ -206,9 +220,11 @@ def load_checkpoint(config: TorchGeneratorConfig, device: torch.device):
     hf_cfg = read_hf_config(path)
     cfg_cls, family = decoder_family(hf_cfg.get('model_type', 'mistral'))
     model_cfg = cfg_cls.from_hf_config(hf_cfg)
-    with get_compile_watcher().phase('weight_load', Path(path).name or path) as phase:
-        params = family.params_from_hf(read_checkpoint(path), model_cfg, device=device)
-        phase['model_type'] = hf_cfg.get('model_type', 'mistral')
+    params = None
+    if weights:
+        with get_compile_watcher().phase('weight_load', Path(path).name or path) as phase:
+            params = family.params_from_hf(read_checkpoint(path), model_cfg, device=device)
+            phase['model_type'] = hf_cfg.get('model_type', 'mistral')
     tokenizer = HFTokenizer(
         config.tokenizer_name or path, trust_remote_code=config.trust_remote_code,
     )
@@ -238,6 +254,10 @@ class TorchGenerator:
         own_params = params is None
         # Stop ids of generation_config.json beyond the EOS.
         self._extra_stop_ids: tuple[int, ...] = ()
+        self._sharded = None
+        if config.tensor_parallel_size > 1:
+            self._start_ranks(config, device, params, tokenizer, attn_backend, qmm_backend)
+            return
         if own_params and config.pretrained_model_name_or_path:
             model_cfg, params, hf_tokenizer, self._extra_stop_ids = load_checkpoint(
                 config, device
@@ -273,6 +293,54 @@ class TorchGenerator:
         # replays (a replay is safe from any thread, on its current stream).
         self.engine.warmup()
 
+    def _start_ranks(self, config, device, params, tokenizer, attn_backend,
+                     qmm_backend) -> None:
+        """``tensor_parallel_size > 1``: this process becomes rank 0 of a
+        mesh ``data=1, model=N`` and spawns the other ranks, each building
+        its slices from the config's weights (a checkpoint, the seed, or
+        ``params`` handed over whole), then warms the engine up on every
+        rank."""
+        from distllm_tpu_torch.generate.engine.sharded import (
+            ShardedEngine,
+            WeightSource,
+        )
+        from distllm_tpu_torch.parallel.mesh import rank_devices
+
+        world = config.tensor_parallel_size
+        backend = config.tensor_parallel_backend or (
+            'gloo' if device.type == 'cpu' else 'nccl'
+        )
+        devices = rank_devices(world, device)
+        mode = normalize_mode(config.quantization)
+        model_cfg = config.model
+        if params is not None:
+            source = WeightSource('tree', tree=params)
+        elif config.pretrained_model_name_or_path:
+            model_cfg, _, hf_tokenizer, self._extra_stop_ids = load_checkpoint(
+                config, device, weights=False,
+            )
+            tokenizer = tokenizer or hf_tokenizer
+            source = WeightSource(
+                'checkpoint', quantization=mode,
+                path=config.pretrained_model_name_or_path,
+            )
+        else:
+            source = WeightSource('init', seed=config.seed, quantization=mode)
+        self.model_cfg = model_cfg
+        self.tokenizer = tokenizer or WhitespaceTokenizer(
+            vocab_size=model_cfg.vocab_size, model_max_length=config.max_model_len,
+        )
+        with get_compile_watcher().phase('tensor_parallel', f'tp{world}') as phase:
+            self._sharded = ShardedEngine(
+                world, model_cfg, source, config.engine_config(), backend=backend,
+                devices=devices, tokenizer=self.tokenizer,
+                attn_backend=attn_backend or config.attn_backend,
+                qmm_backend=qmm_backend,
+            )
+            phase.update(backend=backend, devices=','.join(devices))
+        self.engine = self._sharded.engine
+        self.engine.warmup()
+
     def sampling_params(self) -> SamplingParams:
         min_p = self.config.min_p
         if self.config.top_p:
@@ -299,7 +367,18 @@ class TorchGenerator:
             prompts = [prompts]
         return self.engine.generate(prompts, sampling or self.sampling_params())
 
+    @property
+    def rank_reports(self) -> list[dict]:
+        """Each rank's ``LLMEngine.tp_report`` after :meth:`shutdown` of a
+        tensor-parallel generator (equal digests: every rank sampled the
+        same tokens); ``[]`` otherwise."""
+        return self._sharded.reports if self._sharded is not None else []
+
     def shutdown(self) -> None:
+        if self._sharded is not None:
+            if not self._sharded.reports:
+                self._sharded.close()
+            return
         self.engine.shutdown()
 
 

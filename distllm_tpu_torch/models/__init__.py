@@ -1,5 +1,7 @@
 """Models of the port (the decoder families, the BERT encoder), the
-tokenizers and checkpoint reading."""
+tokenizers and checkpoint reading. A decoder family's module carries, as
+in JAX, ``init``, ``apply``, ``params_from_hf`` and ``param_specs`` (the
+partition specs ``parallel.sharding`` slices each rank's weights by)."""
 
 from __future__ import annotations
 

@@ -83,6 +83,9 @@ logits = mistral.logits
 prefill_paged = mistral.prefill_paged
 decode_step = mistral.decode_step
 decode_loop = mistral.decode_loop
+# The post norms are replicated and the softcaps act on whole scores and
+# logits, so the Mistral specs serve Gemma under tensor parallelism.
+param_specs = mistral.param_specs
 
 
 def params_from_hf(
@@ -90,9 +93,11 @@ def params_from_hf(
     cfg: GemmaConfig,
     device: 'str | torch.device' = 'cuda',
     dtype: 'str | torch.dtype | None' = None,
+    leaf_fn=None,
 ) -> dict:
     """Convert HF ``GemmaForCausalLM`` / ``Gemma2ForCausalLM`` weights,
-    on ``device`` in ``dtype`` (default ``cfg.dtype``). The trap is
+    on ``device`` in ``dtype`` (default ``cfg.dtype``), each leaf through
+    ``leaf_fn`` when given (``mistral._to_torch``). The trap is
     ``post_attention_layernorm``:
 
     - gemma: ``input_layernorm`` -> ``attn_ln``,
@@ -132,4 +137,4 @@ def params_from_hf(
         'layers': mistral.stack_layers(layers),
         'final_ln': {'scale': sd['norm.weight']},
     }
-    return mistral._to_torch(tree, device, dtype or cfg.dtype)
+    return mistral._to_torch(tree, device, dtype or cfg.dtype, leaf_fn)

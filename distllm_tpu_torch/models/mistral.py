@@ -70,8 +70,13 @@ from distllm_tpu_torch.ops.quantization import (
     is_jax_qtensor,
     normalize_mode,
     qtensor_from_jax,
+    quantize_int8,
+    quantize_nf4,
     quantize_pytree,
+    should_quantize,
 )
+from distllm_tpu_torch.parallel.comm import local_heads
+from distllm_tpu_torch.parallel.sharding import P
 from distllm_tpu_torch.ops.quantized_matmul import QMM_BACKENDS
 from distllm_tpu_torch.ops.sampling import fold_row_keys, sample_tokens, verify_spans
 from distllm_tpu_torch.utils import BaseConfig, torch_dtype
@@ -128,6 +133,11 @@ class MistralConfig(BaseConfig):
 
     # The values ``name`` may take in this class.
     NAMES = ('mistral',)
+    # Not a field: the rank's tensor-parallel collectives
+    # (``parallel.comm.TensorParallel``) on a copy bound to a mesh by
+    # ``parallel.comm.bind``; None runs the whole model. (A
+    # ``dataclasses.replace`` of a bound copy drops it.)
+    tp = None
 
     def validate(self) -> None:
         # Take a number in a string as the JAX config's pydantic fields do.
@@ -195,6 +205,7 @@ def init(
     device: 'str | torch.device' = 'cuda',
     dtype: 'str | torch.dtype | None' = None,
     quantization: 'bool | str | None' = None,
+    leaf_fn=None,
 ) -> dict:
     """Random weights (normal, std 0.02; norms at their identity: 1, or 0
     under ``norm_plus_one``) created directly on ``device`` in ``dtype``
@@ -205,67 +216,133 @@ def init(
     ``True`` means nf4) the tree is ``quantize_pytree``'s of those
     weights, each float leaf dropped as its codes appear (the engine's
     own quantization, done here; ``mixtral.init`` takes the same
-    argument and quantizes layer by layer)."""
+    argument and quantizes layer by layer).
+
+    ``leaf_fn(path, leaf)`` (tensor parallelism:
+    ``parallel.sharding.leaf_sharder``) takes each leaf as soon as it is
+    drawn and quantized, and what it returns is kept: a rank keeps its
+    slice and never holds more than one whole leaf. The draws are the
+    unsharded ones, in the same order, so every slice is the unsharded
+    tree's bit for bit."""
     device = torch.device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     h, hd, i, L = cfg.hidden_size, cfg.head_size, cfg.intermediate_size, cfg.num_layers
     q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    mode = normalize_mode(quantization)
+
+    def keep(path, leaf):
+        # With leaf_fn the leaf at ``path`` is quantized and handed over
+        # here; without, the whole tree is quantized below.
+        if leaf_fn is None:
+            return leaf
+        if mode and should_quantize(path, leaf, 4096):
+            quantize = quantize_int8 if mode == 'int8' else quantize_nf4
+            leaf = quantize(leaf, out_dtype=dt)
+        return leaf_fn(path, leaf)
 
     def normal(*shape):
         out = torch.randn(shape, generator=generator, device=device, dtype=dt)
         return out.mul_(0.02)
 
-    def proj(shape):
-        out = {'kernel': normal(L, *shape)}
+    def proj(name, shape):
+        out = {'kernel': keep(('layers', name, 'kernel'), normal(L, *shape))}
         if cfg.attention_bias:
-            out['bias'] = normal(L, shape[-1])
+            out['bias'] = keep(('layers', name, 'bias'), normal(L, shape[-1]))
         return out
 
     def norm(*shape):
         return torch.full(shape, 0.0 if cfg.norm_plus_one else 1.0, device=device, dtype=dt)
 
-    params = {
-        'embed': normal(cfg.vocab_size, h),
-        'layers': {
-            'q': proj((h, q_out)),
-            'k': proj((h, kv_out)),
-            'v': proj((h, kv_out)),
-            'o': {'kernel': normal(L, q_out, h)},
-            'attn_ln': {'scale': norm(L, h)},
-            'gate': {'kernel': normal(L, h, i)},
-            'up': {'kernel': normal(L, h, i)},
-            'down': {'kernel': normal(L, i, h)},
-            'mlp_ln': {'scale': norm(L, h)},
-        },
-        'final_ln': {'scale': norm(h)},
+    def kernel(name, shape):
+        return {'kernel': keep(('layers', name, 'kernel'), normal(L, *shape))}
+
+    params = {'embed': keep(('embed',), normal(cfg.vocab_size, h))}
+    params['layers'] = {
+        'q': proj('q', (h, q_out)),
+        'k': proj('k', (h, kv_out)),
+        'v': proj('v', (h, kv_out)),
+        'o': kernel('o', (q_out, h)),
+        'attn_ln': {'scale': norm(L, h)},
+        'gate': kernel('gate', (h, i)),
+        'up': kernel('up', (h, i)),
+        'down': kernel('down', (i, h)),
+        'mlp_ln': {'scale': norm(L, h)},
     }
+    params['final_ln'] = {'scale': norm(h)}
     if cfg.post_norms:
         params['layers']['post_attn_ln'] = {'scale': norm(L, h)}
         params['layers']['post_mlp_ln'] = {'scale': norm(L, h)}
     if not cfg.tie_word_embeddings:
-        params['lm_head'] = normal(h, cfg.vocab_size)
-    mode = normalize_mode(quantization)
-    if mode:
+        params['lm_head'] = keep(('lm_head',), normal(h, cfg.vocab_size))
+    if mode and leaf_fn is None:
         params = quantize_pytree(params, mode=mode, out_dtype=dt, delete_source=True)
     return params
 
 
-def _to_torch(tree: dict, device, dtype) -> dict:
+def param_specs(cfg: MistralConfig, params: dict | None = None) -> dict:
+    """Sharding specs structurally matching ``params`` (the JAX
+    ``param_specs``): ``q``/``k``/``v``, ``gate``, ``up`` column-parallel
+    over ``model`` (Qwen2's stacked ``[L, out]`` biases with their
+    kernels), ``o`` and ``down`` row-parallel, an untied ``lm_head``
+    split on the vocab, everything else replicated.
+
+    Encoder-only checkpoints (SFR-Embedding-Mistral) have no ``lm_head``
+    even with untied embeddings, so the spec tree mirrors the actual
+    params when they are provided."""
+    col = {'kernel': P(None, None, 'model')}
+    row = {'kernel': P(None, 'model', None)}
+    if cfg.attention_bias:
+        # Stacked [L, out] biases shard with their column-parallel kernels.
+        qkv = {'kernel': P(None, None, 'model'), 'bias': P(None, 'model')}
+    else:
+        qkv = col
+    specs = {
+        'embed': P(None, None),
+        'layers': {
+            'q': dict(qkv),
+            'k': dict(qkv),
+            'v': dict(qkv),
+            'o': dict(row),
+            'attn_ln': {'scale': P(None)},
+            'gate': dict(col),
+            'up': dict(col),
+            'down': dict(row),
+            'mlp_ln': {'scale': P(None)},
+        },
+        'final_ln': {'scale': P()},
+    }
+    if getattr(cfg, 'post_norms', False):
+        specs['layers']['post_attn_ln'] = {'scale': P(None)}
+        specs['layers']['post_mlp_ln'] = {'scale': P(None)}
+    has_lm_head = (
+        'lm_head' in params if params is not None else not cfg.tie_word_embeddings
+    )
+    if has_lm_head:
+        specs['lm_head'] = P(None, 'model')
+    return specs
+
+
+def _to_torch(tree: dict, device, dtype, leaf_fn=None) -> dict:
     """A parameter tree of numpy arrays (quantized JAX leaves kept as
-    codes and fp32 scales) as torch tensors on ``device`` in ``dtype``."""
+    codes and fp32 scales) as torch tensors on ``device`` in ``dtype``;
+    each leaf, once on the device, goes through ``leaf_fn(path, leaf)``
+    when one is given (a rank's slice under tensor parallelism), so the
+    device holds one whole leaf at a time."""
     dt = torch_dtype(dtype)
     device = torch.device(device)
 
-    def convert(node):
+    def convert(node, path):
         if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
+            return {k: convert(v, path + (k,)) for k, v in node.items()}
         if is_jax_qtensor(node):
-            return qtensor_from_jax(node, device)
-        return torch.tensor(np.asarray(node, np.float32), dtype=dt, device=device)
+            leaf = qtensor_from_jax(node, device)
+        else:
+            leaf = torch.tensor(np.asarray(node, np.float32), dtype=dt, device=device)
+        return leaf if leaf_fn is None else leaf_fn(path, leaf)
 
-    return convert(tree)
+    return convert(tree, ())
 
 
 def params_from_jax(
@@ -324,6 +401,7 @@ def params_from_hf(
     cfg: MistralConfig,
     device: 'str | torch.device' = 'cuda',
     dtype: 'str | torch.dtype | None' = None,
+    leaf_fn=None,
 ) -> dict:
     """Convert HF ``MistralForCausalLM`` / ``MistralModel`` weights (and
     the Llama and Qwen2 ones) with the JAX mapping: Linear ``[out, in]``
@@ -331,7 +409,8 @@ def params_from_hf(
     kept, a bias on any other projection refused; ``lm_head`` kept when
     the embeddings are untied and the checkpoint has one (an embedding
     model such as SFR-Embedding-Mistral has none). The tensors land on
-    ``device`` in ``dtype`` (default ``cfg.dtype``)."""
+    ``device`` in ``dtype`` (default ``cfg.dtype``), each through
+    ``leaf_fn`` when given (``_to_torch``)."""
     sd = hf_state_dict(state)
 
     def lin(key, bias_ok=False):
@@ -366,7 +445,7 @@ def params_from_hf(
     }
     if 'lm_head.weight' in sd and not cfg.tie_word_embeddings:
         tree['lm_head'] = np.ascontiguousarray(sd['lm_head.weight'].T)
-    return _to_torch(tree, device, dtype or cfg.dtype)
+    return _to_torch(tree, device, dtype or cfg.dtype, leaf_fn)
 
 
 _ROPE_CACHE: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
@@ -419,12 +498,15 @@ def _mlp_block(
         return moe_mlp(
             normed, lp['router']['kernel'][li], lp['gate']['kernel'][li],
             lp['up']['kernel'][li], lp['down']['kernel'][li], cfg.experts_per_token,
+            tp=cfg.tp,
         )
     qb = cfg.qmm_backend
     act = common.ACTIVATIONS[cfg.activation]
     gate = common.dense(normed, lp['gate']['kernel'][li], qmm_backend=qb)
     up = common.dense(normed, lp['up']['kernel'][li], qmm_backend=qb)
-    return common.dense(act(gate) * up, lp['down']['kernel'][li], qmm_backend=qb)
+    out = common.dense(act(gate) * up, lp['down']['kernel'][li], qmm_backend=qb)
+    # Row-parallel down: the ranks' partial sums over their width slices.
+    return out if cfg.tp is None else cfg.tp.reduce_model(out)
 
 
 def _layer_window(cfg: MistralConfig, li: int) -> int | None:
@@ -444,6 +526,8 @@ def _residual_block(
     merged): the output projection, the residual adds, the MLP, and with
     ``post_norms`` (gemma2) the sandwich norms on both branches."""
     attn_out = common.dense(attn, lp['o']['kernel'][li], qmm_backend=cfg.qmm_backend)
+    if cfg.tp is not None:  # row-parallel o: the ranks' heads summed
+        attn_out = cfg.tp.reduce_model(attn_out)
     if cfg.post_norms:
         attn_out = _norm(attn_out, lp['post_attn_ln']['scale'][li], cfg)
     x = x + attn_out
@@ -485,12 +569,16 @@ def _attention(attn_backend: str):
 
 def logits(params: dict, cfg: MistralConfig, hidden: torch.Tensor) -> torch.Tensor:
     """LM head: ``[..., H]`` hidden -> fp32 ``[..., V]`` logits (tanh
-    soft-capped under ``final_logit_softcap``)."""
+    soft-capped under ``final_logit_softcap``). Under tensor parallelism
+    an untied ``lm_head`` holds the rank's vocab slice, whose logits are
+    gathered; the tied embedding is replicated."""
     if cfg.tie_word_embeddings or 'lm_head' not in params:
         kernel = params['embed'].t()
+        out = common.dense(hidden, kernel, qmm_backend=cfg.qmm_backend).float()
     else:
-        kernel = params['lm_head']
-    out = common.dense(hidden, kernel, qmm_backend=cfg.qmm_backend).float()
+        out = common.dense(hidden, params['lm_head'], qmm_backend=cfg.qmm_backend).float()
+        if cfg.tp is not None:
+            out = cfg.tp.gather_model(out)
     if cfg.final_logit_softcap is not None:
         out = common.softcap(out, cfg.final_logit_softcap)
     return out
@@ -526,11 +614,13 @@ def _forward(
     ``None`` for both."""
     if mesh is not None or seq_parallel is not None:
         raise NotImplementedError(
-            'sequence parallelism (mesh / seq_parallel) is not ported to '
-            'distllm_tpu_torch yet (ROADMAP A10)'
+            'sequence parallelism (mesh / seq_parallel: ring attention) is not '
+            'ported to distllm_tpu_torch yet (ROADMAP A10c); tensor parallelism '
+            'binds the config instead (parallel.comm.bind)'
         )
     b, s = input_ids.shape
     hd = cfg.head_size
+    nh, nkv = local_heads(cfg)
     cos, sin = _rope_tables(cfg, s, input_ids.device)
     positions = torch.arange(s, device=input_ids.device)[None].expand(b, s)
     windows = [_layer_window(cfg, li) for li in range(cfg.num_layers)]
@@ -540,9 +630,9 @@ def _forward(
     ks, vs = [], []
     for li in range(cfg.num_layers):
         normed = _norm(x, lp['attn_ln']['scale'][li], cfg)
-        q = _proj(normed, lp, 'q', li, cfg).reshape(b, s, cfg.num_heads, hd)
-        k = _proj(normed, lp, 'k', li, cfg).reshape(b, s, cfg.num_kv_heads, hd)
-        v = _proj(normed, lp, 'v', li, cfg).reshape(b, s, cfg.num_kv_heads, hd)
+        q = _proj(normed, lp, 'q', li, cfg).reshape(b, s, nh, hd)
+        k = _proj(normed, lp, 'k', li, cfg).reshape(b, s, nkv, hd)
+        v = _proj(normed, lp, 'v', li, cfg).reshape(b, s, nkv, hd)
         q = common.apply_rope(q, cos, sin, positions)
         k = common.apply_rope(k, cos, sin, positions)
         attn = common.sdpa(
@@ -570,7 +660,9 @@ def apply(
 ) -> torch.Tensor:
     """Dense causal forward: ``[B, S]`` -> last hidden states ``[B, S, H]``
     (the embedding path: SFR-Embedding-Mistral with last-token pooling).
-    ``mesh`` / ``seq_parallel`` (sequence parallelism) raise: ROADMAP A10."""
+    ``mesh`` / ``seq_parallel`` (sequence parallelism) raise: ROADMAP A10c.
+    A config bound to a mesh (``parallel.comm.bind``) runs the rank's
+    heads and widths, tensor-parallel."""
     hidden, _, _ = _forward(
         params, cfg, input_ids, attention_mask, collect_kv=False,
         mesh=mesh, seq_parallel=seq_parallel,
@@ -627,11 +719,12 @@ def prefill_paged(
     x = _embed_tokens(params, cfg, input_ids)  # [B, S, H]
     lp = params['layers']
     hd = cfg.head_size
+    nh, nkv = local_heads(cfg)
     for li in range(cfg.num_layers):
         normed = _norm(x, lp['attn_ln']['scale'][li], cfg)
-        q = _proj(normed, lp, 'q', li, cfg).reshape(b, s, cfg.num_heads, hd)
-        k = _proj(normed, lp, 'k', li, cfg).reshape(b, s, cfg.num_kv_heads, hd)
-        v = _proj(normed, lp, 'v', li, cfg).reshape(b, s, cfg.num_kv_heads, hd)
+        q = _proj(normed, lp, 'q', li, cfg).reshape(b, s, nh, hd)
+        k = _proj(normed, lp, 'k', li, cfg).reshape(b, s, nkv, hd)
+        v = _proj(normed, lp, 'v', li, cfg).reshape(b, s, nkv, hd)
         q = common.apply_rope(q, cos, sin, positions)
         k = common.apply_rope(k, cos, sin, positions)
         k_layer, v_layer = _kv_layer(k_cache, li), _kv_layer(v_cache, li)
@@ -641,7 +734,7 @@ def prefill_paged(
             positions, q_lens=tail_lens, sliding_window=_layer_window(cfg, li),
             scale=cfg.query_scale, logit_softcap=cfg.attn_logit_softcap,
         )
-        x = _residual_block(x, attn.reshape(b, s, cfg.num_heads * hd), lp, li, cfg)
+        x = _residual_block(x, attn.reshape(b, s, nh * hd), lp, li, cfg)
     hidden = _norm(x, params['final_ln']['scale'], cfg)
     if all_logits:
         return logits(params, cfg, hidden), k_cache, v_cache
@@ -669,14 +762,15 @@ def _decode_core(
     attend = _attention(attn_backend)
     b = input_ids.shape[0]
     hd = cfg.head_size
+    nh, nkv = local_heads(cfg)
     x = _embed_tokens(params, cfg, input_ids)  # [B, H]
     lp = params['layers']
     pos_span = positions[:, None]
     for li in range(cfg.num_layers):
         normed = _norm(x, lp['attn_ln']['scale'][li], cfg)
-        q = _proj(normed, lp, 'q', li, cfg).reshape(b, 1, cfg.num_heads, hd)
-        k = _proj(normed, lp, 'k', li, cfg).reshape(b, 1, cfg.num_kv_heads, hd)
-        v = _proj(normed, lp, 'v', li, cfg).reshape(b, cfg.num_kv_heads, hd)
+        q = _proj(normed, lp, 'q', li, cfg).reshape(b, 1, nh, hd)
+        k = _proj(normed, lp, 'k', li, cfg).reshape(b, 1, nkv, hd)
+        v = _proj(normed, lp, 'v', li, cfg).reshape(b, nkv, hd)
         q = common.apply_rope(q, cos, sin, pos_span)
         k = common.apply_rope(k, cos, sin, pos_span)[:, 0]
         k_layer, v_layer = _kv_layer(k_cache, li), _kv_layer(v_cache, li)
@@ -686,7 +780,7 @@ def _decode_core(
             pos_span, sliding_window=_layer_window(cfg, li),
             scale=cfg.query_scale, logit_softcap=cfg.attn_logit_softcap,
         )
-        x = _residual_block(x, attn.reshape(b, cfg.num_heads * hd), lp, li, cfg)
+        x = _residual_block(x, attn.reshape(b, nh * hd), lp, li, cfg)
     hidden = _norm(x, params['final_ln']['scale'], cfg)
     return logits(params, cfg, hidden), k_cache, v_cache
 

@@ -42,6 +42,7 @@ from distllm_tpu_torch.ops.quantization import (
     quantize_nf4,
     should_quantize,
 )
+from distllm_tpu_torch.parallel.sharding import P
 from distllm_tpu_torch.utils import torch_dtype
 
 
@@ -101,6 +102,7 @@ def init(
     device: 'str | torch.device' = 'cuda',
     dtype: 'str | torch.dtype | None' = None,
     quantization: 'bool | str | None' = None,
+    leaf_fn=None,
 ) -> dict:
     """Random weights (normal, std 0.02; norm scales 1) drawn on
     ``device`` in ``dtype`` (default ``cfg.dtype``), one layer's leaves at
@@ -112,7 +114,13 @@ def init(
     float transient is one layer's leaf, and the tree equals
     ``quantize_pytree(init(...), mode)`` on the same generator bit for
     bit. ``generator`` must live on ``device``; ``None`` seeds a fresh
-    one with 0."""
+    one with 0.
+
+    ``leaf_fn(path, leaf, stacked=...)`` (tensor and expert parallelism:
+    ``parallel.sharding.leaf_sharder``) takes each layer's leaf as soon as
+    it is drawn and quantized (``stacked=False``: no layer axis) and the
+    unstacked leaves, and what it returns is kept: a rank's slices, each
+    the unsharded tree's bit for bit."""
     device = torch.device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     quantize = _quantizer(normalize_mode(quantization))
@@ -137,18 +145,25 @@ def init(
             ('layers', name, 'kernel'), torch.empty((L, *shape), device='meta'), 4096)
         for name, shape in shapes.items()
     }
-    params = {'embed': normal(cfg.vocab_size, h)}
+    def keep(path, leaf, stacked=True):
+        return leaf if leaf_fn is None else leaf_fn(path, leaf, stacked=stacked)
+
+    params = {'embed': keep(('embed',), normal(cfg.vocab_size, h))}
     layers: dict = {}
     for li in range(L):
         for name, shape in shapes.items():
             w = normal(*shape)
             if quantized[name]:
                 w = quantize(w, out_dtype=dt)
+            w = keep(('layers', name, 'kernel'), w, stacked=False)
             if name not in layers:  # the stacked leaf, preallocated at layer 0
-                layers[name] = {'kernel': w.new_empty((L, *shape)) if not quantized[name]
+                view = getattr(w, 'view', None)
+                layers[name] = {'kernel': w.new_empty((L, *w.shape)) if not quantized[name]
                                 else QTensor(w.q.new_empty((L, *w.q.shape)),
                                              w.scale.new_empty((L, *w.scale.shape)),
-                                             w.kind, (L, *shape), dt, w.block_size)}
+                                             w.kind, (L, *w.shape), dt, w.block_size,
+                                             None if view is None else
+                                             ((L, *view[0]), (None, *view[1])))}
             kernel = layers[name]['kernel']
             if quantized[name]:
                 kernel.q[li], kernel.scale[li] = w.q, w.scale
@@ -160,8 +175,40 @@ def init(
     params['layers'] = layers
     params['final_ln'] = {'scale': norm(h)}
     if not cfg.tie_word_embeddings:
-        params['lm_head'] = normal(h, cfg.vocab_size)
+        params['lm_head'] = keep(('lm_head',), normal(h, cfg.vocab_size))
     return params
+
+
+def param_specs(cfg: MixtralConfig, params: dict | None = None) -> dict:
+    """EP x TP sharding, the JAX ``param_specs``: the expert banks ``[L, E,
+    H, I]`` over ``expert``, their widths over ``model``; attention as
+    Mistral's; the router replicated; an untied ``lm_head`` split on the
+    vocab."""
+    col = {'kernel': P(None, None, 'model')}
+    row = {'kernel': P(None, 'model', None)}
+    specs = {
+        'embed': P(None, None),
+        'layers': {
+            'q': dict(col),
+            'k': dict(col),
+            'v': dict(col),
+            'o': dict(row),
+            'attn_ln': {'scale': P(None)},
+            'router': {'kernel': P(None, None, None)},
+            # [L, E, H, I]: experts over 'expert', MLP width over 'model'.
+            'gate': {'kernel': P(None, 'expert', None, 'model')},
+            'up': {'kernel': P(None, 'expert', None, 'model')},
+            'down': {'kernel': P(None, 'expert', 'model', None)},
+            'mlp_ln': {'scale': P(None)},
+        },
+        'final_ln': {'scale': P()},
+    }
+    has_lm_head = (
+        'lm_head' in params if params is not None else not cfg.tie_word_embeddings
+    )
+    if has_lm_head:
+        specs['lm_head'] = P(None, 'model')
+    return specs
 
 
 def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -179,6 +226,7 @@ def moe_mlp(
     up: 'torch.Tensor | QTensor',  # [E, H, I]
     down: 'torch.Tensor | QTensor',  # [E, I, H]
     experts_per_token: int,
+    tp=None,
 ) -> torch.Tensor:
     """Top-k routed SwiGLU expert bank, the JAX ``moe_mlp``: router
     logits and a softmax over ALL experts in fp32, the top
@@ -187,7 +235,14 @@ def moe_mlp(
     in fp32 and cast to the model dtype; every expert's SwiGLU computed
     as dense products and combined. A quantized bank is dequantized here,
     at the point of use. Any leading shape (decode's ``[B, H]``, prefill's
-    ``[B, S, H]``)."""
+    ``[B, S, H]``).
+
+    Under expert and tensor parallelism (``tp``, a
+    ``parallel.comm.TensorParallel``) the banks hold the rank's experts
+    and its slice of their width; the router is replicated, so every rank
+    computes the whole combine, takes its experts' columns, and the
+    ranks' partial outputs are summed over the ``expert`` x ``model``
+    group."""
     dtype = x.dtype
 
     def deq(w):
@@ -202,9 +257,14 @@ def moe_mlp(
     # is each kept weight at its expert and 0 elsewhere, which a scatter
     # writes exactly (and without the host check one_hot may make).
     combine = torch.zeros_like(probs).scatter_(-1, top_idx, top_w)  # [N, E]
+    if tp is not None:  # this rank's experts
+        n_local = gate.shape[0]
+        combine = combine[:, tp.expert_rank * n_local:(tp.expert_rank + 1) * n_local]
     hidden = F.silu(torch.matmul(flat, deq(gate))) * torch.matmul(flat, deq(up))
     expert_out = torch.matmul(hidden, deq(down))  # [E, N, H]
     out = torch.einsum('enh,ne->nh', expert_out, combine.to(dtype))
+    if tp is not None:
+        out = tp.reduce_moe(out)
     return out.reshape(*lead, h)
 
 
@@ -235,6 +295,7 @@ def params_from_hf(
     cfg: MixtralConfig,
     device: 'str | torch.device' = 'cuda',
     dtype: 'str | torch.dtype | None' = None,
+    leaf_fn=None,
 ) -> dict:
     """Convert HF ``MixtralForCausalLM`` / ``MixtralModel`` weights with
     the JAX mapping: Linear ``[out, in]`` weights transposed to ``[in,
@@ -242,7 +303,8 @@ def params_from_hf(
     ``block_sparse_moe.experts.{e}.w1`` / ``w3`` / ``w2`` stacked on E as
     ``gate`` / ``up`` / ``down``, layers stacked; ``lm_head`` kept when
     the embeddings are untied and the checkpoint has one. The tensors
-    land on ``device`` in ``dtype`` (default ``cfg.dtype``)."""
+    land on ``device`` in ``dtype`` (default ``cfg.dtype``), each leaf
+    through ``leaf_fn`` when given (``mistral._to_torch``)."""
     sd = mistral.hf_state_dict(state)
 
     def lin(key):
@@ -278,7 +340,7 @@ def params_from_hf(
     }
     if 'lm_head.weight' in sd and not cfg.tie_word_embeddings:
         tree['lm_head'] = np.ascontiguousarray(sd['lm_head.weight'].T)
-    return mistral._to_torch(tree, device, dtype or cfg.dtype)
+    return mistral._to_torch(tree, device, dtype or cfg.dtype, leaf_fn)
 
 
 # The engine, the generators and the embed pipeline drive the family

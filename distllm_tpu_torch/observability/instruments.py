@@ -479,6 +479,7 @@ COMPILE_PHASES = frozenset({
     # The port's own phases:
     'kernel_build',       # one nvcc build of a CUDA kernel (ops/_build.py)
     'weight_load',        # a checkpoint's tensors read into the param tree
+    'tensor_parallel',    # a generator's ranks started, meshed and sharded
 })
 for _outcome in ('met', 'missed'):
     REQUEST_SLO.labels(outcome=_outcome)

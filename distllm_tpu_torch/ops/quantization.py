@@ -74,9 +74,15 @@ class QTensor:
     :meth:`dequantize` returns. ``qt[li]`` slices ``q`` and ``scale`` on
     the leading layer axis together (the port's layer loops index where
     the JAX code's ``lax.scan`` slices a stacked leaf).
+
+    ``view`` (nf4 under tensor parallelism, ``parallel.sharding``): the
+    codes are the whole weight's, replicated, and ``view = (full_shape,
+    slices)`` names this rank's ``(start, stop)`` on each sliced axis;
+    ``shape`` is then the slice's and :meth:`dequantize` narrows the
+    dequantized weight to it.
     """
 
-    __slots__ = ('q', 'scale', 'kind', 'shape', 'out_dtype', 'block_size')
+    __slots__ = ('q', 'scale', 'kind', 'shape', 'out_dtype', 'block_size', 'view')
 
     def __init__(
         self,
@@ -86,6 +92,7 @@ class QTensor:
         shape: tuple[int, ...],
         out_dtype: 'str | torch.dtype',
         block_size: int = 0,
+        view: tuple | None = None,
     ) -> None:
         if kind not in MODES:
             raise ValueError(f'unknown quantization kind {kind!r}')
@@ -95,13 +102,29 @@ class QTensor:
         self.shape = tuple(int(d) for d in shape)
         self.out_dtype = torch_dtype(out_dtype)
         self.block_size = int(block_size)
+        self.view = view
+
+    def with_view(self, slices) -> 'QTensor':
+        """The same codes, seen through this rank's ``slices`` (one
+        ``(start, stop)`` or ``None`` per logical axis)."""
+        if self.view is not None:
+            raise ValueError('this QTensor is already a slice')
+        local = tuple(d if s is None else s[1] - s[0] for d, s in zip(self.shape, slices))
+        return QTensor(self.q, self.scale, self.kind, local, self.out_dtype,
+                       self.block_size, (self.shape, tuple(slices)))
 
     def __getitem__(self, index: int) -> 'QTensor':
         if len(self.shape) < 3:
             raise IndexError('only a stacked QTensor has a layer axis to index')
+        view = None
+        if self.view is not None:
+            full, slices = self.view
+            if slices[0] is not None:
+                raise IndexError('the layer axis of this QTensor is sliced')
+            view = (full[1:], slices[1:])
         return QTensor(
             self.q[index], self.scale[index], self.kind, self.shape[1:],
-            self.out_dtype, self.block_size,
+            self.out_dtype, self.block_size, view,
         )
 
     @property
@@ -132,9 +155,14 @@ class QTensor:
         codebook = _nf4_codebook(self.q.device, dt)
         values = codebook[codes.long()] * self.scale.to(dt)[..., None]
         lead = self.q.shape[:-2]
-        tail = self.shape[-2:]
+        full, slices = self.view if self.view is not None else (self.shape, ())
+        tail = full[-2:]
         flat = values.reshape(*lead, -1)[..., : tail[0] * tail[1]]
-        return flat.reshape(*lead, *tail)
+        out = flat.reshape(*lead, *tail)
+        for axis, s in enumerate(slices):
+            if s is not None:
+                out = out.narrow(axis, s[0], s[1] - s[0])
+        return out
 
     def __repr__(self) -> str:
         return (f'QTensor({self.kind}, shape={self.shape}, '

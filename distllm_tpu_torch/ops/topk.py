@@ -34,7 +34,7 @@ The JAX module is XLA (no ``pallas_call``): matrix products and
 ``quantize_int8_rows``, ``pack_sign_bits`` and ``group_rows`` are the JAX
 module's host numpy functions, copied, so codes and layouts are bitwise
 equal. A ``mesh`` whose ``data`` axis is larger than 1 (the JAX package's
-multi-chip path) raises, naming ROADMAP A10; ``None`` or a data axis of 1
+multi-chip path) raises, naming ROADMAP A10d; ``None`` or a data axis of 1
 is the single-device path.
 """
 
@@ -67,7 +67,7 @@ def check_mesh(mesh) -> None:
     if data != 1:
         raise NotImplementedError(
             f'a data-sharded corpus (mesh data axis {data}) is not ported to '
-            'distllm_tpu_torch yet (ROADMAP A10); pass mesh=None'
+            'distllm_tpu_torch yet (ROADMAP A10d); pass mesh=None'
         )
 
 

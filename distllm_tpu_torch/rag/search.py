@@ -96,7 +96,7 @@ class TpuIndexV2Config(BaseConfig):
     rescore_multiplier: int = 4
     metric: str = 'inner_product'
     normalize: bool = True  # L2-normalise the corpus rows (cosine / IP)
-    # Mesh axis sizes ({'data': n}); a data axis over 1 waits on ROADMAP A10.
+    # Mesh axis sizes ({'data': n}); a data axis over 1 waits on ROADMAP A10d.
     mesh: dict | None = None
 
     def validate(self) -> None:

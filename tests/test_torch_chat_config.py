@@ -178,7 +178,8 @@ def test_fake_and_http_backends_wait_on_a11(tmp_path, name):
 def test_jax_generator_fields_the_port_lacks_wait_on_a6(tmp_path, monkeypatch):
     """Serving from a checkpoint path (ROADMAP A6b, ported) builds the
     generator the JAX app builds: the same kwargs reach the backend and the
-    same text comes out; tensor parallelism still waits (on A10). The
+    same text comes out; ``tensor_parallel_size`` reads as the JAX field
+    (ported: ROADMAP A10b, served in test_torch_engine_tp.py). The
     resilience fields read as the JAX app reads them, and an engine backend
     gets the JAX app's serving defaults (a 120 s deadline, 2 dispatch
     retries)."""
@@ -201,8 +202,7 @@ def test_jax_generator_fields_the_port_lacks_wait_on_a6(tmp_path, monkeypatch):
     assert port.generate(prompts) == ref.generate(prompts)
     raw['generator_config']['tensor_parallel_size'] = 2
     path.write_text(yaml.safe_dump(raw))
-    with pytest.raises(NotImplementedError, match='A10'):
-        load_app_config(str(path))
+    assert load_app_config(str(path))[0].tensor_parallel_size == 2
     path, raw = _engine_yaml(tmp_path, name='tpu', request_deadline_s=30.0)
     config, _ = load_app_config(str(path))
     jax_kwargs = _jax_backend_kwargs(raw, monkeypatch)

@@ -9,8 +9,9 @@ The JAX ``TpuGenerator`` and the port's ``TorchGenerator`` (the ``tpu``
 backend of ``get_generator``) serve it greedily in fp32, and with
 ``quantization: int8``: the same text, and the same stop ids — the first
 EOS the tokenizer's when it has one and otherwise generation_config's,
-the rest extra stop ids. ``tensor_parallel_size`` above 1 raises naming
-ROADMAP A10, and the load is a ``weight_load`` start-up phase.
+the rest extra stop ids. ``tensor_parallel_size`` and its placement
+fields read and are checked as config fields, and the load is a
+``weight_load`` start-up phase.
 """
 
 import json
@@ -134,7 +135,16 @@ def test_generation_config_eos_as_jax(tmp_path):
 
 
 def test_tensor_parallelism_waits_on_a10(tmp_path):
-    with pytest.raises(NotImplementedError, match='A10'):
-        TorchGeneratorConfig(pretrained_model_name_or_path=str(tmp_path), tensor_parallel_size=2)
+    # Ported (ROADMAP A10b): the config takes tensor_parallel_size and its
+    # backend, and refuses what cannot place the ranks.
+    config = TorchGeneratorConfig(
+        pretrained_model_name_or_path=str(tmp_path), tensor_parallel_size=2,
+    )
+    assert config.tensor_parallel_size == 2 and config.tensor_parallel_backend is None
     with pytest.raises(ValueError, match='tensor_parallel_size'):
         TorchGeneratorConfig(tensor_parallel_size=0)
+    with pytest.raises(ValueError, match='tensor_parallel_backend'):
+        TorchGeneratorConfig(tensor_parallel_size=2, tensor_parallel_backend='mpi')
+    # The ranks' devices follow the generator's: no field places them.
+    with pytest.raises(TypeError, match='tensor_parallel_devices'):
+        TorchGeneratorConfig(tensor_parallel_size=2, tensor_parallel_devices=['cpu'])

@@ -10,7 +10,7 @@
 - The generator factory: ``fake`` as JAX's, ``tpu`` / ``vllm`` / ``torch``
   build the engine, the network and ``transformers`` backends build and
   refuse as JAX's do, a checkpoint path read as JAX reads it and
-  tensor parallelism naming A10, the
+  at tensor_parallel_size 2 too, the
   fake backend's `overload_every` shed signal as JAX's, an
   unknown name as JAX's; ``register=True`` reuses the warm instance.
 - ``run_generation`` in both packages on
@@ -196,13 +196,14 @@ def test_generator_factory_names():
     with pytest.raises(ValueError, match='Unknown generator name'):
         distllm_tpu.generate.get_generator({'name': 'nope'})
     # A checkpoint path is read as the JAX generator reads it (a missing
-    # directory fails alike); tensor parallelism waits on ROADMAP A10.
+    # directory fails alike, at tensor_parallel_size 2 too, before any rank
+    # starts).
     ckpt = {'name': 'tpu', 'pretrained_model_name_or_path': '/nonexistent-checkpoint'}
     with pytest.raises(FileNotFoundError):
         get_generator({**ckpt, 'device': 'cpu'})
     with pytest.raises(FileNotFoundError):
         distllm_tpu.generate.get_generator(ckpt)
-    with pytest.raises(NotImplementedError, match='ROADMAP A10'):
+    with pytest.raises(FileNotFoundError):
         get_generator({**ckpt, 'tensor_parallel_size': 2, 'device': 'cpu'})
     # overload_every: every second call raises the engine's shed signal, as
     # the JAX FakeGenerator does.

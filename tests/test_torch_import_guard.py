@@ -76,6 +76,12 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.embed.embedders.semantic_chunk',
         'distllm_tpu_torch.embed.writers.huggingface',
         'distllm_tpu_torch.parallel.launcher',
+        'distllm_tpu_torch.parallel',
+        'distllm_tpu_torch.parallel.mesh',
+        'distllm_tpu_torch.parallel.multihost',
+        'distllm_tpu_torch.parallel.sharding',
+        'distllm_tpu_torch.parallel.comm',
+        'distllm_tpu_torch.generate.engine.sharded',
         'distllm_tpu_torch.generate.prompts',
         'distllm_tpu_torch.generate.prompts.amp_question',
         'distllm_tpu_torch.generate.prompts.keyword_selection',

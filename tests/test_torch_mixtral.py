@@ -25,7 +25,8 @@ its counterpart in ``distllm_tpu_torch``:
 - A chat YAML naming ``mixtral`` and the example generate YAML
   (``examples/generate/mixtral8x7b.tpu.tp8.yaml``) at
   ``tensor_parallel_size: 1`` over a tiny seeded checkpoint build the
-  JAX config's Mixtral (the example at 8 raises naming A10b); the ``auto``
+  JAX config's Mixtral (the example at 8 is refused by both packages);
+  the ``auto``
   encoder on the checkpoint against the JAX auto encoder.
 """
 
@@ -588,11 +589,19 @@ def test_the_example_generate_yaml_serves_the_checkpoint_as_jax(checkpoint):
 
 
 def test_the_example_at_eight_chips_raises_naming_a10b(checkpoint):
+    # Tensor parallelism is ported (ROADMAP A10b): at 8 ranks the tiny
+    # checkpoint does not split, which both packages refuse with a
+    # ValueError (the port on its 2 KV heads, before it starts any rank;
+    # JAX on the vocab of 303, which it shards first).
+    from distllm_tpu.generate.generators.tpu_backend import TpuGenerator, TpuGeneratorConfig
     from distllm_tpu_torch.generate import get_generator
 
     kw = _example_generator_config(checkpoint[0], tensor_parallel_size=8)
-    with pytest.raises(NotImplementedError, match='A10b'):
+    with pytest.raises(ValueError, match='num_kv_heads'):
         get_generator(kw, device='cpu')
+    with pytest.raises(ValueError, match='divisible by 8'):
+        TpuGenerator(TpuGeneratorConfig(**{k: v for k, v in kw.items() if k != 'name'},
+                                        attn_backend='xla'))
 
 
 def test_decoder_family_serves_mixtral():
