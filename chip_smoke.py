@@ -460,9 +460,46 @@ carried on):
     all-reduce enqueues no device work, so what one card shows is that
     the capture takes the NCCL calls and the replays serve bitwise);
 20d. one chat completion over HTTP through ``ChatServer`` on phase 20's
-    tp2 generator (K1 on both ranks).
+    tp2 generator (K1 on both ranks);
+21. the fabric under a ``pbspro`` script (ROADMAP A11b) — the script is
+    rendered with ``submit=False`` and two workers start from its
+    ``python -m distllm_tpu_torch.parallel.worker`` line (plus a one-second
+    heartbeat), each on the card; ``distributed_embedding`` runs BERT-base
+    bf16 (a checkpoint written here, its vocabulary phase 10's words) over
+    phase 10's corpus in 8 files on that executor: the shards equal a
+    ``local`` run's, file for file and in order, within the embed identity
+    tolerance; each task returns its worker's K3 launches (all tensor
+    cores); files/s and each worker's tasks are printed. The kill arm:
+    two more workers under a 5 s ``heartbeat_threshold``, one SIGKILLed
+    while it holds its first task; the run finishes with every file
+    written once, the requeue counted, and the seconds from the kill to
+    the requeued task's start printed;
+21a. ``slurm`` — the rendered script checked line by line; one worker
+    from its ``--jax-distributed`` line with ``DISTLLM_JAX_*`` joins a
+    world of one over NCCL and answers a task that reads its rank and
+    all-reduces on the card; every worker gets the poison pill and exits 0;
+21b. the router (``python -m distllm_tpu_torch.router``) over two
+    ``python -m distllm_tpu_torch.chat_server`` processes, Mistral-7B bf16
+    at full width and depth, pools of 48 blocks of 16 and 3 slots, under
+    the JAX ``gen_router`` stage's small tier (32 requests at 2 rps, 6
+    sessions, warm share 0.75, a 144-token shared prefix): round-robin and
+    prefix_affinity each over a fresh pair; warm TTFT p50 / p95, the
+    router's decisions by label, each replica's prefix-hit share and K1
+    launches (its shutdown report), and the affinity arm's warm TTFT
+    speedup;
+21c. failover identity — three fp32 replicas (7B widths, depth 2, the
+    prefix cache off) round-robin, 18 requests at 4 rps with no kill, then
+    the same arrivals with one replica SIGKILLed at a third of the
+    schedule: at least one answer carries the retry marker, none is a
+    5xx, every answer's token ids equal the no-kill run's;
+21d. peer handoff, in this process — engine A (host tier, a
+    ``KVBlockServer``) serves a prompt and spills it; engine B, cold, with
+    A as its peer, adopts A's blocks (peer fetches >= 1, K1 over them);
+    control C has no peer: fp32 and int8 weights (K2) at depth 2, B's
+    tokens equal C's; bf16 at full depth with a 1024-token prompt, B's and
+    C's first-token ms, fetch ms per MiB and A's served bytes.
 
-Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d, 17-17d, 18-18d, 19-19d and 20-20d prints its seconds. The last three lines of
+Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d, 17-17d, 18-18d, 19-19d, 20-20d and 21-21d prints its seconds. The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
@@ -474,7 +511,8 @@ phases' under ``load``, phase 17's under ``pipeline`` and 17c's under
 verify rows under ``verify`` and 17c's int8 launches under
 ``checkpoint``, phases 18-18d's K1 and K3 launches under ``mcqa`` and
 ``cli``, phases 19-19d's K1 and K2 launches under ``mixtral``, phases
-20-20c's under ``tensor_parallel``), the card's
+20-20c's under ``tensor_parallel``, phases 21-21d's under
+``control_plane``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -5473,7 +5511,7 @@ def phase_debug_surface(torch, tpa, card, generator, tmp: Path):
 
 # ------------------------------------------------------------ phases 18-18d
 # The MCQA harness, the booted server and the CLI (ROADMAP A11a).
-MCQA_CHUNKS, MCQA_FILES, MCQA_QUESTIONS, MCQA_TOP_K = 4096, 4, 64, 3
+MCQA_CHUNKS, MCQA_FILES, MCQA_QUESTIONS, MCQA_TOP_K = 4096, 4, 32, 3
 # The run's knobs: 8 workers, client batches of 16; the server answers
 # with its generator's max_tokens (RAG_NEW), as the JAX server does.
 MCQA_RUN = dict(parallel_workers=8, batch_size=16, batch_timeout=0.5, request_max_tokens=32,
@@ -5493,10 +5531,10 @@ MCQA_RESULT_KEYS = {'entry', 'answer', 'retrieval', 'correct', 'grader_reason',
                     'grader_ladder_level'}
 
 
-def write_bert_checkpoint(torch, root: Path, cfg, seed):
+def write_bert_checkpoint(torch, root: Path, cfg, seed, word='w'):
     """An HF BERT checkpoint directory of random weights made on the card
     (seed ``seed``): ``model.safetensors`` in ``BertModel`` key names,
-    ``config.json`` and a ``BertTokenizerFast`` over ``w<i>`` words."""
+    ``config.json`` and a ``BertTokenizerFast`` over ``<word><i>`` words."""
     from safetensors.torch import save_file
     from transformers import BertTokenizerFast
 
@@ -5504,7 +5542,7 @@ def write_bert_checkpoint(torch, root: Path, cfg, seed):
 
     root.mkdir(parents=True, exist_ok=True)
     vocab = ['[PAD]', '[UNK]', '[CLS]', '[SEP]', '[MASK]'] + [
-        f'w{i}' for i in range(cfg.vocab_size - 5)]
+        f'{word}{i}' for i in range(cfg.vocab_size - 5)]
     (root / 'vocab.txt').write_text('\n'.join(vocab) + '\n')
     BertTokenizerFast(vocab_file=str(root / 'vocab.txt')).save_pretrained(root)
     params = bert.init(cfg, torch.Generator(device=DEVICE).manual_seed(seed), device=DEVICE,
@@ -6889,6 +6927,746 @@ def profile_nccl(torch, engine, arm):
     return sum(1 for n in names if 'nccl' in n.lower())
 
 
+# ---------------------------------------------------------- phases 21-21d
+# Phase 21: the files of phase 10's corpus, split for the fabric.
+FABRIC_FILES, FABRIC_BATCH = 8, 128
+# The workers' own flags after the rendered line: heartbeats every second
+# against the kill arm's threshold of a few seconds.
+FABRIC_WORKER_FLAGS = ('--heartbeat-interval', '1', '--idle-timeout', '600')
+FABRIC_THRESHOLD_S = 5.0
+FABRIC_STALL_S = 120.0  # the kill arm's victim stalls its first task this long
+FABRIC_WAIT_S = 300.0  # the longest a worker, replica or router may take to start
+# 21a: the world's backend (a world of one on the card).
+FABRIC_WORLD_BACKEND = 'nccl'
+# 21b: the JAX gen_router stage's small tier (bench.py:1662-1680) and pool
+# (48 blocks of 16: 6 sessions x 9 prefix blocks exceed one pool), served
+# by two chat-server processes of Mistral-7B bf16 at full width and depth.
+ROUTER_LOAD = dict(seed=0, num_requests=32, rate_rps=2.0, num_sessions=6, warm_fraction=0.75,
+                   prefix_tokens=144, prompt_tokens=(8, 16), output_tokens=(4, 10),
+                   vocab_size=2048)
+ROUTER_GENERATOR = dict(name='torch', model={'name': 'mistral'}, temperature=0.0, max_tokens=8,
+                        block_size=BLOCK_SIZE, num_blocks=48, max_num_seqs=3, max_model_len=256,
+                        decode_steps=4, seed=0, enable_prefix_cache=True)
+# 21c: three fp32 replicas at 7B width and depth 2, the prefix cache off (a
+# hit changes fp32 arithmetic), one killed at a third of the schedule.
+FAILOVER_MODEL = {'name': 'mistral', 'num_layers': 2, 'dtype': 'float32'}
+FAILOVER_LOAD = dict(ROUTER_LOAD, seed=3, num_requests=18, rate_rps=4.0)
+# 21d: the JAX stage's peer arm (a 150-token prompt, junk to evict it, 8
+# greedy tokens), then at full depth in bf16 a 1024-token prompt.
+PEER_POOL = dict(block_size=BLOCK_SIZE, num_blocks=48, max_num_seqs=3, max_model_len=256,
+                 decode_steps=4, enable_prefix_cache=True, host_kv_tier_bytes=1 << 30)
+PEER_BF16_POOL = dict(PEER_POOL, num_blocks=80, max_model_len=1100)
+PEER_PROMPT, PEER_BF16_PROMPT, PEER_NEW = 150, 1024, 8
+# Which kernel counter of a replica's shutdown report is K1's launches.
+REPLICA_K1 = 'ragged_paged_attention.launches'
+
+
+def counted_embedding_worker(file, **kwargs):
+    """``distributed_embedding.embedding_worker`` as phase 21's fabric task
+    (the worker resolves it by import path): the shard, and this process's
+    pid and K3 launches for the file. A worker started with
+    ``CHIP_SMOKE_STARTS`` leaves a start marker per task there; one
+    started with ``CHIP_SMOKE_STALL_S`` stalls its first task that long
+    before working (the kill arm's victim)."""
+    import os
+
+    from distllm_tpu_torch.distributed_embedding import embedding_worker
+    from distllm_tpu_torch.ops import encoder_attention as tea
+
+    starts = os.environ.get('CHIP_SMOKE_STARTS')
+    if starts:
+        first = not any(p.name.startswith(f'{os.getpid()}-') for p in Path(starts).iterdir())
+        Path(starts, f'{os.getpid()}-{Path(file).name}').write_text(repr(time.time()))
+        if first:
+            time.sleep(float(os.environ.get('CHIP_SMOKE_STALL_S') or 0))
+    before = (tea.encoder_attention.launches, tea.encoder_attention.launches_by_route['tensor_cores'],
+              tea.encoder_attention_reference.launches)
+    t0 = time.perf_counter()
+    shard = embedding_worker(file, **kwargs)
+    return dict(file=file, shard=shard, pid=os.getpid(), seconds=time.perf_counter() - t0,
+                k3=tea.encoder_attention.launches - before[0],
+                k3_tensor_cores=tea.encoder_attention.launches_by_route['tensor_cores'] - before[1],
+                plain=tea.encoder_attention_reference.launches - before[2])
+
+
+def world_task(values):
+    """Phase 21a's task in a ``--jax-distributed`` worker: its rank, world
+    size and backend, and one all-reduce of ``values`` on the card."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    device = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    tensor = torch.tensor(values, dtype=torch.float32, device=device)
+    dist.all_reduce(tensor)
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    return dict(rank=dist.get_rank(), size=dist.get_world_size(), backend=dist.get_backend(),
+                values=tensor.cpu().tolist(), device=str(tensor.device), pid=os.getpid(),
+                card=torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu')
+
+
+def this_module():
+    """This script as the importable module ``chip_smoke``: a fabric task
+    must be pickled under a name its worker can import."""
+    import importlib
+
+    return importlib.import_module('chip_smoke')
+
+
+def start_process(argv, log_path: Path, **env):
+    """``argv`` (``python`` replaced by this interpreter) from the root of
+    the checkout, stdout and stderr into ``log_path``."""
+    import os
+
+    argv = [sys.executable if a == 'python' else a for a in argv]
+    root = str(Path(__file__).resolve().parent)
+    path = os.pathsep.join(p for p in (root, os.environ.get('PYTHONPATH')) if p)
+    full_env = dict(os.environ, PYTHONPATH=path, DISTLLM_HISTORY_S='0', **env)
+    with open(log_path, 'w') as fh:
+        return subprocess.Popen(argv, cwd=Path(__file__).resolve().parent, env=full_env,
+                                stdout=fh, stderr=subprocess.STDOUT)
+
+
+def stop_processes(procs, timeout=60.0, sig=None):
+    """Signal each process (``sig``; None just waits), wait for it (kill
+    it past ``timeout``); their exit codes."""
+    import signal as _signal
+
+    for proc in procs:
+        if sig is not None and proc.poll() is None:
+            proc.send_signal(sig)
+    codes = []
+    deadline = time.monotonic() + timeout
+    for proc in procs:
+        try:
+            codes.append(proc.wait(timeout=max(0.1, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            proc.send_signal(_signal.SIGKILL)
+            codes.append(proc.wait(timeout=30))
+    return codes
+
+
+def log_tail(path: Path, n=30) -> str:
+    return '\n'.join(Path(path).read_text(errors='replace').splitlines()[-n:])
+
+
+def rendered_worker_argv(script: str) -> list[str]:
+    """The ``python -m distllm_tpu_torch.parallel.worker ...`` command of a
+    rendered job script's launch line (after mpiexec / srun and their
+    flags)."""
+    line = [ln for ln in script.splitlines() if 'distllm_tpu_torch.parallel.worker' in ln][-1]
+    return line[line.index('python -m'):].split()
+
+
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    saved = {name: getattr(obj, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(obj, name, value)
+
+
+def timer_stages(log_path: Path) -> dict:
+    """Seconds by stage of a worker log's ``[timer]`` lines (its files
+    summed): where a worker's time went."""
+    out = {}
+    for line in Path(log_path).read_text(errors='replace').splitlines():
+        if line.startswith('[timer] tags='):
+            fields = dict(f.split('=', 1) for f in line.split()[1:3])
+            stage = fields['tags'].split(',')[0]
+            out[stage] = round(out.get(stage, 0.0) + float(fields['elapsed_s']), 3)
+    return out
+
+
+def read_shard(path):
+    from datasets import load_from_disk
+
+    ds = load_from_disk(str(path))
+    return list(ds['text']), np.asarray(ds['embeddings'], dtype=np.float32)
+
+
+def phase_fabric(torch, tea, card, tmp: Path):
+    """Phases 21 and 21a (see the module docstring)."""
+    import signal as _signal
+
+    from distllm_tpu_torch import distributed_embedding
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.parallel import launcher
+    from distllm_tpu_torch.parallel.multihost import free_port
+
+    this = this_module()
+    cfg = RETRIEVER_BERT() if RETRIEVER_BERT else bert.BertConfig()
+    t0 = time.perf_counter()
+    ckpt = write_bert_checkpoint(torch, tmp / 'bert', cfg, seed=0, word='tok')
+    corpus = tmp / 'corpus.jsonl'
+    write_corpus(corpus)
+    lines = corpus.read_text().splitlines()
+    inputs = tmp / 'files'
+    inputs.mkdir()
+    per = -(-len(lines) // FABRIC_FILES)
+    for f in range(FABRIC_FILES):
+        (inputs / f'part{f}.jsonl').write_text('\n'.join(lines[f * per:(f + 1) * per]) + '\n')
+    setup_s = time.perf_counter() - t0
+
+    # The scripts: pbspro (21, 21's kill arm) and slurm (21a), dry runs.
+    ports = {arm: free_port() for arm in ('pod', 'kill', 'slurm', 'world')}
+    endpoint = {arm: f'tcp://127.0.0.1:{ports[arm]}' for arm in ('pod', 'kill', 'slurm')}
+    pbs = {arm: dict(name='pbspro', account='chip', queue='smoke', num_nodes=2, submit=False,
+                     coordinator_port=ports[arm], advertise_host='127.0.0.1',
+                     select=':ngpus=1',
+                     heartbeat_threshold=FABRIC_THRESHOLD_S if arm == 'kill' else 120.0)
+           for arm in ('pod', 'kill')}
+    slurm = dict(name='slurm', account='chip', queue='smoke', partition='gpu', num_nodes=1,
+                 submit=False, coordinator_port=ports['slurm'], advertise_host='127.0.0.1',
+                 jax_distributed=True, jax_coordinator_port=ports['world'])
+    scripts = {arm: launcher.get_compute_config(pbs[arm]).render_script(
+        endpoint[arm], tmp / f'run_{arm}') for arm in ('pod', 'kill')}
+    scripts['slurm'] = launcher.get_compute_config(slurm).render_script(
+        endpoint['slurm'], tmp / 'run_slurm')
+    for arm in ('pod', 'kill'):
+        if (f'mpiexec -n 2 --ppn 1 --envall python -m distllm_tpu_torch.parallel.worker '
+                f'--coordinator {endpoint[arm]}') not in scripts[arm] \
+                or '#PBS -l select=2:ngpus=1' not in scripts[arm]:
+            fail(f'fabric: the pbspro script is not the expected one:\n{scripts[arm]}')
+    expected_slurm = [
+        '#SBATCH --partition=gpu', '#SBATCH --nodes=1', '#SBATCH --ntasks-per-node=1',
+        f'| head -n1):{ports["world"]}"', 'export DISTLLM_JAX_NUM_PROCESSES=1',
+        f'srun --ntasks=1 --ntasks-per-node=1 python -m distllm_tpu_torch.parallel.worker '
+        f'--coordinator {endpoint["slurm"]} --jax-distributed',
+    ]
+    missing = [s for s in expected_slurm if s not in scripts['slurm']]
+    if missing:
+        fail(f'fabric: the slurm script lacks {missing}:\n{scripts["slurm"]}')
+
+    # Every worker starts now, from its script's rendered line: two for the
+    # pod run, two for the kill arm (the victim stalls its first task), one
+    # --jax-distributed for 21a. They dial until their coordinator binds.
+    starts = {arm: tmp / f'starts_{arm}' for arm in ('pod', 'kill')}
+    for d in starts.values():
+        d.mkdir()
+    procs = {}
+    for arm in ('pod', 'kill'):
+        argv = rendered_worker_argv(scripts[arm]) + list(FABRIC_WORKER_FLAGS)
+        procs[arm] = [start_process(argv, tmp / f'worker_{arm}{i}.log',
+                                    CHIP_SMOKE_STARTS=str(starts[arm]),
+                                    **({'CHIP_SMOKE_STALL_S': str(FABRIC_STALL_S)}
+                                       if arm == 'kill' and i == 0 else {}))
+                      for i in range(2)]
+    world_argv = rendered_worker_argv(scripts['slurm']) + [
+        '--distributed-backend', FABRIC_WORLD_BACKEND, *FABRIC_WORKER_FLAGS]
+    procs['slurm'] = [start_process(
+        world_argv, tmp / 'worker_slurm.log', DISTLLM_JAX_COORDINATOR=f'127.0.0.1:{ports["world"]}',
+        DISTLLM_JAX_NUM_PROCESSES='1', DISTLLM_JAX_PROCESS_ID='0')]
+    try:
+        encoder_config = {'name': 'auto', 'pretrained_model_name_or_path': str(ckpt),
+                          'half_precision': True}
+        files = sorted(str(p) for p in inputs.glob('*.jsonl'))
+
+        def config(out, compute):
+            return distributed_embedding.Config(
+                input_dir=inputs, output_dir=out, glob_patterns=['*.jsonl'],
+                dataset_config={'name': 'jsonl', 'batch_size': FABRIC_BATCH},
+                encoder_config=encoder_config, pooler_config={'name': 'mean'},
+                embedder_config={'name': 'full_sequence'}, writer_config={'name': 'huggingface'},
+                compute_config=compute,
+            )
+
+        captured = {}
+
+        def capturing(executor, fn, items):
+            captured['executor'] = executor
+            captured['results'] = launcher.map_with_teardown(executor, fn, items)
+            return captured['results']
+
+        # The local run, in this process: the reference shards.
+        zero_k3_counts(tea)
+        t0 = time.perf_counter()
+        with patched(distributed_embedding, map_with_teardown=capturing):
+            if distributed_embedding.run_embedding(config(tmp / 'out_local', {'name': 'local'}),
+                                                   device=DEVICE) != 0:
+                fail('fabric: the local run failed')
+        torch.cuda.synchronize()
+        local_s = time.perf_counter() - t0
+        local_k3 = check_k3_kernel(tea, 'fabric local')
+        local = [read_shard(s) for s in captured['results']]
+
+        def pod_run(arm, victim=None):
+            captured.clear()
+            box = {}
+
+            def run():
+                try:
+                    box['rc'] = distributed_embedding.run_embedding(
+                        config(tmp / f'out_{arm}', pbs[arm]), device=DEVICE)
+                except BaseException as exc:  # noqa: BLE001 - reported below
+                    box['error'] = exc
+
+            t0 = time.perf_counter()
+            with patched(distributed_embedding, map_with_teardown=capturing,
+                         embedding_worker=this.counted_embedding_worker):
+                thread = threading.Thread(target=run, daemon=True)
+                thread.start()
+                killed_at = None
+                if victim is not None:
+                    deadline = time.monotonic() + FABRIC_WAIT_S
+                    while killed_at is None:
+                        marks = [p for p in starts[arm].iterdir()
+                                 if p.name.startswith(f'{victim.pid}-')]
+                        if marks:
+                            victim.send_signal(_signal.SIGKILL)
+                            killed_at = time.time()
+                            victim_file = marks[0].name.split('-', 1)[1]
+                        elif time.monotonic() > deadline or victim.poll() is not None:
+                            fail(f'fabric {arm}: the victim never started a task\n'
+                                 f'{log_tail(tmp / f"worker_{arm}0.log")}')
+                        else:
+                            time.sleep(0.05)
+                    # The coordinator's requeue: the victim's silence past the
+                    # threshold, seen by its poll loop.
+                    while thread.is_alive() and not (
+                            'executor' in captured and captured['executor'].coordinator.requeued):
+                        time.sleep(0.02)
+                    requeued_at = time.time()
+                thread.join(FABRIC_WAIT_S + FABRIC_STALL_S)
+            wall_s = time.perf_counter() - t0
+            if thread.is_alive() or box.get('rc') != 0:
+                fail(f'fabric {arm}: the pod run did not finish ({box})\n'
+                     + '\n'.join(log_tail(tmp / f'worker_{arm}{i}.log') for i in range(2)))
+            results = captured['results']
+            coordinator = captured['executor'].coordinator
+            coordinator.close()
+            out = dict(wall_s=wall_s, files_per_s=len(files) / wall_s,
+                       requeued=coordinator.requeued, results=results)
+            if victim is not None:
+                survivor_starts = [float(p.read_text()) for p in starts[arm].iterdir()
+                                   if p.name.endswith(f'-{victim_file}')
+                                   and not p.name.startswith(f'{victim.pid}-')]
+                out.update(victim_file=victim_file, requeue_s=requeued_at - killed_at,
+                           restart_s=(min(survivor_starts) - killed_at if survivor_starts else None))
+            return out
+
+        arms = {}
+        for arm, victim in (('pod', None), ('kill', procs['kill'][0])):
+            res = pod_run(arm, victim)
+            results = res.pop('results')
+            if [r['file'] for r in results] != files:
+                fail(f'fabric {arm}: results are not in the files\' order')
+            shards = sorted(p for p in (tmp / f'out_{arm}' / 'embeddings').iterdir())
+            if len(shards) != len(files) or sorted(r['shard'] for r in results) != [
+                    str(p) for p in shards]:
+                fail(f'fabric {arm}: {len(shards)} shards for {len(files)} files')
+            worst = 0.0
+            for r, (texts, emb) in zip(results, local):
+                got_texts, got = read_shard(r['shard'])
+                if got_texts != texts or got.shape != emb.shape or not np.isfinite(got).all():
+                    fail(f'fabric {arm}: the shard of {r["file"]} is not the local one')
+                worst = max(worst, float((np.abs(got - emb)
+                                          / (EMBED_RTOL * np.abs(emb) + EMBED_ATOL)).max()))
+            if not worst <= 1.0:
+                fail(f'fabric {arm}: shards differ from the local run ({worst:.3f} x tolerance)')
+            by_worker = {}
+            for r in results:
+                w = by_worker.setdefault(r['pid'], dict(tasks=0, k3=0, k3_tensor_cores=0, plain=0))
+                for key in ('k3', 'k3_tensor_cores', 'plain'):
+                    w[key] += r[key]
+                w['tasks'] += 1
+            if any(w['k3'] <= 0 or w['k3_tensor_cores'] != w['k3'] or w['plain']
+                   for w in by_worker.values()):
+                fail(f'fabric {arm}: K3 by worker {by_worker}')
+            res.update(by_worker={str(k): v for k, v in by_worker.items()}, err_over_tol=worst,
+                       k3=sum(w['k3'] for w in by_worker.values()),
+                       worker_stages=[timer_stages(tmp / f'worker_{arm}{i}.log') for i in range(2)])
+            codes = stop_processes(procs[arm][1:] if victim is not None else procs[arm], timeout=60)
+            res['worker_exit_codes'] = codes
+            if any(codes):
+                fail(f'fabric {arm}: workers exited {codes} after the poison pill')
+            arms[arm] = res
+            log(f'[fabric {arm}] {card}: {json.dumps(res)}')
+        if len(arms['pod']['by_worker']) != 2:
+            fail(f'fabric: the pod run used {len(arms["pod"]["by_worker"])} workers, not 2')
+        kill = arms['kill']
+        if kill['requeued'] != 1 or kill['restart_s'] is None:
+            fail(f'fabric kill: requeued {kill["requeued"]}, restarted {kill["restart_s"]} s '
+                 f'after the kill')
+
+        # 21a: the slurm script's worker, in a world of one, answers a task.
+        captured.clear()
+        executor = launcher.get_compute_config(slurm).get_executor(tmp / 'run_slurm')
+        written = (tmp / 'run_slurm' / 'submit.sbatch').read_text()
+        if written != scripts['slurm']:
+            fail('fabric slurm: the written script differs from the rendered one')
+        box = {}
+        thread = threading.Thread(target=lambda: box.update(r=launcher.map_with_teardown(
+            executor, this.world_task, [[1.0, 2.0, 3.0]])), daemon=True)
+        t0 = time.perf_counter()
+        thread.start()
+        thread.join(FABRIC_WAIT_S)
+        world_s = time.perf_counter() - t0
+        if 'r' not in box:
+            fail(f'fabric slurm: the world task did not finish\n{log_tail(tmp / "worker_slurm.log")}')
+        world = box['r'][0]
+        codes = stop_processes(procs['slurm'], timeout=60)
+        if (world['rank'], world['size'], world['backend'], world['values']) != (
+                0, 1, FABRIC_WORLD_BACKEND, [1.0, 2.0, 3.0]) or any(codes):
+            fail(f'fabric slurm: {world}, exit codes {codes}')
+        slurm_log = (tmp / 'worker_slurm.log').read_text()
+        if f'torch.distributed rank 0/1 ({FABRIC_WORLD_BACKEND})' not in slurm_log:
+            fail(f'fabric slurm: the worker did not join its world\n{log_tail(tmp / "worker_slurm.log")}')
+        world.update(seconds=world_s, exit_codes=codes)
+        out = dict(setup_s=setup_s, local_s=local_s, local_k3=local_k3, arms=arms, world=world,
+                   files=len(files), texts=sum(len(t) for t, _ in local))
+        log(f'[fabric] {card}: BERT-base bf16 over {len(files)} files ({out["texts"]} texts): '
+            f'local {local_s:.2f} s; pbspro pod of 2 workers {arms["pod"]["wall_s"]:.2f} s = '
+            f'{arms["pod"]["files_per_s"]:.2f} files/s, tasks by worker '
+            f'{[w["tasks"] for w in arms["pod"]["by_worker"].values()]}, K3 by worker '
+            f'{[w["k3"] for w in arms["pod"]["by_worker"].values()]}; kill arm: requeued '
+            f'{kill["requeued"]} ({kill["victim_file"]}) {kill["requeue_s"]:.2f} s after the '
+            f'SIGKILL (restarted after {kill["restart_s"]:.2f} s), {kill["wall_s"]:.2f} s; slurm world of one: rank {world["rank"]}/'
+            f'{world["size"]} over {world["backend"]} on {world["device"]}, all-reduce '
+            f'{world["values"]}')
+        return out
+    finally:
+        stop_processes([p for ps in procs.values() for p in ps], timeout=10)
+
+
+def app_yaml(path: Path, generator: dict) -> Path:
+    path.write_text(json.dumps({'generator_config': generator}))
+    return path
+
+
+def start_replicas(tmp: Path, tag: str, generator: dict, n: int):
+    """``n`` chat-server processes (``python -m distllm_tpu_torch.chat_server``)
+    over one app YAML, each on its own port; ``[(proc, base, log)]``."""
+    from distllm_tpu_torch.parallel.multihost import free_port
+
+    config = app_yaml(tmp / f'{tag}.yaml', generator)
+    out = []
+    for i in range(n):
+        port = free_port()
+        log_path = tmp / f'{tag}{i}.log'
+        argv = ['python', '-m', 'distllm_tpu_torch.chat_server', '--config', str(config),
+                '--host', '127.0.0.1', '--port', str(port)]
+        if DEVICE != 'cuda':
+            argv += ['--device', DEVICE]
+        out.append((start_process(argv, log_path), f'http://127.0.0.1:{port}', log_path))
+    return out
+
+
+def wait_ready(servers, what):
+    """Poll each ``(proc, base, log)``'s ``/health`` until 200."""
+    deadline = time.monotonic() + FABRIC_WAIT_S
+    for proc, base, log_path in servers:
+        while True:
+            if proc.poll() is not None:
+                fail(f'{what}: {base} exited {proc.returncode}\n{log_tail(log_path)}')
+            try:
+                if http_call(base, '/health', method='GET')[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail(f'{what}: {base} not ready in {FABRIC_WAIT_S} s\n{log_tail(log_path)}')
+            time.sleep(0.5)
+
+
+def start_router(tmp: Path, tag: str, fleet, policy, health_interval_s):
+    """``python -m distllm_tpu_torch.router`` over ``fleet`` from a YAML
+    ``RouterConfig``; ``(proc, base, log)``, not waited for."""
+    from distllm_tpu_torch.parallel.multihost import free_port
+
+    port = free_port()
+    config = tmp / f'{tag}_router.yaml'
+    config.write_text(json.dumps({'replicas': [b for _, b, _ in fleet], 'policy': policy,
+                                  'loadinfo_ttl_s': 0.05, 'health_interval_s': health_interval_s,
+                                  'request_timeout_s': 120.0}))
+    return (start_process(['python', '-m', 'distllm_tpu_torch.router', '--config', str(config),
+                           '--host', '127.0.0.1', '--port', str(port)], tmp / f'{tag}_router.log'),
+            f'http://127.0.0.1:{port}', tmp / f'{tag}_router.log')
+
+
+def shutdown_reports(servers, what):
+    """SIGINT each replica and read the ``[chat_server] shutdown`` report
+    its ``main`` logs (its kernel counters and prefix-cache tokens)."""
+    import signal as _signal
+
+    codes = stop_processes([s[0] for s in servers], timeout=120, sig=_signal.SIGINT)
+    reports = []
+    for (_, base, log_path), code in zip(servers, codes):
+        lines = [ln for ln in log_path.read_text().splitlines()
+                 if ln.startswith('[chat_server] shutdown ')]
+        if not lines:
+            fail(f'{what}: {base} logged no shutdown report (exit {code})\n{log_tail(log_path)}')
+        reports.append(json.loads(lines[-1].split(' ', 2)[2]))
+    return reports
+
+
+def router_decisions(base):
+    text = http_call(base, '/metrics', method='GET')[2].decode()
+    out = {}
+    for line in text.splitlines():
+        if line.startswith('distllm_router_requests_total{'):
+            key, value = line.rsplit(' ', 1)
+            if float(value):
+                out[key.split('"')[1]] = int(float(value))
+    return out
+
+
+def warm_indices(workload):
+    seen, warm = set(), []
+    for i, arrival in enumerate(sorted(workload, key=lambda a: a.at_s)):
+        if arrival.session is not None:
+            if arrival.session in seen:
+                warm.append(i)
+            seen.add(arrival.session)
+    return warm
+
+
+def run_router_arm(card, policy, router, fleet, workload, warm):
+    """One 21b arm: ``router`` over ``fleet`` under ``workload``, then the
+    replicas' shutdown reports."""
+    import signal as _signal
+
+    from distllm_tpu_torch.generate.loadgen import run_http_loadgen
+
+    wait_ready([router], f'{policy} router')
+    # The router probed before its replicas were up: wait until it holds
+    # them all in rotation again.
+    deadline = time.monotonic() + FABRIC_WAIT_S
+    while set(get_json(router[1], '/health')[1]['replicas'].values()) != {'healthy'}:
+        if time.monotonic() > deadline:
+            fail(f'{policy} router: replicas not back in rotation')
+        time.sleep(0.2)
+    try:
+        report = run_http_loadgen(router[1], workload, timeout_s=120.0)
+        decisions = router_decisions(router[1])
+    finally:
+        stop_processes([router[0]], timeout=30, sig=_signal.SIGINT)
+    reports = shutdown_reports(fleet, f'router {policy}')
+    warm_ttft = [report.ttft_by_request[i] for i in warm
+                 if report.statuses[i] == 200 and report.ttft_by_request[i] is not None]
+    replicas = {}
+    for (_, base, _), rep in zip(fleet, reports):
+        eng = rep['engine']
+        name = base.split('//')[1]
+        replicas[name] = dict(
+            requests=report.by_replica.get(name, 0), k1=rep['kernels'][REPLICA_K1],
+            k1_plain=rep['kernels']['ragged_paged_attention_reference.launches'],
+            prefix_hit_share=round(eng['prefix_hit_tokens'] / max(1, eng['prefix_lookup_tokens']), 4),
+            forward_passes=eng['forward_passes'])
+    arm = dict(ok=report.ok, errors=report.errors, decisions=decisions, warm=len(warm_ttft),
+               warm_ttft_p50=percentile(warm_ttft, 50), warm_ttft_p95=percentile(warm_ttft, 95),
+               ttft_p50=report.percentiles.get('ttft_p50'), replicas=replicas,
+               elapsed_s=report.elapsed_s)
+    log(f'[router {policy}] {card}: {json.dumps(arm)}')
+    if report.ok != len(workload) or not warm_ttft:
+        fail(f'router {policy}: {report.ok} of {len(workload)} answered')
+    if any(r['k1'] <= 0 or r['k1_plain'] for r in replicas.values()):
+        fail(f'router {policy}: K1 by replica {replicas}')
+    if policy == 'prefix_affinity' and not decisions.get('affinity'):
+        fail(f'router {policy}: no affinity decision ({decisions})')
+    return arm
+
+
+def run_failover(card, router, fleet):
+    """21c: round-robin over three fp32 replicas; the same arrivals with no
+    kill, then with replica 0 killed at a third of the schedule. Probes
+    every 30 s (the router started once the replicas were up): the kill is
+    found on the proxy path."""
+    import signal as _signal
+
+    from distllm_tpu_torch.generate.loadgen import LoadgenConfig, build_workload, run_http_loadgen
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+
+    workload = build_workload(LoadgenConfig(**FAILOVER_LOAD))
+    wait_ready([router], 'failover router')
+    try:
+        control = run_http_loadgen(router[1], workload, timeout_s=120.0)
+        last_at = max(a.at_s for a in workload)
+        killer = threading.Timer(max(0.5, 0.35 * last_at),
+                                 lambda: fleet[0][0].send_signal(_signal.SIGKILL))
+        killer.start()
+        try:
+            killed = run_http_loadgen(router[1], workload, timeout_s=120.0)
+        finally:
+            killer.cancel()
+        decisions = router_decisions(router[1])
+    finally:
+        stop_processes([router[0]], timeout=30, sig=_signal.SIGINT)
+    fleet[0][0].wait(timeout=30)
+    survivors = shutdown_reports(fleet[1:], 'router failover')
+    tok = WhitespaceTokenizer(vocab_size=32000)
+
+    def ids(text):
+        # A word decodes back to its id by its hash, an unseen id as <id>.
+        return [int(w[1:-1]) if w.startswith('<') else tok.token_id(w) for w in text.split()]
+
+    same = sum(a is not None and b is not None and ids(a) == ids(b)
+               for a, b in zip(control.contents, killed.contents))
+    out = dict(requests=len(workload), control_ok=control.ok, ok=killed.ok,
+               statuses=sorted(set(str(s) for s in killed.statuses)), retried=killed.retried,
+               identical=same, decisions=decisions, by_replica=killed.by_replica,
+               k1_by_survivor=[r['kernels'][REPLICA_K1] for r in survivors])
+    log(f'[router failover] {card}: {json.dumps(out)}')
+    if control.ok != len(workload) or killed.ok != len(workload):
+        fail(f'router failover: {killed.ok} of {len(workload)} answered (statuses '
+             f'{out["statuses"]}; control {control.ok})')
+    if killed.retried < 1 or same != len(workload):
+        fail(f'router failover: {killed.retried} retried, {same} of {len(workload)} answers '
+             f'identical to the run with no kill')
+    if any(k <= 0 for k in out['k1_by_survivor']):
+        fail(f'router failover: K1 by survivor {out["k1_by_survivor"]}')
+    return out
+
+
+def phase_router(torch, card, tmp: Path):
+    """Phases 21b and 21c (see the module docstring). All seven replicas
+    start at once (four 7B bf16 ones, about 14 GiB each, and 21c's three
+    fp32 ones at depth 2, about 3 GiB each); each 21b arm has its own
+    fresh pair, the other pair idle meanwhile."""
+    import signal as _signal
+
+    from distllm_tpu_torch.generate.loadgen import LoadgenConfig, build_workload
+
+    workload = build_workload(LoadgenConfig(**ROUTER_LOAD))
+    warm = warm_indices(workload)
+    fleets, routers = {}, {}
+    t0 = time.perf_counter()
+    try:
+        fleets['round_robin'] = start_replicas(tmp, 'rr', ROUTER_GENERATOR, 2)
+        fleets['prefix_affinity'] = start_replicas(tmp, 'aff', ROUTER_GENERATOR, 2)
+        fleets['failover'] = start_replicas(tmp, 'fo', dict(
+            ROUTER_GENERATOR, model=dict(FAILOVER_MODEL), enable_prefix_cache=False), 3)
+        # 21b's routers probe every 0.5 s: they start with their replicas.
+        for policy in ('round_robin', 'prefix_affinity'):
+            routers[policy] = start_router(tmp, policy, fleets[policy], policy, 0.5)
+        wait_ready([s for fleet in fleets.values() for s in fleet], 'router replicas')
+        start_s = time.perf_counter() - t0
+        log(f'[router] {card}: 7 replicas up in {start_s:.1f} s; '
+            f'{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB of the card free')
+        routers['failover'] = start_router(tmp, 'failover', fleets['failover'], 'round_robin',
+                                           30.0)
+        arms = {policy: run_router_arm(card, policy, routers[policy], fleets[policy], workload,
+                                       warm)
+                for policy in ('round_robin', 'prefix_affinity')}
+        failover = run_failover(card, routers['failover'], fleets['failover'])
+    finally:
+        stop_processes([s[0] for fleet in fleets.values() for s in fleet]
+                       + [r[0] for r in routers.values()], timeout=30, sig=_signal.SIGTERM)
+    speedup = arms['round_robin']['warm_ttft_p50'] / arms['prefix_affinity']['warm_ttft_p50']
+    out = dict(start_s=start_s, arms=arms, warm_ttft_speedup=speedup, failover=failover,
+               wall_s=time.perf_counter() - t0)
+    log(f'[router] {card}: replicas up in {start_s:.1f} s; warm TTFT p50 / p95 '
+        f'round-robin {arms["round_robin"]["warm_ttft_p50"]:.4f} / '
+        f'{arms["round_robin"]["warm_ttft_p95"]:.4f} s, prefix_affinity '
+        f'{arms["prefix_affinity"]["warm_ttft_p50"]:.4f} / '
+        f'{arms["prefix_affinity"]["warm_ttft_p95"]:.4f} s: affinity {speedup:.3f}x; failover '
+        f'{failover["retried"]} retried, {failover["identical"]}/{failover["requests"]} identical')
+    return out
+
+
+def peer_arm(torch, tpa, tqm, tag, cfg, params, pool, prompt, junk, timed):
+    """21d's three engines over ``params``: A serves ``prompt`` and spills
+    it under ``junk``, B (cold, A its peer) adopts A's blocks, C has no
+    peer. Greedy tokens of B and C, their K1 launches (and K2's, where
+    ``pool`` quantizes the weights); with ``timed`` each of B's and C's
+    request is timed to its first token."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.observability.flight import get_flight_recorder
+
+    def engine(**extra):
+        eng = LLMEngine(cfg, params, None, EngineConfig(**pool, **extra), device=DEVICE)
+        eng.warmup()
+        return eng
+
+    greedy = SamplingParams(temperature=0.0, max_tokens=PEER_NEW)
+    first = SamplingParams(temperature=0.0, max_tokens=1)
+    engine_a = engine(peer_kv_serve_endpoint='tcp://127.0.0.1:0')
+    engine_a.generate_ids([prompt], greedy)
+    for j in junk:
+        engine_a.generate_ids([j], greedy)
+    spilled = engine_a.tier_summary()['spilled_blocks']
+    engine_b = engine(peer_kv_endpoints=(engine_a.peer_kv_endpoint,))
+    engine_c = engine()
+    out = {}
+    for name, eng in (('b', engine_b), ('c', engine_c)):
+        recorder = get_flight_recorder()
+        before = recorder.total_recorded
+        zero_k1_counts(tpa)
+        zero_k2_counts(tqm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = eng.generate_ids([prompt], first if timed else greedy)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        k1 = check_k1_kernel(tpa, f'{tag} engine {name}')
+        k2 = (tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches)
+        if pool.get('quantization') and (k2[0] <= 0 or k2[1]):
+            fail(f'{tag} engine {name}: K2 launches {k2[0]}, plain {k2[1]}')
+        new = recorder.total_recorded - before
+        fetches = [r for r in recorder.snapshot(limit=new) if r.get('kind') == 'peer_fetch'] \
+            if new else []
+        if timed:
+            tokens = eng.generate_ids([prompt], greedy)  # the device holds the prefix now
+        out[name] = dict(tokens=tokens[0], k1=k1, k2=k2[0], first_token_ms=first_ms,
+                         tier=eng.tier_summary(), fetch_s=sum(r['fetch_s'] for r in fetches))
+    out['a'] = dict(spilled_blocks=spilled, tier=engine_a.tier_summary())
+    for eng in (engine_b, engine_c, engine_a):
+        shut_down(torch, tag, eng)
+    return out
+
+
+def phase_peer(torch, tpa, tqm, card):
+    """Phase 21d (see the module docstring)."""
+    from distllm_tpu_torch.models import mistral
+    from distllm_tpu_torch.models.mistral import MistralConfig
+
+    rng = np.random.default_rng(21)
+    results = {}
+    for tag, cfg, pool, length in (
+            ('peer fp32', MistralConfig(num_layers=2, dtype='float32'), PEER_POOL, PEER_PROMPT),
+            ('peer int8', MistralConfig(num_layers=2, dtype='float32'),
+             dict(PEER_POOL, quantization='int8'), PEER_PROMPT),
+            ('peer bf16', MistralConfig(), PEER_BF16_POOL, PEER_BF16_PROMPT)):
+        params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+        # The JAX arm's six junk prompts; two evict a 1024-token prompt.
+        prompt, *junk = ([int(t) for t in rng.integers(4, cfg.vocab_size, size=length)]
+                         for _ in range(1 + (6 if length == PEER_PROMPT else 2)))
+        res = peer_arm(torch, tpa, tqm, tag, cfg, params, pool, prompt, junk,
+                       timed=cfg.dtype != 'float32')
+        b, c, a = res['b'], res['c'], res['a']
+        mib = b['tier'].get('peer_fetched_bytes', 0) / 2**20
+        summary = dict(
+            spilled_blocks_a=a['spilled_blocks'],
+            peer_fetched_blocks=b['tier'].get('peer_fetched_blocks', 0),
+            peer_fetched_mib=mib, promoted_blocks_b=b['tier']['promoted_blocks'],
+            peer_served_blocks_a=a['tier'].get('peer_served_blocks', 0),
+            peer_served_bytes_a=a['tier'].get('peer_served_bytes', 0),
+            identical=b['tokens'] == c['tokens'], k1_b=b['k1'], k1_c=c['k1'], k2_b=b['k2'],
+            fetch_ms_per_mib=(b['fetch_s'] * 1e3 / mib) if mib else None,
+            first_token_ms_b=b['first_token_ms'], first_token_ms_c=c['first_token_ms'])
+        log(f'[{tag}] {card}: {json.dumps(summary)}')
+        if summary['peer_fetched_blocks'] < 1 or summary['peer_served_blocks_a'] < 1:
+            fail(f'{tag}: B fetched {summary["peer_fetched_blocks"]} blocks from A')
+        if cfg.dtype == 'float32' and not summary['identical']:  # fp32 and int8 arms
+            fail(f'{tag}: B (peer blocks) and C (no peer) decoded different tokens')
+        results[tag.split()[1]] = summary
+        del params
+        torch.cuda.empty_cache()
+    bf16 = results['bf16']
+    log(f'[peer] {card}: bf16 at full depth, a {PEER_BF16_PROMPT}-token prompt: B adopted '
+        f'{bf16["peer_fetched_blocks"]} blocks ({bf16["peer_fetched_mib"]:.1f} MiB, '
+        f'{bf16["fetch_ms_per_mib"]:.3f} ms/MiB fetched), first token {bf16["first_token_ms_b"]:.1f}'
+        f' ms against C\'s {bf16["first_token_ms_c"]:.1f} ms; A served '
+        f'{bf16["peer_served_bytes_a"]} bytes; fp32 identical {results["fp32"]["identical"]}')
+    return results
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -7128,6 +7906,24 @@ def main() -> None:
     tp_nccl = phase_tp_nccl(torch, tpa, smi)
     log(f'[tp nccl] phase 20c took {time.perf_counter() - t0:.1f} s')
     log(f'[tp] phases 20-20d took {time.perf_counter() - t20:.1f} s')
+    # 21. distributed_embedding over a pbspro pod of two fabric workers on
+    # the card, and its kill arm; 21a. a slurm worker in a world of one;
+    # 21b. the router over two Mistral-7B chat-server processes, round-robin
+    # and prefix_affinity; 21c. failover identity over three fp32 replicas;
+    # 21d. a replica adopting a peer's spilled KV blocks.
+    t21 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_fabric_') as tmp:
+        t0 = time.perf_counter()
+        fabric = phase_fabric(torch, tea, smi, Path(tmp))
+        log(f'[fabric] phases 21 and 21a took {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        router = phase_router(torch, smi, Path(tmp))
+        log(f'[router] phases 21b and 21c took {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    peer = phase_peer(torch, tpa, tqm, smi)
+    log(f'[peer] phase 21d took {time.perf_counter() - t0:.1f} s')
+    log(f'[control plane] phases 21-21d took {time.perf_counter() - t21:.1f} s')
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
     # most frequent launch (its prefill pair beside it); K3 at the embed
@@ -7319,6 +8115,16 @@ def main() -> None:
             'shard_cases': {c['case']: {key: c[key] for key in verify_keys}
                             for c in cases if c['case'] in TP_K1_CASES},
         },
+        # Phases 21b-21d: each chat-server replica's launches (its process's
+        # counters, from its shutdown report) under round-robin and
+        # prefix_affinity, 21c's survivors, and 21d's engine B over the
+        # blocks it adopted from its peer (fp32 CUDA cores; bf16).
+        'control_plane': {
+            'router': {policy: {name: r['k1'] for name, r in arm['replicas'].items()}
+                       for policy, arm in router['arms'].items()},
+            'failover_survivors': router['failover']['k1_by_survivor'],
+            'peer_adopting': {arm: peer[arm]['k1_b']['launches'] for arm in peer},
+        },
         # Phases 16-16c: the open-loop load (attribution on and off), the
         # chaos run's clean and faulted arms, the overload arm, and the chat
         # server under HTTP load.
@@ -7368,6 +8174,15 @@ def main() -> None:
         # queries; 18c: the CLI's embed.
         'mcqa': {'corpus_embed': mcqa['corpus']['k3'], 'rag_queries': mcqa['k3']},
         'cli': {'embed': cli_run['k3']},
+        # Phase 21: run_embedding in this process, then over the pbspro
+        # pod's two worker processes (each task's count, summed by worker)
+        # and its kill arm.
+        'control_plane': {
+            'local': fabric['local_k3']['launches'],
+            'pod_by_worker': {pid: w['k3'] for pid, w in fabric['arms']['pod']['by_worker'].items()},
+            'kill_arm_by_worker': {pid: w['k3']
+                                   for pid, w in fabric['arms']['kill']['by_worker'].items()},
+        },
     }, {
         'name': 'int8_matmul',
         'route': 'cuda',
@@ -7418,6 +8233,8 @@ def main() -> None:
             'fp32_identity': mixtral_identity['int8_auto']['k2_launches'],
             'checkpoint': mixtral_ckpt['k2_launches'],
         },
+        # Phase 21d: the peer-adopting engine B of the int8 arm (fp32 depth 2).
+        'control_plane': {'peer_adopting_int8': peer['int8']['k2_b']},
         # Phase 20a: Mixtral-8x7B int8 at tensor_parallel_size 2 (q / k / v
         # column-parallel, o row-parallel with its whole scales), rank 0's
         # launches and rank 1's.
@@ -7548,6 +8365,20 @@ def main() -> None:
         f'NCCL group of one: graphs with collectives, bitwise '
         f'{tp_nccl["decode"]["identical"]} / {tp_nccl["verify"]["identical"]}; '
         f'{time.perf_counter() - t_start:.1f} s total')
+    log(f'[control plane] {json.dumps(dict(fabric=fabric, router=router, peer=peer))}')
+    pod, kill, world = fabric['arms']['pod'], fabric['arms']['kill'], fabric['world']
+    rr, aff = router['arms']['round_robin'], router['arms']['prefix_affinity']
+    log(f'[summary] {smi}: pbspro pod of 2 workers {pod["files_per_s"]:.2f} files/s '
+        f'(local {fabric["local_s"]:.2f} s for {fabric["files"]} files), shards equal the '
+        f'local run\'s ({pod["err_over_tol"]:.3f} x tolerance); kill arm requeued '
+        f'{kill["requeued"]} in {kill["requeue_s"]:.2f} s, every file once; slurm world of one '
+        f'over {world["backend"]}; router warm TTFT p50 round-robin {rr["warm_ttft_p50"]:.4f} s, '
+        f'affinity {aff["warm_ttft_p50"]:.4f} s ({router["warm_ttft_speedup"]:.3f}x), '
+        f'decisions {json.dumps(aff["decisions"])}; failover '
+        f'{router["failover"]["retried"]} retried, {router["failover"]["identical"]}/'
+        f'{router["failover"]["requests"]} identical; peer handoff fp32 identical '
+        f'{peer["fp32"]["identical"]}, bf16 first token {peer["bf16"]["first_token_ms_b"]:.1f} '
+        f'vs {peer["bf16"]["first_token_ms_c"]:.1f} ms; {time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')

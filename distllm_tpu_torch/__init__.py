@@ -40,7 +40,11 @@ both):
   ``timer``)
 - ``mcqa``                  — the MCQA harness over the chat server
 - ``cli``                   — the ``distllm`` subcommands
-- ``parallel.launcher``     — the ``local`` and ``workstation`` executors
+- ``parallel.launcher``     — the ``local``, ``workstation``, ``pod``,
+  ``pbspro`` and ``slurm`` executors; ``parallel.fabric`` /
+  ``parallel.worker`` — the ZMQ task fabric and its per-host worker
+- ``router``                — the prefix-affinity router over chat-server
+  replicas
 """
 
 from __future__ import annotations

@@ -52,8 +52,12 @@ preflight on any path answers 204), and every request is counted as the
 JAX middleware counts it: ``distllm_http_in_flight``,
 ``distllm_http_request_duration_seconds{path}``,
 ``distllm_http_requests_total{path,status}`` and
-``distllm_http_responses_total``. The prefix-affinity headers wait for
-the router (ROADMAP A11b).
+``distllm_http_responses_total``. Every completion, streamed or not,
+carries the prefix-affinity headers the router learns from, as the JAX
+server sets them: ``X-Distllm-Prefix-Digest`` (hex of the deepest digest
+of the messages' byte chain, ``router.affinity.prompt_prefix_digests``)
+and ``X-Distllm-Prefix-Depth`` (its index + 1); a prompt shorter than one
+64-byte block carries neither.
 
 Messages render through :class:`~distllm_tpu_torch.chat.ConversationPromptTemplate`
 and every request goes through ONE worker thread that owns the generator
@@ -122,6 +126,11 @@ from distllm_tpu_torch.observability.tracing import (
     span,
 )
 from distllm_tpu_torch.resilience.admission import EngineOverloaded
+from distllm_tpu_torch.router.affinity import (
+    HEADER_DEPTH,
+    HEADER_DIGEST,
+    prompt_prefix_digests,
+)
 
 # Accepted inbound X-Request-Id shape; anything else gets a generated id.
 _REQUEST_ID_RE = re.compile(r'^[A-Za-z0-9._:-]{1,128}$')
@@ -684,15 +693,20 @@ def _make_handler(server: ChatServer):
             finally:
                 server.end_completion()
             server.count_served()
+            # Affinity learning: having served the request, this replica
+            # holds its whole prompt prefix; the router verifies the digest
+            # against its own chain before it learns from it.
+            headers = {'X-Request-Id': request_id}
+            chain = prompt_prefix_digests(messages)
+            if chain:
+                headers[HEADER_DIGEST] = chain[-1].hex()
+                headers[HEADER_DEPTH] = str(len(chain))
             if body.get('stream'):
-                self._stream(model, content, request_id)
+                self._stream(model, content, request_id, headers)
                 return
-            self._send_json(
-                200, _completion_payload(model, content, request_id),
-                {'X-Request-Id': request_id},
-            )
+            self._send_json(200, _completion_payload(model, content, request_id), headers)
 
-        def _stream(self, model: str, content: str, request_id: str) -> None:
+        def _stream(self, model: str, content: str, request_id: str, headers: dict) -> None:
             """Single-delta SSE: one chunk carrying the whole answer, then
             ``[DONE]``; no Content-Length, so the connection closes to
             mark the end."""
@@ -711,7 +725,8 @@ def _make_handler(server: ChatServer):
             self.send_response(200)
             self.send_header('Content-Type', 'text/event-stream')
             self.send_header('Cache-Control', 'no-cache')
-            self.send_header('X-Request-Id', request_id)
+            for key, value in headers.items():
+                self.send_header(key, value)
             self.send_header('Connection', 'close')
             self.end_headers()
             self.wfile.write(f'data: {json.dumps(chunk)}\n\n'.encode())
@@ -720,6 +735,30 @@ def _make_handler(server: ChatServer):
             self.close_connection = True
 
     return Handler
+
+
+def shutdown_report(generator) -> dict:
+    """What ``main`` logs when the server stops: every kernel counter of
+    this process (``COUNTERS`` of the three kernel modules, each as
+    ``<wrapper>.<attribute>``) and the engine's prefix-cache tokens, so a
+    replica's launches and hit share are read from its log."""
+    from distllm_tpu_torch.ops import encoder_attention, paged_attention, quantized_matmul
+
+    kernels = {}
+    for module in (paged_attention, quantized_matmul, encoder_attention):
+        for fn, attr in module.COUNTERS:
+            value = getattr(fn, attr)
+            kernels[f'{fn.__name__}.{attr}'] = (
+                {str(k): v for k, v in value.items()} if isinstance(value, dict) else value
+            )
+    engine = getattr(generator, 'engine', None)
+    stats = getattr(engine, 'stats', None) or {}
+    return {
+        'kernels': kernels,
+        'engine': {key: int(stats.get(key, 0)) for key in (
+            'prefix_hit_tokens', 'prefix_lookup_tokens', 'forward_passes',
+            'prefill_dispatches', 'decode_windows')},
+    }
 
 
 def load_app(path: str):
@@ -802,6 +841,10 @@ def main(argv: list[str] | None = None) -> None:
         pass
     finally:
         server.close()
+        instruments.log_event(
+            f'[chat_server] shutdown {json.dumps(shutdown_report(generator))}',
+            component='server',
+        )
         shutdown = getattr(generator, 'shutdown', None)
         if shutdown is not None:
             shutdown()

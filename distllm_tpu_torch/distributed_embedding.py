@@ -7,8 +7,9 @@ registry-warm-started encoder, the dataset read, the embedder, and the
 writer into a fresh UUID shard, each stage timed by a ``[timer]`` line
 tagged as in the JAX package. The ``local`` compute config runs the files
 in this process, ``workstation`` on a process pool of ``max_workers``
-(1, the default, runs them in this process too); the pod configs need
-the fabric and are refused (ROADMAP A11b).
+(1, the default, runs them in this process too), and the pod configs
+(``pod``, ``pbspro``, ``slurm``) on fabric workers, one file a task
+(``parallel.launcher``); every worker gets the poison pill at the end.
 
     python -m distllm_tpu_torch.distributed_embedding --config embed.yaml [--device cpu]
 
@@ -28,9 +29,9 @@ from typing import Any
 
 import torch
 
-from distllm_tpu_torch.parallel.launcher import get_compute_config
+from distllm_tpu_torch.parallel.launcher import get_compute_config, map_with_teardown
 from distllm_tpu_torch.timer import Timer
-from distllm_tpu_torch.utils import BaseConfig
+from distllm_tpu_torch.utils import BaseConfig, canonical_function
 
 def log(message: str) -> None:
     print(message, flush=True)
@@ -121,7 +122,9 @@ def run_embedding(
         return 1
     log(f'Embedding {len(files)} files -> {embedding_dir}')
     worker_fn = functools.partial(
-        embedding_worker,
+        # Run as `python -m`, this module is __main__: a fabric worker
+        # unpickles the function by its importable path.
+        canonical_function(embedding_worker, 'distllm_tpu_torch.distributed_embedding'),
         output_dir=str(embedding_dir),
         dataset_kwargs=config.dataset_config,
         encoder_kwargs=config.encoder_config,
@@ -133,7 +136,7 @@ def run_embedding(
     executor = get_compute_config(config.compute_config).get_executor(
         config.output_dir / 'run'
     )
-    shards = executor.map(worker_fn, files)
+    shards = map_with_teardown(executor, worker_fn, files)
     log(f'Finished: {len(shards)} shards written')
     return 0
 

@@ -12,8 +12,9 @@ postprocessed response is empty are dropped. An ``output_dir`` that
 already exists is refused (exit 1), so a finished run is never
 clobbered. The ``local`` compute config runs the files in this process,
 ``workstation`` on a process pool of ``max_workers`` (1, the default,
-runs them in this process too); the pod configs need the fabric and are
-refused (ROADMAP A11b).
+runs them in this process too), and the pod configs (``pod``,
+``pbspro``, ``slurm``) on fabric workers, one file a task; every worker
+gets the poison pill at the end.
 
     python -m distllm_tpu_torch.distributed_generation --config generate.yaml [--device cpu]
 
@@ -34,9 +35,9 @@ from typing import Any
 import torch
 
 from distllm_tpu_torch.distributed_embedding import log
-from distllm_tpu_torch.parallel.launcher import get_compute_config
+from distllm_tpu_torch.parallel.launcher import get_compute_config, map_with_teardown
 from distllm_tpu_torch.timer import Timer
-from distllm_tpu_torch.utils import BaseConfig
+from distllm_tpu_torch.utils import BaseConfig, canonical_function
 
 
 def generate_worker(
@@ -128,7 +129,9 @@ def run_generation(
         return 1
     log(f'Generating over {len(files)} files -> {generation_dir}')
     worker_fn = functools.partial(
-        generate_worker,
+        # Run as `python -m`, this module is __main__: a fabric worker
+        # unpickles the function by its importable path.
+        canonical_function(generate_worker, 'distllm_tpu_torch.distributed_generation'),
         output_dir=str(generation_dir),
         reader_kwargs=config.reader_config,
         prompt_kwargs=config.prompt_config,
@@ -139,7 +142,7 @@ def run_generation(
     executor = get_compute_config(config.compute_config).get_executor(
         config.output_dir / 'run'
     )
-    shards = executor.map(worker_fn, files)
+    shards = map_with_teardown(executor, worker_fn, files)
     log(f'Finished: {len(shards)} shards written')
     return 0
 

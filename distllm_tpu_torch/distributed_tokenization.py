@@ -6,8 +6,8 @@ HF dataset shard per file (the counterpart of
 The YAML config is the JAX package's, key for key. Each file goes through
 :func:`tokenizer_worker` (stages timed by ``[timer]`` lines tagged as in
 the JAX package) on the compute config's executor: ``local`` in this
-process, ``workstation`` on a process pool; the pod configs need the
-fabric and are refused (ROADMAP A11b). The tokenizer is read from local
+process, ``workstation`` on a process pool, the pod configs on fabric
+workers (each gets the poison pill at the end). The tokenizer is read from local
 files. Tokenization runs on the host: there is no ``--device``.
 
     python -m distllm_tpu_torch.distributed_tokenization --config tok.yaml
@@ -25,7 +25,7 @@ from pathlib import Path
 from typing import Any
 
 from distllm_tpu_torch.distributed_embedding import log
-from distllm_tpu_torch.parallel.launcher import get_compute_config
+from distllm_tpu_torch.parallel.launcher import get_compute_config, map_with_teardown
 from distllm_tpu_torch.timer import Timer
 from distllm_tpu_torch.utils import (
     BaseConfig,
@@ -150,7 +150,7 @@ def run_tokenization(config: Config) -> int:
     executor = get_compute_config(config.compute_config).get_executor(
         config.output_dir / 'run'
     )
-    shards = executor.map(worker_fn, files)
+    shards = map_with_teardown(executor, worker_fn, files)
     log(f'Finished: {len(shards)} shards written')
     return 0
 

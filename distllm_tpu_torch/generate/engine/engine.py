@@ -34,10 +34,14 @@
   (refcounted, LRU-evicted under pool pressure) and prefills only its
   tail. An exact block-aligned repeat keeps its match and re-prefills its
   last token into a copy of the shared final block (copy-on-write).
-- **host and disk KV tiers** (``host_kv_tier_bytes``, ``disk_kv_tier_dir``):
-  evicted cache blocks spill device -> host (writing through to disk)
-  instead of being dropped, and a later same-prefix arrival promotes them
-  back into its own pool blocks: a host -> device copy on a side stream
+- **host, disk and peer KV tiers** (``host_kv_tier_bytes``,
+  ``disk_kv_tier_dir``, ``peer_kv_endpoints``): evicted cache blocks spill
+  device -> host (writing through to disk) instead of being dropped, a
+  miss on both asks the sibling replicas' ``KVBlockServer``s (a peer hit
+  enters the host pool as a disk hit does), and with
+  ``peer_kv_serve_endpoint`` this engine serves its own spills to them. A
+  later same-prefix arrival promotes tier blocks back into its own pool
+  blocks: a host -> device copy on a side stream
   whose event the current stream waits on, so the request's tail prefill
   and every later reader of those blocks follow it on the device. Every
   pool write — prefill, decode, copy-on-write, promotion — changes the
@@ -135,10 +139,9 @@
   false and ``telemetry['decode_graphs_reason']`` says why); over NCCL
   they stay captured graphs with the collectives inside. The prefix
   cache, chunked prefill, mixed windows, speculation, the int8 KV pool
-  and pipelining run as they do on one rank; the host and disk KV tiers
-  raise (ROADMAP A10d). Only rank 0 serves requests and exports metrics.
-
-A later slice brings the peer KV tier.
+  and pipelining run as they do on one rank; the host, disk and peer KV
+  tiers raise (ROADMAP A10d). Only rank 0 serves requests and exports
+  metrics.
 """
 
 from __future__ import annotations
@@ -164,6 +167,7 @@ from distllm_tpu_torch.generate.engine.kv_cache import (
     DiskKVTier,
     HostKVTier,
     PagedKVCache,
+    PeerKVTier,
     PrefixCache,
     block_digests,
 )
@@ -337,6 +341,21 @@ class EngineConfig(BaseConfig):
     disk_kv_tier_dir: str | None = None
     # Disk-tier byte budget (LRU; evictions there are final drops).
     disk_kv_tier_bytes: int = 1 << 30
+    # Peer KV tier: sibling replicas' KVBlockServer endpoints
+    # ('tcp://host:port') asked after host and disk miss; a fetched
+    # .kvblock payload enters the host pool and promotes as a disk hit
+    # does. None disables the tier; an empty tuple enables it with no peers
+    # yet (engine.kv_tier.peer.add_endpoint). Requires host_kv_tier_bytes.
+    peer_kv_endpoints: tuple[str, ...] | None = None
+    # Serve this engine's spilled blocks to peers: a zmq bind spec for its
+    # KVBlockServer ('tcp://127.0.0.1:0' picks a free port; the endpoint
+    # is engine.peer_kv_endpoint). None disables. Requires
+    # host_kv_tier_bytes.
+    peer_kv_serve_endpoint: str | None = None
+    # One peer HAS / GET round trip's timeout, and how long a failing
+    # endpoint sits out (a failure is a cold prefill, never a stall).
+    peer_kv_timeout_ms: int = 500
+    peer_kv_backoff_s: float = 5.0
     # Storage dtype of the paged KV pool (the JAX field): 'auto' stores the
     # model dtype, bit-identical to an engine without the field; 'int8'
     # stores int8 codes with per-block, per-KV-head fp32 scales; a
@@ -438,7 +457,8 @@ class EngineConfig(BaseConfig):
         for name in ('sampling_top_window', 'prefill_chunk_tokens',
                      'max_window_prefill_tokens', 'draft_k',
                      'max_dispatch_retries', 'request_deadline_s',
-                     'retry_backoff_s', 'history_interval_s'):
+                     'retry_backoff_s', 'history_interval_s',
+                     'peer_kv_timeout_ms', 'peer_kv_backoff_s'):
             if getattr(self, name) < 0:
                 raise ValueError(f'{name} must be >= 0')
         if self.spec_ngram < 1:
@@ -486,6 +506,19 @@ class EngineConfig(BaseConfig):
                 'disk_kv_tier_dir needs host_kv_tier_bytes > 0: spills reach '
                 'disk by writing through the host tier, and promotions route '
                 'disk -> host -> device'
+            )
+        if self.peer_kv_endpoints is not None:
+            self.peer_kv_endpoints = tuple(self.peer_kv_endpoints)
+            if not self.host_kv_tier_bytes:
+                raise ValueError(
+                    'peer_kv_endpoints needs host_kv_tier_bytes > 0: peer '
+                    'fetches land in the host pool and promote host -> device '
+                    'as a disk hit does'
+                )
+        if self.peer_kv_serve_endpoint and not self.host_kv_tier_bytes:
+            raise ValueError(
+                'peer_kv_serve_endpoint needs host_kv_tier_bytes > 0: the '
+                'KVBlockServer answers HAS / GET from the host and disk pools'
             )
         if self.admission_control and self.ttft_slo_s <= 0:
             raise ValueError(
@@ -654,15 +687,34 @@ class LLMEngine:
         )
         self.scheduler_kind = self.sched.kind
         self.prefix_cache = PrefixCache(cfg.block_size) if cfg.enable_prefix_cache else None
-        # Host (and disk) KV tier behind the prefix cache: eviction cascades
-        # device -> host -> disk -> drop, and tier hits promote back.
+        # Host (disk, peer) KV tier behind the prefix cache: eviction
+        # cascades device -> host -> disk -> drop, tier hits promote back,
+        # and a local miss asks the siblings' servers; this engine's own
+        # spills are served back with peer_kv_serve_endpoint.
         self.kv_tier = None
+        self.peer_kv_endpoint: str | None = None
+        self._peer_kv_server = None
         if cfg.host_kv_tier_bytes:
             disk = (
                 DiskKVTier(cfg.disk_kv_tier_dir, cfg.disk_kv_tier_bytes)
                 if cfg.disk_kv_tier_dir else None
             )
-            self.kv_tier = HostKVTier(cfg.host_kv_tier_bytes, disk=disk)
+            peer = (
+                PeerKVTier(
+                    cfg.peer_kv_endpoints, timeout_ms=cfg.peer_kv_timeout_ms,
+                    failure_backoff_s=cfg.peer_kv_backoff_s,
+                )
+                if cfg.peer_kv_endpoints is not None else None
+            )
+            self.kv_tier = HostKVTier(cfg.host_kv_tier_bytes, disk=disk, peer=peer)
+            if cfg.peer_kv_serve_endpoint:
+                from distllm_tpu_torch.parallel.fabric import KVBlockServer
+
+                self._peer_kv_server = KVBlockServer(
+                    self.kv_tier.contains_local, self.kv_tier.encoded_local,
+                    bind=cfg.peer_kv_serve_endpoint,
+                ).start()
+                self.peer_kv_endpoint = self._peer_kv_server.endpoint
         # Promotion copies in flight on CUDA: each record keeps the pinned
         # staging its side-stream copy reads, and the copy's timing events,
         # until the copy has completed. Nothing on the host waits for them.
@@ -809,23 +861,25 @@ class LLMEngine:
 
     def _check_mesh(self, model_cfg, params: dict, mesh) -> None:
         """Refuse what this rank's engine cannot serve on ``mesh``: a
-        ``data`` or ``seq`` axis (ROADMAP A10c, A11b), heads that do not divide
-        over ``model`` (the JAX check), the host and disk KV tiers
+        ``data`` or ``seq`` axis (ROADMAP A10c), heads that do not divide
+        over ``model`` (the JAX check), the host, disk and peer KV tiers
         (ROADMAP A10d), and float leaves still to be quantized (quantize
         before sharding)."""
         if mesh is None:
             return
         if mesh.shape[DATA_AXIS] != 1 or mesh.shape[SEQ_AXIS] != 1:
             raise NotImplementedError(
-                'an engine mesh with a data or seq axis is not ported yet: '
-                'sequence parallelism is ROADMAP A10c, data-parallel replicas '
-                "behind a router A11b; use MeshSpec(data=1, model=N)"
+                'an engine mesh with a data or seq axis is not ported yet '
+                '(ROADMAP A10c); data-parallel replicas run as separate '
+                'engines behind python -m distllm_tpu_torch.router; use '
+                'MeshSpec(data=1, model=N)'
             )
         check_tp_heads(model_cfg, mesh.shape[MODEL_AXIS])
         if self.config.host_kv_tier_bytes:
             raise NotImplementedError(
-                'the host and disk KV tiers under tensor parallelism (each rank '
-                'spilling its own KV heads) are not ported yet (ROADMAP A10d)'
+                'the host, disk and peer KV tiers under tensor parallelism '
+                '(each rank spilling its own KV heads) are not ported yet '
+                '(ROADMAP A10d)'
             )
         if self.config.quantization:
             from distllm_tpu_torch.models import decoder_family
@@ -1568,6 +1622,12 @@ class LLMEngine:
             out['disk_blocks'] = self.kv_tier.disk.num_blocks
             out['disk_bytes'] = self.kv_tier.disk.bytes_used
             out['disk_errors'] = self.kv_tier.disk.errors
+        if self.kv_tier.peer is not None:
+            out['peer_fetched_blocks'] = self.kv_tier.peer.fetched_blocks
+            out['peer_fetched_bytes'] = self.kv_tier.peer.fetched_bytes
+        if self._peer_kv_server is not None:
+            out['peer_served_blocks'] = self._peer_kv_server.served_blocks
+            out['peer_served_bytes'] = self._peer_kv_server.served_bytes
         return out
 
     # ------------------------------------------------------- prefix cache
@@ -2962,11 +3022,17 @@ class LLMEngine:
 
     def shutdown(self) -> None:
         """Drop the weights, the pool and the decode graphs with their
-        memory pool (after any promotion copy in flight has landed)."""
+        memory pool (after any promotion copy in flight has landed); close
+        the peer tier's server and client."""
         self._retire_promotions(wait=True)
         if self._history_sampler is not None:
             self._history_sampler.stop()
             self._history_sampler = None
+        if self._peer_kv_server is not None:
+            self._peer_kv_server.close()
+            self._peer_kv_server = None
+        if self.kv_tier is not None and self.kv_tier.peer is not None:
+            self.kv_tier.peer.close()
         self._decode.close()
         if self._verify is not None:
             self._verify.close()

@@ -19,8 +19,10 @@ bounded host pool (writing through to digest-named ``.kvblock`` files)
 and come back by promotion. Both keep CPU tensors; the ``.kvblock`` v2
 payload (:func:`encode_kvblock` / :func:`decode_kvblock`) is the JAX
 package's byte for byte, bf16 included (raw bytes under the header dtype
-``'bfloat16'``), so either package reads the other's files. The peer
-tier waits for the zmq fabric's port.
+``'bfloat16'``), so either package reads the other's files.
+:class:`PeerKVTier` reads sibling replicas' spilled blocks over the ZMQ
+fabric (``parallel.fabric.KVBlockClient``) in that same payload, one hop
+under disk: host -> disk -> peer, a peer hit re-entering the host pool.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import json
 import math
 import os
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -547,6 +550,125 @@ class DiskKVTier:
             return self._bytes
 
 
+class PeerKVTier:
+    """Sibling replicas' spilled KV blocks, fetched over the ZMQ fabric: the
+    tier under disk (the JAX ``PeerKVTier``).
+
+    Each endpoint is a sibling's ``parallel.fabric.KVBlockServer``,
+    answering HAS / GET by digest with the ``.kvblock`` v2 payload the disk
+    tier writes. A read tier only: spills never land here, and a fetched
+    block re-enters the local host pool as a disk hit does. Every failure
+    degrades to a miss: an unreachable peer is backed off for
+    ``failure_backoff_s``, and it and a corrupt payload count
+    ``distllm_prefix_tier_errors_total{tier="peer"}``; the serving loop
+    never sees a network exception. Endpoints may be added after
+    construction (:meth:`add_endpoint`): a sibling's port is often known
+    only once it has bound its server.
+    """
+
+    def __init__(
+        self,
+        endpoints: Sequence[str] = (),
+        *,
+        timeout_ms: int = 500,
+        failure_backoff_s: float = 5.0,
+    ) -> None:
+        # The fabric (and with it zmq) only when a peer tier is built.
+        from distllm_tpu_torch.parallel.fabric import KVBlockClient
+
+        self._lock = threading.Lock()
+        self.endpoints: list[str] = list(endpoints)  # guarded by self._lock
+        self.failure_backoff_s = float(failure_backoff_s)
+        self._client = KVBlockClient(timeout_ms=timeout_ms)
+        # endpoint -> monotonic instant its backoff ends.
+        self._backoff_until: dict[str, float] = {}  # guarded by self._lock
+        # digest -> the endpoint that answered HAS, asked first by get().
+        self._hit_memo: 'OrderedDict[bytes, str]' = OrderedDict()  # guarded by self._lock
+        self.fetched_blocks = 0
+        self.fetched_bytes = 0
+
+    def add_endpoint(self, endpoint: str) -> None:
+        with self._lock:
+            if endpoint not in self.endpoints:
+                self.endpoints.append(endpoint)
+
+    def _live_endpoints(self) -> list[str]:
+        now = time.monotonic()
+        with self._lock:
+            return [ep for ep in self.endpoints if self._backoff_until.get(ep, 0.0) <= now]
+
+    def _note_failure(self, endpoint: str) -> None:
+        from distllm_tpu_torch.observability import instruments
+
+        instruments.PREFIX_TIER_ERRORS.labels(tier='peer').inc()
+        with self._lock:
+            self._backoff_until[endpoint] = time.monotonic() + self.failure_backoff_s
+
+    def _memo(self, digest: bytes, endpoint: str) -> None:
+        with self._lock:
+            self._hit_memo[digest] = endpoint
+            self._hit_memo.move_to_end(digest)
+            while len(self._hit_memo) > 1024:
+                self._hit_memo.popitem(last=False)
+
+    def contains(self, digest: bytes) -> bool:
+        """Membership across the live peers (the first hit wins and is
+        remembered for the ``get`` that follows); each probe is bounded by
+        the client's timeout and the per-peer backoff."""
+        from distllm_tpu_torch.parallel.fabric import KV_HIT
+
+        for endpoint in self._live_endpoints():
+            reply = self._client.request(endpoint, b'HAS', digest)
+            if reply is None:
+                self._note_failure(endpoint)
+                continue
+            if reply[0] == KV_HIT:
+                self._memo(digest, endpoint)
+                return True
+        return False
+
+    def get(self, digest: bytes) -> tuple[torch.Tensor, ...] | None:
+        """One block's CPU tensors from a sibling, the remembered endpoint
+        first. A hit lands a ``peer_fetch`` flight record; a timeout, a
+        miss or a corrupt payload returns None (a cold prefill)."""
+        from distllm_tpu_torch.observability import instruments
+        from distllm_tpu_torch.observability.flight import get_flight_recorder
+        from distllm_tpu_torch.parallel.fabric import KV_HIT
+
+        with self._lock:
+            memo = self._hit_memo.get(digest)
+        ordered = self._live_endpoints()
+        if memo in ordered:
+            ordered.remove(memo)
+            ordered.insert(0, memo)
+        for endpoint in ordered:
+            t_start = time.monotonic()
+            reply = self._client.request(endpoint, b'GET', digest)
+            if reply is None:
+                self._note_failure(endpoint)
+                continue
+            status, payload = reply
+            if status != KV_HIT:
+                continue  # evicted on the sibling since the HAS probe
+            try:
+                arrays = decode_kvblock(payload)
+            except (ValueError, KeyError, TypeError):
+                instruments.PREFIX_TIER_ERRORS.labels(tier='peer').inc()
+                continue
+            fetch_s = time.monotonic() - t_start
+            self.fetched_blocks += 1
+            self.fetched_bytes += len(payload)
+            get_flight_recorder().record(
+                'peer_fetch', endpoint=endpoint, blocks=1, bytes=len(payload),
+                fetch_s=round(fetch_s, 6),
+            )
+            return arrays
+        return None
+
+    def close(self) -> None:
+        self._client.close()
+
+
 class HostKVTier:
     """Bounded digest-keyed host pool of spilled KV blocks, between the
     prefix cache's device blocks and the optional disk tier. Entries are
@@ -554,12 +676,20 @@ class HostKVTier:
     V; an int8 pool's two ``[L, N_kv]`` scale rows after them), LRU-ordered
     and bounded by ``max_bytes``. With a :class:`DiskKVTier` attached,
     spills write through to disk and host misses fall through to it, a
-    disk hit re-entering the host pool. Thread-safe."""
+    disk hit re-entering the host pool; with a :class:`PeerKVTier` the
+    fallthrough goes one hop further (host -> disk -> peer) and a peer hit
+    re-enters the host pool the same way. Thread-safe."""
 
-    def __init__(self, max_bytes: int, disk: DiskKVTier | None = None) -> None:
+    def __init__(
+        self,
+        max_bytes: int,
+        disk: DiskKVTier | None = None,
+        peer: PeerKVTier | None = None,
+    ) -> None:
         self._lock = threading.Lock()
         self.max_bytes = int(max_bytes)
         self.disk = disk
+        self.peer = peer
         self._entries: 'OrderedDict[bytes, tuple[torch.Tensor, ...]]' = OrderedDict()  # guarded by _lock
         self._bytes = 0  # guarded by _lock
 
@@ -569,14 +699,32 @@ class HostKVTier:
             self._bytes -= _nbytes(arrays)
 
     def lookup(self, digest: bytes) -> str | None:
-        """Which tier holds ``digest`` (``'host'``, ``'disk'`` or None):
-        membership only, no load and no LRU touch."""
+        """Which tier holds ``digest`` (``'host'``, ``'disk'``, ``'peer'``
+        or None): membership only, no load and no LRU touch; the peer
+        probe (a bounded fabric round trip) comes last."""
         with self._lock:
             if digest in self._entries:
                 return 'host'
         if self.disk is not None and self.disk.contains(digest):
             return 'disk'
+        if self.peer is not None and self.peer.contains(digest):
+            return 'peer'
         return None
+
+    def contains_local(self, digest: bytes) -> bool:
+        """Host or disk membership, the ``KVBlockServer``'s HAS answer:
+        never this replica's own peers (two replicas would bounce a miss
+        between them)."""
+        with self._lock:
+            if digest in self._entries:
+                return True
+        return self.disk is not None and self.disk.contains(digest)
+
+    def encoded_local(self, digest: bytes) -> bytes | None:
+        """One block as a ``.kvblock`` payload from the host or disk tier
+        only, the ``KVBlockServer``'s GET answer."""
+        arrays = self.get(digest, allow_peer=False)
+        return None if arrays is None else encode_kvblock(*arrays)
 
     def put(self, digest: bytes, k, v, k_scale=None, v_scale=None) -> bool:
         """Adopt one spilled block (CPU tensors the tier may keep)."""
@@ -592,16 +740,19 @@ class HostKVTier:
             self._evict_over_budget_locked()
         return True
 
-    def get(self, digest: bytes) -> tuple[torch.Tensor, ...] | None:
+    def get(self, digest: bytes, *, allow_peer: bool = True) -> tuple[torch.Tensor, ...] | None:
         """``(K, V)`` or ``(K, V, K_scale, V_scale)`` for ``digest``,
-        refreshing its LRU slot; a host miss falls through to disk and a
-        disk hit re-enters the host pool."""
+        refreshing its LRU slot; a host miss falls through to disk, then
+        (``allow_peer``) to the peers, and a hit there re-enters the host
+        pool."""
         with self._lock:
             entry = self._entries.get(digest)
             if entry is not None:
                 self._entries.move_to_end(digest)
                 return entry
         loaded = self.disk.get(digest) if self.disk is not None else None
+        if loaded is None and allow_peer and self.peer is not None:
+            loaded = self.peer.get(digest)
         if loaded is None:
             return None
         with self._lock:

@@ -1,7 +1,7 @@
 """Parallelism of the port: device meshes over ``torch.distributed``,
 sharding rules and the collectives a sharded forward issues, joining and
-spawning ranks, and the embedding entry point's compute platforms
-(``launcher``). The counterpart of ``distllm_tpu.parallel``: a JAX mesh
+spawning ranks, the entry points' compute platforms (``launcher``), and
+the ZMQ task fabric with its per-host worker (``fabric``, ``worker``). The counterpart of ``distllm_tpu.parallel``: a JAX mesh
 is one program over many devices and XLA inserts the collectives; here a
 rank is a process holding its slices, and the model code issues them
 (``comm``)."""

@@ -124,8 +124,9 @@ def test_tokenize_gives_equal_datasets(tmp_path):
 def test_the_tokenization_job_reads_the_jax_yaml(tmp_path):
     """``python -m distllm_tpu_torch.distributed_tokenization --config``
     on a JAX YAML: the same datasets as the JAX job, an audit copy the JAX
-    ``Config`` reads back, the same refusals; the pod configs are refused
-    naming ROADMAP A11b."""
+    ``Config`` reads back, the same refusals; a ``slurm`` compute config
+    without ``account`` and ``queue`` is refused as the JAX config refuses
+    it."""
     import yaml
 
     import distllm_tpu.distributed_tokenization as jax_tok
@@ -153,7 +154,10 @@ def test_the_tokenization_job_reads_the_jax_yaml(tmp_path):
             jax_tok.TokenizerConfig(**bad)
         with pytest.raises(ValueError):
             port_tok.TokenizerConfig.from_dict(bad)
-    with pytest.raises(NotImplementedError, match='ROADMAP A11b'):
+    with pytest.raises(ValueError):
+        jax_tok.Config(input_dir='x', output_dir='y', tokenizer_config={},
+                       compute_config={'name': 'slurm'})
+    with pytest.raises(ValueError, match='missing keys'):
         port_tok.Config(input_dir='x', output_dir='y', tokenizer_config={},
                         compute_config={'name': 'slurm'})
     empty = port_tok.Config(input_dir=str(tmp_path / 'in'), output_dir=str(tmp_path / 'none'),

@@ -293,15 +293,19 @@ def test_int8_run_embedding_matches_jax_end_to_end(tmp_path, checkpoint_q):
 
 
 def test_unported_strategies_raise_naming_the_roadmap(tmp_path, checkpoint):
-    """What the port still refuses names its ROADMAP item: the pod compute
-    configs (the fabric, A11); a bad quantization mode is a ValueError;
-    a Mixtral checkpoint, refused until its slice, now embeds as JAX's."""
+    """A bad quantization mode is a ValueError; the pod compute configs,
+    refused until the fabric's slice (A11b), are taken as JAX's; a Mixtral
+    checkpoint, refused until its slice, now embeds as JAX's."""
     with pytest.raises(ValueError, match='unknown quantization mode'):
         get_encoder({'name': 'auto', 'quantization': 'int4',
                      'pretrained_model_name_or_path': str(checkpoint)}, device='cpu')
     config = json.loads(_run_config(tmp_path, checkpoint, 'x').read_text())
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-        port_embedding.Config(**{**config, 'compute_config': {'name': 'pod'}})
+    pod = {'name': 'pod', 'bind_address': 'tcp://*:6000', 'retries': 2}
+    assert port_embedding.Config(**{**config, 'compute_config': pod}).compute_config == pod
+    from distllm_tpu.parallel.launcher import get_compute_config as jax_compute_config
+    from distllm_tpu_torch.parallel.launcher import get_compute_config
+
+    assert get_compute_config(pod).to_dict() == jax_compute_config(pod).model_dump()
     # A Mixtral checkpoint is served since its slice (A10a): get_encoder
     # builds it in both packages, and the embeddings agree.
     from distllm_tpu.embed.encoders import get_encoder as jax_get_encoder

@@ -374,14 +374,22 @@ def test_workstation_config_runs_as_jax(tmp_path):
 
 @pytest.mark.parametrize('name', ['pod', 'pbspro', 'slurm'])
 def test_pod_configs_raise_naming_a11(tmp_path, name):
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-        launcher.get_compute_config({'name': name})
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-        port_embedding.Config(
-            input_dir=tmp_path, output_dir=tmp_path, dataset_config={},
-            encoder_config={}, pooler_config={}, embedder_config={},
-            writer_config={}, compute_config={'name': name},
-        )
+    """The pod configs are ported (ROADMAP A11b): the embedding config
+    takes each as JAX's does, and the scheduler configs raise, as JAX's
+    pydantic models do, when ``account`` and ``queue`` are missing."""
+    required = {} if name == 'pod' else {'account': 'a', 'queue': 'q'}
+    kwargs = dict(input_dir=tmp_path, output_dir=tmp_path, dataset_config={},
+                  encoder_config={}, pooler_config={}, embedder_config={},
+                  writer_config={})
+    config = port_embedding.Config(**kwargs, compute_config={'name': name, **required})
+    assert launcher.get_compute_config(config.compute_config).name == name
+    assert (launcher.get_compute_config(config.compute_config).to_dict()
+            == jax_launcher.get_compute_config({'name': name, **required}).model_dump())
+    if name != 'pod':
+        with pytest.raises(ValueError):
+            jax_launcher.get_compute_config({'name': name})
+        with pytest.raises(ValueError, match='missing keys'):
+            port_embedding.Config(**kwargs, compute_config={'name': name})
 
 
 # ------------------------------------- run_embedding on the ESM-2 example

@@ -292,8 +292,14 @@ def test_the_example_yaml_itself_loads_in_both():
     port = port_job.Config(**raw)
     assert port.generator_config == jax_job.Config(**raw).generator_config
     assert port.glob_patterns == ['*.jsonl'] and port.compute_config == {'name': 'local'}
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+    # The pod configs are ported (ROADMAP A11b): a slurm config without
+    # account and queue is refused as the JAX config refuses it.
+    with pytest.raises(ValueError):
+        jax_job.Config(**{**raw, 'compute_config': {'name': 'slurm'}})
+    with pytest.raises(ValueError, match='missing keys'):
         port_job.Config(**{**raw, 'compute_config': {'name': 'slurm'}})
+    slurm = {'name': 'slurm', 'account': 'a', 'queue': 'q'}
+    assert port_job.Config(**{**raw, 'compute_config': slurm}).compute_config == slurm
     no_match = port_job.Config(**{**raw, 'glob_patterns': ['*.none']})
     assert no_match.glob_patterns == ['*.none']
 

@@ -141,5 +141,11 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.cli',
         'distllm_tpu_torch.cli_commands',
         'distllm_tpu_torch.protein_search',
+        'distllm_tpu_torch.parallel.fabric',
+        'distllm_tpu_torch.parallel.worker',
+        'distllm_tpu_torch.router',
+        'distllm_tpu_torch.router.affinity',
+        'distllm_tpu_torch.router.app',
+        'distllm_tpu_torch.router.__main__',
     }
     assert expected <= set(result['imported'])
