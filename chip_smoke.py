@@ -118,6 +118,8 @@ carried on):
    the weights quantized on the card; K2 must launch 7 x layers x
    forward passes, every launch on the tensor-core route, and its plain
    version never, K1 as in phase 6;
+6b-6g run Mistral-7B widths at ``SHARED_LAYERS`` = 16 of its 32 layers
+   (depth cut to keep the run's time; 16-16c stay at 32).
 6b. serve with an int8 KV pool — the JAX ``gen_kvq`` stage's workload (64
    greedy prompts of 32..192 tokens, every third behind a shared 32-token
    prefix, 16..96 new tokens each; the prefix cache off here, on in 6d;
@@ -131,7 +133,7 @@ carried on):
    on the split-KV route, its plain op never, and the int8 pool must take
    under 0.51 of the bf16 pool's bytes; every decode step of each arm is a
    graph replay, as in phase 6;
-6c. graph window — full-width Mistral-7B bf16 (32 layers, a pool of
+6c. graph window — full-width Mistral-7B bf16 (16 of 32 layers, a pool of
    N(0, 1) K/V made on the card): one 8-step decode window of 8 rows of
    about 1024 keys (one row's budget ending mid-window), greedy and then
    sampled, through the engine's captured graphs and through the eager
@@ -231,7 +233,7 @@ carried on):
     those through the plain op with speculation (``draft_k=4``) and mixed
     windows off and on;
 14. protein embed — ESM-2 650M at ``facebook/esm2_t33_650M_UR50D``'s
-    config (vocab 33, hidden 1280, 20 heads, intermediate 5120) cut to 17
+    config (vocab 33, hidden 1280, 20 heads, intermediate 5120) cut to 9
     of its 33 layers (``PROTEIN_LAYERS``), bf16, random weights made on
     the card from seed 0: the stages of ``embedding_worker`` under a ``workstation``
     compute config (``max_workers: 1``) over a FASTA file of 2048 random
@@ -244,7 +246,7 @@ carried on):
     launch layers x the batches, all on the tensor-core route, its plain
     version never. Sequences/s, residues/s, device GiB allocated and at
     peak, and the padding share are printed;
-14b. ESM-C 600M (1152 / 18 heads, ffn 3072; 18 of its 36 layers) the same
+14b. ESM-C 600M (1152 / 18 heads, ffn 3072; 9 of its 36 layers) the same
     way over the same sequences through the ``sequence_per_line`` dataset
     on a copy written one per line: ``[2048, 1152]``, K3 layers x batches;
 14c. ModernBERT-base at ``answerdotai/ModernBERT-base``'s config (vocab
@@ -340,7 +342,7 @@ carried on):
     and through the plain op: attribution off and on give identical
     tokens, and so does ``dispatch`` x2 under 3 retries.
 17. the pipelined ``generate_ids`` — full-width Mistral-7B bf16 at
-    ``PIPE_LAYERS`` = 16 of its 32 layers (depth cut to keep the run's
+    ``PIPE_LAYERS`` = 8 of its 32 layers (depth cut to keep the run's
     time; weights made again from seed 0), block 16, 1400 blocks, 32
     slots, 640-token rows, 16-step windows, the default (Python) scheduler: 128
     greedy prompts of 32..512 tokens, 64..128 new each, with the four
@@ -376,9 +378,9 @@ carried on):
     the compile series count the kernel builds and graph captures, and
     every series ROADMAP A6b listed at zero moves;
 18. MCQA — inside phase 15's run, over the registry's warm Mistral-7B
-    generator (32 layers, bf16): 4096 chunks embedded by ``run_embedding``
+    generator (``RAG_MODEL``: 16 of 32 layers, bf16): 4096 chunks embedded by ``run_embedding
     through a BERT-base checkpoint written on the card (K3) and merged;
-    64 questions made from them (a stem, four options, the reference and
+    ``MCQA_QUESTIONS`` questions made from them (a stem, four options, the reference and
     the source ``chunk_id``); ``run_mcqa`` from a YAML on disk with
     ``retriever_config`` (BERT-base queries, K3), the model behind a
     ``ChatServer`` reached over HTTP (``ApiGenerator`` ->
@@ -404,7 +406,7 @@ carried on):
 19. Mixtral-8x7B — ``get_generator`` with ``model: {name: mixtral}`` and
     ``quantization: int8`` at full width and depth (32 layers, 8 experts,
     top 2; random weights quantized layer by layer as they are drawn): 16
-    greedy prompts of 32..512 tokens x 64 new, then 4 requests over HTTP
+    greedy prompts of 32..512 tokens x 32 new, then 2 requests over HTTP
     (16 new tokens each)
     through ``ChatServer``; the int8 weight GiB, the build and capture
     seconds, each graph pool's MiB, tok/s and wall ms a decode pass beside
@@ -416,7 +418,7 @@ carried on):
 19b. Mixtral identity — Mixtral-8x7B widths at depth 2 in fp32: greedy
     tokens through K1 (float weights) and through K1 + K2 (int8 weights)
     equal the plain ops';
-19c. Mixtral speculation and mixed windows — depth 4, bf16 over int8
+19c. Mixtral speculation and mixed windows — depth 2 (cut from 4), bf16 over int8
     weights: ``draft_k=4`` (drafts from the off arm's stream) and mixed
     windows with chunked prefill against the arm with neither; agreement
     shares printed (bf16: not asserted), each arm's K1 / K2 launches
@@ -429,7 +431,8 @@ carried on):
     so the two ranks of ``tensor_parallel_size: 2`` share the card over
     gloo (collectives staged through the host, windows eager): what the
     card shows is correctness and K1 / K2 at each rank's shard shapes,
-    not a TP speed. Mistral-7B bf16 at full width and depth through
+    not a TP speed. Mistral-7B bf16 at full width, 16 of its 32 layers
+    (depth cut to keep the run's time), through
     ``get_generator`` (this process rank 0, rank 1 spawned by the
     generator; each rank draws the seed's weights leaf by leaf and keeps
     its slices): 8 greedy prompts of 64..512 tokens x 16 new; each rank
@@ -443,7 +446,7 @@ carried on):
     all-reduces: the decode windows' wall against the host time in the
     exchange and in draining rank 0's queued kernels, and rank 0's
     kernel device time;
-20a. Mixtral-8x7B int8 at full width, 8 of 32 layers, tp2 through
+20a. Mixtral-8x7B int8 at full width, 4 of 32 layers, tp2 through
     ``get_generator``: K1 layers x passes and K2 4 x layers x passes (q /
     k / v column-parallel, o row-parallel with its whole scales) on both
     ranks, per-rank weight GiB;
@@ -480,7 +483,7 @@ carried on):
     all-reduces on the card; every worker gets the poison pill and exits 0;
 21b. the router (``python -m distllm_tpu_torch.router``) over two
     ``python -m distllm_tpu_torch.chat_server`` processes, Mistral-7B bf16
-    at full width and depth, pools of 48 blocks of 16 and 3 slots, under
+    at full width and 16 of 32 layers, pools of 48 blocks of 16 and 3 slots, under
     the JAX ``gen_router`` stage's small tier (32 requests at 2 rps, 6
     sessions, warm share 0.75, a 144-token shared prefix): round-robin and
     prefix_affinity each over a fresh pair; warm TTFT p50 / p95, the
@@ -498,8 +501,37 @@ carried on):
     control C has no peer: fp32 and int8 weights (K2) at depth 2, B's
     tokens equal C's; bf16 at full depth with a 1024-token prompt, B's and
     C's first-token ms, fetch ms per MiB and A's served bytes.
+22. the KV tiers under tensor parallelism (ROADMAP A10d) — Mistral-7B
+    bf16 at full width, 16 of 32 layers, tp2 over gloo on the card with a
+    host and a disk tier on a 48-block pool (rank 0's tiers hold whole
+    blocks; each rank gathers and promotes its own heads), three
+    400-token prefixes asked twice in turns, 4 new tokens; one rank on the
+    same traffic beside it: spills and promotions, per-rank bytes and ms
+    per MiB, rank 0's tier blocks and bytes (equal to one rank's), the
+    payloads' full-head shape, K1 layers x passes on both ranks at 16 / 4
+    heads. Then fp32 at depth 2: tp2 with tiers == one rank with them ==
+    tp2 with the tiers off (20b's tp2 engine serves that arm) == one rank
+    cold, a fresh one-rank engine on
+    the tp2 disk directory promoting from it with 0 mismatches, and an
+    int8 KV pool at tp2 == one rank (K1's int8 mode on both ranks);
+22a. peer adoption — the fp32 one-rank engine adopts the tp2 engine's
+    spilled blocks through its ``KVBlockServer``, and the reverse; first
+    tokens equal a cold run's;
+22b. the data-sharded index — inside phase 15's run, on its corpus and
+    index files: every tier at ``mesh: {data: n}`` (n = 1, 2, 4; ubinary
+    1, 2), the shards sharing the one card (a placement test, not a
+    multi-card speed), 64 queries through the BERT-base retriever (K3
+    layers x batches): indices and scores bitwise ``data`` 1's; device ms
+    of the top-k beside its bound;
+22c. BERT-base at tp2 (``TorchEncoder.shard``, two ranks over gloo on the
+    card) on 256 of phase 10's texts against one device: fp32 within
+    ``EMBED_RTOL`` / ``EMBED_ATOL``, bf16 within twice one device's bf16
+    error plus a bf16 step; K3 on each rank at 6 of 12 heads, layers x
+    batches (phase 4 times K3 at that shard shape).
 
-Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d, 17-17d, 18-18d, 19-19d, 20-20d and 21-21d prints its seconds. The last three lines of
+Each of phases 3d, 6f, 6g, 8d, 13, 13b, 14-14d, 15-15e, 16-16d, 17-17d,
+18-18d, 19-19d, 20-20d, 21-21d and 22-22c prints its seconds (the others
+under ``[time]``). The last three lines of
 standard output are ``{"kernels": [...]}`` (K1, K3, K2 with their cases,
 launches by route and, beside each decode headline, the prefill
 headline, K1's int8-KV mode under ``int8_kv``, its mixed mode under
@@ -512,7 +544,7 @@ verify rows under ``verify`` and 17c's int8 launches under
 ``checkpoint``, phases 18-18d's K1 and K3 launches under ``mcqa`` and
 ``cli``, phases 19-19d's K1 and K2 launches under ``mixtral``, phases
 20-20c's under ``tensor_parallel``, phases 21-21d's under
-``control_plane``), the card's
+``control_plane``, phases 22-22c's under ``mesh_axes``), the card's
 name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -557,10 +589,14 @@ ESM2_650M_HF = {
     'num_attention_heads': 20, 'intermediate_size': 5120, 'layer_norm_eps': 1e-5,
     'token_dropout': True, 'mask_token_id': 32, 'pad_token_id': 1,
 }
-# Phases 14 and 14b run ESM-2 650M and ESM-C 600M at full width and half
-# depth (17 of 33 and 18 of 36 layers), so the whole run keeps its time
-# budget as later phases join it; 14d holds both at depth 2 in fp32.
-PROTEIN_LAYERS = {'esm2_650m': 17, 'esmc_600m': 18}
+# Phases 14 and 14b run ESM-2 650M and ESM-C 600M at full width and a
+# quarter of their depth (9 of 33 and of 36 layers; cut from half), so
+# the whole run keeps its time budget as later phases join it; 14d holds
+# both at depth 2 in fp32.
+PROTEIN_LAYERS = {'esm2_650m': 9, 'esmc_600m': 9}
+# Phases 6b-6g: Mistral-7B widths at 16 of its 32 layers (their depth cut
+# to keep the whole run's time; 16-16c stay at 32).
+SHARED_LAYERS = 16
 # K3's cases at the three models' shapes (phase 4): (name, batch, S, heads,
 # sliding-window half width or None). ModernBERT attends within |i - j| <= 64.
 K3_MODEL_CASES = (
@@ -573,6 +609,8 @@ K3_MODEL_CASES = (
 # two layers and the mean pool keep that far inside 1e-4 relative, and
 # 1e-5 absolute covers components near zero.
 EMBED_RTOL, EMBED_ATOL = 1e-4, 1e-5
+# K3 at phase 22c's shard shape (BERT-base, 6 of 12 heads a rank).
+TP_K3_CASES = ('tp2_embed_512x288_6heads',)
 DEVICE = 'cuda'
 
 
@@ -1448,6 +1486,12 @@ def phase_encoder_kernel(torch, tea):
     case = k3_case(torch, rng, 64, 192, rng.integers(1, 193, size=64), bf16,
                    heads=32, head_dim=24)
     results.append(run_k3_case(torch, tea, 'hd24_64x192', case, 10))
+    del case
+    # Phase 22c's shard shape: BERT-base's embed batch at one rank's 6 of
+    # 12 heads (tensor_parallel_size 2).
+    lens = rng.integers(288 - 31, 289, size=512)
+    case = k3_case(torch, rng, 512, 288, lens, bf16, heads=BERT_HEADS // 2)
+    results.append(run_k3_case(torch, tea, TP_K3_CASES[0], case, 5))
     del case
     # The protein and ModernBERT phases' shapes: unsorted protein batches
     # (the embedder sorts by whitespace words, which a sequence has one
@@ -3882,12 +3926,13 @@ RAG_CHAT_REQUESTS, RAG_CHAT_TOP_K = 16, 5
 EVAL_ITEMS = 64
 JOB_FILES, JOB_CHUNKS, JOB_WORDS = 4, 32, (256, 1024)
 IDENTITY_INDEX_ROWS = 4096
-# The generator of phases 15b-15d, one warm instance through the registry:
-# Mistral-7B widths ({} = MistralConfig's defaults), bf16, random weights
-# from seed 0, 32 slots, 64 greedy tokens, the prefix cache on, a 120 s
-# deadline and 2 dispatch retries (the chat YAML's defaults for an engine,
-# set here too so the three phases share one instance).
-RAG_MODEL: dict = {}
+# The generator of phases 15b-15d and 18, one warm instance through the
+# registry: Mistral-7B widths at 16 of its 32 layers (depth cut to keep the
+# whole run's time), bf16, random weights from seed 0, 32 slots,
+# 64 greedy tokens, the prefix cache on, a 120 s deadline and 2 dispatch
+# retries (the chat YAML's defaults for an engine, set here too so the
+# three phases share one instance).
+RAG_MODEL: dict = {'num_layers': 16}
 RAG_BLOCKS, RAG_SLOTS, RAG_NEW = 3072, 32, 64
 # The retriever's query encoder: BERT-base (None = BertConfig's defaults).
 RETRIEVER_BERT = None
@@ -4886,9 +4931,10 @@ def phase_load_identity(torch, tpa, cfg):
 # Phase 17: the pipelined generate_ids at Mistral-7B widths (PIPE_LAYERS
 # layers, bf16, seed 0's weights): block 16, 32 slots, 640-token rows, 16-step
 # windows; 128 greedy prompts of 32..512 tokens, 64..128 new each. Its depth
-# is cut from 32 to keep the whole run's time (a closed loop, unlike phase
-# 16's open one, whose time the arrivals set: at 16 layers it took as long).
-PIPE_LAYERS = 16
+# is cut from 32 (to 16, then 8) to keep the whole run's time (a
+# closed loop, unlike phase 16's open one, whose time the arrivals set: at
+# 16 layers it took as long).
+PIPE_LAYERS = 8
 PIPE_ENGINE = dict(block_size=BLOCK_SIZE, num_blocks=1400, max_num_seqs=32,
                    max_model_len=640, decode_steps=16)
 PIPE_PROMPTS, PIPE_LENS, PIPE_NEW, PIPE_STOPS = 128, (32, 512), (64, 128), 4
@@ -5511,12 +5557,14 @@ def phase_debug_surface(torch, tpa, card, generator, tmp: Path):
 
 # ------------------------------------------------------------ phases 18-18d
 # The MCQA harness, the booted server and the CLI (ROADMAP A11a).
-MCQA_CHUNKS, MCQA_FILES, MCQA_QUESTIONS, MCQA_TOP_K = 4096, 4, 32, 3
+# 16 questions (cut from 64, then 32, to keep the run's time).
+MCQA_CHUNKS, MCQA_FILES, MCQA_QUESTIONS, MCQA_TOP_K = 4096, 4, 16, 3
 # The run's knobs: 8 workers, client batches of 16; the server answers
 # with its generator's max_tokens (RAG_NEW), as the JAX server does.
 MCQA_RUN = dict(parallel_workers=8, batch_size=16, batch_timeout=0.5, request_max_tokens=32,
                 checkpoint_every=16, retrieval_top_k=MCQA_TOP_K)
-MCQA_BOOT_QUESTIONS, MCQA_IDENTITY_QUESTIONS, MCQA_IDENTITY_NEW = 16, 16, 16
+# 18b asks 8 questions (cut from 16 to keep the run's time).
+MCQA_BOOT_QUESTIONS, MCQA_IDENTITY_QUESTIONS, MCQA_IDENTITY_NEW = 8, 16, 16
 # The booted server's engine (vLLM's argument names). Its generator keeps
 # the JAX default of 2000 tokens, so max_model_len bounds each answer.
 MCQA_BOOT_VLLM = dict(tensor_parallel_size=1, max_model_len=256, max_num_seqs=16,
@@ -6056,7 +6104,9 @@ MIXTRAL_GENERATOR = {
 }
 MIXTRAL_8X7B = dict(num_layers=32, num_experts=8, experts_per_token=2, hidden_size=4096,
                     intermediate_size=14336, num_heads=32, num_kv_heads=8, vocab_size=32000)
-MIXTRAL_PROMPTS, MIXTRAL_PROMPT_LENS, MIXTRAL_HTTP = 16, (32, 512), 4
+# The main path's 16 prompts ask 32 new tokens (cut from 64) and 2 HTTP
+# requests follow (cut from 4), to keep the whole run's time.
+MIXTRAL_PROMPTS, MIXTRAL_PROMPT_LENS, MIXTRAL_HTTP, MIXTRAL_NEW = 16, (32, 512), 2, 32
 # Phase 19a: one full-width bank of two layers, quantized on the card.
 MIXTRAL_BANK = (2, 8, 4096, 14336)
 # The estimate written before the first run (not a target): a decode pass
@@ -6123,7 +6173,7 @@ def phase_serve_mixtral(torch, tpa, tqm, card):
     ``get_generator`` (32 layers, 8 experts, top 2, hidden 4096,
     intermediate 14336, 32 / 8 heads, vocab 32000; random weights from
     seed 0, quantized layer by layer as they are drawn): 16 greedy prompts
-    of 32..512 tokens x 64 new, then 4 requests of 16 new over HTTP through
+    of 32..512 tokens x ``MIXTRAL_NEW`` new, then ``MIXTRAL_HTTP`` requests of 16 new over HTTP through
     ``ChatServer`` on the same generator. K1 on every layer of every
     pass (prefill on the tensor cores, decode on the split-KV route), K2
     on q / k / v / o (4 a layer, tensor cores), the plain versions never;
@@ -6169,7 +6219,7 @@ def phase_serve_mixtral(torch, tpa, tqm, card):
         f'{built["allocated_gib"]:.2f} GiB allocated, peak {built["build_peak_gib"]:.2f} GiB of '
         f'{card_gib:.1f}; graph pools {json.dumps(built["pool_mib"])} MiB')
     prompts = smoke_prompts(np.random.default_rng(19), MIXTRAL_PROMPTS, *MIXTRAL_PROMPT_LENS)
-    sampling = SamplingParams(temperature=0.0, max_tokens=64)
+    sampling = SamplingParams(temperature=0.0, max_tokens=MIXTRAL_NEW)
     rec = instrument_windows(torch, engine)
     marks = graph_marks(engine)
     stats0 = dict(engine.stats)
@@ -6187,8 +6237,8 @@ def phase_serve_mixtral(torch, tpa, tqm, card):
     if len(widths) != eager or len(outputs) != MIXTRAL_PROMPTS or not all(
             isinstance(o, str) for o in outputs):
         fail(f'{tag}: {len(outputs)} outputs, {len(widths)} eager passes recorded for {eager}')
-    if run['generated_tokens'] != MIXTRAL_PROMPTS * 64:
-        fail(f'{tag}: {run["generated_tokens"]} tokens, expected {MIXTRAL_PROMPTS} x 64')
+    if run['generated_tokens'] != MIXTRAL_PROMPTS * MIXTRAL_NEW:
+        fail(f'{tag}: {run["generated_tokens"]} tokens, expected {MIXTRAL_PROMPTS} x {MIXTRAL_NEW}')
     graphs = check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, eager, widths, 'model')
     k1, k1_routes = tpa.ragged_paged_attention.launches, dict(
         tpa.ragged_paged_attention.launches_by_route)
@@ -6306,7 +6356,8 @@ def phase_identity_mixtral(torch, tpa, tqm):
 
 
 def phase_spec_mixed_mixtral(torch, tpa, tqm, card):
-    """19c. Mixtral-8x7B widths at depth 4, bf16 activations over int8
+    """19c. Mixtral-8x7B widths at depth 2 (cut from 4 to keep the run's
+    time), bf16 activations over int8
     weights: ``draft_k=4`` (drafts from the off arm's greedy stream, a
     :class:`ProposalDrafter`) and mixed windows with chunked prefill,
     each against the arm with neither. Agreement shares are printed, not
@@ -6316,7 +6367,7 @@ def phase_spec_mixed_mixtral(torch, tpa, tqm, card):
     from distllm_tpu_torch.generate.engine import SamplingParams
     from distllm_tpu_torch.models import mixtral
 
-    cfg = mixtral.MixtralConfig(num_layers=4)
+    cfg = mixtral.MixtralConfig(num_layers=2)
     params = mixtral.init(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE,
                           quantization='int8')
     rng = np.random.default_rng(21)
@@ -6458,14 +6509,16 @@ def phase_checkpoint_mixtral(torch, tpa, tqm, card, tmp: Path):
 # share cuda:0 over gloo (collectives staged through the host; windows run
 # eagerly): what this card can show is correctness and K1 / K2 at the
 # ranks' shard shapes, not a TP speed.
-TP_GENERATOR = {
-    'name': 'torch', 'model': {'name': 'mistral'}, 'seed': 0, 'tensor_parallel_size': 2,
+TP_GENERATOR = {  # Mistral-7B at 16 of its 32 layers (depth cut to keep the run's time)
+    'name': 'torch', 'model': {'name': 'mistral', 'num_layers': 16}, 'seed': 0,
+    'tensor_parallel_size': 2,
     'tensor_parallel_backend': 'gloo', 'max_num_seqs': 8, 'block_size': BLOCK_SIZE,
     'num_blocks': 512, 'max_model_len': 1024, 'temperature': 0.0, 'max_tokens': 16,
 }
 TP_PROMPTS, TP_PROMPT_LENS, TP_NEW = 8, (64, 512), 16
-# Phase 20a: Mixtral-8x7B int8 at full width, 8 of its 32 layers.
-TP_MIXTRAL_MODEL, TP_MIXTRAL_NEW = {'name': 'mixtral', 'num_layers': 8}, 16
+# Phase 20a: Mixtral-8x7B int8 at full width, 4 of its 32 layers (8 before
+# the cut to keep the run's time).
+TP_MIXTRAL_MODEL, TP_MIXTRAL_NEW = {'name': 'mixtral', 'num_layers': 4}, 16
 # Phase 20b: fp32 at Mistral-7B widths, depth 2; 20c: bf16, depth 4, on
 # an NCCL group of one rank.
 TP_IDENTITY_MODEL = dict(num_layers=2, dtype='float32')
@@ -6594,7 +6647,7 @@ def profile_gloo_decode(torch, generator):
 
 
 def phase_tp_serve(torch, tpa, card):
-    """20. Mistral-7B bf16 at full width and depth, ``tensor_parallel_size:
+    """20. Mistral-7B bf16 at full width (``TP_GENERATOR``'s depth), ``tensor_parallel_size:
     2`` through ``get_generator`` (random weights from seed 0; each rank
     draws them leaf by leaf and keeps its slices), the two ranks on one
     card over gloo: 8 greedy prompts of 64..512 tokens x 16 new. Each rank
@@ -6710,7 +6763,7 @@ def phase_tp_serve(torch, tpa, card):
 
 
 def phase_tp_mixtral(torch, tpa, tqm, card):
-    """20a. Mixtral-8x7B int8 at full width, 8 of its 32 layers, at
+    """20a. Mixtral-8x7B int8 at full width, ``TP_MIXTRAL_MODEL``'s layers, at
     ``tensor_parallel_size: 2`` through ``get_generator`` (each rank draws
     one layer's leaves at a time, quantizes them whole and keeps its
     slices: the row-parallel ``o`` with its whole scales). K1 on every
@@ -6780,7 +6833,10 @@ def phase_tp_identity(torch, tpa, tqm):
     with the whole scales). In each, greedy tokens of tp2 on the kernels
     (two ranks over gloo on the card) equal tp1's on the kernels and tp1's
     on the plain ops; on rank 0 K1 runs layers x passes and (int8) K2 7 x
-    layers x passes, all on the CUDA cores, the plain ops never."""
+    layers x passes, all on the CUDA cores, the plain ops never. The float
+    arm's tp2 engine (no tiers, no prefix cache) then serves phase 22's
+    fp32 traffic one request at a time: its tokens are 22's "tp2 with the
+    tiers off" (returned under ``tier_traffic_tokens``)."""
     from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
     from distllm_tpu_torch.generate.engine.sharded import ShardedEngine, WeightSource
     from distllm_tpu_torch.models import mistral
@@ -6814,6 +6870,10 @@ def phase_tp_identity(torch, tpa, tqm):
         k2 = (tqm.int8_matmul.launches, tqm.int8_matmul_reference.launches)
         cores = (tpa.ragged_paged_attention.launches_by_route['cuda_cores'],
                  tqm.int8_matmul.launches_by_route['cuda_cores'])
+        if not quant:
+            tier_traffic = serve_one_by_one(
+                sharded.engine, tier_tp_workload(cfg.vocab_size, seed=23),
+                SamplingParams(temperature=0.0, max_tokens=TIER_TP_IDENTITY_NEW))
         reports = sharded.close()
         check_tp_reports(f'tp identity {weights} tp2_kernels', reports, sharded.engine)
         want_k2 = 7 * cfg.num_layers * passes if quant else 0
@@ -6832,6 +6892,7 @@ def phase_tp_identity(torch, tpa, tqm):
         if not same:
             fail(f'tp identity {weights}: {outs}')
     result['identical'] = all(r['identical'] for r in result.values())
+    result['tier_traffic_tokens'] = tier_traffic
     return result
 
 
@@ -6940,11 +7001,13 @@ FABRIC_WAIT_S = 300.0  # the longest a worker, replica or router may take to sta
 FABRIC_WORLD_BACKEND = 'nccl'
 # 21b: the JAX gen_router stage's small tier (bench.py:1662-1680) and pool
 # (48 blocks of 16: 6 sessions x 9 prefix blocks exceed one pool), served
-# by two chat-server processes of Mistral-7B bf16 at full width and depth.
+# by two chat-server processes of Mistral-7B bf16 at full width, 16 of its
+# 32 layers (depth cut to keep the run's time).
 ROUTER_LOAD = dict(seed=0, num_requests=32, rate_rps=2.0, num_sessions=6, warm_fraction=0.75,
                    prefix_tokens=144, prompt_tokens=(8, 16), output_tokens=(4, 10),
                    vocab_size=2048)
-ROUTER_GENERATOR = dict(name='torch', model={'name': 'mistral'}, temperature=0.0, max_tokens=8,
+ROUTER_GENERATOR = dict(name='torch', model={'name': 'mistral', 'num_layers': 16},
+                        temperature=0.0, max_tokens=8,
                         block_size=BLOCK_SIZE, num_blocks=48, max_num_seqs=3, max_model_len=256,
                         decode_steps=4, seed=0, enable_prefix_cache=True)
 # 21c: three fp32 replicas at 7B width and depth 2, the prefix cache off (a
@@ -7667,6 +7730,551 @@ def phase_peer(torch, tpa, tqm, card):
     return results
 
 
+# ---------------------------------------------------------- phases 22-22c
+# Phase 22: the host and disk KV tiers at tensor_parallel_size 2 (ROADMAP
+# A10d), two ranks on the card over gloo as in phase 20. Rank 0's tiers
+# hold whole blocks (every KV head); each rank gathers and promotes its own
+# heads. A pool of 48 blocks of 16 under RAG-style traffic: three
+# 400-token prefixes, each asked twice in turns with a 16-token question,
+# so a prefix's second question finds blocks the others' admissions
+# spilled and promotes them; 4 greedy tokens a request.
+TIER_TP_POOL = dict(block_size=BLOCK_SIZE, num_blocks=48, max_num_seqs=4, max_model_len=1024,
+                    decode_steps=4, enable_prefix_cache=True, host_kv_tier_bytes=1 << 30)
+TIER_TP_PREFIX, TIER_TP_PREFIXES, TIER_TP_QUESTION, TIER_TP_NEW = 400, 3, 16, 4
+TIER_TP_MODEL: dict = {'num_layers': 16}  # Mistral-7B widths, 16 of 32 layers, bf16
+# The fp32 arms of 22 and 22a: Mistral-7B widths at depth 2, 8 greedy tokens.
+TIER_TP_IDENTITY_MODEL = TP_IDENTITY_MODEL  # 20b's model: its tp2 engine is the tiers-off arm
+TIER_TP_IDENTITY_NEW = 8
+# 22a: both fp32 tiered engines also serve their host tier to peers and
+# take peers added later (an empty list at construction).
+TIER_TP_PEER = dict(peer_kv_serve_endpoint='tcp://127.0.0.1:0', peer_kv_endpoints=())
+# 22b: phase 15's index at these data axes, the shards sharing the card.
+INDEX_SHARDS = {'float32': (1, 2, 4), 'int8': (1, 2, 4), 'ubinary': (1, 2)}
+# 22c: BERT-base at tensor_parallel_size 2 over the first 256 of phase
+# 10's texts, batches of 64.
+ENCODER_TP_TEXTS, ENCODER_TP_BATCH = 256, 64
+
+
+def tier_tp_workload(vocab_size, seed=22):
+    """Phase 22's prompts: three prefixes, each twice, in turns."""
+    rng = np.random.default_rng(seed)
+    prefixes = [[int(t) for t in rng.integers(4, vocab_size, size=TIER_TP_PREFIX)]
+                for _ in range(TIER_TP_PREFIXES)]
+    return [prefixes[i % TIER_TP_PREFIXES]
+            + [int(t) for t in rng.integers(4, vocab_size, size=TIER_TP_QUESTION)]
+            for i in range(2 * TIER_TP_PREFIXES)]
+
+
+def serve_one_by_one(engine, prompts, sampling):
+    """Each prompt served alone, in order: the evictions, spills and
+    promotions are the same on every engine."""
+    return [engine.generate_ids([p], sampling)[0] for p in prompts]
+
+
+def rank_tier_rates(tier):
+    """A rank's tier report with its spill and promotion-copy ms per MiB."""
+    mib = 2**20
+    out = dict(tier)
+    out['spill_ms_per_mib'] = (tier.get('spill_s', 0.0) * 1e3 / (tier['spilled_bytes'] / mib)
+                               if tier.get('spilled_bytes') else None)
+    out['promote_copy_ms_per_mib'] = (
+        tier.get('promote_copy_s', 0.0) * 1e3 / (tier['promoted_bytes'] / mib)
+        if tier.get('promoted_bytes') else None)
+    return out
+
+
+def tier_rates(summary):
+    """An engine's ``tier_summary`` with spill, promotion staging and copy
+    ms per MiB."""
+    mib = 2**20
+    spilled, promoted = summary['spilled_bytes'] / mib, summary['promoted_bytes'] / mib
+    return dict(
+        summary,
+        spill_ms_per_mib=summary['spill_s'] * 1e3 / spilled if spilled else None,
+        promote_host_ms_per_mib=summary['promote_host_s'] * 1e3 / promoted if promoted else None,
+        promote_copy_ms_per_mib=summary['promote_copy_s'] * 1e3 / promoted if promoted else None,
+        host_gib=summary['host_bytes'] / 2**30,
+    )
+
+
+def check_tier_tp_reports(tag, reports):
+    """Every rank ran each spill and promotion program; rank 0 alone holds
+    the tier, and each rank moved its own heads (equal halves)."""
+    tiers = [r['tier'] for r in reports]
+    if (len({(t.get('spills', 0), t.get('promotions', 0)) for t in tiers}) != 1
+            or not tiers[0].get('spills') or not tiers[0].get('promotions')
+            or len({t.get('spilled_bytes') for t in tiers}) != 1
+            or not tiers[0].get('host_blocks') or 'host_blocks' in tiers[1]):
+        fail(f'{tag}: rank tier reports {tiers}')
+    return [rank_tier_rates(t) for t in tiers]
+
+
+def phase_tp_tiers(torch, tpa, card, tmp: Path):
+    """22. Mistral-7B bf16 at full width (16 of its 32 layers), ``tensor_parallel_size``
+    2 (two ranks on the card over gloo; random weights from seed 0, each
+    rank drawing its slices), host and disk tiers on a 48-block pool,
+    phase 22's RAG traffic; then the same traffic, pool and tiers on one
+    rank for comparison. Per rank: spills and promotions, the bytes of its
+    heads moved and their ms per MiB, the host tier's blocks and bytes
+    (rank 0's: every head); K1 on both ranks at 16 query / 4 KV heads,
+    layers x passes, the plain op never."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine, SamplingParams
+    from distllm_tpu_torch.generate.engine.sharded import ShardedEngine, WeightSource
+    from distllm_tpu_torch.models import mistral
+
+    tag = 'tp tiers'
+    cfg = mistral.MistralConfig(**TIER_TP_MODEL)
+    prompts = tier_tp_workload(cfg.vocab_size)
+    sampling = SamplingParams(temperature=0.0, max_tokens=TIER_TP_NEW)
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    one = LLMEngine(cfg, params, None, EngineConfig(
+        **TIER_TP_POOL, disk_kv_tier_dir=str(tmp / 'tp1_bf16')), device=DEVICE)
+    one.warmup()
+    t0 = time.perf_counter()
+    one_out = serve_one_by_one(one, prompts, sampling)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_tier = tier_rates(one.tier_summary())
+    shut_down(torch, f'{tag} one rank', one)
+    del one, params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded = ShardedEngine(2, cfg, WeightSource('init', seed=0), EngineConfig(
+        **TIER_TP_POOL, disk_kv_tier_dir=str(tmp / 'tp2_bf16')), backend='gloo', devices=DEVICE)
+    engine = sharded.engine
+    engine.warmup()
+    build_s = time.perf_counter() - t0
+    stats0 = dict(engine.stats)
+    # The main path: counts to 0 just before, read just after (rank 1's
+    # from its marks).
+    zero_k1_counts(tpa)
+    engine.mark_kernels('tiers_before')
+    with k1_shapes(torch) as shapes:
+        t0 = time.perf_counter()
+        outs = serve_one_by_one(engine, prompts, sampling)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    engine.mark_kernels('tiers_after')
+    passes = stats_delta(engine, stats0)['forward_passes']
+    k1 = tpa.ragged_paged_attention.launches
+    k1_routes = dict(tpa.ragged_paged_attention.launches_by_route)
+    plain = tpa.ragged_paged_attention_reference.launches
+    summary = tier_rates(engine.tier_summary())
+    payload = engine.kv_tier.get(next(iter(engine.kv_tier._entries)))
+    payload_shapes = [list(a.shape) for a in payload]
+    reports = sharded.close()
+    check_tp_reports(tag, reports, engine)
+    ranks = check_tier_tp_reports(tag, reports)
+    rank1 = rank_launches(reports[1], 'tiers_before', 'tiers_after')
+    agree = greedy_match(outs, one_out)
+    want_shapes = [[cfg.num_layers, BLOCK_SIZE, cfg.num_kv_heads, cfg.head_size]] * 2
+    log(f'[{tag}] {card}: Mistral-7B bf16 at tp2 over gloo on one card (built in '
+        f'{build_s:.2f} s), {len(prompts)} requests of {TIER_TP_PREFIX + TIER_TP_QUESTION} '
+        f'tokens x {TIER_TP_NEW} new in {wall_s:.3f} s (one rank: {one_s:.3f} s); rank 0 '
+        f'tier {json.dumps(summary)}; per rank {json.dumps(ranks)}; one rank '
+        f'{json.dumps(one_tier)}; payload shapes {payload_shapes}; K1 rank 0 {k1} by route '
+        f'{json.dumps(k1_routes)} at (q, KV) heads {sorted(set(shapes))}, rank 1 '
+        f'{json.dumps(rank1)}, plain {plain}; bf16 agreement with one rank {agree:.4f}')
+    if not (summary['spills'] > 0 and summary['promotions'] > 0
+            and summary['payload_mismatches'] == 0 and summary['promotion_failures'] == 0):
+        fail(f'{tag}: {summary}')
+    if payload_shapes != want_shapes or summary['host_bytes'] != one_tier['host_bytes']:
+        fail(f'{tag}: payloads {payload_shapes} (want {want_shapes}), host bytes '
+             f'{summary["host_bytes"]} against one rank\'s {one_tier["host_bytes"]}')
+    shard_heads = (cfg.num_heads // 2, cfg.num_kv_heads // 2)
+    if (k1 != cfg.num_layers * passes or plain or set(shapes) != {shard_heads}
+            or rank1['ragged_paged_attention.launches'] != k1
+            or rank1['ragged_paged_attention_reference.launches']):
+        fail(f'{tag}: K1 {k1} for {cfg.num_layers} x {passes} passes, plain {plain}, shapes '
+             f'{set(shapes)}, rank 1 {rank1}')
+    del sharded, engine
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, wall_s=wall_s, one_rank_s=one_s, forward_passes=passes,
+                launches=k1, launches_by_route=k1_routes,
+                rank1_launches=rank1['ragged_paged_attention.launches'],
+                local_heads=list(shard_heads), tier=summary, ranks=ranks, one_rank=one_tier,
+                payload_shapes=payload_shapes, agreement=agree)
+
+
+def tiered_engine(torch, cfg, params, pool, sharded=False, **extra):
+    """A fp32 engine of phase 22's arms over ``pool``: one rank on
+    ``params``, or tp2 (``sharded``) on the same seed's weights drawn by
+    each rank."""
+    from distllm_tpu_torch.generate.engine import EngineConfig, LLMEngine
+    from distllm_tpu_torch.generate.engine.sharded import ShardedEngine, WeightSource
+
+    config = EngineConfig(**pool, **extra)
+    if sharded:
+        out = ShardedEngine(2, cfg, WeightSource('init', seed=3), config, backend='gloo',
+                            devices=DEVICE)
+        out.engine.warmup()
+        return out
+    engine = LLMEngine(cfg, params, None, config, device=DEVICE)
+    engine.warmup()
+    return engine
+
+
+def phase_tp_tiers_identity(torch, tpa, card, tmp: Path, tp2_off=None):
+    """22 (fp32 arms) and 22a. fp32 at Mistral-7B widths, depth 2, phase
+    22's traffic: tp2 with host and disk tiers == one rank with the same
+    tiers == tp2 with the tiers off (``tp2_off``) == one rank cold (no
+    prefix cache);
+    a fresh one-rank engine on the tp2 engine's disk directory promotes
+    from it (0 mismatches) and gives the cold tokens; an int8 KV pool at
+    tp2 with tiers == one rank with them (K1's int8 mode on both ranks,
+    scale rows spilled and promoted by head). 22a: a one-rank engine
+    adopts the tp2 engine's spilled blocks through its peer server, and
+    the tp2 engine adopts the one-rank engine's: first tokens equal a
+    cold run's. ``tp2_off``: the tiers-off tp2 tokens phase 20b's engine
+    served (same weights and traffic); without them a tp2 engine with the
+    prefix cache on and no tiers serves them here."""
+    from distllm_tpu_torch.generate.engine import SamplingParams
+    from distllm_tpu_torch.models import mistral
+
+    tag = 'tp tiers fp32'
+    cfg = mistral.MistralConfig(**TIER_TP_IDENTITY_MODEL)
+    params = mistral.init(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE)
+    prompts = tier_tp_workload(cfg.vocab_size, seed=23)
+    sampling = SamplingParams(temperature=0.0, max_tokens=TIER_TP_IDENTITY_NEW)
+    cold_pool = {k: v for k, v in TIER_TP_POOL.items() if k != 'host_kv_tier_bytes'}
+    cold_pool['enable_prefix_cache'] = False
+    off_pool = {k: v for k, v in TIER_TP_POOL.items() if k != 'host_kv_tier_bytes'}
+    outs, engines = {}, {}
+    cold = tiered_engine(torch, cfg, params, cold_pool)
+    outs['tp1_cold'] = serve_one_by_one(cold, prompts, sampling)
+    engines['tp1'] = tiered_engine(torch, cfg, params, TIER_TP_POOL,
+                                   disk_kv_tier_dir=str(tmp / 'fp32_tp1'), **TIER_TP_PEER)
+    outs['tp1_tiers'] = serve_one_by_one(engines['tp1'], prompts, sampling)
+    if tp2_off is None:
+        off = tiered_engine(torch, cfg, None, off_pool, sharded=True)
+        tp2_off = serve_one_by_one(off.engine, prompts, sampling)
+        check_tp_reports(f'{tag} tp2 off', off.close(), off.engine)
+        del off
+    outs['tp2_off'] = tp2_off
+    tp2 = tiered_engine(torch, cfg, None, TIER_TP_POOL, sharded=True,
+                        disk_kv_tier_dir=str(tmp / 'fp32_tp2'), **TIER_TP_PEER)
+    engines['tp2'] = tp2.engine
+    zero_k1_counts(tpa)
+    tp2.engine.mark_kernels('before')
+    outs['tp2_tiers'] = serve_one_by_one(tp2.engine, prompts, sampling)
+    tp2.engine.mark_kernels('after')
+    tp2_tier = tier_rates(tp2.engine.tier_summary())
+    k1 = (tpa.ragged_paged_attention.launches,
+          tpa.ragged_paged_attention.launches_by_route['cuda_cores'],
+          tpa.ragged_paged_attention_reference.launches)
+    # A fresh engine, a fresh host tier, the tp2 engine's disk directory.
+    fresh = tiered_engine(torch, cfg, params, TIER_TP_POOL,
+                          disk_kv_tier_dir=str(tmp / 'fp32_tp2'))
+    outs['tp1_from_tp2_disk'] = serve_one_by_one(fresh, prompts, sampling)
+    fresh_tier = fresh.tier_summary()
+    shut_down(torch, f'{tag} fresh', fresh)
+    same = all(o == outs['tp1_cold'] for o in outs.values())
+    log(f'[{tag}] {card}: fp32 depth 2, {len(prompts)} requests: '
+        + ', '.join(outs) + f' identical: {same}; tp2 tier {json.dumps(tp2_tier)}; K1 rank 0 '
+        f'(kernel, CUDA cores, plain) {k1}; the tp2-written directory into one rank: '
+        f'{fresh_tier["promotions"]} promotions of {fresh_tier["promoted_blocks"]} blocks, '
+        f'{fresh_tier["payload_mismatches"]} mismatches, disk reads '
+        f'{fresh.kv_tier.disk.reads if fresh.kv_tier else None}')
+    if not same:
+        fail(f'{tag}: tokens differ: {outs}')
+    if not (tp2_tier['promotions'] > 0 and tp2_tier['payload_mismatches'] == 0
+            and fresh_tier['promoted_blocks'] > 0 and fresh_tier['payload_mismatches'] == 0):
+        fail(f'{tag}: tp2 tier {tp2_tier}; the fresh engine {fresh_tier}')
+    if k1[0] <= 0 or k1[1] != k1[0] or k1[2]:
+        fail(f'{tag}: K1 (kernel, CUDA cores, plain) {k1}')
+    result = dict(identical=same, tp2_tier=tp2_tier, k1_launches=k1[0],
+                  from_tp2_disk=dict(promotions=fresh_tier['promotions'],
+                                     promoted_blocks=fresh_tier['promoted_blocks'],
+                                     payload_mismatches=fresh_tier['payload_mismatches']))
+    del fresh
+    # 22a: peer adoption both ways, against the cold engine's tokens.
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(24)
+    prompt_x, prompt_y, *junk = ([int(t) for t in rng.integers(4, cfg.vocab_size, size=n)]
+                                 for n in (300, 300, TIER_TP_PREFIX, TIER_TP_PREFIX))
+    peer = {}
+    for name, (server, client, prompt) in {
+            'tp1_adopts_tp2': (engines['tp2'], engines['tp1'], prompt_x),
+            'tp2_adopts_tp1': (engines['tp1'], engines['tp2'], prompt_y)}.items():
+        serve_one_by_one(server, [prompt] + junk, sampling)  # spills the prompt
+        client.kv_tier.peer.add_endpoint(server.peer_kv_endpoint)
+        before = client.tier_summary().get('peer_fetched_blocks', 0)
+        got = client.generate_ids([prompt], sampling)[0]
+        want = cold.generate_ids([prompt], sampling)[0]
+        fetched = client.tier_summary().get('peer_fetched_blocks', 0) - before
+        peer[name] = dict(identical=got == want, peer_fetched_blocks=fetched,
+                          served_blocks=server.tier_summary().get('peer_served_blocks', 0))
+        log(f'[tp tiers peer] {card}: {name}: {json.dumps(peer[name])}')
+        if fetched <= 0 or got != want:
+            fail(f'tp tiers peer {name}: fetched {fetched} blocks, tokens {got} vs cold {want}')
+    peer_s = time.perf_counter() - t0
+    reports = tp2.close()
+    check_tp_reports(f'{tag} tp2', reports, tp2.engine)
+    result['ranks'] = check_tier_tp_reports(f'{tag} tp2', reports)
+    rank1 = rank_launches(reports[1], 'before', 'after')
+    if rank1['ragged_paged_attention.launches'] != k1[0]:
+        fail(f'{tag}: rank 1 K1 {rank1}, rank 0 {k1[0]}')
+    shut_down(torch, f'{tag} tp1', engines['tp1'])
+    shut_down(torch, f'{tag} cold', cold)
+    del tp2, engines, cold
+    # The int8 KV pool: scale rows sliced by KV head.
+    t1 = time.perf_counter()
+    int8_outs = {}
+    one = tiered_engine(torch, cfg, params, TIER_TP_POOL, kv_cache_dtype='int8')
+    int8_outs['tp1'] = serve_one_by_one(one, prompts, sampling)
+    shut_down(torch, f'{tag} int8 tp1', one)
+    del one
+    sharded = tiered_engine(torch, cfg, None, TIER_TP_POOL, sharded=True, kv_cache_dtype='int8')
+    zero_k1_counts(tpa)
+    sharded.engine.mark_kernels('before')
+    int8_outs['tp2'] = serve_one_by_one(sharded.engine, prompts, sampling)
+    sharded.engine.mark_kernels('after')
+    int8_tier = tier_rates(sharded.engine.tier_summary())
+    by_kv = dict(tpa.ragged_paged_attention.launches_by_kv)
+    reports = sharded.close()
+    check_tp_reports(f'{tag} int8', reports, sharded.engine)
+    int8_ranks = check_tier_tp_reports(f'{tag} int8', reports)
+    marks = reports[1]['kernel_marks']
+    rank1_int8 = (marks['after']['ragged_paged_attention.launches_by_kv']['int8']
+                  - marks['before']['ragged_paged_attention.launches_by_kv']['int8'])
+    int8_same = int8_outs['tp1'] == int8_outs['tp2']
+    log(f'[{tag} int8] {card}: int8 KV pool, tp2 == one rank: {int8_same}; K1 by KV mode '
+        f'{json.dumps(by_kv)}, rank 1 int8 {rank1_int8}; tier {json.dumps(int8_tier)}; per '
+        f'rank {json.dumps(int8_ranks)}')
+    if (not int8_same or by_kv['int8'] <= 0 or by_kv['model'] or rank1_int8 != by_kv['int8']
+            or int8_tier['promotions'] <= 0 or int8_tier['payload_mismatches']):
+        fail(f'{tag} int8: identical {int8_same}, K1 by KV {by_kv}, rank 1 {rank1_int8}, '
+             f'tier {int8_tier}')
+    del sharded, params
+    torch.cuda.empty_cache()
+    result.update(peer=peer, peer_s=peer_s, int8=dict(identical=int8_same, tier=int8_tier,
+                  ranks=int8_ranks, launches=by_kv['int8'], rank1_launches=rank1_int8),
+                  int8_s=time.perf_counter() - t1)
+    return result
+
+
+def sharded_device_fn(torch, topk, index, q_dev, precision, n):
+    """The sharded index's device top-k on ``q_dev``, as its search runs it."""
+    over = INDEX_TOP_K * INDEX_RESCORE
+    if precision == 'float32':
+        return lambda: topk.topk_inner_product(q_dev, index._corpus, INDEX_TOP_K)
+    if precision == 'int8':
+        codes, scales = (index._int8, None) if index.num_shards > 1 else index._int8
+        return lambda: topk.int8_topk(q_dev, codes, scales, over, n_valid=n)
+    bits = torch.from_numpy(topk.pack_sign_bits(q_dev.cpu().numpy())).to(q_dev.device)
+    return lambda: topk.hamming_topk(bits, index._packed, over, n_valid=n)
+
+
+def phase_index_sharded(torch, tea, card, table, tmp: Path):
+    """22b. Phase 15's 2**20 x 768 index at ``mesh: {'data': n}``, the
+    shards sharing the one card (a placement test, not a multi-card
+    speed): for each tier and n, 64 queries through the BERT-base
+    retriever (K3 launches layers x batches, as in 15); results equal
+    ``data`` 1's, indices and scores bitwise; device ms of the top-k and
+    its bound beside ``data`` 1's. ``ubinary`` ignores the mesh."""
+    from distllm_tpu_torch.embed import get_pooler
+    from distllm_tpu_torch.models import bert
+    from distllm_tpu_torch.ops import topk
+    from distllm_tpu_torch.rag.search import Retriever, TpuIndexV2Config
+
+    cfg = RETRIEVER_BERT() if RETRIEVER_BERT else bert.BertConfig()
+    encoder = retriever_encoder(torch, cfg, seed=0)
+    pooler = get_pooler({'name': 'mean'})
+    queries = rag_queries(RAG_QUERIES, seed=16)
+    batches = -(-RAG_QUERIES // RETRIEVER_BATCH)
+    n = len(table)
+    out = {}
+    for precision, counts in INDEX_SHARDS.items():
+        runs = {}
+        for data in counts:
+            tag = f'index {precision} data {data}'
+            t0 = time.perf_counter()
+            index = TpuIndexV2Config(
+                dataset_dir=tmp, precision=precision, rescore_multiplier=INDEX_RESCORE,
+                mesh={'data': data} if data > 1 else None,
+            ).get_index(dataset=table, device=DEVICE)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            retriever = Retriever(index, encoder, pooler, batch_size=RETRIEVER_BATCH)
+            retriever.search(queries[:RETRIEVER_BATCH], top_k=INDEX_TOP_K)  # warm-up
+            zero_k3_counts(tea)
+            results, emb = retriever.search(queries, top_k=INDEX_TOP_K, score_threshold=-2.0)
+            k3 = check_k3(tea, tag, cfg.num_layers, batches)
+            device_ms = cuda_ms(torch, sharded_device_fn(
+                torch, topk, index, torch.from_numpy(emb).to(DEVICE), precision, n), iters=5)
+            bytes_ms = index.device_bytes / PEAK_BYTES_PER_S * 1e3
+            ops_ms = 2 * RAG_QUERIES * INDEX_DIM * n / (
+                PEAK_FLOPS['float32'] if precision == 'float32' else PEAK_INT8_OPS) * 1e3
+            runs[data] = dict(
+                shards=index.num_shards, devices=sorted({str(d) for d in index.shard_devices}),
+                device_bytes=index.device_bytes, build_s=build_s, device_ms=device_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by='bytes' if bytes_ms >= ops_ms else 'operations', k3=k3,
+                indices=results.total_indices, scores=results.total_scores)
+            del index, retriever
+            torch.cuda.empty_cache()
+        base = runs[1]
+        summary = {}
+        for data, run in runs.items():
+            same_idx = run['indices'] == base['indices']
+            same_scores = run['scores'] == base['scores']  # bitwise: equal Python floats
+            summary[data] = {key: run[key] for key in (
+                'shards', 'devices', 'device_bytes', 'build_s', 'device_ms', 'bound_ms',
+                'bound_by', 'k3')}
+            summary[data].update(indices_equal=same_idx, scores_bitwise=same_scores)
+            log(f'[index sharded] {card}: {precision} data {data}: {run["shards"]} shard(s) on '
+                f'{run["devices"]}, device top-k {run["device_ms"]:.4f} ms (bound '
+                f'{run["bound_ms"]:.4f} {run["bound_by"]}; data 1 {base["device_ms"]:.4f}; '
+                f'one card: not a multi-card speed), indices equal to data 1: {same_idx}, '
+                f'scores bitwise: {same_scores}')
+            if not (same_idx and same_scores):
+                fail(f'index sharded {precision} data {data}: results differ from data 1')
+        out[precision] = summary
+    del encoder
+    torch.cuda.empty_cache()
+    return out
+
+
+def corpus_texts(n: int) -> list[str]:
+    """The first ``n`` texts of phase 10's corpus (:func:`write_corpus`)."""
+    rng = np.random.default_rng(0)
+    vocab = [f'tok{i}' for i in range(5000)]
+    return [' '.join(rng.choice(vocab, size=int(rng.integers(120, 260)))) for _ in range(n)]
+
+
+def sharded_bert_embeddings(torch, mesh, dtype: str, texts):
+    """Phase 22c on one rank: BERT-base (seed 1) in ``dtype`` on the rank's
+    device, sharded onto ``mesh`` (``mesh=None``: one device), the texts'
+    mean-pooled embeddings in batches of ``ENCODER_TP_BATCH``; with the
+    heads of every attention call and the calls expected (layers x
+    batches)."""
+    from distllm_tpu_torch.embed import get_pooler
+    from distllm_tpu_torch.embed.embedders.full_sequence import compute_embeddings
+    from distllm_tpu_torch.embed.encoders.base import TorchEncoder
+    from distllm_tpu_torch.models import bert, common
+    from distllm_tpu_torch.models.tokenizer import WhitespaceTokenizer
+
+    device = DEVICE if mesh is None else mesh.device
+    cfg = bert.BertConfig(dtype=dtype)
+    params = bert.init(cfg, torch.Generator(device=device).manual_seed(1), device=device)
+    encoder = TorchEncoder(
+        None, bert.apply, cfg, params,
+        WhitespaceTokenizer(vocab_size=cfg.vocab_size, model_max_length=512),
+        cfg.hidden_size, device=device)
+    if mesh is not None:
+        encoder.shard(mesh, bert.param_specs(cfg))
+    heads = []
+    attend = common.encoder_attend
+
+    def recording(q, k, v, mask, num_heads, *args, **kwargs):
+        heads.append(num_heads)
+        return attend(q, k, v, mask, num_heads, *args, **kwargs)
+
+    common.encoder_attend = recording
+    stats = {}
+    try:
+        emb = compute_embeddings(texts, encoder, get_pooler({'name': 'mean'}),
+                                 ENCODER_TP_BATCH, stats=stats, device=device)
+    finally:
+        common.encoder_attend = attend
+    encoder.shutdown()
+    return emb, sorted(set(heads)), cfg.num_layers * sum(stats['bucket_batches'].values())
+
+
+def encoder_rank(conn, world, devices, backend, texts):
+    """Phase 22c's spawned rank: its mesh, then each ``('embed', dtype)``
+    rank 0 sends (the same sharded embedding, its collectives meeting rank
+    0's) until ``stop``; returns its K3 launches and heads by dtype."""
+    import torch
+
+    from distllm_tpu_torch.ops import encoder_attention as tea
+    from distllm_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(data=1, model=world), devices=devices, backend=backend)
+    counts = {}
+    while True:
+        op, args = conn.recv()
+        if op == 'stop':
+            return counts
+        (dtype,) = args
+        zero_k3_counts(tea)
+        _, heads, calls = sharded_bert_embeddings(torch, mesh, dtype, texts)
+        counts[dtype] = dict(launches=tea.encoder_attention.launches, calls=calls,
+                             launches_by_route=dict(tea.encoder_attention.launches_by_route),
+                             plain=tea.encoder_attention_reference.launches, heads=heads)
+
+
+def phase_encoder_tp(torch, tea, card):
+    """22c. BERT-base at full width and depth, ``TorchEncoder.shard`` over
+    a ``model=2`` mesh of two ranks on the card (gloo), on the first 256
+    of phase 10's texts, against one device: fp32 embeddings within
+    ``EMBED_RTOL * |ref| + EMBED_ATOL`` elementwise (the row-parallel sums
+    only reorder fp32 additions); bf16 by the rule that tp2's distance
+    from the fp32 embeddings is at most twice one device's bf16 distance
+    plus one bf16 step of their scale (row-parallel products round each
+    partial before the sum). K3 on each rank at 6 of 12 heads, layers x
+    batches, the plain version never."""
+    from distllm_tpu_torch.parallel import mesh as tmesh
+    from distllm_tpu_torch.parallel import multihost
+
+    texts = corpus_texts(ENCODER_TP_TEXTS)
+    devices = tmesh.rank_devices(2, DEVICE)
+    group = multihost.RankGroup(2, this_module().encoder_rank, (2, devices, 'gloo', texts),
+                                backend='gloo', timeout_s=300)
+    result = {}
+    try:
+        mesh = tmesh.make_mesh(tmesh.MeshSpec(data=1, model=2), devices=devices, backend='gloo')
+        for dtype in ('float32', 'bfloat16'):
+            t0 = time.perf_counter()
+            one, one_heads, _ = sharded_bert_embeddings(torch, None, dtype, texts)
+            one_s = time.perf_counter() - t0
+            group.send(('embed', (dtype,)))
+            zero_k3_counts(tea)
+            t0 = time.perf_counter()
+            got, heads, calls = sharded_bert_embeddings(torch, mesh, dtype, texts)
+            torch.cuda.synchronize()
+            tp_s = time.perf_counter() - t0
+            result[dtype] = dict(
+                embeddings=got, one=one, one_heads=one_heads, heads=heads, calls=calls,
+                one_s=one_s,
+                tp_s=tp_s, launches=tea.encoder_attention.launches,
+                launches_by_route=dict(tea.encoder_attention.launches_by_route),
+                plain=tea.encoder_attention_reference.launches)
+    finally:
+        rank1 = group.close()[0]
+    fp32, bf16 = result['float32'], result['bfloat16']
+    diff = np.abs(fp32['embeddings'] - fp32['one'])
+    err_over_tol = float((diff / (EMBED_RTOL * np.abs(fp32['one']) + EMBED_ATOL)).max())
+    tp_err = float(np.abs(bf16['embeddings'] - fp32['one']).max())
+    one_err = float(np.abs(bf16['one'] - fp32['one']).max())
+    bf16_bound = 2 * one_err + 2.0**-8 * float(np.abs(fp32['one']).max())
+    out = dict(fp32_max_abs_err=float(diff.max()), fp32_err_over_tol=err_over_tol,
+               bf16_err=tp_err, bf16_one_device_err=one_err, bf16_bound=bf16_bound,
+               texts=len(texts), batch=ENCODER_TP_BATCH)
+    for dtype, r in result.items():
+        out[dtype] = {key: r[key] for key in (
+            'heads', 'one_heads', 'calls', 'one_s', 'tp_s', 'launches', 'launches_by_route',
+            'plain')}
+        out[dtype]['rank1'] = rank1[dtype]
+    log(f'[encoder tp] {card}: BERT-base on {len(texts)} texts, tp2 over gloo on one card '
+        f'vs one device: fp32 max abs err {diff.max():.3e} ({err_over_tol:.4f} x rtol '
+        f'{EMBED_RTOL} / atol {EMBED_ATOL}); bf16 err from fp32 {tp_err:.4e} against one '
+        f'device\'s {one_err:.4e} (bound {bf16_bound:.4e}); {json.dumps(out)}')
+    if not err_over_tol <= 1.0 or not tp_err <= bf16_bound:
+        fail(f'encoder tp: fp32 {err_over_tol:.4f} x tolerance; bf16 {tp_err} > {bf16_bound}')
+    for dtype, r in out.items():
+        if dtype not in ('float32', 'bfloat16'):
+            continue
+        route = 'tensor_cores' if dtype == 'bfloat16' else 'cuda_cores'
+        if (r['heads'] != [BERT_HEADS // 2] or r['one_heads'] != [BERT_HEADS] or r['plain']
+                or r['launches'] != r['calls'] or r['launches'] <= 0
+                or r['launches_by_route'][route] != r['launches']
+                or r['rank1']['launches'] != r['launches'] or r['rank1']['plain']
+                or r['rank1']['heads'] != [BERT_HEADS // 2]):
+            fail(f'encoder tp {dtype}: {r}')
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -7692,6 +8300,14 @@ def main() -> None:
         f'nvidia-smi: {smi}')
 
     # 2. build: one nvcc per source, all started together
+    t_mark = [time.perf_counter()]
+
+    def took(label):
+        """Log the seconds since the last mark (the phases that print none)."""
+        now = time.perf_counter()
+        log(f'[time] {label} took {now - t_mark[0]:.1f} s')
+        t_mark[0] = now
+
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f'[build] {len(libs)} kernel(s) built in {time.perf_counter() - t0:.1f} s')
@@ -7702,6 +8318,7 @@ def main() -> None:
 
     # 3. K1, 3b. K1's int8-KV mode, 4. K3 and 5. K2 against their plain
     # versions
+    took('start-up and build')
     cases = phase_kernel(torch, tpa)
     int8_cases = phase_kernel_int8(torch, tpa)
     mixed_cases = phase_kernel_mixed(torch, tpa)
@@ -7711,33 +8328,43 @@ def main() -> None:
     log(f'[kernel hd256] phase 3d took {time.perf_counter() - t0:.1f} s')
     k3_cases = phase_encoder_kernel(torch, tea)
     k2_cases = phase_int8_kernel(torch, tq, tqm)
+    took('phases 3-5 (the kernels against their plain versions)')
     from distllm_tpu_torch.models import mistral
     from distllm_tpu_torch.models.mistral import MistralConfig
 
     # 6. serve: Mistral-7B widths, 32 layers, bf16
     serve = phase_serve(torch, tpa, smi, MistralConfig())
+    took('phase 6')
     # 7. serve int8: the same, weights int8-quantized on the card
     serve_q = phase_serve(torch, tpa, smi, MistralConfig(), tqm=tqm, quantization='int8')
-    # 6b-6e share one set of 7B bf16 weights made on the card (seed 0).
-    cfg7b = MistralConfig()
-    params7b = mistral.init(cfg7b, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    took('phase 7')
+    # 6b-6g share one set of 7B-width bf16 weights made on the card (seed
+    # 0) at SHARED_LAYERS of the 32 layers (depth cut to keep the run's time).
+    cfg6 = MistralConfig(num_layers=SHARED_LAYERS)
+    params6 = mistral.init(cfg6, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
     # 6b. serve with an int8 KV pool: bf16 and int8 KV arms, same weights
-    serve_kv, kvq_tokens = phase_serve_kv_int8(torch, tpa, smi, cfg7b, params7b)
+    serve_kv, kvq_tokens = phase_serve_kv_int8(torch, tpa, smi, cfg6, params6)
     # 6c. one full-width decode window: captured graph vs eager decode_loop
-    graph_window = phase_graph_window(torch, tpa, smi, cfg7b, params7b)
+    graph_window = phase_graph_window(torch, tpa, smi, cfg6, params6)
     # 6d. the prefix cache: gen_kvq and RAG workloads, cache off / on x 2
-    prefix = phase_serve_prefix_cache(torch, tpa, smi, cfg7b, params7b, kvq_tokens)
+    prefix = phase_serve_prefix_cache(torch, tpa, smi, cfg6, params6, kvq_tokens)
     # 6e. the host and disk tiers over a small pool, and a warm restart
     with tempfile.TemporaryDirectory(prefix='chip_smoke_tiers_') as tmp:
-        tiers = phase_kv_tiers(torch, tpa, smi, cfg7b, params7b, Path(tmp))
+        tiers = phase_kv_tiers(torch, tpa, smi, cfg6, params6, Path(tmp))
+    took('phases 6b-6e')
     # 6f. mixed prefill+decode windows: gen_mixed's workload, off / on
     t0 = time.perf_counter()
-    mixed = phase_serve_mixed(torch, tpa, smi, cfg7b, params7b)
+    mixed = phase_serve_mixed(torch, tpa, smi, cfg6, params6)
     log(f'[mixed] phase 6f took {time.perf_counter() - t0:.1f} s')
     # 6g. speculation: gen_spec's workload, five arms, then int8 weights
     t0 = time.perf_counter()
-    spec = phase_serve_spec(torch, tpa, tqm, smi, cfg7b, params7b)
+    spec = phase_serve_spec(torch, tpa, tqm, smi, cfg6, params6)
     log(f'[spec] phase 6g took {time.perf_counter() - t0:.1f} s')
+    del params6
+    torch.cuda.empty_cache()
+    # 16-16c share the 7B weights at full depth (seed 0).
+    cfg7b = MistralConfig()
+    params7b = mistral.init(cfg7b, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
     # 16. open-loop load; 16b. chaos, overload and deadline on its engine;
     # 16c. the chat server under HTTP load; 16d. their fp32 identities
     t0 = time.perf_counter()
@@ -7756,6 +8383,7 @@ def main() -> None:
     log(f'[load identity] phase 16d took {time.perf_counter() - t0:.1f} s')
     del params7b
     torch.cuda.empty_cache()
+    t_mark[0] = time.perf_counter()
     # 8. identity: full width, depth 2, fp32, K1 and then K2 vs plain;
     # 8b. K1's int8-KV mode vs plain; 8c. the prefix cache with its tiers
     # on K1 vs the cache off, and K1's mixed mode (a bf16 pool) vs plain
@@ -7773,6 +8401,7 @@ def main() -> None:
     # 9b. int8 KV codes and scales written on the card vs the CPU
     phase_quantize(torch, tq)
     phase_kv_codes(torch, tpa)
+    took('phases 8-9')
     with tempfile.TemporaryDirectory(prefix='chip_smoke_embed_') as tmp:
         # 10. embed: BERT-base widths, 12 layers, bf16
         embed = phase_embed(torch, tea, smi, Path(tmp))
@@ -7781,6 +8410,7 @@ def main() -> None:
         embed_q.pop('corpus')
         # 12. embed identity: full width, depth 2, fp32
         phase_embed_identity(torch, tea, embed.pop('corpus'))
+    took('phases 10-12')
     # 13. serve Gemma-2-9B (full width and depth, bf16) from a chat YAML
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix='chip_smoke_gemma2_') as tmp:
@@ -7792,8 +8422,10 @@ def main() -> None:
     log(f'[identity gemma2] phase 13b took {time.perf_counter() - t0:.1f} s')
     # 14-14b. protein embedding (ESM-2 650M, ESM-C 600M), 14c. ModernBERT-
     # base, 14d. the three models' fp32 identities
+    t_mark[0] = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix='chip_smoke_protein_') as tmp:
         protein, seqs = phase_protein_embed(torch, tea, smi, Path(tmp))
+        took('phases 14 and 14b')
         t0 = time.perf_counter()
         protein['modernbert_base'], corpus_texts = phase_modernbert_embed(
             torch, tea, smi, Path(tmp))
@@ -7808,6 +8440,11 @@ def main() -> None:
         t0 = time.perf_counter()
         index_tiers, table, retriever = phase_index(torch, tea, smi, Path(tmp) / 'corpus')
         log(f'[index] phase 15 took {time.perf_counter() - t0:.1f} s')
+        # 22b. the data-sharded index over phase 15's corpus and index
+        # files (run here, where they exist), its shards sharing the card
+        t0 = time.perf_counter()
+        index_sharded = phase_index_sharded(torch, tea, smi, table, Path(tmp) / 'corpus')
+        log(f'[index sharded] phase 22b took {time.perf_counter() - t0:.1f} s')
         t0 = time.perf_counter()
         rag_chat = phase_rag_chat(torch, tpa, tea, smi, retriever)
         log(f'[rag chat] phase 15b took {time.perf_counter() - t0:.1f} s')
@@ -7867,7 +8504,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     # 19a. the 4-D quantizer on a full-width expert bank; 19. Mixtral-8x7B
     # int8 at full width through get_generator and HTTP; 19b. its fp32
-    # identities at depth 2; 19c. speculation and mixed windows at depth 4;
+    # identities at depth 2; 19c. speculation and mixed windows at depth 2;
     # 19d. a one-layer Mixtral checkpoint served from a chat YAML.
     t19 = time.perf_counter()
     t0 = time.perf_counter()
@@ -7924,6 +8561,24 @@ def main() -> None:
     peer = phase_peer(torch, tpa, tqm, smi)
     log(f'[peer] phase 21d took {time.perf_counter() - t0:.1f} s')
     log(f'[control plane] phases 21-21d took {time.perf_counter() - t21:.1f} s')
+    # 22. the host and disk KV tiers at tensor_parallel_size 2 (Mistral-7B
+    # bf16, two ranks on the card over gloo), its fp32 identities and int8
+    # KV arm; 22a. peer adoption between tp1 and tp2 engines; 22c.
+    # BERT-base on a model=2 mesh (22b ran inside phase 15's run).
+    t22 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_tp_tiers_') as tmp:
+        t0 = time.perf_counter()
+        tp_tiers = phase_tp_tiers(torch, tpa, smi, Path(tmp))
+        log(f'[tp tiers] phase 22 (bf16) took {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        tp_tiers_identity = phase_tp_tiers_identity(
+            torch, tpa, smi, Path(tmp), tp2_off=tp_identity.pop('tier_traffic_tokens'))
+        log(f'[tp tiers fp32] phases 22 (fp32, int8 KV) and 22a took '
+            f'{time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    encoder_tp = phase_encoder_tp(torch, tea, smi)
+    log(f'[encoder tp] phase 22c took {time.perf_counter() - t0:.1f} s')
+    log(f'[mesh axes] phases 22, 22a and 22c took {time.perf_counter() - t22:.1f} s')
 
     # Headlines: K1 at the serving phase's decode shape, the main path's
     # most frequent launch (its prefill pair beside it); K3 at the embed
@@ -8078,15 +8733,15 @@ def main() -> None:
                                 launches_by_route=arm['k1_launches_by_route'])
                      for name, arm in pipeline['arms'].items()},
         'checkpoint': {arm: checkpoint[arm]['k1_launches'] for arm in ('bf16', 'int8')},
-        # Phases 18-18d: the MCQA answers over HTTP (7B, 32 layers), the
+        # Phases 18-18d: the MCQA answers over HTTP (7B widths, 16 layers), the
         # direct generator 18b's booted server is held to (the server's own
         # launches run in its process), fp32 depth 2; and the CLI's generate.
         'mcqa': {'rag': mcqa['k1'], 'booted_direct': mcqa_boot['k1_direct'],
                  'fp32_identity': mcqa_identity['k1']},
         'cli': {'generate': cli_run['k1']},
         # Phase 19: Mixtral-8x7B int8 through get_generator (the main path's
-        # launches, then its 4 HTTP requests'); 19c: the verify graph's
-        # launches at depth 4; 19b: the fp32 identities' kernel arms.
+        # launches, then its HTTP requests'); 19c: the verify graph's
+        # launches at depth 2; 19b: the fp32 identities' kernel arms.
         'mixtral': {
             'launches': mixtral_serve['launches'],
             'launches_by_route': mixtral_serve['launches_by_route'],
@@ -8124,6 +8779,16 @@ def main() -> None:
                        for policy, arm in router['arms'].items()},
             'failover_survivors': router['failover']['k1_by_survivor'],
             'peer_adopting': {arm: peer[arm]['k1_b']['launches'] for arm in peer},
+        },
+        # Phase 22: the KV tiers at tensor_parallel_size 2 (rank 0's
+        # launches and rank 1's at 16 query / 4 KV heads); its fp32 arm (CUDA
+        # cores) and int8 KV arm (K1's int8 mode, rank 0 and rank 1).
+        'mesh_axes': {
+            'tiers_tp2': {key: tp_tiers[key] for key in (
+                'launches', 'launches_by_route', 'rank1_launches', 'local_heads')},
+            'tiers_fp32': tp_tiers_identity['k1_launches'],
+            'tiers_int8_kv': {key: tp_tiers_identity['int8'][key]
+                              for key in ('launches', 'rank1_launches')},
         },
         # Phases 16-16c: the open-loop load (attribution on and off), the
         # chaos run's clean and faulted arms, the overload arm, and the chat
@@ -8174,6 +8839,22 @@ def main() -> None:
         # queries; 18c: the CLI's embed.
         'mcqa': {'corpus_embed': mcqa['corpus']['k3'], 'rag_queries': mcqa['k3']},
         'cli': {'embed': cli_run['k3']},
+        # Phase 22b: the retriever's query encoder over the data-sharded
+        # index, by tier and shard count; 22c: BERT-base at tp2 (rank 0's
+        # launches and rank 1's at 6 of 12 heads, fp32 on the CUDA cores,
+        # bf16 on the tensor cores), then phase 4's case at that shard shape.
+        'mesh_axes': {
+            'index_sharded': {p: {str(d): r['k3']['launches'] for d, r in runs.items()}
+                              for p, runs in index_sharded.items()},
+            'encoder_tp2': {dtype: dict(launches=encoder_tp[dtype]['launches'],
+                                        launches_by_route=encoder_tp[dtype]['launches_by_route'],
+                                        rank1_launches=encoder_tp[dtype]['rank1']['launches'],
+                                        heads=encoder_tp[dtype]['heads'])
+                            for dtype in ('float32', 'bfloat16')},
+            'shard_cases': {c['case']: {key: c[key] for key in (
+                'kernel_route', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                'max_abs_err', 'err_over_tol')} for c in k3_cases if c['case'] in TP_K3_CASES},
+        },
         # Phase 21: run_embedding in this process, then over the pbspro
         # pod's two worker processes (each task's count, summed by worker)
         # and its kill arm.
@@ -8333,7 +9014,7 @@ def main() -> None:
                      for a in (arm1, arm2, arm2d))
         + f'; {time.perf_counter() - t_start:.1f} s total')
     log(f'[mcqa] {json.dumps(dict(mcqa=mcqa, boot=mcqa_boot, cli=cli_run, identity=mcqa_identity))}')
-    log(f'[summary] {smi}: MCQA (Mistral-7B bf16, 32 layers, RAG over {MCQA_CHUNKS} chunks) '
+    log(f'[summary] {smi}: MCQA (Mistral-7B bf16, {RAG_MODEL["num_layers"]} layers, RAG over {MCQA_CHUNKS} chunks) '
         f'{mcqa["questions"]} questions in {mcqa["wall_s"]:.2f} s = '
         f'{mcqa["questions_per_s"]:.2f} questions/s, answer latency p50 / p95 '
         f'{mcqa["answer_latency_p50_s"]:.3f} / {mcqa["answer_latency_p95_s"]:.3f} s, '
@@ -8379,6 +9060,25 @@ def main() -> None:
         f'{router["failover"]["requests"]} identical; peer handoff fp32 identical '
         f'{peer["fp32"]["identical"]}, bf16 first token {peer["bf16"]["first_token_ms_b"]:.1f} '
         f'vs {peer["bf16"]["first_token_ms_c"]:.1f} ms; {time.perf_counter() - t_start:.1f} s total')
+    log(f'[mesh axes] {json.dumps(dict(tp_tiers=tp_tiers, tp_tiers_identity=tp_tiers_identity, index_sharded=index_sharded, encoder_tp=encoder_tp))}')
+    k3_shard = next(c for c in k3_cases if c['case'] == TP_K3_CASES[0])
+    log(f'[summary] {smi}: KV tiers at tp2 (7B bf16, gloo on one card): '
+        f'{tp_tiers["tier"]["spills"]} spills / {tp_tiers["tier"]["promotions"]} promotions, '
+        f'rank 0 host tier {tp_tiers["tier"]["host_gib"]:.4f} GiB (one rank '
+        f'{tp_tiers["one_rank"]["host_gib"]:.4f}), spill ms/MiB by rank '
+        + ' / '.join(str(r['spill_ms_per_mib']) for r in tp_tiers['ranks'])
+        + f' (one rank {tp_tiers["one_rank"]["spill_ms_per_mib"]}), promotion copy ms/MiB by '
+        'rank ' + ' / '.join(str(r['promote_copy_ms_per_mib']) for r in tp_tiers['ranks'])
+        + f' (one rank {tp_tiers["one_rank"]["promote_copy_ms_per_mib"]}); fp32 identical '
+        f'{tp_tiers_identity["identical"]}, int8 KV {tp_tiers_identity["int8"]["identical"]}, '
+        f'peer both ways {json.dumps({k: v["identical"] for k, v in tp_tiers_identity["peer"].items()})}; '
+        'sharded index device ms (one card, not a multi-card speed) ' + '; '.join(
+            f'{p} ' + ' / '.join(f'data {d} {r["device_ms"]:.4f}' for d, r in runs.items())
+            for p, runs in index_sharded.items())
+        + f'; BERT-base tp2 fp32 {encoder_tp["fp32_err_over_tol"]:.4f} x tolerance, bf16 '
+        f'{encoder_tp["bf16_err"]:.4e} (bound {encoder_tp["bf16_bound"]:.4e}); K3 at 6 heads '
+        f'{k3_shard["ms"]:.4f} ms (bound {k3_shard["bound_ms"]:.4f}, SDPA '
+        f'{k3_shard["library_ms"]:.4f}); {time.perf_counter() - t_start:.1f} s total')
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')

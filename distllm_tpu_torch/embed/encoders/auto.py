@@ -90,3 +90,9 @@ class AutoEncoder(TorchEncoder):
             device=device,
             quantization=mode,
         )
+        self._module = module
+
+    def param_specs(self, params: dict | None = None) -> dict:
+        """The model family's ``param_specs`` for this encoder's tree (the
+        JAX ``AutoEncoder.param_specs``), to pass to :meth:`shard`."""
+        return self._module.param_specs(self.model_cfg, params or self.params)

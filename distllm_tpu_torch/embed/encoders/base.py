@@ -6,10 +6,18 @@ An encoder owns a tokenizer and turns a host :class:`TokenBatch` into
 pooled_forward` is the embedder's hot call: encode -> pool -> optional L2
 normalise -> fp32 in one call, so only pooled ``[B, H]`` rows ever leave
 the device.
+
+:meth:`TorchEncoder.shard` puts an encoder on a mesh, as the JAX
+``Encoder.shard`` places its parameters: every rank of the mesh builds the
+same encoder, keeps its slices under the model's ``param_specs`` and runs
+its heads and width, the row-parallel products summed over the ``model``
+group; a ``data`` axis replicates the batch. It is a library capability:
+no entry point of either package calls it.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, Protocol, runtime_checkable
 
 import torch
@@ -114,6 +122,29 @@ class TorchEncoder:
                 return pooled.float()
 
         return run
+
+    def shard(self, mesh, specs) -> None:
+        """Keep this rank's slices of the parameters under ``specs`` on
+        ``mesh`` (``parallel.sharding.shard_pytree``: int8 leaves sharded
+        with their scales, nf4 ones sliced at use) and bind the model
+        config to the mesh (``parallel.comm.bind``), so ``apply`` runs the
+        rank's heads with kernel K3 and sums ``o`` and ``down`` over the
+        ``model`` group. The mesh's device is this encoder's. A model
+        without ``param_specs`` (ESM-C, as in JAX) is refused."""
+        from distllm_tpu_torch.parallel.comm import bind
+        from distllm_tpu_torch.parallel.sharding import shard_pytree
+
+        apply_fn = getattr(self._apply_fn, 'func', self._apply_fn)  # a partial's function
+        module = sys.modules[apply_fn.__module__]
+        if not hasattr(module, 'param_specs'):
+            raise NotImplementedError(
+                f'{module.__name__} has no param_specs (nor has the JAX package): '
+                'it runs on one device'
+            )
+        if torch.device(mesh.device).type != self.device.type:
+            raise ValueError(f'the mesh rank runs on {mesh.device}, the encoder on {self.device}')
+        self.params = shard_pytree(self.params, specs, mesh)
+        self.model_cfg = bind(self.model_cfg, mesh)
 
     def shutdown(self) -> None:
         """Drop the parameter references so a swapped-in model can fit."""

@@ -139,9 +139,16 @@
   false and ``telemetry['decode_graphs_reason']`` says why); over NCCL
   they stay captured graphs with the collectives inside. The prefix
   cache, chunked prefill, mixed windows, speculation, the int8 KV pool
-  and pipelining run as they do on one rank; the host, disk and peer KV
-  tiers raise (ROADMAP A10d). Only rank 0 serves requests and exports
-  metrics.
+  and pipelining run as they do on one rank. The host, disk and peer KV
+  tiers are rank 0's and hold whole blocks, every KV head, as the JAX
+  engine's do (its spill fetches the model-sharded pool whole): a spill
+  is a program in which each rank gathers its heads of the evicted blocks
+  and rank 0 assembles them in head order over the ``model`` group
+  (``TensorParallel.gather_heads``); a promotion reads whole blocks on
+  rank 0 and sends each rank its heads' slice with the program. So
+  ``.kvblock`` files and peer payloads keep the JAX layout, and a tier
+  written at one ``tensor_parallel_size`` serves another. Only rank 0
+  serves requests and exports metrics.
 """
 
 from __future__ import annotations
@@ -694,7 +701,9 @@ class LLMEngine:
         self.kv_tier = None
         self.peer_kv_endpoint: str | None = None
         self._peer_kv_server = None
-        if cfg.host_kv_tier_bytes:
+        # Under a mesh the tiers are rank 0's (whole blocks); the other
+        # ranks only run the spill and promotion programs.
+        if cfg.host_kv_tier_bytes and self._leader:
             disk = (
                 DiskKVTier(cfg.disk_kv_tier_dir, cfg.disk_kv_tier_bytes)
                 if cfg.disk_kv_tier_dir else None
@@ -725,6 +734,10 @@ class LLMEngine:
         self._tier_times = dict.fromkeys(
             ('spill_s', 'promote_host_s', 'promote_copy_s', 'promote_wait_s'), 0.0
         )
+        # This rank's part of the tier programs (tp_report): spill and
+        # promotion programs run, the bytes of its own heads each moved,
+        # and their host seconds.
+        self._rank_tier: Counter[str] = Counter()
         self._requests: dict[int, Request] = {}
         self._next_id = itertools.count()
         self._finished: dict[int, Request] = {}
@@ -862,9 +875,8 @@ class LLMEngine:
     def _check_mesh(self, model_cfg, params: dict, mesh) -> None:
         """Refuse what this rank's engine cannot serve on ``mesh``: a
         ``data`` or ``seq`` axis (ROADMAP A10c), heads that do not divide
-        over ``model`` (the JAX check), the host, disk and peer KV tiers
-        (ROADMAP A10d), and float leaves still to be quantized (quantize
-        before sharding)."""
+        over ``model`` (the JAX check), and float leaves still to be
+        quantized (quantize before sharding)."""
         if mesh is None:
             return
         if mesh.shape[DATA_AXIS] != 1 or mesh.shape[SEQ_AXIS] != 1:
@@ -875,12 +887,6 @@ class LLMEngine:
                 'MeshSpec(data=1, model=N)'
             )
         check_tp_heads(model_cfg, mesh.shape[MODEL_AXIS])
-        if self.config.host_kv_tier_bytes:
-            raise NotImplementedError(
-                'the host, disk and peer KV tiers under tensor parallelism '
-                '(each rank spilling its own KV heads) are not ported yet '
-                '(ROADMAP A10d)'
-            )
         if self.config.quantization:
             from distllm_tpu_torch.models import decoder_family
             from distllm_tpu_torch.ops.quantization import should_quantize
@@ -929,18 +935,27 @@ class LLMEngine:
                          peak_flops * scale, peak_bw * scale)
 
     # ------------------------------------------------------ device programs
-    def _program(self, op: str, *args):
+    def _program(self, op: str, *args, each=None):
         """Run device program ``op`` (``_op_<op>``) on this rank, after
         sending it with its host inputs to the follower ranks, which run
         it in :meth:`follow`: every rank runs the same programs in the
-        same order, and their collectives meet. Everything that can fail
-        on rank 0 alone (the fault sites, scheduling) runs before a
-        program is sent; a program that fails on some ranks and not on
+        same order, and their collectives meet. ``each``, where given, is
+        a function of a rank giving that rank's own last argument (its
+        slice of a host input), sent to each rank alone. Everything that
+        can fail on rank 0 alone (the fault sites, scheduling) runs before
+        a program is sent; a program that fails on some ranks and not on
         the others leaves their collectives to the process group's
         timeout."""
         if self._followers is not None:
-            self._followers.send((op, args))
+            if each is None:
+                self._followers.send((op, args))
+            else:
+                self._followers.send_each([
+                    (op, args + (each(rank),)) for rank in range(1, self.mesh.size)
+                ])
         self._programs += 1
+        if each is not None:
+            args = args + (each(0),)
         return getattr(self, f'_op_{op}')(*args)
 
     def follow(self, conn) -> dict:
@@ -965,7 +980,20 @@ class LLMEngine:
             'digest': None if self._digest is None else self._digest.value(),
             'weight_bytes': self.weight_bytes_quantized + self.weight_bytes_float,
             'kernel_marks': self._kernel_marks,
+            'tier': self._rank_tier_report(),
         }
+
+    def _rank_tier_report(self) -> dict:
+        """This rank's part of the tier programs: spills and promotions
+        run, the bytes of its own KV heads each moved, the spills' host
+        seconds (the gather, the exchange and, on rank 0, the fetch) and
+        the promotion copies' device seconds; on rank 0 also the host
+        tier's blocks and bytes (every head)."""
+        self._retire_promotions()
+        out = dict(self._rank_tier, promote_copy_s=self._tier_times['promote_copy_s'])
+        if self.kv_tier is not None:
+            out.update(host_blocks=self.kv_tier.num_blocks, host_bytes=self.kv_tier.bytes_used)
+        return out
 
     def mark_kernels(self, tag: str) -> None:
         """Every rank records its process's kernel counters
@@ -1449,16 +1477,64 @@ class LLMEngine:
             return [self.kv.k.data, self.kv.v.data, self.kv.k.scale, self.kv.v.scale]
         return [self.kv.k, self.kv.v]
 
-    def _spill_blocks(self, entries: list[tuple[bytes, int]]) -> None:
-        """Copy the evicted blocks' KV device -> host in one gather per
-        plane (no padding: PyTorch compiles no shape) and one host fetch,
-        then adopt each block into the host tier as its own CPU tensors
-        (LRU frees blocks one at a time, which views of the gathered tensor
-        could not). An int8 pool spills its codes and scale rows as they
-        are: promotion is bit-exact, no requantization."""
+    @staticmethod
+    def _head_axis(plane: torch.Tensor) -> int:
+        """The KV-head axis of a pool plane (block axis at dim 1): data
+        ``[L, blocks, block_size, N_kv, Hd]``, int8 scales ``[L, blocks,
+        N_kv]``."""
+        return 3 if plane.dim() == 5 else 2
+
+    def _block_shapes(self) -> list[torch.Size]:
+        """One block of each pool plane with every KV head: what the tiers
+        hold and a promotion checks, at any ``tensor_parallel_size``."""
+        shapes = []
+        for plane in self._pool_planes():
+            shape = list(plane.shape[:1] + plane.shape[2:])
+            shape[self._head_axis(plane) - 1] = self.model_cfg.num_kv_heads
+            shapes.append(torch.Size(shape))
+        return shapes
+
+    def _rank_slices(self, whole: list[torch.Tensor], rank: int) -> list[torch.Tensor]:
+        """Rank ``rank``'s KV heads of staged whole blocks (each tensor
+        with the block axis at dim 1), contiguous; the tensors themselves
+        without a mesh. The ``model`` coordinate is the rank (``data=1``)."""
+        if self.model_cfg.tp is None:
+            return whole
+        n = local_heads(self.model_cfg)[1]
+        return [
+            t.narrow(self._head_axis(t), rank * n, n).contiguous() for t in whole
+        ]
+
+    def _op_spill(self, block_ids: list[int]):
+        """A spill's device half on every rank: one gather of the evicted
+        blocks per pool plane; under a mesh the ranks' heads assembled in
+        head order over the ``model`` group (``gather_heads``), whole on
+        every rank. Rank 0 fetches them to the host and returns them (the
+        other ranks return None)."""
         t0 = time.perf_counter()
-        idx = torch.as_tensor([bid for _, bid in entries], device=self.device)
-        host = [plane.index_select(1, idx).cpu() for plane in self._pool_planes()]
+        idx = torch.as_tensor(block_ids, device=self.device)
+        planes = [plane.index_select(1, idx) for plane in self._pool_planes()]
+        self._rank_tier['spills'] += 1
+        self._rank_tier['spilled_bytes'] += sum(p.numel() * p.element_size() for p in planes)
+        tp = self.model_cfg.tp
+        if tp is not None:
+            planes = [tp.gather_heads(p, self._head_axis(p)) for p in planes]
+        host = [p.cpu() for p in planes] if self._leader else None
+        self._rank_tier['spill_s'] += time.perf_counter() - t0
+        return host
+
+    def _spill_blocks(self, entries: list[tuple[bytes, int]]) -> None:
+        """Copy the evicted blocks' KV device -> host (the ``spill``
+        program: one gather per plane, no padding, PyTorch compiles no
+        shape; under a mesh every head assembled on rank 0) and one host
+        fetch, then adopt each block into the host tier as its own CPU
+        tensors (LRU frees blocks one at a time, which views of the
+        gathered tensor could not). Sent before the blocks are released,
+        so every rank gathers them before any later program reuses them.
+        An int8 pool spills its codes and scale rows as they are:
+        promotion is bit-exact, no requantization."""
+        t0 = time.perf_counter()
+        host = self._program('spill', [bid for _, bid in entries])
         for i, (digest, _) in enumerate(entries):
             self.kv_tier.put(digest, *(plane[:, i].clone() for plane in host))
         self.stats['tier_spills'] += 1
@@ -1483,7 +1559,7 @@ class LLMEngine:
         digests, request.promo_digests = request.promo_digests, []
         rid = request.request_id
         planes = self._pool_planes()
-        shapes = [plane.shape[:1] + plane.shape[2:] for plane in planes]
+        shapes = self._block_shapes()  # every KV head, at any mesh
         pulled: list[tuple[torch.Tensor, ...]] = []
         for digest in digests:
             arrays = self.kv_tier.get(digest)
@@ -1506,10 +1582,13 @@ class LLMEngine:
         blocks = self.sched.block_row(rid)[nb:nb + n]
         cuda = self.device.type == 'cuda'
         try:
-            staging = [
+            whole = [
                 torch.stack([arrays[j] for arrays in pulled], dim=1)
                 for j in range(len(planes))
             ]
+            # Rank 0's heads (all of them without a mesh), pinned here so
+            # a host that cannot stage fails before anything is sent.
+            staging = self._rank_slices(whole, 0)
             if cuda:
                 staging = [t.pin_memory() for t in staging]
         except (MemoryError, torch.OutOfMemoryError):
@@ -1531,6 +1610,46 @@ class LLMEngine:
                 error=repr(exc)[:200],
             )
             return
+        # Each other rank gets its heads' slice as raw bytes (numpy, as
+        # every program's host inputs travel).
+        self._program('promote', list(blocks), each=lambda r: staging if r == 0 else [
+            t.view(torch.uint8).numpy() for t in self._rank_slices(whole, r)
+        ])
+        # Adopt now: the blocks are cache property from here on. First
+        # writer wins; blocks past a rejected digest stay owned.
+        lent = nb
+        for digest, bid in zip(digests, blocks):
+            if not self.prefix_cache.insert(rid, digest, bid):
+                break
+            lent += 1
+        if lent > nb:
+            self.sched.lend_prefix(rid, lent)
+            request.num_borrowed_blocks = lent
+        request.num_cached_tokens = (nb + n) * self.config.block_size
+        self.stats['tier_promotions'] += 1
+        self.stats['tier_promoted_blocks'] += n
+        _metrics.PREFIX_TIER_PROMOTIONS.labels(tier='host').inc(n)
+        _metrics.PREFIX_HIT_TOKENS.inc(n * self.config.block_size)
+        self.stats['tier_promoted_bytes'] += sum(t.numel() * t.element_size() for t in whole)
+        self.stats['prefix_hit_tokens'] += n * self.config.block_size
+
+    def _op_promote(self, blocks: list[int], staging: list) -> None:
+        """A promotion's device copy on every rank: this rank's heads of
+        the staged blocks (tensors on rank 0, raw bytes elsewhere) into
+        pool blocks ``blocks``. On CUDA the copy runs on a side stream
+        from pinned staging, after the work already queued (which may
+        still read those blocks: an eviction's spill), and the current
+        stream waits on its event, so every later program's read of those
+        blocks on this rank is ordered after it."""
+        self._retire_promotions()
+        planes = self._pool_planes()
+        staging = [
+            src if isinstance(src, torch.Tensor) else torch.from_numpy(src).view(plane.dtype)
+            for plane, src in zip(planes, staging)
+        ]
+        cuda = self.device.type == 'cuda'
+        if cuda:
+            staging = [t if t.is_pinned() else t.pin_memory() for t in staging]
         events = None
         on_side_stream = contextlib.nullcontext()
         if cuda:
@@ -1548,25 +1667,9 @@ class LLMEngine:
         if cuda:
             events[1].record(self._promote_stream)
             current.wait_event(events[1])
-        # Adopt now: the blocks are cache property from here on. First
-        # writer wins; blocks past a rejected digest stay owned.
-        lent = nb
-        for digest, bid in zip(digests, blocks):
-            if not self.prefix_cache.insert(rid, digest, bid):
-                break
-            lent += 1
-        if lent > nb:
-            self.sched.lend_prefix(rid, lent)
-            request.num_borrowed_blocks = lent
-        request.num_cached_tokens = (nb + n) * self.config.block_size
-        if events is not None:
             self._promotions.append({'events': events, 'staging': staging})
-        self.stats['tier_promotions'] += 1
-        self.stats['tier_promoted_blocks'] += n
-        _metrics.PREFIX_TIER_PROMOTIONS.labels(tier='host').inc(n)
-        _metrics.PREFIX_HIT_TOKENS.inc(n * self.config.block_size)
-        self.stats['tier_promoted_bytes'] += sum(t.numel() * t.element_size() for t in staging)
-        self.stats['prefix_hit_tokens'] += n * self.config.block_size
+        self._rank_tier['promotions'] += 1
+        self._rank_tier['promoted_bytes'] += sum(t.numel() * t.element_size() for t in staging)
 
     def _retire_promotions(self, wait: bool = False) -> None:
         """Drop the records of the promotion copies that have completed

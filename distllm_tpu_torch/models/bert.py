@@ -30,6 +30,7 @@ import dataclasses
 import torch
 
 from distllm_tpu_torch.models import common
+from distllm_tpu_torch.parallel.sharding import P
 from distllm_tpu_torch.utils import BaseConfig, torch_dtype
 
 _DENSE = ('q', 'k', 'v', 'o', 'up', 'down')
@@ -51,6 +52,11 @@ class BertConfig(BaseConfig):
     layer_norm_eps: float = 1e-12
     hidden_act: str = 'gelu'
     dtype: str = 'bfloat16'
+
+    # Not a field: the rank's tensor-parallel collectives on a copy bound
+    # to a mesh (``parallel.comm.bind``, ``TorchEncoder.shard``); None runs
+    # the whole model.
+    tp = None
 
     def validate(self) -> None:
         if self.hidden_size % self.num_heads:
@@ -138,6 +144,35 @@ def params_from_jax(
     )
 
 
+def param_specs(cfg: BertConfig, params: dict | None = None) -> dict:
+    """Megatron-style tensor parallelism over the ``model`` axis, leaf for
+    leaf the JAX ``param_specs``: ``q``/``k``/``v`` and ``up``
+    column-parallel with their biases, ``o`` and ``down`` row-parallel
+    (their biases replicated, added after the sum), the embeddings and
+    norms replicated; the layer-stack axis unsharded."""
+    col = {'kernel': P(None, None, 'model'), 'bias': P(None, 'model')}
+    row = {'kernel': P(None, 'model', None), 'bias': P(None)}
+    ln = {'scale': P(None), 'bias': P(None)}
+    return {
+        'embeddings': {
+            'word': P(None, None),
+            'position': P(None, None),
+            'token_type': P(None, None),
+            'ln': {'scale': P(), 'bias': P()},
+        },
+        'layers': {
+            'q': dict(col),
+            'k': dict(col),
+            'v': dict(col),
+            'o': dict(row),
+            'attn_ln': dict(ln),
+            'up': dict(col),
+            'down': dict(row),
+            'mlp_ln': dict(ln),
+        },
+    }
+
+
 def params_from_hf(
     state: dict,
     cfg: BertConfig,
@@ -203,7 +238,9 @@ def apply(
     states in the model dtype, with the JAX ``bert.apply`` numerics:
     word + position + token_type[0] embeddings and their LayerNorm in
     fp32, then a cast; post-LN residuals, each LayerNorm's statistics in
-    fp32; exact-erf GELU (``hidden_act='gelu'``)."""
+    fp32; exact-erf GELU (``hidden_act='gelu'``). Under a config bound to
+    a mesh (``TorchEncoder.shard``) the rank's slices run its heads and
+    width, and ``o`` / ``down`` sum over the ``model`` group."""
     common.check_attn_impl(attn_impl)
     dtype = torch_dtype(cfg.dtype)
     act = common.ACTIVATIONS[cfg.hidden_act]
@@ -222,17 +259,21 @@ def apply(
     def dense(h, name, li):
         return common.dense(h, layers[name]['kernel'][li], layers[name]['bias'][li])
 
+    def row(h, name, li):
+        return common.row_dense(h, layers[name]['kernel'][li], layers[name]['bias'][li], cfg.tp)
+
     def norm(h, name, li):
         ln = layers[name]
         return common.layer_norm(h, ln['scale'][li], ln['bias'][li], eps).to(dtype)
 
+    heads = common.rank_heads(cfg)
     for li in range(cfg.num_layers):
         q, k, v = dense(x, 'q', li), dense(x, 'k', li), dense(x, 'v', li)
         # Heads stay packed in the last dim: no transpose materialises.
-        attn = common.encoder_attend(q, k, v, attention_mask, cfg.num_heads, attn_impl)
-        attn = dense(attn, 'o', li)
+        attn = common.encoder_attend(q, k, v, attention_mask, heads, attn_impl)
+        attn = row(attn, 'o', li)
         # Post-LN residual (BERT): LN(x + sublayer(x)), statistics in fp32.
         x = norm((x + attn).float(), 'attn_ln', li)
-        mlp = dense(act(dense(x, 'up', li)), 'down', li)
+        mlp = row(act(dense(x, 'up', li)), 'down', li)
         x = norm((x + mlp).float(), 'mlp_ln', li)
     return x

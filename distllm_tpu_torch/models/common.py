@@ -66,6 +66,30 @@ def dense(
     return y
 
 
+def rank_heads(cfg) -> int:
+    """The query heads this rank computes: all of them, or under a config
+    bound to a mesh (``parallel.comm.bind``) its ``num_heads / model``."""
+    tp = getattr(cfg, 'tp', None)
+    return cfg.num_heads if tp is None else tp.local_heads(cfg.num_heads)
+
+
+def row_dense(
+    x: torch.Tensor,
+    kernel: 'torch.Tensor | QTensor',
+    bias: 'torch.Tensor | None',
+    tp,
+) -> torch.Tensor:
+    """A row-parallel layer (a Megatron ``o`` or ``down``): :func:`dense`
+    without ``tp``; under ``tp`` (``parallel.comm.TensorParallel``) the
+    rank's partial product over its slice of the input axis summed over
+    the ``model`` group, then the replicated bias added once, after the
+    sum, as GSPMD places it."""
+    if tp is None:
+        return dense(x, kernel, bias)
+    y = tp.reduce_model(dense(x, kernel))
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 def layer_norm(
     x: torch.Tensor,
     scale: torch.Tensor,

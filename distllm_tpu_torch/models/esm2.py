@@ -26,6 +26,7 @@ import dataclasses
 import torch
 
 from distllm_tpu_torch.models import common
+from distllm_tpu_torch.parallel.sharding import P
 from distllm_tpu_torch.utils import BaseConfig, torch_dtype
 
 _DENSE = ('q', 'k', 'v', 'o', 'up', 'down')
@@ -49,6 +50,10 @@ class Esm2Config(BaseConfig):
     mask_token_id: int = 32
     pad_token_id: int = 1
     dtype: str = 'bfloat16'
+
+    # Not a field: the rank's tensor-parallel collectives on a copy bound
+    # to a mesh (``parallel.comm.bind``); None runs the whole model.
+    tp = None
 
     def validate(self) -> None:
         if self.hidden_size % self.num_heads:
@@ -168,6 +173,30 @@ def params_from_hf(
     )
 
 
+def param_specs(cfg: Esm2Config, params: dict | None = None) -> dict:
+    """Megatron-style tensor parallelism over ``model``, leaf for leaf the
+    JAX ``param_specs``: ``q``/``k``/``v``/``up`` column-parallel with
+    their biases, ``o``/``down`` row-parallel, the embedding table and the
+    norms replicated."""
+    col = {'kernel': P(None, None, 'model'), 'bias': P(None, 'model')}
+    row = {'kernel': P(None, 'model', None), 'bias': P(None)}
+    ln = {'scale': P(None), 'bias': P(None)}
+    return {
+        'embed': P(None, None),
+        'layers': {
+            'q': dict(col),
+            'k': dict(col),
+            'v': dict(col),
+            'o': dict(row),
+            'attn_ln': dict(ln),
+            'up': dict(col),
+            'down': dict(row),
+            'mlp_ln': dict(ln),
+        },
+        'final_ln': {'scale': P(), 'bias': P()},
+    }
+
+
 def embed_tokens(
     params: dict, cfg: Esm2Config, input_ids: torch.Tensor, attention_mask: torch.Tensor
 ) -> torch.Tensor:
@@ -201,18 +230,23 @@ def apply(
     """Forward: ``[B, S]`` ids/mask -> ``[B, S, H]`` last hidden states,
     the final LayerNorm in fp32, with the JAX ``esm2.apply`` numerics:
     pre-LN blocks with fp32 norm statistics cast back to the model dtype,
-    RoPE (theta 10000, rotate-half) on q and k, exact-erf GELU."""
+    RoPE (theta 10000, rotate-half) on q and k, exact-erf GELU. Under a
+    config bound to a mesh the rank runs its heads and width, and ``o`` /
+    ``down`` sum over the ``model`` group."""
     common.check_attn_impl(attn_impl)
     dtype = torch_dtype(cfg.dtype)
     layers = params['layers']
     eps = cfg.layer_norm_eps
-    heads = cfg.num_heads
+    heads = common.rank_heads(cfg)
     cos, sin = common.rope_tables(
-        cfg.hidden_size // heads, input_ids.shape[1], ROPE_THETA, input_ids.device
+        cfg.hidden_size // cfg.num_heads, input_ids.shape[1], ROPE_THETA, input_ids.device
     )
 
     def dense(h, name, li):
         return common.dense(h, layers[name]['kernel'][li], layers[name]['bias'][li])
+
+    def row(h, name, li):
+        return common.row_dense(h, layers[name]['kernel'][li], layers[name]['bias'][li], cfg.tp)
 
     def norm(h, name, li):
         p = layers[name]
@@ -228,7 +262,7 @@ def apply(
         attn = common.encoder_attend(
             q, k, dense(normed, 'v', li), attention_mask, heads, attn_impl
         )
-        x = x + dense(attn, 'o', li)
-        x = x + dense(common.gelu(dense(norm(x, 'mlp_ln', li), 'up', li)), 'down', li)
+        x = x + row(attn, 'o', li)
+        x = x + row(common.gelu(dense(norm(x, 'mlp_ln', li), 'up', li)), 'down', li)
     final = params['final_ln']
     return common.layer_norm(x.float(), final['scale'], final['bias'], eps)

@@ -37,6 +37,7 @@ import torch
 
 from distllm_tpu_torch.models import common
 from distllm_tpu_torch.ops.encoder_attention import NEG_BIG
+from distllm_tpu_torch.parallel.sharding import P
 from distllm_tpu_torch.utils import BaseConfig, torch_dtype
 
 _ATTN = ('q', 'k', 'v', 'o')
@@ -63,6 +64,10 @@ class ModernBertConfig(BaseConfig):
     hidden_act: str = 'gelu'
     max_position_embeddings: int = 8192
     dtype: str = 'bfloat16'
+
+    # Not a field: the rank's tensor-parallel collectives on a copy bound
+    # to a mesh (``parallel.comm.bind``); None runs the whole model.
+    tp = None
 
     def validate(self) -> None:
         if self.hidden_size % self.num_heads:
@@ -145,6 +150,33 @@ def init(
     return common.init_tree(
         _shapes(cfg), _in_model_dtype, generator, device, dtype or cfg.dtype
     )
+
+
+def param_specs(cfg: ModernBertConfig, params: dict | None = None) -> dict:
+    """Megatron-style tensor parallelism over ``model`` (``q``/``k``/``v``
+    and ``Wi``'s two halves column-parallel, ``o`` and ``wo``
+    row-parallel, the embedding table and norms replicated): the JAX
+    ``param_specs`` leaf for leaf, without its flag vectors, which the
+    port's tree does not carry. Like JAX's, it names no dense bias: a
+    checkpoint with ``attention_bias`` or ``mlp_bias`` has leaves without
+    a spec, which ``shard_pytree`` refuses as JAX's does."""
+    ln = {'scale': P(None), 'bias': P(None)}
+    return {
+        'embed': P(None, None),
+        'embed_norm': dict(ln),
+        'final_norm': dict(ln),
+        'layers': {
+            'attn_norm': dict(ln),
+            'q': {'kernel': P(None, None, 'model')},
+            'k': {'kernel': P(None, None, 'model')},
+            'v': {'kernel': P(None, None, 'model')},
+            'o': {'kernel': P(None, 'model', None)},
+            'mlp_norm': dict(ln),
+            'wi_in': {'kernel': P(None, None, 'model')},
+            'wi_gate': {'kernel': P(None, None, 'model')},
+            'wo': {'kernel': P(None, 'model', None)},
+        },
+    }
 
 
 def _flags(cfg: ModernBertConfig) -> dict[str, np.ndarray]:
@@ -247,13 +279,15 @@ def apply(
 ) -> torch.Tensor:
     """Forward: ``[B, S]`` ids/mask -> ``[B, S, H]`` final hidden states in
     fp32, with the JAX ``modernbert.apply`` numerics (norm statistics in
-    fp32 cast back to the model dtype)."""
+    fp32 cast back to the model dtype). Under a config bound to a mesh the
+    rank runs its heads and width, ``o`` / ``wo`` sum over the ``model``
+    group, and the window bias stays whole."""
     common.check_attn_impl(attn_impl)
     dtype = torch_dtype(cfg.dtype)
     act = common.ACTIVATIONS[cfg.hidden_act]
     layers = params['layers']
     eps = cfg.norm_eps
-    heads = cfg.num_heads
+    heads = common.rank_heads(cfg)
     seq, device = input_ids.shape[1], input_ids.device
     tables = {
         True: common.rope_tables(cfg.head_dim, seq, cfg.global_rope_theta, device),
@@ -268,6 +302,12 @@ def apply(
     def dense(h, name, li):
         p = layers[name]
         return common.dense(h, p['kernel'][li], p['bias'][li] if 'bias' in p else None)
+
+    def row(h, name, li):
+        p = layers[name]
+        return common.row_dense(
+            h, p['kernel'][li], p['bias'][li] if 'bias' in p else None, cfg.tp,
+        )
 
     x = norm(params['embed'][input_ids.long()], params['embed_norm'])
     for li in range(cfg.num_layers):
@@ -286,9 +326,9 @@ def apply(
             dense(normed, 'v', li), attention_mask, heads, attn_impl,
             bias=None if is_global else local_bias,
         )
-        x = x + dense(attn, 'o', li)
+        x = x + row(attn, 'o', li)
         normed2 = norm(x, layers['mlp_norm'], li)
-        x = x + dense(act(dense(normed2, 'wi_in', li)) * dense(normed2, 'wi_gate', li), 'wo', li)
+        x = x + row(act(dense(normed2, 'wi_in', li)) * dense(normed2, 'wi_gate', li), 'wo', li)
     return common.layer_norm(
         x.float(), params['final_norm']['scale'], params['final_norm']['bias'], eps
     )

@@ -33,9 +33,21 @@ The JAX module is XLA (no ``pallas_call``): matrix products and
 
 ``quantize_int8_rows``, ``pack_sign_bits`` and ``group_rows`` are the JAX
 module's host numpy functions, copied, so codes and layouts are bitwise
-equal. A ``mesh`` whose ``data`` axis is larger than 1 (the JAX package's
-multi-chip path) raises, naming ROADMAP A10d; ``None`` or a data axis of 1
-is the single-device path.
+equal.
+
+**Data-sharded corpora** (the JAX ``_sharded_topk``). A ``mesh`` whose
+``data`` axis is ``n > 1`` (a mapping of axis sizes, or an object with a
+``shape`` mapping; other axes only replicate in JAX and change nothing
+here) row-shards the corpus into ``n`` equal shards: a tensor is split
+into ``n`` row views (the row count must divide), or the caller passes
+the list of shards, each on its own device (the index's placement). Each
+shard is scored on its device with a local top ``min(k, rows)``, its
+indices offset by the shard's start; only the ``[B, k]`` candidates cross
+to the queries' device, where they are concatenated in shard order and
+one final selection takes the top ``k``. Shard order is index order, so
+the result is JAX's, ties included. The flat int8 tier shards the same
+way (its padded rows are not masked, as in JAX); grouped codes refuse a
+data mesh, and ``hamming_topk`` takes none.
 """
 
 from __future__ import annotations
@@ -55,20 +67,51 @@ FLOAT_CHUNK = 1 << 18
 _LOW = (1 << 32) - 1
 
 
-def check_mesh(mesh) -> None:
-    """``None``, or a mesh (a mapping of axis sizes, or an object with a
-    ``shape`` mapping) whose ``data`` axis is 1: the single-device path."""
+def data_shards(mesh) -> int:
+    """The number of row shards ``mesh`` asks for: ``None`` is 1; else its
+    ``data`` axis (a mapping of axis sizes, or an object with a ``shape``
+    mapping). ``-1`` is every visible card over the other axes' product
+    (at least one card: the CPU counts as one device), as the JAX
+    ``MeshSpec`` fills its ``-1`` axis."""
     if mesh is None:
-        return
+        return 1
     shape = mesh if isinstance(mesh, dict) else getattr(mesh, 'shape', {})
     data = shape.get('data', 1)
-    if data == -1:  # every visible device, as the JAX MeshSpec reads it
-        data = torch.cuda.device_count() if torch.cuda.is_available() else 1
-    if data != 1:
-        raise NotImplementedError(
-            f'a data-sharded corpus (mesh data axis {data}) is not ported to '
-            'distllm_tpu_torch yet (ROADMAP A10d); pass mesh=None'
+    if data == -1:
+        others = 1
+        for axis, size in shape.items():
+            if axis != 'data':
+                others *= size
+        cards = max(1, torch.cuda.device_count() if torch.cuda.is_available() else 0)
+        if others < 1 or cards % others:
+            raise ValueError(f'{cards} device(s) not divisible by fixed axes {others}')
+        data = cards // others
+    if not isinstance(data, int) or data < 1:
+        raise ValueError(f'mesh data axis must be a positive int or -1, got {data!r}')
+    return data
+
+
+def _row_shards(corpus, n: int, *more) -> list[tuple[torch.Tensor, ...]]:
+    """``corpus`` (and ``more`` tensors of the same rows) as ``n`` row
+    shards: a list of shards is taken as it is, a tensor split into ``n``
+    equal row views. Returns one tuple per shard."""
+    if isinstance(corpus, (list, tuple)):
+        parts = [tuple(p) if isinstance(p, (list, tuple)) else (p,) for p in corpus]
+        if len(parts) != n or len({p[0].shape[0] for p in parts}) != 1:
+            raise ValueError(
+                f'{len(parts)} corpus shards of rows {[p[0].shape[0] for p in parts]} for a '
+                f'data axis of {n}: the shards must be equal'
+            )
+        return parts
+    rows = corpus.shape[0]
+    if rows % n:
+        raise ValueError(
+            f'{rows} corpus rows do not split evenly over the data axis ({n} shards)'
         )
+    size = rows // n
+    return [
+        tuple(t[i * size:(i + 1) * size] for t in (corpus, *more)) for i in range(n)
+    ]
 
 
 @contextlib.contextmanager
@@ -107,18 +150,32 @@ def _merge(best, cand, k: int):
     return _select(scores, torch.cat([best[1], cand[1]], dim=1), min(k, scores.shape[1]))
 
 
-def topk_inner_product(
-    queries: torch.Tensor,  # [B, H] fp32
-    corpus: torch.Tensor,  # [N, H] fp32
-    k: int,
-    mesh=None,
-    chunk_size: int = FLOAT_CHUNK,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k by inner product. Returns (scores [B, k] fp32, indices
-    [B, k] int64)."""
-    check_mesh(mesh)
+def _shard_count(corpus, mesh) -> int:
+    """Shards of a search: a list of shards without a mesh is its length;
+    otherwise the mesh's ``data`` axis (:func:`data_shards`)."""
+    if isinstance(corpus, (list, tuple)) and mesh is None:
+        return len(corpus)
+    return data_shards(mesh)
+
+
+def _sharded_topk(local, shards, k: int, device):
+    """The JAX ``_sharded_topk``: ``local(*shard, local_k)`` gives each
+    shard's top ``local_k = min(k, rows)`` (scores, shard-local indices)
+    on the shard's device; the indices are offset by the shard's start,
+    the candidates moved to ``device`` and concatenated in shard order,
+    and one selection takes the top ``k`` (bounded by the rows)."""
+    rows = shards[0][0].shape[0]
+    k = min(k, rows * len(shards))
+    local_k = min(k, rows)
+    found = [local(*shard, local_k) for shard in shards]
+    scores = torch.cat([s.to(device) for s, _ in found], dim=1)
+    index = torch.cat([(i + j * rows).to(device) for j, (_, i) in enumerate(found)], dim=1)
+    return _select(scores, index, k)
+
+
+def _float_topk(queries, corpus, k: int, chunk_size: int):
+    """One device's exact top-k by inner product, in row slabs."""
     n = corpus.shape[0]
-    k = min(k, n)
     best = None
     with _highest_fp32_matmul():
         for lo in range(0, n, chunk_size):
@@ -127,6 +184,29 @@ def topk_inner_product(
             index = torch.arange(lo, lo + part.shape[0], device=corpus.device)
             best = _merge(best, _select(scores, index, min(k, part.shape[0])), k)
     return best
+
+
+def topk_inner_product(
+    queries: torch.Tensor,  # [B, H] fp32
+    corpus,  # [N, H] fp32, or a list of row shards
+    k: int,
+    mesh=None,
+    chunk_size: int = FLOAT_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by inner product. Returns (scores [B, k] fp32, indices
+    [B, k] int64) on the queries' device. With a data-sharded ``mesh``
+    (or a list of shards) each shard scores on its own device and the
+    candidates merge as in JAX."""
+    n_shards = _shard_count(corpus, mesh)
+    if n_shards == 1:
+        if isinstance(corpus, (list, tuple)):
+            (corpus,) = _row_shards(corpus, 1)[0]
+        return _float_topk(queries, corpus, min(k, corpus.shape[0]), chunk_size)
+
+    def local(part, local_k):
+        return _float_topk(queries.to(part.device), part, local_k, chunk_size)
+
+    return _sharded_topk(local, _row_shards(corpus, n_shards), k, queries.device)
 
 
 def quantize_int8_rows(embeddings: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -222,8 +302,8 @@ def _scan(score_fn, parts, k: int, n_valid: int | None):
 
 def int8_topk(
     queries: torch.Tensor,  # [B, H] fp32
-    codes: torch.Tensor,  # [N, H] int8, or grouped [G, C, H] (group_rows)
-    scales: torch.Tensor,  # [N] fp32 ([G, C] when grouped)
+    codes,  # [N, H] int8, grouped [G, C, H] (group_rows), or a list of row shards
+    scales,  # [N] fp32 ([G, C] when grouped; None with a list of (codes, scales) shards)
     k: int,
     mesh=None,
     chunk_size: int = SCAN_CHUNK_INT8,
@@ -234,28 +314,48 @@ def int8_topk(
     reapplied before selection. Flat codes are scanned in ``chunk_size``
     slabs; grouped codes ``[G, C, H]`` (with ``scales [G, C]`` and
     ``n_valid``, the real row count) a group at a time, padded rows
-    masked. Returns (approximate scores [B, k], indices [B, k])."""
-    check_mesh(mesh)
-    if codes.ndim == 3:
+    masked. With a data-sharded ``mesh`` (or a list of ``(codes,
+    scales)`` shards) flat codes are scored shard by shard, each on its
+    device, and merged as in JAX, which masks no padded row there.
+    Returns (approximate scores [B, k], indices [B, k])."""
+    sharded = isinstance(codes, (list, tuple))
+    n_shards = _shard_count(codes, mesh)
+    if not sharded and codes.ndim == 3:
         if n_valid is None:
             # group_rows zero-pads the last slab; without the real row
             # count those rows would rank as neighbours.
             raise ValueError('grouped codes [G, C, H] require n_valid')
+        if n_shards > 1:
+            raise ValueError(
+                'grouped codes [G, C, H] cannot combine with a data-sharded '
+                'mesh; pass flat [N, H] codes for the sharded path'
+            )
         n = n_valid
         c = codes.shape[1]
         parts = ((g * c, (codes[g], scales[g])) for g in range(codes.shape[0]))
-    else:
-        n = codes.shape[0]
-        parts = (
-            (lo, (codes[lo:lo + chunk_size], scales[lo:lo + chunk_size]))
-            for lo in range(0, n, chunk_size)
+        qi, qscale = quantize_queries(queries)
+        return _scan(
+            lambda codes_part, scales_part: _score_int8(qi, qscale, codes_part, scales_part),
+            parts, min(k, n), n_valid,
         )
-    k = min(k, n)
     qi, qscale = quantize_queries(queries)
-    return _scan(
-        lambda codes_part, scales_part: _score_int8(qi, qscale, codes_part, scales_part),
-        parts, k, n_valid if codes.ndim == 3 else None,
-    )
+
+    def local(codes_part, scales_part, local_k):
+        q, s = qi.to(codes_part.device), qscale.to(codes_part.device)
+        rows = codes_part.shape[0]
+        slabs = (
+            (lo, (codes_part[lo:lo + chunk_size], scales_part[lo:lo + chunk_size]))
+            for lo in range(0, rows, chunk_size)
+        )
+        return _scan(
+            lambda c_part, s_part: _score_int8(q, s, c_part, s_part), slabs, local_k, None,
+        )
+
+    shards = _row_shards(codes, n_shards, *(() if sharded else (scales,)))
+    if n_shards == 1:
+        codes_part, scales_part = shards[0]
+        return local(codes_part, scales_part, min(k, codes_part.shape[0]))
+    return _sharded_topk(local, shards, k, queries.device)
 
 
 # The largest fp32 value strictly under INT32_MAX: the grouped Hamming scan

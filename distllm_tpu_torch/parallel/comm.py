@@ -14,7 +14,9 @@ A model config bound to a mesh (:func:`bind`) carries a
   ``expert`` x ``model`` group (each rank holds its experts' slice of the
   width);
 - :meth:`TensorParallel.gather_model` assembles logits of a vocab-sharded
-  ``lm_head``.
+  ``lm_head``;
+- :meth:`TensorParallel.gather_heads` assembles the ranks' KV heads of
+  spilled pool blocks, bit for bit, for the engine's host tier.
 
 Every collective is an ``all_reduce``: the gather writes the rank's
 columns into zeros and sums, so one primitive serves NCCL (inside a
@@ -79,6 +81,22 @@ class TensorParallel:
         full = x.new_zeros((*x.shape[:-1], n * self.model_size))
         full[..., self.model_rank * n:(self.model_rank + 1) * n] = x
         return self._all_reduce(full, self.model_group)
+
+
+    def gather_heads(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ``model`` group's slices of ``x`` along axis ``dim`` (each
+        rank's KV heads), in rank order, as one tensor on every rank:
+        each rank's slice written into zeros and summed as raw bytes (a
+        ``uint8`` view), where every byte has one non-zero addend, so each
+        value arrives bitwise (-0.0 included, which a float sum with +0.0
+        would not keep)."""
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * self.model_size
+        full = x.new_zeros(shape)
+        full.narrow(dim, self.model_rank * n, n).copy_(x)
+        self._all_reduce(full.view(torch.uint8), self.model_group)
+        return full
 
 
 def bind(cfg, mesh):

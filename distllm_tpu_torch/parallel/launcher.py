@@ -19,8 +19,9 @@
 
 The entry points reach a pool only through :func:`map_with_teardown`, so
 pod workers always get the poison pill. A pod worker serves its tasks on
-one card of its host (``cuda``): the JAX worker drives every chip of its
-host through the encoders' mesh, which is not ported (ROADMAP A10d).
+one card of its host (``cuda``), as the JAX worker embeds on its host's
+default device: nothing in either package calls ``Encoder.shard`` on a
+worker's encoder. To use every card of a host, start one worker a card.
 """
 
 from __future__ import annotations

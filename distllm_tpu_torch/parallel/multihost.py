@@ -157,7 +157,8 @@ class RankGroup:
     """Ranks ``1..world-1`` of a new world, spawned by the calling process,
     which joins it as rank 0. Each spawned rank runs ``target(conn,
     *args)`` (a module-level function: it is pickled by name) after
-    joining; :meth:`send` reaches every one of them, :meth:`close` sends
+    joining; :meth:`send` reaches every one of them (:meth:`send_each`
+    each with its own message), :meth:`close` sends
     ``stop`` and returns each rank's reply, joins them within ``join_s``
     (terminating any that outlive it) and leaves the world."""
 
@@ -200,6 +201,14 @@ class RankGroup:
 
     def send(self, message) -> None:
         for conn in self.conns:
+            conn.send(message)
+
+    def send_each(self, messages) -> None:
+        """One message to each spawned rank: ``messages[i]`` to rank
+        ``i + 1``."""
+        if len(messages) != len(self.conns):
+            raise ValueError(f'{len(messages)} messages for {len(self.conns)} ranks')
+        for conn, message in zip(self.conns, messages):
             conn.send(message)
 
     def errors(self) -> list[str]:

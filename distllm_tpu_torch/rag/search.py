@@ -17,6 +17,17 @@ for the reference's FAISS stack).
   ``dataset_dir/tpu_index`` by default, written with the same numpy calls,
   so each package loads an index the other built. An index whose row
   count no longer matches the dataset is rebuilt.
+- **A data-sharded index** (``mesh: {'data': n}``; ``-1`` is every
+  visible card): the float32 rows and the flat int8 codes and scales are
+  padded to a row count ``n`` divides (0 for rows and codes, 1 for
+  scales, as JAX pads) and split into ``n`` shards, shard ``i`` on
+  ``cuda:<i % cards>`` (every shard on the CPU for a CPU index). One
+  process serves them, as the JAX index is one program over its host's
+  chips: each shard scores on its device and only its ``[B, k]``
+  candidates cross to the first (``ops.topk``). Padded indices are dropped
+  by the search and pinned to -inf in the rescore, as in JAX. ``ubinary``
+  keeps one unsharded packed corpus whatever the mesh, as JAX does, and
+  the mesh's other axes change nothing.
 - :class:`TpuIndexV1Config` is the deprecated V1 surface (a
   ``DeprecationWarning``, the same index underneath).
 - :class:`Retriever` encodes queries (batched, length-sorted), pools them,
@@ -45,7 +56,7 @@ import torch
 from distllm_tpu_torch.ops.topk import (
     SCAN_CHUNK_BITS,
     SCAN_CHUNK_INT8,
-    check_mesh,
+    data_shards,
     group_rows,
     hamming_topk,
     int8_topk,
@@ -64,6 +75,16 @@ class BatchedSearchResults:
 
     total_indices: list[list[int]]
     total_scores: list[list[float]]
+
+
+def _tensors(held) -> list[torch.Tensor]:
+    """The tensors in ``held``: a tensor, ``None``, or a sequence of them
+    (shards, ``(codes, scales)`` pairs)."""
+    if held is None:
+        return []
+    if isinstance(held, torch.Tensor):
+        return [held]
+    return [t for part in held for t in _tensors(part)]
 
 
 def _load_embeddings_dataset(dataset_dir: 'str | Path'):
@@ -96,7 +117,8 @@ class TpuIndexV2Config(BaseConfig):
     rescore_multiplier: int = 4
     metric: str = 'inner_product'
     normalize: bool = True  # L2-normalise the corpus rows (cosine / IP)
-    # Mesh axis sizes ({'data': n}); a data axis over 1 waits on ROADMAP A10d.
+    # Mesh axis sizes ({'data': n}, {'data': -1}: every visible card): the
+    # float32 and int8 tiers row-shard the corpus, one shard a device.
     mesh: dict | None = None
 
     def validate(self) -> None:
@@ -131,10 +153,17 @@ class TpuIndexV2:
         dataset=None,
         device: 'str | torch.device | None' = None,
     ) -> None:
-        check_mesh(mesh)
         self.config = config
         self.mesh = mesh
         self.device = resolve_device(device)
+        self.num_shards = data_shards(mesh)
+        # Shard i lives on cuda:<i % cards> (every shard on the CPU for a
+        # CPU index); the first is where queries and results live.
+        if self.device.type == 'cuda':
+            cards = torch.cuda.device_count()
+            self.shard_devices = [torch.device('cuda', i % cards) for i in range(self.num_shards)]
+        else:
+            self.shard_devices = [self.device] * self.num_shards
         self.dataset = (
             _load_embeddings_dataset(config.dataset_dir) if dataset is None else dataset
         )
@@ -212,10 +241,19 @@ class TpuIndexV2:
             parts = list(self._iter_stored_chunks())
             codes = np.concatenate([np.asarray(p['codes']) for p in parts])
             scales = np.concatenate([np.asarray(p['scales']) for p in parts])
+            if self.num_shards > 1:
+                self._int8 = self._put_row_sharded((codes, 0), (scales, 1))
+                return
             self._int8 = (
                 torch.from_numpy(group_rows(codes, SCAN_CHUNK_INT8)).to(self.device),
                 torch.from_numpy(group_rows(scales, SCAN_CHUNK_INT8)).to(self.device),
             )
+            return
+        if self.num_shards > 1:
+            # Assembled on the host and padded to a shardable row count;
+            # padded indices (>= _num_real) are dropped by the search.
+            rows = np.concatenate([np.asarray(c) for c in self._iter_stored_chunks()])
+            self._corpus = [shard for (shard,) in self._put_row_sharded((rows, 0))]
             return
         # float32: assembled on the device chunk by chunk, so host memory
         # stays O(chunk).
@@ -230,14 +268,31 @@ class TpuIndexV2:
             lo += part.shape[0]
         self._corpus = buf
 
+    def _put_row_sharded(self, *arrays_with_fill) -> list[tuple[torch.Tensor, ...]]:
+        """Pad each host array to a row count the shards divide (with the
+        JAX fill values: 0 for rows and codes, 1 for scales) and place
+        shard ``i`` of each on ``shard_devices[i]``; returns one tuple of
+        tensors a shard."""
+        n = self.num_shards
+        shards: list[list[torch.Tensor]] = [[] for _ in range(n)]
+        for arr, fill in arrays_with_fill:
+            pad = (-arr.shape[0]) % n
+            if pad:
+                arr = np.concatenate([arr, np.full((pad, *arr.shape[1:]), fill, arr.dtype)])
+            size = arr.shape[0] // n
+            for i, device in enumerate(self.shard_devices):
+                shards[i].append(torch.from_numpy(np.ascontiguousarray(
+                    arr[i * size:(i + 1) * size])).to(device))
+        return [tuple(parts) for parts in shards]
+
     def __len__(self) -> int:
         return len(self.dataset)
 
     @property
     def device_bytes(self) -> int:
-        """Bytes the index holds on its device."""
-        tensors = [self._corpus, self._packed, *(self._int8 or ())]
-        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        """Bytes the index holds on its devices (every shard's)."""
+        return sum(t.numel() * t.element_size()
+                   for t in _tensors((self._corpus, self._packed, self._int8)))
 
     # ------------------------------------------------------------- search
     def search(
@@ -252,9 +307,7 @@ class TpuIndexV2:
             scores, indices = self._search_int8(query_embeddings, top_k)
         else:
             queries = torch.from_numpy(np.asarray(query_embeddings, dtype=np.float32))
-            scores, indices = topk_inner_product(
-                queries.to(self.device), self._corpus, top_k
-            )
+            scores, indices = topk_inner_product(queries.to(self.device), self._corpus, top_k)
             scores, indices = scores.cpu().numpy(), indices.cpu().numpy()
         total_indices, total_scores = [], []
         for row_scores, row_idx in zip(scores, indices):
@@ -274,11 +327,10 @@ class TpuIndexV2:
         return self._rescore(queries, cand.cpu().numpy(), top_k)
 
     def _search_int8(self, queries: np.ndarray, top_k: int):
-        codes, scales = self._int8
         q = torch.from_numpy(np.asarray(queries, dtype=np.float32)).to(self.device)
-        _, cand = int8_topk(
-            q, codes, scales, self._oversample(top_k), n_valid=self._num_real
-        )
+        # A list of (codes, scales) shards, or the grouped codes and scales.
+        codes, scales = (self._int8, None) if self.num_shards > 1 else self._int8
+        _, cand = int8_topk(q, codes, scales, self._oversample(top_k), n_valid=self._num_real)
         return self._rescore(queries, cand.cpu().numpy(), top_k)
 
     def _rescore(self, queries: np.ndarray, cand: np.ndarray, top_k: int):

@@ -1913,6 +1913,34 @@ def test_retrieval_index_on_the_card_matches_the_cpu(cuda, tmp_path, precision):
     assert results['cuda'].total_indices[0][:5] == [3, 3000, 3001, 4500, 8999]
 
 
+@pytest.mark.parametrize('precision', ['float32', 'int8', 'ubinary'])
+def test_two_shard_index_on_the_card_matches_one_shard(cuda, tmp_path, precision):
+    """``mesh: {'data': 2}`` on the card (both shards on ``cuda:<i %
+    cards>``; 9001 rows pad to 9002): the one-shard index's indices, and
+    its scores (bitwise for the quantized tiers, rescored on the host;
+    float32's products here run at other slab widths, so within 1e-6;
+    ``chip_smoke.py`` 22b holds them bitwise at equal slabs)."""
+    from distllm_tpu_torch.rag import search
+
+    corpus, queries = _topk_corpus(9001, 768, 16, seed=3)
+    table = _Table(corpus * 3.0, [f'doc {i}' for i in range(len(corpus))])
+    results = {}
+    for data in (1, 2):
+        config = search.TpuIndexV2Config(
+            dataset_dir=tmp_path, index_dir=tmp_path / 'index', precision=precision,
+            mesh={'data': data})
+        index = config.get_index(dataset=table, device='cuda')
+        cards = torch.cuda.device_count()
+        assert index.shard_devices == [torch.device('cuda', i % cards) for i in range(data)]
+        results[data] = index.search(queries, top_k=12, score_threshold=-1.0)
+    assert results[2].total_indices == results[1].total_indices
+    if precision == 'float32':
+        for a, b in zip(results[2].total_scores, results[1].total_scores):
+            np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+    else:
+        assert results[2].total_scores == results[1].total_scores
+
+
 # ------------------------------------------------------------ serving load
 def test_run_loadgen_on_the_card(cuda):
     """``run_loadgen`` over a small fp32 engine on the card, every arrival

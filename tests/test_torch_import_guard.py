@@ -149,3 +149,27 @@ def test_port_imports_no_jax_and_nothing_of_distllm_tpu():
         'distllm_tpu_torch.router.__main__',
     }
     assert expected <= set(result['imported'])
+
+
+_RANK_PROBE = r"""
+import json, sys
+sys.path.insert(0, 'tests')
+import test_torch_fabric_tasks, test_torch_rank_tasks
+test_torch_rank_tasks.sharded_encoder_forward.__code__  # the rank's work is importable
+leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
+                or m == 'distllm_tpu' or m.startswith('distllm_tpu.'))
+print(json.dumps(leaked))
+"""
+
+
+def test_the_spawned_ranks_task_modules_import_no_jax():
+    """A spawned rank or pod worker imports its task's module by path:
+    those modules (``test_torch_rank_tasks``: the encoder mesh's ranks;
+    ``test_torch_fabric_tasks``: the fabric's workers) stay free of JAX,
+    which would cost each process seconds and hold the oracle's devices."""
+    proc = subprocess.run(
+        [sys.executable, '-c', _RANK_PROBE], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -17,8 +17,9 @@ both packages on every tier (``float32``, ``int8``, ``ubinary``):
   ``BertTokenizerFast`` written from a seed: the same embeddings within
   1e-5, the same hits and texts;
 - what both refuse (a bad precision, a missing field, the retriever keys
-  of ``examples/chat/chat_server.rag.yaml``), and a data-sharded mesh,
-  which the port refuses naming ROADMAP A10.
+  of ``examples/chat/chat_server.rag.yaml``, a mesh whose fixed axes do
+  not divide the devices). The data-sharded index is held to JAX's in
+  ``test_torch_topk_sharded.py``.
 """
 
 import json
@@ -292,7 +293,13 @@ def test_refused_as_in_jax(dataset, tmp_path):
         jsearch.RetrieverConfig(**rag)
     with pytest.raises(ValueError):
         tsearch.RetrieverConfig.from_dict(rag)
-    with pytest.raises(NotImplementedError, match='ROADMAP A10'):
+    # A mesh whose fixed axes do not divide the devices (JAX: its 8 virtual
+    # devices over model=3; the port: the one CPU device).
+    mesh = {'data': -1, 'model': 3}
+    with pytest.raises(ValueError, match='not divisible by fixed axes'):
+        jsearch.TpuIndexV2Config(dataset_dir=dataset_dir, index_dir=tmp_path / 'j',
+                                 mesh=mesh).get_index()
+    with pytest.raises(ValueError, match='not divisible by fixed axes'):
         tsearch.TpuIndexV2Config.from_dict(
             {'dataset_dir': str(dataset_dir), 'index_dir': str(tmp_path / 'i'),
-             'mesh': {'data': 4}}).get_index(device='cpu')
+             'mesh': mesh}).get_index(device='cpu')

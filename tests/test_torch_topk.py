@@ -8,8 +8,10 @@ repeated row) so the order among equal scores decides the result: the
 indices must be identical to JAX's and the scores within 1e-6 (the int8
 and Hamming scores bitwise, being exact integer products scaled in the
 same order). ``quantize_int8_rows``, ``pack_sign_bits`` and
-``group_rows`` are bitwise JAX's. A data-sharded mesh raises naming
-ROADMAP A10, and grouped inputs without ``n_valid`` raise as in JAX.
+``group_rows`` are bitwise JAX's. What JAX refuses is refused: grouped
+inputs without ``n_valid`` or under a data-sharded mesh, and rows a data
+axis does not divide (the sharded paths themselves are held to JAX in
+``test_torch_topk_sharded.py``).
 """
 
 import jax.numpy as jnp
@@ -177,11 +179,17 @@ def test_refusals():
     corpus, queries = _corpus()
     codes, scales = jtopk.quantize_int8_rows(corpus)
     tq, tc, ts = (torch.from_numpy(a) for a in (queries, codes, scales))
-    for mesh in ({'data': 4}, {'data': 2, 'model': 1}):
-        with pytest.raises(NotImplementedError, match='ROADMAP A10'):
+    # What JAX cannot run: rows the data axis does not divide (700 over 3
+    # shards), and grouped codes with a data-sharded mesh (JAX's message).
+    for mesh in ({'data': 3}, {'data': 3, 'model': 1}):
+        with pytest.raises(ValueError, match='do not split evenly'):
             ttopk.topk_inner_product(tq, torch.from_numpy(corpus), 3, mesh=mesh)
-        with pytest.raises(NotImplementedError, match='ROADMAP A10'):
+        with pytest.raises(ValueError, match='do not split evenly'):
             ttopk.int8_topk(tq, tc, ts, 3, mesh=mesh)
+    with pytest.raises(ValueError, match='cannot combine with a data-sharded mesh'):
+        ttopk.int8_topk(tq, torch.from_numpy(jtopk.group_rows(codes, 256)),
+                        torch.from_numpy(jtopk.group_rows(scales, 256)), 3,
+                        mesh={'data': 2}, n_valid=N)
     # A data axis of 1 is the single-device path.
     one = ttopk.int8_topk(tq, tc, ts, 3, mesh={'data': 1, 'model': 1})
     _same(_port(one), _port(ttopk.int8_topk(tq, tc, ts, 3)), exact=True)
