@@ -26,12 +26,16 @@ carried on):
    spans of 3, 12-row tiles on the split-KV route), and phase 20's shard
    shapes at 16 query / 4 KV heads (8 decode rows of 64..528 keys, 32 of
    1..4096, a 512 + 300 prefill); NaN in the trash block leaves
-   the outputs of a decode case, a split-edge case and a tensor-core case
-   bitwise unchanged, and two launches of a split-edge case are bitwise
-   equal; time kernel and ``scaled_dot_product_attention`` on the same
-   gathered KV (a yardstick the port never calls) as CUDA-graph replays,
-   the kernel also by events around eager calls and on the host's clock
-   per call, and the plain version by events;
+   the outputs of a decode case, a split-edge case and a wgmma case
+   bitwise unchanged, and two launches of a split-edge case and of a
+   wgmma case are bitwise equal; time kernel and
+   ``scaled_dot_product_attention`` on the same gathered KV (a yardstick
+   the port never calls) as CUDA-graph replays, the kernel also by events
+   around eager calls and on the host's clock per call, and the plain
+   version by events; wherever both tensor-core routes take a case (bf16
+   over a bf16 pool of 16-token pages, 16 rows or more) the other one is
+   launched too, held to its tolerance and timed beside it (``routes``:
+   the A/B of ``'tensor_cores'`` and ``'wgmma'``);
 3b. kernel K1, int8-KV mode — the same against its plain version over
    ``QuantizedKV`` pools (N(0, 1) K/V quantized on the card), within the
    int8 tolerance of the route each case takes (printed): (a) 32 decode
@@ -74,10 +78,12 @@ carried on):
    and a head dim of 24 (both on the CUDA-core route; the route of each
    case is printed); then the protein and ModernBERT phases' shapes: ESM-2
    650M (64 x 1024, 20 heads), ESM-C 600M (8 x 2048, 18 heads) and
-   ModernBERT-base (128 x 512, 12 heads, the window-128 bias); time
-   kernel, plain version and ``scaled_dot_product_attention`` with a key
-   mask (and the bias, additive) on pre-transposed ``[B, N, S, Hd]``
-   inputs;
+   ModernBERT-base (128 x 512, 12 heads, the window-128 bias, and its
+   local layers at the embed buckets 160 and 288); time kernel, plain
+   version and ``scaled_dot_product_attention`` with a key mask (and the
+   bias, additive) on pre-transposed ``[B, N, S, Hd]`` inputs; at bf16
+   head dims of the wgmma route both tensor-core routes run each case,
+   each held to the tolerance and timed (``routes``);
 5. kernel K2 — hold the int8 weight-only matmul against its plain
    version elementwise within ``quantized_matmul.comparison_tolerance`` of
    the route each case takes (printed; bf16 on the tensor cores, fp32 on
@@ -118,7 +124,7 @@ carried on):
    the weights quantized on the card; K2 must launch 7 x layers x
    forward passes, every launch on the tensor-core route, and its plain
    version never, K1 as in phase 6;
-6b-6g run Mistral-7B widths at ``SHARED_LAYERS`` = 16 of its 32 layers
+6b-6g run Mistral-7B widths at ``SHARED_LAYERS`` = 8 of its 32 layers
    (depth cut to keep the run's time; 16-16c stay at 32).
 6b. serve with an int8 KV pool — the JAX ``gen_kvq`` stage's workload (64
    greedy prompts of 32..192 tokens, every third behind a shared 32-token
@@ -259,7 +265,7 @@ carried on):
 14d. identity — each of the three at full width and depth 2 in fp32:
     pooled embeddings through K3 (the CUDA cores) and through its plain
     version agree within phase 12's ``1e-4 * |ref| + 1e-5``.
-15. retrieval index — a corpus of 2**20 rows x 768 (BERT-base width),
+15. retrieval index — a corpus of 2**19 rows x 768 (BERT-base width),
     fp32 N(0, 1) from numpy seed 15, with texts of 48..96 words, held in a
     numpy table this script defines and hands to the index (the index's
     one seam for a dataset that is not an HF dataset on disk); the
@@ -344,7 +350,7 @@ carried on):
 17. the pipelined ``generate_ids`` — full-width Mistral-7B bf16 at
     ``PIPE_LAYERS`` = 8 of its 32 layers (depth cut to keep the run's
     time; weights made again from seed 0), block 16, 1400 blocks, 32
-    slots, 640-token rows, 16-step windows, the default (Python) scheduler: 128
+    slots, 640-token rows, 16-step windows, the default (Python) scheduler: 64
     greedy prompts of 32..512 tokens, 64..128 new each, with the four
     tokens most frequent at positions 8..64 of a short first run's streams
     (48 prompts, 64 tokens) as stop ids, at ``pipeline_depth`` 1, 2 and 2
@@ -594,9 +600,9 @@ ESM2_650M_HF = {
 # the whole run keeps its time budget as later phases join it; 14d holds
 # both at depth 2 in fp32.
 PROTEIN_LAYERS = {'esm2_650m': 9, 'esmc_600m': 9}
-# Phases 6b-6g: Mistral-7B widths at 16 of its 32 layers (their depth cut
+# Phases 6b-6g: Mistral-7B widths at 8 of its 32 layers (their depth cut
 # to keep the whole run's time; 16-16c stay at 32).
-SHARED_LAYERS = 16
+SHARED_LAYERS = 8
 # K3's cases at the three models' shapes (phase 4): (name, batch, S, heads,
 # sliding-window half width or None). ModernBERT attends within |i - j| <= 64.
 K3_MODEL_CASES = (
@@ -604,6 +610,9 @@ K3_MODEL_CASES = (
     ('esmc_600m_8x2048', 8, 2048, 18, None),
     ('modernbert_base_128x512_window64', 128, 512, 12, 64),
 )
+# ModernBERT's embed buckets timed with the window bias in phase 4: the
+# smallest, on route 1, and the largest, on the wgmma route.
+K3_LOCAL_BUCKETS = (160, 288)
 # fp32 pooled embeddings through K3 vs its plain version: the two differ
 # only in fp32 summation order inside attention (about 1e-6 relative);
 # two layers and the mean pool keep that far inside 1e-4 relative, and
@@ -811,8 +820,9 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters, scale
     kw = dict(q_lens=case['q_lens'], sliding_window=window or None,
               logit_softcap=softcap, scale=scale)
     s = case['q'].shape[1]
-    route = tpa.kernel_route(case['q'].dtype, s, NUM_HEADS // NUM_KV_HEADS)
     kv_mode = 'int8' if case['int8_kv'] else 'mixed' if case['mixed'] else 'model'
+    group = NUM_HEADS // NUM_KV_HEADS
+    route = case_route(tpa, case)
     by_route = dict(tpa.ragged_paged_attention.launches_by_route)
     by_kv = dict(tpa.ragged_paged_attention.launches_by_kv)
     out = tpa.ragged_paged_attention(*args, **kw)
@@ -867,6 +877,26 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters, scale
             )
             del cq, ck, cv, lib
         del sq, sk, sv, mask
+    # The A/B of the two tensor-core routes on the same inputs, in this
+    # call (CUDA-graph replays): bf16 tiles of 16 rows or more over a bf16
+    # pool of 16-token pages, each route held to its tolerance too.
+    routes_ms = {}
+    if (dtype == 'bfloat16' and kv_mode == 'model' and case['block_size'] == tpa.WGMMA_BLOCK_SIZE
+            and tpa._span_tile(s, group) * group >= 16):
+        for other in ('tensor_cores', 'wgmma'):
+            if other == route:
+                routes_ms[other] = dict(ms=kernel_ms, err_over_tol=err_over_tol)
+                continue
+            call = functools.partial(tpa.ragged_paged_attention_cuda, *args, route=other, **kw)
+            got = call()
+            tol = tpa.comparison_tolerance(ref, *args, route=other, **kw)
+            other_err = float(((got[valid].float() - ref[valid].float()).abs()
+                               / tol[valid]).max())
+            del got, tol
+            if not other_err <= 1.0:
+                fail(f'kernel case {name}: the {other} route exceeds its tolerance '
+                     f'({other_err:.3f} x)')
+            routes_ms[other] = dict(ms=graph_ms(torch, call, iters), err_over_tol=other_err)
     bytes_, flops = case_work(case, window, dtype)
     byte_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
@@ -880,6 +910,8 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters, scale
         bound_by='bytes' if byte_ms >= op_ms else 'operations',
         bytes=bytes_, flops=flops,
     )
+    if routes_ms:
+        result['routes'] = routes_ms
     # SDPA computes the same function on a pool in q's dtype; over an int8
     # or a mixed pool it reads the pool cast to q's dtype: a yardstick.
     if case['int8_kv'] or case['mixed']:
@@ -898,12 +930,20 @@ def run_kernel_case(torch, tpa, name, case, window, softcap, dtype, iters, scale
     return result
 
 
+def case_route(tpa, case):
+    """``kernel_route``'s choice for a kernel case, by its pool and pages."""
+    return tpa.kernel_route(
+        case['q'].dtype, case['q'].shape[1], NUM_HEADS // NUM_KV_HEADS,
+        kv_mode='int8' if case['int8_kv'] else 'mixed' if case['mixed'] else 'model',
+        block_size=case['block_size'])
+
+
 def k1_tol(tpa, route, dtype, int8_kv=False, mixed=False):
     """``paged_attention.comparison_tolerance``'s terms, for the record."""
     tol = {'abs': tpa.TOL_ABS}
     if dtype != 'float32':
         tol['rel'] = tpa.TOL_REL
-        if route in ('tensor_cores', 'split_kv'):
+        if route in ('tensor_cores', 'split_kv', 'wgmma'):
             tol['p'] = f'{tpa.TOL_P_REL} * (P @ |V|)'
     if int8_kv:
         tol['int8'] = ('sum_j P_j E_j (|v_j| + |out|), E_j = (2 Hd + 4) * 2**-24 * '
@@ -928,7 +968,7 @@ def check_nan_trash_block(torch, tpa, case, name):
     case['k'][0], case['v'][0] = saved
     if not torch.equal(clean, poisoned):
         fail(f'NaN in the trash block changed the kernel output ({name})')
-    route = tpa.kernel_route(case['q'].dtype, case['q'].shape[1], NUM_HEADS // NUM_KV_HEADS)
+    route = case_route(tpa, case)
     log(f'[kernel] NaN trash block, {name} ({route} route): outputs unchanged (bitwise)')
 
 
@@ -957,6 +997,7 @@ def phase_kernel(torch, tpa):
     case = build_case(torch, rng, prefixes + q_lens + (q_lens == 0), q_lens, 512, dtype)
     results.append(run_kernel_case(torch, tpa, 'b_prefill_4x512', case, 0, None, 'bfloat16', 20))
     check_nan_trash_block(torch, tpa, case, 'b_prefill_4x512')
+    check_reproducible(torch, tpa, case, 'b_prefill_4x512')
     del case
     # (c) sliding window 4096 + softcap: decode rows past the window and
     # prefill rows whose span crosses it.
@@ -1043,8 +1084,9 @@ def split_edge_cases(torch, tpa, rng, dtype, int8_kv=False):
 
 
 def check_reproducible(torch, tpa, case, name):
-    """The split-KV merge adds the partials in split order: two launches
-    on the same inputs are bitwise equal."""
+    """The split-KV merge adds the partials in split order, and the wgmma
+    route has no atomics: two launches on the same inputs are bitwise
+    equal."""
     args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
     first = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
     second = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
@@ -1061,7 +1103,7 @@ def check_int8_trash_block(torch, tpa, case, name):
     codes nor its scale."""
     args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
     clean = tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])
-    route = tpa.kernel_route(case['q'].dtype, case['q'].shape[1], NUM_HEADS // NUM_KV_HEADS)
+    route = case_route(tpa, case)
     for poison in ('data', 'scale'):
         pools = (case['k'], case['v'])
         saved = [(pool.data[0].clone(), pool.scale[0].clone()) for pool in pools]
@@ -1193,7 +1235,7 @@ def planted_last_page(torch, tpa, case, name):
     cut[row] = (int(cut[row]) - 1) // case['block_size'] * case['block_size']
     out = tpa.ragged_paged_attention(*args[:4], cut, args[5], **kw)
     ref = tpa.ragged_paged_attention_reference(*args, **kw)
-    route = tpa.kernel_route(case['q'].dtype, case['q'].shape[1], NUM_HEADS // NUM_KV_HEADS)
+    route = case_route(tpa, case)
     tol = tpa.comparison_tolerance(ref, *args, route=route, **kw)
     valid = torch.arange(case['q'].shape[1], device=DEVICE)[None, :] < case['q_lens'][:, None]
     ratio = float(((out[valid].float() - ref[valid].float()).abs() / tol[valid]).max())
@@ -1402,7 +1444,7 @@ def run_k3_case(torch, tea, name, case, iters):
     heads = case['heads']
     head_dim = d // heads
     args = (q, k, v, mask, heads)
-    route = tea.kernel_route(q.dtype, head_dim)
+    route = tea.kernel_route(q.dtype, head_dim, s, bias is not None)
     by_route = dict(tea.encoder_attention.launches_by_route)
     out = tea.encoder_attention(*args, bias=bias)
     ref = tea.encoder_attention_reference(*args, bias=bias)
@@ -1415,8 +1457,23 @@ def run_k3_case(torch, tea, name, case, iters):
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
     err_over_tol = float((diff / tol).max())
-    del out, ref, tol, diff
+    del out, diff
     kernel_ms = cuda_ms(torch, lambda: tea.encoder_attention(*args, bias=bias), iters)
+    # The A/B of the two tensor-core routes on the same inputs, in this
+    # call, each held to the tolerance: bf16 at the wgmma route's head dims.
+    routes_ms = {}
+    if q.dtype == torch.bfloat16 and head_dim in tea.WGMMA_HEAD_DIMS:
+        for other in ('tensor_cores', 'wgmma'):
+            if other == route:
+                routes_ms[other] = dict(ms=kernel_ms, err_over_tol=err_over_tol)
+                continue
+            call = functools.partial(tea.encoder_attention_cuda, *args, bias=bias, route=other)
+            other_err = float(((call().float() - ref.float()).abs() / tol).max())
+            if not other_err <= 1.0:
+                fail(f'K3 case {name}: the {other} route exceeds its tolerance '
+                     f'({other_err:.3f} x)')
+            routes_ms[other] = dict(ms=cuda_ms(torch, call, iters), err_over_tol=other_err)
+    del ref, tol
     plain_ms = cuda_ms(
         torch, lambda: tea.encoder_attention_reference(*args, bias=bias),
         max(2, iters // 5), warmup=1,
@@ -1451,6 +1508,8 @@ def run_k3_case(torch, tea, name, case, iters):
         bound_by='bytes' if byte_ms >= op_ms else 'operations',
         bytes=bytes_, flops=flops,
     )
+    if routes_ms:
+        result['routes'] = routes_ms
     log(f'[kernel K3] {json.dumps(result)}')
     if not err_over_tol <= 1.0:
         fail(f'K3 case {name}: |out - ref| exceeds its elementwise tolerance '
@@ -1463,11 +1522,17 @@ def phase_encoder_kernel(torch, tea):
     bf16 = torch.bfloat16
     results = []
     # The embed path's shapes: batch 512 of one bucket, every row's length
-    # within the bucket's last 32 positions, as length-sorted batches are.
+    # within the bucket's last 32 positions, as length-sorted batches are;
+    # ModernBERT's local layers at two of its buckets (phase 14c).
     for s, iters in ((128, 20), (192, 10), (288, 5)):
         lens = rng.integers(max(1, s - 31), s + 1, size=512)
         case = k3_case(torch, rng, 512, s, lens, bf16)
         results.append(run_k3_case(torch, tea, f'embed_512x{s}', case, iters))
+        del case
+    for s in K3_LOCAL_BUCKETS:
+        lens = rng.integers(max(1, s - 31), s + 1, size=512)
+        case = k3_case(torch, rng, 512, s, lens, bf16, window=64)
+        results.append(run_k3_case(torch, tea, f'modernbert_local_512x{s}_window64', case, 5))
         del case
     lens = np.concatenate([rng.integers(1, 257, size=56), np.zeros(8, int)])
     case = k3_case(torch, rng, 64, 256, lens, bf16)
@@ -1912,12 +1977,15 @@ def phase_serve(torch, tpa, card, cfg, tqm=None, quantization=None, *, config=No
     if by_head_dim[cfg.head_size] != launches:
         fail(f'K1 launches by head dim {by_head_dim}: all {launches} belong at {cfg.head_size}')
     # Prefill spans (>= 16 tokens here, x the group of 4 or Gemma-2's 2)
-    # fill tensor-core tiles; decode rows (a group's rows per tile) take the
+    # fill tensor-core tiles, of 64 rows or more (the wgmma route) wherever
+    # the span has them; decode rows (a group's rows per tile) take the
     # split-KV route.
-    if (by_route['tensor_cores'] != cfg.num_layers * prefills
+    if (by_route['tensor_cores'] + by_route['wgmma'] != cfg.num_layers * prefills
+            or by_route['wgmma'] <= 0
             or by_route['split_kv'] != cfg.num_layers * (passes - prefills)):
         fail(f'K1 routes {by_route}: expected {cfg.num_layers} x {prefills} '
-             f'prefill passes on the tensor cores and the rest on the split-KV route')
+             f'prefill passes on the tensor-core routes (the wgmma route among them) '
+             f'and the rest on the split-KV route')
     if plain != 0:
         fail(f'the plain op ran {plain} times on the serving path')
     result = dict(tokens_per_s=tok_s, wall_s=wall_s, launches=launches,
@@ -2034,10 +2102,15 @@ def phase_serve_kv_int8(torch, tpa, card, cfg, params):
         if arm['launches'] <= 0 or arm['launches'] != cfg.num_layers * passes:
             fail(f'serve int8 KV ({kv}): K1 launches {arm["launches"]} != '
                  f'{cfg.num_layers} x {passes}')
-        if (by_route['tensor_cores'] != cfg.num_layers * prefills
+        # An int8 pool's prefill stays on route 1; a bf16 pool's takes the
+        # wgmma route where its tiles have 64 rows.
+        prefill_routes = by_route['tensor_cores'] + by_route['wgmma']
+        if (prefill_routes != cfg.num_layers * prefills
+                or (by_route['wgmma'] > 0) != (kv != 'int8')
                 or by_route['split_kv'] != cfg.num_layers * (passes - prefills)):
             fail(f'serve int8 KV ({kv}): K1 routes {by_route}: expected prefill on '
-                 'the tensor cores and decode on the split-KV route')
+                 'the tensor-core routes (int8: route 1 only) and decode on the '
+                 'split-KV route')
         mode = 'int8' if kv == 'int8' else 'model'
         if arm['launches_by_kv'][mode] != arm['launches']:
             fail(f'serve int8 KV ({kv}): K1 KV modes {arm["launches_by_kv"]}: every '
@@ -2220,8 +2293,8 @@ def check_k1_routes(torch, tpa, tag, cfg, engine, marks, passes, prefills, width
     group = NUM_HEADS // NUM_KV_HEADS
     want = dict.fromkeys(tpa.ROUTES, 0)
     for width in widths:
-        want[tpa.kernel_route(torch.bfloat16, width, group)] += cfg.num_layers
-    want[tpa.kernel_route(torch.bfloat16, span, group)] += cfg.num_layers * verify
+        want[tpa.kernel_route(torch.bfloat16, width, group, kv_mode=mode)] += cfg.num_layers
+    want[tpa.kernel_route(torch.bfloat16, span, group, kv_mode=mode)] += cfg.num_layers * verify
     want['split_kv'] += cfg.num_layers * (passes - prefills - verify)
     got = dict(kernel.launches_by_route)
     log(f'[{tag}] K1 launches {kernel.launches} = {cfg.num_layers} layers x {passes} passes '
@@ -3435,9 +3508,9 @@ def phase_embed(torch, tea, card, tmp: Path, tqm=None, quantization=None):
         f'version launches {plain}')
     if launches <= 0 or launches != cfg.num_layers * batches:
         fail(f'K3 launches {launches} != {cfg.num_layers} x {batches} batches')
-    if by_route['tensor_cores'] != launches:
-        fail(f'K3 routes {by_route}: every bf16 launch at head dim 64 belongs '
-             f'on the tensor cores')
+    want = k3_route_counts(torch, tea, buckets, cfg.num_layers)
+    if by_route != want:
+        fail(f'K3 routes {by_route}: the route map gives {want} for these buckets')
     if plain != 0:
         fail(f'the plain encoder attention ran {plain} times on the embed path')
     out = dict(embeddings_per_s=per_s, wall_s=wall_s, launches=launches,
@@ -3464,6 +3537,17 @@ def phase_embed(torch, tea, card, tmp: Path, tqm=None, quantization=None):
 
 
 # -------------------------------------------------------------- phase 12
+def k3_route_counts(torch, tea, buckets, layers, bias_layers=0):
+    """K3 launches by route that the route map gives an embed pass over
+    ``buckets`` ({padded length: batches}) of ``layers`` bf16 layers at
+    head dim 64, ``bias_layers`` of them with the [S, S] bias."""
+    want = dict.fromkeys(tea.ROUTES, 0)
+    for s, batches in buckets.items():
+        want[tea.kernel_route(torch.bfloat16, 64, int(s), True)] += bias_layers * batches
+        want[tea.kernel_route(torch.bfloat16, 64, int(s))] += (layers - bias_layers) * batches
+    return want
+
+
 def encoder_identity(torch, tea, tag, module, cfg, tokenizer, texts, batch):
     """fp32 pooled embeddings of ``texts`` through K3 (``attn_impl='auto'``)
     and through its plain version (``'reference'``) on the same weights
@@ -3805,9 +3889,9 @@ def phase_encoder_embed(torch, tea, card, tmp: Path, tag, module, cfg, tokenizer
         f'{json.dumps(by_route)}; plain version launches {counts["plain"]}')
     if launches <= 0 or launches != cfg.num_layers * batches:
         fail(f'{tag}: K3 launches {launches} != {cfg.num_layers} x {batches} batches')
-    if by_route['tensor_cores'] != launches:
-        fail(f'{tag}: K3 routes {by_route}: every bf16 launch at head dim 64 belongs '
-             f'on the tensor cores')
+    want = k3_route_counts(torch, tea, buckets, cfg.num_layers, bias_layers)
+    if by_route != want:
+        fail(f'{tag}: K3 routes {by_route}: the route map gives {want} for these buckets')
     if counts['bias_launches'] != bias_layers * batches:
         fail(f'{tag}: {counts["bias_launches"]} K3 launches carried the window bias, '
              f'expected {bias_layers} x {batches} batches')
@@ -3911,10 +3995,10 @@ def phase_protein_identity(torch, tea, seqs, texts):
 
 
 # ---------------------------------------------------------- phases 15-15e
-# Phase 15's corpus: 2**20 rows at BERT-base width (the retriever of the
+# Phase 15's corpus: 2**19 rows at BERT-base width (the retriever of the
 # reference's PubMed RAG), fp32 N(0, 1) from numpy seed 15, and texts of
 # 48..96 words drawn from RAG_WORDS.
-INDEX_ROWS, INDEX_DIM = 1 << 20, 768
+INDEX_ROWS, INDEX_DIM = 1 << 19, 768
 INDEX_TOP_K, INDEX_RESCORE = 20, 4
 INDEX_CHECKED = 8  # queries held against the fp64 host reference
 # The float32 tier may order two rows whose fp64 scores lie this close
@@ -4010,9 +4094,10 @@ def check_k3(tea, tag, layers, batches):
     plain = tea.encoder_attention_reference.launches
     log(f'[{tag}] encoder_attention launches {launches} = {layers} layers x {batches} '
         f'query batches; by route {json.dumps(by_route)}; plain version {plain}')
-    if launches <= 0 or launches != layers * batches or by_route['tensor_cores'] != launches:
+    if (launches <= 0 or launches != layers * batches
+            or by_route['tensor_cores'] + by_route['wgmma'] != launches):
         fail(f'{tag}: K3 launches {launches}, routes {by_route}; expected {layers} x '
-             f'{batches} on the tensor cores')
+             f'{batches} on the tensor-core routes')
     if plain != 0:
         fail(f'{tag}: the plain encoder attention ran {plain} times')
     return dict(launches=launches, launches_by_route=by_route)
@@ -4084,7 +4169,7 @@ def host_reference(torch, index, table, queries, precision):
 
 
 def phase_index(torch, tea, card, tmp: Path):
-    """Phase 15: the three index tiers over the 2**20-row corpus, 64
+    """Phase 15: the three index tiers over the 2**19-row corpus, 64
     queries through the BERT-base retriever, each tier against the host
     reference."""
     from distllm_tpu_torch.models import bert
@@ -4937,7 +5022,7 @@ def phase_load_identity(torch, tpa, cfg):
 PIPE_LAYERS = 8
 PIPE_ENGINE = dict(block_size=BLOCK_SIZE, num_blocks=1400, max_num_seqs=32,
                    max_model_len=640, decode_steps=16)
-PIPE_PROMPTS, PIPE_LENS, PIPE_NEW, PIPE_STOPS = 128, (32, 512), (64, 128), 4
+PIPE_PROMPTS, PIPE_LENS, PIPE_NEW, PIPE_STOPS = 64, (32, 512), (64, 128), 4
 PIPE_ARMS = (('depth1', 1, False), ('depth2', 2, False), ('depth2_defer', 2, True))
 
 
@@ -5647,13 +5732,13 @@ def write_jsonl_rows(root: Path, files: int, rows: int, words, lens, seed, path_
 
 
 def check_k3_kernel(tea, tag):
-    """K3 launched (all on the tensor cores), its plain version never."""
+    """K3 launched (all on the tensor-core routes), its plain version never."""
     launches = tea.encoder_attention.launches
     by_route = dict(tea.encoder_attention.launches_by_route)
     plain = tea.encoder_attention_reference.launches
     log(f'[{tag}] encoder_attention launches {launches}, by route {json.dumps(by_route)}; '
         f'plain version {plain}')
-    if launches <= 0 or by_route['tensor_cores'] != launches or plain:
+    if launches <= 0 or by_route['tensor_cores'] + by_route['wgmma'] != launches or plain:
         fail(f'{tag}: K3 launches {launches}, routes {by_route}, plain {plain}')
     return dict(launches=launches, launches_by_route=by_route)
 
@@ -7042,13 +7127,15 @@ def counted_embedding_worker(file, **kwargs):
         Path(starts, f'{os.getpid()}-{Path(file).name}').write_text(repr(time.time()))
         if first:
             time.sleep(float(os.environ.get('CHIP_SMOKE_STALL_S') or 0))
-    before = (tea.encoder_attention.launches, tea.encoder_attention.launches_by_route['tensor_cores'],
+    tensor_cores = lambda: (tea.encoder_attention.launches_by_route['tensor_cores']  # noqa: E731
+                            + tea.encoder_attention.launches_by_route['wgmma'])
+    before = (tea.encoder_attention.launches, tensor_cores(),
               tea.encoder_attention_reference.launches)
     t0 = time.perf_counter()
     shard = embedding_worker(file, **kwargs)
     return dict(file=file, shard=shard, pid=os.getpid(), seconds=time.perf_counter() - t0,
                 k3=tea.encoder_attention.launches - before[0],
-                k3_tensor_cores=tea.encoder_attention.launches_by_route['tensor_cores'] - before[1],
+                k3_tensor_cores=tensor_cores() - before[1],
                 plain=tea.encoder_attention_reference.launches - before[2])
 
 
@@ -7405,19 +7492,42 @@ def app_yaml(path: Path, generator: dict) -> Path:
 
 def start_replicas(tmp: Path, tag: str, generator: dict, n: int):
     """``n`` chat-server processes (``python -m distllm_tpu_torch.chat_server``)
-    over one app YAML, each on its own port; ``[(proc, base, log)]``."""
-    from distllm_tpu_torch.parallel.multihost import free_port
-
+    over one app YAML, each binding a free port itself;
+    ``[(proc, None, log)]``, the base read later by :func:`listening`."""
     config = app_yaml(tmp / f'{tag}.yaml', generator)
     out = []
     for i in range(n):
-        port = free_port()
         log_path = tmp / f'{tag}{i}.log'
         argv = ['python', '-m', 'distllm_tpu_torch.chat_server', '--config', str(config),
-                '--host', '127.0.0.1', '--port', str(port)]
+                '--host', '127.0.0.1', '--port', '0']
         if DEVICE != 'cuda':
             argv += ['--device', DEVICE]
-        out.append((start_process(argv, log_path), f'http://127.0.0.1:{port}', log_path))
+        out.append((start_process(argv, log_path), None, log_path))
+    return out
+
+
+def listening(servers, what):
+    """``servers`` as ``[(proc, base, log)]`` with each base read from the
+    ``listening on <url>`` line its process logs once bound. A port chosen
+    here and bound later by the child could be taken meanwhile (an outgoing
+    connection's ephemeral port); a port the child binds itself cannot."""
+    import re
+
+    deadline = time.monotonic() + FABRIC_WAIT_S
+    out = []
+    for proc, base, log_path in servers:
+        while base is None:
+            found = re.search(r'\] listening on (http://\S+)', log_path.read_text())
+            if found:
+                base = found.group(1)
+            elif proc.poll() is not None:
+                fail(f'{what}: exited {proc.returncode} before it listened\n'
+                     f'{log_tail(log_path)}')
+            elif time.monotonic() > deadline:
+                fail(f'{what}: not listening in {FABRIC_WAIT_S} s\n{log_tail(log_path)}')
+            else:
+                time.sleep(0.2)
+        out.append((proc, base, log_path))
     return out
 
 
@@ -7440,17 +7550,20 @@ def wait_ready(servers, what):
 
 def start_router(tmp: Path, tag: str, fleet, policy, health_interval_s):
     """``python -m distllm_tpu_torch.router`` over ``fleet`` from a YAML
-    ``RouterConfig``; ``(proc, base, log)``, not waited for."""
-    from distllm_tpu_torch.parallel.multihost import free_port
-
-    port = free_port()
+    ``RouterConfig``, on a port it binds itself; ``(proc, base, log)`` once
+    it listens, not waited for beyond that."""
     config = tmp / f'{tag}_router.yaml'
     config.write_text(json.dumps({'replicas': [b for _, b, _ in fleet], 'policy': policy,
                                   'loadinfo_ttl_s': 0.05, 'health_interval_s': health_interval_s,
                                   'request_timeout_s': 120.0}))
-    return (start_process(['python', '-m', 'distllm_tpu_torch.router', '--config', str(config),
-                           '--host', '127.0.0.1', '--port', str(port)], tmp / f'{tag}_router.log'),
-            f'http://127.0.0.1:{port}', tmp / f'{tag}_router.log')
+    log_path = tmp / f'{tag}_router.log'
+    proc = start_process(['python', '-m', 'distllm_tpu_torch.router', '--config', str(config),
+                          '--host', '127.0.0.1', '--port', '0'], log_path)
+    try:
+        return listening([(proc, None, log_path)], f'{tag} router')[0]
+    except BaseException:
+        stop_processes([proc], timeout=10)
+        raise
 
 
 def shutdown_reports(servers, what):
@@ -7498,8 +7611,8 @@ def run_router_arm(card, policy, router, fleet, workload, warm):
     from distllm_tpu_torch.generate.loadgen import run_http_loadgen
 
     wait_ready([router], f'{policy} router')
-    # The router probed before its replicas were up: wait until it holds
-    # them all in rotation again.
+    # Wait until the router holds every replica in rotation: its first
+    # probe may come before a replica answers /health.
     deadline = time.monotonic() + FABRIC_WAIT_S
     while set(get_json(router[1], '/health')[1]['replicas'].values()) != {'healthy'}:
         if time.monotonic() > deadline:
@@ -7605,7 +7718,10 @@ def phase_router(torch, card, tmp: Path):
         fleets['prefix_affinity'] = start_replicas(tmp, 'aff', ROUTER_GENERATOR, 2)
         fleets['failover'] = start_replicas(tmp, 'fo', dict(
             ROUTER_GENERATOR, model=dict(FAILOVER_MODEL), enable_prefix_cache=False), 3)
-        # 21b's routers probe every 0.5 s: they start with their replicas.
+        # Each replica binds its own port: the routers start once all
+        # seven have logged theirs, then probe every 0.5 s.
+        fleets = {tag: listening(fleet, f'router replicas ({tag})')
+                  for tag, fleet in fleets.items()}
         for policy in ('round_robin', 'prefix_affinity'):
             routers[policy] = start_router(tmp, policy, fleets[policy], policy, 0.5)
         wait_ready([s for fleet in fleets.values() for s in fleet], 'router replicas')
@@ -8066,7 +8182,7 @@ def sharded_device_fn(torch, topk, index, q_dev, precision, n):
 
 
 def phase_index_sharded(torch, tea, card, table, tmp: Path):
-    """22b. Phase 15's 2**20 x 768 index at ``mesh: {'data': n}``, the
+    """22b. Phase 15's 2**19 x 768 index at ``mesh: {'data': n}``, the
     shards sharing the one card (a placement test, not a multi-card
     speed): for each tier and n, 64 queries through the BERT-base
     retriever (K3 launches layers x batches, as in 15); results equal
@@ -8275,6 +8391,45 @@ def phase_encoder_tp(torch, tea, card):
     return out
 
 
+def wgmma_entries(k1_cases, k3_cases, serve, gemma2, load, protein):
+    """The kernels line's entries for the wgmma routes."""
+    keys = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+
+    def ab(results):
+        return {c['case']: {route: r['ms'] for route, r in c['routes'].items()}
+                for c in results if 'routes' in c}
+
+    def entry(name, source, replaces, head, mine, launches, by_phase, results):
+        return dict(
+            name=name, route='cuda', source=source, replaces=replaces, launches=launches,
+            launches_by_phase=by_phase,
+            max_abs_err=max(c['max_abs_err'] for c in mine),
+            err_over_tol=max([c['err_over_tol'] for c in mine]
+                             + [c['routes']['wgmma']['err_over_tol']
+                                for c in results if 'routes' in c]),
+            **{key: head[key] for key in keys},
+            route1_ms=head['routes']['tensor_cores']['ms'], timed_case=head['case'],
+            kernel_route=head['kernel_route'], ab=ab(results))
+
+    k1_head = next(c for c in k1_cases if c['case'] == HD256_PREFILL)
+    k3_head = next(c for c in k3_cases if c['case'] == K3_MODEL_CASES[0][0])
+    return [
+        entry('ragged_paged_attention_wgmma',
+              'distllm_tpu_torch/csrc/ragged_paged_attention.cu (+ csrc/hopper_attention.cuh)',
+              'distllm_tpu/ops/paged_attention.py:683', k1_head,
+              [c for c in k1_cases if c['kernel_route'] == 'wgmma'],
+              serve['launches_by_route']['wgmma'],
+              {'serve': serve['launches_by_route'], 'gemma2': gemma2['launches_by_route'],
+               'load': load['k1']}, k1_cases),
+        entry('encoder_attention_wgmma',
+              'distllm_tpu_torch/csrc/encoder_attention.cu (+ csrc/hopper_attention.cuh)',
+              'distllm_tpu/ops/encoder_attention.py:151', k3_head,
+              [c for c in k3_cases if c['kernel_route'] == 'wgmma'],
+              sum(r['launches_by_route']['wgmma'] for r in protein.values()),
+              {name: r['launches_by_route'] for name, r in protein.items()}, k3_cases),
+    ]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -8433,7 +8588,7 @@ def main() -> None:
     t0 = time.perf_counter()
     identity_protein = phase_protein_identity(torch, tea, seqs, corpus_texts)
     log(f'[identity protein] phase 14d took {time.perf_counter() - t0:.1f} s')
-    # 15. the retrieval index (three tiers, 2**20 rows, BERT-base queries);
+    # 15. the retrieval index (three tiers, 2**19 rows, BERT-base queries);
     # 15b. the RAG chat server, 15c. the eval suite and 15d. the generation
     # job over one warm 7B generator; 15e. their fp32 identities
     with tempfile.TemporaryDirectory(prefix='chip_smoke_rag_') as tmp:
@@ -9079,6 +9234,11 @@ def main() -> None:
         f'{encoder_tp["bf16_err"]:.4e} (bound {encoder_tp["bf16_bound"]:.4e}); K3 at 6 heads '
         f'{k3_shard["ms"]:.4f} ms (bound {k3_shard["bound_ms"]:.4f}, SDPA '
         f'{k3_shard["library_ms"]:.4f}); {time.perf_counter() - t_start:.1f} s total')
+    # The wgmma routes (K1's route 3, K3's route 2), each a kernel of its
+    # own in the line: launches on the main paths, times at the headline
+    # case beside route 1's on the same inputs in the same call, and the
+    # A/B of the two routes at every case that both take.
+    kernels += wgmma_entries(cases + hd256_cases, k3_cases, serve, gemma2, load, protein)
     if not all(math.isfinite(c['ms'])
                for c in cases + int8_cases + mixed_cases + hd256_cases + k3_cases + k2_cases):
         fail('non-finite kernel time')

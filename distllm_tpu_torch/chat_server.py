@@ -789,7 +789,8 @@ def main(argv: list[str] | None = None) -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--host', default='127.0.0.1')
-    parser.add_argument('--port', type=int, default=8000)
+    parser.add_argument('--port', type=int, default=8000,
+                        help='0 binds a free port, logged on start')
     parser.add_argument('--num-layers', type=int, default=32)
     parser.add_argument('--dtype', default='bfloat16')
     parser.add_argument('--device', default=None)
@@ -834,6 +835,10 @@ def main(argv: list[str] | None = None) -> None:
     server = ChatServer(
         generator, host=args.host, port=args.port, retriever=retriever, **app_kw
     ).start()
+    # With --port 0 this line is where a caller reads the port bound.
+    instruments.log_event(
+        f'[chat_server] listening on http://{args.host}:{server.port}', component='server'
+    )
     try:
         while True:
             time.sleep(3600)

@@ -70,11 +70,43 @@
 // - 32, 64 and 128 are compiled with the head dim fixed, the other
 //   multiples of 16 with it read at run time.
 
+//
+// Route 2, wgmma and TMA (bf16 at head dims 32, 64 and 128, long
+// sequences or an [S, S] bias: ops/encoder_attention.kernel_route, from
+// the H100's lines; csrc/hopper_attention.cuh holds the main loop it
+// shares with K1's route 3):
+// - a block is one producer warp and two consumer warpgroups of 64
+//   queries (128 a block); the producer gives its registers to the
+//   consumers (setmaxnreg). It loads Q, then K (pass 1) and K and V
+//   (pass 2) tiles of 64 keys with TMA from the packed [B, S, N*Hd]
+//   layout through a 3-D tensor map, so keys past S arrive as zeros from
+//   the copy's out-of-bounds fill; each ring six deep (four at 128).
+// - the two passes stay: p is rounded after normalisation, as on the TPU.
+//   Q K^T and P V are wgmma (Q and K K-major, V MN-major, 128-byte
+//   swizzle, 64-byte at head dim 32), P the register A operand. Pass 1
+//   issues tile o + 1's Q K^T before tile o's exponentials; pass 2 issues
+//   the next tile's Q K^T and the previous tile's P V together and runs
+//   both under this tile's exponentials (two score buffers).
+// - key tiles are walked from the block's diagonal tile round, so a row's
+//   running max is set by its own key first. In pass 1 a warp whose 16
+//   rows all see a tile's scores 140 or more below their running max
+//   skips its exponentials: every one would be exactly 0 (ex2.approx.ftz
+//   flushes below 2^-126), and the max and sum do not move. Pass 2 skips
+//   the tiles every warp skipped (their p are 0 against the final max too;
+//   the first two are loaded before the verdict and always computed):
+//   under ModernBERT's window bias most of a long row's tiles, with the
+//   output bitwise unchanged. A fully masked row sees no such tile and
+//   stays the uniform average.
+// - what bounds it: two ex2 per score (about 0.69 ms for ESM-2's batch at
+//   the SFU's rate) beside 1.5x the products; a cycle-counter split of
+//   its phases: scripts/profile_torch_kernel_phases.py.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_attention.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
@@ -596,6 +628,465 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
   }
 }
 
+// ------------------------------------------ route 2, wgmma + TMA (Hopper)
+namespace wg {
+using namespace hopper_attn;
+using namespace mma_tiles;
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 128;      // queries of a block: two consumer warpgroups of 64
+constexpr int kMaskTiles = 64;  // key tiles the skip masks cover
+// Pass 2's first kSpec tiles are loaded before the block's verdict and
+// computed whatever it says (a dead tile adds exact zeros).
+constexpr int kSpec = 2;
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+// A score this far below its row's running max has p = 2^(t - m) below
+// 2^-140: ex2.approx.ftz flushes it to exactly 0.
+constexpr float kDeadGap = 140.f;
+
+// Keys of a staged tile: 64 (two score buffers and P take 80 registers a
+// thread beside O).
+__host__ __device__ constexpr int tile_keys(int) { return 64; }
+
+template <int HD>
+struct Cfg {
+  static constexpr int kKeys = tile_keys(HD);
+  static constexpr int kCW = HD < 64 ? HD : 64;  // columns of a box, one swizzled row
+  static constexpr int kSwz = 2 * kCW;           // 128-byte swizzle (64-byte at HD 32)
+  static constexpr int kChunks = HD / kCW;
+  static constexpr int kQBytes = kRows * HD * 2;
+  static constexpr int kTileBytes = kKeys * HD * 2;
+};
+
+// Each ring (K tiles of both passes, V tiles of pass 2) is six tiles deep,
+// four at head dim 128: a step is short, so the copies need several steps
+// in flight to hide their latency.
+__host__ __device__ constexpr int stages(int head_dim) { return head_dim <= 64 ? 6 : 4; }
+
+size_t smem_bytes(int head_dim, int seq) {
+  const int kKeys = tile_keys(head_dim);
+  const size_t nt = (seq + kKeys - 1) / kKeys;
+  const int kStages = stages(head_dim);
+  return 1024 + size_t(kRows) * head_dim * 2 + size_t(2 * kStages) * kKeys * head_dim * 2 +
+         sizeof(float) * nt * kKeys + sizeof(uint64_t) * (4 * kStages + 2) +
+         sizeof(uint64_t) * (kConsumerWarps + 1);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    encoder_attention_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap map_q,
+                                   const __grid_constant__ CUtensorMap map_k,
+                                   const __grid_constant__ CUtensorMap map_v) {
+  using C = Cfg<HD>;
+  constexpr int kStages = stages(HD);
+  constexpr int kKeys = C::kKeys;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* s_q = align_1024(smem_raw);                // [chunk][kRows][kSwz]
+  uint8_t* s_k = s_q + C::kQBytes;                    // [stage][chunk][kKeys][kSwz]
+  uint8_t* s_v = s_k + kStages * C::kTileBytes;       // [stage][chunk][kKeys][kSwz]
+  const int seq = p.seq;
+  const int nt = (seq + kKeys - 1) / kKeys;
+  float* s_kb = reinterpret_cast<float*>(s_v + kStages * C::kTileBytes);  // [nt * kKeys]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_kb + nt * kKeys);
+  const Ring k_ring{bars, bars + kStages, kStages};
+  const Ring v_ring{bars + 2 * kStages, bars + 3 * kStages, kStages};
+  uint64_t* q_full = bars + 4 * kStages;
+  uint64_t* verdict = q_full + 1;  // the block's skip mask is written
+  uint64_t* s_dead = verdict + 1;  // [kConsumerWarps] each warp's mask, then the block's
+
+  const int q0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int col = h * HD;
+  // Key tiles are walked from the block's diagonal tile on, wrapping
+  // round: a row's own key sets its running max first, so the tiles its
+  // bias or key mask leaves dead are seen as dead.
+  const int first = q0 / kKeys;
+  auto tile_of = [&](int o) { return first + o < nt ? first + o : first + o - nt; };
+
+  if (tid == 0) {
+    k_ring.init();
+    v_ring.init();
+    mbar_init(q_full, 1);
+    mbar_init(verdict, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumerThreads) {
+    // The producer: one thread issues every copy. Pass 1 streams K; pass
+    // 2 K and V of the tiles some row of the block still needs (the first
+    // kSpec before the verdict is known).
+    release_registers<kProducerRegs>();
+    if (tid == kConsumerThreads) {
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) {
+        tma_load_3d(s_q + c * kRows * C::kSwz, &map_q, col + c * C::kCW, q0, b, q_full);
+      }
+      PHASES_BEGIN();
+      auto load = [&](const Ring& ring, uint8_t* tiles, const CUtensorMap* map, int it,
+                      int tile) {
+        uint64_t* bar = ring.acquire(it, C::kTileBytes);
+        PHASE(11);
+        uint8_t* dst = tiles + ring.stage(it) * C::kTileBytes;
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) {
+          tma_load_3d(dst + c * kKeys * C::kSwz, map, col + c * C::kCW, tile * kKeys, b, bar);
+        }
+      };
+      int ik = 0;
+      for (int o = 0; o < nt; ++o) load(k_ring, s_k, &map_k, ik++, tile_of(o));
+      uint64_t dead = 0;
+      int iv = 0;
+      for (int o = 0; o < nt; ++o) {
+        const int tile = tile_of(o);
+        if (o == kSpec) {
+          mbar_wait(verdict, 0);
+          dead = s_dead[kConsumerWarps];
+        }
+        if (o >= kSpec && tile < kMaskTiles && (dead >> tile & 1)) continue;
+        load(k_ring, s_k, &map_k, ik++, tile);
+        load(v_ring, s_v, &map_v, iv++, tile);
+      }
+      PHASE(12);
+      PHASES_END();
+    }
+  } else {
+    claim_registers<kConsumerRegs>();
+    PHASES_BEGIN();
+    const int ct = tid;
+    // Warp-uniform as the compiler sees it (a value it cannot prove
+    // uniform makes every branch on it divergent, and wgmma in flight
+    // across a divergent branch is serialized).
+    const int warp = __shfl_sync(0xffffffffu, ct / 32, 0);  // rows 16 warp .. + 15
+    const int w = warp / 4;    // consumer warpgroup: rows 64w .. 64w + 63
+    const int lane = tid % 32;
+    const int g = lane / 4;    // accumulator rows g and g + 8 of the warp
+    const int t = lane % 4;    // accumulator columns 2t, 2t + 1 of each 8
+    const int* mask = p.mask + size_t(b) * seq;
+    // The row's key bias times log2(e): 0, the finite -1e9 of a masked
+    // key, or -inf past S (TMA reads those keys as zeros).
+    for (int key = ct; key < nt * kKeys; key += kConsumerThreads) {
+      s_kb[key] = key >= seq ? -INFINITY : (mask[key] == 0 ? kNegBig * kLog2e : 0.f);
+    }
+    consumer_sync();
+    const float* bias_rows[2] = {nullptr, nullptr};
+    if (p.bias != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        bias_rows[i] = p.bias + size_t(min(q0 + 16 * warp + g + 8 * i, seq - 1)) * seq;
+      }
+    }
+    const bool bias_pairs = seq % 2 == 0;  // a row's bias is 8-byte aligned
+    const float scale_log2 = p.scale * kLog2e;
+    const uint8_t* q_rows = s_q + w * 64 * C::kSwz;
+
+    // S = Q K^T of the warpgroup's 64 rows against the K tile of ring slot
+    // `it` (its copy waited on first). Every wgmma is issued, committed and
+    // waited on in straight-line code: a count of groups in flight that
+    // differs between two paths makes the compiler serialize them.
+    auto issue_scores = [&](float (&s)[kKeys / 2], int it) {
+      wgmma_fence();
+      issue_qk<HD, kKeys, C::kSwz>(s, q_rows, kRows * C::kSwz,
+                                   s_k + k_ring.stage(it) * C::kTileBytes);
+      wgmma_commit();
+    };
+    // The log2-scaled scores t = s * scale * log2(e) + key bias * log2(e)
+    // [+ bias * log2(e)], so that each p is one ex2.
+    auto finish_scores = [&](float (&s)[kKeys / 2], int tile) {
+      const int t0 = tile * kKeys;
+      if (p.bias == nullptr) {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          const float2 kb = *reinterpret_cast<const float2*>(s_kb + t0 + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[4 * j + e] = fmaf(s[4 * j + e], scale_log2, (e & 1) ? kb.y : kb.x);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          const int key = t0 + 8 * j + 2 * t;
+          const float2 kb = *reinterpret_cast<const float2*>(s_kb + key);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            // Keys past S read a clamped bias: their key bias is -inf.
+            const float2 bias =
+                bias_pairs
+                    ? *reinterpret_cast<const float2*>(bias_rows[i] + min(key, seq - 2))
+                    : make_float2(bias_rows[i][min(key, seq - 1)],
+                                  bias_rows[i][min(key + 1, seq - 1)]);
+            s[4 * j + 2 * i] =
+                fmaf(s[4 * j + 2 * i], scale_log2, fmaf(bias.x, kLog2e, kb.x));
+            s[4 * j + 2 * i + 1] =
+                fmaf(s[4 * j + 2 * i + 1], scale_log2, fmaf(bias.y, kLog2e, kb.y));
+          }
+        }
+      }
+    };
+
+    mbar_wait(q_full, 0);
+    // Pass 1: each row's max and sum (online, fp32); tile o + 1's Q K^T runs
+    // while tile o's exponentials do (two score buffers). A warp whose 16
+    // rows all see a tile's scores kDeadGap or more below their running max
+    // skips its exponentials (every one would be exactly 0) and marks the
+    // tile dead.
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    uint64_t dead = 0;
+    auto pass1 = [&](float (&s)[kKeys / 2], int o) {
+      const int tile = tile_of(o);
+      finish_scores(s, tile);
+      float m_new[2];
+      bool skip = true;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float mx = row_max<kKeys>(s, i);
+        m_new[i] = fmaxf(m[i], mx);
+        skip = skip && m_new[i] > -INFINITY && mx - m_new[i] < -kDeadGap;
+      }
+      if (__all_sync(0xffffffffu, skip)) {
+        if (tile < kMaskTiles) dead |= 1ull << tile;
+        return;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          part[j % 2] += exp2_approx(s[4 * j + 2 * i] - m_new[i]);
+          part[2 + j % 2] += exp2_approx(s[4 * j + 2 * i + 1] - m_new[i]);
+        }
+        const float sum = (part[0] + part[1]) + (part[2] + part[3]);
+        const float rescale = exp2_approx(m[i] - m_new[i]);
+        const float alpha = m_new[i] == m[i] ? 1.f : rescale;
+        l[i] = l[i] * alpha + sum;
+        m[i] = m_new[i];
+      }
+    };
+    float sa[kKeys / 2], sb[kKeys / 2];
+    // One step: tile o + 1's Q K^T issued into `next`, then tile o's
+    // scores (in `cur`) awaited and used.
+    auto pass1_step = [&](float (&cur)[kKeys / 2], float (&next)[kKeys / 2], int o) {
+      k_ring.wait(o + 1);
+      PHASE(1);
+      issue_scores(next, o + 1);
+      wgmma_wait<1>();
+      fence_operands(cur);
+      PHASE(2);
+      k_ring.release(o);
+      pass1(cur, o);
+      PHASE(3);
+    };
+    PHASE(0);
+    k_ring.wait(0);
+    issue_scores(sa, 0);
+    int o = 0;
+    for (; o + 2 < nt; o += 2) {
+      pass1_step(sa, sb, o);
+      pass1_step(sb, sa, o + 1);
+    }
+    if (o + 1 < nt) {  // two tiles left: o in sa, o + 1 not issued
+      pass1_step(sa, sb, o);
+      wgmma_wait<0>();
+      fence_operands(sb);
+      k_ring.release(o + 1);
+      pass1(sb, o + 1);
+    } else {  // one tile left, in sa
+      wgmma_wait<0>();
+      fence_operands(sa);
+      k_ring.release(o);
+      pass1(sa, o);
+    }
+    PHASE(3);
+    float inv_l[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) inv_l[i] = 1.f / quad_sum(l[i]);
+
+    // The block skips in pass 2 the tiles every warp found dead: each of
+    // their p is exactly 0 against the final max too. The producer learns
+    // which through the verdict barrier.
+    if (lane == 0) s_dead[warp] = dead;
+    consumer_sync();
+    uint64_t block_dead = ~0ull;
+#pragma unroll
+    for (int wi = 0; wi < kConsumerWarps; ++wi) block_dead &= s_dead[wi];
+    block_dead = (uint64_t(__shfl_sync(0xffffffffu, uint32_t(block_dead >> 32), 0)) << 32) |
+                 __shfl_sync(0xffffffffu, uint32_t(block_dead), 0);
+    if (ct == 0) {
+      s_dead[kConsumerWarps] = block_dead;
+      mbar_arrive(verdict);
+    }
+
+    // Pass 2: the normalised p, rounded to bf16, as the A operand of P V.
+    // Over the live tiles, each step issues the next tile's Q K^T and the
+    // previous tile's P V together, and both run while this tile's
+    // exponentials do (two score buffers).
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    uint32_t pa[kKeys / 16][4];
+    int ik = nt;  // K ring slot of the next pass-2 tile
+    int iv = 0;   // V ring slot of the tile whose P is in pa
+    auto next_live = [&](int o) {
+      for (++o; o < nt; ++o) {
+        const int tile = tile_of(o);
+        if (o < kSpec || tile >= kMaskTiles || !(block_dead >> tile & 1)) break;
+      }
+      return o;
+    };
+    auto probs = [&](float (&s)[kKeys / 2], int o) {
+      finish_scores(s, tile_of(o));
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] = exp2_approx(s[4 * j + e] - m[e >> 1]) * inv_l[e >> 1];
+        }
+      }
+    };
+    // P V of the tile whose P is in pa, alone.
+    auto lone_pv = [&]() {
+      v_ring.wait(iv);
+      wgmma_fence();
+      issue_pv<HD, kKeys, C::kSwz>(acc, pa, s_v + v_ring.stage(iv) * C::kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      v_ring.release(iv++);
+    };
+    // cur holds tile o's scores, the previous live tile's P waits in pa:
+    // the next live tile's Q K^T and that P V in flight under tile o's
+    // exponentials.
+    auto step = [&](float (&cur)[kKeys / 2], float (&next)[kKeys / 2], int o) {
+      k_ring.wait(ik);
+      v_ring.wait(iv);
+      PHASE(5);
+      wgmma_fence();
+      issue_qk<HD, kKeys, C::kSwz>(next, q_rows, kRows * C::kSwz,
+                                   s_k + k_ring.stage(ik) * C::kTileBytes);
+      wgmma_commit();
+      issue_pv<HD, kKeys, C::kSwz>(acc, pa, s_v + v_ring.stage(iv) * C::kTileBytes);
+      wgmma_commit();
+      probs(cur, o);
+      PHASE(7);
+      wgmma_wait<0>();
+      fence_operands(next);
+      fence_operands(acc);
+      PHASE(8);
+      k_ring.release(ik++);
+      v_ring.release(iv++);
+      pack_p<kKeys>(pa, cur);
+      PHASE(9);
+    };
+    // The last live tile (scores in cur): the previous P V under its
+    // exponentials, then its own P V.
+    auto last = [&](float (&cur)[kKeys / 2], int o) {
+      v_ring.wait(iv);
+      wgmma_fence();
+      issue_pv<HD, kKeys, C::kSwz>(acc, pa, s_v + v_ring.stage(iv) * C::kTileBytes);
+      wgmma_commit();
+      probs(cur, o);
+      wgmma_wait<0>();
+      fence_operands(acc);
+      v_ring.release(iv++);
+      pack_p<kKeys>(pa, cur);
+      lone_pv();
+    };
+    PHASE(4);
+    // Tile 0 (always live) into sa; its exponentials under the next live
+    // tile's Q K^T (into sb).
+    k_ring.wait(ik);
+    issue_scores(sa, ik);
+    wgmma_wait<0>();
+    fence_operands(sa);
+    k_ring.release(ik++);
+    int o_cur = next_live(0);
+    if (o_cur >= nt) {
+      probs(sa, 0);
+      pack_p<kKeys>(pa, sa);
+      lone_pv();
+    } else {
+      k_ring.wait(ik);
+      issue_scores(sb, ik);
+      probs(sa, 0);
+      wgmma_wait<0>();
+      fence_operands(sb);
+      k_ring.release(ik++);
+      pack_p<kKeys>(pa, sa);
+      PHASE(10);
+      while (true) {  // tile o_cur's scores in sb
+        int o_next = next_live(o_cur);
+        if (o_next >= nt) {
+          last(sb, o_cur);
+          break;
+        }
+        step(sb, sa, o_cur);
+        o_cur = o_next;
+        o_next = next_live(o_cur);  // tile o_cur's scores in sa
+        if (o_next >= nt) {
+          last(sa, o_cur);
+          break;
+        }
+        step(sa, sb, o_cur);
+        o_cur = o_next;
+      }
+    }
+
+    const int dim = p.num_heads * HD;
+    bf16* out = static_cast<bf16*>(p.out) + size_t(b) * seq * dim;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + 16 * warp + g + 8 * i;
+      if (row >= seq) continue;
+      bf16* dst = out + size_t(row) * dim + col + 2 * t;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+      }
+    }
+    PHASE(10);
+    PHASES_END();
+  }
+}
+
+// Q, K and V as 3-D tensor maps [B, S, N*Hd] (boxes of kCW columns by 128
+// query rows or 64 keys; rows past S read as zeros), then the grid
+// (query tiles, heads, batch rows).
+template <int HD>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const size_t smem = smem_bytes(HD, p.seq);
+  auto kernel = encoder_attention_wgmma_kernel<HD>;
+  static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
+  cudaError_t err = mma_tiles::opt_in_shared_memory(
+      reinterpret_cast<const void*>(kernel), smem, opted_in);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dim = cuuint64_t(p.num_heads) * HD;
+  const cuuint64_t dims[3] = {dim, cuuint64_t(p.seq), cuuint64_t(batch)};
+  const cuuint64_t strides[2] = {dim * 2, dim * 2 * cuuint64_t(p.seq)};
+  const cuuint32_t q_box[3] = {C::kCW, kRows, 1};
+  const cuuint32_t kv_box[3] = {C::kCW, C::kKeys, 1};
+  CUtensorMap map_q, map_k, map_v;
+  if (!encode_bf16_map(&map_q, p.q, 3, dims, strides, q_box, C::kSwz) ||
+      !encode_bf16_map(&map_k, p.k, 3, dims, strides, kv_box, C::kSwz) ||
+      !encode_bf16_map(&map_v, p.v, 3, dims, strides, kv_box, C::kSwz)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((p.seq + kRows - 1) / kRows, p.num_heads, batch);
+  kernel<<<grid, kBlockThreads, smem, stream>>>(p, map_q, map_k, map_v);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 template <typename T, int HD, bool kExact>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.head_dim);
@@ -676,11 +1167,33 @@ int distllm_ea_launch(const void* q, const void* k, const void* v,
     if (dtype != 1 || head_dim % 16 != 0) return int(cudaErrorInvalidValue);
     return int(launch_mma_head_dim(p, batch, s));
   }
+  if (route == 2) {
+    if (dtype != 1) return int(cudaErrorInvalidValue);
+    switch (head_dim) {
+      case 32: return int(wg::launch<32>(p, batch, s));
+      case 64: return int(wg::launch<64>(p, batch, s));
+      case 128: return int(wg::launch<128>(p, batch, s));
+      default: return int(cudaErrorInvalidValue);
+    }
+  }
   if (route != 0) return int(cudaErrorInvalidValue);
   if (dtype == 0) return int(launch_dtype<float>(p, batch, s));
   if (dtype == 1) return int(launch_dtype<__nv_bfloat16>(p, batch, s));
   return int(cudaErrorInvalidValue);
 }
+
+#ifdef DISTLLM_PHASES
+// The phase counters of the launches so far (hopper_attention.cuh), then
+// zeroed when `reset` is set.
+int distllm_read_phases(unsigned long long* host, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_phases, sizeof(g_phases));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[16] = {};
+    err = cudaMemcpyToSymbol(g_phases, zero, sizeof(zero));
+  }
+  return int(err);
+}
+#endif
 
 const char* distllm_ea_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

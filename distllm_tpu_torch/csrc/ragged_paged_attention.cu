@@ -25,8 +25,8 @@
 // block's prologue, at two blocks of four warps per SM (shared memory and
 // registers both allow two). Route 2's times against its bound: PERF.md.
 //
-// Three routes, chosen by the wrapper from the dtype and the tile's rows
-// and launched by route number; none ever gives way to another:
+// Four routes, chosen by the wrapper from the dtype, the pool and the
+// tile's rows and launched by route number; none ever gives way to another:
 //
 // Route 0, CUDA cores (fp32: the fp32 models and the identity checks):
 // - one thread block per (query tile, KV head, row): grid (tiles, Nkv, B).
@@ -113,7 +113,42 @@
 //   has m = -inf and l = 0; the merge rebases on 0 when every m is -inf,
 //   so rows that see no key come out as exact zeros, as on routes 0 and 1.
 //
-// int8-KV mode, on every route (kv_dtype 1; Pallas quantized=True,
+// Route 3, wgmma and TMA (bf16 q over a bf16 pool of 16-token pages,
+// tiles of 64 to 128 rows: prefill and long chunks; csrc/hopper_attention.cuh
+// holds the main loop it shares with K3's route 2). Route 1's mma.sync
+// cannot reach the tensor cores' rate and its 169 KiB at head dim 256 left
+// one 4-warp block an SM with nothing hiding the copies. Here:
+// - a block is one producer warp and two consumer warpgroups of 64 rows
+//   (the interleaved (span, group) rows, 128 of them: at Gemma-2's group
+//   of 2 a tile covers 64 positions); the producer gives its registers to
+//   the consumers (setmaxnreg).
+// - the producer loads the query tile with TMA as one box per 64 columns
+//   over (span positions, the group's heads) of q [B, S, Nh, Hd], which is
+//   the interleaved row order; then, for each 64-key tile, one box per
+//   page and 64 columns of the pool [num_blocks, 16, Nkv, Hd] into a ring
+//   of K tiles and a ring of V tiles (six deep at head dim 64, four at
+//   128, two at 256), each stage an mbarrier. The pages come from the
+//   block table, copied to shared memory once. A page wholly outside
+//   [lo, hi) is never loaded.
+// - each consumer warpgroup runs Q K^T as wgmma from shared memory (128-
+//   byte swizzle, K-major), scale / softcap / mask in registers as on
+//   route 1 (the softcap's tanh as 1 - 2 / (e^(2|x|) + 1): one ex2, one
+//   rcp), the online max and sum in fp32, then P V as wgmma with P, the
+//   unnormalised p rounded to bf16, as the register A operand (l sums the
+//   unrounded p: the TPU's rounding point, route 1's tolerance). Tile
+//   it's Q K^T and tile it - 1's P V are issued together, and P V runs
+//   under tile it's softmax; at head dim 256 (O alone 128 registers a
+//   thread) the products are serial and the other warpgroup's fill in.
+// - the trash-block guarantee: before a warpgroup's P V reads a V tile,
+//   it zeroes that tile's rows outside [lo, hi) (the rest of the row's
+//   last page, the page under the window's floor, pages never loaded),
+//   fences the generic writes for the async proxy and syncs its 128
+//   threads; K's such rows only meet scores masked to -inf by a select.
+// - causal tile skipping per warpgroup (its rows' window and diagonal),
+//   the longest query tiles launched first, pad queries exact zeros, as
+//   on route 1.
+//
+// int8-KV mode, on routes 0-2 (kv_dtype 1; Pallas quantized=True,
 // :585-602, :614-626, :638-653): the pool holds int8 codes and a
 // per-page, per-KV-head fp32 scale ([num_blocks, Nkv], one layer's
 // slice). The codes are widened exactly (|c| <= 127 fits bf16's
@@ -137,7 +172,7 @@
 // reads, behind one more barrier per tile; the bf16 tile needs no ring of
 // its own, since it is written after the previous tile's last read.
 //
-// Mixed full-precision mode, on every route (kv_dtype 2; Pallas :609-613,
+// Mixed full-precision mode, on routes 0-2 (kv_dtype 2; Pallas :609-613,
 // :641-652): the pool holds the other full-precision dtype than q — bf16
 // under fp32 queries (route 0), fp32 under bf16 queries (routes 1 and 2,
 // and route 0 for a GQA group above 64). The Pallas kernel casts K to q's
@@ -190,6 +225,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "hopper_attention.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
@@ -1481,6 +1517,405 @@ int launch_mma(const Params& p, int batch, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+// ------------------------------------------ route 3, wgmma + TMA (Hopper)
+namespace wg {
+using namespace hopper_attn;
+using namespace mma_tiles;
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 128;  // query rows of a block: two consumer warpgroups of 64
+constexpr int kPage = 16;   // the block size the route takes
+constexpr int kCW = 64;     // columns of a TMA box: one 128-byte swizzled row
+constexpr int kSwz = 128;
+constexpr int kBoxBytes = kPage * kSwz;  // one page of one 64-column chunk
+
+// Keys of a staged tile: 64, four pages (the scores and P take 48
+// registers a thread beside O); 32 at head dim 256, where O alone takes
+// 128 registers a thread (64-key tiles spill 732 bytes there, 32-key
+// ones 284).
+__host__ __device__ constexpr int tile_keys(int head_dim) { return head_dim >= 256 ? 32 : 64; }
+
+// Each ring (K tiles, V tiles) is six tiles deep at head dim 64 and four
+// at 128 and 256 (the Q tile and eight 16 KiB tiles take 192 KiB there).
+__host__ __device__ constexpr int stages(int head_dim) { return head_dim >= 128 ? 4 : 6; }
+
+size_t smem_bytes(int head_dim, int max_blocks) {
+  return 1024 + size_t(kRows) * head_dim * 2 +
+         size_t(2 * stages(head_dim)) * tile_keys(head_dim) * head_dim * 2 +
+         sizeof(uint64_t) * (4 * stages(head_dim) + 1) + sizeof(int) * size_t(max_blocks);
+}
+
+// tanh(x) = sign(x) (1 - 2 / (e^(2|x|) + 1)): one ex2 and one rcp on the
+// special-function unit, within ~2^-22 of tanh (libm's tanhf is a long
+// instruction sequence per score).
+__device__ __forceinline__ float tanh_fast(float x) {
+  const float e = exp2_approx(2.f * kLog2e * fabsf(x));
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(e + 1.f));
+  return copysignf(1.f - 2.f * r, x);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    ragged_paged_attention_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap map_q,
+                                        const __grid_constant__ CUtensorMap map_k,
+                                        const __grid_constant__ CUtensorMap map_v) {
+  constexpr int kStages = stages(HD);
+  constexpr int kKeys = tile_keys(HD);
+  constexpr int kChunks = HD / kCW;
+  constexpr int kTileBytes = kKeys * HD * 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* s_q = align_1024(smem_raw);         // [chunk][kRows][kSwz], rows (span, group)
+  uint8_t* s_k = s_q + kRows * HD * 2;         // [stage][chunk][kKeys][kSwz]
+  uint8_t* s_v = s_k + kStages * kTileBytes;   // [stage][chunk][kKeys][kSwz]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_v + kStages * kTileBytes);
+  const Ring k_ring{bars, bars + kStages, kStages};
+  const Ring v_ring{bars + 2 * kStages, bars + 3 * kStages, kStages};
+  uint64_t* q_full = bars + 4 * kStages;
+  int* s_bt = reinterpret_cast<int*>(q_full + 1);  // [max_blocks]
+
+  // The last query tiles attend the most keys: they start first.
+  const int qt = int(gridDim.x - blockIdx.x) - 1;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int group = p.num_heads / p.num_kv_heads;
+  const int rows = p.span_tile * group;  // row r: span r / group, head r % group
+  const int span_off = qt * p.span_tile;
+  // The row's lengths, warp-uniform as the compiler sees it (every branch
+  // on a value it cannot prove uniform is divergent, and wgmma in flight
+  // across a divergent branch is serialized).
+  const int ctx = __shfl_sync(0xffffffffu, p.context_lens[b], 0);
+  const int q0 = __shfl_sync(0xffffffffu, p.q_start[b], 0);
+  const int q_len = __shfl_sync(0xffffffffu, p.q_lens != nullptr ? p.q_lens[b] : p.span, 0);
+  const int win = p.window;
+  // Keys the block can ever see: [lo, hi), as on routes 0 and 1.
+  const int lo = win > 0 ? max(q0 + span_off - win + 1, 0) : 0;
+  const int hi = min(ctx, q0 + min(q_len, span_off + p.span_tile));
+  const int t_begin = lo / kKeys * kKeys;
+  const int n_tiles =
+      (q_len > span_off && hi > lo) ? (hi - t_begin + kKeys - 1) / kKeys : 0;
+
+  if (tid == 0) {
+    k_ring.init();
+    v_ring.init();
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  if (n_tiles > 0) {
+    for (int page = lo / kPage + tid; page <= (hi - 1) / kPage; page += kBlockThreads) {
+      s_bt[page] = p.block_tables[size_t(b) * p.max_blocks + page];
+    }
+  }
+  __syncthreads();
+
+  if (tid >= kConsumerThreads) {
+    // The producer: the query tile as one box per 64 columns over (span
+    // positions, the group's heads), which is the interleaved row order;
+    // then each tile's pages that hold a key of [lo, hi), one box a page
+    // and 64 columns, of K and of V. A page wholly outside is not loaded.
+    release_registers<kProducerRegs>();
+    if (tid == kConsumerThreads) {
+      PHASES_BEGIN();
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      mbar_expect_tx(q_full, kChunks * rows * kSwz);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load_4d(s_q + c * kRows * kSwz, &map_q, c * kCW, h * group, span_off, b, q_full);
+      }
+      // One ring slot: the tile's live pages (page0..page1), one box a page
+      // and 64 columns.
+      auto load = [&](const Ring& ring, uint8_t* tiles, const CUtensorMap* map, int it, int t0,
+                      int page0, int page1) {
+        uint64_t* bar = ring.acquire(it, (page1 - page0 + 1) * kChunks * kBoxBytes);
+        PHASE(11);
+        uint8_t* tile = tiles + ring.stage(it) * kTileBytes + (page0 * kPage - t0) * kSwz;
+        for (int page = page0; page <= page1; ++page, tile += kBoxBytes) {
+          const int blk = s_bt[page];
+#pragma unroll 1
+          for (int c = 0; c < kChunks; ++c) {
+            tma_load_4d(tile + c * kKeys * kSwz, map, c * kCW, h, 0, blk, bar);
+          }
+        }
+        PHASE(12);
+      };
+      for (int it = 0; it < n_tiles; ++it) {
+        const int t0 = t_begin + it * kKeys;
+        const int page0 = max(t0, lo) / kPage;
+        const int page1 = (min(t0 + kKeys, hi) - 1) / kPage;
+        load(k_ring, s_k, &map_k, it, t0, page0, page1);
+        load(v_ring, s_v, &map_v, it, t0, page0, page1);
+      }
+      PHASES_END();
+    }
+  } else {
+    claim_registers<kConsumerRegs>();
+    PHASES_BEGIN();
+    const int ct = tid;
+    const int warp = __shfl_sync(0xffffffffu, ct / 32, 0);  // rows 16 warp .. + 15
+    const int w = warp / 4;    // consumer warpgroup: rows 64w .. 64w + 63
+    const int lane = tid % 32;
+    const int g = lane / 4;    // accumulator rows g and g + 8 of the warp
+    const int t = lane % 4;    // accumulator columns 2t, 2t + 1 of each 8
+    const int wt = ct % 128;   // thread of the warpgroup
+
+    int qpos[2];
+    bool row_live[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * warp + g + 8 * i;
+      const int si = span_off + r / group;
+      row_live[i] = r < rows && si < q_len;
+      qpos[i] = q0 + si;
+    }
+    // The warpgroup's tiles: keys at or past g_hi lie above every live
+    // row's diagonal, below g_lo outside every row's window.
+    const int g_first = 64 * w;
+    const int g_last = min(g_first + 63, rows - 1);
+    const bool group_live = g_first < rows && span_off + g_first / group < q_len;
+    const int g_hi = q0 + min(span_off + g_last / group, q_len - 1) + 1;
+    const int g_lo = win > 0 ? q0 + span_off + g_first / group - win + 1 : 0;
+    // The warp's 16 rows, for tiles that need no mask (route 1's test).
+    const int w_first = 16 * warp;
+    const int w_last = min(w_first + 15, rows - 1);
+    const bool warp_full = w_first + 15 < rows && span_off + (w_first + 15) / group < q_len;
+    const int w_qmin = q0 + span_off + w_first / group;
+    const int w_qmax = q0 + span_off + w_last / group;
+    const bool capped = p.softcap > 0.f;
+    const float scale_log2 = p.scale * kLog2e;
+    const float scale_over_cap = capped ? p.scale / p.softcap : 0.f;
+    const float cap_log2 = p.softcap * kLog2e;
+    const uint8_t* q_rows = s_q + w * 64 * kSwz;
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};      // this lane's share of each row's sum
+    float alpha[2] = {1.f, 1.f};  // O's rescale before the next P V
+    float s[kKeys / 2];
+    uint32_t pa[kKeys / 16][4];
+
+    // The tiles the warpgroup computes, [c0, c1): keys at or past g_hi lie
+    // above every live row's diagonal, keys below g_lo outside every row's
+    // window. The others are only let go.
+    int c0 = n_tiles, c1 = n_tiles;
+    if (group_live) {
+      c0 = 0;
+      while (c0 < n_tiles && t_begin + (c0 + 1) * kKeys <= g_lo) ++c0;
+      c1 = c0;
+      while (c1 < n_tiles && t_begin + c1 * kKeys < g_hi) ++c1;
+    }
+    auto let_go = [&](int it) {
+      k_ring.wait(it);
+      k_ring.release(it);
+      v_ring.wait(it);
+      v_ring.release(it);
+    };
+    // V of tile `it` landed, with its rows outside [lo, hi) (never loaded,
+    // or past the context or below the window on a live page) zeroed by
+    // this warpgroup, so that 0 x NaN never reaches O; then O rescaled.
+    auto ready_v = [&](int it) {
+      v_ring.wait(it);
+      const int t0 = t_begin + it * kKeys;
+      if (t0 < lo || t0 + kKeys > hi) {
+        uint8_t* vt = s_v + v_ring.stage(it) * kTileBytes;
+#pragma unroll
+        for (int k = 0; k < kKeys * kChunks * (kSwz / 16) / 128; ++k) {
+          const int i = wt + 128 * k;
+          const int j = i / (kChunks * (kSwz / 16));
+          const int rem = i % (kChunks * (kSwz / 16));
+          if (t0 + j < lo || t0 + j >= hi) {
+            *reinterpret_cast<uint4*>(vt + (rem / (kSwz / 16)) * kKeys * kSwz + j * kSwz +
+                                      16 * (rem % (kSwz / 16))) = make_uint4(0, 0, 0, 0);
+          }
+        }
+        fence_proxy_async();
+        warpgroup_sync(w);
+      }
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        o[4 * n] *= alpha[0];
+        o[4 * n + 1] *= alpha[0];
+        o[4 * n + 2] *= alpha[1];
+        o[4 * n + 3] *= alpha[1];
+      }
+    };
+    // Scale, softcap, mask (as on route 1, log2-scaled scores; a tile wholly
+    // inside every row's causal and window range needs no mask), then the
+    // online softmax: a row with no live key yet rebases on 0; p stays
+    // unnormalised and l sums it before it is rounded. Leaves P in pa and
+    // O's rescale in alpha.
+    auto softmax = [&](int it) {
+      const int t0 = t_begin + it * kKeys;
+      const bool inside = warp_full && t0 + kKeys - 1 <= w_qmin && t0 + kKeys <= ctx &&
+                          (win <= 0 || t0 > w_qmax - win);
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int key = t0 + 8 * j + 2 * t + (e & 1);
+          const float x = capped ? tanh_fast(s[4 * j + e] * scale_over_cap) * cap_log2
+                                 : s[4 * j + e] * scale_log2;
+          const bool valid = inside || (row_live[i] && key < ctx && key <= qpos[i] &&
+                                        (win <= 0 || key > qpos[i] - win));
+          s[4 * j + e] = valid ? x : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], row_max<kKeys>(s, i));
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        alpha[i] = exp2_approx(m[i] - base);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          s[4 * j + 2 * i] = exp2_approx(s[4 * j + 2 * i] - base);
+          s[4 * j + 2 * i + 1] = exp2_approx(s[4 * j + 2 * i + 1] - base);
+          sum += s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
+        }
+        l[i] = l[i] * alpha[i] + sum;
+        m[i] = m_new;
+      }
+    };
+
+    mbar_wait(q_full, 0);
+    PHASE(0);
+    for (int it = 0; it < c0; ++it) let_go(it);
+    PHASE(7);
+    if constexpr (HD >= 256) {
+      // O takes 128 registers a thread: the scores and P of one tile at a
+      // time, its products serial (the other warpgroup's run meanwhile).
+      for (int it = c0; it < c1; ++it) {
+        k_ring.wait(it);
+        PHASE(1);
+        wgmma_fence();
+        issue_qk<HD, kKeys, kSwz>(s, q_rows, kRows * kSwz, s_k + k_ring.stage(it) * kTileBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(s);
+        PHASE(3);
+        k_ring.release(it);
+        softmax(it);
+        PHASE(4);
+        ready_v(it);
+        pack_p<kKeys>(pa, s);
+        PHASE(2);
+        wgmma_fence();
+        issue_pv<HD, kKeys, kSwz>(o, pa, s_v + v_ring.stage(it) * kTileBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(o);
+        PHASE(5);
+        v_ring.release(it);
+      }
+    } else if (c0 < c1) {
+      // Tile c0 alone; then each step issues tile it's Q K^T and tile
+      // it - 1's P V together, and P V runs while tile it's softmax does.
+      k_ring.wait(c0);
+      wgmma_fence();
+      issue_qk<HD, kKeys, kSwz>(s, q_rows, kRows * kSwz, s_k + k_ring.stage(c0) * kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(s);
+      k_ring.release(c0);
+      softmax(c0);
+      pack_p<kKeys>(pa, s);
+      PHASE(8);
+      for (int it = c0 + 1; it < c1; ++it) {
+        k_ring.wait(it);
+        PHASE(1);
+        ready_v(it - 1);
+        PHASE(2);
+        wgmma_fence();
+        issue_qk<HD, kKeys, kSwz>(s, q_rows, kRows * kSwz, s_k + k_ring.stage(it) * kTileBytes);
+        wgmma_commit();
+        issue_pv<HD, kKeys, kSwz>(o, pa, s_v + v_ring.stage(it - 1) * kTileBytes);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_operands(s);
+        PHASE(3);
+        k_ring.release(it);
+        softmax(it);
+        PHASE(4);
+        wgmma_wait<0>();
+        fence_operands(o);
+        PHASE(5);
+        v_ring.release(it - 1);
+        pack_p<kKeys>(pa, s);
+        PHASE(6);
+      }
+      ready_v(c1 - 1);
+      wgmma_fence();
+      issue_pv<HD, kKeys, kSwz>(o, pa, s_v + v_ring.stage(c1 - 1) * kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(o);
+      v_ring.release(c1 - 1);
+    }
+    for (int it = c1; it < n_tiles; ++it) let_go(it);
+    PHASE(7);
+
+    // Rows that never saw a live key have l = 0 and o = 0: exact zeros.
+    bf16* out = static_cast<bf16*>(p.out);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float inv = 1.f / fmaxf(quad_sum(l[i]), 1e-9f);
+      const int r = 16 * warp + g + 8 * i;
+      const int si = span_off + r / group;
+      if (r >= rows || si >= p.span) continue;
+      bf16* dst = out + ((size_t(b) * p.span + si) * p.num_heads + h * group + r % group) * HD +
+                  2 * t;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+      }
+    }
+    PHASE(8);
+    PHASES_END();
+  }
+}
+
+// q as a 4-D tensor map [B, S, Nh, Hd] (boxes of 64 columns x the group's
+// heads x span_tile positions), the pools as [num_blocks, 16, Nkv, Hd]
+// (boxes of one page of one KV head); out-of-bounds positions read as
+// zeros. Then the grid (query tiles, KV heads, rows).
+template <int HD>
+int launch(const Params& p, int num_blocks, int batch, cudaStream_t stream) {
+  const size_t smem = smem_bytes(HD, p.max_blocks);
+  auto kernel = ragged_paged_attention_wgmma_kernel<HD>;
+  if (const int fits = check_shared_memory(smem)) return fits;
+  static std::atomic<bool> opted_in[mma_tiles::kMaxDevices];
+  const cudaError_t err = mma_tiles::opt_in_shared_memory(
+      reinterpret_cast<const void*>(kernel), smem, opted_in);
+  if (err != cudaSuccess) return int(err);
+  const int group = p.num_heads / p.num_kv_heads;
+  const cuuint64_t q_dims[4] = {HD, cuuint64_t(p.num_heads), cuuint64_t(p.span),
+                                cuuint64_t(batch)};
+  const cuuint64_t q_strides[3] = {cuuint64_t(HD) * 2, cuuint64_t(p.num_heads) * HD * 2,
+                                   cuuint64_t(p.span) * p.num_heads * HD * 2};
+  const cuuint32_t q_box[4] = {kCW, cuuint32_t(group), cuuint32_t(p.span_tile), 1};
+  const cuuint64_t kv_dims[4] = {HD, cuuint64_t(p.num_kv_heads), kPage, cuuint64_t(num_blocks)};
+  const cuuint64_t kv_strides[3] = {cuuint64_t(HD) * 2, cuuint64_t(p.num_kv_heads) * HD * 2,
+                                    cuuint64_t(kPage) * p.num_kv_heads * HD * 2};
+  const cuuint32_t kv_box[4] = {kCW, 1, kPage, 1};
+  CUtensorMap map_q, map_k, map_v;
+  if (!encode_bf16_map(&map_q, p.q, 4, q_dims, q_strides, q_box, kSwz) ||
+      !encode_bf16_map(&map_k, p.k_cache, 4, kv_dims, kv_strides, kv_box, kSwz) ||
+      !encode_bf16_map(&map_v, p.v_cache, 4, kv_dims, kv_strides, kv_box, kSwz)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const dim3 grid((p.span + p.span_tile - 1) / p.span_tile, p.num_kv_heads, batch);
+  kernel<<<grid, kBlockThreads, smem, stream>>>(p, map_q, map_k, map_v);
+  return int(cudaGetLastError());
+}
+
+}  // namespace wg
+
 // Routes 1 and 2 (bf16 q) and route 0 at one head dim, by KV storage.
 template <int HD>
 int launch_route(int route, int dtype, int kv, const Params& p, const SplitArgs& sa,
@@ -1524,7 +1959,10 @@ extern "C" {
 // `workspace` holds batch x Nkv x num_splits x rows x (head_dim + 2) fp32,
 // `tickets` batch x Nkv int32 zeros, which the launch leaves at zero;
 // launches that share the tickets must run in stream order). Routes 0 and
-// 1 ignore the last four. Returns 0 on a successful launch, kErrSharedMemory
+// 1 ignore the last four. 3 = wgmma and TMA (bf16 q over a bf16 pool of
+// 16-token pages, span_tile x group of up to 128 rows; `num_blocks`, the
+// pool's first dim, bounds its tensor map; routes 0-2 ignore it). Returns
+// 0 on a successful launch, kErrSharedMemory
 // (-1) when the route needs more shared memory than a block may have, else a
 // cudaError_t: cudaErrorInvalidValue for arguments the route does not take. The launch
 // is asynchronous on `stream`; nothing is allocated and nothing
@@ -1537,7 +1975,8 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
                        int head_dim, int block_size, int max_blocks,
                        int span_tile, int window, float scale, float softcap,
                        int dtype, int kv_dtype, int route, void* workspace,
-                       void* tickets, int num_splits, int split_keys, void* stream) {
+                       void* tickets, int num_splits, int split_keys, int num_blocks,
+                       void* stream) {
   if (batch < 1 || batch > 65535 || span < 1 || num_kv_heads < 1 ||
       num_kv_heads > 65535 || num_heads % num_kv_heads != 0 ||
       block_size < 1 || max_blocks < 1 || span_tile < 1 ||
@@ -1580,6 +2019,15 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
                    split_keys};
   } else if (route == 1) {
     if (dtype != 1 || rows < 16 || rows > kTcRows) return int(err);
+  } else if (route == 3) {
+    if (dtype != 1 || kv_dtype != kKvModel || block_size != wg::kPage || rows > wg::kRows ||
+        num_blocks < 1) {
+      return int(err);
+    }
+    if (head_dim == 64) return wg::launch<64>(p, num_blocks, batch, s);
+    if (head_dim == 128) return wg::launch<128>(p, num_blocks, batch, s);
+    if (head_dim == 256) return wg::launch<256>(p, num_blocks, batch, s);
+    return int(err);
   } else if (route != 0) {
     return int(err);
   }
@@ -1588,6 +2036,19 @@ int distllm_rpa_launch(const void* q, const void* k_cache, const void* v_cache,
   if (head_dim == 256) return launch_route<256>(route, dtype, kv_dtype, p, sa, batch, s);
   return int(err);
 }
+
+#ifdef DISTLLM_PHASES
+// The phase counters of the launches so far (hopper_attention.cuh), then
+// zeroed when `reset` is set.
+int distllm_read_phases(unsigned long long* host, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_phases, sizeof(g_phases));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[16] = {};
+    err = cudaMemcpyToSymbol(g_phases, zero, sizeof(zero));
+  }
+  return int(err);
+}
+#endif
 
 // The message of a launch's return: for kErrSharedMemory both sizes of
 // this thread's last refused launch.

@@ -20,12 +20,15 @@ average of V instead of NaN; poolers drop such rows downstream.
 - the CUDA kernel ``csrc/encoder_attention.cu`` — the hand-written Hopper
   port of the Pallas kernel: flash-style query and key tiles read
   straight from the packed layout, two passes so ``p`` is rounded after
-  normalisation exactly where the TPU kernel rounds it. It has two routes
-  (:func:`kernel_route`): ``'tensor_cores'`` for bf16 with a head dim
-  that is a multiple of 16 (Q·Kᵀ and P·V as bf16 ``mma.sync`` with fp32
-  accumulators) and ``'cuda_cores'`` for fp32 and for other head dims
-  (fp32 products on the CUDA cores). Both round p at the same point, so
-  one tolerance holds both.
+  normalisation exactly where the TPU kernel rounds it. It has three
+  routes (:func:`kernel_route`): ``'wgmma'`` for bf16 at head dims 32, 64
+  and 128 on long sequences or under a bias (a TMA producer warp, two
+  consumer warpgroups of 64 queries, Q·Kᵀ and P·V as ``wgmma``, and the
+  key tiles whose every p is exactly 0 skipped), ``'tensor_cores'`` for
+  the other bf16 launches at head dims that are a multiple of 16
+  (``mma.sync``) and ``'cuda_cores'`` for fp32 and for other head dims
+  (fp32 products on the CUDA cores). All round p at the same point, so
+  one tolerance holds them all.
 - :func:`encoder_attention` — the dispatch. A CPU tensor goes to the
   plain version; a CUDA tensor launches the kernel or raises. Each keeps
   an integer ``launches`` count, and the kernel a ``launches_by_route``
@@ -45,7 +48,18 @@ from distllm_tpu_torch.ops import _build
 NEG_BIG = -1e9
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-ROUTES = {'cuda_cores': 0, 'tensor_cores': 1}
+ROUTES = {'cuda_cores': 0, 'tensor_cores': 1, 'wgmma': 2}
+# Head dims of the wgmma route, and the sequence lengths from which
+# kernel_route sends bf16 launches to it: chip_smoke.py times both routes
+# at the embed paths' shapes on an H100 (PERF.md). Under an [S, S] bias
+# (ModernBERT's local layers) the wgmma route skips the key tiles whose
+# every p is 0: it wins at S = 288 and loses at 160. Without one its
+# 128-query tiles pad a short batch more than route 1's 64 (S = 288: 384
+# rows against 320) and it wins only on long sequences (S = 1024, the
+# protein models).
+WGMMA_HEAD_DIMS = (32, 64, 128)
+WGMMA_MIN_SEQ = 1024
+WGMMA_MIN_SEQ_BIAS = 192
 
 
 def _default_scale(head_dim: int, scale: float | None) -> float:
@@ -138,9 +152,20 @@ def comparison_tolerance(
     )
 
 
-def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The route the kernel takes: ``'tensor_cores'`` for bf16 with a head
-    dim that is a multiple of 16 (one mma's depth), else ``'cuda_cores'``."""
+def kernel_route(
+    dtype: torch.dtype, head_dim: int, seq: int | None = None, bias: bool = False
+) -> str:
+    """The route the kernel takes for ``seq`` keys (``None``: any length)
+    with or without an ``[S, S]`` ``bias``: ``'wgmma'`` for bf16 at head
+    dims 32, 64 and 128 from ``WGMMA_MIN_SEQ`` keys, or from
+    ``WGMMA_MIN_SEQ_BIAS`` under a bias; ``'tensor_cores'`` for the other
+    bf16 launches at a head dim that is a multiple of 16 (one mma's
+    depth); else ``'cuda_cores'``."""
+    if (
+        dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and seq is not None
+        and seq >= (WGMMA_MIN_SEQ_BIAS if bias else WGMMA_MIN_SEQ)
+    ):
+        return 'wgmma'
     if dtype == torch.bfloat16 and head_dim % 16 == 0:
         return 'tensor_cores'
     return 'cuda_cores'
@@ -167,15 +192,17 @@ def encoder_attention_cuda(
     num_heads: int,
     scale: float | None = None,
     bias: 'torch.Tensor | None' = None,
+    route: str | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (builds it at first use).
 
     Same contract as :func:`encoder_attention_reference`. The route is
-    :func:`kernel_route`'s; a route that fails to launch raises, it never
-    gives way to the other. Raises on what the kernel does not take: a
-    tensor off the CUDA device of ``q``, a dtype other than fp32/bf16
-    (shared by q, k and v), a head dim that is not a multiple of 8 up to
-    128, or shapes that disagree.
+    :func:`kernel_route`'s unless ``route`` names one (the A/B of the
+    routes on the card); a route that cannot take the launch or fails to
+    launch raises, it never gives way to another. Raises on what the
+    kernel does not take: a tensor off the CUDA device of ``q``, a dtype
+    other than fp32/bf16 (shared by q, k and v), a head dim that is not a
+    multiple of 8 up to 128, or shapes that disagree.
     """
     tensors = (q, k, v, mask) + (() if bias is None else (bias,))
     if any(x.device != q.device or x.device.type != 'cuda' for x in tensors):
@@ -207,7 +234,10 @@ def encoder_attention_cuda(
         raise ValueError('q, k and v must start on a 16-byte boundary')
     mask_i32 = mask.to(torch.int32).contiguous()
     bias_f32 = None if bias is None else bias.to(torch.float32).contiguous()
-    route = kernel_route(q.dtype, hd)
+    if route is None:
+        route = kernel_route(q.dtype, hd, s, bias is not None)
+    if route not in ROUTES:
+        raise ValueError(f'route must be one of {tuple(ROUTES)}, got {route!r}')
     out = torch.empty_like(q)
     lib, fn = _kernel()
     with torch.cuda.device(q.device):
@@ -253,7 +283,7 @@ def encoder_attention(
     tensor never reaches the plain version here, at any sequence length.
     Any other device raises. ``encoder_attention.launches`` counts kernel
     launches and ``encoder_attention.launches_by_route`` counts them per
-    route (``'tensor_cores'`` / ``'cuda_cores'``).
+    route (``'wgmma'`` / ``'tensor_cores'`` / ``'cuda_cores'``).
     """
     if q.device.type == 'cuda':
         return encoder_attention_cuda(q, k, v, mask, num_heads, scale, bias)

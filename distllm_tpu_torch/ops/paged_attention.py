@@ -17,11 +17,15 @@ case), and one op serves them:
 - the CUDA kernel ``csrc/ragged_paged_attention.cu`` — the hand-written
   Hopper twin of ``ragged_paged_attention_pallas``: online fp32 softmax,
   K/V staged once per query tile for the whole GQA group, no score tensor
-  in device memory. It has three routes (:func:`kernel_route`):
-  ``'tensor_cores'`` for bf16 query tiles of 16 or more rows (span
-  positions x GQA group: prefill and chunk spans) — Q·Kᵀ and P·V as bf16
-  ``mma.sync`` with fp32 accumulators, p rounded to bf16 before P·V as
-  the TPU kernel rounds it; ``'split_kv'`` for bf16 tiles of fewer rows
+  in device memory. It has four routes (:func:`kernel_route`):
+  ``'wgmma'`` for bf16 query tiles of 64..128 rows over a bf16 pool of
+  16-token pages (prefill and long chunks) — a TMA producer warp, two
+  consumer warpgroups of 64 rows, Q·Kᵀ and P·V as ``wgmma``;
+  ``'tensor_cores'`` for the other bf16 query tiles of 16 or more rows
+  (span positions x GQA group: the verify window, short chunks, int8 and
+  mixed pools) — Q·Kᵀ and P·V as bf16 ``mma.sync`` with fp32
+  accumulators, p rounded to bf16 before P·V as the TPU kernel rounds it
+  (as on the wgmma route); ``'split_kv'`` for bf16 tiles of fewer rows
   (decode rows at Mistral's group of 4) — the same products with each
   row's keys split across thread blocks (:func:`split_plan`) and the
   splits merged in one launch; and ``'cuda_cores'`` for fp32, fp32
@@ -63,8 +67,15 @@ from distllm_tpu_torch.observability import op_cost as _op_cost
 
 from distllm_tpu_torch.ops import _build
 
-# Query rows (span positions x GQA group) one thread block holds.
+# Query rows (span positions x GQA group) one thread block holds on the
+# tensor-core route; on the wgmma route, two warpgroups of 64.
 _MAX_TILE_ROWS = 64
+_WGMMA_TILE_ROWS = 128
+# bf16 tiles of at least this many rows over a bf16 pool of 16-token pages
+# take the wgmma route (chip_smoke.py times both routes at the main paths'
+# shapes; PERF.md has the lines).
+WGMMA_MIN_ROWS = 64
+WGMMA_BLOCK_SIZE = 16
 # The tensor-core route takes bf16 tiles of at least one mma's 16 rows;
 # the split-KV route takes the bf16 tiles of fewer.
 _MIN_MMA_ROWS = 16
@@ -72,7 +83,7 @@ _MIN_MMA_ROWS = 16
 # families; the Pallas kernel takes any multiple of 128).
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {'cuda_cores': 0, 'tensor_cores': 1, 'split_kv': 2}
+ROUTES = {'cuda_cores': 0, 'tensor_cores': 1, 'split_kv': 2, 'wgmma': 3}
 # The split-KV route's plan: a block takes its split in steps of 64 keys
 # (four warps of 16), a split holds at least SPLIT_MIN_KEYS keys when the
 # row has that many, and the grid aims at split_blocks_per_sm(head_dim)
@@ -407,12 +418,26 @@ TOL_MIXED = 2.0 ** -7
 TOL_MIXED_SIGMAS = 6.0
 
 
-def kernel_route(dtype: torch.dtype, span: int, group: int) -> str:
+def kernel_route(
+    dtype: torch.dtype, span: int, group: int, *, kv_mode: str = 'model',
+    block_size: int = WGMMA_BLOCK_SIZE,
+) -> str:
     """The route the kernel takes for queries of ``dtype`` with ``span``
-    positions per row and GQA ``group``: for bf16, ``'split_kv'`` for tiles
-    of 1..15 rows (decode rows, and spans of 2-3 at a group of 4) and
-    ``'tensor_cores'`` for tiles of ``_MIN_MMA_ROWS``..``_MAX_TILE_ROWS``
-    rows; ``'cuda_cores'`` for fp32 (and for a group above 64)."""
+    positions per row and GQA ``group`` over a pool of ``kv_mode``
+    (:data:`KV_MODES`) in pages of ``block_size``: for bf16, ``'wgmma'``
+    for tiles of ``WGMMA_MIN_ROWS``..128 rows over a bf16 pool of 16-token
+    pages (prefill and long chunks), ``'split_kv'`` for tiles of 1..15 rows
+    (decode rows, and spans of 2-3 at a group of 4) and ``'tensor_cores'``
+    for the other tiles of ``_MIN_MMA_ROWS``..``_MAX_TILE_ROWS`` rows (the
+    verify window, short chunks, int8 and mixed pools); ``'cuda_cores'``
+    for fp32 (and for a group above 64)."""
+    if kv_mode not in KV_MODES:
+        raise ValueError(f'kv_mode must be one of {tuple(KV_MODES)}, got {kv_mode!r}')
+    if (
+        dtype == torch.bfloat16 and kv_mode == 'model' and block_size == WGMMA_BLOCK_SIZE
+        and _span_tile(span, group, 'wgmma') * group >= WGMMA_MIN_ROWS
+    ):
+        return 'wgmma'
     rows = _span_tile(span, group) * group
     if dtype == torch.bfloat16 and rows < _MIN_MMA_ROWS:
         return 'split_kv'
@@ -510,17 +535,21 @@ def comparison_tolerance(
     checks on the card and the CPU tests, never on the serving path."""
     b, s, num_heads, head_dim = q.shape
     num_kv_heads = _kv_data(k_cache).shape[2]
-    if route is None:
-        route = kernel_route(q.dtype, s, num_heads // num_kv_heads)
-    if route not in ROUTES:
-        raise ValueError(f'route must be one of {tuple(ROUTES)}, got {route!r}')
     quantized = _check_pools(k_cache, v_cache)
     mixed = _mixed(q, kv_storage_dtype(k_cache))
+    if route is None:
+        route = kernel_route(
+            q.dtype, s, num_heads // num_kv_heads,
+            kv_mode='int8' if quantized else 'mixed' if mixed else 'model',
+            block_size=_kv_data(k_cache).shape[1],
+        )
+    if route not in ROUTES:
+        raise ValueError(f'route must be one of {tuple(ROUTES)}, got {route!r}')
     if ref.dtype == torch.float32:
         tol = torch.full_like(ref, TOL_ABS)
     else:
         tol = TOL_REL * ref.float().abs() + TOL_ABS
-    bf16_tiles = route in ('tensor_cores', 'split_kv') and ref.dtype != torch.float32
+    bf16_tiles = route in ('tensor_cores', 'split_kv', 'wgmma') and ref.dtype != torch.float32
     if not (quantized or bf16_tiles or mixed):
         return tol
     scores, v = _scores_and_values(
@@ -567,7 +596,8 @@ def _kernel():
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = (
-            [ptr] * 10 + [i32] * 9 + [f32, f32, i32, i32, i32, ptr, ptr, i32, i32, ptr]
+            [ptr] * 10 + [i32] * 9
+            + [f32, f32, i32, i32, i32, ptr, ptr, i32, i32, i32, ptr]
         )
         fn.restype = ctypes.c_int
         lib.distllm_rpa_error_string.argtypes = [ctypes.c_int]
@@ -575,10 +605,12 @@ def _kernel():
     return lib, fn
 
 
-def _span_tile(span: int, group: int) -> int:
+def _span_tile(span: int, group: int, route: str = 'tensor_cores') -> int:
     """Query-span positions one thread block holds: up to
-    ``_MAX_TILE_ROWS`` rows after GQA flattening."""
-    return max(1, min(span, _MAX_TILE_ROWS // group))
+    ``_MAX_TILE_ROWS`` rows after GQA flattening (128 on the wgmma
+    route)."""
+    rows = _WGMMA_TILE_ROWS if route == 'wgmma' else _MAX_TILE_ROWS
+    return max(1, min(span, rows // group))
 
 
 def ragged_paged_attention_cuda(
@@ -592,14 +624,16 @@ def ragged_paged_attention_cuda(
     sliding_window: 'int | None' = None,
     scale: float | None = None,
     logit_softcap: float | None = None,
+    route: str | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors (builds it at first use).
 
     Same contract as :func:`ragged_paged_attention_reference` for valid
     queries, plus the kernel's: each row's ``q_positions`` are consecutive
     (only ``q_positions[:, 0]`` is read) and pad queries come out as exact
-    zeros. The route is :func:`kernel_route`'s; a route that fails to
-    launch raises, it never gives way to another. Raises on anything the
+    zeros. The route is :func:`kernel_route`'s unless ``route`` names one
+    (the A/B of the routes on the card); a route that cannot take the
+    launch or fails to launch raises, it never gives way to another. Raises on anything the
     kernel does not take: a device other than CUDA, a query dtype other
     than fp32/bf16, a pool other than fp32, bf16 or int8 ``QuantizedKV``
     (or K and V pools of two dtypes), one pool quantized and the other
@@ -650,15 +684,20 @@ def ragged_paged_attention_cuda(
     q_start = q_positions[:, 0].to(i32).contiguous()
     # No q_lens: a null pointer, every row has s queries (no launch here).
     ql = None if q_lens is None else q_lens.to(i32).contiguous()
-    route = kernel_route(q.dtype, s, group)
     kv_mode = (
         'int8' if quantized else 'mixed' if k_data.dtype != q.dtype else 'model'
     )
+    if route is None:
+        route = kernel_route(q.dtype, s, group, kv_mode=kv_mode, block_size=block_size)
+    if route not in ROUTES:
+        raise ValueError(f'route must be one of {tuple(ROUTES)}, got {route!r}')
+    if route == 'wgmma' and any(x.data_ptr() % 16 for x in (q, k_data, v_data)):
+        raise ValueError('the wgmma route needs q and the pools on 16-byte boundaries')
     scales = (
         (k_cache.scale.data_ptr(), v_cache.scale.data_ptr()) if quantized
         else (None, None)
     )
-    span_tile = _span_tile(s, group)
+    span_tile = _span_tile(s, group, route)
     split = (None, None, 0, 0)  # workspace, tickets, splits, keys a split
     if route == 'split_kv':
         max_keys = bt.shape[1] * block_size
@@ -683,7 +722,7 @@ def ragged_paged_attention_cuda(
             float(scale if scale is not None else head_dim ** -0.5),
             float(logit_softcap or 0.0),
             KERNEL_DTYPES[q.dtype], KV_MODES[kv_mode], ROUTES[route], *split,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            k_data.shape[0], torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err == _ERR_SHARED_MEMORY:
         raise ValueError(

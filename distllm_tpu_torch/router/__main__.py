@@ -22,6 +22,7 @@ import argparse
 import dataclasses
 import time
 
+from distllm_tpu_torch.observability import instruments
 from distllm_tpu_torch.router.app import POLICIES, RouterConfig, RouterServer
 
 
@@ -34,7 +35,8 @@ def main(argv: list[str] | None = None) -> int:
                              "config file's list when given")
     parser.add_argument('--policy', type=str, default=None, choices=POLICIES)
     parser.add_argument('--host', default='0.0.0.0')
-    parser.add_argument('--port', type=int, default=8000)
+    parser.add_argument('--port', type=int, default=8000,
+                        help='0 binds a free port, logged on start')
     args = parser.parse_args(argv)
 
     config = RouterConfig.from_yaml(args.config) if args.config else RouterConfig()
@@ -45,6 +47,9 @@ def main(argv: list[str] | None = None) -> int:
     if not config.replicas:
         parser.error('at least one --replica (or a config with replicas) is required')
     server = RouterServer(config, host=args.host, port=args.port).start()
+    # With --port 0 this line is where a caller reads the port bound.
+    instruments.log_event(f'[router] listening on http://{args.host}:{server.port}',
+                          component='router')
     try:
         while True:
             time.sleep(3600)

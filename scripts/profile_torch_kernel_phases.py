@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Where the cycles of a step go inside the tensor-core routes of K1 and K3.
 
+Two parts. The first covers route 1 (``mma.sync``):
+
 Builds a copy of ``distllm_tpu_torch/csrc`` into
 ``distllm_tpu_torch/_build/phases/`` with ``clock64()`` counters added to
 the tensor-core kernels (``ragged_paged_attention_mma_kernel`` and
@@ -23,12 +25,21 @@ The counters are read after one launch. The kernel's own time
 ``nvcc``; the source anchors are asserted, so a kernel edited out of step
 with this script fails loudly.
 
+The second covers the 'wgmma' routes (K1's route 3, K3's route 2), whose
+counters are compiled in with ``-DDISTLLM_PHASES`` (``csrc/
+hopper_attention.cuh``): the copy is built into
+``distllm_tpu_torch/_build/`` under its own hash and launched once a case;
+each consumer warpgroup's thread 0 adds its cycles to ``WGMMA_PHASES``,
+the producer thread to the last two. Printed per consumer warpgroup of a
+block (kcycles), and the producer's per block.
+
     python3 scripts/profile_torch_kernel_phases.py
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import shutil
 import subprocess
@@ -123,20 +134,20 @@ EDITS = {
         ('''  const int qt = gridDim.x - 1 - blockIdx.x;''',
          START + '''  const int qt = gridDim.x - 1 - blockIdx.x;'''),
         ('''  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = t_begin + it * kTcKeys;
+    const int t0 = t_begin + it * kKeys;
     const int buf = it & 1;
     cp_async_wait<0>();  // the query tile and tile it have landed
     __syncthreads();''', '''  acc[0] = PHASE_NOW() - t_start;
   for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = t_begin + it * kTcKeys;
+    const int t0 = t_begin + it * kKeys;
     const int buf = it & 1;
     c0 = PHASE_NOW();
     cp_async_wait<0>();  // the query tile and tile it have landed
     __syncthreads();
     c2 = PHASE_NOW(); acc[2] += c2 - c0;'''),
-        ('''    if (it + 1 < n_tiles) stage(buf ^ 1, t0 + kTcKeys);
+        ('''    if (it + 1 < n_tiles) stage(buf ^ 1, t0 + kKeys);
     cp_async_commit();''', '''    { const long long c1 = PHASE_NOW();
-    if (it + 1 < n_tiles) stage(buf ^ 1, t0 + kTcKeys);
+    if (it + 1 < n_tiles) stage(buf ^ 1, t0 + kKeys);
     cp_async_commit();
     acc[1] += PHASE_NOW() - c1; }'''),
         ('''      // O += P V: the S accumulators, rounded to bf16, are P's A fragments;''',
@@ -191,6 +202,75 @@ def instrumented_libraries() -> dict[str, ctypes.CDLL]:
     return libs
 
 
+# The wgmma routes' counters (csrc/*.cu PHASE(i) marks), by index.
+WGMMA_PHASES = {
+    'encoder_attention': (
+        'prologue', 'pass1_k_wait', 'pass1_qk_wait', 'pass1_softmax', 'verdict',
+        'pass2_kv_wait', None, 'pass2_exp_under_products', 'pass2_pv_wait', 'pass2_pack',
+        'pass2_edges_and_output', 'producer_acquire', 'producer_issue'),
+    'ragged_paged_attention': (
+        'prologue', 'k_wait', 'v_ready_zero_rescale', 'qk_wait', 'softmax', 'pv_wait',
+        'pack', 'idle_tiles', 'first_tile_and_output', None, None, 'producer_acquire',
+        'producer_issue'),
+}
+
+
+def wgmma_phases() -> None:
+    """The wgmma routes' cycle split at the headline cases (one launch
+    each, counters compiled in)."""
+    flags = _build.NVCC_FLAGS
+    _build.NVCC_FLAGS = flags + ('-DDISTLLM_PHASES',)
+    _build._loaded.clear()
+    try:
+        libs = {name: _build.load(name) for name in WGMMA_PHASES}
+    finally:
+        _build.NVCC_FLAGS = flags
+    rng = np.random.default_rng(0)
+    bf16 = torch.bfloat16
+    cases = []
+    with cs.k1_geometry(cs.GEMMA2_HEADS, cs.GEMMA2_KV_HEADS, cs.GEMMA2_HEAD_DIM):
+        case = cs.build_case(torch, rng, [4600], [4600], 4736, bf16)
+        args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
+        cases.append((cs.HD256_PREFILL, 'ragged_paged_attention', functools.partial(
+            tpa.ragged_paged_attention_cuda, *args, q_lens=case['q_lens'],
+            scale=cs.GEMMA2_SCALE, route='wgmma'), 72 * cs.GEMMA2_KV_HEADS))
+    case = cs.build_case(torch, rng, [1024, 700], [1024, 700], 1024, bf16)
+    args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
+    cases.append(('serve_prefill_2x1024', 'ragged_paged_attention', functools.partial(
+        tpa.ragged_paged_attention_cuda, *args, q_lens=case['q_lens'], route='wgmma'),
+        2 * 32 * cs.NUM_KV_HEADS))
+    for name, b, s, heads, window in cs.K3_MODEL_CASES:
+        lens = rng.integers(min(s, cs.PROTEIN_LENS[0]), s + 1, size=b)
+        lens[0] = s
+        case = cs.k3_case(torch, rng, b, s, lens, bf16, window=window, heads=heads)
+        args = (case['q'], case['k'], case['v'], case['mask'], heads)
+        cases.append((name, 'encoder_attention', functools.partial(
+            tea.encoder_attention_cuda, *args, bias=case['bias'], route='wgmma'),
+            -(-s // 128) * heads * b))
+    for name, kernel, launch, blocks in cases:
+        lib = libs[kernel]
+        _build._loaded[kernel] = lib
+        read = lib.distllm_read_phases
+        read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        buf = (ctypes.c_ulonglong * 16)()
+        counted_ms = cs.cuda_ms(torch, launch, 5)
+        read(ctypes.addressof(buf), 1)
+        launch()
+        torch.cuda.synchronize()
+        read(ctypes.addressof(buf), 1)
+        names = WGMMA_PHASES[kernel]
+        row = {'case': name, 'kernel': kernel, 'route': 'wgmma', 'counted_ms': counted_ms,
+               'blocks': blocks}
+        row['kcycles_per_consumer_warpgroup'] = {
+            p: round(buf[i] / (2 * blocks) / 1000, 2)
+            for i, p in enumerate(names) if p and not p.startswith('producer')}
+        row['kcycles_per_block_producer'] = {
+            p: round(buf[i] / blocks / 1000, 2)
+            for i, p in enumerate(names) if p and p.startswith('producer')}
+        print(json.dumps(row), flush=True)
+    _build._loaded.clear()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit('profile_torch_kernel_phases: needs a CUDA GPU')
@@ -218,11 +298,12 @@ def main() -> None:
         if name.startswith('embed'):
             kernel = 'encoder_attention'
             args = (case['q'], case['k'], case['v'], case['mask'], cs.BERT_HEADS)
-            launch = lambda: tea.encoder_attention(*args)  # noqa: E731
+            launch = functools.partial(tea.encoder_attention_cuda, *args, route='tensor_cores')
         else:
             kernel = 'ragged_paged_attention'
             args = (case['q'], case['k'], case['v'], case['bt'], case['ctx'], case['pos'])
-            launch = lambda: tpa.ragged_paged_attention(*args, q_lens=case['q_lens'])  # noqa: E731
+            launch = functools.partial(tpa.ragged_paged_attention_cuda, *args,
+                                       q_lens=case['q_lens'], route='tensor_cores')
         row = {'case': name, 'kernel': kernel}
         for tag, lib in (('kernel', plain_libs[kernel]), ('counted', counted[kernel])):
             _build._loaded[kernel] = lib
@@ -243,6 +324,7 @@ def main() -> None:
                                       'softmax_pv', 'end_sync')},
         )
         print(json.dumps(row), flush=True)
+    wgmma_phases()
 
 
 if __name__ == '__main__':

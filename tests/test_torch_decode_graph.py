@@ -336,7 +336,9 @@ def test_replays_add_the_captured_counts_once_each(weights):
     for _ in range(4):
         captured.replay()
     assert kernel.launches == 12
-    assert kernel.launches_by_route == {'cuda_cores': 0, 'tensor_cores': 0, 'split_kv': 12}
+    assert kernel.launches_by_route == {
+        'cuda_cores': 0, 'tensor_cores': 0, 'split_kv': 12, 'wgmma': 0,
+    }
     assert kernel.launches_by_kv == {'model': 0, 'int8': 12, 'mixed': 0}
     assert qmm.launches == 28
     assert qmm.launches_by_route == {'cuda_cores': 0, 'tensor_cores': 28}

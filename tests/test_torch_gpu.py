@@ -67,6 +67,8 @@ CPU's bitwise, and a 2-layer fp32 Mixtral engine gives the plain ops'
 greedy tokens on K1, and on K1 + K2 with int8 weights.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -125,9 +127,17 @@ def _case(seed, *, nh, nkv, hd, dtype, ctxs, q_lens, span, bs=16, trash=1e4):
     }
 
 
+def _kv_mode(case):
+    q, pool = case['args'][:2]
+    return ('int8' if isinstance(pool, tpa.QuantizedKV)
+            else 'mixed' if pool.dtype != q.dtype else 'model')
+
+
 def _route(case):
     q, k = case['args'][:2]
-    return tpa.kernel_route(q.dtype, q.shape[1], q.shape[2] // tpa._kv_data(k).shape[2])
+    data = tpa._kv_data(k)
+    return tpa.kernel_route(q.dtype, q.shape[1], q.shape[2] // data.shape[2],
+                            kv_mode=_kv_mode(case), block_size=data.shape[1])
 
 
 def _int8_case(seed, **kw):
@@ -150,23 +160,26 @@ def _int8_case(seed, **kw):
     return case
 
 
-def _check(case, dtype, route=None, **kw):
+def _check(case, dtype, route=None, force=False, **kw):
     """One launch on the expected route (``route``, else the wrapper's
-    choice), held to that route's tolerance on valid rows."""
+    choice; ``force`` launches ``route`` whatever the wrapper would
+    choose, the A/B of the routes), held to that route's tolerance on
+    valid rows."""
     route = route or _route(case)
-    assert _route(case) == route
+    assert force or _route(case) == route
     q_dtype = case['args'][0].dtype
     assert q_dtype == getattr(torch, dtype)
     calls = tpa.ragged_paged_attention_reference.launches
     launches = tpa.ragged_paged_attention.launches
     by_route = dict(tpa.ragged_paged_attention.launches_by_route)
     by_kv = dict(tpa.ragged_paged_attention.launches_by_kv)
-    pool = case['args'][1]
-    kv_mode = (
-        'int8' if isinstance(pool, tpa.QuantizedKV)
-        else 'mixed' if pool.dtype != q_dtype else 'model'
-    )
-    out = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'], **kw)
+    kv_mode = _kv_mode(case)
+    if force:
+        out = tpa.ragged_paged_attention_cuda(
+            *case['args'], q_lens=case['q_lens'], route=route, **kw
+        )
+    else:
+        out = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'], **kw)
     assert tpa.ragged_paged_attention.launches == launches + 1
     assert tpa.ragged_paged_attention.launches_by_route[route] == by_route[route] + 1
     assert tpa.ragged_paged_attention.launches_by_kv[kv_mode] == by_kv[kv_mode] + 1
@@ -185,6 +198,7 @@ def _check(case, dtype, route=None, **kw):
     assert (out[~valid] == 0).all()
     err = ((out.float() - ref.float()).abs() / tol)[valid].max().item()
     assert err <= 1.0, err
+    return out
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
@@ -215,26 +229,63 @@ def test_softcap_and_scale(cuda, dtype):
     _check(case, dtype, sliding_window=50, scale=0.05, logit_softcap=30.0)
 
 
+@pytest.mark.parametrize('route', ['tensor_cores', 'wgmma'])
 @pytest.mark.parametrize('nh,nkv', [(8, 8), (32, 8), (64, 8)])
 @pytest.mark.parametrize('hd', [64, 128])
 @pytest.mark.parametrize('span', [17, 64, 300, 1024])
 @pytest.mark.parametrize('window', [None, 100])
-def test_tensor_core_route_matrix(cuda, nh, nkv, hd, span, window):
-    """bf16 spans on the tensor-core route at GQA groups 1 / 4 / 8: a fresh
-    prefill, a chunk over a prefix that starts off a 64-key tile, a short
-    tail of a padded span and a fully padded row."""
+def test_tensor_core_route_matrix(cuda, route, nh, nkv, hd, span, window):
+    """bf16 spans on each tensor-core route (mma.sync tiles of 64 rows,
+    wgmma tiles of 128) at GQA groups 1 / 4 / 8: a fresh prefill, a chunk
+    over a prefix that starts off a 64-key tile, a short tail of a padded
+    span and a fully padded row."""
     ctxs = [span, span + 37, 5 + 200, 9]
     case = _case(span + hd + nh, nh=nh, nkv=nkv, hd=hd, dtype='bfloat16',
                  ctxs=ctxs, q_lens=[span, span, 5, 0], span=span)
-    _check(case, 'bfloat16', route='tensor_cores', sliding_window=window)
+    _check(case, 'bfloat16', route=route, force=True, sliding_window=window)
 
 
-@pytest.mark.parametrize('nh,nkv', [(8, 8), (32, 8)])
-def test_tensor_core_route_softcap_and_scale(cuda, nh, nkv):
-    case = _case(6, nh=nh, nkv=nkv, hd=128, dtype='bfloat16',
+@pytest.mark.parametrize('route', ['tensor_cores', 'wgmma'])
+@pytest.mark.parametrize('nh,nkv,hd', [(8, 8, 128), (32, 8, 128), (16, 8, 256)])
+def test_tensor_core_route_softcap_and_scale(cuda, route, nh, nkv, hd):
+    """Gemma's knobs on each tensor-core route, Gemma-2's head dim 256 and
+    group of 2 included."""
+    case = _case(6, nh=nh, nkv=nkv, hd=hd, dtype='bfloat16',
                  ctxs=[300, 130], q_lens=[300, 1], span=300)
-    _check(case, 'bfloat16', route='tensor_cores', sliding_window=64,
+    _check(case, 'bfloat16', route=route, force=True, sliding_window=64,
            scale=0.05, logit_softcap=30.0)
+
+
+@pytest.mark.parametrize('nh,nkv,hd', [(8, 8, 64), (32, 8, 128), (16, 8, 256)])
+def test_wgmma_route_launches_bitwise_alike(cuda, nh, nkv, hd):
+    """Two launches of the wgmma route give the same bits (no atomics, the
+    same order), at head dims 64, 128 and 256."""
+    case = _case(12, nh=nh, nkv=nkv, hd=hd, dtype='bfloat16',
+                 ctxs=[700, 333], q_lens=[700, 200], span=700)
+    first = _check(case, 'bfloat16', route='wgmma', sliding_window=256, logit_softcap=50.0)
+    again = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'],
+                                       sliding_window=256, logit_softcap=50.0)
+    assert torch.equal(first, again)
+
+
+def test_wgmma_route_refuses_what_it_does_not_take(cuda):
+    """The wgmma route takes bf16 q over a bf16 pool of 16-token pages
+    and no more than 128 rows: anything else raises, never served by
+    another route."""
+    case = _case(13, nh=32, nkv=8, hd=128, dtype='bfloat16',
+                 ctxs=[200], q_lens=[200], span=200)
+    q, k, v, bt, ctx, pos = case['args']
+    with pytest.raises(RuntimeError, match='wgmma route'):
+        tpa.ragged_paged_attention_cuda(q.float(), k.float(), v.float(), bt, ctx, pos,
+                                        route='wgmma')
+    with pytest.raises(RuntimeError, match='wgmma route'):
+        tpa.ragged_paged_attention_cuda(q, k.float(), v.float(), bt, ctx, pos, route='wgmma')
+    wide = _case(13, nh=32, nkv=8, hd=128, dtype='bfloat16', ctxs=[200], q_lens=[200],
+                 span=200, bs=32)
+    with pytest.raises(RuntimeError, match='wgmma route'):
+        tpa.ragged_paged_attention_cuda(*wide['args'], route='wgmma')
+    with pytest.raises(ValueError, match='route must be one of'):
+        tpa.ragged_paged_attention_cuda(*case['args'], route='tma')
 
 
 def test_nan_trash_block_never_reaches_a_decode_output(cuda):
@@ -250,18 +301,24 @@ def test_nan_trash_block_never_reaches_a_decode_output(cuda):
     assert torch.equal(clean, poisoned)
 
 
-def test_nan_trash_block_never_reaches_an_output(cuda):
+@pytest.mark.parametrize('route,hd,window', [
+    ('tensor_cores', 128, None), ('wgmma', 128, None), ('wgmma', 128, 37),
+    ('wgmma', 64, 37), ('wgmma', 256, 37),
+])
+def test_nan_trash_block_never_reaches_an_output(cuda, route, hd, window):
     """Block 0 and block-table padding hold NaN: the kernel skips keys
     outside each row's range (on the tensor-core route the copy
-    zero-fills them), so outputs are bitwise those of a clean trash
-    block."""
-    case = _case(4, nh=32, nkv=8, hd=128, dtype='bfloat16',
+    zero-fills them; on the wgmma route pages wholly outside are not
+    loaded and the rest of a live page is zeroed in shared memory before
+    wgmma reads it), so outputs are bitwise those of a clean trash block."""
+    case = _case(4, nh=32, nkv=8, hd=hd, dtype='bfloat16',
                  ctxs=[1, 16, 17, 500], q_lens=[1, 16, 5, 100], span=100)
-    assert _route(case) == 'tensor_cores'
-    clean = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    launch = functools.partial(tpa.ragged_paged_attention_cuda, *case['args'],
+                               q_lens=case['q_lens'], route=route, sliding_window=window)
+    clean = launch()
     case['args'][1][0] = float('nan')
     case['args'][2][0] = float('nan')
-    poisoned = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    poisoned = launch()
     assert torch.equal(clean, poisoned)
 
 
@@ -454,15 +511,15 @@ def test_nan_trash_block_never_reaches_a_split_kv_output(cuda):
 
 @pytest.mark.parametrize('span,dtype,route', [
     (1, 'float32', 'cuda_cores'), (3, 'bfloat16', 'split_kv'), (100, 'bfloat16', 'tensor_cores'),
+    (100, 'bfloat16', 'wgmma'),
 ])
 def test_no_q_lens_is_every_row_full_on_every_route(cuda, span, dtype, route):
     """Without ``q_lens`` the C entry gets a null pointer (the wrapper
     launches nothing else) and reads every row as ``span`` queries long."""
     case = _case(55, nh=32, nkv=8, hd=128, dtype=dtype, ctxs=[300, 250, 1000],
                  q_lens=[span] * 3, span=span)
-    assert _route(case) == route
-    full = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
-    assert torch.equal(tpa.ragged_paged_attention(*case['args']), full)
+    launch = functools.partial(tpa.ragged_paged_attention_cuda, *case['args'], route=route)
+    assert torch.equal(launch(), launch(q_lens=case['q_lens']))
 
 
 def test_split_kv_entry_refuses_what_it_does_not_take(cuda):
@@ -626,15 +683,21 @@ def _k3_inputs(seed, b, s, heads, hd, dtype, lens=None, window=None):
     return (q, k, v, mask, heads), bias
 
 
-def _k3_check(args, bias):
+def _k3_check(args, bias, route=None):
+    """One launch on ``route`` (else the wrapper's choice), held to K3's
+    tolerance on every row."""
     q, heads = args[0], args[4]
-    route = tea.kernel_route(q.dtype, q.shape[-1] // heads)
-    assert route == ('tensor_cores' if q.dtype == torch.bfloat16
-                     and (q.shape[-1] // heads) % 16 == 0 else 'cuda_cores')
+    hd = q.shape[-1] // heads
+    auto = tea.kernel_route(q.dtype, hd, q.shape[1], bias is not None)
+    if q.dtype != torch.bfloat16 or hd % 16:
+        assert auto == 'cuda_cores'
+    else:
+        assert auto in ('tensor_cores', 'wgmma')
+    route = route or auto
     plain = tea.encoder_attention_reference.launches
     launches = tea.encoder_attention.launches
     by_route = dict(tea.encoder_attention.launches_by_route)
-    out = tea.encoder_attention(*args, bias=bias)
+    out = tea.encoder_attention_cuda(*args, bias=bias, route=route)
     assert tea.encoder_attention.launches == launches + 1
     assert tea.encoder_attention.launches_by_route[route] == by_route[route] + 1
     assert tea.encoder_attention_reference.launches == plain
@@ -645,18 +708,25 @@ def _k3_check(args, bias):
     assert torch.isfinite(out.float()).all()
     err = ((out.float() - ref.float()).abs() / tol).max().item()
     assert err <= 1.0, err
+    return out
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('hd,heads', [(32, 4), (64, 12), (128, 2), (24, 3)])
+@pytest.mark.parametrize('dtype,hd,heads', [
+    (dtype, hd, heads) for dtype in ('float32', 'bfloat16', 'wgmma')
+    for hd, heads in ((32, 4), (64, 12), (128, 2), (24, 3))
+    if dtype != 'wgmma' or hd in tea.WGMMA_HEAD_DIMS
+])
 @pytest.mark.parametrize('s', [16, 37, 64, 130])
 def test_k3_matrix(cuda, dtype, hd, heads, s):
     """Partial masks and one fully masked row (its output is the uniform
     average of V, finite), head dims compiled fixed (32/64/128) and read
-    at run time (24), S below, at and across the 64-key tile."""
+    at run time (24), S below, at and across the 64-key tile; bf16 also
+    on the wgmma route ('wgmma': 128-query tiles, at head dims 32, 64 and
+    128)."""
     lens = np.concatenate([np.random.default_rng(s).integers(1, s + 1, size=3), [0, s]])
-    args, bias = _k3_inputs(s + hd, 5, s, heads, hd, dtype, lens=lens)
-    _k3_check(args, bias)
+    args, bias = _k3_inputs(s + hd, 5, s, heads, hd,
+                            'bfloat16' if dtype == 'wgmma' else dtype, lens=lens)
+    _k3_check(args, bias, 'wgmma' if dtype == 'wgmma' else None)
 
 
 @pytest.mark.parametrize('hd,heads', [(16, 8), (48, 4), (80, 2), (112, 2)])
@@ -670,23 +740,29 @@ def test_k3_tensor_core_head_dims_read_at_run_time(cuda, hd, heads, s):
     _k3_check(args, bias)
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('s,window', [(64, 8), (200, 32), (37, 0)])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'wgmma'])
+@pytest.mark.parametrize('s,window', [(64, 8), (200, 32), (37, 0), (600, 64)])
 def test_k3_window_bias(cuda, dtype, s, window):
-    args, bias = _k3_inputs(s, 4, s, 12, 64, dtype, window=window)
-    _k3_check(args, bias)
+    """The [S, S] window bias on every route; on the wgmma route key tiles
+    whose every p is 0 are skipped (S = 600: ten key tiles, most dead)."""
+    args, bias = _k3_inputs(s, 4, s, 12, 64, 'bfloat16' if dtype == 'wgmma' else dtype,
+                            window=window)
+    _k3_check(args, bias, 'wgmma' if dtype == 'wgmma' else None)
 
 
+@pytest.mark.parametrize('route', ['tensor_cores', 'wgmma'])
 @pytest.mark.parametrize('b,s,heads,window', [
     (64, 1024, 20, None),   # ESM-2 650M's protein batches
     (8, 2048, 18, None),    # ESM-C 600M at its 2048-token cap
     (128, 512, 12, 64),     # ModernBERT-base's local layers (window 128)
 ], ids=['esm2_650m', 'esmc_600m', 'modernbert_base'])
-def test_k3_at_the_protein_and_modernbert_shapes(cuda, b, s, heads, window):
+def test_k3_at_the_protein_and_modernbert_shapes(cuda, route, b, s, heads, window):
     lens = np.random.default_rng(s).integers(min(s, 50), s + 1, size=b)
     lens[0] = s
     args, bias = _k3_inputs(b + s, b, s, heads, 64, 'bfloat16', lens=lens, window=window)
-    _k3_check(args, bias)
+    first = _k3_check(args, bias, route)
+    if route == 'wgmma':  # two launches give the same bits
+        assert torch.equal(first, tea.encoder_attention_cuda(*args, bias=bias, route=route))
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
@@ -746,6 +822,15 @@ def test_k3_fully_masked_rows_are_the_uniform_average(cuda):
     torch.testing.assert_close(
         out, args[2].mean(dim=1, keepdim=True).expand_as(out), rtol=0, atol=1e-5
     )
+    # the wgmma route in bf16: every row the uniform average, within K3's
+    # bf16 bound, over one and several key tiles
+    for s in (100, 700):
+        args, _ = _k3_inputs(9, 2, s, 12, 64, 'bfloat16', lens=[0, 0])
+        out = tea.encoder_attention_cuda(*args, route='wgmma')
+        ref = tea.encoder_attention_reference(*args)
+        tol = tea.comparison_tolerance(ref, *args)
+        uniform = args[2].float().mean(dim=1, keepdim=True).expand_as(out)
+        assert ((out.float() - uniform).abs() <= tol).all()
 
 
 def test_k3_refuses_what_it_does_not_take(cuda):
@@ -765,6 +850,15 @@ def test_k3_refuses_what_it_does_not_take(cuda):
         tea.encoder_attention(q, k, v, mask, heads, bias=torch.zeros((8, 8), device='cuda'))
     with pytest.raises(ValueError, match='one CUDA device'):
         tea.encoder_attention(q, k.cpu(), v, mask, heads)
+    # the wgmma route: bf16 at head dims 32, 64 and 128 only, never served
+    # by another route
+    with pytest.raises(RuntimeError, match='wgmma route'):
+        tea.encoder_attention_cuda(q, k, v, mask, heads, route='wgmma')  # fp32
+    (q80, k80, v80, mask80, heads80), _ = _k3_inputs(10, 2, 16, 2, 80, 'bfloat16')
+    with pytest.raises(RuntimeError, match='wgmma route'):
+        tea.encoder_attention_cuda(q80, k80, v80, mask80, heads80, route='wgmma')
+    with pytest.raises(ValueError, match='route must be one of'):
+        tea.encoder_attention_cuda(q, k, v, mask, heads, route='tma')
 
 
 def test_bert_through_the_embedder_on_the_kernel_matches_the_plain_version(cuda):
@@ -1698,6 +1792,7 @@ HD256_ROUTES = [
     ('bfloat16', 300, 'tensor_cores'),
     ('float32', 1, 'cuda_cores'),
     ('float32', 70, 'cuda_cores'),
+    ('bfloat16', 300, 'wgmma'),  # over a bf16 pool only; the others refuse it
 ]
 
 
@@ -1730,20 +1825,29 @@ def test_head_dim_256_on_every_route_and_kv_mode(cuda, q_dtype, span, route, kv,
     tolerance: Gemma-2's softcap 50 and query scale, windows inside a
     split and at Gemma-2's 4096."""
     case = _hd256_case(60 + span, q_dtype, span, kv)
-    _check(case, q_dtype, route=route, sliding_window=window, logit_softcap=softcap,
-           scale=scale)
+    if route == 'wgmma' and kv != 'model':
+        with pytest.raises(RuntimeError, match='wgmma route'):
+            tpa.ragged_paged_attention_cuda(*case['args'], q_lens=case['q_lens'], route=route)
+        return
+    _check(case, q_dtype, route=route, force=True, sliding_window=window,
+           logit_softcap=softcap, scale=scale)
     assert tpa.ragged_paged_attention.launches_by_head_dim[256] > 0
 
 
-@pytest.mark.parametrize('q_dtype,span,route', HD256_ROUTES[::2])
+@pytest.mark.parametrize('q_dtype,span,route', HD256_ROUTES[::2] + HD256_ROUTES[-1:])
 @pytest.mark.parametrize('kv', ['model', 'mixed'])
 def test_head_dim_256_nan_trash_block_never_reaches_an_output(cuda, q_dtype, span, route, kv):
     case = _hd256_case(61, q_dtype, span, kv)
-    assert _route(case) == route
-    clean = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    if route == 'wgmma' and kv != 'model':
+        with pytest.raises(RuntimeError, match='wgmma route'):
+            tpa.ragged_paged_attention_cuda(*case['args'], q_lens=case['q_lens'], route=route)
+        return
+    launch = functools.partial(tpa.ragged_paged_attention_cuda, *case['args'],
+                               q_lens=case['q_lens'], route=route)
+    clean = launch()
     case['args'][1][0] = float('nan')
     case['args'][2][0] = float('nan')
-    poisoned = tpa.ragged_paged_attention(*case['args'], q_lens=case['q_lens'])
+    poisoned = launch()
     assert torch.equal(clean, poisoned)
 
 

@@ -337,10 +337,11 @@ def _worst_ratio(out, ref, tol, q_lens):
 @pytest.mark.parametrize('window', [None, 24], ids=['nowin', 'win24'])
 def test_pallas_bf16_within_the_tensor_core_tolerance(window):
     """The Pallas kernel (interpret mode, bf16) rounds the unnormalised p
-    to bf16 where the tensor-core route does: it stays within that
-    route's tolerance of the port's plain version."""
+    to bf16 where the tensor-core routes do: it stays within their
+    tolerance of the port's plain version (this span takes the wgmma
+    route, whose bound is the tensor-core route's)."""
     t = _paged_inputs(11, 'bfloat16')
-    assert tpa.kernel_route(t['q'].dtype, 100, 4) == 'tensor_cores'
+    assert tpa.kernel_route(t['q'].dtype, 100, 4) == 'wgmma'
     bf = lambda x: jnp.asarray(x.float().numpy(), jnp.bfloat16)  # noqa: E731
     pallas = ragged_paged_attention_pallas(
         bf(t['q']), bf(t['k']), bf(t['v']), jnp.asarray(t['bt'].numpy()),
@@ -567,14 +568,16 @@ def test_tolerance_terms_by_route():
     ref32 = tpa.ragged_paged_attention(*_args(t32), **kw)
     assert (tpa.comparison_tolerance(ref32, *_args(t32), **kw) == tpa.TOL_ABS).all()
     with pytest.raises(ValueError, match='route'):
-        tpa.comparison_tolerance(ref, *_args(t), route='wgmma', **kw)
+        tpa.comparison_tolerance(ref, *_args(t), route='tma', **kw)
 
 
 def test_kernel_route_by_dtype_and_tile_rows():
-    """bf16 tiles of 16..64 rows (span positions x group) take the tensor
-    cores; bf16 tiles under 16 rows (decode rows at group 4, spans of 2-3)
-    take the split-KV route; fp32 takes the CUDA cores."""
-    assert tpa.kernel_route(torch.bfloat16, 1024, 4) == 'tensor_cores'
+    """bf16 tiles of 64..128 rows (span positions x group) over a bf16 pool
+    take the wgmma route, the other tiles of 16..64 rows the tensor cores;
+    bf16 tiles under 16 rows (decode rows at group 4, spans of 2-3) take
+    the split-KV route; fp32 takes the CUDA cores."""
+    assert tpa.kernel_route(torch.bfloat16, 1024, 4) == 'wgmma'
+    assert tpa.kernel_route(torch.bfloat16, 1024, 4, kv_mode='int8') == 'tensor_cores'
     assert tpa.kernel_route(torch.bfloat16, 4, 4) == 'tensor_cores'
     assert tpa.kernel_route(torch.bfloat16, 1, 16) == 'tensor_cores'
     assert tpa.kernel_route(torch.bfloat16, 1, 4) == 'split_kv'
@@ -587,11 +590,14 @@ def test_kernel_route_by_dtype_and_tile_rows():
 @pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
 def test_kernel_route_at_the_16_row_bound(group, dtype):
     """Every span at each group, through the 15 / 16-row bound: bf16 tiles
-    of 1..15 rows on the split-KV route, 16..64 on the tensor cores; fp32
-    on the CUDA cores at every tile."""
+    of 1..15 rows on the split-KV route, 16..64 on the tensor cores unless
+    the wgmma route's tile (up to 128 rows) has 64 rows or more; fp32 on
+    the CUDA cores at every tile."""
     for span in range(1, 80):
         rows = min(span, 64 // group) * group
         want = 'split_kv' if rows <= 15 else 'tensor_cores'
+        if min(span, 128 // group) * group >= tpa.WGMMA_MIN_ROWS:
+            want = 'wgmma'
         if dtype == 'float32':
             want = 'cuda_cores'
         assert tpa.kernel_route(getattr(torch, dtype), span, group) == want, (span, rows)
